@@ -1,0 +1,114 @@
+"""Build and bind the port's CUDA kernels (no JAX counterpart).
+
+``library()`` compiles every ``csrc/*.cu`` into one shared library with
+``nvcc`` at first use, for ``sm_90a``, and loads it with ``ctypes``. The
+library carries a plain C interface (no PyTorch headers), so a build takes
+seconds. It lands in ``build/qt_torch_kernels/`` at the repository root,
+named by a hash of the sources, so an edited source rebuilds and an
+unchanged one is reused. nvcc's ``-Xptxas -v`` report (registers, shared
+memory, spills per kernel) is kept beside it as ``build.log``.
+
+Every entry point returns the launch's ``cudaError_t``; the wrappers in
+``ops/int8_quant.py`` and ``ops/scaled_mm.py`` raise when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qt_torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # x, q, scale, M, K, eps, is_bf16, stream
+    "qt_quantize_int8_rowwise": (
+        _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, _P,
+    ),
+    # a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, stream
+    "qt_scaled_mm_s8": (
+        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _P,
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin, default "
+        "/usr/local/cuda/bin): the port's kernels are built from "
+        f"{CSRC} with the CUDA toolkit"
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The compiled kernels, built on first use. Raises RuntimeError when
+    CUDA is absent, nvcc is missing, or the build fails (with nvcc's
+    output)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port's kernels need an NVIDIA GPU "
+            "(sm_90a); CPU tensors take the plain PyTorch versions instead"
+        )
+    srcs = sources()
+    lib_path = BUILD_DIR / f"libqt_torch_kernels_{_digest(srcs)}.so"
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def stream() -> int:
+    """The current PyTorch CUDA stream, as the pointer the kernels take."""
+    return torch.cuda.current_stream().cuda_stream

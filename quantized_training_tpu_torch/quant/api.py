@@ -1,0 +1,71 @@
+"""User-facing quantization API.
+
+Counterpart of ``quantized_training_tpu/quant/api.py`` (:100-210):
+:func:`qlinear`, :func:`is_quant_weight`, :func:`quantize_params` with the
+same default filter. Parameters are nested dicts of tensors; a leaf's path is
+the tuple of its dict keys. Only the ``mixed_precision`` scheme is ported;
+the other schemes of the JAX package raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import mixed_precision as _mp
+from .configs import MixedPrecisionConfig
+
+QUANT_TYPES = (_mp.MixedPrecisionWeight,)
+_UNPORTED_SCHEMES = ("int8_quantized_training", "int4_weight_only", "bitnet")
+
+
+def is_quant_weight(x) -> bool:
+    return isinstance(x, QUANT_TYPES)
+
+
+def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, generator=None):
+    """y = x @ w.T + bias, dispatched on the weight wrapper type."""
+    if isinstance(w, _mp.MixedPrecisionWeight):
+        return _mp.linear(x, w, bias, generator=generator)
+    out = x @ w.T
+    return out + bias if bias is not None else out
+
+
+def _is_linear_weight_path(path) -> bool:
+    """True for leaves stored under a dict key named 'w' (every linear kernel
+    of the models is ``{"w": [O, I]}``). Does not exclude the lm_head."""
+    return bool(path) and path[-1] == "w"
+
+
+def _default_filter(path, leaf) -> bool:
+    """Linear 'w' leaves except the LM head (the reference quantizes only the
+    transformer body), and only where every matmul dim is >= 128 and a
+    multiple of 32."""
+    if "lm_head" in path:
+        return False
+    if not _is_linear_weight_path(path):
+        return False
+    return all(d >= 128 and d % 32 == 0 for d in leaf.shape[-2:])
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def quantize_params(params, scheme: str | None, *, filter_fn=None, **kwargs):
+    """Wrap the linear weights of ``params`` (nested dicts of tensors) in
+    scheme wrappers; ``kwargs`` feed the scheme config. ``scheme=None`` is a
+    no-op."""
+    if scheme is None:
+        return params
+    if scheme in _UNPORTED_SCHEMES:
+        raise NotImplementedError(f"scheme {scheme!r} is not ported yet (ROADMAP A7)")
+    if scheme != "mixed_precision":
+        raise ValueError(f"unknown quantization scheme {scheme!r}")
+    filter_fn = filter_fn or _default_filter
+    config = MixedPrecisionConfig(**kwargs)
+    return _map_with_path(
+        lambda path, leaf: _mp.MixedPrecisionWeight(leaf, config) if filter_fn(path, leaf) else leaf,
+        params,
+    )

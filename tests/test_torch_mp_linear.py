@@ -1,0 +1,85 @@
+"""The port's mixed-precision linear and quantize_params against the JAX
+package's (quant/api.py, quant/mixed_precision.py)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantized_training_tpu import quant as jquant
+from quantized_training_tpu.models import llama as jllama
+from quantized_training_tpu.quant.mixed_precision import MixedPrecisionWeight as JMPW
+from quantized_training_tpu_torch import quant
+from quantized_training_tpu_torch.convert import params_from_jax
+from quantized_training_tpu_torch.models import llama
+from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
+
+# q/o [128, 128] and the MLP [256, 128] pass the default filter; k/v
+# [64, 128] (2 KV heads of 32) fall below 128 and the lm_head is excluded
+KW = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+          num_attention_heads=4, num_key_value_heads=2)
+
+
+def _jax_wrapped_paths(tree):
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree, is_leaf=lambda x: isinstance(x, JMPW))
+    return {tuple(p.key for p in path) for path, leaf in leaves if isinstance(leaf, JMPW)}
+
+
+def _port_wrapped_paths(tree, path=()):
+    if isinstance(tree, dict):
+        return set().union(*(_port_wrapped_paths(v, path + (k,)) for k, v in tree.items()))
+    return {path} if isinstance(tree, MixedPrecisionWeight) else set()
+
+
+def test_quantize_params_wraps_the_same_leaves():
+    jparams = jllama.init_params(jax.random.PRNGKey(0), jllama.LlamaConfig(**KW))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
+    jwrapped = _jax_wrapped_paths(jquant.quantize_params(jparams, "mixed_precision"))
+    twrapped = _port_wrapped_paths(quant.quantize_params(tparams, "mixed_precision"))
+    assert twrapped == jwrapped
+    # the config exercises both sides of the filter
+    assert ("layers", "q", "w") in twrapped and ("layers", "k", "w") not in twrapped
+    assert ("lm_head", "w") not in twrapped and ("layers", "down", "w") in twrapped
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 3, 128), (8, 256)])
+def test_qlinear_bit_exact_vs_jax(shape, dtype):
+    """Tolerance: none. Both sides quantize x and w row-wise with the same
+    numerics and run the exact int8 product with the same fp32 epilogue."""
+    rng = np.random.default_rng(0)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    x = jnp.asarray(rng.standard_normal(shape), jdt)
+    w = jnp.asarray(rng.standard_normal((160, shape[-1])) * 0.02, jdt)
+    cfg = jquant.MixedPrecisionConfig()
+    ref = jquant.qlinear(x, JMPW(w, cfg))
+    t = lambda a: params_from_jax(np.asarray(a))
+    got = quant.qlinear(t(x), MixedPrecisionWeight(t(w), quant.MixedPrecisionConfig()))
+    assert got.shape == tuple(ref.shape) and got.dtype == t(ref).dtype
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    # a plain weight is a plain matmul; output=False keeps the matmul in float
+    plain = quant.qlinear(t(x), t(w))
+    off = quant.qlinear(t(x), MixedPrecisionWeight(t(w), quant.MixedPrecisionConfig(output=False)))
+    assert torch.equal(plain, off)
+
+
+def test_unported_schemes_raise():
+    w = MixedPrecisionWeight(torch.zeros(128, 128), quant.MixedPrecisionConfig(dtype="int4"))
+    with pytest.raises(NotImplementedError, match="int4"):
+        quant.qlinear(torch.zeros(2, 128), w)
+    for scheme in ("int8_quantized_training", "int4_weight_only", "bitnet"):
+        with pytest.raises(NotImplementedError, match=scheme):
+            quant.quantize_params({"w": torch.zeros(128, 128)}, scheme)
+    with pytest.raises(ValueError, match="unknown"):
+        quant.quantize_params({"w": torch.zeros(128, 128)}, "nope")
+    assert quant.quantize_params({"a": 1}, None) == {"a": 1}
+
+
+def test_stacked_weight_indexing():
+    """Indexing a stacked [L, out, in] wrapper gives the wrapped layer."""
+    w = MixedPrecisionWeight(torch.arange(24.0).reshape(2, 3, 4), quant.MixedPrecisionConfig())
+    lp = llama.layer_params({"q": {"w": w}, "n": {"g": torch.ones(2, 4)}}, 1)
+    assert isinstance(lp["q"]["w"], MixedPrecisionWeight)
+    assert torch.equal(lp["q"]["w"].data, w.data[1]) and lp["q"]["w"].config == w.config
+    assert lp["n"]["g"].shape == (4,)

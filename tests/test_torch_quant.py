@@ -1,0 +1,109 @@
+"""The port's int8 quantize (K1's plain version and quant.core) against the
+JAX package's quant.core and its Pallas kernel (interpret mode)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quantized_training_tpu.ops import pallas_quant
+from quantized_training_tpu.quant import core as jcore
+from quantized_training_tpu_torch.ops import int8_quant
+from quantized_training_tpu_torch.quant import core
+
+_DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
+           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(shape, dtype_name, seed=0):
+    """Random rows with a zero row and a row built from exact ties: its
+    absmax is 127, so the scale is 1 and x.5 values round half to even."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(shape) * 3.0).astype(np.float32)
+    rows = x.reshape(-1, shape[-1])
+    rows[0] = 0.0
+    if rows.shape[0] > 1:
+        ties = np.array([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -127.0], np.float32)
+        rows[1] = np.resize(ties, shape[-1])
+    _, jdt, tdt = _DTYPES[dtype_name]
+    xj = jnp.asarray(x, jdt)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    return xj, xt
+
+
+def _np(t):
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("shape,axis", [
+    ((8, 64), -1), ((8, 2048), -1), ((40, 96), -1), ((2, 5, 2, 64), -1),
+    ((64, 128), 0), ((40, 96), 0),
+])
+def test_quantize_bit_exact_vs_jax_core(shape, axis, dtype_name):
+    """Tolerance: none. Both compute absmax/127 in fp32, an IEEE division
+    and round-half-even, so q and the scale (cast to x's dtype) agree bit
+    for bit, ties and zero rows included."""
+    xj, xt = _inputs(shape, dtype_name)
+    qj, sj = jcore.quantize_int8(xj, axis=axis)
+    qt, st = core.quantize_int8(xt, axis=axis)
+    assert qt.dtype == torch.int8 and st.dtype == xt.dtype
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(_np(st), np.asarray(sj.astype(jnp.float32)))
+    if axis == -1:
+        assert (qt.reshape(-1, shape[-1])[0] == 0).all()  # the zero row
+
+
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(32, 64), (64, 128), (96, 256)])
+def test_rowwise_within_one_lsb_of_pallas(shape, dtype_name):
+    """The Pallas kernel multiplies by a reciprocal where the port divides,
+    so q may differ by 1 LSB; bound as tests/test_pallas_quant.py bounds
+    Pallas against the jnp reference: |dq| <= 1 on < 2% of elements, scales
+    within 1e-2 relative (Pallas keeps them fp32)."""
+    xj, xt = _inputs(shape, dtype_name, seed=1)
+    qp, sp = pallas_quant.quantize_int8_rowwise(xj, interpret=True)
+    qt, st = int8_quant.quantize_int8_rowwise(xt)
+    diff = np.abs(qt.numpy().astype(np.int32) - np.asarray(qp, np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 0.02
+    np.testing.assert_allclose(_np(st).ravel(), np.asarray(sp).ravel(), rtol=1e-2)
+
+
+def test_dequantize_roundtrip():
+    """|x - q*s| <= s/2 per element, up to fp32 rounding of the division."""
+    _, xt = _inputs((16, 64), "f32", seed=2)
+    q, s = core.quantize_int8(xt)
+    err = (core.dequantize_int8(q, s) - xt).abs()
+    assert (err <= s / 2 * (1 + 1e-5) + 1e-12).all()
+
+
+def test_stochastic_rounding_cpu_unbiased_and_deterministic():
+    """SR on the CPU draws from the given generator: the same seed repeats
+    the result, and the mean over draws approaches x/scale (0.3 * 127 =
+    38.1 here; tolerance 0.05 from 400 draws of a Bernoulli(0.1) step)."""
+    x = torch.full((4, 64), 0.3)
+    x[:, 0] = 1.0
+    q1, _ = core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator().manual_seed(3))
+    q2, _ = core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator().manual_seed(3))
+    assert torch.equal(q1, q2)
+    g = torch.Generator().manual_seed(4)
+    acc = sum(core.quantize_int8(x, stochastic_rounding=True, generator=g)[0].double() for _ in range(400))
+    mean = acc[:, 1:].mean() / 400
+    assert abs(mean.item() - 0.3 * 127) < 0.05
+    with pytest.raises(ValueError, match="generator"):
+        core.quantize_int8(x, stochastic_rounding=True)
+
+
+def test_device_path_raises_off_the_kernel():
+    """Every non-CPU tensor takes the device path; a meta tensor reaches it
+    without a card. Column quantize and SR have no kernel there and raise
+    NotImplementedError (never a silent plain-torch run on the card); a
+    non-CUDA device tensor is refused by K1's wrapper."""
+    x = torch.empty(8, 64, device="meta")
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        core.quantize_int8(x, axis=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
+        core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator())
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        core.quantize_int8(x)
