@@ -4,25 +4,35 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 
 1. the card: CUDA must be available; its name and power limit;
 2. the build: every kernel of ``quantized_training_tpu_torch/ops/csrc``
-   compiled with nvcc (seconds printed);
-3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes: bit-exact, timed with CUDA events;
-4. the slice: Llama2-1B at full width (random weights from a seed),
+   compiled with nvcc, one process per source (seconds printed);
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   of the serving path (K1, K2) and of the training step (K1 and B4 on
+   every activation and weight, B5, B1, B2, and K2 at 8192 tokens):
+   bit-exact, timed with CUDA events;
+4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
    16/32/48/64); launch counts prove the kernels ran; two streams are held
    against ``generate()``;
 5. kernel path against plain path: prefill logits of a 2-layer cut on the
-   card against the same model on the CPU (plain versions).
+   card against the same model on the CPU (plain versions);
+6. the training slice: three int8 ``mixed_precision`` train steps of
+   Llama2-1B at full width and depth (batch 4 x seq 2048, per-layer remat,
+   SDPA attention, AdamW) on one token batch from ``--seed``; the losses
+   fall, every step launches each kernel the number of times the code
+   implies, and the same steps in bf16 start from the same loss;
+7. kernel path against plain path: the loss and every gradient of a
+   2-layer cut at full width, fp32 and bf16, on the card against the CPU.
 
 The last lines are the kernel table as JSON, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--seed N]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -31,10 +41,11 @@ import time
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import ops, quant
+from quantized_training_tpu_torch import ops, optim, quant, train
 from quantized_training_tpu_torch.models import llama, llama_infer
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build
+from quantized_training_tpu_torch.utils.tree import tree_leaves
 
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
@@ -43,6 +54,11 @@ N_REQUESTS = 16
 CFG = llama.LLAMA2_1B
 DEVICE = "cuda"
 D, F, KVD = CFG.hidden_size, CFG.intermediate_size, CFG.num_key_value_heads * CFG.head_dim
+SERVING_KERNELS = ("quantize_int8_rowwise", "scaled_mm_rhs_t")  # K1, K2
+TRAIN_B, TRAIN_S = 4, 2048  # llm_pretrain.py's defaults
+TOKENS = TRAIN_B * TRAIN_S
+# (name, out, in) of every quantized linear of a layer; q/o, gate/up share a shape
+LINEARS = (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F))
 
 
 def check(cond: bool, what: str) -> None:
@@ -106,6 +122,7 @@ def check_k1(gen: torch.Generator) -> dict:
     shapes = {
         "decode act": [(8, D), (8, F)],
         "prefill act": [(16, D), (512, D), (512, F)],
+        "train act": [(TOKENS, D), (TOKENS, F)],
         "weight": [(D, D), (KVD, D), (F, D), (D, F)],
         "kv rows": [(8 * 1 * 4, CFG.head_dim), (1 * 512 * 4, CFG.head_dim)],
     }
@@ -162,6 +179,93 @@ def check_k2(gen: torch.Generator) -> dict:
             "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1], "plain_ms": timed[2]}
 
 
+def _entry(name, replaces, worst, timed):
+    src = "int8_quant.cu" if name.startswith("quantize") else "scaled_mm.cu"
+    return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
+            "plain_ms": timed[2]}
+
+
+def _max_err(got, ref) -> float:
+    return max((a.double() - b.double()).abs().max().item() for a, b in zip(got, ref))
+
+
+def check_training_quantizes(gen: torch.Generator) -> list:
+    """B4 at the backward's column quantizes (x2d [8192, in] and every
+    weight), B5 at its output gradients g [8192, out]: bit-exact, timed
+    (device time; GB/s of the bytes the algorithm needs: two reads of x and
+    one int8 write for B4, two reads and two int8 writes for B5)."""
+    out = []
+    for name, kernel, plain, shapes, reads, writes, replaces, timed_shape in (
+        ("quantize_int8_colwise", ops.quantize_int8_colwise, lambda x: ops.quantize_int8_plain(x, axis=0),
+         [(TOKENS, D), (TOKENS, F), (D, D), (KVD, D), (F, D), (D, F)], 2, 1,
+         "quantized_training_tpu/ops/pallas_quant.py:229", (TOKENS, F)),
+        ("quantize_int8_both", ops.quantize_int8_both, ops.quantize_int8_both_plain,
+         [(TOKENS, D), (TOKENS, KVD), (TOKENS, F)], 2, 2,
+         "quantized_training_tpu/ops/pallas_quant.py:306", (TOKENS, F)),
+    ):
+        worst, timed = 0.0, None
+        for shape in shapes:
+            x = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
+            x[0] = 0  # an all-zero row and column
+            x[:, 1] = 0
+            got, ref = kernel(x), plain(x)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"{name} bit-exact at {list(shape)}")
+            worst = max(worst, _max_err(got, ref))
+            inputs = copies(x)
+            ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
+            gbs = x.numel() * (2 * reads + writes) / ms / 1e6
+            print(f"[3] {name} {list(shape)} bf16: bit-exact; kernel {ms:.4f} ms ({gbs:.0f} GB/s), "
+                  f"plain {plain_ms:.4f} ms")
+            if shape == timed_shape:
+                timed = (shape, ms, plain_ms)
+        out.append(_entry(name, replaces, worst, timed))
+    return out
+
+
+def check_training_gemms(gen: torch.Generator) -> list:
+    """The three GEMM forms at 8192 tokens for every (out, in) of the
+    model: K2 (forward x . w^T), B1 (grad_input g . w, K = out) and B2
+    (grad_weight g^T . x, K = 8192), each on its operands as the backward
+    quantizes them; bit-exact, timed, with TOP/s and GB/s."""
+    timed = {}
+    worst = dict.fromkeys(("scaled_mm", "scaled_mm_lhs_t"), 0.0)
+    for lname, o, i in LINEARS:
+        x = torch.randn(TOKENS, i, generator=gen, device=DEVICE).to(torch.bfloat16)
+        w = (torch.randn(o, i, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        g = (torch.randn(TOKENS, o, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
+        x_row, x_row_s = ops.quantize_int8_plain(x)
+        w_row, w_row_s = ops.quantize_int8_plain(w)
+        x_col, x_col_s = ops.quantize_int8_plain(x, axis=0)
+        w_col, w_col_s = ops.quantize_int8_plain(w, axis=0)
+        g_row, g_row_s, g_col, g_col_s = ops.quantize_int8_both_plain(g)
+        for name, kernel, plain, args, (M, N, K) in (
+            ("scaled_mm_rhs_t", ops.scaled_mm_rhs_t, ops.scaled_mm_rhs_t_plain,
+             (x_row, w_row, x_row_s, w_row_s.reshape(1, o)), (TOKENS, o, i)),
+            ("scaled_mm", ops.scaled_mm, ops.scaled_mm_plain, (g_row, w_col, g_row_s, w_col_s), (TOKENS, i, o)),
+            ("scaled_mm_lhs_t", ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain,
+             (g_col, x_col, g_col_s, x_col_s), (o, i, TOKENS)),
+        ):
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"{name} bit-exact at {lname} M={M} N={N} K={K}")
+            if name in worst:
+                worst[name] = max(worst[name], _max_err([got], [ref]))
+            inputs = copies(*args)
+            ms, plain_ms = time_ms(kernel, inputs, iters=8), time_ms(plain, inputs, iters=8)
+            tops = 2 * M * N * K / ms / 1e9
+            gbs = (M * K + N * K + 2 * M * N) / ms / 1e6
+            print(f"[3] {name} {lname} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
+                  f"({tops:.1f} TOP/s, {gbs:.0f} GB/s), plain (float64 matmul) {plain_ms:.4f} ms")
+            if lname == "gate/up":
+                timed[name] = ((M, N, K), ms, plain_ms)
+    return [_entry("scaled_mm", "quantized_training_tpu/ops/pallas_mm.py:85", worst["scaled_mm"],
+                   timed["scaled_mm"]),
+            _entry("scaled_mm_lhs_t", "quantized_training_tpu/ops/pallas_mm.py:192", worst["scaled_mm_lhs_t"],
+                   timed["scaled_mm_lhs_t"])]
+
+
 def mixed_requests(vocab: int):
     rng = np.random.default_rng(SEED)
     return [(rng.integers(1, vocab, size=MIX_PROMPTS[i % 4]).tolist(), MIX_BUDGETS[i % 4])
@@ -212,7 +316,8 @@ def serve(gen: torch.Generator) -> dict:
         check(len(out) == budget and all(0 <= t < CFG.vocab_size for t in out),
               f"request {rid}: {len(out)} tokens for a budget of {budget}")
     check(n == sum(b for _, b in reqs), "every token streamed once")
-    check(all(v > 0 for v in launches.values()), f"every kernel launched on the main path: {launches}")
+    served = {k: launches[k] for k in SERVING_KERNELS}
+    check(all(v > 0 for v in served.values()), f"every kernel of the serving path launched: {served}")
     print(f"[4] Llama2-1B mixed_precision Server(n_slots=8, max_len=2048, decode_chunk=16): "
           f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; "
           f"weights {weights_gib:.2f} GiB, peak device memory while serving "
@@ -263,17 +368,134 @@ def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agre
     check(rms <= max_rms and agree >= min_agree, f"{dtype} kernel path within tolerance of the plain path")
 
 
+def per_step_launches(L: int) -> dict:
+    """Kernel launches of one int8 train step of L layers, from the code
+    (pinned on the CPU by tests/test_torch_train.py::test_kernel_calls_per_step):
+    a layer has 7 quantized weights (q, k, v, o, gate, up, down) behind 4
+    inputs (q/k/v and gate/up share one). Forward: K1 for 7 weights + 4
+    inputs, K2 per weight; remat runs the forward twice. Backward: per
+    weight B5 (its output grad), B4 (the weight), B1 and B2; B4 also once
+    per input."""
+    return {"quantize_int8_rowwise": 2 * 11 * L, "quantize_int8_colwise": 11 * L,
+            "quantize_int8_both": 7 * L, "scaled_mm_rhs_t": 2 * 7 * L, "scaled_mm": 7 * L,
+            "scaled_mm_lhs_t": 7 * L}
+
+
+def run_steps(params, cfg, tokens, labels, n_steps: int, expect: dict | None):
+    """n_steps of make_train_step(cfg, adamw(weight_decay=1e-2)) at lr 3e-4
+    on one batch: per step the loss, wall seconds (ends in a synchronize)
+    and, when ``expect`` is given, the launch counts checked against it."""
+    opt = optim.adamw(weight_decay=1e-2)
+    step = train.make_train_step(cfg, opt)
+    state = train.init_train_state(params, opt)
+    losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, tokens, labels, 3e-4)
+        loss = m["loss"].item()  # synchronizes
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        counts = ops.launch_counts()
+        if expect is not None:
+            check(counts == expect, f"step {i + 1} launches {counts} == {expect}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        check(np.isfinite(loss) and np.isfinite(m["grad_norm"].item()), f"step {i + 1}: finite loss and norm")
+    del state
+    return losses, walls, launches
+
+
+def train_slice(seed: int) -> dict:
+    """Phase 6: Llama2-1B, full width and depth, int8 mixed_precision, then
+    the same steps in bf16 from the same weights and batch."""
+    cfg = dataclasses.replace(CFG, remat=True, attention_impl="auto")
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to(DEVICE)
+    labels = torch.roll(tokens, -1, dims=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.num_hidden_layers
+    q_losses, q_walls, launches = run_steps(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels, 3,
+                                            per_step_launches(L))
+    q_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b_losses, b_walls, _ = run_steps(raw, cfg, tokens, labels, 3, None)
+    b_peak = torch.cuda.max_memory_allocated() / 2**30
+    tps = lambda walls: TOKENS * (len(walls) - 1) / sum(walls[1:])  # steps 2-3: step 1 warms up
+    print(f"[6] Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}: "
+          f"int8 losses {q_losses}, step walls {[round(w, 4) for w in q_walls]} s; "
+          f"bf16 losses {b_losses}, step walls {[round(w, 4) for w in b_walls]} s")
+    print(f"[6] tokens/s (steps 2-3, wall with torch.cuda.synchronize()): int8 {tps(q_walls):.1f}, "
+          f"bf16 {tps(b_walls):.1f} (int8/bf16 {tps(q_walls) / tps(b_walls):.3f}); peak device memory "
+          f"int8 {q_peak:.2f} GiB, bf16 {b_peak:.2f} GiB; launches per int8 step {per_step_launches(L)}")
+    check(q_losses[2] < q_losses[0], f"int8 loss falls: {q_losses}")
+    rel = abs(b_losses[0] - q_losses[0]) / abs(b_losses[0])
+    check(rel <= 1e-2, f"int8 first loss within 1e-2 of bf16's: {rel:.3e}")
+    print(f"[6] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2)")
+    return launches
+
+
+def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float) -> None:
+    """Phase 7: the loss and every gradient leaf of a 2-layer cut of
+    Llama2-1B (full width, weights from ``seed``), int8 mixed_precision,
+    one micro-step on 256 tokens, the kernels on the card against the plain
+    versions on the CPU. Bounds: relative RMS of each leaf's difference
+    <= ``max_rms``; relative loss difference <= ``max_dloss``.
+
+    Every kernel is bit-exact, so the two paths differ where the torch ops
+    around them round differently, and int8 rounding flips in the forward
+    and both backward matmuls carry that difference. The floor, measured on
+    the CPU in two draws: the plain path against itself with the embedding
+    moved by one ulp gives a worst leaf of 3.7e-2 / 4.7e-2 and a loss
+    6.9e-5 / 9.4e-5 apart in fp32, 7.3e-2 / 7.4e-2 and 2.0e-5 / 1.1e-4 in
+    bf16. The bounds sit above it (1.5e-1 / 2e-1 per leaf,
+    1e-3 on the loss); a wiring fault (a transposed operand, a scale on the
+    wrong axis) gives a relative RMS near 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(CFG, num_hidden_layers=2, remat=True)
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, dtype=dtype)
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    res = {}
+    for dev, params in ((DEVICE, raw), ("cpu", to_cpu(raw))):
+        loss, grads = train.loss_and_grads(cfg, quant.quantize_params(params, "mixed_precision"), tok.to(dev),
+                                           lab.to(dev))
+        res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
+    rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
+    dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]} grads (256 tokens), kernels on the card vs plain on the CPU: "
+          f"loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} (relative {dloss:.2e}); worst leaf relative RMS "
+          f"{max(rms):.3e}, per leaf {[f'{r:.1e}' for r in rms]} (bounds {max_rms:g}, loss {max_dloss:g})")
+    check(max(rms) <= max_rms and dloss <= max_dloss, f"{dtype} gradients within tolerance of the plain path")
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=SEED, help="seed of the training batch (phase 6)")
+    args = parser.parse_args()
     smi = card()
     build()
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    entries = [check_k1(gen), check_k2(gen)]
+    serving = [check_k1(gen), check_k2(gen)]
+    training = [*check_training_quantizes(gen), *check_training_gemms(gen)]
     launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
-    for e in entries:
+    for e in serving:
         e["launches"] = launches[e["name"]]
     kernel_vs_plain_path(SEED, torch.float32, 3e-2, 0.95)
     kernel_vs_plain_path(SEED, torch.bfloat16, 1e-1, 0.85)
-    print(json.dumps({"kernels": entries}))
+    launches = train_slice(args.seed)
+    check(all(v > 0 for v in launches.values()), f"every kernel launched on the training path: {launches}")
+    for e in training:
+        e["launches"] = launches[e["name"]]
+    grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3)
+    grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3)
+    print(json.dumps({"kernels": serving + training}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,19 +1,33 @@
-"""Llama model pieces for the serving slice.
+"""Llama model for training, and its pieces for serving.
 
-Counterpart of ``quantized_training_tpu/models/llama.py`` (:63-207,
-:291-353): ``LlamaConfig`` and its presets, ``init_params`` (same names,
-shapes and stacked ``[L, out, in]`` layout, drawn from an explicit
-``torch.Generator``), ``rms_norm``, ``rope_tables``, ``apply_rope`` and the
-causal GQA einsum branch of ``attention``. The training-side fields of the
-JAX config (remat, attention_impl, save_qkv_residuals) and the HF-json loader
-belong to the training slice and are not carried yet.
+Counterpart of ``quantized_training_tpu/models/llama.py`` (:63-618):
+``LlamaConfig`` and its presets, ``init_params`` (same names, shapes and
+stacked ``[L, out, in]`` layout, drawn from an explicit ``torch.Generator``),
+``rms_norm``, ``rope_tables``, ``apply_rope``, causal GQA ``attention``, and
+the unfused decoder layer with ``backbone``, ``forward`` and ``loss_fn``.
+
+The decoder layer is the JAX package's unfused composite (its path off the
+TPU, and on the TPU under ``QT_FUSED=0`` / ``QT_FUSED_ROPE=0``):
+``rms_norm`` -> ``qlinear_multi`` for q/k/v and for gate/up, rope on
+[B, S, H, hd], attention, ``silu(gate) * up`` -> ``qlinear`` for down. The
+producer-fused kernels of ``quant/fused.py`` and ``ops/pallas_rope.py`` are
+not ported yet (ROADMAP A6, B7-B14). On the TPU the JAX package ran JAX's
+splash attention; its counterpart here is ``F.scaled_dot_product_attention``.
+``save_qkv_residuals``, the HF-json loader and ``bitnet`` are not carried.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.cross_entropy import IGNORE_INDEX, fused_linear_cross_entropy
+from ..quant import qlinear, qlinear_multi
+from ..quant.mixed_precision import MixedPrecisionWeight
 
 
 @dataclass(frozen=True)
@@ -29,6 +43,10 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     bitnet: bool = False  # RMSNorm-into-linear surgery: not ported yet
+    remat: bool = False  # activation checkpointing per decoder layer
+    # 'auto' = F.scaled_dot_product_attention on the card, the fp32-softmax
+    # einsum elsewhere; 'sdpa' and 'xla' (the einsum) force one
+    attention_impl: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -130,9 +148,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * c + rotated * s
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal GQA attention, fp32 scores and softmax (the JAX package's
-    einsum branch). q [B, S, H, hd], k/v [B, S, KV, hd] -> [B, S, H, hd]."""
+def _resolve_attn_impl(impl: str, q: torch.Tensor) -> str:
+    if impl == "auto":
+        return "sdpa" if q.is_cuda else "xla"
+    if impl not in ("sdpa", "xla"):
+        raise ValueError(f"attention_impl {impl!r}: one of 'auto', 'sdpa', 'xla'")
+    return impl
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Causal GQA attention. q [B, S, H, hd], k/v [B, S, KV, hd] ->
+    [B, S, H, hd].
+
+    'sdpa': ``F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)``, the counterpart of the JAX package's splash kernel
+    (KV heads are not repeated). 'xla': the JAX package's einsum branch,
+    fp32 scores and softmax, which materializes [S, S]."""
+    if _resolve_attn_impl(impl, q) == "sdpa":
+        out = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True,
+        )
+        return out.transpose(1, 2)
     B, S, H, hd = q.shape
     rep = H // k.shape[2]
     if rep != 1:
@@ -143,3 +179,100 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def silu_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """silu(a) * b with fp32 silu math, product in the input dtype
+    (``ops/pallas_fused.py::silu_mul_ref``)."""
+    af = a.float()
+    return (af * torch.sigmoid(af)).to(a.dtype) * b
+
+
+def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin):
+    """Norm + QKV projections + RoPE (JAX :402-427, unfused)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    h = rms_norm(x, lp["attn_norm"]["g"], cfg.rms_norm_eps)
+    q, k, v = qlinear_multi(h, [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]])
+    q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
+    k = apply_rope(k.reshape(B, S, KV, hd), cos, sin)
+    return q, k, v.reshape(B, S, KV, hd)
+
+
+def _post_attn_part(cfg: LlamaConfig, x, ctx, lp):
+    """O-projection + MLP with residuals (JAX :430-472, unfused:
+    ``mlp_linear``'s fallback is ``norm_linear_multi`` + ``silu_mul_linear``)."""
+    x = x + qlinear(ctx, lp["o"]["w"])
+    h = rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
+    gate, up = qlinear_multi(h, [lp["gate"]["w"], lp["up"]["w"]])
+    return x + qlinear(silu_mul(gate, up), lp["down"]["w"])
+
+
+def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin):
+    B, S, _ = x.shape
+    q, k, v = _qkv_part(cfg, x, lp, cos, sin)
+    ctx = attention(q, k, v, cfg.attention_impl).reshape(B, S, cfg.num_attention_heads * cfg.head_dim)
+    return _post_attn_part(cfg, x, ctx, lp)
+
+
+def _unstack_layers(layers: dict, L: int) -> list[dict]:
+    """The stacked [L, ...] layer tree as L per-layer trees of views, cut
+    with one ``unbind`` per leaf: its backward stacks the L per-layer grads
+    once, where indexing layer by layer would add a full-size [L, ...]
+    zero-padded grad per layer."""
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        if isinstance(t, MixedPrecisionWeight):
+            return [MixedPrecisionWeight(d, t.config) for d in t.data.unbind(0)]
+        return t.unbind(0)
+
+    def pick(t, l):
+        return {k: pick(v, l) for k, v in t.items()} if isinstance(t, dict) else t[l]
+
+    cut_layers = cut(layers)
+    return [pick(cut_layers, l) for l in range(L)]
+
+
+def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """tokens [B, S] -> final-norm hidden states [B, S, D] (JAX :505-565).
+
+    With ``cfg.remat`` every decoder layer is one ``torch.utils.checkpoint``
+    (non-reentrant): its activations are recomputed in the backward, only
+    the layer input is kept. The JAX policy also keeps splash attention's
+    (out, lse) residuals, which its non-TPU path does not have either."""
+    _require_no_bitnet(cfg)
+    B, S = tokens.shape
+    x = params["embed"]["embedding"][tokens.long()]
+    cos, sin = rope_tables(cfg, S, device=tokens.device)
+    layer = partial(_decoder_layer, cfg)
+    for lp in _unstack_layers(params["layers"], cfg.num_hidden_layers):
+        if cfg.remat:
+            x = checkpoint(layer, x, lp, cos, sin, use_reentrant=False)
+        else:
+            x = layer(x, lp, cos, sin)
+    return rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)
+
+
+def forward(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (model dtype)."""
+    return qlinear(backbone(params, tokens, cfg), lm_head_weight(params, cfg))
+
+
+def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """fp32 token-mean cross entropy; labels == -100 are ignored (JAX
+    :585-618). A plain lm_head takes the chunked fused loss, which never
+    materializes the logits; a quantized one the explicit logits."""
+    lm_w = lm_head_weight(params, cfg)
+    labels = labels.reshape(-1)
+    if isinstance(lm_w, torch.Tensor):
+        x = backbone(params, tokens, cfg)
+        nll_sum, n_valid = fused_linear_cross_entropy(x.reshape(-1, x.shape[-1]), lm_w, labels)
+        return nll_sum / n_valid.clamp(min=1)
+    logits = forward(params, tokens, cfg).float()
+    logits = logits.reshape(-1, logits.shape[-1])
+    valid = labels != IGNORE_INDEX
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)

@@ -134,7 +134,7 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
         if fresh:
             k_deq = k_q.float() * k_s.to(ksc.dtype).float()
             v_deq = (v_q.float() * v_s.to(vsc.dtype).float()).to(q.dtype)
-            ctx = llama.attention(q, k_deq, v_deq)
+            ctx = llama.attention(q, k_deq, v_deq, "xla")
         else:
             ctx = _attention_over_cache(q, kc[:, :W], ksc[:, :W], vc[:, :W], vsc[:, :W], pos)
         x = x + qlinear(ctx.reshape(B, T, H * hd), lp["o"]["w"])

@@ -1,10 +1,15 @@
-"""Row-wise int8 quantize: kernel K1 and its plain version.
+"""Int8 quantize kernels and their plain versions.
 
-Counterpart of ``quantized_training_tpu/ops/pallas_quant.py::
-quantize_int8_rowwise`` (:139), with the numerics of
-``quantized_training_tpu/quant/core.py::quantize_int8`` (:99-115), which the
-kernel matches bit for bit. The CUDA source is ``csrc/int8_quant.cu``; its
-header says what bounds it on the H100 and how the design answers that.
+Counterparts of ``quantized_training_tpu/ops/pallas_quant.py``:
+
+- K1 :func:`quantize_int8_rowwise` for ``quantize_int8_rowwise`` (:139);
+- B4 :func:`quantize_int8_colwise` for ``quantize_int8_colwise`` (:229);
+- B5 :func:`quantize_int8_both` for ``quantize_int8_both`` (:306).
+
+All three have the numerics of ``quantized_training_tpu/quant/core.py::
+quantize_int8`` (:99-115), which each kernel matches bit for bit. The CUDA
+source is ``csrc/int8_quant.cu``; its header says what bounds the kernels on
+the H100 and how their design answers that.
 """
 
 from __future__ import annotations
@@ -32,18 +37,30 @@ def quantize_int8_plain(x: torch.Tensor, *, axis: int = -1, eps: float = EPS,
     return q.clamp(-128, 127).to(torch.int8), scale.to(x.dtype)
 
 
+def quantize_int8_both_plain(x: torch.Tensor, *, eps: float = EPS):
+    """Plain version of B5: the row and the column quantize of x [M, K],
+    ``(q_row, s_row [M, 1], q_col, s_col [1, K])``."""
+    return (*quantize_int8_plain(x, axis=1, eps=eps), *quantize_int8_plain(x, axis=0, eps=eps))
+
+
+def _check_device_input(x: torch.Tensor, what: str, ndim: int | None = None) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{what}: needs a CPU or CUDA tensor, got {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} not in {_DTYPES}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    if ndim is not None and (x.ndim != ndim or x.numel() == 0):
+        raise ValueError(f"{what}: needs a non-empty {ndim}-D tensor, got shape {tuple(x.shape)}")
+
+
 def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS):
     """x [..., K] -> (q int8 [..., K], scale x.dtype [..., 1]), reducing the
     last axis. A CPU tensor takes :func:`quantize_int8_plain`; a CUDA tensor
     (bf16 or fp32, contiguous) launches K1 on the current stream."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, eps=eps)
-    if not x.is_cuda:
-        raise ValueError(f"quantize_int8_rowwise: needs a CPU or CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"quantize_int8_rowwise: dtype {x.dtype} not in {_DTYPES}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_int8_rowwise: x must be contiguous")
+    _check_device_input(x, "quantize_int8_rowwise")
     if x.ndim == 0:
         raise ValueError("quantize_int8_rowwise: x must have a last axis")
     K = x.shape[-1]
@@ -60,3 +77,59 @@ def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS):
 
 
 quantize_int8_rowwise.launches = 0
+
+
+def quantize_int8_colwise(x: torch.Tensor, *, eps: float = EPS):
+    """x [R, C] -> (q int8 [R, C], scale x.dtype [1, C]), reducing the first
+    axis. A CPU tensor takes ``quantize_int8_plain(x, axis=0)``; a CUDA
+    tensor (bf16 or fp32, contiguous, non-empty) launches B4 on the current
+    stream."""
+    if x.device.type == "cpu":
+        return quantize_int8_plain(x, axis=0, eps=eps)
+    _check_device_input(x, "quantize_int8_colwise", ndim=2)
+    R, C = x.shape
+    q = torch.empty((R, C), dtype=torch.int8, device=x.device)
+    scale = torch.empty((1, C), dtype=x.dtype, device=x.device)
+    amax = torch.empty(C, dtype=torch.float32, device=x.device)
+    err = _build.library().qt_quantize_int8_colwise(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), R, C, eps,
+        int(x.dtype == torch.bfloat16), _build.stream(),
+    )
+    _build.check(err, "quantize_int8_colwise")
+    quantize_int8_colwise.launches += 1
+    return q, scale
+
+
+quantize_int8_colwise.launches = 0
+
+# B5 keeps a row of column maxima in one block's shared memory: K fp32 values
+# within the 227 KB a block may use
+_BOTH_MAX_K = 227 * 1024 // 4
+
+
+def quantize_int8_both(x: torch.Tensor, *, eps: float = EPS):
+    """x [M, K] -> ``(q_row, s_row [M, 1], q_col, s_col [1, K])``: the row
+    and the column quantize of one tensor in two reads. A CPU tensor takes
+    :func:`quantize_int8_both_plain`; a CUDA tensor (bf16 or fp32,
+    contiguous, non-empty, K <= 58112) launches B5 on the current stream."""
+    if x.device.type == "cpu":
+        return quantize_int8_both_plain(x, eps=eps)
+    _check_device_input(x, "quantize_int8_both", ndim=2)
+    M, K = x.shape
+    if K > _BOTH_MAX_K:
+        raise ValueError(f"quantize_int8_both: K = {K} exceeds {_BOTH_MAX_K} (shared memory)")
+    q_row = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    q_col = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    s_row = torch.empty((M, 1), dtype=x.dtype, device=x.device)
+    s_col = torch.empty((1, K), dtype=x.dtype, device=x.device)
+    amax = torch.empty(K, dtype=torch.float32, device=x.device)
+    err = _build.library().qt_quantize_int8_both(
+        x.data_ptr(), q_row.data_ptr(), s_row.data_ptr(), q_col.data_ptr(), s_col.data_ptr(),
+        amax.data_ptr(), M, K, eps, int(x.dtype == torch.bfloat16), _build.stream(),
+    )
+    _build.check(err, "quantize_int8_both")
+    quantize_int8_both.launches += 1
+    return q_row, s_row, q_col, s_col
+
+
+quantize_int8_both.launches = 0

@@ -1,13 +1,22 @@
-"""Scaled int8 matmul: kernel K2, its plain version, and the fp32 oracle.
+"""Scaled int8 matmul: kernels K2, B1 and B2, their plain versions, and the
+fp32 oracle.
 
 Counterparts in the JAX package:
 
-- ``ops/pallas_mm.py::scaled_mm_dims`` (:192) with dims (1, 1), the TPU
-  kernel K2 replaces (``csrc/scaled_mm.cu``; its header says what bounds it
-  on the H100 and how the design answers that);
+- ``ops/pallas_mm.py::scaled_mm_dims`` (:192) with dims (1, 1), which K2
+  replaces (:func:`scaled_mm_rhs_t`, the forward x . w^T), and with dims
+  (0, 0), which B2 replaces (:func:`scaled_mm_lhs_t`, the grad_weight
+  g^T . x over the tokens);
+- ``ops/pallas_mm.py::scaled_mm`` (:85), which B1 replaces
+  (:func:`scaled_mm`, the grad_input g . w), in the row/col/scalar-scale
+  mode of ``ops/scaled_mm.py::scaled_mm`` (:65-107);
 - ``ops/scaled_mm.py::scaled_mm_general`` (:122), the contraction-dims
-  dispatcher, of which the port has the (1, 1) form on the card;
+  dispatcher;
 - ``ops/scaled_mm.py::scaled_mm_ref`` (:221), the fp32 oracle.
+
+The three kernels are layout instantiations of one CUDA source,
+``csrc/scaled_mm.cu``; its header says what bounds them on the H100 and how
+the design answers that. No operand is transposed in memory.
 """
 
 from __future__ import annotations
@@ -46,6 +55,51 @@ def scaled_mm_rhs_t_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
     return _plain(a, b, scale_a, scale_b, (1, 1), out_dtype)
 
 
+def scaled_mm_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
+    """Plain version of B1: a [M, K] . b [K, N] with the row x col epilogue."""
+    return _plain(a, b, scale_a, scale_b, (1, 0), out_dtype)
+
+
+def scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
+    """Plain version of B2: a [K, M]^T . b [K, N] with the row x col epilogue."""
+    return _plain(a, b, scale_a, scale_b, (0, 0), out_dtype)
+
+
+def _launch(what, a, b, scale_a, scale_b, dims, out_dtype):
+    """Check the operands of one form and launch its kernel on the current
+    stream. Operands stay in their stored layouts: a K-major operand has the
+    contraction axis last, an MN-major one first."""
+    tensors = (a, b, scale_a, scale_b)
+    if not all(t.is_cuda and t.device == a.device for t in tensors):
+        raise ValueError(f"{what}: all operands must be on one CUDA device")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"{what}: int8 operands only, got {a.dtype}, {b.dtype}")
+    ca, cb = dims
+    if a.ndim != 2 or b.ndim != 2 or a.shape[ca] != b.shape[cb]:
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, {tuple(b.shape)} for dims {dims}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what}: a and b must be contiguous")
+    K, M, N = a.shape[ca], a.shape[1 - ca], b.shape[1 - cb]
+    # 16-byte chunks along each operand's contiguous axis (csrc/scaled_mm.cu)
+    if K % 16 or a.shape[1] % 16 or b.shape[1] % 16 or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{what}: needs K % 16 == 0, each operand's row length a multiple of 16 "
+                         f"and 16-byte aligned operands (shapes {tuple(a.shape)}, {tuple(b.shape)})")
+    if scale_a.dtype != scale_b.dtype or scale_a.dtype not in _SCALE_DTYPES:
+        raise TypeError(f"{what}: scales {scale_a.dtype}, {scale_b.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: out_dtype {out_dtype}")
+    sa = _as_vector(scale_a, M, "scale_a")
+    sb = _as_vector(scale_b, N, "scale_b")
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    err = _build.library().qt_scaled_mm_s8(
+        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K,
+        int(ca == 1), int(cb == 1), int(sa.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), _build.stream(),
+    )
+    _build.check(err, what)
+    return out
+
+
 def scaled_mm_rhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
                     scale_b: torch.Tensor, *, out_dtype=torch.bfloat16) -> torch.Tensor:
     """``out[M, N] = ((a[M, K] . b[N, K]^T) * scale_a[M]) * scale_b[N]``.
@@ -57,32 +111,7 @@ def scaled_mm_rhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
     16-byte aligned, contiguous operands."""
     if a.device.type == "cpu":
         return scaled_mm_rhs_t_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
-    tensors = (a, b, scale_a, scale_b)
-    if not all(t.is_cuda and t.device == a.device for t in tensors):
-        raise ValueError("scaled_mm_rhs_t: all operands must be on one CUDA device")
-    if a.dtype != torch.int8 or b.dtype != torch.int8:
-        raise TypeError(f"scaled_mm_rhs_t: int8 operands only, got {a.dtype}, {b.dtype}")
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
-        raise ValueError(f"scaled_mm_rhs_t: shapes {tuple(a.shape)} . {tuple(b.shape)}^T")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("scaled_mm_rhs_t: a and b must be contiguous")
-    M, K = a.shape
-    N = b.shape[0]
-    if K % 16 or a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(f"scaled_mm_rhs_t: needs K % 16 == 0 and 16-byte aligned operands (K={K})")
-    if scale_a.dtype != scale_b.dtype or scale_a.dtype not in _SCALE_DTYPES:
-        raise TypeError(f"scaled_mm_rhs_t: scales {scale_a.dtype}, {scale_b.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"scaled_mm_rhs_t: out_dtype {out_dtype}")
-    sa = _as_vector(scale_a, M, "scale_a")
-    sb = _as_vector(scale_b, N, "scale_b")
-    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    err = _build.library().qt_scaled_mm_s8(
-        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
-        M, N, K, int(sa.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        _build.stream(),
-    )
-    _build.check(err, "scaled_mm_rhs_t")
+    out = _launch("scaled_mm_rhs_t", a, b, scale_a, scale_b, (1, 1), out_dtype)
     scaled_mm_rhs_t.launches += 1
     return out
 
@@ -90,23 +119,60 @@ def scaled_mm_rhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
 scaled_mm_rhs_t.launches = 0
 
 
+def scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: torch.Tensor,
+              *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``out[M, N] = ((a[M, K] . b[K, N]) * scale_a) * scale_b`` for int8
+    operands, in the row/col/scalar-scale mode: scale_a is [M, 1] or [M] or
+    a scalar, scale_b [1, N] or [N] or a scalar. The tile-scaled mode of the
+    JAX package (2-D scale grids) raises NotImplementedError (ROADMAP B15).
+    A CPU tensor takes :func:`scaled_mm_plain`; CUDA tensors launch B1 on
+    the current stream, which needs K % 16 == 0, N % 16 == 0 and 16-byte
+    aligned, contiguous operands."""
+    M, N = a.shape[0], b.shape[1]
+    if (scale_a.ndim == 2 and scale_a.numel() > 1 and tuple(scale_a.shape) != (M, 1)) or (
+            scale_b.ndim == 2 and scale_b.numel() > 1 and tuple(scale_b.shape) != (1, N)):
+        raise NotImplementedError(
+            f"scaled_mm: tile scales {tuple(scale_a.shape)}, {tuple(scale_b.shape)} have no "
+            "kernel yet (ROADMAP B15 tile_scaled_mm)"
+        )
+    if a.device.type == "cpu":
+        return scaled_mm_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
+    out = _launch("scaled_mm", a, b, scale_a, scale_b, (1, 0), out_dtype)
+    scaled_mm.launches += 1
+    return out
+
+
+scaled_mm.launches = 0
+
+
+def scaled_mm_lhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
+                    scale_b: torch.Tensor, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``out[M, N] = ((a[K, M]^T . b[K, N]) * scale_a[M]) * scale_b[N]``:
+    both operands contracted over their first axis, as stored. A CPU tensor
+    takes :func:`scaled_mm_lhs_t_plain`; CUDA tensors launch B2 on the
+    current stream, which needs K % 16 == 0, M % 16 == 0, N % 16 == 0 and
+    16-byte aligned, contiguous operands."""
+    if a.device.type == "cpu":
+        return scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
+    out = _launch("scaled_mm_lhs_t", a, b, scale_a, scale_b, (0, 0), out_dtype)
+    scaled_mm_lhs_t.launches += 1
+    return out
+
+
+scaled_mm_lhs_t.launches = 0
+
+_BY_DIMS = {(1, 1): scaled_mm_rhs_t, (1, 0): scaled_mm, (0, 0): scaled_mm_lhs_t}
+
+
 def scaled_mm_general(a, b, scale_a, scale_b, *, dims=(1, 0), out_dtype=torch.bfloat16):
     """Row/col-scaled matmul with explicit contraction dims: a over dims[0],
     b over dims[1]; scale_a per out-row, scale_b per out-col (scalars
-    broadcast). dims (1, 1) is K2. The other forms (the training backward's
-    (1, 0) and (0, 0)) run only on the CPU for now: on the card they raise
-    NotImplementedError until their kernels land (ROADMAP, queue B)."""
+    broadcast). Every operand stays in its stored layout: dims (1, 1) is K2,
+    (1, 0) B1 and (0, 0) B2."""
     dims = tuple(dims)
-    if dims == (1, 1):
-        return scaled_mm_rhs_t(a, b, scale_a, scale_b, out_dtype=out_dtype)
-    if dims not in ((1, 0), (0, 0)):
+    if dims not in _BY_DIMS:
         raise ValueError(f"scaled_mm_general: dims {dims}")
-    if a.device.type != "cpu":
-        raise NotImplementedError(
-            f"scaled_mm_general dims={dims} has no CUDA kernel yet "
-            "(ROADMAP B1 scaled_mm / B2 scaled_mm_dims (0,0))"
-        )
-    return _plain(a, b, scale_a, scale_b, dims, out_dtype)
+    return _BY_DIMS[dims](a, b, scale_a, scale_b, out_dtype=out_dtype)
 
 
 def scaled_mm_ref(a, b, scale_a, scale_b, *, out_dtype=torch.float32):

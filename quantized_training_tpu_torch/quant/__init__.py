@@ -1,21 +1,35 @@
 """Quantization schemes of the port.
 
 Counterpart of ``quantized_training_tpu/quant/__init__.py``, for the part the
-serving slice uses: the mixed-precision int8 scheme, forward only.
+serving and training slices use: the mixed-precision int8 scheme, forward
+and backward, and the training contract of ``quant/api.py``.
 """
 
-from .api import is_quant_weight, qlinear, quantize_params
+from .api import (
+    commit_params,
+    is_quant_weight,
+    merge_masters,
+    qlinear,
+    qlinear_multi,
+    quantize_params,
+    virtual_params,
+)
 from .configs import Int8QTConfig, MixedPrecisionConfig
-from .core import dequantize_int8, quantize_int8
+from .core import dequantize_int8, quantize_int8, quantize_int8_both
 from .mixed_precision import MixedPrecisionWeight
 
 __all__ = [
     "qlinear",
+    "qlinear_multi",
     "quantize_params",
     "is_quant_weight",
+    "virtual_params",
+    "merge_masters",
+    "commit_params",
     "MixedPrecisionWeight",
     "Int8QTConfig",
     "MixedPrecisionConfig",
     "quantize_int8",
+    "quantize_int8_both",
     "dequantize_int8",
 ]

@@ -1,10 +1,12 @@
 """User-facing quantization API.
 
-Counterpart of ``quantized_training_tpu/quant/api.py`` (:100-210):
-:func:`qlinear`, :func:`is_quant_weight`, :func:`quantize_params` with the
-same default filter. Parameters are nested dicts of tensors; a leaf's path is
-the tuple of its dict keys. Only the ``mixed_precision`` scheme is ported;
-the other schemes of the JAX package raise NotImplementedError.
+Counterpart of ``quantized_training_tpu/quant/api.py`` (:100-267):
+:func:`qlinear`, :func:`qlinear_multi`, :func:`is_quant_weight`,
+:func:`quantize_params` with the same default filter, and the training
+contract :func:`virtual_params` / :func:`merge_masters` /
+:func:`commit_params`. Parameters are nested dicts of tensors; a leaf's path
+is the tuple of its dict keys. Only the ``mixed_precision`` scheme is
+ported; the other schemes of the JAX package raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +30,16 @@ def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, generator=N
         return _mp.linear(x, w, bias, generator=generator)
     out = x @ w.T
     return out + bias if bias is not None else out
+
+
+def qlinear_multi(x: torch.Tensor, weights, *, generator=None):
+    """[y_i = x @ w_i.T] for several heads sharing one input. For
+    mixed-precision all-int8 weights the shared input is quantized ONCE for
+    all heads, and once in the backward (``mixed_precision.linear_shared``);
+    other weights take independent :func:`qlinear` calls."""
+    if all(isinstance(w, _mp.MixedPrecisionWeight) for w in weights):
+        return _mp.linear_shared(x, weights, generator=generator)
+    return [qlinear(x, w, generator=generator) for w in weights]
 
 
 def _is_linear_weight_path(path) -> bool:
@@ -69,3 +81,27 @@ def quantize_params(params, scheme: str | None, *, filter_fn=None, **kwargs):
         lambda path, leaf: _mp.MixedPrecisionWeight(leaf, config) if filter_fn(path, leaf) else leaf,
         params,
     )
+
+
+# The training contract (JAX :221-267): each step maps the storage tree to a
+# differentiable float tree, the optimizer updates that tree, and the result
+# is committed back to storage. The storage-quantized schemes (int8 storage,
+# int4 weight-only), for which these maps do work, are not ported (ROADMAP
+# A7); a MixedPrecisionWeight's storage is its bf16 master, so for the
+# ported scheme all three are identities. train.py calls them all the same,
+# so that it reads like its counterpart.
+
+
+def virtual_params(qparams):
+    """Storage tree -> differentiable float tree (the masters)."""
+    return qparams
+
+
+def merge_masters(vparams, qparams):
+    """Pair the differentiable masters back with their storage."""
+    return vparams
+
+
+def commit_params(new_vparams, qparams):
+    """Updated masters -> new storage tree."""
+    return new_vparams

@@ -1,12 +1,24 @@
-"""Mixed-precision int8 linear, forward only.
+"""Mixed-precision int8 linear, forward and backward.
 
-Counterpart of ``quantized_training_tpu/quant/mixed_precision.py`` (:30-143):
-``MixedPrecisionWeight``, ``_dynamic_int8_mm`` and the forward of
-``_mp_linear``, written as plain functions (the serving slice needs no
-autograd). Both operands are quantized per matmul along their contraction
-axis, so the scales stay off the reduction dim; the forward x . w^T is the
-weight-stationary (1, 1) form, which runs K1 twice and K2 once on the card.
-Only ``dtype='int8'`` is ported: int4 and fp8 raise.
+Counterpart of ``quantized_training_tpu/quant/mixed_precision.py`` (:30-322):
+``MixedPrecisionWeight``, ``_dynamic_int8_mm``, ``_mp_linear`` and
+``_mp_linear_shared`` with their backwards (``torch.autograd.Function`` in
+place of ``jax.custom_vjp``), ``linear`` and ``linear_shared``. The forward,
+grad_input and grad_weight matmuls are each int8 or plain, per
+``MixedPrecisionConfig``; each int8 matmul quantizes both operands along its
+contraction axis, so the scales stay off the reduction dim:
+
+- forward x . w^T, dims (1, 1): K1 twice, K2;
+- grad_input g . w, dims (1, 0): g row-wise, w column-wise (B4), B1;
+- grad_weight g^T . x over the tokens, dims (0, 0): g and x column-wise,
+  B2. With both backward matmuls int8, g is quantized along both axes by
+  B5 (two reads of g).
+
+No operand is transposed in memory. Only ``dtype='int8'`` is ported: int4
+and fp8 raise. ``PreQuantMPWeight`` (per-step pre-quantized weights) is not
+ported. The JAX package pads the token dim to a multiple of 256 above 1024
+tokens (``_pad_tokens``); the padded rows are zero and change no number, so
+the port does not pad.
 """
 
 from __future__ import annotations
@@ -17,7 +29,7 @@ import torch
 
 from ..ops.scaled_mm import scaled_mm_general
 from .configs import MixedPrecisionConfig
-from .core import quantize_int8
+from .core import quantize_int8, quantize_int8_both
 
 
 @dataclass
@@ -42,6 +54,18 @@ class MixedPrecisionWeight:
         return MixedPrecisionWeight(self.data[idx], self.config)
 
 
+def _require_int8(config: MixedPrecisionConfig) -> None:
+    if config.dtype != "int8":
+        raise NotImplementedError(
+            f"mixed_precision dtype={config.dtype!r} is not ported yet "
+            "(ROADMAP A7: int4 needs ROADMAP B16, fp8 its own GEMM)"
+        )
+
+
+def _all_int8(config: MixedPrecisionConfig) -> bool:
+    return config.dtype == "int8" and config.output and config.grad_input and config.grad_weight
+
+
 def _dynamic_int8_mm(a, b, sr: bool, generator, dims=(1, 0)):
     """Contract a over dims[0] and b over dims[1], both dynamically
     quantized to INT8 along their contraction axis."""
@@ -50,23 +74,114 @@ def _dynamic_int8_mm(a, b, sr: bool, generator, dims=(1, 0)):
     return scaled_mm_general(a_i8, b_i8, sa, sb, dims=dims, out_dtype=a.dtype)
 
 
-def _mp_linear(config: MixedPrecisionConfig, x2d, w, generator=None):
+def _mp_forward(config: MixedPrecisionConfig, x2d, w, generator=None):
     """x2d [B, in] @ w.T [in, out]; w is [out, in]."""
-    if config.dtype != "int8":
-        raise NotImplementedError(
-            f"mixed_precision dtype={config.dtype!r} is not ported yet "
-            "(ROADMAP A7: int4 needs ROADMAP B16, fp8 its own GEMM)"
-        )
+    _require_int8(config)
     if config.output:
         return _dynamic_int8_mm(x2d, w, config.stochastic_rounding, generator, dims=(1, 1))
     return x2d @ w.T
 
 
+def _grads_both_int8(g, w, x_col, x_col_s, sr, generator):
+    """(grad_input, grad_weight) of one weight with both backward matmuls
+    int8, given the column quantize of its input: g along both axes (B5),
+    w column-wise (B4), then B1 and B2 (JAX :184-198)."""
+    g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, generator=generator)
+    w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, generator=generator)
+    grad_input = scaled_mm_general(g_row, w_col, g_row_s, w_col_s, dims=(1, 0), out_dtype=w.dtype)
+    # g^T . x contracted over the tokens as stored: the result is [out, in]
+    grad_weight = scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype)
+    return grad_input, grad_weight
+
+
+class _MPLinear(torch.autograd.Function):
+    """``_mp_linear`` with its custom backward (JAX :137-218). Saves x2d
+    and w only: the backward re-quantizes them, so the forward does no
+    backward-only work (JAX :160-166)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, config, generator):
+        out = _mp_forward(config, x2d, w, generator)
+        ctx.config, ctx.generator = config, generator
+        ctx.save_for_backward(x2d, w)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        config, gen = ctx.config, ctx.generator
+        sr = config.stochastic_rounding
+        g = g.to(w.dtype)
+        if config.grad_input and config.grad_weight:
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, generator=gen)
+            grad_input, grad_weight = _grads_both_int8(g, w, x_col, x_col_s, sr, gen)
+            return grad_input, grad_weight, None, None
+        if config.grad_input:
+            grad_input = _dynamic_int8_mm(g, w, sr, gen, dims=(1, 0))
+        else:
+            grad_input = g @ w
+        if config.grad_weight:
+            grad_weight = _dynamic_int8_mm(g, x2d, sr, gen, dims=(0, 0))
+        else:
+            grad_weight = g.T @ x2d
+        return grad_input, grad_weight, None, None
+
+
+class _MPLinearShared(torch.autograd.Function):
+    """``_mp_linear_shared`` (JAX :221-276): y_i = x2d @ ws[i].T with ONE
+    row quantize of x2d for all heads in the forward and ONE column quantize
+    of it in the backward. All-int8 configs only (the caller checks).
+    grad_input is summed head by head in w.dtype, in the JAX order."""
+
+    @staticmethod
+    def forward(ctx, config, generator, x2d, *ws):
+        sr = config.stochastic_rounding
+        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, generator=generator)
+        outs = []
+        for w in ws:
+            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, generator=generator)
+            outs.append(scaled_mm_general(x_row, w_row, x_row_s, w_row_s, dims=(1, 1),
+                                          out_dtype=x2d.dtype))
+        ctx.config, ctx.generator = config, generator
+        ctx.save_for_backward(x2d, *ws)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x2d, *ws = ctx.saved_tensors
+        sr, gen = ctx.config.stochastic_rounding, ctx.generator
+        x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, generator=gen)
+        grad_input, grad_ws = None, []
+        for w, g in zip(ws, gs):
+            gi, gw = _grads_both_int8(g.to(w.dtype), w, x_col, x_col_s, sr, gen)
+            grad_input = gi if grad_input is None else grad_input + gi
+            grad_ws.append(gw)
+        return None, None, grad_input, *grad_ws
+
+
+def _check_generator(config: MixedPrecisionConfig, generator) -> None:
+    if config.stochastic_rounding and generator is None:
+        raise ValueError("stochastic_rounding requires a generator")
+
+
 def linear(x, w: MixedPrecisionWeight, bias=None, *, generator=None):
     """Mixed-precision linear: y = x @ w.T + bias with per-matmul quant."""
-    if w.config.stochastic_rounding and generator is None:
-        raise ValueError("stochastic_rounding requires a generator")
+    _check_generator(w.config, generator)
     x2d = x.reshape(-1, x.shape[-1])
-    out = _mp_linear(w.config, x2d, w.data, generator)
+    out = _MPLinear.apply(x2d, w.data, w.config, generator)
     out = out.reshape(*x.shape[:-1], w.data.shape[0])
     return out + bias if bias is not None else out
+
+
+def linear_shared(x, weights, *, generator=None):
+    """[y_i = x @ w_i.T] with the shared input quantized once (JAX
+    :279-322). ``weights``: MixedPrecisionWeight with one all-int8 config;
+    any other mix takes one :func:`linear` per weight."""
+    configs = {w.config for w in weights}
+    cfg = next(iter(configs))
+    if len(configs) != 1 or not _all_int8(cfg):
+        return [linear(x, w, generator=generator) for w in weights]
+    _check_generator(cfg, generator)
+    x2d = x.reshape(-1, x.shape[-1])
+    outs = _MPLinearShared.apply(cfg, generator, x2d, *(w.data for w in weights))
+    return [o.reshape(*x.shape[:-1], w.data.shape[0]) for o, w in zip(outs, weights)]

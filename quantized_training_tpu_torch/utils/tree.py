@@ -1,0 +1,58 @@
+"""Parameter trees: nested dicts of tensors with MixedPrecisionWeight
+wrappers (no JAX counterpart: JAX's pytrees do this there).
+
+A ``MixedPrecisionWeight`` is a node whose one leaf is its ``data``, as the
+JAX package registers it. Dict keys are visited in sorted order, as JAX
+flattens dicts, so that sums over the leaves run in the JAX package's order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from ..quant.mixed_precision import MixedPrecisionWeight
+
+
+def tree_flatten(tree) -> tuple[list, object]:
+    """-> (leaves, treedef); :func:`tree_unflatten` inverts it."""
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        if isinstance(t, MixedPrecisionWeight):
+            return dataclasses.replace(t, data=walk(t.data))
+        leaves.append(t)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves: list):
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, MixedPrecisionWeight):
+            return dataclasses.replace(t, data=build(t.data))
+        return next(it)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of ``tree`` and of ``rest`` (trees of the same
+    structure), leaf by leaf."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_leaves(r) for r in rest]
+    if any(len(o) != len(leaves) for o in others):
+        raise ValueError("tree_map: trees of different structure")
+    return tree_unflatten(treedef, [fn(*ls) for ls in zip(leaves, *others)])

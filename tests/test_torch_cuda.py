@@ -3,8 +3,8 @@
 Marked ``cuda``: without a CUDA card every test here skips (decided in a
 fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
-this file does not need). Tolerance everywhere: none — K1 and K2 are
-bit-exact with their plain versions by construction.
+this file does not need). Tolerance everywhere: none — every kernel is
+bit-exact with its plain version by construction.
 """
 
 import pytest
@@ -64,19 +64,84 @@ def test_scaled_mm_bit_exact(M, N, K, scale_dtype, out_dtype):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (64, 128), (130, 200), (256, 2048), (8192, 256), (1000, 5632),
+                                   (2048, 5632)])
+def test_quantize_colwise_and_both_bit_exact(shape, dtype):
+    """B4 and B5, ragged shapes (rows not a multiple of the 64-row split,
+    columns not of the 16-byte vector) and an all-zero row and column."""
+    x = _rand(shape, dtype, 3)
+    x[0] = 0
+    x[:, -1] = 0
+    q, s = ops.quantize_int8_colwise(x)
+    torch.cuda.synchronize()
+    q_ref, s_ref = ops.quantize_int8_plain(x, axis=0)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    got = ops.quantize_int8_both(x)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ops.quantize_int8_both_plain(x)):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_quantize_colwise_and_both_unaligned_view():
+    """A view starting off a 16-byte boundary takes the scalar loops."""
+    base = _rand((9, 512), torch.bfloat16, 4).reshape(-1)
+    x = base[1:1 + 8 * 512].view(8, 512)
+    q, s = ops.quantize_int8_colwise(x)
+    assert torch.equal(q, ops.quantize_int8_plain(x, axis=0)[0])
+    for a, b in zip(ops.quantize_int8_both(x), ops.quantize_int8_both_plain(x)):
+        assert torch.equal(a, b)
+
+
+def _int8(shape, g):
+    return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N,K", [(16, 32, 16), (130, 208, 256), (8192, 256, 256), (96, 2048, 8192),
+                                   (200, 5632, 2048)])
+def test_scaled_mm_backward_forms_bit_exact(M, N, K, scale_dtype, out_dtype):
+    """B1 (a [M, K] . b [K, N]) and B2 (a [K, M]^T . b [K, N]); ragged M and
+    N against the 64x64 tile, K = 256 and 8192 (the token contraction of
+    grad_weight)."""
+    g = torch.Generator(device="cuda").manual_seed(M + N + K)
+    sa = (torch.rand(M, 1, generator=g, device="cuda") * 0.01).to(scale_dtype)
+    sb = (torch.rand(1, N, generator=g, device="cuda") * 0.01).to(scale_dtype)
+    a, b = _int8((M, K), g), _int8((K, N), g)
+    out = ops.scaled_mm(a, b, sa, sb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.scaled_mm_plain(a, b, sa, sb, out_dtype=out_dtype))
+    if M % 16 == 0:
+        at = _int8((K, M), g)
+        out = ops.scaled_mm_lhs_t(at, b, sa, sb, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.scaled_mm_lhs_t_plain(at, b, sa, sb, out_dtype=out_dtype))
+
+
 def test_scaled_mm_rejects_what_it_cannot_take():
     a = torch.zeros(8, 24, dtype=torch.int8, device="cuda")
     s = torch.ones(8, 1, device="cuda")
     with pytest.raises(ValueError, match="K % 16"):
         ops.scaled_mm_rhs_t(a, a, s, s.T)
-    with pytest.raises(NotImplementedError):
-        ops.scaled_mm_general(a, a, s, s.T, dims=(1, 0))
+    b = torch.zeros(32, 24, dtype=torch.int8, device="cuda")  # N = 24 is no multiple of 16
+    with pytest.raises(ValueError, match="row length a multiple of 16"):
+        ops.scaled_mm_general(b[:8, :16].contiguous(), b[:16], s, torch.ones(1, 24, device="cuda"), dims=(1, 0))
+    with pytest.raises(NotImplementedError, match="B15"):
+        ops.scaled_mm(a[:, :16].contiguous(), a[:, :16].T.contiguous(), torch.ones(2, 1, device="cuda"), s.T)
 
 
 def test_launch_counters_count_kernel_launches_only():
     ops.reset_launch_counts()
-    x = _rand((8, 64), torch.bfloat16, 2)
+    x = _rand((64, 64), torch.bfloat16, 2)
     q, s = ops.quantize_int8_rowwise(x)
+    qc, sc = ops.quantize_int8_colwise(x)
+    qr, sr, qc2, sc2 = ops.quantize_int8_both(x)
     ops.scaled_mm_rhs_t(q, q, s, s.T)
+    ops.scaled_mm(qr, qc, sr, sc)
+    ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)
     ops.quantize_int8_plain(x)
-    assert ops.launch_counts() == {"quantize_int8_rowwise": 1, "scaled_mm_rhs_t": 1}
+    ops.quantize_int8_both_plain(x)
+    ops.scaled_mm_plain(qr, qc, sr, sc)
+    ops.scaled_mm_lhs_t_plain(qc2, qc, sc2, sc)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)

@@ -95,15 +95,22 @@ def test_stochastic_rounding_cpu_unbiased_and_deterministic():
         core.quantize_int8(x, stochastic_rounding=True)
 
 
-def test_device_path_raises_off_the_kernel():
+def test_device_path_raises_off_the_kernel(monkeypatch):
     """Every non-CPU tensor takes the device path; a meta tensor reaches it
-    without a card. Column quantize and SR have no kernel there and raise
-    NotImplementedError (never a silent plain-torch run on the card); a
-    non-CUDA device tensor is refused by K1's wrapper."""
+    without a card. The row and the column quantize go to their kernels'
+    wrappers (K1, B4), which refuse a non-CUDA device, and never to the
+    plain version; SR has no kernel there and raises NotImplementedError."""
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a device tensor")
+
+    monkeypatch.setattr(int8_quant, "quantize_int8_plain", no_plain)
+    monkeypatch.setattr(core, "quantize_int8_plain", no_plain)
     x = torch.empty(8, 64, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+    with pytest.raises(ValueError, match="quantize_int8_colwise: needs a CPU or CUDA tensor"):
         core.quantize_int8(x, axis=0)
+    with pytest.raises(ValueError, match="quantize_int8_rowwise: needs a CPU or CUDA tensor"):
+        core.quantize_int8(x)
     with pytest.raises(NotImplementedError, match="ROADMAP B3"):
         core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator())
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        core.quantize_int8(x)
+    with pytest.raises(NotImplementedError, match="axis=1 of a 3-D"):
+        core.quantize_int8(torch.empty(2, 8, 64, device="meta"), axis=1)

@@ -11,10 +11,10 @@ import torch
 
 from quantized_training_tpu.ops import pallas_mm
 from quantized_training_tpu.quant import core as jcore
-from quantized_training_tpu_torch.ops import scaled_mm
 
-# the JAX ops package exports a function of the module's name
+# both ops packages export a function of the module's name
 jmm = importlib.import_module("quantized_training_tpu.ops.scaled_mm")
+scaled_mm = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 
 K = 192
 _OUT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -103,13 +103,16 @@ def test_scalar_scales_broadcast():
     assert torch.equal(got, full)
 
 
-def test_device_path_raises_off_the_kernel():
-    """A meta tensor takes the device path without a card: the training
-    forms have no kernel there and raise NotImplementedError, and K2's
-    wrapper refuses a non-CUDA device."""
-    a = torch.empty(8, 32, dtype=torch.int8, device="meta")
-    s = torch.empty(8, 1, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        scaled_mm.scaled_mm_general(a, a, s, s.T, dims=(1, 0))
-    with pytest.raises(ValueError, match="one CUDA device"):
-        scaled_mm.scaled_mm_general(a, a, s, s.T, dims=(1, 1))
+def test_device_path_raises_off_the_kernel(monkeypatch):
+    """A meta tensor takes the device path without a card: every dims form
+    goes to its kernel's wrapper (K2, B1, B2), which refuses a non-CUDA
+    device, and never to the plain version."""
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a device tensor")
+
+    monkeypatch.setattr(scaled_mm, "_plain", no_plain)
+    a = torch.empty(32, 32, dtype=torch.int8, device="meta")
+    s = torch.empty(32, 1, device="meta")
+    for dims in ((1, 1), (1, 0), (0, 0)):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            scaled_mm.scaled_mm_general(a, a, s, s.T, dims=dims)
