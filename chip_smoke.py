@@ -7,8 +7,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    compiled with nvcc, one process per source (seconds printed);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (K1, K2) and of the training step (K1 and B4 on
-   every activation and weight, B5, B1, B2, and K2 at 8192 tokens):
-   bit-exact, timed with CUDA events;
+   every activation and weight, B5, B1, B2, and K2 at 8192 tokens), the
+   stochastic-rounding forms of K1, B4 and B5 with the same key, and B6
+   (the fused AdamW update, SR writeback off and on) at every parameter
+   shape of Llama2-1B: bit-exact, timed with CUDA events;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
@@ -22,10 +24,20 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    fall, every step launches each kernel the number of times the code
    implies, and the same steps in bf16 start from the same loss;
 7. kernel path against plain path: the loss and every gradient of a
-   2-layer cut at full width, fp32 and bf16, on the card against the CPU.
+   2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
+   rounding from one key, on the card against the CPU;
+8. ``bench.py``'s step: Llama2-1B, tokens [4, 4, 2048] (4 x 4 gradient
+   accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
+   1e-4; three steps int8 ``mixed_precision``, then three bf16: tokens/s,
+   the int8/bf16 ratio, peak memory, exact launch counts (B6 once per
+   parameter leaf);
+9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
+   and ``--optim adamw_bf16_sr``): three steps at batch 4 x 2048 in which
+   only the SR forms of K1, B4, B5 and B6 launch.
 
-The last lines are the kernel table as JSON, the nvidia-smi line, and
-``{"ok": true, "device": {...}}``.
+Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
+seeded with ``--seed``. The last lines are the kernel table as JSON, the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -37,6 +49,7 @@ import dataclasses
 import json
 import subprocess
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -44,7 +57,7 @@ import torch
 from quantized_training_tpu_torch import ops, optim, quant, train
 from quantized_training_tpu_torch.models import llama, llama_infer
 from quantized_training_tpu_torch.models.serving import Server
-from quantized_training_tpu_torch.ops import _build
+from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
 SEED = 0
@@ -57,8 +70,15 @@ D, F, KVD = CFG.hidden_size, CFG.intermediate_size, CFG.num_key_value_heads * CF
 SERVING_KERNELS = ("quantize_int8_rowwise", "scaled_mm_rhs_t")  # K1, K2
 TRAIN_B, TRAIN_S = 4, 2048  # llm_pretrain.py's defaults
 TOKENS = TRAIN_B * TRAIN_S
+BENCH_ACCUM = 4  # bench.py: effective batch 16 as 4 x 4 accumulation
 # (name, out, in) of every quantized linear of a layer; q/o, gate/up share a shape
 LINEARS = (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F))
+WEIGHTS = [(o, i) for _, o, i in LINEARS]
+# every parameter shape of Llama2-1B (embedding and lm_head, the stacked
+# layers' q/o, k/v, gate/up, down and norms, the final norm)
+PARAM_SHAPES = [(CFG.vocab_size, D), (CFG.num_hidden_layers, D, D), (CFG.num_hidden_layers, KVD, D),
+                (CFG.num_hidden_layers, F, D), (CFG.num_hidden_layers, D, F), (CFG.num_hidden_layers, D), (D,)]
+SR_NAMES = ("quantize_int8_rowwise_sr", "quantize_int8_colwise_sr", "quantize_int8_both_sr")
 
 
 def check(cond: bool, what: str) -> None:
@@ -180,7 +200,8 @@ def check_k2(gen: torch.Generator) -> dict:
 
 
 def _entry(name, replaces, worst, timed):
-    src = "int8_quant.cu" if name.startswith("quantize") else "scaled_mm.cu"
+    src = ("int8_quant.cu" if name.startswith("quantize") else
+           "fused_adamw.cu" if name.startswith("fused_adamw") else "scaled_mm.cu")
     return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
             "replaces": replaces, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
             "plain_ms": timed[2]}
@@ -264,6 +285,78 @@ def check_training_gemms(gen: torch.Generator) -> list:
                    timed["scaled_mm"]),
             _entry("scaled_mm_lhs_t", "quantized_training_tpu/ops/pallas_mm.py:192", worst["scaled_mm_lhs_t"],
                    timed["scaled_mm_lhs_t"])]
+
+
+def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
+    """The SR forms of K1, B4 and B5 at the training step's shapes (K1 and
+    B4 on the activations and every weight, B5 on the output gradients)
+    against their plain versions with the same key: bit-exact, since both
+    draw the same Philox words and compute the same floor(x / scale + u).
+    Each is timed beside its round-to-nearest form, with GB/s of the bytes
+    the algorithm needs (K1: one read of x and one int8 write; B4: two
+    reads and one write; B5: two reads and two writes)."""
+    out = []
+    for name, kernel, plain, shapes, reads, writes, replaces in (
+        ("quantize_int8_rowwise_sr", ops.quantize_int8_rowwise, ops.quantize_int8_plain,
+         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, 1, "quantized_training_tpu/ops/pallas_quant.py:98"),
+        ("quantize_int8_colwise_sr", ops.quantize_int8_colwise, partial(ops.quantize_int8_plain, axis=0),
+         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 2, 1, "quantized_training_tpu/ops/pallas_quant.py:220"),
+        ("quantize_int8_both_sr", ops.quantize_int8_both, ops.quantize_int8_both_plain,
+         [(TOKENS, D), (TOKENS, KVD), (TOKENS, F)], 2, 2, "quantized_training_tpu/ops/pallas_quant.py:276"),
+    ):
+        sr_kernel, sr_plain = partial(kernel, sr=True, key=key), partial(plain, sr=True, key=key)
+        worst, timed = 0.0, None
+        for shape in shapes:
+            x = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
+            x[0] = 0  # an all-zero row and column
+            x[:, 1] = 0
+            got, ref = sr_kernel(x), sr_plain(x)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"{name} bit-exact at {list(shape)}")
+            check(not torch.equal(got[0], kernel(x)[0]), f"{name} at {list(shape)} differs from round-to-nearest")
+            worst = max(worst, _max_err(got, ref))
+            inputs = copies(x)
+            ms, rn_ms, plain_ms = time_ms(sr_kernel, inputs), time_ms(kernel, inputs), time_ms(sr_plain, inputs)
+            mb = x.numel() * (2 * reads + writes) / 1e6
+            print(f"[3] {name} {list(shape)} bf16: bit-exact; SR kernel {ms:.4f} ms ({mb / ms:.0f} GB/s), "
+                  f"round-to-nearest kernel {rn_ms:.4f} ms ({mb / rn_ms:.0f} GB/s), plain SR {plain_ms:.4f} ms")
+            if shape == (TOKENS, F):
+                timed = (shape, ms, plain_ms)
+        out.append(_entry(name, replaces, worst, timed))
+    return out
+
+
+def check_fused_adamw(gen: torch.Generator, key: int) -> list:
+    """B6 at every parameter shape of Llama2-1B, bf16 parameters, SR
+    writeback off and on, against its plain version (eager torch ops on
+    the card) with the same key: bit-exact in the new parameter and both
+    moments; timed, with GB/s of the 14 bytes per parameter it must move
+    (p, g, m, v read, p, m, v written, all bf16)."""
+    t = 3  # the step's bias corrections, as adamw_bf16_sr forms them
+    scalars = torch.tensor([1e-4, 0.9, 0.999, 1e-2, 1e-8, 1 - 0.9**t, 1 - 0.999**t], device=DEVICE)
+    worst, timed = {False: 0.0, True: 0.0}, {}
+    for shape in PARAM_SHAPES:
+        p = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        g = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
+        ea = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
+        eas = (torch.rand(shape, generator=gen, device=DEVICE) * 1e-7).to(torch.bfloat16)
+        for sr in (False, True):
+            kernel = partial(ops.fused_adamw_update, scalars=scalars, key=key, bf16_sr=sr)
+            plain = partial(ops.fused_adamw_plain, scalars=scalars, key=key, bf16_sr=sr)
+            got, ref = kernel(p, g, ea, eas), plain(p, g, ea, eas)
+            torch.cuda.synchronize()
+            form = "SR writeback" if sr else "round-to-nearest"
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"B6 {form} bit-exact at {list(shape)}")
+            worst[sr] = max(worst[sr], _max_err(got, ref))
+            inputs = copies(p, g, ea, eas)
+            ms, plain_ms = time_ms(kernel, inputs, iters=8), time_ms(plain, inputs, iters=8)
+            print(f"[3] fused_adamw_update {list(shape)} bf16, {form}: bit-exact; kernel {ms:.4f} ms "
+                  f"({14 * p.numel() / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms")
+            if shape == (CFG.num_hidden_layers, F, D):
+                timed[sr] = (shape, ms, plain_ms)
+    replaces = "quantized_training_tpu/ops/pallas_optim.py:79"
+    return [_entry("fused_adamw_update", replaces, worst[False], timed[False]),
+            _entry("fused_adamw_update_sr", replaces, worst[True], timed[True])]
 
 
 def mixed_requests(vocab: int):
@@ -368,24 +461,31 @@ def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agre
     check(rms <= max_rms and agree >= min_agree, f"{dtype} kernel path within tolerance of the plain path")
 
 
-def per_step_launches(L: int) -> dict:
-    """Kernel launches of one int8 train step of L layers, from the code
-    (pinned on the CPU by tests/test_torch_train.py::test_kernel_calls_per_step):
+def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_sr: int = 0) -> dict:
+    """Kernel launches of one train step of L int8 layers (L = 0 for bf16),
+    from the code (pinned on the CPU by tests/test_torch_train.py::
+    test_kernel_calls_per_step and test_kernel_calls_per_step_sr_slice):
     a layer has 7 quantized weights (q, k, v, o, gate, up, down) behind 4
     inputs (q/k/v and gate/up share one). Forward: K1 for 7 weights + 4
     inputs, K2 per weight; remat runs the forward twice. Backward: per
     weight B5 (its output grad), B4 (the weight), B1 and B2; B4 also once
-    per input."""
-    return {"quantize_int8_rowwise": 2 * 11 * L, "quantize_int8_colwise": 11 * L,
-            "quantize_int8_both": 7 * L, "scaled_mm_rhs_t": 2 * 7 * L, "scaled_mm": 7 * L,
-            "scaled_mm_lhs_t": 7 * L}
+    per input. All of that once per micro-batch, each quantize in its SR
+    form with ``sr``; then B6 once per parameter leaf (``b6``, or
+    ``b6_sr`` with the SR writeback)."""
+    tag = "_sr" if sr else ""
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    counts.update({f"quantize_int8_rowwise{tag}": 2 * 11 * L * micro, f"quantize_int8_colwise{tag}": 11 * L * micro,
+                   f"quantize_int8_both{tag}": 7 * L * micro, "scaled_mm_rhs_t": 2 * 7 * L * micro,
+                   "scaled_mm": 7 * L * micro, "scaled_mm_lhs_t": 7 * L * micro,
+                   "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
+    return counts
 
 
-def run_steps(params, cfg, tokens, labels, n_steps: int, expect: dict | None):
-    """n_steps of make_train_step(cfg, adamw(weight_decay=1e-2)) at lr 3e-4
-    on one batch: per step the loss, wall seconds (ends in a synchronize)
-    and, when ``expect`` is given, the launch counts checked against it."""
-    opt = optim.adamw(weight_decay=1e-2)
+def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: int, expect: dict | None):
+    """n_steps of make_train_step(cfg, opt) at ``lr`` on one batch, step i
+    with the key ``fold_in(key, i)``: per step the loss, wall seconds (ends
+    in a synchronize) and, when ``expect`` is given, the launch counts
+    checked against it."""
     step = train.make_train_step(cfg, opt)
     state = train.init_train_state(params, opt)
     losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
@@ -393,7 +493,7 @@ def run_steps(params, cfg, tokens, labels, n_steps: int, expect: dict | None):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        state, m = step(state, tokens, labels, 3e-4)
+        state, m = step(state, tokens, labels, lr, random.fold_in(key, i))
         loss = m["loss"].item()  # synchronizes
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
@@ -407,44 +507,111 @@ def run_steps(params, cfg, tokens, labels, n_steps: int, expect: dict | None):
     return losses, walls, launches
 
 
-def train_slice(seed: int) -> dict:
-    """Phase 6: Llama2-1B, full width and depth, int8 mixed_precision, then
-    the same steps in bf16 from the same weights and batch."""
-    cfg = dataclasses.replace(CFG, remat=True, attention_impl="auto")
-    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
-    rng = np.random.default_rng(seed)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S))).to(DEVICE)
-    labels = torch.roll(tokens, -1, dims=1)
+def int8_vs_bf16(phase: int, what: str, raw, cfg, tokens, labels, opt, lr: float, key: int,
+                 expect_int8: dict, expect_bf16: dict | None):
+    """Three steps int8 mixed_precision, then three bf16, from the same
+    weights, batch and keys: the losses fall, the first-step losses agree
+    within 1e-2; prints tokens/s of steps 2-3 (step 1 warms up), the ratio
+    and each run's peak memory. Returns (int8 losses, int8 launches)."""
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    L = cfg.num_hidden_layers
-    q_losses, q_walls, launches = run_steps(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels, 3,
-                                            per_step_launches(L))
+    q_losses, q_walls, launches = run_steps(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels,
+                                            opt, lr, key, 3, expect_int8)
     q_peak = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    b_losses, b_walls, _ = run_steps(raw, cfg, tokens, labels, 3, None)
+    b_losses, b_walls, _ = run_steps(raw, cfg, tokens, labels, opt, lr, key, 3, expect_bf16)
     b_peak = torch.cuda.max_memory_allocated() / 2**30
-    tps = lambda walls: TOKENS * (len(walls) - 1) / sum(walls[1:])  # steps 2-3: step 1 warms up
-    print(f"[6] Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}: "
-          f"int8 losses {q_losses}, step walls {[round(w, 4) for w in q_walls]} s; "
+    n_tok = tokens.numel()
+    tps = lambda walls: n_tok * (len(walls) - 1) / sum(walls[1:])
+    print(f"[{phase}] {what}: int8 losses {q_losses}, step walls {[round(w, 4) for w in q_walls]} s; "
           f"bf16 losses {b_losses}, step walls {[round(w, 4) for w in b_walls]} s")
-    print(f"[6] tokens/s (steps 2-3, wall with torch.cuda.synchronize()): int8 {tps(q_walls):.1f}, "
-          f"bf16 {tps(b_walls):.1f} (int8/bf16 {tps(q_walls) / tps(b_walls):.3f}); peak device memory "
-          f"int8 {q_peak:.2f} GiB, bf16 {b_peak:.2f} GiB; launches per int8 step {per_step_launches(L)}")
-    check(q_losses[2] < q_losses[0], f"int8 loss falls: {q_losses}")
+    print(f"[{phase}] tokens/s ({n_tok} tokens per step, steps 2-3, wall with torch.cuda.synchronize()): "
+          f"int8 {tps(q_walls):.1f}, bf16 {tps(b_walls):.1f} (int8/bf16 {tps(q_walls) / tps(b_walls):.3f}); "
+          f"peak device memory int8 {q_peak:.2f} GiB, bf16 {b_peak:.2f} GiB; launches per int8 step "
+          f"{ {k: v for k, v in expect_int8.items() if v} }")
+    check(q_losses[2] < q_losses[0] and b_losses[2] < b_losses[0], f"losses fall: {q_losses}, {b_losses}")
     rel = abs(b_losses[0] - q_losses[0]) / abs(b_losses[0])
     check(rel <= 1e-2, f"int8 first loss within 1e-2 of bf16's: {rel:.3e}")
-    print(f"[6] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2)")
+    print(f"[{phase}] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2)")
+    return q_losses, launches
+
+
+def train_cfg_and_batch(seed: int, shape):
+    """Llama2-1B as the training phases run it (remat, SDPA) and a token
+    batch of ``shape`` from ``seed``, labels the tokens shifted by one."""
+    cfg = dataclasses.replace(CFG, remat=True, attention_impl="auto")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)).to(DEVICE)
+    return cfg, tokens, torch.roll(tokens, -1, dims=-1)
+
+
+def train_slice(raw, seed: int, key: int):
+    """Phase 6: llm_pretrain.py's defaults (batch 4 x 2048, remat, adamw
+    with weight decay 1e-2, lr 3e-4), Llama2-1B at full width and depth,
+    int8 mixed_precision, then the same steps in bf16 from the same weights
+    and batch. Returns the int8 losses and launches."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
+    what = (f"Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}")
+    return int8_vs_bf16(6, what, raw, cfg, tokens, labels, optim.adamw(weight_decay=1e-2), 3e-4, key,
+                        per_step_launches(cfg.num_hidden_layers), per_step_launches(0))
+
+
+def bench_step(raw, seed: int, key: int) -> dict:
+    """Phase 8: bench.py's step (``build_step("llama2-1b", 4, 2048, scheme,
+    accum=4)``): tokens [4, 4, 2048], remat, adamw_bf16_sr without the SR
+    writeback, lr 1e-4, int8 mixed_precision without SR, then bf16. Each
+    int8 step launches 4 x the per-micro-batch counts, and each step of
+    both B6 (round-to-nearest) once per parameter leaf. Returns the int8
+    launches."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
+    n_leaves = len(tree_leaves(raw))
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    what = (f"bench.py's step (Llama2-1B, tokens [{BENCH_ACCUM}, {TRAIN_B}, {TRAIN_S}], remat, SDPA, "
+            f"adamw_bf16_sr without SR, lr 1e-4, {n_leaves} parameter leaves), seed {seed}")
+    _, launches = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
+                               per_step_launches(cfg.num_hidden_layers, micro=BENCH_ACCUM, b6=n_leaves),
+                               per_step_launches(0, b6=n_leaves))
     return launches
 
 
-def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float) -> None:
+def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
+    """Phase 9: llm_pretrain.py with stochastic_rounding and ``--optim
+    adamw_bf16_sr`` (SR writeback on, weight decay 1e-2, lr 3e-4) at batch
+    4 x 2048, remat: only the SR forms of K1, B4, B5 and B6 launch, each as
+    often as phase 6's forms per step; the losses fall and the first is
+    within 1e-2 of phase 6's round-to-nearest int8 first loss (same weights
+    and batch). Returns the launches."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
+    n_leaves = len(tree_leaves(raw))
+    params = quant.quantize_params(raw, "mixed_precision", stochastic_rounding=True)
+    opt = optim.get_optimizer("adamw_bf16_sr", weight_decay=1e-2)
+    expect = per_step_launches(cfg.num_hidden_layers, sr=True, b6_sr=n_leaves)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls, launches = run_steps(params, cfg, tokens, labels, opt, 3e-4, key, 3, expect)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = abs(losses[0] - rn_first_loss) / abs(rn_first_loss)
+    print(f"[9] SR configuration (Llama2-1B, B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, int8 mixed_precision with "
+          f"stochastic_rounding, adamw_bf16_sr with the SR writeback, lr 3e-4), seed {seed}: losses {losses}, "
+          f"step walls {[round(w, 4) for w in walls]} s, tokens/s (steps 2-3) "
+          f"{TOKENS * (len(walls) - 1) / sum(walls[1:]):.1f}; peak device memory {peak:.2f} GiB; launches per "
+          f"step { {k: v for k, v in expect.items() if v} }")
+    print(f"[9] first-step loss SR vs round-to-nearest int8 (phase 6): relative {rel:.3e} (bound 1e-2)")
+    check(losses[2] < losses[0], f"SR loss falls: {losses}")
+    check(rel <= 1e-2, f"SR first loss within 1e-2 of the round-to-nearest one: {rel:.3e}")
+    return launches
+
+
+def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float, sr_key: int | None = None):
     """Phase 7: the loss and every gradient leaf of a 2-layer cut of
     Llama2-1B (full width, weights from ``seed``), int8 mixed_precision,
     one micro-step on 256 tokens, the kernels on the card against the plain
-    versions on the CPU. Bounds: relative RMS of each leaf's difference
-    <= ``max_rms``; relative loss difference <= ``max_dloss``.
+    versions on the CPU; with ``sr_key``, stochastic rounding from that key
+    on both devices, which draws the same noise on both. Bounds: relative
+    RMS of each leaf's difference <= ``max_rms``; relative loss difference
+    <= ``max_dloss``.
 
     Every kernel is bit-exact, so the two paths differ where the torch ops
     around them round differently, and int8 rounding flips in the forward
@@ -463,13 +630,15 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
     lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
     res = {}
+    sr = sr_key is not None
     for dev, params in ((DEVICE, raw), ("cpu", to_cpu(raw))):
-        loss, grads = train.loss_and_grads(cfg, quant.quantize_params(params, "mixed_precision"), tok.to(dev),
-                                           lab.to(dev))
+        qparams = quant.quantize_params(params, "mixed_precision", stochastic_rounding=sr)
+        loss, grads = train.loss_and_grads(cfg, qparams, tok.to(dev), lab.to(dev), sr_key)
         res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
     rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
     dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
-    print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]} grads (256 tokens), kernels on the card vs plain on the CPU: "
+    print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]}{' SR' if sr else ''} grads (256 tokens), "
+          "kernels on the card vs plain on the CPU: "
           f"loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} (relative {dloss:.2e}); worst leaf relative RMS "
           f"{max(rms):.3e}, per leaf {[f'{r:.1e}' for r in rms]} (bounds {max_rms:g}, loss {max_dloss:g})")
     check(max(rms) <= max_rms and dloss <= max_dloss, f"{dtype} gradients within tolerance of the plain path")
@@ -477,25 +646,37 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seed", type=int, default=SEED, help="seed of the training batch (phase 6)")
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="seed of the training batches and of the steps' key (phases 6-9)")
     args = parser.parse_args()
     smi = card()
     build()
+    key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     serving = [check_k1(gen), check_k2(gen)]
     training = [*check_training_quantizes(gen), *check_training_gemms(gen)]
+    sr_forms = check_sr_quantizes(gen, key)
+    adamw = check_fused_adamw(gen, key)
     launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
     for e in serving:
         e["launches"] = launches[e["name"]]
     kernel_vs_plain_path(SEED, torch.float32, 3e-2, 0.95)
     kernel_vs_plain_path(SEED, torch.bfloat16, 1e-1, 0.85)
-    launches = train_slice(args.seed)
-    check(all(v > 0 for v in launches.values()), f"every kernel launched on the training path: {launches}")
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), CFG)
+    q_losses, launches = train_slice(raw, args.seed, key)
     for e in training:
         e["launches"] = launches[e["name"]]
     grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3)
     grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3)
-    print(json.dumps({"kernels": serving + training}))
+    grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, sr_key=random.fold_in(key, 7))
+    launches = bench_step(raw, args.seed, key)
+    adamw[0]["launches"] = launches["fused_adamw_update"]
+    launches = sr_config(raw, args.seed, key, q_losses[0])
+    for e in [*sr_forms, adamw[1]]:
+        e["launches"] = launches[e["name"]]
+    kernels = serving + training + sr_forms + adamw
+    check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

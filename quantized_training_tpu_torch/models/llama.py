@@ -14,6 +14,15 @@ producer-fused kernels of ``quant/fused.py`` and ``ops/pallas_rope.py`` are
 not ported yet (ROADMAP A6, B7-B14). On the TPU the JAX package ran JAX's
 splash attention; its counterpart here is ``F.scaled_dot_product_attention``.
 ``save_qkv_residuals``, the HF-json loader and ``bitnet`` are not carried.
+
+Stochastic rounding draws from an int key (``ops/random.py``) folded as the
+JAX package folds it: ``fold_in(key, l)`` for layer l, then ``fold_in(.,
+0)`` for the q/k/v projections and ``fold_in(., 3)`` / ``fold_in(., 4)``
+for the o-projection and the MLP (gate/up ``fold_in(., 0)``, down
+``fold_in(., 1)``), and ``fold_in(key, 0x7FFFFFFF)`` for the lm_head. The
+JAX package's ``fold_in(key, 0x5EED)`` seeds ``prequantize_step``, which is
+not ported. The key enters each checkpointed layer as an argument, so the
+replay in the backward rounds exactly as the forward did.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cross_entropy import IGNORE_INDEX, fused_linear_cross_entropy
+from ..ops.random import fold_in
 from ..quant import qlinear, qlinear_multi
 from ..quant.mixed_precision import MixedPrecisionWeight
 
@@ -188,31 +198,33 @@ def silu_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (af * torch.sigmoid(af)).to(a.dtype) * b
 
 
-def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin):
+def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     """Norm + QKV projections + RoPE (JAX :402-427, unfused)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     h = rms_norm(x, lp["attn_norm"]["g"], cfg.rms_norm_eps)
-    q, k, v = qlinear_multi(h, [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]])
+    q, k, v = qlinear_multi(h, [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]], key=fold_in(key, 0))
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, S, KV, hd), cos, sin)
     return q, k, v.reshape(B, S, KV, hd)
 
 
-def _post_attn_part(cfg: LlamaConfig, x, ctx, lp):
+def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int):
     """O-projection + MLP with residuals (JAX :430-472, unfused:
-    ``mlp_linear``'s fallback is ``norm_linear_multi`` + ``silu_mul_linear``)."""
-    x = x + qlinear(ctx, lp["o"]["w"])
+    ``mlp_linear``'s fallback is ``norm_linear_multi`` + ``silu_mul_linear``,
+    with the keys of ``quant/fused.py:698-701``)."""
+    x = x + qlinear(ctx, lp["o"]["w"], key=fold_in(key, 3))
+    mlp_key = fold_in(key, 4)
     h = rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
-    gate, up = qlinear_multi(h, [lp["gate"]["w"], lp["up"]["w"]])
-    return x + qlinear(silu_mul(gate, up), lp["down"]["w"])
+    gate, up = qlinear_multi(h, [lp["gate"]["w"], lp["up"]["w"]], key=fold_in(mlp_key, 0))
+    return x + qlinear(silu_mul(gate, up), lp["down"]["w"], key=fold_in(mlp_key, 1))
 
 
-def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin):
+def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     B, S, _ = x.shape
-    q, k, v = _qkv_part(cfg, x, lp, cos, sin)
+    q, k, v = _qkv_part(cfg, x, lp, cos, sin, key)
     ctx = attention(q, k, v, cfg.attention_impl).reshape(B, S, cfg.num_attention_heads * cfg.head_dim)
-    return _post_attn_part(cfg, x, ctx, lp)
+    return _post_attn_part(cfg, x, ctx, lp, key)
 
 
 def _unstack_layers(layers: dict, L: int) -> list[dict]:
@@ -234,42 +246,52 @@ def _unstack_layers(layers: dict, L: int) -> list[dict]:
     return [pick(cut_layers, l) for l in range(L)]
 
 
-def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D] (JAX :505-565).
+    ``key`` (an int, 0 when None as the JAX package's ``PRNGKey(0)``) seeds
+    stochastic rounding inside the quantized linears; layer l takes
+    ``fold_in(key, l)`` (JAX :560).
 
     With ``cfg.remat`` every decoder layer is one ``torch.utils.checkpoint``
     (non-reentrant): its activations are recomputed in the backward, only
-    the layer input is kept. The JAX policy also keeps splash attention's
-    (out, lse) residuals, which its non-TPU path does not have either."""
+    the layer input is kept, and the layer's key is one of its arguments.
+    The JAX policy also keeps splash attention's (out, lse) residuals, which
+    its non-TPU path does not have either."""
     _require_no_bitnet(cfg)
+    key = 0 if key is None else key
     B, S = tokens.shape
     x = params["embed"]["embedding"][tokens.long()]
     cos, sin = rope_tables(cfg, S, device=tokens.device)
     layer = partial(_decoder_layer, cfg)
-    for lp in _unstack_layers(params["layers"], cfg.num_hidden_layers):
+    for l, lp in enumerate(_unstack_layers(params["layers"], cfg.num_hidden_layers)):
+        lkey = fold_in(key, l)
         if cfg.remat:
-            x = checkpoint(layer, x, lp, cos, sin, use_reentrant=False)
+            x = checkpoint(layer, x, lp, cos, sin, lkey, use_reentrant=False)
         else:
-            x = layer(x, lp, cos, sin)
+            x = layer(x, lp, cos, sin, lkey)
     return rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)
 
 
-def forward(params, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    """tokens [B, S] -> logits [B, S, V] (model dtype)."""
-    return qlinear(backbone(params, tokens, cfg), lm_head_weight(params, cfg))
+def forward(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = None) -> torch.Tensor:
+    """tokens [B, S] -> logits [B, S, V] (model dtype); the lm_head takes
+    ``fold_in(key, 0x7FFFFFFF)`` (JAX :582)."""
+    key = 0 if key is None else key
+    x = backbone(params, tokens, cfg, key)
+    return qlinear(x, lm_head_weight(params, cfg), key=fold_in(key, 0x7FFFFFFF))
 
 
-def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor, cfg: LlamaConfig,
+            key: int | None = None) -> torch.Tensor:
     """fp32 token-mean cross entropy; labels == -100 are ignored (JAX
     :585-618). A plain lm_head takes the chunked fused loss, which never
     materializes the logits; a quantized one the explicit logits."""
     lm_w = lm_head_weight(params, cfg)
     labels = labels.reshape(-1)
     if isinstance(lm_w, torch.Tensor):
-        x = backbone(params, tokens, cfg)
+        x = backbone(params, tokens, cfg, key)
         nll_sum, n_valid = fused_linear_cross_entropy(x.reshape(-1, x.shape[-1]), lm_w, labels)
         return nll_sum / n_valid.clamp(min=1)
-    logits = forward(params, tokens, cfg).float()
+    logits = forward(params, tokens, cfg, key).float()
     logits = logits.reshape(-1, logits.shape[-1])
     valid = labels != IGNORE_INDEX
     logp = torch.log_softmax(logits, dim=-1)

@@ -1,6 +1,6 @@
 """Kernel-level ops of the port.
 
-Counterpart of ``quantized_training_tpu/ops/__init__.py``. Six hand-written
+Counterpart of ``quantized_training_tpu/ops/__init__.py``. Seven hand-written
 CUDA kernels, each with a plain PyTorch version that CPU tensors take:
 
 - K1 :func:`quantize_int8_rowwise` (``csrc/int8_quant.cu``), replacing
@@ -14,13 +14,21 @@ CUDA kernels, each with a plain PyTorch version that CPU tensors take:
 - B1 :func:`scaled_mm` (``csrc/scaled_mm.cu``), replacing
   ``ops/pallas_mm.py::scaled_mm``;
 - B2 :func:`scaled_mm_lhs_t` (``csrc/scaled_mm.cu``), replacing
-  ``ops/pallas_mm.py::scaled_mm_dims`` with dims (0, 0).
+  ``ops/pallas_mm.py::scaled_mm_dims`` with dims (0, 0);
+- B6 :func:`fused_adamw_update` (``csrc/fused_adamw.cu``), replacing
+  ``ops/pallas_optim.py::fused_adamw_update``.
 
-Each wrapper counts its kernel launches (:func:`launch_counts`), so a run can
-show that its path went through the kernels. Importing this package builds
-nothing: the kernels compile at their first launch (``ops/_build.py``).
+K1, B4 and B5 also have a stochastic-rounding form, and B6 an SR writeback,
+drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``).
+
+Each wrapper counts its kernel launches (:func:`launch_counts`), an SR form
+apart from its plain form, so a run can show that its path went through the
+kernels and which form ran. Importing this package builds nothing: the
+kernels compile at their first launch (``ops/_build.py``).
 """
 
+from . import random
+from .fused_adamw import fused_adamw_plain, fused_adamw_update
 from .int8_quant import (
     quantize_int8_both,
     quantize_int8_both_plain,
@@ -39,30 +47,39 @@ from .scaled_mm import (
     scaled_mm_rhs_t_plain,
 )
 
+# counter name -> (wrapper, the attribute it counts in)
 KERNELS = {
-    "quantize_int8_rowwise": quantize_int8_rowwise,
-    "quantize_int8_colwise": quantize_int8_colwise,
-    "quantize_int8_both": quantize_int8_both,
-    "scaled_mm_rhs_t": scaled_mm_rhs_t,
-    "scaled_mm": scaled_mm,
-    "scaled_mm_lhs_t": scaled_mm_lhs_t,
+    "quantize_int8_rowwise": (quantize_int8_rowwise, "launches"),
+    "quantize_int8_rowwise_sr": (quantize_int8_rowwise, "sr_launches"),
+    "quantize_int8_colwise": (quantize_int8_colwise, "launches"),
+    "quantize_int8_colwise_sr": (quantize_int8_colwise, "sr_launches"),
+    "quantize_int8_both": (quantize_int8_both, "launches"),
+    "quantize_int8_both_sr": (quantize_int8_both, "sr_launches"),
+    "scaled_mm_rhs_t": (scaled_mm_rhs_t, "launches"),
+    "scaled_mm": (scaled_mm, "launches"),
+    "scaled_mm_lhs_t": (scaled_mm_lhs_t, "launches"),
+    "fused_adamw_update": (fused_adamw_update, "launches"),
+    "fused_adamw_update_sr": (fused_adamw_update, "sr_launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Kernel launches per counter since the last :func:`reset_launch_counts`."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "random",
+    "fused_adamw_plain",
+    "fused_adamw_update",
     "quantize_int8_both",
     "quantize_int8_both_plain",
     "quantize_int8_colwise",

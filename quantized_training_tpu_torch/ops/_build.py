@@ -1,18 +1,20 @@
 """Build and bind the port's CUDA kernels (no JAX counterpart).
 
-``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``:
-one ``nvcc -c`` per source, all started together, then one link into a
-shared library, which it loads with ``ctypes``. The library carries a plain
-C interface (no PyTorch headers), so a build takes seconds: 5.5-6.3 s for
-the two sources, against 9.6-10.0 s for one ``nvcc -shared`` over both
+``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
+(``philox.cuh``, the random stream, is included by two of them): one ``nvcc
+-c`` per source, all started together, then one link into a shared library,
+which it loads with ``ctypes``. The library carries a plain C interface (no
+PyTorch headers), so a build takes seconds: 5.5-6.3 s for ``int8_quant.cu``
+and ``scaled_mm.cu``, against 9.6-10.0 s for one ``nvcc -shared`` over both
 (H100 machine, 8 cores, build alone, alternating order). It lands in
 ``build/qt_torch_kernels/`` at the repository root, named by a hash of the
-sources, so an edited source rebuilds and an unchanged one is reused.
-nvcc's ``-Xptxas -v`` report (registers, shared memory, spills per kernel)
+sources and headers, so an edited source rebuilds and an unchanged one is
+reused. nvcc's ``-Xptxas -v`` report (registers, shared memory, spills per kernel)
 is kept beside it as ``build.log``.
 
 Every entry point returns the launch's ``cudaError_t``; the wrappers in
-``ops/int8_quant.py`` and ``ops/scaled_mm.py`` raise when it is not 0.
+``ops/int8_quant.py``, ``ops/scaled_mm.py`` and ``ops/fused_adamw.py`` raise
+when it is not 0.
 """
 
 from __future__ import annotations
@@ -34,20 +36,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P = ctypes.c_void_p
+_P, _I, _I64, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
 _SIGNATURES = {
-    # x, q, scale, M, K, eps, is_bf16, stream
-    "qt_quantize_int8_rowwise": (
-        _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, _P,
-    ),
-    # x, q, scale, amax, R, C, eps, is_bf16, stream
-    "qt_quantize_int8_colwise": (
-        _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, _P,
-    ),
-    # x, q_row, s_row, q_col, s_col, amax, M, K, eps, is_bf16, stream
+    # x, q, scale, M, K, eps, is_bf16, sr, key, stream
+    "qt_quantize_int8_rowwise": (_P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
+    # x, q, scale, amax, R, C, eps, is_bf16, sr, key, stream
+    "qt_quantize_int8_colwise": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
+    # x, q_row, s_row, q_col, s_col, amax, M, K, eps, is_bf16, sr, key_row, key_col, stream
     "qt_quantize_int8_both": (
-        _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _U64, _P,
     ),
+    # p, g, ea, eas, scalars, new_p, new_ea, new_eas, n, p_is_bf16, sr, key, stream
+    "qt_fused_adamw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _U64, _P),
     # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, stream
     "qt_scaled_mm_s8": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -77,7 +77,7 @@ def sources() -> list[Path]:
 
 def _digest(srcs: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in sorted([*srcs, *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

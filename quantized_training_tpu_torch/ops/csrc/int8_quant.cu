@@ -34,12 +34,26 @@
 // shared memory (a thread owns the same columns in every row, so no atomics
 // there) and merges it into the fp32 [K] buffer once per block. Pass 2 is
 // B4's column cast. Bytes: two reads of x and two int8 writes.
+//
+// Stochastic rounding (the SR forms of K1, B4 and B5, replacing the
+// ``sr=True`` bodies of pallas_quant.py:98-106 / :120-125, :220-225 and
+// :276-302): q = floor(x / max(scale, eps) + u), clamped, with the same
+// IEEE division, where u is element (r, c)'s word r * C + c of the key's
+// Philox stream (philox.cuh) whatever the order the threads run in. The
+// SR cast is a template flag of the same kernels: a thread that owns 8
+// bf16 (or 4 fp32) elements of one 16-byte vector draws them from 2 (or 1)
+// Philox calls, since the vector starts at a multiple of 4. That adds about
+// 20 integer operations per element to the cast pass, which stays under
+// the memory time of the pass. B5 draws its row and its column cast from
+// two keys the wrapper derives from the call's key.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -54,11 +68,36 @@ __device__ __forceinline__ void store_scale(__nv_bfloat16* p, float s) {
   *p = __float2bfloat16_rn(s);
 }
 
+__device__ __forceinline__ int8_t clamp_int8(float r) {
+  return static_cast<int8_t>(fminf(fmaxf(r, -128.0f), 127.0f));
+}
+
 __device__ __forceinline__ int8_t quant_one(float v, float denom) {
   // rintf rounds half to even, as jnp.round / torch.round do
-  float r = rintf(__fdiv_rn(v, denom));
-  r = fminf(fmaxf(r, -128.0f), 127.0f);
-  return static_cast<int8_t>(r);
+  return clamp_int8(rintf(__fdiv_rn(v, denom)));
+}
+
+// floor(x / denom + u) with u = uniform_of(word): ops/random.py's order of
+// operations, each rounded once (no contraction into an FMA)
+__device__ __forceinline__ int8_t quant_one_sr(float v, float denom, uint32_t word) {
+  return clamp_int8(floorf(__fadd_rn(__fdiv_rn(v, denom), qt::uniform_of(word))));
+}
+
+template <bool SR>
+__device__ __forceinline__ int8_t quant(float v, float denom, uint32_t word) {
+  return SR ? quant_one_sr(v, denom, word) : quant_one(v, denom);
+}
+
+// The stream words of a 16-byte vector's N elements starting at idx0
+// (a multiple of 4); nothing is drawn without SR.
+template <bool SR, int N>
+__device__ __forceinline__ void vec_words(uint64_t idx0, uint64_t key, uint32_t (&w)[N]) {
+  if (SR) {
+    qt::stream_words<N>(idx0, key, w);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) w[j] = 0u;
+  }
 }
 
 template <int N> struct PackOf;
@@ -85,10 +124,11 @@ __device__ __forceinline__ float row_absmax(const T* __restrict__ xr, int64_t K,
   return amax;
 }
 
-// Cast the same elements to int8 given the row's max(scale, eps).
-template <typename T, int STRIDE>
+// Cast the same elements to int8 given the row's max(scale, eps); ``base``
+// is the row's first element index in the stream of ``key`` (SR only).
+template <typename T, int STRIDE, bool SR>
 __device__ __forceinline__ void row_cast(const T* __restrict__ xr, int8_t* __restrict__ qr, int64_t K,
-                                         bool vec, int tid, float denom) {
+                                         bool vec, int tid, float denom, uint64_t base, uint64_t key) {
   constexpr int N = 16 / sizeof(T);
   using Pack = typename PackOf<N>::type;
   if (vec) {
@@ -97,16 +137,19 @@ __device__ __forceinline__ void row_cast(const T* __restrict__ xr, int8_t* __res
     for (int64_t i = tid; i < K / N; i += STRIDE) {
       uint4 u = xv[i];
       const T* e = reinterpret_cast<const T*>(&u);
+      uint32_t w[N];
+      vec_words<SR, N>(base + i * N, key, w);
       union {
         Pack p;
         int8_t c[N];
       } out;
 #pragma unroll
-      for (int j = 0; j < N; ++j) out.c[j] = quant_one(to_f32(e[j]), denom);
+      for (int j = 0; j < N; ++j) out.c[j] = quant<SR>(to_f32(e[j]), denom, w[j]);
       qv[i] = out.p;
     }
   } else {
-    for (int64_t i = tid; i < K; i += STRIDE) qr[i] = quant_one(to_f32(xr[i]), denom);
+    for (int64_t i = tid; i < K; i += STRIDE)
+      qr[i] = quant<SR>(to_f32(xr[i]), denom, SR ? qt::philox_word(base + i, key) : 0u);
   }
 }
 
@@ -117,24 +160,24 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Short rows (K < kBlockRowMinK, e.g. KV rows of hd = 64): one warp per row.
-template <typename T>
+template <typename T, bool SR>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_warp(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
-                   int64_t M, int64_t K, float eps, bool vec) {
+                   int64_t M, int64_t K, float eps, bool vec, uint64_t key) {
   const int lane = threadIdx.x & 31;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= M) return;  // whole warps leave together
   const float s = __fdiv_rn(warp_max(row_absmax<T, 32>(x + row * K, K, vec, lane)), 127.0f);
-  row_cast<T, 32>(x + row * K, q + row * K, K, vec, lane, fmaxf(s, eps));
+  row_cast<T, 32, SR>(x + row * K, q + row * K, K, vec, lane, fmaxf(s, eps), row * K, key);
   if (lane == 0) store_scale(scale + row, s);
 }
 
 // Long rows (activations and weights, K >= kBlockRowMinK): one block per
 // row, so even the 8 rows of a decode step spread over 8 SMs.
-template <typename T>
+template <typename T, bool SR>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_block(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
-                    int64_t K, float eps, bool vec) {
+                    int64_t K, float eps, bool vec, uint64_t key) {
   __shared__ float part[kThreads / 32];
   const int64_t row = blockIdx.x;
   float amax = warp_max(row_absmax<T, kThreads>(x + row * K, K, vec, threadIdx.x));
@@ -143,22 +186,24 @@ quantize_rows_block(const T* __restrict__ x, int8_t* __restrict__ q, T* __restri
 #pragma unroll
   for (int w = 0; w < kThreads / 32; ++w) amax = fmaxf(amax, part[w]);
   const float s = __fdiv_rn(amax, 127.0f);
-  row_cast<T, kThreads>(x + row * K, q + row * K, K, vec, threadIdx.x, fmaxf(s, eps));
+  row_cast<T, kThreads, SR>(x + row * K, q + row * K, K, vec, threadIdx.x, fmaxf(s, eps), row * K, key);
   if (threadIdx.x == 0) store_scale(scale + row, s);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, void* q, void* scale, int64_t M, int64_t K, float eps,
+template <typename T, bool SR>
+cudaError_t launch(const void* x, void* q, void* scale, int64_t M, int64_t K, float eps, uint64_t key,
                    cudaStream_t stream) {
   const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (K % (16 / sizeof(T)) == 0);
   const T* xt = static_cast<const T*>(x);
   int8_t* qt = static_cast<int8_t*>(q);
   T* st = static_cast<T*>(scale);
   if (K >= kBlockRowMinK) {
-    quantize_rows_block<T><<<static_cast<unsigned int>(M), kThreads, 0, stream>>>(xt, qt, st, K, eps, vec);
+    quantize_rows_block<T, SR><<<static_cast<unsigned int>(M), kThreads, 0, stream>>>(xt, qt, st, K, eps, vec,
+                                                                                     key);
   } else {
     const int64_t blocks = (M + kThreads / 32 - 1) / (kThreads / 32);
-    quantize_rows_warp<T><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(xt, qt, st, M, K, eps, vec);
+    quantize_rows_warp<T, SR><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(xt, qt, st, M, K, eps,
+                                                                                         vec, key);
   }
   return cudaGetLastError();
 }
@@ -217,10 +262,10 @@ col_absmax(const T* __restrict__ x, float* __restrict__ amax, int64_t R, int64_t
 
 // Cast rows [64 * blockIdx.y, +64) with the column scales amax / 127; the
 // first row of blocks also stores the scales in x's dtype.
-template <typename T>
+template <typename T, bool SR>
 __global__ void __launch_bounds__(kThreads)
 col_cast(const T* __restrict__ x, const float* __restrict__ amax, int8_t* __restrict__ q,
-         T* __restrict__ scale, int64_t R, int64_t C, float eps, bool vec) {
+         T* __restrict__ scale, int64_t R, int64_t C, float eps, bool vec, uint64_t key) {
   constexpr int N = 16 / sizeof(T);
   using Pack = typename PackOf<N>::type;
   const int tx = threadIdx.x % kColThreadsX, ty = threadIdx.x / kColThreadsX;
@@ -238,20 +283,23 @@ col_cast(const T* __restrict__ x, const float* __restrict__ amax, int8_t* __rest
   for (int64_t r = r0 + ty; r < r1; r += kColThreadsY) {
     const T* xr = x + r * C + c0;
     int8_t* qr = q + r * C + c0;
+    const uint64_t idx0 = r * C + c0;  // this vector's first index in the stream
     if (vec) {
       uint4 u = *reinterpret_cast<const uint4*>(xr);
       const T* e = reinterpret_cast<const T*>(&u);
+      uint32_t w[N];
+      vec_words<SR, N>(idx0, key, w);
       union {
         Pack p;
         int8_t c[N];
       } out;
 #pragma unroll
-      for (int j = 0; j < N; ++j) out.c[j] = quant_one(to_f32(e[j]), denom[j]);
+      for (int j = 0; j < N; ++j) out.c[j] = quant<SR>(to_f32(e[j]), denom[j], w[j]);
       *reinterpret_cast<Pack*>(qr) = out.p;
     } else {
 #pragma unroll
       for (int j = 0; j < N; ++j)
-        if (c0 + j < C) qr[j] = quant_one(to_f32(xr[j]), denom[j]);
+        if (c0 + j < C) qr[j] = quant<SR>(to_f32(xr[j]), denom[j], SR ? qt::philox_word(idx0 + j, key) : 0u);
     }
   }
 }
@@ -261,10 +309,11 @@ col_cast(const T* __restrict__ x, const float* __restrict__ amax, int8_t* __rest
 // column's running max; merged into amax[K] once at the end. With ``vec``
 // the thread owning vector i keeps column i * N + j at colmax[j * nv + i]
 // (nv = K / N vectors), so a warp's shared-memory accesses hit distinct banks.
-template <typename T>
+template <typename T, bool SR>
 __global__ void __launch_bounds__(kThreads)
 quantize_both_rows(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
-                   float* __restrict__ amax, int64_t M, int64_t K, int64_t rpb, float eps, bool vec) {
+                   float* __restrict__ amax, int64_t M, int64_t K, int64_t rpb, float eps, bool vec,
+                   uint64_t key) {
   constexpr int N = 16 / sizeof(T);
   extern __shared__ float colmax[];
   __shared__ float part[2][kThreads / 32];
@@ -304,7 +353,7 @@ quantize_both_rows(const T* __restrict__ x, int8_t* __restrict__ q, T* __restric
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) a = fmaxf(a, pw[w]);
     const float s = __fdiv_rn(a, 127.0f);
-    row_cast<T, kThreads>(xr, q + row * K, K, vec, threadIdx.x, fmaxf(s, eps));
+    row_cast<T, kThreads, SR>(xr, q + row * K, K, vec, threadIdx.x, fmaxf(s, eps), row * K, key);
     if (threadIdx.x == 0) store_scale(scale + row, s);
   }
   __syncthreads();
@@ -328,23 +377,24 @@ bool vec_ok(const void* x, int64_t cols) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0 && cols % (16 / sizeof(T)) == 0;
 }
 
-template <typename T>
+template <typename T, bool SR>
 cudaError_t launch_colwise(const void* x, void* q, void* scale, float* amax, int64_t R, int64_t C,
-                           float eps, cudaStream_t stream) {
+                           float eps, uint64_t key, cudaStream_t stream) {
   const bool vec = vec_ok<T>(x, C);
   const T* xt = static_cast<const T*>(x);
   cudaError_t err = cudaMemsetAsync(amax, 0, C * sizeof(float), stream);
   if (err != cudaSuccess) return err;
   col_absmax<T><<<col_grid<T>(R, C), kThreads, 0, stream>>>(xt, amax, R, C, vec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  col_cast<T><<<col_grid<T>(R, C), kThreads, 0, stream>>>(xt, amax, static_cast<int8_t*>(q),
-                                                          static_cast<T*>(scale), R, C, eps, vec);
+  col_cast<T, SR><<<col_grid<T>(R, C), kThreads, 0, stream>>>(xt, amax, static_cast<int8_t*>(q),
+                                                              static_cast<T*>(scale), R, C, eps, vec, key);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SR>
 cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, void* s_col,
-                        float* amax, int64_t M, int64_t K, float eps, cudaStream_t stream) {
+                        float* amax, int64_t M, int64_t K, float eps, uint64_t key_row, uint64_t key_col,
+                        cudaStream_t stream) {
   const bool vec = vec_ok<T>(x, K);
   const T* xt = static_cast<const T*>(x);
   cudaError_t err = cudaMemsetAsync(amax, 0, K * sizeof(float), stream);
@@ -353,52 +403,59 @@ cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, vo
   const int64_t rpb = std::min<int64_t>(kMaxBothRowsPerBlock, std::max<int64_t>(1, M / 264));
   const size_t smem = static_cast<size_t>(K) * sizeof(float);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(quantize_both_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(quantize_both_rows<T, SR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const unsigned int blocks = static_cast<unsigned int>((M + rpb - 1) / rpb);
-  quantize_both_rows<T><<<blocks, kThreads, smem, stream>>>(
-      xt, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), amax, M, K, rpb, eps, vec);
+  quantize_both_rows<T, SR><<<blocks, kThreads, smem, stream>>>(
+      xt, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), amax, M, K, rpb, eps, vec, key_row);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  col_cast<T><<<col_grid<T>(M, K), kThreads, 0, stream>>>(xt, amax, static_cast<int8_t*>(q_col),
-                                                          static_cast<T*>(s_col), M, K, eps, vec);
+  col_cast<T, SR><<<col_grid<T>(M, K), kThreads, 0, stream>>>(xt, amax, static_cast<int8_t*>(q_col),
+                                                              static_cast<T*>(s_col), M, K, eps, vec, key_col);
   return cudaGetLastError();
 }
 
+// The four (dtype, SR) instantiations of a launcher, picked at run time.
+#define QT_DISPATCH(LAUNCH, is_bf16, sr, ...)                              \
+  ((is_bf16) ? ((sr) ? LAUNCH<__nv_bfloat16, true>(__VA_ARGS__)          \
+                     : LAUNCH<__nv_bfloat16, false>(__VA_ARGS__))        \
+             : ((sr) ? LAUNCH<float, true>(__VA_ARGS__) : LAUNCH<float, false>(__VA_ARGS__)))
+
 }  // namespace
 
-// Returns the launch's cudaError_t (0 on success). is_bf16: x and scale are
-// bf16, else fp32. x and q are contiguous [M, K]; scale is [M].
-extern "C" int qt_quantize_int8_rowwise(const void* x, void* q, void* scale, int64_t M,
-                                        int64_t K, float eps, int is_bf16, void* stream) {
+// Every entry point returns the launch's cudaError_t (0 on success).
+// is_bf16: x and the scales are bf16, else fp32. sr: round stochastically
+// from the Philox stream of ``key`` (philox.cuh), else to nearest even.
+
+// x and q are contiguous [M, K]; scale is [M].
+extern "C" int qt_quantize_int8_rowwise(const void* x, void* q, void* scale, int64_t M, int64_t K, float eps,
+                                        int is_bf16, int sr, uint64_t key, void* stream) {
   if (M <= 0 || K <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch<__nv_bfloat16>(x, q, scale, M, K, eps, s)
-                                  : launch<float>(x, q, scale, M, K, eps, s));
+  return static_cast<int>(QT_DISPATCH(launch, is_bf16, sr, x, q, scale, M, K, eps, key, s));
 }
 
-// Returns the launch's cudaError_t. x and q are contiguous [R, C]; scale is
-// [C]; amax is fp32 scratch of C floats.
-extern "C" int qt_quantize_int8_colwise(const void* x, void* q, void* scale, void* amax, int64_t R,
-                                        int64_t C, float eps, int is_bf16, void* stream) {
+// x and q are contiguous [R, C]; scale is [C]; amax is fp32 scratch of C
+// floats.
+extern "C" int qt_quantize_int8_colwise(const void* x, void* q, void* scale, void* amax, int64_t R, int64_t C,
+                                        float eps, int is_bf16, int sr, uint64_t key, void* stream) {
   if (R <= 0 || C <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(amax);
-  return static_cast<int>(is_bf16 ? launch_colwise<__nv_bfloat16>(x, q, scale, a, R, C, eps, s)
-                                  : launch_colwise<float>(x, q, scale, a, R, C, eps, s));
+  return static_cast<int>(QT_DISPATCH(launch_colwise, is_bf16, sr, x, q, scale, a, R, C, eps, key, s));
 }
 
-// Returns the launch's cudaError_t. x, q_row and q_col are contiguous
-// [M, K]; s_row is [M], s_col [K]; amax is fp32 scratch of K floats, and
-// K * 4 bytes must fit in a block's shared memory (K <= 58112).
-extern "C" int qt_quantize_int8_both(const void* x, void* q_row, void* s_row, void* q_col,
-                                     void* s_col, void* amax, int64_t M, int64_t K, float eps,
-                                     int is_bf16, void* stream) {
+// x, q_row and q_col are contiguous [M, K]; s_row is [M], s_col [K]; amax
+// is fp32 scratch of K floats, and K * 4 bytes must fit in a block's shared
+// memory (K <= 58112). The row cast draws from key_row, the column cast
+// from key_col.
+extern "C" int qt_quantize_int8_both(const void* x, void* q_row, void* s_row, void* q_col, void* s_col,
+                                     void* amax, int64_t M, int64_t K, float eps, int is_bf16, int sr,
+                                     uint64_t key_row, uint64_t key_col, void* stream) {
   if (M <= 0 || K <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(amax);
-  return static_cast<int>(
-      is_bf16 ? launch_both<__nv_bfloat16>(x, q_row, s_row, q_col, s_col, a, M, K, eps, s)
-              : launch_both<float>(x, q_row, s_row, q_col, s_col, a, M, K, eps, s));
+  return static_cast<int>(QT_DISPATCH(launch_both, is_bf16, sr, x, q_row, s_row, q_col, s_col, a, M, K, eps,
+                                      key_row, key_col, s));
 }

@@ -7,40 +7,68 @@ Counterparts of ``quantized_training_tpu/ops/pallas_quant.py``:
 - B5 :func:`quantize_int8_both` for ``quantize_int8_both`` (:306).
 
 All three have the numerics of ``quantized_training_tpu/quant/core.py::
-quantize_int8`` (:99-115), which each kernel matches bit for bit. The CUDA
-source is ``csrc/int8_quant.cu``; its header says what bounds the kernels on
-the H100 and how their design answers that.
+quantize_int8`` (:99-115), which each kernel matches bit for bit. Each takes
+``sr`` and ``key``: with ``sr`` it rounds stochastically, floor(x / scale +
+u), where u of element (r, c) is the uniform at the row-major index r * C +
+c of the key's Philox stream (``ops/random.py``), the SR forms of the
+Pallas kernels (``pallas_quant.py:98-106, :220-225, :276-302``). The SR
+forms are bit-exact with their plain versions too, and count their
+launches apart (``sr_launches``). The CUDA source is
+``csrc/int8_quant.cu``; its header says what bounds the kernels on the H100
+and how their design answers that.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, random
 
 EPS = 1e-12
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def quantize_int8_plain(x: torch.Tensor, *, axis: int = -1, eps: float = EPS,
-                        noise: torch.Tensor | None = None):
+def _key(sr: bool, key: int | None) -> int:
+    """The key an SR call draws from (0, unused, without SR)."""
+    if not sr:
+        return 0
+    if key is None:
+        raise ValueError("stochastic rounding requires a key")
+    return key
+
+
+def quantize_int8_plain(x: torch.Tensor, *, axis: int = -1, eps: float = EPS, sr: bool = False,
+                        key: int | None = None):
     """``quant/core.py:99-115`` in torch: absmax along ``axis`` (taken in x's
     dtype, exact), scale = absmax / 127 in fp32, q = round-half-even(x /
-    max(scale, eps)) (or floor(x / scale + noise) for stochastic rounding)
-    clipped to int8; the scale is returned in x's dtype, keepdims."""
+    max(scale, eps)), or with ``sr`` floor(x / max(scale, eps) + u) with u
+    from the stream of ``key``, clipped to int8; the scale is returned in
+    x's dtype, keepdims."""
+    key = _key(sr, key)
     absmax = x.abs().amax(dim=axis, keepdim=True).float()
     # divide by a tensor: PyTorch's CUDA kernels turn division by a Python
     # scalar into a multiply by its reciprocal, which is not IEEE division
     scale = absmax / absmax.new_full((), 127.0)
     q = x.float() / scale.clamp(min=eps)
-    q = torch.floor(q + noise) if noise is not None else torch.round(q)
+    q = torch.floor(q + random.uniform(key, x.shape, x.device)) if sr else torch.round(q)
     return q.clamp(-128, 127).to(torch.int8), scale.to(x.dtype)
 
 
-def quantize_int8_both_plain(x: torch.Tensor, *, eps: float = EPS):
+def quantize_int8_both_plain(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
     """Plain version of B5: the row and the column quantize of x [M, K],
-    ``(q_row, s_row [M, 1], q_col, s_col [1, K])``."""
-    return (*quantize_int8_plain(x, axis=1, eps=eps), *quantize_int8_plain(x, axis=0, eps=eps))
+    ``(q_row, s_row [M, 1], q_col, s_col [1, K])``; with ``sr`` the row
+    quantize draws from ``split(key)[0]`` and the column one from
+    ``split(key)[1]`` (``quant/core.py:167``)."""
+    kr, kc = random.split(_key(sr, key)) if sr else (None, None)
+    return (*quantize_int8_plain(x, axis=1, eps=eps, sr=sr, key=kr),
+            *quantize_int8_plain(x, axis=0, eps=eps, sr=sr, key=kc))
+
+
+def _count(fn, sr: bool) -> None:
+    if sr:
+        fn.sr_launches += 1
+    else:
+        fn.launches += 1
 
 
 def _check_device_input(x: torch.Tensor, what: str, ndim: int | None = None) -> None:
@@ -54,12 +82,14 @@ def _check_device_input(x: torch.Tensor, what: str, ndim: int | None = None) -> 
         raise ValueError(f"{what}: needs a non-empty {ndim}-D tensor, got shape {tuple(x.shape)}")
 
 
-def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS):
+def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
     """x [..., K] -> (q int8 [..., K], scale x.dtype [..., 1]), reducing the
-    last axis. A CPU tensor takes :func:`quantize_int8_plain`; a CUDA tensor
-    (bf16 or fp32, contiguous) launches K1 on the current stream."""
+    last axis, rounding stochastically from ``key`` with ``sr``. A CPU tensor
+    takes :func:`quantize_int8_plain`; a CUDA tensor (bf16 or fp32,
+    contiguous) launches K1, or its SR form, on the current stream."""
     if x.device.type == "cpu":
-        return quantize_int8_plain(x, eps=eps)
+        return quantize_int8_plain(x, eps=eps, sr=sr, key=key)
+    key = _key(sr, key)
     _check_device_input(x, "quantize_int8_rowwise")
     if x.ndim == 0:
         raise ValueError("quantize_int8_rowwise: x must have a last axis")
@@ -69,23 +99,25 @@ def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS):
     scale = torch.empty((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
     err = _build.library().qt_quantize_int8_rowwise(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K, eps,
-        int(x.dtype == torch.bfloat16), _build.stream(),
+        int(x.dtype == torch.bfloat16), int(sr), key, _build.stream(),
     )
     _build.check(err, "quantize_int8_rowwise")
-    quantize_int8_rowwise.launches += 1
+    _count(quantize_int8_rowwise, sr)
     return q, scale
 
 
-quantize_int8_rowwise.launches = 0
+quantize_int8_rowwise.launches = quantize_int8_rowwise.sr_launches = 0
 
 
-def quantize_int8_colwise(x: torch.Tensor, *, eps: float = EPS):
+def quantize_int8_colwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
     """x [R, C] -> (q int8 [R, C], scale x.dtype [1, C]), reducing the first
-    axis. A CPU tensor takes ``quantize_int8_plain(x, axis=0)``; a CUDA
-    tensor (bf16 or fp32, contiguous, non-empty) launches B4 on the current
+    axis, rounding stochastically from ``key`` with ``sr``. A CPU tensor
+    takes ``quantize_int8_plain(x, axis=0)``; a CUDA tensor (bf16 or fp32,
+    contiguous, non-empty) launches B4, or its SR form, on the current
     stream."""
     if x.device.type == "cpu":
-        return quantize_int8_plain(x, axis=0, eps=eps)
+        return quantize_int8_plain(x, axis=0, eps=eps, sr=sr, key=key)
+    key = _key(sr, key)
     _check_device_input(x, "quantize_int8_colwise", ndim=2)
     R, C = x.shape
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
@@ -93,27 +125,30 @@ def quantize_int8_colwise(x: torch.Tensor, *, eps: float = EPS):
     amax = torch.empty(C, dtype=torch.float32, device=x.device)
     err = _build.library().qt_quantize_int8_colwise(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), R, C, eps,
-        int(x.dtype == torch.bfloat16), _build.stream(),
+        int(x.dtype == torch.bfloat16), int(sr), key, _build.stream(),
     )
     _build.check(err, "quantize_int8_colwise")
-    quantize_int8_colwise.launches += 1
+    _count(quantize_int8_colwise, sr)
     return q, scale
 
 
-quantize_int8_colwise.launches = 0
+quantize_int8_colwise.launches = quantize_int8_colwise.sr_launches = 0
 
 # B5 keeps a row of column maxima in one block's shared memory: K fp32 values
 # within the 227 KB a block may use
 _BOTH_MAX_K = 227 * 1024 // 4
 
 
-def quantize_int8_both(x: torch.Tensor, *, eps: float = EPS):
+def quantize_int8_both(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
     """x [M, K] -> ``(q_row, s_row [M, 1], q_col, s_col [1, K])``: the row
-    and the column quantize of one tensor in two reads. A CPU tensor takes
+    and the column quantize of one tensor in two reads, with ``sr`` each
+    from its own key of ``split(key)``. A CPU tensor takes
     :func:`quantize_int8_both_plain`; a CUDA tensor (bf16 or fp32,
-    contiguous, non-empty, K <= 58112) launches B5 on the current stream."""
+    contiguous, non-empty, K <= 58112) launches B5, or its SR form, on the
+    current stream."""
     if x.device.type == "cpu":
-        return quantize_int8_both_plain(x, eps=eps)
+        return quantize_int8_both_plain(x, eps=eps, sr=sr, key=key)
+    key_row, key_col = random.split(_key(sr, key)) if sr else (0, 0)
     _check_device_input(x, "quantize_int8_both", ndim=2)
     M, K = x.shape
     if K > _BOTH_MAX_K:
@@ -125,11 +160,12 @@ def quantize_int8_both(x: torch.Tensor, *, eps: float = EPS):
     amax = torch.empty(K, dtype=torch.float32, device=x.device)
     err = _build.library().qt_quantize_int8_both(
         x.data_ptr(), q_row.data_ptr(), s_row.data_ptr(), q_col.data_ptr(), s_col.data_ptr(),
-        amax.data_ptr(), M, K, eps, int(x.dtype == torch.bfloat16), _build.stream(),
+        amax.data_ptr(), M, K, eps, int(x.dtype == torch.bfloat16), int(sr), key_row, key_col,
+        _build.stream(),
     )
     _build.check(err, "quantize_int8_both")
-    quantize_int8_both.launches += 1
+    _count(quantize_int8_both, sr)
     return q_row, s_row, q_col, s_col
 
 
-quantize_int8_both.launches = 0
+quantize_int8_both.launches = quantize_int8_both.sr_launches = 0

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.random import fold_in
 from . import mixed_precision as _mp
 from .configs import MixedPrecisionConfig
 
@@ -24,22 +25,24 @@ def is_quant_weight(x) -> bool:
     return isinstance(x, QUANT_TYPES)
 
 
-def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, generator=None):
-    """y = x @ w.T + bias, dispatched on the weight wrapper type."""
+def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, key: int | None = None):
+    """y = x @ w.T + bias, dispatched on the weight wrapper type; ``key``
+    (an int, ``ops/random.py``) seeds stochastic rounding."""
     if isinstance(w, _mp.MixedPrecisionWeight):
-        return _mp.linear(x, w, bias, generator=generator)
+        return _mp.linear(x, w, bias, key=key)
     out = x @ w.T
     return out + bias if bias is not None else out
 
 
-def qlinear_multi(x: torch.Tensor, weights, *, generator=None):
+def qlinear_multi(x: torch.Tensor, weights, *, key: int | None = None):
     """[y_i = x @ w_i.T] for several heads sharing one input. For
     mixed-precision all-int8 weights the shared input is quantized ONCE for
     all heads, and once in the backward (``mixed_precision.linear_shared``);
-    other weights take independent :func:`qlinear` calls."""
+    other weights take independent :func:`qlinear` calls, head i with
+    ``fold_in(key, i)`` (JAX :126-132)."""
     if all(isinstance(w, _mp.MixedPrecisionWeight) for w in weights):
-        return _mp.linear_shared(x, weights, generator=generator)
-    return [qlinear(x, w, generator=generator) for w in weights]
+        return _mp.linear_shared(x, weights, key=key)
+    return [qlinear(x, w, key=None if key is None else fold_in(key, i)) for i, w in enumerate(weights)]
 
 
 def _is_linear_weight_path(path) -> bool:
@@ -102,6 +105,7 @@ def merge_masters(vparams, qparams):
     return vparams
 
 
-def commit_params(new_vparams, qparams):
-    """Updated masters -> new storage tree."""
+def commit_params(new_vparams, qparams, key: int | None = None):
+    """Updated masters -> new storage tree. ``key`` seeds the stochastic
+    re-quantization of the storage-quantized schemes (not ported)."""
     return new_vparams

@@ -14,6 +14,12 @@ contraction axis, so the scales stay off the reduction dim:
   B2. With both backward matmuls int8, g is quantized along both axes by
   B5 (two reads of g).
 
+Stochastic rounding draws from a key (an int, ``ops/random.py``), derived
+where the JAX package derives its keys: ``fold_in(key, 0/1/2/3)`` per use
+(``_subkey``), a ``split`` per pair of operands. The autograd Functions
+keep the key in ``ctx``, so a checkpointed layer replayed with the same key
+rounds the same way, and no two quantizes of one call share a stream.
+
 No operand is transposed in memory. Only ``dtype='int8'`` is ported: int4
 and fp8 raise. ``PreQuantMPWeight`` (per-step pre-quantized weights) is not
 ported. The JAX package pads the token dim to a multiple of 256 above 1024
@@ -27,6 +33,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm_general
 from .configs import MixedPrecisionConfig
 from .core import quantize_int8, quantize_int8_both
@@ -66,28 +73,36 @@ def _all_int8(config: MixedPrecisionConfig) -> bool:
     return config.dtype == "int8" and config.output and config.grad_input and config.grad_weight
 
 
-def _dynamic_int8_mm(a, b, sr: bool, generator, dims=(1, 0)):
+def _subkey(key: int, i: int) -> int:
+    return fold_in(key, i)
+
+
+def _dynamic_int8_mm(a, b, sr: bool, key: int | None, dims=(1, 0)):
     """Contract a over dims[0] and b over dims[1], both dynamically
-    quantized to INT8 along their contraction axis."""
-    a_i8, sa = quantize_int8(a, axis=dims[0], stochastic_rounding=sr, generator=generator)
-    b_i8, sb = quantize_int8(b, axis=dims[1], stochastic_rounding=sr, generator=generator)
+    quantized to INT8 along their contraction axis, each operand from its
+    own half of ``split(key)`` under SR (JAX :72-75)."""
+    ka, kb = split(key) if sr else (None, None)
+    a_i8, sa = quantize_int8(a, axis=dims[0], stochastic_rounding=sr, key=ka)
+    b_i8, sb = quantize_int8(b, axis=dims[1], stochastic_rounding=sr, key=kb)
     return scaled_mm_general(a_i8, b_i8, sa, sb, dims=dims, out_dtype=a.dtype)
 
 
-def _mp_forward(config: MixedPrecisionConfig, x2d, w, generator=None):
+def _mp_forward(config: MixedPrecisionConfig, x2d, w, key: int):
     """x2d [B, in] @ w.T [in, out]; w is [out, in]."""
     _require_int8(config)
+    sr = config.stochastic_rounding
     if config.output:
-        return _dynamic_int8_mm(x2d, w, config.stochastic_rounding, generator, dims=(1, 1))
+        return _dynamic_int8_mm(x2d, w, sr, _subkey(key, 0), dims=(1, 1))
     return x2d @ w.T
 
 
-def _grads_both_int8(g, w, x_col, x_col_s, sr, generator):
+def _grads_both_int8(g, w, x_col, x_col_s, sr, kg, kw):
     """(grad_input, grad_weight) of one weight with both backward matmuls
-    int8, given the column quantize of its input: g along both axes (B5),
-    w column-wise (B4), then B1 and B2 (JAX :184-198)."""
-    g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, generator=generator)
-    w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, generator=generator)
+    int8, given the column quantize of its input: g along both axes (B5,
+    key ``kg``), w column-wise (B4, key ``kw``), then B1 and B2 (JAX
+    :184-198)."""
+    g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
+    w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, key=kw)
     grad_input = scaled_mm_general(g_row, w_col, g_row_s, w_col_s, dims=(1, 0), out_dtype=w.dtype)
     # g^T . x contracted over the tokens as stored: the result is [out, in]
     grad_weight = scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype)
@@ -100,28 +115,29 @@ class _MPLinear(torch.autograd.Function):
     backward-only work (JAX :160-166)."""
 
     @staticmethod
-    def forward(ctx, x2d, w, config, generator):
-        out = _mp_forward(config, x2d, w, generator)
-        ctx.config, ctx.generator = config, generator
+    def forward(ctx, x2d, w, config, key):
+        out = _mp_forward(config, x2d, w, key)
+        ctx.config, ctx.key = config, key
         ctx.save_for_backward(x2d, w)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x2d, w = ctx.saved_tensors
-        config, gen = ctx.config, ctx.generator
+        config, key = ctx.config, ctx.key
         sr = config.stochastic_rounding
         g = g.to(w.dtype)
         if config.grad_input and config.grad_weight:
-            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, generator=gen)
-            grad_input, grad_weight = _grads_both_int8(g, w, x_col, x_col_s, sr, gen)
+            kg, kw, kx = split(_subkey(key, 1), 3) if sr else (None,) * 3
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+            grad_input, grad_weight = _grads_both_int8(g, w, x_col, x_col_s, sr, kg, kw)
             return grad_input, grad_weight, None, None
         if config.grad_input:
-            grad_input = _dynamic_int8_mm(g, w, sr, gen, dims=(1, 0))
+            grad_input = _dynamic_int8_mm(g, w, sr, _subkey(key, 1), dims=(1, 0))
         else:
             grad_input = g @ w
         if config.grad_weight:
-            grad_weight = _dynamic_int8_mm(g, x2d, sr, gen, dims=(0, 0))
+            grad_weight = _dynamic_int8_mm(g, x2d, sr, _subkey(key, 2), dims=(0, 0))
         else:
             grad_weight = g.T @ x2d
         return grad_input, grad_weight, None, None
@@ -131,57 +147,70 @@ class _MPLinearShared(torch.autograd.Function):
     """``_mp_linear_shared`` (JAX :221-276): y_i = x2d @ ws[i].T with ONE
     row quantize of x2d for all heads in the forward and ONE column quantize
     of it in the backward. All-int8 configs only (the caller checks).
-    grad_input is summed head by head in w.dtype, in the JAX order."""
+    grad_input is summed head by head in w.dtype, in the JAX order. Under
+    SR: x2d's row quantize from ``_subkey(key, 0)``, weight i's from
+    ``fold_in(_subkey(key, 1), i)``; in the backward x2d's column quantize
+    from ``fold_in(_subkey(key, 2), 0)`` and head i's (g, w) from
+    ``split(fold_in(_subkey(key, 3), i))``."""
 
     @staticmethod
-    def forward(ctx, config, generator, x2d, *ws):
+    def forward(ctx, config, key, x2d, *ws):
         sr = config.stochastic_rounding
-        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, generator=generator)
+        kx = _subkey(key, 0) if sr else None
+        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=kx)
         outs = []
-        for w in ws:
-            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, generator=generator)
+        for i, w in enumerate(ws):
+            kw = fold_in(_subkey(key, 1), i) if sr else None
+            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw)
             outs.append(scaled_mm_general(x_row, w_row, x_row_s, w_row_s, dims=(1, 1),
                                           out_dtype=x2d.dtype))
-        ctx.config, ctx.generator = config, generator
+        ctx.config, ctx.key = config, key
         ctx.save_for_backward(x2d, *ws)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
         x2d, *ws = ctx.saved_tensors
-        sr, gen = ctx.config.stochastic_rounding, ctx.generator
-        x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, generator=gen)
+        sr, key = ctx.config.stochastic_rounding, ctx.key
+        kx = fold_in(_subkey(key, 2), 0) if sr else None
+        x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
         grad_input, grad_ws = None, []
-        for w, g in zip(ws, gs):
-            gi, gw = _grads_both_int8(g.to(w.dtype), w, x_col, x_col_s, sr, gen)
+        for i, (w, g) in enumerate(zip(ws, gs)):
+            kg, kw = split(fold_in(_subkey(key, 3), i)) if sr else (None, None)
+            gi, gw = _grads_both_int8(g.to(w.dtype), w, x_col, x_col_s, sr, kg, kw)
             grad_input = gi if grad_input is None else grad_input + gi
             grad_ws.append(gw)
         return None, None, grad_input, *grad_ws
 
 
-def _check_generator(config: MixedPrecisionConfig, generator) -> None:
-    if config.stochastic_rounding and generator is None:
-        raise ValueError("stochastic_rounding requires a generator")
+def _resolve_key(config: MixedPrecisionConfig, key: int | None) -> int:
+    """JAX :353-356: a missing key is 0, unless SR needs one."""
+    if key is None:
+        if config.stochastic_rounding:
+            raise ValueError("stochastic_rounding requires a key")
+        return 0
+    return key
 
 
-def linear(x, w: MixedPrecisionWeight, bias=None, *, generator=None):
+def linear(x, w: MixedPrecisionWeight, bias=None, *, key: int | None = None):
     """Mixed-precision linear: y = x @ w.T + bias with per-matmul quant."""
-    _check_generator(w.config, generator)
+    key = _resolve_key(w.config, key)
     x2d = x.reshape(-1, x.shape[-1])
-    out = _MPLinear.apply(x2d, w.data, w.config, generator)
+    out = _MPLinear.apply(x2d, w.data, w.config, key)
     out = out.reshape(*x.shape[:-1], w.data.shape[0])
     return out + bias if bias is not None else out
 
 
-def linear_shared(x, weights, *, generator=None):
+def linear_shared(x, weights, *, key: int | None = None):
     """[y_i = x @ w_i.T] with the shared input quantized once (JAX
     :279-322). ``weights``: MixedPrecisionWeight with one all-int8 config;
-    any other mix takes one :func:`linear` per weight."""
+    any other mix takes one :func:`linear` per weight, weight i with
+    ``fold_in(key, i)`` so that no two of them share a stream."""
     configs = {w.config for w in weights}
     cfg = next(iter(configs))
     if len(configs) != 1 or not _all_int8(cfg):
-        return [linear(x, w, generator=generator) for w in weights]
-    _check_generator(cfg, generator)
+        return [linear(x, w, key=None if key is None else fold_in(key, i)) for i, w in enumerate(weights)]
+    key = _resolve_key(cfg, key)
     x2d = x.reshape(-1, x.shape[-1])
-    outs = _MPLinearShared.apply(cfg, generator, x2d, *(w.data for w in weights))
+    outs = _MPLinearShared.apply(cfg, key, x2d, *(w.data for w in weights))
     return [o.reshape(*x.shape[:-1], w.data.shape[0]) for o, w in zip(outs, weights)]

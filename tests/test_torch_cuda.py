@@ -93,6 +93,76 @@ def test_quantize_colwise_and_both_unaligned_view():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(1, 1), (3, 7), (8, 64), (5, 100), (3, 1030), (64, 128), (130, 200),
+                                   (256, 2048), (1000, 5632)])
+def test_sr_forms_bit_exact(shape, dtype):
+    """The SR forms of K1, B4 and B5 against their plain versions with the
+    same key: the same Philox words, the same floor(x / scale + u), so
+    equal bits, on vector and ragged paths and all-zero rows/columns."""
+    x = _rand(shape, dtype, 5)
+    x[0] = 0
+    x[:, -1] = 0
+    for kernel, plain in ((ops.quantize_int8_rowwise, ops.quantize_int8_plain),
+                          (ops.quantize_int8_colwise, lambda x, **kw: ops.quantize_int8_plain(x, axis=0, **kw)),
+                          (ops.quantize_int8_both, ops.quantize_int8_both_plain)):
+        got = kernel(x, sr=True, key=2**63 + 12345)
+        torch.cuda.synchronize()
+        ref = plain(x, sr=True, key=2**63 + 12345)
+        for a, b in zip(got, ref):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    q_rn = ops.quantize_int8_rowwise(x)[0]
+    assert not torch.equal(ops.quantize_int8_rowwise(x, sr=True, key=1)[0], q_rn) or x.numel() < 64
+
+
+def test_sr_forms_unaligned_view():
+    base = _rand((9, 2048), torch.bfloat16, 6).reshape(-1)
+    x = base[1:1 + 8 * 2048].view(8, 2048)
+    for kernel, plain in ((ops.quantize_int8_rowwise, ops.quantize_int8_plain),
+                          (ops.quantize_int8_both, ops.quantize_int8_both_plain)):
+        for a, b in zip(kernel(x, sr=True, key=9), plain(x, sr=True, key=9)):
+            assert torch.equal(a, b)
+
+
+def _adamw_inputs(n, p_dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = (torch.randn(n, generator=g, device="cuda") * 0.02).to(p_dtype)
+    grad = (torch.randn(n, generator=g, device="cuda") * 1e-3).to(p_dtype)
+    ea = (torch.randn(n, generator=g, device="cuda") * 1e-4).to(torch.bfloat16)
+    eas = (torch.rand(n, generator=g, device="cuda") * 1e-7).to(torch.bfloat16)
+    t = 3
+    scalars = torch.tensor([3e-4, 0.9, 0.999, 1e-2, 1e-8, 1 - 0.9**t, 1 - 0.999**t], device="cuda")
+    return p, grad, ea, eas, scalars
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("p_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 7, 8, 1000, 2048 * 3 + 5, 2048 * 256])
+def test_fused_adamw_bit_exact(n, p_dtype, sr):
+    """B6 against its plain version (eager torch ops on the card), all three
+    outputs, SR writeback on and off; n off the 8-element vector."""
+    if sr and p_dtype == torch.float32:
+        pytest.skip("the SR writeback is for bf16 parameters only")
+    p, g, ea, eas, scalars = _adamw_inputs(n, p_dtype, n)
+    got = ops.fused_adamw_update(p, g, ea, eas, scalars, 77, bf16_sr=sr)
+    torch.cuda.synchronize()
+    ref = ops.fused_adamw_plain(p, g, ea, eas, scalars, 77, bf16_sr=sr)
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_fused_adamw_unaligned_and_refusals():
+    p, g, ea, eas, scalars = _adamw_inputs(4096 + 1, torch.bfloat16, 1)
+    views = [t[1:] for t in (p, g, ea, eas)]
+    for a, b in zip(ops.fused_adamw_update(*views, scalars, 3, bf16_sr=True),
+                    ops.fused_adamw_plain(*views, scalars, 3, bf16_sr=True)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="bf16 p and a key"):
+        ops.fused_adamw_update(p.float(), g.float(), ea, eas, scalars, 3, bf16_sr=True)
+    with pytest.raises(TypeError, match="moments must be bf16"):
+        ops.fused_adamw_update(p, g, ea.float(), eas, scalars, 3, bf16_sr=False)
+
+
 def _int8(shape, g):
     return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
 
@@ -137,11 +207,19 @@ def test_launch_counters_count_kernel_launches_only():
     q, s = ops.quantize_int8_rowwise(x)
     qc, sc = ops.quantize_int8_colwise(x)
     qr, sr, qc2, sc2 = ops.quantize_int8_both(x)
+    ops.quantize_int8_rowwise(x, sr=True, key=1)
+    ops.quantize_int8_colwise(x, sr=True, key=1)
+    ops.quantize_int8_both(x, sr=True, key=1)
     ops.scaled_mm_rhs_t(q, q, s, s.T)
     ops.scaled_mm(qr, qc, sr, sc)
     ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)
+    adamw_in = _adamw_inputs(64, torch.bfloat16, 0)
+    ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
+    ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
     ops.quantize_int8_plain(x)
+    ops.quantize_int8_plain(x, sr=True, key=1)
     ops.quantize_int8_both_plain(x)
     ops.scaled_mm_plain(qr, qc, sr, sc)
     ops.scaled_mm_lhs_t_plain(qc2, qc, sc2, sc)
+    ops.fused_adamw_plain(*adamw_in, 1, bf16_sr=True)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)

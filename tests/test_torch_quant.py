@@ -9,6 +9,7 @@ import torch
 from quantized_training_tpu.ops import pallas_quant
 from quantized_training_tpu.quant import core as jcore
 from quantized_training_tpu_torch.ops import int8_quant
+from quantized_training_tpu_torch.ops import random as ops_random
 from quantized_training_tpu_torch.quant import core
 
 _DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
@@ -79,19 +80,18 @@ def test_dequantize_roundtrip():
 
 
 def test_stochastic_rounding_cpu_unbiased_and_deterministic():
-    """SR on the CPU draws from the given generator: the same seed repeats
-    the result, and the mean over draws approaches x/scale (0.3 * 127 =
-    38.1 here; tolerance 0.05 from 400 draws of a Bernoulli(0.1) step)."""
+    """SR on the CPU draws from the given key: the same key repeats the
+    result, and the mean over keys approaches x/scale (0.3 * 127 = 38.1
+    here; tolerance 0.05 from 400 draws of a Bernoulli(0.1) step)."""
     x = torch.full((4, 64), 0.3)
     x[:, 0] = 1.0
-    q1, _ = core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator().manual_seed(3))
-    q2, _ = core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator().manual_seed(3))
+    q1, _ = core.quantize_int8(x, stochastic_rounding=True, key=3)
+    q2, _ = core.quantize_int8(x, stochastic_rounding=True, key=3)
     assert torch.equal(q1, q2)
-    g = torch.Generator().manual_seed(4)
-    acc = sum(core.quantize_int8(x, stochastic_rounding=True, generator=g)[0].double() for _ in range(400))
+    acc = sum(core.quantize_int8(x, stochastic_rounding=True, key=1000 + i)[0].double() for i in range(400))
     mean = acc[:, 1:].mean() / 400
     assert abs(mean.item() - 0.3 * 127) < 0.05
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="key"):
         core.quantize_int8(x, stochastic_rounding=True)
 
 
@@ -99,18 +99,29 @@ def test_device_path_raises_off_the_kernel(monkeypatch):
     """Every non-CPU tensor takes the device path; a meta tensor reaches it
     without a card. The row and the column quantize go to their kernels'
     wrappers (K1, B4), which refuse a non-CUDA device, and never to the
-    plain version; SR has no kernel there and raises NotImplementedError."""
+    plain version; so does SR, which reaches K1's wrapper with ``sr`` and
+    its key and draws no plain noise."""
     def no_plain(*args, **kwargs):
         raise AssertionError("the plain version ran on a device tensor")
 
     monkeypatch.setattr(int8_quant, "quantize_int8_plain", no_plain)
     monkeypatch.setattr(core, "quantize_int8_plain", no_plain)
+    monkeypatch.setattr(ops_random, "uniform", no_plain)
+    seen = []
+    kernel = core.quantize_int8_rowwise
+
+    def recorded(x, **kw):
+        seen.append(kw)
+        return kernel(x, **kw)
+
+    monkeypatch.setattr(core, "quantize_int8_rowwise", recorded)
     x = torch.empty(8, 64, device="meta")
     with pytest.raises(ValueError, match="quantize_int8_colwise: needs a CPU or CUDA tensor"):
         core.quantize_int8(x, axis=0)
     with pytest.raises(ValueError, match="quantize_int8_rowwise: needs a CPU or CUDA tensor"):
         core.quantize_int8(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        core.quantize_int8(x, stochastic_rounding=True, generator=torch.Generator())
+    with pytest.raises(ValueError, match="quantize_int8_rowwise: needs a CPU or CUDA tensor"):
+        core.quantize_int8(x, stochastic_rounding=True, key=7)
+    assert seen[-1]["sr"] is True and seen[-1]["key"] == 7
     with pytest.raises(NotImplementedError, match="axis=1 of a 3-D"):
         core.quantize_int8(torch.empty(2, 8, 64, device="meta"), axis=1)

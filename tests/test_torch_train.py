@@ -23,6 +23,7 @@ the second step's loss by percents.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -100,7 +101,7 @@ def test_train_steps_vs_jax(dtn, scheme):
     for _ in range(2):
         jstate, jm = jstep(jstate, jnp.asarray(tok, jnp.int32), jnp.asarray(lab, jnp.int32), 3e-4,
                            jax.random.PRNGKey(1))
-        tstate, tm = tstep(tstate, torch.from_numpy(tok), torch.from_numpy(lab), 3e-4)
+        tstate, tm = tstep(tstate, torch.from_numpy(tok), torch.from_numpy(lab), 3e-4, 1)
         _compare(jstate, jm, tstate, tm, BOUNDS[(dtn, scheme)])
     assert tstate.step == 2 and tstate.opt_state.count == 2
     q = tstate.params["layers"]["q"]["w"]
@@ -118,7 +119,7 @@ def test_grad_accumulation_and_clipping_vs_jax():
     tok, lab = _batch(1, (2, B, S))
     jstate, jm = jstep(jstate, jnp.asarray(tok, jnp.int32), jnp.asarray(lab, jnp.int32), 3e-4,
                        jax.random.PRNGKey(1))
-    tstate, tm = tstep(tstate, torch.from_numpy(tok), torch.from_numpy(lab), 3e-4)
+    tstate, tm = tstep(tstate, torch.from_numpy(tok), torch.from_numpy(lab), 3e-4, 1)
     assert float(tm["grad_norm"]) > 0.5
     _compare(jstate, jm, tstate, tm, BOUNDS[("f32", "mixed_precision")])
 
@@ -150,22 +151,25 @@ def test_sdpa_branch_vs_einsum_branch(dtn, tol):
 
 def _counting(monkeypatch):
     """Count calls of each kernel wrapper (on the card, each call is one
-    launch) by wrapping the names its callers look up."""
+    launch), an SR form under its own name, by wrapping the names its
+    callers look up."""
     counts = dict.fromkeys(ops.KERNELS, 0)
 
-    def wrap(mod, attr, name):
+    def wrap(mod, attr, name, sr_kw):
         fn = getattr(mod, attr)
 
         def counted(*args, **kwargs):
-            counts[name] += 1
+            counts[name + ("_sr" if kwargs.get(sr_kw) else "")] += 1
             return fn(*args, **kwargs)
 
         monkeypatch.setattr(mod, attr, counted)
 
-    wrap(core, "quantize_int8_rowwise", "quantize_int8_rowwise")
-    wrap(core, "quantize_int8_colwise", "quantize_int8_colwise")
-    wrap(core, "_quantize_both_kernel", "quantize_int8_both")
-    import importlib
+    wrap(core, "quantize_int8_rowwise", "quantize_int8_rowwise", "sr")
+    wrap(core, "quantize_int8_colwise", "quantize_int8_colwise", "sr")
+    wrap(core, "_quantize_both_kernel", "quantize_int8_both", "sr")
+    # optim exports a function of the module's name
+    wrap(importlib.import_module("quantized_training_tpu_torch.optim.adamw"), "fused_adamw_update",
+         "fused_adamw_update", "bf16_sr")
 
     mm = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
     monkeypatch.setattr(mm, "_BY_DIMS", dict(mm._BY_DIMS))
@@ -193,12 +197,49 @@ def test_kernel_calls_per_step(monkeypatch, remat):
     opt = optim.adamw()
     tok, lab = _batch(2)
     train.make_train_step(cfg, opt)(train.init_train_state(params, opt), torch.from_numpy(tok),
-                                    torch.from_numpy(lab), 3e-4)
-    L, fwd = KW["num_hidden_layers"], 2 if remat else 1
-    assert counts == {
-        "quantize_int8_rowwise": 11 * L * fwd, "quantize_int8_colwise": 11 * L, "quantize_int8_both": 7 * L,
-        "scaled_mm_rhs_t": 7 * L * fwd, "scaled_mm": 7 * L, "scaled_mm_lhs_t": 7 * L,
-    }
+                                    torch.from_numpy(lab), 3e-4, 0)
+    assert counts == _per_step(KW["num_hidden_layers"], fwd=2 if remat else 1)
+
+
+def _per_step(L, fwd=2, micro=1, sr=False, b6=0, b6_sr=0):
+    """The launch counts of one train step of L layers: ``micro``
+    micro-batches of the int8 forward (``fwd`` times with remat) and
+    backward, each quantize in its SR form when ``sr``; and the optimizer's
+    B6 launches (the SR writeback apart)."""
+    tag = "_sr" if sr else ""
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    counts.update({
+        "quantize_int8_rowwise" + tag: 11 * L * fwd * micro, "quantize_int8_colwise" + tag: 11 * L * micro,
+        "quantize_int8_both" + tag: 7 * L * micro, "scaled_mm_rhs_t": 7 * L * fwd * micro,
+        "scaled_mm": 7 * L * micro, "scaled_mm_lhs_t": 7 * L * micro,
+        "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr,
+    })
+    return counts
+
+
+@pytest.mark.parametrize("config", ["bench", "sr"])
+def test_kernel_calls_per_step_sr_slice(monkeypatch, config):
+    """The launch counts of the SR slice's two configurations, which
+    chip_smoke.py phases 8 and 9 hold the card to. 'bench' (bench.py's
+    step): [4, B, S] accumulation, remat, adamw_bf16_sr without the SR
+    writeback, int8 without SR: four micro-batches' quantizes and GEMMs and
+    one B6 launch per parameter leaf (12). 'sr' (llm_pretrain.py with
+    stochastic_rounding and adamw_bf16_sr): only the SR forms of K1, B4
+    and B5, and B6's SR form once per bf16 leaf."""
+    counts = _counting(monkeypatch)
+    cfg = llama.LlamaConfig(**KW, remat=True, attention_impl="xla")
+    bench = config == "bench"
+    params = quant.quantize_params(llama.init_params(torch.Generator().manual_seed(0), cfg), "mixed_precision",
+                                   stochastic_rounding=not bench)
+    opt = optim.get_optimizer("adamw_bf16_sr", bf16_stochastic_rounding=not bench)
+    tok, lab = _batch(2, (4, B, S) if bench else (B, S))
+    train.make_train_step(cfg, opt)(train.init_train_state(params, opt), torch.from_numpy(tok),
+                                    torch.from_numpy(lab), 1e-4, 5)
+    n_leaves = len(tree_leaves(params))
+    assert n_leaves == 12
+    L = KW["num_hidden_layers"]
+    expect = (_per_step(L, micro=4, b6=n_leaves) if bench else _per_step(L, sr=True, b6_sr=n_leaves))
+    assert counts == expect
 
 
 def test_loss_fn_fused_equals_explicit_logits():

@@ -23,6 +23,7 @@ from quantized_training_tpu.utils import train as jutils
 from quantized_training_tpu_torch import optim, quant
 from quantized_training_tpu_torch.convert import adamw_state_from_jax, params_from_jax
 from quantized_training_tpu_torch.ops import cross_entropy, int8_quant
+from quantized_training_tpu_torch.ops import random as ops_random
 from quantized_training_tpu_torch.quant import core
 from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
 from quantized_training_tpu_torch.utils import train as tutils
@@ -179,14 +180,15 @@ def test_scaled_mm_modes():
 
 def test_device_path_takes_the_kernels(monkeypatch):
     """A meta tensor takes the device path without a card: dims (1,0) and
-    (0,0), the column quantize and the both-axes quantize reach their
-    kernels' wrappers (B1, B2, B4, B5), which refuse a non-CUDA device; the
-    plain versions are never called."""
+    (0,0), the column quantize and the both-axes quantize, SR or not, reach
+    their kernels' wrappers (B1, B2, B4, B5), which refuse a non-CUDA
+    device; the plain versions, and the plain noise, are never called."""
     def no_plain(*args, **kwargs):
         raise AssertionError("the plain version ran on a device tensor")
 
     for mod, name in ((scaled_mm, "_plain"), (int8_quant, "quantize_int8_plain"),
-                      (int8_quant, "quantize_int8_both_plain"), (core, "quantize_int8_plain")):
+                      (int8_quant, "quantize_int8_both_plain"), (core, "quantize_int8_plain"),
+                      (ops_random, "uniform")):
         monkeypatch.setattr(mod, name, no_plain)
     a = torch.empty(32, 64, dtype=torch.int8, device="meta")
     s = torch.empty(64, 1, device="meta")
@@ -199,8 +201,19 @@ def test_device_path_takes_the_kernels(monkeypatch):
         core.quantize_int8(x, axis=0)
     with pytest.raises(ValueError, match="^quantize_int8_both: needs a CPU or CUDA"):
         core.quantize_int8_both(x)
-    with pytest.raises(NotImplementedError, match="B3-SR"):
-        core.quantize_int8_both(x, stochastic_rounding=True, generator=torch.Generator())
+    seen = []
+    kernel = core._quantize_both_kernel
+
+    def recorded(x, **kw):
+        seen.append(kw)
+        return kernel(x, **kw)
+
+    monkeypatch.setattr(core, "_quantize_both_kernel", recorded)
+    with pytest.raises(ValueError, match="^quantize_int8_both: needs a CPU or CUDA"):
+        core.quantize_int8_both(x, stochastic_rounding=True, key=5)
+    assert seen == [dict(eps=int8_quant.EPS, sr=True, key=5)]
+    with pytest.raises(ValueError, match="^quantize_int8_colwise: needs a CPU or CUDA"):
+        core.quantize_int8(x, axis=0, stochastic_rounding=True, key=5)
 
 
 # ---- the mixed-precision linears' backward ----------------------------------
