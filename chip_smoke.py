@@ -7,10 +7,17 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    compiled with nvcc, one process per source (seconds printed);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (K1, K2) and of the training step (K1 and B4 on
-   every activation and weight, B5, B1, B2, and K2 at 8192 tokens), the
-   stochastic-rounding forms of K1, B4 and B5 with the same key, and B6
-   (the fused AdamW update, SR writeback off and on) at every parameter
-   shape of Llama2-1B: bit-exact, timed with CUDA events;
+   every activation and weight, B5, B1, B2, and K2 at 8192 tokens, each
+   GEMM beside ``torch._int_mm``, the nearest library call: the int32
+   product without the scale epilogue), the stochastic-rounding forms of
+   K1, B4 and B5 with the same key, B6 (the fused AdamW update, SR
+   writeback off and on) at every parameter shape of Llama2-1B, all
+   bit-exact; and the producer-fused kernels at the fused layer's shapes
+   (norm [8192, 2048], silu [8192, 5632], and [256, 2048] / [256, 5632]):
+   B7 with and without the column absmax, B8 given the forward's scales
+   and in two passes, B9's row and column forms (bit-exact), B10, and the
+   SR forms of B7-B9; timed with CUDA events, with GB/s and the share of
+   the roofline;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
@@ -20,24 +27,30 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    card against the same model on the CPU (plain versions);
 6. the training slice: three int8 ``mixed_precision`` train steps of
    Llama2-1B at full width and depth (batch 4 x seq 2048, per-layer remat,
-   SDPA attention, AdamW) on one token batch from ``--seed``; the losses
-   fall, every step launches each kernel the number of times the code
-   implies, and the same steps in bf16 start from the same loss;
+   SDPA attention, AdamW, the producer-fused layer) on one token batch from
+   ``--seed``; the losses fall, every step launches each kernel the number
+   of times the code implies, and the same steps in bf16 start from the
+   same loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
-   rounding from one key, on the card against the CPU;
+   rounding from one key, on the card against the CPU: the unfused layer
+   on both, then the fused layer (``set_impl('auto')`` on the card, the
+   plain versions under ``set_impl('interpret')`` on the CPU);
 8. ``bench.py``'s step: Llama2-1B, tokens [4, 4, 2048] (4 x 4 gradient
    accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
-   1e-4; three steps int8 ``mixed_precision``, then three bf16: tokens/s,
-   the int8/bf16 ratio, peak memory, exact launch counts (B6 once per
-   parameter leaf);
+   1e-4; three steps int8 ``mixed_precision`` on the fused layer, three on
+   the unfused layer (``set_impl('off')``), then three bf16: tokens/s, the
+   ratios, peak memory, exact launch counts (B6 once per parameter leaf);
 9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
    and ``--optim adamw_bf16_sr``): three steps at batch 4 x 2048 in which
-   only the SR forms of K1, B4, B5 and B6 launch.
+   only the SR forms of K1, B4, B5, B6 and B7-B9 launch, and B10.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
-seeded with ``--seed``. The last lines are the kernel table as JSON, the
-nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+seeded with ``--seed``. The last lines are the kernel table as JSON (each
+kernel's launches on its path, its error against the plain version, its
+time, the plain version's, the least time the H100 could take for the same
+work, what bounds that time, and the library call's time where one
+exists), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -78,12 +91,26 @@ WEIGHTS = [(o, i) for _, o, i in LINEARS]
 # layers' q/o, k/v, gate/up, down and norms, the final norm)
 PARAM_SHAPES = [(CFG.vocab_size, D), (CFG.num_hidden_layers, D, D), (CFG.num_hidden_layers, KVD, D),
                 (CFG.num_hidden_layers, F, D), (CFG.num_hidden_layers, D, F), (CFG.num_hidden_layers, D), (D,)]
-SR_NAMES = ("quantize_int8_rowwise_sr", "quantize_int8_colwise_sr", "quantize_int8_both_sr")
+# the fused layer's producer inputs: the RMSNorm sites [tokens, hidden] and
+# the silu site [tokens, FFN], with one small shape each
+NORM_SHAPES = [(TOKENS, D), (256, D)]
+SILU_SHAPES = [(TOKENS, F), (256, F)]
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def bound(nbytes: float, int8_ops: float = 0.0) -> tuple[float, str]:
+    """The least time in ms the H100 could take for work that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``int8_ops`` int8 operations, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, int8_ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, inputs, iters: int = 32) -> float:
@@ -164,14 +191,15 @@ def check_k1(gen: torch.Generator) -> dict:
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if shape == (F, D):  # the largest per-matmul byte mover of a decode step
                 timed = (shape, ms, plain_ms)
-    return {"name": "quantize_int8_rowwise", "route": "cuda",
-            "source": "quantized_training_tpu_torch/ops/csrc/int8_quant.cu",
-            "replaces": "quantized_training_tpu/ops/pallas_quant.py:139",
-            "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1], "plain_ms": timed[2]}
+    M, K = timed[0]
+    return _entry("quantize_int8_rowwise", "quantized_training_tpu/ops/pallas_quant.py:139", worst, timed,
+                  3 * M * K + 2 * M)  # x read, q and the bf16 scales written
 
 
-def check_k2(gen: torch.Generator) -> dict:
-    worst, timed = 0.0, None
+def check_k2(gen: torch.Generator) -> float:
+    """K2 at the serving shapes; returns the worst error (K2's entry is
+    taken at the training step's shape, beside ``torch._int_mm``)."""
+    worst = 0.0
     for M in (8, 512):
         for name, N, K in (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F)):
             a, sa = ops.quantize_int8_plain(torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16))
@@ -191,20 +219,19 @@ def check_k2(gen: torch.Generator) -> dict:
             gbs = (M * K + N * K + 2 * M * N) / ms / 1e6
             print(f"[3] K2 scaled_mm_rhs_t M={M} {name} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
                   f"({tops:.1f} TOP/s, {gbs:.0f} GB/s), plain (float64 matmul) {plain_ms:.4f} ms")
-            if (M, name) == (8, "gate/up"):  # decode: bound by the weight's bytes
-                timed = ((M, N, K), ms, plain_ms)
-    return {"name": "scaled_mm_rhs_t", "route": "cuda",
-            "source": "quantized_training_tpu_torch/ops/csrc/scaled_mm.cu",
-            "replaces": "quantized_training_tpu/ops/pallas_mm.py:192",
-            "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1], "plain_ms": timed[2]}
+    return worst
 
 
-def _entry(name, replaces, worst, timed):
+def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None):
+    """One kernel's line of the JSON table; ``launches`` is filled in from
+    the run of its path."""
     src = ("int8_quant.cu" if name.startswith("quantize") else
-           "fused_adamw.cu" if name.startswith("fused_adamw") else "scaled_mm.cu")
+           "fused_adamw.cu" if name.startswith("fused_adamw") else
+           "fused_producers.cu" if name.startswith(("rmsnorm", "silu")) else "scaled_mm.cu")
+    bound_ms, bound_by = bound(nbytes, int8_ops)
     return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
-            "plain_ms": timed[2]}
+            "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
+            "plain_ms": timed[2], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def _max_err(got, ref) -> float:
@@ -241,17 +268,38 @@ def check_training_quantizes(gen: torch.Generator) -> list:
                   f"plain {plain_ms:.4f} ms")
             if shape == timed_shape:
                 timed = (shape, ms, plain_ms)
-        out.append(_entry(name, replaces, worst, timed))
+        M, K = timed[0]
+        # x read once, the int8 outputs and the bf16 scales written once
+        out.append(_entry(name, replaces, worst, timed, M * K * (2 + writes) + 2 * (K if writes == 1 else M + K)))
     return out
 
 
-def check_training_gemms(gen: torch.Generator) -> list:
+# torch._int_mm on each form's operands as stored: the int32 product, the
+# nearest library call (it has no scale epilogue)
+INT_MM = {"scaled_mm_rhs_t": lambda a, b, *_: torch._int_mm(a, b.t()),
+          "scaled_mm": lambda a, b, *_: torch._int_mm(a, b),
+          "scaled_mm_lhs_t": lambda a, b, *_: torch._int_mm(a.t(), b)}
+
+
+def int_mm_ms(name: str, inputs) -> float | None:
+    """``torch._int_mm``'s time on the same operands, or None where it
+    refuses them (its layout and shape conditions)."""
+    try:
+        return time_ms(INT_MM[name], inputs, iters=8)
+    except RuntimeError as e:
+        print(f"[3] torch._int_mm refuses the operands of {name}: {str(e).splitlines()[0]}")
+        return None
+
+
+def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
     """The three GEMM forms at 8192 tokens for every (out, in) of the
     model: K2 (forward x . w^T), B1 (grad_input g . w, K = out) and B2
     (grad_weight g^T . x, K = 8192), each on its operands as the backward
-    quantizes them; bit-exact, timed, with TOP/s and GB/s."""
-    timed = {}
-    worst = dict.fromkeys(("scaled_mm", "scaled_mm_lhs_t"), 0.0)
+    quantizes them; bit-exact, timed beside ``torch._int_mm``, with TOP/s
+    and GB/s. Entries at gate/up; K2's error also covers the serving
+    shapes (``k2_worst``)."""
+    entries = []
+    worst = {"scaled_mm_rhs_t": k2_worst, "scaled_mm": 0.0, "scaled_mm_lhs_t": 0.0}
     for lname, o, i in LINEARS:
         x = torch.randn(TOKENS, i, generator=gen, device=DEVICE).to(torch.bfloat16)
         w = (torch.randn(o, i, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
@@ -261,30 +309,33 @@ def check_training_gemms(gen: torch.Generator) -> list:
         x_col, x_col_s = ops.quantize_int8_plain(x, axis=0)
         w_col, w_col_s = ops.quantize_int8_plain(w, axis=0)
         g_row, g_row_s, g_col, g_col_s = ops.quantize_int8_both_plain(g)
-        for name, kernel, plain, args, (M, N, K) in (
+        for name, kernel, plain, args, (M, N, K), replaces in (
             ("scaled_mm_rhs_t", ops.scaled_mm_rhs_t, ops.scaled_mm_rhs_t_plain,
-             (x_row, w_row, x_row_s, w_row_s.reshape(1, o)), (TOKENS, o, i)),
-            ("scaled_mm", ops.scaled_mm, ops.scaled_mm_plain, (g_row, w_col, g_row_s, w_col_s), (TOKENS, i, o)),
+             (x_row, w_row, x_row_s, w_row_s.reshape(1, o)), (TOKENS, o, i),
+             "quantized_training_tpu/ops/pallas_mm.py:192"),
+            ("scaled_mm", ops.scaled_mm, ops.scaled_mm_plain, (g_row, w_col, g_row_s, w_col_s), (TOKENS, i, o),
+             "quantized_training_tpu/ops/pallas_mm.py:85"),
             ("scaled_mm_lhs_t", ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain,
-             (g_col, x_col, g_col_s, x_col_s), (o, i, TOKENS)),
+             (g_col, x_col, g_col_s, x_col_s), (o, i, TOKENS), "quantized_training_tpu/ops/pallas_mm.py:192"),
         ):
             got, ref = kernel(*args), plain(*args)
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f"{name} bit-exact at {lname} M={M} N={N} K={K}")
-            if name in worst:
-                worst[name] = max(worst[name], _max_err([got], [ref]))
+            worst[name] = max(worst[name], _max_err([got], [ref]))
             inputs = copies(*args)
             ms, plain_ms = time_ms(kernel, inputs, iters=8), time_ms(plain, inputs, iters=8)
+            lib_ms = int_mm_ms(name, inputs)
             tops = 2 * M * N * K / ms / 1e9
-            gbs = (M * K + N * K + 2 * M * N) / ms / 1e6
+            nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)  # int8 operands and bf16 scales in, bf16 out
             print(f"[3] {name} {lname} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOP/s, {gbs:.0f} GB/s), plain (float64 matmul) {plain_ms:.4f} ms")
+                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), plain (float64 matmul) {plain_ms:.4f} ms, "
+                  f"torch._int_mm (int32 out) {'refused' if lib_ms is None else f'{lib_ms:.4f} ms'}")
             if lname == "gate/up":
-                timed[name] = ((M, N, K), ms, plain_ms)
-    return [_entry("scaled_mm", "quantized_training_tpu/ops/pallas_mm.py:85", worst["scaled_mm"],
-                   timed["scaled_mm"]),
-            _entry("scaled_mm_lhs_t", "quantized_training_tpu/ops/pallas_mm.py:192", worst["scaled_mm_lhs_t"],
-                   timed["scaled_mm_lhs_t"])]
+                entries.append(_entry(name, replaces, worst[name], ((M, N, K), ms, plain_ms), nbytes,
+                                      2 * M * N * K, lib_ms))
+    for e in entries:  # every shape's error, not only gate/up's
+        e["max_abs_err"] = worst[e["name"]]
+    return entries
 
 
 def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
@@ -322,7 +373,8 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
                   f"round-to-nearest kernel {rn_ms:.4f} ms ({mb / rn_ms:.0f} GB/s), plain SR {plain_ms:.4f} ms")
             if shape == (TOKENS, F):
                 timed = (shape, ms, plain_ms)
-        out.append(_entry(name, replaces, worst, timed))
+        M, K = timed[0]
+        out.append(_entry(name, replaces, worst, timed, M * K * (2 + writes) + 2 * (K if writes == 1 else M + K)))
     return out
 
 
@@ -355,8 +407,140 @@ def check_fused_adamw(gen: torch.Generator, key: int) -> list:
             if shape == (CFG.num_hidden_layers, F, D):
                 timed[sr] = (shape, ms, plain_ms)
     replaces = "quantized_training_tpu/ops/pallas_optim.py:79"
-    return [_entry("fused_adamw_update", replaces, worst[False], timed[False]),
-            _entry("fused_adamw_update_sr", replaces, worst[True], timed[True])]
+    n = np.prod(timed[False][0])
+    return [_entry("fused_adamw_update", replaces, worst[False], timed[False], 14 * n),
+            _entry("fused_adamw_update_sr", replaces, worst[True], timed[True], 14 * n)]
+
+
+def _int8_off(got, ref) -> tuple[int, float]:
+    """Largest int8 difference and the share of elements that differ."""
+    d = (got.int() - ref.int()).abs()
+    return d.max().item(), (d > 0).float().mean().item()
+
+
+def _rel_err(got, ref) -> float:
+    """Largest elementwise relative difference (0 where both are 0)."""
+    return ((got - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
+
+
+def _bf16_ulps(a, b):
+    def order(t):
+        bits = t.to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(a) - order(b)).abs()
+
+
+def _hold(kind: str, got, ref) -> str:
+    """Hold a producer kernel's outputs to its plain version's, by the
+    bars of its kind: 'exact' (B9), 'int8' (B7, B8: int8 within one step on
+    at most 1e-3 of the elements, scales and column maxima within 1e-6
+    relative) or 'bwd' (B10: dx within 2 bf16 ulps where |dx| is above
+    2**-20 of max|dx|, dgamma within 1e-5 of max|dgamma|). Returns what
+    was measured."""
+    if kind == "exact":
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)), "bit-exact")
+        return "bit-exact"
+    if kind == "int8":
+        off, share = _int8_off(got[0], ref[0])
+        rel = max(_rel_err(a.reshape(-1), b.reshape(-1)) for a, b in zip(got[1:], ref[1:]))
+        check(off <= 1 and share <= 1e-3 and rel <= 1e-6, f"int8 off by {off} on {share}, scales {rel}")
+        return f"int8 off by one on a share {share:.2e} (max {off}), scales/maxima relative {rel:.2e}"
+    (dx, dg), (dx_ref, dg_ref) = got, ref
+    ulps = _bf16_ulps(dx, dx_ref)
+    far = (ulps > 2) & ((dx - dx_ref).abs() > 2**-20 * dx_ref.abs().max())
+    dg_rel = ((dg - dg_ref).abs().max() / dg_ref.abs().max()).item()
+    check(not far.any() and dg_rel <= 1e-5, f"B10 dx {far.sum().item()} far, dgamma {dg_rel}")
+    return f"dx max {ulps.max().item()} bf16 ulps ({(ulps > 2).sum().item()} beyond 2, all tiny), dgamma {dg_rel:.2e} of max"
+
+
+def check_fused_producers(gen: torch.Generator, key: int) -> list:
+    """B7-B10 and the SR forms of B7-B9 at the fused layer's shapes (x
+    [8192, 2048] at the norm sites, gate and up [8192, 5632] at the silu
+    site, and 256 rows of each) against their plain versions on the card;
+    the forms the path runs (B7 and B9-row with the column absmax, B8 and
+    B9-col given the forward's scales) are timed and make the entries, the
+    other forms (without the absmax, two-pass) are held too. GB/s and the
+    share of the roofline count each input read once and each output
+    written once (bf16 inputs, fp32 scales and maxima)."""
+    rows = {}  # entry name -> (replaces, worst error, timed, bytes)
+
+    def run(name, form, kind, kernel, plain, args, nbytes, replaces=None, sr_of=None):
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        held = _hold(kind, got, ref)
+        if sr_of is not None:
+            check(not torch.equal(got[0], sr_of[0]), f"{name} differs from round-to-nearest")
+        shape = tuple(args[0].shape)
+        line = f"[3] {name} {list(shape)} bf16{form}: {held}"
+        if replaces is not None:
+            inputs = copies(*args)
+            ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
+            b_ms = bound(nbytes)[0]
+            line += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the {b_ms:.4f} ms "
+                     f"bound), plain {plain_ms:.4f} ms")
+            err = max(rows.get(name, (None, 0.0))[1], _max_err(got, ref))
+            if shape[0] == TOKENS or name not in rows:
+                rows[name] = (replaces, err, (shape, ms, plain_ms), nbytes)
+            else:
+                rows[name] = (*rows[name][:1], err, *rows[name][2:])
+        print(line)
+        return got
+
+    pf_ = "quantized_training_tpu/ops/pallas_fused.py"
+    for M, K in NORM_SHAPES:
+        x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        x[0] = 0  # an all-zero row
+        g = (1 + 0.1 * torch.randn(K, generator=gen, device=DEVICE)).to(torch.bfloat16)
+        dy = (torch.randn(M, K, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
+        row_bytes = 3 * M * K + 2 * K + 4 * M + 4 * K  # x, g in; q, scale, column absmax out
+        col_bytes = 3 * M * K + 2 * K + 4 * K  # x, g, scale in; q out
+        rn = {}
+        for sr in (False, True):
+            tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
+            k_row = partial(ops.rmsnorm_quant_rowwise, with_col_amax=True, **kw)
+            p_row = partial(ops.rmsnorm_quant_rowwise_plain, with_col_amax=True, **kw)
+            out = run(f"rmsnorm_quant_rowwise{tag}", ", column absmax", "int8", k_row, p_row, (x, g), row_bytes,
+                      f"{pf_}:154", rn.get("row"))
+            scale = out[2] * (1.0 / 127.0)
+            k_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise(x, g, scale=scale, **kw)
+            p_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise_plain(x, g, scale=scale, **kw)
+            col = run(f"rmsnorm_quant_colwise{tag}", ", given scales", "int8", k_col, p_col, (x, g, scale), col_bytes,
+                      f"{pf_}:246", rn.get("col"))
+            rn.update(row=out, col=col)
+            if not sr:
+                run("rmsnorm_quant_rowwise", "", "int8", ops.rmsnorm_quant_rowwise,
+                    ops.rmsnorm_quant_rowwise_plain, (x, g), 0)
+                two = run("rmsnorm_quant_colwise", ", two passes", "int8", ops.rmsnorm_quant_colwise,
+                          ops.rmsnorm_quant_colwise_plain, (x, g), 0)
+                check(torch.equal(two[0], col[0]), "B8 given the forward's scales equals B8 in two passes")
+        run("rmsnorm_bwd", "", "bwd", ops.rmsnorm_bwd, ops.rmsnorm_bwd_plain, (x, g, dy),
+            6 * M * K + 2 * K + 4 * K, f"{pf_}:491")
+    for M, K in SILU_SHAPES:
+        a = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        b = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        a[:, 1] = 0  # an all-zero column
+        row_bytes = 5 * M * K + 4 * M + 4 * K
+        col_bytes = 5 * M * K + 4 * K
+        rn = {}
+        for sr in (False, True):
+            tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
+            out = run(f"silu_mul_quant_rowwise{tag}", ", column absmax", "exact",
+                      partial(ops.silu_mul_quant_rowwise, with_col_amax=True, **kw),
+                      partial(ops.silu_mul_quant_rowwise_plain, with_col_amax=True, **kw), (a, b), row_bytes,
+                      f"{pf_}:325", rn.get("row"))
+            scale = out[2] * (1.0 / 127.0)
+            col = run(f"silu_mul_quant_colwise{tag}", ", given scales", "exact",
+                      lambda a, b, scale, kw=kw: ops.silu_mul_quant_colwise(a, b, scale=scale, **kw),
+                      lambda a, b, scale, kw=kw: ops.silu_mul_quant_colwise_plain(a, b, scale=scale, **kw),
+                      (a, b, scale), col_bytes, f"{pf_}:409", rn.get("col"))
+            rn.update(row=out, col=col)
+            if not sr:
+                run("silu_mul_quant_rowwise", "", "exact", ops.silu_mul_quant_rowwise,
+                    ops.silu_mul_quant_rowwise_plain, (a, b), 0)
+                two = run("silu_mul_quant_colwise", ", two passes", "exact", ops.silu_mul_quant_colwise,
+                          ops.silu_mul_quant_colwise_plain, (a, b), 0)
+                check(torch.equal(two[0], col[0]), "B9-col given the forward's scales equals B9-col in two passes")
+    return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
 def mixed_requests(vocab: int):
@@ -461,23 +645,34 @@ def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agre
     check(rms <= max_rms and agree >= min_agree, f"{dtype} kernel path within tolerance of the plain path")
 
 
-def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_sr: int = 0) -> dict:
+def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_sr: int = 0,
+                      fused: bool = True) -> dict:
     """Kernel launches of one train step of L int8 layers (L = 0 for bf16),
-    from the code (pinned on the CPU by tests/test_torch_train.py::
-    test_kernel_calls_per_step and test_kernel_calls_per_step_sr_slice):
-    a layer has 7 quantized weights (q, k, v, o, gate, up, down) behind 4
-    inputs (q/k/v and gate/up share one). Forward: K1 for 7 weights + 4
-    inputs, K2 per weight; remat runs the forward twice. Backward: per
-    weight B5 (its output grad), B4 (the weight), B1 and B2; B4 also once
-    per input. All of that once per micro-batch, each quantize in its SR
-    form with ``sr``; then B6 once per parameter leaf (``b6``, or
-    ``b6_sr`` with the SR writeback)."""
-    tag = "_sr" if sr else ""
+    from the code (pinned on the CPU by tests/test_torch_train.py and
+    tests/test_torch_fused.py::test_kernel_calls_per_step_fused): a layer
+    has 7 quantized weights (q, k, v, o, gate, up, down) behind 4 inputs
+    (q/k/v and gate/up share one), and remat runs its forward twice.
+
+    The fused layer (``fused``): forward K1 per weight and for o's input
+    (8), K2 per weight (7), B7 at the two norm sites, B9-row at down's
+    input. Backward per weight B5 (its output grad), B4 (the weight), B1
+    and B2; B4 also for o's input; B8 at the two norm sites, B9-col at
+    down's input, B10 at the two norms. The unfused layer: forward K1 for
+    the 7 weights and the 4 inputs, K2 per weight; backward per weight B5,
+    B4, B1, B2 and B4 once per input. All of that once per micro-batch,
+    each quantize in its SR form with ``sr`` (B10 has none); then B6 once
+    per parameter leaf (``b6``, or ``b6_sr`` with the SR writeback)."""
+    t = "_sr" if sr else ""
+    n = L * micro
     counts = dict.fromkeys(ops.KERNELS, 0)
-    counts.update({f"quantize_int8_rowwise{tag}": 2 * 11 * L * micro, f"quantize_int8_colwise{tag}": 11 * L * micro,
-                   f"quantize_int8_both{tag}": 7 * L * micro, "scaled_mm_rhs_t": 2 * 7 * L * micro,
-                   "scaled_mm": 7 * L * micro, "scaled_mm_lhs_t": 7 * L * micro,
-                   "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
+    if fused:
+        counts.update({f"quantize_int8_rowwise{t}": 2 * 8 * n, f"quantize_int8_colwise{t}": 8 * n,
+                       f"rmsnorm_quant_rowwise{t}": 2 * 2 * n, f"silu_mul_quant_rowwise{t}": 2 * n,
+                       f"rmsnorm_quant_colwise{t}": 2 * n, f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n})
+    else:
+        counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n})
+    counts.update({f"quantize_int8_both{t}": 7 * n, "scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm": 7 * n,
+                   "scaled_mm_lhs_t": 7 * n, "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
     return counts
 
 
@@ -508,34 +703,52 @@ def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: in
 
 
 def int8_vs_bf16(phase: int, what: str, raw, cfg, tokens, labels, opt, lr: float, key: int,
-                 expect_int8: dict, expect_bf16: dict | None):
-    """Three steps int8 mixed_precision, then three bf16, from the same
-    weights, batch and keys: the losses fall, the first-step losses agree
-    within 1e-2; prints tokens/s of steps 2-3 (step 1 warms up), the ratio
-    and each run's peak memory. Returns (int8 losses, int8 launches)."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    q_losses, q_walls, launches = run_steps(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels,
-                                            opt, lr, key, 3, expect_int8)
-    q_peak = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    b_losses, b_walls, _ = run_steps(raw, cfg, tokens, labels, opt, lr, key, 3, expect_bf16)
-    b_peak = torch.cuda.max_memory_allocated() / 2**30
+                 expect_int8: dict, expect_bf16: dict | None, expect_unfused: dict | None = None):
+    """Three steps int8 mixed_precision on the fused layer, with
+    ``expect_unfused`` three more on the unfused layer (``set_impl('off')``),
+    then three bf16, from the same weights, batch and keys: the losses fall,
+    the first-step losses agree within 1e-2 (int8 against bf16) and 1e-3
+    (fused against unfused); prints tokens/s of steps 2-3 (step 1 warms
+    up), the ratios and each run's peak memory. Returns (int8 losses, int8
+    launches)."""
+    def measured(params, expect, impl="auto"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        quant.set_impl(impl)
+        try:
+            losses, walls, launches = run_steps(params, cfg, tokens, labels, opt, lr, key, 3, expect)
+        finally:
+            quant.set_impl("auto")
+        return losses, walls, launches, torch.cuda.max_memory_allocated() / 2**30
+
+    qparams = quant.quantize_params(raw, "mixed_precision")
+    runs = {"int8": measured(qparams, expect_int8)}
+    if expect_unfused is not None:
+        runs["int8 unfused"] = measured(qparams, expect_unfused, "off")
+    runs["bf16"] = measured(raw, expect_bf16)
     n_tok = tokens.numel()
-    tps = lambda walls: n_tok * (len(walls) - 1) / sum(walls[1:])
-    print(f"[{phase}] {what}: int8 losses {q_losses}, step walls {[round(w, 4) for w in q_walls]} s; "
-          f"bf16 losses {b_losses}, step walls {[round(w, 4) for w in b_walls]} s")
+    tps = {k: n_tok * (len(r[1]) - 1) / sum(r[1][1:]) for k, r in runs.items()}
+    print(f"[{phase}] {what}: " + "; ".join(
+        f"{k} losses {r[0]}, step walls {[round(w, 4) for w in r[1]]} s" for k, r in runs.items()))
+    ratios = ", ".join(f"{k}/bf16 {tps[k] / tps['bf16']:.3f}" for k in runs if k != "bf16")
+    if expect_unfused is not None:
+        ratios += f", int8 fused/unfused {tps['int8'] / tps['int8 unfused']:.3f}"
     print(f"[{phase}] tokens/s ({n_tok} tokens per step, steps 2-3, wall with torch.cuda.synchronize()): "
-          f"int8 {tps(q_walls):.1f}, bf16 {tps(b_walls):.1f} (int8/bf16 {tps(q_walls) / tps(b_walls):.3f}); "
-          f"peak device memory int8 {q_peak:.2f} GiB, bf16 {b_peak:.2f} GiB; launches per int8 step "
-          f"{ {k: v for k, v in expect_int8.items() if v} }")
-    check(q_losses[2] < q_losses[0] and b_losses[2] < b_losses[0], f"losses fall: {q_losses}, {b_losses}")
+          + ", ".join(f"{k} {v:.1f}" for k, v in tps.items()) + f" ({ratios}); peak device memory "
+          + ", ".join(f"{k} {r[3]:.2f} GiB" for k, r in runs.items())
+          + f"; launches per int8 step { {k: v for k, v in expect_int8.items() if v} }")
+    q_losses, b_losses = runs["int8"][0], runs["bf16"][0]
+    check(all(r[0][2] < r[0][0] for r in runs.values()), f"losses fall: { {k: r[0] for k, r in runs.items()} }")
     rel = abs(b_losses[0] - q_losses[0]) / abs(b_losses[0])
     check(rel <= 1e-2, f"int8 first loss within 1e-2 of bf16's: {rel:.3e}")
     print(f"[{phase}] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2)")
-    return q_losses, launches
+    if expect_unfused is not None:
+        u = runs["int8 unfused"][0][0]
+        rel_u = abs(q_losses[0] - u) / abs(u)
+        print(f"[{phase}] first-step loss int8 fused vs unfused: relative {rel_u:.3e} (bound 1e-3)")
+        check(rel_u <= 1e-3, f"fused first loss within 1e-3 of the unfused one: {rel_u:.3e}")
+    return q_losses, runs["int8"][2]
 
 
 def train_cfg_and_batch(seed: int, shape):
@@ -549,8 +762,8 @@ def train_cfg_and_batch(seed: int, shape):
 def train_slice(raw, seed: int, key: int):
     """Phase 6: llm_pretrain.py's defaults (batch 4 x 2048, remat, adamw
     with weight decay 1e-2, lr 3e-4), Llama2-1B at full width and depth,
-    int8 mixed_precision, then the same steps in bf16 from the same weights
-    and batch. Returns the int8 losses and launches."""
+    int8 mixed_precision on the fused layer, then the same steps in bf16
+    from the same weights and batch. Returns the int8 losses and launches."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
     what = (f"Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}")
     return int8_vs_bf16(6, what, raw, cfg, tokens, labels, optim.adamw(weight_decay=1e-2), 3e-4, key,
@@ -560,26 +773,30 @@ def train_slice(raw, seed: int, key: int):
 def bench_step(raw, seed: int, key: int) -> dict:
     """Phase 8: bench.py's step (``build_step("llama2-1b", 4, 2048, scheme,
     accum=4)``): tokens [4, 4, 2048], remat, adamw_bf16_sr without the SR
-    writeback, lr 1e-4, int8 mixed_precision without SR, then bf16. Each
-    int8 step launches 4 x the per-micro-batch counts, and each step of
-    both B6 (round-to-nearest) once per parameter leaf. Returns the int8
+    writeback, lr 1e-4, int8 mixed_precision without SR on the fused layer,
+    on the unfused layer, then bf16. Each int8 step launches 4 x the
+    per-micro-batch counts of its layer, and each step of all three B6
+    (round-to-nearest) once per parameter leaf. Returns the fused int8
     launches."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
     n_leaves = len(tree_leaves(raw))
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     what = (f"bench.py's step (Llama2-1B, tokens [{BENCH_ACCUM}, {TRAIN_B}, {TRAIN_S}], remat, SDPA, "
             f"adamw_bf16_sr without SR, lr 1e-4, {n_leaves} parameter leaves), seed {seed}")
+    L = cfg.num_hidden_layers
     _, launches = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
-                               per_step_launches(cfg.num_hidden_layers, micro=BENCH_ACCUM, b6=n_leaves),
-                               per_step_launches(0, b6=n_leaves))
+                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves),
+                               per_step_launches(0, b6=n_leaves),
+                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, fused=False))
     return launches
 
 
 def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
     """Phase 9: llm_pretrain.py with stochastic_rounding and ``--optim
     adamw_bf16_sr`` (SR writeback on, weight decay 1e-2, lr 3e-4) at batch
-    4 x 2048, remat: only the SR forms of K1, B4, B5 and B6 launch, each as
-    often as phase 6's forms per step; the losses fall and the first is
+    4 x 2048, remat, the fused layer: only the SR forms of K1, B4, B5, B6
+    and B7-B9 launch (and B10, which has none), each as often as phase 6's
+    forms per step; the losses fall and the first is
     within 1e-2 of phase 6's round-to-nearest int8 first loss (same weights
     and batch). Returns the launches."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
@@ -604,16 +821,20 @@ def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
     return launches
 
 
-def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float, sr_key: int | None = None):
+def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float, sr_key: int | None = None,
+                   fused: bool = False):
     """Phase 7: the loss and every gradient leaf of a 2-layer cut of
     Llama2-1B (full width, weights from ``seed``), int8 mixed_precision,
     one micro-step on 256 tokens, the kernels on the card against the plain
     versions on the CPU; with ``sr_key``, stochastic rounding from that key
-    on both devices, which draws the same noise on both. Bounds: relative
-    RMS of each leaf's difference <= ``max_rms``; relative loss difference
-    <= ``max_dloss``.
+    on both devices, which draws the same noise on both. ``fused``: the
+    fused layer (``set_impl('auto')`` on the card, ``'interpret'`` on the
+    CPU), else the unfused one on both (``'off'``). Bounds: relative RMS of
+    each leaf's difference <= ``max_rms``; relative loss difference <=
+    ``max_dloss``.
 
-    Every kernel is bit-exact, so the two paths differ where the torch ops
+    Every kernel of the unfused layer is bit-exact, and B7, B8 and B10 are
+    off by fp32 sum order, so the two paths differ where the torch ops
     around them round differently, and int8 rounding flips in the forward
     and both backward matmuls carry that difference. The floor, measured on
     the CPU in two draws: the plain path against itself with the embedding
@@ -631,13 +852,23 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
     res = {}
     sr = sr_key is not None
-    for dev, params in ((DEVICE, raw), ("cpu", to_cpu(raw))):
+    for dev, params, impl in ((DEVICE, raw, "auto" if fused else "off"),
+                              ("cpu", to_cpu(raw), "interpret" if fused else "off")):
         qparams = quant.quantize_params(params, "mixed_precision", stochastic_rounding=sr)
-        loss, grads = train.loss_and_grads(cfg, qparams, tok.to(dev), lab.to(dev), sr_key)
+        quant.set_impl(impl)
+        ops.reset_launch_counts()
+        try:
+            loss, grads = train.loss_and_grads(cfg, qparams, tok.to(dev), lab.to(dev), sr_key)
+        finally:
+            quant.set_impl("auto")
         res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
+        if dev == DEVICE:  # the card ran the layer asked for
+            b7 = ops.launch_counts()["rmsnorm_quant_rowwise_sr" if sr else "rmsnorm_quant_rowwise"]
+            check((b7 > 0) == fused, f"B7 launched {b7} times with fused={fused}")
     rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
     dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
-    print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]}{' SR' if sr else ''} grads (256 tokens), "
+    print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]}{' SR' if sr else ''} {'fused' if fused else 'unfused'} "
+          "layer grads (256 tokens), "
           "kernels on the card vs plain on the CPU: "
           f"loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} (relative {dloss:.2e}); worst leaf relative RMS "
           f"{max(rms):.3e}, per leaf {[f'{r:.1e}' for r in rms]} (bounds {max_rms:g}, loss {max_dloss:g})")
@@ -653,10 +884,11 @@ def main() -> None:
     build()
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    serving = [check_k1(gen), check_k2(gen)]
-    training = [*check_training_quantizes(gen), *check_training_gemms(gen)]
+    serving = [check_k1(gen)]
+    training = [*check_training_quantizes(gen), *check_training_gemms(gen, check_k2(gen))]
     sr_forms = check_sr_quantizes(gen, key)
     adamw = check_fused_adamw(gen, key)
+    producers = check_fused_producers(gen, key)
     launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
     for e in serving:
         e["launches"] = launches[e["name"]]
@@ -666,15 +898,17 @@ def main() -> None:
     q_losses, launches = train_slice(raw, args.seed, key)
     for e in training:
         e["launches"] = launches[e["name"]]
-    grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3)
-    grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3)
-    grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, sr_key=random.fold_in(key, 7))
+    for fused in (False, True):
+        grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, fused=fused)
+        grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3, fused=fused)
+        grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, sr_key=random.fold_in(key, 7), fused=fused)
     launches = bench_step(raw, args.seed, key)
-    adamw[0]["launches"] = launches["fused_adamw_update"]
-    launches = sr_config(raw, args.seed, key, q_losses[0])
-    for e in [*sr_forms, adamw[1]]:
+    for e in [adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))]:
         e["launches"] = launches[e["name"]]
-    kernels = serving + training + sr_forms + adamw
+    launches = sr_config(raw, args.seed, key, q_losses[0])
+    for e in [*sr_forms, adamw[1], *(e for e in producers if e["name"].endswith("_sr"))]:
+        e["launches"] = launches[e["name"]]
+    kernels = serving + training + sr_forms + adamw + producers
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

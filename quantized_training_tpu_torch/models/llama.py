@@ -4,15 +4,19 @@ Counterpart of ``quantized_training_tpu/models/llama.py`` (:63-618):
 ``LlamaConfig`` and its presets, ``init_params`` (same names, shapes and
 stacked ``[L, out, in]`` layout, drawn from an explicit ``torch.Generator``),
 ``rms_norm``, ``rope_tables``, ``apply_rope``, causal GQA ``attention``, and
-the unfused decoder layer with ``backbone``, ``forward`` and ``loss_fn``.
+the decoder layer with ``backbone``, ``forward`` and ``loss_fn``.
 
-The decoder layer is the JAX package's unfused composite (its path off the
-TPU, and on the TPU under ``QT_FUSED=0`` / ``QT_FUSED_ROPE=0``):
-``rms_norm`` -> ``qlinear_multi`` for q/k/v and for gate/up, rope on
-[B, S, H, hd], attention, ``silu(gate) * up`` -> ``qlinear`` for down. The
-producer-fused kernels of ``quant/fused.py`` and ``ops/pallas_rope.py`` are
-not ported yet (ROADMAP A6, B7-B14). On the TPU the JAX package ran JAX's
-splash attention; its counterpart here is ``F.scaled_dot_product_attention``.
+The decoder layer is the JAX package's (:402-502) without the grouped
+RoPE path: ``norm_linear_multi`` for the norm and q/k/v, rope on [B, S, H,
+hd], attention, ``qlinear`` for the o-projection (the JAX path when
+``_use_grouped_rope`` is false; ``attn_out_linear`` and its kernels B13/B14
+are not ported), and ``mlp_linear`` for the MLP. For all-int8
+``mixed_precision`` weights on the card those run RMSNorm and silu(gate) *
+up inside the int8 quantizes (``quant/fused.py``); on the CPU, for other
+weights, or under ``quant.set_impl('off')`` / ``QT_FUSED=0`` they take the
+unfused composite, ``rms_norm`` -> ``qlinear_multi`` and ``silu(gate) *
+up`` -> ``qlinear``. On the TPU the JAX package ran JAX's splash attention;
+its counterpart here is ``F.scaled_dot_product_attention``.
 ``save_qkv_residuals``, the HF-json loader and ``bitnet`` are not carried.
 
 Stochastic rounding draws from an int key (``ops/random.py``) folded as the
@@ -35,8 +39,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cross_entropy import IGNORE_INDEX, fused_linear_cross_entropy
+from ..ops.fused_producers import rms_norm_ref as rms_norm
 from ..ops.random import fold_in
-from ..quant import qlinear, qlinear_multi
+from ..quant import mlp_linear, norm_linear_multi, qlinear
 from ..quant.mixed_precision import MixedPrecisionWeight
 
 
@@ -127,14 +132,6 @@ def lm_head_weight(params, cfg: LlamaConfig):
     return params["embed"]["embedding"] if cfg.tie_word_embeddings else params["lm_head"]["w"]
 
 
-def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
-    """fp32 math, cast to x's dtype before the weight is applied (HF
-    LlamaRMSNorm)."""
-    xf = x.float()
-    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return xf.to(x.dtype) * g
-
-
 def rope_tables(cfg: LlamaConfig, seq_len: int, device=None):
     """fp32 cos/sin tables [S, head_dim]."""
     hd = cfg.head_dim
@@ -191,33 +188,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "au
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
-def silu_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """silu(a) * b with fp32 silu math, product in the input dtype
-    (``ops/pallas_fused.py::silu_mul_ref``)."""
-    af = a.float()
-    return (af * torch.sigmoid(af)).to(a.dtype) * b
-
-
 def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin, key: int):
-    """Norm + QKV projections + RoPE (JAX :402-427, unfused)."""
+    """Norm + QKV projections + RoPE (JAX :402-427): the norm fused into
+    the shared input quantize where ``norm_linear_multi`` fuses."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    h = rms_norm(x, lp["attn_norm"]["g"], cfg.rms_norm_eps)
-    q, k, v = qlinear_multi(h, [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]], key=fold_in(key, 0))
+    q, k, v = norm_linear_multi(x, lp["attn_norm"]["g"], [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
+                                cfg.rms_norm_eps, key=fold_in(key, 0))
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, S, KV, hd), cos, sin)
     return q, k, v.reshape(B, S, KV, hd)
 
 
 def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int):
-    """O-projection + MLP with residuals (JAX :430-472, unfused:
-    ``mlp_linear``'s fallback is ``norm_linear_multi`` + ``silu_mul_linear``,
-    with the keys of ``quant/fused.py:698-701``)."""
+    """O-projection + MLP with residuals (JAX :430-472, without grouped
+    RoPE and bitnet): ``qlinear`` for o, ``mlp_linear`` for the MLP."""
     x = x + qlinear(ctx, lp["o"]["w"], key=fold_in(key, 3))
-    mlp_key = fold_in(key, 4)
-    h = rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
-    gate, up = qlinear_multi(h, [lp["gate"]["w"], lp["up"]["w"]], key=fold_in(mlp_key, 0))
-    return x + qlinear(silu_mul(gate, up), lp["down"]["w"], key=fold_in(mlp_key, 1))
+    return x + mlp_linear(x, lp["mlp_norm"]["g"], lp["gate"]["w"], lp["up"]["w"], lp["down"]["w"],
+                          cfg.rms_norm_eps, key=fold_in(key, 4))
 
 
 def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin, key: int):
@@ -260,7 +248,10 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     _require_no_bitnet(cfg)
     key = 0 if key is None else key
     B, S = tokens.shape
-    x = params["embed"]["embedding"][tokens.long()]
+    # F.embedding, not indexing: the CPU backward of an index accumulates the
+    # rows of repeated tokens with atomic adds in whatever order the threads
+    # run, so the embedding's grad would change bits from run to run
+    x = F.embedding(tokens.long(), params["embed"]["embedding"])
     cos, sin = rope_tables(cfg, S, device=tokens.device)
     layer = partial(_decoder_layer, cfg)
     for l, lp in enumerate(_unstack_layers(params["layers"], cfg.num_hidden_layers)):

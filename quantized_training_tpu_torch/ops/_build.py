@@ -1,7 +1,7 @@
 """Build and bind the port's CUDA kernels (no JAX counterpart).
 
 ``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
-(``philox.cuh``, the random stream, is included by two of them): one ``nvcc
+(``philox.cuh``, the random stream, is included by three of them): one ``nvcc
 -c`` per source, all started together, then one link into a shared library,
 which it loads with ``ctypes``. The library carries a plain C interface (no
 PyTorch headers), so a build takes seconds: 5.5-6.3 s for ``int8_quant.cu``
@@ -13,8 +13,8 @@ reused. nvcc's ``-Xptxas -v`` report (registers, shared memory, spills per kerne
 is kept beside it as ``build.log``.
 
 Every entry point returns the launch's ``cudaError_t``; the wrappers in
-``ops/int8_quant.py``, ``ops/scaled_mm.py`` and ``ops/fused_adamw.py`` raise
-when it is not 0.
+``ops/int8_quant.py``, ``ops/scaled_mm.py``, ``ops/fused_adamw.py`` and
+``ops/fused_producers.py`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -48,6 +48,22 @@ _SIGNATURES = {
     ),
     # p, g, ea, eas, scalars, new_p, new_ea, new_eas, n, p_is_bf16, sr, key, stream
     "qt_fused_adamw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _U64, _P),
+    # x, g, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, stream
+    "qt_rmsnorm_quant_rowwise": (
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _I, _U64, _P,
+    ),
+    # a, b, q, s_row, amax, parts, M, K, rpb, eps, is_bf16, sr, with_amax, key, stream
+    "qt_silu_mul_quant_rowwise": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _U64, _P),
+    # x, g, scale, q, s_out, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, key, stream
+    "qt_rmsnorm_quant_colwise": (
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _U64, _P,
+    ),
+    # a, b, scale, q, s_out, amax, parts, M, K, rpb, eps, is_bf16, sr, key, stream
+    "qt_silu_mul_quant_colwise": (
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P,
+    ),
+    # x, g, dy, dx, dg, dg_part, M, K, rpb, norm_eps, is_bf16, stream
+    "qt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _P),
     # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, stream
     "qt_scaled_mm_s8": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,

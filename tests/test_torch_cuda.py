@@ -3,8 +3,12 @@
 Marked ``cuda``: without a CUDA card every test here skips (decided in a
 fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
-this file does not need). Tolerance everywhere: none — every kernel is
-bit-exact with its plain version by construction.
+this file does not need). Tolerance: none for K1/K2/B1-B6 and B9 — each is
+bit-exact with its plain version by construction. B7, B8 and B10 hold a row
+sum that the kernel takes in its own fixed order: int8 within one step on at
+most 1e-3 of the elements, scales and column maxima within 1e-6 relative, dx
+within 2 bf16 ulps (below 2**-20 of max|dx|, where the closed form cancels,
+within that), dgamma within 1e-5 of max|dgamma|.
 """
 
 import pytest
@@ -163,6 +167,117 @@ def test_fused_adamw_unaligned_and_refusals():
         ops.fused_adamw_update(p, g, ea.float(), eas, scalars, 3, bf16_sr=False)
 
 
+def _int8_close(got, ref, what):
+    d = (got.int() - ref.int()).abs()
+    assert got.dtype == torch.int8 and d.max() <= 1 and (d > 0).float().mean() <= 1e-3, (
+        what, d.max().item(), (d > 0).float().mean().item())
+
+
+def _rel_close(got, ref, tol, what):
+    assert got.dtype == ref.dtype and got.shape == ref.shape, what
+    assert ((got - ref).abs() <= tol * ref.abs()).all(), (what, ((got - ref).abs() / ref.abs()).nan_to_num().max())
+
+
+def _bf16_ulps(a, b):
+    """Distance of bf16 values in units in the last place."""
+    def order(t):
+        bits = t.to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (order(a) - order(b)).abs()
+
+
+def _producer_inputs(M, K, dtype, seed):
+    x = _rand((M, K), dtype, seed)
+    x[0] = 0  # an all-zero row
+    g = (1 + 0.1 * _rand((K,), torch.float32, seed + 1)).to(dtype)
+    a, b = _rand((M, K), dtype, seed + 2), _rand((M, K), dtype, seed + 3)
+    a[:, 5] = 0  # an all-zero column of silu(a) * b
+    return x, g, a, b
+
+
+_PRODUCER_SHAPES = [(32, 128), (96, 640), (256, 2048), (1000, 5632)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", _PRODUCER_SHAPES)
+def test_fused_producer_row_forms(M, K, dtype, sr):
+    """B7 and B9's row form, with and without the column absmax, and their
+    SR forms with one key, against their plain versions."""
+    x, g, a, b = _producer_inputs(M, K, dtype, 10)
+    kw = dict(sr=sr, key=2**63 + 5 if sr else None)
+    for amax in (False, True):
+        got = ops.rmsnorm_quant_rowwise(x, g, with_col_amax=amax, **kw)
+        torch.cuda.synchronize()
+        ref = ops.rmsnorm_quant_rowwise_plain(x, g, with_col_amax=amax, **kw)
+        _int8_close(got[0], ref[0], "B7 q")
+        for t, r in zip(got[1:], ref[1:]):
+            _rel_close(t, r, 1e-6, "B7 scale / column absmax")
+        got = ops.silu_mul_quant_rowwise(a, b, with_col_amax=amax, **kw)
+        torch.cuda.synchronize()
+        for t, r in zip(got, ops.silu_mul_quant_rowwise_plain(a, b, with_col_amax=amax, **kw)):
+            assert t.dtype == r.dtype and torch.equal(t, r)
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", _PRODUCER_SHAPES)
+def test_fused_producer_col_forms(M, K, dtype, sr):
+    """B8 and B9's column form, given the forward's scales (the path's
+    form) and in two passes, and their SR forms, against their plain
+    versions; given the forward kernel's own column absmax, the one-pass
+    form equals the two-pass one bit for bit."""
+    x, g, a, b = _producer_inputs(M, K, dtype, 20)
+    kw = dict(sr=sr, key=77 if sr else None)
+    amax_n = ops.rmsnorm_quant_rowwise(x, g, with_col_amax=True)[2]
+    amax_s = ops.silu_mul_quant_rowwise(a, b, with_col_amax=True)[2]
+    for scale_n, scale_s in ((amax_n * (1.0 / 127.0), amax_s * (1.0 / 127.0)), (None, None)):
+        got = ops.rmsnorm_quant_colwise(x, g, scale=scale_n, **kw)
+        torch.cuda.synchronize()
+        ref = ops.rmsnorm_quant_colwise_plain(x, g, scale=scale_n, **kw)
+        _int8_close(got[0], ref[0], "B8 q")
+        _rel_close(got[1], ref[1], 1e-6, "B8 scale")
+        got = ops.silu_mul_quant_colwise(a, b, scale=scale_s, **kw)
+        torch.cuda.synchronize()
+        for t, r in zip(got, ops.silu_mul_quant_colwise_plain(a, b, scale=scale_s, **kw)):
+            assert t.dtype == r.dtype and torch.equal(t, r)
+    for fn, inputs, amax in ((ops.rmsnorm_quant_colwise, (x, g), amax_n), (ops.silu_mul_quant_colwise, (a, b), amax_s)):
+        one, two = fn(*inputs, scale=amax * (1.0 / 127.0), **kw), fn(*inputs, **kw)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1].reshape(-1), two[1].reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", [*_PRODUCER_SHAPES, (8192, 2048)])
+def test_rmsnorm_bwd_kernel(M, K, dtype):
+    """B10 against its plain version: dx within 2 bf16 ulps (or 2**-20 of
+    max|dx|), dgamma within 1e-5 of max|dgamma|; a second run gives the
+    same bits (dgamma's partial sums meet in a fixed order)."""
+    x, g, dy, _ = _producer_inputs(M, K, dtype, 30)
+    dx, dg = ops.rmsnorm_bwd(x, g, dy)
+    torch.cuda.synchronize()
+    dx_ref, dg_ref = ops.rmsnorm_bwd_plain(x, g, dy)
+    assert dx.dtype == x.dtype and dg.dtype == torch.float32 and dg.shape == (K,)
+    far = (_bf16_ulps(dx, dx_ref) > 2) & ((dx - dx_ref).abs() > 2**-20 * dx_ref.abs().max())
+    assert not far.any(), far.sum()
+    assert (dg - dg_ref).abs().max() <= 1e-5 * dg_ref.abs().max()
+    again = ops.rmsnorm_bwd(x, g, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+
+
+def test_fused_producers_refuse_what_they_cannot_take():
+    x, g, a, b = _producer_inputs(64, 256, torch.bfloat16, 40)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops.rmsnorm_quant_rowwise(x[:, :200].contiguous(), g[:200])
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.silu_mul_quant_rowwise(a.reshape(-1)[1:1 + 63 * 256].view(63, 256), b[:63])
+    with pytest.raises(ValueError, match="differ"):
+        ops.silu_mul_quant_colwise(a, b.float())
+    with pytest.raises(ValueError, match="scale must be fp32"):
+        ops.rmsnorm_quant_colwise(x, g, scale=torch.ones(1, 256, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="requires a key"):
+        ops.rmsnorm_quant_rowwise(x, g, sr=True)
+
+
 def _int8(shape, g):
     return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
 
@@ -216,6 +331,17 @@ def test_launch_counters_count_kernel_launches_only():
     adamw_in = _adamw_inputs(64, torch.bfloat16, 0)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
+    y, gamma = _rand((64, 128), torch.bfloat16, 3), torch.ones(128, device="cuda", dtype=torch.bfloat16)
+    for use_sr in (False, True):
+        kw = dict(sr=use_sr, key=1 if use_sr else None)
+        amax = ops.rmsnorm_quant_rowwise(y, gamma, with_col_amax=True, **kw)[2]
+        ops.rmsnorm_quant_colwise(y, gamma, scale=amax * (1.0 / 127.0), **kw)
+        ops.silu_mul_quant_rowwise(y, y, **kw)
+        ops.silu_mul_quant_colwise(y, y, **kw)
+        ops.rmsnorm_quant_rowwise_plain(y, gamma, **kw)
+        ops.silu_mul_quant_colwise_plain(y, y, **kw)
+    ops.rmsnorm_bwd(y, gamma, y)
+    ops.rmsnorm_bwd_plain(y, gamma, y)
     ops.quantize_int8_plain(x)
     ops.quantize_int8_plain(x, sr=True, key=1)
     ops.quantize_int8_both_plain(x)
@@ -223,3 +349,5 @@ def test_launch_counters_count_kernel_launches_only():
     ops.scaled_mm_lhs_t_plain(qc2, qc, sc2, sc)
     ops.fused_adamw_plain(*adamw_in, 1, bf16_sr=True)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)

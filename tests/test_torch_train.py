@@ -38,6 +38,7 @@ from quantized_training_tpu.models import llama as jllama
 from quantized_training_tpu_torch import ops, optim, quant, train
 from quantized_training_tpu_torch.convert import adamw_state_from_jax, params_from_jax
 from quantized_training_tpu_torch.models import llama
+from quantized_training_tpu_torch.ops import fused_producers
 from quantized_training_tpu_torch.quant import core, mixed_precision
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
@@ -167,6 +168,9 @@ def _counting(monkeypatch):
     wrap(core, "quantize_int8_rowwise", "quantize_int8_rowwise", "sr")
     wrap(core, "quantize_int8_colwise", "quantize_int8_colwise", "sr")
     wrap(core, "_quantize_both_kernel", "quantize_int8_both", "sr")
+    for name in ("rmsnorm_quant_rowwise", "rmsnorm_quant_colwise", "silu_mul_quant_rowwise",
+                 "silu_mul_quant_colwise", "rmsnorm_bwd"):  # the fused layer's kernels
+        wrap(fused_producers, name, name, "sr")
     # optim exports a function of the module's name
     wrap(importlib.import_module("quantized_training_tpu_torch.optim.adamw"), "fused_adamw_update",
          "fused_adamw_update", "bf16_sr")
