@@ -16,8 +16,12 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    (norm [8192, 2048], silu [8192, 5632], and [256, 2048] / [256, 5632]):
    B7 with and without the column absmax, B8 given the forward's scales
    and in two passes, B9's row and column forms (bit-exact), B10, and the
-   SR forms of B7-B9; timed with CUDA events, with GB/s and the share of
-   the roofline;
+   SR forms of B7-B9; B11 and B12 at the MLP backward's [8192, 5632] and
+   [256, 5632], B13 on q, k and v of bench.py's micro-batch [4, 2048] and
+   B14 on its attention output, with their SR forms (all bit-exact); timed
+   with CUDA events, with GB/s and the share of the roofline; then the
+   strides SDPA takes and returns in the grouped pipeline, which must run
+   no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
@@ -27,15 +31,17 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    card against the same model on the CPU (plain versions);
 6. the training slice: three int8 ``mixed_precision`` train steps of
    Llama2-1B at full width and depth (batch 4 x seq 2048, per-layer remat,
-   SDPA attention, AdamW, the producer-fused layer) on one token batch from
+   SDPA attention on the grouped pipeline, AdamW, the producer-fused layer:
+   the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
    of times the code implies, and the same steps in bf16 start from the
    same loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
-   rounding from one key, on the card against the CPU: the unfused layer
-   on both, then the fused layer (``set_impl('auto')`` on the card, the
-   plain versions under ``set_impl('interpret')`` on the CPU);
+   rounding from one key, on the card against the CPU, both on the grouped
+   pipeline: the unfused layer on both, then the fused layer
+   (``set_impl('auto')`` on the card, the plain versions under
+   ``set_impl('interpret')`` on the CPU);
 8. ``bench.py``'s step: Llama2-1B, tokens [4, 4, 2048] (4 x 4 gradient
    accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
    1e-4; three steps int8 ``mixed_precision`` on the fused layer, three on
@@ -43,7 +49,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    ratios, peak memory, exact launch counts (B6 once per parameter leaf);
 9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
    and ``--optim adamw_bf16_sr``): three steps at batch 4 x 2048 in which
-   only the SR forms of K1, B4, B5, B6 and B7-B9 launch, and B10.
+   only the SR forms of K1, B4, B5, B6, B7-B9, B11, B12 and B14's quantize
+   launch, and B10, B13 and B14's absmax, which have none.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -60,6 +67,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import time
 from functools import partial
@@ -227,7 +235,8 @@ def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None):
     the run of its path."""
     src = ("int8_quant.cu" if name.startswith("quantize") else
            "fused_adamw.cu" if name.startswith("fused_adamw") else
-           "fused_producers.cu" if name.startswith(("rmsnorm", "silu")) else "scaled_mm.cu")
+           "fused_producers.cu" if name.startswith(("rmsnorm", "silu")) else
+           "rope.cu" if name.startswith(("rope", "ungroup")) else "scaled_mm.cu")
     bound_ms, bound_by = bound(nbytes, int8_ops)
     return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
@@ -453,6 +462,37 @@ def _hold(kind: str, got, ref) -> str:
     return f"dx max {ulps.max().item()} bf16 ulps ({(ulps > 2).sum().item()} beyond 2, all tiny), dgamma {dg_rel:.2e} of max"
 
 
+def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, args, nbytes: float,
+                    replaces: str | None = None, sr_of=None):
+    """Run ``kernel`` and ``plain`` on ``args``, hold the outputs by the bars
+    of ``kind`` (:func:`_hold`), and with ``sr_of`` (the round-to-nearest
+    outputs) check that the SR form differs from them; with ``replaces`` also
+    time both and keep the kernel's entry in ``rows`` (name -> (replaces,
+    worst error, (shape, ms, plain ms), bytes)): the first shape timed, or
+    the path's TOKENS-row shape. Prints one line; returns the kernel's
+    outputs. GB/s and the share of the roofline count ``nbytes``."""
+    got, ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    held = _hold(kind, got, ref)
+    if sr_of is not None:
+        check(not torch.equal(got[0], sr_of[0]), f"{name} differs from round-to-nearest")
+    shape = tuple(args[0].shape)
+    line = f"[3] {name} {list(shape)} {str(args[0].dtype)[6:]}{form}: {held}"
+    if replaces is not None:
+        inputs = copies(*args)
+        ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
+        b_ms = bound(nbytes)[0]
+        line += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the {b_ms:.4f} ms "
+                 f"bound), plain {plain_ms:.4f} ms")
+        err = max(rows.get(name, (None, 0.0))[1], _max_err(got, ref))
+        if shape[0] == TOKENS or name not in rows:
+            rows[name] = (replaces, err, (shape, ms, plain_ms), nbytes)
+        else:
+            rows[name] = (*rows[name][:1], err, *rows[name][2:])
+    print(line)
+    return got
+
+
 def check_fused_producers(gen: torch.Generator, key: int) -> list:
     """B7-B10 and the SR forms of B7-B9 at the fused layer's shapes (x
     [8192, 2048] at the norm sites, gate and up [8192, 5632] at the silu
@@ -463,29 +503,7 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
     share of the roofline count each input read once and each output
     written once (bf16 inputs, fp32 scales and maxima)."""
     rows = {}  # entry name -> (replaces, worst error, timed, bytes)
-
-    def run(name, form, kind, kernel, plain, args, nbytes, replaces=None, sr_of=None):
-        got, ref = kernel(*args), plain(*args)
-        torch.cuda.synchronize()
-        held = _hold(kind, got, ref)
-        if sr_of is not None:
-            check(not torch.equal(got[0], sr_of[0]), f"{name} differs from round-to-nearest")
-        shape = tuple(args[0].shape)
-        line = f"[3] {name} {list(shape)} bf16{form}: {held}"
-        if replaces is not None:
-            inputs = copies(*args)
-            ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
-            b_ms = bound(nbytes)[0]
-            line += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the {b_ms:.4f} ms "
-                     f"bound), plain {plain_ms:.4f} ms")
-            err = max(rows.get(name, (None, 0.0))[1], _max_err(got, ref))
-            if shape[0] == TOKENS or name not in rows:
-                rows[name] = (replaces, err, (shape, ms, plain_ms), nbytes)
-            else:
-                rows[name] = (*rows[name][:1], err, *rows[name][2:])
-        print(line)
-        return got
-
+    run = partial(_held_and_timed, rows)
     pf_ = "quantized_training_tpu/ops/pallas_fused.py"
     for M, K in NORM_SHAPES:
         x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -541,6 +559,134 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
                           ops.silu_mul_quant_colwise_plain, (a, b), 0)
                 check(torch.equal(two[0], col[0]), "B9-col given the forward's scales equals B9-col in two passes")
     return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+
+
+def check_silu_bwd(gen: torch.Generator, key: int) -> list:
+    """B11 and B12 and their SR forms at the MLP backward's shape (gate, up
+    and dact [8192, 5632]) and at [256, 5632], against their plain versions
+    on the card, bit-exact: B11 with the column absmax (the path's form with
+    an int8 grad_weight, timed) and with the (da, db) copies instead (the
+    bf16 grad_weight's form, held), B12 given B11's column scales. Bytes:
+    (a, b, dy) read once, two int8 written, and the fp32 scales and
+    maxima."""
+    rows = {}
+    run = partial(_held_and_timed, rows)
+    pf_ = "quantized_training_tpu/ops/pallas_fused.py"
+    for M, K in SILU_SHAPES:
+        a = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        b = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+        dy = (torch.randn(M, K, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
+        dy[:, 1] = 0  # an all-zero column of (da, db)
+        rn = {}
+        for sr in (False, True):
+            tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
+            row = run(f"silu_mul_bwd_quant_rowwise{tag}", ", column absmax", "exact",
+                      partial(ops.silu_mul_bwd_quant_rowwise, **kw),
+                      partial(ops.silu_mul_bwd_quant_rowwise_plain, **kw), (a, b, dy), 8 * M * K + 8 * M + 8 * K,
+                      f"{pf_}:631", rn.get("row"))
+            scales = tuple(m * (1.0 / 127.0) for m in row[4:])
+            col = run(f"silu_mul_bwd_quant_colwise{tag}", ", given scales", "exact",
+                      partial(ops.silu_mul_bwd_quant_colwise, **kw), partial(ops.silu_mul_bwd_quant_colwise_plain, **kw),
+                      (a, b, dy, *scales), 8 * M * K + 8 * K, f"{pf_}:704", rn.get("col"))
+            rn.update(row=row, col=col)
+            run(f"silu_mul_bwd_quant_rowwise{tag}", ", (da, db) copies", "exact",
+                partial(ops.silu_mul_bwd_quant_rowwise, with_amax=False, with_bf16=True, **kw),
+                partial(ops.silu_mul_bwd_quant_rowwise_plain, with_amax=False, with_bf16=True, **kw), (a, b, dy), 0)
+    return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+
+
+def check_rope(gen: torch.Generator, key: int) -> list:
+    """B13 and B14 at bench.py's micro-batch [4, 2048] of Llama2-1B, against
+    their plain versions on the card, bit-exact: the grouping of q (the
+    1/sqrt(hd) pre-scale folded into its tables, timed), of k and of v (no
+    rotation); the ungrouping of q's grad with rot^T (timed) and of the
+    attention output without rotation, from grouped tensors in [B, S, H, hd]
+    memory (the layout SDPA takes and returns for them) and in [B, H, S, hd]
+    memory; B14's absmax and its quantize along rows (timed, and its SR
+    form) and columns of the attention output [4, 2048, 32, 64]. Bytes:
+    bf16 in and out (int8 out for the quantize), fp32 tables, scales and
+    maxima, each once."""
+    rows = {}
+    run = partial(_held_and_timed, rows)
+    pr_ = "quantized_training_tpu/ops/pallas_rope.py"
+    H, KV, hd = CFG.num_attention_heads, CFG.num_key_value_heads, CFG.head_dim
+    cos, sin = llama.rope_tables(CFG, TRAIN_S, device=DEVICE)
+    tables = 2 * cos.numel() * 4
+    for what, heads, c, s in (("q", H, cos * hd**-0.5, sin * hd**-0.5), ("k", KV, cos, sin), ("v", KV, None, None)):
+        x = torch.randn(TRAIN_B, TRAIN_S, heads, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+        nbytes = 4 * x.numel() + (0 if c is None else tables)
+        timed = f"{pr_}:140" if what == "q" else None
+        kv = KV if heads == H else heads
+        (y,) = run("rope_group", f" ({what})", "exact", lambda x, c=c, s=s, kv=kv: (ops.rope_group_kernel(x, c, s, kv=kv),),
+                   lambda x, c=c, s=s, kv=kv: (ops.rope_group_ref(x, c, s, kv),), (x,), nbytes, timed)
+        bhsd = x.permute(0, 2, 1, 3).contiguous().view(y.shape)
+        for layout, grouped in (("[B, S, H, hd] memory", y), ("[B, H, S, hd] memory", bhsd)):
+            run("rope_ungroup", f" ({what}'s grad, rot^T, {layout})", "exact",
+                lambda g, c=c, s=s: (ops.rope_ungroup_kernel(g, c, s, inverse=True),),
+                lambda g, c=c, s=s: (ops.rope_ungroup_ref(g, c, s, inverse=True),), (grouped,), nbytes,
+                f"{pr_}:203" if what == "q" and grouped is y else None)
+    out = ops.rope_group_kernel(torch.randn(TRAIN_B, TRAIN_S, H, hd, generator=gen, device=DEVICE).to(torch.bfloat16),
+                                kv=KV)
+    out[0, :, :, 1] = 0  # an all-zero row of the ungrouped view
+    M, K = TRAIN_B * TRAIN_S, H * hd
+    row, col = run("ungroup_amax", " (attention output)", "exact", ops.ungroup_amax, ops.ungroup_amax_plain, (out,),
+                   2 * M * K + 4 * M + 4 * K, f"{pr_}:334")
+    rn = None
+    for sr in (False, True):
+        tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
+        for axis, scale, form, nbytes in ((1, row, "rows", 3 * M * K + 4 * M), (0, col, "columns", 0)):
+            q = run(f"ungroup_quant{tag}", f", {form}", "exact",
+                    lambda y, s, axis=axis, kw=kw: (ops.ungroup_quant(y, s, axis=axis, **kw),),
+                    lambda y, s, axis=axis, kw=kw: (ops.ungroup_quant_plain(y, s, axis=axis, **kw),),
+                    (out, scale * (1.0 / 127.0)), nbytes, f"{pr_}:365" if axis == 1 else None,
+                    rn if sr and axis == 1 else None)
+            rn = q if axis == 1 else rn
+    return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+
+
+def check_attention_layout(key: int) -> None:
+    """The strides SDPA takes and returns in the grouped pipeline, at
+    bench.py's micro-batch: q, k, v from B13, attention, the int8
+    o-projection (B14) and the backward, once under ``torch.profiler``;
+    fails if a layout copy (an ``aten::contiguous`` or ``aten::clone`` that
+    runs a kernel) sits anywhere in it."""
+    H, KV, hd = CFG.num_attention_heads, CFG.num_key_value_heads, CFG.head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q, k, v = (torch.randn(TRAIN_B, TRAIN_S, h, hd, generator=gen, device=DEVICE).to(torch.bfloat16).requires_grad_()
+               for h in (H, KV, KV))
+    w = quant.MixedPrecisionWeight((torch.randn(D, H * hd, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16),
+                                   quant.MixedPrecisionConfig())
+    cos, sin = llama.rope_tables(CFG, TRAIN_S, device=DEVICE)
+    strides = {}
+
+    def block():
+        qg = ops.rope.rope_group(q, cos * hd**-0.5, sin * hd**-0.5, KV)
+        kg = ops.rope.rope_group(k, cos, sin, KV).squeeze(2)
+        vg = ops.rope.group_heads(v, KV).squeeze(2)
+        for name, t in (("q", qg), ("k", kg), ("v", vg)):
+            strides[name] = t.stride()
+            t.register_hook(lambda g, name=name: strides.__setitem__(f"d{name}", g.stride()))
+        out = llama._attention_grouped(qg, kg, vg, "sdpa")
+        strides["out"] = out.stride()
+        out.register_hook(lambda g: strides.__setitem__("dout", g.stride()))
+        o = quant.attn_out_linear(out, w, KV, key=key)
+        (o.float() ** 2).sum().backward()
+
+    block()  # warm-up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        block()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    copying = {e.key: e.device_time_total for e in events if e.key in ("aten::contiguous", "aten::clone")
+               and e.device_time_total > 0}
+    kernels = sorted({e.key[:60] for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "copy" in e.key.lower()})
+    print(f"[3] grouped attention at [{TRAIN_B}, {TRAIN_S}] (q, k, v from B13, SDPA, the int8 o-projection, "
+          f"backward): strides of [B, KV, G, S, hd] (q, out) and [B, KV, S, hd] (k, v) {strides}; layout copies "
+          f"{copying or 'none'}; copy kernels (dtype casts included) {kernels}")
+    check(not copying, f"no layout copy around SDPA: {copying}")
 
 
 def mixed_requests(vocab: int):
@@ -646,33 +792,44 @@ def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agre
 
 
 def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_sr: int = 0,
-                      fused: bool = True) -> dict:
-    """Kernel launches of one train step of L int8 layers (L = 0 for bf16),
-    from the code (pinned on the CPU by tests/test_torch_train.py and
-    tests/test_torch_fused.py::test_kernel_calls_per_step_fused): a layer
-    has 7 quantized weights (q, k, v, o, gate, up, down) behind 4 inputs
-    (q/k/v and gate/up share one), and remat runs its forward twice.
+                      layer: str = "fused") -> dict:
+    """Kernel launches of one train step of L layers, from the code (pinned
+    on the CPU by tests/test_torch_train.py and tests/test_torch_fused.py::
+    test_kernel_calls_per_step_fused): a layer has 7 quantized weights (q,
+    k, v, o, gate, up, down) behind 4 inputs (q/k/v and gate/up share one),
+    and remat runs its forward twice. Every layer runs the grouped pipeline
+    (attention is SDPA): forward rope_group on q, k and v; backward
+    rope_ungroup for their grads.
 
-    The fused layer (``fused``): forward K1 per weight and for o's input
-    (8), K2 per weight (7), B7 at the two norm sites, B9-row at down's
-    input. Backward per weight B5 (its output grad), B4 (the weight), B1
-    and B2; B4 also for o's input; B8 at the two norm sites, B9-col at
-    down's input, B10 at the two norms. The unfused layer: forward K1 for
-    the 7 weights and the 4 inputs, K2 per weight; backward per weight B5,
-    B4, B1, B2 and B4 once per input. All of that once per micro-batch,
-    each quantize in its SR form with ``sr`` (B10 has none); then B6 once
-    per parameter leaf (``b6``, or ``b6_sr`` with the SR writeback)."""
+    ``layer`` 'fused' (int8): forward K1 per weight (7), K2 per weight (7),
+    B7 at the two norm sites, B9-row at down's input, ungroup_amax and
+    ungroup_quant (rows) at o's input. Backward B5 at the output grads of
+    q, k, v, o and down, B4 per weight, B1 and B2 per weight, B8 at the two
+    norm sites, B9-col at down's input, B10 at the two norms, B11 and B12
+    for (dgate, dup), ungroup_quant (columns) at o's input and rope_group
+    for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
+    7 weights and the 4 inputs, K2 per weight, rope_ungroup at o's input;
+    backward per weight B5, B4, B1, B2, B4 once per input, rope_group for
+    o's input grad. 'bf16': the rope kernels of 'unfused' only. All of that
+    once per micro-batch, each quantize in its SR form with ``sr`` (B10 and
+    B13 have none); then B6 once per parameter leaf (``b6``, or ``b6_sr``
+    with the SR writeback)."""
     t = "_sr" if sr else ""
     n = L * micro
     counts = dict.fromkeys(ops.KERNELS, 0)
-    if fused:
-        counts.update({f"quantize_int8_rowwise{t}": 2 * 8 * n, f"quantize_int8_colwise{t}": 8 * n,
-                       f"rmsnorm_quant_rowwise{t}": 2 * 2 * n, f"silu_mul_quant_rowwise{t}": 2 * n,
-                       f"rmsnorm_quant_colwise{t}": 2 * n, f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n})
-    else:
-        counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n})
-    counts.update({f"quantize_int8_both{t}": 7 * n, "scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm": 7 * n,
-                   "scaled_mm_lhs_t": 7 * n, "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
+    counts.update({"rope_group": 7 * n, "rope_ungroup": (3 if layer == "fused" else 5) * n,
+                   "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
+    if layer == "fused":
+        counts.update({f"quantize_int8_rowwise{t}": 2 * 7 * n, f"quantize_int8_colwise{t}": 7 * n,
+                       f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": 2 * 2 * n,
+                       f"silu_mul_quant_rowwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}": 2 * n,
+                       f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, f"silu_mul_bwd_quant_rowwise{t}": n,
+                       f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, f"ungroup_quant{t}": 3 * n})
+    elif layer == "unfused":
+        counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n,
+                       f"quantize_int8_both{t}": 7 * n})
+    if layer != "bf16":
+        counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm": 7 * n, "scaled_mm_lhs_t": 7 * n})
     return counts
 
 
@@ -766,8 +923,9 @@ def train_slice(raw, seed: int, key: int):
     from the same weights and batch. Returns the int8 losses and launches."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
     what = (f"Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}")
+    L = cfg.num_hidden_layers
     return int8_vs_bf16(6, what, raw, cfg, tokens, labels, optim.adamw(weight_decay=1e-2), 3e-4, key,
-                        per_step_launches(cfg.num_hidden_layers), per_step_launches(0))
+                        per_step_launches(L), per_step_launches(L, layer="bf16"))
 
 
 def bench_step(raw, seed: int, key: int) -> dict:
@@ -786,19 +944,20 @@ def bench_step(raw, seed: int, key: int) -> dict:
     L = cfg.num_hidden_layers
     _, launches = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
                                per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves),
-                               per_step_launches(0, b6=n_leaves),
-                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, fused=False))
+                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="bf16"),
+                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="unfused"))
     return launches
 
 
 def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
     """Phase 9: llm_pretrain.py with stochastic_rounding and ``--optim
     adamw_bf16_sr`` (SR writeback on, weight decay 1e-2, lr 3e-4) at batch
-    4 x 2048, remat, the fused layer: only the SR forms of K1, B4, B5, B6
-    and B7-B9 launch (and B10, which has none), each as often as phase 6's
-    forms per step; the losses fall and the first is
-    within 1e-2 of phase 6's round-to-nearest int8 first loss (same weights
-    and batch). Returns the launches."""
+    4 x 2048, remat, the fused layer: only the SR forms of K1, B4, B5, B6,
+    B7-B9, B11, B12 and B14's quantize launch (and B10, B13 and B14's
+    absmax, which have none), each as often as phase 6's forms per step;
+    the losses fall and the first is within 1e-2 of phase 6's
+    round-to-nearest int8 first loss (same weights and batch). Returns the
+    launches."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
     n_leaves = len(tree_leaves(raw))
     params = quant.quantize_params(raw, "mixed_precision", stochastic_rounding=True)
@@ -827,22 +986,26 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     Llama2-1B (full width, weights from ``seed``), int8 mixed_precision,
     one micro-step on 256 tokens, the kernels on the card against the plain
     versions on the CPU; with ``sr_key``, stochastic rounding from that key
-    on both devices, which draws the same noise on both. ``fused``: the
-    fused layer (``set_impl('auto')`` on the card, ``'interpret'`` on the
-    CPU), else the unfused one on both (``'off'``). Bounds: relative RMS of
-    each leaf's difference <= ``max_rms``; relative loss difference <=
-    ``max_dloss``.
+    on both devices, which draws the same noise on both. Both run the
+    grouped pipeline (``QT_FUSED_ROPE=force``: the CPU would otherwise take
+    the ungrouped one; at 256 tokens the o-projection's fused op engages).
+    ``fused``: the fused layer (``set_impl('auto')`` on the card,
+    ``'interpret'`` on the CPU), else the unfused one on both (``'off'``).
+    Bounds: relative RMS of each leaf's difference <= ``max_rms``; relative
+    loss difference <= ``max_dloss``.
 
     Every kernel of the unfused layer is bit-exact, and B7, B8 and B10 are
     off by fp32 sum order, so the two paths differ where the torch ops
     around them round differently, and int8 rounding flips in the forward
     and both backward matmuls carry that difference. The floor, measured on
-    the CPU in two draws: the plain path against itself with the embedding
-    moved by one ulp gives a worst leaf of 3.7e-2 / 4.7e-2 and a loss
-    6.9e-5 / 9.4e-5 apart in fp32, 7.3e-2 / 7.4e-2 and 2.0e-5 / 1.1e-4 in
-    bf16. The bounds sit above it (1.5e-1 / 2e-1 per leaf,
-    1e-3 on the loss); a wiring fault (a transposed operand, a scale on the
-    wrong axis) gives a relative RMS near 1."""
+    the CPU on the grouped pipeline with weights from seeds 0 and 1: the
+    plain path against itself with the embedding moved by one ulp gives a
+    worst leaf of 4.5e-2 / 4.7e-2 and a loss 2.3e-5 / 1.7e-4 apart in fp32,
+    7.2e-2 / 7.3e-2 and 5.2e-4 / 2.2e-4 in bf16 (the fused layer; the
+    unfused one 4.4e-2 / 4.7e-2, 1.6e-4 / 1.3e-4, 7.2e-2 / 7.4e-2, 3.2e-4 /
+    5.4e-4). The bounds sit above it (1.5e-1 / 2e-1 per leaf, 1e-3 on the
+    loss); a wiring fault (a transposed operand, a scale on the wrong axis)
+    gives a relative RMS near 1."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(CFG, num_hidden_layers=2, remat=True)
     raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, dtype=dtype)
@@ -856,15 +1019,24 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
                               ("cpu", to_cpu(raw), "interpret" if fused else "off")):
         qparams = quant.quantize_params(params, "mixed_precision", stochastic_rounding=sr)
         quant.set_impl(impl)
+        flag = os.environ.get("QT_FUSED_ROPE")
+        os.environ["QT_FUSED_ROPE"] = "force"
         ops.reset_launch_counts()
         try:
             loss, grads = train.loss_and_grads(cfg, qparams, tok.to(dev), lab.to(dev), sr_key)
         finally:
             quant.set_impl("auto")
+            if flag is None:
+                del os.environ["QT_FUSED_ROPE"]
+            else:
+                os.environ["QT_FUSED_ROPE"] = flag
         res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
         if dev == DEVICE:  # the card ran the layer asked for
-            b7 = ops.launch_counts()["rmsnorm_quant_rowwise_sr" if sr else "rmsnorm_quant_rowwise"]
-            check((b7 > 0) == fused, f"B7 launched {b7} times with fused={fused}")
+            t = "_sr" if sr else ""
+            n = ops.launch_counts()
+            fused_ran = [n[f"{k}{t}"] for k in ("rmsnorm_quant_rowwise", "silu_mul_bwd_quant_rowwise", "ungroup_quant")]
+            check(all((c > 0) == fused for c in fused_ran) and n["rope_group"] > 0,
+                  f"B7, B11, B14 launched {fused_ran} times with fused={fused}, B13 {n['rope_group']}")
     rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
     dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
     print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]}{' SR' if sr else ''} {'fused' if fused else 'unfused'} "
@@ -889,6 +1061,8 @@ def main() -> None:
     sr_forms = check_sr_quantizes(gen, key)
     adamw = check_fused_adamw(gen, key)
     producers = check_fused_producers(gen, key)
+    producers += check_silu_bwd(gen, key) + check_rope(gen, key)
+    check_attention_layout(key)
     launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
     for e in serving:
         e["launches"] = launches[e["name"]]

@@ -9,9 +9,11 @@ tokens from ``--seed``), in up to three configurations: int8
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
 of every kernel, summed by group (the port's int8 GEMMs, its quantize and
-producer kernels, B6, cuBLAS GEMMs, attention, the rest: torch's
-elementwise and reduction kernels), the device's busy share of the
-profiled step's wall time, and the largest kernels by name.
+producer kernels, its RoPE and ungroup kernels, B6, cuBLAS GEMMs, attention,
+torch's copy kernels, the rest: torch's elementwise and reduction kernels),
+the device's busy share of the profiled step's wall time, the layout copies
+(``aten::contiguous`` / ``aten::clone`` ops that ran a kernel; the copy group
+also holds dtype casts), and the largest kernels by name.
 
 Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16] [--seed N] [--top 12]
 """
@@ -33,11 +35,13 @@ from quantized_training_tpu_torch.ops import random
 # kernel-name fragments of each group, first match wins
 GROUPS = (
     ("int8 GEMMs K2/B1/B2", ("scaled_mm_s8",)),
-    ("producer kernels B7-B10", ("row_quant", "col_quant", "producer_col_absmax", "rmsnorm_bwd_rows",
+    ("producer kernels B7-B12", ("row_quant", "col_quant", "producer_col_absmax", "rmsnorm_bwd_rows",
                                  "reduce_parts")),
+    ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
     ("quantizes K1/B4/B5", ("quantize_rows", "col_absmax", "col_cast", "quantize_both_rows")),
     ("B6 AdamW", ("fused_adamw",)),
-    ("attention (SDPA)", ("flash", "fmha", "sdpa", "attention")),
+    ("attention (SDPA)", ("flash", "fmha", "sdpa", "attention", "cudnn")),
+    ("copies and casts", ("copy",)),
     ("cuBLAS GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
 )
 
@@ -83,8 +87,11 @@ def main() -> None:
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         quant.set_impl("auto")
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+        events = prof.key_averages()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
                 if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+        layout = {e.key: (e.device_time_total / 1e3, e.count) for e in events
+                  if e.key in ("aten::contiguous", "aten::clone") and e.device_time_total > 0}
         total = sum(ms for _, ms, _ in rows)
         by_group = {}
         for k, ms, n in rows:
@@ -95,6 +102,7 @@ def main() -> None:
               f"{prof_wall * 1e3:.1f} ms, kernels {total:.1f} ms, device busy {total / (prof_wall * 1e3):.1%}")
         for g, (ms, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
             print(f"   {g}: {ms:.1f} ms ({ms / total:.1%}), {n} launches")
+        print(f"   layout copies (aten::contiguous / aten::clone running a kernel; ms, calls): {layout or 'none'}")
         for k, ms, n in sorted(rows, key=lambda r: -r[1])[:args.top]:
             print(f"     {ms:9.2f} ms {n:6d} x  {k[:110]}")
         del state, params

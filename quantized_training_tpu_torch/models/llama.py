@@ -6,17 +6,23 @@ stacked ``[L, out, in]`` layout, drawn from an explicit ``torch.Generator``),
 ``rms_norm``, ``rope_tables``, ``apply_rope``, causal GQA ``attention``, and
 the decoder layer with ``backbone``, ``forward`` and ``loss_fn``.
 
-The decoder layer is the JAX package's (:402-502) without the grouped
-RoPE path: ``norm_linear_multi`` for the norm and q/k/v, rope on [B, S, H,
-hd], attention, ``qlinear`` for the o-projection (the JAX path when
-``_use_grouped_rope`` is false; ``attn_out_linear`` and its kernels B13/B14
-are not ported), and ``mlp_linear`` for the MLP. For all-int8
-``mixed_precision`` weights on the card those run RMSNorm and silu(gate) *
-up inside the int8 quantizes (``quant/fused.py``); on the CPU, for other
-weights, or under ``quant.set_impl('off')`` / ``QT_FUSED=0`` they take the
-unfused composite, ``rms_norm`` -> ``qlinear_multi`` and ``silu(gate) *
-up`` -> ``qlinear``. On the TPU the JAX package ran JAX's splash attention;
-its counterpart here is ``F.scaled_dot_product_attention``.
+The decoder layer is the JAX package's (:356-502): ``norm_linear_multi``
+for the norm and q/k/v, then, where ``_use_grouped_rope`` holds (by default
+wherever attention resolves to SDPA, the counterpart of the JAX package's
+splash; ``QT_FUSED_ROPE=0`` turns it off, ``=force`` on, with the einsum
+attention on the CPU), the grouped pipeline: RoPE in fp32 fused with the
+head grouping, q's 1/sqrt(hd) folded into its tables (``ops/rope.py``, B13),
+attention on [B, KV, G, S, hd] operands, and ``attn_out_linear`` for the
+o-projection (the ungrouping inside its int8 quantize, B14); otherwise rope
+on [B, S, H, hd] in the model dtype, attention and ``qlinear`` for o. The
+MLP is ``mlp_linear``. For all-int8 ``mixed_precision`` weights on the card
+those run RMSNorm, silu(gate) * up, its backward and the ungrouping inside
+the int8 quantizes (``quant/fused.py``); on the CPU, for other weights, or
+under ``quant.set_impl('off')`` / ``QT_FUSED=0`` they take the unfused
+composite, ``rms_norm`` -> ``qlinear_multi``, ``silu(gate) * up`` ->
+``qlinear`` and ``ungroup_heads`` -> ``qlinear``. On the TPU the JAX package
+ran JAX's splash attention; its counterpart here is
+``F.scaled_dot_product_attention``.
 ``save_qkv_residuals``, the HF-json loader and ``bitnet`` are not carried.
 
 Stochastic rounding draws from an int key (``ops/random.py``) folded as the
@@ -31,6 +37,7 @@ replay in the backward rounds exactly as the forward did.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import partial
 
@@ -41,7 +48,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.cross_entropy import IGNORE_INDEX, fused_linear_cross_entropy
 from ..ops.fused_producers import rms_norm_ref as rms_norm
 from ..ops.random import fold_in
-from ..quant import mlp_linear, norm_linear_multi, qlinear
+from ..ops.rope import group_heads, rope_group
+from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, qlinear
 from ..quant.mixed_precision import MixedPrecisionWeight
 
 
@@ -188,6 +196,50 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "au
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
+def _use_grouped_rope(cfg: LlamaConfig, x: torch.Tensor) -> bool:
+    """The grouped pipeline (JAX :210-227): on where attention resolves to
+    SDPA, whose operands it feeds without a copy; ``QT_FUSED_ROPE=0`` turns
+    it off, ``QT_FUSED_ROPE=force`` on (the einsum fallback, for the CPU
+    tests); never for hd % 64 or hd > 256."""
+    flag = os.environ.get("QT_FUSED_ROPE", "1")
+    if flag == "0" or cfg.head_dim % 64 or cfg.head_dim > 256:
+        return False
+    return flag == "force" or _resolve_attn_impl(cfg.attention_impl, x) == "sdpa"
+
+
+def _qkv_part_grouped(cfg: LlamaConfig, x, lp, cos, sin, key: int):
+    """Norm + QKV projections + rope fused with the head grouping (JAX
+    :356-379): q comes out [B, KV, G, S, hd] with 1/sqrt(hd) folded into its
+    tables, k and v [B, KV, S, hd]."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q, k, v = norm_linear_multi(x, lp["attn_norm"]["g"], [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
+                                cfg.rms_norm_eps, key=fold_in(key, 0))
+    scale = hd**-0.5
+    qg = rope_group(q.reshape(B, S, H, hd), cos * scale, sin * scale, KV)
+    # squeeze, not [:, :, 0]: its backward is a view, where indexing's writes
+    # the gradient into a zero-filled copy
+    kg = rope_group(k.reshape(B, S, KV, hd), cos, sin, KV).squeeze(2)
+    vg = group_heads(v.reshape(B, S, KV, hd), KV).squeeze(2)
+    return qg, kg, vg
+
+
+def _attention_grouped(qg, kg, vg, impl: str):
+    """Causal GQA attention on grouped operands (JAX :382-399): qg [B, KV, G,
+    S, hd] (already 1/sqrt(hd)-scaled), kg/vg [B, KV, S, hd] -> [B, KV, G, S,
+    hd]. 'sdpa': ``F.scaled_dot_product_attention`` with ``scale=1.0`` on the
+    [B, H, S, hd] view of qg; 'xla': the grouped fp32-softmax einsum."""
+    B, KV, G, S, hd = qg.shape
+    if _resolve_attn_impl(impl, qg) == "sdpa":
+        out = F.scaled_dot_product_attention(qg.reshape(B, KV * G, S, hd), kg, vg, is_causal=True, scale=1.0,
+                                             enable_gqa=True)
+        return out.reshape(B, KV, G, S, hd)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg.float(), kg.float())
+    mask = torch.ones(S, S, dtype=torch.bool, device=qg.device).tril()
+    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1).to(qg.dtype)
+    return torch.einsum("bkgst,bktd->bkgsd", probs, vg)
+
+
 def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     """Norm + QKV projections + RoPE (JAX :402-427): the norm fused into
     the shared input quantize where ``norm_linear_multi`` fuses."""
@@ -200,16 +252,25 @@ def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     return q, k, v.reshape(B, S, KV, hd)
 
 
-def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int):
-    """O-projection + MLP with residuals (JAX :430-472, without grouped
-    RoPE and bitnet): ``qlinear`` for o, ``mlp_linear`` for the MLP."""
-    x = x + qlinear(ctx, lp["o"]["w"], key=fold_in(key, 3))
+def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int, *, ctx_grouped=None):
+    """O-projection + MLP with residuals (JAX :430-472, without bitnet):
+    ``attn_out_linear`` for o on the grouped attention output
+    ``ctx_grouped`` [B, KV, G, S, hd], else ``qlinear`` on ``ctx``;
+    ``mlp_linear`` for the MLP."""
+    if ctx_grouped is not None:
+        x = x + attn_out_linear(ctx_grouped, lp["o"]["w"], cfg.num_key_value_heads, key=fold_in(key, 3))
+    else:
+        x = x + qlinear(ctx, lp["o"]["w"], key=fold_in(key, 3))
     return x + mlp_linear(x, lp["mlp_norm"]["g"], lp["gate"]["w"], lp["up"]["w"], lp["down"]["w"],
                           cfg.rms_norm_eps, key=fold_in(key, 4))
 
 
 def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     B, S, _ = x.shape
+    if _use_grouped_rope(cfg, x):
+        qg, kg, vg = _qkv_part_grouped(cfg, x, lp, cos, sin, key)
+        out = _attention_grouped(qg, kg, vg, cfg.attention_impl)
+        return _post_attn_part(cfg, x, None, lp, key, ctx_grouped=out)
     q, k, v = _qkv_part(cfg, x, lp, cos, sin, key)
     ctx = attention(q, k, v, cfg.attention_impl).reshape(B, S, cfg.num_attention_heads * cfg.head_dim)
     return _post_attn_part(cfg, x, ctx, lp, key)

@@ -1,6 +1,6 @@
 """Kernel-level ops of the port.
 
-Counterpart of ``quantized_training_tpu/ops/__init__.py``. Twelve hand-written
+Counterpart of ``quantized_training_tpu/ops/__init__.py``. Sixteen hand-written
 CUDA kernels, each with a plain PyTorch version that CPU tensors take:
 
 - K1 :func:`quantize_int8_rowwise` (``csrc/int8_quant.cu``), replacing
@@ -21,10 +21,19 @@ CUDA kernels, each with a plain PyTorch version that CPU tensors take:
   :func:`silu_mul_quant_rowwise` and :func:`silu_mul_quant_colwise`, and B10
   :func:`rmsnorm_bwd` (``csrc/fused_producers.cu``), replacing the functions
   of the same names in ``ops/pallas_fused.py``: RMSNorm and silu(a) * b run
-  inside the int8 quantizes, and the RMSNorm backward in one pass.
+  inside the int8 quantizes, and the RMSNorm backward in one pass;
+- B11 :func:`silu_mul_bwd_quant_rowwise` and B12
+  :func:`silu_mul_bwd_quant_colwise` (``csrc/fused_producers.cu``), the
+  silu backward inside the quantizes of (dgate, dup), replacing the
+  functions of the same names in ``ops/pallas_fused.py``;
+- B13 :func:`rope_group_kernel` / :func:`rope_ungroup_kernel` and B14
+  :func:`ungroup_amax` / :func:`ungroup_quant` (``csrc/rope.cu``), RoPE with
+  grouped-query head grouping and the attention output's ungrouping inside
+  its int8 quantize, replacing the functions of the same names in
+  ``ops/pallas_rope.py``.
 
-K1, B4, B5, B7, B8 and B9 also have a stochastic-rounding form, and B6 an SR
-writeback,
+K1, B4, B5, B7, B8, B9, B11, B12 and B14's quantize also have a
+stochastic-rounding form, and B6 an SR writeback,
 drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``).
 
 Each wrapper counts its kernel launches (:func:`launch_counts`), an SR form
@@ -37,6 +46,10 @@ from . import random
 from .fused_adamw import fused_adamw_plain, fused_adamw_update
 from .fused_producers import (
     rmsnorm_bwd,
+    silu_mul_bwd_quant_colwise,
+    silu_mul_bwd_quant_colwise_plain,
+    silu_mul_bwd_quant_rowwise,
+    silu_mul_bwd_quant_rowwise_plain,
     rmsnorm_bwd_plain,
     rmsnorm_quant_colwise,
     rmsnorm_quant_colwise_plain,
@@ -53,6 +66,16 @@ from .int8_quant import (
     quantize_int8_colwise,
     quantize_int8_plain,
     quantize_int8_rowwise,
+)
+from .rope import (
+    rope_group_kernel,
+    rope_group_ref,
+    rope_ungroup_kernel,
+    rope_ungroup_ref,
+    ungroup_amax,
+    ungroup_amax_plain,
+    ungroup_quant,
+    ungroup_quant_plain,
 )
 from .scaled_mm import (
     scaled_mm,
@@ -87,6 +110,15 @@ KERNELS = {
     "silu_mul_quant_colwise": (silu_mul_quant_colwise, "launches"),
     "silu_mul_quant_colwise_sr": (silu_mul_quant_colwise, "sr_launches"),
     "rmsnorm_bwd": (rmsnorm_bwd, "launches"),
+    "silu_mul_bwd_quant_rowwise": (silu_mul_bwd_quant_rowwise, "launches"),
+    "silu_mul_bwd_quant_rowwise_sr": (silu_mul_bwd_quant_rowwise, "sr_launches"),
+    "silu_mul_bwd_quant_colwise": (silu_mul_bwd_quant_colwise, "launches"),
+    "silu_mul_bwd_quant_colwise_sr": (silu_mul_bwd_quant_colwise, "sr_launches"),
+    "rope_group": (rope_group_kernel, "launches"),
+    "rope_ungroup": (rope_ungroup_kernel, "launches"),
+    "ungroup_amax": (ungroup_amax, "launches"),
+    "ungroup_quant": (ungroup_quant, "launches"),
+    "ungroup_quant_sr": (ungroup_quant, "sr_launches"),
 }
 
 
@@ -118,6 +150,14 @@ __all__ = [
     "rmsnorm_quant_colwise_plain",
     "rmsnorm_quant_rowwise",
     "rmsnorm_quant_rowwise_plain",
+    "rope_group_kernel",
+    "rope_group_ref",
+    "rope_ungroup_kernel",
+    "rope_ungroup_ref",
+    "silu_mul_bwd_quant_colwise",
+    "silu_mul_bwd_quant_colwise_plain",
+    "silu_mul_bwd_quant_rowwise",
+    "silu_mul_bwd_quant_rowwise_plain",
     "silu_mul_quant_colwise",
     "silu_mul_quant_colwise_plain",
     "silu_mul_quant_rowwise",
@@ -130,4 +170,8 @@ __all__ = [
     "scaled_mm_ref",
     "scaled_mm_rhs_t",
     "scaled_mm_rhs_t_plain",
+    "ungroup_amax",
+    "ungroup_amax_plain",
+    "ungroup_quant",
+    "ungroup_quant_plain",
 ]

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels (no JAX counterpart).
 
 ``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
-(``philox.cuh``, the random stream, is included by three of them): one ``nvcc
+(``philox.cuh``, the random stream, is included by four of them, and
+``row_common.cuh``, the row-walking kernels' building blocks, by two): one ``nvcc
 -c`` per source, all started together, then one link into a shared library,
 which it loads with ``ctypes``. The library carries a plain C interface (no
 PyTorch headers), so a build takes seconds: 5.5-6.3 s for ``int8_quant.cu``
@@ -13,8 +14,8 @@ reused. nvcc's ``-Xptxas -v`` report (registers, shared memory, spills per kerne
 is kept beside it as ``build.log``.
 
 Every entry point returns the launch's ``cudaError_t``; the wrappers in
-``ops/int8_quant.py``, ``ops/scaled_mm.py``, ``ops/fused_adamw.py`` and
-``ops/fused_producers.py`` raise when it is not 0.
+``ops/int8_quant.py``, ``ops/scaled_mm.py``, ``ops/fused_adamw.py``,
+``ops/fused_producers.py`` and ``ops/rope.py`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -64,6 +65,24 @@ _SIGNATURES = {
     ),
     # x, g, dy, dx, dg, dg_part, M, K, rpb, norm_eps, is_bf16, stream
     "qt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _P),
+    # a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, rpb, eps, is_bf16, sr, with_amax, with_copy, key, stream
+    "qt_silu_mul_bwd_quant_rowwise": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _I, _U64, _P,
+    ),
+    # a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, is_bf16, sr, key, stream
+    "qt_silu_mul_bwd_quant_colwise": (
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P,
+    ),
+    # in, isb, iss, ish, out, osb, oss, osh, cos, sin, ldt, B, S, H, hd, mode, is_bf16, stream
+    "qt_rope_relayout": (
+        _P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _P,
+    ),
+    # y, sb, ss, sh, B, S, H, hd, rmax, cmax, parts, rpb, is_bf16, stream
+    "qt_ungroup_amax": (_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _I64, _I, _P),
+    # y, sb, ss, sh, B, S, H, hd, scale, q, rpb, axis, eps, is_bf16, sr, key, stream
+    "qt_ungroup_quant": (
+        _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I, ctypes.c_float, _I, _I, _U64, _P,
+    ),
     # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, stream
     "qt_scaled_mm_s8": (
         _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,4 +1,5 @@
-// Producer-fused int8 quantize kernels and the one-pass RMSNorm backward.
+// Producer-fused int8 quantize kernels, the one-pass RMSNorm backward and the
+// silu backward fused into the int8 quantizes of its two outputs.
 //
 // In the int8 decoder layer every quantized linear's input is made by a
 // cheap op, the "producer": RMSNorm (the q/k/v and gate/up inputs) or
@@ -6,7 +7,10 @@
 // its bf16 output and the quantize reads it back, in the forward, in the
 // remat replay and in the backward's column quantize. These kernels run the
 // producer inside the quantize, so the producer's output never reaches
-// device memory and the quantize sees its unrounded fp32 values.
+// device memory and the quantize sees its unrounded fp32 values. The same
+// holds in the backward of silu(gate) * up: (dgate, dup) are computed in
+// fp32 from (gate, up, dy) and quantized along both axes without ever being
+// written in bf16.
 //
 // Numerics are the Pallas bodies' (ops/pallas_fused.py:95-132 with
 // pallas_quant.py:75-87), not quant/core.py's: scale = absmax * (1/127) in
@@ -15,12 +19,14 @@
 // index r * K + c of the key's Philox stream (philox.cuh), clamped to int8.
 // The producers, in fp32 with every operation rounded once (no contraction):
 //   rmsnorm: y = (x * rstd) * g, rstd = rsqrt(sum(x * x) / K + norm_eps);
-//   silu:    y = (a * (1 / (1 + exp(-a)))) * b.
+//   silu:    y = (a * s) * b, s = 1 / (1 + exp(-a));
+//   its backward at dy: da = ((dy * b) * s) * (1 + a * (1 - s)),
+//                       db = (dy * a) * s.
 // The row's sum of squares runs in one fixed order (each thread its own
 // vectors, a butterfly across the warp, the warps in order), so the same row
-// gives the same y in every kernel here: the column maxima that B7 and the
-// row form of B9 forward give the backward's column quantize the exact scale
-// of the two-pass form.
+// gives the same y in every kernel here: the column maxima that B7, the row
+// form of B9 and B11 forward give the column quantizes the exact scale of the
+// two-pass form.
 //
 // Kernels, what they replace (quantized_training_tpu/ops/pallas_fused.py):
 // - B7 row_quant<NormProducer>: rmsnorm_quant_rowwise (:154), x [M, K] ->
@@ -30,102 +36,40 @@
 //   given the column scales, or after producer_col_absmax (the two-pass form);
 // - B9 col_quant<SiluProducer>: silu_mul_quant_colwise (:409), the same;
 // - B10 rmsnorm_bwd_rows + reduce_parts: rmsnorm_bwd (:491), dx in x's
-//   dtype and dgamma fp32 [K] in one read of x and dy.
+//   dtype and dgamma fp32 [K] in one read of x and dy;
+// - B11 silu_bwd_row_quant: silu_mul_bwd_quant_rowwise (:631), (a, b, dy)
+//   [M, K] -> the row int8 of da and of db with fp32 row scales, optionally
+//   the column absmax of each and their copies in the inputs' dtype;
+// - B12 silu_bwd_col_quant: silu_mul_bwd_quant_colwise (:704), the column
+//   int8 of da and db given their column scales.
+// B11 and B12 draw SR noise for da at r * K + c and for db at M * K + r * K +
+// c of their key's stream.
 //
 // What bounds them on the H100: bytes. B7 at [8192, 2048] bf16 moves 50 MB
 // (x read, q written), B9-row at [8192, 5632] 231 MB (a and b read), B10 101
-// MB (x, dy read, dx written): 15, 69 and 30 us at 3.35 TB/s; the exp of the
+// MB (x, dy read, dx written), B11 and B12 at [8192, 5632] 369 MB ((a, b, dy)
+// read, two int8 written): 15, 69, 30 and 110 us at 3.35 TB/s; the exp of the
 // sigmoid is about 20 fp32 operations per element, under a third of B9's
 // memory time. Design: a block of 256 threads walks a run of rows; a thread
 // owns the same 16-byte vectors (8 bf16 or 4 fp32) of every row, so its
-// loads are coalesced and the column maxima (B7, B9 with column absmax) and
-// the dgamma partial sums (B10) it keeps in shared memory need no atomics
-// inside the block. The producer writes the row's y once into shared memory
-// (fp32, element j of vector i at [j * nv + i], so a warp's accesses hit
-// distinct banks); the absmax pass and the cast read it back from there.
-// Each block writes its column maxima or dgamma partial sums to an fp32
-// [blocks, K] buffer, which reduce_parts folds over the blocks in a fixed
-// order: dgamma is a function of its inputs, and no atomics are used.
-// (Merging the maxima by atomicMax instead, K per block on the same K
-// addresses, serializes: B7 with the column absmax took 103 us that way at
-// [8192, 2048], against 56 us for B8, on an H100 80GB HBM3 at 700 W.) wgmma and TMA do not apply; speed beyond 16-byte loads
-// is for later work.
+// loads are coalesced and the column maxima (B7, B9 and B11 with column
+// absmax) and the dgamma partial sums (B10) it keeps in shared memory need no
+// atomics inside the block. The producer writes the row's y once into shared
+// memory (fp32, element j of vector i at [j * nv + i], so a warp's accesses
+// hit distinct banks); the absmax pass and the cast read it back from there
+// (B11 keeps two such rows, da and db). Each block writes its column maxima
+// or dgamma partial sums to an fp32 [blocks, K] buffer, which reduce_parts
+// folds over the blocks in a fixed order: dgamma is a function of its
+// inputs, and no atomics are used. (Merging the maxima by atomicMax instead,
+// K per block on the same K addresses, serializes: B7 with the column absmax
+// took 103 us that way at [8192, 2048], against 56 us for B8, on an H100
+// 80GB HBM3 at 700 W.) B12 needs no row state: each element's (da, db) is
+// cast with its column's inverse scale, kept in shared memory. wgmma and TMA
+// do not apply; speed beyond 16-byte loads is for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "philox.cuh"
+#include "row_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr float kInv127 = 1.0f / 127.0f;  // the fp32 constant the Pallas bodies multiply by
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// The N elements of the 16-byte vector at p, as fp32.
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&v)[N]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = to_f32(e[j]);
-}
-
-__device__ __forceinline__ int8_t clamp_int8(float r) {
-  return static_cast<int8_t>(fminf(fmaxf(r, -128.0f), 127.0f));
-}
-
-// rint(y * inv) (round half to even), or with SR floor(y * inv + u)
-template <bool SR>
-__device__ __forceinline__ int8_t quant(float y, float inv, uint32_t word) {
-  const float r = __fmul_rn(y, inv);
-  return clamp_int8(SR ? floorf(__fadd_rn(r, qt::uniform_of(word))) : rintf(r));
-}
-
-template <bool SR, int N>
-__device__ __forceinline__ void vec_words(uint64_t idx0, uint64_t key, uint32_t (&w)[N]) {
-  if (SR) {
-    qt::stream_words<N>(idx0, key, w);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) w[j] = 0u;
-  }
-}
-
-template <int N> struct PackOf;
-template <> struct PackOf<8> { using type = uint2; };         // 8 int8
-template <> struct PackOf<4> { using type = unsigned int; };  // 4 int8
-
-template <bool MAX>
-__device__ __forceinline__ float warp_reduce(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = MAX ? fmaxf(v, o) : __fadd_rn(v, o);
-  }
-  return v;  // the butterfly leaves the same value in every lane
-}
-
-// The block's max (or sum) of v, in every thread, in a fixed order. ``red``
-// is kWarps floats of shared memory; the leading barrier lets a call reuse
-// it right after the previous one.
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
-  v = warp_reduce<MAX>(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = MAX ? fmaxf(r, red[w]) : __fadd_rn(r, red[w]);
-  return r;
-}
 
 // ---- the producers ----------------------------------------------------------
 // fill(row, ybuf, red): write the row's y into this thread's entries of ybuf
@@ -167,12 +111,19 @@ struct NormProducer {
   }
 };
 
-// silu(a) * b with the sigmoid as 1 / (1 + exp(-a)), IEEE division: the
-// plain version (ops/fused_producers.py::silu_mul_f32) computes the same
-// operations in the same order, so B9 is bit-exact with it on the card.
-__device__ __forceinline__ float silu_mul(float a, float b) {
-  const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a)));
-  return __fmul_rn(__fmul_rn(a, s), b);
+// The sigmoid as 1 / (1 + exp(-a)), IEEE division: the plain versions
+// (ops/fused_producers.py::silu_mul_f32, ::silu_mul_bwd_f32) compute the same
+// operations in the same order, so B9, B11 and B12 are bit-exact with them on
+// the card.
+__device__ __forceinline__ float sigmoid(float a) { return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))); }
+
+__device__ __forceinline__ float silu_mul(float a, float b) { return __fmul_rn(__fmul_rn(a, sigmoid(a)), b); }
+
+// (da, db) of y = silu(a) * b at the upstream gradient dy.
+__device__ __forceinline__ void silu_mul_bwd(float a, float b, float dy, float& da, float& db) {
+  const float s = sigmoid(a);
+  da = __fmul_rn(__fmul_rn(__fmul_rn(dy, b), s), __fadd_rn(1.0f, __fmul_rn(a, __fsub_rn(1.0f, s))));
+  db = __fmul_rn(__fmul_rn(dy, a), s);
 }
 
 template <typename T>
@@ -201,16 +152,6 @@ struct SiluProducer {
 };
 
 // ---- B7 and the row form of B9 ----------------------------------------------
-
-// This thread's entries of the block's column maxima (or sums) [K], in the
-// shared layout [j * nv + i], to row blockIdx.x of parts [blocks, K].
-template <int N>
-__device__ __forceinline__ void store_part(const float* acc, float* __restrict__ parts, int64_t K) {
-  const int64_t nv = K / N;
-  for (int64_t i = threadIdx.x; i < nv; i += kThreads)
-#pragma unroll
-    for (int j = 0; j < N; ++j) parts[static_cast<int64_t>(blockIdx.x) * K + i * N + j] = acc[j * nv + i];
-}
 
 // Rows [rpb * blockIdx.x, +rpb): the row quantize of the producer's y; with
 // COLMAX also this block's column absmax of |y| into parts[blockIdx.x].
@@ -383,52 +324,136 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ g, const T* 
   store_part<N>(dgacc, dg_part, K);
 }
 
-// ---- the fold over the blocks ----------------------------------------------
+// ---- B11 and B12 ------------------------------------------------------------
 
-constexpr int kPartLanes = 32;  // threads that share one column's parts
-
-// out[k] = the max (or sum) over p of parts[p][k], in a fixed order: lane j
-// of column k folds p = j, j + 32, ... in turn, then lane 0 the 32 lanes'
-// results in lane order. A warp holds 32 neighbouring columns, so its loads
-// are coalesced; a block is 32 columns x 32 lanes.
-template <bool MAX>
-__global__ void __launch_bounds__(32 * kPartLanes)
-reduce_parts(const float* __restrict__ parts, float* __restrict__ out, int64_t nparts, int64_t K) {
-  __shared__ float acc[kPartLanes][33];
-  const int col = threadIdx.x & 31, lane = threadIdx.x >> 5;
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * 32 + col;
-  float r = 0.0f;  // the maxima are of absolute values
-  if (k < K)
-#pragma unroll 4
-    for (int64_t p = lane; p < nparts; p += kPartLanes)
-      r = MAX ? fmaxf(r, parts[p * K + k]) : __fadd_rn(r, parts[p * K + k]);
-  acc[lane][col] = r;
-  __syncthreads();
-  if (lane == 0 && k < K) {
-    for (int l = 1; l < kPartLanes; ++l) r = MAX ? fmaxf(r, acc[l][col]) : __fadd_rn(r, acc[l][col]);
-    out[k] = r;
+// B11: rows [rpb * blockIdx.x, +rpb) of (da, db): each row's values go to
+// shared memory, then both row quantizes; with AMAX this block's column
+// maxima of |da| and |db| go to parts[blockIdx.x] ([blocks, 2K]: da's at
+// [0, K), db's at [K, 2K)); with COPY both are also written in T.
+// Dynamic shared memory: the da and db rows [2K], then (AMAX) their column
+// maxima [2K], all fp32.
+template <typename T, bool SR, bool AMAX, bool COPY>
+__global__ void __launch_bounds__(kThreads)
+silu_bwd_row_quant(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ dy,
+                   int8_t* __restrict__ qa, float* __restrict__ sa, int8_t* __restrict__ qb, float* __restrict__ sb,
+                   float* __restrict__ parts, T* __restrict__ ca, T* __restrict__ cb, int64_t M, int64_t K,
+                   int64_t rpb, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  using Pack = typename PackOf<N>::type;
+  extern __shared__ float smem[];
+  __shared__ float red[kWarps];
+  const int64_t nv = K / N;
+  float* ya = smem;
+  float* yb = smem + K;
+  float* ma = smem + 2 * K;
+  float* mb = smem + 3 * K;
+  if (AMAX) {
+    zero_cols<N>(ma, K);
+    zero_cols<N>(mb, K);
+  }
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rpb;
+  const int64_t r1 = r0 + rpb < M ? r0 + rpb : M;
+  for (int64_t row = r0; row < r1; ++row) {
+    float amax_a = 0.0f, amax_b = 0.0f;
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads) {
+      const int64_t off = row * K + i * N;
+      float va[N], vb[N], vd[N], da[N], db[N];
+      load_vec<T, N>(a + off, va);
+      load_vec<T, N>(b + off, vb);
+      load_vec<T, N>(dy + off, vd);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        silu_mul_bwd(va[j], vb[j], vd[j], da[j], db[j]);
+        ya[j * nv + i] = da[j];
+        yb[j * nv + i] = db[j];
+        amax_a = fmaxf(amax_a, fabsf(da[j]));
+        amax_b = fmaxf(amax_b, fabsf(db[j]));
+      }
+      if (COPY) {
+        store_vec<T, N>(ca + off, da);
+        store_vec<T, N>(cb + off, db);
+      }
+    }
+    const float s_a = __fmul_rn(block_reduce<true>(amax_a, red), kInv127);
+    const float s_b = __fmul_rn(block_reduce<true>(amax_b, red), kInv127);
+    const float inv_a = inv_scale(s_a, eps), inv_b = inv_scale(s_b, eps);
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads) {
+      const int64_t off = row * K + i * N;
+      uint32_t wa[N], wb[N];
+      vec_words<SR, N>(off, key, wa);
+      vec_words<SR, N>(M * K + off, key, wb);
+      Int8Pack<N> oa, ob;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float da = ya[j * nv + i], db = yb[j * nv + i];
+        oa.c[j] = quant<SR>(da, inv_a, wa[j]);
+        ob.c[j] = quant<SR>(db, inv_b, wb[j]);
+        if (AMAX) {
+          ma[j * nv + i] = fmaxf(ma[j * nv + i], fabsf(da));
+          mb[j * nv + i] = fmaxf(mb[j * nv + i], fabsf(db));
+        }
+      }
+      *reinterpret_cast<Pack*>(qa + off) = oa.pack;
+      *reinterpret_cast<Pack*>(qb + off) = ob.pack;
+    }
+    if (threadIdx.x == 0) {
+      sa[row] = s_a;
+      sb[row] = s_b;
+    }
+  }
+  if (AMAX) {
+    store_part<N>(ma, parts, K, 2 * K, 0);
+    store_part<N>(mb, parts, K, 2 * K, K);
   }
 }
 
-cudaError_t launch_reduce(bool max, const float* parts, float* out, int64_t nparts, int64_t K, cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((K + 31) / 32);
-  if (max)
-    reduce_parts<true><<<blocks, 32 * kPartLanes, 0, stream>>>(parts, out, nparts, K);
-  else
-    reduce_parts<false><<<blocks, 32 * kPartLanes, 0, stream>>>(parts, out, nparts, K);
-  return cudaGetLastError();
+// B12: rows [rpb * blockIdx.x, +rpb) of (da, db), each cast with its
+// column's scale (scale_a, scale_b [K]); SR words as B11's. Dynamic shared
+// memory: the inverse scales of da's and db's columns [2K], fp32.
+template <typename T, bool SR>
+__global__ void __launch_bounds__(kThreads)
+silu_bwd_col_quant(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ dy,
+                   const float* __restrict__ scale_a, const float* __restrict__ scale_b, int8_t* __restrict__ qa,
+                   int8_t* __restrict__ qb, int64_t M, int64_t K, int64_t rpb, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  using Pack = typename PackOf<N>::type;
+  extern __shared__ float smem[];
+  const int64_t nv = K / N;
+  float* inv_a = smem;
+  float* inv_b = smem + K;
+  for (int64_t i = threadIdx.x; i < nv; i += kThreads)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      inv_a[j * nv + i] = inv_scale(scale_a[i * N + j], eps);
+      inv_b[j * nv + i] = inv_scale(scale_b[i * N + j], eps);
+    }
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rpb;
+  const int64_t r1 = r0 + rpb < M ? r0 + rpb : M;
+  for (int64_t row = r0; row < r1; ++row) {
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads) {
+      const int64_t off = row * K + i * N;
+      float va[N], vb[N], vd[N];
+      load_vec<T, N>(a + off, va);
+      load_vec<T, N>(b + off, vb);
+      load_vec<T, N>(dy + off, vd);
+      uint32_t wa[N], wb[N];
+      vec_words<SR, N>(off, key, wa);
+      vec_words<SR, N>(M * K + off, key, wb);
+      Int8Pack<N> oa, ob;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float da, db;
+        silu_mul_bwd(va[j], vb[j], vd[j], da, db);
+        oa.c[j] = quant<SR>(da, inv_a[j * nv + i], wa[j]);
+        ob.c[j] = quant<SR>(db, inv_b[j * nv + i], wb[j]);
+      }
+      *reinterpret_cast<Pack*>(qa + off) = oa.pack;
+      *reinterpret_cast<Pack*>(qb + off) = ob.pack;
+    }
+  }
 }
 
 // ---- launchers --------------------------------------------------------------
-
-unsigned int n_blocks(int64_t M, int64_t rpb) { return static_cast<unsigned int>((M + rpb - 1) / rpb); }
-
-// Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-}
 
 template <class P, bool SR, bool COLMAX>
 cudaError_t launch_row(const P& p, void* q, void* s_row, void* amax, void* parts, int64_t M, int64_t rpb,
@@ -483,6 +508,38 @@ cudaError_t launch_bwd(const void* x, const float* g, const void* dy, void* dx, 
   return launch_reduce(false, static_cast<const float*>(dg_part), static_cast<float*>(dg), blocks, K, stream);
 }
 
+template <typename T, bool SR, bool AMAX, bool COPY>
+cudaError_t launch_silu_bwd_row(const void* a, const void* b, const void* dy, void* qa, void* sa, void* qb, void* sb,
+                                void* amax, void* parts, void* ca, void* cb, int64_t M, int64_t K, int64_t rpb,
+                                float eps, uint64_t key, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(K) * sizeof(float) * (AMAX ? 4 : 2);
+  auto kernel = silu_bwd_row_quant<T, SR, AMAX, COPY>;
+  cudaError_t err;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  float* pt = static_cast<float*>(parts);
+  kernel<<<n_blocks(M, rpb), kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(dy), static_cast<int8_t*>(qa),
+      static_cast<float*>(sa), static_cast<int8_t*>(qb), static_cast<float*>(sb), pt, static_cast<T*>(ca),
+      static_cast<T*>(cb), M, K, rpb, eps, key);
+  if ((err = cudaGetLastError()) != cudaSuccess || !AMAX) return err;
+  return launch_reduce(true, pt, static_cast<float*>(amax), n_blocks(M, rpb), 2 * K, stream);
+}
+
+template <typename T, bool SR>
+cudaError_t launch_silu_bwd_col(const void* a, const void* b, const void* dy, const void* scale_a,
+                                const void* scale_b, void* qa, void* qb, int64_t M, int64_t K, int64_t rpb, float eps,
+                                uint64_t key, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(K) * sizeof(float) * 2;
+  auto kernel = silu_bwd_col_quant<T, SR>;
+  cudaError_t err;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<n_blocks(M, rpb), kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(dy),
+      static_cast<const float*>(scale_a), static_cast<const float*>(scale_b), static_cast<int8_t*>(qa),
+      static_cast<int8_t*>(qb), M, K, rpb, eps, key);
+  return cudaGetLastError();
+}
+
 template <typename T>
 NormProducer<T> norm_producer(const void* x, const void* g, int64_t K, float norm_eps) {
   return NormProducer<T>{static_cast<const T*>(x), static_cast<const float*>(g), K, norm_eps};
@@ -497,7 +554,8 @@ SiluProducer<T> silu_producer(const void* a, const void* b, int64_t K) {
 
 // Every entry point returns the launch's cudaError_t (0 on success). The
 // wrapper (ops/fused_producers.py) guarantees: inputs contiguous, 16-byte
-// aligned, K % 128 == 0, K * 8 bytes within a block's shared memory; g is
+// aligned, K % 128 == 0, K * 8 bytes (B11: K * 16) within a block's shared
+// memory; g is
 // fp32 [K]; is_bf16 selects bf16 (else fp32) inputs; q is int8 [M, K]; scales
 // and maxima are fp32; rpb is the number of rows per block; sr rounds
 // stochastically from the Philox stream of ``key``.
@@ -574,4 +632,36 @@ extern "C" int qt_rmsnorm_bwd(const void* x, const void* g, const void* dy, void
   const float* gf = static_cast<const float*>(g);
   return static_cast<int>(is_bf16 ? launch_bwd<__nv_bfloat16>(x, gf, dy, dx, dg, dg_part, M, K, rpb, norm_eps, s)
                                   : launch_bwd<float>(x, gf, dy, dx, dg, dg_part, M, K, rpb, norm_eps, s));
+}
+
+// B11: qa, qb int8 [M, K], sa, sb fp32 [M]; with with_amax the column absmax
+// of da and of db into amax [2K] (da's first), by way of parts, fp32 scratch
+// of ceil(M / rpb) * 2K floats; with with_copy da and db in the inputs'
+// dtype into ca, cb [M, K] (else those are unused).
+extern "C" int qt_silu_mul_bwd_quant_rowwise(const void* a, const void* b, const void* dy, void* qa, void* sa, void* qb,
+                                             void* sb, void* amax, void* parts, void* ca, void* cb, int64_t M,
+                                             int64_t K, int64_t rpb, float eps, int is_bf16, int sr, int with_amax,
+                                             int with_copy, uint64_t key, void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QT_ROW(T, SR, AM, CP) launch_silu_bwd_row<T, SR, AM, CP>(a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, \
+                                                                 rpb, eps, key, s)
+#define QT_FORMS(T, SR) (with_amax ? (with_copy ? QT_ROW(T, SR, true, true) : QT_ROW(T, SR, true, false)) \
+                                   : (with_copy ? QT_ROW(T, SR, false, true) : QT_ROW(T, SR, false, false)))
+  if (is_bf16) return sr ? QT_FORMS(__nv_bfloat16, true) : QT_FORMS(__nv_bfloat16, false);
+  return sr ? QT_FORMS(float, true) : QT_FORMS(float, false);
+#undef QT_FORMS
+#undef QT_ROW
+}
+
+// B12: qa, qb int8 [M, K] given the column scales scale_a, scale_b fp32 [K].
+extern "C" int qt_silu_mul_bwd_quant_colwise(const void* a, const void* b, const void* dy, const void* scale_a,
+                                             const void* scale_b, void* qa, void* qb, int64_t M, int64_t K,
+                                             int64_t rpb, float eps, int is_bf16, int sr, uint64_t key, void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QT_COL(T, SR) launch_silu_bwd_col<T, SR>(a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, key, s)
+  if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
+  return sr ? QT_COL(float, true) : QT_COL(float, false);
+#undef QT_COL
 }

@@ -1,0 +1,181 @@
+// Building blocks of the row-walking kernels (fused_producers.cu, rope.cu).
+//
+// A block of kThreads threads walks a run of rows; a thread owns the same
+// 16-byte vectors of every row, so its loads are coalesced and the per-column
+// state it keeps in shared memory (column maxima, partial sums) needs no
+// atomics inside the block. Column state that spans blocks goes to an fp32
+// [blocks, K] buffer, which reduce_parts folds over the blocks in a fixed
+// order: the result is a function of the inputs, and no atomics are used.
+// The int8 cast is the Pallas bodies' (ops/pallas_quant.py:75-87): q =
+// rint(y * (1 / max(scale, eps))) with a correctly rounded reciprocal, or with
+// SR floor(y * inv + u), u from the Philox stream (philox.cuh), clamped.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr float kInv127 = 1.0f / 127.0f;  // the fp32 constant the Pallas bodies multiply by
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// The N elements of the 16-byte vector at p, as fp32.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&v)[N]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = to_f32(e[j]);
+}
+
+// The N fp32 values v, rounded to T, as the 16-byte vector at p.
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[N]) {
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int j = 0; j < N; ++j) store_elem(&e[j], v[j]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ int8_t clamp_int8(float r) {
+  return static_cast<int8_t>(fminf(fmaxf(r, -128.0f), 127.0f));
+}
+
+// rint(y * inv) (round half to even), or with SR floor(y * inv + u)
+template <bool SR>
+__device__ __forceinline__ int8_t quant(float y, float inv, uint32_t word) {
+  const float r = __fmul_rn(y, inv);
+  return clamp_int8(SR ? floorf(__fadd_rn(r, qt::uniform_of(word))) : rintf(r));
+}
+
+// The inverse scale of the cast: 1 / max(scale, eps), correctly rounded.
+__device__ __forceinline__ float inv_scale(float s, float eps) { return __frcp_rn(fmaxf(s, eps)); }
+
+// Words idx0 .. idx0 + N - 1 of the stream of ``key`` with SR, else zeros.
+template <bool SR, int N>
+__device__ __forceinline__ void vec_words(uint64_t idx0, uint64_t key, uint32_t (&w)[N]) {
+  if (SR) {
+    qt::stream_words<N>(idx0, key, w);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) w[j] = 0u;
+  }
+}
+
+template <int N> struct PackOf;
+template <> struct PackOf<8> { using type = uint2; };         // 8 int8
+template <> struct PackOf<4> { using type = unsigned int; };  // 4 int8
+
+template <int N>
+union Int8Pack {
+  typename PackOf<N>::type pack;
+  int8_t c[N];
+};
+
+template <bool MAX>
+__device__ __forceinline__ float warp_reduce(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = MAX ? fmaxf(v, o) : __fadd_rn(v, o);
+  }
+  return v;  // the butterfly leaves the same value in every lane
+}
+
+// The block's max (or sum) of v, in every thread, in a fixed order. ``red``
+// is kWarps floats of shared memory; the leading barrier lets a call reuse
+// it right after the previous one.
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  v = warp_reduce<MAX>(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) r = MAX ? fmaxf(r, red[w]) : __fadd_rn(r, red[w]);
+  return r;
+}
+
+// Zero this thread's entries of a shared per-column array [K] (layout
+// [j * nv + i] for its vectors i, so a warp's accesses hit distinct banks).
+template <int N>
+__device__ __forceinline__ void zero_cols(float* acc, int64_t K) {
+  const int64_t nv = K / N;
+  for (int64_t i = threadIdx.x; i < nv; i += kThreads)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[j * nv + i] = 0.0f;
+}
+
+// This thread's entries of the block's column maxima (or sums) [K], in the
+// shared layout [j * nv + i], to row blockIdx.x of parts [blocks, ld] at
+// column offset col0.
+template <int N>
+__device__ __forceinline__ void store_part(const float* acc, float* __restrict__ parts, int64_t K, int64_t ld = 0,
+                                           int64_t col0 = 0) {
+  const int64_t nv = K / N;
+  if (ld == 0) ld = K;
+  for (int64_t i = threadIdx.x; i < nv; i += kThreads)
+#pragma unroll
+    for (int j = 0; j < N; ++j) parts[static_cast<int64_t>(blockIdx.x) * ld + col0 + i * N + j] = acc[j * nv + i];
+}
+
+// ---- the fold over the blocks ----------------------------------------------
+
+constexpr int kPartLanes = 32;  // threads that share one column's parts
+
+// out[k] = the max (or sum) over p of parts[p][k], in a fixed order: lane j
+// of column k folds p = j, j + 32, ... in turn, then lane 0 the 32 lanes'
+// results in lane order. A warp holds 32 neighbouring columns, so its loads
+// are coalesced; a block is 32 columns x 32 lanes.
+template <bool MAX>
+__global__ void __launch_bounds__(32 * kPartLanes)
+reduce_parts(const float* __restrict__ parts, float* __restrict__ out, int64_t nparts, int64_t K) {
+  __shared__ float acc[kPartLanes][33];
+  const int col = threadIdx.x & 31, lane = threadIdx.x >> 5;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * 32 + col;
+  float r = 0.0f;  // the maxima are of absolute values
+  if (k < K)
+#pragma unroll 4
+    for (int64_t p = lane; p < nparts; p += kPartLanes)
+      r = MAX ? fmaxf(r, parts[p * K + k]) : __fadd_rn(r, parts[p * K + k]);
+  acc[lane][col] = r;
+  __syncthreads();
+  if (lane == 0 && k < K) {
+    for (int l = 1; l < kPartLanes; ++l) r = MAX ? fmaxf(r, acc[l][col]) : __fadd_rn(r, acc[l][col]);
+    out[k] = r;
+  }
+}
+
+cudaError_t launch_reduce(bool max, const float* parts, float* out, int64_t nparts, int64_t K, cudaStream_t stream) {
+  const unsigned int blocks = static_cast<unsigned int>((K + 31) / 32);
+  if (max)
+    reduce_parts<true><<<blocks, 32 * kPartLanes, 0, stream>>>(parts, out, nparts, K);
+  else
+    reduce_parts<false><<<blocks, 32 * kPartLanes, 0, stream>>>(parts, out, nparts, K);
+  return cudaGetLastError();
+}
+
+// ---- launch helpers ---------------------------------------------------------
+
+unsigned int n_blocks(int64_t M, int64_t rpb) { return static_cast<unsigned int>((M + rpb - 1) / rpb); }
+
+// Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+}  // namespace

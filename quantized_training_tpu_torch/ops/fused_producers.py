@@ -1,4 +1,5 @@
-"""Producer-fused int8 quantize kernels and the RMSNorm backward.
+"""Producer-fused int8 quantize kernels, the RMSNorm backward and the silu
+backward fused into the quantizes of its outputs.
 
 Counterpart of ``quantized_training_tpu/ops/pallas_fused.py`` (:63-760):
 
@@ -7,23 +8,30 @@ Counterpart of ``quantized_training_tpu/ops/pallas_fused.py`` (:63-760):
 - B9 :func:`silu_mul_quant_rowwise` and :func:`silu_mul_quant_colwise` for
   ``silu_mul_quant_rowwise`` (:325) and ``silu_mul_quant_colwise`` (:409);
 - B10 :func:`rmsnorm_bwd` for ``rmsnorm_bwd`` (:491);
+- B11 :func:`silu_mul_bwd_quant_rowwise` for ``silu_mul_bwd_quant_rowwise``
+  (:631) and B12 :func:`silu_mul_bwd_quant_colwise` for
+  ``silu_mul_bwd_quant_colwise`` (:704): (da, db) of y = silu(a) * b at dy,
+  computed in fp32 from one read of (a, b, dy) and quantized along rows
+  (with their column absmax, or their copies in a's dtype) or along columns
+  given those maxima' scales, never written in bf16;
 
 with the producers' plain semantics (``rms_norm_f32``, ``silu_mul_f32``,
-``rms_norm_ref``, ``silu_mul_ref``), one plain version per kernel and
-:func:`supported`. The producer runs inside the quantize: its output is
+``silu_mul_bwd_f32``, ``rms_norm_ref``, ``silu_mul_ref``), one plain version
+per kernel and :func:`supported`. The producer runs inside the quantize: its output is
 fp32 and never rounded to bf16. The quantize has the Pallas bodies'
 numerics (``pallas_fused.py:111-132``, ``pallas_quant.py:75-87``), which
 differ from ``quant/core.py``'s: scale = absmax * (1/127) in fp32 and
 q = round-half-even(y * (1 / max(scale, eps))), a reciprocal multiply; with
 ``sr`` floor(y * inv + u), u of element (r, c) the uniform at r * K + c of
-the key's Philox stream (``ops/random.py``). Scales and column maxima are
-fp32, as the Pallas kernels return them.
+the key's Philox stream (``ops/random.py``); B11 and B12, which round two
+outputs per element, draw da's u at r * K + c and db's at M * K + r * K + c.
+Scales and column maxima are fp32, as the Pallas kernels return them.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/fused_producers.cu`` (whose header says what bounds it on the H100
 and how its design answers that) or raises. Each wrapper counts its
-launches, an SR form apart (``sr_launches``). B9 is bit-exact with its plain
-version on the card. B7, B8 and B10 hold a row sum, which the kernel takes
+launches, an SR form apart (``sr_launches``). B9, B11 and B12 are
+bit-exact with their plain versions on the card. B7, B8 and B10 hold a row sum, which the kernel takes
 in its own order: their int8 outputs may differ by one step on rare
 elements, their scales, maxima, dx and dgamma by fp32 rounding.
 """
@@ -38,8 +46,10 @@ from .int8_quant import _check_device_input, _count, _key
 EPS = 1e-12
 _DTYPES = (torch.bfloat16, torch.float32)
 # every kernel keeps two fp32 rows of K (the producer's row and the column
-# maxima or reciprocal scales) in one block's shared memory, at most 227 KB
+# maxima or reciprocal scales) in one block's shared memory, at most 227 KB;
+# B11 four (the da and db rows and their column maxima)
 MAX_K = 227 * 1024 // 8
+MAX_K_BWD = 227 * 1024 // 16
 
 
 # ---- the producers (plain semantics) --------------------------------------------
@@ -76,6 +86,17 @@ def silu_mul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return af * (torch.ones_like(d) / d) * b.float()
 
 
+def silu_mul_bwd_f32(a: torch.Tensor, b: torch.Tensor, dy: torch.Tensor):
+    """(da, db) of y = silu(a) * b at dy, fp32 and unrounded (JAX
+    ``silu_mul_bwd_f32``, :541-552), the sigmoid as in
+    :func:`silu_mul_f32`: da = dy * b * s * (1 + a * (1 - s)), db = dy * a
+    * s, left to right."""
+    af, dyf = a.float(), dy.float()
+    d = 1 + torch.exp(-af)
+    s = torch.ones_like(d) / d
+    return dyf * b.float() * s * (1 + af * (1 - s)), dyf * af * s
+
+
 # ---- the quantize of the Pallas bodies ------------------------------------------
 
 
@@ -88,13 +109,18 @@ def _scale_of(amax: torch.Tensor) -> torch.Tensor:
     return amax * _inv127(amax)
 
 
-def _cast(y: torch.Tensor, scale: torch.Tensor, eps: float, sr: bool, key: int | None) -> torch.Tensor:
+def _cast(y: torch.Tensor, scale: torch.Tensor, eps: float, sr: bool, key: int | None,
+          part: int = 0) -> torch.Tensor:
     """int8 of fp32 y [M, K] with a broadcast fp32 scale: y times the IEEE
     reciprocal of max(scale, eps), rounded half to even, or with ``sr``
-    floor(. + u) from the stream of ``key``, clamped."""
+    floor(. + u) from the stream of ``key``, element (r, c) drawing word
+    part * M * K + r * K + c, clamped."""
     s = scale.clamp(min=eps)
     q = y * (torch.ones_like(s) / s)
-    q = torch.floor(q + random.uniform(key, y.shape, y.device)) if sr else torch.round(q)
+    if sr:
+        q = torch.floor(q + random.uniform(key, (part + 1, *y.shape), y.device)[part])
+    else:
+        q = torch.round(q)
     return q.clamp(-128, 127).to(torch.int8)
 
 
@@ -142,6 +168,33 @@ def silu_mul_quant_colwise_plain(a, b, *, eps: float = EPS, sr: bool = False, ke
     return _quant_cols(silu_mul_f32(a, b), scale, eps, sr, _key(sr, key))
 
 
+def silu_mul_bwd_quant_rowwise_plain(a, b, dy, *, eps: float = EPS, sr: bool = False, key: int | None = None,
+                                     with_amax: bool = True, with_bf16: bool = False):
+    """Plain version of B11: ``(da_q, da_s [M, 1], db_q, db_s [M, 1])`` the
+    row int8 of ``silu_mul_bwd_f32(a, b, dy)``, with ``with_amax`` then the
+    column absmax fp32 [1, K] of da and of db, with ``with_bf16`` then da
+    and db in a's dtype."""
+    key = _key(sr, key)
+    quants, amaxes, copies = [], [], []
+    for part, v in enumerate(silu_mul_bwd_f32(a, b, dy)):
+        va = v.abs()
+        scale = _scale_of(va.amax(dim=1, keepdim=True))
+        quants += [_cast(v, scale, eps, sr, key, part), scale]
+        amaxes.append(va.amax(dim=0, keepdim=True))
+        copies.append(v.to(a.dtype))
+    return (*quants, *(amaxes if with_amax else ()), *(copies if with_bf16 else ()))
+
+
+def silu_mul_bwd_quant_colwise_plain(a, b, dy, da_scale, db_scale, *, eps: float = EPS, sr: bool = False,
+                                     key: int | None = None):
+    """Plain version of B12: ``(da_q, db_q)``, the column int8 of
+    ``silu_mul_bwd_f32(a, b, dy)`` with the fp32 column scales [1, K] of
+    each."""
+    key = _key(sr, key)
+    return tuple(_cast(v, s.reshape(1, -1), eps, sr, key, part)
+                 for part, (v, s) in enumerate(zip(silu_mul_bwd_f32(a, b, dy), (da_scale, db_scale))))
+
+
 def rmsnorm_bwd_plain(x, g, dy, *, norm_eps: float = 1e-5):
     """Plain version of B10, the closed form of ``quant/fused.py::
     _rmsnorm_bwd_math``: ``(dx in x's dtype, dgamma fp32 [K])``."""
@@ -160,11 +213,11 @@ def supported(M: int, K: int, dtype, n_inputs: int = 1) -> bool:
     """Whether the fused kernels take [M, K] inputs of ``dtype``: the
     reference's conditions (``pallas_fused.py:750-760``): bf16 or fp32,
     M >= 32 and a multiple of 32 (its row blocks), K >= 128 and a multiple
-    of 128; its VMEM budget becomes this kernel's shared-memory bound, K <=
-    ``MAX_K``. ``n_inputs`` is the reference's argument, which only its
-    VMEM budget reads."""
-    del n_inputs
-    return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= MAX_K and K % 128 == 0
+    of 128; its VMEM budget, which reads ``n_inputs``, becomes the kernels'
+    shared-memory bound: K <= ``MAX_K``, and for the three inputs of B11
+    and B12 K <= ``MAX_K_BWD``."""
+    max_k = MAX_K_BWD if n_inputs >= 3 else MAX_K
+    return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= max_k and K % 128 == 0
 
 
 # ---- wrappers -------------------------------------------------------------------
@@ -325,6 +378,64 @@ def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, *, norm_eps:
     return dx, dg
 
 
-for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise, silu_mul_quant_colwise):
+def silu_mul_bwd_quant_rowwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tensor, *, eps: float = EPS,
+                               sr: bool = False, key: int | None = None, with_amax: bool = True,
+                               with_bf16: bool = False):
+    """B11: (da, db) of y = silu(a) * b at dy, row-quantized from one read of
+    (a, b, dy) [M, K]: ``(da_q int8 [M, K], da_s fp32 [M, 1], db_q, db_s)``,
+    with ``with_amax`` then the column absmax fp32 [1, K] of da and of db
+    (the scales of :func:`silu_mul_bwd_quant_colwise`), with ``with_bf16``
+    then da and db in a's dtype (the operands of a bf16 grad_weight)."""
+    if a.device.type == "cpu":
+        return silu_mul_bwd_quant_rowwise_plain(a, b, dy, eps=eps, sr=sr, key=key, with_amax=with_amax,
+                                                with_bf16=with_bf16)
+    key = _key(sr, key)
+    M, K = _check("silu_mul_bwd_quant_rowwise", a, b, dy)
+    if K > MAX_K_BWD:
+        raise ValueError(f"silu_mul_bwd_quant_rowwise: K = {K} exceeds {MAX_K_BWD} (shared memory)")
+    dev = a.device
+    qa, qb = (torch.empty((M, K), dtype=torch.int8, device=dev) for _ in range(2))
+    sa, sb = (torch.empty((M, 1), dtype=torch.float32, device=dev) for _ in range(2))
+    amax = torch.empty(2 * K if with_amax else 0, dtype=torch.float32, device=dev)
+    parts = _parts(M, 2 * K, dev, with_amax)
+    ca, cb = (torch.empty((M, K) if with_bf16 else (0,), dtype=a.dtype, device=dev) for _ in range(2))
+    err = _build.library().qt_silu_mul_bwd_quant_rowwise(
+        a.data_ptr(), b.data_ptr(), dy.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(),
+        amax.data_ptr(), parts.data_ptr(), ca.data_ptr(), cb.data_ptr(), M, K, _rows_per_block(M), eps,
+        int(a.dtype == torch.bfloat16), int(sr), int(with_amax), int(with_bf16), key, _build.stream(),
+    )
+    _build.check(err, "silu_mul_bwd_quant_rowwise")
+    _count(silu_mul_bwd_quant_rowwise, sr)
+    out = (qa, sa, qb, sb)
+    if with_amax:
+        out += (amax[:K].view(1, K), amax[K:].view(1, K))
+    return out + (ca, cb) if with_bf16 else out
+
+
+def silu_mul_bwd_quant_colwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tensor, da_scale: torch.Tensor,
+                               db_scale: torch.Tensor, *, eps: float = EPS, sr: bool = False,
+                               key: int | None = None):
+    """B12: (da, db) of y = silu(a) * b at dy, column-quantized with the
+    given fp32 column scales [1, K] (B11's column absmax * (1/127)) in one
+    read of (a, b, dy): ``(da_q, db_q)`` int8 [M, K]."""
+    if a.device.type == "cpu":
+        return silu_mul_bwd_quant_colwise_plain(a, b, dy, da_scale, db_scale, eps=eps, sr=sr, key=key)
+    key = _key(sr, key)
+    what = "silu_mul_bwd_quant_colwise"
+    M, K = _check(what, a, b, dy)
+    da_scale, db_scale = (_col_scale(s, K, a, what) for s in (da_scale, db_scale))
+    qa, qb = (torch.empty((M, K), dtype=torch.int8, device=a.device) for _ in range(2))
+    err = _build.library().qt_silu_mul_bwd_quant_colwise(
+        a.data_ptr(), b.data_ptr(), dy.data_ptr(), da_scale.data_ptr(), db_scale.data_ptr(), qa.data_ptr(),
+        qb.data_ptr(), M, K, _rows_per_block(M), eps, int(a.dtype == torch.bfloat16), int(sr), key,
+        _build.stream(),
+    )
+    _build.check(err, what)
+    _count(silu_mul_bwd_quant_colwise, sr)
+    return qa, qb
+
+
+for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise, silu_mul_quant_colwise,
+            silu_mul_bwd_quant_rowwise, silu_mul_bwd_quant_colwise):
     _fn.launches = _fn.sr_launches = 0
 rmsnorm_bwd.launches = 0

@@ -17,7 +17,7 @@ from .api import (
 )
 from .configs import Int8QTConfig, MixedPrecisionConfig
 from .core import dequantize_int8, quantize_int8, quantize_int8_both
-from .fused import mlp_linear, norm_linear_multi, set_impl, silu_mul_linear
+from .fused import attn_out_linear, mlp_linear, norm_linear_multi, set_impl, silu_mul_linear
 from .mixed_precision import MixedPrecisionWeight
 
 __all__ = [
@@ -26,6 +26,7 @@ __all__ = [
     "norm_linear_multi",
     "silu_mul_linear",
     "mlp_linear",
+    "attn_out_linear",
     "set_impl",
     "quantize_params",
     "is_quant_weight",

@@ -1,19 +1,24 @@
 """Producer-fused quantized linears.
 
-Counterpart of ``quantized_training_tpu/quant/fused.py`` (:82-714):
+Counterpart of ``quantized_training_tpu/quant/fused.py`` (:82-874):
 :func:`norm_linear_multi` runs RMSNorm inside the input quantize of the
-shared-input multi-linear (the q/k/v and gate/up sites), and
-:func:`silu_mul_linear` runs silu(gate) * up inside the down projection's
-input quantize (``ops/fused_producers.py``: B7 and the row form of B9). The
-producer's bf16 output never reaches memory: not in the forward, not in the
-remat replay, and not in the backward, whose column quantize re-derives the
-producer from its inputs (B8 and the column form of B9), with the column
-scales the forward's kernel gathered, and whose RMSNorm backward is one pass
-(B10). The quantization is that of the unfused composite (``rms_norm`` ->
-``linear_shared``, ``silu * mul`` -> ``linear``): absmax/127 scales of the
-same producer values, each matmul re-quantizing its operands; the fused
-quantize sees the producer's unrounded fp32 values, so its int8 may differ
-from the composite's by one step.
+shared-input multi-linear (the q/k/v site), :func:`mlp_linear` runs the
+whole Llama MLP as one op (RMSNorm inside the gate/up input quantize,
+silu(gate) * up inside the down projection's, ``ops/fused_producers.py``: B7
+and the row form of B9), and :func:`attn_out_linear` ungroups the grouped
+attention output inside the o-projection's input quantize
+(``ops/rope.py``: B14). The producer's bf16 output never reaches memory: not
+in the forward, not in the remat replay, and not in the backward, whose
+column quantize re-derives the producer from its inputs (B8, the column form
+of B9, B14 along columns), with the column scales the forward's kernel
+gathered, and whose RMSNorm backward is one pass (B10). In the MLP's
+backward (dgate, dup) are computed in fp32 and quantized along both axes
+inside B11 and B12, never written in bf16. The quantization is that of the
+unfused composite (``rms_norm`` -> ``linear_shared``, ``silu * mul`` ->
+``linear``, ``ungroup_heads`` -> ``linear``): absmax/127 scales of the same
+producer values, each matmul re-quantizing its operands; the fused quantize
+sees the producer's unrounded fp32 values, so its int8 may differ from the
+composite's by one step.
 
 The fused path serves int8 configs whose forward and grad_input matmuls are
 int8 (:func:`_fusable_cfg`), at shapes the kernels take
@@ -25,13 +30,14 @@ counterpart of Pallas interpret mode); 'off', or ``QT_FUSED=0`` in the
 environment, never fuses. On a CUDA tensor the fused path launches the
 kernels or raises.
 
-Keys (ints, ``ops/random.py``) are derived as the JAX package derives them:
-``_sub(key, i) = fold_in(key, i)``, weight i's row quantize from
-``fold_in(_sub(key, 1), i)``, the backward's (g, w) pair of weight i from
-``split(fold_in(_sub(key, 3), i))``. The JAX package turns ``_sub(key, 0)``
-and ``_sub(key, 2)`` into int32 seeds for the TPU's generator (``_kseed``);
-here they are the Philox keys of the producer kernels themselves.
-``PreQuantMPWeight`` and the one-op MLP ``_mlp_mm`` are not ported.
+Keys (ints, ``ops/random.py``) are derived as the JAX package derives them,
+``_sub(key, i) = fold_in(key, i)``: in ``_norm_mm`` and ``_silu_mm`` weight
+i's row quantize from ``fold_in(_sub(key, 1), i)``, the backward's (g, w)
+pair of weight i from ``split(fold_in(_sub(key, 3), i))``; in ``_mlp_mm``
+``_sub(key, 0..9)`` for its ten draws (:493-648); in ``_attn_out_mm``
+``_sub(key, 0..3)``. Where the JAX package turns a subkey into an int32 seed
+for the TPU's generator (``_kseed``), the same subkey is here the Philox key
+of the kernel. ``PreQuantMPWeight`` is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import os
 import torch
 
 from ..ops import fused_producers as fp
+from ..ops import rope
 from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm_general
 from .api import qlinear, qlinear_multi
@@ -74,13 +81,14 @@ def _padded_rows(M: int) -> int:
     return M if M < 1024 else -(-M // 256) * 256
 
 
-def _fused_ok(x2d: torch.Tensor, n_inputs: int = 1) -> bool:
+def _fused_ok(M: int, K: int, like: torch.Tensor, n_inputs: int = 1) -> bool:
+    """Whether the fused kernels take [M, K] inputs of ``like``'s dtype,
+    on ``like``'s device under the current ``set_impl`` (JAX :143-155)."""
     if _IMPL == "off" or os.environ.get("QT_FUSED", "1") == "0":
         return False
-    M, K = x2d.shape
-    if not fp.supported(_padded_rows(M), K, x2d.dtype, n_inputs):
+    if not fp.supported(_padded_rows(M), K, like.dtype, n_inputs):
         return False
-    return _IMPL == "interpret" or x2d.is_cuda
+    return _IMPL == "interpret" or like.is_cuda
 
 
 def _sub(key: int, i: int) -> int:
@@ -103,7 +111,8 @@ def _bf16_wgrad(g, h):
 
 def _grad_pair(g, w, sr: bool, gw8: bool, kg, kw):
     """The backward's int8 operands of one weight: g row-wise (and
-    column-wise with ``gw8``, one B5) and w column-wise, and grad_input."""
+    column-wise with ``gw8``, one B5) and w column-wise; returns
+    (grad_input, g_col, g_col_s)."""
     if gw8:
         g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
     else:
@@ -171,7 +180,7 @@ def norm_linear_multi(x, gamma, weights, eps: float, *, key: int | None = None):
              and _fusable_cfg(next(iter(configs))))
     if fused:
         x2d = x.reshape(-1, x.shape[-1]).contiguous()
-        fused = _fused_ok(x2d)
+        fused = _fused_ok(*x2d.shape, x2d)
     if not fused:
         return qlinear_multi(fp.rms_norm_ref(x, gamma, eps), weights, key=key)
     cfg = next(iter(configs))
@@ -227,20 +236,180 @@ def silu_mul_linear(gate, up, w, *, key: int | None = None):
     if fused:
         a2d = gate.reshape(-1, gate.shape[-1]).contiguous()
         b2d = up.reshape(-1, up.shape[-1]).contiguous()
-        fused = _fused_ok(a2d, n_inputs=2)
+        fused = _fused_ok(*a2d.shape, a2d, n_inputs=2)
     if not fused:
         return qlinear(fp.silu_mul_ref(gate, up), w, key=key)
     out = _SiluMM.apply(w.config, _resolve_key(w.config, key), a2d, b2d, w.data)
     return out.reshape(*gate.shape[:-1], w.shape[-2])
 
 
+class _MLPMM(torch.autograd.Function):
+    """The Llama MLP as one quantized op (JAX ``_mlp_mm``, :488-672):
+    rms_norm(x2d, gamma) inside the gate/up input's row quantize (B7),
+    silu(gate) * up inside the down input's (B9-row). One op lets the
+    backward fuse across the two: (dgate, dup) are computed in fp32 from
+    (gate, up, dact) and quantized along rows (B11) and, with an int8
+    grad_weight, along columns (B12) with the column scales B11 gathered;
+    with a bf16 grad_weight B11 also writes them in x's dtype. The column
+    quantizes of the norm (B8) and of the activation (B9-col) take the
+    forward's column maxima as scales."""
+
+    @staticmethod
+    def forward(ctx, config, eps, key, x2d, gamma, wg, wu, wd):
+        sr, gw8 = config.stochastic_rounding, config.grad_weight
+        h_q, h_s, *h_camax = fp.rmsnorm_quant_rowwise(
+            x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
+        h_s = h_s.to(x2d.dtype)
+        outs = []
+        for i, w in enumerate((wg, wu)):
+            kw = fold_in(_sub(key, 1), i) if sr else None
+            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw)
+            outs.append(scaled_mm_general(h_q, w_row, h_s, w_row_s, dims=(1, 1), out_dtype=x2d.dtype))
+        gate, up = outs
+        act_q, act_s, *act_camax = fp.silu_mul_quant_rowwise(
+            gate, up, sr=sr, key=_sub(key, 2) if sr else None, with_col_amax=gw8)
+        wd_row, wd_row_s = quantize_int8(wd, axis=1, stochastic_rounding=sr, key=_sub(key, 3) if sr else None)
+        out = scaled_mm_general(act_q, wd_row, act_s.to(x2d.dtype), wd_row_s, dims=(1, 1), out_dtype=x2d.dtype)
+        ctx.config, ctx.eps, ctx.key = config, eps, key
+        ctx.save_for_backward(x2d, gamma, wg, wu, wd, gate, up, *h_camax, *act_camax)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        config, eps, key = ctx.config, ctx.eps, ctx.key
+        sr, gw8 = config.stochastic_rounding, config.grad_weight
+        x2d, gamma, wg, wu, wd, gate, up, *camax = ctx.saved_tensors
+        g = g.to(x2d.dtype)
+        sub = (lambda i: _sub(key, i)) if sr else (lambda i: None)
+        # the down projection
+        kg, kw = split(_sub(key, 4)) if sr else (None, None)
+        dact, g_col, g_col_s = _grad_pair(g, wd, sr, gw8, kg, kw)
+        if gw8:
+            h_camax, act_camax = camax
+            act_col, act_col_s = fp.silu_mul_quant_colwise(gate, up, sr=sr, key=sub(5),
+                                                           scale=act_camax * (1.0 / 127.0))
+            wd_grad = scaled_mm_general(g_col, act_col, g_col_s, act_col_s.to(wd.dtype), dims=(0, 0),
+                                        out_dtype=wd.dtype)
+            # (dgate, dup) in fp32, quantized along both axes in-kernel
+            da_q, da_s, db_q, db_s, da_camax, db_camax = fp.silu_mul_bwd_quant_rowwise(
+                gate, up, dact, sr=sr, key=sub(6))
+            cols = fp.silu_mul_bwd_quant_colwise(gate, up, dact, da_camax * (1.0 / 127.0),
+                                                 db_camax * (1.0 / 127.0), sr=sr, key=sub(7))
+            col_s = [(m * (1.0 / 127.0)).to(wg.dtype) for m in (da_camax, db_camax)]
+            h_col, h_col_s = fp.rmsnorm_quant_colwise(x2d, gamma, norm_eps=eps, sr=sr, key=sub(8),
+                                                      scale=h_camax * (1.0 / 127.0))
+            h_col_s = h_col_s.to(x2d.dtype)
+        else:
+            wd_grad = _bf16_wgrad(g, fp.silu_mul_ref(gate, up))
+            # the row int8 of (dgate, dup) and their copies for the bf16 wgrads
+            da_q, da_s, db_q, db_s, da_c, db_c = fp.silu_mul_bwd_quant_rowwise(
+                gate, up, dact, sr=sr, key=sub(6), with_amax=False, with_bf16=True)
+            h = fp.rms_norm_ref(x2d, gamma, eps)
+        dh, grads_w = None, []
+        for i, (w, (v_row, v_row_s)) in enumerate(zip((wg, wu), ((da_q, da_s), (db_q, db_s)))):
+            kw = fold_in(_sub(key, 9), i) if sr else None
+            w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, key=kw)
+            di = scaled_mm_general(v_row, w_col, v_row_s.to(w.dtype), w_col_s, dims=(1, 0), out_dtype=w.dtype)
+            dh = di if dh is None else dh + di
+            if gw8:
+                grads_w.append(scaled_mm_general(cols[i], h_col, col_s[i], h_col_s, dims=(0, 0), out_dtype=w.dtype))
+            else:
+                grads_w.append(_bf16_wgrad((da_c, db_c)[i], h))
+        dx, dgamma = _rmsnorm_bwd(x2d, gamma, dh, eps)
+        return None, None, None, dx, dgamma, grads_w[0], grads_w[1], wd_grad
+
+
 def mlp_linear(x, gamma, wg, wu, wd, eps: float, *, key: int | None = None):
-    """The Llama MLP, (silu(norm(x) @ wg^T) * (norm(x) @ wu^T)) @ wd^T, as
+    """The Llama MLP, (silu(norm(x) @ wg^T) * (norm(x) @ wu^T)) @ wd^T (JAX
+    :675-714): one op (:class:`_MLPMM`) when the three weights are
+    MixedPrecisionWeights of one fusable config and the kernels take the
+    shapes (``_fused_ok`` at [M, D] and at [M, F] with three inputs); else
     :func:`norm_linear_multi` for gate/up with ``fold_in(key, 0)`` and
-    :func:`silu_mul_linear` for down with ``fold_in(key, 1)``: the JAX
-    package's two-op branch (:695-701). Its one-op ``_mlp_mm``, which also
-    fuses the silu backward into the quantizes of (dgate, dup), waits for
-    B11 and B12 (``silu_mul_bwd_quant_rowwise`` / ``_colwise``)."""
-    key = 0 if key is None else key
-    gate, up = norm_linear_multi(x, gamma, [wg, wu], eps, key=fold_in(key, 0))
-    return silu_mul_linear(gate, up, wd, key=fold_in(key, 1))
+    :func:`silu_mul_linear` for down with ``fold_in(key, 1)``, the JAX
+    package's two-op branch."""
+    ws = (wg, wu, wd)
+    configs = {w.config for w in ws if isinstance(w, MixedPrecisionWeight)}
+    fused = (len(configs) == 1 and all(isinstance(w, MixedPrecisionWeight) for w in ws)
+             and _fusable_cfg(next(iter(configs))))
+    if fused:
+        x2d = x.reshape(-1, x.shape[-1]).contiguous()
+        M, D = x2d.shape
+        fused = _fused_ok(M, D, x2d) and _fused_ok(M, wg.shape[-2], x2d, n_inputs=3)
+    if not fused:
+        key = 0 if key is None else key
+        gate, up = norm_linear_multi(x, gamma, [wg, wu], eps, key=fold_in(key, 0))
+        return silu_mul_linear(gate, up, wd, key=fold_in(key, 1))
+    cfg = next(iter(configs))
+    out = _MLPMM.apply(cfg, float(eps), _resolve_key(cfg, key), x2d, gamma, wg.data, wu.data, wd.data)
+    return out.reshape(*x.shape[:-1], wd.shape[-2])
+
+
+def _group_cotangent(dctx2d, B: int, S: int, kv: int, hd: int):
+    """[B * S, H * hd] cotangent -> grouped [B, KV, G, S, hd], no rotation
+    (JAX :727-737)."""
+    return rope.rope_group_kernel(dctx2d.view(B, S, -1, hd), kv=kv)
+
+
+def _ungroup_bf16(out_g):
+    """[B, KV, G, S, hd] -> [B * S, H * hd] in out_g's dtype, no rotation:
+    the bf16 grad_weight's operand (JAX :783-799)."""
+    B, KV, G, S, hd = out_g.shape
+    return rope.rope_ungroup_kernel(out_g).view(B * S, KV * G * hd)
+
+
+class _AttnOutMM(torch.autograd.Function):
+    """Grouped attention output [B, KV, G, S, hd] @ w^T -> [B * S, out] (JAX
+    ``_attn_out_mm``, :740-841): the ungrouping runs inside the int8
+    quantizes (B14), so the o-projection's [B * S, H * hd] input never exists
+    in bf16, and the backward's column quantize takes the forward's column
+    absmax as its scales (one read of the grouped output)."""
+
+    @staticmethod
+    def forward(ctx, config, key, out_g, w):
+        B, KV, G, S, hd = out_g.shape
+        sr = config.stochastic_rounding
+        row_amax, col_amax = rope.ungroup_amax(out_g)
+        row_s = row_amax * (1.0 / 127.0)
+        x_row = rope.ungroup_quant(out_g, row_s, axis=1, sr=sr, key=_sub(key, 0) if sr else None)
+        w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=_sub(key, 1) if sr else None)
+        out = scaled_mm_general(x_row.view(B * S, -1), w_row, row_s.view(B * S, 1).to(w.dtype), w_row_s,
+                                dims=(1, 1), out_dtype=w.dtype)
+        ctx.config, ctx.key = config, key
+        # the column absmax is the backward's column scale: an int8 grad_weight only
+        ctx.save_for_backward(out_g, w, *((col_amax,) if config.grad_weight else ()))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        config, key = ctx.config, ctx.key
+        sr, gw8 = config.stochastic_rounding, config.grad_weight
+        out_g, w, *col_amax = ctx.saved_tensors
+        B, KV, G, S, hd = out_g.shape
+        g = g.to(w.dtype)
+        kg, kw = split(_sub(key, 3)) if sr else (None, None)
+        dctx, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw)
+        d_out_g = _group_cotangent(dctx, B, S, KV, hd)
+        if gw8:
+            col_s = col_amax[0] * (1.0 / 127.0)
+            x_col = rope.ungroup_quant(out_g, col_s, axis=0, sr=sr, key=_sub(key, 2) if sr else None)
+            grad_w = scaled_mm_general(g_col, x_col.view(B * S, -1), g_col_s, col_s.to(w.dtype), dims=(0, 0),
+                                       out_dtype=w.dtype)
+        else:
+            grad_w = _bf16_wgrad(g, _ungroup_bf16(out_g))
+        return None, None, d_out_g, grad_w
+
+
+def attn_out_linear(out_g, w, kv: int, *, key: int | None = None):
+    """Grouped attention output [B, KV, G, S, hd] -> o-projection output
+    [B, S, out_features] (JAX :844-874): :class:`_AttnOutMM` for a
+    MixedPrecisionWeight of a fusable config where the kernels take the
+    shapes ((H * hd) % 128, (B * S) % 256, ``_supported_heads``,
+    ``_fused_ok``); else exactly ``ungroup_heads`` followed by ``qlinear``."""
+    B, KV, G, S, hd = out_g.shape
+    H = KV * G
+    fused = (isinstance(w, MixedPrecisionWeight) and _fusable_cfg(w.config) and (H * hd) % 128 == 0
+             and (B * S) % 256 == 0 and rope._supported_heads(H, G, hd, S) and _fused_ok(B * S, H * hd, out_g))
+    if not fused:
+        return qlinear(rope.ungroup_heads(out_g, kv).reshape(B, S, H * hd), w, key=key)
+    out = _AttnOutMM.apply(w.config, _resolve_key(w.config, key), out_g, w.data)
+    return out.view(B, S, w.shape[-2])

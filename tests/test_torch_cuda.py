@@ -3,8 +3,8 @@
 Marked ``cuda``: without a CUDA card every test here skips (decided in a
 fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
-this file does not need). Tolerance: none for K1/K2/B1-B6 and B9 — each is
-bit-exact with its plain version by construction. B7, B8 and B10 hold a row
+this file does not need). Tolerance: none for K1/K2/B1-B6, B9 and B11-B14
+— each is bit-exact with its plain version by construction. B7, B8 and B10 hold a row
 sum that the kernel takes in its own fixed order: int8 within one step on at
 most 1e-3 of the elements, scales and column maxima within 1e-6 relative, dx
 within 2 bf16 ulps (below 2**-20 of max|dx|, where the closed form cancels,
@@ -278,6 +278,113 @@ def test_fused_producers_refuse_what_they_cannot_take():
         ops.rmsnorm_quant_rowwise(x, g, sr=True)
 
 
+_SILU_BWD_SHAPES = [(32, 128), (96, 640), (1000, 5632), (8192, 5632)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", _SILU_BWD_SHAPES)
+def test_silu_bwd_forms_bit_exact(M, K, dtype, sr):
+    """B11 (with the column absmax, and with the (da, db) copies instead)
+    and B12 given B11's column scales, and their SR forms with one key,
+    against their plain versions: every output bit-exact."""
+    _, _, a, b = _producer_inputs(M, K, dtype, 50)
+    dy = _rand((M, K), dtype, 53)
+    dy[1] = 0  # an all-zero row of (da, db)
+    kw = dict(sr=sr, key=2**63 + 7 if sr else None)
+    for amax, copy in ((True, False), (False, True)):
+        got = ops.silu_mul_bwd_quant_rowwise(a, b, dy, with_amax=amax, with_bf16=copy, **kw)
+        torch.cuda.synchronize()
+        ref = ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, with_amax=amax, with_bf16=copy, **kw)
+        assert len(got) == len(ref) == 6
+        for t, r in zip(got, ref):
+            assert t.dtype == r.dtype and t.shape == r.shape and torch.equal(t, r)
+    scales = [m * (1.0 / 127.0) for m in ops.silu_mul_bwd_quant_rowwise(a, b, dy)[4:]]
+    got = ops.silu_mul_bwd_quant_colwise(a, b, dy, *scales, **kw)
+    torch.cuda.synchronize()
+    for t, r in zip(got, ops.silu_mul_bwd_quant_colwise_plain(a, b, dy, *scales, **kw)):
+        assert torch.equal(t, r)
+
+
+def _rope_tables(S, hd, scale):
+    inv = 1.0 / (10000.0 ** (torch.arange(0, hd, 2, device="cuda", dtype=torch.float32) / hd))
+    emb = torch.outer(torch.arange(S, device="cuda", dtype=torch.float32), inv)
+    emb = torch.cat([emb, emb], dim=-1)
+    return emb.cos() * scale, emb.sin() * scale
+
+
+def _layouts(x, kv):
+    """x [B, S, H, hd] as grouped [B, KV, G, S, hd] in [B, S, H, hd] memory
+    and in [B, H, S, hd] memory (the layouts SDPA may take or return)."""
+    B, S, H, hd = x.shape
+    bhsd = x.permute(0, 2, 1, 3).contiguous().view(B, kv, H // kv, S, hd)
+    return {"bshd": ops.rope_group_kernel(x, kv=kv), "bhsd": bhsd}
+
+
+_ROPE_SHAPES = [(4, 2048, 32, 4), (4, 2048, 4, 4), (3, 40, 6, 2), (2, 24, 4, 1)]  # B, S, H, KV
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,KV", _ROPE_SHAPES)
+@pytest.mark.parametrize("hd", [64, 128])
+def test_rope_relayout_bit_exact(B, S, H, KV, hd, dtype):
+    """B13: the grouping with rope (q's pre-scale folded in, [S, hd] and
+    pair-tiled tables alike) and without, and the ungrouping with rot^T,
+    rot and none, from grouped inputs in both memory layouts, against the
+    plain versions."""
+    x = _rand((B, S, H, hd), dtype, 60)
+    cos, sin = _rope_tables(S, hd, hd**-0.5)
+    c2 = torch.cat([cos, cos], dim=-1)
+    s2 = torch.cat([sin, sin], dim=-1)
+    for c, s in ((cos, sin), (c2, s2), (None, None)):
+        got = ops.rope_group_kernel(x, c, s, kv=KV)
+        torch.cuda.synchronize()
+        assert got.shape == (B, KV, H // KV, S, hd) and torch.equal(got, ops.rope_group_ref(x, c, s, KV))
+    for name, y in _layouts(x, KV).items():
+        for c, s, inverse in ((cos, sin, True), (cos, sin, False), (None, None, True)):
+            got = ops.rope_ungroup_kernel(y, c, s, inverse=inverse)
+            torch.cuda.synchronize()
+            assert got.is_contiguous() and torch.equal(got, ops.rope_ungroup_ref(y, c, s, inverse=inverse)), name
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,KV", _ROPE_SHAPES)
+def test_ungroup_amax_and_quant_bit_exact(B, S, H, KV, dtype, sr):
+    """B14: the row and column absmax and the int8 along rows and columns
+    (and their SR forms) of the ungrouped view, from grouped inputs in both
+    memory layouts, against the plain versions; an all-zero row quantizes
+    to 0."""
+    x = _rand((B, S, H, 64), dtype, 61)
+    x[0, 1] = 0
+    kw = dict(sr=sr, key=2**63 + 9 if sr else None)
+    for name, y in _layouts(x, KV).items():
+        row, col = ops.ungroup_amax(y)
+        torch.cuda.synchronize()
+        ref = ops.ungroup_amax_plain(y)
+        assert torch.equal(row, ref[0]) and torch.equal(col, ref[1]), name
+        for axis, m in ((1, row), (0, col)):
+            q = ops.ungroup_quant(y, m * (1.0 / 127.0), axis=axis, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(q, ops.ungroup_quant_plain(y, m * (1.0 / 127.0), axis=axis, **kw)), (name, axis)
+        assert not q[0, 1].any()
+
+
+def test_rope_kernels_refuse_what_they_cannot_take():
+    x = _rand((2, 16, 4, 64), torch.bfloat16, 62)
+    with pytest.raises(ValueError, match="hd %"):
+        ops.rope_group_kernel(x[..., :24].contiguous(), kv=2)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rope_group_kernel(x.reshape(-1)[4:4 + 2 * 15 * 4 * 64].view(2, 15, 4, 64), kv=2)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.ungroup_amax(ops.rope_group_kernel(x, kv=2).half())
+    with pytest.raises(ValueError, match="fp32"):
+        ops.rope_group_kernel(x, torch.ones(16, 64, device="cuda", dtype=torch.bfloat16),
+                              torch.zeros(16, 64, device="cuda"), kv=2)
+    with pytest.raises(ValueError, match="requires a key"):
+        ops.ungroup_quant(ops.rope_group_kernel(x, kv=2), torch.ones(32, device="cuda"), axis=1, sr=True)
+
+
 def _int8(shape, g):
     return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
 
@@ -342,6 +449,23 @@ def test_launch_counters_count_kernel_launches_only():
         ops.silu_mul_quant_colwise_plain(y, y, **kw)
     ops.rmsnorm_bwd(y, gamma, y)
     ops.rmsnorm_bwd_plain(y, gamma, y)
+    ones = torch.ones(1, 128, device="cuda")
+    for use_sr in (False, True):
+        kw = dict(sr=use_sr, key=1 if use_sr else None)
+        ops.silu_mul_bwd_quant_rowwise(y, y, y, **kw)
+        ops.silu_mul_bwd_quant_colwise(y, y, y, ones, ones, **kw)
+        ops.silu_mul_bwd_quant_rowwise_plain(y, y, y, **kw)
+        ops.silu_mul_bwd_quant_colwise_plain(y, y, y, ones, ones, **kw)
+    h = y.view(1, 64, 2, 64)
+    grouped = ops.rope_group_kernel(h, kv=1)
+    ops.rope_ungroup_kernel(grouped)
+    ops.rope_group_ref(h, None, None, 1)
+    ops.rope_ungroup_ref(grouped, None, None)
+    row, _ = ops.ungroup_amax(grouped)
+    ops.ungroup_amax_plain(grouped)
+    ops.ungroup_quant(grouped, row, axis=1)
+    ops.ungroup_quant(grouped, row, axis=1, sr=True, key=1)
+    ops.ungroup_quant_plain(grouped, row, axis=1, sr=True, key=1)
     ops.quantize_int8_plain(x)
     ops.quantize_int8_plain(x, sr=True, key=1)
     ops.quantize_int8_both_plain(x)

@@ -23,10 +23,11 @@ Bounds, each above the floor it is stated with:
   gradients within 6e-2 of their max (tests/test_fused.py's bounds);
 - the whole train step against JAX's, (loss, grad norm, worst parameter
   leaf's relative RMS) within (1e-3, 5e-3, 1e-2), the bounds of
-  tests/test_torch_train.py. Measured over two steps, floor (JAX against
-  itself with the embedding moved by one ulp) then the port: fp32 6.9e-5,
-  9.5e-5, 1.5e-3 / 1.1e-4, 6.1e-4, 1.9e-3; bf16 1.2e-4, 2.2e-3, 5.9e-3 /
-  4.6e-5, 1.4e-3, 3.1e-3.
+  tests/test_torch_train.py, with the grouped pipeline and the one-op MLP in
+  both packages. Measured over two steps, floor (JAX against itself with
+  the embedding moved by one ulp) then the port: fp32 6.6e-5, 5.7e-4,
+  2.4e-3 / 5.9e-5, 4.7e-4, 1.9e-3; bf16 9.8e-5, 1.6e-3, 5.9e-3 / 5.6e-5,
+  1.3e-3, 3.1e-3.
 
 Every test that claims the fused path ran counts the applications of the
 fused autograd Functions (CPU calls count no kernel launches).
@@ -73,9 +74,10 @@ def interpret():
 
 
 def _count_applies(monkeypatch) -> dict:
-    """Count the applications of the port's two fused autograd Functions."""
-    counts = {"norm": 0, "silu": 0}
-    for name, cls in (("norm", fused._NormMM), ("silu", fused._SiluMM)):
+    """Count the applications of the port's four fused autograd Functions."""
+    counts = {"norm": 0, "silu": 0, "mlp": 0, "attn_out": 0}
+    for name, cls in (("norm", fused._NormMM), ("silu", fused._SiluMM), ("mlp", fused._MLPMM),
+                      ("attn_out", fused._AttnOutMM)):
         def counted(*args, _apply=cls.apply, _name=name):
             counts[_name] += 1
             return _apply(*args)
@@ -295,22 +297,22 @@ def test_fused_op_vs_jax(which, dtn, gw, interpret, monkeypatch):
 
 
 def test_mlp_linear_is_the_two_op_composite(interpret, monkeypatch):
-    """mlp_linear is norm_linear_multi with fold_in(key, 0) then
-    silu_mul_linear with fold_in(key, 1), bit for bit, and JAX's two-op
-    branch (its one-op _mlp_mm refused, as B11/B12 are not ported) within
-    the fused ops' bounds."""
-    monkeypatch.setattr(pf, "supported", lambda M, K, dtype, n_inputs=1, _f=pf.supported:
-                        n_inputs != 3 and _f(M, K, dtype, n_inputs))
+    """mlp_linear's fallback branch: weights of two configs (down's
+    grad_weight bf16) are no one-op MLP in either package, so mlp_linear is
+    norm_linear_multi with fold_in(key, 0) then silu_mul_linear with
+    fold_in(key, 1), bit for bit, and JAX's two-op branch within the fused
+    ops' bounds."""
     counts = _count_applies(monkeypatch)
     js, ts, jcfg, tcfg = _mp_inputs("norm", "bf16", True, 30)
     jd, td = _arr((256, 128), 40, "bf16", 0.05)
     wg, wu = (quant.MixedPrecisionWeight(w, tcfg) for w in ts[3:5])
-    wd = quant.MixedPrecisionWeight(td, tcfg)
+    wd = quant.MixedPrecisionWeight(td, quant.MixedPrecisionConfig(grad_weight=False))
     out = quant.mlp_linear(ts[0], ts[1], wg, wu, wd, EPS, key=7)
     gate, up = quant.norm_linear_multi(ts[0], ts[1], [wg, wu], EPS, key=ops.random.fold_in(7, 0))
     assert torch.equal(out, quant.silu_mul_linear(gate, up, wd, key=ops.random.fold_in(7, 1)))
-    assert counts == {"norm": 2, "silu": 2}
-    jw = [jquant.MixedPrecisionWeight(w, jcfg) for w in (*js[3:5], jd)]
+    assert counts == {"norm": 2, "silu": 2, "mlp": 0, "attn_out": 0}
+    jw = [jquant.MixedPrecisionWeight(w, jcfg) for w in js[3:5]]
+    jw.append(jquant.MixedPrecisionWeight(jd, jquant.MixedPrecisionConfig(grad_weight=False)))
     jout = jquant.mlp_linear(js[0], js[1], *jw, EPS, key=jax.random.PRNGKey(7))
     assert _max_rel(out.float().numpy(), np.asarray(jout, np.float32)) <= 3e-2
 
@@ -339,12 +341,12 @@ def test_other_schemes_and_shapes_take_the_composite(monkeypatch):
         monkeypatch.setitem(os.environ, "QT_FUSED", "0")
         quant.silu_mul_linear(x, x, int8)
         monkeypatch.delitem(os.environ, "QT_FUSED")
-        assert counts == {"norm": 0, "silu": 0}
+        assert counts == {"norm": 0, "silu": 0, "mlp": 0, "attn_out": 0}
         quant.silu_mul_linear(x, x, int8)
-        assert counts == {"norm": 0, "silu": 1}
+        assert counts == {"norm": 0, "silu": 1, "mlp": 0, "attn_out": 0}
         fused.set_impl("off")
         quant.silu_mul_linear(x, x, int8)
-        assert counts == {"norm": 0, "silu": 1}
+        assert counts == {"norm": 0, "silu": 1, "mlp": 0, "attn_out": 0}
     finally:
         fused.set_impl("auto")
     with pytest.raises(ValueError, match="set_impl"):
@@ -360,11 +362,13 @@ def test_other_schemes_and_shapes_take_the_composite(monkeypatch):
 @pytest.mark.parametrize("dtn", ["f32", "bf16"])
 def test_train_step_fused_vs_jax(dtn, interpret, monkeypatch):
     """Two steps of make_train_step (remat, adamw) on the fused layer in
-    both packages, from one state: losses, grad norms and every parameter
-    within (1e-3, 5e-3, 1e-2). JAX's supported() refuses n_inputs == 3, so
-    its mlp_linear takes the two-op branch the port runs."""
-    monkeypatch.setattr(pf, "supported", lambda M, K, dtype, n_inputs=1, _f=pf.supported:
-                        n_inputs != 3 and _f(M, K, dtype, n_inputs))
+    both packages, from one state, with the grouped pipeline
+    (QT_FUSED_ROPE=force: rope fused with the head grouping, the grouped
+    einsum attention) and the one-op MLP in both: losses, grad norms and
+    every parameter within (1e-3, 5e-3, 1e-2). At B * S = 128 the
+    o-projection is no fused op in either package (its gate needs (B * S) %
+    256 == 0; tests/test_torch_rope.py runs it)."""
+    monkeypatch.setenv("QT_FUSED_ROPE", "force")
     counts = _count_applies(monkeypatch)
     jcfg = jllama.LlamaConfig(**KW, remat=True, attention_impl="xla")
     cfg = llama.LlamaConfig(**KW, remat=True, attention_impl="xla")
@@ -387,18 +391,22 @@ def test_train_step_fused_vs_jax(dtn, interpret, monkeypatch):
         for a, b in zip(tree_leaves(tstate.params), jax.tree.leaves(jstate.params)):
             b = np.asarray(b, np.float64)
             assert np.linalg.norm(a.double().numpy() - b) <= 1e-2 * np.linalg.norm(b)
-    # per step and layer: q/k/v and gate/up (norm), down (silu); remat replays each forward
-    assert counts == {"norm": 2 * 2 * 2 * KW["num_hidden_layers"], "silu": 2 * 2 * KW["num_hidden_layers"]}
+    # per step and layer: q/k/v (norm) and the MLP; remat replays each forward
+    n = 2 * 2 * KW["num_hidden_layers"]
+    assert counts == {"norm": n, "silu": 0, "mlp": n, "attn_out": 0}
 
 
 def test_sr_remat_on_off_bit_identical_fused(interpret, monkeypatch):
-    """With SR on the fused layer, a key fixes every draw: the same key
-    gives the same loss and grads bit for bit, with per-layer remat (the
-    forward, B7 and B9-row included, replayed in the backward with the
-    layer's key) and without it; another key gives other grads."""
+    """With SR on the fused layer (the grouped pipeline forced, at B * S =
+    256 so that the o-projection is a fused op too), a key fixes every draw:
+    the same key gives the same loss and grads bit for bit, with per-layer
+    remat (the forward, B7, B9-row and B14 included, replayed in the
+    backward with the layer's key) and without it; another key gives other
+    grads."""
+    monkeypatch.setenv("QT_FUSED_ROPE", "force")
     counts = _count_applies(monkeypatch)
     rng = np.random.default_rng(5)
-    tok, lab = (torch.from_numpy(rng.integers(0, KW["vocab_size"], (B, S))) for _ in range(2))
+    tok, lab = (torch.from_numpy(rng.integers(0, KW["vocab_size"], (B, 2 * S))) for _ in range(2))
     runs = []
     for remat, key in ((True, 11), (True, 11), (True, 12), (False, 11)):
         cfg = llama.LlamaConfig(**KW, remat=remat, attention_impl="xla")
@@ -406,8 +414,9 @@ def test_sr_remat_on_off_bit_identical_fused(interpret, monkeypatch):
         params = quant.quantize_params(raw, "mixed_precision", stochastic_rounding=True)
         loss, grads = train.loss_and_grads(cfg, params, tok, lab, key)
         runs.append((loss, tree_leaves(grads)))
-    # two norm sites per layer, the three remat runs replaying each forward
-    assert counts["norm"] == (3 * 2 + 1) * 2 * KW["num_hidden_layers"] and counts["silu"] > 0
+    # one apply of each op per layer, the three remat runs replaying each forward
+    n = (3 * 2 + 1) * KW["num_hidden_layers"]
+    assert counts == {"norm": n, "silu": 0, "mlp": n, "attn_out": n}
     for i in (1, 3):
         assert torch.equal(runs[i][0], runs[0][0])
         assert all(torch.equal(a, b) for a, b in zip(runs[i][1], runs[0][1]))
@@ -417,22 +426,30 @@ def test_sr_remat_on_off_bit_identical_fused(interpret, monkeypatch):
 @pytest.mark.parametrize("sr", [False, True])
 def test_kernel_calls_per_step_fused(interpret, monkeypatch, sr):
     """The launch counts chip_smoke.py holds the card to on the fused
-    layer, per layer of one remat train step: forward (twice) K1 8 (7
-    weights and o's input), K2 7, B7 2, B9-row 1; backward B5, B1 and B2 7
-    each, B4 8 (7 weights and o's input), B8 2, B9-col 1, B10 2. Under SR
-    every quantize takes its SR form; B10 has none."""
+    layer, per layer of one remat train step, with the grouped pipeline
+    (forced here, the default on the card) at B * S = 256: forward (twice)
+    K1 7 (the weights), K2 7, B7 2, B9-row 1, rope_group 3 (q, k, v),
+    ungroup_amax 1 and ungroup_quant 1 (o's input); backward B5 5 (the
+    output grads of q, k, v, o and down), B4 7 (the weights), B1 and B2 7
+    each, B8 2, B9-col 1, B10 2, B11 1 and B12 1 ((dgate, dup)),
+    ungroup_quant 1 (o's input along columns), rope_group 1 (o's input
+    grad) and rope_ungroup 3 (the grads of q, k, v). Under SR every
+    quantize takes its SR form; B10 and B13 have none."""
+    monkeypatch.setenv("QT_FUSED_ROPE", "force")
     counts = _counting(monkeypatch)
     cfg = llama.LlamaConfig(**KW, remat=True, attention_impl="xla")
     params = quant.quantize_params(llama.init_params(torch.Generator().manual_seed(0), cfg), "mixed_precision",
                                    stochastic_rounding=sr)
     opt = optim.adamw()
     rng = np.random.default_rng(2)
-    tok, lab = (torch.from_numpy(rng.integers(0, KW["vocab_size"], (B, S))) for _ in range(2))
+    tok, lab = (torch.from_numpy(rng.integers(0, KW["vocab_size"], (B, 2 * S))) for _ in range(2))
     train.make_train_step(cfg, opt)(train.init_train_state(params, opt), tok, lab, 3e-4, 0)
     L, t = KW["num_hidden_layers"], "_sr" if sr else ""
     expect = dict.fromkeys(ops.KERNELS, 0)
-    expect.update({f"quantize_int8_rowwise{t}": 16 * L, f"quantize_int8_colwise{t}": 8 * L,
-                   f"quantize_int8_both{t}": 7 * L, "scaled_mm_rhs_t": 14 * L, "scaled_mm": 7 * L,
+    expect.update({f"quantize_int8_rowwise{t}": 14 * L, f"quantize_int8_colwise{t}": 7 * L,
+                   f"quantize_int8_both{t}": 5 * L, "scaled_mm_rhs_t": 14 * L, "scaled_mm": 7 * L,
                    "scaled_mm_lhs_t": 7 * L, f"rmsnorm_quant_rowwise{t}": 4 * L, f"silu_mul_quant_rowwise{t}": 2 * L,
-                   f"rmsnorm_quant_colwise{t}": 2 * L, f"silu_mul_quant_colwise{t}": L, "rmsnorm_bwd": 2 * L})
+                   f"rmsnorm_quant_colwise{t}": 2 * L, f"silu_mul_quant_colwise{t}": L, "rmsnorm_bwd": 2 * L,
+                   f"silu_mul_bwd_quant_rowwise{t}": L, f"silu_mul_bwd_quant_colwise{t}": L, "rope_group": 7 * L,
+                   "rope_ungroup": 3 * L, "ungroup_amax": 2 * L, f"ungroup_quant{t}": 3 * L})
     assert counts == expect

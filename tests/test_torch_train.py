@@ -169,8 +169,13 @@ def _counting(monkeypatch):
     wrap(core, "quantize_int8_colwise", "quantize_int8_colwise", "sr")
     wrap(core, "_quantize_both_kernel", "quantize_int8_both", "sr")
     for name in ("rmsnorm_quant_rowwise", "rmsnorm_quant_colwise", "silu_mul_quant_rowwise",
-                 "silu_mul_quant_colwise", "rmsnorm_bwd"):  # the fused layer's kernels
+                 "silu_mul_quant_colwise", "rmsnorm_bwd", "silu_mul_bwd_quant_rowwise",
+                 "silu_mul_bwd_quant_colwise"):  # the fused layer's kernels
         wrap(fused_producers, name, name, "sr")
+    rope = importlib.import_module("quantized_training_tpu_torch.ops.rope")
+    for attr, name in (("rope_group_kernel", "rope_group"), ("rope_ungroup_kernel", "rope_ungroup"),
+                       ("ungroup_amax", "ungroup_amax"), ("ungroup_quant", "ungroup_quant")):
+        wrap(rope, attr, name, "sr")
     # optim exports a function of the module's name
     wrap(importlib.import_module("quantized_training_tpu_torch.optim.adamw"), "fused_adamw_update",
          "fused_adamw_update", "bf16_sr")
