@@ -18,7 +18,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    and in two passes, B9's row and column forms (bit-exact), B10, and the
    SR forms of B7-B9; B11 and B12 at the MLP backward's [8192, 5632] and
    [256, 5632], B13 on q, k and v of bench.py's micro-batch [4, 2048] and
-   B14 on its attention output, with their SR forms (all bit-exact); timed
+   B14 on its attention output, with their SR forms (all bit-exact); B16
+   (int4) and B15 (tile-scaled, e4m3 within its stated bound and int8
+   bit-exact) at the forward, grad_input and grad_weight shapes of gate/up
+   and down, beside ``torch._int_mm`` / ``torch._scaled_mm``; timed
    with CUDA events, with GB/s and the share of the roofline; then the
    strides SDPA takes and returns in the grouped pipeline, which must run
    no layout copy;
@@ -41,7 +44,7 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    rounding from one key, on the card against the CPU, both on the grouped
    pipeline: the unfused layer on both, then the fused layer
    (``set_impl('auto')`` on the card, the plain versions under
-   ``set_impl('interpret')`` on the CPU);
+   ``set_impl('interpret')`` on the CPU); then int4 and fp8 tile, fp32;
 8. ``bench.py``'s step: Llama2-1B, tokens [4, 4, 2048] (4 x 4 gradient
    accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
    1e-4; three steps int8 ``mixed_precision`` on the fused layer, three on
@@ -50,7 +53,14 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
    and ``--optim adamw_bf16_sr``): three steps at batch 4 x 2048 in which
    only the SR forms of K1, B4, B5, B6, B7-B9, B11, B12 and B14's quantize
-   launch, and B10, B13 and B14's absmax, which have none.
+   launch, and B10, B13 and B14's absmax, which have none;
+10. int4 and fp8: B15's int8 form on ``benchmark_mm.py``'s tile case
+   through ``ops.scaled_mm``; then three steps each of int4, fp8-tile and
+   fp8-row ``mixed_precision`` at phase 6's shapes and optimizer, from its
+   weights and batch: the losses fall, the first within a stated bound of
+   phase 6's bf16 first loss, B16 / B15 launched exactly as the code
+   implies and no int8 kernel; tokens/s against phase 6's bf16, peak
+   memory.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -66,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -79,8 +90,12 @@ from quantized_training_tpu_torch import ops, optim, quant, train
 from quantized_training_tpu_torch.models import llama, llama_infer
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build, random
+from quantized_training_tpu_torch.ops.fp8 import quantize_fp8_block, quantize_fp8_tile
+from quantized_training_tpu_torch.quant.core import quantize_int4_rowwise_absmax
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
+# the module: the ops package exports a function of its name
+TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
 MIX_BUDGETS = (16, 32, 48, 64)
@@ -103,7 +118,8 @@ PARAM_SHAPES = [(CFG.vocab_size, D), (CFG.num_hidden_layers, D, D), (CFG.num_hid
 # the silu site [tokens, FFN], with one small shape each
 NORM_SHAPES = [(TOKENS, D), (256, D)]
 SILU_SHAPES = [(TOKENS, F), (256, F)]
-# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W)
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
+# int8 and fp8 share the 8-bit tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
 
@@ -116,7 +132,7 @@ def check(cond: bool, what: str) -> None:
 def bound(nbytes: float, int8_ops: float = 0.0) -> tuple[float, str]:
     """The least time in ms the H100 could take for work that must move
     ``nbytes`` (each input read once, each output written once) and do
-    ``int8_ops`` int8 operations, and which of the two bounds it."""
+    ``int8_ops`` int8 or fp8 operations, and which of the two bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, int8_ops / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -236,7 +252,8 @@ def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None):
     src = ("int8_quant.cu" if name.startswith("quantize") else
            "fused_adamw.cu" if name.startswith("fused_adamw") else
            "fused_producers.cu" if name.startswith(("rmsnorm", "silu")) else
-           "rope.cu" if name.startswith(("rope", "ungroup")) else "scaled_mm.cu")
+           "rope.cu" if name.startswith(("rope", "ungroup")) else
+           "tile_scaled_mm.cu" if name.startswith("tile_scaled") else "scaled_mm.cu")
     bound_ms, bound_by = bound(nbytes, int8_ops)
     return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
@@ -293,10 +310,16 @@ INT_MM = {"scaled_mm_rhs_t": lambda a, b, *_: torch._int_mm(a, b.t()),
 def int_mm_ms(name: str, inputs) -> float | None:
     """``torch._int_mm``'s time on the same operands, or None where it
     refuses them (its layout and shape conditions)."""
+    return lib_ms(f"torch._int_mm on the operands of {name}", INT_MM[name], inputs)
+
+
+def lib_ms(what: str, fn, inputs) -> float | None:
+    """A library call's time on the same operands, or None where it refuses
+    them (its layout, shape and type conditions)."""
     try:
-        return time_ms(INT_MM[name], inputs, iters=8)
-    except RuntimeError as e:
-        print(f"[3] torch._int_mm refuses the operands of {name}: {str(e).splitlines()[0]}")
+        return time_ms(fn, inputs, iters=8)
+    except (RuntimeError, ValueError) as e:
+        print(f"[3] {what} refuses the operands: {str(e).splitlines()[0]}")
         return None
 
 
@@ -345,6 +368,133 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
     for e in entries:  # every shape's error, not only gate/up's
         e["max_abs_err"] = worst[e["name"]]
     return entries
+
+
+def gemm_forms(gen: torch.Generator):
+    """(linear, form, a, b) at 8192 tokens for gate/up and down, bf16: the
+    forward x . w^T, grad_input g . w and grad_weight g^T . x over the
+    tokens, with a [M, K] and b [K, N] in the standard form the int4 and fp8
+    tile paths quantize (the transposes materialized, as they are there)."""
+    for lname, o, i in (("gate/up", F, D), ("down", D, F)):
+        x = torch.randn(TOKENS, i, generator=gen, device=DEVICE).to(torch.bfloat16)
+        w = (torch.randn(o, i, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        g = (torch.randn(TOKENS, o, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
+        for form, a, b in (("forward", x, w.T), ("grad_input", g, w), ("grad_weight", g.T, x)):
+            yield lname, form, a.contiguous(), b.contiguous()
+
+
+def check_int4_gemms(gen: torch.Generator) -> dict:
+    """B16 at the forward, grad_input and grad_weight shapes of gate/up and
+    down (K = 8192 in grad_weight), on packed operands from int4 mixed
+    precision's quantize of a and of b^T: bit-exact, timed beside
+    ``torch._int_mm`` on the unpacked int8 operands (the nearest library
+    call: int32 out, no epilogue), with TOP/s, GB/s and the share of the
+    bound. The entry is the forward at gate/up."""
+    worst, entry = 0.0, None
+    for lname, form, a, b in gemm_forms(gen):
+        ap, sa = quantize_int4_rowwise_absmax(a)
+        bp, sb = quantize_int4_rowwise_absmax(b.T.contiguous())
+        M, N, K = ap.shape[0], bp.shape[0], 2 * ap.shape[1]
+        got, ref = ops.scaled_int4_mm(ap, bp, sa, sb), ops.scaled_int4_mm_plain(ap, bp, sa, sb)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"B16 bit-exact at {lname} {form} M={M} N={N} K={K}")
+        worst = max(worst, _max_err([got], [ref]))
+        inputs = copies(ap, bp, sa, sb)
+        ms, plain_ms = time_ms(ops.scaled_int4_mm, inputs, iters=8), time_ms(ops.scaled_int4_mm_plain, inputs, iters=8)
+        library = lib_ms("torch._int_mm", lambda a, b: torch._int_mm(a, b.t()),
+                         copies(ops.unpack_int4(ap), ops.unpack_int4(bp)))
+        nbytes = M * K // 2 + N * K // 2 + 2 * (M + N) + 2 * M * N  # packed in, bf16 scales and out
+        b_ms, by = bound(nbytes, 2 * M * N * K)
+        print(f"[3] scaled_int4_mm (B16) {lname} {form} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
+              f"({2 * M * N * K / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the "
+              f"{b_ms:.4f} ms bound by {by}), plain {plain_ms:.4f} ms, torch._int_mm (unpacked, int32 out) "
+              f"{'refused' if library is None else f'{library:.4f} ms'}")
+        if entry is None:
+            entry = _entry("scaled_int4_mm", "quantized_training_tpu/ops/pallas_mm.py:636", 0.0,
+                           ((M, N, K), ms, plain_ms), nbytes, 2 * M * N * K, library)
+    entry["max_abs_err"] = worst
+    return entry
+
+
+def scaled_mm_lib(a, b, sa, sb):
+    """``torch._scaled_mm`` on the e4m3 operands (b column-major, as it takes
+    them) with DeepSeek's block scales where the installed PyTorch accepts
+    them on this card, else with row scales (the nearest call: one scale
+    per row of a and per column of b): (its time, the form timed)."""
+    M, K = a.shape
+    N = b.shape[1]
+    b_cm = b.t().contiguous().t()
+    row_a, row_b = torch.ones(M, 1, device=a.device), torch.ones(1, N, device=a.device)
+    for form, s1, s2 in (("1x128 / 128x128 block scales", sa.float(), sb.float()), ("row scales", row_a, row_b)):
+        ms = lib_ms(f"torch._scaled_mm with {form}", lambda x, y, s1=s1, s2=s2: torch._scaled_mm(
+            x, y, scale_a=s1, scale_b=s2, out_dtype=torch.bfloat16), copies(a, b_cm))
+        if ms is not None:
+            return ms, form
+    return None, None
+
+
+def check_tile_gemms(gen: torch.Generator) -> list:
+    """B15 at the shapes of ``gemm_forms`` (grad_weight: K = 8192, n_qk =
+    64 > 32, the JAX kernel's other scale layout). The e4m3 form on the
+    operands fp8 tile mixed precision makes (a in 1 x 128 groups, b in 128 x
+    128 blocks), held in fp32 to (QK + n_qk) fp32 roundings of the folded
+    magnitudes (``ops/tile_scaled_mm.py::fold_bound``: the tensor core sums each block's
+    exact fp16 products in fp32, in its own order), and in bf16 to one bf16
+    ulp more; the int8 form on int8 operands over the whole range with
+    random scales of the same grids, bit-exact. Each timed at bf16 output
+    beside ``scaled_mm_lib`` (e4m3) or ``torch._int_mm`` (int8, int32 out,
+    no scales). Entries at the gate/up forward."""
+    rows, worst, worst_units = {}, {"tile_scaled_mm": 0.0, "tile_scaled_mm_s8": 0.0}, 0.0
+    for lname, form, a, b in gemm_forms(gen):
+        aq, sa = quantize_fp8_tile(a)
+        bq, sb = quantize_fp8_block(b)
+        (M, K), N = aq.shape, bq.shape[1]
+        n_qk = sa.shape[1]
+        fold = TILE_MM.fold_bound(aq, bq, sa, sb, K // n_qk + n_qk)
+        got32 = ops.tile_scaled_mm(aq, bq, sa, sb, out_dtype=torch.float32)
+        ref32 = ops.tile_scaled_mm_plain(aq, bq, sa, sb, out_dtype=torch.float32)
+        got, ref = ops.tile_scaled_mm(aq, bq, sa, sb), ops.tile_scaled_mm_plain(aq, bq, sa, sb)
+        torch.cuda.synchronize()
+        d32 = (got32.double() - ref32.double()).abs()
+        units = (d32 / (fold / (K // n_qk + n_qk)).clamp(min=1e-300)).max().item()
+        check(bool((d32 <= fold).all()), f"B15 e4m3 at {lname} {form} within {K // n_qk + n_qk} fp32 roundings")
+        d16 = (got.double() - ref.double()).abs()
+        check(bool((d16 <= fold + 2.0**-7 * (ref32.double().abs() + fold)).all()),
+              f"B15 e4m3 bf16 output at {lname} {form} within one bf16 ulp more")
+        worst["tile_scaled_mm"] = max(worst["tile_scaled_mm"], d16.max().item())
+        worst_units = max(worst_units, units)
+        a8 = torch.randint(-128, 128, (M, K), generator=gen, device=DEVICE, dtype=torch.int8)
+        b8 = torch.randint(-128, 128, (K, N), generator=gen, device=DEVICE, dtype=torch.int8)
+        s8a = (torch.rand(sa.shape, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
+        s8b = (torch.rand(sb.shape, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
+        got8, ref8 = ops.tile_scaled_mm(a8, b8, s8a, s8b), ops.tile_scaled_mm_plain(a8, b8, s8a, s8b)
+        torch.cuda.synchronize()
+        check(torch.equal(got8, ref8), f"B15 int8 bit-exact at {lname} {form}")
+        worst["tile_scaled_mm_s8"] = max(worst["tile_scaled_mm_s8"], _max_err([got8], [ref8]))
+        for name, args, library, lib_form in (
+                ("tile_scaled_mm", (aq, bq, sa, sb), *scaled_mm_lib(aq, bq, sa, sb)),
+                ("tile_scaled_mm_s8", (a8, b8, s8a, s8b),
+                 lib_ms("torch._int_mm", lambda x, y: torch._int_mm(x, y), copies(a8, b8)), "int32 out")):
+            inputs = copies(*args)
+            ms = time_ms(ops.tile_scaled_mm, inputs, iters=8)
+            plain_ms = time_ms(ops.tile_scaled_mm_plain, inputs, iters=4)
+            nbytes = M * K + K * N + 2 * (sa.numel() + sb.numel()) + 2 * M * N
+            b_ms, by = bound(nbytes, 2 * M * N * K)
+            print(f"[3] {name} (B15, {'e4m3' if name == 'tile_scaled_mm' else 'int8'}) {lname} {form} M={M} N={N} "
+                  f"K={K} (n_qk {n_qk}) -> bf16: kernel {ms:.4f} ms ({2 * M * N * K / ms / 1e9:.1f} TOP/s, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the {b_ms:.4f} ms bound by {by}), plain "
+                  f"{plain_ms:.4f} ms, library ({lib_form}) {'refused' if library is None else f'{library:.4f} ms'}")
+            if name not in rows:
+                rows[name] = _entry(name, "quantized_training_tpu/ops/pallas_mm.py:378", 0.0, ((M, N, K), ms, plain_ms),
+                                    nbytes, 2 * M * N * K, library)
+                rows[name]["library_form"] = lib_form
+        print(f"[3] B15 e4m3 {lname} {form}: max |kernel - plain| {d32.max().item():.3e} in fp32 "
+              f"({units:.2f} fp32 roundings of the folded magnitudes, bound {K // n_qk + n_qk}), "
+              f"{d16.max().item():.3e} in bf16; int8 form bit-exact")
+    for name, e in rows.items():
+        e["max_abs_err"] = worst[name]
+    rows["tile_scaled_mm"]["max_fold_roundings"] = worst_units
+    return list(rows.values())
 
 
 def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
@@ -415,10 +565,25 @@ def check_fused_adamw(gen: torch.Generator, key: int) -> list:
                   f"({14 * p.numel() / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms")
             if shape == (CFG.num_hidden_layers, F, D):
                 timed[sr] = (shape, ms, plain_ms)
+                if not sr:
+                    library = lib_ms("torch._fused_adamw_", fused_adamw_lib, inputs)
+                    print(f"[3] torch._fused_adamw_ {list(shape)} bf16 (the same update, round-to-nearest, in "
+                          f"place): {'refused' if library is None else f'{library:.4f} ms'}")
     replaces = "quantized_training_tpu/ops/pallas_optim.py:79"
     n = np.prod(timed[False][0])
-    return [_entry("fused_adamw_update", replaces, worst[False], timed[False], 14 * n),
+    return [_entry("fused_adamw_update", replaces, worst[False], timed[False], 14 * n, library_ms=library),
             _entry("fused_adamw_update_sr", replaces, worst[True], timed[True], 14 * n)]
+
+
+def fused_adamw_lib(p, g, ea, eas):
+    """PyTorch's fused AdamW on bf16 parameters and moments at B6's
+    hyper-parameters (lr 1e-4, betas (0.9, 0.999), weight decay 1e-2, eps
+    1e-8, step 3): the same decoupled update in fp32 math with one
+    round-to-nearest writeback, in place; it has no SR writeback, so it
+    stands beside B6's round-to-nearest form only."""
+    step = torch.full((), 3.0, device=p.device)
+    torch._fused_adamw_([p], [g], [ea], [eas], [], [step], lr=1e-4, beta1=0.9, beta2=0.999, weight_decay=1e-2,
+                        eps=1e-8, amsgrad=False, maximize=False)
 
 
 def _int8_off(got, ref) -> tuple[int, float]:
@@ -867,7 +1032,7 @@ def int8_vs_bf16(phase: int, what: str, raw, cfg, tokens, labels, opt, lr: float
     the first-step losses agree within 1e-2 (int8 against bf16) and 1e-3
     (fused against unfused); prints tokens/s of steps 2-3 (step 1 warms
     up), the ratios and each run's peak memory. Returns (int8 losses, int8
-    launches)."""
+    launches, (bf16 first loss, bf16 tokens/s))."""
     def measured(params, expect, impl="auto"):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -905,7 +1070,7 @@ def int8_vs_bf16(phase: int, what: str, raw, cfg, tokens, labels, opt, lr: float
         rel_u = abs(q_losses[0] - u) / abs(u)
         print(f"[{phase}] first-step loss int8 fused vs unfused: relative {rel_u:.3e} (bound 1e-3)")
         check(rel_u <= 1e-3, f"fused first loss within 1e-3 of the unfused one: {rel_u:.3e}")
-    return q_losses, runs["int8"][2]
+    return q_losses, runs["int8"][2], (b_losses[0], tps["bf16"])
 
 
 def train_cfg_and_batch(seed: int, shape):
@@ -920,7 +1085,8 @@ def train_slice(raw, seed: int, key: int):
     """Phase 6: llm_pretrain.py's defaults (batch 4 x 2048, remat, adamw
     with weight decay 1e-2, lr 3e-4), Llama2-1B at full width and depth,
     int8 mixed_precision on the fused layer, then the same steps in bf16
-    from the same weights and batch. Returns the int8 losses and launches."""
+    from the same weights and batch. Returns the int8 losses and launches,
+    and the bf16 run's first loss and tokens/s."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
     what = (f"Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}")
     L = cfg.num_hidden_layers
@@ -942,7 +1108,7 @@ def bench_step(raw, seed: int, key: int) -> dict:
     what = (f"bench.py's step (Llama2-1B, tokens [{BENCH_ACCUM}, {TRAIN_B}, {TRAIN_S}], remat, SDPA, "
             f"adamw_bf16_sr without SR, lr 1e-4, {n_leaves} parameter leaves), seed {seed}")
     L = cfg.num_hidden_layers
-    _, launches = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
+    _, launches, _ = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
                                per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves),
                                per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="bf16"),
                                per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="unfused"))
@@ -981,7 +1147,7 @@ def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
 
 
 def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float, sr_key: int | None = None,
-                   fused: bool = False):
+                   fused: bool = False, qkw: dict | None = None):
     """Phase 7: the loss and every gradient leaf of a 2-layer cut of
     Llama2-1B (full width, weights from ``seed``), int8 mixed_precision,
     one micro-step on 256 tokens, the kernels on the card against the plain
@@ -991,8 +1157,10 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     the ungrouped one; at 256 tokens the o-projection's fused op engages).
     ``fused``: the fused layer (``set_impl('auto')`` on the card,
     ``'interpret'`` on the CPU), else the unfused one on both (``'off'``).
-    Bounds: relative RMS of each leaf's difference <= ``max_rms``; relative
-    loss difference <= ``max_dloss``.
+    ``qkw``: another mixed-precision configuration (int4, fp8 tile), which
+    runs the unfused layer and must launch its GEMM (B16, B15) and no int8
+    kernel on the card. Bounds: relative RMS of each leaf's difference <=
+    ``max_rms``; relative loss difference <= ``max_dloss``.
 
     Every kernel of the unfused layer is bit-exact, and B7, B8 and B10 are
     off by fp32 sum order, so the two paths differ where the torch ops
@@ -1017,7 +1185,7 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     sr = sr_key is not None
     for dev, params, impl in ((DEVICE, raw, "auto" if fused else "off"),
                               ("cpu", to_cpu(raw), "interpret" if fused else "off")):
-        qparams = quant.quantize_params(params, "mixed_precision", stochastic_rounding=sr)
+        qparams = quant.quantize_params(params, "mixed_precision", stochastic_rounding=sr, **(qkw or {}))
         quant.set_impl(impl)
         flag = os.environ.get("QT_FUSED_ROPE")
         os.environ["QT_FUSED_ROPE"] = "force"
@@ -1031,20 +1199,104 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
             else:
                 os.environ["QT_FUSED_ROPE"] = flag
         res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
-        if dev == DEVICE:  # the card ran the layer asked for
+        n = ops.launch_counts()
+        if dev == DEVICE and qkw:  # the card ran the configuration's GEMM and no int8 kernel
+            gemm = "scaled_int4_mm" if qkw["dtype"] == "int4" else "tile_scaled_mm"
+            int8 = sum(v for k, v in n.items() if k.startswith(("quantize", "scaled_mm")))
+            check(n[gemm] > 0 and int8 == 0 and n["rope_group"] > 0, f"{gemm} launched {n[gemm]} times, int8 {int8}")
+        elif dev == DEVICE:  # the card ran the layer asked for
             t = "_sr" if sr else ""
-            n = ops.launch_counts()
             fused_ran = [n[f"{k}{t}"] for k in ("rmsnorm_quant_rowwise", "silu_mul_bwd_quant_rowwise", "ungroup_quant")]
             check(all((c > 0) == fused for c in fused_ran) and n["rope_group"] > 0,
                   f"B7, B11, B14 launched {fused_ran} times with fused={fused}, B13 {n['rope_group']}")
     rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
     dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
-    print(f"[7] 2-layer Llama2-1B {str(dtype)[6:]}{' SR' if sr else ''} {'fused' if fused else 'unfused'} "
+    what = ", ".join(f"{k}={v}" for k, v in qkw.items()) if qkw else "int8"
+    print(f"[7] 2-layer Llama2-1B {what} {str(dtype)[6:]}{' SR' if sr else ''} {'fused' if fused else 'unfused'} "
           "layer grads (256 tokens), "
           "kernels on the card vs plain on the CPU: "
           f"loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} (relative {dloss:.2e}); worst leaf relative RMS "
           f"{max(rms):.3e}, per leaf {[f'{r:.1e}' for r in rms]} (bounds {max_rms:g}, loss {max_dloss:g})")
     check(max(rms) <= max_rms and dloss <= max_dloss, f"{dtype} gradients within tolerance of the plain path")
+
+
+def tile_int8_path() -> dict:
+    """The int8 form of B15 on its path: ``ops.scaled_mm`` with int8
+    operands and 128 x 128 scale tiles, as ``benchmark_mm.py``'s tile case
+    calls the JAX package's kernel (A, B [4096, 4096] int8, fp32 out): one
+    launch, bit-exact with the plain version. Returns the launches."""
+    n = 4096
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a, b = (torch.randint(-128, 128, (n, n), generator=gen, device=DEVICE, dtype=torch.int8) for _ in range(2))
+    sa, sb = (torch.rand(n // 128, n // 128, generator=gen, device=DEVICE) * 0.01 for _ in range(2))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = ops.scaled_mm(a, b, sa, sb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["tile_scaled_mm_s8"] == 1 and sum(launches.values()) == 1, f"one B15 int8 launch: {launches}")
+    check(torch.equal(out, ops.tile_scaled_mm_plain(a, b, sa, sb, out_dtype=torch.float32)),
+          "the tile-scaled int8 product equals the plain version")
+    print(f"[10] ops.scaled_mm int8 [{n}, {n}] x [{n}, {n}] with 128 x 128 scale tiles (benchmark_mm.py's tile case):"
+          f" B15 int8 launched once, bit-exact with the plain version")
+    return launches
+
+
+# phase 7's bounds for int4 and fp8 tile (fp32): the floor, measured on the
+# CPU as grads_vs_plain's docstring describes, with seeds 0 / 1: int4 worst
+# leaf 7.0e-2 / 4.2e-1 and loss 0 / 2.4e-5 (one int4 flip moves a value by a
+# seventh of its row's maximum), fp8 tile 7.2e-2 / 8.5e-2 and 3.3e-5 /
+# 1.7e-4. int4's leaf bound catches an uncorrelated gradient (about 1.4) but
+# not a small mis-scale, which its loss bound does.
+GRAD_BOUNDS_OTHER = ((dict(dtype="int4"), 9e-1, 1e-3), (dict(dtype="fp8_e4m3", scale="tile"), 1.5e-1, 1e-3))
+
+
+# the first-step loss of each configuration against phase 6's bf16 one,
+# relative: on the CPU at the tests' small Llama (2 layers, hidden 256,
+# random bf16 weights from seeds 0-2, a [2, 64] batch) int4 differed by at
+# most 1.8e-3, fp8 tile 9.5e-5, fp8 row 7.1e-4 (int8 5.7e-5)
+FIRST_LOSS_BOUNDS = {"int4": 2e-2, "fp8 tile": 1e-2, "fp8 row": 1e-2}
+
+
+def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -> dict:
+    """Phase 10: int4 and fp8 mixed precision, as ``llm_pretrain.py
+    --quantize mixed_precision --quantize_kwargs`` '{"dtype": "int4"}',
+    '{"dtype": "fp8_e4m3", "scale": "tile"}' and '{"dtype": "fp8_e4m3"}'
+    (row scales) give them: three steps each at phase 6's shapes, optimizer
+    and lr, from its weights, batch and key, on the unfused layer (the
+    fused ops take int8 only). The losses fall, each first loss is within
+    FIRST_LOSS_BOUNDS of phase 6's bf16 one, and each step launches B16
+    (int4) or B15's e4m3 form (fp8 tile) 28 times a layer (7 weights:
+    forward, its remat replay, grad_input, grad_weight) and no int8 kernel;
+    fp8 row neither. Prints tokens/s of steps 2-3, the ratio to phase 6's
+    bf16 tokens/s and peak memory. Returns the launches of the three runs."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
+    L = cfg.num_hidden_layers
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    for name, qkw, gemm in (("int4", dict(dtype="int4"), "scaled_int4_mm"),
+                            ("fp8 tile", dict(dtype="fp8_e4m3", scale="tile"), "tile_scaled_mm"),
+                            ("fp8 row", dict(dtype="fp8_e4m3", scale="row"), None)):
+        expect = per_step_launches(L, layer="bf16")
+        if gemm is not None:
+            expect[gemm] = 28 * L
+        params = quant.quantize_params(raw, "mixed_precision", **qkw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, counts = run_steps(params, cfg, tokens, labels, optim.adamw(weight_decay=1e-2), 3e-4, key, 3,
+                                          expect)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tps = TOKENS * (len(walls) - 1) / sum(walls[1:])
+        rel = abs(losses[0] - bf16_first) / abs(bf16_first)
+        print(f"[10] {name} mixed_precision (Llama2-1B, B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed "
+              f"{seed}: losses {losses}, step walls {[round(w, 4) for w in walls]} s, tokens/s (steps 2-3) {tps:.1f} "
+              f"({tps / bf16_tps:.3f} of phase 6's bf16 {bf16_tps:.1f}); peak device memory {peak:.2f} GiB; first-step "
+              f"loss against bf16's: relative {rel:.3e} (bound {FIRST_LOSS_BOUNDS[name]:g}); launches per step "
+              f"{ {k: v for k, v in expect.items() if v} }")
+        check(losses[2] < losses[0], f"{name} loss falls: {losses}")
+        check(rel <= FIRST_LOSS_BOUNDS[name], f"{name} first loss within {FIRST_LOSS_BOUNDS[name]} of bf16's: {rel:.3e}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+    return launches
 
 
 def main() -> None:
@@ -1058,6 +1310,7 @@ def main() -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     serving = [check_k1(gen)]
     training = [*check_training_quantizes(gen), *check_training_gemms(gen, check_k2(gen))]
+    other_gemms = [check_int4_gemms(gen), *check_tile_gemms(gen)]
     sr_forms = check_sr_quantizes(gen, key)
     adamw = check_fused_adamw(gen, key)
     producers = check_fused_producers(gen, key)
@@ -1069,20 +1322,26 @@ def main() -> None:
     kernel_vs_plain_path(SEED, torch.float32, 3e-2, 0.95)
     kernel_vs_plain_path(SEED, torch.bfloat16, 1e-1, 0.85)
     raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), CFG)
-    q_losses, launches = train_slice(raw, args.seed, key)
+    q_losses, launches, (bf16_first, bf16_tps) = train_slice(raw, args.seed, key)
     for e in training:
         e["launches"] = launches[e["name"]]
     for fused in (False, True):
         grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, fused=fused)
         grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3, fused=fused)
         grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, sr_key=random.fold_in(key, 7), fused=fused)
+    for qkw, max_rms, max_dloss in GRAD_BOUNDS_OTHER:
+        grads_vs_plain(SEED, torch.float32, max_rms, max_dloss, qkw=qkw)
     launches = bench_step(raw, args.seed, key)
     for e in [adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))]:
         e["launches"] = launches[e["name"]]
     launches = sr_config(raw, args.seed, key, q_losses[0])
     for e in [*sr_forms, adamw[1], *(e for e in producers if e["name"].endswith("_sr"))]:
         e["launches"] = launches[e["name"]]
-    kernels = serving + training + sr_forms + adamw + producers
+    path, steps = tile_int8_path(), other_dtypes(raw, args.seed, key, bf16_first, bf16_tps)
+    launches = {k: path[k] + steps[k] for k in path}
+    for e in other_gemms:
+        e["launches"] = launches[e["name"]]
+    kernels = serving + training + sr_forms + adamw + producers + other_gemms
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,19 +3,23 @@
 bench.py's step in the PyTorch port (Llama2-1B at full width and depth,
 tokens [4, 4, 2048] as 4 x 4 gradient accumulation, per-layer remat, SDPA,
 ``adamw_bf16_sr`` without the SR writeback, lr 1e-4, random weights and
-tokens from ``--seed``), in up to three configurations: int8
-``mixed_precision`` on the producer-fused layer, int8 on the unfused layer
-(``quant.set_impl('off')``), and bf16. For each: three unprofiled steps (the
+tokens from ``--seed``), in any of these configurations: int8
+``mixed_precision`` on the producer-fused layer (``fused``), int8 on the
+unfused layer (``unfused``, ``quant.set_impl('off')``), bf16, and int4, fp8
+tile and fp8 row ``mixed_precision`` (``int4``, ``fp8tile``, ``fp8row``: the
+unfused layer, B16 / B15 / no GEMM kernel, plain-torch quantizes). For each:
+three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
-of every kernel, summed by group (the port's int8 GEMMs, its quantize and
-producer kernels, its RoPE and ungroup kernels, B6, cuBLAS GEMMs, attention,
+of every kernel, summed by group (the port's int8, int4 and tile-scaled
+GEMMs, its quantize and producer kernels, its RoPE and ungroup kernels, B6,
+cuBLAS GEMMs, attention,
 torch's copy kernels, the rest: torch's elementwise and reduction kernels),
 the device's busy share of the profiled step's wall time, the layout copies
 (``aten::contiguous`` / ``aten::clone`` ops that ran a kernel; the copy group
 also holds dtype casts), and the largest kernels by name.
 
-Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16] [--seed N] [--top 12]
+Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row] [--seed N] [--top 12]
 """
 
 from __future__ import annotations
@@ -32,8 +36,15 @@ from quantized_training_tpu_torch import optim, quant, train
 from quantized_training_tpu_torch.models import llama
 from quantized_training_tpu_torch.ops import random
 
-# kernel-name fragments of each group, first match wins
+# quantize_params kwargs of each configuration (None: the bf16 weights)
+CONFIGS = {"fused": {}, "unfused": {}, "bf16": None, "int4": {"dtype": "int4"},
+           "fp8tile": {"dtype": "fp8_e4m3", "scale": "tile"}, "fp8row": {"dtype": "fp8_e4m3", "scale": "row"}}
+
+# kernel-name fragments of each group, first match wins (B16 is scaled_mm_s8
+# instantiated on packed int4 operands, Src 1 in its template arguments)
 GROUPS = (
+    ("int4 GEMM B16", ("src)1",)),
+    ("tile-scaled GEMM B15", ("tile_scaled_mm",)),
     ("int8 GEMMs K2/B1/B2", ("scaled_mm_s8",)),
     ("producer kernels B7-B12", ("row_quant", "col_quant", "producer_col_absmax", "rmsnorm_bwd_rows",
                                  "reduce_parts")),
@@ -68,7 +79,8 @@ def main() -> None:
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     for name in args.configs.split(","):
-        params = raw if name == "bf16" else quant.quantize_params(raw, "mixed_precision")
+        qkw = CONFIGS[name]
+        params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
         quant.set_impl("off" if name == "unfused" else "auto")
         step = train.make_train_step(cfg, opt)
         state = train.init_train_state(params, opt)

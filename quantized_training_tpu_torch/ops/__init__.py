@@ -1,6 +1,6 @@
 """Kernel-level ops of the port.
 
-Counterpart of ``quantized_training_tpu/ops/__init__.py``. Sixteen hand-written
+Counterpart of ``quantized_training_tpu/ops/__init__.py``. Eighteen hand-written
 CUDA kernels, each with a plain PyTorch version that CPU tensors take:
 
 - K1 :func:`quantize_int8_rowwise` (``csrc/int8_quant.cu``), replacing
@@ -15,6 +15,13 @@ CUDA kernels, each with a plain PyTorch version that CPU tensors take:
   ``ops/pallas_mm.py::scaled_mm``;
 - B2 :func:`scaled_mm_lhs_t` (``csrc/scaled_mm.cu``), replacing
   ``ops/pallas_mm.py::scaled_mm_dims`` with dims (0, 0);
+- B15 :func:`tile_scaled_mm` (``csrc/tile_scaled_mm.cu``), the tile-scaled
+  two-accumulator GEMM on int8 or e4m3 operands, replacing
+  ``ops/pallas_mm.py::tile_scaled_mm``: fp8 ``mixed_precision`` with
+  ``scale='tile'``;
+- B16 :func:`scaled_int4_mm` (``csrc/scaled_mm.cu``), the packed-int4 GEMM
+  that unpacks in its load stage, replacing
+  ``ops/pallas_mm.py::scaled_int4_mm``: int4 ``mixed_precision``;
 - B6 :func:`fused_adamw_update` (``csrc/fused_adamw.cu``), replacing
   ``ops/pallas_optim.py::fused_adamw_update``;
 - B7 :func:`rmsnorm_quant_rowwise`, B8 :func:`rmsnorm_quant_colwise`, B9
@@ -34,7 +41,9 @@ CUDA kernels, each with a plain PyTorch version that CPU tensors take:
 
 K1, B4, B5, B7, B8, B9, B11, B12 and B14's quantize also have a
 stochastic-rounding form, and B6 an SR writeback,
-drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``).
+drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``). The
+int4 and fp8 quantizes (``quant/core.py``, :mod:`fp8`) and the fp8
+row-scaled product are plain torch on every device, as XLA ran them.
 
 Each wrapper counts its kernel launches (:func:`launch_counts`), an SR form
 apart from its plain form, so a run can show that its path went through the
@@ -42,7 +51,7 @@ kernels and which form ran. Importing this package builds nothing: the
 kernels compile at their first launch (``ops/_build.py``).
 """
 
-from . import random
+from . import fp8, random
 from .fused_adamw import fused_adamw_plain, fused_adamw_update
 from .fused_producers import (
     rmsnorm_bwd,
@@ -60,6 +69,7 @@ from .fused_producers import (
     silu_mul_quant_rowwise,
     silu_mul_quant_rowwise_plain,
 )
+from .int4_mm import int4_mm, scaled_int4_mm, scaled_int4_mm_plain, unpack_int4
 from .int8_quant import (
     quantize_int8_both,
     quantize_int8_both_plain,
@@ -87,6 +97,7 @@ from .scaled_mm import (
     scaled_mm_rhs_t,
     scaled_mm_rhs_t_plain,
 )
+from .tile_scaled_mm import tile_scaled_mm, tile_scaled_mm_plain
 
 # counter name -> (wrapper, the attribute it counts in)
 KERNELS = {
@@ -119,6 +130,9 @@ KERNELS = {
     "ungroup_amax": (ungroup_amax, "launches"),
     "ungroup_quant": (ungroup_quant, "launches"),
     "ungroup_quant_sr": (ungroup_quant, "sr_launches"),
+    "scaled_int4_mm": (scaled_int4_mm, "launches"),
+    "tile_scaled_mm": (tile_scaled_mm, "launches"),
+    "tile_scaled_mm_s8": (tile_scaled_mm, "s8_launches"),
 }
 
 
@@ -136,9 +150,11 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "fp8",
     "random",
     "fused_adamw_plain",
     "fused_adamw_update",
+    "int4_mm",
     "quantize_int8_both",
     "quantize_int8_both_plain",
     "quantize_int8_colwise",
@@ -162,6 +178,8 @@ __all__ = [
     "silu_mul_quant_colwise_plain",
     "silu_mul_quant_rowwise",
     "silu_mul_quant_rowwise_plain",
+    "scaled_int4_mm",
+    "scaled_int4_mm_plain",
     "scaled_mm",
     "scaled_mm_general",
     "scaled_mm_lhs_t",
@@ -170,8 +188,11 @@ __all__ = [
     "scaled_mm_ref",
     "scaled_mm_rhs_t",
     "scaled_mm_rhs_t_plain",
+    "tile_scaled_mm",
+    "tile_scaled_mm_plain",
     "ungroup_amax",
     "ungroup_amax_plain",
     "ungroup_quant",
     "ungroup_quant_plain",
+    "unpack_int4",
 ]

@@ -1,4 +1,5 @@
-// The scaled int8 GEMM in three layouts, each a form of
+// The scaled int8 GEMM in three layouts, and its packed-int4 form, each a
+// form of
 //   out[M, N] = ((float)(sum_k A[m, k] * B[k, n]) * sa[m]) * sb[n]
 // with exact int32 accumulation and the fp32 epilogue of
 // quantized_training_tpu/ops/scaled_mm.py:183-188, rounded once to the output
@@ -12,93 +13,48 @@
 // - B2, (0,0): a [K, M]^T . b [K, N], both MN-major: the backward's
 //   grad_weight g^T . x over the tokens. Replaces ops/pallas_mm.py::
 //   scaled_mm_dims (:192) with dims=(0, 0).
+// - B16: a [M, K / 2] . b [N, K / 2]^T, both packed signed int4 (two values a
+//   byte, the even one in the high nibble), K-major: every matmul of int4
+//   mixed precision. Replaces ops/pallas_mm.py::scaled_int4_mm (:636). The
+//   operands cross device memory at 4 bits a value; the load stage unpacks
+//   each 8-byte chunk to 16 sign-extended int8 values in registers
+//   (mm_tiles.cuh) and the int8 MMA follows: the H100 lists no int4
+//   tensor-core rate, so the .s4 mma shapes are not used. int32 sums are
+//   exact, so B16 equals the JAX package's hi . hi + lo . lo split
+//   (pallas_mm.py:600-633) whatever order it sums in.
 //
 // Bound on the H100: at training and prefill M the int8 tensor-core rate; at
 // decode M = 8 the bytes of the int8 weight, read once per call. Design: no
 // operand is ever transposed in device memory (the JAX package's rule,
 // quant/mixed_precision.py:192-195). Tiles go through shared memory in 16x16
-// blocks of 16-byte rows, laid out so that every wmma fragment load is
-// 256-bit aligned with a leading dimension of 16: a K-major tile as
-// [K / 16][rows][16] (16-byte chunks along K), an MN-major one as
-// [rows / 16][K][16] (16-byte chunks along M or N). wmma m16n16k16
+// blocks of 16-byte rows (mm_tiles.cuh), so that every wmma fragment load is
+// 256-bit aligned with a leading dimension of 16. wmma m16n16k16
 // signed-char fragments take either layout (row_major / col_major) and
-// accumulate in int32, so one kernel, templated on the two layouts, serves
-// all three forms. Tiles: 64x64 with a K step of 64, and for the (1,1) form
-// at M <= 16 a 16x32 tile with a K step of 256, so a decode call keeps more
-// weight bytes in flight per block. Ragged rows are zero-filled on load and
-// masked on store. The next K tile is fetched into registers while the
-// current one runs through the MMAs. No wgmma, TMA or cp.async yet: wgmma
-// takes 8-bit operands K-major only, so a faster (1,0)/(0,0) needs its
-// operands written K-major by the quantize, a design question for a later PR.
+// accumulate in int32, so one kernel, templated on the two layouts and on
+// packed operands, serves all four forms. Tiles: 64x64 with a K step of 64,
+// and for the K-major forms at M <= 16 a 16x32 tile with a K step of 256, so
+// a decode call keeps more weight bytes in flight per block. Ragged rows are
+// zero-filled on load and masked on store. The next K tile is fetched into
+// registers while the current one runs through the MMAs. No wgmma, TMA or
+// cp.async yet: wgmma takes 8-bit operands K-major only, so a faster
+// (1,0)/(0,0) needs its operands written K-major by the quantize, a design
+// question for a later PR.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
 
-#include <type_traits>
+#include "mm_tiles.cuh"
 
 using namespace nvcuda;
+using qt_mm::frag;
+using qt_mm::Src;
+using qt_mm::store_out;
+using qt_mm::TileCopy;
+using qt_mm::to_f32;
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// One thread's share of an operand tile, rows [r0, r0 + R) x contraction
-// [k0, k0 + BK): fetch() reads its 16-byte chunks into registers, zero-filling
-// outside [0, rows) x [0, K); store() writes them to shared memory.
-// K-major (src [rows, K]): chunks along K, stored [BK / 16][R][16].
-// MN-major (src [K, rows], rows % 16 == 0): chunks along the rows, stored
-// [R / 16][BK][16]. Consecutive threads read consecutive 16 bytes, and a
-// thread issues all of its loads before it waits on any.
-template <int R, int BK, int NT, bool KMAJOR>
-struct TileCopy {
-  static constexpr int CH = KMAJOR ? BK / 16 : R / 16;  // chunks along the contiguous axis
-  static constexpr int ITERS = R * BK / 16 / NT;
-  static_assert(R * BK / 16 % NT == 0, "every thread copies the same number of chunks");
-  uint4 v[ITERS];
-
-  __device__ __forceinline__ void fetch(const int8_t* __restrict__ src, int r0, int rows, int k0,
-                                        int K) {
-#pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int idx = threadIdx.x + it * NT, slow = idx / CH, c = idx % CH;
-      bool inside;
-      int64_t off;
-      if constexpr (KMAJOR) {  // slow: the tile row; c: the K chunk
-        const int gr = r0 + slow, gk = k0 + c * 16;
-        inside = gr < rows && gk < K;  // K % 16 == 0: a chunk is wholly inside or outside
-        off = static_cast<int64_t>(gr) * K + gk;
-      } else {  // slow: the k index; c: the row chunk
-        const int gk = k0 + slow, gr = r0 + c * 16;
-        inside = gk < K && gr < rows;  // rows % 16 == 0: likewise
-        off = static_cast<int64_t>(gk) * rows + gr;
-      }
-      v[it] = inside ? *reinterpret_cast<const uint4*>(src + off) : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  __device__ __forceinline__ void store(int8_t* __restrict__ dst) const {
-#pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int idx = threadIdx.x + it * NT, slow = idx / CH, c = idx % CH;
-      *reinterpret_cast<uint4*>(dst + (KMAJOR ? c * R + slow : c * BK + slow) * 16) = v[it];
-    }
-  }
-};
-
-// The 16x16 fragment at contraction chunk c and tile row r (a multiple of 16).
-template <int R, int BK, bool KMAJOR>
-__device__ __forceinline__ const signed char* frag(const int8_t* tile, int c, int r) {
-  const int off = KMAJOR ? (c * R + r) * 16 : ((r / 16) * BK + c * 16) * 16;
-  return reinterpret_cast<const signed char*>(tile + off);
-}
-
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool A_KMAJOR, bool B_KMAJOR,
+// S: S8, or S4 for packed int4 operands (both K-major).
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool A_KMAJOR, bool B_KMAJOR, Src S,
           typename ST, typename OT>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
@@ -128,8 +84,8 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
 
-  TileCopy<BM, BK, NT, A_KMAJOR> ta;
-  TileCopy<BN, BK, NT, B_KMAJOR> tb;
+  TileCopy<BM, BK, NT, A_KMAJOR, S> ta;
+  TileCopy<BN, BK, NT, B_KMAJOR, S> tb;
   ta.fetch(a, m0, M, 0, K);
   tb.fetch(b, n0, N, 0, K);
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -177,36 +133,37 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool AK, bool BKM, typename ST,
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool AK, bool BKM, Src S, typename ST,
           typename OT>
 cudaError_t launch_tiles(const void* a, const void* b, const void* sa, const void* sb, void* out,
                          int M, int N, int K, cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  scaled_mm_s8<BM, BN, BK, WARPS_M, WARPS_N, AK, BKM, ST, OT>
+  scaled_mm_s8<BM, BN, BK, WARPS_M, WARPS_N, AK, BKM, S, ST, OT>
       <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
           static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
           static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out), M, N, K);
   return cudaGetLastError();
 }
 
-template <bool AK, bool BKM, typename ST, typename OT>
+template <bool AK, bool BKM, Src S, typename ST, typename OT>
 cudaError_t launch(const void* a, const void* b, const void* sa, const void* sb, void* out, int M,
                    int N, int K, cudaStream_t stream) {
   if constexpr (AK && BKM) {
     if (M <= 16)
-      return launch_tiles<16, 32, 256, 1, 2, AK, BKM, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+      return launch_tiles<16, 32, 256, 1, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   }
-  return launch_tiles<64, 64, 64, 2, 2, AK, BKM, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+  return launch_tiles<64, 64, 64, 2, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
 }
 
-template <bool AK, bool BKM>
+template <bool AK, bool BKM, Src S = Src::S8>
 cudaError_t launch_dtypes(const void* a, const void* b, const void* sa, const void* sb, void* out,
                           int M, int N, int K, int scale_bf16, int out_bf16, cudaStream_t s) {
+  using BF = __nv_bfloat16;
   if (scale_bf16)
-    return out_bf16 ? launch<AK, BKM, __nv_bfloat16, __nv_bfloat16>(a, b, sa, sb, out, M, N, K, s)
-                    : launch<AK, BKM, __nv_bfloat16, float>(a, b, sa, sb, out, M, N, K, s);
-  return out_bf16 ? launch<AK, BKM, float, __nv_bfloat16>(a, b, sa, sb, out, M, N, K, s)
-                  : launch<AK, BKM, float, float>(a, b, sa, sb, out, M, N, K, s);
+    return out_bf16 ? launch<AK, BKM, S, BF, BF>(a, b, sa, sb, out, M, N, K, s)
+                    : launch<AK, BKM, S, BF, float>(a, b, sa, sb, out, M, N, K, s);
+  return out_bf16 ? launch<AK, BKM, S, float, BF>(a, b, sa, sb, out, M, N, K, s)
+                  : launch<AK, BKM, S, float, float>(a, b, sa, sb, out, M, N, K, s);
 }
 
 }  // namespace
@@ -233,4 +190,15 @@ extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, con
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// B16. a [M, K / 2] and b [N, K / 2] packed signed int4, contiguous, 8-byte
+// aligned, K the unpacked contraction length with K % 16 == 0; sa [M], sb
+// [N], out [M, N] as for qt_scaled_mm_s8. Returns the launch's cudaError_t.
+extern "C" int qt_scaled_int4_mm(const void* a, const void* b, const void* sa, const void* sb,
+                                 void* out, int M, int N, int K, int scale_bf16, int out_bf16,
+                                 void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  return static_cast<int>(launch_dtypes<true, true, Src::S4>(a, b, sa, sb, out, M, N, K, scale_bf16,
+                                                              out_bf16, static_cast<cudaStream_t>(stream)));
 }

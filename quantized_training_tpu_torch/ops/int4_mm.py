@@ -1,0 +1,93 @@
+"""Scaled int4 matmul on packed operands: kernel B16 and its plain version.
+
+Counterpart of ``quantized_training_tpu/ops/int4_mm.py`` (:39-83):
+``unpack_int4``, ``int4_mm`` and ``scaled_int4_mm``, whose Pallas kernel
+``ops/pallas_mm.py::scaled_int4_mm`` (:636) B16 replaces. Two signed int4
+values a byte, the even element in the high nibble; B is taken packed along
+K as ``b_t [N, K / 2]``, the layout a row-wise quantize of B^T gives.
+
+B16 is an instantiation of ``csrc/scaled_mm.cu`` (K2's K-major form) whose
+load stage unpacks the nibbles in registers, so the operands cross device
+memory at 4 bits a value; its header says what bounds it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .scaled_mm import _SCALE_DTYPES, _as_vector
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[..., P] int8 (two nibbles each) -> [..., 2P] int8 values in [-8, 7]."""
+    hi = packed >> 4  # arithmetic shift: sign-extends
+    lo = (packed << 4) >> 4
+    return torch.stack([hi, lo], dim=-1).reshape(*packed.shape[:-1], -1)
+
+
+def int4_mm(a_packed: torch.Tensor, b_t_packed: torch.Tensor) -> torch.Tensor:
+    """a [M, K / 2] packed . unpack(b_t [N, K / 2])^T -> exact int32 [M, N]."""
+    a, b = unpack_int4(a_packed), unpack_int4(b_t_packed)
+    return torch.tensordot(a.double(), b.double(), dims=([1], [1])).to(torch.int32)
+
+
+def scaled_int4_mm_plain(a_packed, b_t_packed, row_scale, col_scale, *, out_dtype=torch.bfloat16):
+    """Plain version of B16: unpack, contract in float64 (exact: |acc| <
+    2**53), round to fp32 as the int32 -> fp32 cast does, then ``(acc *
+    row_scale) * col_scale`` in fp32 and one cast, as ``ops/scaled_mm.py``'s
+    plain versions."""
+    a, b = unpack_int4(a_packed), unpack_int4(b_t_packed)
+    M, N = a.shape[0], b.shape[0]
+    acc = torch.tensordot(a.double(), b.double(), dims=([1], [1])).float()
+    sa = _as_vector(row_scale, M, "row_scale").float().reshape(M, 1)
+    sb = _as_vector(col_scale, N, "col_scale").float().reshape(1, N)
+    return ((acc * sa) * sb).to(out_dtype)
+
+
+def _launch(a, b, row_scale, col_scale, out_dtype):
+    tensors = (a, b, row_scale, col_scale)
+    if not all(t.is_cuda and t.device == a.device for t in tensors):
+        raise ValueError("scaled_int4_mm: all operands must be on one CUDA device")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"scaled_int4_mm: int8-packed operands only, got {a.dtype}, {b.dtype}")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"scaled_int4_mm: shapes {tuple(a.shape)}, {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("scaled_int4_mm: a and b must be contiguous")
+    M, P, N = a.shape[0], a.shape[1], b.shape[0]
+    # 8-byte packed chunks (16 values) along K (csrc/scaled_mm.cu)
+    if P % 8 or a.data_ptr() % 8 or b.data_ptr() % 8:
+        raise ValueError(f"scaled_int4_mm: needs K / 2 % 8 == 0 (K % 16 == 0) and 8-byte aligned operands "
+                         f"(shapes {tuple(a.shape)}, {tuple(b.shape)})")
+    if row_scale.dtype != col_scale.dtype or row_scale.dtype not in _SCALE_DTYPES:
+        raise TypeError(f"scaled_int4_mm: scales {row_scale.dtype}, {col_scale.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"scaled_int4_mm: out_dtype {out_dtype}")
+    sa = _as_vector(row_scale, M, "row_scale")
+    sb = _as_vector(col_scale, N, "col_scale")
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    err = _build.library().qt_scaled_int4_mm(
+        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, 2 * P,
+        int(sa.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _build.stream(),
+    )
+    _build.check(err, "scaled_int4_mm")
+    return out
+
+
+def scaled_int4_mm(a_packed: torch.Tensor, b_t_packed: torch.Tensor, row_scale: torch.Tensor,
+                   col_scale: torch.Tensor, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``out[M, N] = ((a . unpack(b_t)^T) * row_scale[M]) * col_scale[N]``
+    for packed a [M, K / 2] and b_t [N, K / 2]. Scales [M] / [M, 1] and
+    [N] / [1, N] or scalars, bf16 or fp32 (the same for both). A CPU tensor
+    takes :func:`scaled_int4_mm_plain`; CUDA tensors launch B16 on the
+    current stream, which needs K % 16 == 0 and 8-byte aligned, contiguous
+    operands."""
+    if a_packed.device.type == "cpu":
+        return scaled_int4_mm_plain(a_packed, b_t_packed, row_scale, col_scale, out_dtype=out_dtype)
+    out = _launch(a_packed, b_t_packed, row_scale, col_scale, out_dtype)
+    scaled_int4_mm.launches += 1
+    return out
+
+
+scaled_int4_mm.launches = 0

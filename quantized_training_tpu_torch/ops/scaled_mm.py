@@ -10,8 +10,9 @@ Counterparts in the JAX package:
 - ``ops/pallas_mm.py::scaled_mm`` (:85), which B1 replaces
   (:func:`scaled_mm`, the grad_input g . w), in the row/col/scalar-scale
   mode of ``ops/scaled_mm.py::scaled_mm`` (:65-107);
-- ``ops/scaled_mm.py::scaled_mm_general`` (:122), the contraction-dims
-  dispatcher;
+- ``ops/scaled_mm.py::scaled_mm`` (:65-119) and ``scaled_mm_general``
+  (:122), the scale-mode and contraction-dims dispatchers: tile scales go
+  to B15 (``tile_scaled_mm.py``), fp8 row scales to ``fp8.py``;
 - ``ops/scaled_mm.py::scaled_mm_ref`` (:221), the fp32 oracle.
 
 The three kernels are layout instantiations of one CUDA source,
@@ -24,6 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .fp8 import FP8_TYPES, scaled_fp8_mm_general
+from .tile_scaled_mm import tile_scaled_mm
 
 _SCALE_DTYPES = (torch.bfloat16, torch.float32)
 
@@ -121,20 +124,24 @@ scaled_mm_rhs_t.launches = 0
 
 def scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: torch.Tensor,
               *, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """``out[M, N] = ((a[M, K] . b[K, N]) * scale_a) * scale_b`` for int8
-    operands, in the row/col/scalar-scale mode: scale_a is [M, 1] or [M] or
-    a scalar, scale_b [1, N] or [N] or a scalar. The tile-scaled mode of the
-    JAX package (2-D scale grids) raises NotImplementedError (ROADMAP B15).
-    A CPU tensor takes :func:`scaled_mm_plain`; CUDA tensors launch B1 on
-    the current stream, which needs K % 16 == 0, N % 16 == 0 and 16-byte
-    aligned, contiguous operands."""
+    """``out[M, N] = ((a[M, K] . b[K, N]) * scale_a) * scale_b``; the scale
+    layout decides the mode (JAX ``ops/scaled_mm.py::scaled_mm``, :65-119):
+
+    - row/col/scalar: scale_a [M, 1] or [M] or a scalar, scale_b [1, N] or
+      [N] or a scalar. int8 operands: a CPU tensor takes
+      :func:`scaled_mm_plain`; CUDA tensors launch B1 on the current stream,
+      which needs K % 16 == 0, N % 16 == 0 and 16-byte aligned, contiguous
+      operands. fp8 operands: plain torch on every device
+      (``ops/fp8.py::scaled_fp8_mm_general``), as XLA ran them;
+    - tile: scale_a [M / QM, K / QK] and scale_b [K / QK, N / QN], the
+      two-accumulator loop of B15 (``ops/tile_scaled_mm.py``)."""
     M, N = a.shape[0], b.shape[1]
-    if (scale_a.ndim == 2 and scale_a.numel() > 1 and tuple(scale_a.shape) != (M, 1)) or (
-            scale_b.ndim == 2 and scale_b.numel() > 1 and tuple(scale_b.shape) != (1, N)):
-        raise NotImplementedError(
-            f"scaled_mm: tile scales {tuple(scale_a.shape)}, {tuple(scale_b.shape)} have no "
-            "kernel yet (ROADMAP B15 tile_scaled_mm)"
-        )
+    row_col = (scale_a.numel() == 1 or tuple(scale_a.shape) in ((M, 1), (M,))) and (
+        scale_b.numel() == 1 or tuple(scale_b.shape) in ((1, N), (N,)))
+    if not row_col:
+        return tile_scaled_mm(a, b, scale_a, scale_b, out_dtype=out_dtype)
+    if a.dtype in FP8_TYPES:
+        return scaled_fp8_mm_general(a, b, scale_a, scale_b, dims=(1, 0), out_dtype=out_dtype)
     if a.device.type == "cpu":
         return scaled_mm_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
     out = _launch("scaled_mm", a, b, scale_a, scale_b, (1, 0), out_dtype)
@@ -167,11 +174,14 @@ _BY_DIMS = {(1, 1): scaled_mm_rhs_t, (1, 0): scaled_mm, (0, 0): scaled_mm_lhs_t}
 def scaled_mm_general(a, b, scale_a, scale_b, *, dims=(1, 0), out_dtype=torch.bfloat16):
     """Row/col-scaled matmul with explicit contraction dims: a over dims[0],
     b over dims[1]; scale_a per out-row, scale_b per out-col (scalars
-    broadcast). Every operand stays in its stored layout: dims (1, 1) is K2,
-    (1, 0) B1 and (0, 0) B2."""
+    broadcast). Every operand stays in its stored layout: for int8 dims
+    (1, 1) is K2, (1, 0) B1 and (0, 0) B2; fp8 operands take the plain
+    fp32 product (``ops/fp8.py``), as the JAX package's XLA dot did."""
     dims = tuple(dims)
     if dims not in _BY_DIMS:
         raise ValueError(f"scaled_mm_general: dims {dims}")
+    if a.dtype in FP8_TYPES:
+        return scaled_fp8_mm_general(a, b, scale_a, scale_b, dims=dims, out_dtype=out_dtype)
     return _BY_DIMS[dims](a, b, scale_a, scale_b, out_dtype=out_dtype)
 
 

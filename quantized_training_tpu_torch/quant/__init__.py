@@ -1,9 +1,9 @@
 """Quantization schemes of the port.
 
 Counterpart of ``quantized_training_tpu/quant/__init__.py``, for the part the
-serving and training slices use: the mixed-precision int8 scheme, forward
-and backward, the producer-fused linears of ``quant/fused.py``, and the
-training contract of ``quant/api.py``.
+serving and training slices use: the mixed-precision scheme (int8, int4 and
+fp8), forward and backward, the producer-fused linears of ``quant/fused.py``
+(int8), and the training contract of ``quant/api.py``.
 """
 
 from .api import (
@@ -16,7 +16,13 @@ from .api import (
     virtual_params,
 )
 from .configs import Int8QTConfig, MixedPrecisionConfig
-from .core import dequantize_int8, quantize_int8, quantize_int8_both
+from .core import (
+    dequantize_int8,
+    quantize_int4_rowwise_absmax,
+    quantize_int8,
+    quantize_int8_both,
+    unpack_int4_rowwise,
+)
 from .fused import attn_out_linear, mlp_linear, norm_linear_multi, set_impl, silu_mul_linear
 from .mixed_precision import MixedPrecisionWeight
 
@@ -38,5 +44,7 @@ __all__ = [
     "MixedPrecisionConfig",
     "quantize_int8",
     "quantize_int8_both",
+    "quantize_int4_rowwise_absmax",
+    "unpack_int4_rowwise",
     "dequantize_int8",
 ]

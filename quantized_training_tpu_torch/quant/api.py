@@ -6,7 +6,11 @@ Counterpart of ``quantized_training_tpu/quant/api.py`` (:100-267):
 contract :func:`virtual_params` / :func:`merge_masters` /
 :func:`commit_params`. Parameters are nested dicts of tensors; a leaf's path
 is the tuple of its dict keys. Only the ``mixed_precision`` scheme is
-ported; the other schemes of the JAX package raise NotImplementedError.
+ported, in all of its dtypes: ``quantize_params(raw, "mixed_precision",
+dtype="int4")`` or ``dtype="fp8_e4m3", scale="row" | "tile"``, as
+``llm_pretrain.py --quantize_kwargs`` passes them. The storage schemes of the
+JAX package (int8 quantized training, int4 weight-only, BitNet) raise
+NotImplementedError.
 """
 
 from __future__ import annotations

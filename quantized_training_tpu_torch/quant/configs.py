@@ -1,9 +1,9 @@
 """Scheme configuration records.
 
 Counterpart of ``quantized_training_tpu/quant/configs.py`` (``Int8QTConfig``,
-``MixedPrecisionConfig``), carried over verbatim. The port runs only
-``MixedPrecisionConfig`` with ``dtype='int8'`` so far; the other values are
-rejected where they are used.
+``MixedPrecisionConfig``), carried over verbatim. The port runs
+``MixedPrecisionConfig`` with every dtype (int8, int4, fp8_e4m3 with 'row'
+or 'tile' scales); ``Int8QTConfig``'s scheme is not ported.
 """
 
 from __future__ import annotations

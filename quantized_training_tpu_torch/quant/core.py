@@ -1,8 +1,10 @@
-"""Core int8 quantization numerics.
+"""Core int8 and int4 quantization numerics.
 
 Counterpart of ``quantized_training_tpu/quant/core.py::
 stochastic_round_to_int`` (:33), ``quantize_int8``, ``dequantize_int8``,
-``quantize_int8_both`` (:47-174) and ``bf16_stochastic_round`` (:318). On a
+``quantize_int8_both`` (:47-174), ``quantize_int4_rowwise_absmax`` and
+``unpack_int4_rowwise`` (:237-265), and ``bf16_stochastic_round`` (:318).
+The int4 pair is plain torch on every device, as XLA lowered it. On a
 CUDA tensor a row quantize (``axis=-1``, any ndim) runs kernel K1, a column
 quantize of a 2-D tensor (``axis=0``) B4, and the both-axes quantize B5
 (``ops/int8_quant.py``), each in its SR form under stochastic rounding; a
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import random
+from ..ops.int4_mm import unpack_int4
 from ..ops.random import bf16_stochastic_round  # noqa: F401  (core.py:318's counterpart)
 from ..ops.int8_quant import (
     EPS,
@@ -93,3 +96,29 @@ def quantize_int8_both(
     if stochastic_rounding and key is None:
         raise ValueError("stochastic_rounding=True requires a key")
     return _quantize_both_kernel(x.contiguous(), eps=eps, sr=stochastic_rounding, key=key)
+
+
+def quantize_int4_rowwise_absmax(x: torch.Tensor):
+    """Signed row-wise int4 of a 2-D ``x`` over the full [-8, 7] range ->
+    (packed int8 [M, N // 2], scale [M] in x's dtype).
+
+    In the JAX order: ``pos = max(relu(x)) / 7`` and ``neg = max(relu(-x)) /
+    8`` in x's dtype, ``scale = max(pos, neg)``, then q = round(x * (1 /
+    clip(scale, 1e-12))) in fp32, cast to int8 with no clip. Two values per
+    byte, the even element in the high nibble. Every division is by a
+    tensor (CUDA divides by a Python scalar as a reciprocal multiply)."""
+    # x.new_full: a fill on x's device, where torch.tensor would copy from
+    # the host and wait for the device
+    pos = torch.relu(x).amax(dim=1) / x.new_full((), 7.0)
+    neg = torch.relu(-x).amax(dim=1) / x.new_full((), 8.0)
+    scale = torch.maximum(pos, neg)
+    inv = x.new_ones((), dtype=torch.float32) / scale.float().clamp(min=1e-12)
+    q = torch.round(x.float() * inv[:, None]).to(torch.int8)
+    packed = (q[:, ::2] << 4) | (q[:, 1::2] & 0xF)
+    return packed, scale
+
+
+def unpack_int4_rowwise(packed: torch.Tensor) -> torch.Tensor:
+    """[M, P] int8 nibble pairs -> [M, 2P] int8 values in [-8, 7], high
+    nibble first (``ops/int4_mm.py::unpack_int4`` on a 2-D tensor)."""
+    return unpack_int4(packed)

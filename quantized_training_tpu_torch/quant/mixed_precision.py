@@ -1,12 +1,15 @@
-"""Mixed-precision int8 linear, forward and backward.
+"""Mixed-precision linear (int8, int4 or fp8), forward and backward.
 
 Counterpart of ``quantized_training_tpu/quant/mixed_precision.py`` (:30-322):
-``MixedPrecisionWeight``, ``_dynamic_int8_mm``, ``_mp_linear`` and
+``MixedPrecisionWeight``, ``_dynamic_int8_mm``, ``_dynamic_int4_mm``,
+``_dynamic_fp8_mm``, ``_dynamic_mm``, ``_mp_linear`` and
 ``_mp_linear_shared`` with their backwards (``torch.autograd.Function`` in
 place of ``jax.custom_vjp``), ``linear`` and ``linear_shared``. The forward,
-grad_input and grad_weight matmuls are each int8 or plain, per
-``MixedPrecisionConfig``; each int8 matmul quantizes both operands along its
-contraction axis, so the scales stay off the reduction dim:
+grad_input and grad_weight matmuls are each quantized or plain, per
+``MixedPrecisionConfig``; each quantized matmul quantizes both operands
+along its contraction axis, so the scales stay off the reduction dim.
+
+int8 (no operand is transposed in memory):
 
 - forward x . w^T, dims (1, 1): K1 twice, K2;
 - grad_input g . w, dims (1, 0): g row-wise, w column-wise (B4), B1;
@@ -14,17 +17,34 @@ contraction axis, so the scales stay off the reduction dim:
   B2. With both backward matmuls int8, g is quantized along both axes by
   B5 (two reads of g).
 
+int4 and fp8 (``config.scale`` 'row' or 'tile') follow the JAX package's
+``_dynamic_mm`` (:119-134), transposes included: they ignore
+``stochastic_rounding``, as the JAX package does.
+
+- int4: both operands in the standard [M, K] . [K, N] form, so ``w^T`` for
+  grad_input and ``g^T`` and ``x^T`` for grad_weight are materialized in
+  bf16 (JAX :129-130, :82; the forward's b^T is w itself); each row-wise
+  int4 quantize is plain torch, the GEMM is B16 (``ops/int4_mm.py``).
+- fp8 'row': absmax e4m3 along each contraction axis, no transpose, and the
+  fp32 product of plain torch (``ops/fp8.py``), as the JAX package's XLA
+  dot.
+- fp8 'tile': DeepSeek-V3's 1 x 128 groups of the A operand and 128 x 128
+  blocks of the B operand, in the standard form (the bf16 inputs
+  transposed first, JAX :108-109), the GEMM B15
+  (``ops/tile_scaled_mm.py``); a matmul whose K or N is not a multiple of
+  128 falls back to 'row' (JAX :107).
+
 Stochastic rounding draws from a key (an int, ``ops/random.py``), derived
 where the JAX package derives its keys: ``fold_in(key, 0/1/2/3)`` per use
 (``_subkey``), a ``split`` per pair of operands. The autograd Functions
 keep the key in ``ctx``, so a checkpointed layer replayed with the same key
 rounds the same way, and no two quantizes of one call share a stream.
 
-No operand is transposed in memory. Only ``dtype='int8'`` is ported: int4
-and fp8 raise. ``PreQuantMPWeight`` (per-step pre-quantized weights) is not
-ported. The JAX package pads the token dim to a multiple of 256 above 1024
-tokens (``_pad_tokens``); the padded rows are zero and change no number, so
-the port does not pad.
+``PreQuantMPWeight`` (per-step pre-quantized weights) is not ported. The
+JAX package pads the token dim to a multiple of 256 above 1024 tokens
+(``_pad_tokens``); the padded rows are zero and change no number, so the
+port pads only where the padded count decides a branch: the fp8 'tile'
+configs, whose grad_weight contracts over the tokens.
 """
 
 from __future__ import annotations
@@ -33,10 +53,12 @@ from dataclasses import dataclass
 
 import torch
 
+from ..ops.fp8 import quantize_fp8, quantize_fp8_block, quantize_fp8_tile
+from ..ops.int4_mm import scaled_int4_mm
 from ..ops.random import fold_in, split
-from ..ops.scaled_mm import scaled_mm_general
+from ..ops.scaled_mm import scaled_mm, scaled_mm_general
 from .configs import MixedPrecisionConfig
-from .core import quantize_int8, quantize_int8_both
+from .core import quantize_int4_rowwise_absmax, quantize_int8, quantize_int8_both
 
 
 @dataclass
@@ -61,14 +83,6 @@ class MixedPrecisionWeight:
         return MixedPrecisionWeight(self.data[idx], self.config)
 
 
-def _require_int8(config: MixedPrecisionConfig) -> None:
-    if config.dtype != "int8":
-        raise NotImplementedError(
-            f"mixed_precision dtype={config.dtype!r} is not ported yet "
-            "(ROADMAP A7: int4 needs ROADMAP B16, fp8 its own GEMM)"
-        )
-
-
 def _all_int8(config: MixedPrecisionConfig) -> bool:
     return config.dtype == "int8" and config.output and config.grad_input and config.grad_weight
 
@@ -87,12 +101,49 @@ def _dynamic_int8_mm(a, b, sr: bool, key: int | None, dims=(1, 0)):
     return scaled_mm_general(a_i8, b_i8, sa, sb, dims=dims, out_dtype=a.dtype)
 
 
+def _dynamic_int4_mm(a, b):
+    """a [M, K] . b [K, N], both quantized row-wise to packed int4 along K
+    (b as b^T, made contiguous), then B16 (JAX :79-83). No SR."""
+    a_i4, row_scale = quantize_int4_rowwise_absmax(a.contiguous())
+    b_t_i4, col_scale = quantize_int4_rowwise_absmax(b.T.contiguous())
+    return scaled_int4_mm(a_i4, b_t_i4, row_scale, col_scale, out_dtype=a.dtype)
+
+
+def _dynamic_fp8_mm(a, b, scale_mode: str, dims):
+    """Dynamic e4m3 matmul, row- or tile-scaled (JAX :86-116): 'tile' with
+    K and N multiples of 128 takes the standard operands (transposed first
+    where dims ask), a's 1 x 128 groups and b's 128 x 128 blocks, and B15;
+    otherwise both operands row-scaled along their contraction axes, as
+    stored."""
+    K, N = a.shape[dims[0]], b.shape[1 - dims[1]]
+    if scale_mode == "tile" and K % 128 == 0 and N % 128 == 0:
+        a_std = a if dims[0] == 1 else a.T
+        b_std = b if dims[1] == 0 else b.T
+        a_q, a_s = quantize_fp8_tile(a_std.contiguous())
+        b_q, b_s = quantize_fp8_block(b_std.contiguous())
+        return scaled_mm(a_q, b_q, a_s, b_s, out_dtype=a.dtype)
+    a_q, a_s = quantize_fp8(a, axis=dims[0])
+    b_q, b_s = quantize_fp8(b, axis=dims[1])
+    return scaled_mm_general(a_q, b_q, a_s, b_s, dims=dims, out_dtype=a.dtype)
+
+
+def _dynamic_mm(a, b, config: MixedPrecisionConfig, key: int | None, dims=(1, 0)):
+    """One quantized matmul of the config's dtype (JAX :119-134)."""
+    if config.dtype == "int8":
+        return _dynamic_int8_mm(a, b, config.stochastic_rounding, key, dims)
+    if config.dtype == "int4":
+        a = a if dims[0] == 1 else a.T
+        b = b if dims[1] == 0 else b.T
+        return _dynamic_int4_mm(a, b)
+    if config.dtype == "fp8_e4m3":
+        return _dynamic_fp8_mm(a, b, config.scale, dims)
+    raise ValueError(f"unsupported mixed-precision dtype {config.dtype!r}")
+
+
 def _mp_forward(config: MixedPrecisionConfig, x2d, w, key: int):
     """x2d [B, in] @ w.T [in, out]; w is [out, in]."""
-    _require_int8(config)
-    sr = config.stochastic_rounding
     if config.output:
-        return _dynamic_int8_mm(x2d, w, sr, _subkey(key, 0), dims=(1, 1))
+        return _dynamic_mm(x2d, w, config, _subkey(key, 0), dims=(1, 1))
     return x2d @ w.T
 
 
@@ -127,17 +178,17 @@ class _MPLinear(torch.autograd.Function):
         config, key = ctx.config, ctx.key
         sr = config.stochastic_rounding
         g = g.to(w.dtype)
-        if config.grad_input and config.grad_weight:
+        if config.grad_input and config.grad_weight and config.dtype == "int8":
             kg, kw, kx = split(_subkey(key, 1), 3) if sr else (None,) * 3
             x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
             grad_input, grad_weight = _grads_both_int8(g, w, x_col, x_col_s, sr, kg, kw)
             return grad_input, grad_weight, None, None
         if config.grad_input:
-            grad_input = _dynamic_int8_mm(g, w, sr, _subkey(key, 1), dims=(1, 0))
+            grad_input = _dynamic_mm(g, w, config, _subkey(key, 1), dims=(1, 0))
         else:
             grad_input = g @ w
         if config.grad_weight:
-            grad_weight = _dynamic_int8_mm(g, x2d, sr, _subkey(key, 2), dims=(0, 0))
+            grad_weight = _dynamic_mm(g, x2d, config, _subkey(key, 2), dims=(0, 0))
         else:
             grad_weight = g.T @ x2d
         return grad_input, grad_weight, None, None
@@ -192,11 +243,24 @@ def _resolve_key(config: MixedPrecisionConfig, key: int | None) -> int:
     return key
 
 
+def _pad_tokens(x2d):
+    """The JAX package's ``_pad_tokens`` (:325-338): zero rows up to a
+    multiple of 256 from 1024 tokens on."""
+    M = x2d.shape[0]
+    Mp = -(-M // 256) * 256
+    if Mp == M or M < 1024:
+        return x2d
+    return torch.nn.functional.pad(x2d, (0, 0, 0, Mp - M))
+
+
 def linear(x, w: MixedPrecisionWeight, bias=None, *, key: int | None = None):
     """Mixed-precision linear: y = x @ w.T + bias with per-matmul quant."""
     key = _resolve_key(w.config, key)
     x2d = x.reshape(-1, x.shape[-1])
-    out = _MPLinear.apply(x2d, w.data, w.config, key)
+    M = x2d.shape[0]
+    if w.config.dtype == "fp8_e4m3" and w.config.scale == "tile":
+        x2d = _pad_tokens(x2d)
+    out = _MPLinear.apply(x2d, w.data, w.config, key)[:M]
     out = out.reshape(*x.shape[:-1], w.data.shape[0])
     return out + bias if bias is not None else out
 
@@ -204,12 +268,12 @@ def linear(x, w: MixedPrecisionWeight, bias=None, *, key: int | None = None):
 def linear_shared(x, weights, *, key: int | None = None):
     """[y_i = x @ w_i.T] with the shared input quantized once (JAX
     :279-322). ``weights``: MixedPrecisionWeight with one all-int8 config;
-    any other mix takes one :func:`linear` per weight, weight i with
-    ``fold_in(key, i)`` so that no two of them share a stream."""
+    any other mix takes one :func:`linear` per weight, each with ``key``
+    itself (JAX :293-296)."""
     configs = {w.config for w in weights}
     cfg = next(iter(configs))
     if len(configs) != 1 or not _all_int8(cfg):
-        return [linear(x, w, key=None if key is None else fold_in(key, i)) for i, w in enumerate(weights)]
+        return [linear(x, w, key=key) for w in weights]
     key = _resolve_key(cfg, key)
     x2d = x.reshape(-1, x.shape[-1])
     outs = _MPLinearShared.apply(cfg, key, x2d, *(w.data for w in weights))

@@ -3,18 +3,25 @@
 Marked ``cuda``: without a CUDA card every test here skips (decided in a
 fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
-this file does not need). Tolerance: none for K1/K2/B1-B6, B9 and B11-B14
-— each is bit-exact with its plain version by construction. B7, B8 and B10 hold a row
+this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16
+and B15's int8 form — each is bit-exact with its plain version by
+construction. B15's e4m3 form sums a block in the tensor core in fp32: within
+(QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8 and B10 hold a row
 sum that the kernel takes in its own fixed order: int8 within one step on at
 most 1e-3 of the elements, scales and column maxima within 1e-6 relative, dx
 within 2 bf16 ulps (below 2**-20 of max|dx|, where the closed form cancels,
 within that), dgamma within 1e-5 of max|dgamma|.
 """
 
+import importlib
+
 import pytest
 import torch
 
 from quantized_training_tpu_torch import ops
+
+# the module: the ops package exports a function of its name
+TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 
 pytestmark = pytest.mark.cuda
 
@@ -419,8 +426,90 @@ def test_scaled_mm_rejects_what_it_cannot_take():
     b = torch.zeros(32, 24, dtype=torch.int8, device="cuda")  # N = 24 is no multiple of 16
     with pytest.raises(ValueError, match="row length a multiple of 16"):
         ops.scaled_mm_general(b[:8, :16].contiguous(), b[:16], s, torch.ones(1, 24, device="cuda"), dims=(1, 0))
-    with pytest.raises(NotImplementedError, match="B15"):
+    # tile scales go to B15, whose K quant block is at least 128 wide
+    with pytest.raises(ValueError, match="K quant block"):
         ops.scaled_mm(a[:, :16].contiguous(), a[:, :16].T.contiguous(), torch.ones(2, 1, device="cuda"), s.T)
+    # B16 takes 16-value chunks of K: 12 packed bytes are 24 values
+    with pytest.raises(ValueError, match="K % 16"):
+        ops.scaled_int4_mm(a[:, :12].contiguous(), a[:, :12].contiguous(), s, s.T)
+    # B15's K steps of 64 inside a quant block: QK = 160 is refused
+    t = torch.zeros(64, 320, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="QK % 64"):
+        ops.tile_scaled_mm(t, t.T.contiguous(), torch.ones(64, 2, device="cuda"), torch.ones(2, 1, device="cuda"))
+    with pytest.raises(TypeError, match="int8 or float8_e4m3fn"):
+        ops.tile_scaled_mm(t.half(), t.T.contiguous().half(), torch.ones(64, 2, device="cuda"),
+                           torch.ones(2, 1, device="cuda"))
+
+
+def _packed_int4(shape, g):
+    """Random packed int4 operands: every byte value, so every nibble pair."""
+    return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N,K", [(1, 32, 16), (8, 2048, 5632), (17, 40, 48), (96, 5632, 2048), (130, 200, 272),
+                                   (256, 2048, 8192)])
+def test_scaled_int4_mm_bit_exact(M, N, K, scale_dtype, out_dtype):
+    """B16 on packed operands [M, K / 2] and [N, K / 2]: decode and training
+    tiles, ragged M and N, K = 8192 (grad_weight's token contraction)."""
+    g = torch.Generator(device="cuda").manual_seed(M * N + K)
+    a, b = _packed_int4((M, K // 2), g), _packed_int4((N, K // 2), g)
+    sa = (torch.rand(M, 1, generator=g, device="cuda") * 0.01).to(scale_dtype)
+    sb = (torch.rand(1, N, generator=g, device="cuda") * 0.01).to(scale_dtype)
+    out = ops.scaled_int4_mm(a, b, sa, sb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.scaled_int4_mm_plain(a, b, sa, sb, out_dtype=out_dtype))
+
+
+def _tile_operands(M, K, N, qm, qn, fp8, g, scale_dtype=torch.float32):
+    """int8 operands over the whole range, or e4m3 ones from N(0, 50)
+    (saturating at +-448), and random tile scales."""
+    if fp8:
+        a = (torch.randn(M, K, generator=g, device="cuda") * 50).to(torch.float8_e4m3fn)
+        b = (torch.randn(K, N, generator=g, device="cuda") * 50).to(torch.float8_e4m3fn)
+    else:
+        a, b = _int8((M, K), g), _int8((K, N), g)
+    sa = (torch.rand(M // qm, K // 128, generator=g, device="cuda") * 0.01).to(scale_dtype)
+    sb = (torch.rand(K // 128, N // qn, generator=g, device="cuda") * 0.01).to(scale_dtype)
+    return a, b, sa, sb
+
+
+TILE_SHAPES = [(64, 256, 128, 1, 128), (130, 512, 256, 2, 128), (256, 1024, 256, 128, 64), (64, 8192, 128, 1, 128),
+               (8192, 2048, 5632, 1, 128)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,qm,qn", TILE_SHAPES)
+def test_tile_scaled_mm_int8_bit_exact(M, K, N, qm, qn, scale_dtype, out_dtype):
+    """B15's int8 form: exact int32 block partials, each folded as the plain
+    version folds it, so equal bits; ragged M, QM 1 / 2 / 128, QN 64 / 128,
+    n_qk from 2 to 64 (both regimes of the JAX kernel)."""
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    a, b, sa, sb = _tile_operands(M, K, N, qm, qn, False, g, scale_dtype)
+    out = ops.tile_scaled_mm(a, b, sa, sb, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.tile_scaled_mm_plain(a, b, sa, sb, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("M,K,N,qm,qn", TILE_SHAPES)
+def test_tile_scaled_mm_e4m3_within_fold_bound(M, K, N, qm, qn):
+    """B15's e4m3 form: fp32 tensor-core partials of exact fp16 products,
+    so within (QK + n_qk) fp32 roundings of the folded magnitudes
+    (fold_bound) of the plain version's exact ones, in fp32; its bf16
+    output within one bf16 ulp (2**-7 relative) more."""
+    g = torch.Generator(device="cuda").manual_seed(M * 3 + K + N)
+    a, b, sa, sb = _tile_operands(M, K, N, qm, qn, True, g)
+    qk = K // sa.shape[1]
+    bound = TILE_MM.fold_bound(a, b, sa, sb, qk + sa.shape[1])
+    out = ops.tile_scaled_mm(a, b, sa, sb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    ref = ops.tile_scaled_mm_plain(a, b, sa, sb, out_dtype=torch.float32)
+    assert ((out.double() - ref.double()).abs() <= bound).all()
+    out16 = ops.tile_scaled_mm(a, b, sa, sb, out_dtype=torch.bfloat16)
+    ref16 = ops.tile_scaled_mm_plain(a, b, sa, sb, out_dtype=torch.bfloat16)
+    assert ((out16.double() - ref16.double()).abs() <= bound + 2.0**-7 * (ref.double().abs() + bound)).all()
 
 
 def test_launch_counters_count_kernel_launches_only():
@@ -472,6 +561,15 @@ def test_launch_counters_count_kernel_launches_only():
     ops.scaled_mm_plain(qr, qc, sr, sc)
     ops.scaled_mm_lhs_t_plain(qc2, qc, sc2, sc)
     ops.fused_adamw_plain(*adamw_in, 1, bf16_sr=True)
+    ops.scaled_int4_mm(q, q, s, s.T)  # q as packed int4: K = 128
+    ops.scaled_int4_mm_plain(q, q, s, s.T)
+    a8 = torch.cat([q, q], dim=1)  # [64, 128]: one K quant block
+    e4m3 = a8.to(torch.float8_e4m3fn)
+    ones_m, one = torch.ones(64, 1, device="cuda"), torch.ones(1, 1, device="cuda")
+    ops.tile_scaled_mm(a8, a8.T.contiguous(), ones_m, one)
+    ops.tile_scaled_mm(e4m3, e4m3.T.contiguous(), ones_m, one)
+    ops.tile_scaled_mm_plain(e4m3, e4m3.T.contiguous(), ones_m, one)
+    ops.scaled_mm(e4m3, e4m3.T.contiguous(), ones_m, ones_m.T)  # fp8 row scales: plain torch
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)

@@ -55,6 +55,11 @@ from quantized_training_tpu_torch.quant import fused
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 from test_torch_train import _counting
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 EPS = 1e-5
 KW = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
           num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)

@@ -40,6 +40,11 @@ from quantized_training_tpu_torch import ops, quant
 from quantized_training_tpu_torch.ops import fused_producers as fp
 from test_torch_fused import EPS, _arr, _count_applies, _max_rel, _q_close, _rel_close, interpret  # noqa: F401
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 
 def _copy_close(got, want, dtn, what):
     """Within one ulp of the dtype at the largest value: where 1 + a * (1 -

@@ -15,6 +15,11 @@ from quantized_training_tpu_torch.convert import params_from_jax
 from quantized_training_tpu_torch.models import llama
 from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 # q/o [128, 128] and the MLP [256, 128] pass the default filter; k/v
 # [64, 128] (2 KV heads of 32) fall below 128 and the lm_head is excluded
 KW = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
@@ -65,8 +70,10 @@ def test_qlinear_bit_exact_vs_jax(shape, dtype):
 
 
 def test_unported_schemes_raise():
-    w = MixedPrecisionWeight(torch.zeros(128, 128), quant.MixedPrecisionConfig(dtype="int4"))
-    with pytest.raises(NotImplementedError, match="int4"):
+    """The storage schemes are not ported; an unknown mixed-precision dtype
+    raises as in the JAX package (int4 and fp8 are ported)."""
+    w = MixedPrecisionWeight(torch.zeros(128, 128), quant.MixedPrecisionConfig(dtype="int2"))
+    with pytest.raises(ValueError, match="int2"):
         quant.qlinear(torch.zeros(2, 128), w)
     for scheme in ("int8_quantized_training", "int4_weight_only", "bitnet"):
         with pytest.raises(NotImplementedError, match=scheme):
@@ -83,3 +90,37 @@ def test_stacked_weight_indexing():
     assert isinstance(lp["q"]["w"], MixedPrecisionWeight)
     assert torch.equal(lp["q"]["w"].data, w.data[1]) and lp["q"]["w"].config == w.config
     assert lp["n"]["g"].shape == (4,)
+
+
+def test_linear_shared_fallback_shares_the_key(monkeypatch):
+    """linear_shared on a config that is not all-int8 (here int8 with a
+    bf16 grad_weight, under SR) takes one linear per weight, each with the
+    caller's key, as the JAX package does (mixed_precision.py:293-296): the
+    shared input's int8 operand is the same for q, k and v, and so is its
+    draw."""
+    from quantized_training_tpu_torch.quant import mixed_precision
+
+    seen = []
+    quantize = mixed_precision.quantize_int8
+
+    def record(x, **kw):
+        out = quantize(x, **kw)
+        seen.append((x.shape, out[0]))
+        return out
+
+    monkeypatch.setattr(mixed_precision, "quantize_int8", record)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32))
+    cfg = quant.MixedPrecisionConfig(grad_weight=False, stochastic_rounding=True)
+    ws = [MixedPrecisionWeight(torch.from_numpy(rng.standard_normal((128, 128)).astype(np.float32)), cfg)
+          for _ in range(3)]
+    outs = quant.qlinear_multi(x, ws, key=5)
+    assert len(outs) == 3 and len(seen) == 6  # per weight: x's row quantize, then w's
+    xs = [q for shape, q in seen[0::2]]
+    assert all(shape == x.shape for shape, q in seen[0::2])
+    assert all(torch.equal(q, xs[0]) for q in xs[1:])
+    # SR moves some of x's values off round-to-nearest, the same ones for all
+    assert not torch.equal(xs[0], quantize(x, axis=1)[0])
+    # each output is the plain linear of its weight under that key
+    for w, out in zip(ws, outs):
+        assert torch.equal(out, quant.qlinear(x, w, key=5))

@@ -42,6 +42,11 @@ from quantized_training_tpu_torch.ops import fused_adamw
 from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 # optim exports a function of the module's name
 adamw_mod = importlib.import_module("quantized_training_tpu_torch.optim.adamw")
 

@@ -12,6 +12,11 @@ from quantized_training_tpu_torch.ops import int8_quant
 from quantized_training_tpu_torch.ops import random as ops_random
 from quantized_training_tpu_torch.quant import core
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 _DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
            "bf16": (np.float32, jnp.bfloat16, torch.bfloat16)}
 

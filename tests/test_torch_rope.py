@@ -54,6 +54,11 @@ from quantized_training_tpu_torch.quant import fused
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 from test_torch_fused import KW, _arr, _count_applies, _max_rel, _q_close, interpret  # noqa: F401
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 B, S, H, KV, HD = 2, 128, 8, 2, 64
 G = H // KV
 

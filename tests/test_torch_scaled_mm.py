@@ -12,6 +12,11 @@ import torch
 from quantized_training_tpu.ops import pallas_mm
 from quantized_training_tpu.quant import core as jcore
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 # both ops packages export a function of the module's name
 jmm = importlib.import_module("quantized_training_tpu.ops.scaled_mm")
 scaled_mm = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")

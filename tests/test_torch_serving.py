@@ -17,6 +17,11 @@ from quantized_training_tpu_torch.convert import params_from_jax
 from quantized_training_tpu_torch.models import llama, llama_infer
 from quantized_training_tpu_torch.models.serving import Server
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 KW = dict(vocab_size=256, hidden_size=128, intermediate_size=256, num_hidden_layers=2,
           num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
 JCFG, CFG = jllama.LlamaConfig(**KW), llama.LlamaConfig(**KW)

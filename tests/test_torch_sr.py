@@ -31,6 +31,11 @@ from quantized_training_tpu_torch.ops import random
 from quantized_training_tpu_torch.quant import core
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 KW = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
           num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64)
 B, S = 2, 64

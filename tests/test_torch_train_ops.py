@@ -28,6 +28,11 @@ from quantized_training_tpu_torch.quant import core
 from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
 from quantized_training_tpu_torch.utils import train as tutils
 
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores many times
+# over (a heavy test here took 10-20x longer that way).
+torch.set_num_threads(1)
+
 # both ops packages export a function of the module's name
 jmm = importlib.import_module("quantized_training_tpu.ops.scaled_mm")
 scaled_mm = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
@@ -168,14 +173,21 @@ def test_backward_forms_vs_pallas_interpret(dims):
 
 def test_scaled_mm_modes():
     """Scalar and 1-D scales broadcast like [M, 1] / [1, N] ones; tile
-    scales (the DeepSeek mode) have no kernel yet and raise."""
+    scales (the DeepSeek mode) take B15's path: with unit scales and one K
+    block it is the row-scaled product, a K block under 128 is refused, and
+    a device tensor reaches B15's wrapper, which refuses a non-CUDA one."""
     a, b, sa, sb = map(torch.from_numpy, _int8_operands((1, 0), 32, 64, 128, seed=4))
     full = scaled_mm.scaled_mm(a, b, torch.full((32, 1), 0.5), torch.full((1, 64), 0.25), out_dtype=torch.float32)
     assert torch.equal(scaled_mm.scaled_mm(a, b, torch.tensor(0.5), torch.tensor(0.25), out_dtype=torch.float32),
                        full)
     assert torch.equal(scaled_mm.scaled_mm(a, b, sa[:, 0], sb[0]), scaled_mm.scaled_mm(a, b, sa, sb))
-    with pytest.raises(NotImplementedError, match="B15"):  # a [M/16, K/128] scale grid
-        scaled_mm.scaled_mm(a, b, torch.ones(2, 1), torch.ones(1, 1), out_dtype=torch.float32)
+    tile = scaled_mm.scaled_mm(a, b, torch.ones(2, 1), torch.ones(1, 1), out_dtype=torch.float32)  # [M/16, K/128]
+    assert torch.equal(tile, scaled_mm.scaled_mm(a, b, torch.ones(32, 1), torch.ones(1, 64), out_dtype=torch.float32))
+    with pytest.raises(ValueError, match="K quant block"):
+        scaled_mm.scaled_mm(a, b, torch.ones(2, 2), torch.ones(2, 1))
+    meta = [t.to("meta") for t in (a, b, torch.ones(2, 1), torch.ones(1, 1))]
+    with pytest.raises(ValueError, match="^tile_scaled_mm: all operands must be on one CUDA device"):
+        scaled_mm.scaled_mm(*meta)
 
 
 def test_device_path_takes_the_kernels(monkeypatch):
