@@ -21,10 +21,12 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B14 on its attention output, with their SR forms (all bit-exact); B16
    (int4) and B15 (tile-scaled, e4m3 within its stated bound and int8
    bit-exact) at the forward, grad_input and grad_weight shapes of gate/up
-   and down, beside ``torch._int_mm`` / ``torch._scaled_mm``; timed
-   with CUDA events, with GB/s and the share of the roofline; then the
-   strides SDPA takes and returns in the grouped pipeline, which must run
-   no layout copy;
+   and down, beside ``torch._int_mm`` / ``torch._scaled_mm``; B18's
+   LayerNorm and GELU forms and their SR forms at ViT-Giant's padded 6,400
+   tokens (LayerNorm [6400, 1536] by B7's bars, GELU [6400, 6144]
+   bit-exact); timed with CUDA events, with GB/s and the share of the
+   roofline; then the strides SDPA takes and returns in the grouped
+   pipeline, which must run no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
@@ -44,7 +46,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    rounding from one key, on the card against the CPU, both on the grouped
    pipeline: the unfused layer on both, then the fused layer
    (``set_impl('auto')`` on the card, the plain versions under
-   ``set_impl('interpret')`` on the CPU); then int4 and fp8 tile, fp32;
+   ``set_impl('interpret')`` on the CPU); then int4 and fp8 tile, fp32; then
+   a 2-block narrow ViT on its fused blocks (B18 on the card, its plain
+   versions on the CPU), fp32, bf16 and fp32 with SR;
 8. ``bench.py``'s step: Llama2-1B, tokens [4, 4, 2048] (4 x 4 gradient
    accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
    1e-4; three steps int8 ``mixed_precision`` on the fused layer, three on
@@ -60,7 +64,15 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    weights and batch: the losses fall, the first within a stated bound of
    phase 6's bf16 first loss, B16 / B15 launched exactly as the code
    implies and no int8 kernel; tokens/s against phase 6's bf16, peak
-   memory.
+   memory;
+11. ViT-Giant's train step through ``vit_train``'s step builder: batch 24
+   at 224 px (6,168 tokens), remat, SDPA, ``adamw_bf16_sr`` without the SR
+   writeback, lr 1e-5 (``VIT_LR``), synthetic images from seed 2024; three
+   steps int8 ``mixed_precision`` on the fused blocks (LayerNorm and GELU
+   inside the quantizes, B18), three bf16, two int8 with stochastic
+   rounding: images/s, the int8/bf16 ratio, peak memory, exact launch
+   counts (B18 160 / 80 / 80 / 40 a step: LayerNorm-row / GELU-row /
+   LayerNorm-column / GELU-column), losses that fall.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -86,8 +98,9 @@ from functools import partial
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import ops, optim, quant, train
-from quantized_training_tpu_torch.models import llama, llama_infer
+from quantized_training_tpu_torch import ops, optim, quant, train, vit_train
+from quantized_training_tpu_torch.data import BatchLoader, SyntheticImageDataset
+from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops.fp8 import quantize_fp8_block, quantize_fp8_tile
@@ -118,10 +131,30 @@ PARAM_SHAPES = [(CFG.vocab_size, D), (CFG.num_hidden_layers, D, D), (CFG.num_hid
 # the silu site [tokens, FFN], with one small shape each
 NORM_SHAPES = [(TOKENS, D), (256, D)]
 SILU_SHAPES = [(TOKENS, F), (256, F)]
+# ViT-Giant (timm's vit_giant_patch14_dinov2) as vit_train.py trains it:
+# batch 24 at 224 px, 257 tokens an image, 45 classes (the driver's
+# default); the fused linears pad the 6,168 tokens to 6,400
+VIT_CFG = vit_train.model_config("vit_giant", 45, 224)
+VIT_B = 24
+VIT_TOKENS = VIT_B * (VIT_CFG.num_patches + 1)
+VIT_ROWS = -(-VIT_TOKENS // 256) * 256
+VIT_SEED = 2024  # the synthetic images' seed, vit_train.py's default
+# phase 11's lr: the JAX repo's ViT bench takes 1e-4, at which Adam's first
+# steps (about lr * sign(g) on every parameter, no warmup) raised ViT-Giant's
+# loss in bf16 and int8 alike, so that the losses could not show the step
+# learning; 1e-5 (below half a bf16 ulp of most weights, so mostly biases
+# and small weights move) lets them fall
+VIT_LR = 1e-5
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
-# int8 and fp8 share the 8-bit tensor-core rate
+# int8 and fp8 share the 8-bit tensor-core rate; fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+FP32_OPS_PER_S = 67e12
+# fp32 operations an element of B18's producers, counted from the plain
+# versions: LayerNorm's two sums, centring, scale, affine and the quantize's
+# absmax and cast about 10; GELU's 8 multiplies and adds, tanhf (an exp, a
+# division and a correction, about 12) and the quantize about 25
+B18_FP32_OPS = {"layernorm": 10, "gelu": 25}
 
 
 def check(cond: bool, what: str) -> None:
@@ -129,11 +162,13 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound(nbytes: float, int8_ops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0) -> tuple[float, str]:
     """The least time in ms the H100 could take for work that must move
     ``nbytes`` (each input read once, each output written once) and do
-    ``int8_ops`` int8 or fp8 operations, and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, int8_ops / INT8_OPS_PER_S * 1e3
+    ``int8_ops`` int8 or fp8 operations and ``fp32_ops`` fp32 ones outside
+    the tensor cores, and which bounds it, bytes or operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int8_ops / INT8_OPS_PER_S, fp32_ops / FP32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -246,15 +281,15 @@ def check_k2(gen: torch.Generator) -> float:
     return worst
 
 
-def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None):
+def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, fp32_ops=0.0):
     """One kernel's line of the JSON table; ``launches`` is filled in from
     the run of its path."""
     src = ("int8_quant.cu" if name.startswith("quantize") else
            "fused_adamw.cu" if name.startswith("fused_adamw") else
-           "fused_producers.cu" if name.startswith(("rmsnorm", "silu")) else
+           "fused_producers.cu" if name.startswith(("rmsnorm", "silu", "layernorm", "gelu")) else
            "rope.cu" if name.startswith(("rope", "ungroup")) else
            "tile_scaled_mm.cu" if name.startswith("tile_scaled") else "scaled_mm.cu")
-    bound_ms, bound_by = bound(nbytes, int8_ops)
+    bound_ms, bound_by = bound(nbytes, int8_ops, fp32_ops)
     return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
             "plain_ms": timed[2], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -758,6 +793,54 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
                 partial(ops.silu_mul_bwd_quant_rowwise, with_amax=False, with_bf16=True, **kw),
                 partial(ops.silu_mul_bwd_quant_rowwise_plain, with_amax=False, with_bf16=True, **kw), (a, b, dy), 0)
     return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+
+
+def check_b18(gen: torch.Generator, key: int) -> list:
+    """B18 and its SR forms at ViT-Giant's shapes (the padded 6,400 tokens,
+    the last 232 rows zero as the padding leaves them: LayerNorm at [6400,
+    1536], the qkv and fc1 inputs; GELU at [6400, 6144], fc2's) and at 256
+    rows, against their plain versions on the card: LayerNorm by B7's bars,
+    GELU bit-exact. The path's forms (rows with the column absmax, columns
+    given the forward's scales) are timed and make the entries; rows
+    without the absmax and the two-pass columns are held too. Bytes: bf16 x
+    or a read once, fp32 g and b, int8 q and fp32 scales and maxima written
+    once; operations: ``B18_FP32_OPS`` an element. No library call computes
+    a LayerNorm or GELU with an int8 quantize."""
+    rows = {}
+    run = partial(_held_and_timed, rows)
+    pf_ = "quantized_training_tpu/ops/pallas_fused.py"
+    for M in (VIT_ROWS, 256):
+        replaces_at = lambda line, M=M: f"{pf_}:{line}" if M == VIT_ROWS else None
+        for producer, K, kind in (("layernorm", VIT_CFG.hidden_size, "int8"), ("gelu", VIT_CFG.mlp_dim, "exact")):
+            x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+            x[VIT_TOKENS:] = 0
+            if producer == "layernorm":
+                g = (1 + 0.1 * torch.randn(K, generator=gen, device=DEVICE)).to(torch.bfloat16)
+                b = (0.1 * torch.randn(K, generator=gen, device=DEVICE)).to(torch.bfloat16)
+                args, kernel, plain, gb = (x, g, b), ops.layernorm_quant, ops.layernorm_quant_plain, 8 * K
+            else:
+                args, kernel, plain, gb = (x,), ops.gelu_quant, ops.gelu_quant_plain, 0
+            row_bytes = 3 * M * K + gb + 4 * M + 4 * K
+            col_bytes = 3 * M * K + gb + 4 * K
+            rn = {}
+            for sr in (False, True):
+                tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
+                out = run(f"{producer}_quant_rowwise{tag}", ", column absmax", kind,
+                          partial(kernel, with_col_amax=True, **kw), partial(plain, with_col_amax=True, **kw), args,
+                          row_bytes, replaces_at(848), rn.get("row"))
+                col_args = (*args, out[2] * (1.0 / 127.0))
+                col = run(f"{producer}_quant_colwise{tag}", ", given scales", kind,
+                          lambda *a, kw=kw, f=kernel: f(*a[:-1], axis=0, scale=a[-1], **kw),
+                          lambda *a, kw=kw, f=plain: f(*a[:-1], axis=0, scale=a[-1], **kw), col_args, col_bytes,
+                          replaces_at(898), rn.get("col"))
+                rn.update(row=out, col=col)
+                if not sr:
+                    run(f"{producer}_quant_rowwise", "", kind, kernel, plain, args, 0)
+                    two = run(f"{producer}_quant_colwise", ", two passes", kind, partial(kernel, axis=0),
+                              partial(plain, axis=0), args, 0)
+                    check(torch.equal(two[0], col[0]), f"B18 {producer} given the forward's scales equals two passes")
+    return [_entry(name, replaces, err, timed, nbytes, fp32_ops=B18_FP32_OPS[name.split("_")[0]] * np.prod(timed[0]))
+            for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
 def check_rope(gen: torch.Generator, key: int) -> list:
@@ -1299,10 +1382,149 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
     return launches
 
 
+# phase 7's ViT: 2 blocks at a narrow width (hidden 256, 4 heads, mlp 1024),
+# 64 x 64 images in 8 x 8 patches (65 tokens), 16 images: 1,040 tokens, which
+# the fused linears pad to 1,280 (LayerNorm makes the padded rows b)
+VIT_NARROW = vit.ViTConfig(image_size=64, patch_size=8, hidden_size=256, num_layers=2, num_heads=4,
+                           num_classes=45, remat=True)
+
+
+def vit_grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float, sr_key: int | None = None):
+    """Phase 7, ViT: the loss and every gradient leaf of ``VIT_NARROW``
+    (weights from ``seed``), int8 mixed_precision on the fused blocks:
+    ``set_impl('auto')`` on the card (B18, SDPA) against ``'interpret'`` on
+    the CPU (B18's plain versions, the einsum attention); with ``sr_key``
+    stochastic rounding from that key on both devices. B18's four forms must
+    launch on the card. The floor, measured on the CPU (the plain path
+    against itself with the images moved by one ulp, seeds 0 and 1): worst
+    leaf 1.2e-2 / 7.6e-3 and loss 4.5e-6 / 1.3e-5 apart in fp32, 3.1e-2 /
+    3.2e-2 and 2.3e-4 / 2.0e-4 in bf16, 1.4e-2 / 1.5e-2 and 1.1e-5 / 5.2e-5
+    in fp32 with SR. The bounds sit above it (1e-1 per leaf in fp32, 1.5e-1
+    in bf16, 1e-3 on the loss); a wiring fault gives a relative RMS near 1."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    raw = vit.init_params(torch.Generator(device=DEVICE).manual_seed(seed), VIT_NARROW, dtype=dtype)
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.standard_normal((16, 64, 64, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, VIT_NARROW.num_classes, 16))
+    sr, res = sr_key is not None, {}
+    for dev, params, impl in ((DEVICE, raw, "auto"), ("cpu", to_cpu(raw), "interpret")):
+        qparams = quant.quantize_params(params, "mixed_precision", stochastic_rounding=sr)
+        quant.set_impl(impl)
+        ops.reset_launch_counts()
+        try:
+            loss, grads = train.value_and_grad(
+                lambda p: vit.loss_fn(p, imgs.to(dev), labels.to(dev), VIT_NARROW, key=sr_key), qparams)
+        finally:
+            quant.set_impl("auto")
+        res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
+        if dev == DEVICE:
+            n, t = ops.launch_counts(), "_sr" if sr else ""
+            b18 = [n[f"{k}{t}"] for k in ("layernorm_quant_rowwise", "gelu_quant_rowwise", "layernorm_quant_colwise",
+                                          "gelu_quant_colwise")]
+            check(all(c > 0 for c in b18), f"B18 launched {b18} times on the card")
+    rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
+    dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    n_tok = len(labels) * (VIT_NARROW.num_patches + 1)
+    print(f"[7] {VIT_NARROW.num_layers}-block ViT (hidden {VIT_NARROW.hidden_size}, {n_tok} tokens padded to "
+          f"{-(-n_tok // 256) * 256}) int8 {str(dtype)[6:]}{' SR' if sr else ''} "
+          f"fused grads, kernels on the card vs plain on the CPU: loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} "
+          f"(relative {dloss:.2e}); worst leaf relative RMS {max(rms):.3e}, per leaf {[f'{r:.1e}' for r in rms]} "
+          f"(bounds {max_rms:g}, loss {max_dloss:g})")
+    check(max(rms) <= max_rms and dloss <= max_dloss, f"ViT {dtype} gradients within tolerance of the plain path")
+
+
+def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = "fused") -> dict:
+    """Kernel launches of one remat ViT train step of L blocks, from the
+    code (pinned on the CPU by tests/test_torch_vit.py::
+    test_kernel_calls_per_step): per block the forward (run twice) launches
+    B18 LayerNorm-row 2 (qkv, fc1; with the column absmax), GELU-row 1 (fc2),
+    K1 5 (the four weights and proj's input), K2 4; the backward
+    LayerNorm-column 2 and GELU-column 1 (given the forward's scales), B5 4,
+    B4 5, B1 4, B2 4; each quantize in its SR form with ``sr``. Then B6 once
+    per parameter leaf. ViT-Giant's patch embedding (588 inputs) and head
+    stay bf16. ``layer`` 'bf16': B6 only."""
+    t = "_sr" if sr else ""
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    counts["fused_adamw_update"] = n_leaves
+    if layer == "fused":
+        counts.update({f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
+                       f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
+                       f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, f"quantize_int8_both{t}": 4 * L,
+                       f"quantize_int8_colwise{t}": 5 * L, "scaled_mm": 4 * L, "scaled_mm_lhs_t": 4 * L})
+    return counts
+
+
+def vit_giant_step(seed: int, key: int):
+    """Phase 11: ViT-Giant's train step through ``vit_train``'s step
+    builder (``make_train_step``, ``model_config``: remat, 45 classes, 224
+    px), batch 24 of synthetic images from seed 2024 (``vit_train.py``'s
+    data), ``adamw_bf16_sr(bf16_stochastic_rounding=False)``, lr ``VIT_LR``, step
+    i's key ``fold_in(key, 1_000_000 + i)`` as the driver folds it; weights
+    from ``seed``, one batch for every step. Three steps int8
+    ``mixed_precision`` on the fused blocks (B18), three bf16, then two int8
+    with ``stochastic_rounding`` (B18's SR forms): every step launches
+    exactly ``vit_per_step_launches``, the losses are finite and fall, the
+    int8 first loss is within 1e-2 of bf16's and the SR one within 1e-2 of
+    int8's. Prints images/s of the steps after the first, the int8/bf16
+    ratio and each run's peak memory. Returns the launches of the int8 and
+    of the SR run."""
+    cfg = VIT_CFG
+    raw = vit.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg)
+    n_leaves = len(tree_leaves(raw))
+    ds = SyntheticImageDataset(size=cfg.image_size, num_classes=cfg.num_classes, seed=VIT_SEED)
+    images, labels = (torch.from_numpy(a).to(DEVICE) for a in next(iter(BatchLoader(ds, VIT_B, prefetch=0))))
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    L, runs = cfg.num_layers, {}
+    for name, qkw, n_steps, expect in (
+            ("int8", {}, 3, vit_per_step_launches(L, n_leaves)),
+            ("bf16", None, 3, vit_per_step_launches(L, n_leaves, layer="bf16")),
+            ("int8 SR", dict(stochastic_rounding=True), 2, vit_per_step_launches(L, n_leaves, sr=True))):
+        params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step, state = vit_train.make_train_step(cfg, opt), opt.init(quant.virtual_params(params))
+        losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, images, labels, VIT_LR, random.fold_in(key, 1_000_000 + i))
+            loss = loss.item()  # synchronizes
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            check(counts == expect, f"{name} step {i + 1} launches {counts} == {expect}")
+            check(np.isfinite(loss), f"{name} step {i + 1}: finite loss")
+            losses.append(loss)
+            launches = {k: launches[k] + v for k, v in counts.items()}
+        del params, state
+        runs[name] = (losses, walls, launches, torch.cuda.max_memory_allocated() / 2**30)
+    ips = {k: VIT_B * (len(r[1]) - 1) / sum(r[1][1:]) for k, r in runs.items()}
+    print(f"[11] ViT-Giant train step ({cfg.num_layers} blocks, hidden {cfg.hidden_size}, batch {VIT_B} x {cfg.image_size}"
+          f" px = {VIT_TOKENS} tokens, padded to {VIT_ROWS} in the fused linears; remat, SDPA, adamw_bf16_sr without "
+          f"SR, lr {VIT_LR:g}), weights seed {seed}, images seed {VIT_SEED}: " + "; ".join(
+              f"{k} losses {r[0]}, step walls {[round(w, 4) for w in r[1]]} s" for k, r in runs.items()))
+    b18 = {k: v for k, v in vit_per_step_launches(L, n_leaves).items() if k.startswith(("layernorm", "gelu"))}
+    print(f"[11] images/s (steps after the first, wall with torch.cuda.synchronize()): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ips.items()) + f" (int8/bf16 {ips['int8'] / ips['bf16']:.3f}); peak "
+          f"device memory " + ", ".join(f"{k} {r[3]:.2f} GiB" for k, r in runs.items())
+          + f"; B18 launches per int8 step {b18}, all launches per int8 step "
+          f"{ {k: v for k, v in vit_per_step_launches(L, n_leaves).items() if v} }")
+    for k in ("int8", "bf16"):
+        check(runs[k][0][2] < runs[k][0][0], f"{k} ViT loss falls: {runs[k][0]}")
+    rel = abs(runs["int8"][0][0] - runs["bf16"][0][0]) / abs(runs["bf16"][0][0])
+    rel_sr = abs(runs["int8 SR"][0][0] - runs["int8"][0][0]) / abs(runs["int8"][0][0])
+    print(f"[11] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2); SR vs int8: {rel_sr:.3e} (bound 1e-2)")
+    check(rel <= 1e-2 and rel_sr <= 1e-2, f"ViT first losses within 1e-2: {rel:.3e}, {rel_sr:.3e}")
+    return runs["int8"][2], runs["int8 SR"][2]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=SEED,
-                        help="seed of the training batches and of the steps' key (phases 6-9)")
+                        help="seed of the training batches and of the steps' key (phases 6-11)")
     args = parser.parse_args()
     smi = card()
     build()
@@ -1315,6 +1537,7 @@ def main() -> None:
     adamw = check_fused_adamw(gen, key)
     producers = check_fused_producers(gen, key)
     producers += check_silu_bwd(gen, key) + check_rope(gen, key)
+    b18 = check_b18(gen, key)
     check_attention_layout(key)
     launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
     for e in serving:
@@ -1331,6 +1554,9 @@ def main() -> None:
         grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, sr_key=random.fold_in(key, 7), fused=fused)
     for qkw, max_rms, max_dloss in GRAD_BOUNDS_OTHER:
         grads_vs_plain(SEED, torch.float32, max_rms, max_dloss, qkw=qkw)
+    vit_grads_vs_plain(SEED, torch.float32, 1e-1, 1e-3)
+    vit_grads_vs_plain(SEED, torch.bfloat16, 1.5e-1, 1e-3)
+    vit_grads_vs_plain(SEED, torch.float32, 1e-1, 1e-3, sr_key=random.fold_in(key, 7))
     launches = bench_step(raw, args.seed, key)
     for e in [adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))]:
         e["launches"] = launches[e["name"]]
@@ -1341,7 +1567,10 @@ def main() -> None:
     launches = {k: path[k] + steps[k] for k in path}
     for e in other_gemms:
         e["launches"] = launches[e["name"]]
-    kernels = serving + training + sr_forms + adamw + producers + other_gemms
+    rn_launches, sr_launches = vit_giant_step(SEED, key)
+    for e in b18:
+        e["launches"] = (sr_launches if e["name"].endswith("_sr") else rn_launches)[e["name"]]
+    kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,5 @@
-"""Where the time of the port's bench.py step goes on one CUDA card.
+"""Where the time of the port's bench.py step, and of ViT-Giant's, goes on
+one CUDA card.
 
 bench.py's step in the PyTorch port (Llama2-1B at full width and depth,
 tokens [4, 4, 2048] as 4 x 4 gradient accumulation, per-layer remat, SDPA,
@@ -19,7 +20,13 @@ the device's busy share of the profiled step's wall time, the layout copies
 (``aten::contiguous`` / ``aten::clone`` ops that ran a kernel; the copy group
 also holds dtype casts), and the largest kernels by name.
 
-Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row] [--seed N] [--top 12]
+``vit_int8`` and ``vit_bf16`` profile ViT-Giant's step as ``chip_smoke.py``
+phase 11 runs it (``vit_train``'s step builder: batch 24 at 224 px, remat,
+SDPA, the same optimizer and lr; one batch of synthetic images from seed
+2024): int8 ``mixed_precision`` on the fused blocks (B18) and bf16.
+
+Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row,vit_int8,vit_bf16]
+       [--seed N] [--top 12]
 """
 
 from __future__ import annotations
@@ -32,13 +39,16 @@ import time
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import optim, quant, train
-from quantized_training_tpu_torch.models import llama
+from quantized_training_tpu_torch import optim, quant, train, vit_train
+from quantized_training_tpu_torch.data import BatchLoader, SyntheticImageDataset
+from quantized_training_tpu_torch.models import llama, vit
 from quantized_training_tpu_torch.ops import random
 
 # quantize_params kwargs of each configuration (None: the bf16 weights)
 CONFIGS = {"fused": {}, "unfused": {}, "bf16": None, "int4": {"dtype": "int4"},
-           "fp8tile": {"dtype": "fp8_e4m3", "scale": "tile"}, "fp8row": {"dtype": "fp8_e4m3", "scale": "row"}}
+           "fp8tile": {"dtype": "fp8_e4m3", "scale": "tile"}, "fp8row": {"dtype": "fp8_e4m3", "scale": "row"},
+           "vit_int8": {}, "vit_bf16": None}
+VIT_B = 24
 
 # kernel-name fragments of each group, first match wins (B16 is scaled_mm_s8
 # instantiated on packed int4 operands, Src 1 in its template arguments)
@@ -46,8 +56,9 @@ GROUPS = (
     ("int4 GEMM B16", ("src)1",)),
     ("tile-scaled GEMM B15", ("tile_scaled_mm",)),
     ("int8 GEMMs K2/B1/B2", ("scaled_mm_s8",)),
-    ("producer kernels B7-B12", ("row_quant", "col_quant", "producer_col_absmax", "rmsnorm_bwd_rows",
-                                 "reduce_parts")),
+    ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer")),
+    ("producer kernels B7-B12 (and B18's column folds)", ("row_quant", "col_quant", "producer_col_absmax",
+                                                          "rmsnorm_bwd_rows", "reduce_parts")),
     ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
     ("quantizes K1/B4/B5", ("quantize_rows", "col_absmax", "col_cast", "quantize_both_rows")),
     ("B6 AdamW", ("fused_adamw",)),
@@ -72,30 +83,57 @@ def main() -> None:
         raise SystemExit("profile_torch_step: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    cfg = dataclasses.replace(llama.LLAMA2_1B, remat=True, attention_impl="auto")
-    raw = llama.init_params(torch.Generator(device="cuda").manual_seed(args.seed), cfg)
-    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (4, 4, 2048))).cuda()
-    labels = torch.roll(tokens, -1, dims=-1)
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    models = {}
+
+    def llama_step(qkw):
+        """bench.py's step on Llama2-1B: one call per step, its loss."""
+        if "llama" not in models:
+            cfg = dataclasses.replace(llama.LLAMA2_1B, remat=True, attention_impl="auto")
+            tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (4, 4, 2048)))
+            tokens = tokens.cuda()
+            models["llama"] = (cfg, llama.init_params(torch.Generator(device="cuda").manual_seed(args.seed), cfg),
+                               tokens, torch.roll(tokens, -1, dims=-1))
+        cfg, raw, tokens, labels = models["llama"]
+        params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
+        step, state = train.make_train_step(cfg, opt), [train.init_train_state(params, opt)]
+
+        def one(i):
+            state[0], m = step(state[0], tokens, labels, 1e-4, random.fold_in(key, i))
+            return m["loss"]
+        return one, tokens.numel(), "tok/s"
+
+    def vit_step(qkw):
+        """ViT-Giant's step (chip_smoke.py phase 11): one call per step."""
+        if "vit" not in models:
+            cfg = vit_train.model_config("vit_giant", 45, 224)
+            ds = SyntheticImageDataset(size=cfg.image_size, num_classes=cfg.num_classes, seed=2024)
+            batch = [torch.from_numpy(a).cuda() for a in next(iter(BatchLoader(ds, VIT_B, prefetch=0)))]
+            models["vit"] = (cfg, vit.init_params(torch.Generator(device="cuda").manual_seed(args.seed), cfg), batch)
+        cfg, raw, (images, labels) = models["vit"]
+        params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
+        step, st = vit_train.make_train_step(cfg, opt), [params, opt.init(quant.virtual_params(params))]
+
+        def one(i):
+            st[0], st[1], loss = step(st[0], st[1], images, labels, 1e-4, random.fold_in(key, 1_000_000 + i))
+            return loss
+        return one, VIT_B, "images/s"
+
     for name in args.configs.split(","):
         qkw = CONFIGS[name]
-        params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
         quant.set_impl("off" if name == "unfused" else "auto")
-        step = train.make_train_step(cfg, opt)
-        state = train.init_train_state(params, opt)
+        one, work, unit = (vit_step if name.startswith("vit") else llama_step)(qkw)
         for i in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, tokens, labels, 1e-4, random.fold_in(key, i))
-            m["loss"].item()
+            one(i).item()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, m = step(state, tokens, labels, 1e-4, random.fold_in(key, 3))
-            m["loss"].item()
+            one(3).item()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
         quant.set_impl("auto")
@@ -110,14 +148,14 @@ def main() -> None:
             g = by_group.setdefault(group_of(k), [0.0, 0])
             g[0] += ms
             g[1] += n
-        print(f"== {name}: unprofiled step {wall * 1e3:.1f} ms ({tokens.numel() / wall:.1f} tok/s); profiled step "
+        print(f"== {name}: unprofiled step {wall * 1e3:.1f} ms ({work / wall:.1f} {unit}); profiled step "
               f"{prof_wall * 1e3:.1f} ms, kernels {total:.1f} ms, device busy {total / (prof_wall * 1e3):.1%}")
         for g, (ms, n) in sorted(by_group.items(), key=lambda kv: -kv[1][0]):
             print(f"   {g}: {ms:.1f} ms ({ms / total:.1%}), {n} launches")
         print(f"   layout copies (aten::contiguous / aten::clone running a kernel; ms, calls): {layout or 'none'}")
         for k, ms, n in sorted(rows, key=lambda r: -r[1])[:args.top]:
             print(f"     {ms:9.2f} ms {n:6d} x  {k[:110]}")
-        del state, params
+        del one
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Kernel-level ops of the port.
 
-Counterpart of ``quantized_training_tpu/ops/__init__.py``. Eighteen hand-written
-CUDA kernels, each with a plain PyTorch version that CPU tensors take:
+Counterpart of ``quantized_training_tpu/ops/__init__.py``. Hand-written CUDA
+kernels, each with a plain PyTorch version that CPU tensors take:
 
 - K1 :func:`quantize_int8_rowwise` (``csrc/int8_quant.cu``), replacing
   ``ops/pallas_quant.py::quantize_int8_rowwise``;
@@ -37,9 +37,16 @@ CUDA kernels, each with a plain PyTorch version that CPU tensors take:
   :func:`ungroup_amax` / :func:`ungroup_quant` (``csrc/rope.cu``), RoPE with
   grouped-query head grouping and the attention output's ungrouping inside
   its int8 quantize, replacing the functions of the same names in
-  ``ops/pallas_rope.py``.
+  ``ops/pallas_rope.py``;
+- B18 :func:`layernorm_quant` and :func:`gelu_quant`
+  (``csrc/fused_producers.cu``), affine LayerNorm or tanh-GELU inside the
+  int8 quantize along rows or columns, replacing
+  ``ops/pallas_fused.py::_producer_quant_call`` through its
+  ``layernorm_quant`` and ``gelu_quant``: the ViT's fused linears; each form
+  counts apart (``layernorm_quant_rowwise``, ``layernorm_quant_colwise``,
+  ``gelu_quant_rowwise``, ``gelu_quant_colwise``).
 
-K1, B4, B5, B7, B8, B9, B11, B12 and B14's quantize also have a
+K1, B4, B5, B7, B8, B9, B11, B12, B14's quantize and B18 also have a
 stochastic-rounding form, and B6 an SR writeback,
 drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``). The
 int4 and fp8 quantizes (``quant/core.py``, :mod:`fp8`) and the fp8
@@ -54,6 +61,14 @@ kernels compile at their first launch (``ops/_build.py``).
 from . import fp8, random
 from .fused_adamw import fused_adamw_plain, fused_adamw_update
 from .fused_producers import (
+    gelu_quant,
+    gelu_quant_colwise,
+    gelu_quant_plain,
+    gelu_quant_rowwise,
+    layernorm_quant,
+    layernorm_quant_colwise,
+    layernorm_quant_plain,
+    layernorm_quant_rowwise,
     rmsnorm_bwd,
     silu_mul_bwd_quant_colwise,
     silu_mul_bwd_quant_colwise_plain,
@@ -133,6 +148,14 @@ KERNELS = {
     "scaled_int4_mm": (scaled_int4_mm, "launches"),
     "tile_scaled_mm": (tile_scaled_mm, "launches"),
     "tile_scaled_mm_s8": (tile_scaled_mm, "s8_launches"),
+    "layernorm_quant_rowwise": (layernorm_quant_rowwise, "launches"),
+    "layernorm_quant_rowwise_sr": (layernorm_quant_rowwise, "sr_launches"),
+    "layernorm_quant_colwise": (layernorm_quant_colwise, "launches"),
+    "layernorm_quant_colwise_sr": (layernorm_quant_colwise, "sr_launches"),
+    "gelu_quant_rowwise": (gelu_quant_rowwise, "launches"),
+    "gelu_quant_rowwise_sr": (gelu_quant_rowwise, "sr_launches"),
+    "gelu_quant_colwise": (gelu_quant_colwise, "launches"),
+    "gelu_quant_colwise_sr": (gelu_quant_colwise, "sr_launches"),
 }
 
 
@@ -154,7 +177,15 @@ __all__ = [
     "random",
     "fused_adamw_plain",
     "fused_adamw_update",
+    "gelu_quant",
+    "gelu_quant_colwise",
+    "gelu_quant_plain",
+    "gelu_quant_rowwise",
     "int4_mm",
+    "layernorm_quant",
+    "layernorm_quant_colwise",
+    "layernorm_quant_plain",
+    "layernorm_quant_rowwise",
     "quantize_int8_both",
     "quantize_int8_both_plain",
     "quantize_int8_colwise",

@@ -1,6 +1,9 @@
 // Producer-fused int8 quantize kernels, the one-pass RMSNorm backward and the
 // silu backward fused into the int8 quantizes of its two outputs.
 //
+// The ViT's block has the same shape of work: affine LayerNorm makes the qkv
+// and fc1 inputs and tanh-GELU the fc2 input (B18 below, two more producers
+// of the same row and column templates).
 // In the int8 decoder layer every quantized linear's input is made by a
 // cheap op, the "producer": RMSNorm (the q/k/v and gate/up inputs) or
 // silu(gate) * up (the down projection's input). Unfused, the producer writes
@@ -21,7 +24,11 @@
 //   rmsnorm: y = (x * rstd) * g, rstd = rsqrt(sum(x * x) / K + norm_eps);
 //   silu:    y = (a * s) * b, s = 1 / (1 + exp(-a));
 //   its backward at dy: da = ((dy * b) * s) * (1 + a * (1 - s)),
-//                       db = (dy * a) * s.
+//                       db = (dy * a) * s;
+//   layernorm: y = ((x - mean) * rstd) * g + b, mean = sum(x) / K,
+//              rstd = rsqrt(sum((x - mean)^2) / K + norm_eps);
+//   gelu:    y = a * ((tanh(inner) + 1) * 0.5),
+//            inner = (a + ((a * a) * a) * 0.044715) * sqrt(2/pi).
 // The row's sum of squares runs in one fixed order (each thread its own
 // vectors, a butterfly across the warp, the warps in order), so the same row
 // gives the same y in every kernel here: the column maxima that B7, the row
@@ -41,7 +48,12 @@
 //   [M, K] -> the row int8 of da and of db with fp32 row scales, optionally
 //   the column absmax of each and their copies in the inputs' dtype;
 // - B12 silu_bwd_col_quant: silu_mul_bwd_quant_colwise (:704), the column
-//   int8 of da and db given their column scales.
+//   int8 of da and db given their column scales;
+// - B18 row_quant / col_quant / producer_col_absmax over LayerNormProducer
+//   and GeluProducer: _producer_quant_call (:803) through layernorm_quant
+//   (:918) and gelu_quant (:952), x [M, K] with g, b [K], or a [M, K]; the
+//   JAX package's SR salts 17 and 19 fold into its TPU seed, so here the
+//   key alone picks the stream.
 // B11 and B12 draw SR noise for da at r * K + c and for db at M * K + r * K +
 // c of their key's stream.
 //
@@ -50,7 +62,9 @@
 // MB (x, dy read, dx written), B11 and B12 at [8192, 5632] 369 MB ((a, b, dy)
 // read, two int8 written): 15, 69, 30 and 110 us at 3.35 TB/s; the exp of the
 // sigmoid is about 20 fp32 operations per element, under a third of B9's
-// memory time. Design: a block of 256 threads walks a run of rows; a thread
+// memory time. B18 at ViT-Giant's 6,400 padded tokens: LayerNorm [6400, 1536]
+// 29.5 MB, 8.8 us; GELU [6400, 6144] 118 MB, 35.2 us, with a tanh of some 25
+// fp32 operations per element, near the memory time. Design: a block of 256 threads walks a run of rows; a thread
 // owns the same 16-byte vectors (8 bf16 or 4 fp32) of every row, so its
 // loads are coalesced and the column maxima (B7, B9 and B11 with column
 // absmax) and the dgamma partial sums (B10) it keeps in shared memory need no
@@ -151,7 +165,89 @@ struct SiluProducer {
   }
 };
 
-// ---- B7 and the row form of B9 ----------------------------------------------
+// B18's LayerNorm: two fixed-order block sums over the row held in ybuf, the
+// mean, then the mean of (x - mean)^2; y = ((x - mean) * rstd) * g + b.
+template <typename T>
+struct LayerNormProducer {
+  static constexpr int N = 16 / sizeof(T);
+  const T* __restrict__ x;
+  const float* __restrict__ g;  // gamma and beta, widened to fp32 by the wrapper (exact)
+  const float* __restrict__ b;
+  int64_t K;
+  float norm_eps;
+
+  __device__ __forceinline__ float fill(int64_t row, float* ybuf, float* red) const {
+    const int64_t nv = K / N;
+    const T* xr = x + row * K;
+    const float kf = static_cast<float>(K);
+    float s = 0.0f;
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads) {
+      float v[N];
+      load_vec<T, N>(xr + i * N, v);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        ybuf[j * nv + i] = v[j];
+        s = __fadd_rn(s, v[j]);
+      }
+    }
+    const float mean = __fdiv_rn(block_reduce<false>(s, red), kf);
+    float ss = 0.0f;
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float c = __fsub_rn(ybuf[j * nv + i], mean);
+        ybuf[j * nv + i] = c;
+        ss = __fmaf_rn(c, c, ss);
+      }
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(block_reduce<false>(ss, red), kf), norm_eps));
+    float amax = 0.0f;
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float y = __fadd_rn(__fmul_rn(__fmul_rn(ybuf[j * nv + i], rstd), g[i * N + j]), b[i * N + j]);
+        ybuf[j * nv + i] = y;
+        amax = fmaxf(amax, fabsf(y));
+      }
+    return amax;
+  }
+};
+
+// B18's GELU, the tanh form, in the plain version's order
+// (ops/fused_producers.py::gelu_f32): inner = (a + ((a * a) * a) * 0.044715)
+// * sqrt(2/pi), y = a * ((tanh(inner) + 1) * 0.5), each operation rounded
+// once; tanhf is the libdevice function PyTorch's tanh calls, so the kernel
+// is bit-exact with the plain version on the card.
+__device__ __forceinline__ float gelu_tanh(float a) {
+  constexpr float kSqrt2OverPi = 0.7978845608028654f;
+  const float cube = __fmul_rn(__fmul_rn(a, a), a);
+  const float inner = __fmul_rn(__fadd_rn(a, __fmul_rn(cube, 0.044715f)), kSqrt2OverPi);
+  return __fmul_rn(a, __fmul_rn(__fadd_rn(tanhf(inner), 1.0f), 0.5f));
+}
+
+template <typename T>
+struct GeluProducer {
+  static constexpr int N = 16 / sizeof(T);
+  const T* __restrict__ a;
+  int64_t K;
+
+  __device__ __forceinline__ float fill(int64_t row, float* ybuf, float*) const {
+    const int64_t nv = K / N;
+    float amax = 0.0f;
+    for (int64_t i = threadIdx.x; i < nv; i += kThreads) {
+      float v[N];
+      load_vec<T, N>(a + row * K + i * N, v);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float y = gelu_tanh(v[j]);
+        ybuf[j * nv + i] = y;
+        amax = fmaxf(amax, fabsf(y));
+      }
+    }
+    return amax;
+  }
+};
+
+// ---- B7, the row form of B9 and of B18 --------------------------------------
 
 // Rows [rpb * blockIdx.x, +rpb): the row quantize of the producer's y; with
 // COLMAX also this block's column absmax of |y| into parts[blockIdx.x].
@@ -550,6 +646,17 @@ SiluProducer<T> silu_producer(const void* a, const void* b, int64_t K) {
   return SiluProducer<T>{static_cast<const T*>(a), static_cast<const T*>(b), K};
 }
 
+template <typename T>
+LayerNormProducer<T> layernorm_producer(const void* x, const void* g, const void* b, int64_t K, float norm_eps) {
+  return LayerNormProducer<T>{static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+                              K, norm_eps};
+}
+
+template <typename T>
+GeluProducer<T> gelu_producer(const void* a, int64_t K) {
+  return GeluProducer<T>{static_cast<const T*>(a), K};
+}
+
 }  // namespace
 
 // Every entry point returns the launch's cudaError_t (0 on success). The
@@ -661,6 +768,67 @@ extern "C" int qt_silu_mul_bwd_quant_colwise(const void* a, const void* b, const
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QT_COL(T, SR) launch_silu_bwd_col<T, SR>(a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, key, s)
+  if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
+  return sr ? QT_COL(float, true) : QT_COL(float, false);
+#undef QT_COL
+}
+
+// B18, LayerNorm along rows: as B7 with beta b [K] (fp32, as g).
+extern "C" int qt_layernorm_quant_rowwise(const void* x, const void* g, const void* b, void* q, void* s_row,
+                                          void* amax, void* parts, int64_t M, int64_t K, int64_t rpb, float norm_eps,
+                                          float eps, int is_bf16, int sr, int with_amax, uint64_t key, void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QT_ROW(T, SR, AM) launch_row<LayerNormProducer<T>, SR, AM>(layernorm_producer<T>(x, g, b, K, norm_eps), q, \
+                                                                   s_row, amax, parts, M, rpb, eps, key, s)
+  if (is_bf16)
+    return sr ? (with_amax ? QT_ROW(__nv_bfloat16, true, true) : QT_ROW(__nv_bfloat16, true, false))
+              : (with_amax ? QT_ROW(__nv_bfloat16, false, true) : QT_ROW(__nv_bfloat16, false, false));
+  return sr ? (with_amax ? QT_ROW(float, true, true) : QT_ROW(float, true, false))
+            : (with_amax ? QT_ROW(float, false, true) : QT_ROW(float, false, false));
+#undef QT_ROW
+}
+
+// B18, GELU along rows: as B7 with the input a [M, K].
+extern "C" int qt_gelu_quant_rowwise(const void* a, void* q, void* s_row, void* amax, void* parts, int64_t M,
+                                     int64_t K, int64_t rpb, float eps, int is_bf16, int sr, int with_amax,
+                                     uint64_t key, void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define QT_ROW(T, SR, AM) launch_row<GeluProducer<T>, SR, AM>(gelu_producer<T>(a, K), q, s_row, amax, parts, M, rpb, \
+                                                              eps, key, s)
+  if (is_bf16)
+    return sr ? (with_amax ? QT_ROW(__nv_bfloat16, true, true) : QT_ROW(__nv_bfloat16, true, false))
+              : (with_amax ? QT_ROW(__nv_bfloat16, false, true) : QT_ROW(__nv_bfloat16, false, false));
+  return sr ? (with_amax ? QT_ROW(float, true, true) : QT_ROW(float, true, false))
+            : (with_amax ? QT_ROW(float, false, true) : QT_ROW(float, false, false));
+#undef QT_ROW
+}
+
+// B18, LayerNorm along columns: as B8 with beta b [K].
+extern "C" int qt_layernorm_quant_colwise(const void* x, const void* g, const void* b, const void* scale, void* q,
+                                          void* s_out, void* amax, void* parts, int64_t M, int64_t K, int64_t rpb,
+                                          float norm_eps, float eps, int is_bf16, int sr, uint64_t key,
+                                          void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+#define QT_COL(T, SR) launch_col<LayerNormProducer<T>, SR>(layernorm_producer<T>(x, g, b, K, norm_eps), sc, q, s_out, \
+                                                           amax, parts, M, rpb, eps, key, s)
+  if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
+  return sr ? QT_COL(float, true) : QT_COL(float, false);
+#undef QT_COL
+}
+
+// B18, GELU along columns: as B8 with the input a [M, K].
+extern "C" int qt_gelu_quant_colwise(const void* a, const void* scale, void* q, void* s_out, void* amax, void* parts,
+                                     int64_t M, int64_t K, int64_t rpb, float eps, int is_bf16, int sr, uint64_t key,
+                                     void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+#define QT_COL(T, SR) launch_col<GeluProducer<T>, SR>(gelu_producer<T>(a, K), sc, q, s_out, amax, parts, M, rpb, eps, \
+                                                      key, s)
   if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
   return sr ? QT_COL(float, true) : QT_COL(float, false);
 #undef QT_COL

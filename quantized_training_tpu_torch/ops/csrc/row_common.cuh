@@ -171,10 +171,17 @@ cudaError_t launch_reduce(bool max, const float* parts, float* out, int64_t npar
 
 unsigned int n_blocks(int64_t M, int64_t rpb) { return static_cast<unsigned int>((M + rpb - 1) / rpb); }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory when it needs it.
+// Opt a kernel into more than 48 KB of shared memory when its dynamic
+// ``smem`` and its static arrays together need it: the default limit counts
+// both, so 48 KB of dynamic memory (two fp32 rows at K = 6144) plus a
+// kernel's red[kWarps] fails to launch without the opt-in.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  constexpr size_t kDefault = 48 * 1024;
+  if (smem + 1024 <= kDefault) return cudaSuccess;  // the static arrays here are far below 1 KB
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess || smem + attr.sharedSizeBytes <= kDefault) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 

@@ -14,10 +14,18 @@ Counterpart of ``quantized_training_tpu/ops/pallas_fused.py`` (:63-760):
   computed in fp32 from one read of (a, b, dy) and quantized along rows
   (with their column absmax, or their copies in a's dtype) or along columns
   given those maxima' scales, never written in bf16;
+- B18, the ViT producers of ``_producer_quant_call`` (:803):
+  :func:`layernorm_quant` (:918) and :func:`gelu_quant` (:952), affine
+  LayerNorm or tanh-GELU inside the int8 quantize, along rows (with the
+  column absmax) or along columns (given scales, or two passes), each form
+  its own wrapper and counter (:func:`layernorm_quant_rowwise`,
+  :func:`layernorm_quant_colwise`, :func:`gelu_quant_rowwise`,
+  :func:`gelu_quant_colwise`);
 
 with the producers' plain semantics (``rms_norm_f32``, ``silu_mul_f32``,
-``silu_mul_bwd_f32``, ``rms_norm_ref``, ``silu_mul_ref``), one plain version
-per kernel and :func:`supported`. The producer runs inside the quantize: its output is
+``silu_mul_bwd_f32``, ``layer_norm_f32``, ``gelu_f32`` and the unfused
+composites ``rms_norm_ref``, ``silu_mul_ref``, ``layer_norm_ref``), one
+plain version per kernel and :func:`supported`. The producer runs inside the quantize: its output is
 fp32 and never rounded to bf16. The quantize has the Pallas bodies'
 numerics (``pallas_fused.py:111-132``, ``pallas_quant.py:75-87``), which
 differ from ``quant/core.py``'s: scale = absmax * (1/127) in fp32 and
@@ -30,13 +38,16 @@ Scales and column maxima are fp32, as the Pallas kernels return them.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/fused_producers.cu`` (whose header says what bounds it on the H100
 and how its design answers that) or raises. Each wrapper counts its
-launches, an SR form apart (``sr_launches``). B9, B11 and B12 are
-bit-exact with their plain versions on the card. B7, B8 and B10 hold a row sum, which the kernel takes
-in its own order: their int8 outputs may differ by one step on rare
-elements, their scales, maxima, dx and dgamma by fp32 rounding.
+launches, an SR form apart (``sr_launches``). B9, B11, B12 and B18's GELU
+forms are bit-exact with their plain versions on the card. B7, B8, B10 and
+B18's LayerNorm forms hold a row sum, which the kernel takes in its own
+order: their int8 outputs may differ by one step on rare elements, their
+scales, maxima, dx and dgamma by fp32 rounding.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -95,6 +106,50 @@ def silu_mul_bwd_f32(a: torch.Tensor, b: torch.Tensor, dy: torch.Tensor):
     d = 1 + torch.exp(-af)
     s = torch.ones_like(d) / d
     return dyf * b.float() * s * (1 + af * (1 - s)), dyf * af * s
+
+
+def layer_norm_ref(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """The unfused composite's LayerNorm (JAX ``layer_norm_ref``, :768, and
+    ``models.vit.layer_norm``): fp32 math, xhat rounded to x's dtype before
+    the affine, which runs in x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * g + b
+
+
+def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """The fused kernels' LayerNorm (JAX :777): fp32 throughout, xhat = (x -
+    mean) * rsqrt(mean((x - mean)^2) + eps), then xhat * g + b."""
+    xf = x.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    return xc * rstd * g.float() + b.float()
+
+
+SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)  # rounded to fp32 where it multiplies
+
+
+def gelu_f32(a: torch.Tensor) -> torch.Tensor:
+    """The fused kernels' GELU, the tanh form of ``jax.nn.gelu`` (its
+    default; JAX :786) in fp32, in the kernel's order: inner = (a + ((a * a)
+    * a) * 0.044715) * sqrt(2/pi), then a * ((tanh(inner) + 1) * 0.5). Each
+    step is one torch op with an fp32 scalar, so the kernel's
+    ``__fmul_rn``/``__fadd_rn`` chain and ``tanhf`` give the same bits."""
+    af = a.float()
+    inner = (af + af * af * af * 0.044715) * SQRT_2_OVER_PI
+    return af * ((torch.tanh(inner) + 1) * 0.5)
+
+
+def gelu_bwd_f32(a: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """da of y = gelu(a) (tanh form) at dy, fp32 (JAX ``jax.vjp`` of
+    ``jax.nn.gelu(approximate=True)``, quant/fused.py:1068-1071): dy *
+    (cdf + a * 0.5 * (1 - t^2) * sqrt(2/pi) * (1 + 3 * 0.044715 * a^2)),
+    t = tanh(inner), cdf = 0.5 * (1 + t)."""
+    af = a.float()
+    t = torch.tanh((af + af * af * af * 0.044715) * SQRT_2_OVER_PI)
+    dinner = (1 + af * af * (3 * 0.044715)) * SQRT_2_OVER_PI
+    return dy.float() * ((t + 1) * 0.5 + af * 0.5 * (1 - t * t) * dinner)
 
 
 # ---- the quantize of the Pallas bodies ------------------------------------------
@@ -206,6 +261,33 @@ def rmsnorm_bwd_plain(x, g, dy, *, norm_eps: float = 1e-5):
     return dx.to(x.dtype), (dyf * xn).sum(dim=0)
 
 
+def layernorm_quant_plain(x, g, b, *, axis: int = 1, norm_eps: float = 1e-6, eps: float = EPS, sr: bool = False,
+                          key: int | None = None, with_col_amax: bool = False, scale: torch.Tensor | None = None):
+    """Plain version of B18's LayerNorm forms (JAX ``layernorm_quant``,
+    :918): the int8 of ``layer_norm_f32(x, g, b)`` along ``axis``, as
+    :func:`layernorm_quant` returns it."""
+    y = layer_norm_f32(x, g, b, norm_eps)
+    if _axis(axis) == 1:
+        return _quant_rows(y, eps, sr, _key(sr, key), with_col_amax)
+    return _quant_cols(y, scale, eps, sr, _key(sr, key))
+
+
+def gelu_quant_plain(a, *, axis: int = 1, eps: float = EPS, sr: bool = False, key: int | None = None,
+                     with_col_amax: bool = False, scale: torch.Tensor | None = None):
+    """Plain version of B18's GELU forms (JAX ``gelu_quant``, :952): the
+    int8 of ``gelu_f32(a)`` along ``axis``."""
+    y = gelu_f32(a)
+    if _axis(axis) == 1:
+        return _quant_rows(y, eps, sr, _key(sr, key), with_col_amax)
+    return _quant_cols(y, scale, eps, sr, _key(sr, key))
+
+
+def _axis(axis: int) -> int:
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 (columns) or 1 (rows), got {axis!r}")
+    return axis
+
+
 # ---- the shape gate -------------------------------------------------------------
 
 
@@ -250,9 +332,9 @@ def _check(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
     return M, K
 
 
-def _gamma(g: torch.Tensor, x: torch.Tensor, what: str) -> torch.Tensor:
+def _gamma(g: torch.Tensor, x: torch.Tensor, what: str, name: str = "gamma") -> torch.Tensor:
     if g.numel() != x.shape[1] or g.device != x.device:
-        raise ValueError(f"{what}: gamma of {g.numel()} elements on {g.device} for rows of {x.shape[1]}")
+        raise ValueError(f"{what}: {name} of {g.numel()} elements on {g.device} for rows of {x.shape[1]}")
     return g.reshape(-1).float().contiguous()
 
 
@@ -271,21 +353,12 @@ def rmsnorm_quant_rowwise(x: torch.Tensor, g: torch.Tensor, *, norm_eps: float =
     if x.device.type == "cpu":
         return rmsnorm_quant_rowwise_plain(x, g, norm_eps=norm_eps, eps=eps, sr=sr, key=key,
                                            with_col_amax=with_col_amax)
-    key = _key(sr, key)
-    M, K = _check("rmsnorm_quant_rowwise", x)
     gf = _gamma(g, x, "rmsnorm_quant_rowwise")
-    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    amax = torch.empty((1, K) if with_col_amax else (0,), dtype=torch.float32, device=x.device)
-    parts = _parts(M, K, x.device, with_col_amax)
-    err = _build.library().qt_rmsnorm_quant_rowwise(
-        x.data_ptr(), gf.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K,
-        _rows_per_block(M),
-        norm_eps, eps, int(x.dtype == torch.bfloat16), int(sr), int(with_col_amax), key, _build.stream(),
-    )
-    _build.check(err, "rmsnorm_quant_rowwise")
-    _count(rmsnorm_quant_rowwise, sr)
-    return (q, scale, amax) if with_col_amax else (q, scale)
+    dt = int(x.dtype == torch.bfloat16)
+    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_rmsnorm_quant_rowwise(
+        x.data_ptr(), gf.data_ptr(), q, s, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), int(with_col_amax), k,
+        _build.stream())
+    return _rowwise("rmsnorm_quant_rowwise", rmsnorm_quant_rowwise, launch, (x,), sr, key, with_col_amax)
 
 
 def silu_mul_quant_rowwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS, sr: bool = False,
@@ -294,24 +367,31 @@ def silu_mul_quant_rowwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS
     b [M, K] once; outputs as :func:`rmsnorm_quant_rowwise`."""
     if a.device.type == "cpu":
         return silu_mul_quant_rowwise_plain(a, b, eps=eps, sr=sr, key=key, with_col_amax=with_col_amax)
+    dt = int(a.dtype == torch.bfloat16)
+    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_silu_mul_quant_rowwise(
+        a.data_ptr(), b.data_ptr(), q, s, am, pt, M, K, rpb, eps, dt, int(sr), int(with_col_amax), k, _build.stream())
+    return _rowwise("silu_mul_quant_rowwise", silu_mul_quant_rowwise, launch, (a, b), sr, key, with_col_amax)
+
+
+def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax):
+    """Launch the row form of B7, B9 or B18: ``(q int8 [M, K], scale fp32
+    [M, 1])``, with ``with_col_amax`` also the column absmax fp32 [1, K]."""
     key = _key(sr, key)
-    M, K = _check("silu_mul_quant_rowwise", a, b)
-    q = torch.empty((M, K), dtype=torch.int8, device=a.device)
-    scale = torch.empty((M, 1), dtype=torch.float32, device=a.device)
-    amax = torch.empty((1, K) if with_col_amax else (0,), dtype=torch.float32, device=a.device)
-    parts = _parts(M, K, a.device, with_col_amax)
-    err = _build.library().qt_silu_mul_quant_rowwise(
-        a.data_ptr(), b.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K,
-        _rows_per_block(M),
-        eps, int(a.dtype == torch.bfloat16), int(sr), int(with_col_amax), key, _build.stream(),
-    )
-    _build.check(err, "silu_mul_quant_rowwise")
-    _count(silu_mul_quant_rowwise, sr)
+    M, K = _check(what, *inputs)
+    dev = inputs[0].device
+    q = torch.empty((M, K), dtype=torch.int8, device=dev)
+    scale = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    amax = torch.empty((1, K) if with_col_amax else (0,), dtype=torch.float32, device=dev)
+    parts = _parts(M, K, dev, with_col_amax)
+    err = launch(q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K, _rows_per_block(M), key)
+    _build.check(err, what)
+    _count(fn, sr)
     return (q, scale, amax) if with_col_amax else (q, scale)
 
 
 def _colwise(what, fn, launch, inputs, scale, eps, sr, key):
-    """Launch the column form of B8 or B9: given scales, or two passes."""
+    """Launch the column form of B8, B9 or B18: given scales, or two
+    passes."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     x = inputs[0]
@@ -435,7 +515,87 @@ def silu_mul_bwd_quant_colwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
     return qa, qb
 
 
+def layernorm_quant_rowwise(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, norm_eps: float = 1e-6,
+                            eps: float = EPS, sr: bool = False, key: int | None = None, with_col_amax: bool = False):
+    """B18, LayerNorm along rows: ``quantize(layer_norm_f32(x, g, b),
+    axis=1)`` in one read of x [M, K]; outputs as
+    :func:`rmsnorm_quant_rowwise`."""
+    if x.device.type == "cpu":
+        return layernorm_quant_plain(x, g, b, norm_eps=norm_eps, eps=eps, sr=sr, key=key, with_col_amax=with_col_amax)
+    what = "layernorm_quant_rowwise"
+    gf, bf = _gamma(g, x, what), _gamma(b, x, what, "beta")
+    dt = int(x.dtype == torch.bfloat16)
+    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_layernorm_quant_rowwise(
+        x.data_ptr(), gf.data_ptr(), bf.data_ptr(), q, s, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr),
+        int(with_col_amax), k, _build.stream())
+    return _rowwise(what, layernorm_quant_rowwise, launch, (x,), sr, key, with_col_amax)
+
+
+def layernorm_quant_colwise(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, norm_eps: float = 1e-6,
+                            eps: float = EPS, sr: bool = False, key: int | None = None,
+                            scale: torch.Tensor | None = None):
+    """B18, LayerNorm along columns: ``quantize(layer_norm_f32(x, g, b),
+    axis=0)`` given fp32 column scales [1, K] in one read of x, else in two;
+    outputs as :func:`rmsnorm_quant_colwise`."""
+    if x.device.type == "cpu":
+        return layernorm_quant_plain(x, g, b, axis=0, norm_eps=norm_eps, eps=eps, sr=sr, key=key, scale=scale)
+    what = "layernorm_quant_colwise"
+    gf, bf = _gamma(g, x, what), _gamma(b, x, what, "beta")
+    dt = int(x.dtype == torch.bfloat16)
+    launch = lambda sc, q, so, am, pt, M, K, rpb, k: _build.library().qt_layernorm_quant_colwise(
+        x.data_ptr(), gf.data_ptr(), bf.data_ptr(), sc, q, so, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), k,
+        _build.stream())
+    return _colwise(what, layernorm_quant_colwise, launch, (x,), scale, eps, sr, key)
+
+
+def gelu_quant_rowwise(a: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None,
+                       with_col_amax: bool = False):
+    """B18, GELU along rows: ``quantize(gelu_f32(a), axis=1)`` in one read
+    of a [M, K]; outputs as :func:`rmsnorm_quant_rowwise`."""
+    if a.device.type == "cpu":
+        return gelu_quant_plain(a, eps=eps, sr=sr, key=key, with_col_amax=with_col_amax)
+    dt = int(a.dtype == torch.bfloat16)
+    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_gelu_quant_rowwise(
+        a.data_ptr(), q, s, am, pt, M, K, rpb, eps, dt, int(sr), int(with_col_amax), k, _build.stream())
+    return _rowwise("gelu_quant_rowwise", gelu_quant_rowwise, launch, (a,), sr, key, with_col_amax)
+
+
+def gelu_quant_colwise(a: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None,
+                       scale: torch.Tensor | None = None):
+    """B18, GELU along columns: ``quantize(gelu_f32(a), axis=0)``, given
+    scales or two passes, as :func:`layernorm_quant_colwise`."""
+    if a.device.type == "cpu":
+        return gelu_quant_plain(a, axis=0, eps=eps, sr=sr, key=key, scale=scale)
+    dt = int(a.dtype == torch.bfloat16)
+    launch = lambda sc, q, so, am, pt, M, K, rpb, k: _build.library().qt_gelu_quant_colwise(
+        a.data_ptr(), sc, q, so, am, pt, M, K, rpb, eps, dt, int(sr), k, _build.stream())
+    return _colwise("gelu_quant_colwise", gelu_quant_colwise, launch, (a,), scale, eps, sr, key)
+
+
+def layernorm_quant(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, axis: int = 1, norm_eps: float = 1e-6,
+                    eps: float = EPS, sr: bool = False, key: int | None = None, with_col_amax: bool = False,
+                    scale: torch.Tensor | None = None):
+    """B18's LayerNorm entry, the JAX package's ``layernorm_quant`` (:918):
+    x [M, K], g and b [K] or [1, K]. axis=1: ``(q, scale [M, 1])`` in one
+    read, with ``with_col_amax`` also the column absmax [1, K]; axis=0:
+    ``(q, scale [1, K])``, in one read given ``scale``, else in two."""
+    if _axis(axis) == 1:
+        return layernorm_quant_rowwise(x, g, b, norm_eps=norm_eps, eps=eps, sr=sr, key=key,
+                                       with_col_amax=with_col_amax)
+    return layernorm_quant_colwise(x, g, b, norm_eps=norm_eps, eps=eps, sr=sr, key=key, scale=scale)
+
+
+def gelu_quant(a: torch.Tensor, *, axis: int = 1, eps: float = EPS, sr: bool = False, key: int | None = None,
+               with_col_amax: bool = False, scale: torch.Tensor | None = None):
+    """B18's GELU entry, the JAX package's ``gelu_quant`` (:952): the forms
+    and returns of :func:`layernorm_quant`."""
+    if _axis(axis) == 1:
+        return gelu_quant_rowwise(a, eps=eps, sr=sr, key=key, with_col_amax=with_col_amax)
+    return gelu_quant_colwise(a, eps=eps, sr=sr, key=key, scale=scale)
+
+
 for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise, silu_mul_quant_colwise,
-            silu_mul_bwd_quant_rowwise, silu_mul_bwd_quant_colwise):
+            silu_mul_bwd_quant_rowwise, silu_mul_bwd_quant_colwise, layernorm_quant_rowwise,
+            layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
     _fn.launches = _fn.sr_launches = 0
 rmsnorm_bwd.launches = 0

@@ -3,7 +3,8 @@
 Counterpart of ``quantized_training_tpu/quant/__init__.py``, for the part the
 serving and training slices use: the mixed-precision scheme (int8, int4 and
 fp8), forward and backward, the producer-fused linears of ``quant/fused.py``
-(int8), and the training contract of ``quant/api.py``.
+(int8; the Llama's and the ViT's), and the training contract of
+``quant/api.py``.
 """
 
 from .api import (
@@ -23,7 +24,15 @@ from .core import (
     quantize_int8_both,
     unpack_int4_rowwise,
 )
-from .fused import attn_out_linear, mlp_linear, norm_linear_multi, set_impl, silu_mul_linear
+from .fused import (
+    attn_out_linear,
+    gelu_linear,
+    layernorm_linear,
+    mlp_linear,
+    norm_linear_multi,
+    set_impl,
+    silu_mul_linear,
+)
 from .mixed_precision import MixedPrecisionWeight
 
 __all__ = [
@@ -33,6 +42,8 @@ __all__ = [
     "silu_mul_linear",
     "mlp_linear",
     "attn_out_linear",
+    "layernorm_linear",
+    "gelu_linear",
     "set_impl",
     "quantize_params",
     "is_quant_weight",

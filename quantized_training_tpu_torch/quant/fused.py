@@ -1,17 +1,21 @@
 """Producer-fused quantized linears.
 
-Counterpart of ``quantized_training_tpu/quant/fused.py`` (:82-874):
+Counterpart of ``quantized_training_tpu/quant/fused.py`` (:82-1099):
 :func:`norm_linear_multi` runs RMSNorm inside the input quantize of the
 shared-input multi-linear (the q/k/v site), :func:`mlp_linear` runs the
 whole Llama MLP as one op (RMSNorm inside the gate/up input quantize,
 silu(gate) * up inside the down projection's, ``ops/fused_producers.py``: B7
 and the row form of B9), and :func:`attn_out_linear` ungroups the grouped
 attention output inside the o-projection's input quantize
-(``ops/rope.py``: B14). The producer's bf16 output never reaches memory: not
-in the forward, not in the remat replay, and not in the backward, whose
-column quantize re-derives the producer from its inputs (B8, the column form
-of B9, B14 along columns), with the column scales the forward's kernel
-gathered, and whose RMSNorm backward is one pass (B10). In the MLP's
+(``ops/rope.py``: B14). For the ViT, :func:`layernorm_linear` runs affine
+LayerNorm inside the qkv and fc1 input quantizes and :func:`gelu_linear`
+tanh-GELU inside fc2's (B18); both pad the tokens as the JAX package does,
+since LayerNorm makes a zero row b. The producer's bf16 output never
+reaches memory: not in the forward, not in the remat replay, and not in the
+backward, whose column quantize re-derives the producer from its inputs
+(B8, the column form of B9, B14 along columns, B18), with the column scales
+the forward's kernel gathered, and whose RMSNorm backward is one pass
+(B10). In the MLP's
 backward (dgate, dup) are computed in fp32 and quantized along both axes
 inside B11 and B12, never written in bf16. The quantization is that of the
 unfused composite (``rms_norm`` -> ``linear_shared``, ``silu * mul`` ->
@@ -34,10 +38,10 @@ Keys (ints, ``ops/random.py``) are derived as the JAX package derives them,
 ``_sub(key, i) = fold_in(key, i)``: in ``_norm_mm`` and ``_silu_mm`` weight
 i's row quantize from ``fold_in(_sub(key, 1), i)``, the backward's (g, w)
 pair of weight i from ``split(fold_in(_sub(key, 3), i))``; in ``_mlp_mm``
-``_sub(key, 0..9)`` for its ten draws (:493-648); in ``_attn_out_mm``
-``_sub(key, 0..3)``. Where the JAX package turns a subkey into an int32 seed
-for the TPU's generator (``_kseed``), the same subkey is here the Philox key
-of the kernel. ``PreQuantMPWeight`` is not ported.
+``_sub(key, 0..9)`` for its ten draws (:493-648); in ``_attn_out_mm``,
+``_ln_mm`` and ``_gelu_mm`` ``_sub(key, 0..3)``. Where the JAX package
+turns a subkey into an int32 seed for the TPU's generator (``_kseed``), the
+same subkey is here the Philox key of the kernel. ``PreQuantMPWeight`` is not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import fused_producers as fp
 from ..ops import rope
@@ -52,7 +57,7 @@ from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm_general
 from .api import qlinear, qlinear_multi
 from .core import quantize_int8, quantize_int8_both
-from .mixed_precision import MixedPrecisionWeight, _resolve_key
+from .mixed_precision import MixedPrecisionWeight, _pad_tokens, _resolve_key
 
 _IMPL = "auto"  # auto | off | interpret
 
@@ -76,8 +81,10 @@ def _fusable_cfg(config) -> bool:
 
 def _padded_rows(M: int) -> int:
     """The JAX package pads the tokens to a multiple of 256 from 1024 on
-    (``_pad_tokens``) and gates on the padded count; the port does not pad
-    (zero rows change no number) but gates on the same count."""
+    (``_pad_tokens``) and gates on the padded count. The Llama ops here do
+    not pad but gate on the same count: a zero row is zero after RMSNorm,
+    silu(0) * up and the ungrouping, so it changes no scale. It is not zero
+    after LayerNorm (it is b), so the ViT ops pad as the JAX package does."""
     return M if M < 1024 else -(-M // 256) * 256
 
 
@@ -413,3 +420,138 @@ def attn_out_linear(out_g, w, kv: int, *, key: int | None = None):
         return qlinear(rope.ungroup_heads(out_g, kv).reshape(B, S, H * hd), w, key=key)
     out = _AttnOutMM.apply(w.config, _resolve_key(w.config, key), out_g, w.data)
     return out.view(B, S, w.shape[-2])
+
+
+# ---- the ViT producers: LayerNorm -> linear, GELU -> linear (JAX :877-1099) ----------
+
+
+def _layernorm_bwd_math(x2d, g, b, dy, eps: float):
+    """(dx, dg, db) of LayerNorm in fp32, each in its input's dtype (JAX
+    :882-898, which XLA runs: there is no Pallas LayerNorm backward)."""
+    xf, dyf, gf = x2d.float(), dy.float(), g.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    dxhat = dyf * gf
+    dx = rstd * (dxhat - dxhat.mean(dim=-1, keepdim=True) - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x2d.dtype), (dyf * xhat).sum(dim=0).to(g.dtype), dyf.sum(dim=0).to(b.dtype)
+
+
+def _producer_mm(config, key, quant_rows, x2d, w):
+    """The forward of ``_ln_mm`` / ``_gelu_mm`` (JAX :901-921, :1001-1021):
+    the producer's row int8 from ``quant_rows`` (with its column absmax for
+    an int8 grad_weight, else None), times w's row int8; the row scales in
+    x2d's dtype."""
+    sr, gw8 = config.stochastic_rounding, config.grad_weight
+    y_row, y_row_s, *col_amax = quant_rows(sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
+    w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=_sub(key, 1) if sr else None)
+    out = scaled_mm_general(y_row, w_row, y_row_s.to(x2d.dtype), w_row_s, dims=(1, 1), out_dtype=x2d.dtype)
+    return out, (col_amax[0] if col_amax else None)
+
+
+def _producer_mm_bwd(config, key, g, w, x2d, quant_cols, col_amax, bf16_operand):
+    """(dy, grad_w) of ``_ln_mm`` / ``_gelu_mm`` (JAX :934-970,
+    :1034-1066): the (g, w) pair from ``split(_sub(key, 3))``; with an int8
+    grad_weight the producer's column int8 from ``quant_cols`` with the
+    forward's column absmax as its scales (``_sub(key, 2)``), else the bf16
+    grad_weight against ``bf16_operand()``, the composite's producer."""
+    sr, gw8 = config.stochastic_rounding, config.grad_weight
+    g = g.to(x2d.dtype)
+    kg, kw = split(_sub(key, 3)) if sr else (None, None)
+    dy, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw)
+    if gw8:
+        y_col, y_col_s = quant_cols(sr=sr, key=_sub(key, 2) if sr else None, scale=col_amax * (1.0 / 127.0))
+        grad_w = scaled_mm_general(g_col, y_col, g_col_s, y_col_s.to(x2d.dtype), dims=(0, 0), out_dtype=w.dtype)
+    else:
+        grad_w = _bf16_wgrad(g, bf16_operand())
+    return dy, grad_w
+
+
+class _LNMM(torch.autograd.Function):
+    """layer_norm(x2d, g, b) @ w^T with the norm inside the input's row
+    quantize (JAX ``_ln_mm``, :901-973): B18's LayerNorm row form, with its
+    column absmax for an int8 grad_weight, which the backward's column form
+    takes as its scales (one read of x); the LayerNorm backward is
+    :func:`_layernorm_bwd_math`."""
+
+    @staticmethod
+    def forward(ctx, config, eps, key, x2d, g, b, w):
+        rows = lambda **kw: fp.layernorm_quant_rowwise(x2d, g, b, norm_eps=eps, **kw)
+        out, col_amax = _producer_mm(config, key, rows, x2d, w)
+        ctx.config, ctx.eps, ctx.key = config, eps, key
+        ctx.save_for_backward(x2d, g, b, w, *(() if col_amax is None else (col_amax,)))
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        config, eps, key = ctx.config, ctx.eps, ctx.key
+        x2d, g, b, w, *col_amax = ctx.saved_tensors
+        cols = lambda **kw: fp.layernorm_quant_colwise(x2d, g, b, norm_eps=eps, **kw)
+        dy, grad_w = _producer_mm_bwd(config, key, gout, w, x2d, cols, col_amax[0] if col_amax else None,
+                                      lambda: fp.layer_norm_ref(x2d, g, b, eps))
+        return (None, None, None, *_layernorm_bwd_math(x2d, g, b, dy, eps), grad_w)
+
+
+class _GeluMM(torch.autograd.Function):
+    """gelu(a2d) @ w^T (tanh form) with the activation inside the input's
+    row quantize (JAX ``_gelu_mm``, :1001-1075); the backward's column
+    quantize is B18's GELU column form with the forward's scales, and da is
+    the fp32 derivative of the tanh form (:1068-1071)."""
+
+    @staticmethod
+    def forward(ctx, config, key, a2d, w):
+        rows = lambda **kw: fp.gelu_quant_rowwise(a2d, **kw)
+        out, col_amax = _producer_mm(config, key, rows, a2d, w)
+        ctx.config, ctx.key = config, key
+        ctx.save_for_backward(a2d, w, *(() if col_amax is None else (col_amax,)))
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        config, key = ctx.config, ctx.key
+        a2d, w, *col_amax = ctx.saved_tensors
+        cols = lambda **kw: fp.gelu_quant_colwise(a2d, **kw)
+        dy, grad_w = _producer_mm_bwd(config, key, gout, w, a2d, cols, col_amax[0] if col_amax else None,
+                                      lambda: F.gelu(a2d, approximate="tanh"))
+        return None, None, fp.gelu_bwd_f32(a2d, dy).to(a2d.dtype), grad_w
+
+
+def _padded_2d(x):
+    """x [..., K] as [M, K] rows padded as the JAX package pads them
+    (``_pad_tokens``: zeros up to a multiple of 256 from 1024 rows on), and
+    M."""
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
+    return _pad_tokens(x2d), x2d.shape[0]
+
+
+def layernorm_linear(x, g, b, w, eps: float, *, bias=None, key: int | None = None):
+    """layer_norm(x, g, b) @ w^T + bias (JAX :976-998): :class:`_LNMM` on
+    the padded rows for a MixedPrecisionWeight of a fusable config where the
+    kernels take the padded shape, the output cut back to the tokens, then
+    the bias in the activation dtype; else exactly ``layer_norm_ref``
+    followed by ``qlinear``."""
+    fused = isinstance(w, MixedPrecisionWeight) and _fusable_cfg(w.config)
+    if fused:
+        x2d, M = _padded_2d(x)
+        fused = _fused_ok(*x2d.shape, x2d)
+    if not fused:
+        return qlinear(fp.layer_norm_ref(x, g, b, eps), w, bias, key=key)
+    out = _LNMM.apply(w.config, float(eps), _resolve_key(w.config, key), x2d, g, b, w.data)
+    out = out[:M].reshape(*x.shape[:-1], w.shape[-2])
+    return out if bias is None else out + bias
+
+
+def gelu_linear(a, w, *, bias=None, key: int | None = None):
+    """gelu(a) @ w^T + bias, GELU's tanh form (JAX :1078-1099), as
+    :func:`layernorm_linear`: :class:`_GeluMM` on the padded rows, else
+    exactly ``F.gelu(a, approximate="tanh")`` followed by ``qlinear`` (the
+    JAX fallback's ``jax.nn.gelu`` defaults to the tanh form)."""
+    fused = isinstance(w, MixedPrecisionWeight) and _fusable_cfg(w.config)
+    if fused:
+        a2d, M = _padded_2d(a)
+        fused = _fused_ok(*a2d.shape, a2d)
+    if not fused:
+        return qlinear(F.gelu(a, approximate="tanh"), w, bias, key=key)
+    out = _GeluMM.apply(w.config, _resolve_key(w.config, key), a2d, w.data)
+    out = out[:M].reshape(*a.shape[:-1], w.shape[-2])
+    return out if bias is None else out + bias

@@ -40,11 +40,13 @@ where the JAX package derives its keys: ``fold_in(key, 0/1/2/3)`` per use
 keep the key in ``ctx``, so a checkpointed layer replayed with the same key
 rounds the same way, and no two quantizes of one call share a stream.
 
-``PreQuantMPWeight`` (per-step pre-quantized weights) is not ported. The
-JAX package pads the token dim to a multiple of 256 above 1024 tokens
-(``_pad_tokens``); the padded rows are zero and change no number, so the
-port pads only where the padded count decides a branch: the fp8 'tile'
-configs, whose grad_weight contracts over the tokens.
+``PreQuantMPWeight`` (per-step pre-quantized weights) is not ported. As
+the JAX package does, :func:`linear` and :func:`linear_shared` pad the
+token dim with zero rows to a multiple of 256 from 1024 tokens on
+(``_pad_tokens``) and cut the output back: a zero row changes no scale and
+no sum, and the grad_weight GEMM, which contracts over the tokens, needs a
+multiple of 16 on the card (ViT-Giant's 24 x 257 = 6,168 tokens are not),
+as the fp8 'tile' configs need a multiple of 128.
 """
 
 from __future__ import annotations
@@ -258,9 +260,7 @@ def linear(x, w: MixedPrecisionWeight, bias=None, *, key: int | None = None):
     key = _resolve_key(w.config, key)
     x2d = x.reshape(-1, x.shape[-1])
     M = x2d.shape[0]
-    if w.config.dtype == "fp8_e4m3" and w.config.scale == "tile":
-        x2d = _pad_tokens(x2d)
-    out = _MPLinear.apply(x2d, w.data, w.config, key)[:M]
+    out = _MPLinear.apply(_pad_tokens(x2d), w.data, w.config, key)[:M]
     out = out.reshape(*x.shape[:-1], w.data.shape[0])
     return out + bias if bias is not None else out
 
@@ -276,5 +276,6 @@ def linear_shared(x, weights, *, key: int | None = None):
         return [linear(x, w, key=key) for w in weights]
     key = _resolve_key(cfg, key)
     x2d = x.reshape(-1, x.shape[-1])
-    outs = _MPLinearShared.apply(cfg, key, x2d, *(w.data for w in weights))
-    return [o.reshape(*x.shape[:-1], w.data.shape[0]) for o, w in zip(outs, weights)]
+    M = x2d.shape[0]
+    outs = _MPLinearShared.apply(cfg, key, _pad_tokens(x2d), *(w.data for w in weights))
+    return [o[:M].reshape(*x.shape[:-1], w.data.shape[0]) for o, w in zip(outs, weights)]

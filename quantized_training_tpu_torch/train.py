@@ -42,15 +42,20 @@ def init_train_state(params, optimizer: Optimizer) -> TrainState:
     return TrainState(params, optimizer.init(virtual_params(params)), 0)
 
 
-def loss_and_grads(cfg: llama.LlamaConfig, qparams, tokens, labels, key: int | None = None):
-    """``jax.value_and_grad`` of the loss over the parameter tree: (loss,
-    grads with the tree's structure, each in its leaf's dtype); ``key``
-    seeds stochastic rounding in the model."""
+def value_and_grad(loss_of, qparams):
+    """``jax.value_and_grad`` over the parameter tree: ``loss_of`` applied to
+    the masters merged back with their storage; returns (loss, grads with the
+    tree's structure, each in its leaf's dtype)."""
     vleaves, treedef = tree_flatten(virtual_params(qparams))
     leaves = [l.detach().requires_grad_(True) for l in vleaves]
-    merged = merge_masters(tree_unflatten(treedef, leaves), qparams)
-    loss = llama.loss_fn(merged, tokens, labels, cfg, key)
+    loss = loss_of(merge_masters(tree_unflatten(treedef, leaves), qparams))
     return loss.detach(), tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+
+
+def loss_and_grads(cfg: llama.LlamaConfig, qparams, tokens, labels, key: int | None = None):
+    """:func:`value_and_grad` of the Llama loss; ``key`` seeds stochastic
+    rounding in the model."""
+    return value_and_grad(lambda params: llama.loss_fn(params, tokens, labels, cfg, key), qparams)
 
 
 def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,

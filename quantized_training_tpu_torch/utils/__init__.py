@@ -1,5 +1,7 @@
 """Utilities of the port (counterpart of ``quantized_training_tpu/utils``)."""
 
-from . import train, tree
+from . import logging, train, tree
+from .logging import MetricLogger
+from .train import print_model_stats
 
-__all__ = ["train", "tree"]
+__all__ = ["logging", "train", "tree", "MetricLogger", "print_model_stats"]

@@ -1,6 +1,6 @@
-"""Training utilities: LR schedule and the global grad norm.
+"""Training utilities: LR schedule, the global grad norm, model stats.
 
-Counterpart of ``quantized_training_tpu/utils/train.py`` (:17-64).
+Counterpart of ``quantized_training_tpu/utils/train.py`` (:17-69).
 """
 
 from __future__ import annotations
@@ -52,3 +52,9 @@ def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
     factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * factor).to(g.dtype), tree), norm
+
+
+def print_model_stats(params) -> None:
+    """Print the parameter count of the tree (a wrapped weight counts its
+    master)."""
+    print(f"No. of params: {sum(l.numel() for l in tree_leaves(params)):,}")

@@ -3,11 +3,12 @@
 Marked ``cuda``: without a CUDA card every test here skips (decided in a
 fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
-this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16
-and B15's int8 form — each is bit-exact with its plain version by
-construction. B15's e4m3 form sums a block in the tensor core in fp32: within
-(QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8 and B10 hold a row
-sum that the kernel takes in its own fixed order: int8 within one step on at
+this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16,
+B15's int8 form and B18's GELU forms — each is bit-exact with its plain
+version by construction. B15's e4m3 form sums a block in the tensor core in
+fp32: within (QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8, B10
+and B18's LayerNorm forms hold a row sum that the kernel takes in its own
+fixed order: int8 within one step on at
 most 1e-3 of the elements, scales and column maxima within 1e-6 relative, dx
 within 2 bf16 ulps (below 2**-20 of max|dx|, where the closed form cancels,
 within that), dgamma within 1e-5 of max|dgamma|.
@@ -271,6 +272,60 @@ def test_rmsnorm_bwd_kernel(M, K, dtype):
     assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
 
 
+# B18 at one small shape and at ViT-Giant's (6,168 tokens padded to 6,400;
+# hidden 1536, mlp 6144)
+_B18_SHAPES = [(96, 640), (6400, 1536), (6400, 6144)]
+
+
+def _b18_inputs(M, K, dtype, seed):
+    x = (_rand((M, K), dtype, seed) + 0.5).to(dtype)
+    x[-1] = 0  # a padded row: LayerNorm makes it b
+    g = (1 + 0.1 * _rand((K,), torch.float32, seed + 1)).to(dtype)
+    b = (0.1 * _rand((K,), torch.float32, seed + 2)).to(dtype)
+    a = _rand((M, K), dtype, seed + 3)
+    a[:, 5] = 0  # an all-zero column of gelu(a)
+    return x, g, b, a
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K", _B18_SHAPES)
+def test_b18_forms(M, K, dtype, sr):
+    """B18 against its plain versions: LayerNorm's row form (with and without
+    the column absmax) and column form (given the forward's scales, and in
+    two passes) within B7's bars, GELU's forms bit-exact; given the forward
+    kernel's own column absmax, the one-pass column form equals the two-pass
+    one bit for bit."""
+    x, g, b, a = _b18_inputs(M, K, dtype, 50)
+    kw = dict(sr=sr, key=2**62 + 9 if sr else None)
+    for amax in (False, True):
+        got = ops.layernorm_quant(x, g, b, with_col_amax=amax, **kw)
+        torch.cuda.synchronize()
+        ref = ops.layernorm_quant_plain(x, g, b, with_col_amax=amax, **kw)
+        _int8_close(got[0], ref[0], "B18 LayerNorm row q")
+        for t, r in zip(got[1:], ref[1:]):
+            _rel_close(t, r, 1e-6, "B18 LayerNorm row scale / column absmax")
+        got = ops.gelu_quant(a, with_col_amax=amax, **kw)
+        torch.cuda.synchronize()
+        for t, r in zip(got, ops.gelu_quant_plain(a, with_col_amax=amax, **kw)):
+            assert t.dtype == r.dtype and torch.equal(t, r)
+    amax_n = ops.layernorm_quant(x, g, b, with_col_amax=True)[2]
+    amax_g = ops.gelu_quant(a, with_col_amax=True)[2]
+    for scale_n, scale_g in ((amax_n * (1.0 / 127.0), amax_g * (1.0 / 127.0)), (None, None)):
+        got = ops.layernorm_quant(x, g, b, axis=0, scale=scale_n, **kw)
+        torch.cuda.synchronize()
+        ref = ops.layernorm_quant_plain(x, g, b, axis=0, scale=scale_n, **kw)
+        _int8_close(got[0], ref[0], "B18 LayerNorm column q")
+        _rel_close(got[1], ref[1], 1e-6, "B18 LayerNorm column scale")
+        got = ops.gelu_quant(a, axis=0, scale=scale_g, **kw)
+        torch.cuda.synchronize()
+        for t, r in zip(got, ops.gelu_quant_plain(a, axis=0, scale=scale_g, **kw)):
+            assert t.dtype == r.dtype and torch.equal(t, r)
+    for fn, inputs, amax in ((ops.layernorm_quant, (x, g, b), amax_n), (ops.gelu_quant, (a,), amax_g)):
+        one, two = fn(*inputs, axis=0, scale=amax * (1.0 / 127.0), **kw), fn(*inputs, axis=0, **kw)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1].reshape(-1), two[1].reshape(-1))
+
+
 def test_fused_producers_refuse_what_they_cannot_take():
     x, g, a, b = _producer_inputs(64, 256, torch.bfloat16, 40)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -283,6 +338,10 @@ def test_fused_producers_refuse_what_they_cannot_take():
         ops.rmsnorm_quant_colwise(x, g, scale=torch.ones(1, 256, device="cuda", dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="requires a key"):
         ops.rmsnorm_quant_rowwise(x, g, sr=True)
+    with pytest.raises(ValueError, match="beta of 200"):
+        ops.layernorm_quant(x, g, g[:200])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ops.gelu_quant(a[:, :200].contiguous(), axis=0)
 
 
 _SILU_BWD_SHAPES = [(32, 128), (96, 640), (1000, 5632), (8192, 5632)]
@@ -545,6 +604,12 @@ def test_launch_counters_count_kernel_launches_only():
         ops.silu_mul_bwd_quant_colwise(y, y, y, ones, ones, **kw)
         ops.silu_mul_bwd_quant_rowwise_plain(y, y, y, **kw)
         ops.silu_mul_bwd_quant_colwise_plain(y, y, y, ones, ones, **kw)
+        amax = ops.layernorm_quant(y, gamma, gamma, with_col_amax=True, **kw)[2]
+        ops.layernorm_quant(y, gamma, gamma, axis=0, scale=amax * (1.0 / 127.0), **kw)
+        ops.gelu_quant(y, **kw)
+        ops.gelu_quant(y, axis=0, **kw)  # two passes: one launch of the column form
+        ops.layernorm_quant_plain(y, gamma, gamma, **kw)
+        ops.gelu_quant_plain(y, axis=0, **kw)
     h = y.view(1, 64, 2, 64)
     grouped = ops.rope_group_kernel(h, kv=1)
     ops.rope_ungroup_kernel(grouped)

@@ -49,10 +49,11 @@ def test_quantize_params_wraps_the_same_leaves():
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(2, 3, 128), (8, 256)])
+@pytest.mark.parametrize("shape", [(2, 3, 128), (8, 256), (4, 275, 128)])
 def test_qlinear_bit_exact_vs_jax(shape, dtype):
     """Tolerance: none. Both sides quantize x and w row-wise with the same
-    numerics and run the exact int8 product with the same fp32 epilogue."""
+    numerics and run the exact int8 product with the same fp32 epilogue
+    (at 1,100 tokens both pad to 1,280 and cut the output back)."""
     rng = np.random.default_rng(0)
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     x = jnp.asarray(rng.standard_normal(shape), jdt)
@@ -124,3 +125,35 @@ def test_linear_shared_fallback_shares_the_key(monkeypatch):
     # each output is the plain linear of its weight under that key
     for w, out in zip(ws, outs):
         assert torch.equal(out, quant.qlinear(x, w, key=5))
+
+
+def test_linear_pads_tokens_as_jax(monkeypatch):
+    """From 1024 tokens on, linear and linear_shared hand their autograd
+    Function the tokens padded with zero rows to a multiple of 256, as the
+    JAX package does (its grad_weight GEMM on the card contracts over the
+    tokens and needs a multiple of 16: ViT-Giant's 6,168 are not); the
+    output and the gradients equal the unpadded computation's bit for bit,
+    since a zero row changes no scale and no sum. Below 1024 tokens nothing
+    is padded."""
+    from quantized_training_tpu_torch.quant import mixed_precision as mp
+
+    rows = []
+    for cls in (mp._MPLinear, mp._MPLinearShared):
+        def counted(*args, _apply=cls.apply):
+            rows.append(next(a.shape[0] for a in args if isinstance(a, torch.Tensor)))
+            return _apply(*args)
+        monkeypatch.setattr(cls, "apply", counted)
+    rng = np.random.default_rng(1)
+    cfg = quant.MixedPrecisionConfig()
+    w = torch.from_numpy((rng.standard_normal((160, 128)) * 0.05).astype(np.float32)).requires_grad_(True)
+    for M, padded in ((1100, 1280), (1000, 1000)):
+        x = torch.from_numpy(rng.standard_normal((M, 128)).astype(np.float32)).requires_grad_(True)
+        out = quant.qlinear(x, MixedPrecisionWeight(w, cfg), key=3)
+        gx, gw = torch.autograd.grad((out ** 2).sum(), (x, w))
+        ref = mp._MPLinear.apply(x, w, cfg, 3)  # unpadded
+        rx, rw = torch.autograd.grad((ref ** 2).sum(), (x, w))
+        assert rows[-2:] == [padded, M] and out.shape == (M, 160)
+        assert torch.equal(out, ref) and torch.equal(gx, rx) and torch.equal(gw, rw)
+        shared = quant.qlinear_multi(x, [MixedPrecisionWeight(w, cfg)] * 2, key=3)
+        assert rows[-1] == padded and shared[0].shape == (M, 160)
+        assert torch.equal(shared[0], mp._MPLinearShared.apply(cfg, 3, x, w, w)[0])

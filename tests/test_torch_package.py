@@ -17,12 +17,16 @@ PKG = Path(quantized_training_tpu_torch.__file__).resolve().parent
 
 
 def test_import_leaves_jax_out():
-    """A fresh interpreter imports the whole package without loading jax
-    (or the JAX package) and without building a kernel."""
+    """A fresh interpreter imports the whole package, the ViT slice's
+    modules (the model, data, logging and the ``vit_train`` entry point)
+    included, without loading jax (or the JAX package) and without building
+    a kernel."""
     code = (
         "import sys\n"
         "import quantized_training_tpu_torch as p\n"
-        "from quantized_training_tpu_torch.models import serving\n"
+        "from quantized_training_tpu_torch.models import serving, vit\n"
+        "from quantized_training_tpu_torch import data, vit_train\n"
+        "from quantized_training_tpu_torch.utils import logging\n"
         "from quantized_training_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'quantized_training_tpu.')))\n"
         "assert not bad, bad\n"
@@ -39,6 +43,8 @@ def test_no_file_imports_jax():
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+    names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
+    assert {"vit_train.py", "models/vit.py", "data/image.py", "data/shuffle.py", "utils/logging.py"} <= names
 
 
 def test_kernel_sources_present():

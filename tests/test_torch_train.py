@@ -175,7 +175,8 @@ def _counting(monkeypatch):
     wrap(core, "_quantize_both_kernel", "quantize_int8_both", "sr")
     for name in ("rmsnorm_quant_rowwise", "rmsnorm_quant_colwise", "silu_mul_quant_rowwise",
                  "silu_mul_quant_colwise", "rmsnorm_bwd", "silu_mul_bwd_quant_rowwise",
-                 "silu_mul_bwd_quant_colwise"):  # the fused layer's kernels
+                 "silu_mul_bwd_quant_colwise", "layernorm_quant_rowwise", "layernorm_quant_colwise",
+                 "gelu_quant_rowwise", "gelu_quant_colwise"):  # the fused layers' kernels
         wrap(fused_producers, name, name, "sr")
     rope = importlib.import_module("quantized_training_tpu_torch.ops.rope")
     for attr, name in (("rope_group_kernel", "rope_group"), ("rope_ungroup_kernel", "rope_ungroup"),
