@@ -24,8 +24,12 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    and down, beside ``torch._int_mm`` / ``torch._scaled_mm``; B18's
    LayerNorm and GELU forms and their SR forms at ViT-Giant's padded 6,400
    tokens (LayerNorm [6400, 1536] by B7's bars, GELU [6400, 6144]
-   bit-exact); timed with CUDA events, with GB/s and the share of the
-   roofline; then the strides SDPA takes and returns in the grouped
+   bit-exact); B17 at 4096^3 (bf16 -> bf16 within its fp32-sum bound beside
+   ``torch.matmul``, int8 -> int32 bit-exact beside ``torch._int_mm``) and
+   B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
+   within ``ops/int8_attention.py::agreement`` of its plain version, beside
+   SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
+   of the roofline; then the strides SDPA takes and returns in the grouped
    pipeline, which must run no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
@@ -72,7 +76,15 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    inside the quantizes, B18), three bf16, two int8 with stochastic
    rounding: images/s, the int8/bf16 ratio, peak memory, exact launch
    counts (B18 160 / 80 / 80 / 40 a step: LayerNorm-row / GELU-row /
-   LayerNorm-column / GELU-column), losses that fall.
+   LayerNorm-column / GELU-column), losses that fall;
+12. ``benchmark_mm`` (``python -m quantized_training_tpu_torch.benchmark_mm``)
+   at 1024/2048/4096: its gates (B1 and B17 int8 exact, B15-s8 and B17 bf16
+   within their bounds), its rows and table, then its training shapes; B17's
+   launches come from here;
+13. B19 as the JAX package's op: at phase 3's shape, the oracle checks of
+   its test (mean relative error below 0.05 against the bf16 oracle, lse
+   within 1e-4 of the explicit logsumexp) and causality (k and v changed
+   from row 1536 on leave earlier rows bit-identical); two launches.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -88,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -98,17 +111,20 @@ from functools import partial
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import ops, optim, quant, train, vit_train
+from quantized_training_tpu_torch import benchmark_mm, ops, optim, quant, train, vit_train
 from quantized_training_tpu_torch.data import BatchLoader, SyntheticImageDataset
 from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops.fp8 import quantize_fp8_block, quantize_fp8_tile
 from quantized_training_tpu_torch.quant.core import quantize_int4_rowwise_absmax
+from quantized_training_tpu_torch.utils.timing import copies, time_ms
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
-# the module: the ops package exports a function of its name
+# the modules: the ops package exports functions of their names
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
+MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
+ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
 MIX_BUDGETS = (16, 32, 48, 64)
@@ -145,11 +161,22 @@ VIT_SEED = 2024  # the synthetic images' seed, vit_train.py's default
 # learning; 1e-5 (below half a bf16 ulp of most weights, so mostly biases
 # and small weights move) lets them fall
 VIT_LR = 1e-5
+# B17 at benchmark_mm.py's largest square size
+MM_N = 4096
+# B19 at Llama2-1B's attention in bench.py's micro-batch: one instance per
+# (batch element, kv head), G query heads each
+ATTN_LEAD = (TRAIN_B, CFG.num_key_value_heads)
+ATTN_G = CFG.num_attention_heads // CFG.num_key_value_heads
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
 # int8 and fp8 share the 8-bit tensor-core rate; fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
+# special-function operations (exp2, log2, reciprocal) a clock per SM on
+# Hopper: 4 partitions x 4 SFUs; the rate is this times the SMs and the
+# card's maximum SM clock (nvidia-smi), computed in sfu_ops_per_s
+SFU_PER_SM_CLOCK = 16
 # fp32 operations an element of B18's producers, counted from the plain
 # versions: LayerNorm's two sums, centring, scale, affine and the quantize's
 # absmax and cast about 10; GELU's 8 multiplies and adds, tanhf (an exp, a
@@ -162,43 +189,30 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0, bf16_ops: float = 0.0,
+          sfu_ops: float = 0.0) -> tuple[float, str]:
     """The least time in ms the H100 could take for work that must move
     ``nbytes`` (each input read once, each output written once) and do
-    ``int8_ops`` int8 or fp8 operations and ``fp32_ops`` fp32 ones outside
-    the tensor cores, and which bounds it, bytes or operations."""
+    ``int8_ops`` int8 or fp8 operations and ``bf16_ops`` bf16 ones on the
+    tensor cores, ``fp32_ops`` fp32 ones outside them and ``sfu_ops``
+    exponentials on the special-function units, and which bounds it, bytes
+    or operations."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(int8_ops / INT8_OPS_PER_S, fp32_ops / FP32_OPS_PER_S) * 1e3
+    t_ops = max(int8_ops / INT8_OPS_PER_S, fp32_ops / FP32_OPS_PER_S, bf16_ops / BF16_OPS_PER_S,
+                sfu_ops / sfu_ops_per_s() if sfu_ops else 0.0) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(fn, inputs, iters: int = 32) -> float:
-    """Device time of one ``fn(*inputs[i])`` call: ``iters`` calls cycling
-    over ``inputs`` are captured in one CUDA graph, so host launch overhead
-    is left out; replayed after a warm-up and timed with CUDA events.
-    ``inputs`` holds enough copies that large operands come from device
-    memory rather than the 50 MB L2, as weights do on the serving path."""
-    fn(*inputs[0])
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(*inputs[i % len(inputs)])
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (3 * iters)
-
-
-def copies(*tensors) -> list:
-    """Up to 16 copies of the operands, about 64 MB in all (see time_ms)."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    n = min(16, max(1, -(-(64 << 20) // nbytes)))
-    return [tuple(t.clone() for t in tensors) for _ in range(n)]
+@functools.cache
+def sfu_ops_per_s() -> float:
+    """The card's special-function rate: ``SFU_PER_SM_CLOCK`` x its SMs x its
+    maximum SM clock."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = SFU_PER_SM_CLOCK * sms * mhz * 1e6
+    print(f"[3] special-function rate: {SFU_PER_SM_CLOCK} a clock x {sms} SMs x {mhz:.0f} MHz = {rate / 1e12:.3f} T/s")
+    return rate
 
 
 def card() -> str:
@@ -281,15 +295,18 @@ def check_k2(gen: torch.Generator) -> float:
     return worst
 
 
-def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, fp32_ops=0.0):
+def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, fp32_ops=0.0, bf16_ops=0.0,
+           sfu_ops=0.0):
     """One kernel's line of the JSON table; ``launches`` is filled in from
     the run of its path."""
     src = ("int8_quant.cu" if name.startswith("quantize") else
            "fused_adamw.cu" if name.startswith("fused_adamw") else
            "fused_producers.cu" if name.startswith(("rmsnorm", "silu", "layernorm", "gelu")) else
            "rope.cu" if name.startswith(("rope", "ungroup")) else
-           "tile_scaled_mm.cu" if name.startswith("tile_scaled") else "scaled_mm.cu")
-    bound_ms, bound_by = bound(nbytes, int8_ops, fp32_ops)
+           "tile_scaled_mm.cu" if name.startswith("tile_scaled") else
+           "matmul.cu" if name.startswith("matmul") else
+           "int8_attention.cu" if name.startswith("int8_flash") else "scaled_mm.cu")
+    bound_ms, bound_by = bound(nbytes, int8_ops, fp32_ops, bf16_ops, sfu_ops)
     return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
             "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
             "plain_ms": timed[2], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
@@ -937,6 +954,97 @@ def check_attention_layout(key: int) -> None:
     check(not copying, f"no layout copy around SDPA: {copying}")
 
 
+def check_b17(gen: torch.Generator) -> list:
+    """B17 at ``MM_N``^3, both forms, against its plain version (the float64
+    product rounded once): bf16 -> fp32 within ``fp32_sum_bound`` (an fp32
+    sum in the kernel's order), bf16 -> bf16 a bf16 rounding of a value
+    within it, int8 -> int32 bit-exact. Timed beside ``torch.matmul`` (bf16
+    out) and ``torch._int_mm``; bound by the bf16 or int8 tensor-core rate."""
+    n = MM_N
+    a = torch.randn(n, n, generator=gen, device=DEVICE).to(torch.bfloat16)
+    b = torch.randn(n, n, generator=gen, device=DEVICE).to(torch.bfloat16)
+    exact, fold = a.double() @ b.double(), MATMUL.fp32_sum_bound(a, b)
+    got32, got16 = ops.matmul(a, b), ops.matmul(a, b, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    d32 = (got32.double() - exact).abs()
+    check(bool((d32 <= fold).all()), f"B17 bf16 -> fp32 within the fp32 sum bound at {n}^3")
+    check(benchmark_mm.within_rounding(got16, exact, fold), f"B17 bf16 -> bf16 a rounding within the bound at {n}^3")
+    err16 = (got16.double() - ops.matmul_plain(a, b, out_dtype=torch.bfloat16).double()).abs().max().item()
+    a8 = torch.randint(-128, 128, (n, n), generator=gen, device=DEVICE, dtype=torch.int8)
+    b8 = torch.randint(-128, 128, (n, n), generator=gen, device=DEVICE, dtype=torch.int8)
+    got8 = ops.matmul(a8, b8)
+    torch.cuda.synchronize()
+    check(torch.equal(got8, ops.matmul_plain(a8, b8)), f"B17 int8 bit-exact at {n}^3")
+    entries, flops = [], 2.0 * n ** 3
+    for name, args, kernel, plain, library, lib_name, out_bytes, peak in (
+            ("matmul", (a, b), partial(ops.matmul, out_dtype=torch.bfloat16),
+             partial(ops.matmul_plain, out_dtype=torch.bfloat16), torch.matmul, "torch.matmul", 2, "bf16"),
+            ("matmul_s8", (a8, b8), ops.matmul, ops.matmul_plain, torch._int_mm, "torch._int_mm", 4, "int8")):
+        inputs = copies(*args)
+        ms, plain_ms = time_ms(kernel, inputs, iters=8), time_ms(plain, inputs, iters=4)
+        library_ms = lib_ms(lib_name, library, inputs)
+        nbytes = 2 * n * n * args[0].element_size() + out_bytes * n * n
+        ops_kw = {"bf16_ops": flops} if peak == "bf16" else {"int8_ops": flops}
+        b_ms, by = bound(nbytes, **ops_kw)
+        held = (f"within its bound (max |kernel - plain| {err16:.3e} in bf16; fp32 out at "
+                f"{(d32 / fold).max().item():.4f} of the fp32 sum bound)" if peak == "bf16" else "bit-exact")
+        print(f"[3] matmul (B17, {peak}) {n}x{n}x{n} -> {'bf16' if peak == 'bf16' else 'int32'}: {held}; kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} {peak} TOP/s, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), "
+              f"plain (float64 matmul) {plain_ms:.4f} ms, {lib_name} "
+              f"{'refused' if library_ms is None else f'{library_ms:.4f} ms'}")
+        entries.append(_entry(name, "quantized_training_tpu/ops/pallas_mm.py:537", err16 if peak == "bf16" else 0.0,
+                              ((n, n, n), ms, plain_ms), nbytes, library_ms=library_ms, **ops_kw))
+    return entries
+
+
+def attention_inputs(gen: torch.Generator):
+    """bf16 q [*ATTN_LEAD, ATTN_G, S, hd] and k, v [*ATTN_LEAD, S, hd] at
+    Llama2-1B's attention in bench.py's micro-batch."""
+    S, hd = TRAIN_S, CFG.head_dim
+    q = torch.randn(*ATTN_LEAD, ATTN_G, S, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    k = torch.randn(*ATTN_LEAD, S, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    v = torch.randn(*ATTN_LEAD, S, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    return q, k, v
+
+
+def sdpa_grouped(q, k, v):
+    """``F.scaled_dot_product_attention`` in bf16 on B19's q, k and v (q's
+    groups as heads, GQA over the kv heads): the library yardstick."""
+    B, KV, G, S, hd = q.shape
+    return torch.nn.functional.scaled_dot_product_attention(q.reshape(B, KV * G, S, hd), k, v, is_causal=True,
+                                                            enable_gqa=True)
+
+
+def check_b19(gen: torch.Generator) -> dict:
+    """B19 at Llama2-1B's attention (``ATTN_LEAD`` instances, block_kv 512)
+    against its plain version on the card, within
+    ``ops/int8_attention.py::agreement``; timed beside SDPA in bf16 on the
+    same q, k, v. Bound: each input read once, out and lse written once;
+    the causal triangle's int8 products (QK and PV) and its exponentials."""
+    q, k, v = attention_inputs(gen)
+    qkv = ops.quantize_qkv(q, k, v)
+    out, lse = ops.int8_flash_fwd(*qkv)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = ops.int8_flash_fwd_plain(*qkv)
+    ok, err, share = ATTN.agreement(out, lse, ref_out, ref_lse, qkv[5])
+    check(ok, f"B19 within its bound of the plain version (max |out - plain| {err:.3e}, {share:.3e} differ)")
+    inputs = copies(*qkv)
+    ms, plain_ms = time_ms(ops.int8_flash_fwd, inputs, iters=8), time_ms(ops.int8_flash_fwd_plain, inputs[:1], iters=2)
+    library_ms = lib_ms("SDPA", sdpa_grouped, copies(q, k, v))
+    n_inst, (G, S, hd) = int(np.prod(ATTN_LEAD)), q.shape[-3:]
+    pairs = n_inst * G * S * (S + 1) // 2  # the causal triangle's (row, column) pairs
+    nbytes = n_inst * (G * S * hd * 3 + G * S * 8 + 2 * S * hd + 2 * S * 4)  # q, k, v, scales in; out, lse out
+    b_ms, by = bound(nbytes, int8_ops=4 * pairs * hd, sfu_ops=pairs)
+    print(f"[3] int8_flash_fwd (B19) {list(q.shape)} causal, block_kv 512: within its bound of the plain version "
+          f"(max |out - plain| {err:.3e}, {share:.3e} of the elements differ, lse max "
+          f"{(lse - ref_lse).abs().max().item():.3e}); kernel {ms:.4f} ms ({4 * pairs * hd / ms / 1e9:.1f} TOP/s, "
+          f"{pairs / ms / 1e9:.3f} T exp/s, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), plain "
+          f"{plain_ms:.3f} ms, SDPA bf16 {'refused' if library_ms is None else f'{library_ms:.4f} ms'}")
+    return _entry("int8_flash_fwd", "quantized_training_tpu/ops/int8_attention.py:117", err,
+                  (tuple(q.shape), ms, plain_ms), nbytes, int8_ops=4 * pairs * hd, library_ms=library_ms,
+                  sfu_ops=pairs)
+
+
 def mixed_requests(vocab: int):
     rng = np.random.default_rng(SEED)
     return [(rng.integers(1, vocab, size=MIX_PROMPTS[i % 4]).tolist(), MIX_BUDGETS[i % 4])
@@ -1521,6 +1629,65 @@ def vit_giant_step(seed: int, key: int):
     return runs["int8"][2], runs["int8 SR"][2]
 
 
+def benchmark_mm_phase() -> dict:
+    """Phase 12: ``benchmark_mm``'s ``main`` at 1024/2048/4096 with every
+    gate (B1, B15-s8, B17 bf16 and int8), its table, then its training
+    shapes; returns the launches of the run."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = benchmark_mm.main(["--sizes", "1024", "2048", "4096"])
+    benchmark_mm.main(["--train-shapes"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"[12] benchmark_mm at {list(rows)}: every gate passed, {time.perf_counter() - t0:.1f} s; B17 launches "
+          f"bf16 {launches['matmul']}, int8 {launches['matmul_s8']}; B1 {launches['scaled_mm']}, B15-s8 "
+          f"{launches['tile_scaled_mm_s8']}")
+    return launches
+
+
+def int8_attention_phase(seed: int) -> dict:
+    """Phase 13: B19 as the JAX package's op runs it, at Llama2-1B's
+    attention (``ATTN_LEAD`` instances, G 8, S 2048, hd 64, block_kv 512):
+    the oracle checks of its test (mean relative error below 0.05 against the
+    bf16 oracle, lse within 1e-4 of the explicit logsumexp of the quantized
+    scores) and causality (k and v changed from row 3 S / 4 on leave every
+    earlier row of out and lse bit-identical). Returns the launches."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v = attention_inputs(gen)
+    q, k = q * 0.5, k * 0.5  # the JAX test's scales
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    qi, qs, ki, ks, vi, vs = ops.quantize_qkv(q, k, v)
+    out, lse = ops.int8_flash_fwd(qi, qs, ki, ks, vi, vs)
+    S = q.shape[-2]
+    cut = 3 * S // 4
+    k2, v2 = k.clone(), v.clone()
+    k2[..., cut:, :] = torch.randn(k2[..., cut:, :].shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    v2[..., cut:, :] = torch.randn(v2[..., cut:, :].shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    out2, lse2 = ops.int8_flash_fwd(*ops.quantize_qkv(q, k2, v2))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["int8_flash_fwd"] == 2 and sum(launches.values()) == 2, f"two B19 launches: {launches}")
+    check(bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()), "B19's out and lse are finite")
+    ref = ops.attention_ref(q, k, v).float()
+    rel = ((out.float() - ref).abs().mean() / ref.abs().mean()).item()
+    check(rel < 0.05, f"B19 mean relative error {rel:.3e} below 0.05")
+    s = (qi.float() * qs) @ (ki.float() * ks.unsqueeze(-1)).unsqueeze(-3).transpose(-1, -2)
+    s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool, device=DEVICE).tril(), float("-inf"))
+    lse_err = (lse[..., 0] - torch.logsumexp(s, dim=-1)).abs()
+    lse_ref = torch.logsumexp(s, dim=-1).abs()
+    check(bool((lse_err <= 1e-4 + 1e-4 * lse_ref).all()), f"B19 lse within 1e-4 ({lse_err.max().item():.3e})")
+    causal = torch.equal(out[..., :cut, :], out2[..., :cut, :]) and torch.equal(lse[..., :cut, :], lse2[..., :cut, :])
+    check(causal and not torch.equal(out[..., cut:, :], out2[..., cut:, :]),
+          f"B19's rows before {cut} bit-identical when k and v change from {cut} on")
+    print(f"[13] int8_flash_fwd at {list(q.shape)} (Llama2-1B attention, bench.py's micro-batch), block_kv 512: "
+          f"mean relative error against the bf16 oracle {rel:.3e} (bound 0.05); lse max error "
+          f"{lse_err.max().item():.3e} (bound 1e-4 + 1e-4 |lse|); rows before {cut} bit-identical under changed "
+          f"future k and v; launches {launches['int8_flash_fwd']}")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=SEED,
@@ -1538,6 +1705,7 @@ def main() -> None:
     producers = check_fused_producers(gen, key)
     producers += check_silu_bwd(gen, key) + check_rope(gen, key)
     b18 = check_b18(gen, key)
+    b17, b19 = check_b17(gen), check_b19(gen)
     check_attention_layout(key)
     launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
     for e in serving:
@@ -1570,7 +1738,11 @@ def main() -> None:
     rn_launches, sr_launches = vit_giant_step(SEED, key)
     for e in b18:
         e["launches"] = (sr_launches if e["name"].endswith("_sr") else rn_launches)[e["name"]]
-    kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18
+    launches = benchmark_mm_phase()
+    for e in b17:
+        e["launches"] = launches[e["name"]]
+    b19["launches"] = int8_attention_phase(SEED)["int8_flash_fwd"]
+    kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18 + b17 + [b19]
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

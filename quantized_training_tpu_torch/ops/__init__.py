@@ -44,7 +44,16 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   ``ops/pallas_fused.py::_producer_quant_call`` through its
   ``layernorm_quant`` and ``gelu_quant``: the ViT's fused linears; each form
   counts apart (``layernorm_quant_rowwise``, ``layernorm_quant_colwise``,
-  ``gelu_quant_rowwise``, ``gelu_quant_colwise``).
+  ``gelu_quant_rowwise``, ``gelu_quant_colwise``);
+- B17 :func:`matmul` (``csrc/matmul.cu``), the plain tiled matmul (bf16 ->
+  fp32 accumulator -> fp32 or bf16, int8 -> int32), replacing
+  ``ops/pallas_mm.py::matmul``: ``benchmark_mm``'s ``pallas_bf16`` row; the
+  forms count apart (``matmul`` bf16, ``matmul_s8`` int8);
+- B19 :func:`int8_flash_fwd` (``csrc/int8_attention.cu``), the causal int8
+  flash-attention forward, with its input quantize :func:`quantize_qkv` and
+  oracle :func:`attention_ref`, replacing
+  ``ops/int8_attention.py::int8_flash_fwd``: an op, wired into no model, as
+  in the JAX package.
 
 K1, B4, B5, B7, B8, B9, B11, B12, B14's quantize and B18 also have a
 stochastic-rounding form, and B6 an SR writeback,
@@ -85,6 +94,7 @@ from .fused_producers import (
     silu_mul_quant_rowwise_plain,
 )
 from .int4_mm import int4_mm, scaled_int4_mm, scaled_int4_mm_plain, unpack_int4
+from .int8_attention import attention_ref, int8_flash_fwd, int8_flash_fwd_plain, quantize_qkv
 from .int8_quant import (
     quantize_int8_both,
     quantize_int8_both_plain,
@@ -92,6 +102,7 @@ from .int8_quant import (
     quantize_int8_plain,
     quantize_int8_rowwise,
 )
+from .matmul import matmul, matmul_plain
 from .rope import (
     rope_group_kernel,
     rope_group_ref,
@@ -156,6 +167,9 @@ KERNELS = {
     "gelu_quant_rowwise_sr": (gelu_quant_rowwise, "sr_launches"),
     "gelu_quant_colwise": (gelu_quant_colwise, "launches"),
     "gelu_quant_colwise_sr": (gelu_quant_colwise, "sr_launches"),
+    "matmul": (matmul, "launches"),
+    "matmul_s8": (matmul, "s8_launches"),
+    "int8_flash_fwd": (int8_flash_fwd, "launches"),
 }
 
 
@@ -175,6 +189,7 @@ __all__ = [
     "reset_launch_counts",
     "fp8",
     "random",
+    "attention_ref",
     "fused_adamw_plain",
     "fused_adamw_update",
     "gelu_quant",
@@ -182,15 +197,20 @@ __all__ = [
     "gelu_quant_plain",
     "gelu_quant_rowwise",
     "int4_mm",
+    "int8_flash_fwd",
+    "int8_flash_fwd_plain",
     "layernorm_quant",
     "layernorm_quant_colwise",
     "layernorm_quant_plain",
     "layernorm_quant_rowwise",
+    "matmul",
+    "matmul_plain",
     "quantize_int8_both",
     "quantize_int8_both_plain",
     "quantize_int8_colwise",
     "quantize_int8_plain",
     "quantize_int8_rowwise",
+    "quantize_qkv",
     "rmsnorm_bwd",
     "rmsnorm_bwd_plain",
     "rmsnorm_quant_colwise",

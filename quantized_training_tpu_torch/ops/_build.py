@@ -3,7 +3,7 @@
 ``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
 (``philox.cuh``, the random stream, is included by four of them,
 ``row_common.cuh``, the row-walking kernels' building blocks, by two, and
-``mm_tiles.cuh``, the wmma GEMMs' tile copies, by two): one ``nvcc
+``mm_tiles.cuh``, the wmma GEMMs' tile copies, by four): one ``nvcc
 -c`` per source, all started together, then one link into a shared library,
 which it loads with ``ctypes``. The library carries a plain C interface (no
 PyTorch headers), so a build takes seconds: 5.5-6.3 s for ``int8_quant.cu``
@@ -16,8 +16,9 @@ is kept beside it as ``build.log``.
 
 Every entry point returns the launch's ``cudaError_t``; the wrappers in
 ``ops/int8_quant.py``, ``ops/scaled_mm.py``, ``ops/int4_mm.py``,
-``ops/tile_scaled_mm.py``, ``ops/fused_adamw.py``, ``ops/fused_producers.py``
-and ``ops/rope.py`` raise when it is not 0.
+``ops/tile_scaled_mm.py``, ``ops/fused_adamw.py``, ``ops/fused_producers.py``,
+``ops/rope.py``, ``ops/matmul.py`` and ``ops/int8_attention.py`` raise when it
+is not 0.
 """
 
 from __future__ import annotations
@@ -106,6 +107,10 @@ _SIGNATURES = {
     "qt_scaled_int4_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, b, sa, sb, out, M, N, K, qm, qk, qn, is_fp8, scale_bf16, out_bf16, stream
     "qt_tile_scaled_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, b, out, M, N, K, is_bf16, out_bf16, a_vec, b_vec, stream
+    "qt_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # q, qs, k, ks, v, vs, out, lse, n_inst, G, S, hd, bkv, causal, stream
+    "qt_int8_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,4 +1,5 @@
-// Building blocks of the wmma GEMMs (scaled_mm.cu, tile_scaled_mm.cu): a
+// Building blocks of the wmma GEMMs (scaled_mm.cu, tile_scaled_mm.cu,
+// matmul.cu, int8_attention.cu): a
 // thread's share of an operand tile, copied from device memory through
 // registers into shared memory in 16x16 fragment blocks, and the address of
 // one fragment there.
@@ -16,7 +17,13 @@
 //   (K-major only): half the bytes cross device memory, and the load stage
 //   sign-extends each 8-byte chunk to 16 int8 values in registers;
 // - E4M3: fp8 e4m3, widened to fp16 on the way into shared memory (exact:
-//   every e4m3 value is an fp16 value), since wmma has no fp8 fragment.
+//   every e4m3 value is an fp16 value), since wmma has no fp8 fragment;
+// - BF16: bf16, copied as it is (a 16-value chunk is 32 bytes).
+//
+// fetch() needs whole, 16-byte aligned chunks (K % 16 == 0 along a K-major
+// operand, rows % 16 == 0 along an MN-major one) of 1-byte or packed values;
+// fetch_masked() takes int8 or bf16 at any shape and zero-fills value by
+// value at a ragged edge (matmul.cu).
 
 #pragma once
 
@@ -30,10 +37,15 @@
 
 namespace qt_mm {
 
-enum class Src { S8, S4, E4M3 };
+enum class Src { S8, S4, E4M3, BF16 };
 
 template <Src S>
-using SmemT = std::conditional_t<S == Src::E4M3, __half, int8_t>;
+using SmemT = std::conditional_t<S == Src::E4M3, __half, std::conditional_t<S == Src::BF16, __nv_bfloat16, int8_t>>;
+
+// 16 bf16 values in registers
+struct Raw32 {
+  uint4 lo, hi;
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -76,10 +88,12 @@ struct TileCopy {
   static constexpr int CH = KMAJOR ? BK / 16 : R / 16;  // chunks along the contiguous axis
   static constexpr int ITERS = R * BK / 16 / NT;
   static_assert(R * BK / 16 % NT == 0, "every thread copies the same number of chunks");
-  using Raw = std::conditional_t<S == Src::S4, uint2, uint4>;  // 16 values in device memory
+  // 16 values in device memory
+  using Raw = std::conditional_t<S == Src::S4, uint2, std::conditional_t<S == Src::BF16, Raw32, uint4>>;
   Raw v[ITERS];
 
   __device__ __forceinline__ void fetch(const void* __restrict__ src, int r0, int rows, int k0, int K) {
+    static_assert(S != Src::BF16, "bf16 operands load through fetch_masked");
     const uint8_t* base = static_cast<const uint8_t*>(src);
 #pragma unroll
     for (int it = 0; it < ITERS; ++it) {
@@ -103,6 +117,61 @@ struct TileCopy {
     }
   }
 
+  // fetch() for any shape (S8 and BF16): a chunk wholly inside [0, rows) x
+  // [0, K) is one vector load where ``vec`` (the operand's rows start on
+  // 16-byte boundaries), every other chunk is read value by value, zero
+  // outside.
+  __device__ __forceinline__ void fetch_masked(const void* __restrict__ src, int r0, int rows, int k0, int K,
+                                               bool vec) {
+    static_assert(S == Src::S8 || S == Src::BF16, "masked loads of unpacked operands");
+    using V = std::conditional_t<S == Src::BF16, uint16_t, uint8_t>;
+    const V* base = static_cast<const V*>(src);
+#pragma unroll
+    for (int it = 0; it < ITERS; ++it) {
+      const int idx = threadIdx.x + it * NT, slow = idx / CH, c = idx % CH;
+      // the chunk's first value (gr, gk), its offset, and how many of its
+      // (consecutive) values lie inside
+      int gr, gk, n_in;
+      int64_t off;
+      if constexpr (KMAJOR) {
+        gr = r0 + slow, gk = k0 + c * 16;
+        n_in = gr < rows ? min(16, max(0, K - gk)) : 0;
+        off = static_cast<int64_t>(gr) * K + gk;
+      } else {
+        gk = k0 + slow, gr = r0 + c * 16;
+        n_in = gk < K ? min(16, max(0, rows - gr)) : 0;
+        off = static_cast<int64_t>(gk) * rows + gr;
+      }
+      if (n_in == 16 && vec) {
+        const uint4* p = reinterpret_cast<const uint4*>(base + off);
+        if constexpr (S == Src::BF16) {
+          v[it] = Raw32{p[0], p[1]};
+        } else {
+          v[it] = p[0];
+        }
+      } else {
+        V vals[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) vals[e] = e < n_in ? base[off + e] : V(0);
+        uint32_t w[8];
+#pragma unroll
+        for (int e = 0; e < 16 / (4 / sizeof(V)); ++e) {
+          if constexpr (sizeof(V) == 2) {
+            w[e] = vals[2 * e] | (static_cast<uint32_t>(vals[2 * e + 1]) << 16);
+          } else {
+            w[e] = vals[4 * e] | (static_cast<uint32_t>(vals[4 * e + 1]) << 8) |
+                   (static_cast<uint32_t>(vals[4 * e + 2]) << 16) | (static_cast<uint32_t>(vals[4 * e + 3]) << 24);
+          }
+        }
+        if constexpr (S == Src::BF16) {
+          v[it] = Raw32{make_uint4(w[0], w[1], w[2], w[3]), make_uint4(w[4], w[5], w[6], w[7])};
+        } else {
+          v[it] = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    }
+  }
+
   __device__ __forceinline__ void store(SmemT<S>* __restrict__ dst) const {
 #pragma unroll
     for (int it = 0; it < ITERS; ++it) {
@@ -110,6 +179,9 @@ struct TileCopy {
       SmemT<S>* p = dst + (KMAJOR ? c * R + slow : c * BK + slow) * 16;
       if constexpr (S == Src::S8) {
         *reinterpret_cast<uint4*>(p) = v[it];
+      } else if constexpr (S == Src::BF16) {
+        reinterpret_cast<uint4*>(p)[0] = v[it].lo;
+        reinterpret_cast<uint4*>(p)[1] = v[it].hi;
       } else if constexpr (S == Src::S4) {
         *reinterpret_cast<uint4*>(p) = unpack_s4(v[it]);
       } else {

@@ -1,0 +1,98 @@
+"""The plain tiled matmul: kernel B17 and its plain version.
+
+Counterpart of ``quantized_training_tpu/ops/pallas_mm.py::matmul`` (:537),
+which B17 replaces: ``A[M, K] . B[K, N]`` with an int32 accumulator for int8
+operands and fp32 otherwise (``_acc_dtype``, :45), every K block added into
+it, cast once to ``out_dtype`` (the accumulator's type by default). Its only
+caller outside the tests is ``benchmark_mm.py``'s ``pallas_bf16`` row, and
+the port's ``benchmark_mm`` runs it the same way.
+
+The forms any caller of the JAX function uses:
+
+- bf16 operands, fp32 accumulator, fp32 or bf16 out;
+- int8 operands, int32 accumulator, int32 out.
+
+B17 is ``csrc/matmul.cu``; its header says what bounds it on the H100 and how
+the design answers that.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# (operand dtype, accumulator dtype) -> the output dtypes it takes
+FORMS = {
+    (torch.bfloat16, torch.float32): (torch.float32, torch.bfloat16),
+    (torch.int8, torch.int32): (torch.int32,),
+}
+
+
+def _form(a, b, acc_dtype, out_dtype):
+    """(acc_dtype, out_dtype) of the call, or TypeError naming the forms."""
+    acc_dtype = acc_dtype or (torch.int32 if a.dtype == torch.int8 else torch.float32)
+    out_dtype = out_dtype or acc_dtype
+    if a.dtype != b.dtype or out_dtype not in FORMS.get((a.dtype, acc_dtype), ()):
+        raise TypeError(
+            f"matmul: operands {a.dtype}, {b.dtype} with accumulator {acc_dtype} and out {out_dtype}; the forms are "
+            "bf16 x bf16 -> fp32 accumulator -> fp32 or bf16 out, and int8 x int8 -> int32 accumulator -> int32 out")
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul: shapes {tuple(a.shape)} . {tuple(b.shape)}")
+    return acc_dtype, out_dtype
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None, out_dtype=None) -> torch.Tensor:
+    """Plain version of B17: the product in float64 (exact for int8 operands,
+    |sum| < 2**53; within 2**-53 relative of each partial sum for bf16),
+    rounded to the accumulator's type, then cast to ``out_dtype``."""
+    acc_dtype, out_dtype = _form(a, b, acc_dtype, out_dtype)
+    return (a.double() @ b.double()).to(acc_dtype).to(out_dtype)
+
+
+def fp32_sum_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise bound, in float64, on |fp32 sum in any order - the plain
+    version's fp32|: ``K * 2**-24 * (|a| . |b|)``. A recursive fp32 sum of K
+    exact products (a bf16 product is exact in fp32) is within (K - 1) *
+    2**-24 of the sum of their magnitudes, and the plain version's single
+    rounding within 2**-24 of it: the tolerance of B17's bf16 form (and of
+    the JAX kernel's blocked fp32 sums) against :func:`matmul_plain`."""
+    return a.shape[1] * 2.0**-24 * (a.double().abs() @ b.double().abs())
+
+
+def _launch(a, b, out_dtype):
+    if not (a.is_cuda and b.device == a.device):
+        raise ValueError("matmul: both operands must be on one CUDA device")
+    a, b = a.contiguous(), b.contiguous()
+    (M, K), N = a.shape, b.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    vb = a.element_size()
+    err = _build.library().qt_matmul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(a.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), int(a.data_ptr() % 16 == 0 and K * vb % 16 == 0),
+        int(b.data_ptr() % 16 == 0 and N * vb % 16 == 0), _build.stream(),
+    )
+    _build.check(err, "matmul")
+    return out
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None, out_dtype=None) -> torch.Tensor:
+    """``out[M, N] = a[M, K] . b[K, N]`` accumulated in ``acc_dtype`` (int32
+    for int8 operands, fp32 for bf16 by default) and cast to ``out_dtype``
+    (the accumulator's type by default); other forms raise TypeError. A CPU
+    tensor takes :func:`matmul_plain`; CUDA tensors launch B17 on the current
+    stream, at any shape. Launches count per operand type (``launches``
+    bf16, ``s8_launches`` int8)."""
+    _, out_dtype = _form(a, b, acc_dtype, out_dtype)
+    if a.device.type == "cpu":
+        return matmul_plain(a, b, acc_dtype=acc_dtype, out_dtype=out_dtype)
+    out = _launch(a, b, out_dtype)
+    if a.dtype == torch.int8:
+        matmul.s8_launches += 1
+    else:
+        matmul.launches += 1
+    return out
+
+
+matmul.launches = 0
+matmul.s8_launches = 0

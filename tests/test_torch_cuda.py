@@ -4,14 +4,18 @@ Marked ``cuda``: without a CUDA card every test here skips (decided in a
 fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
 this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16,
-B15's int8 form and B18's GELU forms — each is bit-exact with its plain
+B15's int8 form, B17's int8 form and B18's GELU forms — each is bit-exact with its plain
 version by construction. B15's e4m3 form sums a block in the tensor core in
 fp32: within (QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8, B10
 and B18's LayerNorm forms hold a row sum that the kernel takes in its own
 fixed order: int8 within one step on at
 most 1e-3 of the elements, scales and column maxima within 1e-6 relative, dx
 within 2 bf16 ulps (below 2**-20 of max|dx|, where the closed form cancels,
-within that), dgamma within 1e-5 of max|dgamma|.
+within that), dgamma within 1e-5 of max|dgamma|. B17's bf16 form sums in fp32
+in its own order: a rounding of a value within ``fp32_sum_bound`` of the
+float64 product. B19 differs from its plain version in the order of p's row
+sums (and in any exponential rounded otherwise):
+``ops/int8_attention.py::agreement``.
 """
 
 import importlib
@@ -20,9 +24,12 @@ import pytest
 import torch
 
 from quantized_training_tpu_torch import ops
+from quantized_training_tpu_torch.benchmark_mm import within_rounding
 
-# the module: the ops package exports a function of its name
+# the modules: the ops package exports functions of their names
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
+MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
+ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 
 pytestmark = pytest.mark.cuda
 
@@ -635,6 +642,90 @@ def test_launch_counters_count_kernel_launches_only():
     ops.tile_scaled_mm(e4m3, e4m3.T.contiguous(), ones_m, one)
     ops.tile_scaled_mm_plain(e4m3, e4m3.T.contiguous(), ones_m, one)
     ops.scaled_mm(e4m3, e4m3.T.contiguous(), ones_m, ones_m.T)  # fp8 row scales: plain torch
+    ops.matmul(y, y.T.contiguous())
+    ops.matmul(q, q.T.contiguous())
+    ops.matmul_plain(y, y.T.contiguous())
+    qkv = ops.quantize_qkv(_rand((2, 64, 64), torch.bfloat16, 4), y[:, :64], y[:, 64:])
+    ops.int8_flash_fwd(*qkv)
+    ops.int8_flash_fwd_plain(*qkv)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 1, 1), (7, 1000, 33), (200, 300, 136), (64, 64, 64), (130, 2048, 200),
+                                   (1024, 1024, 1024), (4096, 4096, 4096)])
+def test_matmul_forms(M, K, N):
+    """B17 at aligned and ragged shapes (masked value by value at the
+    edges): int8 -> int32 bit-exact; bf16 -> fp32 / bf16 a rounding of a
+    value within the fp32 sum bound of the float64 product."""
+    g = torch.Generator(device="cuda").manual_seed(M + K + N)
+    a8 = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    b8 = torch.randint(-128, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    out = ops.matmul(a8, b8)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and torch.equal(out, ops.matmul_plain(a8, b8))
+    a = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(K, N, generator=g, device="cuda").to(torch.bfloat16)
+    exact, bound = a.double() @ b.double(), MATMUL.fp32_sum_bound(a, b)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = ops.matmul(a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and within_rounding(got, exact, bound)
+
+
+def test_matmul_unaligned_views_and_refusals():
+    """Operands off a 16-byte boundary take the value-by-value loads; other
+    forms raise TypeError."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base = torch.randn(64 * 96 + 1, generator=g, device="cuda").to(torch.bfloat16)
+    a = base[1:].view(64, 96)
+    b = torch.randn(96, 40, generator=g, device="cuda").to(torch.bfloat16)
+    assert within_rounding(ops.matmul(a, b), a.double() @ b.double(), MATMUL.fp32_sum_bound(a, b))
+    with pytest.raises(TypeError):
+        ops.matmul(a.float(), b.float())
+    with pytest.raises(TypeError):
+        ops.matmul(a, b, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("lead,G,S,hd,bkv,causal", [
+    ((), 4, 256, 64, 128, True),
+    ((), 2, 256, 64, 256, True),
+    ((), 1, 128, 128, 128, True),
+    ((2, 2), 8, 1024, 64, 512, True),
+    ((3,), 2, 512, 128, 64, True),
+    ((), 2, 256, 64, 128, False),
+    ((2,), 4, 2048, 64, 512, True),
+])
+def test_int8_flash_fwd_against_plain(lead, G, S, hd, bkv, causal):
+    g = torch.Generator(device="cuda").manual_seed(S + hd + bkv)
+    q = (torch.randn(*lead, G, S, hd, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    k = (torch.randn(*lead, S, hd, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    v = torch.randn(*lead, S, hd, generator=g, device="cuda").to(torch.bfloat16)
+    qkv = ops.quantize_qkv(q, k, v)
+    out, lse = ops.int8_flash_fwd(*qkv, causal=causal, block_kv=bkv)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = ops.int8_flash_fwd_plain(*qkv, causal=causal, block_kv=bkv)
+    assert out.shape == ref_out.shape and lse.shape == ref_lse.shape
+    ok, err, share = ATTN.agreement(out, lse, ref_out, ref_lse, qkv[5])
+    assert ok, (err, share)
+    if causal:
+        rel = (out.float() - ops.attention_ref(q, k, v).float()).abs().mean() / v.float().abs().mean()
+        assert rel < 0.05, rel
+
+
+def test_int8_flash_fwd_causality_and_refusals():
+    g = torch.Generator(device="cuda").manual_seed(2)
+    G, S, hd = 2, 512, 64
+    q, k, v = (torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16) for s in ((G, S, hd), (S, hd), (S, hd)))
+    base = ops.int8_flash_fwd(*ops.quantize_qkv(q, k, v), block_kv=256)
+    k2, v2 = k.clone(), v.clone()
+    k2[300:] = -k2[300:]
+    v2[300:] = 2 * v2[300:]
+    pert = ops.int8_flash_fwd(*ops.quantize_qkv(q, k2, v2), block_kv=256)
+    assert torch.equal(base[0][:, :300], pert[0][:, :300]) and torch.equal(base[1][:, :300], pert[1][:, :300])
+    qkv = ops.quantize_qkv(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="hd 64 or 128"):
+        ops.int8_flash_fwd(*qkv)
+    with pytest.raises(ValueError, match="up to 512"):
+        ops.int8_flash_fwd(*ops.quantize_qkv(q.repeat(1, 2, 1), k.repeat(2, 1), v.repeat(2, 1)), block_kv=1024)

@@ -50,7 +50,7 @@ def test_no_file_imports_jax():
 def test_kernel_sources_present():
     names = {p.name for p in _build.sources()}
     assert names == {"int8_quant.cu", "scaled_mm.cu", "fused_adamw.cu", "fused_producers.cu", "rope.cu",
-                     "tile_scaled_mm.cu"}
+                     "tile_scaled_mm.cu", "matmul.cu", "int8_attention.cu"}
     assert all((_build.CSRC / h).exists() for h in ("philox.cuh", "row_common.cuh", "mm_tiles.cuh"))
 
 
