@@ -29,13 +29,17 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
    within ``ops/int8_attention.py::agreement`` of its plain version, beside
    SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
-   of the roofline; then the strides SDPA takes and returns in the grouped
-   pipeline, which must run no layout copy;
+   of the roofline; K2 at every shape and B17 bf16 also on the route they
+   took (K2 above 16 rows and B17 bf16 on the TMA + wgmma mainloop of
+   ``sm90_gemm.cuh``, K2's decode on its wmma tile; each call checked to
+   take it) beside their wmma kernels' time (``WMMA_US``); then the strides SDPA
+   takes and returns in the grouped pipeline, which must run no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
-   16/32/48/64); launch counts prove the kernels ran; two streams are held
-   against ``generate()``;
+   16/32/48/64); launch counts prove the kernels ran, K2's decode launches
+   (M <= 16) on the wmma tile and its prefill launches on the sm90 route;
+   two streams are held against ``generate()``;
 5. kernel path against plain path: prefill logits of a 2-layer cut on the
    card against the same model on the CPU (plain versions);
 6. the training slice: three int8 ``mixed_precision`` train steps of
@@ -43,8 +47,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    SDPA attention on the grouped pipeline, AdamW, the producer-fused layer:
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
-   of times the code implies, and the same steps in bf16 start from the
-   same loss;
+   of times the code implies (every K2 launch on the sm90 route, here and
+   in phases 8, 9 and 11), and the same steps in bf16 start from the same
+   loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
    rounding from one key, on the card against the CPU, both on the grouped
@@ -80,7 +85,7 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 12. ``benchmark_mm`` (``python -m quantized_training_tpu_torch.benchmark_mm``)
    at 1024/2048/4096: its gates (B1 and B17 int8 exact, B15-s8 and B17 bf16
    within their bounds), its rows and table, then its training shapes; B17's
-   launches come from here;
+   launches come from here, every bf16 one on the sm90 route;
 13. B19 as the JAX package's op: at phase 3's shape, the oracle checks of
    its test (mean relative error below 0.05 against the bf16 oracle, lse
    within 1e-4 of the explicit logsumexp) and causality (k and v changed
@@ -88,10 +93,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
-kernel's launches on its path, its error against the plain version, its
-time, the plain version's, the least time the H100 could take for the same
-work, what bounds that time, and the library call's time where one
-exists), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+kernel's launches on its path, for K2 and B17 also those on the sm90 route
+(``sm90_launches``), its error against the plain version, its time, the
+plain version's, the least time the H100 could take for the same work, what
+bounds that time, and the library call's time where one exists), the
+nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -124,6 +130,7 @@ from quantized_training_tpu_torch.utils.tree import tree_leaves
 # the modules: the ops package exports functions of their names
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
+SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
@@ -163,6 +170,14 @@ VIT_SEED = 2024  # the synthetic images' seed, vit_train.py's default
 VIT_LR = 1e-5
 # B17 at benchmark_mm.py's largest square size
 MM_N = 4096
+# K2 (M, N, K) and B17 bf16 (MM_N^3) on their wmma kernels, before the sm90
+# mainloop took them: us per call in phase 3 of this script's last run on
+# those kernels (H100 80GB HBM3, 700 W; PERF.md section 6), printed beside
+# this run's times
+WMMA_US = {(8, D, D): 11.2, (8, KVD, D): 7.3, (8, F, D): 15.0, (8, D, F): 26.1,
+          (512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
+          (TOKENS, D, D): 330.8, (TOKENS, KVD, D): 44.3, (TOKENS, F, D): 890.2, (TOKENS, D, F): 851.5,
+          (MM_N, MM_N, MM_N): 1694.1}
 # B19 at Llama2-1B's attention in bench.py's micro-batch: one instance per
 # (batch element, kv head), G query heads each
 ATTN_LEAD = (TRAIN_B, CFG.num_key_value_heads)
@@ -269,9 +284,30 @@ def check_k1(gen: torch.Generator) -> dict:
                   3 * M * K + 2 * M)  # x read, q and the bf16 scales written
 
 
+def k2_routed(args) -> torch.Tensor:
+    """K2 once on ``args``, checked to launch once, on the route
+    ``ops/scaled_mm.py::sm90_route`` gives its M."""
+    ops.reset_launch_counts()
+    out = ops.scaled_mm_rhs_t(*args)
+    M, sm90 = args[0].shape[0], ops.launch_counts()["scaled_mm_rhs_t_sm90"]
+    check(ops.launch_counts()["scaled_mm_rhs_t"] == 1 and sm90 == int(SCALED_MM.sm90_route(M)),
+          f"K2 at M={M} launched once, on the {'sm90' if SCALED_MM.sm90_route(M) else 'wmma'} route")
+    return out
+
+
+def k2_timing(M: int, N: int, K: int, ms: float, nbytes: float) -> str:
+    """K2's route, share of its bound and time against its wmma kernel's."""
+    b_ms, by = bound(nbytes, int8_ops=2.0 * M * N * K)
+    wmma = WMMA_US[(M, N, K)] / 1e3
+    return (f"route {'sm90' if SCALED_MM.sm90_route(M) else 'wmma'}, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by "
+            f"{by}; the wmma kernel {wmma:.4f} ms ({wmma / ms:.2f}x this)")
+
+
 def check_k2(gen: torch.Generator) -> float:
-    """K2 at the serving shapes; returns the worst error (K2's entry is
-    taken at the training step's shape, beside ``torch._int_mm``)."""
+    """K2 at the serving shapes (decode M 8 on the wmma tile, prefill M 512
+    on the sm90 mainloop), timed beside ``torch._int_mm``, its bound and its
+    wmma kernel's time; returns the worst error (K2's entry is taken at the
+    training step's shape)."""
     worst = 0.0
     for M in (8, 512):
         for name, N, K in (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F)):
@@ -279,7 +315,7 @@ def check_k2(gen: torch.Generator) -> float:
             b, sb = ops.quantize_int8_plain(
                 (torch.randn(N, K, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16))
             sb = sb.reshape(1, N)
-            out = ops.scaled_mm_rhs_t(a, b, sa, sb)
+            out = k2_routed((a, b, sa, sb))
             ref = ops.scaled_mm_rhs_t_plain(a, b, sa, sb)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -288,11 +324,41 @@ def check_k2(gen: torch.Generator) -> float:
             inputs = copies(a, b, sa, sb)
             ms = time_ms(ops.scaled_mm_rhs_t, inputs)
             plain_ms = time_ms(ops.scaled_mm_rhs_t_plain, inputs)
+            lib = int_mm_ms("scaled_mm_rhs_t", inputs)
             tops = 2 * M * N * K / ms / 1e9
-            gbs = (M * K + N * K + 2 * M * N) / ms / 1e6
+            nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)
             print(f"[3] K2 scaled_mm_rhs_t M={M} {name} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOP/s, {gbs:.0f} GB/s), plain (float64 matmul) {plain_ms:.4f} ms")
+                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {k2_timing(M, N, K, ms, nbytes)}; plain "
+                  f"(float64 matmul) {plain_ms:.4f} ms, torch._int_mm (int32 out) "
+                  f"{'refused' if lib is None else f'{lib:.4f} ms'}")
+    k2_host_cost(gen)
     return worst
+
+
+def k2_host_cost(gen: torch.Generator, n: int = 2000) -> None:
+    """Host time of one K2 call on each route (the wrapper's checks, for
+    sm90 the two ``cuTensorMapEncodeTiled`` calls and the attribute set, the
+    launch), at N = K = 256, where the card finishes a call in a few us and
+    the host sets the pace: M 17 (sm90) against M 16 (the wmma tile), in
+    turns, wall clock over ``n`` calls ending in a synchronize."""
+    b = torch.randint(-128, 128, (256, 256), generator=gen, device=DEVICE, dtype=torch.int8)
+    sb = torch.rand(1, 256, generator=gen, device=DEVICE)
+    us = {17: [], 16: []}
+    for M in (17, 16, 16, 17):
+        a = torch.randint(-128, 128, (M, 256), generator=gen, device=DEVICE, dtype=torch.int8)
+        sa = torch.rand(M, 1, generator=gen, device=DEVICE)
+        ops.scaled_mm_rhs_t(a, b, sa, sb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ops.scaled_mm_rhs_t(a, b, sa, sb)
+        torch.cuda.synchronize()
+        us[M].append((time.perf_counter() - t0) / n * 1e6)
+    sm90, wmma = (sum(v) / len(v) for v in (us[17], us[16]))
+    print(f"[3] K2 host time per call at N = K = 256 (host-bound, {n} calls, in turns): sm90 route (M 17) "
+          f"{sm90:.2f} us {[round(v, 2) for v in us[17]]}, wmma route (M 16) {wmma:.2f} us "
+          f"{[round(v, 2) for v in us[16]]}; the sm90 route's tensor-map encodes and attribute set: "
+          f"{sm90 - wmma:.2f} us a call")
 
 
 def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, fp32_ops=0.0, bf16_ops=0.0,
@@ -402,7 +468,8 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
             ("scaled_mm_lhs_t", ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain,
              (g_col, x_col, g_col_s, x_col_s), (o, i, TOKENS), "quantized_training_tpu/ops/pallas_mm.py:192"),
         ):
-            got, ref = kernel(*args), plain(*args)
+            got = k2_routed(args) if name == "scaled_mm_rhs_t" else kernel(*args)
+            ref = plain(*args)
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f"{name} bit-exact at {lname} M={M} N={N} K={K}")
             worst[name] = max(worst[name], _max_err([got], [ref]))
@@ -411,8 +478,9 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
             lib_ms = int_mm_ms(name, inputs)
             tops = 2 * M * N * K / ms / 1e9
             nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)  # int8 operands and bf16 scales in, bf16 out
+            k2 = f"{k2_timing(M, N, K, ms, nbytes)}; " if name == "scaled_mm_rhs_t" else ""
             print(f"[3] {name} {lname} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), plain (float64 matmul) {plain_ms:.4f} ms, "
+                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {k2}plain (float64 matmul) {plain_ms:.4f} ms, "
                   f"torch._int_mm (int32 out) {'refused' if lib_ms is None else f'{lib_ms:.4f} ms'}")
             if lname == "gate/up":
                 entries.append(_entry(name, replaces, worst[name], ((M, N, K), ms, plain_ms), nbytes,
@@ -964,8 +1032,10 @@ def check_b17(gen: torch.Generator) -> list:
     a = torch.randn(n, n, generator=gen, device=DEVICE).to(torch.bfloat16)
     b = torch.randn(n, n, generator=gen, device=DEVICE).to(torch.bfloat16)
     exact, fold = a.double() @ b.double(), MATMUL.fp32_sum_bound(a, b)
+    ops.reset_launch_counts()
     got32, got16 = ops.matmul(a, b), ops.matmul(a, b, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    check(ops.launch_counts()["matmul_sm90"] == 2, f"B17 bf16 at {n}^3 on the sm90 route: {ops.launch_counts()}")
     d32 = (got32.double() - exact).abs()
     check(bool((d32 <= fold).all()), f"B17 bf16 -> fp32 within the fp32 sum bound at {n}^3")
     check(benchmark_mm.within_rounding(got16, exact, fold), f"B17 bf16 -> bf16 a rounding within the bound at {n}^3")
@@ -986,8 +1056,10 @@ def check_b17(gen: torch.Generator) -> list:
         nbytes = 2 * n * n * args[0].element_size() + out_bytes * n * n
         ops_kw = {"bf16_ops": flops} if peak == "bf16" else {"int8_ops": flops}
         b_ms, by = bound(nbytes, **ops_kw)
-        held = (f"within its bound (max |kernel - plain| {err16:.3e} in bf16; fp32 out at "
-                f"{(d32 / fold).max().item():.4f} of the fp32 sum bound)" if peak == "bf16" else "bit-exact")
+        held = (f"route sm90, within its bound (max |kernel - plain| {err16:.3e} in bf16; fp32 out at "
+                f"{(d32 / fold).max().item():.4f} of the fp32 sum bound), the wmma kernel "
+                f"{WMMA_US[(n, n, n)] / 1e3:.4f} ms ({WMMA_US[(n, n, n)] / 1e3 / ms:.2f}x this)" if peak == "bf16"
+                else "route wmma, bit-exact")
         print(f"[3] matmul (B17, {peak}) {n}x{n}x{n} -> {'bf16' if peak == 'bf16' else 'int32'}: {held}; kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} {peak} TOP/s, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), "
               f"plain (float64 matmul) {plain_ms:.4f} ms, {lib_name} "
@@ -1085,9 +1157,15 @@ def serve(gen: torch.Generator) -> dict:
         return rids, n
 
     drain()  # warm-up: library load, cuBLAS handles, allocator pools
+    rows = []  # K2's M per call, through the route predicate it consults
+    route = SCALED_MM.sm90_route
+    SCALED_MM.sm90_route = lambda M: rows.append(M) or route(M)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rids, n = drain()
+    try:
+        rids, n = drain()
+    finally:
+        SCALED_MM.sm90_route = route
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     for (prompt, budget), rid in zip(reqs, rids):
@@ -1097,8 +1175,14 @@ def serve(gen: torch.Generator) -> dict:
     check(n == sum(b for _, b in reqs), "every token streamed once")
     served = {k: launches[k] for k in SERVING_KERNELS}
     check(all(v > 0 for v in served.values()), f"every kernel of the serving path launched: {served}")
+    decode = sum(m <= SCALED_MM.DECODE_M for m in rows)
+    check(len(rows) == launches["scaled_mm_rhs_t"] and decode > 0
+          and launches["scaled_mm_rhs_t_sm90"] == len(rows) - decode,
+          f"K2's {decode} decode launches on the wmma tile, its {len(rows) - decode} prefill launches on sm90: "
+          f"{launches['scaled_mm_rhs_t_sm90']} sm90 of {launches['scaled_mm_rhs_t']}")
     print(f"[4] Llama2-1B mixed_precision Server(n_slots=8, max_len=2048, decode_chunk=16): "
-          f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; "
+          f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; K2 {decode} decode launches "
+          f"(M <= {SCALED_MM.DECODE_M}) on the wmma tile, {len(rows) - decode} prefill launches on sm90; "
           f"weights {weights_gib:.2f} GiB, peak device memory while serving "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
     for i in (0, 1):
@@ -1185,7 +1269,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
         counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n,
                        f"quantize_int8_both{t}": 7 * n})
     if layer != "bf16":
-        counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm": 7 * n, "scaled_mm_lhs_t": 7 * n})
+        counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm_rhs_t_sm90": 2 * 7 * n, "scaled_mm": 7 * n,
+                       "scaled_mm_lhs_t": 7 * n})
     return counts
 
 
@@ -1558,8 +1643,9 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
     if layer == "fused":
         counts.update({f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
                        f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
-                       f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, f"quantize_int8_both{t}": 4 * L,
-                       f"quantize_int8_colwise{t}": 5 * L, "scaled_mm": 4 * L, "scaled_mm_lhs_t": 4 * L})
+                       f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
+                       f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L, "scaled_mm": 4 * L,
+                       "scaled_mm_lhs_t": 4 * L})
     return counts
 
 
@@ -1640,9 +1726,10 @@ def benchmark_mm_phase() -> dict:
     benchmark_mm.main(["--train-shapes"])
     torch.cuda.synchronize()
     launches = ops.launch_counts()
+    check(launches["matmul_sm90"] == launches["matmul"] > 0, f"every B17 bf16 launch on the sm90 route: {launches}")
     print(f"[12] benchmark_mm at {list(rows)}: every gate passed, {time.perf_counter() - t0:.1f} s; B17 launches "
-          f"bf16 {launches['matmul']}, int8 {launches['matmul_s8']}; B1 {launches['scaled_mm']}, B15-s8 "
-          f"{launches['tile_scaled_mm_s8']}")
+          f"bf16 {launches['matmul']} (sm90 {launches['matmul_sm90']}), int8 {launches['matmul_s8']}; B1 "
+          f"{launches['scaled_mm']}, B15-s8 {launches['tile_scaled_mm_s8']}")
     return launches
 
 
@@ -1688,6 +1775,15 @@ def int8_attention_phase(seed: int) -> dict:
     return launches
 
 
+def fill_launches(entries, launches: dict) -> None:
+    """Each entry's launches on its path, and where the kernel has an sm90
+    route, that route's share of them (``sm90_launches``)."""
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+        if f"{e['name']}_sm90" in launches:
+            e["sm90_launches"] = launches[f"{e['name']}_sm90"]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=SEED,
@@ -1707,15 +1803,12 @@ def main() -> None:
     b18 = check_b18(gen, key)
     b17, b19 = check_b17(gen), check_b19(gen)
     check_attention_layout(key)
-    launches = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
-    for e in serving:
-        e["launches"] = launches[e["name"]]
+    fill_launches(serving, serve(torch.Generator(device=DEVICE).manual_seed(SEED)))
     kernel_vs_plain_path(SEED, torch.float32, 3e-2, 0.95)
     kernel_vs_plain_path(SEED, torch.bfloat16, 1e-1, 0.85)
     raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), CFG)
     q_losses, launches, (bf16_first, bf16_tps) = train_slice(raw, args.seed, key)
-    for e in training:
-        e["launches"] = launches[e["name"]]
+    fill_launches(training, launches)
     for fused in (False, True):
         grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, fused=fused)
         grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3, fused=fused)
@@ -1725,22 +1818,16 @@ def main() -> None:
     vit_grads_vs_plain(SEED, torch.float32, 1e-1, 1e-3)
     vit_grads_vs_plain(SEED, torch.bfloat16, 1.5e-1, 1e-3)
     vit_grads_vs_plain(SEED, torch.float32, 1e-1, 1e-3, sr_key=random.fold_in(key, 7))
-    launches = bench_step(raw, args.seed, key)
-    for e in [adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))]:
-        e["launches"] = launches[e["name"]]
-    launches = sr_config(raw, args.seed, key, q_losses[0])
-    for e in [*sr_forms, adamw[1], *(e for e in producers if e["name"].endswith("_sr"))]:
-        e["launches"] = launches[e["name"]]
+    fill_launches([adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))],
+                  bench_step(raw, args.seed, key))
+    fill_launches([*sr_forms, adamw[1], *(e for e in producers if e["name"].endswith("_sr"))],
+                  sr_config(raw, args.seed, key, q_losses[0]))
     path, steps = tile_int8_path(), other_dtypes(raw, args.seed, key, bf16_first, bf16_tps)
-    launches = {k: path[k] + steps[k] for k in path}
-    for e in other_gemms:
-        e["launches"] = launches[e["name"]]
+    fill_launches(other_gemms, {k: path[k] + steps[k] for k in path})
     rn_launches, sr_launches = vit_giant_step(SEED, key)
-    for e in b18:
-        e["launches"] = (sr_launches if e["name"].endswith("_sr") else rn_launches)[e["name"]]
-    launches = benchmark_mm_phase()
-    for e in b17:
-        e["launches"] = launches[e["name"]]
+    fill_launches([e for e in b18 if not e["name"].endswith("_sr")], rn_launches)
+    fill_launches([e for e in b18 if e["name"].endswith("_sr")], sr_launches)
+    fill_launches(b17, benchmark_mm_phase())
     b19["launches"] = int8_attention_phase(SEED)["int8_flash_fwd"]
     kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18 + b17 + [b19]
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")

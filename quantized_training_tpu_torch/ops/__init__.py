@@ -134,6 +134,7 @@ KERNELS = {
     "quantize_int8_both": (quantize_int8_both, "launches"),
     "quantize_int8_both_sr": (quantize_int8_both, "sr_launches"),
     "scaled_mm_rhs_t": (scaled_mm_rhs_t, "launches"),
+    "scaled_mm_rhs_t_sm90": (scaled_mm_rhs_t, "sm90_launches"),
     "scaled_mm": (scaled_mm, "launches"),
     "scaled_mm_lhs_t": (scaled_mm_lhs_t, "launches"),
     "fused_adamw_update": (fused_adamw_update, "launches"),
@@ -169,6 +170,7 @@ KERNELS = {
     "gelu_quant_colwise_sr": (gelu_quant_colwise, "sr_launches"),
     "matmul": (matmul, "launches"),
     "matmul_s8": (matmul, "s8_launches"),
+    "matmul_sm90": (matmul, "sm90_launches"),
     "int8_flash_fwd": (int8_flash_fwd, "launches"),
 }
 

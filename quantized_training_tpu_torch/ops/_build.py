@@ -2,10 +2,13 @@
 
 ``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
 (``philox.cuh``, the random stream, is included by four of them,
-``row_common.cuh``, the row-walking kernels' building blocks, by two, and
-``mm_tiles.cuh``, the wmma GEMMs' tile copies, by four): one ``nvcc
--c`` per source, all started together, then one link into a shared library,
-which it loads with ``ctypes``. The library carries a plain C interface (no
+``row_common.cuh``, the row-walking kernels' building blocks, by two,
+``mm_tiles.cuh``, the wmma GEMMs' tile copies, by four, and
+``sm90_gemm.cuh``, the pipelined TMA + wgmma GEMM mainloop, by two): one
+``nvcc -c`` per source, all started together, then one link into a shared
+library, which it loads with ``ctypes``. The link names no ``-lcuda``:
+``sm90_gemm.cuh`` reaches the driver's ``cuTensorMapEncodeTiled`` through
+``cudaGetDriverEntryPoint``. The library carries a plain C interface (no
 PyTorch headers), so a build takes seconds: 5.5-6.3 s for ``int8_quant.cu``
 and ``scaled_mm.cu``, against 9.6-10.0 s for one ``nvcc -shared`` over both
 (H100 machine, 8 cores, build alone, alternating order). It lands in
@@ -98,17 +101,14 @@ _SIGNATURES = {
     "qt_ungroup_quant": (
         _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I, ctypes.c_float, _I, _I, _U64, _P,
     ),
-    # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, stream
-    "qt_scaled_mm_s8": (
-        _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P,
-    ),
+    # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, sm90, stream
+    "qt_scaled_mm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, stream
     "qt_scaled_int4_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # a, b, sa, sb, out, M, N, K, qm, qk, qn, is_fp8, scale_bf16, out_bf16, stream
     "qt_tile_scaled_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # a, b, out, M, N, K, is_bf16, out_bf16, a_vec, b_vec, stream
-    "qt_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, b, out, M, N, K, is_bf16, out_bf16, a_vec, b_vec, sm90, stream
+    "qt_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, qs, k, ks, v, vs, out, lse, n_inst, G, S, hd, bkv, causal, stream
     "qt_int8_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -15,12 +15,18 @@
 // fetched into registers while the current one runs through the MMAs. Any
 // shape: ragged edges are zero-filled value by value on load (the sums are
 // the same as over zero-padded copies, which are never made) and masked on
-// store. A simple kernel: no wgmma, TMA or cp.async, which a later PR can
-// bring.
+// store. This wmma kernel takes the int8 form (8-bit wgmma refuses b's
+// MN-major layout) and the bf16 operands TMA cannot describe (a base off a
+// 16-byte boundary, or rows not a multiple of 16 bytes long). The bf16 forms
+// whose operands TMA can describe run on the pipelined TMA + wgmma mainloop
+// of sm90_gemm.cuh instead, with b read MN-major through wgmma's transpose
+// bit; the caller decides that route and passes it in
+// (ops/matmul.py::sm90_route).
 
 #include <mma.h>
 
 #include "mm_tiles.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 using qt_mm::frag;
@@ -125,13 +131,18 @@ cudaError_t launch(const void* a, const void* b, void* out, int M, int N, int K,
 // contiguous, both int8 (is_bf16 = 0: out int32) or both bf16 (out fp32, or
 // bf16 where out_bf16). a_vec / b_vec: the operand starts on a 16-byte
 // boundary and its rows are a multiple of 16 bytes long, so whole chunks
-// load as vectors.
+// load as vectors. sm90: a bf16 form on the sm90_gemm.cuh mainloop, which
+// needs a_vec and b_vec (refused for int8).
 extern "C" int qt_matmul(const void* a, const void* b, void* out, int M, int N, int K, int is_bf16, int out_bf16,
-                         int a_vec, int b_vec, void* stream) {
+                         int a_vec, int b_vec, int sm90, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (!is_bf16) {
+  if (sm90) {
+    err = !is_bf16 || !a_vec || !b_vec ? cudaErrorInvalidValue
+          : out_bf16                   ? qt_sm90::matmul_bf16<__nv_bfloat16>(a, b, out, M, N, K, s)
+                                       : qt_sm90::matmul_bf16<float>(a, b, out, M, N, K, s);
+  } else if (!is_bf16) {
     err = out_bf16 ? cudaErrorInvalidValue : launch<Src::S8, int>(a, b, out, M, N, K, a_vec, b_vec, s);
   } else if (out_bf16) {
     err = launch<Src::BF16, __nv_bfloat16>(a, b, out, M, N, K, a_vec, b_vec, s);

@@ -24,25 +24,31 @@
 //   (pallas_mm.py:600-633) whatever order it sums in.
 //
 // Bound on the H100: at training and prefill M the int8 tensor-core rate; at
-// decode M = 8 the bytes of the int8 weight, read once per call. Design: no
-// operand is ever transposed in device memory (the JAX package's rule,
+// decode M = 8 the bytes of the int8 weight, read once per call. K2 at
+// M > 16 runs on the pipelined TMA + wgmma mainloop of sm90_gemm.cuh (its
+// note says how it answers the bound); the caller decides that route and
+// passes it in (ops/scaled_mm.py::sm90_route). Everything below is the wmma
+// kernel of the other forms and of K2's decode tile. Design: no operand is
+// ever transposed in device memory (the JAX package's rule,
 // quant/mixed_precision.py:192-195). Tiles go through shared memory in 16x16
 // blocks of 16-byte rows (mm_tiles.cuh), so that every wmma fragment load is
 // 256-bit aligned with a leading dimension of 16. wmma m16n16k16
 // signed-char fragments take either layout (row_major / col_major) and
 // accumulate in int32, so one kernel, templated on the two layouts and on
 // packed operands, serves all four forms. Tiles: 64x64 with a K step of 64,
-// and for the K-major forms at M <= 16 a 16x32 tile with a K step of 256, so
-// a decode call keeps more weight bytes in flight per block. Ragged rows are
+// and for the K-major forms at M <= 16 (K2 takes this kernel at those sizes
+// only) a 16x32 tile with a K step of 256, so a decode call keeps more
+// weight bytes in flight per block. Ragged rows are
 // zero-filled on load and masked on store. The next K tile is fetched into
 // registers while the current one runs through the MMAs. No wgmma, TMA or
-// cp.async yet: wgmma takes 8-bit operands K-major only, so a faster
+// cp.async here: wgmma takes 8-bit operands K-major only, so a faster
 // (1,0)/(0,0) needs its operands written K-major by the quantize, a design
 // question for a later PR.
 
 #include <mma.h>
 
 #include "mm_tiles.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 using qt_mm::frag;
@@ -148,11 +154,15 @@ cudaError_t launch_tiles(const void* a, const void* b, const void* sa, const voi
 template <bool AK, bool BKM, Src S, typename ST, typename OT>
 cudaError_t launch(const void* a, const void* b, const void* sa, const void* sb, void* out, int M,
                    int N, int K, cudaStream_t stream) {
-  if constexpr (AK && BKM) {
-    if (M <= 16)
-      return launch_tiles<16, 32, 256, 1, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+  if constexpr (AK && BKM && S == Src::S8) {  // K2 off the sm90 route: the decode sizes
+    return launch_tiles<16, 32, 256, 1, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+  } else {
+    if constexpr (AK && BKM) {
+      if (M <= 16)
+        return launch_tiles<16, 32, 256, 1, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+    }
+    return launch_tiles<64, 64, 64, 2, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   }
-  return launch_tiles<64, 64, 64, 2, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
 }
 
 template <bool AK, bool BKM, Src S = Src::S8>
@@ -166,6 +176,18 @@ cudaError_t launch_dtypes(const void* a, const void* b, const void* sa, const vo
                   : launch<AK, BKM, S, float, float>(a, b, sa, sb, out, M, N, K, s);
 }
 
+// K2 on sm90_gemm.cuh, in the same four (scale, out) types.
+cudaError_t launch_sm90(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N,
+                        int K, int scale_bf16, int out_bf16, cudaStream_t s) {
+  using BF = __nv_bfloat16;
+  using qt_sm90::scaled_s8;
+  if (scale_bf16)
+    return out_bf16 ? scaled_s8<BF, BF>(a, b, sa, sb, out, M, N, K, s)
+                    : scaled_s8<BF, float>(a, b, sa, sb, out, M, N, K, s);
+  return out_bf16 ? scaled_s8<float, BF>(a, b, sa, sb, out, M, N, K, s)
+                  : scaled_s8<float, float>(a, b, sa, sb, out, M, N, K, s);
+}
+
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). a_kmajor: a is [M, K],
@@ -173,14 +195,19 @@ cudaError_t launch_dtypes(const void* a, const void* b, const void* sa, const vo
 // port uses and is refused. Operands are contiguous int8, 16-byte aligned,
 // with K % 16 == 0 and every MN-major operand's row length (M or N) a
 // multiple of 16. sa [M] and sb [N] are bf16 if scale_bf16 else fp32; out
-// [M, N] is bf16 if out_bf16 else fp32.
+// [M, N] is bf16 if out_bf16 else fp32. sm90: the (1, 1) form on the
+// sm90_gemm.cuh mainloop (refused for the other forms), else on the wmma
+// kernel.
 extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, const void* sb,
                                void* out, int M, int N, int K, int a_kmajor, int b_kmajor,
-                               int scale_bf16, int out_bf16, void* stream) {
+                               int scale_bf16, int out_bf16, int sm90, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (a_kmajor && b_kmajor) {
+  if (sm90) {
+    err = a_kmajor && b_kmajor ? launch_sm90(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s)
+                               : cudaErrorInvalidValue;
+  } else if (a_kmajor && b_kmajor) {
     err = launch_dtypes<true, true>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
   } else if (a_kmajor) {
     err = launch_dtypes<true, false>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);

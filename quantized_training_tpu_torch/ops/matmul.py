@@ -13,7 +13,9 @@ The forms any caller of the JAX function uses:
 - int8 operands, int32 accumulator, int32 out.
 
 B17 is ``csrc/matmul.cu``; its header says what bounds it on the H100 and how
-the design answers that.
+the design answers that. The bf16 forms whose operands TMA can describe run
+on the pipelined TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh``
+(:func:`sm90_route`, counted in ``matmul.sm90_launches``).
 """
 
 from __future__ import annotations
@@ -60,20 +62,37 @@ def fp32_sum_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.shape[1] * 2.0**-24 * (a.double().abs() @ b.double().abs())
 
 
+def vec_rows(t: torch.Tensor) -> bool:
+    """A contiguous 2-D operand starts on a 16-byte boundary and its rows are
+    a multiple of 16 bytes long: the wmma kernel loads it in whole 16-byte
+    chunks, and TMA can describe it."""
+    return t.data_ptr() % 16 == 0 and t.shape[1] * t.element_size() % 16 == 0
+
+
+def sm90_route(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether B17 on contiguous a and b takes the TMA + wgmma mainloop
+    (``csrc/sm90_gemm.cuh``): the bf16 forms whose operands TMA can describe.
+    The int8 form stays on wmma (8-bit wgmma refuses b's MN-major layout),
+    and so do bf16 operands off a 16-byte boundary or with ragged rows. The
+    only thing that chooses B17's route."""
+    return a.dtype == torch.bfloat16 and vec_rows(a) and vec_rows(b)
+
+
 def _launch(a, b, out_dtype):
+    """Launch B17 on the current stream; returns (out, whether it took the
+    sm90 route)."""
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("matmul: both operands must be on one CUDA device")
     a, b = a.contiguous(), b.contiguous()
     (M, K), N = a.shape, b.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    vb = a.element_size()
+    sm90 = sm90_route(a, b)
     err = _build.library().qt_matmul(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(a.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), int(a.data_ptr() % 16 == 0 and K * vb % 16 == 0),
-        int(b.data_ptr() % 16 == 0 and N * vb % 16 == 0), _build.stream(),
+        int(out_dtype == torch.bfloat16), int(vec_rows(a)), int(vec_rows(b)), int(sm90), _build.stream(),
     )
     _build.check(err, "matmul")
-    return out
+    return out, sm90
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None, out_dtype=None) -> torch.Tensor:
@@ -82,17 +101,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None, out_dtype=None) 
     (the accumulator's type by default); other forms raise TypeError. A CPU
     tensor takes :func:`matmul_plain`; CUDA tensors launch B17 on the current
     stream, at any shape. Launches count per operand type (``launches``
-    bf16, ``s8_launches`` int8)."""
+    bf16, ``s8_launches`` int8), and the bf16 launches on the sm90 mainloop
+    (:func:`sm90_route`) in ``sm90_launches`` as well."""
     _, out_dtype = _form(a, b, acc_dtype, out_dtype)
     if a.device.type == "cpu":
         return matmul_plain(a, b, acc_dtype=acc_dtype, out_dtype=out_dtype)
-    out = _launch(a, b, out_dtype)
+    out, sm90 = _launch(a, b, out_dtype)
     if a.dtype == torch.int8:
         matmul.s8_launches += 1
     else:
         matmul.launches += 1
+        matmul.sm90_launches += sm90
     return out
 
 
 matmul.launches = 0
 matmul.s8_launches = 0
+matmul.sm90_launches = 0

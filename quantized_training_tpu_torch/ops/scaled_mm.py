@@ -17,7 +17,10 @@ Counterparts in the JAX package:
 
 The three kernels are layout instantiations of one CUDA source,
 ``csrc/scaled_mm.cu``; its header says what bounds them on the H100 and how
-the design answers that. No operand is transposed in memory.
+the design answers that. K2 above the decode sizes runs on the pipelined
+TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` instead (:func:`sm90_route`,
+counted in ``scaled_mm_rhs_t.sm90_launches``). No operand is transposed in
+memory.
 """
 
 from __future__ import annotations
@@ -29,6 +32,17 @@ from .fp8 import FP8_TYPES, scaled_fp8_mm_general
 from .tile_scaled_mm import tile_scaled_mm
 
 _SCALE_DTYPES = (torch.bfloat16, torch.float32)
+# K2 at M <= DECODE_M keeps the wmma decode tile (16 x 32, K step 256): its
+# bound is the weight's bytes, not the tensor cores
+DECODE_M = 16
+
+
+def sm90_route(M: int) -> bool:
+    """Whether K2 at M rows of a takes the TMA + wgmma mainloop
+    (``csrc/sm90_gemm.cuh``) rather than the wmma decode tile: training,
+    ViT and prefill sizes do, decode steps of up to ``DECODE_M`` slots do
+    not. The only thing that chooses K2's route."""
+    return M > DECODE_M
 
 
 def _as_vector(s: torch.Tensor, n: int, what: str) -> torch.Tensor:
@@ -68,10 +82,11 @@ def scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
     return _plain(a, b, scale_a, scale_b, (0, 0), out_dtype)
 
 
-def _launch(what, a, b, scale_a, scale_b, dims, out_dtype):
+def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False):
     """Check the operands of one form and launch its kernel on the current
-    stream. Operands stay in their stored layouts: a K-major operand has the
-    contraction axis last, an MN-major one first."""
+    stream, on the sm90 mainloop where ``sm90`` (K2 only). Operands stay in
+    their stored layouts: a K-major operand has the contraction axis last,
+    an MN-major one first."""
     tensors = (a, b, scale_a, scale_b)
     if not all(t.is_cuda and t.device == a.device for t in tensors):
         raise ValueError(f"{what}: all operands must be on one CUDA device")
@@ -97,7 +112,7 @@ def _launch(what, a, b, scale_a, scale_b, dims, out_dtype):
     err = _build.library().qt_scaled_mm_s8(
         a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K,
         int(ca == 1), int(cb == 1), int(sa.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), _build.stream(),
+        int(out_dtype == torch.bfloat16), int(sm90), _build.stream(),
     )
     _build.check(err, what)
     return out
@@ -111,15 +126,19 @@ def scaled_mm_rhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
     of b ([M, 1] / [1, N] / [M] / [N]) or scalars, bf16 or fp32 (the same
     for both). A CPU tensor takes :func:`scaled_mm_rhs_t_plain`; CUDA
     tensors launch K2 on the current stream, which needs K % 16 == 0 and
-    16-byte aligned, contiguous operands."""
+    16-byte aligned, contiguous operands; on the sm90 mainloop where
+    :func:`sm90_route` says so (counted in ``sm90_launches`` as well)."""
     if a.device.type == "cpu":
         return scaled_mm_rhs_t_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
-    out = _launch("scaled_mm_rhs_t", a, b, scale_a, scale_b, (1, 1), out_dtype)
+    sm90 = sm90_route(a.shape[0])
+    out = _launch("scaled_mm_rhs_t", a, b, scale_a, scale_b, (1, 1), out_dtype, sm90)
     scaled_mm_rhs_t.launches += 1
+    scaled_mm_rhs_t.sm90_launches += sm90
     return out
 
 
 scaled_mm_rhs_t.launches = 0
+scaled_mm_rhs_t.sm90_launches = 0
 
 
 def scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: torch.Tensor,

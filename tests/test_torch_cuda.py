@@ -83,6 +83,45 @@ def test_scaled_mm_bit_exact(M, N, K, scale_dtype, out_dtype):
     assert torch.equal(out, ref)
 
 
+@pytest.mark.parametrize("K", [2048, 5632])
+@pytest.mark.parametrize("N", [200, 256, 2048, 5632])
+@pytest.mark.parametrize("M", [17, 64, 100, 512, 8192])
+def test_scaled_mm_sm90_bit_exact(M, N, K):
+    """K2 on the TMA + wgmma mainloop (M > 16) at the training, ViT and
+    prefill sizes, with M not a multiple of the 128-row tile and N not of
+    the 128-column one: bit-exact with the plain version in every scale and
+    output type, every launch on the sm90 route."""
+    g = torch.Generator(device="cuda").manual_seed(M * N + K)
+    a = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    b = torch.randint(-128, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+    ops.reset_launch_counts()
+    for scale_dtype in (torch.bfloat16, torch.float32):
+        sa = (torch.rand(M, 1, generator=g, device="cuda") * 0.01).to(scale_dtype)
+        sb = (torch.rand(1, N, generator=g, device="cuda") * 0.01).to(scale_dtype)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = ops.scaled_mm_rhs_t(a, b, sa, sb, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ops.scaled_mm_rhs_t_plain(a, b, sa, sb, out_dtype=out_dtype))
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_rhs_t"] == counts["scaled_mm_rhs_t_sm90"] == 4
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_scaled_mm_decode_keeps_the_wmma_tile(M):
+    """K2 at decode sizes stays on the wmma decode tile: bit-exact, no sm90
+    launch."""
+    g = torch.Generator(device="cuda").manual_seed(M)
+    a = torch.randint(-128, 128, (M, 2048), generator=g, device="cuda", dtype=torch.int8)
+    b = torch.randint(-128, 128, (5632, 2048), generator=g, device="cuda", dtype=torch.int8)
+    sa, sb = torch.rand(M, 1, device="cuda"), torch.rand(1, 5632, device="cuda")
+    ops.reset_launch_counts()
+    out = ops.scaled_mm_rhs_t(a, b, sa, sb)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.scaled_mm_rhs_t_plain(a, b, sa, sb))
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_rhs_t"] == 1 and counts["scaled_mm_rhs_t_sm90"] == 0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 1), (3, 7), (64, 128), (130, 200), (256, 2048), (8192, 256), (1000, 5632),
                                    (2048, 5632)])
@@ -674,6 +713,27 @@ def test_matmul_forms(M, K, N):
         assert got.dtype == out_dtype and within_rounding(got, exact, bound)
 
 
+@pytest.mark.parametrize("M,K,N", [(128, 64, 128), (64, 8, 64), (200, 136, 304), (200, 304, 136),
+                                   (1024, 1024, 1024)])
+def test_matmul_sm90_within_bound(M, K, N):
+    """B17 bf16 on the TMA + wgmma mainloop (b read MN-major through the
+    transpose bit): one tile with one K step (128 x 64 x 128, where a wrong
+    descriptor offset shows as a permuted output), K below one step, ragged
+    M, N and K; fp32 and bf16 out a rounding of a value within the fp32 sum
+    bound, every launch on the sm90 route."""
+    g = torch.Generator(device="cuda").manual_seed(M * N + K)
+    a = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.randn(K, N, generator=g, device="cuda").to(torch.bfloat16)
+    exact, bound = a.double() @ b.double(), MATMUL.fp32_sum_bound(a, b)
+    ops.reset_launch_counts()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = ops.matmul(a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and within_rounding(got, exact, bound)
+    counts = ops.launch_counts()
+    assert counts["matmul"] == counts["matmul_sm90"] == 2
+
+
 def test_matmul_unaligned_views_and_refusals():
     """Operands off a 16-byte boundary take the value-by-value loads; other
     forms raise TypeError."""
@@ -681,7 +741,9 @@ def test_matmul_unaligned_views_and_refusals():
     base = torch.randn(64 * 96 + 1, generator=g, device="cuda").to(torch.bfloat16)
     a = base[1:].view(64, 96)
     b = torch.randn(96, 40, generator=g, device="cuda").to(torch.bfloat16)
+    ops.reset_launch_counts()
     assert within_rounding(ops.matmul(a, b), a.double() @ b.double(), MATMUL.fp32_sum_bound(a, b))
+    assert ops.launch_counts()["matmul_sm90"] == 0  # a base TMA cannot describe takes the wmma kernel
     with pytest.raises(TypeError):
         ops.matmul(a.float(), b.float())
     with pytest.raises(TypeError):

@@ -1,0 +1,145 @@
+"""The route each sm90-capable GEMM takes, on the CPU: K2
+(``ops/scaled_mm.py::sm90_route``) and B17 (``ops/matmul.py::sm90_route``)
+choose between the TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` and their
+wmma kernels by a pure predicate, decided in Python and passed to the C
+entry as an explicit argument. No card is needed: the predicates are held at
+the main path's shapes, and the wrappers' launch path runs against a
+recording stub of the library, on meta tensors that pass for CUDA ones.
+The kernels themselves are held to their plain versions on the card
+(``tests/test_torch_cuda.py -k sm90``)."""
+
+import importlib
+
+import pytest
+import torch
+
+from quantized_training_tpu_torch import ops
+from quantized_training_tpu_torch.models import llama, vit
+from quantized_training_tpu_torch.ops import _build
+
+# One intra-op thread: the suite runs in several worker processes at once,
+# and a torch thread pool per worker oversubscribes the cores.
+torch.set_num_threads(1)
+
+# both the module and the function of its name are exported by ops
+SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
+MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
+
+_L = llama.LLAMA2_1B
+_KVD = _L.num_key_value_heads * _L.head_dim
+LLAMA_LINEARS = {"q/o": (_L.hidden_size, _L.hidden_size), "k/v": (_KVD, _L.hidden_size),
+                 "gate/up": (_L.intermediate_size, _L.hidden_size), "down": (_L.hidden_size, _L.intermediate_size)}
+_V = vit.VIT_GIANT
+VIT_LINEARS = {"qkv": (3 * _V.hidden_size, _V.hidden_size), "proj": (_V.hidden_size, _V.hidden_size),
+               "fc1": (_V.mlp_dim, _V.hidden_size), "fc2": (_V.hidden_size, _V.mlp_dim)}
+# (rows of a, linears, route): the train step's 4 x 2048 tokens and a
+# serving prefill chunk of 512 on Llama2-1B, ViT-Giant's 24 x 257 tokens
+# padded to 6,400, and decode steps of 8 and 16 slots
+K2_CASES = [(M, name, linears, sm90)
+            for M, linears, sm90 in ((8192, LLAMA_LINEARS, True), (512, LLAMA_LINEARS, True),
+                                     (6400, VIT_LINEARS, True), (8, LLAMA_LINEARS, False),
+                                     (16, LLAMA_LINEARS, False))
+            for name in linears]
+
+
+@pytest.mark.parametrize("M,name,linears,sm90", K2_CASES,
+                         ids=[f"M{M}-{name}-N{lin[name][0]}-K{lin[name][1]}" for M, name, lin, _ in K2_CASES])
+def test_k2_route(M, name, linears, sm90):
+    """K2 above 16 rows takes the sm90 mainloop; a decode step keeps the
+    wmma decode tile, whatever the linear."""
+    assert SCALED_MM.sm90_route(M) is sm90
+
+
+def _operand(shape, dtype, offset=0):
+    """A contiguous CPU tensor of ``shape`` starting ``offset`` elements into
+    a 16-byte aligned allocation."""
+    n = shape[0] * shape[1]
+    return torch.zeros(n + 16, dtype=dtype)[offset:offset + n].view(shape)
+
+
+@pytest.mark.parametrize("M,K,N,dtype,b_offset,sm90", [
+    (1024, 1024, 1024, torch.bfloat16, 0, True),
+    (2048, 2048, 2048, torch.bfloat16, 0, True),
+    (4096, 4096, 4096, torch.bfloat16, 0, True),
+    (200, 304, 136, torch.bfloat16, 0, True),
+    (200, 300, 136, torch.bfloat16, 0, False),  # a's rows are 600 bytes long
+    (1024, 1024, 1024, torch.bfloat16, 1, False),  # b starts 2 bytes off a 16-byte boundary
+    (1024, 1024, 1024, torch.int8, 0, False),  # 8-bit wgmma refuses b's MN-major layout
+])
+def test_b17_route(M, K, N, dtype, b_offset, sm90):
+    """B17 takes the sm90 mainloop exactly where TMA can describe both bf16
+    operands."""
+    a, b = _operand((M, K), dtype), _operand((K, N), dtype, b_offset)
+    assert a.is_contiguous() and b.is_contiguous()
+    assert MATMUL.sm90_route(a, b) is sm90
+
+
+class _Library:
+    """Records every C entry it is asked for, with its arguments; each
+    launch succeeds."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def library(monkeypatch):
+    """The recording stub in place of the built library, with meta tensors
+    taken for CUDA ones by the wrappers' device checks."""
+    lib = _Library()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream", lambda: 0)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: self.device.type == "meta"))
+    ops.reset_launch_counts()
+    yield lib
+    ops.reset_launch_counts()
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("M,sm90", [(8, False), (16, False), (17, True), (8192, True)])
+def test_k2_passes_its_route(library, M, sm90):
+    """K2's wrapper passes ``sm90_route(M)`` as the argument before the
+    stream, one argument per ``_SIGNATURES`` entry, and counts the launch in
+    ``launches`` and, on the sm90 route, in ``sm90_launches``."""
+    a, b = _meta((M, 256), torch.int8), _meta((512, 256), torch.int8)
+    ops.scaled_mm_rhs_t(a, b, _meta((M, 1), torch.bfloat16), _meta((1, 512), torch.bfloat16))
+    (name, args), = library.calls
+    assert name == "qt_scaled_mm_s8" and len(args) == len(_build._SIGNATURES[name])
+    assert args[-2] == int(sm90)
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_rhs_t"] == 1 and counts["scaled_mm_rhs_t_sm90"] == int(sm90)
+
+
+def test_backward_forms_stay_on_wmma(library):
+    """B1 and B2 (MN-major int8 operands) always pass sm90 = 0."""
+    g, w = _meta((8192, 512), torch.int8), _meta((512, 256), torch.int8)
+    ops.scaled_mm(g, w, _meta((8192, 1), torch.float32), _meta((1, 256), torch.float32))
+    ops.scaled_mm_lhs_t(g, _meta((8192, 256), torch.int8), _meta((512,), torch.float32),
+                        _meta((256,), torch.float32))
+    assert [(name, args[-2]) for name, args in library.calls] == [("qt_scaled_mm_s8", 0)] * 2
+    assert ops.launch_counts()["scaled_mm_rhs_t_sm90"] == 0
+
+
+@pytest.mark.parametrize("dtype,out_dtype,sm90", [(torch.bfloat16, torch.float32, True),
+                                                  (torch.bfloat16, torch.bfloat16, True),
+                                                  (torch.int8, torch.int32, False)])
+def test_b17_passes_its_route(library, dtype, out_dtype, sm90):
+    """B17's wrapper passes ``sm90_route(a, b)`` as the argument before the
+    stream and counts a bf16 launch on the sm90 route in ``sm90_launches``."""
+    a, b = _meta((256, 128), dtype), _meta((128, 64), dtype)
+    ops.matmul(a, b, out_dtype=out_dtype)
+    (name, args), = library.calls
+    assert name == "qt_matmul" and len(args) == len(_build._SIGNATURES[name])
+    assert args[-2] == int(sm90)
+    counts = ops.launch_counts()
+    assert counts["matmul_sm90"] == int(sm90)
+    assert counts["matmul" if dtype == torch.bfloat16 else "matmul_s8"] == 1
