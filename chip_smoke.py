@@ -29,11 +29,12 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
    within ``ops/int8_attention.py::agreement`` of its plain version, beside
    SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
-   of the roofline; K2 at every shape and B17 bf16 also on the route they
-   took (K2 above 16 rows and B17 bf16 on the TMA + wgmma mainloop of
-   ``sm90_gemm.cuh``, K2's decode on its wmma tile; each call checked to
-   take it) beside their wmma kernels' time (``WMMA_US``); then the strides SDPA
-   takes and returns in the grouped pipeline, which must run no layout copy;
+   of the roofline; K2, B2, B16 at every shape and B17 bf16 also on the
+   route they took (K2 above 16 rows, B2, B16 and B17 bf16 on the TMA +
+   wgmma mainloop of ``sm90_gemm.cuh``, K2's decode on its wmma tile; each
+   call checked to take it) beside their wmma kernels' time (``WMMA_US``);
+   then the strides SDPA takes and returns in the grouped pipeline, which
+   must run no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
@@ -47,8 +48,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    SDPA attention on the grouped pipeline, AdamW, the producer-fused layer:
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
-   of times the code implies (every K2 launch on the sm90 route, here and
-   in phases 8, 9 and 11), and the same steps in bf16 start from the same
+   of times the code implies (every K2 and B2 launch on the sm90 route, here
+   and in phases 8, 9 and 11), and the same steps in bf16 start from the same
    loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
@@ -71,9 +72,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    through ``ops.scaled_mm``; then three steps each of int4, fp8-tile and
    fp8-row ``mixed_precision`` at phase 6's shapes and optimizer, from its
    weights and batch: the losses fall, the first within a stated bound of
-   phase 6's bf16 first loss, B16 / B15 launched exactly as the code
-   implies and no int8 kernel; tokens/s against phase 6's bf16, peak
-   memory;
+   phase 6's bf16 first loss, B16 (every launch on the sm90 route) / B15
+   launched exactly as the code implies and no int8 kernel; tokens/s
+   against phase 6's bf16, peak memory;
 11. ViT-Giant's train step through ``vit_train``'s step builder: batch 24
    at 224 px (6,168 tokens), remat, SDPA, ``adamw_bf16_sr`` without the SR
    writeback, lr 1e-5 (``VIT_LR``), synthetic images from seed 2024; three
@@ -93,11 +94,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
-kernel's launches on its path, for K2 and B17 also those on the sm90 route
-(``sm90_launches``), its error against the plain version, its time, the
-plain version's, the least time the H100 could take for the same work, what
-bounds that time, and the library call's time where one exists), the
-nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+kernel's launches on its path, for K2, B2, B16 and B17 also those on the
+sm90 route (``sm90_launches``), its error against the plain version, its
+time, the plain version's, the least time the H100 could take for the same
+work, what bounds that time, and the library call's time where one
+exists), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -131,6 +132,7 @@ from quantized_training_tpu_torch.utils.tree import tree_leaves
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
+INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
@@ -170,14 +172,21 @@ VIT_SEED = 2024  # the synthetic images' seed, vit_train.py's default
 VIT_LR = 1e-5
 # B17 at benchmark_mm.py's largest square size
 MM_N = 4096
-# K2 (M, N, K) and B17 bf16 (MM_N^3) on their wmma kernels, before the sm90
-# mainloop took them: us per call in phase 3 of this script's last run on
-# those kernels (H100 80GB HBM3, 700 W; PERF.md section 6), printed beside
-# this run's times
-WMMA_US = {(8, D, D): 11.2, (8, KVD, D): 7.3, (8, F, D): 15.0, (8, D, F): 26.1,
-          (512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
-          (TOKENS, D, D): 330.8, (TOKENS, KVD, D): 44.3, (TOKENS, F, D): 890.2, (TOKENS, D, F): 851.5,
-          (MM_N, MM_N, MM_N): 1694.1}
+# Each sm90 GEMM's (M, N, K) on its wmma kernel, before the sm90 mainloop
+# took it, printed beside this run's times (H100 80GB HBM3, 700 W; PERF.md
+# section 6): K2 and B17 bf16, us per call in phase 3 of this script's last
+# run on those kernels; B2 and B16, ab_sm90_forms.py's parent/wmma (the
+# kernels of the tree before they took the mainloop). K2's decode sizes (M
+# 8) still take it.
+WMMA_US = {
+    "scaled_mm_rhs_t": {(8, D, D): 11.2, (8, KVD, D): 7.3, (8, F, D): 15.0, (8, D, F): 26.1,
+                        (512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
+                        (TOKENS, D, D): 330.8, (TOKENS, KVD, D): 44.3, (TOKENS, F, D): 890.2, (TOKENS, D, F): 851.5},
+    "scaled_mm_lhs_t": {(D, D, TOKENS): 808.2, (KVD, D, TOKENS): 132.3, (F, D, TOKENS): 2205.2,
+                        (D, F, TOKENS): 2215.7},
+    "scaled_int4_mm": {(TOKENS, F, D): 837.3, (TOKENS, D, F): 819.6, (F, D, TOKENS): 825.8, (D, F, TOKENS): 825.9},
+    "matmul": {(MM_N, MM_N, MM_N): 1694.1},
+}
 # B19 at Llama2-1B's attention in bench.py's micro-batch: one instance per
 # (batch element, kv head), G query heads each
 ATTN_LEAD = (TRAIN_B, CFG.num_key_value_heads)
@@ -284,22 +293,33 @@ def check_k1(gen: torch.Generator) -> dict:
                   3 * M * K + 2 * M)  # x read, q and the bf16 scales written
 
 
-def k2_routed(args) -> torch.Tensor:
-    """K2 once on ``args``, checked to launch once, on the route
-    ``ops/scaled_mm.py::sm90_route`` gives its M."""
+# the route each GEMM with an sm90 form takes on its operands (a, b, scales):
+# the predicates of ops/scaled_mm.py and ops/int4_mm.py
+ROUTES = {
+    "scaled_mm_rhs_t": lambda a, b, *_: SCALED_MM.sm90_route(a.shape[0]),
+    "scaled_mm_lhs_t": lambda a, b, *_: SCALED_MM.lhs_t_sm90_route(a.shape[1], b.shape[1], a.shape[0]),
+    "scaled_int4_mm": lambda a, b, *_: INT4_MM.sm90_route(a.shape[0], 2 * a.shape[1],
+                                                          a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0),
+}
+
+
+def routed(name: str, kernel, args) -> torch.Tensor:
+    """``kernel`` once on ``args``, checked to launch once and to count that
+    launch on the route ``ROUTES[name]`` gives."""
     ops.reset_launch_counts()
-    out = ops.scaled_mm_rhs_t(*args)
-    M, sm90 = args[0].shape[0], ops.launch_counts()["scaled_mm_rhs_t_sm90"]
-    check(ops.launch_counts()["scaled_mm_rhs_t"] == 1 and sm90 == int(SCALED_MM.sm90_route(M)),
-          f"K2 at M={M} launched once, on the {'sm90' if SCALED_MM.sm90_route(M) else 'wmma'} route")
+    out = kernel(*args)
+    sm90, n = ROUTES[name](*args), ops.launch_counts()
+    check(n[name] == 1 and n[f"{name}_sm90"] == int(sm90),
+          f"{name} at {[tuple(t.shape) for t in args[:2]]} launched once, on the {'sm90' if sm90 else 'wmma'} route")
     return out
 
 
-def k2_timing(M: int, N: int, K: int, ms: float, nbytes: float) -> str:
-    """K2's route, share of its bound and time against its wmma kernel's."""
+def sm90_timing(name: str, args, M: int, N: int, K: int, ms: float, nbytes: float) -> str:
+    """A GEMM's route, share of its bound and time against its wmma
+    kernel's (``WMMA_US``)."""
     b_ms, by = bound(nbytes, int8_ops=2.0 * M * N * K)
-    wmma = WMMA_US[(M, N, K)] / 1e3
-    return (f"route {'sm90' if SCALED_MM.sm90_route(M) else 'wmma'}, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by "
+    wmma = WMMA_US[name][(M, N, K)] / 1e3
+    return (f"route {'sm90' if ROUTES[name](*args) else 'wmma'}, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by "
             f"{by}; the wmma kernel {wmma:.4f} ms ({wmma / ms:.2f}x this)")
 
 
@@ -315,7 +335,7 @@ def check_k2(gen: torch.Generator) -> float:
             b, sb = ops.quantize_int8_plain(
                 (torch.randn(N, K, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16))
             sb = sb.reshape(1, N)
-            out = k2_routed((a, b, sa, sb))
+            out = routed("scaled_mm_rhs_t", ops.scaled_mm_rhs_t, (a, b, sa, sb))
             ref = ops.scaled_mm_rhs_t_plain(a, b, sa, sb)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
@@ -328,7 +348,8 @@ def check_k2(gen: torch.Generator) -> float:
             tops = 2 * M * N * K / ms / 1e9
             nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)
             print(f"[3] K2 scaled_mm_rhs_t M={M} {name} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {k2_timing(M, N, K, ms, nbytes)}; plain "
+                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
+                  f"{sm90_timing('scaled_mm_rhs_t', (a, b), M, N, K, ms, nbytes)}; plain "
                   f"(float64 matmul) {plain_ms:.4f} ms, torch._int_mm (int32 out) "
                   f"{'refused' if lib is None else f'{lib:.4f} ms'}")
     k2_host_cost(gen)
@@ -446,8 +467,9 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
     model: K2 (forward x . w^T), B1 (grad_input g . w, K = out) and B2
     (grad_weight g^T . x, K = 8192), each on its operands as the backward
     quantizes them; bit-exact, timed beside ``torch._int_mm``, with TOP/s
-    and GB/s. Entries at gate/up; K2's error also covers the serving
-    shapes (``k2_worst``)."""
+    and GB/s; K2 and B2 on the route they take (both sm90 here), with the
+    share of the bound and their wmma kernels' time. Entries at gate/up;
+    K2's error also covers the serving shapes (``k2_worst``)."""
     entries = []
     worst = {"scaled_mm_rhs_t": k2_worst, "scaled_mm": 0.0, "scaled_mm_lhs_t": 0.0}
     for lname, o, i in LINEARS:
@@ -468,7 +490,7 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
             ("scaled_mm_lhs_t", ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain,
              (g_col, x_col, g_col_s, x_col_s), (o, i, TOKENS), "quantized_training_tpu/ops/pallas_mm.py:192"),
         ):
-            got = k2_routed(args) if name == "scaled_mm_rhs_t" else kernel(*args)
+            got = routed(name, kernel, args) if name in ROUTES else kernel(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f"{name} bit-exact at {lname} M={M} N={N} K={K}")
@@ -478,7 +500,7 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
             lib_ms = int_mm_ms(name, inputs)
             tops = 2 * M * N * K / ms / 1e9
             nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)  # int8 operands and bf16 scales in, bf16 out
-            k2 = f"{k2_timing(M, N, K, ms, nbytes)}; " if name == "scaled_mm_rhs_t" else ""
+            k2 = f"{sm90_timing(name, args, M, N, K, ms, nbytes)}; " if name in ROUTES else ""
             print(f"[3] {name} {lname} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
                   f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {k2}plain (float64 matmul) {plain_ms:.4f} ms, "
                   f"torch._int_mm (int32 out) {'refused' if lib_ms is None else f'{lib_ms:.4f} ms'}")
@@ -508,14 +530,16 @@ def check_int4_gemms(gen: torch.Generator) -> dict:
     down (K = 8192 in grad_weight), on packed operands from int4 mixed
     precision's quantize of a and of b^T: bit-exact, timed beside
     ``torch._int_mm`` on the unpacked int8 operands (the nearest library
-    call: int32 out, no epilogue), with TOP/s, GB/s and the share of the
-    bound. The entry is the forward at gate/up."""
+    call: int32 out, no epilogue), with TOP/s, GB/s, the share of the bound,
+    the route (sm90 at every shape here) and the wmma kernel's time. The
+    entry is the forward at gate/up."""
     worst, entry = 0.0, None
     for lname, form, a, b in gemm_forms(gen):
         ap, sa = quantize_int4_rowwise_absmax(a)
         bp, sb = quantize_int4_rowwise_absmax(b.T.contiguous())
         M, N, K = ap.shape[0], bp.shape[0], 2 * ap.shape[1]
-        got, ref = ops.scaled_int4_mm(ap, bp, sa, sb), ops.scaled_int4_mm_plain(ap, bp, sa, sb)
+        got = routed("scaled_int4_mm", ops.scaled_int4_mm, (ap, bp, sa, sb))
+        ref = ops.scaled_int4_mm_plain(ap, bp, sa, sb)
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"B16 bit-exact at {lname} {form} M={M} N={N} K={K}")
         worst = max(worst, _max_err([got], [ref]))
@@ -524,11 +548,10 @@ def check_int4_gemms(gen: torch.Generator) -> dict:
         library = lib_ms("torch._int_mm", lambda a, b: torch._int_mm(a, b.t()),
                          copies(ops.unpack_int4(ap), ops.unpack_int4(bp)))
         nbytes = M * K // 2 + N * K // 2 + 2 * (M + N) + 2 * M * N  # packed in, bf16 scales and out
-        b_ms, by = bound(nbytes, 2 * M * N * K)
         print(f"[3] scaled_int4_mm (B16) {lname} {form} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-              f"({2 * M * N * K / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the "
-              f"{b_ms:.4f} ms bound by {by}), plain {plain_ms:.4f} ms, torch._int_mm (unpacked, int32 out) "
-              f"{'refused' if library is None else f'{library:.4f} ms'}")
+              f"({2 * M * N * K / ms / 1e9:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
+              f"{sm90_timing('scaled_int4_mm', (ap, bp), M, N, K, ms, nbytes)}; plain {plain_ms:.4f} ms, "
+              f"torch._int_mm (unpacked, int32 out) {'refused' if library is None else f'{library:.4f} ms'}")
         if entry is None:
             entry = _entry("scaled_int4_mm", "quantized_training_tpu/ops/pallas_mm.py:636", 0.0,
                            ((M, N, K), ms, plain_ms), nbytes, 2 * M * N * K, library)
@@ -1056,10 +1079,10 @@ def check_b17(gen: torch.Generator) -> list:
         nbytes = 2 * n * n * args[0].element_size() + out_bytes * n * n
         ops_kw = {"bf16_ops": flops} if peak == "bf16" else {"int8_ops": flops}
         b_ms, by = bound(nbytes, **ops_kw)
+        wmma = WMMA_US["matmul"][(n, n, n)] / 1e3
         held = (f"route sm90, within its bound (max |kernel - plain| {err16:.3e} in bf16; fp32 out at "
                 f"{(d32 / fold).max().item():.4f} of the fp32 sum bound), the wmma kernel "
-                f"{WMMA_US[(n, n, n)] / 1e3:.4f} ms ({WMMA_US[(n, n, n)] / 1e3 / ms:.2f}x this)" if peak == "bf16"
-                else "route wmma, bit-exact")
+                f"{wmma:.4f} ms ({wmma / ms:.2f}x this)" if peak == "bf16" else "route wmma, bit-exact")
         print(f"[3] matmul (B17, {peak}) {n}x{n}x{n} -> {'bf16' if peak == 'bf16' else 'int32'}: {held}; kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} {peak} TOP/s, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), "
               f"plain (float64 matmul) {plain_ms:.4f} ms, {lib_name} "
@@ -1270,7 +1293,7 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                        f"quantize_int8_both{t}": 7 * n})
     if layer != "bf16":
         counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm_rhs_t_sm90": 2 * 7 * n, "scaled_mm": 7 * n,
-                       "scaled_mm_lhs_t": 7 * n})
+                       "scaled_mm_lhs_t": 7 * n, "scaled_mm_lhs_t_sm90": 7 * n})
     return counts
 
 
@@ -1542,8 +1565,9 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
     and lr, from its weights, batch and key, on the unfused layer (the
     fused ops take int8 only). The losses fall, each first loss is within
     FIRST_LOSS_BOUNDS of phase 6's bf16 one, and each step launches B16
-    (int4) or B15's e4m3 form (fp8 tile) 28 times a layer (7 weights:
-    forward, its remat replay, grad_input, grad_weight) and no int8 kernel;
+    (int4, every launch on the sm90 route) or B15's e4m3 form (fp8 tile) 28
+    times a layer (7 weights: forward, its remat replay, grad_input,
+    grad_weight) and no int8 kernel;
     fp8 row neither. Prints tokens/s of steps 2-3, the ratio to phase 6's
     bf16 tokens/s and peak memory. Returns the launches of the three runs."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
@@ -1555,6 +1579,8 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
         expect = per_step_launches(L, layer="bf16")
         if gemm is not None:
             expect[gemm] = 28 * L
+        if gemm == "scaled_int4_mm":
+            expect["scaled_int4_mm_sm90"] = 28 * L
         params = quant.quantize_params(raw, "mixed_precision", **qkw)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1645,7 +1671,7 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
                        f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
                        f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
                        f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L, "scaled_mm": 4 * L,
-                       "scaled_mm_lhs_t": 4 * L})
+                       "scaled_mm_lhs_t": 4 * L, "scaled_mm_lhs_t_sm90": 4 * L})
     return counts
 
 

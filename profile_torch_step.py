@@ -50,15 +50,18 @@ CONFIGS = {"fused": {}, "unfused": {}, "bf16": None, "int4": {"dtype": "int4"},
            "vit_int8": {}, "vit_bf16": None}
 VIT_B = 24
 
-# kernel-name fragments of each group, first match wins (B16 is scaled_mm_s8
-# instantiated on packed int4 operands, Src 1 in its template arguments; K2
-# above 16 rows is sm90_gemm.cuh's gemm_kernel on S8KMajor operands, which
-# must match before cuBLAS's "gemm")
+# kernel-name fragments of each group, first match wins: sm90_gemm.cuh's
+# gemm_kernel is named by its operand form (K2 above 16 rows S8KMajor, B2
+# S8MnMajor, B16 above 16 rows S4KMajor...), and these must match before
+# cuBLAS's "gemm"; the wmma kernel is scaled_mm_s8, on packed int4 operands
+# (B16's decode sizes, K % 32 != 0) with Src 1 in its template arguments
 GROUPS = (
-    ("int4 GEMM B16", ("src)1",)),
+    ("int4 GEMM B16 on the TMA + wgmma mainloop", ("s4kmajor",)),
+    ("int4 GEMM B16 on wmma (decode sizes, K % 32 != 0)", ("src)1",)),
     ("tile-scaled GEMM B15", ("tile_scaled_mm",)),
     ("int8 GEMM K2 on the TMA + wgmma mainloop", ("s8kmajor",)),
-    ("int8 GEMMs B1/B2 (and K2 at decode sizes)", ("scaled_mm_s8",)),
+    ("int8 GEMM B2 on the TMA + wgmma mainloop", ("s8mnmajor",)),
+    ("int8 GEMM B1 on wmma (and K2 at decode sizes)", ("scaled_mm_s8",)),
     ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer")),
     ("producer kernels B7-B12 (and B18's column folds)", ("row_quant", "col_quant", "producer_col_absmax",
                                                           "rmsnorm_bwd_rows", "reduce_parts")),

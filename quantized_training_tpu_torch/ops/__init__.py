@@ -20,7 +20,7 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   ``ops/pallas_mm.py::tile_scaled_mm``: fp8 ``mixed_precision`` with
   ``scale='tile'``;
 - B16 :func:`scaled_int4_mm` (``csrc/scaled_mm.cu``), the packed-int4 GEMM
-  that unpacks in its load stage, replacing
+  that unpacks on chip, replacing
   ``ops/pallas_mm.py::scaled_int4_mm``: int4 ``mixed_precision``;
 - B6 :func:`fused_adamw_update` (``csrc/fused_adamw.cu``), replacing
   ``ops/pallas_optim.py::fused_adamw_update``;
@@ -137,6 +137,7 @@ KERNELS = {
     "scaled_mm_rhs_t_sm90": (scaled_mm_rhs_t, "sm90_launches"),
     "scaled_mm": (scaled_mm, "launches"),
     "scaled_mm_lhs_t": (scaled_mm_lhs_t, "launches"),
+    "scaled_mm_lhs_t_sm90": (scaled_mm_lhs_t, "sm90_launches"),
     "fused_adamw_update": (fused_adamw_update, "launches"),
     "fused_adamw_update_sr": (fused_adamw_update, "sr_launches"),
     "rmsnorm_quant_rowwise": (rmsnorm_quant_rowwise, "launches"),
@@ -158,6 +159,7 @@ KERNELS = {
     "ungroup_quant": (ungroup_quant, "launches"),
     "ungroup_quant_sr": (ungroup_quant, "sr_launches"),
     "scaled_int4_mm": (scaled_int4_mm, "launches"),
+    "scaled_int4_mm_sm90": (scaled_int4_mm, "sm90_launches"),
     "tile_scaled_mm": (tile_scaled_mm, "launches"),
     "tile_scaled_mm_s8": (tile_scaled_mm, "s8_launches"),
     "layernorm_quant_rowwise": (layernorm_quant_rowwise, "launches"),

@@ -16,34 +16,36 @@
 // - B16: a [M, K / 2] . b [N, K / 2]^T, both packed signed int4 (two values a
 //   byte, the even one in the high nibble), K-major: every matmul of int4
 //   mixed precision. Replaces ops/pallas_mm.py::scaled_int4_mm (:636). The
-//   operands cross device memory at 4 bits a value; the load stage unpacks
-//   each 8-byte chunk to 16 sign-extended int8 values in registers
-//   (mm_tiles.cuh) and the int8 MMA follows: the H100 lists no int4
-//   tensor-core rate, so the .s4 mma shapes are not used. int32 sums are
-//   exact, so B16 equals the JAX package's hi . hi + lo . lo split
-//   (pallas_mm.py:600-633) whatever order it sums in.
+//   operands cross device memory at 4 bits a value and are widened to int8
+//   on chip for the int8 MMA: the H100 lists no int4 tensor-core rate, so
+//   the .s4 mma shapes are not used. int32 sums are exact, so B16 equals the
+//   JAX package's hi . hi + lo . lo split (pallas_mm.py:600-633) whatever
+//   order it sums in.
 //
 // Bound on the H100: at training and prefill M the int8 tensor-core rate; at
-// decode M = 8 the bytes of the int8 weight, read once per call. K2 at
-// M > 16 runs on the pipelined TMA + wgmma mainloop of sm90_gemm.cuh (its
-// note says how it answers the bound); the caller decides that route and
-// passes it in (ops/scaled_mm.py::sm90_route). Everything below is the wmma
-// kernel of the other forms and of K2's decode tile. Design: no operand is
-// ever transposed in device memory (the JAX package's rule,
-// quant/mixed_precision.py:192-195). Tiles go through shared memory in 16x16
-// blocks of 16-byte rows (mm_tiles.cuh), so that every wmma fragment load is
-// 256-bit aligned with a leading dimension of 16. wmma m16n16k16
-// signed-char fragments take either layout (row_major / col_major) and
-// accumulate in int32, so one kernel, templated on the two layouts and on
-// packed operands, serves all four forms. Tiles: 64x64 with a K step of 64,
-// and for the K-major forms at M <= 16 (K2 takes this kernel at those sizes
-// only) a 16x32 tile with a K step of 256, so a decode call keeps more
-// weight bytes in flight per block. Ragged rows are
+// decode M = 8 the bytes of the int8 weight, read once per call. No operand
+// is ever transposed in device memory (the JAX package's rule,
+// quant/mixed_precision.py:192-195). K2 at M > 16, B2, and B16 at M > 16
+// with K % 32 == 0 run on the pipelined TMA + wgmma mainloop of
+// sm90_gemm.cuh (its note says how it answers the bound; B2 and B16 through
+// a producer that rewrites the landed tiles into wgmma's K-major layout);
+// the caller decides that route and passes it in (ops/scaled_mm.py::
+// sm90_route and ::lhs_t_sm90_route, ops/int4_mm.py::sm90_route).
+//
+// Everything below is the wmma kernel of B1, of K2's and B16's decode tiles,
+// and of B16 at a K that TMA cannot describe packed (K % 32 != 0), past the
+// mainloop's exact range (K >= 2^17), or on operands off a 16-byte
+// boundary. Tiles go through shared memory in 16x16 blocks of 16-byte rows
+// (mm_tiles.cuh), so that every wmma fragment load is 256-bit aligned with a
+// leading dimension of 16. wmma m16n16k16 signed-char fragments take either
+// layout (row_major / col_major) and accumulate in int32, so one kernel,
+// templated on b's layout and on packed operands, serves these forms; B16's
+// load stage unpacks each 8-byte chunk to 16 sign-extended int8 values in
+// registers (mm_tiles.cuh). Tiles: 64x64 with a K step of 64, and for the
+// K-major forms at M <= 16 a 16x32 tile with a K step of 256, so a decode
+// call keeps more weight bytes in flight per block. Ragged rows are
 // zero-filled on load and masked on store. The next K tile is fetched into
-// registers while the current one runs through the MMAs. No wgmma, TMA or
-// cp.async here: wgmma takes 8-bit operands K-major only, so a faster
-// (1,0)/(0,0) needs its operands written K-major by the quantize, a design
-// question for a later PR.
+// registers while the current one runs through the MMAs.
 
 #include <mma.h>
 
@@ -59,9 +61,9 @@ using qt_mm::to_f32;
 
 namespace {
 
-// S: S8, or S4 for packed int4 operands (both K-major).
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool A_KMAJOR, bool B_KMAJOR, Src S,
-          typename ST, typename OT>
+// a K-major; b K-major (K2's and B16's decode tiles, B16 off the sm90 route)
+// or MN-major (B1). S: S8, or S4 for packed int4 operands (both K-major).
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool B_KMAJOR, Src S, typename ST, typename OT>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
              const ST* __restrict__ sa, const ST* __restrict__ sb, OT* __restrict__ out,
@@ -73,7 +75,7 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   constexpr int LDC = BN + 4;
   static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile must be whole fragments");
   // a K-major A is row_major as wmma sees A[m][k]; a K-major B is col_major
-  using LayoutA = std::conditional_t<A_KMAJOR, wmma::row_major, wmma::col_major>;
+  using LayoutA = wmma::row_major;
   using LayoutB = std::conditional_t<B_KMAJOR, wmma::col_major, wmma::row_major>;
 
   __shared__ __align__(128) int8_t As[BM * BK];
@@ -90,7 +92,7 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
 
-  TileCopy<BM, BK, NT, A_KMAJOR, S> ta;
+  TileCopy<BM, BK, NT, true, S> ta;
   TileCopy<BN, BK, NT, B_KMAJOR, S> tb;
   ta.fetch(a, m0, M, 0, K);
   tb.fetch(b, n0, N, 0, K);
@@ -108,7 +110,7 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, LayoutB> fb[FN];
 #pragma unroll
       for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(fa[i], frag<BM, BK, A_KMAJOR>(As, c, wm * WM + i * 16), 16);
+        wmma::load_matrix_sync(fa[i], frag<BM, BK, true>(As, c, wm * WM + i * 16), 16);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
         wmma::load_matrix_sync(fb[j], frag<BN, BK, B_KMAJOR>(Bs, c, wn * WN + j * 16), 16);
@@ -139,53 +141,54 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool AK, bool BKM, Src S, typename ST,
-          typename OT>
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool BKM, Src S, typename ST, typename OT>
 cudaError_t launch_tiles(const void* a, const void* b, const void* sa, const void* sb, void* out,
                          int M, int N, int K, cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  scaled_mm_s8<BM, BN, BK, WARPS_M, WARPS_N, AK, BKM, S, ST, OT>
+  scaled_mm_s8<BM, BN, BK, WARPS_M, WARPS_N, BKM, S, ST, OT>
       <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
           static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
           static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out), M, N, K);
   return cudaGetLastError();
 }
 
-template <bool AK, bool BKM, Src S, typename ST, typename OT>
+template <bool BKM, Src S, typename ST, typename OT>
 cudaError_t launch(const void* a, const void* b, const void* sa, const void* sb, void* out, int M,
                    int N, int K, cudaStream_t stream) {
-  if constexpr (AK && BKM && S == Src::S8) {  // K2 off the sm90 route: the decode sizes
-    return launch_tiles<16, 32, 256, 1, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+  if constexpr (BKM && S == Src::S8) {  // K2 off the sm90 route: the decode sizes
+    return launch_tiles<16, 32, 256, 1, 2, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   } else {
-    if constexpr (AK && BKM) {
+    if constexpr (BKM) {
       if (M <= 16)
-        return launch_tiles<16, 32, 256, 1, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+        return launch_tiles<16, 32, 256, 1, 2, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
     }
-    return launch_tiles<64, 64, 64, 2, 2, AK, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+    return launch_tiles<64, 64, 64, 2, 2, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   }
 }
 
-template <bool AK, bool BKM, Src S = Src::S8>
+template <bool BKM, Src S = Src::S8>
 cudaError_t launch_dtypes(const void* a, const void* b, const void* sa, const void* sb, void* out,
                           int M, int N, int K, int scale_bf16, int out_bf16, cudaStream_t s) {
   using BF = __nv_bfloat16;
   if (scale_bf16)
-    return out_bf16 ? launch<AK, BKM, S, BF, BF>(a, b, sa, sb, out, M, N, K, s)
-                    : launch<AK, BKM, S, BF, float>(a, b, sa, sb, out, M, N, K, s);
-  return out_bf16 ? launch<AK, BKM, S, float, BF>(a, b, sa, sb, out, M, N, K, s)
-                  : launch<AK, BKM, S, float, float>(a, b, sa, sb, out, M, N, K, s);
+    return out_bf16 ? launch<BKM, S, BF, BF>(a, b, sa, sb, out, M, N, K, s)
+                    : launch<BKM, S, BF, float>(a, b, sa, sb, out, M, N, K, s);
+  return out_bf16 ? launch<BKM, S, float, BF>(a, b, sa, sb, out, M, N, K, s)
+                  : launch<BKM, S, float, float>(a, b, sa, sb, out, M, N, K, s);
 }
 
-// K2 on sm90_gemm.cuh, in the same four (scale, out) types.
+// K2, B2 or B16 on sm90_gemm.cuh (Form S8KMajor, S8MnMajor or S4KMajor), in
+// the same four (scale, out) types.
+template <class Form>
 cudaError_t launch_sm90(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N,
                         int K, int scale_bf16, int out_bf16, cudaStream_t s) {
   using BF = __nv_bfloat16;
-  using qt_sm90::scaled_s8;
+  using qt_sm90::scaled;
   if (scale_bf16)
-    return out_bf16 ? scaled_s8<BF, BF>(a, b, sa, sb, out, M, N, K, s)
-                    : scaled_s8<BF, float>(a, b, sa, sb, out, M, N, K, s);
-  return out_bf16 ? scaled_s8<float, BF>(a, b, sa, sb, out, M, N, K, s)
-                  : scaled_s8<float, float>(a, b, sa, sb, out, M, N, K, s);
+    return out_bf16 ? scaled<Form, BF, BF>(a, b, sa, sb, out, M, N, K, s)
+                    : scaled<Form, BF, float>(a, b, sa, sb, out, M, N, K, s);
+  return out_bf16 ? scaled<Form, float, BF>(a, b, sa, sb, out, M, N, K, s)
+                  : scaled<Form, float, float>(a, b, sa, sb, out, M, N, K, s);
 }
 
 }  // namespace
@@ -196,23 +199,22 @@ cudaError_t launch_sm90(const void* a, const void* b, const void* sa, const void
 // with K % 16 == 0 and every MN-major operand's row length (M or N) a
 // multiple of 16. sa [M] and sb [N] are bf16 if scale_bf16 else fp32; out
 // [M, N] is bf16 if out_bf16 else fp32. sm90: the (1, 1) form on the
-// sm90_gemm.cuh mainloop (refused for the other forms), else on the wmma
-// kernel.
+// sm90_gemm.cuh mainloop, else on the wmma kernel; the (0, 0) form runs on
+// the mainloop only (sm90 = 0 is refused), the (1, 0) form on wmma only
+// (sm90 = 1 is refused).
 extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, const void* sb,
                                void* out, int M, int N, int K, int a_kmajor, int b_kmajor,
                                int scale_bf16, int out_bf16, int sm90, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (sm90) {
-    err = a_kmajor && b_kmajor ? launch_sm90(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s)
-                               : cudaErrorInvalidValue;
-  } else if (a_kmajor && b_kmajor) {
-    err = launch_dtypes<true, true>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
-  } else if (a_kmajor) {
-    err = launch_dtypes<true, false>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
-  } else if (!b_kmajor) {
-    err = launch_dtypes<false, false>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+  if (a_kmajor && b_kmajor) {
+    err = sm90 ? launch_sm90<qt_sm90::S8KMajor>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s)
+               : launch_dtypes<true>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+  } else if (a_kmajor && !sm90) {
+    err = launch_dtypes<false>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+  } else if (!a_kmajor && !b_kmajor && sm90) {
+    err = launch_sm90<qt_sm90::S8MnMajor>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -221,11 +223,21 @@ extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, con
 
 // B16. a [M, K / 2] and b [N, K / 2] packed signed int4, contiguous, 8-byte
 // aligned, K the unpacked contraction length with K % 16 == 0; sa [M], sb
-// [N], out [M, N] as for qt_scaled_mm_s8. Returns the launch's cudaError_t.
+// [N], out [M, N] as for qt_scaled_mm_s8. sm90: on the sm90_gemm.cuh
+// mainloop, which needs K % 32 == 0 (16-byte packed rows), K < 2^17 (its
+// int32 sums of 256 x each product) and 16-byte aligned operands; else on
+// the wmma kernel. Returns the launch's cudaError_t.
 extern "C" int qt_scaled_int4_mm(const void* a, const void* b, const void* sa, const void* sb,
-                                 void* out, int M, int N, int K, int scale_bf16, int out_bf16,
+                                 void* out, int M, int N, int K, int scale_bf16, int out_bf16, int sm90,
                                  void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  return static_cast<int>(launch_dtypes<true, true, Src::S4>(a, b, sa, sb, out, M, N, K, scale_bf16,
-                                                              out_bf16, static_cast<cudaStream_t>(stream)));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (sm90) {
+    err = K % 32 || K >= (1 << 17) ? cudaErrorInvalidValue
+                 : launch_sm90<qt_sm90::S4KMajor>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+  } else {
+    err = launch_dtypes<true, Src::S4>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+  }
+  return static_cast<int>(err);
 }

@@ -6,9 +6,14 @@ Counterpart of ``quantized_training_tpu/ops/int4_mm.py`` (:39-83):
 values a byte, the even element in the high nibble; B is taken packed along
 K as ``b_t [N, K / 2]``, the layout a row-wise quantize of B^T gives.
 
-B16 is an instantiation of ``csrc/scaled_mm.cu`` (K2's K-major form) whose
-load stage unpacks the nibbles in registers, so the operands cross device
-memory at 4 bits a value; its header says what bounds it.
+The operands cross device memory at 4 bits a value and are widened to int8
+on chip. Above the decode sizes B16 runs on the pipelined TMA + wgmma
+mainloop of ``csrc/sm90_gemm.cuh``, whose producer widens each landed tile
+of b into the K-major int8 stage that wgmma reads while its consumers build
+a's fragments in registers (:func:`sm90_route`, counted in
+``scaled_int4_mm.sm90_launches``); elsewhere on the wmma kernel of
+``csrc/scaled_mm.cu`` (K2's K-major form), whose load stage unpacks in
+registers. The sources' headers say what bounds each.
 """
 
 from __future__ import annotations
@@ -16,7 +21,24 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .scaled_mm import _SCALE_DTYPES, _as_vector
+from .scaled_mm import _SCALE_DTYPES, DECODE_M, _as_vector
+
+
+# B16 on the sm90 mainloop sums 256 x each product in int32 (csrc/
+# sm90_gemm.cuh, S4KMajor): exact below this K
+SM90_MAX_K = 1 << 17
+
+
+def sm90_route(M: int, K: int, aligned: bool = True) -> bool:
+    """Whether B16 with M rows of a and contraction length K (unpacked)
+    takes the TMA + wgmma mainloop (``csrc/sm90_gemm.cuh``): above the
+    decode sizes (M > ``DECODE_M``, as K2), where TMA can describe the
+    packed operands (rows of K / 2 bytes a multiple of 16: K % 32 == 0; both
+    operands ``aligned`` on 16 bytes) and 0 < K < ``SM90_MAX_K``. Every
+    int4 matmul of the Llama steps qualifies (K 2048, 5632 or 8192). The
+    rest stays on the wmma kernel. The only thing that chooses B16's
+    route."""
+    return M > DECODE_M and K % 32 == 0 and 0 < K < SM90_MAX_K and aligned
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -67,12 +89,13 @@ def _launch(a, b, row_scale, col_scale, out_dtype):
     sa = _as_vector(row_scale, M, "row_scale")
     sb = _as_vector(col_scale, N, "col_scale")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    sm90 = sm90_route(M, 2 * P, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     err = _build.library().qt_scaled_int4_mm(
         a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, 2 * P,
-        int(sa.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _build.stream(),
+        int(sa.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), int(sm90), _build.stream(),
     )
     _build.check(err, "scaled_int4_mm")
-    return out
+    return out, sm90
 
 
 def scaled_int4_mm(a_packed: torch.Tensor, b_t_packed: torch.Tensor, row_scale: torch.Tensor,
@@ -82,12 +105,15 @@ def scaled_int4_mm(a_packed: torch.Tensor, b_t_packed: torch.Tensor, row_scale: 
     [N] / [1, N] or scalars, bf16 or fp32 (the same for both). A CPU tensor
     takes :func:`scaled_int4_mm_plain`; CUDA tensors launch B16 on the
     current stream, which needs K % 16 == 0 and 8-byte aligned, contiguous
-    operands."""
+    operands; on the sm90 mainloop where :func:`sm90_route` says so (counted
+    in ``sm90_launches`` as well)."""
     if a_packed.device.type == "cpu":
         return scaled_int4_mm_plain(a_packed, b_t_packed, row_scale, col_scale, out_dtype=out_dtype)
-    out = _launch(a_packed, b_t_packed, row_scale, col_scale, out_dtype)
+    out, sm90 = _launch(a_packed, b_t_packed, row_scale, col_scale, out_dtype)
     scaled_int4_mm.launches += 1
+    scaled_int4_mm.sm90_launches += sm90
     return out
 
 
 scaled_int4_mm.launches = 0
+scaled_int4_mm.sm90_launches = 0

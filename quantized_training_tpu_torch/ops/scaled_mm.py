@@ -17,10 +17,13 @@ Counterparts in the JAX package:
 
 The three kernels are layout instantiations of one CUDA source,
 ``csrc/scaled_mm.cu``; its header says what bounds them on the H100 and how
-the design answers that. K2 above the decode sizes runs on the pipelined
-TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` instead (:func:`sm90_route`,
-counted in ``scaled_mm_rhs_t.sm90_launches``). No operand is transposed in
-memory.
+the design answers that. K2 above the decode sizes and B2 run on the
+pipelined TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` (:func:`sm90_route`
+and :func:`lhs_t_sm90_route`, counted in ``scaled_mm_rhs_t.sm90_launches``
+and ``scaled_mm_lhs_t.sm90_launches``); B2's MN-major operands are
+transposed on chip, by the mainloop's producer, into the K-major stage that
+8-bit wgmma reads, and B2 has no wmma form left. B1 stays on the wmma
+kernel. No operand is transposed in device memory.
 """
 
 from __future__ import annotations
@@ -43,6 +46,18 @@ def sm90_route(M: int) -> bool:
     ViT and prefill sizes do, decode steps of up to ``DECODE_M`` slots do
     not. The only thing that chooses K2's route."""
     return M > DECODE_M
+
+
+def lhs_t_sm90_route(M: int, N: int, K: int) -> bool:
+    """Whether B2 (a [K, M]^T . b [K, N]) can take the TMA + wgmma mainloop,
+    whose producer transposes each landed [128 k][128 m] tile into wgmma's
+    K-major stage: where TMA can describe both operands, their rows of M and
+    N bytes a multiple of 16 and K > 0. Every grad_weight of the Llama and
+    ViT steps does (out features M, in features N, K tokens), and so does
+    every shape B2's wrapper takes: B2 has no other kernel (its wmma form
+    ran 2.5-7.6x slower at the Llama2-1B step's shapes on the H100,
+    ``ab_sm90_forms.py``)."""
+    return M % 16 == 0 and N % 16 == 0 and K > 0
 
 
 def _as_vector(s: torch.Tensor, n: int, what: str) -> torch.Tensor:
@@ -84,7 +99,7 @@ def scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
 
 def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False):
     """Check the operands of one form and launch its kernel on the current
-    stream, on the sm90 mainloop where ``sm90`` (K2 only). Operands stay in
+    stream, on the sm90 mainloop where ``sm90`` (K2 and B2). Operands stay in
     their stored layouts: a K-major operand has the contraction axis last,
     an MN-major one first."""
     tensors = (a, b, scale_a, scale_b)
@@ -176,16 +191,24 @@ def scaled_mm_lhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
     """``out[M, N] = ((a[K, M]^T . b[K, N]) * scale_a[M]) * scale_b[N]``:
     both operands contracted over their first axis, as stored. A CPU tensor
     takes :func:`scaled_mm_lhs_t_plain`; CUDA tensors launch B2 on the
-    current stream, which needs K % 16 == 0, M % 16 == 0, N % 16 == 0 and
-    16-byte aligned, contiguous operands."""
+    current stream, which needs K % 16 == 0, M % 16 == 0, N % 16 == 0, K > 0
+    and 16-byte aligned, contiguous operands, on the sm90 mainloop, the
+    only kernel B2 has (:func:`lhs_t_sm90_route`; counted in
+    ``sm90_launches`` as well)."""
     if a.device.type == "cpu":
         return scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
-    out = _launch("scaled_mm_lhs_t", a, b, scale_a, scale_b, (0, 0), out_dtype)
+    sm90 = lhs_t_sm90_route(a.shape[1], b.shape[1], a.shape[0])
+    if not sm90:
+        raise ValueError(f"scaled_mm_lhs_t: shapes {tuple(a.shape)}, {tuple(b.shape)}: the sm90 mainloop needs "
+                         "M % 16 == 0, N % 16 == 0 and K > 0")
+    out = _launch("scaled_mm_lhs_t", a, b, scale_a, scale_b, (0, 0), out_dtype, sm90)
     scaled_mm_lhs_t.launches += 1
+    scaled_mm_lhs_t.sm90_launches += sm90
     return out
 
 
 scaled_mm_lhs_t.launches = 0
+scaled_mm_lhs_t.sm90_launches = 0
 
 _BY_DIMS = {(1, 1): scaled_mm_rhs_t, (1, 0): scaled_mm, (0, 0): scaled_mm_lhs_t}
 

@@ -567,6 +567,93 @@ def test_scaled_int4_mm_bit_exact(M, N, K, scale_dtype, out_dtype):
     assert torch.equal(out, ops.scaled_int4_mm_plain(a, b, sa, sb, out_dtype=out_dtype))
 
 
+def _each_scale_and_out(kernel, plain, args, M, N, g):
+    """``kernel`` on ``args`` and random row and column scales in bf16 and
+    fp32, to bf16 and fp32 out, each bit-exact with ``plain``."""
+    for scale_dtype in (torch.bfloat16, torch.float32):
+        sa = (torch.rand(M, 1, generator=g, device="cuda") * 0.01).to(scale_dtype)
+        sb = (torch.rand(1, N, generator=g, device="cuda") * 0.01).to(scale_dtype)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = kernel(*args, sa, sb, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain(*args, sa, sb, out_dtype=out_dtype))
+
+
+# B2's grad_weight shapes (out features M, in features N, K tokens): every
+# linear of the Llama2-1B step (8,192 tokens) and of ViT-Giant's (6,400
+# padded tokens), then ragged M, N and K against the 128 x 128 x 128 tile
+B2_SM90_SHAPES = [(2048, 2048, 8192), (256, 2048, 8192), (5632, 2048, 8192), (2048, 5632, 8192),
+                  (4608, 1536, 6400), (1536, 1536, 6400), (6144, 1536, 6400), (1536, 6144, 6400),
+                  (16, 16, 16), (48, 208, 272), (144, 400, 6400), (272, 96, 8208)]
+
+
+@pytest.mark.parametrize("M,N,K", B2_SM90_SHAPES)
+def test_scaled_mm_lhs_t_sm90_bit_exact(M, N, K):
+    """B2 (a [K, M]^T . b [K, N]) on the TMA + wgmma mainloop, whose producer
+    transposes each landed tile: bit-exact with the plain version in every
+    scale and output type, every launch on the sm90 route."""
+    g = torch.Generator(device="cuda").manual_seed(M + N + K)
+    a, b = _int8((K, M), g), _int8((K, N), g)
+    ops.reset_launch_counts()
+    _each_scale_and_out(ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain, (a, b), M, N, g)
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_lhs_t"] == counts["scaled_mm_lhs_t_sm90"] == 4
+
+
+def test_scaled_mm_lhs_t_sm90_views():
+    """B2 on operands that are views into larger allocations, 16 bytes past
+    their start: exact on the sm90 route; a view off a 16-byte boundary is
+    refused (no other route takes it)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    K, M, N = 384, 272, 144
+    a = _int8((K * M + 32,), g)[16:16 + K * M].view(K, M)
+    b = _int8((K * N + 32,), g)[16:16 + K * N].view(K, N)
+    ops.reset_launch_counts()
+    _each_scale_and_out(ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain, (a, b), M, N, g)
+    assert ops.launch_counts()["scaled_mm_lhs_t_sm90"] == 4
+    off = _int8((K * M + 32,), g)[8:8 + K * M].view(K, M)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.scaled_mm_lhs_t(off, b, torch.ones(M, device="cuda"), torch.ones(N, device="cuda"))
+
+
+# B16's shapes in chip_smoke.py::gemm_forms (M, N, K unpacked) for gate/up
+# and down at 8,192 tokens: forward, grad_input, grad_weight; then ragged M,
+# N and K (K % 32 == 0) against the 128 x 128 x 128 tile
+B16_SM90_SHAPES = [(8192, 5632, 2048), (8192, 2048, 5632), (8192, 2048, 5632), (8192, 5632, 2048),
+                   (5632, 2048, 8192), (2048, 5632, 8192), (17, 40, 96), (130, 200, 288), (300, 136, 32)]
+
+
+@pytest.mark.parametrize("M,N,K", sorted(set(B16_SM90_SHAPES)))
+def test_scaled_int4_mm_sm90_bit_exact(M, N, K):
+    """B16 on the TMA + wgmma mainloop, whose producer unpacks each landed
+    packed tile: bit-exact with the plain version in every scale and output
+    type, every launch on the sm90 route."""
+    g = torch.Generator(device="cuda").manual_seed(M * N + K)
+    a, b = _packed_int4((M, K // 2), g), _packed_int4((N, K // 2), g)
+    ops.reset_launch_counts()
+    _each_scale_and_out(ops.scaled_int4_mm, ops.scaled_int4_mm_plain, (a, b), M, N, g)
+    counts = ops.launch_counts()
+    assert counts["scaled_int4_mm"] == counts["scaled_int4_mm_sm90"] == 4
+
+
+def test_scaled_int4_mm_sm90_routes_and_views():
+    """B16's route: K % 32 != 0 (packed rows TMA cannot describe), a view 8
+    bytes off a 16-byte boundary and decode M stay on the wmma kernel, a view
+    16 bytes in takes sm90; all bit-exact, each launch counted on its
+    route."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    M, N, K = 160, 96, 256
+    a, b = _packed_int4((M, K // 2), g), _packed_int4((N, K // 2), g)
+    view8 = _packed_int4((M * K // 2 + 32,), g)[8:8 + M * K // 2].view(M, K // 2)
+    view16 = _packed_int4((M * K // 2 + 32,), g)[16:16 + M * K // 2].view(M, K // 2)
+    for args, rows, sm90 in (((a[:, :24].contiguous(), b[:, :24].contiguous()), M, 0), ((view8, b), M, 0),
+                             ((a[:16].contiguous(), b), 16, 0), ((view16, b), M, 4)):
+        ops.reset_launch_counts()
+        _each_scale_and_out(ops.scaled_int4_mm, ops.scaled_int4_mm_plain, args, rows, N, g)
+        counts = ops.launch_counts()
+        assert counts["scaled_int4_mm"] == 4 and counts["scaled_int4_mm_sm90"] == sm90
+
+
 def _tile_operands(M, K, N, qm, qn, fp8, g, scale_dtype=torch.float32):
     """int8 operands over the whole range, or e4m3 ones from N(0, 50)
     (saturating at +-448), and random tile scales."""
@@ -628,7 +715,7 @@ def test_launch_counters_count_kernel_launches_only():
     ops.quantize_int8_both(x, sr=True, key=1)
     ops.scaled_mm_rhs_t(q, q, s, s.T)
     ops.scaled_mm(qr, qc, sr, sc)
-    ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)
+    ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)  # on the sm90 route: counted in both of its counters
     adamw_in = _adamw_inputs(64, torch.bfloat16, 0)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
@@ -672,7 +759,7 @@ def test_launch_counters_count_kernel_launches_only():
     ops.scaled_mm_plain(qr, qc, sr, sc)
     ops.scaled_mm_lhs_t_plain(qc2, qc, sc2, sc)
     ops.fused_adamw_plain(*adamw_in, 1, bf16_sr=True)
-    ops.scaled_int4_mm(q, q, s, s.T)  # q as packed int4: K = 128
+    ops.scaled_int4_mm(q, q, s, s.T)  # q as packed int4: K = 128, M = 64, on the sm90 route
     ops.scaled_int4_mm_plain(q, q, s, s.T)
     a8 = torch.cat([q, q], dim=1)  # [64, 128]: one K quant block
     e4m3 = a8.to(torch.float8_e4m3fn)

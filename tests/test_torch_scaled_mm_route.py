@@ -1,8 +1,9 @@
 """The route each sm90-capable GEMM takes, on the CPU: K2
-(``ops/scaled_mm.py::sm90_route``) and B17 (``ops/matmul.py::sm90_route``)
-choose between the TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` and their
-wmma kernels by a pure predicate, decided in Python and passed to the C
-entry as an explicit argument. No card is needed: the predicates are held at
+(``ops/scaled_mm.py::sm90_route``), B2 (``ops/scaled_mm.py::
+lhs_t_sm90_route``), B16 (``ops/int4_mm.py::sm90_route``) and B17
+(``ops/matmul.py::sm90_route``) choose between the TMA + wgmma mainloop of
+``csrc/sm90_gemm.cuh`` and their wmma kernels by a pure predicate, decided
+in Python and passed to the C entry as an explicit argument. No card is needed: the predicates are held at
 the main path's shapes, and the wrappers' launch path runs against a
 recording stub of the library, on meta tensors that pass for CUDA ones.
 The kernels themselves are held to their plain versions on the card
@@ -24,6 +25,7 @@ torch.set_num_threads(1)
 # both the module and the function of its name are exported by ops
 SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
+INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 
 _L = llama.LLAMA2_1B
 _KVD = _L.num_key_value_heads * _L.head_dim
@@ -120,13 +122,98 @@ def test_k2_passes_its_route(library, M, sm90):
 
 
 def test_backward_forms_stay_on_wmma(library):
-    """B1 and B2 (MN-major int8 operands) always pass sm90 = 0."""
+    """B1 (b MN-major) always passes sm90 = 0; B2 (both operands MN-major,
+    transposed on chip by the sm90 mainloop's producer) passes its route,
+    ``lhs_t_sm90_route``, and counts it."""
     g, w = _meta((8192, 512), torch.int8), _meta((512, 256), torch.int8)
     ops.scaled_mm(g, w, _meta((8192, 1), torch.float32), _meta((1, 256), torch.float32))
     ops.scaled_mm_lhs_t(g, _meta((8192, 256), torch.int8), _meta((512,), torch.float32),
                         _meta((256,), torch.float32))
-    assert [(name, args[-2]) for name, args in library.calls] == [("qt_scaled_mm_s8", 0)] * 2
-    assert ops.launch_counts()["scaled_mm_rhs_t_sm90"] == 0
+    assert SCALED_MM.lhs_t_sm90_route(512, 256, 8192)
+    assert [(name, args[-2]) for name, args in library.calls] == [("qt_scaled_mm_s8", 0), ("qt_scaled_mm_s8", 1)]
+    counts = ops.launch_counts()
+    assert counts["scaled_mm"] == counts["scaled_mm_lhs_t"] == counts["scaled_mm_lhs_t_sm90"] == 1
+    assert counts["scaled_mm_rhs_t_sm90"] == 0
+
+
+# B2's grad_weight shapes (out features M, in features N, K tokens): every
+# linear of the Llama2-1B step (8,192 tokens) and of ViT-Giant's (6,168
+# tokens padded to 6,400)
+B2_CASES = [(o, i, K, name) for K, linears in ((8192, LLAMA_LINEARS), (6400, VIT_LINEARS))
+            for name, (o, i) in linears.items()]
+
+
+@pytest.mark.parametrize("M,N,K,name", B2_CASES, ids=[f"{n}-M{M}-N{N}-K{K}" for M, N, K, n in B2_CASES])
+def test_b2_route(M, N, K, name):
+    """Every grad_weight of the Llama2-1B and ViT-Giant steps takes B2's
+    sm90 route."""
+    assert SCALED_MM.lhs_t_sm90_route(M, N, K) is True
+
+
+@pytest.mark.parametrize("M,N,K,sm90", [(512, 256, 8192, 1), (16, 16, 16, 1), (5632, 2048, 6400, 1)])
+def test_b2_passes_its_route(library, M, N, K, sm90):
+    """B2's wrapper passes ``lhs_t_sm90_route(M, N, K)`` as the argument
+    before the stream, one argument per ``_SIGNATURES`` entry, with both
+    operands flagged MN-major, and counts the launch on that route."""
+    ops.scaled_mm_lhs_t(_meta((K, M), torch.int8), _meta((K, N), torch.int8), _meta((M,), torch.bfloat16),
+                        _meta((N,), torch.bfloat16))
+    (name, args), = library.calls
+    assert name == "qt_scaled_mm_s8" and len(args) == len(_build._SIGNATURES[name])
+    assert args[5:10] == (M, N, K, 0, 0) and args[-2] == int(SCALED_MM.lhs_t_sm90_route(M, N, K)) == sm90
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_lhs_t"] == 1 and counts["scaled_mm_lhs_t_sm90"] == sm90
+
+
+def test_b2_refuses_what_no_kernel_takes(library):
+    """B2 has no kernel but the sm90 mainloop: a shape TMA cannot describe
+    (K = 0 here; M or N not a multiple of 16 is refused by the operand
+    checks as well) raises before any launch, not on another route."""
+    assert SCALED_MM.lhs_t_sm90_route(512, 256, 0) is False
+    assert SCALED_MM.lhs_t_sm90_route(8, 256, 8192) is False and SCALED_MM.lhs_t_sm90_route(512, 24, 8192) is False
+    with pytest.raises(ValueError, match="sm90 mainloop"):
+        ops.scaled_mm_lhs_t(_meta((0, 512), torch.int8), _meta((0, 256), torch.int8), _meta((512,), torch.bfloat16),
+                            _meta((256,), torch.bfloat16))
+    assert library.calls == [] and ops.launch_counts()["scaled_mm_lhs_t"] == 0
+
+
+# B16's (M, N, K unpacked) in int4 mixed precision's Llama2-1B step at
+# 8,192 tokens: the forward x . w^T, grad_input g . w and grad_weight
+# g^T . x of every linear; then the decode sizes, a K TMA cannot describe
+# packed, and the largest K the mainloop sums exactly
+B16_CASES = ([(8192, o, i, f"{name}-forward", True) for name, (o, i) in LLAMA_LINEARS.items()]
+             + [(8192, i, o, f"{name}-grad_input", True) for name, (o, i) in LLAMA_LINEARS.items()]
+             + [(o, i, 8192, f"{name}-grad_weight", True) for name, (o, i) in LLAMA_LINEARS.items()]
+             + [(8, 2048, 2048, "decode", False), (16, 5632, 2048, "decode", False),
+                (17, 5632, 2048, "above-decode", True), (512, 2048, 48, "K-not-32", False),
+                (512, 256, (1 << 17) - 32, "largest-K", True), (512, 256, 1 << 17, "K-past-int32-range", False),
+                (512, 256, 0, "K-zero", False)])
+
+
+@pytest.mark.parametrize("M,N,K,name,sm90", B16_CASES, ids=[f"{n}-M{M}-N{N}-K{K}" for M, N, K, n, _ in B16_CASES])
+def test_b16_route(M, N, K, name, sm90):
+    """B16 above 16 rows with K % 32 == 0 on aligned operands takes the sm90
+    mainloop, which every int4 matmul of the Llama2-1B step does; decode
+    sizes, K % 32 != 0, K = 0 (no tensor map describes it), K from 2^17 on
+    (where the mainloop's int32 sum of 256 x each product could overflow)
+    and operands off a 16-byte boundary keep the wmma kernel."""
+    assert INT4_MM.sm90_route(M, K) is sm90
+    assert INT4_MM.sm90_route(M, K, aligned=False) is False
+
+
+@pytest.mark.parametrize("M,K,sm90", [(8, 256, 0), (17, 256, 1), (8192, 2048, 1), (64, 48, 0)])
+def test_b16_passes_its_route(library, M, K, sm90):
+    """B16's wrapper passes ``sm90_route(M, K)`` as the argument before the
+    stream, one argument per ``_SIGNATURES`` entry (the unpacked K before
+    the scale and output flags), and counts the launch in ``launches`` and,
+    on the sm90 route, in ``sm90_launches``."""
+    N = 96
+    ops.scaled_int4_mm(_meta((M, K // 2), torch.int8), _meta((N, K // 2), torch.int8), _meta((M, 1), torch.float32),
+                       _meta((1, N), torch.float32))
+    (name, args), = library.calls
+    assert name == "qt_scaled_int4_mm" and len(args) == len(_build._SIGNATURES[name]) == 12
+    assert args[5:8] == (M, N, K) and args[-2] == sm90
+    counts = ops.launch_counts()
+    assert counts["scaled_int4_mm"] == 1 and counts["scaled_int4_mm_sm90"] == sm90
 
 
 @pytest.mark.parametrize("dtype,out_dtype,sm90", [(torch.bfloat16, torch.float32, True),
