@@ -1,24 +1,29 @@
-"""A/B of the sm90 mainloop's rewriting forms on one CUDA card: B2 (the int8
-grad_weight GEMM, ``S8MnMajor``) and B16 (the packed-int4 GEMM,
-``S4KMajor``) of ``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``.
+"""A/B of the sm90 mainloop's rewriting forms on one CUDA card: B1 (the int8
+grad_input GEMM, ``S8MnB``), B2 (the int8 grad_weight GEMM, ``S8MnMajor``),
+B15 (the tile-scaled GEMM: e4m3 ``E4m3F16``, int8 ``S8MnB`` with the fold)
+and B16 (the packed-int4 GEMM, ``S4KMajor``) of
+``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
 earlier commit, for its wmma kernels), built with nvcc into a library of its
 own under ``build/ab_sm90_forms/``, all builds side by side. Every variant
 is held against the plain versions at a ragged shape and at gate/up's
-(``diag_`` variants break the kernel on purpose, to time what a part of it
-costs: they report exactness and do not fail), then all are timed in turns
-(in order, then reversed; ``utils/timing.py``: a CUDA graph over L2-cold
-copies, CUDA events) at the Llama2-1B step's shapes, beside
-``torch._int_mm`` on the same operands (unpacked for B16) and the share of
-the int8 tensor-core bound (1,979 TOP/s). ``kept/wmma`` is this tree's B16
-on its wmma kernel (``sm90`` = 0); ``parent/wmma`` the other checkout's B2
-and B16 on theirs; K2, which no variant changes, is timed on this tree's
-and the other checkout's mainloop, so that a change to the shared mainloop
-shows on it.
+(bit-exact; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+roundings, its worst error printed in those roundings; ``diag_`` variants
+break the kernel or its tolerance on purpose, to time what a part of it
+costs or to measure an error: they report and do not fail), then all are
+timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
+over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
+the nearest library call on the same operands (``torch._int_mm``, unpacked
+for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form) and the
+share of the 8-bit tensor-core bound (1,979 TOP/s). ``kept/wmma`` is this
+tree's B16 on its wmma kernel (``sm90`` = 0); ``parent/wmma`` the other
+checkout's B1, B2, B15 and B16 on theirs; K2, which no variant changes, is
+timed on this tree's and the other checkout's mainloop, so that a change to
+the shared mainloop shows on it.
 
-Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...]
+Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,...]
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch
 
 from quantized_training_tpu_torch import ops
 from quantized_training_tpu_torch.ops import _build
+from quantized_training_tpu_torch.ops.tile_scaled_mm import fold_bound
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
 
 OUT = Path(__file__).resolve().parent / "build" / "ab_sm90_forms"
@@ -49,7 +55,201 @@ _SIGN_EXTEND = [
 ]
 _B16_LOOP = "    for (int it = 0; it < BK / 32; ++it) {"
 _BK128 = ("using S4KMajor = S4KMajorT<256>;", "using S4KMajor = S4KMajorT<128>;")
-# (old text, new text) edits of sm90_gemm.cuh, each of which must match once
+_MNB_DEPTH = "  static constexpr int BK = 128, kStages = 4, kRawSlots = 4, kAccShift = 0;"
+_F16_DEPTH = "  static constexpr int BK = 64, kStages = 5, kRawSlots = 3, kAccShift = 0;"
+# B15's e4m3 form on e4m3 wgmma (S8MnB's bytes, fp32 accumulators) in place
+# of the fp16 widening
+_E4M3_WGMMA = [
+    ("// The bf16 MMA's fp16 twin, b MN-major: B15's e4m3 operands widened on chip.",
+     """__device__ __forceinline__ void wgmma_e4m3(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\\n .reg .pred p;\\n setp.ne.b32 p, %66, 0;\\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.f32.e4m3.e4m3 " QT_D64 ", %64, %65, p, 1, 1;\\n}"
+      : QT_ACC64("+f")
+      : "l"(da), "l"(db), "r"(1));
+}
+// The bf16 MMA's fp16 twin, b MN-major: B15's e4m3 operands widened on chip."""),
+    ("// One K step's MMAs of a consumer warpgroup on stage s",
+     "struct E4m3MnB : S8MnB {\n  using Acc = float;\n};\n\n// One K step's MMAs of a consumer warpgroup on stage s"),
+    ("""    if constexpr (std::is_same_v<Form, E4m3F16>) {""",
+     """    if constexpr (std::is_same_v<Form, E4m3MnB>) {
+      wgmma_e4m3(d, da, db);
+    } else if constexpr (std::is_same_v<Form, E4m3F16>) {"""),
+    ("tile_scaled_mm.cu", "launch_sm90<qt_sm90::E4m3F16>", "launch_sm90<qt_sm90::E4m3MnB>"),
+]
+# B15's fold waiting for each quant block's own MMAs (wgmma_wait<0>; the
+# other consumer warpgroup's MMAs keep the tensor cores busy meanwhile), one
+# partial set, in place of the kept fold under the next block's MMAs
+_FOLD_KEPT_START = "    typename Form::Acc part0[64], part1[64];\n    float acc[64];\n"
+_FOLD_WAIT = """    typename Form::Acc part[64];
+    float acc[64];
+    const int rl = wg * 64 + (warp % 4) * 16 + lane / 4, cl = 128 + 2 * (lane % 4);  // this thread's scales
+    for (int i = 0; i < tiles; ++i) {
+      const int g0 = i * nk;
+#pragma unroll
+      for (int j = 0; j < 64; ++j) part[j] = 0, acc[j] = 0.0f;
+      bool held = false;  // step g - 1's stage is not yet released
+      for (int kt = 0; kt < nk; ++kt) {
+        const int g = g0 + kt, s = g % S;
+        mbar_wait(full0 + 8 * s, (g / S) & 1);
+        fence_operands(part);
+        wgmma_fence();
+        stage_mma<Form>(part, ring + s * kStage + wg * 64 * kRowBytes, ring + s * kStage + kTileBytes);
+        wgmma_commit();
+        fence_operands(part);
+        const bool fold = (kt + 1) % epi.kq == 0;
+        if (fold) {
+          wgmma_wait<0>();
+        } else {
+          wgmma_wait<1>();  // step g - 1's MMAs are done
+        }
+        fence_operands(part);
+        if (held && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+        held = !fold;
+        if (fold) {
+          fold_block(acc, part, scales[s], rl, cl);
+          __syncwarp();  // every lane has read the stage's scales
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);
+        }
+      }
+      store_tile<0>(epi, acc, walk.origin(i), wg, M, N);
+    }
+  } else {
+"""
+# B1 with the roles swapped, out^T = b^T . a^T: a [M, K] lands by TMA as
+# wgmma's B operand (K-major, as K2's b) and b [K, N] lands raw with the
+# 128-byte swizzle in the same stage; no producer rewrite. The consumers
+# build wgmma's register-A fragments of b^T: each 4 x 4 byte block (4 k rows
+# x 4 n) is loaded one k row a lane by the 4 lanes that need its columns and
+# transposed across them with two shuffles; the epilogue writes the
+# transposed tile (2-byte stores, 16 contiguous bytes per 4 lanes).
+_B1_SWAP_KERNEL = """
+// column i = (lane / 4) % 4 of the 4 x 4 byte block whose row i this lane holds
+__device__ __forceinline__ uint32_t xpose_lanes(uint32_t w, int i) {
+  uint32_t p = __shfl_xor_sync(0xffffffffu, w, 8);
+  w = __byte_perm(w, p, (i & 2) ? 0x3276 : 0x5410);
+  p = __shfl_xor_sync(0xffffffffu, w, 4);
+  return __byte_perm(w, p, (i & 1) ? 0x3715 : 0x6240);
+}
+
+template <typename ST, typename OT>
+__global__ void __launch_bounds__(kThreads, 1)
+b1_swap_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, const ScaledOut<ST, OT> epi,
+               int M, int N, const TileWalk walk) {
+  constexpr int S = 5, kStage = kStageBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[S], empty_bar[S];
+  uint8_t* ring_ptr = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t ring = smem_u32(ring_ptr), full0 = smem_u32(full_bar), empty0 = smem_u32(empty_bar);
+  const int wg = threadIdx.x / 128, nk = walk.nk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(full0 + 8 * s, 1), mbar_init(empty0 + 8 * s, kConsumerWarps);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 2) {  // tile origin (x, y) = (n0, m0): a's tile is the stage's first half, b's raw tile the second
+    if (threadIdx.x == 256) {
+      const int steps = walk.count() * nk;
+      StepCursor load(walk);
+      for (int g = 0; g < steps; ++g, load.next()) {
+        const int s = g % S, use = g / S;
+        if (use > 0) mbar_wait(empty0 + 8 * s, (use - 1) & 1);
+        mbar_expect_tx(full0 + 8 * s, kStageBytes);
+        tma_load(ring + s * kStage, &ta, load.kt * 128, load.o.y, full0 + 8 * s);
+        tma_load(ring + s * kStage + kTileBytes, &tb, load.o.x, load.kt * 128, full0 + 8 * s);
+      }
+    }
+    return;
+  }
+  int d[64];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tiles = walk.count();
+  const int q = lane & 3, j = lane >> 2, i4 = j & 3, nb = wg * 64 + (warp % 4) * 16 + 4 * (j >> 2);
+  for (int it = 0; it < tiles; ++it) {
+    const int2 o = walk.origin(it);
+    const int g0 = it * nk;
+#pragma unroll
+    for (int x = 0; x < 64; ++x) d[x] = 0;
+    uint32_t a0[4][4], a1[4][4];
+    const auto step = [&](int kt, uint32_t (&a)[4][4]) {
+      const int g = g0 + kt, s = g % S;
+      mbar_wait(full0 + 8 * s, (g / S) & 1);
+      const uint8_t* raw = ring_ptr + s * kStage + kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {  // a[kk][r]: n + 8 (r & 1), k + 16 (r >> 1)
+          const int k = 32 * kk + 16 * (r >> 1) + 4 * q + i4, n = nb + 8 * (r & 1);
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(raw + k * 128 + (((n >> 4) ^ (k & 7)) << 4) + (n & 15));
+          a[kk][r] = xpose_lanes(w, i4);
+        }
+      const uint32_t sb = ring + s * kStage;
+      fence_operands(d);
+      fence_operands(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma(d, a[kk], smem_desc(sb + 32 * kk, 16, 1024));
+      wgmma_commit();
+      fence_operands(d);
+      wgmma_wait<1>();
+      if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+    };
+    for (int kt = 0; kt < nk; kt += 2) {
+      step(kt, a0);
+      if (kt + 1 < nk) step(kt + 1, a1);
+    }
+    wgmma_wait<0>();
+    fence_operands(d);
+    fence_operands(a0);
+    fence_operands(a1);
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((g0 + nk - 1) % S));
+    const int n0 = o.x + wg * 64 + (warp % 4) * 16 + j, m0 = o.y + 2 * q;
+#pragma unroll
+    for (int x = 0; x < 16; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // d[4 x + e]: n0 + 8 (e / 2), m0 + 8 x + e % 2
+        const int n = n0 + 8 * (e >> 1), m = m0 + 8 * x + (e & 1);
+        if (n < N && m < M) {
+          const auto rw = epi.row(m, N);
+          store1(rw.p + n, epi.value(rw, n, d[4 * x + e]));
+        }
+      }
+  }
+}
+
+template <typename ST, typename OT>
+cudaError_t b1_swap(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N, int K,
+                    cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  cudaError_t err = encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, K, 128, 128);
+  if (err == cudaSuccess) err = encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, N, K, N, 128, 128);
+  if (err != cudaSuccess) return err;
+  const ScaledOut<ST, OT> epi{static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out)};
+  auto kernel = b1_swap_kernel<ST, OT>;
+  constexpr int smem = 5 * kStageBytes + 1024;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int tiles_m = (M + kBN - 1) / kBN;
+  const TileWalk walk{tiles_m, ((N + kBM - 1) / kBM) * tiles_m, (K + 127) / 128};
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<walk.tiles < sms ? walk.tiles : sms, kThreads, smem, stream>>>(ta, tb, epi, M, N, walk);
+  return cudaGetLastError();
+}
+
+}  // namespace qt_sm90"""
+_B1_SWAP = [
+    ("}  // namespace qt_sm90", _B1_SWAP_KERNEL),
+    ("scaled_mm.cu", "    err = launch_sm90<qt_sm90::S8MnB>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);",
+     """    using BF = __nv_bfloat16;
+    err = scale_bf16 ? (out_bf16 ? qt_sm90::b1_swap<BF, BF>(a, b, sa, sb, out, M, N, K, s)
+                                 : qt_sm90::b1_swap<BF, float>(a, b, sa, sb, out, M, N, K, s))
+                     : (out_bf16 ? qt_sm90::b1_swap<float, BF>(a, b, sa, sb, out, M, N, K, s)
+                                 : qt_sm90::b1_swap<float, float>(a, b, sa, sb, out, M, N, K, s));"""),
+]
+# (old text, new text) edits of sm90_gemm.cuh, or (file, old text, new text)
+# of another source, each of which must match once; "fold_wait" replaces
+# the fold loop from _FOLD_KEPT_START to the end of its branch
 VARIANTS = {
     "kept": [],
     "b2_3+3": [(_B2_DEPTH, _B2_DEPTH.replace("kStages = 4, kRawSlots = 2", "kStages = 3, kRawSlots = 3"))],
@@ -66,6 +266,17 @@ VARIANTS = {
     "diag_b16_no_rewrite": [(_B16_LOOP, _B16_LOOP + "\n      if (t >= 0) continue;")],
     # no fence between the producer's stores and the consumers' wgmma reads
     "diag_no_fence": [("    fence_proxy_async();\n    mbar_arrive(full0 + 8 * s);", "    mbar_arrive(full0 + 8 * s);")],
+    # B1's and B15-s8's depths (stages + raw slots; 5 + 4 and 6 + 2 leave no
+    # room for B15's scales), then B15 e4m3's
+    "mnb_5+3": [(_MNB_DEPTH, _MNB_DEPTH.replace("kStages = 4, kRawSlots = 4", "kStages = 5, kRawSlots = 3"))],
+    "mnb_6+1": [(_MNB_DEPTH, _MNB_DEPTH.replace("kStages = 4, kRawSlots = 4", "kStages = 6, kRawSlots = 1"))],
+    "f16_6+1": [(_F16_DEPTH, _F16_DEPTH.replace("kStages = 5, kRawSlots = 3", "kStages = 6, kRawSlots = 1"))],
+    "f16_4+4": [(_F16_DEPTH, _F16_DEPTH.replace("kStages = 5, kRawSlots = 3", "kStages = 4, kRawSlots = 4"))],
+    "fold_wait": "fold_wait",
+    # B15's e4m3 form on e4m3 wgmma: its error against the fold bound
+    "diag_b15_e4m3_wgmma": _E4M3_WGMMA,
+    # B1 with the roles swapped: a's fragments of b^T in the consumers, no rewrite
+    "b1_swap": _B1_SWAP,
 }
 # (M, N, K): B2 at every grad_weight of the Llama2-1B step (out, in, 8,192
 # tokens) and of ViT-Giant's (6,400 padded tokens); B16 at the forward,
@@ -82,23 +293,29 @@ def sources(name: str, edits, parent: Path | None) -> Path:
     d = OUT / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(parent / "quantized_training_tpu_torch/ops/csrc" if parent else _build.CSRC, d)
-    header = d / "sm90_gemm.cuh"
-    text = header.read_text()
-    for old, new in edits:
+    if edits == "fold_wait":
+        text = (d / "sm90_gemm.cuh").read_text()
+        start = text.index(_FOLD_KEPT_START)
+        end = text.index("\n  } else {\n", start) + len("\n  } else {\n")
+        (d / "sm90_gemm.cuh").write_text(text[:start] + _FOLD_WAIT + text[end:])
+        return d
+    for edit in edits:
+        fname, old, new = edit if len(edit) == 3 else ("sm90_gemm.cuh", *edit)
+        text = (d / fname).read_text()
         if text.count(old) != 1:
             raise SystemExit(f"ab_sm90_forms: variant {name}: the edit {old[:60]!r} does not match once")
-        text = text.replace(old, new)
-    header.write_text(text)
+        (d / fname).write_text(text.replace(old, new))
     return d
 
 
 def build(variants: dict, parent: Path | None) -> dict:
-    """name -> (library, its signatures): scaled_mm.cu of each variant,
-    compiled side by side."""
+    """name -> (library, its signatures): scaled_mm.cu and tile_scaled_mm.cu
+    of each variant, compiled side by side."""
     procs = {}
     for name, edits in variants.items():
         d = sources(name, edits, parent if name == "parent" else None)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / "scaled_mm.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / "scaled_mm.cu"),
+               str(d / "tile_scaled_mm.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     libs = {}
     for name, (proc, d) in procs.items():
@@ -113,7 +330,7 @@ def build(variants: dict, parent: Path | None) -> dict:
             spec.loader.exec_module(mod)
             sigs = mod._SIGNATURES
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for fn in ("qt_scaled_mm_s8", "qt_scaled_int4_mm"):
+        for fn in ("qt_scaled_mm_s8", "qt_scaled_int4_mm", "qt_tile_scaled_mm"):
             getattr(lib, fn).argtypes = sigs[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, sigs)
@@ -127,6 +344,34 @@ def b2(lib, sigs, sm90):
         out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
         _build.check(lib.qt_scaled_mm_s8(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
                                          M, N, K, 0, 0, 1, 1, sm90, _build.stream()), "B2")
+        return out
+    return call
+
+
+def b1(lib, sigs, sm90):
+    """B1 on ``lib``'s route ``sm90``: a [M, K], b [K, N] -> bf16."""
+    def call(a, b, sa, sb):
+        (M, K), N = a.shape, b.shape[1]
+        out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        _build.check(lib.qt_scaled_mm_s8(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+                                         M, N, K, 1, 0, 1, 1, sm90, _build.stream()), "B1")
+        return out
+    return call
+
+
+def b15(lib, sigs, sm90):
+    """B15 on ``lib``'s route ``sm90`` (an entry without the argument has the
+    wmma kernel only): a [M, K], b [K, N] e4m3 or int8, bf16 tile scales ->
+    bf16."""
+    route = (sm90,) if len(sigs["qt_tile_scaled_mm"]) == 16 else ()
+
+    def call(a, b, sa, sb):
+        (M, K), N = a.shape, b.shape[1]
+        out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        _build.check(lib.qt_tile_scaled_mm(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+                                           M, N, K, M // sa.shape[0], K // sa.shape[1], N // sb.shape[1],
+                                           int(a.dtype == torch.float8_e4m3fn), 1, 1, *route, _build.stream()),
+                     "B15")
         return out
     return call
 
@@ -158,49 +403,77 @@ def b16(lib, sigs, sm90):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, help="another checkout, whose wmma B2 and B16 are timed too")
+    parser.add_argument("--parent", type=Path, help="another checkout, whose wmma B1, B2, B15 and B16 are timed too")
     parser.add_argument("--variants", default=",".join(VARIANTS))
+    parser.add_argument("--kernels", default=",".join(KERNELS), help="the kernels to check and time")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_sm90_forms: needs a CUDA card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     variants = {k: VARIANTS[k] for k in args.variants.split(",")}
+    kernels = args.kernels.split(",")
     if args.parent:
         variants["parent"] = []
     t0 = time.perf_counter()
     libs = build(variants, args.parent)
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     # (label, kernel, call): each variant on the sm90 route, and the wmma kernels
-    entries = [(f"{n}/sm90", k, f(lib, sigs, 1)) for n, (lib, sigs) in libs.items() if n != "parent"
-               for k, f in (("B2", b2), ("B16", b16), ("K2", k2))]
-    if "kept" in libs:
+    entries = [(f"{n}/sm90", k, KERNELS[k](lib, sigs, 1)) for n, (lib, sigs) in libs.items() if n != "parent"
+               for k in kernels]
+    if "kept" in libs and "B16" in kernels:
         entries.append(("kept/wmma", "B16", b16(*libs["kept"], 0)))
     if args.parent:
-        entries += [("parent/wmma", k, f(*libs["parent"], 0)) for k, f in (("B2", b2), ("B16", b16))]
-        entries.append(("parent/sm90", "K2", k2(*libs["parent"], 1)))
+        entries += [("parent/wmma", k, KERNELS[k](*libs["parent"], 0)) for k in kernels if k != "K2"]
+        entries += [("parent/sm90", "K2", k2(*libs["parent"], 1))] if "K2" in kernels else []
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def operands(kernel, M, N, K):
         def i8(shape):
             return torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
-        a, b = {"B2": lambda: (i8((K, M)), i8((K, N))), "B16": lambda: (i8((M, K // 2)), i8((N, K // 2))),
-                "K2": lambda: (i8((M, K)), i8((N, K)))}[kernel]()
-        return a, b, torch.rand(M, generator=gen, device="cuda").bfloat16(), \
-            torch.rand(N, generator=gen, device="cuda").bfloat16()
 
-    plain = {"B2": ops.scaled_mm_lhs_t_plain, "B16": ops.scaled_int4_mm_plain, "K2": ops.scaled_mm_rhs_t_plain}
-    for kernel, shape in (("B2", (144, 208, 288)), ("B2", (5632, 2048, 8192)), ("B16", (130, 200, 288)),
+        def e4m3(shape):
+            return (torch.randn(shape, generator=gen, device="cuda") * 50).to(torch.float8_e4m3fn)
+
+        def scales(*shape):
+            return (torch.rand(shape, generator=gen, device="cuda") * 0.01).bfloat16()
+        if kernel in ("B15", "B15s8"):
+            make = e4m3 if kernel == "B15" else i8
+            return make((M, K)), make((K, N)), scales(M, K // 128), scales(K // 128, N // 128)
+        a, b = {"B1": lambda: (i8((M, K)), i8((K, N))), "B2": lambda: (i8((K, M)), i8((K, N))),
+                "B16": lambda: (i8((M, K // 2)), i8((N, K // 2))), "K2": lambda: (i8((M, K)), i8((N, K)))}[kernel]()
+        return a, b, scales(M), scales(N)
+
+    plain = {"B1": ops.scaled_mm_plain, "B2": ops.scaled_mm_lhs_t_plain, "B15": ops.tile_scaled_mm_plain,
+             "B15s8": ops.tile_scaled_mm_plain, "B16": ops.scaled_int4_mm_plain, "K2": ops.scaled_mm_rhs_t_plain}
+    for kernel, shape in (("B1", (130, 208, 272)), ("B1", (8192, 2048, 5632)), ("B2", (144, 208, 288)),
+                          ("B2", (5632, 2048, 8192)), ("B15", (200, 256, 640)), ("B15", (8192, 2048, 5632)),
+                          ("B15s8", (200, 256, 640)), ("B15s8", (8192, 2048, 5632)), ("B16", (130, 200, 288)),
                           ("B16", (5632, 2048, 8192)), ("K2", (8192, 5632, 2048))):
+        if kernel not in kernels:
+            continue
         args_ = operands(kernel, *shape)
         ref = plain[kernel](*args_)
+        if kernel == "B15":  # in fp32 roundings of the folded magnitudes (fold_bound)
+            R = 128 + args_[2].shape[1]
+            unit = fold_bound(*args_, 1).clamp(min=1e-300)
+            ref32 = ops.tile_scaled_mm_plain(*args_, out_dtype=torch.float32).double()
         for label, k, call in entries:
             if k == kernel:
-                exact = torch.equal(call(*args_), ref)
-                print(f"{label} {kernel} {shape}: bit-exact {exact}", flush=True)
+                got = call(*args_)
+                if kernel == "B15":
+                    # bf16 out: the fp32 sum within R roundings, then one bf16 rounding of it
+                    err = (got.double() - ref32).abs() - 2.0**-8 * ref32.abs()
+                    worst = (err / unit).max().item()
+                    exact = worst <= R
+                    print(f"{label} {kernel} {shape}: worst {worst:.2f} fp32 roundings of the folded magnitudes "
+                          f"beyond a bf16 half-ulp (bound {R}): within {exact}", flush=True)
+                else:
+                    exact = torch.equal(got, ref)
+                    print(f"{label} {kernel} {shape}: bit-exact {exact}", flush=True)
                 if not (exact or label.startswith("diag_")):
                     raise SystemExit(f"ab_sm90_forms: {label} {kernel} at {shape} differs from the plain version")
-    rows = [("B2", s) for s in B2_SHAPES] + [("B16", s) for s in B16_SHAPES] + [("K2", s) for s in K2_SHAPES]
+    rows = [(k, s) for k in kernels for s in SHAPES[k]]
     times = {}
     for turn in (entries, entries[::-1]):
         for label, kernel, call in turn:
@@ -210,10 +483,18 @@ def main() -> None:
                     times.setdefault((label, kernel, shape), []).append(time_ms(call, inputs, iters=8) * 1e3)
     for kernel, (M, N, K) in rows:
         a, b, _, _ = operands(kernel, M, N, K)
+        lib_name, lib_us = "torch._int_mm", None
         if kernel == "B2":
             lib_us = time_ms(lambda a, b: torch._int_mm(a.t(), b), copies(a, b), iters=8) * 1e3
         elif kernel == "K2":
             lib_us = time_ms(lambda a, b: torch._int_mm(a, b.t()), copies(a, b), iters=8) * 1e3
+        elif kernel in ("B1", "B15s8"):
+            lib_us = time_ms(torch._int_mm, copies(a, b), iters=8) * 1e3
+        elif kernel == "B15":
+            lib_name = "torch._scaled_mm (row scales)"
+            one_a, one_b = torch.ones(M, 1, device="cuda"), torch.ones(1, N, device="cuda")
+            lib_us = time_ms(lambda a, b: torch._scaled_mm(a, b, scale_a=one_a, scale_b=one_b, out_dtype=torch.bfloat16),
+                             copies(a, b.t().contiguous().t()), iters=8) * 1e3
         else:
             lib_us = time_ms(lambda a, b: torch._int_mm(a, b.t()), copies(ops.unpack_int4(a), ops.unpack_int4(b)),
                              iters=8) * 1e3
@@ -221,7 +502,15 @@ def main() -> None:
         cells = [f"{label} {sum(t) / len(t):.1f} {[round(v, 1) for v in t]} ({bound_us * len(t) / sum(t):.3f})"
                  for (label, k, shape), t in times.items() if k == kernel and shape == (M, N, K)]
         print(f"{kernel} M={M} N={N} K={K}: bound {bound_us:.1f} us; " + "; ".join(cells)
-              + f"; torch._int_mm {lib_us:.1f}", flush=True)
+              + f"; {lib_name} {lib_us:.1f}", flush=True)
+
+
+KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2}
+# (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
+# step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
+# chip_smoke.py (forward, grad_input, grad_weight of gate/up and down)
+SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (8192, 5632, 2048)],
+          "B2": B2_SHAPES, "B15": B16_SHAPES, "B15s8": B16_SHAPES, "B16": B16_SHAPES, "K2": K2_SHAPES}
 
 
 if __name__ == "__main__":

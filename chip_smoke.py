@@ -29,10 +29,12 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
    within ``ops/int8_attention.py::agreement`` of its plain version, beside
    SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
-   of the roofline; K2, B2, B16 at every shape and B17 bf16 also on the
-   route they took (K2 above 16 rows, B2, B16 and B17 bf16 on the TMA +
-   wgmma mainloop of ``sm90_gemm.cuh``, K2's decode on its wmma tile; each
-   call checked to take it) beside their wmma kernels' time (``WMMA_US``);
+   of the roofline; K2, B1, B2, B15 (both forms), B16 at every shape and
+   B17 bf16 also on the route they took (K2 above 16 rows, B1, B2, B15 at
+   QK = 128, B16 and B17 bf16 on the TMA + wgmma mainloop of
+   ``sm90_gemm.cuh``, K2's decode on its wmma tile; each call checked to
+   take it) beside their wmma kernels' time (``WMMA_US``), B15's e4m3 form
+   with its worst error in fp32 roundings of the folded magnitudes;
    then the strides SDPA takes and returns in the grouped pipeline, which
    must run no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
@@ -48,8 +50,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    SDPA attention on the grouped pipeline, AdamW, the producer-fused layer:
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
-   of times the code implies (every K2 and B2 launch on the sm90 route, here
-   and in phases 8, 9 and 11), and the same steps in bf16 start from the same
+   of times the code implies (every K2, B1 and B2 launch on the sm90 route,
+   here and in phases 8, 9 and 11), and the same steps in bf16 start from the same
    loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
@@ -72,7 +74,7 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    through ``ops.scaled_mm``; then three steps each of int4, fp8-tile and
    fp8-row ``mixed_precision`` at phase 6's shapes and optimizer, from its
    weights and batch: the losses fall, the first within a stated bound of
-   phase 6's bf16 first loss, B16 (every launch on the sm90 route) / B15
+   phase 6's bf16 first loss, B16 / B15 (every launch on the sm90 route)
    launched exactly as the code implies and no int8 kernel; tokens/s
    against phase 6's bf16, peak memory;
 11. ViT-Giant's train step through ``vit_train``'s step builder: batch 24
@@ -86,7 +88,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 12. ``benchmark_mm`` (``python -m quantized_training_tpu_torch.benchmark_mm``)
    at 1024/2048/4096: its gates (B1 and B17 int8 exact, B15-s8 and B17 bf16
    within their bounds), its rows and table, then its training shapes; B17's
-   launches come from here, every bf16 one on the sm90 route;
+   launches come from here, every bf16 one, and every B1 and B15-s8 one, on
+   the sm90 route;
 13. B19 as the JAX package's op: at phase 3's shape, the oracle checks of
    its test (mean relative error below 0.05 against the bf16 oracle, lse
    within 1e-4 of the explicit logsumexp) and causality (k and v changed
@@ -94,8 +97,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
-kernel's launches on its path, for K2, B2, B16 and B17 also those on the
-sm90 route (``sm90_launches``), its error against the plain version, its
+kernel's launches on its path, for K2, B1, B2, B15, B16 and B17 also those
+on the sm90 route (``sm90_launches``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
 exists), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -175,16 +178,20 @@ MM_N = 4096
 # Each sm90 GEMM's (M, N, K) on its wmma kernel, before the sm90 mainloop
 # took it, printed beside this run's times (H100 80GB HBM3, 700 W; PERF.md
 # section 6): K2 and B17 bf16, us per call in phase 3 of this script's last
-# run on those kernels; B2 and B16, ab_sm90_forms.py's parent/wmma (the
-# kernels of the tree before they took the mainloop). K2's decode sizes (M
-# 8) still take it.
+# run on those kernels; B1, B2, B15 and B16, ab_sm90_forms.py's parent/wmma
+# (the kernels of the tree before they took the mainloop). K2's decode sizes
+# (M 8) still take it.
 WMMA_US = {
     "scaled_mm_rhs_t": {(8, D, D): 11.2, (8, KVD, D): 7.3, (8, F, D): 15.0, (8, D, F): 26.1,
                         (512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
                         (TOKENS, D, D): 330.8, (TOKENS, KVD, D): 44.3, (TOKENS, F, D): 890.2, (TOKENS, D, F): 851.5},
     "scaled_mm_lhs_t": {(D, D, TOKENS): 808.2, (KVD, D, TOKENS): 132.3, (F, D, TOKENS): 2205.2,
                         (D, F, TOKENS): 2215.7},
+    "scaled_mm": {(TOKENS, D, D): 569.8, (TOKENS, D, KVD): 99.4, (TOKENS, D, F): 1524.2, (TOKENS, F, D): 1518.2},
     "scaled_int4_mm": {(TOKENS, F, D): 837.3, (TOKENS, D, F): 819.6, (F, D, TOKENS): 825.8, (D, F, TOKENS): 825.9},
+    "tile_scaled_mm": {(TOKENS, F, D): 2203.5, (TOKENS, D, F): 2244.1, (F, D, TOKENS): 2282.6, (D, F, TOKENS): 2275.2},
+    "tile_scaled_mm_s8": {(TOKENS, F, D): 1922.3, (TOKENS, D, F): 1951.3, (F, D, TOKENS): 1985.3,
+                          (D, F, TOKENS): 1985.3},
     "matmul": {(MM_N, MM_N, MM_N): 1694.1},
 }
 # B19 at Llama2-1B's attention in bench.py's micro-batch: one instance per
@@ -293,11 +300,15 @@ def check_k1(gen: torch.Generator) -> dict:
                   3 * M * K + 2 * M)  # x read, q and the bf16 scales written
 
 
-# the route each GEMM with an sm90 form takes on its operands (a, b, scales):
-# the predicates of ops/scaled_mm.py and ops/int4_mm.py
+# the route each GEMM with an sm90 form takes on its operands (a, b, scales),
+# by counter name: the predicates of ops/scaled_mm.py, ops/tile_scaled_mm.py
+# and ops/int4_mm.py
 ROUTES = {
     "scaled_mm_rhs_t": lambda a, b, *_: SCALED_MM.sm90_route(a.shape[0]),
+    "scaled_mm": lambda a, b, *_: SCALED_MM.rhs_mn_sm90_route(b.shape[1], a.shape[1]),
     "scaled_mm_lhs_t": lambda a, b, *_: SCALED_MM.lhs_t_sm90_route(a.shape[1], b.shape[1], a.shape[0]),
+    "tile_scaled_mm": lambda a, b, sa, *_: TILE_MM.sm90_route(a.shape[1] // sa.shape[1]),
+    "tile_scaled_mm_s8": lambda a, b, sa, *_: TILE_MM.sm90_route(a.shape[1] // sa.shape[1]),
     "scaled_int4_mm": lambda a, b, *_: INT4_MM.sm90_route(a.shape[0], 2 * a.shape[1],
                                                           a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0),
 }
@@ -467,8 +478,8 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
     model: K2 (forward x . w^T), B1 (grad_input g . w, K = out) and B2
     (grad_weight g^T . x, K = 8192), each on its operands as the backward
     quantizes them; bit-exact, timed beside ``torch._int_mm``, with TOP/s
-    and GB/s; K2 and B2 on the route they take (both sm90 here), with the
-    share of the bound and their wmma kernels' time. Entries at gate/up;
+    and GB/s; each on the route it takes (all sm90 here), with the share of
+    the bound and its wmma kernel's time. Entries at gate/up;
     K2's error also covers the serving shapes (``k2_worst``)."""
     entries = []
     worst = {"scaled_mm_rhs_t": k2_worst, "scaled_mm": 0.0, "scaled_mm_lhs_t": 0.0}
@@ -490,7 +501,7 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
             ("scaled_mm_lhs_t", ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain,
              (g_col, x_col, g_col_s, x_col_s), (o, i, TOKENS), "quantized_training_tpu/ops/pallas_mm.py:192"),
         ):
-            got = routed(name, kernel, args) if name in ROUTES else kernel(*args)
+            got = routed(name, kernel, args)
             ref = plain(*args)
             torch.cuda.synchronize()
             check(torch.equal(got, ref), f"{name} bit-exact at {lname} M={M} N={N} K={K}")
@@ -500,9 +511,9 @@ def check_training_gemms(gen: torch.Generator, k2_worst: float) -> list:
             lib_ms = int_mm_ms(name, inputs)
             tops = 2 * M * N * K / ms / 1e9
             nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)  # int8 operands and bf16 scales in, bf16 out
-            k2 = f"{sm90_timing(name, args, M, N, K, ms, nbytes)}; " if name in ROUTES else ""
             print(f"[3] {name} {lname} M={M} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {k2}plain (float64 matmul) {plain_ms:.4f} ms, "
+                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {sm90_timing(name, args, M, N, K, ms, nbytes)}; "
+                  f"plain (float64 matmul) {plain_ms:.4f} ms, "
                   f"torch._int_mm (int32 out) {'refused' if lib_ms is None else f'{lib_ms:.4f} ms'}")
             if lname == "gate/up":
                 entries.append(_entry(name, replaces, worst[name], ((M, N, K), ms, plain_ms), nbytes,
@@ -584,9 +595,11 @@ def check_tile_gemms(gen: torch.Generator) -> list:
     magnitudes (``ops/tile_scaled_mm.py::fold_bound``: the tensor core sums each block's
     exact fp16 products in fp32, in its own order), and in bf16 to one bf16
     ulp more; the int8 form on int8 operands over the whole range with
-    random scales of the same grids, bit-exact. Each timed at bf16 output
-    beside ``scaled_mm_lib`` (e4m3) or ``torch._int_mm`` (int8, int32 out,
-    no scales). Entries at the gate/up forward."""
+    random scales of the same grids, bit-exact. Each checked to take the
+    sm90 route (QK = 128) and timed at bf16 output beside ``scaled_mm_lib``
+    (e4m3) or ``torch._int_mm`` (int8, int32 out, no scales), the share of
+    the 8-bit bound and the wmma kernel's time. Entries at the gate/up
+    forward."""
     rows, worst, worst_units = {}, {"tile_scaled_mm": 0.0, "tile_scaled_mm_s8": 0.0}, 0.0
     for lname, form, a, b in gemm_forms(gen):
         aq, sa = quantize_fp8_tile(a)
@@ -596,7 +609,7 @@ def check_tile_gemms(gen: torch.Generator) -> list:
         fold = TILE_MM.fold_bound(aq, bq, sa, sb, K // n_qk + n_qk)
         got32 = ops.tile_scaled_mm(aq, bq, sa, sb, out_dtype=torch.float32)
         ref32 = ops.tile_scaled_mm_plain(aq, bq, sa, sb, out_dtype=torch.float32)
-        got, ref = ops.tile_scaled_mm(aq, bq, sa, sb), ops.tile_scaled_mm_plain(aq, bq, sa, sb)
+        got, ref = routed("tile_scaled_mm", ops.tile_scaled_mm, (aq, bq, sa, sb)), ops.tile_scaled_mm_plain(aq, bq, sa, sb)
         torch.cuda.synchronize()
         d32 = (got32.double() - ref32.double()).abs()
         units = (d32 / (fold / (K // n_qk + n_qk)).clamp(min=1e-300)).max().item()
@@ -610,7 +623,8 @@ def check_tile_gemms(gen: torch.Generator) -> list:
         b8 = torch.randint(-128, 128, (K, N), generator=gen, device=DEVICE, dtype=torch.int8)
         s8a = (torch.rand(sa.shape, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
         s8b = (torch.rand(sb.shape, generator=gen, device=DEVICE) * 1e-4).to(torch.bfloat16)
-        got8, ref8 = ops.tile_scaled_mm(a8, b8, s8a, s8b), ops.tile_scaled_mm_plain(a8, b8, s8a, s8b)
+        got8 = routed("tile_scaled_mm_s8", ops.tile_scaled_mm, (a8, b8, s8a, s8b))
+        ref8 = ops.tile_scaled_mm_plain(a8, b8, s8a, s8b)
         torch.cuda.synchronize()
         check(torch.equal(got8, ref8), f"B15 int8 bit-exact at {lname} {form}")
         worst["tile_scaled_mm_s8"] = max(worst["tile_scaled_mm_s8"], _max_err([got8], [ref8]))
@@ -622,10 +636,9 @@ def check_tile_gemms(gen: torch.Generator) -> list:
             ms = time_ms(ops.tile_scaled_mm, inputs, iters=8)
             plain_ms = time_ms(ops.tile_scaled_mm_plain, inputs, iters=4)
             nbytes = M * K + K * N + 2 * (sa.numel() + sb.numel()) + 2 * M * N
-            b_ms, by = bound(nbytes, 2 * M * N * K)
             print(f"[3] {name} (B15, {'e4m3' if name == 'tile_scaled_mm' else 'int8'}) {lname} {form} M={M} N={N} "
                   f"K={K} (n_qk {n_qk}) -> bf16: kernel {ms:.4f} ms ({2 * M * N * K / ms / 1e9:.1f} TOP/s, "
-                  f"{nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the {b_ms:.4f} ms bound by {by}), plain "
+                  f"{nbytes / ms / 1e6:.0f} GB/s), {sm90_timing(name, args, M, N, K, ms, nbytes)}; plain "
                   f"{plain_ms:.4f} ms, library ({lib_form}) {'refused' if library is None else f'{library:.4f} ms'}")
             if name not in rows:
                 rows[name] = _entry(name, "quantized_training_tpu/ops/pallas_mm.py:378", 0.0, ((M, N, K), ms, plain_ms),
@@ -1293,7 +1306,7 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                        f"quantize_int8_both{t}": 7 * n})
     if layer != "bf16":
         counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm_rhs_t_sm90": 2 * 7 * n, "scaled_mm": 7 * n,
-                       "scaled_mm_lhs_t": 7 * n, "scaled_mm_lhs_t_sm90": 7 * n})
+                       "scaled_mm_sm90": 7 * n, "scaled_mm_lhs_t": 7 * n, "scaled_mm_lhs_t_sm90": 7 * n})
     return counts
 
 
@@ -1533,11 +1546,12 @@ def tile_int8_path() -> dict:
     out = ops.scaled_mm(a, b, sa, sb, out_dtype=torch.float32)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check(launches["tile_scaled_mm_s8"] == 1 and sum(launches.values()) == 1, f"one B15 int8 launch: {launches}")
+    check(launches["tile_scaled_mm_s8"] == launches["tile_scaled_mm_s8_sm90"] == 1 and sum(launches.values()) == 2,
+          f"one B15 int8 launch, on the sm90 route: {launches}")
     check(torch.equal(out, ops.tile_scaled_mm_plain(a, b, sa, sb, out_dtype=torch.float32)),
           "the tile-scaled int8 product equals the plain version")
     print(f"[10] ops.scaled_mm int8 [{n}, {n}] x [{n}, {n}] with 128 x 128 scale tiles (benchmark_mm.py's tile case):"
-          f" B15 int8 launched once, bit-exact with the plain version")
+          f" B15 int8 launched once, on the sm90 route, bit-exact with the plain version")
     return launches
 
 
@@ -1565,8 +1579,8 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
     and lr, from its weights, batch and key, on the unfused layer (the
     fused ops take int8 only). The losses fall, each first loss is within
     FIRST_LOSS_BOUNDS of phase 6's bf16 one, and each step launches B16
-    (int4, every launch on the sm90 route) or B15's e4m3 form (fp8 tile) 28
-    times a layer (7 weights: forward, its remat replay, grad_input,
+    (int4) or B15's e4m3 form (fp8 tile) 28 times a layer, every launch on
+    the sm90 route (7 weights: forward, its remat replay, grad_input,
     grad_weight) and no int8 kernel;
     fp8 row neither. Prints tokens/s of steps 2-3, the ratio to phase 6's
     bf16 tokens/s and peak memory. Returns the launches of the three runs."""
@@ -1579,8 +1593,8 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
         expect = per_step_launches(L, layer="bf16")
         if gemm is not None:
             expect[gemm] = 28 * L
-        if gemm == "scaled_int4_mm":
-            expect["scaled_int4_mm_sm90"] = 28 * L
+        if gemm is not None:
+            expect[f"{gemm}_sm90"] = 28 * L
         params = quant.quantize_params(raw, "mixed_precision", **qkw)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1671,7 +1685,7 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
                        f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
                        f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
                        f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L, "scaled_mm": 4 * L,
-                       "scaled_mm_lhs_t": 4 * L, "scaled_mm_lhs_t_sm90": 4 * L})
+                       "scaled_mm_sm90": 4 * L, "scaled_mm_lhs_t": 4 * L, "scaled_mm_lhs_t_sm90": 4 * L})
     return counts
 
 
@@ -1753,9 +1767,13 @@ def benchmark_mm_phase() -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     check(launches["matmul_sm90"] == launches["matmul"] > 0, f"every B17 bf16 launch on the sm90 route: {launches}")
+    check(launches["scaled_mm_sm90"] == launches["scaled_mm"] and
+          launches["tile_scaled_mm_s8_sm90"] == launches["tile_scaled_mm_s8"] > 0,
+          f"every B1 and B15-s8 launch on the sm90 route: {launches}")
     print(f"[12] benchmark_mm at {list(rows)}: every gate passed, {time.perf_counter() - t0:.1f} s; B17 launches "
           f"bf16 {launches['matmul']} (sm90 {launches['matmul_sm90']}), int8 {launches['matmul_s8']}; B1 "
-          f"{launches['scaled_mm']}, B15-s8 {launches['tile_scaled_mm_s8']}")
+          f"{launches['scaled_mm']} (sm90 {launches['scaled_mm_sm90']}), B15-s8 {launches['tile_scaled_mm_s8']} "
+          f"(sm90 {launches['tile_scaled_mm_s8_sm90']})")
     return launches
 
 

@@ -51,17 +51,20 @@ CONFIGS = {"fused": {}, "unfused": {}, "bf16": None, "int4": {"dtype": "int4"},
 VIT_B = 24
 
 # kernel-name fragments of each group, first match wins: sm90_gemm.cuh's
-# gemm_kernel is named by its operand form (K2 above 16 rows S8KMajor, B2
-# S8MnMajor, B16 above 16 rows S4KMajor...), and these must match before
-# cuBLAS's "gemm"; the wmma kernel is scaled_mm_s8, on packed int4 operands
-# (B16's decode sizes, K % 32 != 0) with Src 1 in its template arguments
+# gemm_kernel is named by its operand form and epilogue (K2 above 16 rows
+# S8KMajor, B1 S8MnB, B2 S8MnMajor, B16 above 16 rows S4KMajor, B15
+# TileScaledOut...), and these must match before cuBLAS's "gemm"; the wmma
+# kernel is scaled_mm_s8, on packed int4 operands (B16's decode sizes, K % 32
+# != 0) with Src 1 in its template arguments
 GROUPS = (
     ("int4 GEMM B16 on the TMA + wgmma mainloop", ("s4kmajor",)),
     ("int4 GEMM B16 on wmma (decode sizes, K % 32 != 0)", ("src)1",)),
-    ("tile-scaled GEMM B15", ("tile_scaled_mm",)),
+    ("tile-scaled GEMM B15 on the TMA + wgmma mainloop", ("tilescaledout",)),
+    ("tile-scaled GEMM B15 on wmma (QK % 128 != 0)", ("tile_scaled_mm",)),
     ("int8 GEMM K2 on the TMA + wgmma mainloop", ("s8kmajor",)),
+    ("int8 GEMM B1 on the TMA + wgmma mainloop", ("s8mnb",)),
     ("int8 GEMM B2 on the TMA + wgmma mainloop", ("s8mnmajor",)),
-    ("int8 GEMM B1 on wmma (and K2 at decode sizes)", ("scaled_mm_s8",)),
+    ("int8 GEMM K2 on wmma (decode sizes)", ("scaled_mm_s8",)),
     ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer")),
     ("producer kernels B7-B12 (and B18's column folds)", ("row_quant", "col_quant", "producer_col_absmax",
                                                           "rmsnorm_bwd_rows", "reduce_parts")),

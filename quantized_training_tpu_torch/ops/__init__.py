@@ -136,6 +136,7 @@ KERNELS = {
     "scaled_mm_rhs_t": (scaled_mm_rhs_t, "launches"),
     "scaled_mm_rhs_t_sm90": (scaled_mm_rhs_t, "sm90_launches"),
     "scaled_mm": (scaled_mm, "launches"),
+    "scaled_mm_sm90": (scaled_mm, "sm90_launches"),
     "scaled_mm_lhs_t": (scaled_mm_lhs_t, "launches"),
     "scaled_mm_lhs_t_sm90": (scaled_mm_lhs_t, "sm90_launches"),
     "fused_adamw_update": (fused_adamw_update, "launches"),
@@ -161,7 +162,9 @@ KERNELS = {
     "scaled_int4_mm": (scaled_int4_mm, "launches"),
     "scaled_int4_mm_sm90": (scaled_int4_mm, "sm90_launches"),
     "tile_scaled_mm": (tile_scaled_mm, "launches"),
+    "tile_scaled_mm_sm90": (tile_scaled_mm, "sm90_launches"),
     "tile_scaled_mm_s8": (tile_scaled_mm, "s8_launches"),
+    "tile_scaled_mm_s8_sm90": (tile_scaled_mm, "s8_sm90_launches"),
     "layernorm_quant_rowwise": (layernorm_quant_rowwise, "launches"),
     "layernorm_quant_rowwise_sr": (layernorm_quant_rowwise, "sr_launches"),
     "layernorm_quant_colwise": (layernorm_quant_colwise, "launches"),

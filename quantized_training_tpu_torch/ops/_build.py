@@ -105,8 +105,8 @@ _SIGNATURES = {
     "qt_scaled_mm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, sm90, stream
     "qt_scaled_int4_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a, b, sa, sb, out, M, N, K, qm, qk, qn, is_fp8, scale_bf16, out_bf16, stream
-    "qt_tile_scaled_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, b, sa, sb, out, M, N, K, qm, qk, qn, is_fp8, scale_bf16, out_bf16, sm90, stream
+    "qt_tile_scaled_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, out, M, N, K, is_bf16, out_bf16, a_vec, b_vec, sm90, stream
     "qt_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # q, qs, k, ks, v, vs, out, lse, n_inst, G, S, hd, bkv, causal, stream

@@ -25,27 +25,27 @@
 // Bound on the H100: at training and prefill M the int8 tensor-core rate; at
 // decode M = 8 the bytes of the int8 weight, read once per call. No operand
 // is ever transposed in device memory (the JAX package's rule,
-// quant/mixed_precision.py:192-195). K2 at M > 16, B2, and B16 at M > 16
+// quant/mixed_precision.py:192-195). K2 at M > 16, B1, B2, and B16 at M > 16
 // with K % 32 == 0 run on the pipelined TMA + wgmma mainloop of
-// sm90_gemm.cuh (its note says how it answers the bound; B2 and B16 through
-// a producer that rewrites the landed tiles into wgmma's K-major layout);
-// the caller decides that route and passes it in (ops/scaled_mm.py::
-// sm90_route and ::lhs_t_sm90_route, ops/int4_mm.py::sm90_route).
+// sm90_gemm.cuh (its note says how it answers the bound; B1, B2 and B16
+// through a producer that rewrites the landed tiles into wgmma's K-major
+// layout); the caller decides that route and passes it in (ops/scaled_mm.py::
+// sm90_route, ::rhs_mn_sm90_route and ::lhs_t_sm90_route, ops/int4_mm.py::
+// sm90_route).
 //
-// Everything below is the wmma kernel of B1, of K2's and B16's decode tiles,
-// and of B16 at a K that TMA cannot describe packed (K % 32 != 0), past the
+// Everything below is the wmma kernel of K2's and B16's decode tiles, and of
+// B16 at a K that TMA cannot describe packed (K % 32 != 0), past the
 // mainloop's exact range (K >= 2^17), or on operands off a 16-byte
-// boundary. Tiles go through shared memory in 16x16 blocks of 16-byte rows
-// (mm_tiles.cuh), so that every wmma fragment load is 256-bit aligned with a
-// leading dimension of 16. wmma m16n16k16 signed-char fragments take either
-// layout (row_major / col_major) and accumulate in int32, so one kernel,
-// templated on b's layout and on packed operands, serves these forms; B16's
-// load stage unpacks each 8-byte chunk to 16 sign-extended int8 values in
-// registers (mm_tiles.cuh). Tiles: 64x64 with a K step of 64, and for the
-// K-major forms at M <= 16 a 16x32 tile with a K step of 256, so a decode
-// call keeps more weight bytes in flight per block. Ragged rows are
-// zero-filled on load and masked on store. The next K tile is fetched into
-// registers while the current one runs through the MMAs.
+// boundary: both operands K-major. Tiles go through shared memory in 16x16
+// blocks of 16-byte rows (mm_tiles.cuh), so that every wmma fragment load is
+// 256-bit aligned with a leading dimension of 16. wmma m16n16k16
+// signed-char fragments accumulate in int32; one kernel, templated on
+// packed operands, serves both GEMMs; B16's load stage unpacks each 8-byte
+// chunk to 16 sign-extended int8 values in registers (mm_tiles.cuh). Tiles:
+// 64x64 with a K step of 64, and at M <= 16 a 16x32 tile with a K step of
+// 256, so a decode call keeps more weight bytes in flight per block. Ragged
+// rows are zero-filled on load and masked on store. The next K tile is
+// fetched into registers while the current one runs through the MMAs.
 
 #include <mma.h>
 
@@ -61,9 +61,9 @@ using qt_mm::to_f32;
 
 namespace {
 
-// a K-major; b K-major (K2's and B16's decode tiles, B16 off the sm90 route)
-// or MN-major (B1). S: S8, or S4 for packed int4 operands (both K-major).
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool B_KMAJOR, Src S, typename ST, typename OT>
+// a and b K-major (K2's and B16's decode tiles, B16 off the sm90 route). S:
+// S8, or S4 for packed int4 operands.
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, Src S, typename ST, typename OT>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
              const ST* __restrict__ sa, const ST* __restrict__ sb, OT* __restrict__ out,
@@ -76,7 +76,7 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   static_assert(WM % 16 == 0 && WN % 16 == 0, "warp tile must be whole fragments");
   // a K-major A is row_major as wmma sees A[m][k]; a K-major B is col_major
   using LayoutA = wmma::row_major;
-  using LayoutB = std::conditional_t<B_KMAJOR, wmma::col_major, wmma::row_major>;
+  using LayoutB = wmma::col_major;
 
   __shared__ __align__(128) int8_t As[BM * BK];
   __shared__ __align__(128) int8_t Bs[BN * BK];
@@ -93,7 +93,7 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0);
 
   TileCopy<BM, BK, NT, true, S> ta;
-  TileCopy<BN, BK, NT, B_KMAJOR, S> tb;
+  TileCopy<BN, BK, NT, true, S> tb;
   ta.fetch(a, m0, M, 0, K);
   tb.fetch(b, n0, N, 0, K);
   for (int k0 = 0; k0 < K; k0 += BK) {
@@ -113,7 +113,7 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
         wmma::load_matrix_sync(fa[i], frag<BM, BK, true>(As, c, wm * WM + i * 16), 16);
 #pragma unroll
       for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(fb[j], frag<BN, BK, B_KMAJOR>(Bs, c, wn * WN + j * 16), 16);
+        wmma::load_matrix_sync(fb[j], frag<BN, BK, true>(Bs, c, wn * WN + j * 16), 16);
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -141,44 +141,41 @@ scaled_mm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, bool BKM, Src S, typename ST, typename OT>
+template <int BM, int BN, int BK, int WARPS_M, int WARPS_N, Src S, typename ST, typename OT>
 cudaError_t launch_tiles(const void* a, const void* b, const void* sa, const void* sb, void* out,
                          int M, int N, int K, cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  scaled_mm_s8<BM, BN, BK, WARPS_M, WARPS_N, BKM, S, ST, OT>
+  scaled_mm_s8<BM, BN, BK, WARPS_M, WARPS_N, S, ST, OT>
       <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
           static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
           static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out), M, N, K);
   return cudaGetLastError();
 }
 
-template <bool BKM, Src S, typename ST, typename OT>
+template <Src S, typename ST, typename OT>
 cudaError_t launch(const void* a, const void* b, const void* sa, const void* sb, void* out, int M,
                    int N, int K, cudaStream_t stream) {
-  if constexpr (BKM && S == Src::S8) {  // K2 off the sm90 route: the decode sizes
-    return launch_tiles<16, 32, 256, 1, 2, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+  if constexpr (S == Src::S8) {  // K2 off the sm90 route: the decode sizes
+    return launch_tiles<16, 32, 256, 1, 2, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   } else {
-    if constexpr (BKM) {
-      if (M <= 16)
-        return launch_tiles<16, 32, 256, 1, 2, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
-    }
-    return launch_tiles<64, 64, 64, 2, 2, BKM, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+    if (M <= 16) return launch_tiles<16, 32, 256, 1, 2, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
+    return launch_tiles<64, 64, 64, 2, 2, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   }
 }
 
-template <bool BKM, Src S = Src::S8>
+template <Src S>
 cudaError_t launch_dtypes(const void* a, const void* b, const void* sa, const void* sb, void* out,
                           int M, int N, int K, int scale_bf16, int out_bf16, cudaStream_t s) {
   using BF = __nv_bfloat16;
   if (scale_bf16)
-    return out_bf16 ? launch<BKM, S, BF, BF>(a, b, sa, sb, out, M, N, K, s)
-                    : launch<BKM, S, BF, float>(a, b, sa, sb, out, M, N, K, s);
-  return out_bf16 ? launch<BKM, S, float, BF>(a, b, sa, sb, out, M, N, K, s)
-                  : launch<BKM, S, float, float>(a, b, sa, sb, out, M, N, K, s);
+    return out_bf16 ? launch<S, BF, BF>(a, b, sa, sb, out, M, N, K, s)
+                    : launch<S, BF, float>(a, b, sa, sb, out, M, N, K, s);
+  return out_bf16 ? launch<S, float, BF>(a, b, sa, sb, out, M, N, K, s)
+                  : launch<S, float, float>(a, b, sa, sb, out, M, N, K, s);
 }
 
-// K2, B2 or B16 on sm90_gemm.cuh (Form S8KMajor, S8MnMajor or S4KMajor), in
-// the same four (scale, out) types.
+// K2, B1, B2 or B16 on sm90_gemm.cuh (Form S8KMajor, S8MnB, S8MnMajor or
+// S4KMajor), in the same four (scale, out) types.
 template <class Form>
 cudaError_t launch_sm90(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N,
                         int K, int scale_bf16, int out_bf16, cudaStream_t s) {
@@ -196,12 +193,11 @@ cudaError_t launch_sm90(const void* a, const void* b, const void* sa, const void
 // Returns the launch's cudaError_t (0 on success). a_kmajor: a is [M, K],
 // else [K, M]; b_kmajor: b is [N, K], else [K, N]; (0, 1) is not a form the
 // port uses and is refused. Operands are contiguous int8, 16-byte aligned,
-// with K % 16 == 0 and every MN-major operand's row length (M or N) a
-// multiple of 16. sa [M] and sb [N] are bf16 if scale_bf16 else fp32; out
+// each with its row length (K where it is K-major, M or N where it is
+// MN-major) a multiple of 16. sa [M] and sb [N] are bf16 if scale_bf16 else fp32; out
 // [M, N] is bf16 if out_bf16 else fp32. sm90: the (1, 1) form on the
-// sm90_gemm.cuh mainloop, else on the wmma kernel; the (0, 0) form runs on
-// the mainloop only (sm90 = 0 is refused), the (1, 0) form on wmma only
-// (sm90 = 1 is refused).
+// sm90_gemm.cuh mainloop, else on the wmma kernel; the (1, 0) and (0, 0)
+// forms run on the mainloop only, with K > 0 (sm90 = 0 is refused).
 extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, const void* sb,
                                void* out, int M, int N, int K, int a_kmajor, int b_kmajor,
                                int scale_bf16, int out_bf16, int sm90, void* stream) {
@@ -210,9 +206,11 @@ extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, con
   cudaError_t err;
   if (a_kmajor && b_kmajor) {
     err = sm90 ? launch_sm90<qt_sm90::S8KMajor>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s)
-               : launch_dtypes<true>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
-  } else if (a_kmajor && !sm90) {
-    err = launch_dtypes<false>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+               : launch_dtypes<Src::S8>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+  } else if (K <= 0) {
+    err = cudaErrorInvalidValue;
+  } else if (a_kmajor && sm90) {
+    err = launch_sm90<qt_sm90::S8MnB>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
   } else if (!a_kmajor && !b_kmajor && sm90) {
     err = launch_sm90<qt_sm90::S8MnMajor>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
   } else {
@@ -237,7 +235,7 @@ extern "C" int qt_scaled_int4_mm(const void* a, const void* b, const void* sa, c
     err = K % 32 || K >= (1 << 17) ? cudaErrorInvalidValue
                  : launch_sm90<qt_sm90::S4KMajor>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
   } else {
-    err = launch_dtypes<true, Src::S4>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
+    err = launch_dtypes<Src::S4>(a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, s);
   }
   return static_cast<int>(err);
 }

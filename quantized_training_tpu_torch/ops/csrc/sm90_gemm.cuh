@@ -6,9 +6,17 @@
 //   * sb[n], a [M, K] and b [N, K] int8, both K-major, int32 accumulators.
 //   Replaces quantized_training_tpu/ops/pallas_mm.py::scaled_mm_dims (:192),
 //   dims (1, 1), at its training and prefill sizes;
+// - B1 (scaled_mm.cu, S8MnB): the same epilogue over a [M, K] K-major . b
+//   [K, N] MN-major, int8 (the grad_input g . w, w [out, in] contracted over
+//   out). Replaces pallas_mm.py::scaled_mm (:85);
 // - B2 (scaled_mm.cu, S8MnMajor): the same epilogue over a [K, M]^T . b
 //   [K, N], both int8 MN-major (tokens x features, as the column quantizes
 //   write them). Replaces pallas_mm.py::scaled_mm_dims (:192), dims (0, 0);
+// - B15 at QK % 128 == 0 (tile_scaled_mm.cu, with the TileScaledOut
+//   epilogue): B1's operand layout, int8 (S8MnB) or e4m3 widened to fp16 on
+//   chip (E4m3F16), each quant block's partial folded into a second, fp32
+//   accumulator with its tile scales. Replaces pallas_mm.py::tile_scaled_mm
+//   (:378);
 // - B16 at M > 16 (scaled_mm.cu, S4KMajor): the same epilogue over packed
 //   signed int4 a [M, K / 2] and b [N, K / 2] (two values a byte, the even one
 //   in the high nibble), widened to int8 on chip. Replaces pallas_mm.py::
@@ -38,8 +46,9 @@
 // the tensor, so a ragged M, N or K adds exact zeros. The consumers need
 // about 100 registers (64 accumulators; B16's two sets of a's fragments
 // take the rest), within the 168 that __launch_bounds__(384, 1) gives
-// every thread, so setmaxnreg is not used. The kernel is persistent: one
-// CTA an SM walks its share of the tiles (TileWalk), so a tile's loads (and
+// every thread, so only B15's fold (below) uses setmaxnreg. The kernel is
+// persistent: one CTA an SM walks its share of the tiles (TileWalk), so a
+// tile's loads (and
 // rewrites) overlap the previous tile's last MMAs and epilogue, where a CTA
 // a tile would fill and drain its rings alone (ab_sm90_forms.py's
 // one_tile: 1-12% slower for B2, B16 and K2, the most at K 2048). The
@@ -53,22 +62,29 @@
 //   of the producer issues the loads, and the stage's full mbarrier counts
 //   the bytes landed (expect_tx). 8-bit wgmma reads its operands K-major
 //   only; bf16 also MN-major, through the transpose bit, which B17's b uses.
-// - The producer rewrites it (S8MnMajor, S4KMajor). TMA cannot change a
-//   layout, and 8-bit wgmma takes neither packed int4 nor an MN-major int8
-//   operand. So one producer thread lands each K step's operands as they are
-//   stored in a raw ring (its slot's full mbarrier counts the bytes), and
-//   the producer's 4 warps rewrite the raw slot into the stage, in exactly
-//   the layout TMA gives K2: B2 transposes 16 x 16 byte blocks of a and b
-//   with prmt; B16 widens b's nibbles to bytes, while the consumers build
-//   a's fragments in registers from the raw slot themselves (wgmma's
-//   register-A form; see S4KMajor). Then each writer fences its stores into
-//   the async proxy (fence.proxy.async.shared::cta: wgmma reads shared
-//   memory through it; ab_sm90_forms.py's variant without the fence is not
-//   bit-exact at B2's training shapes on the H100) and arrives on the
-//   stage's full mbarrier (a count of 128 threads). The consumers, the
-//   descriptors and the epilogue are K2's. The rewrite is shared-memory traffic beside wgmma's own reads
-//   of the stage (B2: 32 KB read and 32 KB written a K step), the price of
-//   keeping every operand in its stored layout in device memory. The raw
+// - The producer rewrites it (S8MnMajor, S4KMajor, S8MnB, E4m3F16). TMA
+//   cannot change a layout or a type, and 8-bit wgmma takes neither packed
+//   int4 nor an MN-major 8-bit operand. So one producer thread lands each K step's
+//   operands as they are stored in a raw ring (its slot's full mbarrier
+//   counts the bytes), and the producer's 4 warps rewrite the raw slot into
+//   the stage, in exactly the layout TMA gives K2: B2 transposes 16 x 16
+//   byte blocks of a and b with prmt; B1 and B15 transpose b alone, while
+//   their K-major a lands by TMA straight into the stage (its full mbarrier
+//   then counts 129 arrivals: the TMA thread's arrive.expect_tx for a's
+//   bytes and the 128 writers of b); B15's e4m3 form widens both operands
+//   to fp16 (see E4m3F16); B16 widens b's nibbles to bytes, while the
+//   consumers build a's fragments in registers from the raw slot themselves
+//   (wgmma's register-A form; see S4KMajor). Then each writer
+//   fences its stores into the async proxy (fence.proxy.async.shared::cta:
+//   wgmma reads shared memory through it; ab_sm90_forms.py's variant
+//   without the fence is not bit-exact at B2's training shapes on the H100)
+//   and arrives on the stage's full mbarrier (a count of 128 threads). The
+//   consumers, the descriptors and the epilogue are K2's. The rewrite is
+//   shared-memory traffic beside wgmma's own reads of the stage (B2: 32 KB
+//   read and 32 KB written a K step), the price of keeping every operand in
+//   its stored layout in device memory (B1 with the roles swapped instead,
+//   the consumers building fragments of b^T, ran 8-18% slower:
+//   ab_sm90_forms.py's b1_swap). The raw
 //   reads and the stage writes are laid out so that each 8-lane phase of a
 //   16-byte access touches 8 distinct bank groups (see each rewrite).
 //   Depths, under the 227 KB a CTA can have, the fastest of those
@@ -76,7 +92,24 @@
 //   x 128 bytes of M or N per operand), 4 stages and 2 raw slots (192 KB);
 //   B16 takes 256 values of K a step (half the barrier round trips of 128,
 //   and 128-byte TMA rows): its raw slot is 32 KB and its stage, b alone,
-//   32 KB, 3 stages and 4 raw slots (224 KB), the most that fit.
+//   32 KB, 3 stages and 4 raw slots (224 KB), the most that fit. S8MnB's
+//   raw slot is b's 16 KB: 4 stages and 4 raw slots (192 KB; 5 + 3 and 6 +
+//   1 ran 2-7% slower for B1); E4m3F16's is a's and b's 8 KB each: 5
+//   stages and 3 raw slots (208 KB; 6 + 1 ran 2-9% slower with B15's
+//   overlapped fold, though 3% faster with the fold that waits).
+//
+// B15's fold. A stage is 128 bytes of K, one quant block at QK = 128 for
+// int8 (QK / 128 stages at a larger multiple; the e4m3 form's 64-value
+// stages, two). The producer also writes the block's 128 row scales of a
+// and 128 column scales of b into shared memory beside the block's last
+// stage. Each consumer keeps two partial sets: while one takes block b's
+// MMAs, the other's block b - 1 is folded into 64 fp32 accumulators, acc +
+// (part * sa) * sb, each product and sum rounded on its own (no FMA),
+// block after block: so the int8 form, whose int32 partials are exact, is
+// bit-exact with the plain version. 192 accumulators take the consumers
+// past the 168 registers a thread has at launch: the producer gives
+// registers back (setmaxnreg.dec to 56) and the consumers take them
+// (setmaxnreg.inc to 224).
 //
 // The tensor maps are encoded on the host per call by
 // cuTensorMapEncodeTiled, fetched from the driver by cudaGetDriverEntryPoint
@@ -92,6 +125,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace qt_sm90 {
 
@@ -181,6 +216,17 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// This warpgroup's registers a thread, moved to N (a multiple of 8) from the
+// pool the CTA's warpgroups share.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
 template <int N>
@@ -229,6 +275,15 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) 
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " QT_D64 ", %64, %65, p, 1, 1, 0, 1;\n}"
+      : QT_ACC64("+f")
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The bf16 MMA's fp16 twin, b MN-major: B15's e4m3 operands widened on chip.
+__device__ __forceinline__ void wgmma_f16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " QT_D64 ", %64, %65, p, 1, 1, 0, 1;\n}"
       : QT_ACC64("+f")
       : "l"(da), "l"(db), "r"(1));
 }
@@ -291,7 +346,7 @@ struct S8KMajor {  // K2: a [M, K], b [N, K] int8
   using Acc = int;
   static constexpr int BK = 128, kStages = 5, kRawSlots = 0, kLoadBytes = kStageBytes, kAccShift = 0;
   static constexpr int kStageSize = kStageBytes;
-  static constexpr bool kMnB = false, kRewrite = false, kAInRegs = false;
+  static constexpr bool kMnB = false, kRewrite = false, kAInRegs = false, kATma = false;
   static cudaError_t encode(CUtensorMap* map, const void* base, int rows, int K, int /*operand*/) {
     return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, K, rows, K, kRowBytes, 128);
   }
@@ -306,7 +361,7 @@ struct Bf16MnB {  // B17: a [M, K], b [K, N] bf16
   using Acc = float;
   static constexpr int BK = 64, kStages = 5, kRawSlots = 0, kLoadBytes = kStageBytes, kAccShift = 0;
   static constexpr int kStageSize = kStageBytes;
-  static constexpr bool kMnB = true, kRewrite = false, kAInRegs = false;
+  static constexpr bool kMnB = true, kRewrite = false, kAInRegs = false, kATma = false;
   __device__ static void load(uint32_t dst, const CUtensorMap* ta, const CUtensorMap* tb, int kt, int m0, int n0,
                               uint32_t bar) {
     tma_load(dst, ta, kt * BK, m0, bar);
@@ -341,7 +396,7 @@ struct S4KMajorT {
   static constexpr int kStages = kSub == 1 ? 4 : 3, kRawSlots = kSub == 1 ? 8 : 4;
   static constexpr int kRawTile = 128 * kRowPacked;  // one operand's packed K step
   static constexpr int kLoadBytes = 2 * kRawTile, kStageSize = kSub * kTileBytes;
-  static constexpr bool kMnB = false, kRewrite = true, kAInRegs = true;
+  static constexpr bool kMnB = false, kRewrite = true, kAInRegs = true, kATma = false;
   static_assert(kSub == 1 || kSub == 2, "a raw row is one swizzle span at most");
   // a's tile lands with the swizzle of its row length (64 bytes: the 16-byte
   // chunk c of row r at c ^ (r / 2) % 4; 128: c ^ r % 8), so that a warp's
@@ -410,7 +465,7 @@ struct S8MnMajor {  // B2: a [K, M], b [K, N] int8
   static constexpr int BK = 128, kStages = 4, kRawSlots = 2, kAccShift = 0;
   static constexpr int kRawTile = BK * 128;  // one operand's K step: 128 K rows x 128 bytes of M (N)
   static constexpr int kLoadBytes = 2 * kRawTile, kStageSize = kStageBytes;
-  static constexpr bool kMnB = false, kRewrite = true, kAInRegs = false;
+  static constexpr bool kMnB = false, kRewrite = true, kAInRegs = false, kATma = false;
   static cudaError_t encode(CUtensorMap* map, const void* base, int rows, int K, int /*operand*/) {
     return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rows, K, rows, 128, BK, CU_TENSOR_MAP_SWIZZLE_NONE);
   }
@@ -452,14 +507,138 @@ struct S8MnMajor {  // B2: a [K, M], b [K, N] int8
   }
 };
 
+// B1 and B15's int8 form: a [M, K] K-major lands by TMA in the stage, as
+// K2's; b [K, N] MN-major lands raw and the producer transposes it into the
+// stage's b half.
+struct S8MnB {
+  using Acc = int;
+  static constexpr int BK = 128, kStages = 4, kRawSlots = 4, kAccShift = 0;
+  static constexpr int kRawTile = BK * 128;  // b's K step: 128 K rows x 128 bytes of N
+  static constexpr int kLoadBytes = kRawTile, kStageSize = kStageBytes;
+  static constexpr bool kMnB = false, kRewrite = true, kAInRegs = false, kATma = true;
+  static cudaError_t encode(CUtensorMap* map, const void* base, int rows, int K, int operand) {
+    return operand == 0 ? encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, K, rows, K, kRowBytes, 128)
+                        : encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rows, K, rows, 128, BK,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  __device__ static void load(uint32_t dst, const CUtensorMap*, const CUtensorMap* tb, int kt, int, int n0,
+                              uint32_t bar) {
+    tma_load(dst, tb, n0, kt * BK, bar);
+  }
+  __device__ static void load_a(uint32_t dst, const CUtensorMap* ta, int kt, int m0, uint32_t bar) {
+    tma_load(dst, ta, kt * BK, m0, bar);
+  }
+  // Raw: b's [128 k][128 n], dense. Thread t transposes half of one 16 x 16
+  // byte block, K chunk kb by N chunk nb: its 8 n columns 8 h .. 8 h + 7 (h
+  // = t % 2), sixteen 8-byte loads down its k rows, eight 4 x 4 transposes
+  // in registers, eight 16-byte stores along its n rows (stage chunk kb of
+  // row n, swizzled). Within each 16 lanes kb runs over 0..7 and nb = kb + i
+  // (mod 8) for the 16-lane group i, so each load phase (16 lanes of 8
+  // bytes) reads 16 distinct 8-byte columns. Lane h = 1 keeps its two words
+  // swapped, so that in each store where an h = 0 lane writes row r of its
+  // half, its neighbour writes row r ^ 4: each 8-lane store phase writes 8
+  // distinct K chunks.
+  __device__ __forceinline__ static void rewrite(const uint8_t* raw, uint8_t* stage, int t) {
+    const int h = t & 1, u = t >> 1, kb = u & 7, nb = (kb + (u >> 3)) & 7;
+    const uint8_t* src = raw + kb * 16 * 128 + nb * 16 + h * 8;
+    uint32_t v[16][2];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint2 x = *reinterpret_cast<const uint2*>(src + i * 128);
+      v[i][0] = h ? x.y : x.x, v[i][1] = h ? x.x : x.y;
+    }
+    // word q of k row 4 w + r holds n 4 (q ^ h) .. + 3 of the half: after the
+    // transpose, v[4 w + c][q] holds k 4 w .. 4 w + 3 of n row 8 h + 4 (q ^
+    // h) + c of the block
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) transpose4x4(v[4 * w][q], v[4 * w + 1][q], v[4 * w + 2][q], v[4 * w + 3][q]);
+    uint8_t* dst = stage + kTileBytes + nb * 16 * kRowBytes;
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = 8 * h + 4 * (q ^ h) + c;
+        *reinterpret_cast<uint4*>(dst + j * kRowBytes + ((kb ^ (j & 7)) << 4)) =
+            make_uint4(v[c][q], v[4 + c][q], v[8 + c][q], v[12 + c][q]);
+      }
+  }
+};
+
+// 4 e4m3 bytes -> 4 fp16 values in order, as two words (exact: fp16 holds
+// every e4m3 value).
+__device__ __forceinline__ uint2 widen_e4m3(uint32_t w) {
+  uint32_t lo, hi;
+  asm("{\n .reg .b16 l, h;\n mov.b32 {l, h}, %2;\n cvt.rn.f16x2.e4m3x2 %0, l;\n cvt.rn.f16x2.e4m3x2 %1, h;\n}"
+      : "=r"(lo), "=r"(hi)
+      : "r"(w));
+  return make_uint2(lo, hi);
+}
+
+// B15's e4m3 form: a [M, K] and b [K, N] e4m3 land raw, 64 values of K a
+// step, and the producer widens both to fp16, into exactly the stage TMA
+// gives B17's bf16 a and b (Bf16MnB): a's [128 m][64 k] and b's two [64
+// k][64 n] halves, 128-byte rows swizzled. The consumers run fp16 wgmma
+// with b MN-major (the transpose bit), whose fp32 sums keep the products
+// exact: e4m3 wgmma's own accumulation rounds more coarsely than the fp32
+// roundings B15's tolerance allows (ab_sm90_forms.py's diag_b15_e4m3_wgmma).
+struct E4m3F16 {
+  using Acc = float;
+  static constexpr int BK = 64, kStages = 5, kRawSlots = 3, kAccShift = 0;
+  static constexpr int kRawA = 128 * BK;  // a's K step: 128 rows x 64 bytes (64-byte swizzle); b's: 64 x 128
+  static constexpr int kLoadBytes = 2 * kRawA, kStageSize = kStageBytes;
+  static constexpr bool kMnB = true, kRewrite = true, kAInRegs = false, kATma = false;
+  static cudaError_t encode(CUtensorMap* map, const void* base, int rows, int K, int operand) {
+    return operand == 0 ? encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, K, rows, K, BK, 128,
+                                    CU_TENSOR_MAP_SWIZZLE_64B)
+                        : encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, rows, K, rows, 128, BK,
+                                    CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  __device__ static void load(uint32_t dst, const CUtensorMap* ta, const CUtensorMap* tb, int kt, int m0, int n0,
+                              uint32_t bar) {
+    tma_load(dst, ta, kt * BK, m0, bar);
+    tma_load(dst + kRawA, tb, n0, kt * BK, bar);
+  }
+  // 16 e4m3 bytes -> the two 16-byte chunks of 8 fp16 values each, at p0 and p1.
+  __device__ __forceinline__ static void widen16(uint4 x, uint8_t* p0, uint8_t* p1) {
+    const uint2 w0 = widen_e4m3(x.x), w1 = widen_e4m3(x.y), w2 = widen_e4m3(x.z), w3 = widen_e4m3(x.w);
+    *reinterpret_cast<uint4*>(p0) = make_uint4(w0.x, w0.y, w1.x, w1.y);
+    *reinterpret_cast<uint4*>(p1) = make_uint4(w2.x, w2.y, w3.x, w3.y);
+  }
+  // Thread t widens a's row t (4 chunks of 16 bytes, swizzled by the TMA's
+  // 64-byte pattern, c ^ (r / 2) % 4) and b's k row t / 2, n half t % 2
+  // (64 bytes, chunk (i + k + 2 hf) % 4 in its turn i); each 16 bytes make
+  // the stage chunks 2 c and 2 c + 1 of its row. Every 8-lane phase of a
+  // 16-byte load or store touches 8 distinct bank groups.
+  __device__ __forceinline__ static void rewrite(const uint8_t* raw, uint8_t* stage, int t) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 x = *reinterpret_cast<const uint4*>(raw + t * 64 + ((c ^ ((t >> 1) & 3)) << 4));
+      uint8_t* row = stage + t * kRowBytes;
+      widen16(x, row + (((2 * c) ^ (t & 7)) << 4), row + (((2 * c + 1) ^ (t & 7)) << 4));
+    }
+    const int k = t >> 1, hf = t & 1;
+    uint8_t* row = stage + kTileBytes + hf * (kTileBytes / 2) + k * kRowBytes;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = (i + k + 2 * hf) & 3;
+      const uint4 x = *reinterpret_cast<const uint4*>(raw + kRawA + k * 128 + hf * 64 + c * 16);
+      widen16(x, row + (((2 * c) ^ (k & 7)) << 4), row + (((2 * c + 1) ^ (k & 7)) << 4));
+    }
+  }
+};
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // ---- epilogues: one output row, then its values ---------------------------
 
-// K2, B2, B16: ((float)acc * sa[r]) * sb[c] in fp32, rounded once to OT.
+// K2, B1, B2, B16: ((float)acc * sa[r]) * sb[c] in fp32, rounded once to
+// OT.
 template <typename ST, typename OT>
 struct ScaledOut {
+  static constexpr bool kFold = false;
   const ST* sa;
   const ST* sb;
   OT* out;
@@ -476,12 +655,38 @@ struct ScaledOut {
 // B17: the fp32 sum, rounded once to OT.
 template <typename OT>
 struct PlainOut {
+  static constexpr bool kFold = false;
   OT* out;
   struct Row {
     OT* p;
   };
   __device__ Row row(int r, int N) const { return {out + static_cast<int64_t>(r) * N}; }
   __device__ float value(const Row&, int, float acc) const { return acc; }
+};
+
+// B15: the folded fp32 sum, rounded once to OT. sa [M / qm, n_qk] and sb
+// [n_qk, N / qn] are the tile scales, kq the stages of a quant block (QK /
+// 128).
+template <typename ST, typename OT>
+struct TileScaledOut {
+  static constexpr bool kFold = true;
+  const ST* sa;
+  const ST* sb;
+  OT* out;
+  int M, N, qm, qn, n_qk, kq;
+  struct Row {
+    OT* p;
+  };
+  __device__ Row row(int r, int N_) const { return {out + static_cast<int64_t>(r) * N_}; }
+  __device__ float value(const Row&, int, float acc) const { return acc; }
+  // The producer's thread t (0..127): the scales of tile row t and tile
+  // column t for K step kt's quant block (ragged rows and columns take the
+  // last one's).
+  __device__ float2 scales_of(int2 o, int kt, int t) const {
+    const int kb = kt / kq, m = min(o.x + t, M - 1), n = min(o.y + t, N - 1);
+    return make_float2(qt_sm90::to_f32(sa[static_cast<int64_t>(m / qm) * n_qk + kb]),
+                       qt_sm90::to_f32(sb[static_cast<int64_t>(kb) * (N / qn) + n / qn]));
+  }
 };
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
@@ -553,16 +758,23 @@ struct StepCursor {
 // producer may refill stage s, every raw slot up to that stage's last step is
 // free, and the ring runs kRawSlots - kStages loads ahead of the rewrite);
 // otherwise once the producer itself is done with it (a named barrier).
-template <class Form>
+// Where a lands by TMA (kATma), thread 0 loads it into the stage as soon as
+// the stage is free, counted on the stage's full mbarrier. With a fold
+// epilogue the 128 threads also write the scales beside a quant block's last
+// stage, loaded from device memory as the step starts, so that their
+// latency passes under the wait for the stage and the rewrite.
+template <class Form, class Epi>
 __device__ __forceinline__ void produce_rewritten(const CUtensorMap* ta, const CUtensorMap* tb, uint8_t* ring,
                                                   uint32_t full0, uint32_t empty0, uint32_t raw_full0,
-                                                  uint32_t raw_empty0, const TileWalk& walk) {
+                                                  uint32_t raw_empty0, const TileWalk& walk, const Epi& epi,
+                                                  float* scales) {
   constexpr int S = Form::kStages, R = Form::kRawSlots;
   static_assert(!Form::kAInRegs || R >= S, "a raw slot is free once the consumers start its step");
   const int t = threadIdx.x % 128, steps = walk.count() * walk.nk;
   uint8_t* raw = ring + S * Form::kStageSize;
-  const uint32_t raw_u32 = smem_u32(raw);
+  const uint32_t raw_u32 = smem_u32(raw), ring_u32 = smem_u32(ring);
   StepCursor load(walk);  // the next step to load: steps load in order
+  StepCursor at(walk);    // the step being rewritten
   const auto issue = [&](int g) {
     const uint32_t bar = raw_full0 + 8 * (g % R);
     mbar_expect_tx(bar, Form::kLoadBytes);
@@ -571,9 +783,21 @@ __device__ __forceinline__ void produce_rewritten(const CUtensorMap* ta, const C
   };
   if (t == 0)
     for (int g = 0; g < R && g < steps; ++g) issue(g);
-  for (int g = 0; g < steps; ++g) {
+  for (int g = 0; g < steps; ++g, at.next()) {
     const int s = g % S, use = g / S;
+    float2 sc = make_float2(0.0f, 0.0f);
+    bool fold_stage = false;  // the quant block's last stage: its scales go beside it
+    if constexpr (Epi::kFold) {
+      fold_stage = (at.kt + 1) % epi.kq == 0;
+      if (fold_stage) sc = epi.scales_of(at.o, at.kt, t);
+    }
     if (use > 0) mbar_wait(empty0 + 8 * s, (use - 1) & 1);
+    if constexpr (Form::kATma) {
+      if (t == 0) {
+        mbar_expect_tx(full0 + 8 * s, kTileBytes);
+        Form::load_a(ring_u32 + s * Form::kStageSize, ta, at.kt, at.o.x, full0 + 8 * s);
+      }
+    }
     if constexpr (Form::kAInRegs) {
       const int j = g - S + R;  // into the raw slot of step g - S, which the consumers are done with
       if (t == 0 && use > 0 && j < steps) {
@@ -583,11 +807,78 @@ __device__ __forceinline__ void produce_rewritten(const CUtensorMap* ta, const C
     }
     mbar_wait(raw_full0 + 8 * (g % R), (g / R) & 1);
     Form::rewrite(raw + (g % R) * Form::kLoadBytes, ring + s * Form::kStageSize, t);
+    if (fold_stage) scales[s * 256 + t] = sc.x, scales[s * 256 + 128 + t] = sc.y;
     fence_proxy_async();
     mbar_arrive(full0 + 8 * s);
     if constexpr (!Form::kAInRegs) {
       producer_sync();  // every thread is done reading the raw slot: load it again
       if (t == 0 && g + R < steps) issue(g + R);
+    }
+  }
+}
+
+// One K step's MMAs of a consumer warpgroup on stage s (its a rows at sa, b
+// at sb): four 32-byte K steps of the 128-byte rows, or of bf16 b MN-major
+// four 16-row K steps.
+template <class Form>
+__device__ __forceinline__ void stage_mma(typename Form::Acc (&d)[64], uint32_t sa, uint32_t sb) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = smem_desc(sa + 32 * kk, 16, 1024);
+    const uint64_t db = Form::kMnB ? smem_desc(sb + 16 * kRowBytes * kk, kTileBytes / 2, 1024)
+                                   : smem_desc(sb + 32 * kk, 16, 1024);
+    if constexpr (std::is_same_v<Form, E4m3F16>) {
+      wgmma_f16(d, da, db);
+    } else {
+      wgmma(d, da, db);
+    }
+  }
+}
+
+// A consumer warpgroup's 64 rows of a 128 x 128 tile at o, from v (wgmma's
+// layout), through the epilogue, masked at the ragged edge.
+template <int Shift, class Epi, typename V>
+__device__ __forceinline__ void store_tile(const Epi& epi, const V (&v)[64], int2 o, int wg, int M, int N) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = o.x + wg * 64 + (warp % 4) * 16 + lane / 4, c0 = o.y + 2 * (lane % 4);
+  const bool pairs = (N % 2) == 0;  // a pair of columns is one aligned 2-value store
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= M) continue;
+    const auto rw = epi.row(r, N);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j;
+      const auto v0 = unscaled<Shift>(v[4 * j + 2 * h]);
+      const auto v1 = unscaled<Shift>(v[4 * j + 2 * h + 1]);
+      if (pairs && c + 1 < N) {
+        store2(rw.p + c, epi.value(rw, c, v0), epi.value(rw, c + 1, v1));
+      } else {
+        if (c < N) store1(rw.p + c, epi.value(rw, c, v0));
+        if (c + 1 < N) store1(rw.p + c + 1, epi.value(rw, c + 1, v1));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float as_f32(int v) { return __int2float_rn(v); }
+__device__ __forceinline__ float as_f32(float v) { return v; }
+
+// B15's fold of a consumer thread's 64 values: acc + (part * sa) * sb, each
+// product and sum rounded on its own, with the scales of its rows (sc[rl],
+// sc[rl + 8]) and columns (sc[cl + 8 j], + 1); part is zeroed.
+template <typename P>
+__device__ __forceinline__ void fold_block(float (&acc)[64], P (&part)[64], const float* sc, int rl, int cl) {
+  const float s0 = sc[rl], s1 = sc[rl + 8];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 cb = *reinterpret_cast<const float2*>(sc + cl + 8 * j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // rows h = e / 2 (+ 8), columns + e % 2
+      const int x = 4 * j + e;
+      acc[x] = __fadd_rn(acc[x], __fmul_rn(__fmul_rn(as_f32(part[x]), e < 2 ? s0 : s1), e % 2 ? cb.y : cb.x));
+      part[x] = 0;
     }
   }
 }
@@ -600,6 +891,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   constexpr int S = Form::kStages, R = Form::kRawSlots > 0 ? Form::kRawSlots : 1, kStage = Form::kStageSize;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[S], empty_bar[S], raw_full_bar[R], raw_empty_bar[R];
+  // a fold's scales: per stage a's 128 row scales, then b's 128 column scales
+  __shared__ float scales[Epi::kFold ? S : 1][Epi::kFold ? 256 : 1];
   // the ring: stage s holds a's tile at ring + s * kStage and b's kTileBytes
   // above it (b's alone where a is in registers); every tile starts on a 1
   // KB boundary (the swizzle atom); the raw slots of a rewrite form follow
@@ -612,7 +905,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(full0 + 8 * s, Form::kRewrite ? kProducerThreads : 1);
+      mbar_init(full0 + 8 * s, Form::kRewrite ? kProducerThreads + Form::kATma : 1);
       mbar_init(empty0 + 8 * s, kConsumerWarps);
     }
     for (int s = 0; s < Form::kRawSlots; ++s) {
@@ -624,8 +917,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   __syncthreads();
 
   if (wg == 2) {  // the producer
+    if constexpr (Epi::kFold) setmaxnreg_dec<56>();
     if constexpr (Form::kRewrite) {
-      produce_rewritten<Form>(&ta, &tb, ring_ptr, full0, empty0, raw_full0, raw_empty0, walk);
+      produce_rewritten<Form>(&ta, &tb, ring_ptr, full0, empty0, raw_full0, raw_empty0, walk, epi, &scales[0][0]);
     } else if (threadIdx.x == 256) {  // one thread keeps the ring full
       const int steps = walk.count() * nk;
       StepCursor load(walk);
@@ -641,89 +935,116 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUte
   }
 
   // a consumer warpgroup: rows [64 wg, 64 wg + 64) of each tile
-  typename Form::Acc d[64];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tiles = walk.count();
-  for (int i = 0; i < tiles; ++i) {
-    const int2 o = walk.origin(i);
-    const int g0 = i * nk;  // the tile's first step
+  if constexpr (Epi::kFold) {
+    // B15: per quant block (kq stages) the block's partial in one of two
+    // sets, part0 for even blocks, part1 for odd ones; block b is folded
+    // into acc once block b + 1's first MMAs are issued and block b's are
+    // done, with the scales the producer wrote beside block b's last stage,
+    // so that the fold runs under the next block's MMAs (ab_sm90_forms.py's
+    // fold_wait waits for the block's own MMAs instead: int8 7-9% slower,
+    // e4m3 within 4% either way)
+    setmaxnreg_inc<224>();
+    typename Form::Acc part0[64], part1[64];
+    float acc[64];
+    const int rl = wg * 64 + (warp % 4) * 16 + lane / 4, cl = 128 + 2 * (lane % 4);  // this thread's scales
+    for (int i = 0; i < tiles; ++i) {
+      const int g0 = i * nk, nb = nk / epi.kq;
 #pragma unroll
-    for (int j = 0; j < 64; ++j) d[j] = 0;
-    if constexpr (Form::kAInRegs) {
-      // a's fragments from the raw slot, held until the step's MMAs are done:
-      // two sets, for steps kt and kt + 1, so the loop runs two steps a turn
-      constexpr int kSteps = Form::BK / 32;  // wgmma K steps a stage
-      const uint8_t* raw = ring_ptr + S * kStage;
-      const int ra = wg * 64 + (warp % 4) * 16 + lane / 4;
-      uint32_t a0[kSteps][4], a1[kSteps][4];
-      const auto step = [&](int kt, uint32_t (&a)[kSteps][4]) {
-        const int g = g0 + kt, s = g % S, rs = g % R;
-        mbar_wait(full0 + 8 * s, (g / S) & 1);
-        mbar_wait(raw_full0 + 8 * rs, (g / R) & 1);
-        Form::a_frags(raw + rs * Form::kLoadBytes, ra, lane % 4, a);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(raw_empty0 + 8 * rs);  // a's fragments are in registers
-        const uint32_t sb = ring + s * kStage;
-        fence_operands(d);
-        fence_operands(a);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk)  // b's sub-tile kk / 4, 32-byte K step kk % 4
-          wgmma(d, a[kk], smem_desc(sb + (kk / 4) * kTileBytes + 32 * (kk % 4), 16, 1024));
-        wgmma_commit();
-        fence_operands(d);
-        wgmma_wait<1>();  // step g - 1's MMAs are done: release its stage
-        if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+      for (int j = 0; j < 64; ++j) part0[j] = 0, part1[j] = 0, acc[j] = 0.0f;
+      const auto block = [&](int b, auto& cur, auto& prev) {
+        for (int j = 0; j < epi.kq; ++j) {
+          const int kt = b * epi.kq + j, g = g0 + kt, s = g % S;
+          mbar_wait(full0 + 8 * s, (g / S) & 1);
+          fence_operands(cur);
+          fence_operands(prev);
+          wgmma_fence();
+          stage_mma<Form>(cur, ring + s * kStage + wg * 64 * kRowBytes, ring + s * kStage + kTileBytes);
+          wgmma_commit();
+          fence_operands(cur);
+          wgmma_wait<1>();  // step g - 1's MMAs are done
+          fence_operands(prev);
+          if (kt == 0) continue;
+          if (j == 0) {  // step g - 1 ended block b - 1
+            fold_block(acc, prev, scales[(g - 1) % S], rl, cl);
+            __syncwarp();  // every lane has read the stage's scales
+          }
+          if (lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+        }
       };
-      for (int kt = 0; kt < nk; kt += 2) {
-        step(kt, a0);
-        if (kt + 1 < nk) step(kt + 1, a1);
+      for (int b = 0; b < nb; b += 2) {
+        block(b, part0, part1);
+        if (b + 1 < nb) block(b + 1, part1, part0);
       }
       wgmma_wait<0>();
-      fence_operands(a0);
-      fence_operands(a1);
-    } else {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int g = g0 + kt, s = g % S;
-        mbar_wait(full0 + 8 * s, (g / S) & 1);
-        const uint32_t sa = ring + s * kStage + wg * 64 * kRowBytes, sb = ring + s * kStage + kTileBytes;
-        fence_operands(d);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {  // four 32-byte K steps of the 128-byte row
-          const uint64_t da = smem_desc(sa + 32 * kk, 16, 1024);
-          const uint64_t db = Form::kMnB ? smem_desc(sb + 16 * kRowBytes * kk, kTileBytes / 2, 1024)
-                                         : smem_desc(sb + 32 * kk, 16, 1024);
-          wgmma(d, da, db);
-        }
-        wgmma_commit();
-        fence_operands(d);
-        wgmma_wait<1>();  // step g - 1's MMAs are done: release its stage
-        if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+      fence_operands(part0);
+      fence_operands(part1);
+      const int last = (g0 + nk - 1) % S;  // the tile's last block, in part0 where nb is odd
+      if (nb & 1) {
+        fold_block(acc, part0, scales[last], rl, cl);
+      } else {
+        fold_block(acc, part1, scales[last], rl, cl);
       }
-      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * last);
+      store_tile<0>(epi, acc, walk.origin(i), wg, M, N);
     }
-    fence_operands(d);
-    if (lane == 0) mbar_arrive(empty0 + 8 * ((g0 + nk - 1) % S));  // the tile's last stage
-
-    const int r0 = o.x + wg * 64 + (warp % 4) * 16 + lane / 4, c0 = o.y + 2 * (lane % 4);
-    const bool pairs = (N % 2) == 0;  // a pair of columns is one aligned 2-value store
+  } else {
+    typename Form::Acc d[64];
+    for (int i = 0; i < tiles; ++i) {
+      const int g0 = i * nk;  // the tile's first step
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= M) continue;
-      const auto rw = epi.row(r, N);
+      for (int j = 0; j < 64; ++j) d[j] = 0;
+      if constexpr (Form::kAInRegs) {
+        // a's fragments from the raw slot, held until the step's MMAs are done:
+        // two sets, for steps kt and kt + 1, so the loop runs two steps a turn
+        constexpr int kSteps = Form::BK / 32;  // wgmma K steps a stage
+        const uint8_t* raw = ring_ptr + S * kStage;
+        const int ra = wg * 64 + (warp % 4) * 16 + lane / 4;
+        uint32_t a0[kSteps][4], a1[kSteps][4];
+        const auto step = [&](int kt, uint32_t (&a)[kSteps][4]) {
+          const int g = g0 + kt, s = g % S, rs = g % R;
+          mbar_wait(full0 + 8 * s, (g / S) & 1);
+          mbar_wait(raw_full0 + 8 * rs, (g / R) & 1);
+          Form::a_frags(raw + rs * Form::kLoadBytes, ra, lane % 4, a);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(raw_empty0 + 8 * rs);  // a's fragments are in registers
+          const uint32_t sb = ring + s * kStage;
+          fence_operands(d);
+          fence_operands(a);
+          wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int c = c0 + 8 * j;
-        const auto v0 = unscaled<Form::kAccShift>(d[4 * j + 2 * h]);
-        const auto v1 = unscaled<Form::kAccShift>(d[4 * j + 2 * h + 1]);
-        if (pairs && c + 1 < N) {
-          store2(rw.p + c, epi.value(rw, c, v0), epi.value(rw, c + 1, v1));
-        } else {
-          if (c < N) store1(rw.p + c, epi.value(rw, c, v0));
-          if (c + 1 < N) store1(rw.p + c + 1, epi.value(rw, c + 1, v1));
+          for (int kk = 0; kk < kSteps; ++kk)  // b's sub-tile kk / 4, 32-byte K step kk % 4
+            wgmma(d, a[kk], smem_desc(sb + (kk / 4) * kTileBytes + 32 * (kk % 4), 16, 1024));
+          wgmma_commit();
+          fence_operands(d);
+          wgmma_wait<1>();  // step g - 1's MMAs are done: release its stage
+          if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+        };
+        for (int kt = 0; kt < nk; kt += 2) {
+          step(kt, a0);
+          if (kt + 1 < nk) step(kt + 1, a1);
         }
+        wgmma_wait<0>();
+        fence_operands(a0);
+        fence_operands(a1);
+      } else {
+        for (int kt = 0; kt < nk; ++kt) {
+          const int g = g0 + kt, s = g % S;
+          mbar_wait(full0 + 8 * s, (g / S) & 1);
+          fence_operands(d);
+          wgmma_fence();
+          stage_mma<Form>(d, ring + s * kStage + wg * 64 * kRowBytes, ring + s * kStage + kTileBytes);
+          wgmma_commit();
+          fence_operands(d);
+          wgmma_wait<1>();  // step g - 1's MMAs are done: release its stage
+          if (kt > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((g - 1) % S));
+        }
+        wgmma_wait<0>();
       }
+      fence_operands(d);
+      if (lane == 0) mbar_arrive(empty0 + 8 * ((g0 + nk - 1) % S));  // the tile's last stage
+      store_tile<Form::kAccShift>(epi, d, walk.origin(i), wg, M, N);
     }
   }
 }
@@ -735,7 +1056,8 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, const Epi& epi,
                    cudaStream_t stream) {
   auto kernel = gemm_kernel<Form, Epi>;
   constexpr int smem = smem_bytes<Form>();
-  static_assert(smem <= 232448, "over the 227 KB of shared memory a CTA can have");
+  static_assert(smem + (Epi::kFold ? 1024 * Form::kStages : 0) <= 232448,
+                "over the 227 KB of shared memory a CTA can have");
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const int tiles_n = (N + kBN - 1) / kBN;
   const TileWalk walk{tiles_n, ((M + kBM - 1) / kBM) * tiles_n, (K + Form::BK - 1) / Form::BK};
@@ -748,10 +1070,11 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, const Epi& epi,
   return cudaGetLastError();
 }
 
-// K2 (S8KMajor: a [M, K], b [N, K], K % 16 == 0), B2 (S8MnMajor: a [K, M],
-// b [K, N], M % 16 == N % 16 == 0) and B16 (S4KMajor: a [M, K / 2], b [N, K /
-// 2] packed, K % 32 == 0): int8 or packed operands, each 16-byte aligned,
-// with the row x col scale epilogue.
+// K2 (S8KMajor: a [M, K], b [N, K], K % 16 == 0), B1 (S8MnB: a [M, K], b
+// [K, N], K % 16 == N % 16 == 0), B2 (S8MnMajor: a [K, M], b [K, N], M % 16
+// == N % 16 == 0) and B16 (S4KMajor: a [M, K / 2], b [N, K / 2] packed, K %
+// 32 == 0): int8 or packed operands, each 16-byte aligned, with the row x
+// col scale epilogue; K > 0.
 template <class Form, typename ST, typename OT>
 cudaError_t scaled(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N, int K,
                    cudaStream_t stream) {
@@ -760,6 +1083,22 @@ cudaError_t scaled(const void* a, const void* b, const void* sa, const void* sb,
   if (err == cudaSuccess) err = Form::encode(&tb, b, N, K, 1);
   if (err != cudaSuccess) return err;
   const ScaledOut<ST, OT> epi{static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out)};
+  return launch<Form>(ta, tb, epi, M, N, K, stream);
+}
+
+// B15 at QK % 128 == 0 (S8MnB int8, E4m3F16 e4m3): a [M, K] and b [K, N],
+// each 16-byte aligned, N % 16 == 0; sa [M / qm, K / qk] and sb [K / qk, N /
+// qn], with qm dividing M, qk dividing K, qn dividing N.
+template <class Form, typename ST, typename OT>
+cudaError_t tile_scaled(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N,
+                        int K, int qm, int qk, int qn, cudaStream_t stream) {
+  if (qk % Form::BK || K % qk || M % qm || N % qn) return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  cudaError_t err = Form::encode(&ta, a, M, K, 0);
+  if (err == cudaSuccess) err = Form::encode(&tb, b, N, K, 1);
+  if (err != cudaSuccess) return err;
+  const TileScaledOut<ST, OT> epi{static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out),
+                                  M, N, qm, qn, K / qk, qk / Form::BK};
   return launch<Form>(ta, tb, epi, M, N, K, stream);
 }
 

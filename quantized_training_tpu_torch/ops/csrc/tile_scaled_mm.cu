@@ -10,24 +10,34 @@
 // has no counterpart here) and its two-accumulator loop (:326-334).
 //
 // Two operand types:
-// - int8: each K block's partial is an exact int32 wmma sum, rounded to fp32
-//   as the plain version rounds its float64 partial, so the kernel is
-//   bit-exact with it;
+// - int8: each K block's partial is an exact int32 tensor-core sum, rounded
+//   to fp32 as the plain version rounds its float64 partial, so the kernel
+//   is bit-exact with it;
 // - e4m3 (the model's fp8 tile path): read from device memory at one byte a
-//   value and widened to fp16 on the way into shared memory (exact), then
-//   wmma fp16 with fp32 accumulation. wmma has no fp8 fragment; the other
-//   simple design, mma.sync m16n8k32 on e4m3, needs B's fragments K-major and
-//   so a byte transpose of every B tile in shared memory (ldmatrix.trans
-//   moves 16-bit values only). fp16 runs at half of fp8's tensor-core rate:
-//   this kernel is right first, and wgmma with TMA is a later PR's. The
+//   value and widened to fp16 on chip (exact), then fp16 MMAs with fp32
+//   accumulation. e4m3 wgmma would run at twice fp16's rate, but it
+//   accumulates more coarsely than fp32: measured on the H100, 231-578
+//   fp32 roundings of the folded magnitudes against the 133-172 the
+//   tolerance allows (ab_sm90_forms.py's diag_b15_e4m3_wgmma; DeepSeek-V3's
+//   report, on the same hardware, promotes every 128 K for this). The
 //   block partial is an fp32 tensor-core sum, not the plain version's
 //   rounded float64 one, so the e4m3 form is held to a stated tolerance.
 //   The per-block rescale into the fp32 accumulator outside the tensor core
 //   is the two-level accumulation that keeps the long-K error bounded.
 //
 // Bound on the H100: the tensor-core rate at the model's shapes (189 G ops at
-// M=8192, N=5632, K=2048: 95.5 us at 1,979 T/s; the bytes, mostly the bf16
-// output, about 36 us). Design: a block owns a 64x64 output tile (four warps,
+// M=8192, N=5632, K=2048: 95.5 us at 1,979 T/s; 191 us at fp16's 989, the
+// rate the e4m3 form's MMAs run at; the bytes, mostly the bf16 output,
+// about 36 us). At QK % 128 == 0, which every call of the model has (QK =
+// 128), both operand types run on the pipelined TMA + wgmma mainloop of
+// sm90_gemm.cuh (S8MnB: a by TMA, b transposed on chip by the producer;
+// E4m3F16: both widened to fp16 on chip by the producer; the fold after
+// each quant block; its note says how); the caller decides that route and
+// passes it in (ops/tile_scaled_mm.py::sm90_route).
+//
+// Below is the wmma kernel that runs the other quant blocks the wrapper
+// takes (QK % 64 == 0, QK >= 128); its e4m3 form widens to fp16 on the way
+// into shared memory. Design: a block owns a 64x64 output tile (four warps,
 // 32x32 each) and walks K in steps of 64 (a quant block of QK >= 128 is whole
 // steps); operand tiles go through shared memory in 16x16 fragment blocks
 // (mm_tiles.cuh), the next K step fetched into registers under the MMAs. At
@@ -40,6 +50,7 @@
 #include <mma.h>
 
 #include "mm_tiles.cuh"
+#include "sm90_gemm.cuh"
 
 using namespace nvcuda;
 using qt_mm::frag;
@@ -178,21 +189,41 @@ cudaError_t launch_dtypes(const void* a, const void* b, const void* sa, const vo
                   : launch<S, float, float>(a, b, sa, sb, out, M, N, K, qm, qk, qn, s);
 }
 
+// The same on the sm90 mainloop (Form S8MnB or E4m3F16).
+template <class Form>
+cudaError_t launch_sm90(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N,
+                        int K, int qm, int qk, int qn, int scale_bf16, int out_bf16, cudaStream_t s) {
+  using BF = __nv_bfloat16;
+  using qt_sm90::tile_scaled;
+  if (scale_bf16)
+    return out_bf16 ? tile_scaled<Form, BF, BF>(a, b, sa, sb, out, M, N, K, qm, qk, qn, s)
+                    : tile_scaled<Form, BF, float>(a, b, sa, sb, out, M, N, K, qm, qk, qn, s);
+  return out_bf16 ? tile_scaled<Form, float, BF>(a, b, sa, sb, out, M, N, K, qm, qk, qn, s)
+                  : tile_scaled<Form, float, float>(a, b, sa, sb, out, M, N, K, qm, qk, qn, s);
+}
+
 }  // namespace
 
 // Returns the launch's cudaError_t (0 on success). a [M, K] and b [K, N]
 // contiguous, 16-byte aligned, int8 (is_fp8 = 0) or e4m3 (is_fp8 = 1); qk
 // a multiple of 64 dividing K, qm dividing M, qn dividing N, N % 16 == 0. sa
 // [M / qm, K / qk] and sb [K / qk, N / qn] contiguous, bf16 if scale_bf16
-// else fp32; out [M, N] bf16 if out_bf16 else fp32.
+// else fp32; out [M, N] bf16 if out_bf16 else fp32. sm90: on the
+// sm90_gemm.cuh mainloop, which needs qk % 128 == 0; else on the wmma
+// kernel.
 extern "C" int qt_tile_scaled_mm(const void* a, const void* b, const void* sa, const void* sb,
                                  void* out, int M, int N, int K, int qm, int qk, int qn, int is_fp8,
-                                 int scale_bf16, int out_bf16, void* stream) {
+                                 int scale_bf16, int out_bf16, int sm90, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (qk % BK || K % qk || M % qm || N % qn || N % 16) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_fp8 ? launch_dtypes<Src::E4M3>(a, b, sa, sb, out, M, N, K, qm, qk, qn, scale_bf16, out_bf16, s)
-             : launch_dtypes<Src::S8>(a, b, sa, sb, out, M, N, K, qm, qk, qn, scale_bf16, out_bf16, s);
+  cudaError_t err;
+  if (sm90) {
+    err = is_fp8 ? launch_sm90<qt_sm90::E4m3F16>(a, b, sa, sb, out, M, N, K, qm, qk, qn, scale_bf16, out_bf16, s)
+                 : launch_sm90<qt_sm90::S8MnB>(a, b, sa, sb, out, M, N, K, qm, qk, qn, scale_bf16, out_bf16, s);
+  } else {
+    err = is_fp8 ? launch_dtypes<Src::E4M3>(a, b, sa, sb, out, M, N, K, qm, qk, qn, scale_bf16, out_bf16, s)
+                 : launch_dtypes<Src::S8>(a, b, sa, sb, out, M, N, K, qm, qk, qn, scale_bf16, out_bf16, s);
+  }
   return static_cast<int>(err);
 }

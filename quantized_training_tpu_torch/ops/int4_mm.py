@@ -67,6 +67,17 @@ def scaled_int4_mm_plain(a_packed, b_t_packed, row_scale, col_scale, *, out_dtyp
     return ((acc * sa) * sb).to(out_dtype)
 
 
+def _pad_contraction(a, b):
+    """Both packed operands with zero bytes after each row up to a multiple
+    of 16 (K % 32 == 0), where K is no multiple of 16, which neither kernel
+    takes (a grad_weight's tokens, say): zero nibbles add exact zeros, and
+    the padded K takes the sm90 route."""
+    P = a.shape[-1]
+    if a.ndim != 2 or b.ndim != 2 or P != b.shape[-1] or P % 8 == 0:
+        return a, b
+    return torch.nn.functional.pad(a, (0, -P % 16)), torch.nn.functional.pad(b, (0, -P % 16))
+
+
 def _launch(a, b, row_scale, col_scale, out_dtype):
     tensors = (a, b, row_scale, col_scale)
     if not all(t.is_cuda and t.device == a.device for t in tensors):
@@ -104,12 +115,13 @@ def scaled_int4_mm(a_packed: torch.Tensor, b_t_packed: torch.Tensor, row_scale: 
     for packed a [M, K / 2] and b_t [N, K / 2]. Scales [M] / [M, 1] and
     [N] / [1, N] or scalars, bf16 or fp32 (the same for both). A CPU tensor
     takes :func:`scaled_int4_mm_plain`; CUDA tensors launch B16 on the
-    current stream, which needs K % 16 == 0 and 8-byte aligned, contiguous
-    operands; on the sm90 mainloop where :func:`sm90_route` says so (counted
-    in ``sm90_launches`` as well)."""
+    current stream, which needs 8-byte aligned, contiguous operands and K %
+    16 == 0 (any other K is padded with zeros first, :func:`_pad_contraction`);
+    on the sm90 mainloop where :func:`sm90_route` says so (counted in
+    ``sm90_launches`` as well)."""
     if a_packed.device.type == "cpu":
         return scaled_int4_mm_plain(a_packed, b_t_packed, row_scale, col_scale, out_dtype=out_dtype)
-    out, sm90 = _launch(a_packed, b_t_packed, row_scale, col_scale, out_dtype)
+    out, sm90 = _launch(*_pad_contraction(a_packed, b_t_packed), row_scale, col_scale, out_dtype)
     scaled_int4_mm.launches += 1
     scaled_int4_mm.sm90_launches += sm90
     return out

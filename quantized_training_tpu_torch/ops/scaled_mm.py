@@ -17,13 +17,14 @@ Counterparts in the JAX package:
 
 The three kernels are layout instantiations of one CUDA source,
 ``csrc/scaled_mm.cu``; its header says what bounds them on the H100 and how
-the design answers that. K2 above the decode sizes and B2 run on the
-pipelined TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` (:func:`sm90_route`
-and :func:`lhs_t_sm90_route`, counted in ``scaled_mm_rhs_t.sm90_launches``
-and ``scaled_mm_lhs_t.sm90_launches``); B2's MN-major operands are
+the design answers that. K2 above the decode sizes, B1 and B2 run on the
+pipelined TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` (:func:`sm90_route`,
+:func:`rhs_mn_sm90_route` and :func:`lhs_t_sm90_route`, counted in the
+``sm90_launches`` of ``scaled_mm_rhs_t``, ``scaled_mm`` and
+``scaled_mm_lhs_t``); the MN-major operands (B1's b, both of B2's) are
 transposed on chip, by the mainloop's producer, into the K-major stage that
-8-bit wgmma reads, and B2 has no wmma form left. B1 stays on the wmma
-kernel. No operand is transposed in device memory.
+8-bit wgmma reads, and B1 and B2 have no wmma form left. No operand is
+transposed in device memory.
 """
 
 from __future__ import annotations
@@ -46,6 +47,19 @@ def sm90_route(M: int) -> bool:
     ViT and prefill sizes do, decode steps of up to ``DECODE_M`` slots do
     not. The only thing that chooses K2's route."""
     return M > DECODE_M
+
+
+def rhs_mn_sm90_route(N: int, K: int) -> bool:
+    """Whether B1 (a [M, K] . b [K, N]) can take the TMA + wgmma mainloop,
+    where a lands by TMA as K2's does and the producer transposes each
+    landed [128 k][128 n] tile of b into wgmma's K-major stage: where TMA
+    can describe both operands, their rows of K and N bytes a multiple of 16
+    and K > 0 (M, the tokens, may be ragged: TMA zero-fills the rows past
+    it). Every grad_input of the Llama and ViT steps does (K out features, N
+    in features), and so does every shape B1's wrapper takes: B1 has no
+    other kernel (its wmma form ran 1,554.6 us at the Llama2-1B step's
+    gate/up, ``chip_smoke.py``)."""
+    return N % 16 == 0 and K % 16 == 0 and K > 0
 
 
 def lhs_t_sm90_route(M: int, N: int, K: int) -> bool:
@@ -99,7 +113,8 @@ def scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
 
 def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False):
     """Check the operands of one form and launch its kernel on the current
-    stream, on the sm90 mainloop where ``sm90`` (K2 and B2). Operands stay in
+    stream, on the sm90 mainloop where ``sm90``: K2's choice; B1 and B2 have
+    no other kernel, and a shape off their route raises. Operands stay in
     their stored layouts: a K-major operand has the contraction axis last,
     an MN-major one first."""
     tensors = (a, b, scale_a, scale_b)
@@ -113,14 +128,18 @@ def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False):
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{what}: a and b must be contiguous")
     K, M, N = a.shape[ca], a.shape[1 - ca], b.shape[1 - cb]
-    # 16-byte chunks along each operand's contiguous axis (csrc/scaled_mm.cu)
-    if K % 16 or a.shape[1] % 16 or b.shape[1] % 16 or a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(f"{what}: needs K % 16 == 0, each operand's row length a multiple of 16 "
-                         f"and 16-byte aligned operands (shapes {tuple(a.shape)}, {tuple(b.shape)})")
+    # 16-byte chunks along each operand's contiguous axis (csrc/scaled_mm.cu):
+    # K where an operand is K-major; B2's K, the tokens, is no row length
+    if a.shape[1] % 16 or b.shape[1] % 16 or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{what}: needs each operand's row length a multiple of 16 (K % 16 == 0 where it "
+                         f"is K-major) and 16-byte aligned operands (shapes {tuple(a.shape)}, {tuple(b.shape)})")
     if scale_a.dtype != scale_b.dtype or scale_a.dtype not in _SCALE_DTYPES:
         raise TypeError(f"{what}: scales {scale_a.dtype}, {scale_b.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what}: out_dtype {out_dtype}")
+    if dims != (1, 1) and not sm90:
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, {tuple(b.shape)}: the sm90 mainloop, its only kernel, "
+                         "needs every row length a multiple of 16 and K > 0")
     sa = _as_vector(scale_a, M, "scale_a")
     sb = _as_vector(scale_b, N, "scale_b")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
@@ -164,8 +183,10 @@ def scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: 
     - row/col/scalar: scale_a [M, 1] or [M] or a scalar, scale_b [1, N] or
       [N] or a scalar. int8 operands: a CPU tensor takes
       :func:`scaled_mm_plain`; CUDA tensors launch B1 on the current stream,
-      which needs K % 16 == 0, N % 16 == 0 and 16-byte aligned, contiguous
-      operands. fp8 operands: plain torch on every device
+      which needs K % 16 == 0, N % 16 == 0, K > 0 and 16-byte aligned,
+      contiguous operands, on the sm90 mainloop, the only kernel B1 has
+      (:func:`rhs_mn_sm90_route`; counted in ``sm90_launches`` as well).
+      fp8 operands: plain torch on every device
       (``ops/fp8.py::scaled_fp8_mm_general``), as XLA ran them;
     - tile: scale_a [M / QM, K / QK] and scale_b [K / QK, N / QN], the
       two-accumulator loop of B15 (``ops/tile_scaled_mm.py``)."""
@@ -178,12 +199,15 @@ def scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: 
         return scaled_fp8_mm_general(a, b, scale_a, scale_b, dims=(1, 0), out_dtype=out_dtype)
     if a.device.type == "cpu":
         return scaled_mm_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
-    out = _launch("scaled_mm", a, b, scale_a, scale_b, (1, 0), out_dtype)
+    sm90 = rhs_mn_sm90_route(b.shape[1], a.shape[1])
+    out = _launch("scaled_mm", a, b, scale_a, scale_b, (1, 0), out_dtype, sm90)
     scaled_mm.launches += 1
+    scaled_mm.sm90_launches += sm90
     return out
 
 
 scaled_mm.launches = 0
+scaled_mm.sm90_launches = 0
 
 
 def scaled_mm_lhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
@@ -191,16 +215,14 @@ def scaled_mm_lhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
     """``out[M, N] = ((a[K, M]^T . b[K, N]) * scale_a[M]) * scale_b[N]``:
     both operands contracted over their first axis, as stored. A CPU tensor
     takes :func:`scaled_mm_lhs_t_plain`; CUDA tensors launch B2 on the
-    current stream, which needs K % 16 == 0, M % 16 == 0, N % 16 == 0, K > 0
-    and 16-byte aligned, contiguous operands, on the sm90 mainloop, the
+    current stream, which needs M % 16 == 0, N % 16 == 0, K > 0 (any K: TMA
+    zero-fills the token rows past it) and 16-byte aligned, contiguous
+    operands, on the sm90 mainloop, the
     only kernel B2 has (:func:`lhs_t_sm90_route`; counted in
     ``sm90_launches`` as well)."""
     if a.device.type == "cpu":
         return scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
     sm90 = lhs_t_sm90_route(a.shape[1], b.shape[1], a.shape[0])
-    if not sm90:
-        raise ValueError(f"scaled_mm_lhs_t: shapes {tuple(a.shape)}, {tuple(b.shape)}: the sm90 mainloop needs "
-                         "M % 16 == 0, N % 16 == 0 and K > 0")
     out = _launch("scaled_mm_lhs_t", a, b, scale_a, scale_b, (0, 0), out_dtype, sm90)
     scaled_mm_lhs_t.launches += 1
     scaled_mm_lhs_t.sm90_launches += sm90

@@ -9,7 +9,15 @@ scales and accumulated in fp32 (DeepSeek-V3's 1 x 128 activation groups and
 128 x 128 weight blocks at QM = 1, QK = QN = 128).
 
 B15 is ``csrc/tile_scaled_mm.cu``, for int8 and for e4m3 operands; its header
-says what bounds it and how the design answers that.
+says what bounds it and how the design answers that. At QK % 128 == 0
+(every call of the model: QK = 128) it runs on the pipelined TMA + wgmma
+mainloop of ``csrc/sm90_gemm.cuh`` (:func:`sm90_route`, counted in
+``sm90_launches`` and ``s8_sm90_launches``), whose producer rewrites each
+landed tile into the stage wgmma reads (int8: b transposed to K-major;
+e4m3: both operands widened to fp16, since e4m3 wgmma accumulates too
+coarsely for ``fold_bound``) and whose consumers fold each quant block's
+partial into the fp32 accumulator; the other quant blocks the wrapper
+takes keep the wmma kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +28,15 @@ from . import _build
 
 _KERNEL_TYPES = (torch.int8, torch.float8_e4m3fn)
 _SCALE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def sm90_route(qk: int) -> bool:
+    """Whether B15 with a K quant block of ``qk`` takes the TMA + wgmma
+    mainloop (``csrc/sm90_gemm.cuh``), whose 128-byte K steps fold a
+    partial only at a step's end: where QK % 128 == 0. Every tile-scaled
+    matmul of the model does (QK = 128); QK = 64 (2k + 1) keeps the wmma
+    kernel. The only thing that chooses B15's route."""
+    return qk % 128 == 0
 
 
 def _grid(a, b, scale_a, scale_b):
@@ -92,13 +109,14 @@ def _launch(a, b, scale_a, scale_b, out_dtype):
         raise TypeError(f"tile_scaled_mm: out_dtype {out_dtype}")
     a, b, sa, sb = (t.contiguous() for t in tensors)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    sm90 = sm90_route(qk)
     err = _build.library().qt_tile_scaled_mm(
         a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K, qm, qk, qn,
         int(a.dtype == torch.float8_e4m3fn), int(sa.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        _build.stream(),
+        int(sm90), _build.stream(),
     )
     _build.check(err, "tile_scaled_mm")
-    return out
+    return out, sm90
 
 
 def tile_scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: torch.Tensor,
@@ -107,17 +125,23 @@ def tile_scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scal
     with the scale grids expanded over their QM rows and QN columns. A CPU
     tensor takes :func:`tile_scaled_mm_plain` (any operand type); CUDA
     tensors launch B15 on the current stream: int8 or e4m3 operands, QK a
-    multiple of 64 and at least 128, N % 16 == 0. Launches count per
-    operand type (``launches`` e4m3, ``s8_launches`` int8)."""
+    multiple of 64 and at least 128, N % 16 == 0; on the sm90 mainloop where
+    :func:`sm90_route` says so. Launches count per operand type
+    (``launches`` e4m3, ``s8_launches`` int8), those on the sm90 route also
+    in ``sm90_launches`` and ``s8_sm90_launches``."""
     if a.device.type == "cpu":
         return tile_scaled_mm_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
-    out = _launch(a, b, scale_a, scale_b, out_dtype)
+    out, sm90 = _launch(a, b, scale_a, scale_b, out_dtype)
     if a.dtype == torch.int8:
         tile_scaled_mm.s8_launches += 1
+        tile_scaled_mm.s8_sm90_launches += sm90
     else:
         tile_scaled_mm.launches += 1
+        tile_scaled_mm.sm90_launches += sm90
     return out
 
 
 tile_scaled_mm.launches = 0
+tile_scaled_mm.sm90_launches = 0
 tile_scaled_mm.s8_launches = 0
+tile_scaled_mm.s8_sm90_launches = 0

@@ -23,8 +23,11 @@ import importlib
 import pytest
 import torch
 
-from quantized_training_tpu_torch import ops
+from quantized_training_tpu_torch import ops, quant, train
 from quantized_training_tpu_torch.benchmark_mm import within_rounding
+from quantized_training_tpu_torch.models import vit
+from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
+from quantized_training_tpu_torch.utils.tree import tree_leaves
 
 # the modules: the ops package exports functions of their names
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
@@ -534,9 +537,14 @@ def test_scaled_mm_rejects_what_it_cannot_take():
     # tile scales go to B15, whose K quant block is at least 128 wide
     with pytest.raises(ValueError, match="K quant block"):
         ops.scaled_mm(a[:, :16].contiguous(), a[:, :16].T.contiguous(), torch.ones(2, 1, device="cuda"), s.T)
-    # B16 takes 16-value chunks of K: 12 packed bytes are 24 values
-    with pytest.raises(ValueError, match="K % 16"):
-        ops.scaled_int4_mm(a[:, :12].contiguous(), a[:, :12].contiguous(), s, s.T)
+    # B1 has no kernel but the sm90 mainloop, which no tensor map of K = 0 reaches
+    with pytest.raises(ValueError, match="sm90 mainloop"):
+        ops.scaled_mm(a[:, :0].contiguous(), b[:0, :16].contiguous(), s, torch.ones(1, 16, device="cuda"))
+    # B16 pads a K off 16 values with zeros (24 values: test_qlinear_at_a_ragged_token_count),
+    # but takes no operand off an 8-byte boundary
+    p4 = torch.zeros(8 * 16 + 4, dtype=torch.int8, device="cuda")[4:].view(8, 16)
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        ops.scaled_int4_mm(p4, a[:, :16].contiguous(), s, s.T)
     # B15's K steps of 64 inside a quant block: QK = 160 is refused
     t = torch.zeros(64, 320, dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError, match="QK % 64"):
@@ -614,6 +622,77 @@ def test_scaled_mm_lhs_t_sm90_views():
     off = _int8((K * M + 32,), g)[8:8 + K * M].view(K, M)
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.scaled_mm_lhs_t(off, b, torch.ones(M, device="cuda"), torch.ones(N, device="cuda"))
+
+
+# B1's grad_input shapes (M tokens, N in features, K out features): every
+# linear of the Llama2-1B step (8,192 tokens) and of ViT-Giant's (6,400
+# padded tokens), then ragged M, N and K against the 128 x 128 x 128 tile
+B1_SM90_SHAPES = [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (8192, 5632, 2048),
+                  (6400, 1536, 4608), (6400, 1536, 1536), (6400, 1536, 6144), (6400, 6144, 1536),
+                  (130, 208, 272), (17, 16, 16), (1000, 2048, 2048), (8200, 400, 144)]
+
+
+@pytest.mark.parametrize("M,N,K", B1_SM90_SHAPES)
+def test_scaled_mm_b1_sm90_bit_exact(M, N, K):
+    """B1 (a [M, K] . b [K, N]) on the TMA + wgmma mainloop, a landed by TMA
+    and b transposed by the producer: bit-exact with the plain version in
+    every scale and output type, every launch on the sm90 route."""
+    g = torch.Generator(device="cuda").manual_seed(M + 3 * N + K)
+    a, b = _int8((M, K), g), _int8((K, N), g)
+    ops.reset_launch_counts()
+    _each_scale_and_out(ops.scaled_mm, ops.scaled_mm_plain, (a, b), M, N, g)
+    counts = ops.launch_counts()
+    assert counts["scaled_mm"] == counts["scaled_mm_sm90"] == 4
+
+
+def test_qlinear_at_a_ragged_token_count():
+    """A linear over 1,000 tokens, which the JAX package does not pad (it
+    pads from 1024 on): int8 and int4 mixed precision, forward and both
+    gradients on the card equal the plain versions on the CPU bit for bit.
+    B2 contracts over the 1,000 tokens as they are (TMA zero-fills past
+    them); B16's grad_weight packs them into 500 bytes a row, which its
+    wrapper pads with zeros to 512."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(1000, 256, generator=g)
+    w = torch.randn(384, 256, generator=g) * 0.05
+    for dtype, gemms in (("int8", ("scaled_mm", "scaled_mm_lhs_t")), ("int4", ("scaled_int4_mm",))):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            xd, wd = x.to(dev).requires_grad_(True), w.to(dev).requires_grad_(True)
+            ops.reset_launch_counts()
+            out = quant.qlinear(xd, MixedPrecisionWeight(wd, quant.MixedPrecisionConfig(dtype=dtype)), key=3)
+            res[dev] = [out, *torch.autograd.grad((out ** 2).sum(), (xd, wd))]
+            if dev == "cuda":
+                counts = ops.launch_counts()
+                assert all(counts[k] > 0 and counts[k] == counts[f"{k}_sm90"] for k in gemms), counts
+        assert all(torch.equal(c.cpu(), p) for c, p in zip(res["cuda"], res["cpu"])), dtype
+
+
+def test_vit_step_at_520_tokens():
+    """A 2-block ViT at 8 images of 65 tokens (520: below the JAX package's
+    1024 from which the linears pad, and no multiple of 16), int8 mixed
+    precision: the loss and every gradient on the card (the fused blocks'
+    fallback to the unfused linears, B2 over 520 tokens on the sm90 route)
+    within phase 7's bounds of the plain versions on the CPU (chip_smoke.py::
+    vit_grads_vs_plain: 1e-1 relative RMS a leaf, 1e-3 on the loss)."""
+    cfg = vit.ViTConfig(image_size=64, patch_size=8, hidden_size=256, num_layers=2, num_heads=4, num_classes=45,
+                        remat=True)
+    raw = vit.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    imgs, labels = torch.randn(8, 64, 64, 3, generator=g), torch.randint(0, 45, (8,), generator=g)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        to_dev = lambda t: {k: to_dev(v) for k, v in t.items()} if isinstance(t, dict) else t.to(dev)
+        params = to_dev(raw)
+        ops.reset_launch_counts()
+        loss, grads = train.value_and_grad(
+            lambda p: vit.loss_fn(p, imgs.to(dev), labels.to(dev), cfg), quant.quantize_params(params, "mixed_precision"))
+        res[dev] = (loss.item(), [t.double().cpu() for t in tree_leaves(grads)])
+        if dev == "cuda":
+            counts = ops.launch_counts()
+            assert counts["scaled_mm_lhs_t"] == counts["scaled_mm_lhs_t_sm90"] > 0, counts
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-3 * abs(res["cpu"][0])
+    assert all(((a - b).norm() / b.norm()).item() <= 1e-1 for a, b in zip(res["cuda"][1], res["cpu"][1]))
 
 
 # B16's shapes in chip_smoke.py::gemm_forms (M, N, K unpacked) for gate/up
@@ -704,6 +783,28 @@ def test_tile_scaled_mm_e4m3_within_fold_bound(M, K, N, qm, qn):
     assert ((out16.double() - ref16.double()).abs() <= bound + 2.0**-7 * (ref.double().abs() + bound)).all()
 
 
+@pytest.mark.parametrize("qk,sm90", [(128, 1), (256, 1), (192, 0)])
+def test_tile_scaled_mm_sm90_routes(qk, sm90):
+    """B15 takes the sm90 mainloop exactly where QK % 128 == 0 (every call
+    of the model: QK = 128), the wmma kernel at QK = 192: both operand types
+    match their plain versions (int8 bit-exact, e4m3 within the fold bound)
+    and every launch is counted on its route."""
+    g = torch.Generator(device="cuda").manual_seed(qk)
+    M, K, N = 200, 6 * qk, 256
+    for fp8 in (False, True):
+        a, b, _, _ = _tile_operands(M, K, N, 1, 128, fp8, g)
+        sa = torch.rand(M, K // qk, generator=g, device="cuda") * 0.01
+        sb = torch.rand(K // qk, N // 128, generator=g, device="cuda") * 0.01
+        ops.reset_launch_counts()
+        out = ops.tile_scaled_mm(a, b, sa, sb, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        ref = ops.tile_scaled_mm_plain(a, b, sa, sb, out_dtype=torch.float32)
+        bound = TILE_MM.fold_bound(a, b, sa, sb, qk + K // qk)
+        assert torch.equal(out, ref) if not fp8 else ((out.double() - ref.double()).abs() <= bound).all()
+        counts, t = ops.launch_counts(), "_s8" if not fp8 else ""
+        assert counts[f"tile_scaled_mm{t}"] == 1 and counts[f"tile_scaled_mm{t}_sm90"] == sm90
+
+
 def test_launch_counters_count_kernel_launches_only():
     ops.reset_launch_counts()
     x = _rand((64, 64), torch.bfloat16, 2)
@@ -714,8 +815,8 @@ def test_launch_counters_count_kernel_launches_only():
     ops.quantize_int8_colwise(x, sr=True, key=1)
     ops.quantize_int8_both(x, sr=True, key=1)
     ops.scaled_mm_rhs_t(q, q, s, s.T)
-    ops.scaled_mm(qr, qc, sr, sc)
-    ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)  # on the sm90 route: counted in both of its counters
+    ops.scaled_mm(qr, qc, sr, sc)  # B1 and B2 on the sm90 route: counted in both of their counters
+    ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)
     adamw_in = _adamw_inputs(64, torch.bfloat16, 0)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
@@ -764,7 +865,7 @@ def test_launch_counters_count_kernel_launches_only():
     a8 = torch.cat([q, q], dim=1)  # [64, 128]: one K quant block
     e4m3 = a8.to(torch.float8_e4m3fn)
     ones_m, one = torch.ones(64, 1, device="cuda"), torch.ones(1, 1, device="cuda")
-    ops.tile_scaled_mm(a8, a8.T.contiguous(), ones_m, one)
+    ops.tile_scaled_mm(a8, a8.T.contiguous(), ones_m, one)  # QK = 128: both forms on the sm90 route
     ops.tile_scaled_mm(e4m3, e4m3.T.contiguous(), ones_m, one)
     ops.tile_scaled_mm_plain(e4m3, e4m3.T.contiguous(), ones_m, one)
     ops.scaled_mm(e4m3, e4m3.T.contiguous(), ones_m, ones_m.T)  # fp8 row scales: plain torch

@@ -1,9 +1,11 @@
 """The route each sm90-capable GEMM takes, on the CPU: K2
-(``ops/scaled_mm.py::sm90_route``), B2 (``ops/scaled_mm.py::
-lhs_t_sm90_route``), B16 (``ops/int4_mm.py::sm90_route``) and B17
-(``ops/matmul.py::sm90_route``) choose between the TMA + wgmma mainloop of
-``csrc/sm90_gemm.cuh`` and their wmma kernels by a pure predicate, decided
-in Python and passed to the C entry as an explicit argument. No card is needed: the predicates are held at
+(``ops/scaled_mm.py::sm90_route``), B1 (``ops/scaled_mm.py::
+rhs_mn_sm90_route``), B2 (``ops/scaled_mm.py::lhs_t_sm90_route``), B15
+(``ops/tile_scaled_mm.py::sm90_route``), B16 (``ops/int4_mm.py::sm90_route``)
+and B17 (``ops/matmul.py::sm90_route``) choose between the TMA + wgmma
+mainloop of ``csrc/sm90_gemm.cuh`` and their wmma kernels (B1 and B2 have
+none left) by a pure predicate, decided in Python and passed to the C entry
+as an explicit argument. No card is needed: the predicates are held at
 the main path's shapes, and the wrappers' launch path runs against a
 recording stub of the library, on meta tensors that pass for CUDA ones.
 The kernels themselves are held to their plain versions on the card
@@ -26,6 +28,7 @@ torch.set_num_threads(1)
 SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
+TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 
 _L = llama.LLAMA2_1B
 _KVD = _L.num_key_value_heads * _L.head_dim
@@ -121,18 +124,23 @@ def test_k2_passes_its_route(library, M, sm90):
     assert counts["scaled_mm_rhs_t"] == 1 and counts["scaled_mm_rhs_t_sm90"] == int(sm90)
 
 
-def test_backward_forms_stay_on_wmma(library):
-    """B1 (b MN-major) always passes sm90 = 0; B2 (both operands MN-major,
-    transposed on chip by the sm90 mainloop's producer) passes its route,
-    ``lhs_t_sm90_route``, and counts it."""
-    g, w = _meta((8192, 512), torch.int8), _meta((512, 256), torch.int8)
-    ops.scaled_mm(g, w, _meta((8192, 1), torch.float32), _meta((1, 256), torch.float32))
-    ops.scaled_mm_lhs_t(g, _meta((8192, 256), torch.int8), _meta((512,), torch.float32),
-                        _meta((256,), torch.float32))
-    assert SCALED_MM.lhs_t_sm90_route(512, 256, 8192)
-    assert [(name, args[-2]) for name, args in library.calls] == [("qt_scaled_mm_s8", 0), ("qt_scaled_mm_s8", 1)]
+@pytest.mark.parametrize("tokens,out,inp", [(8192, 512, 256), (1000, 2048, 5632), (520, 256, 1024)])
+def test_backward_forms_take_the_mainloop(library, tokens, out, inp):
+    """Both backward GEMMs of a linear take the sm90 mainloop and count it:
+    B1 (grad_input g [tokens, out] . w [out, in], b MN-major, transposed on
+    chip by the producer) and B2 (grad_weight g^T . x over the tokens, both
+    operands MN-major); token counts below 1024 that are no multiple of 16
+    included, which the JAX package does not pad."""
+    g, w = _meta((tokens, out), torch.int8), _meta((out, inp), torch.int8)
+    ops.scaled_mm(g, w, _meta((tokens, 1), torch.float32), _meta((1, inp), torch.float32))
+    ops.scaled_mm_lhs_t(g, _meta((tokens, inp), torch.int8), _meta((out,), torch.float32),
+                        _meta((inp,), torch.float32))
+    assert SCALED_MM.rhs_mn_sm90_route(inp, out) and SCALED_MM.lhs_t_sm90_route(out, inp, tokens)
+    assert [(name, args[5:10], args[-2]) for name, args in library.calls] == [
+        ("qt_scaled_mm_s8", (tokens, inp, out, 1, 0), 1), ("qt_scaled_mm_s8", (out, inp, tokens, 0, 0), 1)]
     counts = ops.launch_counts()
-    assert counts["scaled_mm"] == counts["scaled_mm_lhs_t"] == counts["scaled_mm_lhs_t_sm90"] == 1
+    assert counts["scaled_mm"] == counts["scaled_mm_sm90"] == 1
+    assert counts["scaled_mm_lhs_t"] == counts["scaled_mm_lhs_t_sm90"] == 1
     assert counts["scaled_mm_rhs_t_sm90"] == 0
 
 
@@ -230,3 +238,93 @@ def test_b17_passes_its_route(library, dtype, out_dtype, sm90):
     counts = ops.launch_counts()
     assert counts["matmul_sm90"] == int(sm90)
     assert counts["matmul" if dtype == torch.bfloat16 else "matmul_s8"] == 1
+
+
+# B1's grad_input shapes (M tokens, N in features, K out features): every
+# linear of the Llama2-1B step (8,192 tokens) and of ViT-Giant's (6,400
+# padded tokens)
+B1_CASES = [(M, i, o, name) for M, linears in ((8192, LLAMA_LINEARS), (6400, VIT_LINEARS))
+            for name, (o, i) in linears.items()]
+
+
+@pytest.mark.parametrize("M,N,K,name", B1_CASES, ids=[f"{n}-M{M}-N{N}-K{K}" for M, N, K, n in B1_CASES])
+def test_b1_passes_its_route(library, M, N, K, name):
+    """Every grad_input of the Llama2-1B and ViT-Giant steps takes B1's sm90
+    route: the wrapper passes ``rhs_mn_sm90_route(N, K)`` = 1 as the argument
+    before the stream, a flagged K-major and b MN-major, and counts the
+    launch in ``launches`` and ``sm90_launches``."""
+    assert SCALED_MM.rhs_mn_sm90_route(N, K) is True
+    ops.scaled_mm(_meta((M, K), torch.int8), _meta((K, N), torch.int8), _meta((M, 1), torch.bfloat16),
+                  _meta((1, N), torch.bfloat16))
+    (fn, args), = library.calls
+    assert fn == "qt_scaled_mm_s8" and len(args) == len(_build._SIGNATURES[fn])
+    assert args[5:10] == (M, N, K, 1, 0) and args[-2] == 1
+    counts = ops.launch_counts()
+    assert counts["scaled_mm"] == counts["scaled_mm_sm90"] == 1
+
+
+def test_b1_refuses_what_no_kernel_takes(library):
+    """B1 has no kernel but the sm90 mainloop: K = 0 (no tensor map
+    describes it) raises before any launch, not on another route; a row
+    length off 16 bytes is refused by the operand checks."""
+    assert SCALED_MM.rhs_mn_sm90_route(256, 0) is False
+    assert SCALED_MM.rhs_mn_sm90_route(24, 256) is False and SCALED_MM.rhs_mn_sm90_route(256, 40) is False
+    with pytest.raises(ValueError, match="sm90 mainloop"):
+        ops.scaled_mm(_meta((64, 0), torch.int8), _meta((0, 256), torch.int8), _meta((64, 1), torch.bfloat16),
+                      _meta((1, 256), torch.bfloat16))
+    with pytest.raises(ValueError, match="row length a multiple of 16"):
+        ops.scaled_mm(_meta((64, 40), torch.int8), _meta((40, 256), torch.int8), _meta((64, 1), torch.bfloat16),
+                      _meta((1, 256), torch.bfloat16))
+    assert library.calls == [] and ops.launch_counts()["scaled_mm"] == 0
+
+
+@pytest.mark.parametrize("K", [1000, 520, 8200, 17])
+def test_b2_takes_a_ragged_token_count(library, K):
+    """B2 contracts over the tokens, its operands' outer axis, which TMA
+    zero-fills past K: a token count that is no multiple of 16 (the JAX
+    package pads none below 1024) passes to the library as it is, on the
+    sm90 route."""
+    ops.scaled_mm_lhs_t(_meta((K, 512), torch.int8), _meta((K, 256), torch.int8), _meta((512,), torch.bfloat16),
+                        _meta((256,), torch.bfloat16))
+    (fn, args), = library.calls
+    assert args[5:10] == (512, 256, K, 0, 0) and args[-2] == 1
+    assert ops.launch_counts()["scaled_mm_lhs_t_sm90"] == 1
+
+
+@pytest.mark.parametrize("M,K,padded,sm90", [(64, 1000, 1024, 1), (1000, 24, 32, 1), (8, 1000, 1024, 0)])
+def test_b16_pads_a_ragged_contraction(library, M, K, padded, sm90):
+    """B16's packed K-major operands take no K that is off a multiple of 16
+    (a grad_weight over 1,000 tokens, say): the wrapper pads both with zero
+    bytes to a multiple of 32 values, which also gives the sm90 route above
+    the decode sizes, and passes the padded K."""
+    N = 96
+    ops.scaled_int4_mm(_meta((M, K // 2), torch.int8), _meta((N, K // 2), torch.int8), _meta((M, 1), torch.float32),
+                       _meta((1, N), torch.float32))
+    (fn, args), = library.calls
+    assert fn == "qt_scaled_int4_mm" and args[5:8] == (M, N, padded) and args[-2] == sm90
+    assert ops.launch_counts()["scaled_int4_mm_sm90"] == sm90
+
+
+# B15's (M, K, N, QM, QN, QK): fp8 tile mixed precision's forward,
+# grad_input and grad_weight of gate/up and down at 8,192 tokens (QK = 128),
+# then the other quant blocks the wrapper takes
+B15_CASES = [(8192, 2048, 5632, 1, 128, 128, 1), (8192, 5632, 2048, 1, 128, 128, 1),
+             (5632, 8192, 2048, 1, 128, 128, 1), (2048, 8192, 5632, 1, 128, 128, 1),
+             (256, 1024, 256, 128, 64, 256, 1), (256, 768, 256, 1, 128, 192, 0), (256, 640, 256, 1, 128, 320, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float8_e4m3fn, torch.int8])
+@pytest.mark.parametrize("M,K,N,qm,qn,qk,sm90", B15_CASES)
+def test_b15_passes_its_route(library, M, K, N, qm, qn, qk, sm90, dtype):
+    """B15's wrapper passes ``sm90_route(qk)`` (QK % 128 == 0) as the
+    argument before the stream, one argument per ``_SIGNATURES`` entry, and
+    counts the launch per operand type, on the sm90 route also in
+    ``sm90_launches`` (e4m3) or ``s8_sm90_launches`` (int8)."""
+    assert TILE_MM.sm90_route(qk) is bool(sm90)
+    ops.tile_scaled_mm(_meta((M, K), dtype), _meta((K, N), dtype), _meta((M // qm, K // qk), torch.float32),
+                       _meta((K // qk, N // qn), torch.float32))
+    (fn, args), = library.calls
+    assert fn == "qt_tile_scaled_mm" and len(args) == len(_build._SIGNATURES[fn])
+    assert args[5:12] == (M, N, K, qm, qk, qn, int(dtype != torch.int8)) and args[-2] == sm90
+    counts, t = ops.launch_counts(), "_s8" if dtype == torch.int8 else ""
+    assert counts[f"tile_scaled_mm{t}"] == 1 and counts[f"tile_scaled_mm{t}_sm90"] == sm90
