@@ -1,29 +1,35 @@
 """A/B of the sm90 mainloop's rewriting forms on one CUDA card: B1 (the int8
 grad_input GEMM, ``S8MnB``), B2 (the int8 grad_weight GEMM, ``S8MnMajor``),
-B15 (the tile-scaled GEMM: e4m3 ``E4m3F16``, int8 ``S8MnB`` with the fold)
-and B16 (the packed-int4 GEMM, ``S4KMajor``) of
-``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``.
+B15 (the tile-scaled GEMM: e4m3 ``E4m3F16``, int8 ``S8MnB`` with the fold),
+B16 (the packed-int4 GEMM, ``S4KMajor``) and B17's int8 form (``S8MnB``
+with the int32 epilogue, ``B17s8``) of
+``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``; and B5, the
+both-axes int8 quantize of ``ops/csrc/int8_quant.cu`` (``B5``, its SR form
+``B5sr``), against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
 earlier commit, for its wmma kernels), built with nvcc into a library of its
-own under ``build/ab_sm90_forms/``, all builds side by side. Every variant
+own under ``build/ab_sm90_forms/`` (only the sources the chosen kernels
+need), all builds side by side. Every variant
 is held against the plain versions at a ragged shape and at gate/up's
-(bit-exact; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
 timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
-for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form) and the
-share of the 8-bit tensor-core bound (1,979 TOP/s). ``kept/wmma`` is this
-tree's B16 on its wmma kernel (``sm90`` = 0); ``parent/wmma`` the other
-checkout's B1, B2, B15 and B16 on theirs; K2, which no variant changes, is
-timed on this tree's and the other checkout's mainloop, so that a change to
-the shared mainloop shows on it.
+for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
+B5) and the share of the bound (the 8-bit tensor cores' 1,979 TOP/s; for B5
+one read of x and two int8 writes at 3.35 TB/s). ``kept/wmma`` is this
+tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
+the other checkout's B1, B2, B15, B16 and B17-s8 on theirs, and
+``parent/kernel`` its B5; K2, which no variant changes, is timed on this
+tree's and the other checkout's mainloop, so that a change to the shared
+mainloop shows on it.
 
-Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,...]
+Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,...]
 """
 
 from __future__ import annotations
@@ -39,12 +45,15 @@ from pathlib import Path
 import torch
 
 from quantized_training_tpu_torch import ops
-from quantized_training_tpu_torch.ops import _build
+from quantized_training_tpu_torch.ops import _build, random
+from quantized_training_tpu_torch.ops.int8_quant import EPS
 from quantized_training_tpu_torch.ops.tile_scaled_mm import fold_bound
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
 
 OUT = Path(__file__).resolve().parent / "build" / "ab_sm90_forms"
 INT8_OPS_PER_S = 1.979e15
+HBM_BYTES_PER_S = 3.35e12
+B5_KEY = 2**62 + 7  # the SR form's key
 _B2_DEPTH = "  static constexpr int BK = 128, kStages = 4, kRawSlots = 2, kAccShift = 0;"
 _B16_DEPTH = "  static constexpr int kStages = kSub == 1 ? 4 : 3, kRawSlots = kSub == 1 ? 8 : 4;"
 # widen a nibble by sign extension into the low half of its byte (kAccShift 0)
@@ -247,6 +256,25 @@ _B1_SWAP = [
                      : (out_bf16 ? qt_sm90::b1_swap<float, BF>(a, b, sa, sb, out, M, N, K, s)
                                  : qt_sm90::b1_swap<float, float>(a, b, sa, sb, out, M, N, K, s));"""),
 ]
+_B5_ROWS_LAUNCH = """  rows<<<R, kThreads, row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K, eps,
+                                          key_row);
+"""
+_B5_COLS_LAUNCH = """  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(col_ctas), dim3(kThreads), args,
+                                     col_smem, stream);
+"""
+_B5_LD_POLICY = """// a 16-byte load with the L2 eviction policy evict_last
+__device__ __forceinline__ uint4 ld_evict_last(const uint4* p) {
+  uint4 r;
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  asm volatile("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p), "l"(pol));
+  return r;
+}
+
+// The row steps of both passes"""
+_B5_EVICT_LAST = [("int8_quant.cu", "// The row steps of both passes", _B5_LD_POLICY),
+                  ("int8_quant.cu", "(kLast ? __ldcs(src) : *src)", "(kLast ? __ldcs(src) : ld_evict_last(src))")]
 # (old text, new text) edits of sm90_gemm.cuh, or (file, old text, new text)
 # of another source, each of which must match once; "fold_wait" replaces
 # the fold loop from _FOLD_KEPT_START to the end of its branch
@@ -277,6 +305,41 @@ VARIANTS = {
     "diag_b15_e4m3_wgmma": _E4M3_WGMMA,
     # B1 with the roles swapped: a's fragments of b^T in the consumers, no rewrite
     "b1_swap": _B1_SWAP,
+    # B5's column pass walking the rows in the row pass's order, not the reverse
+    "b5_forward": [("int8_quant.cu", "return kReverse ? steps - 1 - i : i;", "return i;")],
+    # B5's row steps loaded after the body has run on the last one, not before
+    "b5_load_after": [("int8_quant.cu", """      if (j < steps) load<kReverse>(xv, at(j), M, nv, b);
+      body(at(i), a);""", """      body(at(i), a);
+      if (j < steps) load<kReverse>(xv, at(j), M, nv, b);"""), ("int8_quant.cu", """      if (i < steps) load<kReverse>(xv, at(i), M, nv, a);
+      body(at(j), b);""", """      body(at(j), b);
+      if (i < steps) load<kReverse>(xv, at(i), M, nv, a);""")],
+    # B5 with plain loads and stores in place of the evict-first ones
+    "b5_no_cs": [("int8_quant.cu", "    __stcs(reinterpret_cast<uint2*>(q), ", "    *reinterpret_cast<uint2*>(q) = ("),
+                 ("int8_quant.cu", "    __stcs(reinterpret_cast<unsigned int*>(q), ", "    *reinterpret_cast<unsigned int*>(q) = ("),
+                 ("int8_quant.cu", "(kLast ? __ldcs(src) : *src)", "*src")],
+    # B5's parts: the row pass alone, the column pass alone (on whatever the
+    # front of q_col holds)
+    "diag_b5_rows_only": [("int8_quant.cu", _B5_COLS_LAUNCH, "  return cudaSuccess;\n")],
+    "diag_b5_cols_only": [("int8_quant.cu", _B5_ROWS_LAUNCH, "")],
+    # B5's row pass loading x with an L2 evict-last policy, so that the column
+    # pass finds it there
+    "b5_evict_last": _B5_EVICT_LAST,
+    # B5's column pass storing x's first 8 bytes a vector in place of the cast
+    # (bf16 only): its loop's memory traffic alone; and with no grid barrier
+    "diag_b5_cols_copy": [("int8_quant.cu", """        cast_vec<T, SR>(u[g][p], [&](int j) { return dy[j]; }, row * K + v * N, key, q + row * K + v * N);""",
+                           """        __stcs(reinterpret_cast<uint2*>(q + row * K + v * N), make_uint2(u[g][p].x, u[g][p].y));""")],
+    "diag_b5_no_grid_sync": [("int8_quant.cu", "  cooperative_groups::this_grid().sync();\n", "")],
+    # the column pass at 3 CTAs an SM (at most 85 registers a thread)
+    "b5_cols_ctas3": [("int8_quant.cu", """template <typename T, bool SR, int TPR, int G>
+__global__ void __launch_bounds__(kThreads, kBothCtasPerSm)
+quantize_both_col_pass(""", """template <typename T, bool SR, int TPR, int G>
+__global__ void __launch_bounds__(kThreads, 3)
+quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothCtasPerSm * sms));",
+                                                           "std::min<int64_t>(needed, 3 * sms));")],
+    # the column pass's (d, 1 / d) with a vector's pairs side by side
+    "b5_dy_by_vector": [("int8_quant.cu", "    col_dy[(c % N) * nv + c / N] = denom_of(", "    col_dy[c] = denom_of("),
+                        ("int8_quant.cu", "        for (int j = 0; j < N; ++j) dy[j] = col_dy[j * nv + v];",
+                         "        for (int j = 0; j < N; ++j) dy[j] = col_dy[v * N + j];")],
 }
 # (M, N, K): B2 at every grad_weight of the Llama2-1B step (out, in, 8,192
 # tokens) and of ViT-Giant's (6,400 padded tokens); B16 at the forward,
@@ -308,14 +371,22 @@ def sources(name: str, edits, parent: Path | None) -> Path:
     return d
 
 
-def build(variants: dict, parent: Path | None) -> dict:
-    """name -> (library, its signatures): scaled_mm.cu and tile_scaled_mm.cu
-    of each variant, compiled side by side."""
+# the source of each kernel's C entry
+SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16": "scaled_mm.cu",
+          "B15": "tile_scaled_mm.cu", "B15s8": "tile_scaled_mm.cu", "B17s8": "matmul.cu", "B5": "int8_quant.cu",
+          "B5sr": "int8_quant.cu"}
+ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
+           "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both",)}
+
+
+def build(variants: dict, parent: Path | None, kernels) -> dict:
+    """name -> (library, its signatures): the sources of ``kernels`` of each
+    variant, compiled side by side."""
+    files = sorted({SOURCE[k] for k in kernels})
     procs = {}
     for name, edits in variants.items():
         d = sources(name, edits, parent if name == "parent" else None)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), str(d / "scaled_mm.cu"),
-               str(d / "tile_scaled_mm.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), *(str(d / f) for f in files)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     libs = {}
     for name, (proc, d) in procs.items():
@@ -330,7 +401,7 @@ def build(variants: dict, parent: Path | None) -> dict:
             spec.loader.exec_module(mod)
             sigs = mod._SIGNATURES
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for fn in ("qt_scaled_mm_s8", "qt_scaled_int4_mm", "qt_tile_scaled_mm"):
+        for fn in (e for f in files for e in ENTRIES[f]):
             getattr(lib, fn).argtypes = sigs[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, sigs)
@@ -387,6 +458,37 @@ def k2(lib, sigs, sm90):
     return call
 
 
+def b17s8(lib, sigs, sm90):
+    """B17's int8 form on ``lib``'s route ``sm90`` (an entry that refuses
+    int8 on it has the wmma kernel only): a [M, K], b [K, N] -> int32."""
+    def call(a, b):
+        (M, K), N = a.shape, b.shape[1]
+        out = torch.empty(M, N, dtype=torch.int32, device="cuda")
+        _build.check(lib.qt_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, 0, 0, 1, 1, sm90,
+                                   _build.stream()), "B17s8")
+        return out
+    return call
+
+
+def b5(lib, sigs, sr):
+    """B5 (``sr`` = 1: its SR form, from the two keys ``B5_KEY`` splits
+    into) of ``lib``: x [M, K] bf16 -> (q_row, s_row, q_col, s_col)."""
+    key_row, key_col = random.split(B5_KEY) if sr else (0, 0)
+
+    def call(x):
+        M, K = x.shape
+        q_row = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        q_col = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        s_row = torch.empty(M, 1, dtype=x.dtype, device="cuda")
+        s_col = torch.empty(1, K, dtype=x.dtype, device="cuda")
+        amax = torch.empty(K, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_quantize_int8_both(x.data_ptr(), q_row.data_ptr(), s_row.data_ptr(), q_col.data_ptr(),
+                                               s_col.data_ptr(), amax.data_ptr(), M, K, EPS, 1, sr, key_row, key_col,
+                                               _build.stream()), "B5")
+        return q_row, s_row, q_col, s_col
+    return call
+
+
 def b16(lib, sigs, sm90):
     """B16 on ``lib``'s route ``sm90`` (an entry without the argument has
     the wmma kernel only): a [M, K / 2], b [N, K / 2] packed -> bf16."""
@@ -403,7 +505,8 @@ def b16(lib, sigs, sm90):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--parent", type=Path, help="another checkout, whose wmma B1, B2, B15 and B16 are timed too")
+    parser.add_argument("--parent", type=Path,
+                        help="another checkout, whose wmma B1, B2, B15, B16 and B17-s8, and B5, are timed too")
     parser.add_argument("--variants", default=",".join(VARIANTS))
     parser.add_argument("--kernels", default=",".join(KERNELS), help="the kernels to check and time")
     args = parser.parse_args()
@@ -416,19 +519,21 @@ def main() -> None:
     if args.parent:
         variants["parent"] = []
     t0 = time.perf_counter()
-    libs = build(variants, args.parent)
+    libs = build(variants, args.parent, kernels)
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
-    # (label, kernel, call): each variant on the sm90 route, and the wmma kernels
-    entries = [(f"{n}/sm90", k, KERNELS[k](lib, sigs, 1)) for n, (lib, sigs) in libs.items() if n != "parent"
-               for k in kernels]
-    if "kept" in libs and "B16" in kernels:
-        entries.append(("kept/wmma", "B16", b16(*libs["kept"], 0)))
+    # (label, kernel, call): each variant on the sm90 route (B5: its kernels,
+    # the SR form for B5sr), and the wmma kernels
+    entries = [(f"{n}/{ROUTE.get(k, 'sm90')}", k, KERNELS[k](lib, sigs, QUANT.get(k, 1)))
+               for n, (lib, sigs) in libs.items() if n != "parent" for k in kernels]
+    if "kept" in libs:
+        entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
     if args.parent:
-        entries += [("parent/wmma", k, KERNELS[k](*libs["parent"], 0)) for k in kernels if k != "K2"]
+        entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
+                    for k in kernels if k != "K2"]
         entries += [("parent/sm90", "K2", k2(*libs["parent"], 1))] if "K2" in kernels else []
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def operands(kernel, M, N, K):
+    def operands(kernel, M, N, K=None):
         def i8(shape):
             return torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
 
@@ -437,6 +542,12 @@ def main() -> None:
 
         def scales(*shape):
             return (torch.rand(shape, generator=gen, device="cuda") * 0.01).bfloat16()
+        if kernel in ("B5", "B5sr"):  # (M, K): a gradient-sized x with an all-zero row and column
+            x = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
+            x[0], x[:, 1] = 0, 0
+            return (x,)
+        if kernel == "B17s8":
+            return i8((M, K)), i8((K, N))
         if kernel in ("B15", "B15s8"):
             make = e4m3 if kernel == "B15" else i8
             return make((M, K)), make((K, N)), scales(M, K // 128), scales(K // 128, N // 128)
@@ -445,11 +556,15 @@ def main() -> None:
         return a, b, scales(M), scales(N)
 
     plain = {"B1": ops.scaled_mm_plain, "B2": ops.scaled_mm_lhs_t_plain, "B15": ops.tile_scaled_mm_plain,
-             "B15s8": ops.tile_scaled_mm_plain, "B16": ops.scaled_int4_mm_plain, "K2": ops.scaled_mm_rhs_t_plain}
+             "B15s8": ops.tile_scaled_mm_plain, "B16": ops.scaled_int4_mm_plain, "K2": ops.scaled_mm_rhs_t_plain,
+             "B17s8": ops.matmul_plain, "B5": ops.quantize_int8_both_plain,
+             "B5sr": lambda x: ops.quantize_int8_both_plain(x, sr=True, key=B5_KEY)}
     for kernel, shape in (("B1", (130, 208, 272)), ("B1", (8192, 2048, 5632)), ("B2", (144, 208, 288)),
                           ("B2", (5632, 2048, 8192)), ("B15", (200, 256, 640)), ("B15", (8192, 2048, 5632)),
                           ("B15s8", (200, 256, 640)), ("B15s8", (8192, 2048, 5632)), ("B16", (130, 200, 288)),
-                          ("B16", (5632, 2048, 8192)), ("K2", (8192, 5632, 2048))):
+                          ("B16", (5632, 2048, 8192)), ("K2", (8192, 5632, 2048)), ("B17s8", (200, 144, 304)),
+                          ("B17s8", (4096, 4096, 4096)), *((k, s) for k in ("B5", "B5sr")
+                                                          for s in ((130, 200), (8, 9000), *B5_SHAPES))):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -469,7 +584,7 @@ def main() -> None:
                     print(f"{label} {kernel} {shape}: worst {worst:.2f} fp32 roundings of the folded magnitudes "
                           f"beyond a bf16 half-ulp (bound {R}): within {exact}", flush=True)
                 else:
-                    exact = torch.equal(got, ref)
+                    exact = all(map(torch.equal, got, ref)) if kernel in ("B5", "B5sr") else torch.equal(got, ref)
                     print(f"{label} {kernel} {shape}: bit-exact {exact}", flush=True)
                 if not (exact or label.startswith("diag_")):
                     raise SystemExit(f"ab_sm90_forms: {label} {kernel} at {shape} differs from the plain version")
@@ -481,14 +596,22 @@ def main() -> None:
                 if k == kernel:
                     inputs = copies(*operands(kernel, *shape))
                     times.setdefault((label, kernel, shape), []).append(time_ms(call, inputs, iters=8) * 1e3)
-    for kernel, (M, N, K) in rows:
-        a, b, _, _ = operands(kernel, M, N, K)
+    for kernel, shape in rows:
+        if kernel in ("B5", "B5sr"):  # x read once, two int8 outputs and the bf16 scales written once
+            M, K = shape
+            bound_us = (4 * M * K + 2 * (M + K)) / HBM_BYTES_PER_S * 1e6
+            cells = [f"{label} {sum(t) / len(t):.1f} {[round(v, 1) for v in t]} ({bound_us * len(t) / sum(t):.3f})"
+                     for (label, k, s), t in times.items() if k == kernel and s == shape]
+            print(f"{kernel} M={M} K={K}: bound {bound_us:.1f} us (bytes); " + "; ".join(cells), flush=True)
+            continue
+        M, N, K = shape
+        a, b, *_ = operands(kernel, M, N, K)
         lib_name, lib_us = "torch._int_mm", None
         if kernel == "B2":
             lib_us = time_ms(lambda a, b: torch._int_mm(a.t(), b), copies(a, b), iters=8) * 1e3
         elif kernel == "K2":
             lib_us = time_ms(lambda a, b: torch._int_mm(a, b.t()), copies(a, b), iters=8) * 1e3
-        elif kernel in ("B1", "B15s8"):
+        elif kernel in ("B1", "B15s8", "B17s8"):
             lib_us = time_ms(torch._int_mm, copies(a, b), iters=8) * 1e3
         elif kernel == "B15":
             lib_name = "torch._scaled_mm (row scales)"
@@ -505,12 +628,21 @@ def main() -> None:
               + f"; {lib_name} {lib_us:.1f}", flush=True)
 
 
-KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2}
+KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "B17s8": b17s8, "B5": b5, "B5sr": b5}
+# the argument each kernel's entry takes in place of the route: B5's SR flag
+QUANT = {"B5": 0, "B5sr": 1}
+ROUTE = {"B5": "kernel", "B5sr": "kernel"}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
-# chip_smoke.py (forward, grad_input, grad_weight of gate/up and down)
+# chip_smoke.py (forward, grad_input, grad_weight of gate/up and down); B17's
+# int8 form at benchmark_mm.py's square sizes; B5's (M, K) at every output
+# gradient of the bench.py step ([8192, 2048] q/o and down, [8192, 256] k/v)
+# and of ViT-Giant's (qkv, fc1, proj and fc2 at 6,400 tokens), and at
+# [8192, 5632], where x no longer fits in L2
+B5_SHAPES = [(8192, 2048), (8192, 256), (6400, 4608), (6400, 6144), (6400, 1536), (8192, 5632)]
 SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (8192, 5632, 2048)],
-          "B2": B2_SHAPES, "B15": B16_SHAPES, "B15s8": B16_SHAPES, "B16": B16_SHAPES, "K2": K2_SHAPES}
+          "B2": B2_SHAPES, "B15": B16_SHAPES, "B15s8": B16_SHAPES, "B16": B16_SHAPES, "K2": K2_SHAPES,
+          "B17s8": [(n, n, n) for n in (1024, 2048, 4096)], "B5": B5_SHAPES, "B5sr": B5_SHAPES}
 
 
 if __name__ == "__main__":

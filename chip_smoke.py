@@ -7,7 +7,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    compiled with nvcc, one process per source (seconds printed);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the serving path (K1, K2) and of the training step (K1 and B4 on
-   every activation and weight, B5, B1, B2, and K2 at 8192 tokens, each
+   every activation and weight, B5 on every output gradient of the bench.py
+   and ViT-Giant steps, B1, B2, and K2 at 8192 tokens, each
    GEMM beside ``torch._int_mm``, the nearest library call: the int32
    product without the scale epilogue), the stochastic-rounding forms of
    K1, B4 and B5 with the same key, B6 (the fused AdamW update, SR
@@ -30,8 +31,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    within ``ops/int8_attention.py::agreement`` of its plain version, beside
    SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
    of the roofline; K2, B1, B2, B15 (both forms), B16 at every shape and
-   B17 bf16 also on the route they took (K2 above 16 rows, B1, B2, B15 at
-   QK = 128, B16 and B17 bf16 on the TMA + wgmma mainloop of
+   B17 (both forms) also on the route they took (K2 above 16 rows, B1, B2,
+   B15 at QK = 128, B16 and B17 on the TMA + wgmma mainloop of
    ``sm90_gemm.cuh``, K2's decode on its wmma tile; each call checked to
    take it) beside their wmma kernels' time (``WMMA_US``), B15's e4m3 form
    with its worst error in fp32 roundings of the folded magnitudes;
@@ -88,8 +89,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 12. ``benchmark_mm`` (``python -m quantized_training_tpu_torch.benchmark_mm``)
    at 1024/2048/4096: its gates (B1 and B17 int8 exact, B15-s8 and B17 bf16
    within their bounds), its rows and table, then its training shapes; B17's
-   launches come from here, every bf16 one, and every B1 and B15-s8 one, on
-   the sm90 route;
+   launches come from here, every one (bf16 and int8), and every B1 and
+   B15-s8 one, on the sm90 route;
 13. B19 as the JAX package's op: at phase 3's shape, the oracle checks of
    its test (mean relative error below 0.05 against the bf16 oracle, lse
    within 1e-4 of the explicit logsumexp) and causality (k and v changed
@@ -98,7 +99,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
 kernel's launches on its path, for K2, B1, B2, B15, B16 and B17 also those
-on the sm90 route (``sm90_launches``), its error against the plain version, its
+on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
+shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
 exists), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -178,9 +180,9 @@ MM_N = 4096
 # Each sm90 GEMM's (M, N, K) on its wmma kernel, before the sm90 mainloop
 # took it, printed beside this run's times (H100 80GB HBM3, 700 W; PERF.md
 # section 6): K2 and B17 bf16, us per call in phase 3 of this script's last
-# run on those kernels; B1, B2, B15 and B16, ab_sm90_forms.py's parent/wmma
-# (the kernels of the tree before they took the mainloop). K2's decode sizes
-# (M 8) still take it.
+# run on those kernels; B1, B2, B15, B16 and B17 int8, ab_sm90_forms.py's
+# parent/wmma (the kernels of the tree before they took the mainloop). K2's
+# decode sizes (M 8) still take it.
 WMMA_US = {
     "scaled_mm_rhs_t": {(8, D, D): 11.2, (8, KVD, D): 7.3, (8, F, D): 15.0, (8, D, F): 26.1,
                         (512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
@@ -193,6 +195,7 @@ WMMA_US = {
     "tile_scaled_mm_s8": {(TOKENS, F, D): 1922.3, (TOKENS, D, F): 1951.3, (F, D, TOKENS): 1985.3,
                           (D, F, TOKENS): 1985.3},
     "matmul": {(MM_N, MM_N, MM_N): 1694.1},
+    "matmul_s8": {(MM_N, MM_N, MM_N): 1121.3},
 }
 # B19 at Llama2-1B's attention in bench.py's micro-batch: one instance per
 # (batch element, kv head), G query heads each
@@ -414,21 +417,37 @@ def _max_err(got, ref) -> float:
     return max((a.double() - b.double()).abs().max().item() for a, b in zip(got, ref))
 
 
+def quantize_bytes(M: int, K: int, writes: int) -> int:
+    """The bytes a bf16 [M, K] quantize must move: x read once, ``writes``
+    int8 outputs and the bf16 scales (one per column for a column quantize,
+    one per row and column for B5) written once."""
+    return M * K * (2 + writes) + 2 * (K if writes == 1 else M + K)
+
+
+# B5's shapes: the output gradients of the bench.py step (q/o and down
+# [8192, 2048], k/v [8192, 256]), of the unfused layer's gate/up ([8192,
+# 5632]) and of ViT-Giant's step (qkv, fc1, proj and fc2 at 6,400 tokens)
+B5_SHAPES = [(TOKENS, D), (TOKENS, KVD), (TOKENS, F), (VIT_ROWS, 3 * VIT_CFG.hidden_size),
+             (VIT_ROWS, VIT_CFG.mlp_dim), (VIT_ROWS, VIT_CFG.hidden_size)]
+
+
 def check_training_quantizes(gen: torch.Generator) -> list:
     """B4 at the backward's column quantizes (x2d [8192, in] and every
-    weight), B5 at its output gradients g [8192, out]: bit-exact, timed
-    (device time; GB/s of the bytes the algorithm needs: two reads of x and
-    one int8 write for B4, two reads and two int8 writes for B5)."""
+    weight), B5 at its output gradients (``B5_SHAPES``): bit-exact, timed
+    (device time; GB/s of the bytes the algorithm needs, each input read and
+    each output written once, and the share of the bound those bytes give).
+    Each entry records every shape's times and bound (``shapes``); its own
+    numbers are those of B4 at [8192, 5632] and of B5 at [8192, 2048], the
+    shape the bench.py step launches it at most."""
     out = []
-    for name, kernel, plain, shapes, reads, writes, replaces, timed_shape in (
+    for name, kernel, plain, shapes, writes, replaces, timed_shape in (
         ("quantize_int8_colwise", ops.quantize_int8_colwise, lambda x: ops.quantize_int8_plain(x, axis=0),
-         [(TOKENS, D), (TOKENS, F), (D, D), (KVD, D), (F, D), (D, F)], 2, 1,
+         [(TOKENS, D), (TOKENS, F), (D, D), (KVD, D), (F, D), (D, F)], 1,
          "quantized_training_tpu/ops/pallas_quant.py:229", (TOKENS, F)),
-        ("quantize_int8_both", ops.quantize_int8_both, ops.quantize_int8_both_plain,
-         [(TOKENS, D), (TOKENS, KVD), (TOKENS, F)], 2, 2,
-         "quantized_training_tpu/ops/pallas_quant.py:306", (TOKENS, F)),
+        ("quantize_int8_both", ops.quantize_int8_both, ops.quantize_int8_both_plain, B5_SHAPES, 2,
+         "quantized_training_tpu/ops/pallas_quant.py:306", (TOKENS, D)),
     ):
-        worst, timed = 0.0, None
+        worst, timed, per_shape = 0.0, None, []
         for shape in shapes:
             x = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
             x[0] = 0  # an all-zero row and column
@@ -439,14 +458,14 @@ def check_training_quantizes(gen: torch.Generator) -> list:
             worst = max(worst, _max_err(got, ref))
             inputs = copies(x)
             ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
-            gbs = x.numel() * (2 * reads + writes) / ms / 1e6
-            print(f"[3] {name} {list(shape)} bf16: bit-exact; kernel {ms:.4f} ms ({gbs:.0f} GB/s), "
-                  f"plain {plain_ms:.4f} ms")
+            nbytes = quantize_bytes(*shape, writes)
+            b_ms, _ = bound(nbytes)
+            per_shape.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms})
+            print(f"[3] {name} {list(shape)} bf16: bit-exact; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), plain {plain_ms:.4f} ms")
             if shape == timed_shape:
                 timed = (shape, ms, plain_ms)
-        M, K = timed[0]
-        # x read once, the int8 outputs and the bf16 scales written once
-        out.append(_entry(name, replaces, worst, timed, M * K * (2 + writes) + 2 * (K if writes == 1 else M + K)))
+        out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes)) | {"shapes": per_shape})
     return out
 
 
@@ -659,19 +678,22 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
     against their plain versions with the same key: bit-exact, since both
     draw the same Philox words and compute the same floor(x / scale + u).
     Each is timed beside its round-to-nearest form, with GB/s of the bytes
-    the algorithm needs (K1: one read of x and one int8 write; B4: two
-    reads and one write; B5: two reads and two writes)."""
+    the algorithm needs (each input read and each output written once: K1
+    one read of x and one int8 write; B4 one read and one write; B5 one read
+    and two writes) and the share of the bound they give; each entry records
+    every shape (``shapes``), its own numbers are those at [8192, 5632] (B5-SR:
+    [8192, 2048], the shape the SR step launches it at most)."""
     out = []
-    for name, kernel, plain, shapes, reads, writes, replaces in (
+    for name, kernel, plain, shapes, writes, replaces, timed_shape in (
         ("quantize_int8_rowwise_sr", ops.quantize_int8_rowwise, ops.quantize_int8_plain,
-         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, 1, "quantized_training_tpu/ops/pallas_quant.py:98"),
+         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, "quantized_training_tpu/ops/pallas_quant.py:98", (TOKENS, F)),
         ("quantize_int8_colwise_sr", ops.quantize_int8_colwise, partial(ops.quantize_int8_plain, axis=0),
-         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 2, 1, "quantized_training_tpu/ops/pallas_quant.py:220"),
-        ("quantize_int8_both_sr", ops.quantize_int8_both, ops.quantize_int8_both_plain,
-         [(TOKENS, D), (TOKENS, KVD), (TOKENS, F)], 2, 2, "quantized_training_tpu/ops/pallas_quant.py:276"),
+         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, "quantized_training_tpu/ops/pallas_quant.py:220", (TOKENS, F)),
+        ("quantize_int8_both_sr", ops.quantize_int8_both, ops.quantize_int8_both_plain, B5_SHAPES, 2,
+         "quantized_training_tpu/ops/pallas_quant.py:276", (TOKENS, D)),
     ):
         sr_kernel, sr_plain = partial(kernel, sr=True, key=key), partial(plain, sr=True, key=key)
-        worst, timed = 0.0, None
+        worst, timed, per_shape = 0.0, None, []
         for shape in shapes:
             x = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
             x[0] = 0  # an all-zero row and column
@@ -683,13 +705,15 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
             worst = max(worst, _max_err(got, ref))
             inputs = copies(x)
             ms, rn_ms, plain_ms = time_ms(sr_kernel, inputs), time_ms(kernel, inputs), time_ms(sr_plain, inputs)
-            mb = x.numel() * (2 * reads + writes) / 1e6
-            print(f"[3] {name} {list(shape)} bf16: bit-exact; SR kernel {ms:.4f} ms ({mb / ms:.0f} GB/s), "
-                  f"round-to-nearest kernel {rn_ms:.4f} ms ({mb / rn_ms:.0f} GB/s), plain SR {plain_ms:.4f} ms")
-            if shape == (TOKENS, F):
+            nbytes = quantize_bytes(*shape, writes)
+            b_ms, _ = bound(nbytes)
+            per_shape.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms})
+            print(f"[3] {name} {list(shape)} bf16: bit-exact; SR kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), round-to-nearest kernel {rn_ms:.4f} ms "
+                  f"({nbytes / rn_ms / 1e6:.0f} GB/s), plain SR {plain_ms:.4f} ms")
+            if shape == timed_shape:
                 timed = (shape, ms, plain_ms)
-        M, K = timed[0]
-        out.append(_entry(name, replaces, worst, timed, M * K * (2 + writes) + 2 * (K if writes == 1 else M + K)))
+        out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes)) | {"shapes": per_shape})
     return out
 
 
@@ -1078,8 +1102,10 @@ def check_b17(gen: torch.Generator) -> list:
     err16 = (got16.double() - ops.matmul_plain(a, b, out_dtype=torch.bfloat16).double()).abs().max().item()
     a8 = torch.randint(-128, 128, (n, n), generator=gen, device=DEVICE, dtype=torch.int8)
     b8 = torch.randint(-128, 128, (n, n), generator=gen, device=DEVICE, dtype=torch.int8)
+    ops.reset_launch_counts()
     got8 = ops.matmul(a8, b8)
     torch.cuda.synchronize()
+    check(ops.launch_counts()["matmul_s8_sm90"] == 1, f"B17 int8 at {n}^3 on the sm90 route: {ops.launch_counts()}")
     check(torch.equal(got8, ops.matmul_plain(a8, b8)), f"B17 int8 bit-exact at {n}^3")
     entries, flops = [], 2.0 * n ** 3
     for name, args, kernel, plain, library, lib_name, out_bytes, peak in (
@@ -1092,10 +1118,10 @@ def check_b17(gen: torch.Generator) -> list:
         nbytes = 2 * n * n * args[0].element_size() + out_bytes * n * n
         ops_kw = {"bf16_ops": flops} if peak == "bf16" else {"int8_ops": flops}
         b_ms, by = bound(nbytes, **ops_kw)
-        wmma = WMMA_US["matmul"][(n, n, n)] / 1e3
+        wmma = WMMA_US[name][(n, n, n)] / 1e3
         held = (f"route sm90, within its bound (max |kernel - plain| {err16:.3e} in bf16; fp32 out at "
-                f"{(d32 / fold).max().item():.4f} of the fp32 sum bound), the wmma kernel "
-                f"{wmma:.4f} ms ({wmma / ms:.2f}x this)" if peak == "bf16" else "route wmma, bit-exact")
+                f"{(d32 / fold).max().item():.4f} of the fp32 sum bound)" if peak == "bf16" else
+                "route sm90, bit-exact") + f", the wmma kernel {wmma:.4f} ms ({wmma / ms:.2f}x this)"
         print(f"[3] matmul (B17, {peak}) {n}x{n}x{n} -> {'bf16' if peak == 'bf16' else 'int32'}: {held}; kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} {peak} TOP/s, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), "
               f"plain (float64 matmul) {plain_ms:.4f} ms, {lib_name} "
@@ -1766,12 +1792,14 @@ def benchmark_mm_phase() -> dict:
     benchmark_mm.main(["--train-shapes"])
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check(launches["matmul_sm90"] == launches["matmul"] > 0, f"every B17 bf16 launch on the sm90 route: {launches}")
+    check(launches["matmul_sm90"] == launches["matmul"] > 0 and launches["matmul_s8_sm90"] == launches["matmul_s8"] > 0,
+          f"every B17 launch, bf16 and int8, on the sm90 route: {launches}")
     check(launches["scaled_mm_sm90"] == launches["scaled_mm"] and
           launches["tile_scaled_mm_s8_sm90"] == launches["tile_scaled_mm_s8"] > 0,
           f"every B1 and B15-s8 launch on the sm90 route: {launches}")
     print(f"[12] benchmark_mm at {list(rows)}: every gate passed, {time.perf_counter() - t0:.1f} s; B17 launches "
-          f"bf16 {launches['matmul']} (sm90 {launches['matmul_sm90']}), int8 {launches['matmul_s8']}; B1 "
+          f"bf16 {launches['matmul']} (sm90 {launches['matmul_sm90']}), int8 {launches['matmul_s8']} (sm90 "
+          f"{launches['matmul_s8_sm90']}); B1 "
           f"{launches['scaled_mm']} (sm90 {launches['scaled_mm_sm90']}), B15-s8 {launches['tile_scaled_mm_s8']} "
           f"(sm90 {launches['tile_scaled_mm_s8_sm90']})")
     return launches

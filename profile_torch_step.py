@@ -13,7 +13,7 @@ three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
 of every kernel, summed by group (the port's int8, int4 and tile-scaled
-GEMMs, its quantize and producer kernels, its RoPE and ungroup kernels, B6,
+GEMMs, its quantizes K1, B4 and B5 each apart, its producer kernels, its RoPE and ungroup kernels, B6,
 cuBLAS GEMMs, attention,
 torch's copy kernels, the rest: torch's elementwise and reduction kernels),
 the device's busy share of the profiled step's wall time, the layout copies
@@ -69,7 +69,12 @@ GROUPS = (
     ("producer kernels B7-B12 (and B18's column folds)", ("row_quant", "col_quant", "producer_col_absmax",
                                                           "rmsnorm_bwd_rows", "reduce_parts")),
     ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
-    ("quantizes K1/B4/B5", ("quantize_rows", "col_absmax", "col_cast", "quantize_both_rows")),
+    # B5's first design, which only B5 calls off the vector path take (an
+    # unaligned view, a ragged K, rows over 2048 vectors), ends in B4's
+    # column cast and is counted with B4 here
+    ("quantize B5 (both axes)", ("quantize_both",)),
+    ("quantize K1 (rows)", ("quantize_rows",)),
+    ("quantize B4 (columns)", ("col_absmax", "col_cast")),
     ("B6 AdamW", ("fused_adamw",)),
     ("attention (SDPA)", ("flash", "fmha", "sdpa", "attention", "cudnn")),
     ("copies and casts", ("copy",)),

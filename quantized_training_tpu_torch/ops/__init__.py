@@ -48,7 +48,8 @@ kernels, each with a plain PyTorch version that CPU tensors take:
 - B17 :func:`matmul` (``csrc/matmul.cu``), the plain tiled matmul (bf16 ->
   fp32 accumulator -> fp32 or bf16, int8 -> int32), replacing
   ``ops/pallas_mm.py::matmul``: ``benchmark_mm``'s ``pallas_bf16`` row; the
-  forms count apart (``matmul`` bf16, ``matmul_s8`` int8);
+  forms count apart (``matmul`` bf16, ``matmul_s8`` int8), and those on the
+  sm90 mainloop again (``matmul_sm90``, ``matmul_s8_sm90``);
 - B19 :func:`int8_flash_fwd` (``csrc/int8_attention.cu``), the causal int8
   flash-attention forward, with its input quantize :func:`quantize_qkv` and
   oracle :func:`attention_ref`, replacing
@@ -176,6 +177,7 @@ KERNELS = {
     "matmul": (matmul, "launches"),
     "matmul_s8": (matmul, "s8_launches"),
     "matmul_sm90": (matmul, "sm90_launches"),
+    "matmul_s8_sm90": (matmul, "s8_sm90_launches"),
     "int8_flash_fwd": (int8_flash_fwd, "launches"),
 }
 

@@ -29,11 +29,48 @@
 //
 // B5: both axes, x [M, K] -> (q_row, s_row [M, 1], q_col, s_col [1, K]).
 // Replaces pallas_quant.py::quantize_int8_both (:306), the backward's
-// quantize of the output gradient. Pass 1 is K1's block-per-row quantize over
-// a run of rows per block that also keeps each column's running max in
-// shared memory (a thread owns the same columns in every row, so no atomics
-// there) and merges it into the fp32 [K] buffer once per block. Pass 2 is
-// B4's column cast. Bytes: two reads of x and two int8 writes.
+// quantize of the output gradient (q, k, v, o and down in every layer and
+// micro-step: [8192, 2048] and [8192, 256] in the Llama2-1B step; qkv, fc1,
+// proj and fc2 at [6400, 4608 / 6144 / 1536] in ViT-Giant's). Bound: one read
+// of x and two int8 writes at 3.35 TB/s (20.0 us at [8192, 2048]). The
+// column scales need every row first, so x is read twice: the design keeps
+// the second read in the 50 MB L2 where x fits and enough loads in flight
+// for HBM on the first, and it keeps the arithmetic (two casts an element)
+// off the quarter-rate units. Two kernels:
+//
+// - the row pass (quantize_both_row_pass): TPR threads a row (a warp up to
+//   128 16-byte vectors, 2, 4 or 8 warps up to 1024), 4 vectors a thread a
+//   row step: G rows of 4 / G vectors each, so that at K = 256 a warp takes
+//   4 rows at once. A thread loads the next step's vectors before it works
+//   on this step's, so 8 are in flight. The row max is a warp reduction (REDUX on the non-negative floats' bits), across the
+//   row's warps through shared memory and a named barrier; the cast reads
+//   the registers, not x again. A thread owns the same columns in every row
+//   it takes, so it keeps their running max in registers (packed like x: two
+//   bf16 a word); at the end the CTA merges its groups' in shared memory and
+//   writes its K maxima, with plain stores, to a row of the front of q_col,
+//   which is not written yet: no atomics (264 CTAs merging the same 2048
+//   columns by atomicMax queue on each address in L2) and no memset of
+//   amax. The grid is persistent: 2 CTAs of 256 threads an SM, each group of
+//   TPR threads walking the row steps group, group + groups in the grid, ...;
+// - the column pass (quantize_both_col_pass), launched cooperatively: the
+//   grid reduces the row pass's rows of column maxima into amax and s_col,
+//   meets at a grid-wide barrier, and casts q_col over them, walking the row
+//   steps as the row pass does (double-buffered) but in reverse, so that the rows the row pass read last, which L2
+//   still holds, are read first; each element by its column's max(scale,
+//   eps) from shared memory. Its loads and both passes' int8 stores are
+//   evict-first (ld/st.global.cs), so the outputs do not push x out of L2.
+//
+// The casts divide as IEEE division does without a division an element (a
+// reciprocal a row or column and FMAs: div_rn) and round and convert by one
+// add (kMagic), where __fdiv_rn, rintf and the float -> int cast each cost a
+// quarter-rate instruction an element. ab_sm90_forms.py times the choices
+// (its b5_* variants) and the passes apart (diag_b5_*). Above about 40 MB
+// of x the second read partly comes from HBM again. An unaligned view, a K off a whole number of
+// vectors, rows longer than 1024 vectors (bf16 K > 8192) or M below 2 (4
+// for fp32: the maxima need K sizeof(x) bytes of q_col a CTA) take the first
+// design: K1's block-per-row quantize over a run of rows per block that keeps
+// each column's running max in shared memory and merges it by atomicMax into
+// the zeroed amax (quantize_both_rows), then B4's column cast.
 //
 // Stochastic rounding (the SR forms of K1, B4 and B5, replacing the
 // ``sr=True`` bodies of pallas_quant.py:98-106 / :120-125, :220-225 and
@@ -50,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
 
 #include <algorithm>
 
@@ -364,6 +403,336 @@ quantize_both_rows(const T* __restrict__ x, int8_t* __restrict__ q, T* __restric
   }
 }
 
+// ---- B5 on the vector path: the row pass and the column pass -------------
+
+constexpr int kSlots = 4;           // 16-byte vectors of x a thread takes a row step
+constexpr int kBothCtasPerSm = 2;   // the persistent grid of both passes
+
+// A 16-byte vector of x as 4 words: its absolute values (the sign bits
+// cleared, which orders non-negative floats like their unsigned bits), their
+// elementwise max (two bf16 a word, or one fp32), the max of its values as
+// fp32 bits, and element j's bits as an fp32 value.
+template <typename T> struct Abs;
+template <> struct Abs<__nv_bfloat16> {
+  __device__ static uint4 of(uint4 u) {
+    return make_uint4(u.x & 0x7FFF7FFFu, u.y & 0x7FFF7FFFu, u.z & 0x7FFF7FFFu, u.w & 0x7FFF7FFFu);
+  }
+  __device__ static uint4 max(uint4 a, uint4 b) {
+    return make_uint4(__vmaxu2(a.x, b.x), __vmaxu2(a.y, b.y), __vmaxu2(a.z, b.z), __vmaxu2(a.w, b.w));
+  }
+  __device__ static unsigned int top(uint4 a) {
+    const unsigned int m = __vmaxu2(__vmaxu2(a.x, a.y), __vmaxu2(a.z, a.w));
+    return ::max(m >> 16, m & 0xFFFFu) << 16;
+  }
+  __device__ static unsigned int elem(uint4 a, int j) {
+    const unsigned int w = j < 2 ? a.x : j < 4 ? a.y : j < 6 ? a.z : a.w;
+    return j % 2 ? w & 0xFFFF0000u : w << 16;
+  }
+};
+template <> struct Abs<float> {
+  __device__ static uint4 of(uint4 u) {
+    return make_uint4(u.x & 0x7FFFFFFFu, u.y & 0x7FFFFFFFu, u.z & 0x7FFFFFFFu, u.w & 0x7FFFFFFFu);
+  }
+  __device__ static uint4 max(uint4 a, uint4 b) {
+    return make_uint4(::max(a.x, b.x), ::max(a.y, b.y), ::max(a.z, b.z), ::max(a.w, b.w));
+  }
+  __device__ static unsigned int top(uint4 a) { return ::max(::max(a.x, a.y), ::max(a.z, a.w)); }
+  __device__ static unsigned int elem(uint4 a, int j) { return j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w; }
+};
+
+// x / d rounded to nearest, as IEEE division rounds it, from y = RN(1 / d)
+// and FMAs, with no division (a quarter-rate MUFU.RCP and its refinement an
+// element) in the loop: q0 = RN(x y) lies within 1.5 ulp of x / d; one
+// correction by the remainder x - d q0 makes it faithful, and a second
+// gives RN(x / d) exactly (Markstein: for a faithful q and y within half an
+// ulp of 1 / d, x - d q is exact and RN(q + (x - d q) y) = RN(x / d)). That
+// needs no underflow: here |x / d| <= 127 (d >= the absmax of x's row or
+// column / 127) and d >= eps, so the remainder is exact wherever |x / d| >=
+// 2^-48, and a smaller quotient casts to the same int8 whatever its last bit.
+__device__ __forceinline__ float div_rn(float x, float d, float y) {
+  float q = __fmul_rn(x, y);
+  q = __fmaf_rn(__fmaf_rn(-d, q, x), y, q);
+  return __fmaf_rn(__fmaf_rn(-d, q, x), y, q);
+}
+
+// 1.5 * 2^23: v + kMagic is v rounded to an integer (half to even) for |v| <
+// 2^22, held in the low bits of the sum's word, so one add rounds and
+// converts, where rintf and a float -> int cast each take a quarter-rate
+// conversion.
+constexpr float kMagic = 12582912.0f;
+
+// rint(q) clamped to [-128, 127], in the low byte of the word (clamping
+// first rounds the same)
+__device__ __forceinline__ uint32_t byte_rn(float q) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, -128.0f), 127.0f), kMagic));
+}
+
+// floor(q + u) clamped to [-128, 127], u the uniform of ``word``: the sum
+// rounded to an integer by kMagic, less one where that rounded up
+__device__ __forceinline__ uint32_t byte_sr(float q, uint32_t word) {
+  const float s = __fadd_rn(q, qt::uniform_of(word));
+  float r = __fsub_rn(__fadd_rn(s, kMagic), kMagic);
+  r = r > s ? __fsub_rn(r, 1.0f) : r;
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(r, -128.0f), 127.0f), kMagic));
+}
+
+// the low bytes of 4 words, in order
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// The int8 cast of a 16-byte vector starting at element idx0 of the stream
+// (a multiple of 4), element j by its own (d, 1 / d) = dy(j), stored
+// evict-first.
+template <typename T, bool SR, typename DY>
+__device__ __forceinline__ void cast_vec(uint4 u, DY dy, uint64_t idx0, uint64_t key, int8_t* __restrict__ q) {
+  constexpr int N = 16 / sizeof(T);
+  const T* e = reinterpret_cast<const T*>(&u);
+  uint32_t w[N], b[N];
+  vec_words<SR, N>(idx0, key, w);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float2 f = dy(j);
+    const float v = div_rn(to_f32(e[j]), f.x, f.y);
+    b[j] = SR ? byte_sr(v, w[j]) : byte_rn(v);
+  }
+  if constexpr (N == 8) {
+    __stcs(reinterpret_cast<uint2*>(q), make_uint2(pack4(b[0], b[1], b[2], b[3]), pack4(b[4], b[5], b[6], b[7])));
+  } else {
+    __stcs(reinterpret_cast<unsigned int*>(q), pack4(b[0], b[1], b[2], b[3]));
+  }
+}
+
+// A scale's (d, 1 / d): d = max(scale, eps), the reciprocal rounded to nearest
+__device__ __forceinline__ float2 denom_of(float s, float eps) {
+  const float d = fmaxf(s, eps);
+  return make_float2(d, __frcp_rn(d));
+}
+
+// The row steps of both passes: step i is rows [G i, G i + G), taken by a
+// group of TPR threads; thread t of the group holds vector t + p TPR of each
+// of its G rows (p < 4 / G).
+template <int TPR, int G>
+struct BothWalk {
+  static constexpr int kVpl = kSlots / G, kGroups = kThreads / TPR, kWarps = TPR / 32;
+  static_assert(kSlots % G == 0 && TPR % 32 == 0 && kThreads % TPR == 0 && (G == 1 || TPR == 32),
+                "whole rows a group, 4 vectors a thread");
+  int grp, t;
+  __device__ BothWalk() : grp(threadIdx.x / TPR), t(threadIdx.x % TPR) {}
+  __device__ int64_t first() const { return static_cast<int64_t>(blockIdx.x) * kGroups + grp; }
+  __device__ int64_t stride() const { return static_cast<int64_t>(gridDim.x) * kGroups; }
+  // the vectors of rows step * G .. + G - 1 (zero past the edge)
+  template <bool kLast>
+  __device__ void load(const uint4* __restrict__ xv, int64_t step, int64_t M, int64_t nv, uint4 (&u)[G][kVpl]) const {
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int p = 0; p < kVpl; ++p) {
+        const int64_t row = step * G + g, v = t + p * TPR;
+        const uint4* src = xv + row * nv + v;
+        u[g][p] = row < M && v < nv ? (kLast ? __ldcs(src) : *src) : make_uint4(0u, 0u, 0u, 0u);
+      }
+  }
+  // body(step, u) on each of the group's row steps in turn (kReverse: counted
+  // from the last step, with the column pass's evict-first loads), u the
+  // step's vectors: the next step's are loaded before the body runs on this
+  // step's, so that every warp has loads in flight while it computes
+  // (ab_sm90_forms.py's b5_load_after loads after it)
+  template <bool kReverse, class Body>
+  __device__ void for_steps(const uint4* __restrict__ xv, int64_t M, int64_t nv, Body&& body) const {
+    const int64_t steps = (M + G - 1) / G;
+    const auto at = [&](int64_t i) { return kReverse ? steps - 1 - i : i; };
+    uint4 a[G][kVpl], b[G][kVpl];
+    int64_t i = first();
+    if (i < steps) load<kReverse>(xv, at(i), M, nv, a);
+    while (i < steps) {
+      const int64_t j = i + stride();
+      if (j < steps) load<kReverse>(xv, at(j), M, nv, b);
+      body(at(i), a);
+      if (j >= steps) break;
+      i = j + stride();
+      if (i < steps) load<kReverse>(xv, at(i), M, nv, a);
+      body(at(j), b);
+    }
+  }
+};
+
+// The row pass: q_row and s_row, and the CTA's column maxima, packed as x is
+// (16 bytes a vector), to row blockIdx.x of ``parts`` [gridDim.x][nv]: the
+// front of q_col, which the column pass reads before it writes q_col.
+// Dynamic shared memory: each group's column maxima, where its threads leave
+// them at the end (plain stores of consecutive vectors, free of bank
+// conflicts) for the CTA to merge.
+template <typename T, bool SR, int TPR, int G>
+__global__ void __launch_bounds__(kThreads, kBothCtasPerSm)
+quantize_both_row_pass(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
+                       uint4* __restrict__ parts, int64_t M, int64_t K, float eps, uint64_t key) {
+  using W = BothWalk<TPR, G>;
+  constexpr int N = 16 / sizeof(T), VPL = W::kVpl, WARPS = W::kWarps;
+  extern __shared__ uint4 group_colmax[];  // [groups][nv]
+  // the row maxima of a group's warps, alternating between steps, so that one
+  // step's writes never meet the last one's reads
+  __shared__ unsigned int part[2][W::kGroups][WARPS][G];
+  const W walk;
+  const int64_t nv = K / N;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4 cm[VPL];
+#pragma unroll
+  for (int p = 0; p < VPL; ++p) cm[p] = make_uint4(0u, 0u, 0u, 0u);
+  int parity = 0;
+  walk.template for_steps<false>(xv, M, nv, [&](int64_t step, const uint4 (&u)[G][VPL]) {
+    unsigned int rmax[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      rmax[g] = 0u;
+#pragma unroll
+      for (int p = 0; p < VPL; ++p) {
+        const uint4 a = Abs<T>::of(u[g][p]);
+        cm[p] = Abs<T>::max(cm[p], a);
+        rmax[g] = ::max(rmax[g], Abs<T>::top(a));
+      }
+      rmax[g] = __reduce_max_sync(0xFFFFFFFFu, rmax[g]);
+    }
+    if constexpr (WARPS > 1) {
+      const int warp = walk.t / 32;
+      if (walk.t % 32 == 0)
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[parity][walk.grp][warp][g] = rmax[g];
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + walk.grp), "r"(TPR) : "memory");
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) rmax[g] = ::max(rmax[g], part[parity][walk.grp][w][g]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int64_t row = step * G + g;
+      if (row >= M) break;
+      const float s = __fdiv_rn(__uint_as_float(rmax[g]), 127.0f);
+      const float2 dy = denom_of(s, eps);
+#pragma unroll
+      for (int p = 0; p < VPL; ++p) {
+        const int64_t v = walk.t + p * TPR;
+        if (v < nv) cast_vec<T, SR>(u[g][p], [&](int) { return dy; }, row * K + v * N, key, q + row * K + v * N);
+      }
+      if (walk.t == 0) store_scale(scale + row, s);
+    }
+    parity ^= 1;
+  });
+#pragma unroll
+  for (int p = 0; p < VPL; ++p) {
+    const int64_t v = walk.t + p * TPR;
+    if (v < nv) group_colmax[walk.grp * nv + v] = cm[p];
+  }
+  __syncthreads();
+  for (int64_t v = threadIdx.x; v < nv; v += kThreads) {
+    uint4 m = group_colmax[v];
+#pragma unroll
+    for (int g = 1; g < W::kGroups; ++g) m = Abs<T>::max(m, group_colmax[g * nv + v]);
+    parts[blockIdx.x * nv + v] = m;
+  }
+}
+
+// The column pass, launched cooperatively: first the grid reduces the row
+// pass's R rows of column maxima (``parts``) into amax and s_col, S lanes of
+// a warp a vector, each taking every S-th row; then, after a grid-wide
+// barrier, it casts q_col (over ``parts``) from the column scales, the row
+// steps in the reverse of the row pass's order. Dynamic shared memory: each
+// column's (d, 1 / d), element j of vector v at j nv + v, so that a warp's
+// lanes (consecutive vectors) read consecutive pairs, where a vector's pairs
+// side by side (ab_sm90_forms.py's b5_dy_by_vector) make lanes 64 bytes
+// apart and conflict on the banks.
+template <typename T, bool SR, int TPR, int G>
+__global__ void __launch_bounds__(kThreads, kBothCtasPerSm)
+quantize_both_col_pass(const T* __restrict__ x, const uint4* parts, int R, float* __restrict__ amax, int8_t* q,
+                       T* __restrict__ scale, int64_t M, int64_t K, float eps, uint64_t key) {
+  using W = BothWalk<TPR, G>;
+  constexpr int N = 16 / sizeof(T), VPL = W::kVpl;
+  extern __shared__ float2 col_dy[];
+  const W walk;
+  const int64_t nv = K / N;
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int lane = threadIdx.x % 32;
+  int S = 32;
+  while (S > 1 && nv * S > threads) S >>= 1;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane; base < nv * S;
+       base += threads) {  // whole warps, for the shuffles
+    const int64_t i = base + lane, v = i / S;
+    uint4 m = make_uint4(0u, 0u, 0u, 0u);
+    if (i < nv * S)
+      for (int64_t r = i % S; r < R; r += 4 * S) {  // 4 loads in flight
+        uint4 w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[k] = r + k * S < R ? parts[(r + k * S) * nv + v] : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) m = Abs<T>::max(m, w[k]);
+      }
+    for (int off = S / 2; off > 0; off >>= 1)
+      m = Abs<T>::max(m, make_uint4(__shfl_xor_sync(0xFFFFFFFFu, m.x, off), __shfl_xor_sync(0xFFFFFFFFu, m.y, off),
+                                    __shfl_xor_sync(0xFFFFFFFFu, m.z, off), __shfl_xor_sync(0xFFFFFFFFu, m.w, off)));
+    if (i < nv * S && i % S == 0)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float a = __uint_as_float(Abs<T>::elem(m, j));
+        amax[v * N + j] = a;
+        store_scale(scale + v * N + j, __fdiv_rn(a, 127.0f));
+      }
+  }
+  cooperative_groups::this_grid().sync();
+  for (int64_t c = threadIdx.x; c < K; c += kThreads)
+    col_dy[(c % N) * nv + c / N] = denom_of(__fdiv_rn(__ldcg(amax + c), 127.0f), eps);
+  __syncthreads();
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  walk.template for_steps<true>(xv, M, nv, [&](int64_t step, const uint4 (&u)[G][VPL]) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int64_t row = step * G + g;
+      if (row >= M) break;
+#pragma unroll
+      for (int p = 0; p < VPL; ++p) {
+        const int64_t v = walk.t + p * TPR;
+        if (v >= nv) continue;
+        float2 dy[N];
+#pragma unroll
+        for (int j = 0; j < N; ++j) dy[j] = col_dy[j * nv + v];
+        cast_vec<T, SR>(u[g][p], [&](int j) { return dy[j]; }, row * K + v * N, key, q + row * K + v * N);
+      }
+    }
+  });
+}
+
+template <typename T, bool SR, int TPR, int G>
+cudaError_t launch_both_passes(const T* x, void* q_row, void* s_row, void* q_col, void* s_col, float* amax,
+                               int64_t M, int64_t K, float eps, uint64_t key_row, uint64_t key_col,
+                               cudaStream_t stream) {
+  const auto rows = quantize_both_row_pass<T, SR, TPR, G>;
+  const auto cols = quantize_both_col_pass<T, SR, TPR, G>;
+  constexpr int64_t groups = BothWalk<TPR, G>::kGroups;
+  // the groups' packed column maxima (16 KB: 4 vectors a thread), and
+  // each column's (d, 1 / d) (64 KB at 1024 vectors of bf16)
+  const size_t row_smem = static_cast<size_t>(groups * K) * sizeof(T), col_smem = static_cast<size_t>(K) * 8;
+  cudaError_t err = cudaSuccess;
+  if (col_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(col_smem));
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t needed = ((M + G - 1) / G + groups - 1) / groups;
+  const unsigned int col_ctas = static_cast<unsigned int>(std::min<int64_t>(needed, kBothCtasPerSm * sms));
+  // each row-pass CTA's K column maxima (K sizeof(T) bytes) in q_col's M K
+  int R = static_cast<int>(std::min<int64_t>({needed, kBothCtasPerSm * sms, M / static_cast<int64_t>(sizeof(T))}));
+  uint4* parts = static_cast<uint4*>(q_col);
+  rows<<<R, kThreads, row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K, eps,
+                                          key_row);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  int8_t* qc = static_cast<int8_t*>(q_col);
+  T* sc = static_cast<T*>(s_col);
+  void* args[] = {&x, &parts, &R, &amax, &qc, &sc, &M, &K, &eps, &key_col};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(col_ctas), dim3(kThreads), args,
+                                     col_smem, stream);
+}
+
 template <typename T>
 dim3 col_grid(int64_t R, int64_t C) {
   constexpr int N = 16 / sizeof(T);
@@ -397,6 +766,17 @@ cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, vo
                         cudaStream_t stream) {
   const bool vec = vec_ok<T>(x, K);
   const T* xt = static_cast<const T*>(x);
+  // the row pass's threads a row: the fewest that hold a row in 4 vectors each
+  const int64_t nv = vec ? K / (16 / sizeof(T)) : 0;
+  if (vec && nv <= 1024 && M >= static_cast<int64_t>(sizeof(T))) {
+    const auto both = nv <= 32    ? &launch_both_passes<T, SR, 32, 4>
+                      : nv <= 64  ? &launch_both_passes<T, SR, 32, 2>
+                      : nv <= 128 ? &launch_both_passes<T, SR, 32, 1>
+                      : nv <= 256 ? &launch_both_passes<T, SR, 64, 1>
+                      : nv <= 512 ? &launch_both_passes<T, SR, 128, 1>
+                                  : &launch_both_passes<T, SR, 256, 1>;
+    return both(xt, q_row, s_row, q_col, s_col, amax, M, K, eps, key_row, key_col, stream);
+  }
   cudaError_t err = cudaMemsetAsync(amax, 0, K * sizeof(float), stream);
   if (err != cudaSuccess) return err;
   // a run of rows per block amortises the colmax merge; about two blocks per SM

@@ -7,21 +7,24 @@
 // Bound on the H100 at the benchmark's square sizes: the tensor cores, 989
 // TFLOP/s dense in bf16 and 1,979 TOP/s in int8 (4096^3: 139 us and 69 us);
 // the bytes (two operands read once, the output written once) bound it only
-// below about n = 900 in bf16. Design: the wmma tile machinery of
-// mm_tiles.cuh, as scaled_mm.cu's B1 form runs it: a is K-major, b MN-major,
-// each copied into shared memory as it is in 16x16 fragment blocks (bf16
-// m16n16k16 fragments with fp32 accumulators, or signed-char fragments with
-// int32 ones), 64x64 tiles with a K step of 64 on four warps, the next K tile
-// fetched into registers while the current one runs through the MMAs. Any
-// shape: ragged edges are zero-filled value by value on load (the sums are
-// the same as over zero-padded copies, which are never made) and masked on
-// store. This wmma kernel takes the int8 form (8-bit wgmma refuses b's
-// MN-major layout) and the bf16 operands TMA cannot describe (a base off a
-// 16-byte boundary, or rows not a multiple of 16 bytes long). The bf16 forms
-// whose operands TMA can describe run on the pipelined TMA + wgmma mainloop
-// of sm90_gemm.cuh instead, with b read MN-major through wgmma's transpose
-// bit; the caller decides that route and passes it in
-// (ops/matmul.py::sm90_route).
+// below about n = 900 in bf16. Design: where TMA can describe both operands
+// (each 16-byte aligned, its rows a multiple of 16 bytes long), both forms
+// run on the pipelined TMA + wgmma mainloop of sm90_gemm.cuh. a is K-major
+// and b MN-major in either form. The bf16 forms read b MN-major through
+// wgmma's transpose bit (Bf16MnB); 8-bit wgmma reads its operands K-major
+// only, so the int8 form takes B1's S8MnB form, whose producer warpgroup
+// transposes each landed tile of b into the K-major stage, and stores the
+// int32 sums as they are (IntOut: exact at any K the int32 range holds). The
+// caller decides that route and passes it in (ops/matmul.py::sm90_route).
+// The operands TMA cannot describe (a base off a 16-byte boundary, or rows
+// not a multiple of 16 bytes long) take the wmma kernel below, the tile
+// machinery of mm_tiles.cuh: each operand copied into shared memory as it is
+// in 16x16 fragment blocks (bf16 m16n16k16 fragments with fp32 accumulators,
+// or signed-char fragments with int32 ones), 64x64 tiles with a K step of 64
+// on four warps, the next K tile fetched into registers while the current
+// one runs through the MMAs. Any shape: ragged edges are zero-filled value
+// by value on load (the sums are the same as over zero-padded copies, which
+// are never made) and masked on store.
 
 #include <mma.h>
 
@@ -131,17 +134,18 @@ cudaError_t launch(const void* a, const void* b, void* out, int M, int N, int K,
 // contiguous, both int8 (is_bf16 = 0: out int32) or both bf16 (out fp32, or
 // bf16 where out_bf16). a_vec / b_vec: the operand starts on a 16-byte
 // boundary and its rows are a multiple of 16 bytes long, so whole chunks
-// load as vectors. sm90: a bf16 form on the sm90_gemm.cuh mainloop, which
-// needs a_vec and b_vec (refused for int8).
+// load as vectors. sm90: the sm90_gemm.cuh mainloop, which needs a_vec,
+// b_vec and K > 0.
 extern "C" int qt_matmul(const void* a, const void* b, void* out, int M, int N, int K, int is_bf16, int out_bf16,
                          int a_vec, int b_vec, int sm90, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (sm90) {
-    err = !is_bf16 || !a_vec || !b_vec ? cudaErrorInvalidValue
-          : out_bf16                   ? qt_sm90::matmul_bf16<__nv_bfloat16>(a, b, out, M, N, K, s)
-                                       : qt_sm90::matmul_bf16<float>(a, b, out, M, N, K, s);
+    err = !a_vec || !b_vec || K <= 0 || (!is_bf16 && out_bf16) ? cudaErrorInvalidValue
+          : !is_bf16                                             ? qt_sm90::matmul_s8(a, b, out, M, N, K, s)
+          : out_bf16 ? qt_sm90::matmul_bf16<__nv_bfloat16>(a, b, out, M, N, K, s)
+                     : qt_sm90::matmul_bf16<float>(a, b, out, M, N, K, s);
   } else if (!is_bf16) {
     err = out_bf16 ? cudaErrorInvalidValue : launch<Src::S8, int>(a, b, out, M, N, K, a_vec, b_vec, s);
   } else if (out_bf16) {

@@ -22,8 +22,10 @@
 //   in the high nibble), widened to int8 on chip. Replaces pallas_mm.py::
 //   scaled_int4_mm (:636);
 // - B17's bf16 forms (matmul.cu, Bf16MnB): out = a . b in fp32, a [M, K]
-//   K-major and b [K, N] MN-major, rounded once to fp32 or bf16. Replaces
-//   quantized_training_tpu/ops/pallas_mm.py::matmul (:537).
+//   K-major and b [K, N] MN-major, rounded once to fp32 or bf16; and its int8
+//   form (matmul.cu, S8MnB with the IntOut epilogue): the exact int32 sum of
+//   B1's operand layout, stored as it is. Replaces quantized_training_tpu/
+//   ops/pallas_mm.py::matmul (:537).
 //
 // Bound on the H100: the tensor cores, 1,979 int8 TOP/s and 989 bf16 TFLOP/s
 // dense (K2 at M 8192, N 5632, K 2048: 95.5 us; B17 at 4096^3: 139.0 us).
@@ -507,9 +509,9 @@ struct S8MnMajor {  // B2: a [K, M], b [K, N] int8
   }
 };
 
-// B1 and B15's int8 form: a [M, K] K-major lands by TMA in the stage, as
-// K2's; b [K, N] MN-major lands raw and the producer transposes it into the
-// stage's b half.
+// B1, B15's int8 form and B17's: a [M, K] K-major lands by TMA in the stage,
+// as K2's; b [K, N] MN-major lands raw and the producer transposes it into
+// the stage's b half.
 struct S8MnB {
   using Acc = int;
   static constexpr int BK = 128, kStages = 4, kRawSlots = 4, kAccShift = 0;
@@ -664,6 +666,18 @@ struct PlainOut {
   __device__ float value(const Row&, int, float acc) const { return acc; }
 };
 
+// B17's int8 form: the int32 sum as it is. An fp32 value would be exact only
+// below 2^24, and 4096 products of int8 values reach 6.7e7.
+struct IntOut {
+  static constexpr bool kFold = false;
+  int* out;
+  struct Row {
+    int* p;
+  };
+  __device__ Row row(int r, int N) const { return {out + static_cast<int64_t>(r) * N}; }
+  __device__ int value(const Row&, int, int acc) const { return acc; }
+};
+
 // B15: the folded fp32 sum, rounded once to OT. sa [M / qm, n_qk] and sb
 // [n_qk, N / qn] are the tile scales, kq the stages of a quant block (QK /
 // 128).
@@ -697,6 +711,8 @@ __device__ __forceinline__ void store2(float* p, float v0, float v1) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
+__device__ __forceinline__ void store1(int* p, int v) { *p = v; }
+__device__ __forceinline__ void store2(int* p, int v0, int v1) { *reinterpret_cast<int2*>(p) = make_int2(v0, v1); }
 
 // An accumulator as the epilogue takes it: an int32 sum shifted back by the
 // form's kAccShift (exact: B16's sums are multiples of 256), an fp32 one as
@@ -1112,6 +1128,16 @@ cudaError_t matmul_bf16(const void* a, const void* b, void* out, int M, int N, i
   if (err == cudaSuccess) err = encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, b, N, K, 2ull * N, 64, kBk);
   if (err != cudaSuccess) return err;
   return launch<Bf16MnB>(ta, tb, PlainOut<OT>{static_cast<OT*>(out)}, M, N, K, stream);
+}
+
+// B17 int8: a [M, K], b [K, N] int8, each 16-byte aligned, K % 16 == N % 16
+// == 0, K > 0; out [M, N] int32, exact.
+inline cudaError_t matmul_s8(const void* a, const void* b, void* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  cudaError_t err = S8MnB::encode(&ta, a, M, K, 0);
+  if (err == cudaSuccess) err = S8MnB::encode(&tb, b, N, K, 1);
+  if (err != cudaSuccess) return err;
+  return launch<S8MnB>(ta, tb, IntOut{static_cast<int*>(out)}, M, N, K, stream);
 }
 
 }  // namespace qt_sm90

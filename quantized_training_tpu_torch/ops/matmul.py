@@ -13,9 +13,10 @@ The forms any caller of the JAX function uses:
 - int8 operands, int32 accumulator, int32 out.
 
 B17 is ``csrc/matmul.cu``; its header says what bounds it on the H100 and how
-the design answers that. The bf16 forms whose operands TMA can describe run
-on the pipelined TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh``
-(:func:`sm90_route`, counted in ``matmul.sm90_launches``).
+the design answers that. Both forms run on the pipelined TMA + wgmma
+mainloop of ``csrc/sm90_gemm.cuh`` where TMA can describe their operands
+(:func:`sm90_route`; counted in ``matmul.sm90_launches`` for bf16 and
+``matmul.s8_sm90_launches`` for int8), and on a wmma kernel elsewhere.
 """
 
 from __future__ import annotations
@@ -71,11 +72,12 @@ def vec_rows(t: torch.Tensor) -> bool:
 
 def sm90_route(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether B17 on contiguous a and b takes the TMA + wgmma mainloop
-    (``csrc/sm90_gemm.cuh``): the bf16 forms whose operands TMA can describe.
-    The int8 form stays on wmma (8-bit wgmma refuses b's MN-major layout),
-    and so do bf16 operands off a 16-byte boundary or with ragged rows. The
-    only thing that chooses B17's route."""
-    return a.dtype == torch.bfloat16 and vec_rows(a) and vec_rows(b)
+    (``csrc/sm90_gemm.cuh``): both forms, where TMA can describe both
+    operands (16-byte aligned, rows a multiple of 16 bytes long: for int8
+    K % 16 == N % 16 == 0) and K > 0. Operands off a 16-byte boundary or
+    with ragged rows take the wmma kernel. The only thing that chooses
+    B17's route."""
+    return a.shape[1] > 0 and vec_rows(a) and vec_rows(b)
 
 
 def _launch(a, b, out_dtype):
@@ -101,14 +103,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None, out_dtype=None) 
     (the accumulator's type by default); other forms raise TypeError. A CPU
     tensor takes :func:`matmul_plain`; CUDA tensors launch B17 on the current
     stream, at any shape. Launches count per operand type (``launches``
-    bf16, ``s8_launches`` int8), and the bf16 launches on the sm90 mainloop
-    (:func:`sm90_route`) in ``sm90_launches`` as well."""
+    bf16, ``s8_launches`` int8), and those on the sm90 mainloop
+    (:func:`sm90_route`) in ``sm90_launches`` (bf16) or ``s8_sm90_launches``
+    (int8) as well."""
     _, out_dtype = _form(a, b, acc_dtype, out_dtype)
     if a.device.type == "cpu":
         return matmul_plain(a, b, acc_dtype=acc_dtype, out_dtype=out_dtype)
     out, sm90 = _launch(a, b, out_dtype)
     if a.dtype == torch.int8:
         matmul.s8_launches += 1
+        matmul.s8_sm90_launches += sm90
     else:
         matmul.launches += 1
         matmul.sm90_launches += sm90
@@ -118,3 +122,4 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None, out_dtype=None) 
 matmul.launches = 0
 matmul.s8_launches = 0
 matmul.sm90_launches = 0
+matmul.s8_sm90_launches = 0

@@ -127,10 +127,14 @@ def test_scaled_mm_decode_keeps_the_wmma_tile(M):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 1), (3, 7), (64, 128), (130, 200), (256, 2048), (8192, 256), (1000, 5632),
-                                   (2048, 5632)])
+                                   (2048, 5632), (16, 8192), (5, 8200), (1, 2048), (3, 1024)])
 def test_quantize_colwise_and_both_bit_exact(shape, dtype):
     """B4 and B5, ragged shapes (rows not a multiple of the 64-row split,
-    columns not of the 16-byte vector) and an all-zero row and column."""
+    columns not of the 16-byte vector) and an all-zero row and column; B5's
+    every row-pass width (1, 2 or 4 warps a row; 8, 2 or 1 rows a warp),
+    the longest rows it holds in registers (1024 vectors), and the first
+    design's cases: longer rows, and too few rows to hold a CTA's column
+    maxima in q_col."""
     x = _rand(shape, dtype, 3)
     x[0] = 0
     x[:, -1] = 0
@@ -142,6 +146,29 @@ def test_quantize_colwise_and_both_bit_exact(shape, dtype):
     torch.cuda.synchronize()
     for a, b in zip(got, ops.quantize_int8_both_plain(x)):
         assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# the output gradients B5 quantizes in the bench.py step (q/o and down
+# [8192, 2048], k/v [8192, 256]) and in ViT-Giant's (qkv, fc1, proj and fc2
+# at 6,400 padded tokens)
+B5_STEP_SHAPES = [(8192, 2048), (8192, 256), (6400, 4608), (6400, 1536), (6400, 6144)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("shape", B5_STEP_SHAPES)
+def test_quantize_both_at_the_step_shapes(shape, sr):
+    """B5 and B5-SR bit-exact at every shape the steps launch them at,
+    gradient-sized bf16 values with an all-zero row and column."""
+    x = _rand(shape, torch.bfloat16, 11) * 1e-3
+    x[0] = 0
+    x[:, 1] = 0
+    kw = dict(sr=True, key=2**62 + 7) if sr else {}
+    ops.reset_launch_counts()
+    got = ops.quantize_int8_both(x, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ops.quantize_int8_both_plain(x, **kw)):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    assert ops.launch_counts()["quantize_int8_both_sr" if sr else "quantize_int8_both"] == 1
 
 
 def test_quantize_colwise_and_both_unaligned_view():
@@ -920,6 +947,40 @@ def test_matmul_sm90_within_bound(M, K, N):
         assert got.dtype == out_dtype and within_rounding(got, exact, bound)
     counts = ops.launch_counts()
     assert counts["matmul"] == counts["matmul_sm90"] == 2
+
+
+@pytest.mark.parametrize("M,K,N", [(1024, 1024, 1024), (200, 304, 144), (4096, 4096, 4096), (128, 16, 16),
+                                   (130, 2048, 208)])
+def test_matmul_s8_sm90_bit_exact(M, K, N):
+    """B17's int8 form on the TMA + wgmma mainloop (``S8MnB``: b's MN-major
+    tiles transposed by the producer, the int32 sums stored as they are):
+    bit-exact at one K step, ragged M, N and K, and at 4096^3, here with
+    operands of 100-127 so that the sums (about 5.2e7) lie past the integers
+    fp32 holds exactly; every launch on the sm90 route."""
+    g = torch.Generator(device="cuda").manual_seed(M + 2 * K + 3 * N)
+    lo = 100 if M == 4096 else -128
+    a8 = torch.randint(lo, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    b8 = torch.randint(lo, 128, (K, N), generator=g, device="cuda", dtype=torch.int8)
+    ops.reset_launch_counts()
+    out = ops.matmul(a8, b8)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int32 and torch.equal(out, ops.matmul_plain(a8, b8))
+    counts = ops.launch_counts()
+    assert counts["matmul_s8"] == counts["matmul_s8_sm90"] == 1
+
+
+def test_matmul_s8_wmma_at_an_offset():
+    """B17's int8 form on a b that starts off a 16-byte boundary (which TMA
+    cannot describe) keeps the wmma kernel, bit-exact."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a8 = torch.randint(-128, 128, (200, 304), generator=g, device="cuda", dtype=torch.int8)
+    b8 = torch.randint(-128, 128, (304 * 144 + 1,), generator=g, device="cuda", dtype=torch.int8)[1:].view(304, 144)
+    ops.reset_launch_counts()
+    out = ops.matmul(a8, b8)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.matmul_plain(a8, b8))
+    counts = ops.launch_counts()
+    assert counts["matmul_s8"] == 1 and counts["matmul_s8_sm90"] == 0
 
 
 def test_matmul_unaligned_views_and_refusals():

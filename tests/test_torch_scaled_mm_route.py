@@ -2,7 +2,7 @@
 (``ops/scaled_mm.py::sm90_route``), B1 (``ops/scaled_mm.py::
 rhs_mn_sm90_route``), B2 (``ops/scaled_mm.py::lhs_t_sm90_route``), B15
 (``ops/tile_scaled_mm.py::sm90_route``), B16 (``ops/int4_mm.py::sm90_route``)
-and B17 (``ops/matmul.py::sm90_route``) choose between the TMA + wgmma
+and B17 (``ops/matmul.py::sm90_route``, both forms) choose between the TMA + wgmma
 mainloop of ``csrc/sm90_gemm.cuh`` and their wmma kernels (B1 and B2 have
 none left) by a pure predicate, decided in Python and passed to the C entry
 as an explicit argument. No card is needed: the predicates are held at
@@ -69,11 +69,17 @@ def _operand(shape, dtype, offset=0):
     (200, 304, 136, torch.bfloat16, 0, True),
     (200, 300, 136, torch.bfloat16, 0, False),  # a's rows are 600 bytes long
     (1024, 1024, 1024, torch.bfloat16, 1, False),  # b starts 2 bytes off a 16-byte boundary
-    (1024, 1024, 1024, torch.int8, 0, False),  # 8-bit wgmma refuses b's MN-major layout
+    (1024, 1024, 1024, torch.int8, 0, True),  # the producer transposes b's MN-major tiles (S8MnB)
+    (200, 304, 144, torch.int8, 0, True),
+    (4096, 4096, 4096, torch.int8, 0, True),
+    (1024, 1024, 1024, torch.int8, 1, False),  # b starts 1 byte off a 16-byte boundary
+    (200, 304, 136, torch.int8, 0, False),  # b's rows are 136 bytes long (N % 16 != 0)
+    (200, 300, 144, torch.int8, 0, False),  # a's rows are 300 bytes long (K % 16 != 0)
+    (200, 0, 144, torch.int8, 0, False),  # K = 0: no tensor map describes it
 ])
 def test_b17_route(M, K, N, dtype, b_offset, sm90):
-    """B17 takes the sm90 mainloop exactly where TMA can describe both bf16
-    operands."""
+    """B17 takes the sm90 mainloop exactly where TMA can describe both
+    operands, in either form; the rest keeps the wmma kernel."""
     a, b = _operand((M, K), dtype), _operand((K, N), dtype, b_offset)
     assert a.is_contiguous() and b.is_contiguous()
     assert MATMUL.sm90_route(a, b) is sm90
@@ -226,18 +232,58 @@ def test_b16_passes_its_route(library, M, K, sm90):
 
 @pytest.mark.parametrize("dtype,out_dtype,sm90", [(torch.bfloat16, torch.float32, True),
                                                   (torch.bfloat16, torch.bfloat16, True),
-                                                  (torch.int8, torch.int32, False)])
+                                                  (torch.int8, torch.int32, True)])
 def test_b17_passes_its_route(library, dtype, out_dtype, sm90):
     """B17's wrapper passes ``sm90_route(a, b)`` as the argument before the
-    stream and counts a bf16 launch on the sm90 route in ``sm90_launches``."""
+    stream and counts a launch on the sm90 route in ``sm90_launches`` (bf16)
+    or ``s8_sm90_launches`` (int8)."""
     a, b = _meta((256, 128), dtype), _meta((128, 64), dtype)
     ops.matmul(a, b, out_dtype=out_dtype)
     (name, args), = library.calls
     assert name == "qt_matmul" and len(args) == len(_build._SIGNATURES[name])
     assert args[-2] == int(sm90)
+    counts, s8 = ops.launch_counts(), dtype == torch.int8
+    assert counts["matmul_s8_sm90" if s8 else "matmul_sm90"] == int(sm90)
+    assert counts["matmul_sm90" if s8 else "matmul_s8_sm90"] == 0
+    assert counts["matmul_s8" if s8 else "matmul"] == 1
+
+
+@pytest.mark.parametrize("M,K,N,offset,sm90", [(64, 128, 96, 1, 0), (64, 128, 40, 0, 0), (64, 40, 96, 0, 0)])
+def test_b17_s8_keeps_wmma_where_tma_cannot(library, M, K, N, offset, sm90):
+    """B17's int8 form off a 16-byte boundary, or with rows TMA cannot
+    describe, passes route 0 (the wmma kernel) with the operands' vector
+    flags, and counts no sm90 launch."""
+    a = _meta((M, K), torch.int8)
+    b = torch.empty(K * N + 16, dtype=torch.int8, device="meta")[offset:offset + K * N].view(K, N)
+    assert b.data_ptr() == offset and MATMUL.sm90_route(a, b) is bool(sm90)
+    ops.matmul(a, b)
+    (name, args), = library.calls
+    assert name == "qt_matmul" and args[3:6] == (M, N, K)
+    assert args[-4:-1] == (int(MATMUL.vec_rows(a)), int(MATMUL.vec_rows(b)), sm90)
     counts = ops.launch_counts()
-    assert counts["matmul_sm90"] == int(sm90)
-    assert counts["matmul" if dtype == torch.bfloat16 else "matmul_s8"] == 1
+    assert counts["matmul_s8"] == 1 and counts["matmul_s8_sm90"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,sr", [(8192, 2048, False), (8192, 256, True), (6400, 4608, False), (7, 1030, True)])
+def test_b5_passes_its_arguments(library, M, K, sr, dtype):
+    """B5's wrapper calls its C entry once with one argument per
+    ``_SIGNATURES`` entry: the input, the four outputs at their shapes, the
+    fp32 [K] scratch, M, K, eps, the dtype and SR flags, the two keys split
+    from the call's (0 without SR) and the stream; it counts the launch per
+    form."""
+    key = 12345 if sr else None
+    q_row, s_row, q_col, s_col = ops.quantize_int8_both(_meta((M, K), dtype), sr=sr, key=key)
+    (name, args), = library.calls
+    assert name == "qt_quantize_int8_both" and len(args) == len(_build._SIGNATURES[name]) == 14
+    assert args[6:8] == (M, K) and args[8] == ops.int8_quant.EPS
+    assert args[9:11] == (int(dtype == torch.bfloat16), int(sr))
+    assert args[11:13] == (ops.random.split(key) if sr else (0, 0)) and args[-1] == 0
+    assert (q_row.shape, s_row.shape, q_col.shape, s_col.shape) == ((M, K), (M, 1), (M, K), (1, K))
+    assert q_row.dtype == q_col.dtype == torch.int8 and s_row.dtype == s_col.dtype == dtype
+    counts = ops.launch_counts()
+    assert counts["quantize_int8_both_sr" if sr else "quantize_int8_both"] == 1
+    assert counts["quantize_int8_both" if sr else "quantize_int8_both_sr"] == 0
 
 
 # B1's grad_input shapes (M tokens, N in features, K out features): every
