@@ -3,9 +3,12 @@ grad_input GEMM, ``S8MnB``), B2 (the int8 grad_weight GEMM, ``S8MnMajor``),
 B15 (the tile-scaled GEMM: e4m3 ``E4m3F16``, int8 ``S8MnB`` with the fold),
 B16 (the packed-int4 GEMM, ``S4KMajor``) and B17's int8 form (``S8MnB``
 with the int32 epilogue, ``B17s8``) of
-``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``; and B5, the
+``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``; B5, the
 both-axes int8 quantize of ``ops/csrc/int8_quant.cu`` (``B5``, its SR form
-``B5sr``), against an earlier tree's.
+``B5sr``); and B7 and B11 of ``ops/csrc/fused_producers.cu`` on the
+persistent row walk (``B7``, ``B7sr``: RMSNorm inside the row quantize with
+the column absmax; ``B11``, ``B11sr``: the silu backward inside the row
+quantizes of (da, db) with their column absmax), against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -13,7 +16,9 @@ earlier commit, for its wmma kernels), built with nvcc into a library of its
 own under ``build/ab_sm90_forms/`` (only the sources the chosen kernels
 need), all builds side by side. Every variant
 is held against the plain versions at a ragged shape and at gate/up's
-(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7 against
+this tree's first design (``kept/first``), whose bits the walk keeps, B11
+against its plain version; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
@@ -21,15 +26,17 @@ timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
 for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
-B5) and the share of the bound (the 8-bit tensor cores' 1,979 TOP/s; for B5
-one read of x and two int8 writes at 3.35 TB/s). ``kept/wmma`` is this
+B5, B7 and B11) and the share of the bound (the 8-bit tensor cores' 1,979
+TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B7 and B11
+their inputs read and outputs written once). ``kept/first`` is this tree's
+B7 and B11 on their first design (route 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs, and
 ``parent/kernel`` its B5; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
-Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,...]
+Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,B7,...]
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ import torch
 
 from quantized_training_tpu_torch import ops
 from quantized_training_tpu_torch.ops import _build, random
+from quantized_training_tpu_torch.ops import fused_producers as FP
 from quantized_training_tpu_torch.ops.int8_quant import EPS
 from quantized_training_tpu_torch.ops.tile_scaled_mm import fold_bound
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
@@ -54,6 +62,7 @@ OUT = Path(__file__).resolve().parent / "build" / "ab_sm90_forms"
 INT8_OPS_PER_S = 1.979e15
 HBM_BYTES_PER_S = 3.35e12
 B5_KEY = 2**62 + 7  # the SR form's key
+ROWS_KEY = 2**61 + 5  # B7's and B11's SR key
 _B2_DEPTH = "  static constexpr int BK = 128, kStages = 4, kRawSlots = 2, kAccShift = 0;"
 _B16_DEPTH = "  static constexpr int kStages = kSub == 1 ? 4 : 3, kRawSlots = kSub == 1 ? 8 : 4;"
 # widen a nibble by sign extension into the low half of its byte (kAccShift 0)
@@ -336,6 +345,36 @@ quantize_both_col_pass(""", """template <typename T, bool SR, int TPR, int G>
 __global__ void __launch_bounds__(kThreads, 3)
 quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothCtasPerSm * sms));",
                                                            "std::min<int64_t>(needed, 3 * sms));")],
+    # B7 and B11: the casts by rintf and the float -> int conversion (quant<SR>)
+    # in place of one add; B11's sigmoid by __frcp_rn in place of IEEE
+    # division (B9's and B12's too in that library); B7 with 8 vectors a thread (32 threads a row at K = 2048, one
+    # CTA an SM) or 2 (128) in place of 4; without the fold of the CTAs' column maxima
+    # (reduce_parts); with the casts' values replaced by the inputs' bits
+    # (the walk, the producer and the row reductions, without the casts);
+    # without the SR forms' Philox calls
+    "rows_rintf": [("row_common.cuh", "      c[j] = SR ? byte_sr(r, words[j]) : byte_rn(r);",
+                    "      c[j] = static_cast<uint8_t>(quant<SR>(y[4 * k + j], inv, words[j]));")],
+    "b11_rcp": [("fused_producers.cu", "return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-a))); }",
+                 "return __frcp_rn(__fadd_rn(1.0f, expf(-a))); }")],
+    "b7_v8": [("fused_producers.cu", "constexpr int kNormV = 4;", "constexpr int kNormV = 8;"),
+              ("fused_producers.cu", "__launch_bounds__(kThreads, 2)\nrmsnorm_rows(", "__launch_bounds__(kThreads, 1)\nrmsnorm_rows(")],
+    "b7_v2": [("fused_producers.cu", "constexpr int kNormV = 4;", "constexpr int kNormV = 2;")],
+    "diag_rows_no_fold": [("fused_producers.cu", "  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);",
+                           "  return cudaSuccess;"),
+                          ("fused_producers.cu", "  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, 2 * K, stream);",
+                           "  return cudaSuccess;")],
+    "diag_rows_no_cast": [("row_common.cuh", "      c[j] = SR ? byte_sr(r, words[j]) : byte_rn(r);",
+                           "      c[j] = __float_as_uint(y[4 * k + j]);")],
+    # the SR forms' words from the element index in place of Philox
+    "diag_rows_no_philox": [("row_common.cuh",
+                             "    const uint4 w = SR ? qt::philox_block((idx0 >> 2) + k, key) : make_uint4(0u, 0u, 0u, 0u);",
+                             "    const uint4 w = make_uint4(static_cast<uint32_t>(idx0) + k, 0u, 0u, 0u);")],
+    # the same kernels on other launch arguments (ROUTE_ARGS): B7 at one CTA
+    # an SM; B11 at one vector a thread (704 threads a row at K = 5632); B7
+    # and B11 without their column maxima
+    "b7_one_cta": [],
+    "b11_v1": [],
+    "diag_rows_no_amax": [],
     # the column pass's (d, 1 / d) with a vector's pairs side by side
     "b5_dy_by_vector": [("int8_quant.cu", "    col_dy[(c % N) * nv + c / N] = denom_of(", "    col_dy[c] = denom_of("),
                         ("int8_quant.cu", "        for (int j = 0; j < N; ++j) dy[j] = col_dy[j * nv + v];",
@@ -349,6 +388,14 @@ B2_SHAPES = [(2048, 2048, 8192), (256, 2048, 8192), (5632, 2048, 8192), (2048, 5
 B16_SHAPES = [(8192, 5632, 2048), (8192, 2048, 5632), (5632, 2048, 8192), (2048, 5632, 8192)]
 # K2 at gate/up and q/o, against the parent's: the mainloop the forms share
 K2_SHAPES = [(8192, 5632, 2048), (8192, 2048, 2048)]
+
+
+# launch arguments of B7 and B11 by variant (KERNELS' keyword arguments)
+ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32, "ctas_per_sm": 1}},
+              "b7_v2": {"B7": {"tpr": 128}, "B7sr": {"tpr": 128}},
+              "b7_one_cta": {"B7": {"ctas_per_sm": 1}, "B7sr": {"ctas_per_sm": 1}},
+              "b11_v1": {"B11": {"tpr": 704}, "B11sr": {"tpr": 704}},
+              "diag_rows_no_amax": {k: {"amax": 0} for k in ("B7", "B7sr", "B11", "B11sr")}}
 
 
 def sources(name: str, edits, parent: Path | None) -> Path:
@@ -374,9 +421,11 @@ def sources(name: str, edits, parent: Path | None) -> Path:
 # the source of each kernel's C entry
 SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16": "scaled_mm.cu",
           "B15": "tile_scaled_mm.cu", "B15s8": "tile_scaled_mm.cu", "B17s8": "matmul.cu", "B5": "int8_quant.cu",
-          "B5sr": "int8_quant.cu"}
+          "B5sr": "int8_quant.cu", "B7": "fused_producers.cu", "B7sr": "fused_producers.cu",
+          "B11": "fused_producers.cu", "B11sr": "fused_producers.cu"}
 ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
-           "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both",)}
+           "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both",),
+           "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise")}
 
 
 def build(variants: dict, parent: Path | None, kernels) -> dict:
@@ -385,6 +434,8 @@ def build(variants: dict, parent: Path | None, kernels) -> dict:
     files = sorted({SOURCE[k] for k in kernels})
     procs = {}
     for name, edits in variants.items():
+        if not edits and name not in ("kept", "parent"):
+            continue  # launch arguments only: the kept library
         d = sources(name, edits, parent if name == "parent" else None)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"), *(str(d / f) for f in files)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
@@ -405,6 +456,9 @@ def build(variants: dict, parent: Path | None, kernels) -> dict:
             getattr(lib, fn).argtypes = sigs[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, sigs)
+    for name in variants:
+        if name not in libs:
+            libs[name] = libs["kept"]
     return libs
 
 
@@ -489,6 +543,59 @@ def b5(lib, sigs, sr):
     return call
 
 
+def _route(sigs, fn, tpr, M, ctas_per_sm):
+    """The route arguments of ``fn`` (none where that tree's entry takes
+    none) and the rows of its parts scratch: the walk's grid at ``tpr``
+    threads a row, or the first design's blocks at tpr 0."""
+    if len(sigs[fn]) == len(_build._SIGNATURES[fn]) - 2 or not tpr:
+        route = () if len(sigs[fn]) < len(_build._SIGNATURES[fn]) else (0, 0)
+        return route, -(-M // FP._rows_per_block(M))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (tpr, FP.row_walk_ctas(M, tpr, sms, ctas_per_sm)), FP.row_walk_ctas(M, tpr, sms, ctas_per_sm)
+
+
+def b7(lib, sigs, sr, tpr=None, ctas_per_sm=FP.NORM_CTAS_PER_SM, amax=1):
+    """B7 of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``): x [M, K]
+    bf16, g [K] fp32 -> (q, s_row, column absmax); on the walk at ``tpr`` threads
+    a row (default: the route's; 0 the first design)."""
+    def call(x, g):
+        M, K = x.shape
+        t = FP.norm_rows_sm90_route(K, x.dtype) if tpr is None else tpr
+        route, rows = _route(sigs, "qt_rmsnorm_quant_rowwise", t, M, ctas_per_sm)
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        s_row = torch.empty(M, 1, dtype=torch.float32, device="cuda")
+        col = torch.empty(1, K, dtype=torch.float32, device="cuda")
+        parts = torch.empty(rows, K, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_rmsnorm_quant_rowwise(x.data_ptr(), g.data_ptr(), q.data_ptr(), s_row.data_ptr(),
+                                                  col.data_ptr(), parts.data_ptr(), M, K, FP._rows_per_block(M), 1e-5,
+                                                  FP.EPS, 1, sr, amax, ROWS_KEY if sr else 0, *route,
+                                                  _build.stream()), "B7")
+        return (q, s_row, col) if amax else (q, s_row)
+    return call
+
+
+def b11(lib, sigs, sr, tpr=None, ctas_per_sm=FP.SILU_CTAS_PER_SM, amax=1):
+    """B11 of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``): a, b, dy
+    [M, K] bf16 -> (da_q, da_s, db_q, db_s, column absmax of da and db); on
+    the walk at ``tpr`` threads a row (default: the route's)."""
+    def call(a, b, dy):
+        M, K = a.shape
+        t = FP.silu_bwd_rows_sm90_route(K, a.dtype) if tpr is None else tpr
+        route, rows = _route(sigs, "qt_silu_mul_bwd_quant_rowwise", t, M, ctas_per_sm)
+        qa, qb = (torch.empty(M, K, dtype=torch.int8, device="cuda") for _ in range(2))
+        sa, sb = (torch.empty(M, 1, dtype=torch.float32, device="cuda") for _ in range(2))
+        col = torch.empty(2 * K, dtype=torch.float32, device="cuda")
+        parts = torch.empty(rows, 2 * K, dtype=torch.float32, device="cuda")
+        none = torch.empty(0, dtype=a.dtype, device="cuda")
+        _build.check(lib.qt_silu_mul_bwd_quant_rowwise(
+            a.data_ptr(), b.data_ptr(), dy.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(),
+            col.data_ptr(), parts.data_ptr(), none.data_ptr(), none.data_ptr(), M, K, FP._rows_per_block(M), FP.EPS,
+            1, sr, amax, 0, ROWS_KEY if sr else 0, *route, _build.stream()), "B11")
+        out = (qa, sa, qb, sb)
+        return out + (col[:K].view(1, K), col[K:].view(1, K)) if amax else out
+    return call
+
+
 def b16(lib, sigs, sm90):
     """B16 on ``lib``'s route ``sm90`` (an entry without the argument has
     the wmma kernel only): a [M, K / 2], b [N, K / 2] packed -> bf16."""
@@ -523,10 +630,12 @@ def main() -> None:
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     # (label, kernel, call): each variant on the sm90 route (B5: its kernels,
     # the SR form for B5sr), and the wmma kernels
-    entries = [(f"{n}/{ROUTE.get(k, 'sm90')}", k, KERNELS[k](lib, sigs, QUANT.get(k, 1)))
+    entries = [(f"{n}/{ROUTE.get(k, 'sm90')}", k, KERNELS[k](lib, sigs, QUANT.get(k, 1), **ROUTE_ARGS.get(n, {}).get(k, {})))
                for n, (lib, sigs) in libs.items() if n != "parent" for k in kernels]
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
+        entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], tpr=0)) for k in ("B7", "B7sr", "B11", "B11sr")
+                    if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
                     for k in kernels if k != "K2"]
@@ -546,6 +655,15 @@ def main() -> None:
             x = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
             x[0], x[:, 1] = 0, 0
             return (x,)
+        if kernel in ("B7", "B7sr"):  # (M, K): x with an all-zero row, a bf16 gamma widened as the wrapper does
+            x = torch.randn(M, N, generator=gen, device="cuda").bfloat16()
+            x[0] = 0
+            return x, (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float()
+        if kernel in ("B11", "B11sr"):  # (M, K): gate, up, and dact with an all-zero column
+            a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
+            dy[:, 1] = 0
+            return a, b, dy
         if kernel == "B17s8":
             return i8((M, K)), i8((K, N))
         if kernel in ("B15", "B15s8"):
@@ -558,13 +676,19 @@ def main() -> None:
     plain = {"B1": ops.scaled_mm_plain, "B2": ops.scaled_mm_lhs_t_plain, "B15": ops.tile_scaled_mm_plain,
              "B15s8": ops.tile_scaled_mm_plain, "B16": ops.scaled_int4_mm_plain, "K2": ops.scaled_mm_rhs_t_plain,
              "B17s8": ops.matmul_plain, "B5": ops.quantize_int8_both_plain,
-             "B5sr": lambda x: ops.quantize_int8_both_plain(x, sr=True, key=B5_KEY)}
+             "B5sr": lambda x: ops.quantize_int8_both_plain(x, sr=True, key=B5_KEY),
+             "B11": ops.silu_mul_bwd_quant_rowwise_plain,
+             "B11sr": lambda a, b, dy: ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, sr=True, key=ROWS_KEY)}
+    if "kept" in libs:  # B7 keeps its first design's bits
+        plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0) for k in ("B7", "B7sr")})
     for kernel, shape in (("B1", (130, 208, 272)), ("B1", (8192, 2048, 5632)), ("B2", (144, 208, 288)),
                           ("B2", (5632, 2048, 8192)), ("B15", (200, 256, 640)), ("B15", (8192, 2048, 5632)),
                           ("B15s8", (200, 256, 640)), ("B15s8", (8192, 2048, 5632)), ("B16", (130, 200, 288)),
                           ("B16", (5632, 2048, 8192)), ("K2", (8192, 5632, 2048)), ("B17s8", (200, 144, 304)),
                           ("B17s8", (4096, 4096, 4096)), *((k, s) for k in ("B5", "B5sr")
-                                                          for s in ((130, 200), (8, 9000), *B5_SHAPES))):
+                                                          for s in ((130, 200), (8, 9000), *B5_SHAPES)),
+                          *((k, s) for k in ("B7", "B7sr") for s in ((1001, 2048), *ROW_SHAPES["B7"])),
+                          *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"]))):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -584,7 +708,8 @@ def main() -> None:
                     print(f"{label} {kernel} {shape}: worst {worst:.2f} fp32 roundings of the folded magnitudes "
                           f"beyond a bf16 half-ulp (bound {R}): within {exact}", flush=True)
                 else:
-                    exact = all(map(torch.equal, got, ref)) if kernel in ("B5", "B5sr") else torch.equal(got, ref)
+                    exact = (all(map(torch.equal, got, ref)) if isinstance(got, tuple)
+                             else torch.equal(got, ref))
                     print(f"{label} {kernel} {shape}: bit-exact {exact}", flush=True)
                 if not (exact or label.startswith("diag_")):
                     raise SystemExit(f"ab_sm90_forms: {label} {kernel} at {shape} differs from the plain version")
@@ -597,9 +722,9 @@ def main() -> None:
                     inputs = copies(*operands(kernel, *shape))
                     times.setdefault((label, kernel, shape), []).append(time_ms(call, inputs, iters=8) * 1e3)
     for kernel, shape in rows:
-        if kernel in ("B5", "B5sr"):  # x read once, two int8 outputs and the bf16 scales written once
+        if kernel in ROW_BYTES:  # the inputs read once, the outputs written once
             M, K = shape
-            bound_us = (4 * M * K + 2 * (M + K)) / HBM_BYTES_PER_S * 1e6
+            bound_us = ROW_BYTES[kernel](M, K) / HBM_BYTES_PER_S * 1e6
             cells = [f"{label} {sum(t) / len(t):.1f} {[round(v, 1) for v in t]} ({bound_us * len(t) / sum(t):.3f})"
                      for (label, k, s), t in times.items() if k == kernel and s == shape]
             print(f"{kernel} M={M} K={K}: bound {bound_us:.1f} us (bytes); " + "; ".join(cells), flush=True)
@@ -628,10 +753,18 @@ def main() -> None:
               + f"; {lib_name} {lib_us:.1f}", flush=True)
 
 
-KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "B17s8": b17s8, "B5": b5, "B5sr": b5}
-# the argument each kernel's entry takes in place of the route: B5's SR flag
-QUANT = {"B5": 0, "B5sr": 1}
-ROUTE = {"B5": "kernel", "B5sr": "kernel"}
+KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "B17s8": b17s8, "B5": b5, "B5sr": b5,
+           "B7": b7, "B7sr": b7, "B11": b11, "B11sr": b11}
+# the argument each kernel's entry takes in place of the route: the SR flag
+QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B11": 0, "B11sr": 1}
+ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B11": "walk", "B11sr": "walk"}
+# the bytes the row quantizes must move at [M, K] bf16: B5 x read, two int8
+# and the bf16 scales written; B7 x and gamma read, q, the fp32 row scales
+# and column absmax written; B11 (a, b, dy) read, two int8, two fp32 row
+# scales and two column absmax written
+ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 * M * K + 2 * (M + K),
+             "B7": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K, "B7sr": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K,
+             "B11": lambda M, K: 8 * M * K + 8 * M + 8 * K, "B11sr": lambda M, K: 8 * M * K + 8 * M + 8 * K}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
 # chip_smoke.py (forward, grad_input, grad_weight of gate/up and down); B17's
@@ -640,9 +773,12 @@ ROUTE = {"B5": "kernel", "B5sr": "kernel"}
 # and of ViT-Giant's (qkv, fc1, proj and fc2 at 6,400 tokens), and at
 # [8192, 5632], where x no longer fits in L2
 B5_SHAPES = [(8192, 2048), (8192, 256), (6400, 4608), (6400, 6144), (6400, 1536), (8192, 5632)]
+# B7 and B11 at the Llama2-1B step's norm and FFN widths
+ROW_SHAPES = {"B7": [(8192, 2048)], "B11": [(8192, 5632)]}
 SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (8192, 5632, 2048)],
           "B2": B2_SHAPES, "B15": B16_SHAPES, "B15s8": B16_SHAPES, "B16": B16_SHAPES, "K2": K2_SHAPES,
-          "B17s8": [(n, n, n) for n in (1024, 2048, 4096)], "B5": B5_SHAPES, "B5sr": B5_SHAPES}
+          "B17s8": [(n, n, n) for n in (1024, 2048, 4096)], "B5": B5_SHAPES, "B5sr": B5_SHAPES,
+          "B7": ROW_SHAPES["B7"], "B7sr": ROW_SHAPES["B7"], "B11": ROW_SHAPES["B11"], "B11sr": ROW_SHAPES["B11"]}
 
 
 if __name__ == "__main__":

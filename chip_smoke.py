@@ -18,7 +18,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B7 with and without the column absmax, B8 given the forward's scales
    and in two passes, B9's row and column forms (bit-exact), B10, and the
    SR forms of B7-B9; B11 and B12 at the MLP backward's [8192, 5632] and
-   [256, 5632], B13 on q, k and v of bench.py's micro-batch [4, 2048] and
+   [256, 5632] (B7 at [8192, 2048] and B11 at [8192, 5632], and their SR
+   forms, checked to launch on the persistent row walk, and timed on their
+   first design too, the parent's kernels, in the same call: route, share
+   of the bound, both times, bit-identical outputs), B13 on q, k and v of
+   bench.py's micro-batch [4, 2048] and
    B14 on its attention output, with their SR forms (all bit-exact); B16
    (int4) and B15 (tile-scaled, e4m3 within its stated bound and int8
    bit-exact) at the forward, grad_input and grad_weight shapes of gate/up
@@ -52,8 +56,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
    of times the code implies (every K2, B1 and B2 launch on the sm90 route,
-   here and in phases 8, 9 and 11), and the same steps in bf16 start from the same
-   loss;
+   here and in phases 8, 9 and 11, every B7 and B11 launch on the row walk,
+   here and in phases 8 and 9), and the same steps in bf16 start from the
+   same loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
    rounding from one key, on the card against the CPU, both on the grouped
@@ -103,7 +108,9 @@ on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists), the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
+exists; for B7 and B11 also their launches on the row walk
+(``sm90_launches``) and their first design's time, ``first_design_ms``),
+the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
 """
@@ -137,6 +144,7 @@ from quantized_training_tpu_torch.utils.tree import tree_leaves
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
+FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
 INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 SEED = 0
@@ -397,9 +405,10 @@ def k2_host_cost(gen: torch.Generator, n: int = 2000) -> None:
 
 
 def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, fp32_ops=0.0, bf16_ops=0.0,
-           sfu_ops=0.0):
+           sfu_ops=0.0, first_ms=None):
     """One kernel's line of the JSON table; ``launches`` is filled in from
-    the run of its path."""
+    the run of its path. ``first_ms``: a redesigned kernel's first design,
+    timed in the same call (B7, B11)."""
     src = ("int8_quant.cu" if name.startswith("quantize") else
            "fused_adamw.cu" if name.startswith("fused_adamw") else
            "fused_producers.cu" if name.startswith(("rmsnorm", "silu", "layernorm", "gelu")) else
@@ -408,9 +417,12 @@ def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, 
            "matmul.cu" if name.startswith("matmul") else
            "int8_attention.cu" if name.startswith("int8_flash") else "scaled_mm.cu")
     bound_ms, bound_by = bound(nbytes, int8_ops, fp32_ops, bf16_ops, sfu_ops)
-    return {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
-            "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
-            "plain_ms": timed[2], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    entry = {"name": name, "route": "cuda", "source": f"quantized_training_tpu_torch/ops/csrc/{src}",
+             "replaces": replaces, "launches": 0, "max_abs_err": worst, "shape": list(timed[0]), "ms": timed[1],
+             "plain_ms": timed[2], "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    if first_ms is not None:
+        entry["first_design_ms"] = first_ms
+    return entry
 
 
 def _max_err(got, ref) -> float:
@@ -838,6 +850,39 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
     return got
 
 
+# B7's and B11's route predicates (ops/fused_producers.py) by counter name
+WALKS = {"rmsnorm_quant_rowwise": "norm_rows_sm90_route", "silu_mul_bwd_quant_rowwise": "silu_bwd_rows_sm90_route"}
+
+
+def walk_vs_first(rows: dict, name: str, kernel, args, nbytes: float) -> float:
+    """B7 or B11 (``name``; an SR form with its ``_sr``) on ``args`` at the
+    path's shape, after ``_held_and_timed`` timed it there: checked to
+    launch once, on the persistent row walk, and to give the outputs of its
+    first design (the parent's kernel, the route forced to 0), which is
+    timed in the same call; prints the route, the share of the bound and
+    both times. Returns the first design's ms."""
+    predicate = WALKS[name.removesuffix("_sr")]
+    route = getattr(FP, predicate)
+    tpr = route(args[0].shape[1], args[0].dtype)
+    ops.reset_launch_counts()
+    walk = kernel(*args)
+    n = ops.launch_counts()
+    check(tpr > 0 and n[name] == 1 and n[f"{name}_sm90"] == 1,
+          f"{name} at {list(args[0].shape)} launched once, on the row walk")
+    setattr(FP, predicate, lambda K, dtype: 0)
+    try:
+        first = kernel(*args)
+        first_ms = time_ms(kernel, copies(*args))
+    finally:
+        setattr(FP, predicate, route)
+    check(all(torch.equal(a, b) for a, b in zip(walk, first)), f"{name}: the walk gives the first design's bits")
+    ms, b_ms = rows[name][2][1], bound(nbytes)[0]
+    print(f"[3] {name} {list(args[0].shape)}: route row walk ({tpr} threads a row), {b_ms / ms:.3f} of the "
+          f"{b_ms:.4f} ms bound; first design (the parent's kernel) {first_ms:.4f} ms ({first_ms / ms:.2f}x this); "
+          "outputs bit-identical")
+    return first_ms
+
+
 def check_fused_producers(gen: torch.Generator, key: int) -> list:
     """B7-B10 and the SR forms of B7-B9 at the fused layer's shapes (x
     [8192, 2048] at the norm sites, gate and up [8192, 5632] at the silu
@@ -846,8 +891,11 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
     B9-col given the forward's scales) are timed and make the entries, the
     other forms (without the absmax, two-pass) are held too. GB/s and the
     share of the roofline count each input read once and each output
-    written once (bf16 inputs, fp32 scales and maxima)."""
+    written once (bf16 inputs, fp32 scales and maxima). B7 and its SR form
+    at [8192, 2048] also on the first design (``walk_vs_first``), beside
+    B9-row, whose kernel is unchanged: the control of the same call."""
     rows = {}  # entry name -> (replaces, worst error, timed, bytes)
+    firsts = {}  # B7's first-design ms by entry name
     run = partial(_held_and_timed, rows)
     pf_ = "quantized_training_tpu/ops/pallas_fused.py"
     for M, K in NORM_SHAPES:
@@ -864,6 +912,9 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
             p_row = partial(ops.rmsnorm_quant_rowwise_plain, with_col_amax=True, **kw)
             out = run(f"rmsnorm_quant_rowwise{tag}", ", column absmax", "int8", k_row, p_row, (x, g), row_bytes,
                       f"{pf_}:154", rn.get("row"))
+            if M == TOKENS:
+                firsts[f"rmsnorm_quant_rowwise{tag}"] = walk_vs_first(rows, f"rmsnorm_quant_rowwise{tag}", k_row,
+                                                                      (x, g), row_bytes)
             scale = out[2] * (1.0 / 127.0)
             k_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise(x, g, scale=scale, **kw)
             p_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise_plain(x, g, scale=scale, **kw)
@@ -903,7 +954,8 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
                 two = run("silu_mul_quant_colwise", ", two passes", "exact", ops.silu_mul_quant_colwise,
                           ops.silu_mul_quant_colwise_plain, (a, b), 0)
                 check(torch.equal(two[0], col[0]), "B9-col given the forward's scales equals B9-col in two passes")
-    return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+    return [_entry(name, replaces, err, timed, nbytes, first_ms=firsts.get(name))
+            for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
 def check_silu_bwd(gen: torch.Generator, key: int) -> list:
@@ -911,10 +963,11 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
     and dact [8192, 5632]) and at [256, 5632], against their plain versions
     on the card, bit-exact: B11 with the column absmax (the path's form with
     an int8 grad_weight, timed) and with the (da, db) copies instead (the
-    bf16 grad_weight's form, held), B12 given B11's column scales. Bytes:
-    (a, b, dy) read once, two int8 written, and the fp32 scales and
-    maxima."""
-    rows = {}
+    bf16 grad_weight's form, held), B12 given B11's column scales; B11 and
+    its SR form at [8192, 5632] also on the first design
+    (``walk_vs_first``). Bytes: (a, b, dy) read once, two int8 written, and
+    the fp32 scales and maxima."""
+    rows, firsts = {}, {}
     run = partial(_held_and_timed, rows)
     pf_ = "quantized_training_tpu/ops/pallas_fused.py"
     for M, K in SILU_SHAPES:
@@ -925,10 +978,13 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
         rn = {}
         for sr in (False, True):
             tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
-            row = run(f"silu_mul_bwd_quant_rowwise{tag}", ", column absmax", "exact",
-                      partial(ops.silu_mul_bwd_quant_rowwise, **kw),
+            k_row = partial(ops.silu_mul_bwd_quant_rowwise, **kw)
+            row = run(f"silu_mul_bwd_quant_rowwise{tag}", ", column absmax", "exact", k_row,
                       partial(ops.silu_mul_bwd_quant_rowwise_plain, **kw), (a, b, dy), 8 * M * K + 8 * M + 8 * K,
                       f"{pf_}:631", rn.get("row"))
+            if M == TOKENS:
+                firsts[f"silu_mul_bwd_quant_rowwise{tag}"] = walk_vs_first(
+                    rows, f"silu_mul_bwd_quant_rowwise{tag}", k_row, (a, b, dy), 8 * M * K + 8 * M + 8 * K)
             scales = tuple(m * (1.0 / 127.0) for m in row[4:])
             col = run(f"silu_mul_bwd_quant_colwise{tag}", ", given scales", "exact",
                       partial(ops.silu_mul_bwd_quant_colwise, **kw), partial(ops.silu_mul_bwd_quant_colwise_plain, **kw),
@@ -937,7 +993,8 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
             run(f"silu_mul_bwd_quant_rowwise{tag}", ", (da, db) copies", "exact",
                 partial(ops.silu_mul_bwd_quant_rowwise, with_amax=False, with_bf16=True, **kw),
                 partial(ops.silu_mul_bwd_quant_rowwise_plain, with_amax=False, with_bf16=True, **kw), (a, b, dy), 0)
-    return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+    return [_entry(name, replaces, err, timed, nbytes, first_ms=firsts.get(name))
+            for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
 def check_b18(gen: torch.Generator, key: int) -> list:
@@ -1304,11 +1361,13 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     rope_ungroup for their grads.
 
     ``layer`` 'fused' (int8): forward K1 per weight (7), K2 per weight (7),
-    B7 at the two norm sites, B9-row at down's input, ungroup_amax and
+    B7 at the two norm sites (every one on the row walk), B9-row at down's
+    input, ungroup_amax and
     ungroup_quant (rows) at o's input. Backward B5 at the output grads of
     q, k, v, o and down, B4 per weight, B1 and B2 per weight, B8 at the two
-    norm sites, B9-col at down's input, B10 at the two norms, B11 and B12
-    for (dgate, dup), ungroup_quant (columns) at o's input and rope_group
+    norm sites, B9-col at down's input, B10 at the two norms, B11 (on the
+    row walk) and B12 for (dgate, dup), ungroup_quant (columns) at o's
+    input and rope_group
     for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
     7 weights and the 4 inputs, K2 per weight, rope_ungroup at o's input;
     backward per weight B5, B4, B1, B2, B4 once per input, rope_group for
@@ -1324,6 +1383,7 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     if layer == "fused":
         counts.update({f"quantize_int8_rowwise{t}": 2 * 7 * n, f"quantize_int8_colwise{t}": 7 * n,
                        f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": 2 * 2 * n,
+                       f"rmsnorm_quant_rowwise{t}_sm90": 2 * 2 * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
                        f"silu_mul_quant_rowwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}": 2 * n,
                        f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, f"silu_mul_bwd_quant_rowwise{t}": n,
                        f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, f"ungroup_quant{t}": 3 * n})

@@ -13,7 +13,8 @@ three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
 of every kernel, summed by group (the port's int8, int4 and tile-scaled
-GEMMs, its quantizes K1, B4 and B5 each apart, its producer kernels, its RoPE and ungroup kernels, B6,
+GEMMs, its quantizes K1, B4 and B5 each apart, B7 and B11 each apart, its other producer kernels, its RoPE and
+ungroup kernels, B6,
 cuBLAS GEMMs, attention,
 torch's copy kernels, the rest: torch's elementwise and reduction kernels),
 the device's busy share of the profiled step's wall time, the layout copies
@@ -55,7 +56,11 @@ VIT_B = 24
 # S8KMajor, B1 S8MnB, B2 S8MnMajor, B16 above 16 rows S4KMajor, B15
 # TileScaledOut...), and these must match before cuBLAS's "gemm"; the wmma
 # kernel is scaled_mm_s8, on packed int4 operands (B16's decode sizes, K % 32
-# != 0) with Src 1 in its template arguments
+# != 0) with Src 1 in its template arguments. A key that is a tuple matches a
+# name holding all of its fragments: B7's first design is row_quant over
+# NormProducer (B9's row form and B18's are row_quant too), mangled or not.
+# B7's and B11's folds of their CTAs' column maxima (reduce_parts) stay in
+# the producer group.
 GROUPS = (
     ("int4 GEMM B16 on the TMA + wgmma mainloop", ("s4kmajor",)),
     ("int4 GEMM B16 on wmma (decode sizes, K % 32 != 0)", ("src)1",)),
@@ -66,8 +71,10 @@ GROUPS = (
     ("int8 GEMM B2 on the TMA + wgmma mainloop", ("s8mnmajor",)),
     ("int8 GEMM K2 on wmma (decode sizes)", ("scaled_mm_s8",)),
     ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer")),
-    ("producer kernels B7-B12 (and B18's column folds)", ("row_quant", "col_quant", "producer_col_absmax",
-                                                          "rmsnorm_bwd_rows", "reduce_parts")),
+    ("B7 RMSNorm row quantize", ("rmsnorm_rows", ("row_quant", "::normproducer"), ("row_quant", "12normproducer"))),
+    ("B11 silu-backward row quantizes", ("silu_bwd_rows", "silu_bwd_row_quant")),
+    ("producer kernels B8, B9, B10, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
+                                                         "rmsnorm_bwd_rows", "reduce_parts")),
     ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
     # B5's first design, which only B5 calls off the vector path take (an
     # unaligned view, a ragged K, rows over 2048 vectors), ends in B4's
@@ -84,7 +91,8 @@ GROUPS = (
 
 def group_of(name: str) -> str:
     low = name.lower()
-    return next((g for g, keys in GROUPS if any(k in low for k in keys)), "elementwise, reductions, loss, copies")
+    found = lambda k: k in low if isinstance(k, str) else all(f in low for f in k)
+    return next((g for g, keys in GROUPS if any(map(found, keys))), "elementwise, reductions, loss, copies")
 
 
 def main() -> None:

@@ -28,11 +28,15 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   :func:`silu_mul_quant_rowwise` and :func:`silu_mul_quant_colwise`, and B10
   :func:`rmsnorm_bwd` (``csrc/fused_producers.cu``), replacing the functions
   of the same names in ``ops/pallas_fused.py``: RMSNorm and silu(a) * b run
-  inside the int8 quantizes, and the RMSNorm backward in one pass;
+  inside the int8 quantizes, and the RMSNorm backward in one pass; B7 on
+  the persistent row walk again in ``rmsnorm_quant_rowwise_sm90`` (and
+  ``_sr_sm90``);
 - B11 :func:`silu_mul_bwd_quant_rowwise` and B12
   :func:`silu_mul_bwd_quant_colwise` (``csrc/fused_producers.cu``), the
   silu backward inside the quantizes of (dgate, dup), replacing the
-  functions of the same names in ``ops/pallas_fused.py``;
+  functions of the same names in ``ops/pallas_fused.py``; B11 on the
+  persistent row walk again in ``silu_mul_bwd_quant_rowwise_sm90`` (and
+  ``_sr_sm90``);
 - B13 :func:`rope_group_kernel` / :func:`rope_ungroup_kernel` and B14
   :func:`ungroup_amax` / :func:`ungroup_quant` (``csrc/rope.cu``), RoPE with
   grouped-query head grouping and the attention output's ungrouping inside
@@ -144,6 +148,8 @@ KERNELS = {
     "fused_adamw_update_sr": (fused_adamw_update, "sr_launches"),
     "rmsnorm_quant_rowwise": (rmsnorm_quant_rowwise, "launches"),
     "rmsnorm_quant_rowwise_sr": (rmsnorm_quant_rowwise, "sr_launches"),
+    "rmsnorm_quant_rowwise_sm90": (rmsnorm_quant_rowwise, "sm90_launches"),
+    "rmsnorm_quant_rowwise_sr_sm90": (rmsnorm_quant_rowwise, "sr_sm90_launches"),
     "rmsnorm_quant_colwise": (rmsnorm_quant_colwise, "launches"),
     "rmsnorm_quant_colwise_sr": (rmsnorm_quant_colwise, "sr_launches"),
     "silu_mul_quant_rowwise": (silu_mul_quant_rowwise, "launches"),
@@ -153,6 +159,8 @@ KERNELS = {
     "rmsnorm_bwd": (rmsnorm_bwd, "launches"),
     "silu_mul_bwd_quant_rowwise": (silu_mul_bwd_quant_rowwise, "launches"),
     "silu_mul_bwd_quant_rowwise_sr": (silu_mul_bwd_quant_rowwise, "sr_launches"),
+    "silu_mul_bwd_quant_rowwise_sm90": (silu_mul_bwd_quant_rowwise, "sm90_launches"),
+    "silu_mul_bwd_quant_rowwise_sr_sm90": (silu_mul_bwd_quant_rowwise, "sr_sm90_launches"),
     "silu_mul_bwd_quant_colwise": (silu_mul_bwd_quant_colwise, "launches"),
     "silu_mul_bwd_quant_colwise_sr": (silu_mul_bwd_quant_colwise, "sr_launches"),
     "rope_group": (rope_group_kernel, "launches"),

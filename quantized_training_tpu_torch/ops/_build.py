@@ -2,7 +2,8 @@
 
 ``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
 (``philox.cuh``, the random stream, is included by four of them,
-``row_common.cuh``, the row-walking kernels' building blocks, by two,
+``row_common.cuh``, the row-walking kernels' building blocks and the
+one-add int8 casts, by three,
 ``mm_tiles.cuh``, the wmma GEMMs' tile copies, by four, and
 ``sm90_gemm.cuh``, the pipelined TMA + wgmma GEMM mainloop, by two): one
 ``nvcc -c`` per source, all started together, then one link into a shared
@@ -55,9 +56,9 @@ _SIGNATURES = {
     ),
     # p, g, ea, eas, scalars, new_p, new_ea, new_eas, n, p_is_bf16, sr, key, stream
     "qt_fused_adamw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _U64, _P),
-    # x, g, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, stream
+    # x, g, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, tpr, ctas, stream
     "qt_rmsnorm_quant_rowwise": (
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _I, _U64, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _I, _U64, _I, _I64, _P,
     ),
     # a, b, q, s_row, amax, parts, M, K, rpb, eps, is_bf16, sr, with_amax, key, stream
     "qt_silu_mul_quant_rowwise": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _U64, _P),
@@ -83,9 +84,11 @@ _SIGNATURES = {
     "qt_gelu_quant_colwise": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
     # x, g, dy, dx, dg, dg_part, M, K, rpb, norm_eps, is_bf16, stream
     "qt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _P),
-    # a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, rpb, eps, is_bf16, sr, with_amax, with_copy, key, stream
+    # a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, rpb, eps, is_bf16, sr, with_amax, with_copy, key,
+    # tpr, ctas, stream
     "qt_silu_mul_bwd_quant_rowwise": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _I, _U64, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _I, _U64, _I, _I64,
+        _P,
     ),
     # a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, is_bf16, sr, key, stream
     "qt_silu_mul_bwd_quant_colwise": (

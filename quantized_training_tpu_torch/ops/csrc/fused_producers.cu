@@ -36,17 +36,19 @@
 // two-pass form.
 //
 // Kernels, what they replace (quantized_training_tpu/ops/pallas_fused.py):
-// - B7 row_quant<NormProducer>: rmsnorm_quant_rowwise (:154), x [M, K] ->
-//   q int8 [M, K], scale fp32 [M], optionally the column absmax fp32 [K];
+// - B7 rmsnorm_rows, or row_quant<NormProducer> at widths the row walk does
+//   not take: rmsnorm_quant_rowwise (:154), x [M, K] -> q int8 [M, K],
+//   scale fp32 [M], optionally the column absmax fp32 [K];
 // - B9 row_quant<SiluProducer>: silu_mul_quant_rowwise (:325), a, b [M, K];
 // - B8 col_quant<NormProducer>: rmsnorm_quant_colwise (:246), column int8
 //   given the column scales, or after producer_col_absmax (the two-pass form);
 // - B9 col_quant<SiluProducer>: silu_mul_quant_colwise (:409), the same;
 // - B10 rmsnorm_bwd_rows + reduce_parts: rmsnorm_bwd (:491), dx in x's
 //   dtype and dgamma fp32 [K] in one read of x and dy;
-// - B11 silu_bwd_row_quant: silu_mul_bwd_quant_rowwise (:631), (a, b, dy)
-//   [M, K] -> the row int8 of da and of db with fp32 row scales, optionally
-//   the column absmax of each and their copies in the inputs' dtype;
+// - B11 silu_bwd_rows, or silu_bwd_row_quant at widths the row walk does
+//   not take: silu_mul_bwd_quant_rowwise (:631), (a, b, dy) [M, K] -> the
+//   row int8 of da and of db with fp32 row scales, optionally the column
+//   absmax of each and their copies in the inputs' dtype;
 // - B12 silu_bwd_col_quant: silu_mul_bwd_quant_colwise (:704), the column
 //   int8 of da and db given their column scales;
 // - B18 row_quant / col_quant / producer_col_absmax over LayerNormProducer
@@ -79,7 +81,23 @@
 // took 103 us that way at [8192, 2048], against 56 us for B8, on an H100
 // 80GB HBM3 at 700 W.) B12 needs no row state: each element's (da, db) is
 // cast with its column's inverse scale, kept in shared memory. wgmma and TMA
-// do not apply; speed beyond 16-byte loads is for later work.
+// do not apply.
+//
+// B7 and B11, the path's largest producer kernels, were redesigned for the
+// H100's memory system (ops/fused_producers.py's routes choose them where
+// their layout leaves no lane idle; the first design above stays for the
+// other widths): a persistent grid of a few CTAs an SM (RowWalk,
+// row_common.cuh) whose groups of whole warps take one row at a time, every
+// lane holding the same kNormV (B7) or one or two (B11) 16-byte vectors of
+// each row, the next row's loaded before this row is worked on; the
+// producer's values stay in registers from the load to the cast, row sums
+// and maxima reduce by warp shuffles and a named barrier a group, the
+// column maxima stay in registers and meet once a CTA (one row of partials
+// a CTA, 264 at [8192, 2048], not 547), and the casts round and convert by
+// one add (byte_rn, byte_sr) where rintf and the float -> int cast each took
+// a quarter-rate conversion. The first design loaded one row's vectors, then
+// waited at four __syncthreads before it cast and stored, with y and the
+// column maxima in shared memory.
 
 #include "row_common.cuh"
 
@@ -290,6 +308,121 @@ row_quant(P p, int8_t* __restrict__ q, float* __restrict__ s_row, float* __restr
     if (threadIdx.x == 0) s_row[row] = s;
   }
   if (COLMAX) store_part<N>(colmax, parts, K);
+}
+
+// B7 on the persistent row walk (RowWalk; the route ops/fused_producers.py::
+// norm_rows_sm90_route picks): a CTA of kThreads threads in groups of TPR,
+// kNormV vectors a thread a row. y, the cast's input, stays in registers from
+// the load to the store; the row's sum of squares and max reduce by warp
+// shuffles, across the group's warps through a few shared words and the
+// group's named barrier (each of the row's two exchanges is read before the
+// group's next barrier, so the next row's writes never meet it); with COLMAX
+// each thread keeps its columns' maxima in registers and the CTA merges its
+// groups' once, into parts[blockIdx.x].
+//
+// The sum of squares is NormProducer::fill's to the bit (so the column
+// maxima are the two-pass form's, producer_col_absmax's): there thread u <
+// 256 fma's its vectors u, u + 256, ... in element order, a 32-lane
+// butterfly sums each warp, and warp 0's sum adds warps 1 .. 7 in order.
+// Here vector t + p TPR of the row is that of thread (t + p TPR) % 256, so
+// with TPR dividing 256 a lane keeps one chain a thread it stands for (the
+// chains of p, p + 256 / TPR, ...), butterflies each across its warp, and the
+// old warps' sums meet in their order.
+// Dynamic shared memory: g (element j of vector v at j nv + v), then (COLMAX)
+// the CTA's column maxima, as bits.
+constexpr int kNormV = 4;  // vectors a thread a row
+
+template <typename T, bool SR, bool COLMAX, int TPR>
+__global__ void __launch_bounds__(kThreads, 2)
+rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ g, int8_t* __restrict__ q, float* __restrict__ s_row,
+             float* __restrict__ parts, int64_t M, int64_t K, float norm_eps, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T), V = kNormV, W = TPR / 32, R = kThreads / TPR;
+  constexpr int C = V < R ? V : R;  // sum-of-squares chains a thread
+  static_assert(kThreads % TPR == 0 && TPR % 32 == 0, "whole warps, whole groups");
+  using Walk = RowWalk<V, 1>;
+  extern __shared__ float smem[];
+  __shared__ float red_ss[R][kWarps];
+  __shared__ unsigned int red_max[R][W];
+  const Walk walk(TPR);
+  const int h = walk.t / 32, lane = walk.t % 32;
+  const int64_t nv = K / N;  // TPR V
+  float* gs = smem;
+  unsigned int* cmax = reinterpret_cast<unsigned int*>(smem + K);
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) {
+    gs[(c % N) * nv + c / N] = g[c];
+    if (COLMAX) cmax[c] = 0u;
+  }
+  __syncthreads();
+  float cm[COLMAX ? V : 1][N];
+#pragma unroll
+  for (int p = 0; p < (COLMAX ? V : 1); ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) cm[p][j] = 0.0f;
+  const uint4* const in[1] = {reinterpret_cast<const uint4*>(x)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
+    float y[V][N], ss[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) ss[c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        y[p][j] = to_f32(e[j]);
+        ss[p % R] = __fmaf_rn(y[p][j], y[p][j], ss[p % R]);
+      }
+    }
+    // chain c of warp h is old warp h + c W's: the old warps' sums in order
+    float tot;
+#pragma unroll
+    for (int c = 0; c < C; ++c) ss[c] = warp_reduce<false>(ss[c]);
+    if constexpr (W == 1) {
+      tot = ss[0];
+#pragma unroll
+      for (int c = 1; c < C; ++c) tot = __fadd_rn(tot, ss[c]);
+    } else {
+      if (lane == 0)
+#pragma unroll
+        for (int c = 0; c < C; ++c) red_ss[walk.grp][h + c * W] = ss[c];
+      group_sync(walk.grp, TPR);
+      tot = red_ss[walk.grp][0];
+#pragma unroll
+      for (int w = 1; w < C * W; ++w) tot = __fadd_rn(tot, red_ss[walk.grp][w]);
+    }
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot, static_cast<float>(K)), norm_eps));
+    float amax = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        y[p][j] = __fmul_rn(__fmul_rn(y[p][j], rstd), gs[j * nv + walk.vec(p)]);
+        amax = fmaxf(amax, fabsf(y[p][j]));
+        if (COLMAX) cm[p][j] = fmaxf(cm[p][j], fabsf(y[p][j]));
+      }
+    unsigned int m = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(amax));  // non-negative: bits order as floats
+    if constexpr (W > 1) {
+      if (lane == 0) red_max[walk.grp][h] = m;
+      group_sync(walk.grp, TPR);
+#pragma unroll
+      for (int w = 0; w < W; ++w) m = ::max(m, red_max[walk.grp][w]);
+    }
+    const float s = __fmul_rn(__uint_as_float(m), kInv127);
+    const float inv = inv_scale(s, eps);
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(y[p], inv, off, key, q + off);
+    }
+    if (walk.t == 0) s_row[row] = s;
+  });
+  if (COLMAX) {
+#pragma unroll
+    for (int p = 0; p < V; ++p)
+#pragma unroll
+      for (int j = 0; j < N; ++j) atomicMax(cmax + walk.vec(p) * N + j, __float_as_uint(cm[p][j]));
+    __syncthreads();
+    for (int64_t c = threadIdx.x; c < K; c += kThreads) parts[blockIdx.x * K + c] = __uint_as_float(cmax[c]);
+  }
 }
 
 // ---- B8 and the column form of B9 -------------------------------------------
@@ -503,6 +636,118 @@ silu_bwd_row_quant(const T* __restrict__ a, const T* __restrict__ b, const T* __
   }
 }
 
+// B11 on the persistent row walk (the route ops/fused_producers.py::
+// silu_bwd_rows_sm90_route picks): groups of tpr threads (a CTA of tpr, or of
+// kThreads when tpr divides it), V vectors a thread a row, tpr V the row's
+// vectors: at K = 5632 bf16 one row of 704 vectors a CTA of 352 threads.
+// (da, db) stay in registers from the load to the casts; the two row maxima
+// reduce by warp shuffles, across the group's warps through shared words
+// (alternating between rows, so one barrier a row suffices); with AMAX each
+// thread keeps its columns' maxima in registers and the CTA writes them, its
+// groups merged, to parts[blockIdx.x] ([CTAs, 2K]: da's at [0, K), db's at
+// [K, 2K)); with COPY (da, db) are also written in T. The sigmoid stays
+// silu_mul_bwd's IEEE division: __frcp_rn rounds 1 / d the same, but ran
+// B11 3% slower (ab_sm90_forms.py's b11_rcp). Dynamic shared memory: with
+// more than one group, the CTA's column maxima [2K], as bits.
+
+// The largest CTA of each layout: 22 warps (6 on some of the SM's four
+// schedulers) leave 80 registers a thread, 12 warps 168.
+constexpr int kSiluRowsMaxCta = 704, kSiluRowsMaxCta2 = 384;
+
+template <typename T, bool SR, bool AMAX, bool COPY, int V>
+__global__ void __launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2)
+silu_bwd_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ dy, int8_t* __restrict__ qa,
+              float* __restrict__ sa, int8_t* __restrict__ qb, float* __restrict__ sb, float* __restrict__ parts,
+              T* __restrict__ ca, T* __restrict__ cb, int64_t M, int64_t K, int tpr, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  using Walk = RowWalk<V, 3>;
+  extern __shared__ unsigned int cmax[];  // [2K]
+  __shared__ uint2 red[2][kSiluRowsMaxCta / 32];  // each warp's (max |da|, max |db|) bits, by row parity
+  const Walk walk(tpr);
+  const int warps = tpr / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool merge = AMAX && blockDim.x > tpr;
+  const int64_t nv = K / N;  // tpr V
+  if (merge) {
+    for (int64_t c = threadIdx.x; c < 2 * K; c += blockDim.x) cmax[c] = 0u;
+    __syncthreads();
+  }
+  float ma[AMAX ? V : 1][N], mb[AMAX ? V : 1][N];
+#pragma unroll
+  for (int p = 0; p < (AMAX ? V : 1); ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) ma[p][j] = mb[p][j] = 0.0f;
+  int parity = 0;
+  const uint4* const in[3] = {reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b),
+                              reinterpret_cast<const uint4*>(dy)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[3][V]) {
+    float da[V][N], db[V][N], am_a = 0.0f, am_b = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* ea = reinterpret_cast<const T*>(&u[0][p]);
+      const T* eb = reinterpret_cast<const T*>(&u[1][p]);
+      const T* ed = reinterpret_cast<const T*>(&u[2][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        silu_mul_bwd(to_f32(ea[j]), to_f32(eb[j]), to_f32(ed[j]), da[p][j], db[p][j]);
+        am_a = fmaxf(am_a, fabsf(da[p][j]));
+        am_b = fmaxf(am_b, fabsf(db[p][j]));
+        if (AMAX) {
+          ma[p][j] = fmaxf(ma[p][j], fabsf(da[p][j]));
+          mb[p][j] = fmaxf(mb[p][j], fabsf(db[p][j]));
+        }
+      }
+      if (COPY) {
+        const int64_t off = row * K + walk.vec(p) * N;
+        store_vec<T, N>(ca + off, da[p]);
+        store_vec<T, N>(cb + off, db[p]);
+      }
+    }
+    // non-negative: the bits order as the floats
+    unsigned int mx = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(am_a));
+    unsigned int my = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(am_b));
+    if (warps > 1) {
+      if (lane == 0) red[parity][warp] = make_uint2(mx, my);
+      group_sync(walk.grp, tpr);
+      for (int w = walk.grp * warps; w < (walk.grp + 1) * warps; ++w) {
+        mx = ::max(mx, red[parity][w].x);
+        my = ::max(my, red[parity][w].y);
+      }
+      parity ^= 1;
+    }
+    const float s_a = __fmul_rn(__uint_as_float(mx), kInv127), s_b = __fmul_rn(__uint_as_float(my), kInv127);
+    const float inv_a = inv_scale(s_a, eps), inv_b = inv_scale(s_b, eps);
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(da[p], inv_a, off, key, qa + off);
+      cast_pack<SR, N>(db[p], inv_b, M * K + off, key, qb + off);
+    }
+    if (walk.t == 0) {
+      sa[row] = s_a;
+      sb[row] = s_b;
+    }
+  });
+  if (!AMAX) return;
+  float* part = parts + blockIdx.x * 2 * K;
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int64_t c = walk.vec(p) * N + j;
+      if (merge) {
+        atomicMax(cmax + c, __float_as_uint(ma[p][j]));
+        atomicMax(cmax + K + c, __float_as_uint(mb[p][j]));
+      } else {
+        part[c] = ma[p][j];
+        part[K + c] = mb[p][j];
+      }
+    }
+  if (merge) {
+    __syncthreads();
+    for (int64_t c = threadIdx.x; c < 2 * K; c += blockDim.x) part[c] = __uint_as_float(cmax[c]);
+  }
+}
+
 // B12: rows [rpb * blockIdx.x, +rpb) of (da, db), each cast with its
 // column's scale (scale_a, scale_b [K]); SR words as B11's. Dynamic shared
 // memory: the inverse scales of da's and db's columns [2K], fp32.
@@ -564,6 +809,40 @@ cudaError_t launch_row(const P& p, void* q, void* s_row, void* amax, void* parts
   return launch_reduce(true, pt, static_cast<float*>(amax), n_blocks(M, rpb), p.K, stream);
 }
 
+// B7 on the row walk: tpr threads a row (32, 64, 128 or 256, with K / N ==
+// tpr kNormV), ctas CTAs, parts [ctas, K].
+template <typename T, bool SR, bool COLMAX, int TPR>
+cudaError_t launch_norm_rows(const void* x, const float* g, void* q, void* s_row, void* amax, void* parts, int64_t M,
+                             int64_t K, int64_t ctas, float norm_eps, float eps, uint64_t key, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(K) * sizeof(float) * (COLMAX ? 2 : 1);
+  const auto kernel = rmsnorm_rows<T, SR, COLMAX, TPR>;
+  float* pt = static_cast<float*>(parts);
+  cudaError_t err;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), g, static_cast<int8_t*>(q), static_cast<float*>(s_row), pt, M, K, norm_eps, eps, key);
+  if ((err = cudaGetLastError()) != cudaSuccess || !COLMAX) return err;
+  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
+}
+
+template <typename T, bool SR, bool COLMAX>
+cudaError_t launch_norm_rows_tpr(int tpr, const void* x, const float* g, void* q, void* s_row, void* amax,
+                                 void* parts, int64_t M, int64_t K, int64_t ctas, float norm_eps, float eps,
+                                 uint64_t key, cudaStream_t stream) {
+  if (K / (16 / static_cast<int64_t>(sizeof(T))) != static_cast<int64_t>(tpr) * kNormV || ctas < 1)
+    return cudaErrorInvalidValue;
+#define QT_TPR(TPR) launch_norm_rows<T, SR, COLMAX, TPR>(x, g, q, s_row, amax, parts, M, K, ctas, norm_eps, eps, key, \
+                                                         stream)
+  switch (tpr) {
+    case 32: return QT_TPR(32);
+    case 64: return QT_TPR(64);
+    case 128: return QT_TPR(128);
+    case 256: return QT_TPR(256);
+    default: return cudaErrorInvalidValue;
+  }
+#undef QT_TPR
+}
+
 // scale: the column scales [K], or nullptr for the two-pass form, which
 // computes the column absmax into amax [K] (by way of parts) and the scales
 // into s_out [K].
@@ -621,6 +900,31 @@ cudaError_t launch_silu_bwd_row(const void* a, const void* b, const void* dy, vo
   return launch_reduce(true, pt, static_cast<float*>(amax), n_blocks(M, rpb), 2 * K, stream);
 }
 
+// B11 on the row walk: tpr threads a row, V = K / N / tpr vectors a thread
+// (1 or 2), ctas CTAs of max(tpr, kThreads) threads, parts [ctas, 2K].
+template <typename T, bool SR, bool AMAX, bool COPY>
+cudaError_t launch_silu_bwd_rows(const void* a, const void* b, const void* dy, void* qa, void* sa, void* qb, void* sb,
+                                 void* amax, void* parts, void* ca, void* cb, int64_t M, int64_t K, int tpr,
+                                 int64_t ctas, float eps, uint64_t key, cudaStream_t stream) {
+  const int64_t nv = K / (16 / static_cast<int64_t>(sizeof(T)));
+  const int cta = tpr > kThreads ? tpr : kThreads;
+  const int64_t V = tpr > 0 && nv % tpr == 0 ? nv / tpr : 0;
+  if (tpr % 32 != 0 || cta % tpr != 0 || ctas < 1 ||
+      !((V == 1 && cta <= kSiluRowsMaxCta) || (V == 2 && cta <= kSiluRowsMaxCta2)))
+    return cudaErrorInvalidValue;
+  const size_t smem = AMAX && cta > tpr ? static_cast<size_t>(2 * K) * sizeof(unsigned int) : 0;
+  const auto kernel = V == 1 ? silu_bwd_rows<T, SR, AMAX, COPY, 1> : silu_bwd_rows<T, SR, AMAX, COPY, 2>;
+  float* pt = static_cast<float*>(parts);
+  cudaError_t err;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned int>(ctas), cta, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(dy), static_cast<int8_t*>(qa),
+      static_cast<float*>(sa), static_cast<int8_t*>(qb), static_cast<float*>(sb), pt, static_cast<T*>(ca),
+      static_cast<T*>(cb), M, K, tpr, eps, key);
+  if ((err = cudaGetLastError()) != cudaSuccess || !AMAX) return err;
+  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, 2 * K, stream);
+}
+
 template <typename T, bool SR>
 cudaError_t launch_silu_bwd_col(const void* a, const void* b, const void* dy, const void* scale_a,
                                 const void* scale_b, void* qa, void* qb, int64_t M, int64_t K, int64_t rpb, float eps,
@@ -669,11 +973,25 @@ GeluProducer<T> gelu_producer(const void* a, int64_t K) {
 
 // B7: q, s_row [M]; with with_amax the column absmax into amax [K], by way
 // of parts, fp32 scratch of ceil(M / rpb) * K floats (else both unused).
+// tpr (ops/fused_producers.py::norm_rows_sm90_route): 0 takes row_quant with
+// rpb rows a block; else rmsnorm_rows with tpr threads a row on ctas CTAs,
+// parts then ctas * K floats.
 extern "C" int qt_rmsnorm_quant_rowwise(const void* x, const void* g, void* q, void* s_row, void* amax, void* parts,
                                         int64_t M, int64_t K, int64_t rpb, float norm_eps, float eps, int is_bf16,
-                                        int sr, int with_amax, uint64_t key, void* stream) {
+                                        int sr, int with_amax, uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gf = static_cast<const float*>(g);
+  if (tpr != 0) {
+#define QT_ROWS(T, SR, AM) launch_norm_rows_tpr<T, SR, AM>(tpr, x, gf, q, s_row, amax, parts, M, K, ctas, norm_eps, \
+                                                            eps, key, s)
+    if (is_bf16)
+      return sr ? (with_amax ? QT_ROWS(__nv_bfloat16, true, true) : QT_ROWS(__nv_bfloat16, true, false))
+                : (with_amax ? QT_ROWS(__nv_bfloat16, false, true) : QT_ROWS(__nv_bfloat16, false, false));
+    return sr ? (with_amax ? QT_ROWS(float, true, true) : QT_ROWS(float, true, false))
+              : (with_amax ? QT_ROWS(float, false, true) : QT_ROWS(float, false, false));
+#undef QT_ROWS
+  }
 #define QT_ROW(T, SR, AM) launch_row<NormProducer<T>, SR, AM>(norm_producer<T>(x, g, K, norm_eps), q, s_row, amax, \
                                                               parts, M, rpb, eps, key, s)
   if (is_bf16)
@@ -744,15 +1062,20 @@ extern "C" int qt_rmsnorm_bwd(const void* x, const void* g, const void* dy, void
 // B11: qa, qb int8 [M, K], sa, sb fp32 [M]; with with_amax the column absmax
 // of da and of db into amax [2K] (da's first), by way of parts, fp32 scratch
 // of ceil(M / rpb) * 2K floats; with with_copy da and db in the inputs'
-// dtype into ca, cb [M, K] (else those are unused).
+// dtype into ca, cb [M, K] (else those are unused). tpr
+// (ops/fused_producers.py::silu_bwd_rows_sm90_route): 0 takes
+// silu_bwd_row_quant with rpb rows a block; else silu_bwd_rows with tpr
+// threads a row on ctas CTAs, parts then ctas * 2K floats.
 extern "C" int qt_silu_mul_bwd_quant_rowwise(const void* a, const void* b, const void* dy, void* qa, void* sa, void* qb,
                                              void* sb, void* amax, void* parts, void* ca, void* cb, int64_t M,
                                              int64_t K, int64_t rpb, float eps, int is_bf16, int sr, int with_amax,
-                                             int with_copy, uint64_t key, void* stream) {
+                                             int with_copy, uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QT_ROW(T, SR, AM, CP) launch_silu_bwd_row<T, SR, AM, CP>(a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, \
-                                                                 rpb, eps, key, s)
+#define QT_ROW(T, SR, AM, CP)                                                                                    \
+  (tpr != 0 ? launch_silu_bwd_rows<T, SR, AM, CP>(a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, tpr, ctas, \
+                                                  eps, key, s)                                                  \
+            : launch_silu_bwd_row<T, SR, AM, CP>(a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, rpb, eps, key, s))
 #define QT_FORMS(T, SR) (with_amax ? (with_copy ? QT_ROW(T, SR, true, true) : QT_ROW(T, SR, true, false)) \
                                    : (with_copy ? QT_ROW(T, SR, false, true) : QT_ROW(T, SR, false, false)))
   if (is_bf16) return sr ? QT_FORMS(__nv_bfloat16, true) : QT_FORMS(__nv_bfloat16, false);

@@ -84,31 +84,19 @@
 // the memory time of the pass. B5 draws its row and its column cast from
 // two keys the wrapper derives from the call's key.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
-#include "philox.cuh"
+#include "row_common.cuh"  // kThreads, to_f32, clamp_int8, vec_words, PackOf and the one-add casts
 
 namespace {
 
-constexpr int kThreads = 256;        // 8 warps
 constexpr int64_t kBlockRowMinK = 1024;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ void store_scale(float* p, float s) { *p = s; }
 __device__ __forceinline__ void store_scale(__nv_bfloat16* p, float s) {
   *p = __float2bfloat16_rn(s);
-}
-
-__device__ __forceinline__ int8_t clamp_int8(float r) {
-  return static_cast<int8_t>(fminf(fmaxf(r, -128.0f), 127.0f));
 }
 
 __device__ __forceinline__ int8_t quant_one(float v, float denom) {
@@ -123,25 +111,9 @@ __device__ __forceinline__ int8_t quant_one_sr(float v, float denom, uint32_t wo
 }
 
 template <bool SR>
-__device__ __forceinline__ int8_t quant(float v, float denom, uint32_t word) {
+__device__ __forceinline__ int8_t quant_div(float v, float denom, uint32_t word) {
   return SR ? quant_one_sr(v, denom, word) : quant_one(v, denom);
 }
-
-// The stream words of a 16-byte vector's N elements starting at idx0
-// (a multiple of 4); nothing is drawn without SR.
-template <bool SR, int N>
-__device__ __forceinline__ void vec_words(uint64_t idx0, uint64_t key, uint32_t (&w)[N]) {
-  if (SR) {
-    qt::stream_words<N>(idx0, key, w);
-  } else {
-#pragma unroll
-    for (int j = 0; j < N; ++j) w[j] = 0u;
-  }
-}
-
-template <int N> struct PackOf;
-template <> struct PackOf<8> { using type = uint2; };         // 8 int8 from 8 bf16
-template <> struct PackOf<4> { using type = unsigned int; };  // 4 int8 from 4 fp32
 
 // Absmax of one row, over the elements this thread owns (start ``tid``,
 // stride ``STRIDE``): 16-byte vectors when ``vec``, else single elements.
@@ -183,12 +155,12 @@ __device__ __forceinline__ void row_cast(const T* __restrict__ xr, int8_t* __res
         int8_t c[N];
       } out;
 #pragma unroll
-      for (int j = 0; j < N; ++j) out.c[j] = quant<SR>(to_f32(e[j]), denom, w[j]);
+      for (int j = 0; j < N; ++j) out.c[j] = quant_div<SR>(to_f32(e[j]), denom, w[j]);
       qv[i] = out.p;
     }
   } else {
     for (int64_t i = tid; i < K; i += STRIDE)
-      qr[i] = quant<SR>(to_f32(xr[i]), denom, SR ? qt::philox_word(base + i, key) : 0u);
+      qr[i] = quant_div<SR>(to_f32(xr[i]), denom, SR ? qt::philox_word(base + i, key) : 0u);
   }
 }
 
@@ -333,12 +305,12 @@ col_cast(const T* __restrict__ x, const float* __restrict__ amax, int8_t* __rest
         int8_t c[N];
       } out;
 #pragma unroll
-      for (int j = 0; j < N; ++j) out.c[j] = quant<SR>(to_f32(e[j]), denom[j], w[j]);
+      for (int j = 0; j < N; ++j) out.c[j] = quant_div<SR>(to_f32(e[j]), denom[j], w[j]);
       *reinterpret_cast<Pack*>(qr) = out.p;
     } else {
 #pragma unroll
       for (int j = 0; j < N; ++j)
-        if (c0 + j < C) qr[j] = quant<SR>(to_f32(xr[j]), denom[j], SR ? qt::philox_word(idx0 + j, key) : 0u);
+        if (c0 + j < C) qr[j] = quant_div<SR>(to_f32(xr[j]), denom[j], SR ? qt::philox_word(idx0 + j, key) : 0u);
     }
   }
 }
@@ -453,32 +425,6 @@ __device__ __forceinline__ float div_rn(float x, float d, float y) {
   float q = __fmul_rn(x, y);
   q = __fmaf_rn(__fmaf_rn(-d, q, x), y, q);
   return __fmaf_rn(__fmaf_rn(-d, q, x), y, q);
-}
-
-// 1.5 * 2^23: v + kMagic is v rounded to an integer (half to even) for |v| <
-// 2^22, held in the low bits of the sum's word, so one add rounds and
-// converts, where rintf and a float -> int cast each take a quarter-rate
-// conversion.
-constexpr float kMagic = 12582912.0f;
-
-// rint(q) clamped to [-128, 127], in the low byte of the word (clamping
-// first rounds the same)
-__device__ __forceinline__ uint32_t byte_rn(float q) {
-  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, -128.0f), 127.0f), kMagic));
-}
-
-// floor(q + u) clamped to [-128, 127], u the uniform of ``word``: the sum
-// rounded to an integer by kMagic, less one where that rounded up
-__device__ __forceinline__ uint32_t byte_sr(float q, uint32_t word) {
-  const float s = __fadd_rn(q, qt::uniform_of(word));
-  float r = __fsub_rn(__fadd_rn(s, kMagic), kMagic);
-  r = r > s ? __fsub_rn(r, 1.0f) : r;
-  return __float_as_uint(__fadd_rn(fminf(fmaxf(r, -128.0f), 127.0f), kMagic));
-}
-
-// the low bytes of 4 words, in order
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
 // The int8 cast of a 16-byte vector starting at element idx0 of the stream

@@ -1,4 +1,5 @@
-// Building blocks of the row-walking kernels (fused_producers.cu, rope.cu).
+// Building blocks of the row-walking kernels (fused_producers.cu, rope.cu,
+// int8_quant.cu).
 //
 // A block of kThreads threads walks a run of rows; a thread owns the same
 // 16-byte vectors of every row, so its loads are coalesced and the per-column
@@ -9,6 +10,15 @@
 // The int8 cast is the Pallas bodies' (ops/pallas_quant.py:75-87): q =
 // rint(y * (1 / max(scale, eps))) with a correctly rounded reciprocal, or with
 // SR floor(y * inv + u), u from the Philox stream (philox.cuh), clamped.
+//
+// The persistent form (RowWalk, fused_producers.cu's B7 and B11): a group of
+// TPR threads (whole warps) takes one row at a time, V vectors a thread with
+// TPR V the row's vectors, so no lane idles; the next row's vectors are
+// loaded before the group works on this row's, and a thread keeps its
+// columns' running state in registers, since it owns the same columns in
+// every row it takes. The casts round and convert by one add (byte_rn,
+// byte_sr), where rintf and the float -> int cast each take a quarter-rate
+// conversion an element.
 
 #pragma once
 
@@ -57,6 +67,58 @@ template <bool SR>
 __device__ __forceinline__ int8_t quant(float y, float inv, uint32_t word) {
   const float r = __fmul_rn(y, inv);
   return clamp_int8(SR ? floorf(__fadd_rn(r, qt::uniform_of(word))) : rintf(r));
+}
+
+// 1.5 * 2^23: v + kMagic is v rounded to an integer (half to even) for |v| <
+// 2^22, held in the low bits of the sum's word, so one add rounds and
+// converts, where rintf and a float -> int cast each take a quarter-rate
+// conversion.
+constexpr float kMagic = 12582912.0f;
+
+// rint(q) clamped to [-128, 127], in the low byte of the word (clamping
+// first rounds the same)
+__device__ __forceinline__ uint32_t byte_rn(float q) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, -128.0f), 127.0f), kMagic));
+}
+
+// floor(q + u) clamped to [-128, 127], u the uniform of ``word``: the sum
+// rounded to an integer by kMagic, less one where that rounded up
+__device__ __forceinline__ uint32_t byte_sr(float q, uint32_t word) {
+  const float s = __fadd_rn(q, qt::uniform_of(word));
+  float r = __fsub_rn(__fadd_rn(s, kMagic), kMagic);
+  r = r > s ? __fsub_rn(r, 1.0f) : r;
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(r, -128.0f), 127.0f), kMagic));
+}
+
+// the low bytes of 4 words, in order
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// The int8 of N products y[j] * inv (quant<SR>'s values, bit for bit: |y
+// inv| <= 127 (1 + 2^-23) < 2^22), stored as one N-byte pack at q; with SR
+// element j draws word idx0 + j of the stream of ``key`` (idx0 % 4 == 0),
+// four words a Philox call, each call's words used as soon as drawn.
+template <bool SR, int N>
+__device__ __forceinline__ void cast_pack(const float (&y)[N], float inv, uint64_t idx0, uint64_t key, int8_t* q) {
+  uint32_t b[N / 4];
+#pragma unroll
+  for (int k = 0; k < N / 4; ++k) {
+    const uint4 w = SR ? qt::philox_block((idx0 >> 2) + k, key) : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    uint32_t c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float r = __fmul_rn(y[4 * k + j], inv);
+      c[j] = SR ? byte_sr(r, words[j]) : byte_rn(r);
+    }
+    b[k] = pack4(c[0], c[1], c[2], c[3]);
+  }
+  if constexpr (N == 8) {
+    *reinterpret_cast<uint2*>(q) = make_uint2(b[0], b[1]);
+  } else {
+    *reinterpret_cast<unsigned int*>(q) = b[0];
+  }
 }
 
 // The inverse scale of the cast: 1 / max(scale, eps), correctly rounded.
@@ -165,6 +227,50 @@ cudaError_t launch_reduce(bool max, const float* parts, float* out, int64_t npar
   else
     reduce_parts<false><<<blocks, 32 * kPartLanes, 0, stream>>>(parts, out, nparts, K);
   return cudaGetLastError();
+}
+
+// ---- the persistent row walk ------------------------------------------------
+
+// Group grp of a CTA's groups of TPR threads takes rows grp + groups *
+// blockIdx.x, then every groups * gridDim.x-th row after it; thread t of the
+// group holds vector t + p TPR (p < V) of each of its rows, in each of NIN
+// inputs [M, nv] of 16-byte vectors (nv = TPR V).
+template <int V, int NIN>
+struct RowWalk {
+  int tpr, grp, t;
+  __device__ explicit RowWalk(int tpr_) : tpr(tpr_), grp(threadIdx.x / tpr_), t(threadIdx.x % tpr_) {}
+  __device__ int64_t vec(int p) const { return t + static_cast<int64_t>(p) * tpr; }
+  __device__ void load(const uint4* const (&in)[NIN], int64_t row, int64_t nv, uint4 (&u)[NIN][V]) const {
+#pragma unroll
+    for (int k = 0; k < NIN; ++k)
+#pragma unroll
+      for (int p = 0; p < V; ++p) u[k][p] = in[k][row * nv + vec(p)];
+  }
+  // body(row, u) on each of the group's rows in turn, u the row's vectors:
+  // the next row's are loaded before the body runs on this row's, so that
+  // every warp has loads in flight while it computes
+  template <class Body>
+  __device__ void run(const uint4* const (&in)[NIN], int64_t M, int64_t nv, Body&& body) const {
+    const int64_t groups = blockDim.x / tpr, stride = groups * gridDim.x;
+    uint4 a[NIN][V], b[NIN][V];
+    int64_t i = blockIdx.x * groups + grp;
+    if (i < M) load(in, i, nv, a);
+    while (i < M) {
+      const int64_t j = i + stride;
+      if (j < M) load(in, j, nv, b);
+      body(i, a);
+      if (j >= M) break;
+      i = j + stride;
+      if (i < M) load(in, i, nv, a);
+      body(j, b);
+    }
+  }
+};
+
+// Wait for the TPR threads of group grp (named barrier 1 + grp; 0 is
+// __syncthreads'), so that one group's row exchange never waits for another.
+__device__ __forceinline__ void group_sync(int grp, int tpr) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(tpr) : "memory");
 }
 
 // ---- launch helpers ---------------------------------------------------------

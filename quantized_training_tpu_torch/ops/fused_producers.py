@@ -38,7 +38,12 @@ Scales and column maxima are fp32, as the Pallas kernels return them.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/fused_producers.cu`` (whose header says what bounds it on the H100
 and how its design answers that) or raises. Each wrapper counts its
-launches, an SR form apart (``sr_launches``). B9, B11, B12 and B18's GELU
+launches, an SR form apart (``sr_launches``). B7 and B11 take the persistent
+row walk, redesigned for the H100's memory system, wherever its layout
+leaves no lane idle (:func:`norm_rows_sm90_route`,
+:func:`silu_bwd_rows_sm90_route`, decided here and passed to the C entry),
+and count those launches again (``sm90_launches``, ``sr_sm90_launches``);
+other widths keep the first design. B9, B11, B12 and B18's GELU
 forms are bit-exact with their plain versions on the card. B7, B8, B10 and
 B18's LayerNorm forms hold a row sum, which the kernel takes in its own
 order: their int8 outputs may differ by one step on rare elements, their
@@ -47,6 +52,7 @@ scales, maxima, dx and dgamma by fp32 rounding.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -302,6 +308,67 @@ def supported(M: int, K: int, dtype, n_inputs: int = 1) -> bool:
     return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= max_k and K % 128 == 0
 
 
+# ---- the routes of B7 and B11 ----------------------------------------------------
+
+# B7's vectors a thread a row on the row walk (csrc/fused_producers.cu::kNormV)
+NORM_ROW_VECTORS = 4
+_CTA = 256  # the row kernels' block (csrc/row_common.cuh::kThreads)
+# B11's row walk: vectors a thread -> its largest CTA, in the order tried
+# (two vectors ran B11 at 157.4 us at [8192, 5632] on the H100, one 177.6:
+# ab_sm90_forms.py, PERF.md)
+_SILU_ROWS_MAX_CTA = {2: 384, 1: 704}
+# CTAs an SM the walks' launch bounds keep resident: B7 two of 256, B11 one
+NORM_CTAS_PER_SM, SILU_CTAS_PER_SM = 2, 1
+
+
+def norm_rows_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B7 on the persistent row walk
+    (``csrc/fused_producers.cu::rmsnorm_rows``), 0 for the first design
+    (``row_quant``): ``NORM_ROW_VECTORS`` 16-byte vectors a thread, so K
+    holds 32, 64, 128 or 256 times that many (bf16 K 1024-8192, fp32
+    512-4096; the Llama2-1B step's 2048 with 64), groups that divide the
+    block, so that B7's sum of squares keeps the first design's order."""
+    nv = K * dtype.itemsize // 16
+    tpr = nv // NORM_ROW_VECTORS
+    return tpr if tpr * NORM_ROW_VECTORS == nv and tpr in (32, 64, 128, 256) else 0
+
+
+def silu_bwd_rows_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B11 on the persistent row walk
+    (``csrc/fused_producers.cu::silu_bwd_rows``), 0 for the first design
+    (``silu_bwd_row_quant``): two 16-byte vectors a thread, else one, whole
+    warps, a group that fills its block or divides it, within the block the
+    kernel's registers allow (bf16 K = 5632: 352 threads, two vectors
+    each)."""
+    nv = K * dtype.itemsize // 16
+    for v, max_cta in _SILU_ROWS_MAX_CTA.items():
+        tpr = nv // v
+        if tpr * v == nv and tpr % 32 == 0 and tpr > 0 and max(tpr, _CTA) % tpr == 0 and max(tpr, _CTA) <= max_cta:
+            return tpr
+    return 0
+
+
+def row_walk_ctas(M: int, tpr: int, sms: int, per_sm: int) -> int:
+    """CTAs of a row walk of M rows at ``tpr`` threads a row: a block of
+    max(tpr, 256) threads, its groups one row each at a time, at most
+    ``per_sm`` blocks on each of ``sms`` SMs."""
+    return min(-(-M // (max(tpr, _CTA) // tpr)), per_sm * sms)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _count_route(fn, sr: bool, tpr: int) -> None:
+    """Count a launch per form, and on the row walk again."""
+    _count(fn, sr)
+    if tpr and sr:
+        fn.sr_sm90_launches += 1
+    elif tpr:
+        fn.sm90_launches += 1
+
+
 # ---- wrappers -------------------------------------------------------------------
 
 
@@ -315,6 +382,16 @@ def _rows_per_block(M: int) -> int:
 def _parts(M: int, K: int, device, needed: bool = True) -> torch.Tensor:
     """fp32 scratch for the per-block column maxima or sums, [blocks, K]."""
     return torch.empty((-(-M // _rows_per_block(M)), K) if needed else (0,), dtype=torch.float32, device=device)
+
+
+def _route_parts(M: int, K: int, device, needed: bool, tpr: int, per_sm: int) -> tuple[int, torch.Tensor]:
+    """The grid of B7's or B11's route (0 for the first design) and the
+    fp32 scratch of its column partials: [CTAs, K] on the row walk (one row
+    a CTA), [blocks, K] for the first design."""
+    if not tpr:
+        return 0, _parts(M, K, device, needed)
+    ctas = row_walk_ctas(M, tpr, _sm_count(device), per_sm)
+    return ctas, torch.empty((ctas, K) if needed else (0,), dtype=torch.float32, device=device)
 
 
 def _check(what: str, *tensors: torch.Tensor) -> tuple[int, int]:
@@ -355,10 +432,11 @@ def rmsnorm_quant_rowwise(x: torch.Tensor, g: torch.Tensor, *, norm_eps: float =
                                            with_col_amax=with_col_amax)
     gf = _gamma(g, x, "rmsnorm_quant_rowwise")
     dt = int(x.dtype == torch.bfloat16)
-    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_rmsnorm_quant_rowwise(
-        x.data_ptr(), gf.data_ptr(), q, s, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), int(with_col_amax), k,
-        _build.stream())
-    return _rowwise("rmsnorm_quant_rowwise", rmsnorm_quant_rowwise, launch, (x,), sr, key, with_col_amax)
+    launch = lambda q, s, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_rmsnorm_quant_rowwise(
+        x.data_ptr(), gf.data_ptr(), q, s, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), int(with_col_amax), k, tpr,
+        ctas, _build.stream())
+    return _rowwise("rmsnorm_quant_rowwise", rmsnorm_quant_rowwise, launch, (x,), sr, key, with_col_amax,
+                    norm_rows_sm90_route(x.shape[-1], x.dtype))
 
 
 def silu_mul_quant_rowwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS, sr: bool = False,
@@ -373,19 +451,23 @@ def silu_mul_quant_rowwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS
     return _rowwise("silu_mul_quant_rowwise", silu_mul_quant_rowwise, launch, (a, b), sr, key, with_col_amax)
 
 
-def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax):
+def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr=None):
     """Launch the row form of B7, B9 or B18: ``(q int8 [M, K], scale fp32
-    [M, 1])``, with ``with_col_amax`` also the column absmax fp32 [1, K]."""
+    [M, 1])``, with ``with_col_amax`` also the column absmax fp32 [1, K].
+    ``tpr`` (B7 only, whose entry takes a route): the threads a row on the
+    row walk, 0 for the first design."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     dev = inputs[0].device
     q = torch.empty((M, K), dtype=torch.int8, device=dev)
     scale = torch.empty((M, 1), dtype=torch.float32, device=dev)
     amax = torch.empty((1, K) if with_col_amax else (0,), dtype=torch.float32, device=dev)
-    parts = _parts(M, K, dev, with_col_amax)
-    err = launch(q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K, _rows_per_block(M), key)
+    ctas, parts = _route_parts(M, K, dev, with_col_amax, tpr or 0, NORM_CTAS_PER_SM)
+    route = () if tpr is None else (tpr, ctas)
+    err = launch(q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K, _rows_per_block(M), key,
+                 *route)
     _build.check(err, what)
-    _count(fn, sr)
+    _count_route(fn, sr, bool(tpr))
     return (q, scale, amax) if with_col_amax else (q, scale)
 
 
@@ -477,15 +559,16 @@ def silu_mul_bwd_quant_rowwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
     qa, qb = (torch.empty((M, K), dtype=torch.int8, device=dev) for _ in range(2))
     sa, sb = (torch.empty((M, 1), dtype=torch.float32, device=dev) for _ in range(2))
     amax = torch.empty(2 * K if with_amax else 0, dtype=torch.float32, device=dev)
-    parts = _parts(M, 2 * K, dev, with_amax)
+    tpr = silu_bwd_rows_sm90_route(K, a.dtype)
+    ctas, parts = _route_parts(M, 2 * K, dev, with_amax, tpr, SILU_CTAS_PER_SM)
     ca, cb = (torch.empty((M, K) if with_bf16 else (0,), dtype=a.dtype, device=dev) for _ in range(2))
     err = _build.library().qt_silu_mul_bwd_quant_rowwise(
         a.data_ptr(), b.data_ptr(), dy.data_ptr(), qa.data_ptr(), sa.data_ptr(), qb.data_ptr(), sb.data_ptr(),
         amax.data_ptr(), parts.data_ptr(), ca.data_ptr(), cb.data_ptr(), M, K, _rows_per_block(M), eps,
-        int(a.dtype == torch.bfloat16), int(sr), int(with_amax), int(with_bf16), key, _build.stream(),
+        int(a.dtype == torch.bfloat16), int(sr), int(with_amax), int(with_bf16), key, tpr, ctas, _build.stream(),
     )
     _build.check(err, "silu_mul_bwd_quant_rowwise")
-    _count(silu_mul_bwd_quant_rowwise, sr)
+    _count_route(silu_mul_bwd_quant_rowwise, sr, tpr)
     out = (qa, sa, qb, sb)
     if with_amax:
         out += (amax[:K].view(1, K), amax[K:].view(1, K))
@@ -598,4 +681,6 @@ for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise
             silu_mul_bwd_quant_rowwise, silu_mul_bwd_quant_colwise, layernorm_quant_rowwise,
             layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
     _fn.launches = _fn.sr_launches = 0
+rmsnorm_quant_rowwise.sm90_launches = rmsnorm_quant_rowwise.sr_sm90_launches = 0
+silu_mul_bwd_quant_rowwise.sm90_launches = silu_mul_bwd_quant_rowwise.sr_sm90_launches = 0
 rmsnorm_bwd.launches = 0

@@ -5,7 +5,7 @@ fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
 this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16,
 B15's int8 form, B17's int8 form and B18's GELU forms — each is bit-exact with its plain
-version by construction. B15's e4m3 form sums a block in the tensor core in
+version by construction. B7's row walk gives B7's first design's bits. B15's e4m3 form sums a block in the tensor core in
 fp32: within (QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8, B10
 and B18's LayerNorm forms hold a row sum that the kernel takes in its own
 fixed order: int8 within one step on at
@@ -33,6 +33,7 @@ from quantized_training_tpu_torch.utils.tree import tree_leaves
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
+FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
 
 pytestmark = pytest.mark.cuda
 
@@ -303,6 +304,57 @@ def test_fused_producer_row_forms(M, K, dtype, sr):
             assert t.dtype == r.dtype and torch.equal(t, r)
 
 
+# B7 at the Llama2-1B step's norm sites, and at a row count that fills no
+# whole step of the walk's groups
+_B7_PATH_SHAPES = [(8192, 2048), (1001, 2048)]
+
+
+@pytest.mark.parametrize("walk", [True, False])
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K", _B7_PATH_SHAPES)
+def test_b7_at_the_path_shape(monkeypatch, M, K, sr, walk):
+    """B7 on the row walk (``norm_rows_sm90_route``, the path's route at K =
+    2048 bf16) and on the first design (the route forced to 0), with and
+    without the column absmax, and its SR form: within B7's bars of the
+    plain version, each launch counted on the route it took."""
+    if not walk:
+        monkeypatch.setattr(FP, "norm_rows_sm90_route", lambda K, dtype: 0)
+    x, g, _, _ = _producer_inputs(M, K, torch.bfloat16, 60)
+    kw = dict(sr=sr, key=2**61 + 3 if sr else None)
+    for amax in (False, True):
+        ops.reset_launch_counts()
+        got = ops.rmsnorm_quant_rowwise(x, g, with_col_amax=amax, **kw)
+        torch.cuda.synchronize()
+        t = "_sr" if sr else ""
+        counts = ops.launch_counts()
+        assert counts[f"rmsnorm_quant_rowwise{t}"] == 1 and counts[f"rmsnorm_quant_rowwise{t}_sm90"] == int(walk)
+        ref = ops.rmsnorm_quant_rowwise_plain(x, g, with_col_amax=amax, **kw)
+        _int8_close(got[0], ref[0], "B7 q")
+        for t_, r in zip(got[1:], ref[1:]):
+            _rel_close(t_, r, 1e-6, "B7 scale / column absmax")
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K", [*_B7_PATH_SHAPES, (256, 1024), (64, 8192)])
+def test_b7_walk_gives_the_first_designs_bits(monkeypatch, M, K, sr):
+    """The row walk keeps the first design's sum of squares, so B7's
+    outputs (q, the row scales, the column absmax) are the first design's
+    bit for bit, at 32, 64 and 256 threads a row; given that column absmax
+    at [8192, 2048], B8's one-pass form equals its two-pass form bit for
+    bit."""
+    x, g, _, _ = _producer_inputs(M, K, torch.bfloat16, 70)
+    kw = dict(sr=sr, key=123 if sr else None)
+    assert FP.norm_rows_sm90_route(K, torch.bfloat16)
+    walk = ops.rmsnorm_quant_rowwise(x, g, with_col_amax=True, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(FP, "norm_rows_sm90_route", lambda K, dtype: 0)
+        first = ops.rmsnorm_quant_rowwise(x, g, with_col_amax=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(walk, first))
+    one = ops.rmsnorm_quant_colwise(x, g, scale=walk[2] * (1.0 / 127.0), **kw)
+    two = ops.rmsnorm_quant_colwise(x, g, **kw)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1].reshape(-1), two[1].reshape(-1))
+
+
 @pytest.mark.parametrize("sr", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K", _PRODUCER_SHAPES)
@@ -420,7 +472,7 @@ def test_fused_producers_refuse_what_they_cannot_take():
         ops.gelu_quant(a[:, :200].contiguous(), axis=0)
 
 
-_SILU_BWD_SHAPES = [(32, 128), (96, 640), (1000, 5632), (8192, 5632)]
+_SILU_BWD_SHAPES = [(32, 128), (96, 640), (1000, 5632), (8192, 5632), (1001, 2048)]
 
 
 @pytest.mark.parametrize("sr", [False, True])
@@ -429,14 +481,21 @@ _SILU_BWD_SHAPES = [(32, 128), (96, 640), (1000, 5632), (8192, 5632)]
 def test_silu_bwd_forms_bit_exact(M, K, dtype, sr):
     """B11 (with the column absmax, and with the (da, db) copies instead)
     and B12 given B11's column scales, and their SR forms with one key,
-    against their plain versions: every output bit-exact."""
+    against their plain versions: every output bit-exact; B11 on the route
+    ``silu_bwd_rows_sm90_route`` gives (the row walk at bf16 K = 5632, the
+    path's shape, and at K = 2048; the first design at bf16 K = 128 and
+    640)."""
     _, _, a, b = _producer_inputs(M, K, dtype, 50)
     dy = _rand((M, K), dtype, 53)
     dy[1] = 0  # an all-zero row of (da, db)
     kw = dict(sr=sr, key=2**63 + 7 if sr else None)
+    walk = int(FP.silu_bwd_rows_sm90_route(K, dtype) > 0)
+    assert walk or not (dtype == torch.bfloat16 and K == 5632)
     for amax, copy in ((True, False), (False, True)):
+        ops.reset_launch_counts()
         got = ops.silu_mul_bwd_quant_rowwise(a, b, dy, with_amax=amax, with_bf16=copy, **kw)
         torch.cuda.synchronize()
+        assert ops.launch_counts()["silu_mul_bwd_quant_rowwise" + ("_sr" if sr else "") + "_sm90"] == walk
         ref = ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, with_amax=amax, with_bf16=copy, **kw)
         assert len(got) == len(ref) == 6
         for t, r in zip(got, ref):
@@ -848,23 +907,25 @@ def test_launch_counters_count_kernel_launches_only():
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
     y, gamma = _rand((64, 128), torch.bfloat16, 3), torch.ones(128, device="cuda", dtype=torch.bfloat16)
+    # B7 and B11 at a width they take on the row walk: counted there too
+    wide, wide_gamma = _rand((64, 2048), torch.bfloat16, 5), torch.ones(2048, device="cuda", dtype=torch.bfloat16)
     for use_sr in (False, True):
         kw = dict(sr=use_sr, key=1 if use_sr else None)
-        amax = ops.rmsnorm_quant_rowwise(y, gamma, with_col_amax=True, **kw)[2]
-        ops.rmsnorm_quant_colwise(y, gamma, scale=amax * (1.0 / 127.0), **kw)
+        amax = ops.rmsnorm_quant_rowwise(wide, wide_gamma, with_col_amax=True, **kw)[2]
+        ops.rmsnorm_quant_colwise(wide, wide_gamma, scale=amax * (1.0 / 127.0), **kw)
         ops.silu_mul_quant_rowwise(y, y, **kw)
         ops.silu_mul_quant_colwise(y, y, **kw)
         ops.rmsnorm_quant_rowwise_plain(y, gamma, **kw)
         ops.silu_mul_quant_colwise_plain(y, y, **kw)
     ops.rmsnorm_bwd(y, gamma, y)
     ops.rmsnorm_bwd_plain(y, gamma, y)
-    ones = torch.ones(1, 128, device="cuda")
+    ones = torch.ones(1, 2048, device="cuda")
     for use_sr in (False, True):
         kw = dict(sr=use_sr, key=1 if use_sr else None)
-        ops.silu_mul_bwd_quant_rowwise(y, y, y, **kw)
-        ops.silu_mul_bwd_quant_colwise(y, y, y, ones, ones, **kw)
-        ops.silu_mul_bwd_quant_rowwise_plain(y, y, y, **kw)
-        ops.silu_mul_bwd_quant_colwise_plain(y, y, y, ones, ones, **kw)
+        ops.silu_mul_bwd_quant_rowwise(wide, wide, wide, **kw)
+        ops.silu_mul_bwd_quant_colwise(wide, wide, wide, ones, ones, **kw)
+        ops.silu_mul_bwd_quant_rowwise_plain(wide, wide, wide, **kw)
+        ops.silu_mul_bwd_quant_colwise_plain(wide, wide, wide, ones, ones, **kw)
         amax = ops.layernorm_quant(y, gamma, gamma, with_col_amax=True, **kw)[2]
         ops.layernorm_quant(y, gamma, gamma, axis=0, scale=amax * (1.0 / 127.0), **kw)
         ops.gelu_quant(y, **kw)
