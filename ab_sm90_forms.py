@@ -5,10 +5,13 @@ B16 (the packed-int4 GEMM, ``S4KMajor``) and B17's int8 form (``S8MnB``
 with the int32 epilogue, ``B17s8``) of
 ``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``; B5, the
 both-axes int8 quantize of ``ops/csrc/int8_quant.cu`` (``B5``, its SR form
-``B5sr``); and B7 and B11 of ``ops/csrc/fused_producers.cu`` on the
-persistent row walk (``B7``, ``B7sr``: RMSNorm inside the row quantize with
-the column absmax; ``B11``, ``B11sr``: the silu backward inside the row
-quantizes of (da, db) with their column absmax), against an earlier tree's.
+``B5sr``) and B4, the column int8 quantize, on thread-block clusters
+(``B4``, ``B4sr``); and B7, B9's row form and B11 of
+``ops/csrc/fused_producers.cu`` on the persistent row walk (``B7``,
+``B7sr``: RMSNorm inside the row quantize with the column absmax; ``B9``,
+``B9sr``: silu(a) * b inside the row quantize with the column absmax;
+``B11``, ``B11sr``: the silu backward inside the row quantizes of (da, db)
+with their column absmax), against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -17,8 +20,8 @@ own under ``build/ab_sm90_forms/`` (only the sources the chosen kernels
 need), all builds side by side. Every variant
 is held against the plain versions at a ragged shape and at gate/up's
 (B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7 against
-this tree's first design (``kept/first``), whose bits the walk keeps, B11
-against its plain version; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+this tree's first design (``kept/first``), whose bits the walk keeps, B4,
+B9 and B11 against their plain versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
@@ -26,17 +29,19 @@ timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
 for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
-B5, B7 and B11) and the share of the bound (the 8-bit tensor cores' 1,979
-TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B7 and B11
-their inputs read and outputs written once). ``kept/first`` is this tree's
-B7 and B11 on their first design (route 0); ``kept/wmma`` is this
+B4, B5, B7, B9 and B11) and the share of the bound (the 8-bit tensor cores'
+1,979 TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4
+one read and one write, for B7, B9 and B11 their inputs read and outputs
+written once). ``kept/first`` is this tree's B4, B7, B9 and B11 on their
+first design (route 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
-the other checkout's B1, B2, B15, B16 and B17-s8 on theirs, and
-``parent/kernel`` its B5; K2, which no variant changes, is timed on this
+the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
+``parent/kernel`` its B5, and ``parent/walk``, ``parent/cluster`` its B4,
+B7, B9 and B11, whatever design they take there; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
-Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,B7,...]
+Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,B7,B9,B4,...]
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 from quantized_training_tpu_torch import ops
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops import fused_producers as FP
+from quantized_training_tpu_torch.ops import int8_quant as IQ
 from quantized_training_tpu_torch.ops.int8_quant import EPS
 from quantized_training_tpu_torch.ops.tile_scaled_mm import fold_bound
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
@@ -284,6 +290,12 @@ __device__ __forceinline__ uint4 ld_evict_last(const uint4* p) {
 // The row steps of both passes"""
 _B5_EVICT_LAST = [("int8_quant.cu", "// The row steps of both passes", _B5_LD_POLICY),
                   ("int8_quant.cu", "(kLast ? __ldcs(src) : *src)", "(kLast ? __ldcs(src) : ld_evict_last(src))")]
+# B9's row form at one CTA an SM (its launch bounds), its RN form's column
+# maxima in registers
+_B9_ONE_CTA = ("fused_producers.cu", "return V == 1 || SR ? 1 : kSiluCtasPerSm;", "return 1;")
+_B9_REG_MAX = [("fused_producers.cu", "constexpr bool kShared = COLMAX && !SR,", "constexpr bool kShared = false,"),
+               ("fused_producers.cu", "                      : !SR       ? static_cast<size_t>(cta / tpr * K)",
+                "                      : false     ? static_cast<size_t>(cta / tpr * K)")]
 # (old text, new text) edits of sm90_gemm.cuh, or (file, old text, new text)
 # of another source, each of which must match once; "fold_wait" replaces
 # the fold loop from _FOLD_KEPT_START to the end of its branch
@@ -375,6 +387,21 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     "b7_one_cta": [],
     "b11_v1": [],
     "diag_rows_no_amax": [],
+    # B9's row form at one CTA an SM (no register cap from the launch
+    # bounds) in place of two; at one vector a thread (704 threads a row);
+    # without its fold (reduce_parts)
+    "b9_one_cta": [_B9_ONE_CTA],
+    # its RN form's column maxima in registers (two CTAs an SM, 80
+    # registers), not in shared memory
+    "b9_reg_max": _B9_REG_MAX,
+    "b9_v1": [],
+    "diag_b9_no_fold": [("fused_producers.cu", ": launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);",
+                         ": cudaSuccess;")],
+    # B4's cluster form at each strip width (16, 8, 4 vectors) at every
+    # shape; its loads and the cluster's merge without the cast
+    **{f"b4_{sv}": [] for sv in (16, 8, 4)},
+    "diag_b4_no_cast": [("int8_quant.cu", "    for (int64_t r = first; r < r1; r += step)\n      cast_vec<T, SR>(",
+                         "    for (int64_t r = first; r < r1 && sv < 0; r += step)\n      cast_vec<T, SR>(")],
     # the column pass's (d, 1 / d) with a vector's pairs side by side
     "b5_dy_by_vector": [("int8_quant.cu", "    col_dy[(c % N) * nv + c / N] = denom_of(", "    col_dy[c] = denom_of("),
                         ("int8_quant.cu", "        for (int j = 0; j < N; ++j) dy[j] = col_dy[j * nv + v];",
@@ -390,12 +417,16 @@ B16_SHAPES = [(8192, 5632, 2048), (8192, 2048, 5632), (5632, 2048, 8192), (2048,
 K2_SHAPES = [(8192, 5632, 2048), (8192, 2048, 2048)]
 
 
-# launch arguments of B7 and B11 by variant (KERNELS' keyword arguments)
+# launch arguments of B4, B7, B9 and B11 by variant (KERNELS' keyword
+# arguments)
 ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32, "ctas_per_sm": 1}},
               "b7_v2": {"B7": {"tpr": 128}, "B7sr": {"tpr": 128}},
               "b7_one_cta": {"B7": {"ctas_per_sm": 1}, "B7sr": {"ctas_per_sm": 1}},
               "b11_v1": {"B11": {"tpr": 704}, "B11sr": {"tpr": 704}},
-              "diag_rows_no_amax": {k: {"amax": 0} for k in ("B7", "B7sr", "B11", "B11sr")}}
+              "diag_rows_no_amax": {k: {"amax": 0} for k in ("B7", "B7sr", "B11", "B11sr", "B9", "B9sr")},
+              "b9_one_cta": {"B9": {"ctas_per_sm": 1}},
+              "b9_v1": {"B9": {"tpr": 704, "ctas_per_sm": 1}, "B9sr": {"tpr": 704, "ctas_per_sm": 1}},
+              **{f"b4_{sv}": {k: {"geometry": (sv, 8)} for k in ("B4", "B4sr")} for sv in (16, 8, 4)}}
 
 
 def sources(name: str, edits, parent: Path | None) -> Path:
@@ -421,11 +452,13 @@ def sources(name: str, edits, parent: Path | None) -> Path:
 # the source of each kernel's C entry
 SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16": "scaled_mm.cu",
           "B15": "tile_scaled_mm.cu", "B15s8": "tile_scaled_mm.cu", "B17s8": "matmul.cu", "B5": "int8_quant.cu",
-          "B5sr": "int8_quant.cu", "B7": "fused_producers.cu", "B7sr": "fused_producers.cu",
+          "B5sr": "int8_quant.cu", "B4": "int8_quant.cu", "B4sr": "int8_quant.cu", "B7": "fused_producers.cu",
+          "B7sr": "fused_producers.cu", "B9": "fused_producers.cu", "B9sr": "fused_producers.cu",
           "B11": "fused_producers.cu", "B11sr": "fused_producers.cu"}
 ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
-           "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both",),
-           "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise")}
+           "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise"),
+           "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
+                                  "qt_silu_mul_quant_rowwise")}
 
 
 def build(variants: dict, parent: Path | None, kernels) -> dict:
@@ -574,6 +607,49 @@ def b7(lib, sigs, sr, tpr=None, ctas_per_sm=FP.NORM_CTAS_PER_SM, amax=1):
     return call
 
 
+def b9(lib, sigs, sr, tpr=None, ctas_per_sm=None, amax=1):
+    """B9's row form of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``):
+    a, b [M, K] bf16 -> (q, s_row, column absmax); on the walk at ``tpr``
+    threads a row (default: the route's; 0 the first design) and
+    ``ctas_per_sm`` CTAs an SM (default: the wrapper's for the form)."""
+    def call(a, b):
+        M, K = a.shape
+        t = FP.silu_rows_sm90_route(K, a.dtype) if tpr is None else tpr
+        per_sm = ctas_per_sm or FP.silu_rows_ctas_per_sm(K, a.dtype, sr)
+        route, rows = _route(sigs, "qt_silu_mul_quant_rowwise", t, M, per_sm)
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        s_row = torch.empty(M, 1, dtype=torch.float32, device="cuda")
+        col = torch.empty(1, K, dtype=torch.float32, device="cuda")
+        parts = torch.empty(rows, K, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_silu_mul_quant_rowwise(a.data_ptr(), b.data_ptr(), q.data_ptr(), s_row.data_ptr(),
+                                                   col.data_ptr(), parts.data_ptr(), M, K, FP._rows_per_block(M),
+                                                   FP.EPS, 1, sr, amax, ROWS_KEY if sr else 0, *route,
+                                                   _build.stream()), "B9")
+        return (q, s_row, col) if amax else (q, s_row)
+    return call
+
+
+def b4(lib, sigs, sr, route=None, geometry=None):
+    """B4 of ``lib`` (``sr`` = 1: its SR form from ``B5_KEY``): x [R, C]
+    bf16 -> (q, scale [1, C]); on the cluster form at the route's geometry
+    (``geometry``: this (strip vectors, cluster CTAs) instead, where
+    its tile fits; ``route`` 0: the first design), or the first design where
+    that tree's entry takes no route."""
+    def call(x):
+        R, C = x.shape
+        g = IQ.colwise_sm90_route(R, C, x.dtype) if route is None else route
+        if g and geometry and -(-R // geometry[1]) * geometry[0] * 16 <= IQ._CLUSTER_MAX_TILE:
+            g = geometry
+        args = (*(g or (0, 0)),) if len(sigs["qt_quantize_int8_colwise"]) == 13 else ()
+        q = torch.empty(R, C, dtype=torch.int8, device="cuda")
+        scale = torch.empty(1, C, dtype=x.dtype, device="cuda")
+        amax = torch.empty(C, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_quantize_int8_colwise(x.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), R, C,
+                                                  EPS, 1, sr, B5_KEY if sr else 0, *args, _build.stream()), "B4")
+        return q, scale
+    return call
+
+
 def b11(lib, sigs, sr, tpr=None, ctas_per_sm=FP.SILU_CTAS_PER_SM, amax=1):
     """B11 of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``): a, b, dy
     [M, K] bf16 -> (da_q, da_s, db_q, db_s, column absmax of da and db); on
@@ -634,8 +710,8 @@ def main() -> None:
                for n, (lib, sigs) in libs.items() if n != "parent" for k in kernels]
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
-        entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], tpr=0)) for k in ("B7", "B7sr", "B11", "B11sr")
-                    if k in kernels]
+        entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
+                    for k in ("B7", "B7sr", "B9", "B9sr", "B11", "B11sr", "B4", "B4sr") if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
                     for k in kernels if k != "K2"]
@@ -659,6 +735,14 @@ def main() -> None:
             x = torch.randn(M, N, generator=gen, device="cuda").bfloat16()
             x[0] = 0
             return x, (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float()
+        if kernel in ("B9", "B9sr"):  # (M, K): gate with an all-zero column, up
+            a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            a[:, 1] = 0
+            return a, b
+        if kernel in ("B4", "B4sr"):  # (R, C): a weight-sized x with an all-zero row and column
+            x = (torch.randn(M, N, generator=gen, device="cuda") * 0.02).bfloat16()
+            x[0], x[:, 3] = 0, 0
+            return (x,)
         if kernel in ("B11", "B11sr"):  # (M, K): gate, up, and dact with an all-zero column
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
@@ -678,6 +762,10 @@ def main() -> None:
              "B17s8": ops.matmul_plain, "B5": ops.quantize_int8_both_plain,
              "B5sr": lambda x: ops.quantize_int8_both_plain(x, sr=True, key=B5_KEY),
              "B11": ops.silu_mul_bwd_quant_rowwise_plain,
+             "B9": lambda a, b: ops.silu_mul_quant_rowwise_plain(a, b, with_col_amax=True),
+             "B9sr": lambda a, b: ops.silu_mul_quant_rowwise_plain(a, b, with_col_amax=True, sr=True, key=ROWS_KEY),
+             "B4": lambda x: ops.quantize_int8_plain(x, axis=0),
+             "B4sr": lambda x: ops.quantize_int8_plain(x, axis=0, sr=True, key=B5_KEY),
              "B11sr": lambda a, b, dy: ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, sr=True, key=ROWS_KEY)}
     if "kept" in libs:  # B7 keeps its first design's bits
         plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0) for k in ("B7", "B7sr")})
@@ -688,7 +776,9 @@ def main() -> None:
                           ("B17s8", (4096, 4096, 4096)), *((k, s) for k in ("B5", "B5sr")
                                                           for s in ((130, 200), (8, 9000), *B5_SHAPES)),
                           *((k, s) for k in ("B7", "B7sr") for s in ((1001, 2048), *ROW_SHAPES["B7"])),
-                          *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"]))):
+                          *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"])),
+                          *((k, s) for k in ("B9", "B9sr") for s in ((1000, 5632), *ROW_SHAPES["B9"])),
+                          *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES))):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -754,17 +844,22 @@ def main() -> None:
 
 
 KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "B17s8": b17s8, "B5": b5, "B5sr": b5,
-           "B7": b7, "B7sr": b7, "B11": b11, "B11sr": b11}
+           "B7": b7, "B7sr": b7, "B11": b11, "B11sr": b11, "B9": b9, "B9sr": b9, "B4": b4, "B4sr": b4}
 # the argument each kernel's entry takes in place of the route: the SR flag
-QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B11": 0, "B11sr": 1}
-ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B11": "walk", "B11sr": "walk"}
+QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B11": 0, "B11sr": 1, "B9": 0, "B9sr": 1, "B4": 0, "B4sr": 1}
+ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B11": "walk", "B11sr": "walk",
+         "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster"}
+# the keyword argument that forces a kernel's first design (``kept/first``)
+FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}}
 # the bytes the row quantizes must move at [M, K] bf16: B5 x read, two int8
 # and the bf16 scales written; B7 x and gamma read, q, the fp32 row scales
 # and column absmax written; B11 (a, b, dy) read, two int8, two fp32 row
 # scales and two column absmax written
 ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 * M * K + 2 * (M + K),
              "B7": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K, "B7sr": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K,
-             "B11": lambda M, K: 8 * M * K + 8 * M + 8 * K, "B11sr": lambda M, K: 8 * M * K + 8 * M + 8 * K}
+             "B11": lambda M, K: 8 * M * K + 8 * M + 8 * K, "B11sr": lambda M, K: 8 * M * K + 8 * M + 8 * K,
+             "B9": lambda M, K: 5 * M * K + 4 * M + 4 * K, "B9sr": lambda M, K: 5 * M * K + 4 * M + 4 * K,
+             "B4": lambda M, K: 3 * M * K + 2 * K, "B4sr": lambda M, K: 3 * M * K + 2 * K}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
 # chip_smoke.py (forward, grad_input, grad_weight of gate/up and down); B17's
@@ -773,12 +868,18 @@ ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 
 # and of ViT-Giant's (qkv, fc1, proj and fc2 at 6,400 tokens), and at
 # [8192, 5632], where x no longer fits in L2
 B5_SHAPES = [(8192, 2048), (8192, 256), (6400, 4608), (6400, 6144), (6400, 1536), (8192, 5632)]
-# B7 and B11 at the Llama2-1B step's norm and FFN widths
-ROW_SHAPES = {"B7": [(8192, 2048)], "B11": [(8192, 5632)]}
+# B7, B9 and B11 at the Llama2-1B step's norm and FFN widths; B4 at the
+# fused step's four weights (q/o, k/v, gate/up, down), the unfused layer's
+# x2d, and ViT-Giant's five a block (the qkv, proj, fc1 and fc2 weights and
+# proj's input at 24 x 257 tokens)
+ROW_SHAPES = {"B7": [(8192, 2048)], "B11": [(8192, 5632)], "B9": [(8192, 5632)]}
+B4_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (8192, 2048), (8192, 5632),
+             (4608, 1536), (1536, 1536), (6144, 1536), (1536, 6144), (6168, 1536)]
 SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (8192, 5632, 2048)],
           "B2": B2_SHAPES, "B15": B16_SHAPES, "B15s8": B16_SHAPES, "B16": B16_SHAPES, "K2": K2_SHAPES,
           "B17s8": [(n, n, n) for n in (1024, 2048, 4096)], "B5": B5_SHAPES, "B5sr": B5_SHAPES,
-          "B7": ROW_SHAPES["B7"], "B7sr": ROW_SHAPES["B7"], "B11": ROW_SHAPES["B11"], "B11sr": ROW_SHAPES["B11"]}
+          "B7": ROW_SHAPES["B7"], "B7sr": ROW_SHAPES["B7"], "B11": ROW_SHAPES["B11"], "B11sr": ROW_SHAPES["B11"],
+          "B9": ROW_SHAPES["B9"], "B9sr": ROW_SHAPES["B9"], "B4": B4_SHAPES, "B4sr": B4_SHAPES}
 
 
 if __name__ == "__main__":

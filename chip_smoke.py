@@ -18,10 +18,12 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B7 with and without the column absmax, B8 given the forward's scales
    and in two passes, B9's row and column forms (bit-exact), B10, and the
    SR forms of B7-B9; B11 and B12 at the MLP backward's [8192, 5632] and
-   [256, 5632] (B7 at [8192, 2048] and B11 at [8192, 5632], and their SR
-   forms, checked to launch on the persistent row walk, and timed on their
-   first design too, the parent's kernels, in the same call: route, share
-   of the bound, both times, bit-identical outputs), B13 on q, k and v of
+   [256, 5632] (B7 at [8192, 2048], B9-row at [8192, 5632] and [256, 5632]
+   and B11 at [8192, 5632], and their SR forms, checked to launch on the
+   persistent row walk, and B4 and B4-SR at every weight and x2d shape,
+   checked to launch on its cluster form, each timed on its first design
+   too, the parent's kernel, in the same call: route, both times and
+   shares of the bound, bit-identical outputs), B13 on q, k and v of
    bench.py's micro-batch [4, 2048] and
    B14 on its attention output, with their SR forms (all bit-exact); B16
    (int4) and B15 (tile-scaled, e4m3 within its stated bound and int8
@@ -56,8 +58,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
    of times the code implies (every K2, B1 and B2 launch on the sm90 route,
-   here and in phases 8, 9 and 11, every B7 and B11 launch on the row walk,
-   here and in phases 8 and 9), and the same steps in bf16 start from the
+   here and in phases 8, 9 and 11, every B7, B9-row and B11 launch on the
+   row walk and every B4 launch on its cluster form, here and in phases 8
+   and 9, and B4's in phase 11), and the same steps in bf16 start from the
    same loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
@@ -108,8 +111,9 @@ on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists; for B7 and B11 also their launches on the row walk
-(``sm90_launches``) and their first design's time, ``first_design_ms``),
+exists; for B7, B9-row and B11 also their launches on the row walk and
+for B4 those on its cluster form (``sm90_launches``), and their first
+design's time, ``first_design_ms``),
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
@@ -145,6 +149,7 @@ TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
+IQ = importlib.import_module("quantized_training_tpu_torch.ops.int8_quant")
 INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 SEED = 0
@@ -176,6 +181,13 @@ VIT_CFG = vit_train.model_config("vit_giant", 45, 224)
 VIT_B = 24
 VIT_TOKENS = VIT_B * (VIT_CFG.num_patches + 1)
 VIT_ROWS = -(-VIT_TOKENS // 256) * 256
+# B4's [R, C]: the Llama2-1B step's weights, the unfused layer's x2d, and
+# ViT-Giant's five a block and step (the qkv, proj, fc1 and fc2 weights and
+# proj's input, the attention output of the batch's tokens)
+VIT_B4 = [(3 * VIT_CFG.hidden_size, VIT_CFG.hidden_size), (VIT_CFG.hidden_size, VIT_CFG.hidden_size),
+          (VIT_CFG.mlp_dim, VIT_CFG.hidden_size), (VIT_CFG.hidden_size, VIT_CFG.mlp_dim),
+          (VIT_TOKENS, VIT_CFG.hidden_size)]
+B4_SHAPES = [*WEIGHTS, (TOKENS, D), (TOKENS, F), *VIT_B4]
 VIT_SEED = 2024  # the synthetic images' seed, vit_train.py's default
 # phase 11's lr: the JAX repo's ViT bench takes 1e-4, at which Adam's first
 # steps (about lr * sign(g) on every parameter, no warmup) raised ViT-Giant's
@@ -444,22 +456,24 @@ B5_SHAPES = [(TOKENS, D), (TOKENS, KVD), (TOKENS, F), (VIT_ROWS, 3 * VIT_CFG.hid
 
 
 def check_training_quantizes(gen: torch.Generator) -> list:
-    """B4 at the backward's column quantizes (x2d [8192, in] and every
-    weight), B5 at its output gradients (``B5_SHAPES``): bit-exact, timed
-    (device time; GB/s of the bytes the algorithm needs, each input read and
-    each output written once, and the share of the bound those bytes give).
-    Each entry records every shape's times and bound (``shapes``); its own
-    numbers are those of B4 at [8192, 5632] and of B5 at [8192, 2048], the
-    shape the bench.py step launches it at most."""
+    """B4 at the backward's column quantizes (every weight, and the unfused
+    layer's x2d [8192, in]), B5 at its output gradients (``B5_SHAPES``):
+    bit-exact, timed (device time; GB/s of the bytes the algorithm needs,
+    each input read and each output written once, and the share of the
+    bound those bytes give); B4 at every shape also on its first design
+    (``first_design``, the route forced to 0). Each entry records every
+    shape's times and bound (``shapes``); its own numbers are those of B4 at
+    gate/up's weight [5632, 2048] (the largest the fused step launches it
+    at) and of B5 at [8192, 2048], the shape the bench.py step launches it
+    at most."""
     out = []
     for name, kernel, plain, shapes, writes, replaces, timed_shape in (
         ("quantize_int8_colwise", ops.quantize_int8_colwise, lambda x: ops.quantize_int8_plain(x, axis=0),
-         [(TOKENS, D), (TOKENS, F), (D, D), (KVD, D), (F, D), (D, F)], 1,
-         "quantized_training_tpu/ops/pallas_quant.py:229", (TOKENS, F)),
+         B4_SHAPES, 1, "quantized_training_tpu/ops/pallas_quant.py:229", (F, D)),
         ("quantize_int8_both", ops.quantize_int8_both, ops.quantize_int8_both_plain, B5_SHAPES, 2,
          "quantized_training_tpu/ops/pallas_quant.py:306", (TOKENS, D)),
     ):
-        worst, timed, per_shape = 0.0, None, []
+        worst, timed, first_ms, per_shape = 0.0, None, None, []
         for shape in shapes:
             x = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
             x[0] = 0  # an all-zero row and column
@@ -475,9 +489,12 @@ def check_training_quantizes(gen: torch.Generator) -> list:
             per_shape.append({"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms})
             print(f"[3] {name} {list(shape)} bf16: bit-exact; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                   f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), plain {plain_ms:.4f} ms")
+            if name in REDESIGNED:
+                per_shape[-1]["first_design_ms"] = first_design(name, kernel, (x,), nbytes)
             if shape == timed_shape:
-                timed = (shape, ms, plain_ms)
-        out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes)) | {"shapes": per_shape})
+                timed, first_ms = (shape, ms, plain_ms), per_shape[-1].get("first_design_ms")
+        out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes), first_ms=first_ms)
+                   | {"shapes": per_shape})
     return out
 
 
@@ -693,19 +710,20 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
     the algorithm needs (each input read and each output written once: K1
     one read of x and one int8 write; B4 one read and one write; B5 one read
     and two writes) and the share of the bound they give; each entry records
-    every shape (``shapes``), its own numbers are those at [8192, 5632] (B5-SR:
-    [8192, 2048], the shape the SR step launches it at most)."""
+    every shape (``shapes``), its own numbers are those at [8192, 5632] (B4-SR:
+    gate/up's weight [5632, 2048], also on its first design at every shape;
+    B5-SR: [8192, 2048], the shape the SR step launches it at most)."""
     out = []
     for name, kernel, plain, shapes, writes, replaces, timed_shape in (
         ("quantize_int8_rowwise_sr", ops.quantize_int8_rowwise, ops.quantize_int8_plain,
          [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, "quantized_training_tpu/ops/pallas_quant.py:98", (TOKENS, F)),
         ("quantize_int8_colwise_sr", ops.quantize_int8_colwise, partial(ops.quantize_int8_plain, axis=0),
-         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, "quantized_training_tpu/ops/pallas_quant.py:220", (TOKENS, F)),
+         B4_SHAPES, 1, "quantized_training_tpu/ops/pallas_quant.py:220", (F, D)),
         ("quantize_int8_both_sr", ops.quantize_int8_both, ops.quantize_int8_both_plain, B5_SHAPES, 2,
          "quantized_training_tpu/ops/pallas_quant.py:276", (TOKENS, D)),
     ):
         sr_kernel, sr_plain = partial(kernel, sr=True, key=key), partial(plain, sr=True, key=key)
-        worst, timed, per_shape = 0.0, None, []
+        worst, timed, first_ms, per_shape = 0.0, None, None, []
         for shape in shapes:
             x = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
             x[0] = 0  # an all-zero row and column
@@ -723,9 +741,12 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
             print(f"[3] {name} {list(shape)} bf16: bit-exact; SR kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                   f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), round-to-nearest kernel {rn_ms:.4f} ms "
                   f"({nbytes / rn_ms / 1e6:.0f} GB/s), plain SR {plain_ms:.4f} ms")
+            if name.removesuffix("_sr") in REDESIGNED:
+                per_shape[-1]["first_design_ms"] = first_design(name, sr_kernel, (x,), nbytes)
             if shape == timed_shape:
-                timed = (shape, ms, plain_ms)
-        out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes)) | {"shapes": per_shape})
+                timed, first_ms = (shape, ms, plain_ms), per_shape[-1].get("first_design_ms")
+        out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes), first_ms=first_ms)
+                   | {"shapes": per_shape})
     return out
 
 
@@ -850,36 +871,44 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
     return got
 
 
-# B7's and B11's route predicates (ops/fused_producers.py) by counter name
-WALKS = {"rmsnorm_quant_rowwise": "norm_rows_sm90_route", "silu_mul_bwd_quant_rowwise": "silu_bwd_rows_sm90_route"}
+# the redesigned kernels' route predicates by counter name: (module, name)
+# of B7's, B9-row's and B11's (ops/fused_producers.py: threads a row on the
+# row walk) and B4's (ops/int8_quant.py: the geometry of its cluster form);
+# a route of 0 takes the first design
+REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
+              "silu_mul_bwd_quant_rowwise": (FP, "silu_bwd_rows_sm90_route"),
+              "silu_mul_quant_rowwise": (FP, "silu_rows_sm90_route"),
+              "quantize_int8_colwise": (IQ, "colwise_sm90_route")}
 
 
-def walk_vs_first(rows: dict, name: str, kernel, args, nbytes: float) -> float:
-    """B7 or B11 (``name``; an SR form with its ``_sr``) on ``args`` at the
-    path's shape, after ``_held_and_timed`` timed it there: checked to
-    launch once, on the persistent row walk, and to give the outputs of its
-    first design (the parent's kernel, the route forced to 0), which is
-    timed in the same call; prints the route, the share of the bound and
-    both times. Returns the first design's ms."""
-    predicate = WALKS[name.removesuffix("_sr")]
-    route = getattr(FP, predicate)
-    tpr = route(args[0].shape[1], args[0].dtype)
+def first_design(name: str, kernel, args, nbytes: float) -> float:
+    """A redesigned kernel (``name``; an SR form with its ``_sr``) on
+    ``args``: checked to launch once, on its route, and to give the outputs
+    of its first design (the parent's kernel, the route forced to 0); both
+    timed here, one after the other; prints the route, both times and their
+    shares of the bound. Returns the first design's ms."""
+    module, predicate = REDESIGNED[name.removesuffix("_sr")]
+    route_of = getattr(module, predicate)
+    route = route_of(*args[0].shape, args[0].dtype) if module is IQ else route_of(args[0].shape[1], args[0].dtype)
     ops.reset_launch_counts()
-    walk = kernel(*args)
+    new = kernel(*args)
     n = ops.launch_counts()
-    check(tpr > 0 and n[name] == 1 and n[f"{name}_sm90"] == 1,
-          f"{name} at {list(args[0].shape)} launched once, on the row walk")
-    setattr(FP, predicate, lambda K, dtype: 0)
+    check(bool(route) and n[name] == 1 and n[f"{name}_sm90"] == 1,
+          f"{name} at {list(args[0].shape)} launched once, on its route")
+    ms = time_ms(kernel, copies(*args))
+    setattr(module, predicate, lambda *a: 0)
     try:
         first = kernel(*args)
         first_ms = time_ms(kernel, copies(*args))
     finally:
-        setattr(FP, predicate, route)
-    check(all(torch.equal(a, b) for a, b in zip(walk, first)), f"{name}: the walk gives the first design's bits")
-    ms, b_ms = rows[name][2][1], bound(nbytes)[0]
-    print(f"[3] {name} {list(args[0].shape)}: route row walk ({tpr} threads a row), {b_ms / ms:.3f} of the "
-          f"{b_ms:.4f} ms bound; first design (the parent's kernel) {first_ms:.4f} ms ({first_ms / ms:.2f}x this); "
-          "outputs bit-identical")
+        setattr(module, predicate, route_of)
+    check(all(torch.equal(a, b) for a, b in zip(new, first)), f"{name}: the route gives the first design's bits")
+    b_ms = bound(nbytes)[0]
+    what = (f"cluster form ({route[0]} vectors a strip, {route[1]} CTAs a cluster)"
+            if module is IQ else f"row walk ({route} threads a row)")
+    print(f"[3] {name} {list(args[0].shape)}: route {what}, {ms:.4f} ms, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound; "
+          f"first design (the parent's kernel) {first_ms:.4f} ms ({first_ms / ms:.2f}x this, {b_ms / first_ms:.3f} of "
+          "the bound); outputs bit-identical")
     return first_ms
 
 
@@ -892,10 +921,10 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
     other forms (without the absmax, two-pass) are held too. GB/s and the
     share of the roofline count each input read once and each output
     written once (bf16 inputs, fp32 scales and maxima). B7 and its SR form
-    at [8192, 2048] also on the first design (``walk_vs_first``), beside
-    B9-row, whose kernel is unchanged: the control of the same call."""
+    at [8192, 2048], and B9-row and its SR form at both silu shapes, also
+    on the first design (``first_design``)."""
     rows = {}  # entry name -> (replaces, worst error, timed, bytes)
-    firsts = {}  # B7's first-design ms by entry name
+    firsts = {}  # the first designs' ms at the path's shape by entry name
     run = partial(_held_and_timed, rows)
     pf_ = "quantized_training_tpu/ops/pallas_fused.py"
     for M, K in NORM_SHAPES:
@@ -913,8 +942,8 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
             out = run(f"rmsnorm_quant_rowwise{tag}", ", column absmax", "int8", k_row, p_row, (x, g), row_bytes,
                       f"{pf_}:154", rn.get("row"))
             if M == TOKENS:
-                firsts[f"rmsnorm_quant_rowwise{tag}"] = walk_vs_first(rows, f"rmsnorm_quant_rowwise{tag}", k_row,
-                                                                      (x, g), row_bytes)
+                firsts[f"rmsnorm_quant_rowwise{tag}"] = first_design(f"rmsnorm_quant_rowwise{tag}", k_row, (x, g),
+                                                                     row_bytes)
             scale = out[2] * (1.0 / 127.0)
             k_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise(x, g, scale=scale, **kw)
             p_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise_plain(x, g, scale=scale, **kw)
@@ -938,10 +967,13 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
         rn = {}
         for sr in (False, True):
             tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
-            out = run(f"silu_mul_quant_rowwise{tag}", ", column absmax", "exact",
-                      partial(ops.silu_mul_quant_rowwise, with_col_amax=True, **kw),
+            k_row = partial(ops.silu_mul_quant_rowwise, with_col_amax=True, **kw)
+            out = run(f"silu_mul_quant_rowwise{tag}", ", column absmax", "exact", k_row,
                       partial(ops.silu_mul_quant_rowwise_plain, with_col_amax=True, **kw), (a, b), row_bytes,
                       f"{pf_}:325", rn.get("row"))
+            first_ms = first_design(f"silu_mul_quant_rowwise{tag}", k_row, (a, b), row_bytes)
+            if M == TOKENS:
+                firsts[f"silu_mul_quant_rowwise{tag}"] = first_ms
             scale = out[2] * (1.0 / 127.0)
             col = run(f"silu_mul_quant_colwise{tag}", ", given scales", "exact",
                       lambda a, b, scale, kw=kw: ops.silu_mul_quant_colwise(a, b, scale=scale, **kw),
@@ -965,7 +997,7 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
     an int8 grad_weight, timed) and with the (da, db) copies instead (the
     bf16 grad_weight's form, held), B12 given B11's column scales; B11 and
     its SR form at [8192, 5632] also on the first design
-    (``walk_vs_first``). Bytes: (a, b, dy) read once, two int8 written, and
+    (``first_design``). Bytes: (a, b, dy) read once, two int8 written, and
     the fp32 scales and maxima."""
     rows, firsts = {}, {}
     run = partial(_held_and_timed, rows)
@@ -983,8 +1015,8 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
                       partial(ops.silu_mul_bwd_quant_rowwise_plain, **kw), (a, b, dy), 8 * M * K + 8 * M + 8 * K,
                       f"{pf_}:631", rn.get("row"))
             if M == TOKENS:
-                firsts[f"silu_mul_bwd_quant_rowwise{tag}"] = walk_vs_first(
-                    rows, f"silu_mul_bwd_quant_rowwise{tag}", k_row, (a, b, dy), 8 * M * K + 8 * M + 8 * K)
+                firsts[f"silu_mul_bwd_quant_rowwise{tag}"] = first_design(
+                    f"silu_mul_bwd_quant_rowwise{tag}", k_row, (a, b, dy), 8 * M * K + 8 * M + 8 * K)
             scales = tuple(m * (1.0 / 127.0) for m in row[4:])
             col = run(f"silu_mul_bwd_quant_colwise{tag}", ", given scales", "exact",
                       partial(ops.silu_mul_bwd_quant_colwise, **kw), partial(ops.silu_mul_bwd_quant_colwise_plain, **kw),
@@ -1361,17 +1393,18 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     rope_ungroup for their grads.
 
     ``layer`` 'fused' (int8): forward K1 per weight (7), K2 per weight (7),
-    B7 at the two norm sites (every one on the row walk), B9-row at down's
-    input, ungroup_amax and
+    B7 at the two norm sites and B9-row at down's input (every one on the
+    row walk), ungroup_amax and
     ungroup_quant (rows) at o's input. Backward B5 at the output grads of
-    q, k, v, o and down, B4 per weight, B1 and B2 per weight, B8 at the two
+    q, k, v, o and down, B4 per weight (every one on the cluster form), B1 and B2 per weight, B8 at the two
     norm sites, B9-col at down's input, B10 at the two norms, B11 (on the
     row walk) and B12 for (dgate, dup), ungroup_quant (columns) at o's
     input and rope_group
     for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
     7 weights and the 4 inputs, K2 per weight, rope_ungroup at o's input;
     backward per weight B5, B4, B1, B2, B4 once per input, rope_group for
-    o's input grad. 'bf16': the rope kernels of 'unfused' only. All of that
+    o's input grad (every B4 on the cluster form).
+    'bf16': the rope kernels of 'unfused' only. All of that
     once per micro-batch, each quantize in its SR form with ``sr`` (B10 and
     B13 have none); then B6 once per parameter leaf (``b6``, or ``b6_sr``
     with the SR writeback)."""
@@ -1382,13 +1415,16 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                    "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
     if layer == "fused":
         counts.update({f"quantize_int8_rowwise{t}": 2 * 7 * n, f"quantize_int8_colwise{t}": 7 * n,
+                       f"quantize_int8_colwise{t}_sm90": 7 * n,
                        f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": 2 * 2 * n,
                        f"rmsnorm_quant_rowwise{t}_sm90": 2 * 2 * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
-                       f"silu_mul_quant_rowwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}": 2 * n,
+                       f"silu_mul_quant_rowwise{t}": 2 * n, f"silu_mul_quant_rowwise{t}_sm90": 2 * n,
+                       f"rmsnorm_quant_colwise{t}": 2 * n,
                        f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, f"silu_mul_bwd_quant_rowwise{t}": n,
                        f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, f"ungroup_quant{t}": 3 * n})
     elif layer == "unfused":
         counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n,
+                       f"quantize_int8_colwise{t}_sm90": 11 * n,
                        f"quantize_int8_both{t}": 7 * n})
     if layer != "bf16":
         counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm_rhs_t_sm90": 2 * 7 * n, "scaled_mm": 7 * n,
@@ -1760,7 +1796,8 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
     B18 LayerNorm-row 2 (qkv, fc1; with the column absmax), GELU-row 1 (fc2),
     K1 5 (the four weights and proj's input), K2 4; the backward
     LayerNorm-column 2 and GELU-column 1 (given the forward's scales), B5 4,
-    B4 5, B1 4, B2 4; each quantize in its SR form with ``sr``. Then B6 once
+    B4 5 (every one on the cluster form), B1 4, B2 4; each quantize in its
+    SR form with ``sr``. Then B6 once
     per parameter leaf. ViT-Giant's patch embedding (588 inputs) and head
     stay bf16. ``layer`` 'bf16': B6 only."""
     t = "_sr" if sr else ""
@@ -1770,7 +1807,8 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
         counts.update({f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
                        f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
                        f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
-                       f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L, "scaled_mm": 4 * L,
+                       f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L,
+                       f"quantize_int8_colwise{t}_sm90": 5 * L, "scaled_mm": 4 * L,
                        "scaled_mm_sm90": 4 * L, "scaled_mm_lhs_t": 4 * L, "scaled_mm_lhs_t_sm90": 4 * L})
     return counts
 

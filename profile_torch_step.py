@@ -13,8 +13,8 @@ three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
 of every kernel, summed by group (the port's int8, int4 and tile-scaled
-GEMMs, its quantizes K1, B4 and B5 each apart, B7 and B11 each apart, its other producer kernels, its RoPE and
-ungroup kernels, B6,
+GEMMs, its quantizes K1, B4 and B5 each apart, B7, B9-row and B11 each
+apart, its other producer kernels, its RoPE and ungroup kernels, B6,
 cuBLAS GEMMs, attention,
 torch's copy kernels, the rest: torch's elementwise and reduction kernels),
 the device's busy share of the profiled step's wall time, the layout copies
@@ -58,9 +58,9 @@ VIT_B = 24
 # kernel is scaled_mm_s8, on packed int4 operands (B16's decode sizes, K % 32
 # != 0) with Src 1 in its template arguments. A key that is a tuple matches a
 # name holding all of its fragments: B7's first design is row_quant over
-# NormProducer (B9's row form and B18's are row_quant too), mangled or not.
-# B7's and B11's folds of their CTAs' column maxima (reduce_parts) stay in
-# the producer group.
+# NormProducer, B9-row's over SiluProducer (B18's are row_quant too),
+# mangled or not. B7's, B9-row's and B11's folds of their CTAs' column
+# maxima (reduce_parts) stay in the producer group.
 GROUPS = (
     ("int4 GEMM B16 on the TMA + wgmma mainloop", ("s4kmajor",)),
     ("int4 GEMM B16 on wmma (decode sizes, K % 32 != 0)", ("src)1",)),
@@ -73,7 +73,8 @@ GROUPS = (
     ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer")),
     ("B7 RMSNorm row quantize", ("rmsnorm_rows", ("row_quant", "::normproducer"), ("row_quant", "12normproducer"))),
     ("B11 silu-backward row quantizes", ("silu_bwd_rows", "silu_bwd_row_quant")),
-    ("producer kernels B8, B9, B10, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
+    ("B9-row silu row quantize", ("silu_rows", ("row_quant", "siluproducer"))),
+    ("producer kernels B8, B9-col, B10, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
                                                          "rmsnorm_bwd_rows", "reduce_parts")),
     ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
     # B5's first design, which only B5 calls off the vector path take (an
@@ -81,7 +82,7 @@ GROUPS = (
     # column cast and is counted with B4 here
     ("quantize B5 (both axes)", ("quantize_both",)),
     ("quantize K1 (rows)", ("quantize_rows",)),
-    ("quantize B4 (columns)", ("col_absmax", "col_cast")),
+    ("quantize B4 (columns)", ("quantize_cols_cluster", "col_absmax", "col_cast")),
     ("B6 AdamW", ("fused_adamw",)),
     ("attention (SDPA)", ("flash", "fmha", "sdpa", "attention", "cudnn")),
     ("copies and casts", ("copy",)),

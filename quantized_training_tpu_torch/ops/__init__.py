@@ -6,7 +6,8 @@ kernels, each with a plain PyTorch version that CPU tensors take:
 - K1 :func:`quantize_int8_rowwise` (``csrc/int8_quant.cu``), replacing
   ``ops/pallas_quant.py::quantize_int8_rowwise``;
 - B4 :func:`quantize_int8_colwise` (``csrc/int8_quant.cu``), replacing
-  ``ops/pallas_quant.py::quantize_int8_colwise``;
+  ``ops/pallas_quant.py::quantize_int8_colwise``; on thread-block clusters
+  again in ``quantize_int8_colwise_sm90`` (and ``_sr_sm90``);
 - B5 :func:`quantize_int8_both` (``csrc/int8_quant.cu``), replacing
   ``ops/pallas_quant.py::quantize_int8_both``;
 - K2 :func:`scaled_mm_rhs_t` (``csrc/scaled_mm.cu``), replacing
@@ -28,8 +29,9 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   :func:`silu_mul_quant_rowwise` and :func:`silu_mul_quant_colwise`, and B10
   :func:`rmsnorm_bwd` (``csrc/fused_producers.cu``), replacing the functions
   of the same names in ``ops/pallas_fused.py``: RMSNorm and silu(a) * b run
-  inside the int8 quantizes, and the RMSNorm backward in one pass; B7 on
-  the persistent row walk again in ``rmsnorm_quant_rowwise_sm90`` (and
+  inside the int8 quantizes, and the RMSNorm backward in one pass; B7 and
+  B9's row form on the persistent row walk again in
+  ``rmsnorm_quant_rowwise_sm90`` and ``silu_mul_quant_rowwise_sm90`` (and
   ``_sr_sm90``);
 - B11 :func:`silu_mul_bwd_quant_rowwise` and B12
   :func:`silu_mul_bwd_quant_colwise` (``csrc/fused_producers.cu``), the
@@ -136,6 +138,8 @@ KERNELS = {
     "quantize_int8_rowwise_sr": (quantize_int8_rowwise, "sr_launches"),
     "quantize_int8_colwise": (quantize_int8_colwise, "launches"),
     "quantize_int8_colwise_sr": (quantize_int8_colwise, "sr_launches"),
+    "quantize_int8_colwise_sm90": (quantize_int8_colwise, "sm90_launches"),
+    "quantize_int8_colwise_sr_sm90": (quantize_int8_colwise, "sr_sm90_launches"),
     "quantize_int8_both": (quantize_int8_both, "launches"),
     "quantize_int8_both_sr": (quantize_int8_both, "sr_launches"),
     "scaled_mm_rhs_t": (scaled_mm_rhs_t, "launches"),
@@ -154,6 +158,8 @@ KERNELS = {
     "rmsnorm_quant_colwise_sr": (rmsnorm_quant_colwise, "sr_launches"),
     "silu_mul_quant_rowwise": (silu_mul_quant_rowwise, "launches"),
     "silu_mul_quant_rowwise_sr": (silu_mul_quant_rowwise, "sr_launches"),
+    "silu_mul_quant_rowwise_sm90": (silu_mul_quant_rowwise, "sm90_launches"),
+    "silu_mul_quant_rowwise_sr_sm90": (silu_mul_quant_rowwise, "sr_sm90_launches"),
     "silu_mul_quant_colwise": (silu_mul_quant_colwise, "launches"),
     "silu_mul_quant_colwise_sr": (silu_mul_quant_colwise, "sr_launches"),
     "rmsnorm_bwd": (rmsnorm_bwd, "launches"),

@@ -48,8 +48,8 @@ _P, _I, _I64, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uin
 _SIGNATURES = {
     # x, q, scale, M, K, eps, is_bf16, sr, key, stream
     "qt_quantize_int8_rowwise": (_P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
-    # x, q, scale, amax, R, C, eps, is_bf16, sr, key, stream
-    "qt_quantize_int8_colwise": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
+    # x, q, scale, amax, R, C, eps, is_bf16, sr, key, sv, cs, threads, stream
+    "qt_quantize_int8_colwise": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I, _P),
     # x, q_row, s_row, q_col, s_col, amax, M, K, eps, is_bf16, sr, key_row, key_col, stream
     "qt_quantize_int8_both": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _U64, _P,
@@ -60,8 +60,10 @@ _SIGNATURES = {
     "qt_rmsnorm_quant_rowwise": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _I, _U64, _I, _I64, _P,
     ),
-    # a, b, q, s_row, amax, parts, M, K, rpb, eps, is_bf16, sr, with_amax, key, stream
-    "qt_silu_mul_quant_rowwise": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _U64, _P),
+    # a, b, q, s_row, amax, parts, M, K, rpb, eps, is_bf16, sr, with_amax, key, tpr, ctas, stream
+    "qt_silu_mul_quant_rowwise": (
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _U64, _I, _I64, _P,
+    ),
     # x, g, scale, q, s_out, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, key, stream
     "qt_rmsnorm_quant_colwise": (
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _U64, _P,

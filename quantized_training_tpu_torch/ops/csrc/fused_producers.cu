@@ -39,7 +39,8 @@
 // - B7 rmsnorm_rows, or row_quant<NormProducer> at widths the row walk does
 //   not take: rmsnorm_quant_rowwise (:154), x [M, K] -> q int8 [M, K],
 //   scale fp32 [M], optionally the column absmax fp32 [K];
-// - B9 row_quant<SiluProducer>: silu_mul_quant_rowwise (:325), a, b [M, K];
+// - B9 silu_rows, or row_quant<SiluProducer> at widths the row walk does not
+//   take: silu_mul_quant_rowwise (:325), a, b [M, K];
 // - B8 col_quant<NormProducer>: rmsnorm_quant_colwise (:246), column int8
 //   given the column scales, or after producer_col_absmax (the two-pass form);
 // - B9 col_quant<SiluProducer>: silu_mul_quant_colwise (:409), the same;
@@ -83,15 +84,16 @@
 // cast with its column's inverse scale, kept in shared memory. wgmma and TMA
 // do not apply.
 //
-// B7 and B11, the path's largest producer kernels, were redesigned for the
-// H100's memory system (ops/fused_producers.py's routes choose them where
-// their layout leaves no lane idle; the first design above stays for the
-// other widths): a persistent grid of a few CTAs an SM (RowWalk,
-// row_common.cuh) whose groups of whole warps take one row at a time, every
-// lane holding the same kNormV (B7) or one or two (B11) 16-byte vectors of
-// each row, the next row's loaded before this row is worked on; the
-// producer's values stay in registers from the load to the cast, row sums
-// and maxima reduce by warp shuffles and a named barrier a group, the
+// B7, B11 and B9's row form, the path's largest producer kernels, were
+// redesigned for the H100's memory system (ops/fused_producers.py's routes
+// choose them where their layout leaves no lane idle; the first design above
+// stays for the other widths): a persistent grid of a few CTAs an SM
+// (RowWalk, row_common.cuh) whose groups of whole warps take one row at a
+// time, every lane holding the same kNormV (B7) or one or two (B9, B11)
+// 16-byte vectors of each row, the next row's loaded before this row is
+// worked on; the producer's values stay in registers from the load to the
+// cast, row sums and maxima reduce by warp shuffles and a named barrier a
+// group, the
 // column maxima stay in registers and meet once a CTA (one row of partials
 // a CTA, 264 at [8192, 2048], not 547), and the casts round and convert by
 // one add (byte_rn, byte_sr) where rintf and the float -> int cast each took
@@ -748,6 +750,116 @@ silu_bwd_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restr
   }
 }
 
+// B9's row form on the persistent row walk (the route ops/fused_producers.py::
+// silu_rows_sm90_route picks): groups of tpr threads (a CTA of tpr, or of
+// kThreads when tpr divides it), V vectors a thread a row, tpr V the row's
+// vectors: at K = 5632 bf16 one row of 704 vectors a CTA of 352 threads, two
+// vectors each. y = silu_mul(a, b) stays in registers from the load to the
+// cast; the row max reduces by warp shuffles, across the group's warps
+// through shared words (alternating between rows, so one barrier a row
+// suffices); with COLMAX the CTA writes its columns' maxima, its groups
+// merged, to parts[blockIdx.x]. The RN form runs two CTAs an SM (80
+// registers a thread) with each group's column maxima in shared memory,
+// updated in place (a thread owns its columns there); the SR form one CTA
+// an SM, the maxima in registers (its Philox words would spill at 80).
+// ab_sm90_forms.py times the other layouts (b9_one_cta, b9_reg_max,
+// b9_v1). The max is order-free, so the outputs are
+// row_quant<SiluProducer>'s bit for bit. Dynamic shared memory: with
+// COLMAX, the RN form's groups' column maxima [groups][K] (fp32, element j
+// of vector v at j nv + v), or the SR form's merge of more than one
+// group's [K], as bits.
+constexpr int kSiluCtasPerSm = 2;  // CTAs an SM the launch bounds keep resident (the RN form at V = 2)
+
+template <bool SR, int V>
+constexpr int silu_rows_ctas() { return V == 1 || SR ? 1 : kSiluCtasPerSm; }
+
+template <typename T, bool SR, bool COLMAX, int V>
+__global__ void __launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())
+silu_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __restrict__ q, float* __restrict__ s_row,
+          float* __restrict__ parts, int64_t M, int64_t K, int tpr, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  constexpr bool kShared = COLMAX && !SR, kRegs = COLMAX && !kShared;  // where the column maxima live
+  using Walk = RowWalk<V, 2>;
+  extern __shared__ unsigned int cmax[];  // [K], or [groups][K] with kShared
+  __shared__ unsigned int red[2][kSiluRowsMaxCta / 32];  // each warp's max |y| bits, by row parity
+  const Walk walk(tpr);
+  const int warps = tpr / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = blockDim.x / tpr;
+  const bool merge = kRegs && groups > 1;
+  const int64_t nv = K / N;  // tpr V
+  if (merge || kShared) {
+    for (int64_t c = threadIdx.x; c < (kShared ? groups : 1) * K; c += blockDim.x) cmax[c] = 0u;
+    __syncthreads();
+  }
+  float* gmax = reinterpret_cast<float*>(cmax) + walk.grp * K;  // kShared: this group's, [j nv + vector]
+  float cm[kRegs ? V : 1][N];
+#pragma unroll
+  for (int p = 0; p < (kRegs ? V : 1); ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) cm[p][j] = 0.0f;
+  int parity = 0;
+  const uint4* const in[2] = {reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[2][V]) {
+    float y[V][N], am = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* ea = reinterpret_cast<const T*>(&u[0][p]);
+      const T* eb = reinterpret_cast<const T*>(&u[1][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        y[p][j] = silu_mul(to_f32(ea[j]), to_f32(eb[j]));
+        am = fmaxf(am, fabsf(y[p][j]));
+        if constexpr (kRegs) cm[p][j] = fmaxf(cm[p][j], fabsf(y[p][j]));
+        if constexpr (kShared) {
+          float* g = gmax + j * nv + walk.vec(p);
+          *g = fmaxf(*g, fabsf(y[p][j]));
+        }
+      }
+    }
+    unsigned int m = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(am));  // non-negative: bits order as floats
+    if (warps > 1) {
+      if (lane == 0) red[parity][warp] = m;
+      group_sync(walk.grp, tpr);
+      for (int w = walk.grp * warps; w < (walk.grp + 1) * warps; ++w) m = ::max(m, red[parity][w]);
+      parity ^= 1;
+    }
+    const float s = __fmul_rn(__uint_as_float(m), kInv127);
+    const float inv = inv_scale(s, eps);
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(y[p], inv, off, key, q + off);
+    }
+    if (walk.t == 0) s_row[row] = s;
+  });
+  if (!COLMAX) return;
+  float* part = parts + blockIdx.x * K;
+  if constexpr (kShared) {
+    __syncthreads();
+    const float* all = reinterpret_cast<const float*>(cmax);
+    for (int64_t c = threadIdx.x; c < K; c += blockDim.x) {
+      float r = 0.0f;
+      for (int g = 0; g < groups; ++g) r = fmaxf(r, all[g * K + (c % N) * nv + c / N]);
+      part[c] = r;
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int64_t c = walk.vec(p) * N + j;
+      if (merge)
+        atomicMax(cmax + c, __float_as_uint(cm[p][j]));
+      else
+        part[c] = cm[p][j];
+    }
+  if (merge) {
+    __syncthreads();
+    for (int64_t c = threadIdx.x; c < K; c += blockDim.x) part[c] = __uint_as_float(cmax[c]);
+  }
+}
+
 // B12: rows [rpb * blockIdx.x, +rpb) of (da, db), each cast with its
 // column's scale (scale_a, scale_b [K]); SR words as B11's. Dynamic shared
 // memory: the inverse scales of da's and db's columns [2K], fp32.
@@ -925,6 +1037,32 @@ cudaError_t launch_silu_bwd_rows(const void* a, const void* b, const void* dy, v
   return launch_reduce(true, pt, static_cast<float*>(amax), ctas, 2 * K, stream);
 }
 
+// B9's row form on the walk: tpr threads a row, V = K / N / tpr vectors a
+// thread (1 or 2), ctas CTAs of max(tpr, kThreads) threads, parts [ctas, K].
+template <typename T, bool SR, bool COLMAX>
+cudaError_t launch_silu_rows(const void* a, const void* b, void* q, void* s_row, void* amax, void* parts, int64_t M,
+                             int64_t K, int tpr, int64_t ctas, float eps, uint64_t key, cudaStream_t stream) {
+  const int64_t nv = K / (16 / static_cast<int64_t>(sizeof(T)));
+  const int cta = tpr > kThreads ? tpr : kThreads;
+  const int64_t V = tpr > 0 && nv % tpr == 0 ? nv / tpr : 0;
+  if (tpr % 32 != 0 || cta % tpr != 0 || ctas < 1 ||
+      !((V == 1 && cta <= kSiluRowsMaxCta) || (V == 2 && cta <= kSiluRowsMaxCta2)))
+    return cudaErrorInvalidValue;
+  const size_t smem = !COLMAX    ? 0
+                      : !SR       ? static_cast<size_t>(cta / tpr * K) * sizeof(float)
+                      : cta > tpr ? static_cast<size_t>(K) * sizeof(unsigned int)
+                                  : 0;
+  const auto kernel = V == 1 ? silu_rows<T, SR, COLMAX, 1> : silu_rows<T, SR, COLMAX, 2>;
+  float* pt = static_cast<float*>(parts);
+  cudaError_t err;
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned int>(ctas), cta, smem, stream>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                                                 static_cast<int8_t*>(q), static_cast<float*>(s_row),
+                                                                 pt, M, K, tpr, eps, key);
+  err = cudaGetLastError();
+  return err != cudaSuccess || !COLMAX ? err : launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
+}
+
 template <typename T, bool SR>
 cudaError_t launch_silu_bwd_col(const void* a, const void* b, const void* dy, const void* scale_a,
                                 const void* scale_b, void* qa, void* qb, int64_t M, int64_t K, int64_t rpb, float eps,
@@ -1002,14 +1140,19 @@ extern "C" int qt_rmsnorm_quant_rowwise(const void* x, const void* g, void* q, v
 #undef QT_ROW
 }
 
-// B9, row form: as B7 with the inputs a, b [M, K].
+// B9, row form: as B7 with the inputs a, b [M, K]. tpr
+// (ops/fused_producers.py::silu_rows_sm90_route): 0 takes
+// row_quant<SiluProducer> with rpb rows a block; else silu_rows with tpr
+// threads a row on ctas CTAs, parts then ctas * K floats.
 extern "C" int qt_silu_mul_quant_rowwise(const void* a, const void* b, void* q, void* s_row, void* amax, void* parts,
                                          int64_t M, int64_t K, int64_t rpb, float eps, int is_bf16, int sr,
-                                         int with_amax, uint64_t key, void* stream) {
+                                         int with_amax, uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QT_ROW(T, SR, AM) launch_row<SiluProducer<T>, SR, AM>(silu_producer<T>(a, b, K), q, s_row, amax, parts, M, \
-                                                              rpb, eps, key, s)
+#define QT_ROW(T, SR, AM)                                                                                        \
+  (tpr != 0 ? launch_silu_rows<T, SR, AM>(a, b, q, s_row, amax, parts, M, K, tpr, ctas, eps, key, s)            \
+            : launch_row<SiluProducer<T>, SR, AM>(silu_producer<T>(a, b, K), q, s_row, amax, parts, M, rpb, eps, \
+                                                  key, s))
   if (is_bf16)
     return sr ? (with_amax ? QT_ROW(__nv_bfloat16, true, true) : QT_ROW(__nv_bfloat16, true, false))
               : (with_amax ? QT_ROW(__nv_bfloat16, false, true) : QT_ROW(__nv_bfloat16, false, false));

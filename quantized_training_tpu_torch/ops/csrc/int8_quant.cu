@@ -19,13 +19,23 @@
 //
 // B4: column-wise, x [R, C] -> q int8 [R, C], scale [1, C]. Replaces
 // pallas_quant.py::quantize_int8_colwise (:229), the backward's quantize of
-// x2d [tokens, in] and w [out, in] along their first axis. The column max is
-// order-independent, so the token rows are split across blocks (64 rows
-// each) and the partial maxima meet in an fp32 [C] buffer through atomicMax
-// on the non-negative float's bit pattern: bit-exact, and [8192, 2048] fills
-// the card with 1024 blocks where 64 columns per block and no split would
-// give 32. A second pass does the cast. Loads run along the contiguous
-// column axis: 32 threads x 16 bytes of one row per warp.
+// w [out, in] along its first axis (7 a layer and micro-step in the fused
+// Llama2-1B step: [2048, 2048], [256, 2048], [5632, 2048], [2048, 5632]),
+// and of x2d [tokens, in] in the unfused layer. Bound: one read of x and one
+// int8 write (10.3 us at [5632, 2048] bf16, 0.47 at [256, 2048]). Every
+// weight fits in the 50 MB L2 and, split over a cluster of 8 CTAs, in their
+// shared memory, so the design (quantize_cols_cluster, ops/int8_quant.py::
+// colwise_sm90_route picks its geometry) is one launch: a cluster takes a
+// strip of columns, each CTA reads its run of the strip's rows once into
+// shared memory while keeping its columns' maxima in registers, the cluster
+// merges its CTAs' maxima through distributed shared memory after one
+// cluster barrier, and each CTA casts its tile from shared memory (div_rn,
+// the one-add cast). The first design stays for unaligned views, a C off a
+// whole number of vectors and tiles that would not fit (more than 8 x 3552
+// rows): three launches, a memset of an fp32 [C] buffer, col_absmax (64-row
+// blocks whose partial maxima meet there through atomicMax on the
+// non-negative floats' bits) and col_cast (x read again, __fdiv_rn and
+// rintf an element). At [256, 2048] its grid was 32 blocks on 132 SMs.
 //
 // B5: both axes, x [M, K] -> (q_row, s_row [M, 1], q_col, s_col [1, K]).
 // Replaces pallas_quant.py::quantize_int8_both (:306), the backward's
@@ -679,17 +689,145 @@ cudaError_t launch_both_passes(const T* x, void* q_row, void* s_row, void* q_col
                                      col_smem, stream);
 }
 
+// ---- B4 on thread-block clusters ------------------------------------------
+
+template <typename T>
+bool vec_ok(const void* x, int64_t cols) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && cols % (16 / sizeof(T)) == 0;
+}
+
+
+constexpr int kClusterMaxStrip = 16;  // vectors of a strip's row, at most
+constexpr int kClusterThreads = 256;  // a CTA's threads
+constexpr int kClusterCtasPerSm = 3;  // CTAs an SM its launch bounds keep resident (85 registers)
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, L2 only)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(static_cast<unsigned int>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+// B4 in one launch: a cluster of cs CTAs takes a strip of sv 16-byte vectors
+// of every row (blockIdx.x / cs), CTA rank k of it rows [k rpc, (k + 1) rpc),
+// rpc = ceil(R / cs). Each CTA copies its tile of x into shared memory at
+// once (cp.async: every vector of the tile in flight, no registers held),
+// then each thread takes the maxima of its vector's columns over its rows
+// there (packed like x, as B5's row pass); the CTA merges its threads'
+// maxima, the cluster merges its CTAs' through distributed shared memory
+// after one cluster barrier, and each CTA casts its tile from shared memory
+// with every column's (d, 1 / d). A thread reads back only the tile entries
+// it copied, so the tile needs no barrier. Rank 0 stores the scales.
+// Dynamic shared memory: the tile [rpc][sv].
+template <typename T, bool SR>
+__global__ void __launch_bounds__(kClusterThreads, kClusterCtasPerSm)
+quantize_cols_cluster(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale, int64_t R, int64_t C,
+                      int sv, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  extern __shared__ uint4 tile[];
+  __shared__ uint4 warp_max[kClusterThreads / 32][kClusterMaxStrip];  // each warp's column maxima
+  __shared__ uint4 cta_max[kClusterMaxStrip];  // this CTA's, which the cluster's CTAs read
+  __shared__ uint4 col_max[kClusterMaxStrip];  // the cluster's
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks()), rank = static_cast<int>(cluster.block_rank());
+  const int64_t nv = C / N, rpc = (R + cs - 1) / cs;
+  const int64_t r0 = rank * rpc, r1 = r0 + rpc < R ? r0 + rpc : R;
+  const int v = threadIdx.x % sv, step = kClusterThreads / sv;  // this thread's vector of the strip; rows a pass
+  const int64_t cv = static_cast<int64_t>(blockIdx.x / cs) * sv + v;  // its vector of the row
+  const bool in = cv < nv;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const int64_t first = r0 + threadIdx.x / sv;  // this thread's rows: first, first + step, ...
+  if (in)
+    for (int64_t r = first; r < r1; r += step) cp_async16(tile + (r - r0) * sv + v, xv + r * nv + cv);
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+  uint4 m = make_uint4(0u, 0u, 0u, 0u);
+  if (in)
+#pragma unroll 4
+    for (int64_t r = first; r < r1; r += step) m = Abs<T>::max(m, Abs<T>::of(tile[(r - r0) * sv + v]));
+  // the CTA's maxima: lanes l and l + sv hold the same vector
+  for (int off = sv; off < 32; off <<= 1)
+    m = Abs<T>::max(m, make_uint4(__shfl_xor_sync(0xFFFFFFFFu, m.x, off), __shfl_xor_sync(0xFFFFFFFFu, m.y, off),
+                                  __shfl_xor_sync(0xFFFFFFFFu, m.z, off), __shfl_xor_sync(0xFFFFFFFFu, m.w, off)));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane < sv) warp_max[warp][lane] = m;
+  __syncthreads();
+  if (threadIdx.x < sv) {
+    uint4 c = warp_max[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kClusterThreads / 32; ++w) c = Abs<T>::max(c, warp_max[w][threadIdx.x]);
+    cta_max[threadIdx.x] = c;
+  }
+  cluster.sync();  // every CTA's maxima are written and visible to the cluster
+  if (threadIdx.x < sv) {
+    uint4 c = make_uint4(0u, 0u, 0u, 0u);
+    for (int k = 0; k < cs; ++k) c = Abs<T>::max(c, cluster.map_shared_rank(cta_max, k)[threadIdx.x]);
+    col_max[threadIdx.x] = c;
+    if (rank == 0 && in)
+#pragma unroll
+      for (int j = 0; j < N; ++j) store_scale(scale + cv * N + j, __fdiv_rn(__uint_as_float(Abs<T>::elem(c, j)), 127.0f));
+  }
+  // the cluster barrier in two halves: arrive (release) after this CTA's last
+  // read of a peer's shared memory, wait (acquire) before it exits, so that
+  // no CTA's shared memory is freed while a peer still reads it
+  __cluster_barrier_arrive();
+  __syncthreads();
+  float2 dy[N];
+  const uint4 c = col_max[v];
+#pragma unroll
+  for (int j = 0; j < N; ++j) dy[j] = denom_of(__fdiv_rn(__uint_as_float(Abs<T>::elem(c, j)), 127.0f), eps);
+  if (in)
+#pragma unroll 2
+    for (int64_t r = first; r < r1; r += step)
+      cast_vec<T, SR>(tile[(r - r0) * sv + v], [&](int j) { return dy[j]; }, r * C + cv * N, key, q + r * C + cv * N);
+  __cluster_barrier_wait();
+}
+
+// The static shared memory of a CTA of B4's cluster form (2.5 KB), and the
+// largest tile it may take beside it within the 227 KB a block may use
+constexpr size_t kClusterStatic = (kClusterThreads / 32 + 2) * kClusterMaxStrip * sizeof(uint4);
+constexpr size_t kClusterMaxTile = 222 * 1024;
+static_assert(kClusterMaxTile + kClusterStatic <= 227 * 1024, "B4's tile and statics exceed a block's shared memory");
+
+// B4's cluster form: sv vectors a strip (4, 8 or 16), cs CTAs a cluster (at
+// most 8, the portable size), the tile of ceil(R / cs) rows within
+// kClusterMaxTile (ops/int8_quant.py::colwise_sm90_route checks the same).
+template <typename T, bool SR>
+cudaError_t launch_cols_cluster(const void* x, void* q, void* scale, int64_t R, int64_t C, int sv, int cs,
+                                float eps, uint64_t key, cudaStream_t stream) {
+  constexpr int N = 16 / sizeof(T);
+  const int64_t nv = C / N, rpc = (R + cs - 1) / cs;
+  const size_t smem = static_cast<size_t>(rpc) * sv * sizeof(uint4);
+  if (!vec_ok<T>(x, C) || !(sv == 4 || sv == 8 || sv == 16) || cs < 1 || cs > 8 || smem > kClusterMaxTile)
+    return cudaErrorInvalidValue;
+  const auto kernel = quantize_cols_cluster<T, SR>;
+  // the default 48 KB limit counts the static arrays too: ViT-Giant's fc2
+  // weight [1536, 6144] takes a 48 KB tile
+  cudaError_t err = cudaSuccess;
+  if (smem + kClusterStatic > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(cs);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>((nv + sv - 1) / sv * cs));
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<T*>(scale), R,
+                            C, sv, eps, key);
+}
+
 template <typename T>
 dim3 col_grid(int64_t R, int64_t C) {
   constexpr int N = 16 / sizeof(T);
   const int64_t cols = (C + kColThreadsX * N - 1) / (kColThreadsX * N);
   const int64_t rows = std::max<int64_t>(1, (R + kColRows - 1) / kColRows);
   return dim3(static_cast<unsigned int>(cols), static_cast<unsigned int>(rows));
-}
-
-template <typename T>
-bool vec_ok(const void* x, int64_t cols) {
-  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && cols % (16 / sizeof(T)) == 0;
 }
 
 template <typename T, bool SR>
@@ -762,12 +900,18 @@ extern "C" int qt_quantize_int8_rowwise(const void* x, void* q, void* scale, int
   return static_cast<int>(QT_DISPATCH(launch, is_bf16, sr, x, q, scale, M, K, eps, key, s));
 }
 
-// x and q are contiguous [R, C]; scale is [C]; amax is fp32 scratch of C
-// floats.
+// x and q are contiguous [R, C]; scale is [C]. sv, cs
+// (ops/int8_quant.py::colwise_sm90_route): sv 0 takes the first design
+// (col_absmax, col_cast), amax then fp32 scratch of C floats; else the
+// cluster form with sv vectors a strip and cs CTAs a cluster (x 16-byte
+// aligned, C a whole number of vectors), amax unused.
 extern "C" int qt_quantize_int8_colwise(const void* x, void* q, void* scale, void* amax, int64_t R, int64_t C,
-                                        float eps, int is_bf16, int sr, uint64_t key, void* stream) {
+                                        float eps, int is_bf16, int sr, uint64_t key, int sv, int cs, void* stream) {
   if (R <= 0 || C <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sv != 0)
+    return static_cast<int>(
+        QT_DISPATCH(launch_cols_cluster, is_bf16, sr, x, q, scale, R, C, sv, cs, eps, key, s));
   float* a = static_cast<float*>(amax);
   return static_cast<int>(QT_DISPATCH(launch_colwise, is_bf16, sr, x, q, scale, a, R, C, eps, key, s));
 }

@@ -38,10 +38,11 @@ Scales and column maxima are fp32, as the Pallas kernels return them.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/fused_producers.cu`` (whose header says what bounds it on the H100
 and how its design answers that) or raises. Each wrapper counts its
-launches, an SR form apart (``sr_launches``). B7 and B11 take the persistent
-row walk, redesigned for the H100's memory system, wherever its layout
-leaves no lane idle (:func:`norm_rows_sm90_route`,
-:func:`silu_bwd_rows_sm90_route`, decided here and passed to the C entry),
+launches, an SR form apart (``sr_launches``). B7, B11 and B9's row form
+take the persistent row walk, redesigned for the H100's memory system,
+wherever its layout leaves no lane idle (:func:`norm_rows_sm90_route`,
+:func:`silu_bwd_rows_sm90_route`, :func:`silu_rows_sm90_route`, decided
+here and passed to the C entry),
 and count those launches again (``sm90_launches``, ``sr_sm90_launches``);
 other widths keep the first design. B9, B11, B12 and B18's GELU
 forms are bit-exact with their plain versions on the card. B7, B8, B10 and
@@ -58,7 +59,7 @@ import math
 import torch
 
 from . import _build, random
-from .int8_quant import _check_device_input, _count, _key
+from .int8_quant import _check_device_input, _count, _count_route, _key
 
 EPS = 1e-12
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -308,17 +309,20 @@ def supported(M: int, K: int, dtype, n_inputs: int = 1) -> bool:
     return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= max_k and K % 128 == 0
 
 
-# ---- the routes of B7 and B11 ----------------------------------------------------
+# ---- the routes of B7, B9-row and B11 ------------------------------------------
 
 # B7's vectors a thread a row on the row walk (csrc/fused_producers.cu::kNormV)
 NORM_ROW_VECTORS = 4
 _CTA = 256  # the row kernels' block (csrc/row_common.cuh::kThreads)
-# B11's row walk: vectors a thread -> its largest CTA, in the order tried
+# B11's and B9-row's row walks: vectors a thread -> the largest CTA, in the
+# order tried
 # (two vectors ran B11 at 157.4 us at [8192, 5632] on the H100, one 177.6:
 # ab_sm90_forms.py, PERF.md)
 _SILU_ROWS_MAX_CTA = {2: 384, 1: 704}
-# CTAs an SM the walks' launch bounds keep resident: B7 two of 256, B11 one
-NORM_CTAS_PER_SM, SILU_CTAS_PER_SM = 2, 1
+# CTAs an SM the walks' launch bounds keep resident: B7 two of 256, B11 one,
+# B9's row form two in its RN form at two vectors a thread, else one
+# (csrc/fused_producers.cu::silu_rows_ctas, kSiluCtasPerSm)
+NORM_CTAS_PER_SM, SILU_CTAS_PER_SM, SILU_ROWS_CTAS_PER_SM = 2, 1, 2
 
 
 def norm_rows_sm90_route(K: int, dtype) -> int:
@@ -333,6 +337,18 @@ def norm_rows_sm90_route(K: int, dtype) -> int:
     return tpr if tpr * NORM_ROW_VECTORS == nv and tpr in (32, 64, 128, 256) else 0
 
 
+def _silu_walk_tpr(K: int, dtype) -> int:
+    """Two 16-byte vectors a thread, else one, whole warps, a group that
+    fills its block or divides it, within the block the kernel's registers
+    allow; 0 where none is."""
+    nv = K * dtype.itemsize // 16
+    for v, max_cta in _SILU_ROWS_MAX_CTA.items():
+        tpr = nv // v
+        if tpr * v == nv and tpr % 32 == 0 and tpr > 0 and max(tpr, _CTA) % tpr == 0 and max(tpr, _CTA) <= max_cta:
+            return tpr
+    return 0
+
+
 def silu_bwd_rows_sm90_route(K: int, dtype) -> int:
     """The threads a row of B11 on the persistent row walk
     (``csrc/fused_producers.cu::silu_bwd_rows``), 0 for the first design
@@ -340,12 +356,26 @@ def silu_bwd_rows_sm90_route(K: int, dtype) -> int:
     warps, a group that fills its block or divides it, within the block the
     kernel's registers allow (bf16 K = 5632: 352 threads, two vectors
     each)."""
-    nv = K * dtype.itemsize // 16
-    for v, max_cta in _SILU_ROWS_MAX_CTA.items():
-        tpr = nv // v
-        if tpr * v == nv and tpr % 32 == 0 and tpr > 0 and max(tpr, _CTA) % tpr == 0 and max(tpr, _CTA) <= max_cta:
-            return tpr
-    return 0
+    return _silu_walk_tpr(K, dtype)
+
+
+def silu_rows_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B9's row form on the persistent row walk
+    (``csrc/fused_producers.cu::silu_rows``), 0 for the first design
+    (``row_quant<SiluProducer>``): B11's layouts (bf16 K = 5632: 352
+    threads, two vectors each), with :func:`silu_rows_ctas_per_sm` CTAs an
+    SM."""
+    return _silu_walk_tpr(K, dtype)
+
+
+def silu_rows_ctas_per_sm(K: int, dtype, sr: bool) -> int:
+    """CTAs an SM B9's row walk keeps resident at width K, as its launch
+    bounds do (``csrc/fused_producers.cu::silu_rows_ctas``):
+    ``SILU_ROWS_CTAS_PER_SM`` for the RN form at two vectors a thread, else
+    one."""
+    tpr = silu_rows_sm90_route(K, dtype)
+    two = tpr and K * dtype.itemsize // 16 == 2 * tpr
+    return SILU_ROWS_CTAS_PER_SM if two and not sr else 1
 
 
 def row_walk_ctas(M: int, tpr: int, sms: int, per_sm: int) -> int:
@@ -358,15 +388,6 @@ def row_walk_ctas(M: int, tpr: int, sms: int, per_sm: int) -> int:
 @functools.cache
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _count_route(fn, sr: bool, tpr: int) -> None:
-    """Count a launch per form, and on the row walk again."""
-    _count(fn, sr)
-    if tpr and sr:
-        fn.sr_sm90_launches += 1
-    elif tpr:
-        fn.sm90_launches += 1
 
 
 # ---- wrappers -------------------------------------------------------------------
@@ -385,9 +406,9 @@ def _parts(M: int, K: int, device, needed: bool = True) -> torch.Tensor:
 
 
 def _route_parts(M: int, K: int, device, needed: bool, tpr: int, per_sm: int) -> tuple[int, torch.Tensor]:
-    """The grid of B7's or B11's route (0 for the first design) and the
-    fp32 scratch of its column partials: [CTAs, K] on the row walk (one row
-    a CTA), [blocks, K] for the first design."""
+    """The grid of B7's, B9-row's or B11's route (0 for the first design)
+    and the fp32 scratch of its column partials: [CTAs, K] on the row walk
+    (one row a CTA), [blocks, K] for the first design."""
     if not tpr:
         return 0, _parts(M, K, device, needed)
     ctas = row_walk_ctas(M, tpr, _sm_count(device), per_sm)
@@ -446,23 +467,25 @@ def silu_mul_quant_rowwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS
     if a.device.type == "cpu":
         return silu_mul_quant_rowwise_plain(a, b, eps=eps, sr=sr, key=key, with_col_amax=with_col_amax)
     dt = int(a.dtype == torch.bfloat16)
-    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_silu_mul_quant_rowwise(
-        a.data_ptr(), b.data_ptr(), q, s, am, pt, M, K, rpb, eps, dt, int(sr), int(with_col_amax), k, _build.stream())
-    return _rowwise("silu_mul_quant_rowwise", silu_mul_quant_rowwise, launch, (a, b), sr, key, with_col_amax)
+    launch = lambda q, s, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_silu_mul_quant_rowwise(
+        a.data_ptr(), b.data_ptr(), q, s, am, pt, M, K, rpb, eps, dt, int(sr), int(with_col_amax), k, tpr, ctas,
+        _build.stream())
+    return _rowwise("silu_mul_quant_rowwise", silu_mul_quant_rowwise, launch, (a, b), sr, key, with_col_amax,
+                    silu_rows_sm90_route(a.shape[-1], a.dtype), silu_rows_ctas_per_sm(a.shape[-1], a.dtype, sr))
 
 
-def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr=None):
+def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr=None, per_sm=NORM_CTAS_PER_SM):
     """Launch the row form of B7, B9 or B18: ``(q int8 [M, K], scale fp32
     [M, 1])``, with ``with_col_amax`` also the column absmax fp32 [1, K].
-    ``tpr`` (B7 only, whose entry takes a route): the threads a row on the
-    row walk, 0 for the first design."""
+    ``tpr`` (B7 and B9, whose entries take a route): the threads a row on
+    the row walk of ``per_sm`` CTAs an SM, 0 for the first design."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     dev = inputs[0].device
     q = torch.empty((M, K), dtype=torch.int8, device=dev)
     scale = torch.empty((M, 1), dtype=torch.float32, device=dev)
     amax = torch.empty((1, K) if with_col_amax else (0,), dtype=torch.float32, device=dev)
-    ctas, parts = _route_parts(M, K, dev, with_col_amax, tpr or 0, NORM_CTAS_PER_SM)
+    ctas, parts = _route_parts(M, K, dev, with_col_amax, tpr or 0, per_sm)
     route = () if tpr is None else (tpr, ctas)
     err = launch(q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K, _rows_per_block(M), key,
                  *route)
@@ -568,7 +591,7 @@ def silu_mul_bwd_quant_rowwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
         int(a.dtype == torch.bfloat16), int(sr), int(with_amax), int(with_bf16), key, tpr, ctas, _build.stream(),
     )
     _build.check(err, "silu_mul_bwd_quant_rowwise")
-    _count_route(silu_mul_bwd_quant_rowwise, sr, tpr)
+    _count_route(silu_mul_bwd_quant_rowwise, sr, bool(tpr))
     out = (qa, sa, qb, sb)
     if with_amax:
         out += (amax[:K].view(1, K), amax[K:].view(1, K))
@@ -683,4 +706,5 @@ for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise
     _fn.launches = _fn.sr_launches = 0
 rmsnorm_quant_rowwise.sm90_launches = rmsnorm_quant_rowwise.sr_sm90_launches = 0
 silu_mul_bwd_quant_rowwise.sm90_launches = silu_mul_bwd_quant_rowwise.sr_sm90_launches = 0
+silu_mul_quant_rowwise.sm90_launches = silu_mul_quant_rowwise.sr_sm90_launches = 0
 rmsnorm_bwd.launches = 0

@@ -3,7 +3,9 @@
 Counterparts of ``quantized_training_tpu/ops/pallas_quant.py``:
 
 - K1 :func:`quantize_int8_rowwise` for ``quantize_int8_rowwise`` (:139);
-- B4 :func:`quantize_int8_colwise` for ``quantize_int8_colwise`` (:229);
+- B4 :func:`quantize_int8_colwise` for ``quantize_int8_colwise`` (:229),
+  in one launch on thread-block clusters where :func:`colwise_sm90_route`
+  gives a geometry (every weight of the Llama2-1B and ViT-Giant steps);
 - B5 :func:`quantize_int8_both` for ``quantize_int8_both`` (:306).
 
 All three have the numerics of ``quantized_training_tpu/quant/core.py::
@@ -71,6 +73,15 @@ def _count(fn, sr: bool) -> None:
         fn.launches += 1
 
 
+def _count_route(fn, sr: bool, sm90: bool) -> None:
+    """Count a launch per form, and on its redesigned route again."""
+    _count(fn, sr)
+    if sm90 and sr:
+        fn.sr_sm90_launches += 1
+    elif sm90:
+        fn.sm90_launches += 1
+
+
 def _check_device_input(x: torch.Tensor, what: str, ndim: int | None = None) -> None:
     if not x.is_cuda:
         raise ValueError(f"{what}: needs a CPU or CUDA tensor, got {x.device}")
@@ -109,30 +120,95 @@ def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False
 quantize_int8_rowwise.launches = quantize_int8_rowwise.sr_launches = 0
 
 
+# B4's cluster form (csrc/int8_quant.cu::quantize_cols_cluster), on the
+# H100. Its kernel's constants, which tests/test_torch_colwise_route.py
+# holds to the source: CTAs a cluster (the portable size; kernel, at most
+# 8); a CTA's threads (kClusterThreads), the CTAs an SM its launch bounds
+# keep (kClusterCtasPerSm), its static shared memory (kClusterStatic: 10
+# rows of kClusterMaxStrip vectors) and the largest tile it takes
+# (kClusterMaxTile, bytes of dynamic shared memory). The card's: strip
+# widths in vectors, narrowest first; an SM's shared memory, with the 1 KB
+# the runtime reserves a CTA; the SMs that clusters of 8 reach (120 of the
+# 132: cudaOccupancyMaxActiveClusters gives 15 clusters at one CTA an SM);
+# and the cost model's fixed time of a wave and an SM's share of HBM's rate
+CLUSTER_CTAS = 8
+_CTA_THREADS = 256
+_CTAS_PER_SM = 3
+_CTA_STATIC = (_CTA_THREADS // 32 + 2) * 16 * 16
+_CLUSTER_MAX_TILE = 222 * 1024
+_STRIP_VECTORS = (4, 8, 16)
+_SM_SHARED = 228 * 1024
+_CLUSTER_SMS = 120
+_WAVE_US = 5.0
+_SM_BYTES_PER_US = 3.35e12 / 132 / 1e6
+
+
+def _cluster_cost(R: int, nv: int, sv: int) -> float | None:
+    """The modelled time of the cluster form at strips of ``sv`` vectors, in
+    us: a fixed cost a wave of resident CTAs, and the bytes of the busiest
+    SM (the CTAs spread evenly over the SMs, a tile each) at its share of
+    HBM's rate; None where the tile does not fit."""
+    tile = -(-R // CLUSTER_CTAS) * sv * 16
+    if tile > _CLUSTER_MAX_TILE:
+        return None
+    per_sm = min(_SM_SHARED // (tile + _CTA_STATIC + 1024), _CTAS_PER_SM)
+    ctas = -(-nv // sv) * CLUSTER_CTAS
+    waves = -(-ctas // (per_sm * _CLUSTER_SMS))
+    return waves * _WAVE_US + -(-ctas // _CLUSTER_SMS) * tile / _SM_BYTES_PER_US
+
+
+def colwise_sm90_route(R: int, C: int, dtype) -> tuple[int, int] | int:
+    """The geometry of B4's cluster form for x [R, C] of ``dtype``
+    (``csrc/int8_quant.cu::quantize_cols_cluster``): ``(strip vectors,
+    cluster CTAs)``, or 0 for the first design. C must be a whole number of
+    16-byte vectors; a cluster of ``CLUSTER_CTAS`` takes a strip of ``strip
+    vectors`` vectors of every row, each CTA ceil(R / 8) rows of it in
+    shared memory. Of the strips of 4, 8 and 16 vectors whose tile fits,
+    the one ``_cluster_cost`` models fastest, the narrowest on a tie (more
+    SMs pulling bytes); taller inputs keep the first design. On the H100
+    it picks the fastest strip, or the fastest of RN and SR together, at
+    every shape the Llama2-1B and ViT-Giant steps launch B4 at
+    (ab_sm90_forms.py's sweep, PERF.md)."""
+    n = 16 // dtype.itemsize
+    if R < 1 or C < 1 or C % n:
+        return 0
+    best, route = None, 0
+    for sv in _STRIP_VECTORS:
+        cost = _cluster_cost(R, C // n, sv)
+        if cost is not None and (best is None or cost < best):
+            best, route = cost, (sv, CLUSTER_CTAS)
+    return route
+
+
 def quantize_int8_colwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
     """x [R, C] -> (q int8 [R, C], scale x.dtype [1, C]), reducing the first
     axis, rounding stochastically from ``key`` with ``sr``. A CPU tensor
     takes ``quantize_int8_plain(x, axis=0)``; a CUDA tensor (bf16 or fp32,
     contiguous, non-empty) launches B4, or its SR form, on the current
-    stream."""
+    stream: in one launch on thread-block clusters where
+    :func:`colwise_sm90_route` gives a geometry and x starts on a 16-byte
+    boundary (counted again in ``sm90_launches``, ``sr_sm90_launches``),
+    else the first design (a memset and two kernels)."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, axis=0, eps=eps, sr=sr, key=key)
     key = _key(sr, key)
     _check_device_input(x, "quantize_int8_colwise", ndim=2)
     R, C = x.shape
+    route = colwise_sm90_route(R, C, x.dtype) if x.data_ptr() % 16 == 0 else 0
     q = torch.empty((R, C), dtype=torch.int8, device=x.device)
     scale = torch.empty((1, C), dtype=x.dtype, device=x.device)
-    amax = torch.empty(C, dtype=torch.float32, device=x.device)
+    amax = torch.empty(0 if route else C, dtype=torch.float32, device=x.device)
     err = _build.library().qt_quantize_int8_colwise(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), R, C, eps,
-        int(x.dtype == torch.bfloat16), int(sr), key, _build.stream(),
+        int(x.dtype == torch.bfloat16), int(sr), key, *(route or (0, 0)), _build.stream(),
     )
     _build.check(err, "quantize_int8_colwise")
-    _count(quantize_int8_colwise, sr)
+    _count_route(quantize_int8_colwise, sr, bool(route))
     return q, scale
 
 
 quantize_int8_colwise.launches = quantize_int8_colwise.sr_launches = 0
+quantize_int8_colwise.sm90_launches = quantize_int8_colwise.sr_sm90_launches = 0
 
 # B5 keeps a row of column maxima in one block's shared memory: K fp32 values
 # within the 227 KB a block may use

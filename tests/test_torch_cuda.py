@@ -34,6 +34,7 @@ TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_
 MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
+IQ = importlib.import_module("quantized_training_tpu_torch.ops.int8_quant")
 
 pytestmark = pytest.mark.cuda
 
@@ -353,6 +354,81 @@ def test_b7_walk_gives_the_first_designs_bits(monkeypatch, M, K, sr):
     one = ops.rmsnorm_quant_colwise(x, g, scale=walk[2] * (1.0 / 127.0), **kw)
     two = ops.rmsnorm_quant_colwise(x, g, **kw)
     assert torch.equal(one[0], two[0]) and torch.equal(one[1].reshape(-1), two[1].reshape(-1))
+
+
+# B9's row form at the fused layer's silu site, at 256 rows, and at a
+# width whose vectors the walk cannot tile (the first design)
+_B9_SHAPES = [(8192, 5632), (256, 5632), (512, 640)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K", _B9_SHAPES)
+def test_b9_row_walk_bit_exact(monkeypatch, M, K, sr):
+    """B9's row form and its SR form on the route ``silu_rows_sm90_route``
+    gives (the row walk at K = 5632 bf16), with and without the column
+    absmax: bit-exact with the plain version in every output, each launch
+    counted on the route it took, and the walk's outputs the first design's
+    (the route forced to 0) bit for bit."""
+    _, _, a, b = _producer_inputs(M, K, torch.bfloat16, 80)
+    kw = dict(sr=sr, key=2**61 + 9 if sr else None)
+    walk = int(FP.silu_rows_sm90_route(K, torch.bfloat16) > 0)
+    assert walk == int(K == 5632)
+    t = "_sr" if sr else ""
+    for amax in (True, False):
+        ops.reset_launch_counts()
+        got = ops.silu_mul_quant_rowwise(a, b, with_col_amax=amax, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts[f"silu_mul_quant_rowwise{t}"] == 1 and counts[f"silu_mul_quant_rowwise{t}_sm90"] == walk
+        ref = ops.silu_mul_quant_rowwise_plain(a, b, with_col_amax=amax, **kw)
+        assert len(got) == len(ref)
+        for x, r in zip(got, ref):
+            assert x.dtype == r.dtype and x.shape == r.shape and torch.equal(x, r)
+        with monkeypatch.context() as m:
+            m.setattr(FP, "silu_rows_sm90_route", lambda K, dtype: 0)
+            first = ops.silu_mul_quant_rowwise(a, b, with_col_amax=amax, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, first))
+
+
+# B4 at the fused step's four weight shapes, ViT-Giant's proj input and fc2
+# weight (a 48 KB tile beside 2.5 KB of static shared memory: past the
+# default limit), the unfused layer's down input, a ragged row count and
+# rows below the cluster's 8 CTAs
+_B4_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (6400, 1536), (1536, 6144), (8192, 5632),
+              (1000, 2048), (3, 2048)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,C", _B4_SHAPES)
+def test_b4_cluster_bit_exact(R, C, dtype, sr):
+    """B4 and B4-SR on the cluster route (``colwise_sm90_route``) against
+    ``quantize_int8_plain(x, axis=0)``, weight-sized values with an
+    all-zero column and row: q and the scales bit-exact, the launch counted
+    on the route; the same input through the first design (a view one
+    element in, which keeps it) gives the same bits."""
+    x = _rand((R, C), dtype, 90) * 0.02
+    x[:, 3] = 0
+    x[R // 2] = 0
+    kw = dict(sr=sr, key=2**62 + 11 if sr else None)
+    route = IQ.colwise_sm90_route(R, C, dtype)
+    assert route
+    ops.reset_launch_counts()
+    q, s = ops.quantize_int8_colwise(x, **kw)
+    torch.cuda.synchronize()
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"quantize_int8_colwise{t}"] == 1 and counts[f"quantize_int8_colwise{t}_sm90"] == 1
+    q_ref, s_ref = ops.quantize_int8_plain(x, axis=0, **kw)
+    assert q.dtype == q_ref.dtype and s.dtype == s_ref.dtype and s.shape == s_ref.shape
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    if R * C <= 2048 * 2048:
+        base = torch.empty(R * C + 1, dtype=dtype, device="cuda")
+        view = base[1:].view(R, C)
+        view.copy_(x)
+        q1, s1 = ops.quantize_int8_colwise(view, **kw)
+        assert ops.launch_counts()[f"quantize_int8_colwise{t}_sm90"] == 1
+        assert torch.equal(q1, q) and torch.equal(s1, s)
 
 
 @pytest.mark.parametrize("sr", [False, True])
@@ -907,13 +983,14 @@ def test_launch_counters_count_kernel_launches_only():
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
     y, gamma = _rand((64, 128), torch.bfloat16, 3), torch.ones(128, device="cuda", dtype=torch.bfloat16)
-    # B7 and B11 at a width they take on the row walk: counted there too
+    # B7, B9-row and B11 at a width they take on the row walk: counted there
+    # too; B4 above on its cluster route ([64, 64]: 2 strips of 4 vectors)
     wide, wide_gamma = _rand((64, 2048), torch.bfloat16, 5), torch.ones(2048, device="cuda", dtype=torch.bfloat16)
     for use_sr in (False, True):
         kw = dict(sr=use_sr, key=1 if use_sr else None)
         amax = ops.rmsnorm_quant_rowwise(wide, wide_gamma, with_col_amax=True, **kw)[2]
         ops.rmsnorm_quant_colwise(wide, wide_gamma, scale=amax * (1.0 / 127.0), **kw)
-        ops.silu_mul_quant_rowwise(y, y, **kw)
+        ops.silu_mul_quant_rowwise(wide, wide, **kw)  # on the row walk: counted there too
         ops.silu_mul_quant_colwise(y, y, **kw)
         ops.rmsnorm_quant_rowwise_plain(y, gamma, **kw)
         ops.silu_mul_quant_colwise_plain(y, y, **kw)

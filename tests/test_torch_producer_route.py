@@ -1,7 +1,8 @@
-"""The route B7 (``rmsnorm_quant_rowwise``) and B11
-(``silu_mul_bwd_quant_rowwise``) take, on the CPU: each picks between the
+"""The route B7 (``rmsnorm_quant_rowwise``), B11
+(``silu_mul_bwd_quant_rowwise``) and B9's row form
+(``silu_mul_quant_rowwise``) take, on the CPU: each picks between the
 persistent row walk of ``csrc/fused_producers.cu`` (``rmsnorm_rows``,
-``silu_bwd_rows``) and the first design (``row_quant``,
+``silu_bwd_rows``, ``silu_rows``) and the first design (``row_quant``,
 ``silu_bwd_row_quant``) by a pure predicate in ``ops/fused_producers.py``,
 which gives the threads a row (0: the first design) and is passed to the C
 entry with the grid. No card is needed: the predicates and the geometry are
@@ -60,6 +61,43 @@ def test_b11_route(K, dtype, tpr):
     assert FP.silu_bwd_rows_sm90_route(K, dtype) == tpr
 
 
+@pytest.mark.parametrize("K,dtype,tpr", [(_L.intermediate_size, torch.bfloat16, 352), (2048, torch.bfloat16, 128),
+                                         (256, torch.bfloat16, 32), (6144, torch.bfloat16, 384),
+                                         (8192, torch.bfloat16, 0), (2048, torch.float32, 256),
+                                         (128, torch.bfloat16, 0), (640, torch.bfloat16, 0),
+                                         (1536, torch.bfloat16, 0), (5632, torch.float32, 0)])
+def test_b9_route(K, dtype, tpr):
+    """B9's row form at the Llama2-1B step's FFN width (5632, bf16) takes
+    the row walk at 352 threads a row (two vectors each), B11's layout;
+    widths the walk cannot tile with whole warps or hold in one block (K =
+    8192, 640, 1536) keep the first design."""
+    assert FP.silu_rows_sm90_route(K, dtype) == tpr
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b9_geometry_leaves_no_lane_idle(dtype):
+    """At every K the route takes: whole warps a row, one or two vectors a
+    thread covering the row exactly, a block of max(tpr, 256) threads made of
+    whole groups, within the block size the kernel's registers allow at
+    ``silu_rows_ctas_per_sm`` CTAs an SM (two for the RN form at two
+    vectors a thread, else one, as the launch bounds keep; 2,048 threads an
+    SM at most); the path's width is among them, one group a CTA."""
+    taken = []
+    for K in NORM_KS:
+        tpr = FP.silu_rows_sm90_route(K, dtype)
+        if tpr:
+            v, cta = _vectors(K, dtype) // tpr, max(tpr, 256)
+            assert tpr % 32 == 0 and v * tpr == _vectors(K, dtype) and v in FP._SILU_ROWS_MAX_CTA, (K, tpr)
+            assert cta % tpr == 0 and cta <= FP._SILU_ROWS_MAX_CTA[v], (K, tpr)
+            for sr in (False, True):
+                per_sm = FP.silu_rows_ctas_per_sm(K, dtype, sr)
+                assert per_sm == (FP.SILU_ROWS_CTAS_PER_SM if v == 2 and not sr else 1), (K, tpr, sr)
+                assert cta * per_sm <= 2048, (K, tpr, sr)
+            taken.append(K)
+    assert taken and (dtype != torch.bfloat16 or _L.intermediate_size in taken)
+    assert dtype != torch.bfloat16 or FP.silu_rows_sm90_route(_L.intermediate_size, dtype) == 352
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_b7_geometry_leaves_no_lane_idle(dtype):
     """At every K the route takes: whole warps a row, exactly
@@ -93,11 +131,13 @@ def test_b11_geometry_leaves_no_lane_idle(dtype):
 
 
 @pytest.mark.parametrize("M,tpr,per_sm,ctas", [(8192, 64, FP.NORM_CTAS_PER_SM, 2 * SMS), (8192, 352, 1, SMS),
+                                               (8192, 352, FP.SILU_ROWS_CTAS_PER_SM, 2 * SMS), (256, 352, 2, 256),
                                                (8192, 128, 1, SMS), (1000, 64, 2, 250), (7, 64, 2, 2), (7, 704, 1, 7),
                                                (1, 32, 2, 1)])
 def test_row_walk_grid(M, tpr, per_sm, ctas):
     """The walk's grid: a block of max(tpr, 256) threads, its groups one row
-    each at a time, at most ``per_sm`` blocks an SM (B7 two, B11 one)."""
+    each at a time, at most ``per_sm`` blocks an SM (B7 two, B11 one, B9's
+    row form two)."""
     assert FP.row_walk_ctas(M, tpr, SMS, per_sm) == ctas
 
 
@@ -184,15 +224,95 @@ def test_b11_passes_its_route(library, M, K, dtype, amax, copy, sr):
     assert sum(counts.values()) == 1 + int(tpr > 0)
 
 
-def test_other_row_producers_keep_their_entries(library):
-    """B9's and B18's row forms share B7's Python launch path but not its
-    route: their entries take no route arguments, and nothing counts a
-    row-walk launch for them."""
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("amax", [False, True])
+@pytest.mark.parametrize("M,K,dtype", [(8192, 5632, torch.bfloat16), (256, 5632, torch.bfloat16),
+                                       (1000, 2048, torch.float32), (96, 640, torch.bfloat16),
+                                       (8192, 2560, torch.bfloat16)])
+def test_b9_passes_its_route(library, M, K, dtype, amax, sr):
+    """B9's row wrapper passes ``silu_rows_sm90_route(K)`` and the walk's
+    grid (``silu_rows_ctas_per_sm`` CTAs an SM: two for the RN form at two
+    vectors a thread, else one) as the two arguments before the stream, one
+    argument per ``_SIGNATURES`` entry, its rows a block for
+    the first design, the column maxima' scratch one row a CTA on the walk,
+    and counts the launch per form and, on the row walk, again; with and
+    without the column absmax, in RN and SR."""
+    key = 5 if sr else None
+    out = ops.silu_mul_quant_rowwise(_meta((M, K), dtype), _meta((M, K), dtype), sr=sr, key=key,
+                                     with_col_amax=amax)
+    (name, args), = library.calls
+    tpr = FP.silu_rows_sm90_route(K, dtype)
+    per_sm = FP.SILU_ROWS_CTAS_PER_SM if _vectors(K, dtype) == 2 * tpr and not sr else 1
+    ctas = FP.row_walk_ctas(M, tpr, SMS, per_sm) if tpr else 0
+    assert name == "qt_silu_mul_quant_rowwise" and len(args) == len(_build._SIGNATURES[name]) == 17
+    assert args[6:14] == (M, K, FP._rows_per_block(M), FP.EPS, int(dtype == torch.bfloat16), int(sr), int(amax),
+                          key or 0)
+    assert args[14:] == (tpr, ctas, 0)
+    assert [t.shape for t in out] == [(M, K), (M, 1), (1, K)][:3 if amax else 2]
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"silu_mul_quant_rowwise{t}"] == 1 and counts[f"silu_mul_quant_rowwise{t}_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+
+
+def test_b9_ctas_per_sm_match_the_launch_bounds():
+    """The CTAs an SM by which the wrapper sizes B9-row's grid are those
+    its kernel's launch bounds keep (``csrc/fused_producers.cu``:
+    ``kSiluCtasPerSm`` in the RN form at two vectors a thread, else one), so
+    the persistent grid stays resident: one CTA an SM at one vector a
+    thread (bf16 K 2560, 320 threads a row) and in the SR form."""
+    src = (_build.CSRC / "fused_producers.cu").read_text()
+    assert f"constexpr int kSiluCtasPerSm = {FP.SILU_ROWS_CTAS_PER_SM};" in src
+    assert "constexpr int silu_rows_ctas() { return V == 1 || SR ? 1 : kSiluCtasPerSm; }" in src
+    assert FP.silu_rows_sm90_route(2560, torch.bfloat16) == 320
+    assert FP.silu_rows_ctas_per_sm(2560, torch.bfloat16, False) == 1
+    assert FP.silu_rows_ctas_per_sm(_L.intermediate_size, torch.bfloat16, False) == 2
+    assert FP.silu_rows_ctas_per_sm(_L.intermediate_size, torch.bfloat16, True) == 1
+
+
+def test_b9_walk_scratch(library, monkeypatch):
+    """The column maxima' scratch B9's row form allocates: [CTAs, K] on the
+    walk (two CTAs an SM, the SR form one), [blocks, K] on the first design
+    (the route forced to 0), nothing without the column absmax."""
+    shapes = []
+    real = FP._route_parts
+
+    def recording(M, K, device, needed, tpr, per_sm):
+        ctas, parts = real(M, K, device, needed, tpr, per_sm)
+        shapes.append((ctas, tuple(parts.shape), per_sm))
+        return ctas, parts
+    monkeypatch.setattr(FP, "_route_parts", recording)
     a = _meta((8192, 5632))
     ops.silu_mul_quant_rowwise(a, a, with_col_amax=True)
+    ops.silu_mul_quant_rowwise(a, a)
+    ops.silu_mul_quant_rowwise(a, a, with_col_amax=True, sr=True, key=1)
+    monkeypatch.setattr(FP, "silu_rows_sm90_route", lambda K, dtype: 0)
+    ops.silu_mul_quant_rowwise(a, a, with_col_amax=True)
+    blocks = -(-8192 // FP._rows_per_block(8192))
+    assert shapes == [(2 * SMS, (2 * SMS, 5632), 2), (2 * SMS, (0,), 2), (SMS, (SMS, 5632), 1),
+                      (0, (blocks, 5632), 1)]
+    assert library.calls[3][1][14:16] == (0, 0)
+
+
+def test_other_row_producers_keep_their_entries(library):
+    """B18's GELU and LayerNorm row forms share the Python launch path of B7
+    and B9 but take no route: their entries take no route arguments and
+    nothing counts a row-walk launch for them; B9's row form at the same
+    width takes its new entry's route arguments and counts there."""
+    a = _meta((8192, 2048))
+    g = _meta((2048,))
     ops.gelu_quant_rowwise(a, with_col_amax=True)
+    ops.layernorm_quant_rowwise(a, g, g, with_col_amax=True)
     for name, args in library.calls:
         assert len(args) == len(_build._SIGNATURES[name])
+    assert [n for n, _ in library.calls] == ["qt_gelu_quant_rowwise", "qt_layernorm_quant_rowwise"]
+    assert len(_build._SIGNATURES["qt_gelu_quant_rowwise"]) == 14
+    assert len(_build._SIGNATURES["qt_layernorm_quant_rowwise"]) == 17
     counts = ops.launch_counts()
-    assert counts["silu_mul_quant_rowwise"] == counts["gelu_quant_rowwise"] == 1
+    assert counts["gelu_quant_rowwise"] == counts["layernorm_quant_rowwise"] == 1
     assert not any(v for k, v in counts.items() if k.endswith("_sm90"))
+    ops.silu_mul_quant_rowwise(a, a, with_col_amax=True)
+    name, args = library.calls[-1]
+    tpr = FP.silu_rows_sm90_route(2048, torch.bfloat16)
+    assert name == "qt_silu_mul_quant_rowwise" and args[14:] == (tpr, FP.row_walk_ctas(8192, tpr, SMS, 2), 0)
+    assert ops.launch_counts()["silu_mul_quant_rowwise_sm90"] == 1
