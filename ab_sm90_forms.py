@@ -6,12 +6,14 @@ with the int32 epilogue, ``B17s8``) of
 ``quantized_training_tpu_torch/ops/csrc/sm90_gemm.cuh``; B5, the
 both-axes int8 quantize of ``ops/csrc/int8_quant.cu`` (``B5``, its SR form
 ``B5sr``) and B4, the column int8 quantize, on thread-block clusters
-(``B4``, ``B4sr``); and B7, B9's row form and B11 of
+(``B4``, ``B4sr``); and B7, B8, B9's row form, B10 and B11 of
 ``ops/csrc/fused_producers.cu`` on the persistent row walk (``B7``,
-``B7sr``: RMSNorm inside the row quantize with the column absmax; ``B9``,
-``B9sr``: silu(a) * b inside the row quantize with the column absmax;
-``B11``, ``B11sr``: the silu backward inside the row quantizes of (da, db)
-with their column absmax), against an earlier tree's.
+``B7sr``: RMSNorm inside the row quantize with the column absmax; ``B8``,
+``B8sr``: RMSNorm inside the column quantize given the column scales;
+``B9``, ``B9sr``: silu(a) * b inside the row quantize with the column
+absmax; ``B10``: the RMSNorm backward, dx and dgamma; ``B11``, ``B11sr``:
+the silu backward inside the row quantizes of (da, db) with their column
+absmax), against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -19,9 +21,10 @@ earlier commit, for its wmma kernels), built with nvcc into a library of its
 own under ``build/ab_sm90_forms/`` (only the sources the chosen kernels
 need), all builds side by side. Every variant
 is held against the plain versions at a ragged shape and at gate/up's
-(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7 against
-this tree's first design (``kept/first``), whose bits the walk keeps, B4,
-B9 and B11 against their plain versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7 and B8
+against this tree's first design (``kept/first``), whose bits the walk
+keeps, B10's dx too and its dgamma within 2e-5 of its largest magnitude,
+B4, B9 and B11 against their plain versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
@@ -29,19 +32,19 @@ timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
 for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
-B4, B5, B7, B9 and B11) and the share of the bound (the 8-bit tensor cores'
+B4, B5, B7-B11) and the share of the bound (the 8-bit tensor cores'
 1,979 TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4
-one read and one write, for B7, B9 and B11 their inputs read and outputs
-written once). ``kept/first`` is this tree's B4, B7, B9 and B11 on their
-first design (route 0); ``kept/wmma`` is this
+one read and one write, for B7-B11 their inputs read and outputs written
+once). ``kept/first`` is this tree's B4 and B7-B11 on their first design
+(route 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
-``parent/kernel`` its B5, and ``parent/walk``, ``parent/cluster`` its B4,
-B7, B9 and B11, whatever design they take there; K2, which no variant changes, is timed on this
+``parent/kernel`` its B5, and ``parent/walk``, ``parent/cluster`` its B4
+and B7-B11, whatever design they take there; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
-Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,B7,B9,B4,...]
+Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,B7,B8,B10,...]
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ OUT = Path(__file__).resolve().parent / "build" / "ab_sm90_forms"
 INT8_OPS_PER_S = 1.979e15
 HBM_BYTES_PER_S = 3.35e12
 B5_KEY = 2**62 + 7  # the SR form's key
-ROWS_KEY = 2**61 + 5  # B7's and B11's SR key
+ROWS_KEY = 2**61 + 5  # the row walks' SR key (B7, B8, B9, B11)
 _B2_DEPTH = "  static constexpr int BK = 128, kStages = 4, kRawSlots = 2, kAccShift = 0;"
 _B16_DEPTH = "  static constexpr int kStages = kSub == 1 ? 4 : 3, kRawSlots = kSub == 1 ? 8 : 4;"
 # widen a nibble by sign extension into the low half of its byte (kAccShift 0)
@@ -395,6 +398,14 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     # registers), not in shared memory
     "b9_reg_max": _B9_REG_MAX,
     "b9_v1": [],
+    # B8 and B10 at one CTA an SM (no register cap from the launch bounds);
+    # B10 with four vectors of x and dy a thread (64 threads a row at K =
+    # 2048) in place of two (128)
+    "b8_one_cta": [("fused_producers.cu", "__launch_bounds__(kThreads, 2)\nrmsnorm_cols(",
+                    "__launch_bounds__(kThreads, 1)\nrmsnorm_cols(")],
+    "b10_one_cta": [("fused_producers.cu", "__launch_bounds__(kThreads, 2)\nrmsnorm_bwd_walk(",
+                     "__launch_bounds__(kThreads, 1)\nrmsnorm_bwd_walk(")],
+    "b10_v4": [("fused_producers.cu", "constexpr int kNormBwdV = 2;", "constexpr int kNormBwdV = 4;")],
     "diag_b9_no_fold": [("fused_producers.cu", ": launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);",
                          ": cudaSuccess;")],
     # B4's cluster form at each strip width (16, 8, 4 vectors) at every
@@ -426,6 +437,9 @@ ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32,
               "diag_rows_no_amax": {k: {"amax": 0} for k in ("B7", "B7sr", "B11", "B11sr", "B9", "B9sr")},
               "b9_one_cta": {"B9": {"ctas_per_sm": 1}},
               "b9_v1": {"B9": {"tpr": 704, "ctas_per_sm": 1}, "B9sr": {"tpr": 704, "ctas_per_sm": 1}},
+              "b8_one_cta": {"B8": {"ctas_per_sm": 1}, "B8sr": {"ctas_per_sm": 1}},
+              "b10_one_cta": {"B10": {"ctas_per_sm": 1}},
+              "b10_v4": {"B10": {"tpr": 64}},
               **{f"b4_{sv}": {k: {"geometry": (sv, 8)} for k in ("B4", "B4sr")} for sv in (16, 8, 4)}}
 
 
@@ -454,11 +468,12 @@ SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16
           "B15": "tile_scaled_mm.cu", "B15s8": "tile_scaled_mm.cu", "B17s8": "matmul.cu", "B5": "int8_quant.cu",
           "B5sr": "int8_quant.cu", "B4": "int8_quant.cu", "B4sr": "int8_quant.cu", "B7": "fused_producers.cu",
           "B7sr": "fused_producers.cu", "B9": "fused_producers.cu", "B9sr": "fused_producers.cu",
-          "B11": "fused_producers.cu", "B11sr": "fused_producers.cu"}
+          "B11": "fused_producers.cu", "B11sr": "fused_producers.cu", "B8": "fused_producers.cu",
+          "B8sr": "fused_producers.cu", "B10": "fused_producers.cu"}
 ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
            "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise"),
            "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
-                                  "qt_silu_mul_quant_rowwise")}
+                                  "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd")}
 
 
 def build(variants: dict, parent: Path | None, kernels) -> dict:
@@ -607,6 +622,41 @@ def b7(lib, sigs, sr, tpr=None, ctas_per_sm=FP.NORM_CTAS_PER_SM, amax=1):
     return call
 
 
+def b8(lib, sigs, sr, tpr=None, ctas_per_sm=FP.NORM_CTAS_PER_SM):
+    """B8 given scales of ``lib`` (``sr`` = 1: its SR form from
+    ``ROWS_KEY``): x [M, K] bf16, g [K] fp32, the column scales [1, K] fp32
+    -> (q,); on the walk at ``tpr`` threads a row (default: the route's; 0
+    the first design)."""
+    def call(x, g, scale):
+        M, K = x.shape
+        t = FP.norm_cols_sm90_route(K, x.dtype) if tpr is None else tpr
+        route, _ = _route(sigs, "qt_rmsnorm_quant_colwise", t, M, ctas_per_sm)
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        _build.check(lib.qt_rmsnorm_quant_colwise(x.data_ptr(), g.data_ptr(), scale.data_ptr(), q.data_ptr(), None,
+                                                  None, None, M, K, FP._rows_per_block(M), 1e-5, FP.EPS, 1, sr,
+                                                  ROWS_KEY if sr else 0, *route, _build.stream()), "B8")
+        return (q,)
+    return call
+
+
+def b10(lib, sigs, _, tpr=None, ctas_per_sm=FP.NORM_CTAS_PER_SM):
+    """B10 of ``lib``: x, dy [M, K] bf16, g [K] fp32 -> (dx, dgamma); on the
+    walk at ``tpr`` threads a row (default: the route's; 0 the first
+    design)."""
+    def call(x, g, dy):
+        M, K = x.shape
+        t = FP.rmsnorm_bwd_sm90_route(K, x.dtype) if tpr is None else tpr
+        route, rows = _route(sigs, "qt_rmsnorm_bwd", t, M, ctas_per_sm)
+        dx = torch.empty_like(x)
+        dg = torch.empty(K, dtype=torch.float32, device="cuda")
+        parts = torch.empty(rows, K, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_rmsnorm_bwd(x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+                                        parts.data_ptr(), M, K, FP._rows_per_block(M), 1e-5, 1, *route,
+                                        _build.stream()), "B10")
+        return dx, dg
+    return call
+
+
 def b9(lib, sigs, sr, tpr=None, ctas_per_sm=None, amax=1):
     """B9's row form of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``):
     a, b [M, K] bf16 -> (q, s_row, column absmax); on the walk at ``tpr``
@@ -711,7 +761,8 @@ def main() -> None:
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
         entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
-                    for k in ("B7", "B7sr", "B9", "B9sr", "B11", "B11sr", "B4", "B4sr") if k in kernels]
+                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr")
+                    if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
                     for k in kernels if k != "K2"]
@@ -735,6 +786,16 @@ def main() -> None:
             x = torch.randn(M, N, generator=gen, device="cuda").bfloat16()
             x[0] = 0
             return x, (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float()
+        if kernel in ("B8", "B8sr"):  # (M, K): B7's operands and the column scales of its absmax
+            x = torch.randn(M, N, generator=gen, device="cuda").bfloat16()
+            x[0] = 0
+            g = (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float()
+            return x, g, ops.rmsnorm_quant_rowwise_plain(x, g, with_col_amax=True)[2] * (1.0 / 127.0)
+        if kernel == "B10":  # (M, K): x with an all-zero row, a bf16 gamma widened, a gradient-sized dy
+            x = torch.randn(M, N, generator=gen, device="cuda").bfloat16()
+            x[0] = 0
+            dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
+            return x, (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float(), dy
         if kernel in ("B9", "B9sr"):  # (M, K): gate with an all-zero column, up
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             a[:, 1] = 0
@@ -767,8 +828,8 @@ def main() -> None:
              "B4": lambda x: ops.quantize_int8_plain(x, axis=0),
              "B4sr": lambda x: ops.quantize_int8_plain(x, axis=0, sr=True, key=B5_KEY),
              "B11sr": lambda a, b, dy: ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, sr=True, key=ROWS_KEY)}
-    if "kept" in libs:  # B7 keeps its first design's bits
-        plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0) for k in ("B7", "B7sr")})
+    if "kept" in libs:  # B7, B8 and B10's dx keep their first designs' bits
+        plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0) for k in ("B7", "B7sr", "B8", "B8sr", "B10")})
     for kernel, shape in (("B1", (130, 208, 272)), ("B1", (8192, 2048, 5632)), ("B2", (144, 208, 288)),
                           ("B2", (5632, 2048, 8192)), ("B15", (200, 256, 640)), ("B15", (8192, 2048, 5632)),
                           ("B15s8", (200, 256, 640)), ("B15s8", (8192, 2048, 5632)), ("B16", (130, 200, 288)),
@@ -776,6 +837,8 @@ def main() -> None:
                           ("B17s8", (4096, 4096, 4096)), *((k, s) for k in ("B5", "B5sr")
                                                           for s in ((130, 200), (8, 9000), *B5_SHAPES)),
                           *((k, s) for k in ("B7", "B7sr") for s in ((1001, 2048), *ROW_SHAPES["B7"])),
+                          *((k, s) for k in ("B8", "B8sr", "B10")
+                            for s in ((1000, 2048), *ROW_SHAPES[k.removesuffix("sr")])),
                           *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"])),
                           *((k, s) for k in ("B9", "B9sr") for s in ((1000, 5632), *ROW_SHAPES["B9"])),
                           *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES))):
@@ -797,6 +860,11 @@ def main() -> None:
                     exact = worst <= R
                     print(f"{label} {kernel} {shape}: worst {worst:.2f} fp32 roundings of the folded magnitudes "
                           f"beyond a bf16 half-ulp (bound {R}): within {exact}", flush=True)
+                elif kernel == "B10":  # dx bit-exact, dgamma summed in the walk's order
+                    rel = ((got[1] - ref[1]).abs().max() / ref[1].abs().max()).item()
+                    exact = torch.equal(got[0], ref[0]) and rel <= 2e-5
+                    print(f"{label} {kernel} {shape}: dx bit-exact {torch.equal(got[0], ref[0])}, dgamma {rel:.2e} "
+                          "of its largest magnitude from the first design's", flush=True)
                 else:
                     exact = (all(map(torch.equal, got, ref)) if isinstance(got, tuple)
                              else torch.equal(got, ref))
@@ -844,21 +912,27 @@ def main() -> None:
 
 
 KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "B17s8": b17s8, "B5": b5, "B5sr": b5,
-           "B7": b7, "B7sr": b7, "B11": b11, "B11sr": b11, "B9": b9, "B9sr": b9, "B4": b4, "B4sr": b4}
+           "B7": b7, "B7sr": b7, "B8": b8, "B8sr": b8, "B10": b10, "B11": b11, "B11sr": b11, "B9": b9, "B9sr": b9,
+           "B4": b4, "B4sr": b4}
 # the argument each kernel's entry takes in place of the route: the SR flag
-QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B11": 0, "B11sr": 1, "B9": 0, "B9sr": 1, "B4": 0, "B4sr": 1}
-ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B11": "walk", "B11sr": "walk",
-         "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster"}
+QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B8": 0, "B8sr": 1, "B10": 0, "B11": 0, "B11sr": 1, "B9": 0,
+         "B9sr": 1, "B4": 0, "B4sr": 1}
+ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B8": "walk", "B8sr": "walk", "B10": "walk",
+         "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster"}
 # the keyword argument that forces a kernel's first design (``kept/first``)
 FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}}
 # the bytes the row quantizes must move at [M, K] bf16: B5 x read, two int8
 # and the bf16 scales written; B7 x and gamma read, q, the fp32 row scales
 # and column absmax written; B11 (a, b, dy) read, two int8, two fp32 row
-# scales and two column absmax written
+# scales and two column absmax written; B8 x, the bf16 gamma and the fp32
+# column scales read, q written; B10 x, dy and the bf16 gamma read, dx and
+# the fp32 dgamma written
 ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 * M * K + 2 * (M + K),
              "B7": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K, "B7sr": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K,
              "B11": lambda M, K: 8 * M * K + 8 * M + 8 * K, "B11sr": lambda M, K: 8 * M * K + 8 * M + 8 * K,
              "B9": lambda M, K: 5 * M * K + 4 * M + 4 * K, "B9sr": lambda M, K: 5 * M * K + 4 * M + 4 * K,
+             "B8": lambda M, K: 3 * M * K + 2 * K + 4 * K, "B8sr": lambda M, K: 3 * M * K + 2 * K + 4 * K,
+             "B10": lambda M, K: 6 * M * K + 2 * K + 4 * K,
              "B4": lambda M, K: 3 * M * K + 2 * K, "B4sr": lambda M, K: 3 * M * K + 2 * K}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
@@ -872,14 +946,16 @@ B5_SHAPES = [(8192, 2048), (8192, 256), (6400, 4608), (6400, 6144), (6400, 1536)
 # fused step's four weights (q/o, k/v, gate/up, down), the unfused layer's
 # x2d, and ViT-Giant's five a block (the qkv, proj, fc1 and fc2 weights and
 # proj's input at 24 x 257 tokens)
-ROW_SHAPES = {"B7": [(8192, 2048)], "B11": [(8192, 5632)], "B9": [(8192, 5632)]}
+ROW_SHAPES = {"B7": [(8192, 2048)], "B8": [(8192, 2048)], "B10": [(8192, 2048)], "B11": [(8192, 5632)],
+              "B9": [(8192, 5632)]}
 B4_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (8192, 2048), (8192, 5632),
              (4608, 1536), (1536, 1536), (6144, 1536), (1536, 6144), (6168, 1536)]
 SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (8192, 5632, 2048)],
           "B2": B2_SHAPES, "B15": B16_SHAPES, "B15s8": B16_SHAPES, "B16": B16_SHAPES, "K2": K2_SHAPES,
           "B17s8": [(n, n, n) for n in (1024, 2048, 4096)], "B5": B5_SHAPES, "B5sr": B5_SHAPES,
           "B7": ROW_SHAPES["B7"], "B7sr": ROW_SHAPES["B7"], "B11": ROW_SHAPES["B11"], "B11sr": ROW_SHAPES["B11"],
-          "B9": ROW_SHAPES["B9"], "B9sr": ROW_SHAPES["B9"], "B4": B4_SHAPES, "B4sr": B4_SHAPES}
+          "B9": ROW_SHAPES["B9"], "B9sr": ROW_SHAPES["B9"], "B4": B4_SHAPES, "B4sr": B4_SHAPES,
+          "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"]}
 
 
 if __name__ == "__main__":

@@ -18,12 +18,16 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    B7 with and without the column absmax, B8 given the forward's scales
    and in two passes, B9's row and column forms (bit-exact), B10, and the
    SR forms of B7-B9; B11 and B12 at the MLP backward's [8192, 5632] and
-   [256, 5632] (B7 at [8192, 2048], B9-row at [8192, 5632] and [256, 5632]
-   and B11 at [8192, 5632], and their SR forms, checked to launch on the
-   persistent row walk, and B4 and B4-SR at every weight and x2d shape,
-   checked to launch on its cluster form, each timed on its first design
-   too, the parent's kernel, in the same call: route, both times and
-   shares of the bound, bit-identical outputs), B13 on q, k and v of
+   [256, 5632] (B7 and B8 given scales at [8192, 2048], B9-row at [8192,
+   5632] and [256, 5632] and B11 at [8192, 5632], and their SR forms, and
+   B10 at [8192, 2048], checked to launch on the persistent row walk, and
+   B4 and B4-SR at every weight and x2d shape, checked to launch on its
+   cluster form, each timed on its first design too, the parent's kernel,
+   in the same call: route, both times and shares of the bound,
+   bit-identical outputs, B10's dgamma, whose sums meet in the walk's
+   order, within 2e-5 of its largest magnitude and the same bits run to
+   run; B10 beside ``aten._fused_rms_norm_backward``, which reads the rstd
+   B10 recomputes: a reference, not the same function), B13 on q, k and v of
    bench.py's micro-batch [4, 2048] and
    B14 on its attention output, with their SR forms (all bit-exact); B16
    (int4) and B15 (tile-scaled, e4m3 within its stated bound and int8
@@ -58,9 +62,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
    of times the code implies (every K2, B1 and B2 launch on the sm90 route,
-   here and in phases 8, 9 and 11, every B7, B9-row and B11 launch on the
-   row walk and every B4 launch on its cluster form, here and in phases 8
-   and 9, and B4's in phase 11), and the same steps in bf16 start from the
+   here and in phases 8, 9 and 11, every B7, B8, B9-row, B10 and B11
+   launch on the row walk and every B4 launch on its cluster form, here and
+   in phases 8 and 9, and B4's in phase 11), and the same steps in bf16
+   start from the
    same loss;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
@@ -111,7 +116,7 @@ on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists; for B7, B9-row and B11 also their launches on the row walk and
+exists; for B7, B8, B9-row, B10 and B11 also their launches on the row walk and
 for B4 those on its cluster form (``sm90_launches``), and their first
 design's time, ``first_design_ms``),
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -872,19 +877,24 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
 
 
 # the redesigned kernels' route predicates by counter name: (module, name)
-# of B7's, B9-row's and B11's (ops/fused_producers.py: threads a row on the
-# row walk) and B4's (ops/int8_quant.py: the geometry of its cluster form);
-# a route of 0 takes the first design
+# of B7's, B8's, B9-row's, B10's and B11's (ops/fused_producers.py: threads
+# a row on the row walk) and B4's (ops/int8_quant.py: the geometry of its
+# cluster form); a route of 0 takes the first design
 REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
+              "rmsnorm_quant_colwise": (FP, "norm_cols_sm90_route"),
+              "rmsnorm_bwd": (FP, "rmsnorm_bwd_sm90_route"),
               "silu_mul_bwd_quant_rowwise": (FP, "silu_bwd_rows_sm90_route"),
               "silu_mul_quant_rowwise": (FP, "silu_rows_sm90_route"),
               "quantize_int8_colwise": (IQ, "colwise_sm90_route")}
 
 
-def first_design(name: str, kernel, args, nbytes: float) -> float:
+def first_design(name: str, kernel, args, nbytes: float, exact: int | None = None) -> float:
     """A redesigned kernel (``name``; an SR form with its ``_sr``) on
-    ``args``: checked to launch once, on its route, and to give the outputs
-    of its first design (the parent's kernel, the route forced to 0); both
+    ``args``: checked to launch once, on its route, to give the same bits on
+    a second run, and to give the outputs of its first design (the parent's
+    kernel, the route forced to 0): bit for bit, or with ``exact`` the first
+    ``exact`` outputs bit for bit and the others (B10's dgamma, whose sums
+    meet in the walk's order) within 2e-5 of their largest magnitude; both
     timed here, one after the other; prints the route, both times and their
     shares of the bound. Returns the first design's ms."""
     module, predicate = REDESIGNED[name.removesuffix("_sr")]
@@ -895,6 +905,7 @@ def first_design(name: str, kernel, args, nbytes: float) -> float:
     n = ops.launch_counts()
     check(bool(route) and n[name] == 1 and n[f"{name}_sm90"] == 1,
           f"{name} at {list(args[0].shape)} launched once, on its route")
+    check(all(torch.equal(a, b) for a, b in zip(new, kernel(*args))), f"{name}: the same bits on a second run")
     ms = time_ms(kernel, copies(*args))
     setattr(module, predicate, lambda *a: 0)
     try:
@@ -902,14 +913,42 @@ def first_design(name: str, kernel, args, nbytes: float) -> float:
         first_ms = time_ms(kernel, copies(*args))
     finally:
         setattr(module, predicate, route_of)
-    check(all(torch.equal(a, b) for a, b in zip(new, first)), f"{name}: the route gives the first design's bits")
+    k = len(new) if exact is None else exact
+    rel = max([((a - b).abs().max() / b.abs().max()).item() for a, b in zip(new[k:], first[k:])], default=0.0)
+    check(all(torch.equal(a, b) for a, b in zip(new[:k], first[:k])) and rel <= 2e-5,
+          f"{name}: the route gives the first design's bits (and the rest within 2e-5: {rel:.2e})")
     b_ms = bound(nbytes)[0]
     what = (f"cluster form ({route[0]} vectors a strip, {route[1]} CTAs a cluster)"
             if module is IQ else f"row walk ({route} threads a row)")
+    held = ("outputs bit-identical" if k == len(new) else
+            f"the first {k} outputs bit-identical, the rest {rel:.2e} of their largest magnitude apart")
     print(f"[3] {name} {list(args[0].shape)}: route {what}, {ms:.4f} ms, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound; "
           f"first design (the parent's kernel) {first_ms:.4f} ms ({first_ms / ms:.2f}x this, {b_ms / first_ms:.3f} of "
-          "the bound); outputs bit-identical")
+          f"the bound); {held}")
     return first_ms
+
+
+def rms_norm_bwd_library_ms(x, g, dy) -> float | None:
+    """``aten._fused_rms_norm_backward``'s time on B10's x, dy and g, given
+    the rstd of ``aten._fused_rms_norm`` (computed untimed): a reference,
+    not the same function (it reads rstd, which B10 recomputes); None where
+    the card's torch lacks the op or refuses the operands."""
+    aten = torch.ops.aten
+    if not hasattr(aten, "_fused_rms_norm_backward"):
+        print("[3] aten._fused_rms_norm_backward: not in this torch")
+        return None
+    K = x.shape[1]
+    try:
+        rstd = aten._fused_rms_norm(x, [K], g, 1e-5)[1]
+    except (RuntimeError, ValueError) as e:
+        print(f"[3] aten._fused_rms_norm refuses B10's operands: {str(e).splitlines()[0]}")
+        return None
+    ms = lib_ms("aten._fused_rms_norm_backward (rstd given)",
+                lambda x, dy: aten._fused_rms_norm_backward(dy, x, [K], rstd, g, [True, True]), copies(x, dy))
+    if ms is not None:
+        print(f"[3] rmsnorm_bwd {list(x.shape)}: aten._fused_rms_norm_backward with rstd given {ms:.4f} ms "
+              "(a reference, not the same function)")
+    return ms
 
 
 def check_fused_producers(gen: torch.Generator, key: int) -> list:
@@ -922,9 +961,12 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
     share of the roofline count each input read once and each output
     written once (bf16 inputs, fp32 scales and maxima). B7 and its SR form
     at [8192, 2048], and B9-row and its SR form at both silu shapes, also
-    on the first design (``first_design``)."""
+    on the first design (``first_design``), as are B8 given scales and its
+    SR form, and B10, at [8192, 2048]; B10 beside the library's RMSNorm
+    backward (``rms_norm_bwd_library_ms``)."""
     rows = {}  # entry name -> (replaces, worst error, timed, bytes)
     firsts = {}  # the first designs' ms at the path's shape by entry name
+    library = {}
     run = partial(_held_and_timed, rows)
     pf_ = "quantized_training_tpu/ops/pallas_fused.py"
     for M, K in NORM_SHAPES:
@@ -949,6 +991,9 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
             p_col = lambda x, g, scale, kw=kw: ops.rmsnorm_quant_colwise_plain(x, g, scale=scale, **kw)
             col = run(f"rmsnorm_quant_colwise{tag}", ", given scales", "int8", k_col, p_col, (x, g, scale), col_bytes,
                       f"{pf_}:246", rn.get("col"))
+            if M == TOKENS:
+                firsts[f"rmsnorm_quant_colwise{tag}"] = first_design(f"rmsnorm_quant_colwise{tag}", k_col,
+                                                                     (x, g, scale), col_bytes)
             rn.update(row=out, col=col)
             if not sr:
                 run("rmsnorm_quant_rowwise", "", "int8", ops.rmsnorm_quant_rowwise,
@@ -956,8 +1001,11 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
                 two = run("rmsnorm_quant_colwise", ", two passes", "int8", ops.rmsnorm_quant_colwise,
                           ops.rmsnorm_quant_colwise_plain, (x, g), 0)
                 check(torch.equal(two[0], col[0]), "B8 given the forward's scales equals B8 in two passes")
-        run("rmsnorm_bwd", "", "bwd", ops.rmsnorm_bwd, ops.rmsnorm_bwd_plain, (x, g, dy),
-            6 * M * K + 2 * K + 4 * K, f"{pf_}:491")
+        bwd_bytes = 6 * M * K + 2 * K + 4 * K  # x, dy, g in; dx, dgamma out
+        run("rmsnorm_bwd", "", "bwd", ops.rmsnorm_bwd, ops.rmsnorm_bwd_plain, (x, g, dy), bwd_bytes, f"{pf_}:491")
+        if M == TOKENS:
+            firsts["rmsnorm_bwd"] = first_design("rmsnorm_bwd", ops.rmsnorm_bwd, (x, g, dy), bwd_bytes, exact=1)
+            library["rmsnorm_bwd"] = rms_norm_bwd_library_ms(x, g, dy)
     for M, K in SILU_SHAPES:
         a = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
         b = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -986,7 +1034,7 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
                 two = run("silu_mul_quant_colwise", ", two passes", "exact", ops.silu_mul_quant_colwise,
                           ops.silu_mul_quant_colwise_plain, (a, b), 0)
                 check(torch.equal(two[0], col[0]), "B9-col given the forward's scales equals B9-col in two passes")
-    return [_entry(name, replaces, err, timed, nbytes, first_ms=firsts.get(name))
+    return [_entry(name, replaces, err, timed, nbytes, library_ms=library.get(name), first_ms=firsts.get(name))
             for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
@@ -1396,9 +1444,10 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     B7 at the two norm sites and B9-row at down's input (every one on the
     row walk), ungroup_amax and
     ungroup_quant (rows) at o's input. Backward B5 at the output grads of
-    q, k, v, o and down, B4 per weight (every one on the cluster form), B1 and B2 per weight, B8 at the two
-    norm sites, B9-col at down's input, B10 at the two norms, B11 (on the
-    row walk) and B12 for (dgate, dup), ungroup_quant (columns) at o's
+    q, k, v, o and down, B4 per weight (every one on the cluster form), B1
+    and B2 per weight, B8 at the two norm sites and B10 at the two norms
+    (every one on the row walk), B9-col at down's input, B11 (on the row
+    walk) and B12 for (dgate, dup), ungroup_quant (columns) at o's
     input and rope_group
     for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
     7 weights and the 4 inputs, K2 per weight, rope_ungroup at o's input;
@@ -1419,8 +1468,9 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                        f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": 2 * 2 * n,
                        f"rmsnorm_quant_rowwise{t}_sm90": 2 * 2 * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
                        f"silu_mul_quant_rowwise{t}": 2 * n, f"silu_mul_quant_rowwise{t}_sm90": 2 * n,
-                       f"rmsnorm_quant_colwise{t}": 2 * n,
-                       f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, f"silu_mul_bwd_quant_rowwise{t}": n,
+                       f"rmsnorm_quant_colwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}_sm90": 2 * n,
+                       f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, "rmsnorm_bwd_sm90": 2 * n,
+                       f"silu_mul_bwd_quant_rowwise{t}": n,
                        f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, f"ungroup_quant{t}": 3 * n})
     elif layer == "unfused":
         counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n,

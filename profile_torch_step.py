@@ -13,8 +13,8 @@ three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
 of every kernel, summed by group (the port's int8, int4 and tile-scaled
-GEMMs, its quantizes K1, B4 and B5 each apart, B7, B9-row and B11 each
-apart, its other producer kernels, its RoPE and ungroup kernels, B6,
+GEMMs, its quantizes K1, B4 and B5 each apart, B7, B8, B9-row, B10 and B11
+each apart, its other producer kernels, its RoPE and ungroup kernels, B6,
 cuBLAS GEMMs, attention,
 torch's copy kernels, the rest: torch's elementwise and reduction kernels),
 the device's busy share of the profiled step's wall time, the layout copies
@@ -58,9 +58,10 @@ VIT_B = 24
 # kernel is scaled_mm_s8, on packed int4 operands (B16's decode sizes, K % 32
 # != 0) with Src 1 in its template arguments. A key that is a tuple matches a
 # name holding all of its fragments: B7's first design is row_quant over
-# NormProducer, B9-row's over SiluProducer (B18's are row_quant too),
-# mangled or not. B7's, B9-row's and B11's folds of their CTAs' column
-# maxima (reduce_parts) stay in the producer group.
+# NormProducer, B9-row's over SiluProducer (B18's are row_quant too), B8's
+# col_quant over NormProducer, mangled or not. The folds of the CTAs'
+# column maxima or dgamma sums (reduce_parts: B7, B9-row, B10, B11) stay in
+# the producer group.
 GROUPS = (
     ("int4 GEMM B16 on the TMA + wgmma mainloop", ("s4kmajor",)),
     ("int4 GEMM B16 on wmma (decode sizes, K % 32 != 0)", ("src)1",)),
@@ -74,8 +75,10 @@ GROUPS = (
     ("B7 RMSNorm row quantize", ("rmsnorm_rows", ("row_quant", "::normproducer"), ("row_quant", "12normproducer"))),
     ("B11 silu-backward row quantizes", ("silu_bwd_rows", "silu_bwd_row_quant")),
     ("B9-row silu row quantize", ("silu_rows", ("row_quant", "siluproducer"))),
-    ("producer kernels B8, B9-col, B10, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
-                                                         "rmsnorm_bwd_rows", "reduce_parts")),
+    ("B8 RMSNorm column quantize", ("rmsnorm_cols", ("col_quant", "::normproducer"), ("col_quant", "12normproducer"))),
+    ("B10 RMSNorm backward", ("rmsnorm_bwd_walk", "rmsnorm_bwd_rows")),
+    ("producer kernels B9-col, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
+                                                       "reduce_parts")),
     ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
     # B5's first design, which only B5 calls off the vector path take (an
     # unaligned view, a ragged K, rows over 2048 vectors), ends in B4's

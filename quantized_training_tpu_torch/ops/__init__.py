@@ -29,10 +29,11 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   :func:`silu_mul_quant_rowwise` and :func:`silu_mul_quant_colwise`, and B10
   :func:`rmsnorm_bwd` (``csrc/fused_producers.cu``), replacing the functions
   of the same names in ``ops/pallas_fused.py``: RMSNorm and silu(a) * b run
-  inside the int8 quantizes, and the RMSNorm backward in one pass; B7 and
-  B9's row form on the persistent row walk again in
-  ``rmsnorm_quant_rowwise_sm90`` and ``silu_mul_quant_rowwise_sm90`` (and
-  ``_sr_sm90``);
+  inside the int8 quantizes, and the RMSNorm backward in one pass; B7, B8
+  given scales, B9's row form and B10 on the persistent row walk again in
+  ``rmsnorm_quant_rowwise_sm90``, ``rmsnorm_quant_colwise_sm90``,
+  ``silu_mul_quant_rowwise_sm90`` (and ``_sr_sm90``) and
+  ``rmsnorm_bwd_sm90``;
 - B11 :func:`silu_mul_bwd_quant_rowwise` and B12
   :func:`silu_mul_bwd_quant_colwise` (``csrc/fused_producers.cu``), the
   silu backward inside the quantizes of (dgate, dup), replacing the
@@ -156,6 +157,8 @@ KERNELS = {
     "rmsnorm_quant_rowwise_sr_sm90": (rmsnorm_quant_rowwise, "sr_sm90_launches"),
     "rmsnorm_quant_colwise": (rmsnorm_quant_colwise, "launches"),
     "rmsnorm_quant_colwise_sr": (rmsnorm_quant_colwise, "sr_launches"),
+    "rmsnorm_quant_colwise_sm90": (rmsnorm_quant_colwise, "sm90_launches"),
+    "rmsnorm_quant_colwise_sr_sm90": (rmsnorm_quant_colwise, "sr_sm90_launches"),
     "silu_mul_quant_rowwise": (silu_mul_quant_rowwise, "launches"),
     "silu_mul_quant_rowwise_sr": (silu_mul_quant_rowwise, "sr_launches"),
     "silu_mul_quant_rowwise_sm90": (silu_mul_quant_rowwise, "sm90_launches"),
@@ -163,6 +166,7 @@ KERNELS = {
     "silu_mul_quant_colwise": (silu_mul_quant_colwise, "launches"),
     "silu_mul_quant_colwise_sr": (silu_mul_quant_colwise, "sr_launches"),
     "rmsnorm_bwd": (rmsnorm_bwd, "launches"),
+    "rmsnorm_bwd_sm90": (rmsnorm_bwd, "sm90_launches"),
     "silu_mul_bwd_quant_rowwise": (silu_mul_bwd_quant_rowwise, "launches"),
     "silu_mul_bwd_quant_rowwise_sr": (silu_mul_bwd_quant_rowwise, "sr_launches"),
     "silu_mul_bwd_quant_rowwise_sm90": (silu_mul_bwd_quant_rowwise, "sm90_launches"),

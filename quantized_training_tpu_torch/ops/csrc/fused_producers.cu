@@ -41,11 +41,13 @@
 //   scale fp32 [M], optionally the column absmax fp32 [K];
 // - B9 silu_rows, or row_quant<SiluProducer> at widths the row walk does not
 //   take: silu_mul_quant_rowwise (:325), a, b [M, K];
-// - B8 col_quant<NormProducer>: rmsnorm_quant_colwise (:246), column int8
-//   given the column scales, or after producer_col_absmax (the two-pass form);
+// - B8 rmsnorm_cols, or col_quant<NormProducer> at widths the row walk does
+//   not take and in the two-pass form (after producer_col_absmax):
+//   rmsnorm_quant_colwise (:246), column int8 given the column scales;
 // - B9 col_quant<SiluProducer>: silu_mul_quant_colwise (:409), the same;
-// - B10 rmsnorm_bwd_rows + reduce_parts: rmsnorm_bwd (:491), dx in x's
-//   dtype and dgamma fp32 [K] in one read of x and dy;
+// - B10 rmsnorm_bwd_walk, or rmsnorm_bwd_rows at widths the row walk does
+//   not take, then reduce_parts: rmsnorm_bwd (:491), dx in x's dtype and
+//   dgamma fp32 [K] in one read of x and dy;
 // - B11 silu_bwd_rows, or silu_bwd_row_quant at widths the row walk does
 //   not take: silu_mul_bwd_quant_rowwise (:631), (a, b, dy) [M, K] -> the
 //   row int8 of da and of db with fp32 row scales, optionally the column
@@ -84,22 +86,26 @@
 // cast with its column's inverse scale, kept in shared memory. wgmma and TMA
 // do not apply.
 //
-// B7, B11 and B9's row form, the path's largest producer kernels, were
-// redesigned for the H100's memory system (ops/fused_producers.py's routes
-// choose them where their layout leaves no lane idle; the first design above
-// stays for the other widths): a persistent grid of a few CTAs an SM
-// (RowWalk, row_common.cuh) whose groups of whole warps take one row at a
-// time, every lane holding the same kNormV (B7) or one or two (B9, B11)
-// 16-byte vectors of each row, the next row's loaded before this row is
-// worked on; the producer's values stay in registers from the load to the
-// cast, row sums and maxima reduce by warp shuffles and a named barrier a
-// group, the
-// column maxima stay in registers and meet once a CTA (one row of partials
-// a CTA, 264 at [8192, 2048], not 547), and the casts round and convert by
-// one add (byte_rn, byte_sr) where rintf and the float -> int cast each took
-// a quarter-rate conversion. The first design loaded one row's vectors, then
-// waited at four __syncthreads before it cast and stored, with y and the
-// column maxima in shared memory.
+// B7, B8 given scales, B9's row form, B10 and B11, the path's producer
+// kernels with the most lost time, were redesigned for the H100's memory
+// system (ops/fused_producers.py's routes choose them where their layout
+// leaves no lane idle; the first design above stays for the other widths):
+// a persistent grid of a few CTAs an SM (RowWalk, row_common.cuh) whose
+// groups of whole warps take one row at a time, every lane holding the same
+// kNormV (B7, B8), kNormBwdV (B10) or one or two (B9, B11) 16-byte vectors
+// of each row, the next row's loaded before this row is worked on; the
+// producer's values stay in registers from the load to the cast, row sums
+// and maxima reduce by warp shuffles and a named barrier a group, the
+// column state (maxima, B8's inverse scales, B10's dgamma sums) stays in
+// registers and meets once a CTA (one row of partials a CTA, 264 at [8192,
+// 2048], not 547), and the casts round and convert by one add (byte_rn,
+// byte_sr) where rintf and the float -> int cast each took a quarter-rate
+// conversion. The first design loaded one row's vectors, then waited at
+// four __syncthreads before it cast and stored, with y and the column state
+// in shared memory; B10's read x and dy twice and added into a shared dgamma
+// row for every element.
+
+#include <type_traits>
 
 #include "row_common.cuh"
 
@@ -312,6 +318,43 @@ row_quant(P p, int8_t* __restrict__ q, float* __restrict__ s_row, float* __restr
   if (COLMAX) store_part<N>(colmax, parts, K);
 }
 
+// The group's totals of S row sums, each held by a lane as C chains (chain c
+// of lane t: the vectors of NormProducer::fill's thread t + c TPR, in that
+// thread's order), in fill's order: each chain butterflied across its warp
+// (the old warp h + c W), then the old warps' sums in order, through ``red``
+// (S kWarps floats of shared memory for this group) and the group's named
+// barrier; a group of one warp needs neither.
+template <int TPR, int C, int S>
+__device__ __forceinline__ void chain_totals(float (&s)[S][C], float (&tot)[S], float* red, int grp) {
+  constexpr int W = TPR / 32;
+  const int h = (threadIdx.x % TPR) / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < S; ++k)
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[k][c] = warp_reduce<false>(s[k][c]);
+  if constexpr (W == 1) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      tot[k] = s[k][0];
+#pragma unroll
+      for (int c = 1; c < C; ++c) tot[k] = __fadd_rn(tot[k], s[k][c]);
+    }
+  } else {
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+#pragma unroll
+        for (int c = 0; c < C; ++c) red[k * kWarps + h + c * W] = s[k][c];
+    group_sync(grp, TPR);
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      tot[k] = red[k * kWarps];
+#pragma unroll
+      for (int w = 1; w < C * W; ++w) tot[k] = __fadd_rn(tot[k], red[k * kWarps + w]);
+    }
+  }
+}
+
 // B7 on the persistent row walk (RowWalk; the route ops/fused_producers.py::
 // norm_rows_sm90_route picks): a CTA of kThreads threads in groups of TPR,
 // kNormV vectors a thread a row. y, the cast's input, stays in registers from
@@ -362,36 +405,20 @@ rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ g, int8_t* __res
     for (int j = 0; j < N; ++j) cm[p][j] = 0.0f;
   const uint4* const in[1] = {reinterpret_cast<const uint4*>(x)};
   walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
-    float y[V][N], ss[C];
+    float y[V][N], ss[1][C], tot[1];
 #pragma unroll
-    for (int c = 0; c < C; ++c) ss[c] = 0.0f;
+    for (int c = 0; c < C; ++c) ss[0][c] = 0.0f;
 #pragma unroll
     for (int p = 0; p < V; ++p) {
       const T* e = reinterpret_cast<const T*>(&u[0][p]);
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         y[p][j] = to_f32(e[j]);
-        ss[p % R] = __fmaf_rn(y[p][j], y[p][j], ss[p % R]);
+        ss[0][p % R] = __fmaf_rn(y[p][j], y[p][j], ss[0][p % R]);
       }
     }
-    // chain c of warp h is old warp h + c W's: the old warps' sums in order
-    float tot;
-#pragma unroll
-    for (int c = 0; c < C; ++c) ss[c] = warp_reduce<false>(ss[c]);
-    if constexpr (W == 1) {
-      tot = ss[0];
-#pragma unroll
-      for (int c = 1; c < C; ++c) tot = __fadd_rn(tot, ss[c]);
-    } else {
-      if (lane == 0)
-#pragma unroll
-        for (int c = 0; c < C; ++c) red_ss[walk.grp][h + c * W] = ss[c];
-      group_sync(walk.grp, TPR);
-      tot = red_ss[walk.grp][0];
-#pragma unroll
-      for (int w = 1; w < C * W; ++w) tot = __fadd_rn(tot, red_ss[walk.grp][w]);
-    }
-    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot, static_cast<float>(K)), norm_eps));
+    chain_totals<TPR, C, 1>(ss, tot, red_ss[walk.grp], walk.grp);
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot[0], static_cast<float>(K)), norm_eps));
     float amax = 0.0f;
 #pragma unroll
     for (int p = 0; p < V; ++p)
@@ -494,6 +521,62 @@ col_quant(P p, const float* __restrict__ scale, float* __restrict__ s_out, int8_
   }
 }
 
+// B8 given the column scales, on the persistent row walk (the route
+// ops/fused_producers.py::norm_cols_sm90_route picks): B7's geometry, a CTA
+// of kThreads threads in groups of TPR, kNormV vectors a thread a row. A
+// thread owns the same columns in every row, so it computes their inverse
+// scales once, into registers; the row's sum of squares is B7's (and so
+// NormProducer::fill's) to the bit, through one exchange a row (alternating
+// between two shared arrays by row parity, so that one barrier a row
+// suffices); y = (x * rstd) * g is recomputed from the loaded vectors and
+// cast at once, so no row of y stays in registers. q is col_quant's bit for
+// bit. Dynamic shared memory: g (element j of vector v at j nv + v).
+template <typename T, bool SR, int TPR>
+__global__ void __launch_bounds__(kThreads, 2)
+rmsnorm_cols(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ scale,
+             int8_t* __restrict__ q, int64_t M, int64_t K, float norm_eps, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T), V = kNormV, R = kThreads / TPR;
+  constexpr int C = V < R ? V : R;  // sum-of-squares chains a thread
+  static_assert(kThreads % TPR == 0 && TPR % 32 == 0, "whole warps, whole groups");
+  using Walk = RowWalk<V, 1>;
+  extern __shared__ float gs[];
+  __shared__ float red[2][R][kWarps];
+  const Walk walk(TPR);
+  const int64_t nv = K / N;  // TPR V
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) gs[(c % N) * nv + c / N] = g[c];
+  float inv[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) inv[p][j] = inv_scale(scale[walk.vec(p) * N + j], eps);
+  __syncthreads();
+  int parity = 0;
+  const uint4* const in[1] = {reinterpret_cast<const uint4*>(x)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
+    float ss[1][C], tot[1];
+#pragma unroll
+    for (int c = 0; c < C; ++c) ss[0][c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) ss[0][p % R] = __fmaf_rn(to_f32(e[j]), to_f32(e[j]), ss[0][p % R]);
+    }
+    chain_totals<TPR, C, 1>(ss, tot, red[parity][walk.grp], walk.grp);
+    parity ^= 1;
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot[0], static_cast<float>(K)), norm_eps));
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+      float y[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) y[j] = __fmul_rn(__fmul_rn(to_f32(e[j]), rstd), gs[j * nv + walk.vec(p)]);
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(y, inv[p], off, key, q + off);
+    }
+  });
+}
+
 // ---- B10 --------------------------------------------------------------------
 
 // Rows [rpb * blockIdx.x, +rpb) of the RMSNorm backward (the closed form of
@@ -553,6 +636,93 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ g, const T* 
     }
   }
   store_part<N>(dgacc, dg_part, K);
+}
+
+// B10 on the persistent row walk (the route ops/fused_producers.py::
+// rmsnorm_bwd_sm90_route picks): a CTA of kThreads threads in groups of TPR,
+// kNormBwdV vectors of x and of dy a thread a row, each loaded once. Both row
+// sums, sum(x * x) and sum((dy * g) * x), keep rmsnorm_bwd_rows' order by
+// B7's chain mapping (chain_totals, one exchange a row for both, alternating
+// between two shared arrays by row parity), so dx is the first design's bit
+// for bit. Each thread sums its columns' dy * xn over its rows in registers;
+// the CTA merges its groups' sums in group order through shared memory and
+// writes one row of parts [CTAs, K], which reduce_parts folds in order: no
+// atomics, so dgamma is a function of the inputs and the grid (its order,
+// and so its last bits, differ from the first design's). Dynamic shared
+// memory: g, then the groups' sums [R][K] (element j of vector v at j nv + v).
+constexpr int kNormBwdV = 2;  // vectors of each input a thread a row
+
+template <typename T, int TPR>
+__global__ void __launch_bounds__(kThreads, 2)
+rmsnorm_bwd_walk(const T* __restrict__ x, const float* __restrict__ g, const T* __restrict__ dy, T* __restrict__ dx,
+                 float* __restrict__ parts, int64_t M, int64_t K, float norm_eps) {
+  constexpr int N = 16 / sizeof(T), V = kNormBwdV, R = kThreads / TPR;
+  constexpr int C = V < R ? V : R;  // chains a thread of each row sum
+  static_assert(kThreads % TPR == 0 && TPR % 32 == 0, "whole warps, whole groups");
+  using Walk = RowWalk<V, 2>;
+  extern __shared__ float smem[];
+  __shared__ float red[2][R][2 * kWarps];
+  const Walk walk(TPR);
+  const int64_t nv = K / N;  // TPR V
+  float* gs = smem;
+  float* sums = smem + K;
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) gs[(c % N) * nv + c / N] = g[c];
+  __syncthreads();
+  float acc[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc[p][j] = 0.0f;
+  int parity = 0;
+  const float kf = static_cast<float>(K);
+  const uint4* const in[2] = {reinterpret_cast<const uint4*>(x), reinterpret_cast<const uint4*>(dy)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[2][V]) {
+    float s[2][C], tot[2];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[0][c] = s[1][c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* ex = reinterpret_cast<const T*>(&u[0][p]);
+      const T* ed = reinterpret_cast<const T*>(&u[1][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float vx = to_f32(ex[j]);
+        s[0][p % R] = __fmaf_rn(vx, vx, s[0][p % R]);
+        s[1][p % R] = __fmaf_rn(__fmul_rn(to_f32(ed[j]), gs[j * nv + walk.vec(p)]), vx, s[1][p % R]);
+      }
+    }
+    chain_totals<TPR, C, 2>(s, tot, red[parity][walk.grp], walk.grp);
+    parity ^= 1;
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot[0], kf), norm_eps));
+    const float c = __fdiv_rn(__fmul_rn(tot[1], rstd), kf);
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* ex = reinterpret_cast<const T*>(&u[0][p]);
+      const T* ed = reinterpret_cast<const T*>(&u[1][p]);
+      float o[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float vd = to_f32(ed[j]);
+        const float xn = __fmul_rn(to_f32(ex[j]), rstd);
+        const float dxn = __fmul_rn(vd, gs[j * nv + walk.vec(p)]);
+        o[j] = __fmul_rn(__fsub_rn(dxn, __fmul_rn(xn, c)), rstd);
+        acc[p][j] = __fadd_rn(acc[p][j], __fmul_rn(vd, xn));
+      }
+      store_vec<T, N>(dx + row * K + walk.vec(p) * N, o);
+    }
+  });
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) sums[walk.grp * K + j * nv + walk.vec(p)] = acc[p][j];
+  __syncthreads();
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) {
+    const int64_t at = (c % N) * nv + c / N;
+    float r = sums[at];
+#pragma unroll
+    for (int grp = 1; grp < R; ++grp) r = __fadd_rn(r, sums[grp * K + at]);
+    parts[blockIdx.x * K + c] = r;
+  }
 }
 
 // ---- B11 and B12 ------------------------------------------------------------
@@ -921,38 +1091,41 @@ cudaError_t launch_row(const P& p, void* q, void* s_row, void* amax, void* parts
   return launch_reduce(true, pt, static_cast<float*>(amax), n_blocks(M, rpb), p.K, stream);
 }
 
-// B7 on the row walk: tpr threads a row (32, 64, 128 or 256, with K / N ==
-// tpr kNormV), ctas CTAs, parts [ctas, K].
-template <typename T, bool SR, bool COLMAX, int TPR>
-cudaError_t launch_norm_rows(const void* x, const float* g, void* q, void* s_row, void* amax, void* parts, int64_t M,
-                             int64_t K, int64_t ctas, float norm_eps, float eps, uint64_t key, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(K) * sizeof(float) * (COLMAX ? 2 : 1);
-  const auto kernel = rmsnorm_rows<T, SR, COLMAX, TPR>;
-  float* pt = static_cast<float*>(parts);
-  cudaError_t err;
-  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), g, static_cast<int8_t*>(q), static_cast<float*>(s_row), pt, M, K, norm_eps, eps, key);
-  if ((err = cudaGetLastError()) != cudaSuccess || !COLMAX) return err;
-  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
-}
-
-template <typename T, bool SR, bool COLMAX>
-cudaError_t launch_norm_rows_tpr(int tpr, const void* x, const float* g, void* q, void* s_row, void* amax,
-                                 void* parts, int64_t M, int64_t K, int64_t ctas, float norm_eps, float eps,
-                                 uint64_t key, cudaStream_t stream) {
-  if (K / (16 / static_cast<int64_t>(sizeof(T))) != static_cast<int64_t>(tpr) * kNormV || ctas < 1)
+// launch(std::integral_constant<int, TPR>{}) for the RMSNorm walks' tpr
+// threads a row: 32, 64, 128 or 256 (groups that divide the block, so that
+// the row sums keep the first design's order) with K / N == tpr v, on
+// ctas >= 1 CTAs; cudaErrorInvalidValue for any other layout.
+template <typename T, class Launch>
+cudaError_t with_norm_tpr(int tpr, int v, int64_t K, int64_t ctas, Launch&& launch) {
+  if (K / (16 / static_cast<int64_t>(sizeof(T))) != static_cast<int64_t>(tpr) * v || ctas < 1)
     return cudaErrorInvalidValue;
-#define QT_TPR(TPR) launch_norm_rows<T, SR, COLMAX, TPR>(x, g, q, s_row, amax, parts, M, K, ctas, norm_eps, eps, key, \
-                                                         stream)
   switch (tpr) {
-    case 32: return QT_TPR(32);
-    case 64: return QT_TPR(64);
-    case 128: return QT_TPR(128);
-    case 256: return QT_TPR(256);
+    case 32: return launch(std::integral_constant<int, 32>{});
+    case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
+    case 256: return launch(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }
-#undef QT_TPR
+}
+
+// B7 on the row walk: tpr threads a row (kNormV vectors each), ctas CTAs,
+// parts [ctas, K].
+template <typename T, bool SR, bool COLMAX>
+cudaError_t launch_norm_rows(int tpr, const void* x, const float* g, void* q, void* s_row, void* amax, void* parts,
+                             int64_t M, int64_t K, int64_t ctas, float norm_eps, float eps, uint64_t key,
+                             cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(K) * sizeof(float) * (COLMAX ? 2 : 1);
+  float* pt = static_cast<float*>(parts);
+  return with_norm_tpr<T>(tpr, kNormV, K, ctas, [&](auto t) {
+    const auto kernel = rmsnorm_rows<T, SR, COLMAX, decltype(t)::value>;
+    cudaError_t err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), g, static_cast<int8_t*>(q), static_cast<float*>(s_row), pt, M, K, norm_eps, eps,
+        key);
+    if ((err = cudaGetLastError()) != cudaSuccess || !COLMAX) return err;
+    return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
+  });
 }
 
 // scale: the column scales [K], or nullptr for the two-pass form, which
@@ -979,6 +1152,42 @@ cudaError_t launch_col(const P& p, const float* scale, void* q, void* s_out, voi
   col_quant<P, SR, true><<<n_blocks(M, rpb), kThreads, smem, stream>>>(p, am, static_cast<float*>(s_out), qt, M,
                                                                        rpb, eps, key);
   return cudaGetLastError();
+}
+
+// B8 given scales on the row walk: tpr threads a row (kNormV vectors each),
+// ctas CTAs.
+template <typename T, bool SR>
+cudaError_t launch_norm_cols(int tpr, const void* x, const float* g, const float* scale, void* q, int64_t M,
+                             int64_t K, int64_t ctas, float norm_eps, float eps, uint64_t key, cudaStream_t stream) {
+  if (scale == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(K) * sizeof(float);
+  return with_norm_tpr<T>(tpr, kNormV, K, ctas, [&](auto t) {
+    const auto kernel = rmsnorm_cols<T, SR, decltype(t)::value>;
+    cudaError_t err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), g, scale, static_cast<int8_t*>(q), M, K, norm_eps, eps, key);
+    return cudaGetLastError();
+  });
+}
+
+// B10 on the row walk: tpr threads a row (kNormBwdV vectors of x and of dy
+// each), ctas CTAs, dg_part [ctas, K].
+template <typename T>
+cudaError_t launch_bwd_walk(int tpr, const void* x, const float* g, const void* dy, void* dx, void* dg,
+                            void* dg_part, int64_t M, int64_t K, int64_t ctas, float norm_eps, cudaStream_t stream) {
+  float* pt = static_cast<float*>(dg_part);
+  return with_norm_tpr<T>(tpr, kNormBwdV, K, ctas, [&](auto t) {
+    constexpr int TPR = decltype(t)::value;
+    const auto kernel = rmsnorm_bwd_walk<T, TPR>;
+    const size_t smem = static_cast<size_t>(K) * sizeof(float) * (1 + kThreads / TPR);
+    cudaError_t err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), g, static_cast<const T*>(dy), static_cast<T*>(dx), pt, M, K, norm_eps);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    return launch_reduce(false, pt, static_cast<float*>(dg), ctas, K, stream);
+  });
 }
 
 template <typename T>
@@ -1121,8 +1330,8 @@ extern "C" int qt_rmsnorm_quant_rowwise(const void* x, const void* g, void* q, v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   if (tpr != 0) {
-#define QT_ROWS(T, SR, AM) launch_norm_rows_tpr<T, SR, AM>(tpr, x, gf, q, s_row, amax, parts, M, K, ctas, norm_eps, \
-                                                            eps, key, s)
+#define QT_ROWS(T, SR, AM) launch_norm_rows<T, SR, AM>(tpr, x, gf, q, s_row, amax, parts, M, K, ctas, norm_eps, eps, \
+                                                        key, s)
     if (is_bf16)
       return sr ? (with_amax ? QT_ROWS(__nv_bfloat16, true, true) : QT_ROWS(__nv_bfloat16, true, false))
                 : (with_amax ? QT_ROWS(__nv_bfloat16, false, true) : QT_ROWS(__nv_bfloat16, false, false));
@@ -1163,13 +1372,23 @@ extern "C" int qt_silu_mul_quant_rowwise(const void* a, const void* b, void* q, 
 
 // B8: scale [K] given, or nullptr for the two-pass form, which writes the
 // column absmax into the scratch amax [K] (by way of parts, as B7) and the
-// scales into s_out [K].
+// scales into s_out [K]. tpr (ops/fused_producers.py::norm_cols_sm90_route,
+// given scales only): 0 takes col_quant with rpb rows a block; else
+// rmsnorm_cols with tpr threads a row on ctas CTAs (no scratch).
 extern "C" int qt_rmsnorm_quant_colwise(const void* x, const void* g, const void* scale, void* q, void* s_out,
                                         void* amax, void* parts, int64_t M, int64_t K, int64_t rpb, float norm_eps,
-                                        float eps, int is_bf16, int sr, uint64_t key, void* stream) {
+                                        float eps, int is_bf16, int sr, uint64_t key, int tpr, int64_t ctas,
+                                        void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
+  if (tpr != 0) {
+    const float* gf = static_cast<const float*>(g);
+#define QT_COLS(T, SR) launch_norm_cols<T, SR>(tpr, x, gf, sc, q, M, K, ctas, norm_eps, eps, key, s)
+    if (is_bf16) return sr ? QT_COLS(__nv_bfloat16, true) : QT_COLS(__nv_bfloat16, false);
+    return sr ? QT_COLS(float, true) : QT_COLS(float, false);
+#undef QT_COLS
+  }
 #define QT_COL(T, SR) launch_col<NormProducer<T>, SR>(norm_producer<T>(x, g, K, norm_eps), sc, q, s_out, amax, \
                                                       parts, M, rpb, eps, key, s)
   if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
@@ -1191,13 +1410,21 @@ extern "C" int qt_silu_mul_quant_colwise(const void* a, const void* b, const voi
 #undef QT_COL
 }
 
-// B10: dx [M, K] in x's dtype, dg fp32 [K]; dg_part is fp32 scratch of
-// ceil(M / rpb) * K floats.
+// B10: dx [M, K] in x's dtype, dg fp32 [K]. tpr
+// (ops/fused_producers.py::rmsnorm_bwd_sm90_route): 0 takes
+// rmsnorm_bwd_rows with rpb rows a block, dg_part fp32 scratch of
+// ceil(M / rpb) * K floats; else rmsnorm_bwd_walk with tpr threads a row on
+// ctas CTAs, dg_part then ctas * K floats.
 extern "C" int qt_rmsnorm_bwd(const void* x, const void* g, const void* dy, void* dx, void* dg, void* dg_part,
-                              int64_t M, int64_t K, int64_t rpb, float norm_eps, int is_bf16, void* stream) {
+                              int64_t M, int64_t K, int64_t rpb, float norm_eps, int is_bf16, int tpr, int64_t ctas,
+                              void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
+  if (tpr != 0)
+    return static_cast<int>(is_bf16 ? launch_bwd_walk<__nv_bfloat16>(tpr, x, gf, dy, dx, dg, dg_part, M, K, ctas,
+                                                                     norm_eps, s)
+                                    : launch_bwd_walk<float>(tpr, x, gf, dy, dx, dg, dg_part, M, K, ctas, norm_eps, s));
   return static_cast<int>(is_bf16 ? launch_bwd<__nv_bfloat16>(x, gf, dy, dx, dg, dg_part, M, K, rpb, norm_eps, s)
                                   : launch_bwd<float>(x, gf, dy, dx, dg, dg_part, M, K, rpb, norm_eps, s));
 }

@@ -11,7 +11,7 @@
 // rint(y * (1 / max(scale, eps))) with a correctly rounded reciprocal, or with
 // SR floor(y * inv + u), u from the Philox stream (philox.cuh), clamped.
 //
-// The persistent form (RowWalk, fused_producers.cu's B7 and B11): a group of
+// The persistent form (RowWalk, fused_producers.cu's B7-B11): a group of
 // TPR threads (whole warps) takes one row at a time, V vectors a thread with
 // TPR V the row's vectors, so no lane idles; the next row's vectors are
 // loaded before the group works on this row's, and a thread keeps its
@@ -95,12 +95,13 @@ __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, ui
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-// The int8 of N products y[j] * inv (quant<SR>'s values, bit for bit: |y
-// inv| <= 127 (1 + 2^-23) < 2^22), stored as one N-byte pack at q; with SR
-// element j draws word idx0 + j of the stream of ``key`` (idx0 % 4 == 0),
+// The int8 of N products y[j] * inv_of(j) (quant<SR>'s values, bit for bit:
+// |y inv| <= 127 (1 + 2^-23) < 2^22), stored as one N-byte pack at q; with
+// SR element j draws word idx0 + j of the stream of ``key`` (idx0 % 4 == 0),
 // four words a Philox call, each call's words used as soon as drawn.
-template <bool SR, int N>
-__device__ __forceinline__ void cast_pack(const float (&y)[N], float inv, uint64_t idx0, uint64_t key, int8_t* q) {
+template <bool SR, int N, class InvOf>
+__device__ __forceinline__ void cast_pack_by(const float (&y)[N], InvOf inv_of, uint64_t idx0, uint64_t key,
+                                             int8_t* q) {
   uint32_t b[N / 4];
 #pragma unroll
   for (int k = 0; k < N / 4; ++k) {
@@ -109,6 +110,7 @@ __device__ __forceinline__ void cast_pack(const float (&y)[N], float inv, uint64
     uint32_t c[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
+      const float inv = inv_of(4 * k + j);
       const float r = __fmul_rn(y[4 * k + j], inv);
       c[j] = SR ? byte_sr(r, words[j]) : byte_rn(r);
     }
@@ -119,6 +121,19 @@ __device__ __forceinline__ void cast_pack(const float (&y)[N], float inv, uint64
   } else {
     *reinterpret_cast<unsigned int*>(q) = b[0];
   }
+}
+
+// cast_pack_by with one inverse scale (a row's) for every element
+template <bool SR, int N>
+__device__ __forceinline__ void cast_pack(const float (&y)[N], float inv, uint64_t idx0, uint64_t key, int8_t* q) {
+  cast_pack_by<SR, N>(y, [inv](int) { return inv; }, idx0, key, q);
+}
+
+// cast_pack_by with element j's own inverse scale inv[j] (its column's)
+template <bool SR, int N>
+__device__ __forceinline__ void cast_pack(const float (&y)[N], const float (&inv)[N], uint64_t idx0, uint64_t key,
+                                          int8_t* q) {
+  cast_pack_by<SR, N>(y, [&inv](int j) { return inv[j]; }, idx0, key, q);
 }
 
 // The inverse scale of the cast: 1 / max(scale, eps), correctly rounded.

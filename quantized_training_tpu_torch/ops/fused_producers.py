@@ -38,14 +38,15 @@ Scales and column maxima are fp32, as the Pallas kernels return them.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/fused_producers.cu`` (whose header says what bounds it on the H100
 and how its design answers that) or raises. Each wrapper counts its
-launches, an SR form apart (``sr_launches``). B7, B11 and B9's row form
-take the persistent row walk, redesigned for the H100's memory system,
-wherever its layout leaves no lane idle (:func:`norm_rows_sm90_route`,
-:func:`silu_bwd_rows_sm90_route`, :func:`silu_rows_sm90_route`, decided
-here and passed to the C entry),
+launches, an SR form apart (``sr_launches``). B7, B8 given scales, B9's
+row form, B10 and B11 take the persistent row walk, redesigned for the
+H100's memory system, wherever its layout leaves no lane idle
+(:func:`norm_rows_sm90_route`, :func:`norm_cols_sm90_route`,
+:func:`silu_rows_sm90_route`, :func:`rmsnorm_bwd_sm90_route`,
+:func:`silu_bwd_rows_sm90_route`, decided here and passed to the C entry),
 and count those launches again (``sm90_launches``, ``sr_sm90_launches``);
-other widths keep the first design. B9, B11, B12 and B18's GELU
-forms are bit-exact with their plain versions on the card. B7, B8, B10 and
+other widths, and B8's two-pass form, keep the first design. B9, B11, B12
+and B18's GELU forms are bit-exact with their plain versions on the card. B7, B8, B10 and
 B18's LayerNorm forms hold a row sum, which the kernel takes in its own
 order: their int8 outputs may differ by one step on rare elements, their
 scales, maxima, dx and dgamma by fp32 rounding.
@@ -309,20 +310,31 @@ def supported(M: int, K: int, dtype, n_inputs: int = 1) -> bool:
     return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= max_k and K % 128 == 0
 
 
-# ---- the routes of B7, B9-row and B11 ------------------------------------------
+# ---- the routes of B7, B8, B9-row, B10 and B11 ---------------------------------
 
-# B7's vectors a thread a row on the row walk (csrc/fused_producers.cu::kNormV)
+# B7's and B8's vectors a thread a row on the row walk
+# (csrc/fused_producers.cu::kNormV), B10's of each of x and dy (::kNormBwdV)
 NORM_ROW_VECTORS = 4
+NORM_BWD_VECTORS = 2
 _CTA = 256  # the row kernels' block (csrc/row_common.cuh::kThreads)
 # B11's and B9-row's row walks: vectors a thread -> the largest CTA, in the
 # order tried
 # (two vectors ran B11 at 157.4 us at [8192, 5632] on the H100, one 177.6:
 # ab_sm90_forms.py, PERF.md)
 _SILU_ROWS_MAX_CTA = {2: 384, 1: 704}
-# CTAs an SM the walks' launch bounds keep resident: B7 two of 256, B11 one,
-# B9's row form two in its RN form at two vectors a thread, else one
-# (csrc/fused_producers.cu::silu_rows_ctas, kSiluCtasPerSm)
+# CTAs an SM the walks' launch bounds keep resident: B7, B8 and B10 two of
+# 256, B11 one, B9's row form two in its RN form at two vectors a thread,
+# else one (csrc/fused_producers.cu::silu_rows_ctas, kSiluCtasPerSm)
 NORM_CTAS_PER_SM, SILU_CTAS_PER_SM, SILU_ROWS_CTAS_PER_SM = 2, 1, 2
+
+
+def _norm_walk_tpr(K: int, dtype, vectors: int) -> int:
+    """``vectors`` 16-byte vectors a thread, whole warps, groups that divide
+    the block of 256 (what keeps the RMSNorm row sums in the first design's
+    order); 0 where no such layout is."""
+    nv = K * dtype.itemsize // 16
+    tpr = nv // vectors
+    return tpr if tpr * vectors == nv and tpr in (32, 64, 128, 256) else 0
 
 
 def norm_rows_sm90_route(K: int, dtype) -> int:
@@ -332,9 +344,26 @@ def norm_rows_sm90_route(K: int, dtype) -> int:
     holds 32, 64, 128 or 256 times that many (bf16 K 1024-8192, fp32
     512-4096; the Llama2-1B step's 2048 with 64), groups that divide the
     block, so that B7's sum of squares keeps the first design's order."""
-    nv = K * dtype.itemsize // 16
-    tpr = nv // NORM_ROW_VECTORS
-    return tpr if tpr * NORM_ROW_VECTORS == nv and tpr in (32, 64, 128, 256) else 0
+    return _norm_walk_tpr(K, dtype, NORM_ROW_VECTORS)
+
+
+def norm_cols_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B8 given scales on the persistent row walk
+    (``csrc/fused_producers.cu::rmsnorm_cols``), 0 for the first design
+    (``col_quant``): B7's layouts (bf16 K 2048: 64 threads, four vectors
+    each), so that B8's sum of squares is B7's to the bit. The two-pass form
+    keeps the first design."""
+    return _norm_walk_tpr(K, dtype, NORM_ROW_VECTORS)
+
+
+def rmsnorm_bwd_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B10 on the persistent row walk
+    (``csrc/fused_producers.cu::rmsnorm_bwd_walk``), 0 for the first design
+    (``rmsnorm_bwd_rows``): ``NORM_BWD_VECTORS`` 16-byte vectors of x and of
+    dy a thread, groups that divide the block (bf16 K 512-4096, fp32
+    256-2048; the Llama2-1B step's 2048 with 128), so that both row sums
+    keep the first design's order."""
+    return _norm_walk_tpr(K, dtype, NORM_BWD_VECTORS)
 
 
 def _silu_walk_tpr(K: int, dtype) -> int:
@@ -406,9 +435,9 @@ def _parts(M: int, K: int, device, needed: bool = True) -> torch.Tensor:
 
 
 def _route_parts(M: int, K: int, device, needed: bool, tpr: int, per_sm: int) -> tuple[int, torch.Tensor]:
-    """The grid of B7's, B9-row's or B11's route (0 for the first design)
-    and the fp32 scratch of its column partials: [CTAs, K] on the row walk
-    (one row a CTA), [blocks, K] for the first design."""
+    """The grid of B7's, B8's, B9-row's, B10's or B11's route (0 for the
+    first design) and the fp32 scratch of its column partials: [CTAs, K] on
+    the row walk (one row a CTA), [blocks, K] for the first design."""
     if not tpr:
         return 0, _parts(M, K, device, needed)
     ctas = row_walk_ctas(M, tpr, _sm_count(device), per_sm)
@@ -494,9 +523,10 @@ def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr=None, per_sm=
     return (q, scale, amax) if with_col_amax else (q, scale)
 
 
-def _colwise(what, fn, launch, inputs, scale, eps, sr, key):
+def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr=None):
     """Launch the column form of B8, B9 or B18: given scales, or two
-    passes."""
+    passes. ``tpr`` (B8, whose entry takes a route): the threads a row on
+    the row walk (no scratch), 0 for the first design."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     x = inputs[0]
@@ -508,10 +538,14 @@ def _colwise(what, fn, launch, inputs, scale, eps, sr, key):
         amax = torch.empty(K, dtype=torch.float32, device=x.device)
         s_out = torch.empty((1, K), dtype=torch.float32, device=x.device)
         parts = _parts(M, K, x.device)
+    route = () if tpr is None else (tpr, row_walk_ctas(M, tpr, _sm_count(x.device), NORM_CTAS_PER_SM) if tpr else 0)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = launch(ptr(scale), q.data_ptr(), ptr(s_out), ptr(amax), ptr(parts), M, K, _rows_per_block(M), key)
+    err = launch(ptr(scale), q.data_ptr(), ptr(s_out), ptr(amax), ptr(parts), M, K, _rows_per_block(M), key, *route)
     _build.check(err, what)
-    _count(fn, sr)
+    if tpr is None:
+        _count(fn, sr)
+    else:
+        _count_route(fn, sr, bool(tpr))
     return q, (scale if s_out is None else s_out)
 
 
@@ -525,9 +559,11 @@ def rmsnorm_quant_colwise(x: torch.Tensor, g: torch.Tensor, *, norm_eps: float =
         return rmsnorm_quant_colwise_plain(x, g, norm_eps=norm_eps, eps=eps, sr=sr, key=key, scale=scale)
     gf = _gamma(g, x, "rmsnorm_quant_colwise")
     dt = int(x.dtype == torch.bfloat16)
-    launch = lambda sc, q, so, am, pt, M, K, rpb, k: _build.library().qt_rmsnorm_quant_colwise(
-        x.data_ptr(), gf.data_ptr(), sc, q, so, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), k, _build.stream())
-    return _colwise("rmsnorm_quant_colwise", rmsnorm_quant_colwise, launch, (x,), scale, eps, sr, key)
+    launch = lambda sc, q, so, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_rmsnorm_quant_colwise(
+        x.data_ptr(), gf.data_ptr(), sc, q, so, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), k, tpr, ctas,
+        _build.stream())
+    tpr = norm_cols_sm90_route(x.shape[-1], x.dtype) if scale is not None else 0  # two passes: the first design
+    return _colwise("rmsnorm_quant_colwise", rmsnorm_quant_colwise, launch, (x,), scale, eps, sr, key, tpr)
 
 
 def silu_mul_quant_colwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS, sr: bool = False,
@@ -544,22 +580,24 @@ def silu_mul_quant_colwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS
 
 def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, *, norm_eps: float = 1e-5):
     """B10: the RMSNorm backward in one read of x and dy [M, K]: ``(dx in
-    x's dtype [M, K], dgamma fp32 [K])``. dgamma is summed per block, then
-    over the blocks in order: a function of the inputs, run after run."""
+    x's dtype [M, K], dgamma fp32 [K])``. dgamma is summed per block (on the
+    row walk, :func:`rmsnorm_bwd_sm90_route`, per CTA), then over the blocks
+    in order: a function of the inputs and the grid, run after run."""
     if x.device.type == "cpu":
         return rmsnorm_bwd_plain(x, g, dy, norm_eps=norm_eps)
     M, K = _check("rmsnorm_bwd", x, dy)
     gf = _gamma(g, x, "rmsnorm_bwd")
     dx = torch.empty_like(x)
     dg = torch.empty(K, dtype=torch.float32, device=x.device)
-    dg_part = _parts(M, K, x.device)
+    tpr = rmsnorm_bwd_sm90_route(K, x.dtype)
+    ctas, dg_part = _route_parts(M, K, x.device, True, tpr, NORM_CTAS_PER_SM)
     err = _build.library().qt_rmsnorm_bwd(
         x.data_ptr(), gf.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg.data_ptr(), dg_part.data_ptr(), M, K,
-        _rows_per_block(M),
-        norm_eps, int(x.dtype == torch.bfloat16), _build.stream(),
+        _rows_per_block(M), norm_eps, int(x.dtype == torch.bfloat16), tpr, ctas, _build.stream(),
     )
     _build.check(err, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
+    rmsnorm_bwd.sm90_launches += int(tpr > 0)
     return dx, dg
 
 
@@ -705,6 +743,7 @@ for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise
             layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
     _fn.launches = _fn.sr_launches = 0
 rmsnorm_quant_rowwise.sm90_launches = rmsnorm_quant_rowwise.sr_sm90_launches = 0
+rmsnorm_quant_colwise.sm90_launches = rmsnorm_quant_colwise.sr_sm90_launches = 0
 silu_mul_bwd_quant_rowwise.sm90_launches = silu_mul_bwd_quant_rowwise.sr_sm90_launches = 0
 silu_mul_quant_rowwise.sm90_launches = silu_mul_quant_rowwise.sr_sm90_launches = 0
-rmsnorm_bwd.launches = 0
+rmsnorm_bwd.launches = rmsnorm_bwd.sm90_launches = 0

@@ -5,7 +5,8 @@ fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
 this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16,
 B15's int8 form, B17's int8 form and B18's GELU forms — each is bit-exact with its plain
-version by construction. B7's row walk gives B7's first design's bits. B15's e4m3 form sums a block in the tensor core in
+version by construction. The row walks of B7, B8 and B10 give their first designs' bits (B10's dx; its
+dgamma sums in the walk's order, run after run the same). B15's e4m3 form sums a block in the tensor core in
 fp32: within (QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8, B10
 and B18's LayerNorm forms hold a row sum that the kernel takes in its own
 fixed order: int8 within one step on at
@@ -456,6 +457,64 @@ def test_fused_producer_col_forms(M, K, dtype, sr):
     for fn, inputs, amax in ((ops.rmsnorm_quant_colwise, (x, g), amax_n), (ops.silu_mul_quant_colwise, (a, b), amax_s)):
         one, two = fn(*inputs, scale=amax * (1.0 / 127.0), **kw), fn(*inputs, **kw)
         assert torch.equal(one[0], two[0]) and torch.equal(one[1].reshape(-1), two[1].reshape(-1))
+
+
+# B8 and B10 at the Llama2-1B step's norm sites, and at a ragged row count
+_B8_B10_SHAPES = [(8192, 2048), (1000, 2048)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K", _B8_B10_SHAPES)
+def test_b8_walk_gives_the_first_designs_bits(monkeypatch, M, K, sr):
+    """B8 given B7's column scales, on the row walk (``norm_cols_sm90_route``,
+    the path's route at K = 2048 bf16) and on the first design (the route
+    forced to 0), and its SR form: q bit-identical on both routes, within
+    B8's bars of the plain version, each launch counted on the route it
+    took."""
+    x, g, _, _ = _producer_inputs(M, K, torch.bfloat16, 110)
+    kw = dict(sr=sr, key=2**61 + 13 if sr else None)
+    assert FP.norm_cols_sm90_route(K, torch.bfloat16)
+    scale = ops.rmsnorm_quant_rowwise(x, g, with_col_amax=True)[2] * (1.0 / 127.0)
+    t = "_sr" if sr else ""
+    got = {}
+    for walk in (True, False):
+        with monkeypatch.context() as m:
+            if not walk:
+                m.setattr(FP, "norm_cols_sm90_route", lambda K, dtype: 0)
+            ops.reset_launch_counts()
+            got[walk] = ops.rmsnorm_quant_colwise(x, g, scale=scale, **kw)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts[f"rmsnorm_quant_colwise{t}"] == 1
+            assert counts[f"rmsnorm_quant_colwise{t}_sm90"] == int(walk)
+    assert all(torch.equal(a, b) for a, b in zip(got[True], got[False]))
+    ref = ops.rmsnorm_quant_colwise_plain(x, g, scale=scale, **kw)
+    _int8_close(got[True][0], ref[0], "B8 q")
+
+
+@pytest.mark.parametrize("M,K", _B8_B10_SHAPES)
+def test_b10_walk_at_the_path_shape(monkeypatch, M, K):
+    """B10 on the row walk (``rmsnorm_bwd_sm90_route``, the path's route at
+    K = 2048 bf16): dx bit-identical with the first design's (the route
+    forced to 0), dgamma within 1e-5 of max|dgamma| of the plain version
+    and the same bits on a second run; each launch counted on the route it
+    took."""
+    x, g, dy, _ = _producer_inputs(M, K, torch.bfloat16, 120)
+    assert FP.rmsnorm_bwd_sm90_route(K, torch.bfloat16)
+    ops.reset_launch_counts()
+    dx, dg = ops.rmsnorm_bwd(x, g, dy)
+    again = ops.rmsnorm_bwd(x, g, dy)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rmsnorm_bwd"] == ops.launch_counts()["rmsnorm_bwd_sm90"] == 2
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
+    with monkeypatch.context() as m:
+        m.setattr(FP, "rmsnorm_bwd_sm90_route", lambda K, dtype: 0)
+        first = ops.rmsnorm_bwd(x, g, dy)
+    assert ops.launch_counts()["rmsnorm_bwd"] == 3 and ops.launch_counts()["rmsnorm_bwd_sm90"] == 2
+    assert torch.equal(dx, first[0])
+    dx_ref, dg_ref = ops.rmsnorm_bwd_plain(x, g, dy)
+    assert (dg - dg_ref).abs().max() <= 1e-5 * dg_ref.abs().max()
+    assert (first[1] - dg_ref).abs().max() <= 1e-5 * dg_ref.abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -983,8 +1042,9 @@ def test_launch_counters_count_kernel_launches_only():
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
     y, gamma = _rand((64, 128), torch.bfloat16, 3), torch.ones(128, device="cuda", dtype=torch.bfloat16)
-    # B7, B9-row and B11 at a width they take on the row walk: counted there
-    # too; B4 above on its cluster route ([64, 64]: 2 strips of 4 vectors)
+    # B7, B8, B9-row, B10 and B11 at a width they take on the row walk:
+    # counted there too; B4 above on its cluster route ([64, 64]: 2 strips
+    # of 4 vectors)
     wide, wide_gamma = _rand((64, 2048), torch.bfloat16, 5), torch.ones(2048, device="cuda", dtype=torch.bfloat16)
     for use_sr in (False, True):
         kw = dict(sr=use_sr, key=1 if use_sr else None)
@@ -994,7 +1054,7 @@ def test_launch_counters_count_kernel_launches_only():
         ops.silu_mul_quant_colwise(y, y, **kw)
         ops.rmsnorm_quant_rowwise_plain(y, gamma, **kw)
         ops.silu_mul_quant_colwise_plain(y, y, **kw)
-    ops.rmsnorm_bwd(y, gamma, y)
+    ops.rmsnorm_bwd(wide, wide_gamma, wide)  # on the row walk: counted there too
     ops.rmsnorm_bwd_plain(y, gamma, y)
     ones = torch.ones(1, 2048, device="cuda")
     for use_sr in (False, True):

@@ -1,8 +1,10 @@
-"""The route B7 (``rmsnorm_quant_rowwise``), B11
-(``silu_mul_bwd_quant_rowwise``) and B9's row form
-(``silu_mul_quant_rowwise``) take, on the CPU: each picks between the
-persistent row walk of ``csrc/fused_producers.cu`` (``rmsnorm_rows``,
-``silu_bwd_rows``, ``silu_rows``) and the first design (``row_quant``,
+"""The route B7 (``rmsnorm_quant_rowwise``), B8 given scales
+(``rmsnorm_quant_colwise``), B9's row form (``silu_mul_quant_rowwise``), B10
+(``rmsnorm_bwd``) and B11 (``silu_mul_bwd_quant_rowwise``) take, on the
+CPU: each picks between the persistent row walk of
+``csrc/fused_producers.cu`` (``rmsnorm_rows``, ``rmsnorm_cols``,
+``silu_rows``, ``rmsnorm_bwd_walk``, ``silu_bwd_rows``) and the first
+design (``row_quant``, ``col_quant``, ``rmsnorm_bwd_rows``,
 ``silu_bwd_row_quant``) by a pure predicate in ``ops/fused_producers.py``,
 which gives the threads a row (0: the first design) and is passed to the C
 entry with the grid. No card is needed: the predicates and the geometry are
@@ -316,3 +318,164 @@ def test_other_row_producers_keep_their_entries(library):
     tpr = FP.silu_rows_sm90_route(2048, torch.bfloat16)
     assert name == "qt_silu_mul_quant_rowwise" and args[14:] == (tpr, FP.row_walk_ctas(8192, tpr, SMS, 2), 0)
     assert ops.launch_counts()["silu_mul_quant_rowwise_sm90"] == 1
+
+
+@pytest.mark.parametrize("K,dtype,tpr", [(_L.hidden_size, torch.bfloat16, 64), (1024, torch.bfloat16, 32),
+                                         (8192, torch.bfloat16, 256), (2048, torch.float32, 128),
+                                         (640, torch.bfloat16, 0), (16384, torch.bfloat16, 0)])
+def test_b8_route(K, dtype, tpr):
+    """B8 given scales takes B7's layouts: 64 threads a row at the Llama2-1B
+    step's norm width (2048, bf16), the first design where B7 keeps it."""
+    assert FP.norm_cols_sm90_route(K, dtype) == tpr == FP.norm_rows_sm90_route(K, dtype)
+
+
+@pytest.mark.parametrize("K,dtype,tpr", [(_L.hidden_size, torch.bfloat16, 128), (512, torch.bfloat16, 32),
+                                         (1024, torch.bfloat16, 64), (4096, torch.bfloat16, 256),
+                                         (2048, torch.float32, 256), (256, torch.float32, 32),
+                                         (8192, torch.bfloat16, 0), (640, torch.bfloat16, 0), (128, torch.bfloat16, 0)])
+def test_b10_route(K, dtype, tpr):
+    """B10 at the Llama2-1B step's norm width (2048, bf16) takes the row
+    walk at 128 threads a row (``NORM_BWD_VECTORS`` = 2 vectors of x and of
+    dy each); widths whose vectors are not 32, 64, 128 or 256 times that
+    keep the first design."""
+    assert FP.rmsnorm_bwd_sm90_route(K, dtype) == tpr
+
+
+def _fill_order(nv):
+    """NormProducer::fill's (and rmsnorm_bwd_rows') order of a row sum:
+    thread u < 256 takes vectors u, u + 256, ... in turn, a butterfly sums
+    each warp of 32 threads, the warps' sums add in order. Returns, per old
+    warp, its lanes' vector lists."""
+    return [[list(range(32 * w + lane, nv, 256)) for lane in range(32)] for w in range(8)]
+
+
+def _walk_order(tpr, v):
+    """The walk's chains (``chain_totals``): lane t of a group holds vectors
+    t + p tpr (p < v), chain c = p % R summing its vectors in p order; chain
+    c of the group's warp h is butterflied across that warp's lanes and
+    lands at old warp h + c W, which the group's total reads in order (W =
+    1: the chains in c order). Returns the old warps' lanes' vector lists,
+    empty where no chain lands."""
+    R, W = 256 // tpr, tpr // 32
+    C = min(v, R)
+    order = [[[] for _ in range(32)] for _ in range(8)]
+    for t in range(tpr):
+        h, lane = divmod(t, 32)
+        for c in range(C):
+            order[h + c * W][lane] = [t + p * tpr for p in range(v) if p % R == c]
+    return order
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["B8", "B10"])
+def test_b8_b10_chains_keep_the_fill_order(kernel, dtype):
+    """For every threads-a-row the B8 and B10 routes return, the walk's
+    chains visit thread u's vectors u, u + 256, ... in NormProducer::fill's
+    order, each on the lane and warp of the first design's thread u, and
+    the old warps that hold vectors are read in order (the rest hold none):
+    the row sums, and so B8's q and B10's dx, are the first design's bits."""
+    route, v = ((FP.norm_cols_sm90_route, FP.NORM_ROW_VECTORS) if kernel == "B8"
+                else (FP.rmsnorm_bwd_sm90_route, FP.NORM_BWD_VECTORS))
+    tprs = {route(K, dtype) for K in NORM_KS} - {0}
+    assert tprs == {32, 64, 128, 256}
+    for tpr in sorted(tprs):
+        nv = tpr * v
+        assert 256 % tpr == 0 and nv == _vectors(nv * 16 // dtype.itemsize, dtype)
+        walk, fill = _walk_order(tpr, v), _fill_order(nv)
+        assert walk == fill, (kernel, tpr)
+        read = min(v, 256 // tpr) * (tpr // 32)  # the old warps chain_totals reads
+        assert all(not any(fill[w]) for w in range(read, 8)), (kernel, tpr)
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K,dtype", [(8192, 2048, torch.bfloat16), (1000, 2048, torch.bfloat16),
+                                       (256, 2048, torch.float32), (96, 640, torch.bfloat16)])
+def test_b8_passes_its_route(library, M, K, dtype, sr):
+    """B8's given-scales wrapper passes ``norm_cols_sm90_route(K)`` and the
+    walk's grid (two CTAs an SM) as the two arguments before the stream, one
+    argument per ``_SIGNATURES`` entry, no scratch, and counts the launch
+    per form and, on the row walk, again; its two-pass form passes route 0
+    and counts no walk launch."""
+    key = 41 if sr else None
+    x, g = _meta((M, K), dtype), _meta((K,), dtype)
+    q, s = ops.rmsnorm_quant_colwise(x, g, sr=sr, key=key, scale=_meta((1, K), torch.float32), norm_eps=1e-6)
+    (name, args), = library.calls
+    tpr = FP.norm_cols_sm90_route(K, dtype)
+    assert name == "qt_rmsnorm_quant_colwise" and len(args) == len(_build._SIGNATURES[name]) == 18
+    assert args[4:7] == (None, None, None)  # s_out, amax, parts: nothing allocated
+    assert args[7:15] == (M, K, FP._rows_per_block(M), 1e-6, FP.EPS, int(dtype == torch.bfloat16), int(sr), key or 0)
+    assert args[15:] == (tpr, FP.row_walk_ctas(M, tpr, SMS, FP.NORM_CTAS_PER_SM) if tpr else 0, 0)
+    assert q.shape == (M, K) and s.shape == (1, K)
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"rmsnorm_quant_colwise{t}"] == 1 and counts[f"rmsnorm_quant_colwise{t}_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+    ops.reset_launch_counts()
+    ops.rmsnorm_quant_colwise(x, g, sr=sr, key=key)
+    name, args = library.calls[-1]
+    assert name == "qt_rmsnorm_quant_colwise" and args[15:] == (0, 0, 0) and args[6] is not None
+    counts = ops.launch_counts()
+    assert counts[f"rmsnorm_quant_colwise{t}"] == 1 and sum(counts.values()) == 1
+
+
+@pytest.mark.parametrize("M,K,dtype", [(8192, 2048, torch.bfloat16), (1000, 2048, torch.bfloat16),
+                                       (256, 2048, torch.float32), (96, 640, torch.bfloat16)])
+def test_b10_passes_its_route(library, monkeypatch, M, K, dtype):
+    """B10's wrapper passes ``rmsnorm_bwd_sm90_route(K)`` and the walk's
+    grid (two CTAs an SM) as the two arguments before the stream, one
+    argument per ``_SIGNATURES`` entry, dgamma's scratch [CTAs, K] on the
+    walk ([blocks, K] on the first design), and counts the launch, and on
+    the row walk again."""
+    shapes = []
+    real = FP._route_parts
+
+    def recording(*a):
+        ctas, parts = real(*a)
+        shapes.append(tuple(parts.shape))
+        return ctas, parts
+    monkeypatch.setattr(FP, "_route_parts", recording)
+    x = _meta((M, K), dtype)
+    dx, dg = ops.rmsnorm_bwd(x, _meta((K,), dtype), x, norm_eps=1e-6)
+    (name, args), = library.calls
+    tpr = FP.rmsnorm_bwd_sm90_route(K, dtype)
+    ctas = FP.row_walk_ctas(M, tpr, SMS, FP.NORM_CTAS_PER_SM) if tpr else 0
+    assert name == "qt_rmsnorm_bwd" and len(args) == len(_build._SIGNATURES[name]) == 14
+    assert args[6:11] == (M, K, FP._rows_per_block(M), 1e-6, int(dtype == torch.bfloat16))
+    assert args[11:] == (tpr, ctas, 0)
+    assert shapes == [(ctas, K) if tpr else (-(-M // FP._rows_per_block(M)), K)]
+    assert dx.shape == (M, K) and dx.dtype == dtype and dg.shape == (K,)
+    counts = ops.launch_counts()
+    assert counts["rmsnorm_bwd"] == 1 and counts["rmsnorm_bwd_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+
+
+def test_other_column_producers_keep_their_entries(library):
+    """B9's column form and B18's column forms share B8's Python launch
+    path but take no route: their entries take no route arguments, given
+    scales or in two passes, and nothing counts a row-walk launch for them."""
+    a, g = _meta((8192, 2048)), _meta((2048,))
+    scale = _meta((1, 2048), torch.float32)
+    for kw in (dict(scale=scale), {}):
+        ops.silu_mul_quant_colwise(a, a, **kw)
+        ops.gelu_quant_colwise(a, **kw)
+        ops.layernorm_quant_colwise(a, g, g, **kw)
+    for name, args in library.calls:
+        assert len(args) == len(_build._SIGNATURES[name])
+    assert [n for n, _ in library.calls] == ["qt_silu_mul_quant_colwise", "qt_gelu_quant_colwise",
+                                             "qt_layernorm_quant_colwise"] * 2
+    assert [len(_build._SIGNATURES[n]) for n in ("qt_silu_mul_quant_colwise", "qt_gelu_quant_colwise",
+                                                 "qt_layernorm_quant_colwise")] == [15, 14, 17]
+    counts = ops.launch_counts()
+    assert counts["silu_mul_quant_colwise"] == counts["gelu_quant_colwise"] == counts["layernorm_quant_colwise"] == 2
+    assert not any(v for k, v in counts.items() if k.endswith("_sm90"))
+
+
+def test_b8_b10_constants_match_the_kernels():
+    """The vectors a thread by which the B8 and B10 routes size their groups
+    are the kernels' (``csrc/fused_producers.cu``: ``kNormV``, ``kNormBwdV``),
+    and the grid's CTAs an SM are those their launch bounds keep."""
+    src = (_build.CSRC / "fused_producers.cu").read_text()
+    assert f"constexpr int kNormV = {FP.NORM_ROW_VECTORS};" in src
+    assert f"constexpr int kNormBwdV = {FP.NORM_BWD_VECTORS};" in src
+    for kernel in ("rmsnorm_cols(", "rmsnorm_bwd_walk("):
+        assert f"__launch_bounds__(kThreads, {FP.NORM_CTAS_PER_SM})\n{kernel}" in src
