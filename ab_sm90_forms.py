@@ -13,7 +13,11 @@ both-axes int8 quantize of ``ops/csrc/int8_quant.cu`` (``B5``, its SR form
 ``B9``, ``B9sr``: silu(a) * b inside the row quantize with the column
 absmax; ``B10``: the RMSNorm backward, dx and dgamma; ``B11``, ``B11sr``:
 the silu backward inside the row quantizes of (da, db) with their column
-absmax), against an earlier tree's.
+absmax) and B18's eight forms (``B18lnr``, ``B18lnrsr``: LayerNorm inside
+the row quantize with the column absmax; ``B18lnc``, ``B18lncsr``:
+LayerNorm inside the column quantize given the column scales; ``B18gr``,
+``B18grsr``, ``B18gc``, ``B18gcsr``: tanh-GELU, the same two), against an
+earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -21,10 +25,11 @@ earlier commit, for its wmma kernels), built with nvcc into a library of its
 own under ``build/ab_sm90_forms/`` (only the sources the chosen kernels
 need), all builds side by side. Every variant
 is held against the plain versions at a ragged shape and at gate/up's
-(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7 and B8
-against this tree's first design (``kept/first``), whose bits the walk
-keeps, B10's dx too and its dgamma within 2e-5 of its largest magnitude,
-B4, B9 and B11 against their plain versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+(B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7, B8 and
+B18's LayerNorm forms against this tree's first design (``kept/first``),
+whose bits the walk keeps, B10's dx too and its dgamma within 2e-5 of its
+largest magnitude, B4, B9, B11 and B18's GELU forms against their plain
+versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
@@ -32,15 +37,15 @@ timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
 for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
-B4, B5, B7-B11) and the share of the bound (the 8-bit tensor cores'
+B4, B5, B7-B11, B18) and the share of the bound (the 8-bit tensor cores'
 1,979 TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4
-one read and one write, for B7-B11 their inputs read and outputs written
-once). ``kept/first`` is this tree's B4 and B7-B11 on their first design
+one read and one write, for B7-B11 and B18 their inputs read and outputs
+written once). ``kept/first`` is this tree's B4, B7-B11 and B18 on their first design
 (route 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
-``parent/kernel`` its B5, and ``parent/walk``, ``parent/cluster`` its B4
-and B7-B11, whatever design they take there; K2, which no variant changes, is timed on this
+``parent/kernel`` its B5, and ``parent/walk``, ``parent/cluster`` its B4,
+B7-B11 and B18, whatever design they take there; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
@@ -55,6 +60,7 @@ import importlib.util
 import shutil
 import subprocess
 import time
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -299,6 +305,23 @@ _B9_ONE_CTA = ("fused_producers.cu", "return V == 1 || SR ? 1 : kSiluCtasPerSm;"
 _B9_REG_MAX = [("fused_producers.cu", "constexpr bool kShared = COLMAX && !SR,", "constexpr bool kShared = false,"),
                ("fused_producers.cu", "                      : !SR       ? static_cast<size_t>(cta / tpr * K)",
                 "                      : false     ? static_cast<size_t>(cta / tpr * K)")]
+# B7's launch of its kernel and its fold (reduce_parts)
+_B7_FOLD = """g, static_cast<int8_t*>(q), static_cast<float*>(s_row), pt, M, K, norm_eps, eps,
+        key);
+    if ((err = cudaGetLastError()) != cudaSuccess || !COLMAX) return err;
+    return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);"""
+# the elementwise walks (B9-row, B18's GELU) at three vectors a thread on
+# CTAs of 256 threads
+_ELEMENTWISE_V3 = [
+    ("fused_producers.cu", "cta <= kSiluRowsMaxCta2)))\n    return 0;",
+     "cta <= kSiluRowsMaxCta2) || (V == 3 && cta <= kThreads)))\n    return 0;"),
+    ("fused_producers.cu", "V == 1 ? elementwise_rows<Op, T, SR, COLMAX, 1> : elementwise_rows<Op, T, SR, COLMAX, 2>;",
+     "V == 1 ? elementwise_rows<Op, T, SR, COLMAX, 1>\n                            : V == 3 ? elementwise_rows<Op, T, SR, COLMAX, 3>\n"
+     "                                     : elementwise_rows<Op, T, SR, COLMAX, 2>;"),
+    ("fused_producers.cu", "V == 1 ? elementwise_cols<Op, T, SR, 1> : elementwise_cols<Op, T, SR, 2>;",
+     "V == 1 ? elementwise_cols<Op, T, SR, 1> : V == 3 ? elementwise_cols<Op, T, SR, 3> : elementwise_cols<Op, T, SR, 2>;"),
+    *(("fused_producers.cu", f"kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())\n{k}(",
+       f"V == 3 ? kThreads : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())\n{k}(") for k in ("elementwise_rows", "elementwise_cols"))]
 # (old text, new text) edits of sm90_gemm.cuh, or (file, old text, new text)
 # of another source, each of which must match once; "fold_wait" replaces
 # the fold loop from _FOLD_KEPT_START to the end of its branch
@@ -374,8 +397,9 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     "b7_v8": [("fused_producers.cu", "constexpr int kNormV = 4;", "constexpr int kNormV = 8;"),
               ("fused_producers.cu", "__launch_bounds__(kThreads, 2)\nrmsnorm_rows(", "__launch_bounds__(kThreads, 1)\nrmsnorm_rows(")],
     "b7_v2": [("fused_producers.cu", "constexpr int kNormV = 4;", "constexpr int kNormV = 2;")],
-    "diag_rows_no_fold": [("fused_producers.cu", "  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);",
-                           "  return cudaSuccess;"),
+    "diag_rows_no_fold": [("fused_producers.cu", _B7_FOLD, _B7_FOLD.replace(
+                               "return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);",
+                               "return cudaSuccess;")),
                           ("fused_producers.cu", "  return launch_reduce(true, pt, static_cast<float*>(amax), ctas, 2 * K, stream);",
                            "  return cudaSuccess;")],
     "diag_rows_no_cast": [("row_common.cuh", "      c[j] = SR ? byte_sr(r, words[j]) : byte_rn(r);",
@@ -408,6 +432,20 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     "b10_v4": [("fused_producers.cu", "constexpr int kNormBwdV = 2;", "constexpr int kNormBwdV = 4;")],
     "diag_b9_no_fold": [("fused_producers.cu", ": launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);",
                          ": cudaSuccess;")],
+    # B18's LayerNorm walks at 32 threads a row of six vectors (bf16 K 1536;
+    # 96 x 2 would break the chains' order: 96 does not divide 256) and at
+    # one CTA an SM; B18's GELU walks at 256 threads a row of three vectors
+    # (bf16 K 6144) and at one CTA an SM (B9-row's with them)
+    "ln_v6": [("fused_producers.cu", "constexpr int kLayerNormVs[] = {4, 3};", "constexpr int kLayerNormVs[] = {6, 3};")],
+    "ln_one_cta": [("fused_producers.cu", "constexpr int kLayerNormCtasPerSm = 2;", "constexpr int kLayerNormCtasPerSm = 1;")],
+    "gelu_v3": _ELEMENTWISE_V3,
+    "gelu_one_cta": [_B9_ONE_CTA],
+    # the GELU rows' RN form with its column maxima in registers (B9-row's
+    # b9_reg_max), at two and at three vectors a thread; without them
+    # (diag: the maxima's and their fold's cost)
+    "gelu_reg_max": _B9_REG_MAX,
+    "gelu_v3_reg_max": _ELEMENTWISE_V3 + _B9_REG_MAX,
+    "diag_gelu_no_amax": [],
     # B4's cluster form at each strip width (16, 8, 4 vectors) at every
     # shape; its loads and the cluster's merge without the cast
     **{f"b4_{sv}": [] for sv in (16, 8, 4)},
@@ -440,6 +478,12 @@ ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32,
               "b8_one_cta": {"B8": {"ctas_per_sm": 1}, "B8sr": {"ctas_per_sm": 1}},
               "b10_one_cta": {"B10": {"ctas_per_sm": 1}},
               "b10_v4": {"B10": {"tpr": 64}},
+              "ln_v6": {k: {"tpr": 32} for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr")},
+              "ln_one_cta": {k: {"ctas_per_sm": 1} for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr")},
+              "gelu_v3": {k: {"tpr": 256} for k in ("B18gr", "B18grsr", "B18gc", "B18gcsr")},
+              "gelu_one_cta": {k: {"ctas_per_sm": 1} for k in ("B18gr", "B18grsr", "B18gc", "B18gcsr")},
+              "gelu_v3_reg_max": {k: {"tpr": 256} for k in ("B18gr", "B18grsr", "B18gc", "B18gcsr")},
+              "diag_gelu_no_amax": {k: {"amax": 0} for k in ("B18gr", "B18grsr")},
               **{f"b4_{sv}": {k: {"geometry": (sv, 8)} for k in ("B4", "B4sr")} for sv in (16, 8, 4)}}
 
 
@@ -469,11 +513,15 @@ SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16
           "B5sr": "int8_quant.cu", "B4": "int8_quant.cu", "B4sr": "int8_quant.cu", "B7": "fused_producers.cu",
           "B7sr": "fused_producers.cu", "B9": "fused_producers.cu", "B9sr": "fused_producers.cu",
           "B11": "fused_producers.cu", "B11sr": "fused_producers.cu", "B8": "fused_producers.cu",
-          "B8sr": "fused_producers.cu", "B10": "fused_producers.cu"}
+          "B8sr": "fused_producers.cu", "B10": "fused_producers.cu",
+          **{k: "fused_producers.cu" for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc",
+                                                "B18gcsr")}}
 ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
            "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise"),
            "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
-                                  "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd")}
+                                  "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd",
+                                  "qt_layernorm_quant_rowwise", "qt_layernorm_quant_colwise", "qt_gelu_quant_rowwise",
+                                  "qt_gelu_quant_colwise")}
 
 
 def build(variants: dict, parent: Path | None, kernels) -> dict:
@@ -722,6 +770,68 @@ def b11(lib, sigs, sr, tpr=None, ctas_per_sm=FP.SILU_CTAS_PER_SM, amax=1):
     return call
 
 
+def b18_layernorm(lib, sigs, sr, tpr=None, ctas_per_sm=None, cols=False):
+    """B18's LayerNorm of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``):
+    x [M, K] bf16, g, b [K] fp32 -> (q, s_row, column absmax); with ``cols``
+    the column form given the column scales [1, K] fp32 -> (q,); on the walk
+    at ``tpr`` threads a row (default: the route's; 0 the first design) and
+    ``ctas_per_sm`` CTAs an SM (default: the wrapper's for the form)."""
+    fn = "qt_layernorm_quant_colwise" if cols else "qt_layernorm_quant_rowwise"
+    per_sm = ctas_per_sm or (FP.LAYERNORM_CTAS_PER_SM if cols else FP.layernorm_rows_ctas_per_sm(sr))
+
+    def call(x, g, b, *scale):
+        M, K = x.shape
+        t = FP.layernorm_rows_sm90_route(K, x.dtype) if tpr is None else tpr
+        route, rows = _route(sigs, fn, t, M, per_sm)
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        key = ROWS_KEY if sr else 0
+        if cols:
+            _build.check(lib.qt_layernorm_quant_colwise(x.data_ptr(), g.data_ptr(), b.data_ptr(), scale[0].data_ptr(),
+                                                        q.data_ptr(), None, None, None, M, K, FP._rows_per_block(M),
+                                                        1e-6, FP.EPS, 1, sr, key, *route, _build.stream()),
+                         "B18 LayerNorm columns")
+            return (q,)
+        s_row = torch.empty(M, 1, dtype=torch.float32, device="cuda")
+        col = torch.empty(1, K, dtype=torch.float32, device="cuda")
+        parts = torch.empty(rows, K, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_layernorm_quant_rowwise(x.data_ptr(), g.data_ptr(), b.data_ptr(), q.data_ptr(),
+                                                    s_row.data_ptr(), col.data_ptr(), parts.data_ptr(), M, K,
+                                                    FP._rows_per_block(M), 1e-6, FP.EPS, 1, sr, 1, key, *route,
+                                                    _build.stream()), "B18 LayerNorm rows")
+        return q, s_row, col
+    return call
+
+
+def b18_gelu(lib, sigs, sr, tpr=None, ctas_per_sm=None, cols=False, amax=1):
+    """B18's GELU of ``lib`` (``sr`` = 1: its SR form from ``ROWS_KEY``): a
+    [M, K] bf16 -> (q, s_row, column absmax); with ``cols`` the column form
+    given the column scales [1, K] fp32 -> (q,); on the walk at ``tpr``
+    threads a row (default: the route's; 0 the first design) and
+    ``ctas_per_sm`` CTAs an SM (default: the wrapper's for the form); rows
+    without the column absmax at ``amax`` 0."""
+    fn = "qt_gelu_quant_colwise" if cols else "qt_gelu_quant_rowwise"
+
+    def call(a, *scale):
+        M, K = a.shape
+        t = FP.gelu_rows_sm90_route(K, a.dtype) if tpr is None else tpr
+        route, rows = _route(sigs, fn, t, M, ctas_per_sm or FP.gelu_ctas_per_sm(K, a.dtype, sr))
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        key = ROWS_KEY if sr else 0
+        if cols:
+            _build.check(lib.qt_gelu_quant_colwise(a.data_ptr(), scale[0].data_ptr(), q.data_ptr(), None, None, None,
+                                                   M, K, FP._rows_per_block(M), FP.EPS, 1, sr, key, *route,
+                                                   _build.stream()), "B18 GELU columns")
+            return (q,)
+        s_row = torch.empty(M, 1, dtype=torch.float32, device="cuda")
+        col = torch.empty(1, K, dtype=torch.float32, device="cuda")
+        parts = torch.empty(rows, K, dtype=torch.float32, device="cuda")
+        _build.check(lib.qt_gelu_quant_rowwise(a.data_ptr(), q.data_ptr(), s_row.data_ptr(), col.data_ptr(),
+                                               parts.data_ptr(), M, K, FP._rows_per_block(M), FP.EPS, 1, sr, amax,
+                                               key, *route, _build.stream()), "B18 GELU rows")
+        return (q, s_row, col) if amax else (q, s_row)
+    return call
+
+
 def b16(lib, sigs, sm90):
     """B16 on ``lib``'s route ``sm90`` (an entry without the argument has
     the wmma kernel only): a [M, K / 2], b [N, K / 2] packed -> bf16."""
@@ -761,7 +871,7 @@ def main() -> None:
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
         entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
-                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr")
+                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18)
                     if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
@@ -804,6 +914,20 @@ def main() -> None:
             x = (torch.randn(M, N, generator=gen, device="cuda") * 0.02).bfloat16()
             x[0], x[:, 3] = 0, 0
             return (x,)
+        if kernel.startswith("B18ln"):  # (M, K): x off zero mean with a padded (all-zero) row, bf16 g and b widened
+            x = (torch.randn(M, N, generator=gen, device="cuda") + 0.5).bfloat16()
+            x[-1] = 0
+            g = (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float()
+            b = (0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float()
+            if kernel.startswith("B18lnc"):  # and the column scales of the row form's absmax
+                return x, g, b, ops.layernorm_quant_plain(x, g, b, with_col_amax=True)[2] * (1.0 / 127.0)
+            return x, g, b
+        if kernel.startswith("B18g"):  # (M, K): fc1's output with an all-zero column
+            a = torch.randn(M, N, generator=gen, device="cuda").bfloat16()
+            a[:, 1] = 0
+            if kernel.startswith("B18gc"):
+                return a, ops.gelu_quant_plain(a, with_col_amax=True)[2] * (1.0 / 127.0)
+            return (a,)
         if kernel in ("B11", "B11sr"):  # (M, K): gate, up, and dact with an all-zero column
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
@@ -827,9 +951,14 @@ def main() -> None:
              "B9sr": lambda a, b: ops.silu_mul_quant_rowwise_plain(a, b, with_col_amax=True, sr=True, key=ROWS_KEY),
              "B4": lambda x: ops.quantize_int8_plain(x, axis=0),
              "B4sr": lambda x: ops.quantize_int8_plain(x, axis=0, sr=True, key=B5_KEY),
-             "B11sr": lambda a, b, dy: ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, sr=True, key=ROWS_KEY)}
-    if "kept" in libs:  # B7, B8 and B10's dx keep their first designs' bits
-        plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0) for k in ("B7", "B7sr", "B8", "B8sr", "B10")})
+             "B11sr": lambda a, b, dy: ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, sr=True, key=ROWS_KEY),
+             "B18gr": lambda a: ops.gelu_quant_plain(a, with_col_amax=True),
+             "B18grsr": lambda a: ops.gelu_quant_plain(a, with_col_amax=True, sr=True, key=ROWS_KEY),
+             "B18gc": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s)[:1],
+             "B18gcsr": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s, sr=True, key=ROWS_KEY)[:1]}
+    if "kept" in libs:  # B7, B8, B18's LayerNorm and B10's dx keep their first designs' bits
+        plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0)
+                      for k in ("B7", "B7sr", "B8", "B8sr", "B10", "B18lnr", "B18lnrsr", "B18lnc", "B18lncsr")})
     for kernel, shape in (("B1", (130, 208, 272)), ("B1", (8192, 2048, 5632)), ("B2", (144, 208, 288)),
                           ("B2", (5632, 2048, 8192)), ("B15", (200, 256, 640)), ("B15", (8192, 2048, 5632)),
                           ("B15s8", (200, 256, 640)), ("B15s8", (8192, 2048, 5632)), ("B16", (130, 200, 288)),
@@ -841,7 +970,8 @@ def main() -> None:
                             for s in ((1000, 2048), *ROW_SHAPES[k.removesuffix("sr")])),
                           *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"])),
                           *((k, s) for k in ("B9", "B9sr") for s in ((1000, 5632), *ROW_SHAPES["B9"])),
-                          *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES))):
+                          *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES)),
+                          *((k, s) for k in B18 for s in ((1000, SHAPES[k][0][1]), *SHAPES[k]))):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -913,14 +1043,30 @@ def main() -> None:
 
 KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "B17s8": b17s8, "B5": b5, "B5sr": b5,
            "B7": b7, "B7sr": b7, "B8": b8, "B8sr": b8, "B10": b10, "B11": b11, "B11sr": b11, "B9": b9, "B9sr": b9,
-           "B4": b4, "B4sr": b4}
+           "B4": b4, "B4sr": b4, "B18lnr": b18_layernorm, "B18lnrsr": b18_layernorm,
+           "B18lnc": partial(b18_layernorm, cols=True), "B18lncsr": partial(b18_layernorm, cols=True),
+           "B18gr": b18_gelu, "B18grsr": b18_gelu, "B18gc": partial(b18_gelu, cols=True),
+           "B18gcsr": partial(b18_gelu, cols=True)}
+# B18's eight forms: LayerNorm and GELU, rows (with the column absmax) and
+# columns given scales, RN and SR
+B18 = ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc", "B18gcsr")
 # the argument each kernel's entry takes in place of the route: the SR flag
 QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B8": 0, "B8sr": 1, "B10": 0, "B11": 0, "B11sr": 1, "B9": 0,
-         "B9sr": 1, "B4": 0, "B4sr": 1}
+         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in B18}}
 ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B8": "walk", "B8sr": "walk", "B10": "walk",
-         "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster"}
+         "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster",
+         **dict.fromkeys(B18, "walk")}
 # the keyword argument that forces a kernel's first design (``kept/first``)
 FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}}
+def _b18_bytes(kernel):
+    """B18's bytes at [M, K] bf16, as chip_smoke.py counts them: x read
+    (LayerNorm: and fp32 g, b), q written, and the fp32 row scales and
+    column absmax written (rows) or the column scales read (columns)."""
+    gb = 8 if kernel.startswith("B18ln") else 0
+    rows = kernel.startswith(("B18lnr", "B18gr"))
+    return lambda M, K: 3 * M * K + gb * K + 4 * K + (4 * M if rows else 0)
+
+
 # the bytes the row quantizes must move at [M, K] bf16: B5 x read, two int8
 # and the bf16 scales written; B7 x and gamma read, q, the fp32 row scales
 # and column absmax written; B11 (a, b, dy) read, two int8, two fp32 row
@@ -933,7 +1079,8 @@ ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 
              "B9": lambda M, K: 5 * M * K + 4 * M + 4 * K, "B9sr": lambda M, K: 5 * M * K + 4 * M + 4 * K,
              "B8": lambda M, K: 3 * M * K + 2 * K + 4 * K, "B8sr": lambda M, K: 3 * M * K + 2 * K + 4 * K,
              "B10": lambda M, K: 6 * M * K + 2 * K + 4 * K,
-             "B4": lambda M, K: 3 * M * K + 2 * K, "B4sr": lambda M, K: 3 * M * K + 2 * K}
+             "B4": lambda M, K: 3 * M * K + 2 * K, "B4sr": lambda M, K: 3 * M * K + 2 * K,
+             **{k: _b18_bytes(k) for k in B18}}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
 # chip_smoke.py (forward, grad_input, grad_weight of gate/up and down); B17's
@@ -942,7 +1089,8 @@ ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 
 # and of ViT-Giant's (qkv, fc1, proj and fc2 at 6,400 tokens), and at
 # [8192, 5632], where x no longer fits in L2
 B5_SHAPES = [(8192, 2048), (8192, 256), (6400, 4608), (6400, 6144), (6400, 1536), (8192, 5632)]
-# B7, B9 and B11 at the Llama2-1B step's norm and FFN widths; B4 at the
+# B7, B9 and B11 at the Llama2-1B step's norm and FFN widths, B18 at
+# ViT-Giant's (6,400 padded tokens, hidden 1536, MLP 6144); B4 at the
 # fused step's four weights (q/o, k/v, gate/up, down), the unfused layer's
 # x2d, and ViT-Giant's five a block (the qkv, proj, fc1 and fc2 weights and
 # proj's input at 24 x 257 tokens)
@@ -955,7 +1103,8 @@ SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (819
           "B17s8": [(n, n, n) for n in (1024, 2048, 4096)], "B5": B5_SHAPES, "B5sr": B5_SHAPES,
           "B7": ROW_SHAPES["B7"], "B7sr": ROW_SHAPES["B7"], "B11": ROW_SHAPES["B11"], "B11sr": ROW_SHAPES["B11"],
           "B9": ROW_SHAPES["B9"], "B9sr": ROW_SHAPES["B9"], "B4": B4_SHAPES, "B4sr": B4_SHAPES,
-          "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"]}
+          "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"],
+          **{k: [(6400, 1536 if k.startswith("B18ln") else 6144)] for k in B18}}
 
 
 if __name__ == "__main__":

@@ -35,9 +35,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    and down, beside ``torch._int_mm`` / ``torch._scaled_mm``; B18's
    LayerNorm and GELU forms and their SR forms at ViT-Giant's padded 6,400
    tokens (LayerNorm [6400, 1536] by B7's bars, GELU [6400, 6144]
-   bit-exact); B17 at 4096^3 (bf16 -> bf16 within its fp32-sum bound beside
-   ``torch.matmul``, int8 -> int32 bit-exact beside ``torch._int_mm``) and
-   B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
+   bit-exact), each row form and given-scales column form, RN and SR,
+   checked to launch on the persistent row walk and timed on its first
+   design in the same call, all outputs bit-identical; B17 at 4096^3 (bf16
+   -> bf16 within its fp32-sum bound beside ``torch.matmul``, int8 -> int32
+   bit-exact beside ``torch._int_mm``) and B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
    within ``ops/int8_attention.py::agreement`` of its plain version, beside
    SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
    of the roofline; K2, B1, B2, B15 (both forms), B16 at every shape and
@@ -98,7 +100,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    inside the quantizes, B18), three bf16, two int8 with stochastic
    rounding: images/s, the int8/bf16 ratio, peak memory, exact launch
    counts (B18 160 / 80 / 80 / 40 a step: LayerNorm-row / GELU-row /
-   LayerNorm-column / GELU-column), losses that fall;
+   LayerNorm-column / GELU-column, every one on the row walk), losses that
+   fall;
 12. ``benchmark_mm`` (``python -m quantized_training_tpu_torch.benchmark_mm``)
    at 1024/2048/4096: its gates (B1 and B17 int8 exact, B15-s8 and B17 bf16
    within their bounds), its rows and table, then its training shapes; B17's
@@ -116,7 +119,7 @@ on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists; for B7, B8, B9-row, B10 and B11 also their launches on the row walk and
+exists; for B7, B8, B9-row, B10, B11 and B18 also their launches on the row walk and
 for B4 those on its cluster form (``sm90_launches``), and their first
 design's time, ``first_design_ms``),
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
@@ -877,15 +880,19 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
 
 
 # the redesigned kernels' route predicates by counter name: (module, name)
-# of B7's, B8's, B9-row's, B10's and B11's (ops/fused_producers.py: threads
-# a row on the row walk) and B4's (ops/int8_quant.py: the geometry of its
-# cluster form); a route of 0 takes the first design
+# of B7's, B8's, B9-row's, B10's, B11's and B18's (ops/fused_producers.py:
+# threads a row on the row walk) and B4's (ops/int8_quant.py: the geometry
+# of its cluster form); a route of 0 takes the first design
 REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
               "rmsnorm_quant_colwise": (FP, "norm_cols_sm90_route"),
               "rmsnorm_bwd": (FP, "rmsnorm_bwd_sm90_route"),
               "silu_mul_bwd_quant_rowwise": (FP, "silu_bwd_rows_sm90_route"),
               "silu_mul_quant_rowwise": (FP, "silu_rows_sm90_route"),
-              "quantize_int8_colwise": (IQ, "colwise_sm90_route")}
+              "quantize_int8_colwise": (IQ, "colwise_sm90_route"),
+              "layernorm_quant_rowwise": (FP, "layernorm_rows_sm90_route"),
+              "layernorm_quant_colwise": (FP, "layernorm_cols_sm90_route"),
+              "gelu_quant_rowwise": (FP, "gelu_rows_sm90_route"),
+              "gelu_quant_colwise": (FP, "gelu_cols_sm90_route")}
 
 
 def first_design(name: str, kernel, args, nbytes: float, exact: int | None = None) -> float:
@@ -1087,8 +1094,11 @@ def check_b18(gen: torch.Generator, key: int) -> list:
     without the absmax and the two-pass columns are held too. Bytes: bf16 x
     or a read once, fp32 g and b, int8 q and fp32 scales and maxima written
     once; operations: ``B18_FP32_OPS`` an element. No library call computes
-    a LayerNorm or GELU with an int8 quantize."""
-    rows = {}
+    a LayerNorm or GELU with an int8 quantize. At ViT-Giant's shapes each
+    timed form, RN and SR, also runs through ``first_design``: it launches
+    once on the row walk, repeats its bits, and gives the first design's
+    outputs (q, scales, maxima) bit for bit, LayerNorm's too."""
+    rows, firsts = {}, {}
     run = partial(_held_and_timed, rows)
     pf_ = "quantized_training_tpu/ops/pallas_fused.py"
     for M in (VIT_ROWS, 256):
@@ -1107,22 +1117,27 @@ def check_b18(gen: torch.Generator, key: int) -> list:
             rn = {}
             for sr in (False, True):
                 tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
-                out = run(f"{producer}_quant_rowwise{tag}", ", column absmax", kind,
-                          partial(kernel, with_col_amax=True, **kw), partial(plain, with_col_amax=True, **kw), args,
-                          row_bytes, replaces_at(848), rn.get("row"))
+                k_row = partial(kernel, with_col_amax=True, **kw)
+                out = run(f"{producer}_quant_rowwise{tag}", ", column absmax", kind, k_row,
+                          partial(plain, with_col_amax=True, **kw), args, row_bytes, replaces_at(848), rn.get("row"))
                 col_args = (*args, out[2] * (1.0 / 127.0))
-                col = run(f"{producer}_quant_colwise{tag}", ", given scales", kind,
-                          lambda *a, kw=kw, f=kernel: f(*a[:-1], axis=0, scale=a[-1], **kw),
+                k_col = lambda *a, kw=kw, f=kernel: f(*a[:-1], axis=0, scale=a[-1], **kw)
+                col = run(f"{producer}_quant_colwise{tag}", ", given scales", kind, k_col,
                           lambda *a, kw=kw, f=plain: f(*a[:-1], axis=0, scale=a[-1], **kw), col_args, col_bytes,
                           replaces_at(898), rn.get("col"))
+                if M == VIT_ROWS:
+                    for form, k, a, nbytes in (("rowwise", k_row, args, row_bytes), ("colwise", k_col, col_args,
+                                                                                      col_bytes)):
+                        name = f"{producer}_quant_{form}{tag}"
+                        firsts[name] = first_design(name, k, a, nbytes)
                 rn.update(row=out, col=col)
                 if not sr:
                     run(f"{producer}_quant_rowwise", "", kind, kernel, plain, args, 0)
                     two = run(f"{producer}_quant_colwise", ", two passes", kind, partial(kernel, axis=0),
                               partial(plain, axis=0), args, 0)
                     check(torch.equal(two[0], col[0]), f"B18 {producer} given the forward's scales equals two passes")
-    return [_entry(name, replaces, err, timed, nbytes, fp32_ops=B18_FP32_OPS[name.split("_")[0]] * np.prod(timed[0]))
-            for name, (replaces, err, timed, nbytes) in rows.items()]
+    return [_entry(name, replaces, err, timed, nbytes, fp32_ops=B18_FP32_OPS[name.split("_")[0]] * np.prod(timed[0]),
+                   first_ms=firsts.get(name)) for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
 def check_rope(gen: torch.Generator, key: int) -> list:
@@ -1847,15 +1862,16 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
     K1 5 (the four weights and proj's input), K2 4; the backward
     LayerNorm-column 2 and GELU-column 1 (given the forward's scales), B5 4,
     B4 5 (every one on the cluster form), B1 4, B2 4; each quantize in its
-    SR form with ``sr``. Then B6 once
+    SR form with ``sr``; every B18 launch on the row walk. Then B6 once
     per parameter leaf. ViT-Giant's patch embedding (588 inputs) and head
     stay bf16. ``layer`` 'bf16': B6 only."""
     t = "_sr" if sr else ""
     counts = dict.fromkeys(ops.KERNELS, 0)
     counts["fused_adamw_update"] = n_leaves
     if layer == "fused":
-        counts.update({f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
-                       f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
+        b18 = {f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
+               f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L}
+        counts.update({**b18, **{f"{k}_sm90": v for k, v in b18.items()},
                        f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
                        f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L,
                        f"quantize_int8_colwise{t}_sm90": 5 * L, "scaled_mm": 4 * L,
@@ -1914,11 +1930,13 @@ def vit_giant_step(seed: int, key: int):
           f" px = {VIT_TOKENS} tokens, padded to {VIT_ROWS} in the fused linears; remat, SDPA, adamw_bf16_sr without "
           f"SR, lr {VIT_LR:g}), weights seed {seed}, images seed {VIT_SEED}: " + "; ".join(
               f"{k} losses {r[0]}, step walls {[round(w, 4) for w in r[1]]} s" for k, r in runs.items()))
-    b18 = {k: v for k, v in vit_per_step_launches(L, n_leaves).items() if k.startswith(("layernorm", "gelu"))}
+    b18 = {sr: {k: v for k, v in vit_per_step_launches(L, n_leaves, sr=sr).items()
+                if k.startswith(("layernorm", "gelu")) and v} for sr in (False, True)}
     print(f"[11] images/s (steps after the first, wall with torch.cuda.synchronize()): "
           + ", ".join(f"{k} {v:.2f}" for k, v in ips.items()) + f" (int8/bf16 {ips['int8'] / ips['bf16']:.3f}); peak "
           f"device memory " + ", ".join(f"{k} {r[3]:.2f} GiB" for k, r in runs.items())
-          + f"; B18 launches per int8 step {b18}, all launches per int8 step "
+          + f"; B18 launches per int8 step {b18[False]}, per SR step {b18[True]} (each counted on the row walk "
+          f"too: every one took it), all launches per int8 step "
           f"{ {k: v for k, v in vit_per_step_launches(L, n_leaves).items() if v} }")
     for k in ("int8", "bf16"):
         check(runs[k][0][2] < runs[k][0][0], f"{k} ViT loss falls: {runs[k][0]}")

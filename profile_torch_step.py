@@ -59,7 +59,9 @@ VIT_B = 24
 # != 0) with Src 1 in its template arguments. A key that is a tuple matches a
 # name holding all of its fragments: B7's first design is row_quant over
 # NormProducer, B9-row's over SiluProducer (B18's are row_quant too), B8's
-# col_quant over NormProducer, mangled or not. The folds of the CTAs'
+# col_quant over NormProducer, mangled or not; on the walk B9-row is
+# elementwise_rows over SiluMulOp, B18's GELU elementwise_rows and
+# elementwise_cols over GeluOp. The folds of the CTAs'
 # column maxima or dgamma sums (reduce_parts: B7, B9-row, B10, B11) stay in
 # the producer group.
 GROUPS = (
@@ -71,10 +73,11 @@ GROUPS = (
     ("int8 GEMM B1 on the TMA + wgmma mainloop", ("s8mnb",)),
     ("int8 GEMM B2 on the TMA + wgmma mainloop", ("s8mnmajor",)),
     ("int8 GEMM K2 on wmma (decode sizes)", ("scaled_mm_s8",)),
-    ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer")),
+    ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer", "layernorm_rows", "layernorm_cols",
+                                        "geluop")),
     ("B7 RMSNorm row quantize", ("rmsnorm_rows", ("row_quant", "::normproducer"), ("row_quant", "12normproducer"))),
     ("B11 silu-backward row quantizes", ("silu_bwd_rows", "silu_bwd_row_quant")),
-    ("B9-row silu row quantize", ("silu_rows", ("row_quant", "siluproducer"))),
+    ("B9-row silu row quantize", (("elementwise_rows", "silumulop"), ("row_quant", "siluproducer"))),
     ("B8 RMSNorm column quantize", ("rmsnorm_cols", ("col_quant", "::normproducer"), ("col_quant", "12normproducer"))),
     ("B10 RMSNorm backward", ("rmsnorm_bwd_walk", "rmsnorm_bwd_rows")),
     ("producer kernels B9-col, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",

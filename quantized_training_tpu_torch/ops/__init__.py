@@ -51,7 +51,9 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   ``ops/pallas_fused.py::_producer_quant_call`` through its
   ``layernorm_quant`` and ``gelu_quant``: the ViT's fused linears; each form
   counts apart (``layernorm_quant_rowwise``, ``layernorm_quant_colwise``,
-  ``gelu_quant_rowwise``, ``gelu_quant_colwise``);
+  ``gelu_quant_rowwise``, ``gelu_quant_colwise``), the row forms and the
+  given-scales column forms on the persistent row walk again (``..._sm90``,
+  ``..._sr_sm90``);
 - B17 :func:`matmul` (``csrc/matmul.cu``), the plain tiled matmul (bf16 ->
   fp32 accumulator -> fp32 or bf16, int8 -> int32), replacing
   ``ops/pallas_mm.py::matmul``: ``benchmark_mm``'s ``pallas_bf16`` row; the
@@ -186,12 +188,20 @@ KERNELS = {
     "tile_scaled_mm_s8_sm90": (tile_scaled_mm, "s8_sm90_launches"),
     "layernorm_quant_rowwise": (layernorm_quant_rowwise, "launches"),
     "layernorm_quant_rowwise_sr": (layernorm_quant_rowwise, "sr_launches"),
+    "layernorm_quant_rowwise_sm90": (layernorm_quant_rowwise, "sm90_launches"),
+    "layernorm_quant_rowwise_sr_sm90": (layernorm_quant_rowwise, "sr_sm90_launches"),
     "layernorm_quant_colwise": (layernorm_quant_colwise, "launches"),
     "layernorm_quant_colwise_sr": (layernorm_quant_colwise, "sr_launches"),
+    "layernorm_quant_colwise_sm90": (layernorm_quant_colwise, "sm90_launches"),
+    "layernorm_quant_colwise_sr_sm90": (layernorm_quant_colwise, "sr_sm90_launches"),
     "gelu_quant_rowwise": (gelu_quant_rowwise, "launches"),
     "gelu_quant_rowwise_sr": (gelu_quant_rowwise, "sr_launches"),
+    "gelu_quant_rowwise_sm90": (gelu_quant_rowwise, "sm90_launches"),
+    "gelu_quant_rowwise_sr_sm90": (gelu_quant_rowwise, "sr_sm90_launches"),
     "gelu_quant_colwise": (gelu_quant_colwise, "launches"),
     "gelu_quant_colwise_sr": (gelu_quant_colwise, "sr_launches"),
+    "gelu_quant_colwise_sm90": (gelu_quant_colwise, "sm90_launches"),
+    "gelu_quant_colwise_sr_sm90": (gelu_quant_colwise, "sr_sm90_launches"),
     "matmul": (matmul, "launches"),
     "matmul_s8": (matmul, "s8_launches"),
     "matmul_sm90": (matmul, "sm90_launches"),

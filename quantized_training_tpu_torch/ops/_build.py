@@ -72,18 +72,22 @@ _SIGNATURES = {
     "qt_silu_mul_quant_colwise": (
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P,
     ),
-    # x, g, b, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, stream
+    # x, g, b, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, tpr, ctas, stream
     "qt_layernorm_quant_rowwise": (
-        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _I, _U64, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _I, _U64, _I, _I64, _P,
     ),
-    # x, g, b, scale, q, s_out, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, key, stream
+    # x, g, b, scale, q, s_out, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, key, tpr, ctas, stream
     "qt_layernorm_quant_colwise": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _U64, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _U64, _I, _I64, _P,
     ),
-    # a, q, s_row, amax, parts, M, K, rpb, eps, is_bf16, sr, with_amax, key, stream
-    "qt_gelu_quant_rowwise": (_P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _U64, _P),
-    # a, scale, q, s_out, amax, parts, M, K, rpb, eps, is_bf16, sr, key, stream
-    "qt_gelu_quant_colwise": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
+    # a, q, s_row, amax, parts, M, K, rpb, eps, is_bf16, sr, with_amax, key, tpr, ctas, stream
+    "qt_gelu_quant_rowwise": (
+        _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _U64, _I, _I64, _P,
+    ),
+    # a, scale, q, s_out, amax, parts, M, K, rpb, eps, is_bf16, sr, key, tpr, ctas, stream
+    "qt_gelu_quant_colwise": (
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I64, _P,
+    ),
     # x, g, dy, dx, dg, dg_part, M, K, rpb, norm_eps, is_bf16, tpr, ctas, stream
     "qt_rmsnorm_bwd": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I64, _P),
     # a, b, dy, qa, sa, qb, sb, amax, parts, ca, cb, M, K, rpb, eps, is_bf16, sr, with_amax, with_copy, key,

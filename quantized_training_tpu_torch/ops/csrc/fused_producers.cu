@@ -39,8 +39,8 @@
 // - B7 rmsnorm_rows, or row_quant<NormProducer> at widths the row walk does
 //   not take: rmsnorm_quant_rowwise (:154), x [M, K] -> q int8 [M, K],
 //   scale fp32 [M], optionally the column absmax fp32 [K];
-// - B9 silu_rows, or row_quant<SiluProducer> at widths the row walk does not
-//   take: silu_mul_quant_rowwise (:325), a, b [M, K];
+// - B9 elementwise_rows<SiluMulOp>, or row_quant<SiluProducer> at widths the
+//   row walk does not take: silu_mul_quant_rowwise (:325), a, b [M, K];
 // - B8 rmsnorm_cols, or col_quant<NormProducer> at widths the row walk does
 //   not take and in the two-pass form (after producer_col_absmax):
 //   rmsnorm_quant_colwise (:246), column int8 given the column scales;
@@ -54,11 +54,14 @@
 //   absmax of each and their copies in the inputs' dtype;
 // - B12 silu_bwd_col_quant: silu_mul_bwd_quant_colwise (:704), the column
 //   int8 of da and db given their column scales;
-// - B18 row_quant / col_quant / producer_col_absmax over LayerNormProducer
-//   and GeluProducer: _producer_quant_call (:803) through layernorm_quant
-//   (:918) and gelu_quant (:952), x [M, K] with g, b [K], or a [M, K]; the
-//   JAX package's SR salts 17 and 19 fold into its TPU seed, so here the
-//   key alone picks the stream.
+// - B18 _producer_quant_call (:803) through layernorm_quant (:918) and
+//   gelu_quant (:952), x [M, K] with g, b [K], or a [M, K]: its row body
+//   (:848) layernorm_rows and elementwise_rows<GeluOp>, its column body
+//   given scales (:898) layernorm_cols and elementwise_cols<GeluOp>, or
+//   row_quant / col_quant over LayerNormProducer and GeluProducer at widths
+//   the row walk does not take, and with producer_col_absmax in the
+//   two-pass column form; the JAX package's SR salts 17 and 19 fold into its
+//   TPU seed, so here the key alone picks the stream.
 // B11 and B12 draw SR noise for da at r * K + c and for db at M * K + r * K +
 // c of their key's stream.
 //
@@ -86,14 +89,16 @@
 // cast with its column's inverse scale, kept in shared memory. wgmma and TMA
 // do not apply.
 //
-// B7, B8 given scales, B9's row form, B10 and B11, the path's producer
-// kernels with the most lost time, were redesigned for the H100's memory
-// system (ops/fused_producers.py's routes choose them where their layout
-// leaves no lane idle; the first design above stays for the other widths):
+// B7, B8 given scales, B9's row form, B10, B11 and B18's row and
+// given-scales column forms, the paths' producer kernels with the most lost
+// time, were redesigned for the H100's memory system
+// (ops/fused_producers.py's routes choose them where their layout leaves no
+// lane idle; the first design above stays for the other widths):
 // a persistent grid of a few CTAs an SM (RowWalk, row_common.cuh) whose
 // groups of whole warps take one row at a time, every lane holding the same
-// kNormV (B7, B8), kNormBwdV (B10) or one or two (B9, B11) 16-byte vectors
-// of each row, the next row's loaded before this row is worked on; the
+// kNormV (B7, B8), kNormBwdV (B10), three or four (B18's LayerNorm) or one
+// or two (B9, B11, B18's GELU) 16-byte vectors of each row, the next row's
+// loaded before this row is worked on; the
 // producer's values stay in registers from the load to the cast, row sums
 // and maxima reduce by warp shuffles and a named barrier a group, the
 // column state (maxima, B8's inverse scales, B10's dgamma sums) stays in
@@ -577,6 +582,204 @@ rmsnorm_cols(const T* __restrict__ x, const float* __restrict__ g, const float* 
   });
 }
 
+// ---- B18's LayerNorm on the row walk -------------------------------------------
+
+// B18's LayerNorm rows on the persistent row walk (the route
+// ops/fused_producers.py::layernorm_rows_sm90_route picks): B7's geometry
+// (rmsnorm_rows), a CTA of kThreads threads in groups of TPR, V vectors a
+// thread a row, TPR V the row's vectors, V one of kLayerNormVs: at bf16 K
+// 1536 (192 vectors) 64 threads a row, three vectors each, four groups a
+// CTA. Thread t of a group holds vectors t, t + TPR, t + 2 TPR, which are
+// the first design's threads t + c TPR (row_quant<LayerNormProducer> runs
+// thread u < 256 over vectors u, u + 256, ...), so chain_totals (B7's chain
+// mapping) takes both row sums in LayerNormProducer::fill's order, each
+// operation as there: the sum by __fadd_rn, the mean by __fdiv_rn, the
+// centred values' squares by __fmaf_rn, rsqrt by __frsqrt_rn, y = ((x -
+// mean) rstd) g + b. q, the row scales and the column maxima are the first
+// design's bit for bit. y stays in registers from the load to the cast; a
+// row takes three exchanges (sum, centred sum of squares, max), each
+// through its own shared words and the group's named barrier: an
+// exchange's words are read before the group's next barrier, and written
+// again only after it. With COLMAX each thread keeps its columns' maxima in
+// registers and the CTA merges its groups' once, into parts[blockIdx.x].
+// Two CTAs an SM, the SR form one: at two (128 registers) it spilled 40
+// bytes and ran 1.1 us slower at [6400, 1536] (ab_sm90_forms.py's
+// ln_one_cta). Dynamic shared memory: g, b (element j of vector v at j nv +
+// v), then (COLMAX) the CTA's column maxima, as bits.
+constexpr int kLayerNormVs[] = {4, 3};  // the vectors a thread the route tries, in order
+constexpr int kLayerNormCtasPerSm = 2;  // CTAs an SM the launch bounds keep resident (the SR rows form: one)
+
+template <bool SR>
+constexpr int layernorm_rows_ctas() { return SR ? 1 : kLayerNormCtasPerSm; }
+
+template <typename T, bool SR, bool COLMAX, int V, int TPR>
+__global__ void __launch_bounds__(kThreads, layernorm_rows_ctas<SR>())
+layernorm_rows(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+               int8_t* __restrict__ q, float* __restrict__ s_row, float* __restrict__ parts, int64_t M, int64_t K,
+               float norm_eps, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T), W = TPR / 32, R = kThreads / TPR;
+  constexpr int C = V < R ? V : R;  // chains a thread of each row sum
+  static_assert(kThreads % TPR == 0 && TPR % 32 == 0, "whole warps, whole groups");
+  using Walk = RowWalk<V, 1>;
+  extern __shared__ float smem[];
+  __shared__ float red_s[R][kWarps], red_ss[R][kWarps];
+  __shared__ unsigned int red_max[R][W];
+  const Walk walk(TPR);
+  const int h = walk.t / 32, lane = walk.t % 32;
+  const int64_t nv = K / N;  // TPR V
+  float* gs = smem;
+  float* bs = smem + K;
+  unsigned int* cmax = reinterpret_cast<unsigned int*>(smem + 2 * K);
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) {
+    gs[(c % N) * nv + c / N] = g[c];
+    bs[(c % N) * nv + c / N] = b[c];
+    if (COLMAX) cmax[c] = 0u;
+  }
+  __syncthreads();
+  float cm[COLMAX ? V : 1][N];
+#pragma unroll
+  for (int p = 0; p < (COLMAX ? V : 1); ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) cm[p][j] = 0.0f;
+  const float kf = static_cast<float>(K);
+  const uint4* const in[1] = {reinterpret_cast<const uint4*>(x)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
+    float y[V][N], s[1][C], tot[1];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[0][c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        y[p][j] = to_f32(e[j]);
+        s[0][p % R] = __fadd_rn(s[0][p % R], y[p][j]);
+      }
+    }
+    chain_totals<TPR, C, 1>(s, tot, red_s[walk.grp], walk.grp);
+    const float mean = __fdiv_rn(tot[0], kf);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[0][c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        y[p][j] = __fsub_rn(y[p][j], mean);
+        s[0][p % R] = __fmaf_rn(y[p][j], y[p][j], s[0][p % R]);
+      }
+    chain_totals<TPR, C, 1>(s, tot, red_ss[walk.grp], walk.grp);
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot[0], kf), norm_eps));
+    float amax = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p)
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int64_t at = j * nv + walk.vec(p);
+        y[p][j] = __fadd_rn(__fmul_rn(__fmul_rn(y[p][j], rstd), gs[at]), bs[at]);
+        amax = fmaxf(amax, fabsf(y[p][j]));
+        if (COLMAX) cm[p][j] = fmaxf(cm[p][j], fabsf(y[p][j]));
+      }
+    unsigned int m = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(amax));  // non-negative: bits order as floats
+    if constexpr (W > 1) {
+      if (lane == 0) red_max[walk.grp][h] = m;
+      group_sync(walk.grp, TPR);
+#pragma unroll
+      for (int w = 0; w < W; ++w) m = ::max(m, red_max[walk.grp][w]);
+    }
+    const float sc = __fmul_rn(__uint_as_float(m), kInv127);
+    const float inv = inv_scale(sc, eps);
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(y[p], inv, off, key, q + off);
+    }
+    if (walk.t == 0) s_row[row] = sc;
+  });
+  if (COLMAX) {
+#pragma unroll
+    for (int p = 0; p < V; ++p)
+#pragma unroll
+      for (int j = 0; j < N; ++j) atomicMax(cmax + walk.vec(p) * N + j, __float_as_uint(cm[p][j]));
+    __syncthreads();
+    for (int64_t c = threadIdx.x; c < K; c += kThreads) parts[blockIdx.x * K + c] = __uint_as_float(cmax[c]);
+  }
+}
+
+// B18's LayerNorm columns given the column scales, on the row walk (the
+// route ops/fused_producers.py::layernorm_cols_sm90_route picks):
+// layernorm_rows' layout and both row sums in its order (two exchanges a
+// row, each through its own shared words), a thread's inverse column scales
+// computed once into registers, y recomputed from the loaded vectors and
+// cast at once, so no row of y stays in registers. q is
+// col_quant<LayerNormProducer>'s bit for bit. Dynamic shared memory: g, b
+// (element j of vector v at j nv + v).
+template <typename T, bool SR, int V, int TPR>
+__global__ void __launch_bounds__(kThreads, kLayerNormCtasPerSm)
+layernorm_cols(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+               const float* __restrict__ scale, int8_t* __restrict__ q, int64_t M, int64_t K, float norm_eps,
+               float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T), R = kThreads / TPR;
+  constexpr int C = V < R ? V : R;  // chains a thread of each row sum
+  static_assert(kThreads % TPR == 0 && TPR % 32 == 0, "whole warps, whole groups");
+  using Walk = RowWalk<V, 1>;
+  extern __shared__ float smem[];
+  __shared__ float red_s[R][kWarps], red_ss[R][kWarps];
+  const Walk walk(TPR);
+  const int64_t nv = K / N;  // TPR V
+  float* gs = smem;
+  float* bs = smem + K;
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) {
+    gs[(c % N) * nv + c / N] = g[c];
+    bs[(c % N) * nv + c / N] = b[c];
+  }
+  float inv[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) inv[p][j] = inv_scale(scale[walk.vec(p) * N + j], eps);
+  __syncthreads();
+  const float kf = static_cast<float>(K);
+  const uint4* const in[1] = {reinterpret_cast<const uint4*>(x)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
+    float s[1][C], tot[1];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[0][c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) s[0][p % R] = __fadd_rn(s[0][p % R], to_f32(e[j]));
+    }
+    chain_totals<TPR, C, 1>(s, tot, red_s[walk.grp], walk.grp);
+    const float mean = __fdiv_rn(tot[0], kf);
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[0][c] = 0.0f;
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const float c = __fsub_rn(to_f32(e[j]), mean);
+        s[0][p % R] = __fmaf_rn(c, c, s[0][p % R]);
+      }
+    }
+    chain_totals<TPR, C, 1>(s, tot, red_ss[walk.grp], walk.grp);
+    const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(tot[0], kf), norm_eps));
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* e = reinterpret_cast<const T*>(&u[0][p]);
+      float y[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int64_t at = j * nv + walk.vec(p);
+        y[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(to_f32(e[j]), mean), rstd), gs[at]), bs[at]);
+      }
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(y, inv[p], off, key, q + off);
+    }
+  });
+}
+
 // ---- B10 --------------------------------------------------------------------
 
 // Rows [rpb * blockIdx.x, +rpb) of the RMSNorm backward (the closed form of
@@ -920,11 +1123,34 @@ silu_bwd_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restr
   }
 }
 
-// B9's row form on the persistent row walk (the route ops/fused_producers.py::
-// silu_rows_sm90_route picks): groups of tpr threads (a CTA of tpr, or of
-// kThreads when tpr divides it), V vectors a thread a row, tpr V the row's
-// vectors: at K = 5632 bf16 one row of 704 vectors a CTA of 352 threads, two
-// vectors each. y = silu_mul(a, b) stays in registers from the load to the
+// The elementwise producers of the walks below: y of the fp32 values of
+// kIn inputs at one element.
+struct SiluMulOp {  // B9
+  static constexpr int kIn = 2;
+  __device__ static float y(const float (&v)[2]) { return silu_mul(v[0], v[1]); }
+};
+
+struct GeluOp {  // B18's GELU
+  static constexpr int kIn = 1;
+  __device__ static float y(const float (&v)[1]) { return gelu_tanh(v[0]); }
+};
+
+// Element j of vector p of each of the Op's inputs, as fp32, through the Op.
+template <class Op, typename T, int V>
+__device__ __forceinline__ float op_at(const uint4 (&u)[Op::kIn][V], int p, int j) {
+  float v[Op::kIn];
+#pragma unroll
+  for (int k = 0; k < Op::kIn; ++k) v[k] = to_f32(reinterpret_cast<const T*>(&u[k][p])[j]);
+  return Op::y(v);
+}
+
+// B9's row form and B18's GELU rows on the persistent row walk (the routes
+// ops/fused_producers.py::silu_rows_sm90_route and ::gelu_rows_sm90_route
+// pick): groups of tpr threads (a CTA of tpr, or of kThreads when tpr
+// divides it), V vectors a thread a row, tpr V the row's vectors: at K =
+// 5632 bf16 one row of 704 vectors a CTA of 352 threads, two vectors each;
+// at K = 6144 (GELU) 768 vectors, 384 threads. y = Op::y of the inputs (a,
+// b for silu_mul, a for GELU) stays in registers from the load to the
 // cast; the row max reduces by warp shuffles, across the group's warps
 // through shared words (alternating between rows, so one barrier a row
 // suffices); with COLMAX the CTA writes its columns' maxima, its groups
@@ -933,23 +1159,24 @@ silu_bwd_rows(const T* __restrict__ a, const T* __restrict__ b, const T* __restr
 // updated in place (a thread owns its columns there); the SR form one CTA
 // an SM, the maxima in registers (its Philox words would spill at 80).
 // ab_sm90_forms.py times the other layouts (b9_one_cta, b9_reg_max,
-// b9_v1). The max is order-free, so the outputs are
-// row_quant<SiluProducer>'s bit for bit. Dynamic shared memory: with
-// COLMAX, the RN form's groups' column maxima [groups][K] (fp32, element j
-// of vector v at j nv + v), or the SR form's merge of more than one
-// group's [K], as bits.
+// b9_v1; gelu_one_cta, gelu_v3). The max is order-free, so the outputs are
+// row_quant<SiluProducer>'s (row_quant<GeluProducer>'s) bit for bit.
+// Dynamic shared memory: with COLMAX, the RN form's groups' column maxima
+// [groups][K] (fp32, element j of vector v at j nv + v), or the SR form's
+// merge of more than one group's [K], as bits.
 constexpr int kSiluCtasPerSm = 2;  // CTAs an SM the launch bounds keep resident (the RN form at V = 2)
 
 template <bool SR, int V>
 constexpr int silu_rows_ctas() { return V == 1 || SR ? 1 : kSiluCtasPerSm; }
 
-template <typename T, bool SR, bool COLMAX, int V>
+template <class Op, typename T, bool SR, bool COLMAX, int V>
 __global__ void __launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())
-silu_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __restrict__ q, float* __restrict__ s_row,
-          float* __restrict__ parts, int64_t M, int64_t K, int tpr, float eps, uint64_t key) {
-  constexpr int N = 16 / sizeof(T);
+elementwise_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __restrict__ q,
+                 float* __restrict__ s_row, float* __restrict__ parts, int64_t M, int64_t K, int tpr, float eps,
+                 uint64_t key) {
+  constexpr int N = 16 / sizeof(T), NIN = Op::kIn;
   constexpr bool kShared = COLMAX && !SR, kRegs = COLMAX && !kShared;  // where the column maxima live
-  using Walk = RowWalk<V, 2>;
+  using Walk = RowWalk<V, NIN>;
   extern __shared__ unsigned int cmax[];  // [K], or [groups][K] with kShared
   __shared__ unsigned int red[2][kSiluRowsMaxCta / 32];  // each warp's max |y| bits, by row parity
   const Walk walk(tpr);
@@ -968,16 +1195,17 @@ silu_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __restrict__
 #pragma unroll
     for (int j = 0; j < N; ++j) cm[p][j] = 0.0f;
   int parity = 0;
-  const uint4* const in[2] = {reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b)};
-  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[2][V]) {
+  const uint4* const ab[2] = {reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b)};
+  const uint4* in[NIN];
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) in[k] = ab[k];
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[NIN][V]) {
     float y[V][N], am = 0.0f;
 #pragma unroll
-    for (int p = 0; p < V; ++p) {
-      const T* ea = reinterpret_cast<const T*>(&u[0][p]);
-      const T* eb = reinterpret_cast<const T*>(&u[1][p]);
+    for (int p = 0; p < V; ++p)
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        y[p][j] = silu_mul(to_f32(ea[j]), to_f32(eb[j]));
+        y[p][j] = op_at<Op, T, V>(u, p, j);
         am = fmaxf(am, fabsf(y[p][j]));
         if constexpr (kRegs) cm[p][j] = fmaxf(cm[p][j], fabsf(y[p][j]));
         if constexpr (kShared) {
@@ -985,7 +1213,6 @@ silu_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __restrict__
           *g = fmaxf(*g, fabsf(y[p][j]));
         }
       }
-    }
     unsigned int m = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(am));  // non-negative: bits order as floats
     if (warps > 1) {
       if (lane == 0) red[parity][warp] = m;
@@ -1028,6 +1255,40 @@ silu_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __restrict__
     __syncthreads();
     for (int64_t c = threadIdx.x; c < K; c += blockDim.x) part[c] = __uint_as_float(cmax[c]);
   }
+}
+
+// B18's GELU columns given the column scales, on the row walk (the route
+// ops/fused_producers.py::gelu_cols_sm90_route picks): the geometry of
+// elementwise_rows, a thread's inverse column scales computed once into
+// registers, y = Op::y of the loaded vectors cast at once, no row state.
+// q is col_quant<GeluProducer>'s bit for bit.
+template <class Op, typename T, bool SR, int V>
+__global__ void __launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())
+elementwise_cols(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ scale,
+                 int8_t* __restrict__ q, int64_t M, int64_t K, int tpr, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T), NIN = Op::kIn;
+  using Walk = RowWalk<V, NIN>;
+  const Walk walk(tpr);
+  const int64_t nv = K / N;  // tpr V
+  float inv[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) inv[p][j] = inv_scale(scale[walk.vec(p) * N + j], eps);
+  const uint4* const ab[2] = {reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b)};
+  const uint4* in[NIN];
+#pragma unroll
+  for (int k = 0; k < NIN; ++k) in[k] = ab[k];
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[NIN][V]) {
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      float y[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) y[j] = op_at<Op, T, V>(u, p, j);
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(y, inv[p], off, key, q + off);
+    }
+  });
 }
 
 // B12: rows [rpb * blockIdx.x, +rpb) of (da, db), each cast with its
@@ -1171,6 +1432,59 @@ cudaError_t launch_norm_cols(int tpr, const void* x, const float* g, const float
   });
 }
 
+// launch(std::integral_constant<int, V>{}, std::integral_constant<int,
+// TPR>{}) for B18's LayerNorm walks: V = K / N / tpr one of kLayerNormVs,
+// tpr as with_norm_tpr takes it; cudaErrorInvalidValue for any other
+// layout.
+template <typename T, class Launch>
+cudaError_t with_layernorm_layout(int tpr, int64_t K, int64_t ctas, Launch&& launch) {
+  const int64_t nv = K / (16 / static_cast<int64_t>(sizeof(T)));
+  constexpr int V0 = kLayerNormVs[0], V1 = kLayerNormVs[1];
+  if (tpr > 0 && nv == static_cast<int64_t>(tpr) * V0)
+    return with_norm_tpr<T>(tpr, V0, K, ctas, [&](auto t) { return launch(std::integral_constant<int, V0>{}, t); });
+  if (tpr > 0 && nv == static_cast<int64_t>(tpr) * V1)
+    return with_norm_tpr<T>(tpr, V1, K, ctas, [&](auto t) { return launch(std::integral_constant<int, V1>{}, t); });
+  return cudaErrorInvalidValue;
+}
+
+// B18's LayerNorm rows on the row walk: tpr threads a row, ctas CTAs, parts
+// [ctas, K].
+template <typename T, bool SR, bool COLMAX>
+cudaError_t launch_layernorm_rows(int tpr, const void* x, const float* g, const float* b, void* q, void* s_row,
+                                  void* amax, void* parts, int64_t M, int64_t K, int64_t ctas, float norm_eps,
+                                  float eps, uint64_t key, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(K) * sizeof(float) * (COLMAX ? 3 : 2);
+  float* pt = static_cast<float*>(parts);
+  return with_layernorm_layout<T>(tpr, K, ctas, [&](auto v, auto t) {
+    const auto kernel = layernorm_rows<T, SR, COLMAX, decltype(v)::value, decltype(t)::value>;
+    cudaError_t err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), g, b, static_cast<int8_t*>(q), static_cast<float*>(s_row), pt, M, K, norm_eps, eps,
+        key);
+    if ((err = cudaGetLastError()) != cudaSuccess || !COLMAX) return err;
+    return launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
+  });
+}
+
+// B18's LayerNorm columns given scales on the row walk: tpr threads a row,
+// ctas CTAs, no scratch.
+template <typename T, bool SR>
+cudaError_t launch_layernorm_cols(int tpr, const void* x, const float* g, const float* b, const float* scale,
+                                  void* q, int64_t M, int64_t K, int64_t ctas, float norm_eps, float eps,
+                                  uint64_t key, cudaStream_t stream) {
+  if (scale == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(K) * sizeof(float) * 2;
+  return with_layernorm_layout<T>(tpr, K, ctas, [&](auto v, auto t) {
+    const auto kernel = layernorm_cols<T, SR, decltype(v)::value, decltype(t)::value>;
+    cudaError_t err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), g, b, scale, static_cast<int8_t*>(q), M, K, norm_eps, eps, key);
+    return cudaGetLastError();
+  });
+}
+
 // B10 on the row walk: tpr threads a row (kNormBwdV vectors of x and of dy
 // each), ctas CTAs, dg_part [ctas, K].
 template <typename T>
@@ -1246,22 +1560,35 @@ cudaError_t launch_silu_bwd_rows(const void* a, const void* b, const void* dy, v
   return launch_reduce(true, pt, static_cast<float*>(amax), ctas, 2 * K, stream);
 }
 
-// B9's row form on the walk: tpr threads a row, V = K / N / tpr vectors a
-// thread (1 or 2), ctas CTAs of max(tpr, kThreads) threads, parts [ctas, K].
-template <typename T, bool SR, bool COLMAX>
-cudaError_t launch_silu_rows(const void* a, const void* b, void* q, void* s_row, void* amax, void* parts, int64_t M,
-                             int64_t K, int tpr, int64_t ctas, float eps, uint64_t key, cudaStream_t stream) {
+// The elementwise walks' layout: tpr threads a row, V = K / N / tpr vectors
+// a thread (1 or 2), a CTA of max(tpr, kThreads) threads made of whole
+// groups, within the largest CTA of that V; 0 where the layout is none.
+template <typename T>
+int elementwise_v(int tpr, int64_t K, int64_t ctas) {
   const int64_t nv = K / (16 / static_cast<int64_t>(sizeof(T)));
   const int cta = tpr > kThreads ? tpr : kThreads;
   const int64_t V = tpr > 0 && nv % tpr == 0 ? nv / tpr : 0;
   if (tpr % 32 != 0 || cta % tpr != 0 || ctas < 1 ||
       !((V == 1 && cta <= kSiluRowsMaxCta) || (V == 2 && cta <= kSiluRowsMaxCta2)))
-    return cudaErrorInvalidValue;
+    return 0;
+  return static_cast<int>(V);
+}
+
+// B9's row form and B18's GELU rows on the walk (elementwise_rows over Op,
+// its inputs a and, for two, b): tpr threads a row, ctas CTAs, parts
+// [ctas, K].
+template <class Op, typename T, bool SR, bool COLMAX>
+cudaError_t launch_elementwise_rows(const void* a, const void* b, void* q, void* s_row, void* amax, void* parts,
+                                    int64_t M, int64_t K, int tpr, int64_t ctas, float eps, uint64_t key,
+                                    cudaStream_t stream) {
+  const int V = elementwise_v<T>(tpr, K, ctas);
+  if (V == 0) return cudaErrorInvalidValue;
+  const int cta = tpr > kThreads ? tpr : kThreads;
   const size_t smem = !COLMAX    ? 0
                       : !SR       ? static_cast<size_t>(cta / tpr * K) * sizeof(float)
                       : cta > tpr ? static_cast<size_t>(K) * sizeof(unsigned int)
                                   : 0;
-  const auto kernel = V == 1 ? silu_rows<T, SR, COLMAX, 1> : silu_rows<T, SR, COLMAX, 2>;
+  const auto kernel = V == 1 ? elementwise_rows<Op, T, SR, COLMAX, 1> : elementwise_rows<Op, T, SR, COLMAX, 2>;
   float* pt = static_cast<float*>(parts);
   cudaError_t err;
   if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
@@ -1270,6 +1597,19 @@ cudaError_t launch_silu_rows(const void* a, const void* b, void* q, void* s_row,
                                                                  pt, M, K, tpr, eps, key);
   err = cudaGetLastError();
   return err != cudaSuccess || !COLMAX ? err : launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
+}
+
+// B18's GELU columns given scales on the walk (elementwise_cols over Op):
+// tpr threads a row, ctas CTAs, no scratch.
+template <class Op, typename T, bool SR>
+cudaError_t launch_elementwise_cols(const void* a, const void* b, const float* scale, void* q, int64_t M, int64_t K,
+                                    int tpr, int64_t ctas, float eps, uint64_t key, cudaStream_t stream) {
+  const int V = elementwise_v<T>(tpr, K, ctas);
+  if (V == 0 || scale == nullptr) return cudaErrorInvalidValue;
+  const auto kernel = V == 1 ? elementwise_cols<Op, T, SR, 1> : elementwise_cols<Op, T, SR, 2>;
+  kernel<<<static_cast<unsigned int>(ctas), tpr > kThreads ? tpr : kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), scale, static_cast<int8_t*>(q), M, K, tpr, eps, key);
+  return cudaGetLastError();
 }
 
 template <typename T, bool SR>
@@ -1351,7 +1691,7 @@ extern "C" int qt_rmsnorm_quant_rowwise(const void* x, const void* g, void* q, v
 
 // B9, row form: as B7 with the inputs a, b [M, K]. tpr
 // (ops/fused_producers.py::silu_rows_sm90_route): 0 takes
-// row_quant<SiluProducer> with rpb rows a block; else silu_rows with tpr
+// row_quant<SiluProducer> with rpb rows a block; else elementwise_rows<SiluMulOp> with tpr
 // threads a row on ctas CTAs, parts then ctas * K floats.
 extern "C" int qt_silu_mul_quant_rowwise(const void* a, const void* b, void* q, void* s_row, void* amax, void* parts,
                                          int64_t M, int64_t K, int64_t rpb, float eps, int is_bf16, int sr,
@@ -1359,7 +1699,8 @@ extern "C" int qt_silu_mul_quant_rowwise(const void* a, const void* b, void* q, 
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define QT_ROW(T, SR, AM)                                                                                        \
-  (tpr != 0 ? launch_silu_rows<T, SR, AM>(a, b, q, s_row, amax, parts, M, K, tpr, ctas, eps, key, s)            \
+  (tpr != 0 ? launch_elementwise_rows<SiluMulOp, T, SR, AM>(a, b, q, s_row, amax, parts, M, K, tpr, ctas, eps, \
+                                                        key, s)                                                \
             : launch_row<SiluProducer<T>, SR, AM>(silu_producer<T>(a, b, K), q, s_row, amax, parts, M, rpb, eps, \
                                                   key, s))
   if (is_bf16)
@@ -1466,14 +1807,23 @@ extern "C" int qt_silu_mul_bwd_quant_colwise(const void* a, const void* b, const
 #undef QT_COL
 }
 
-// B18, LayerNorm along rows: as B7 with beta b [K] (fp32, as g).
+// B18, LayerNorm along rows: as B7 with beta b [K] (fp32, as g). tpr
+// (ops/fused_producers.py::layernorm_rows_sm90_route): 0 takes
+// row_quant<LayerNormProducer> with rpb rows a block; else layernorm_rows
+// with tpr threads a row on ctas CTAs, parts then ctas * K floats.
 extern "C" int qt_layernorm_quant_rowwise(const void* x, const void* g, const void* b, void* q, void* s_row,
                                           void* amax, void* parts, int64_t M, int64_t K, int64_t rpb, float norm_eps,
-                                          float eps, int is_bf16, int sr, int with_amax, uint64_t key, void* stream) {
+                                          float eps, int is_bf16, int sr, int with_amax, uint64_t key, int tpr,
+                                          int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QT_ROW(T, SR, AM) launch_row<LayerNormProducer<T>, SR, AM>(layernorm_producer<T>(x, g, b, K, norm_eps), q, \
-                                                                   s_row, amax, parts, M, rpb, eps, key, s)
+  const float* gf = static_cast<const float*>(g);
+  const float* bf = static_cast<const float*>(b);
+#define QT_ROW(T, SR, AM)                                                                                         \
+  (tpr != 0 ? launch_layernorm_rows<T, SR, AM>(tpr, x, gf, bf, q, s_row, amax, parts, M, K, ctas, norm_eps, eps, \
+                                               key, s)                                                           \
+            : launch_row<LayerNormProducer<T>, SR, AM>(layernorm_producer<T>(x, g, b, K, norm_eps), q, s_row,    \
+                                                       amax, parts, M, rpb, eps, key, s))
   if (is_bf16)
     return sr ? (with_amax ? QT_ROW(__nv_bfloat16, true, true) : QT_ROW(__nv_bfloat16, true, false))
               : (with_amax ? QT_ROW(__nv_bfloat16, false, true) : QT_ROW(__nv_bfloat16, false, false));
@@ -1482,14 +1832,20 @@ extern "C" int qt_layernorm_quant_rowwise(const void* x, const void* g, const vo
 #undef QT_ROW
 }
 
-// B18, GELU along rows: as B7 with the input a [M, K].
+// B18, GELU along rows: as B7 with the input a [M, K]. tpr
+// (ops/fused_producers.py::gelu_rows_sm90_route): 0 takes
+// row_quant<GeluProducer> with rpb rows a block; else
+// elementwise_rows<GeluOp> with tpr threads a row on ctas CTAs, parts then
+// ctas * K floats.
 extern "C" int qt_gelu_quant_rowwise(const void* a, void* q, void* s_row, void* amax, void* parts, int64_t M,
                                      int64_t K, int64_t rpb, float eps, int is_bf16, int sr, int with_amax,
-                                     uint64_t key, void* stream) {
+                                     uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QT_ROW(T, SR, AM) launch_row<GeluProducer<T>, SR, AM>(gelu_producer<T>(a, K), q, s_row, amax, parts, M, rpb, \
-                                                              eps, key, s)
+#define QT_ROW(T, SR, AM)                                                                                          \
+  (tpr != 0 ? launch_elementwise_rows<GeluOp, T, SR, AM>(a, nullptr, q, s_row, amax, parts, M, K, tpr, ctas, eps, \
+                                                         key, s)                                                  \
+            : launch_row<GeluProducer<T>, SR, AM>(gelu_producer<T>(a, K), q, s_row, amax, parts, M, rpb, eps, key, s))
   if (is_bf16)
     return sr ? (with_amax ? QT_ROW(__nv_bfloat16, true, true) : QT_ROW(__nv_bfloat16, true, false))
               : (with_amax ? QT_ROW(__nv_bfloat16, false, true) : QT_ROW(__nv_bfloat16, false, false));
@@ -1498,14 +1854,25 @@ extern "C" int qt_gelu_quant_rowwise(const void* a, void* q, void* s_row, void* 
 #undef QT_ROW
 }
 
-// B18, LayerNorm along columns: as B8 with beta b [K].
+// B18, LayerNorm along columns: as B8 with beta b [K]. tpr
+// (ops/fused_producers.py::layernorm_cols_sm90_route, given scales only): 0
+// takes col_quant with rpb rows a block; else layernorm_cols with tpr
+// threads a row on ctas CTAs (no scratch).
 extern "C" int qt_layernorm_quant_colwise(const void* x, const void* g, const void* b, const void* scale, void* q,
                                           void* s_out, void* amax, void* parts, int64_t M, int64_t K, int64_t rpb,
-                                          float norm_eps, float eps, int is_bf16, int sr, uint64_t key,
-                                          void* stream) {
+                                          float norm_eps, float eps, int is_bf16, int sr, uint64_t key, int tpr,
+                                          int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
+  if (tpr != 0) {
+    const float* gf = static_cast<const float*>(g);
+    const float* bf = static_cast<const float*>(b);
+#define QT_COLS(T, SR) launch_layernorm_cols<T, SR>(tpr, x, gf, bf, sc, q, M, K, ctas, norm_eps, eps, key, s)
+    if (is_bf16) return sr ? QT_COLS(__nv_bfloat16, true) : QT_COLS(__nv_bfloat16, false);
+    return sr ? QT_COLS(float, true) : QT_COLS(float, false);
+#undef QT_COLS
+  }
 #define QT_COL(T, SR) launch_col<LayerNormProducer<T>, SR>(layernorm_producer<T>(x, g, b, K, norm_eps), sc, q, s_out, \
                                                            amax, parts, M, rpb, eps, key, s)
   if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
@@ -1513,15 +1880,19 @@ extern "C" int qt_layernorm_quant_colwise(const void* x, const void* g, const vo
 #undef QT_COL
 }
 
-// B18, GELU along columns: as B8 with the input a [M, K].
+// B18, GELU along columns: as B8 with the input a [M, K]. tpr
+// (ops/fused_producers.py::gelu_cols_sm90_route, given scales only): 0
+// takes col_quant with rpb rows a block; else elementwise_cols<GeluOp> with
+// tpr threads a row on ctas CTAs (no scratch).
 extern "C" int qt_gelu_quant_colwise(const void* a, const void* scale, void* q, void* s_out, void* amax, void* parts,
                                      int64_t M, int64_t K, int64_t rpb, float eps, int is_bf16, int sr, uint64_t key,
-                                     void* stream) {
+                                     int tpr, int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
-#define QT_COL(T, SR) launch_col<GeluProducer<T>, SR>(gelu_producer<T>(a, K), sc, q, s_out, amax, parts, M, rpb, eps, \
-                                                      key, s)
+#define QT_COL(T, SR)                                                                                                 \
+  (tpr != 0 ? launch_elementwise_cols<GeluOp, T, SR>(a, nullptr, sc, q, M, K, tpr, ctas, eps, key, s)                 \
+            : launch_col<GeluProducer<T>, SR>(gelu_producer<T>(a, K), sc, q, s_out, amax, parts, M, rpb, eps, key, s))
   if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
   return sr ? QT_COL(float, true) : QT_COL(float, false);
 #undef QT_COL

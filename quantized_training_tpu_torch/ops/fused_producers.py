@@ -44,12 +44,17 @@ H100's memory system, wherever its layout leaves no lane idle
 (:func:`norm_rows_sm90_route`, :func:`norm_cols_sm90_route`,
 :func:`silu_rows_sm90_route`, :func:`rmsnorm_bwd_sm90_route`,
 :func:`silu_bwd_rows_sm90_route`, decided here and passed to the C entry),
-and count those launches again (``sm90_launches``, ``sr_sm90_launches``);
-other widths, and B8's two-pass form, keep the first design. B9, B11, B12
-and B18's GELU forms are bit-exact with their plain versions on the card. B7, B8, B10 and
-B18's LayerNorm forms hold a row sum, which the kernel takes in its own
-order: their int8 outputs may differ by one step on rare elements, their
-scales, maxima, dx and dgamma by fp32 rounding.
+and so do B18's row forms and its given-scales column forms
+(:func:`layernorm_rows_sm90_route`, :func:`layernorm_cols_sm90_route`,
+:func:`gelu_rows_sm90_route`, :func:`gelu_cols_sm90_route`), and count
+those launches again (``sm90_launches``, ``sr_sm90_launches``); other
+widths, and the two-pass column forms of B8 and B18, keep the first
+design. B9, B11, B12 and B18's GELU forms are bit-exact with their plain
+versions on the card. B7, B8, B10 and B18's LayerNorm forms hold a row
+sum, which the kernel takes in its own order: their int8 outputs may
+differ by one step on rare elements, their scales, maxima, dx and dgamma
+by fp32 rounding; on the walk they keep the first design's order, and its
+bits (B10's dgamma apart).
 """
 
 from __future__ import annotations
@@ -310,7 +315,7 @@ def supported(M: int, K: int, dtype, n_inputs: int = 1) -> bool:
     return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= max_k and K % 128 == 0
 
 
-# ---- the routes of B7, B8, B9-row, B10 and B11 ---------------------------------
+# ---- the routes of B7, B8, B9-row, B10, B11 and B18 ----------------------------
 
 # B7's and B8's vectors a thread a row on the row walk
 # (csrc/fused_producers.cu::kNormV), B10's of each of x and dy (::kNormBwdV)
@@ -323,9 +328,15 @@ _CTA = 256  # the row kernels' block (csrc/row_common.cuh::kThreads)
 # ab_sm90_forms.py, PERF.md)
 _SILU_ROWS_MAX_CTA = {2: 384, 1: 704}
 # CTAs an SM the walks' launch bounds keep resident: B7, B8 and B10 two of
-# 256, B11 one, B9's row form two in its RN form at two vectors a thread,
-# else one (csrc/fused_producers.cu::silu_rows_ctas, kSiluCtasPerSm)
+# 256, B11 one, B9's row form and B18's GELU forms two in their RN forms at
+# two vectors a thread, else one (csrc/fused_producers.cu::silu_rows_ctas,
+# kSiluCtasPerSm), B18's LayerNorm forms two of 256 (kLayerNormCtasPerSm),
+# its SR row form one (layernorm_rows_ctas)
 NORM_CTAS_PER_SM, SILU_CTAS_PER_SM, SILU_ROWS_CTAS_PER_SM = 2, 1, 2
+LAYERNORM_CTAS_PER_SM = 2
+# B18's LayerNorm walks: the vectors a thread a row the route tries, in
+# order (csrc/fused_producers.cu::kLayerNormVs): bf16 K 1536 takes three
+LAYERNORM_VECTORS = (4, 3)
 
 
 def _norm_walk_tpr(K: int, dtype, vectors: int) -> int:
@@ -390,7 +401,7 @@ def silu_bwd_rows_sm90_route(K: int, dtype) -> int:
 
 def silu_rows_sm90_route(K: int, dtype) -> int:
     """The threads a row of B9's row form on the persistent row walk
-    (``csrc/fused_producers.cu::silu_rows``), 0 for the first design
+    (``csrc/fused_producers.cu::elementwise_rows<SiluMulOp>``), 0 for the first design
     (``row_quant<SiluProducer>``): B11's layouts (bf16 K = 5632: 352
     threads, two vectors each), with :func:`silu_rows_ctas_per_sm` CTAs an
     SM."""
@@ -402,9 +413,67 @@ def silu_rows_ctas_per_sm(K: int, dtype, sr: bool) -> int:
     bounds do (``csrc/fused_producers.cu::silu_rows_ctas``):
     ``SILU_ROWS_CTAS_PER_SM`` for the RN form at two vectors a thread, else
     one."""
-    tpr = silu_rows_sm90_route(K, dtype)
+    return _elementwise_ctas_per_sm(silu_rows_sm90_route(K, dtype), K, dtype, sr)
+
+
+def _elementwise_ctas_per_sm(tpr: int, K: int, dtype, sr: bool) -> int:
     two = tpr and K * dtype.itemsize // 16 == 2 * tpr
     return SILU_ROWS_CTAS_PER_SM if two and not sr else 1
+
+
+def layernorm_rows_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B18's LayerNorm rows on the persistent row walk
+    (``csrc/fused_producers.cu::layernorm_rows``), 0 for the first design
+    (``row_quant<LayerNormProducer>``): the first of ``LAYERNORM_VECTORS``
+    16-byte vectors a thread that tiles the row with 32, 64, 128 or 256
+    threads (groups that divide the block, so that both row sums keep the
+    first design's order): ViT-Giant's bf16 K 1536 (192 vectors) takes 64
+    threads of three vectors; bf16 K 768-6144 at three, 1024-8192 at four."""
+    for v in LAYERNORM_VECTORS:
+        tpr = _norm_walk_tpr(K, dtype, v)
+        if tpr:
+            return tpr
+    return 0
+
+
+def layernorm_rows_ctas_per_sm(sr: bool) -> int:
+    """CTAs an SM B18's LayerNorm row walk keeps resident, as its launch
+    bounds do (``csrc/fused_producers.cu::layernorm_rows_ctas``):
+    ``LAYERNORM_CTAS_PER_SM``, the SR form one."""
+    return 1 if sr else LAYERNORM_CTAS_PER_SM
+
+
+def layernorm_cols_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B18's LayerNorm columns given scales on the
+    persistent row walk (``csrc/fused_producers.cu::layernorm_cols``), 0 for
+    the first design (``col_quant<LayerNormProducer>``): the row form's
+    layouts, so that y is the row form's to the bit. The two-pass form keeps
+    the first design."""
+    return layernorm_rows_sm90_route(K, dtype)
+
+
+def gelu_rows_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B18's GELU rows on the persistent row walk
+    (``csrc/fused_producers.cu::elementwise_rows<GeluOp>``, B9-row's walk
+    over one input), 0 for the first design (``row_quant<GeluProducer>``):
+    B9-row's layouts (ViT-Giant's bf16 K 6144, 768 vectors: 384 threads of
+    two vectors), with :func:`gelu_ctas_per_sm` CTAs an SM."""
+    return _silu_walk_tpr(K, dtype)
+
+
+def gelu_cols_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B18's GELU columns given scales on the
+    persistent row walk (``csrc/fused_producers.cu::elementwise_cols<GeluOp>``),
+    0 for the first design (``col_quant<GeluProducer>``): the row form's
+    layouts. The two-pass form keeps the first design."""
+    return _silu_walk_tpr(K, dtype)
+
+
+def gelu_ctas_per_sm(K: int, dtype, sr: bool) -> int:
+    """CTAs an SM B18's GELU walks keep resident at width K, as B9-row's
+    (their launch bounds are its ``silu_rows_ctas``): two for the RN form at
+    two vectors a thread, else one."""
+    return _elementwise_ctas_per_sm(gelu_rows_sm90_route(K, dtype), K, dtype, sr)
 
 
 def row_walk_ctas(M: int, tpr: int, sms: int, per_sm: int) -> int:
@@ -435,8 +504,8 @@ def _parts(M: int, K: int, device, needed: bool = True) -> torch.Tensor:
 
 
 def _route_parts(M: int, K: int, device, needed: bool, tpr: int, per_sm: int) -> tuple[int, torch.Tensor]:
-    """The grid of B7's, B8's, B9-row's, B10's or B11's route (0 for the
-    first design) and the fp32 scratch of its column partials: [CTAs, K] on
+    """The grid of B7's, B8's, B9-row's, B10's, B11's or B18's route (0 for
+    the first design) and the fp32 scratch of its column partials: [CTAs, K] on
     the row walk (one row a CTA), [blocks, K] for the first design."""
     if not tpr:
         return 0, _parts(M, K, device, needed)
@@ -503,30 +572,30 @@ def silu_mul_quant_rowwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS
                     silu_rows_sm90_route(a.shape[-1], a.dtype), silu_rows_ctas_per_sm(a.shape[-1], a.dtype, sr))
 
 
-def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr=None, per_sm=NORM_CTAS_PER_SM):
+def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr, per_sm=NORM_CTAS_PER_SM):
     """Launch the row form of B7, B9 or B18: ``(q int8 [M, K], scale fp32
     [M, 1])``, with ``with_col_amax`` also the column absmax fp32 [1, K].
-    ``tpr`` (B7 and B9, whose entries take a route): the threads a row on
-    the row walk of ``per_sm`` CTAs an SM, 0 for the first design."""
+    ``tpr``: the threads a row on the row walk of ``per_sm`` CTAs an SM, 0
+    for the first design."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     dev = inputs[0].device
     q = torch.empty((M, K), dtype=torch.int8, device=dev)
     scale = torch.empty((M, 1), dtype=torch.float32, device=dev)
     amax = torch.empty((1, K) if with_col_amax else (0,), dtype=torch.float32, device=dev)
-    ctas, parts = _route_parts(M, K, dev, with_col_amax, tpr or 0, per_sm)
-    route = () if tpr is None else (tpr, ctas)
+    ctas, parts = _route_parts(M, K, dev, with_col_amax, tpr, per_sm)
     err = launch(q.data_ptr(), scale.data_ptr(), amax.data_ptr(), parts.data_ptr(), M, K, _rows_per_block(M), key,
-                 *route)
+                 tpr, ctas)
     _build.check(err, what)
     _count_route(fn, sr, bool(tpr))
     return (q, scale, amax) if with_col_amax else (q, scale)
 
 
-def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr=None):
+def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr=None, per_sm=NORM_CTAS_PER_SM):
     """Launch the column form of B8, B9 or B18: given scales, or two
-    passes. ``tpr`` (B8, whose entry takes a route): the threads a row on
-    the row walk (no scratch), 0 for the first design."""
+    passes. ``tpr`` (B8 and B18, whose entries take a route): the threads a
+    row on the row walk of ``per_sm`` CTAs an SM (no scratch), 0 for the
+    first design."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     x = inputs[0]
@@ -538,7 +607,7 @@ def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr=None):
         amax = torch.empty(K, dtype=torch.float32, device=x.device)
         s_out = torch.empty((1, K), dtype=torch.float32, device=x.device)
         parts = _parts(M, K, x.device)
-    route = () if tpr is None else (tpr, row_walk_ctas(M, tpr, _sm_count(x.device), NORM_CTAS_PER_SM) if tpr else 0)
+    route = () if tpr is None else (tpr, row_walk_ctas(M, tpr, _sm_count(x.device), per_sm) if tpr else 0)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = launch(ptr(scale), q.data_ptr(), ptr(s_out), ptr(amax), ptr(parts), M, K, _rows_per_block(M), key, *route)
     _build.check(err, what)
@@ -669,10 +738,11 @@ def layernorm_quant_rowwise(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *
     what = "layernorm_quant_rowwise"
     gf, bf = _gamma(g, x, what), _gamma(b, x, what, "beta")
     dt = int(x.dtype == torch.bfloat16)
-    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_layernorm_quant_rowwise(
+    launch = lambda q, s, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_layernorm_quant_rowwise(
         x.data_ptr(), gf.data_ptr(), bf.data_ptr(), q, s, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr),
-        int(with_col_amax), k, _build.stream())
-    return _rowwise(what, layernorm_quant_rowwise, launch, (x,), sr, key, with_col_amax)
+        int(with_col_amax), k, tpr, ctas, _build.stream())
+    return _rowwise(what, layernorm_quant_rowwise, launch, (x,), sr, key, with_col_amax,
+                    layernorm_rows_sm90_route(x.shape[-1], x.dtype), layernorm_rows_ctas_per_sm(sr))
 
 
 def layernorm_quant_colwise(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, norm_eps: float = 1e-6,
@@ -686,10 +756,11 @@ def layernorm_quant_colwise(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *
     what = "layernorm_quant_colwise"
     gf, bf = _gamma(g, x, what), _gamma(b, x, what, "beta")
     dt = int(x.dtype == torch.bfloat16)
-    launch = lambda sc, q, so, am, pt, M, K, rpb, k: _build.library().qt_layernorm_quant_colwise(
+    launch = lambda sc, q, so, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_layernorm_quant_colwise(
         x.data_ptr(), gf.data_ptr(), bf.data_ptr(), sc, q, so, am, pt, M, K, rpb, norm_eps, eps, dt, int(sr), k,
-        _build.stream())
-    return _colwise(what, layernorm_quant_colwise, launch, (x,), scale, eps, sr, key)
+        tpr, ctas, _build.stream())
+    tpr = layernorm_cols_sm90_route(x.shape[-1], x.dtype) if scale is not None else 0  # two passes: the first design
+    return _colwise(what, layernorm_quant_colwise, launch, (x,), scale, eps, sr, key, tpr, LAYERNORM_CTAS_PER_SM)
 
 
 def gelu_quant_rowwise(a: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None,
@@ -699,9 +770,10 @@ def gelu_quant_rowwise(a: torch.Tensor, *, eps: float = EPS, sr: bool = False, k
     if a.device.type == "cpu":
         return gelu_quant_plain(a, eps=eps, sr=sr, key=key, with_col_amax=with_col_amax)
     dt = int(a.dtype == torch.bfloat16)
-    launch = lambda q, s, am, pt, M, K, rpb, k: _build.library().qt_gelu_quant_rowwise(
-        a.data_ptr(), q, s, am, pt, M, K, rpb, eps, dt, int(sr), int(with_col_amax), k, _build.stream())
-    return _rowwise("gelu_quant_rowwise", gelu_quant_rowwise, launch, (a,), sr, key, with_col_amax)
+    launch = lambda q, s, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_gelu_quant_rowwise(
+        a.data_ptr(), q, s, am, pt, M, K, rpb, eps, dt, int(sr), int(with_col_amax), k, tpr, ctas, _build.stream())
+    return _rowwise("gelu_quant_rowwise", gelu_quant_rowwise, launch, (a,), sr, key, with_col_amax,
+                    gelu_rows_sm90_route(a.shape[-1], a.dtype), gelu_ctas_per_sm(a.shape[-1], a.dtype, sr))
 
 
 def gelu_quant_colwise(a: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None,
@@ -711,9 +783,11 @@ def gelu_quant_colwise(a: torch.Tensor, *, eps: float = EPS, sr: bool = False, k
     if a.device.type == "cpu":
         return gelu_quant_plain(a, axis=0, eps=eps, sr=sr, key=key, scale=scale)
     dt = int(a.dtype == torch.bfloat16)
-    launch = lambda sc, q, so, am, pt, M, K, rpb, k: _build.library().qt_gelu_quant_colwise(
-        a.data_ptr(), sc, q, so, am, pt, M, K, rpb, eps, dt, int(sr), k, _build.stream())
-    return _colwise("gelu_quant_colwise", gelu_quant_colwise, launch, (a,), scale, eps, sr, key)
+    launch = lambda sc, q, so, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_gelu_quant_colwise(
+        a.data_ptr(), sc, q, so, am, pt, M, K, rpb, eps, dt, int(sr), k, tpr, ctas, _build.stream())
+    tpr = gelu_cols_sm90_route(a.shape[-1], a.dtype) if scale is not None else 0  # two passes: the first design
+    return _colwise("gelu_quant_colwise", gelu_quant_colwise, launch, (a,), scale, eps, sr, key, tpr,
+                    gelu_ctas_per_sm(a.shape[-1], a.dtype, sr))
 
 
 def layernorm_quant(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *, axis: int = 1, norm_eps: float = 1e-6,
@@ -742,8 +816,7 @@ for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise
             silu_mul_bwd_quant_rowwise, silu_mul_bwd_quant_colwise, layernorm_quant_rowwise,
             layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
     _fn.launches = _fn.sr_launches = 0
-rmsnorm_quant_rowwise.sm90_launches = rmsnorm_quant_rowwise.sr_sm90_launches = 0
-rmsnorm_quant_colwise.sm90_launches = rmsnorm_quant_colwise.sr_sm90_launches = 0
-silu_mul_bwd_quant_rowwise.sm90_launches = silu_mul_bwd_quant_rowwise.sr_sm90_launches = 0
-silu_mul_quant_rowwise.sm90_launches = silu_mul_quant_rowwise.sr_sm90_launches = 0
+for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_bwd_quant_rowwise, silu_mul_quant_rowwise,
+            layernorm_quant_rowwise, layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
+    _fn.sm90_launches = _fn.sr_sm90_launches = 0  # the launches on the row walk
 rmsnorm_bwd.launches = rmsnorm_bwd.sm90_launches = 0

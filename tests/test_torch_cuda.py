@@ -589,6 +589,76 @@ def test_b18_forms(M, K, dtype, sr):
         assert torch.equal(one[0], two[0]) and torch.equal(one[1].reshape(-1), two[1].reshape(-1))
 
 
+# B18's walks: ViT-Giant's shapes and a ragged row count, and LayerNorm at
+# each of its layouts (threads a row x vectors a thread): 32 x 3 (bf16 768),
+# 32 x 4 (1024), 128 x 3 (3072), 128 x 3 (fp32 1536); GELU at one vector a
+# thread (bf16 3072: 384 threads) and at 256 x 2 (4096)
+_B18_WALK = [("layernorm", 6400, 1536, torch.bfloat16), ("layernorm", 1000, 1536, torch.bfloat16),
+             ("layernorm", 512, 768, torch.bfloat16), ("layernorm", 512, 1024, torch.bfloat16),
+             ("layernorm", 512, 3072, torch.bfloat16), ("layernorm", 512, 1536, torch.float32),
+             ("gelu", 6400, 6144, torch.bfloat16), ("gelu", 1000, 6144, torch.bfloat16),
+             ("gelu", 512, 3072, torch.bfloat16), ("gelu", 512, 4096, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("form,M,K,dtype", _B18_WALK)
+def test_b18_walk_gives_the_first_designs_bits(monkeypatch, form, M, K, dtype, sr):
+    """B18's row form (with and without the column absmax) and its column
+    form given the forward's scales, on the row walk (``layernorm_rows`` /
+    ``layernorm_cols``, ``elementwise_rows`` / ``elementwise_cols`` over
+    GELU) and on the first design (each route forced to 0), and their SR
+    forms: every output bit-identical on both routes (LayerNorm's too: the
+    walk keeps both row sums in the first design's order), within the plain
+    versions' bars (GELU bit-exact), each launch counted on the route it
+    took; given the walk's column absmax the one-pass column form equals
+    the two-pass one (the first design) bit for bit."""
+    x, g, b, a = _b18_inputs(M, K, dtype, 130)
+    kw = dict(sr=sr, key=2**61 + 17 if sr else None)
+    t = "_sr" if sr else ""
+    if form == "layernorm":
+        args, kernel, plain = (x, g, b), ops.layernorm_quant, ops.layernorm_quant_plain
+        routes = ("layernorm_rows_sm90_route", "layernorm_cols_sm90_route")
+    else:
+        args, kernel, plain = (a,), ops.gelu_quant, ops.gelu_quant_plain
+        routes = ("gelu_rows_sm90_route", "gelu_cols_sm90_route")
+    assert all(getattr(FP, r)(K, dtype) for r in routes)
+    got = {}
+    for walk in (True, False):
+        with monkeypatch.context() as m:
+            if not walk:
+                for r in routes:
+                    m.setattr(FP, r, lambda K, dtype: 0)
+            for amax in (True, False):
+                ops.reset_launch_counts()
+                got[walk, amax] = kernel(*args, with_col_amax=amax, **kw)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                assert counts[f"{form}_quant_rowwise{t}"] == 1
+                assert counts[f"{form}_quant_rowwise{t}_sm90"] == int(walk)
+            scale = got[True, True][2] * (1.0 / 127.0)
+            ops.reset_launch_counts()
+            got[walk, "col"] = kernel(*args, axis=0, scale=scale, **kw)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            assert counts[f"{form}_quant_colwise{t}"] == 1 and counts[f"{form}_quant_colwise{t}_sm90"] == int(walk)
+    for k in (True, False, "col"):
+        assert all(torch.equal(u, v) for u, v in zip(got[True, k], got[False, k])), k
+    again = kernel(*args, with_col_amax=True, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(again, got[True, True]))
+    ref = plain(*args, with_col_amax=True, **kw)
+    ref_col = plain(*args, axis=0, scale=scale, **kw)
+    if form == "layernorm":
+        _int8_close(got[True, True][0], ref[0], "B18 LayerNorm row q")
+        for u, r in zip(got[True, True][1:], ref[1:]):
+            _rel_close(u, r, 1e-6, "B18 LayerNorm row scale / column absmax")
+        _int8_close(got[True, "col"][0], ref_col[0], "B18 LayerNorm column q")
+    else:
+        assert all(torch.equal(u, r) for u, r in zip(got[True, True], ref))
+        assert all(torch.equal(u, r) for u, r in zip(got[True, "col"], ref_col))
+    two = kernel(*args, axis=0, **kw)
+    assert torch.equal(two[0], got[True, "col"][0])
+
+
 def test_fused_producers_refuse_what_they_cannot_take():
     x, g, a, b = _producer_inputs(64, 256, torch.bfloat16, 40)
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -1063,10 +1133,11 @@ def test_launch_counters_count_kernel_launches_only():
         ops.silu_mul_bwd_quant_colwise(wide, wide, wide, ones, ones, **kw)
         ops.silu_mul_bwd_quant_rowwise_plain(wide, wide, wide, **kw)
         ops.silu_mul_bwd_quant_colwise_plain(wide, wide, wide, ones, ones, **kw)
-        amax = ops.layernorm_quant(y, gamma, gamma, with_col_amax=True, **kw)[2]
-        ops.layernorm_quant(y, gamma, gamma, axis=0, scale=amax * (1.0 / 127.0), **kw)
-        ops.gelu_quant(y, **kw)
-        ops.gelu_quant(y, axis=0, **kw)  # two passes: one launch of the column form
+        # B18's row and given-scales column forms on the row walk: counted there too
+        amax = ops.layernorm_quant(wide, wide_gamma, wide_gamma, with_col_amax=True, **kw)[2]
+        ops.layernorm_quant(wide, wide_gamma, wide_gamma, axis=0, scale=amax * (1.0 / 127.0), **kw)
+        amax = ops.gelu_quant(wide, with_col_amax=True, **kw)[2]
+        ops.gelu_quant(wide, axis=0, scale=amax * (1.0 / 127.0), **kw)
         ops.layernorm_quant_plain(y, gamma, gamma, **kw)
         ops.gelu_quant_plain(y, axis=0, **kw)
     h = y.view(1, 64, 2, 64)
@@ -1103,6 +1174,8 @@ def test_launch_counters_count_kernel_launches_only():
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    ops.gelu_quant(y, axis=0)  # two passes: one launch of the column form, on the first design
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), "gelu_quant_colwise": 1}
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 1, 1), (7, 1000, 33), (200, 300, 136), (64, 64, 64), (130, 2048, 200),

@@ -1,9 +1,11 @@
 """The route B7 (``rmsnorm_quant_rowwise``), B8 given scales
 (``rmsnorm_quant_colwise``), B9's row form (``silu_mul_quant_rowwise``), B10
-(``rmsnorm_bwd``) and B11 (``silu_mul_bwd_quant_rowwise``) take, on the
-CPU: each picks between the persistent row walk of
+(``rmsnorm_bwd``), B11 (``silu_mul_bwd_quant_rowwise``) and B18's row and
+given-scales column forms (``layernorm_quant_*``, ``gelu_quant_*``) take,
+on the CPU: each picks between the persistent row walk of
 ``csrc/fused_producers.cu`` (``rmsnorm_rows``, ``rmsnorm_cols``,
-``silu_rows``, ``rmsnorm_bwd_walk``, ``silu_bwd_rows``) and the first
+``elementwise_rows``, ``rmsnorm_bwd_walk``, ``silu_bwd_rows``,
+``layernorm_rows``, ``layernorm_cols``, ``elementwise_cols``) and the first
 design (``row_quant``, ``col_quant``, ``rmsnorm_bwd_rows``,
 ``silu_bwd_row_quant``) by a pure predicate in ``ops/fused_producers.py``,
 which gives the threads a row (0: the first design) and is passed to the C
@@ -20,6 +22,7 @@ import torch
 
 from quantized_training_tpu_torch import ops
 from quantized_training_tpu_torch.models import llama
+from quantized_training_tpu_torch.models.vit import VIT_GIANT
 from quantized_training_tpu_torch.ops import _build
 
 # One intra-op thread: the suite runs in several worker processes at once,
@@ -296,23 +299,39 @@ def test_b9_walk_scratch(library, monkeypatch):
     assert library.calls[3][1][14:16] == (0, 0)
 
 
-def test_other_row_producers_keep_their_entries(library):
+# (LayerNorm width, GELU width, both routed): a width the walks cannot tile,
+# and ViT-Giant's hidden and MLP widths
+_B18_WIDTHS = [(640, 640, False), (VIT_GIANT.hidden_size, VIT_GIANT.mlp_dim, True)]
+
+
+@pytest.mark.parametrize("K_ln,K_gelu,routed", _B18_WIDTHS)
+def test_other_row_producers_keep_their_entries(library, K_ln, K_gelu, routed):
     """B18's GELU and LayerNorm row forms share the Python launch path of B7
-    and B9 but take no route: their entries take no route arguments and
-    nothing counts a row-walk launch for them; B9's row form at the same
-    width takes its new entry's route arguments and counts there."""
-    a = _meta((8192, 2048))
-    g = _meta((2048,))
+    and B9, and their entries take the route arguments (16 and 19 of them):
+    at a width the walk cannot tile (bf16 K 640) route 0, and nothing counts
+    a row-walk launch for them; at ViT-Giant's widths (LayerNorm 1536, GELU
+    6144) their routes and grids, counted on the walk. B9's row form at
+    K 2048 takes its own entry's route arguments and counts there."""
+    M = 6400
+    a, x, g = _meta((M, K_gelu)), _meta((M, K_ln)), _meta((K_ln,))
     ops.gelu_quant_rowwise(a, with_col_amax=True)
-    ops.layernorm_quant_rowwise(a, g, g, with_col_amax=True)
+    ops.layernorm_quant_rowwise(x, g, g, with_col_amax=True)
     for name, args in library.calls:
         assert len(args) == len(_build._SIGNATURES[name])
     assert [n for n, _ in library.calls] == ["qt_gelu_quant_rowwise", "qt_layernorm_quant_rowwise"]
-    assert len(_build._SIGNATURES["qt_gelu_quant_rowwise"]) == 14
-    assert len(_build._SIGNATURES["qt_layernorm_quant_rowwise"]) == 17
+    assert len(_build._SIGNATURES["qt_gelu_quant_rowwise"]) == 16
+    assert len(_build._SIGNATURES["qt_layernorm_quant_rowwise"]) == 19
+    t_gelu = FP.gelu_rows_sm90_route(K_gelu, torch.bfloat16)
+    t_ln = FP.layernorm_rows_sm90_route(K_ln, torch.bfloat16)
+    assert bool(t_gelu) == bool(t_ln) == routed
+    gelu_per_sm = FP.gelu_ctas_per_sm(K_gelu, torch.bfloat16, False)
+    assert library.calls[0][1][13:] == (t_gelu, FP.row_walk_ctas(M, t_gelu, SMS, gelu_per_sm) if routed else 0, 0)
+    assert library.calls[1][1][16:] == (t_ln, FP.row_walk_ctas(M, t_ln, SMS, 2) if routed else 0, 0)
     counts = ops.launch_counts()
     assert counts["gelu_quant_rowwise"] == counts["layernorm_quant_rowwise"] == 1
-    assert not any(v for k, v in counts.items() if k.endswith("_sm90"))
+    assert counts["gelu_quant_rowwise_sm90"] == counts["layernorm_quant_rowwise_sm90"] == int(routed)
+    assert sum(v for k, v in counts.items() if k.endswith("_sm90")) == 2 * int(routed)
+    a = _meta((8192, 2048))
     ops.silu_mul_quant_rowwise(a, a, with_col_amax=True)
     name, args = library.calls[-1]
     tpr = FP.silu_rows_sm90_route(2048, torch.bfloat16)
@@ -367,24 +386,30 @@ def _walk_order(tpr, v):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kernel", ["B8", "B10"])
+@pytest.mark.parametrize("kernel", ["B8", "B10", "B18-LayerNorm"])
 def test_b8_b10_chains_keep_the_fill_order(kernel, dtype):
-    """For every threads-a-row the B8 and B10 routes return, the walk's
-    chains visit thread u's vectors u, u + 256, ... in NormProducer::fill's
+    """For every layout (threads a row, vectors a thread) the B8, B10 and
+    B18 LayerNorm routes return, the walk's chains visit thread u's vectors
+    u, u + 256, ... in NormProducer::fill's (LayerNormProducer::fill's)
     order, each on the lane and warp of the first design's thread u, and
     the old warps that hold vectors are read in order (the rest hold none):
-    the row sums, and so B8's q and B10's dx, are the first design's bits."""
-    route, v = ((FP.norm_cols_sm90_route, FP.NORM_ROW_VECTORS) if kernel == "B8"
-                else (FP.rmsnorm_bwd_sm90_route, FP.NORM_BWD_VECTORS))
-    tprs = {route(K, dtype) for K in NORM_KS} - {0}
-    assert tprs == {32, 64, 128, 256}
-    for tpr in sorted(tprs):
+    the row sums, and so B8's q, B10's dx and B18's LayerNorm outputs, are
+    the first design's bits. B18's LayerNorm takes three vectors a thread
+    (bf16 K 1536: 64 threads) as well as four."""
+    route = {"B8": FP.norm_cols_sm90_route, "B10": FP.rmsnorm_bwd_sm90_route,
+             "B18-LayerNorm": FP.layernorm_rows_sm90_route}[kernel]
+    layouts = {(route(K, dtype), _vectors(K, dtype) // route(K, dtype)) for K in NORM_KS if route(K, dtype)}
+    vectors = {"B8": {FP.NORM_ROW_VECTORS}, "B10": {FP.NORM_BWD_VECTORS},
+               "B18-LayerNorm": set(FP.LAYERNORM_VECTORS)}[kernel]
+    assert {t for t, _ in layouts} == {32, 64, 128, 256} and {v for _, v in layouts} == vectors
+    for tpr, v in sorted(layouts):
         nv = tpr * v
         assert 256 % tpr == 0 and nv == _vectors(nv * 16 // dtype.itemsize, dtype)
         walk, fill = _walk_order(tpr, v), _fill_order(nv)
-        assert walk == fill, (kernel, tpr)
+        assert walk == fill, (kernel, tpr, v)
         read = min(v, 256 // tpr) * (tpr // 32)  # the old warps chain_totals reads
-        assert all(not any(fill[w]) for w in range(read, 8)), (kernel, tpr)
+        assert all(not any(fill[w]) for w in range(read, 8)), (kernel, tpr, v)
+    assert kernel != "B18-LayerNorm" or dtype != torch.bfloat16 or (64, 3) in layouts
 
 
 @pytest.mark.parametrize("sr", [False, True])
@@ -449,25 +474,39 @@ def test_b10_passes_its_route(library, monkeypatch, M, K, dtype):
     assert sum(counts.values()) == 1 + int(tpr > 0)
 
 
-def test_other_column_producers_keep_their_entries(library):
-    """B9's column form and B18's column forms share B8's Python launch
-    path but take no route: their entries take no route arguments, given
-    scales or in two passes, and nothing counts a row-walk launch for them."""
-    a, g = _meta((8192, 2048)), _meta((2048,))
-    scale = _meta((1, 2048), torch.float32)
-    for kw in (dict(scale=scale), {}):
-        ops.silu_mul_quant_colwise(a, a, **kw)
-        ops.gelu_quant_colwise(a, **kw)
-        ops.layernorm_quant_colwise(a, g, g, **kw)
+@pytest.mark.parametrize("K_ln,K_gelu,routed", _B18_WIDTHS)
+def test_other_column_producers_keep_their_entries(library, K_ln, K_gelu, routed):
+    """B9's column form shares B8's Python launch path but takes no route:
+    its entry takes no route arguments, given scales or in two passes, and
+    nothing counts a row-walk launch for it. B18's column forms take the
+    route arguments (16 and 19 of them): given scales, route 0 at a width
+    the walk cannot tile (bf16 K 640) and their routes and grids at
+    ViT-Giant's widths, counted on the walk; in two passes route 0
+    everywhere, counted on the first design."""
+    M = 6400
+    a, x, g = _meta((M, K_gelu)), _meta((M, K_ln)), _meta((K_ln,))
+    for kw_gelu, kw_ln in ((dict(scale=_meta((1, K_gelu), torch.float32)), dict(scale=_meta((1, K_ln), torch.float32))),
+                           ({}, {})):
+        ops.silu_mul_quant_colwise(a, a, **kw_gelu)
+        ops.gelu_quant_colwise(a, **kw_gelu)
+        ops.layernorm_quant_colwise(x, g, g, **kw_ln)
     for name, args in library.calls:
         assert len(args) == len(_build._SIGNATURES[name])
     assert [n for n, _ in library.calls] == ["qt_silu_mul_quant_colwise", "qt_gelu_quant_colwise",
                                              "qt_layernorm_quant_colwise"] * 2
     assert [len(_build._SIGNATURES[n]) for n in ("qt_silu_mul_quant_colwise", "qt_gelu_quant_colwise",
-                                                 "qt_layernorm_quant_colwise")] == [15, 14, 17]
+                                                 "qt_layernorm_quant_colwise")] == [15, 16, 19]
+    t_gelu = FP.gelu_cols_sm90_route(K_gelu, torch.bfloat16)
+    t_ln = FP.layernorm_cols_sm90_route(K_ln, torch.bfloat16)
+    assert bool(t_gelu) == bool(t_ln) == routed
+    gelu_per_sm = FP.gelu_ctas_per_sm(K_gelu, torch.bfloat16, False)
+    assert library.calls[1][1][13:] == (t_gelu, FP.row_walk_ctas(M, t_gelu, SMS, gelu_per_sm) if routed else 0, 0)
+    assert library.calls[2][1][16:] == (t_ln, FP.row_walk_ctas(M, t_ln, SMS, 2) if routed else 0, 0)
+    assert library.calls[4][1][13:] == library.calls[5][1][16:] == (0, 0, 0)
     counts = ops.launch_counts()
     assert counts["silu_mul_quant_colwise"] == counts["gelu_quant_colwise"] == counts["layernorm_quant_colwise"] == 2
-    assert not any(v for k, v in counts.items() if k.endswith("_sm90"))
+    assert counts["gelu_quant_colwise_sm90"] == counts["layernorm_quant_colwise_sm90"] == int(routed)
+    assert sum(v for k, v in counts.items() if k.endswith("_sm90")) == 2 * int(routed)
 
 
 def test_b8_b10_constants_match_the_kernels():
@@ -479,3 +518,197 @@ def test_b8_b10_constants_match_the_kernels():
     assert f"constexpr int kNormBwdV = {FP.NORM_BWD_VECTORS};" in src
     for kernel in ("rmsnorm_cols(", "rmsnorm_bwd_walk("):
         assert f"__launch_bounds__(kThreads, {FP.NORM_CTAS_PER_SM})\n{kernel}" in src
+
+
+# ---- B18: the ViT's LayerNorm and GELU quantizes on the row walk ---------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+_G = VIT_GIANT  # hidden 1536, MLP 6144
+
+
+@pytest.mark.parametrize("which", ["rows", "cols"])
+@pytest.mark.parametrize("K,dtype,tpr", [(_G.hidden_size, BF16, 64), (768, BF16, 32), (1024, BF16, 32),
+                                         (3072, BF16, 128), (6144, BF16, 256), (8192, BF16, 256),
+                                         (_G.hidden_size, F32, 128), (768, F32, 64), (640, BF16, 0),
+                                         (1280, BF16, 0), (384, BF16, 0), (16384, BF16, 0)])
+def test_b18_layernorm_route(which, K, dtype, tpr):
+    """B18's LayerNorm rows and given-scales columns at ViT-Giant's hidden
+    width (1536, bf16) take the row walk at 64 threads a row (three vectors
+    each); ViT-Base's 768 at 32 (three), ViT-Large's 1024 at 32 (four);
+    widths whose vectors are not 32, 64, 128 or 256 times three or four
+    (ViT-Huge's 1280, ViT-Small's 384, 640) keep the first design. Both
+    forms take the same layouts."""
+    route = {"rows": FP.layernorm_rows_sm90_route, "cols": FP.layernorm_cols_sm90_route}[which]
+    assert route(K, dtype) == tpr
+
+
+@pytest.mark.parametrize("which", ["rows", "cols"])
+@pytest.mark.parametrize("K,dtype,tpr", [(_G.mlp_dim, BF16, 384), (4096, BF16, 256), (3072, BF16, 384),
+                                         (5120, BF16, 320), (_G.hidden_size, F32, 384), (2048, F32, 256),
+                                         (_G.mlp_dim, F32, 0), (_G.hidden_size, BF16, 0), (640, BF16, 0),
+                                         (8192, BF16, 0)])
+def test_b18_gelu_route(which, K, dtype, tpr):
+    """B18's GELU rows and given-scales columns take B9-row's layouts: at
+    ViT-Giant's MLP width (6144, bf16) 384 threads a row, two vectors each;
+    ViT-Large's 4096 at 256 (two), ViT-Huge's 5120 at 320 (two), ViT-Base's
+    3072 at 384 (one); widths the walk cannot tile with whole warps in one
+    block (fp32 6144, bf16 1536, 640, 8192) keep the first design."""
+    route = {"rows": FP.gelu_rows_sm90_route, "cols": FP.gelu_cols_sm90_route}[which]
+    assert route(K, dtype) == tpr
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b18_layernorm_geometry_leaves_no_lane_idle(dtype):
+    """At every K the LayerNorm route takes: whole warps a row, groups that
+    fill the block of 256 and divide it (what keeps both row sums in the
+    first design's order), the first of ``LAYERNORM_VECTORS`` vectors a
+    thread that covers the row exactly; the path's width is among them."""
+    taken = []
+    for K in NORM_KS:
+        tpr = FP.layernorm_rows_sm90_route(K, dtype)
+        fits = [v for v in FP.LAYERNORM_VECTORS if _vectors(K, dtype) % v == 0
+                and _vectors(K, dtype) // v in (32, 64, 128, 256)]
+        assert tpr == (_vectors(K, dtype) // fits[0] if fits else 0), K
+        if tpr:
+            assert tpr % 32 == 0 and 256 % tpr == 0 and _vectors(K, dtype) // tpr in FP.LAYERNORM_VECTORS, (K, tpr)
+            taken.append(K)
+    assert taken and (dtype != torch.bfloat16 or _G.hidden_size in taken)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b18_gelu_geometry_leaves_no_lane_idle(dtype):
+    """At every K the GELU route takes: B9-row's layouts (whole warps a
+    row, one or two vectors a thread covering the row exactly, a block of
+    max(tpr, 256) threads made of whole groups within the kernel's largest),
+    at ``gelu_ctas_per_sm`` CTAs an SM (two for the RN form at two vectors a
+    thread, else one); the path's width is among them."""
+    taken = []
+    for K in NORM_KS:
+        tpr = FP.gelu_rows_sm90_route(K, dtype)
+        assert tpr == FP.gelu_cols_sm90_route(K, dtype) == FP.silu_rows_sm90_route(K, dtype)
+        if tpr:
+            v, cta = _vectors(K, dtype) // tpr, max(tpr, 256)
+            assert v * tpr == _vectors(K, dtype) and cta % tpr == 0 and cta <= FP._SILU_ROWS_MAX_CTA[v], (K, tpr)
+            for sr in (False, True):
+                per_sm = FP.gelu_ctas_per_sm(K, dtype, sr)
+                assert per_sm == (FP.SILU_ROWS_CTAS_PER_SM if v == 2 and not sr else 1) and cta * per_sm <= 2048
+            taken.append(K)
+    assert taken and (dtype != torch.bfloat16 or _G.mlp_dim in taken)
+
+
+def _b18_inputs(form, M, K, dtype):
+    if form == "layernorm":
+        return (_meta((M, K), dtype), _meta((K,), dtype), _meta((K,), dtype))
+    return (_meta((M, K), dtype),)
+
+
+# (M, K, dtype): ViT-Giant's padded token rows, a ragged row count, an fp32
+# width the walk takes, and a width it cannot tile
+_B18_SHAPES = {"layernorm": [(6400, _G.hidden_size, BF16), (1000, _G.hidden_size, BF16), (256, 1536, F32),
+                             (96, 640, BF16)],
+               "gelu": [(6400, _G.mlp_dim, BF16), (1000, _G.mlp_dim, BF16), (256, 2048, F32), (96, 640, BF16)]}
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("amax", [False, True])
+@pytest.mark.parametrize("form,M,K,dtype", [(f, *s) for f, shapes in _B18_SHAPES.items() for s in shapes])
+def test_b18_rows_pass_their_route(library, monkeypatch, form, M, K, dtype, amax, sr):
+    """B18's row wrappers pass their route (``layernorm_rows_sm90_route``,
+    ``gelu_rows_sm90_route``) and the walk's grid (LayerNorm two CTAs an
+    SM, its SR form one; GELU ``gelu_ctas_per_sm``) as the two arguments before the stream,
+    one argument per ``_SIGNATURES`` entry, their rows a block for the first
+    design, the column maxima' scratch one row a CTA on the walk, and count
+    the launch per form and, on the row walk, again; with and without the
+    column absmax, in RN and SR."""
+    shapes = []
+    real = FP._route_parts
+
+    def recording(*a):
+        ctas, parts = real(*a)
+        shapes.append(tuple(parts.shape))
+        return ctas, parts
+    monkeypatch.setattr(FP, "_route_parts", recording)
+    key = 23 if sr else None
+    fn = {"layernorm": ops.layernorm_quant_rowwise, "gelu": ops.gelu_quant_rowwise}[form]
+    out = fn(*_b18_inputs(form, M, K, dtype), sr=sr, key=key, with_col_amax=amax)
+    (name, args), = library.calls
+    if form == "layernorm":
+        tpr, per_sm = FP.layernorm_rows_sm90_route(K, dtype), 1 if sr else FP.LAYERNORM_CTAS_PER_SM
+        assert name == "qt_layernorm_quant_rowwise" and len(args) == len(_build._SIGNATURES[name]) == 19
+        assert args[7:12] == (M, K, FP._rows_per_block(M), 1e-6, FP.EPS)
+        assert args[12:16] == (int(dtype == BF16), int(sr), int(amax), key or 0)
+    else:
+        tpr, per_sm = FP.gelu_rows_sm90_route(K, dtype), FP.gelu_ctas_per_sm(K, dtype, sr)
+        assert name == "qt_gelu_quant_rowwise" and len(args) == len(_build._SIGNATURES[name]) == 16
+        assert args[5:13] == (M, K, FP._rows_per_block(M), FP.EPS, int(dtype == BF16), int(sr), int(amax), key or 0)
+    ctas = FP.row_walk_ctas(M, tpr, SMS, per_sm) if tpr else 0
+    assert args[-3:] == (tpr, ctas, 0) and bool(tpr) == (K != 640)
+    assert shapes == [((ctas if tpr else -(-M // FP._rows_per_block(M))), K) if amax else (0,)]
+    assert [t.shape for t in out] == [(M, K), (M, 1), (1, K)][:3 if amax else 2]
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"{form}_quant_rowwise{t}"] == 1 and counts[f"{form}_quant_rowwise{t}_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("form,M,K,dtype", [(f, *s) for f, shapes in _B18_SHAPES.items() for s in shapes])
+def test_b18_cols_pass_their_route(library, form, M, K, dtype, sr):
+    """B18's column wrappers given scales pass their route
+    (``layernorm_cols_sm90_route``, ``gelu_cols_sm90_route``) and the walk's
+    grid as the two arguments before the stream, no scratch, and count the
+    launch per form and, on the row walk, again; in two passes they pass
+    route 0 and count no walk launch."""
+    key = 31 if sr else None
+    fn = {"layernorm": ops.layernorm_quant_colwise, "gelu": ops.gelu_quant_colwise}[form]
+    inputs = _b18_inputs(form, M, K, dtype)
+    q, s = fn(*inputs, sr=sr, key=key, scale=_meta((1, K), torch.float32))
+    (name, args), = library.calls
+    n_args, so = {"layernorm": (19, 5), "gelu": (16, 3)}[form]
+    assert name == f"qt_{form}_quant_colwise" and len(args) == len(_build._SIGNATURES[name]) == n_args
+    assert args[so:so + 3] == (None, None, None)  # s_out, amax, parts: nothing allocated
+    if form == "layernorm":
+        tpr, per_sm = FP.layernorm_cols_sm90_route(K, dtype), FP.LAYERNORM_CTAS_PER_SM
+        assert args[8:16] == (M, K, FP._rows_per_block(M), 1e-6, FP.EPS, int(dtype == BF16), int(sr), key or 0)
+    else:
+        tpr, per_sm = FP.gelu_cols_sm90_route(K, dtype), FP.gelu_ctas_per_sm(K, dtype, sr)
+        assert args[6:13] == (M, K, FP._rows_per_block(M), FP.EPS, int(dtype == BF16), int(sr), key or 0)
+    assert args[-3:] == (tpr, FP.row_walk_ctas(M, tpr, SMS, per_sm) if tpr else 0, 0) and bool(tpr) == (K != 640)
+    assert q.shape == (M, K) and s.shape == (1, K)
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"{form}_quant_colwise{t}"] == 1 and counts[f"{form}_quant_colwise{t}_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+    ops.reset_launch_counts()
+    fn(*inputs, sr=sr, key=key)
+    name, args = library.calls[-1]
+    assert args[-3:] == (0, 0, 0) and args[so + 2] is not None  # two passes: the first design, with its scratch
+    counts = ops.launch_counts()
+    assert counts[f"{form}_quant_colwise{t}"] == 1 and sum(counts.values()) == 1
+
+
+def test_b18_constants_match_the_kernels():
+    """The vectors a thread the LayerNorm route tries, in its order, are the
+    kernel's (``csrc/fused_producers.cu::kLayerNormVs``), and the CTAs an SM
+    by which the wrappers size the grids are those the launch bounds keep:
+    LayerNorm's ``kLayerNormCtasPerSm`` for both forms, its SR row form one
+    (``layernorm_rows_ctas``); GELU's forms are
+    B9-row's walk over one input (``elementwise_rows``, ``elementwise_cols``
+    with ``silu_rows_ctas``: two CTAs an SM for the RN form at two vectors a
+    thread, else one)."""
+    src = (_build.CSRC / "fused_producers.cu").read_text()
+    assert f"constexpr int kLayerNormVs[] = {{{', '.join(map(str, FP.LAYERNORM_VECTORS))}}};" in src
+    assert f"constexpr int kLayerNormCtasPerSm = {FP.LAYERNORM_CTAS_PER_SM};" in src
+    assert "__launch_bounds__(kThreads, kLayerNormCtasPerSm)\nlayernorm_cols(" in src
+    assert "__launch_bounds__(kThreads, layernorm_rows_ctas<SR>())\nlayernorm_rows(" in src
+    assert "constexpr int layernorm_rows_ctas() { return SR ? 1 : kLayerNormCtasPerSm; }" in src
+    assert FP.layernorm_rows_ctas_per_sm(False) == FP.LAYERNORM_CTAS_PER_SM == 2
+    assert FP.layernorm_rows_ctas_per_sm(True) == 1
+    bounds = "__launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())\n"
+    for kernel in ("elementwise_rows(", "elementwise_cols("):
+        assert bounds + kernel in src
+    assert "launch_elementwise_rows<GeluOp, " in src and "launch_elementwise_cols<GeluOp, " in src
+    assert "launch_elementwise_rows<SiluMulOp, " in src
+    assert FP.gelu_ctas_per_sm(_G.mlp_dim, BF16, False) == FP.SILU_ROWS_CTAS_PER_SM == 2
+    assert FP.gelu_ctas_per_sm(_G.mlp_dim, BF16, True) == 1
+    assert FP.gelu_ctas_per_sm(3072, BF16, False) == 1  # one vector a thread
