@@ -16,8 +16,13 @@ the silu backward inside the row quantizes of (da, db) with their column
 absmax) and B18's eight forms (``B18lnr``, ``B18lnrsr``: LayerNorm inside
 the row quantize with the column absmax; ``B18lnc``, ``B18lncsr``:
 LayerNorm inside the column quantize given the column scales; ``B18gr``,
-``B18grsr``, ``B18gc``, ``B18gcsr``: tanh-GELU, the same two), against an
-earlier tree's.
+``B18grsr``, ``B18gc``, ``B18gcsr``: tanh-GELU, the same two), and B14 of ``ops/csrc/rope.cu`` on
+the persistent row walk (``B14a``: the absmax of the grouped attention
+output's ungrouped view, rows and columns; ``B14r``, ``B14rsr``, ``B14c``,
+``B14csr``: its int8 quantize given the row or the column scales, RN and SR;
+each in the step's [B, S, H, hd] memory and in [B, H, S, hd] memory)
+beside B13 (``B13``: q's rotate-half RoPE and head grouping, which shares
+its source), against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -28,8 +33,8 @@ is held against the plain versions at a ragged shape and at gate/up's
 (B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7, B8 and
 B18's LayerNorm forms against this tree's first design (``kept/first``),
 whose bits the walk keeps, B10's dx too and its dgamma within 2e-5 of its
-largest magnitude, B4, B9, B11 and B18's GELU forms against their plain
-versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+largest magnitude, B4, B9, B11, B13, B14 and B18's GELU forms against
+their plain versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
@@ -37,15 +42,15 @@ timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
 for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
-B4, B5, B7-B11, B18) and the share of the bound (the 8-bit tensor cores'
+B4, B5, B7-B14, B18) and the share of the bound (the 8-bit tensor cores'
 1,979 TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4
-one read and one write, for B7-B11 and B18 their inputs read and outputs
-written once). ``kept/first`` is this tree's B4, B7-B11 and B18 on their first design
+one read and one write, for B7-B14 and B18 their inputs read and outputs
+written once). ``kept/first`` is this tree's B4, B7-B11, B14 and B18 on their first design
 (route 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
-``parent/kernel`` its B5, and ``parent/walk``, ``parent/cluster`` its B4,
-B7-B11 and B18, whatever design they take there; K2, which no variant changes, is timed on this
+``parent/kernel`` its B5 and B13, and ``parent/walk``, ``parent/cluster`` its B4,
+B7-B11, B14 and B18, whatever design they take there; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
@@ -69,6 +74,7 @@ from quantized_training_tpu_torch import ops
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops import fused_producers as FP
 from quantized_training_tpu_torch.ops import int8_quant as IQ
+from quantized_training_tpu_torch.ops import rope as ROPE
 from quantized_training_tpu_torch.ops.int8_quant import EPS
 from quantized_training_tpu_torch.ops.tile_scaled_mm import fold_bound
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
@@ -322,6 +328,8 @@ _ELEMENTWISE_V3 = [
      "V == 1 ? elementwise_cols<Op, T, SR, 1> : V == 3 ? elementwise_cols<Op, T, SR, 3> : elementwise_cols<Op, T, SR, 2>;"),
     *(("fused_producers.cu", f"kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())\n{k}(",
        f"V == 3 ? kThreads : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())\n{k}(") for k in ("elementwise_rows", "elementwise_cols"))]
+# B14 at three CTAs an SM (its launch bounds and grid)
+_B14_THREE_CTA = ("rope.cu", "constexpr int kUngroupCtasPerSm = 2;", "constexpr int kUngroupCtasPerSm = 3;")
 # (old text, new text) edits of sm90_gemm.cuh, or (file, old text, new text)
 # of another source, each of which must match once; "fold_wait" replaces
 # the fold loop from _FOLD_KEPT_START to the end of its branch
@@ -446,6 +454,21 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     "gelu_reg_max": _B9_REG_MAX,
     "gelu_v3_reg_max": _ELEMENTWISE_V3 + _B9_REG_MAX,
     "diag_gelu_no_amax": [],
+    # B14's walks at 128 threads of two vectors and 256 of one a row (bf16
+    # K 2048) in place of 64 of four; at one CTA an SM, and at three (its
+    # launch bounds' register cap 85)
+    "b14_v2": [],
+    "b14_v1": [],
+    "b14_one_cta": [],
+    "b14_three_cta": [_B14_THREE_CTA],
+    # B14's column form computing its inverse scales before the walk's
+    # first loads, not after them
+    "b14_cols_eager": [("rope.cu", "inv[p][j] = scale[walk.vec(p) * N + j];",
+                        "inv[p][j] = inv_scale(scale[walk.vec(p) * N + j], eps);"),
+                       ("rope.cu", "  bool inverted = false;", "  bool inverted = true;")],
+    # B14's absmax without the fold of the CTAs' column maxima (reduce_parts)
+    "diag_b14_no_fold": [("rope.cu", "    return launch_reduce(true, pt, static_cast<float*>(cmax), ctas, K, stream);\n  });",
+                          "    return cudaSuccess;\n  });")],
     # B4's cluster form at each strip width (16, 8, 4 vectors) at every
     # shape; its loads and the cluster's merge without the cast
     **{f"b4_{sv}": [] for sv in (16, 8, 4)},
@@ -466,8 +489,10 @@ B16_SHAPES = [(8192, 5632, 2048), (8192, 2048, 5632), (5632, 2048, 8192), (2048,
 K2_SHAPES = [(8192, 5632, 2048), (8192, 2048, 2048)]
 
 
-# launch arguments of B4, B7, B9 and B11 by variant (KERNELS' keyword
-# arguments)
+# B14's five forms: the absmax, the quantize given row or column scales, RN and SR
+B14 = ("B14a", "B14r", "B14rsr", "B14c", "B14csr")
+# launch arguments of B4, B7, B9, B11, B18 and B14 by variant (KERNELS'
+# keyword arguments)
 ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32, "ctas_per_sm": 1}},
               "b7_v2": {"B7": {"tpr": 128}, "B7sr": {"tpr": 128}},
               "b7_one_cta": {"B7": {"ctas_per_sm": 1}, "B7sr": {"ctas_per_sm": 1}},
@@ -484,7 +509,10 @@ ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32,
               "gelu_one_cta": {k: {"ctas_per_sm": 1} for k in ("B18gr", "B18grsr", "B18gc", "B18gcsr")},
               "gelu_v3_reg_max": {k: {"tpr": 256} for k in ("B18gr", "B18grsr", "B18gc", "B18gcsr")},
               "diag_gelu_no_amax": {k: {"amax": 0} for k in ("B18gr", "B18grsr")},
-              **{f"b4_{sv}": {k: {"geometry": (sv, 8)} for k in ("B4", "B4sr")} for sv in (16, 8, 4)}}
+              **{f"b4_{sv}": {k: {"geometry": (sv, 8)} for k in ("B4", "B4sr")} for sv in (16, 8, 4)},
+              "b14_v2": {k: {"tpr": 128} for k in B14}, "b14_v1": {k: {"tpr": 256} for k in B14},
+              "b14_one_cta": {k: {"ctas_per_sm": 1} for k in B14},
+              "b14_three_cta": {k: {"ctas_per_sm": 3} for k in B14}}
 
 
 def sources(name: str, edits, parent: Path | None) -> Path:
@@ -515,13 +543,14 @@ SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16
           "B11": "fused_producers.cu", "B11sr": "fused_producers.cu", "B8": "fused_producers.cu",
           "B8sr": "fused_producers.cu", "B10": "fused_producers.cu",
           **{k: "fused_producers.cu" for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc",
-                                                "B18gcsr")}}
+                                                "B18gcsr")}, **dict.fromkeys(("B13", "B14a", "B14r", "B14rsr", "B14c", "B14csr"), "rope.cu")}
 ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
            "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise"),
            "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
                                   "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd",
                                   "qt_layernorm_quant_rowwise", "qt_layernorm_quant_colwise", "qt_gelu_quant_rowwise",
-                                  "qt_gelu_quant_colwise")}
+                                  "qt_gelu_quant_colwise"),
+           "rope.cu": ("qt_rope_relayout", "qt_ungroup_amax", "qt_ungroup_quant")}
 
 
 def build(variants: dict, parent: Path | None, kernels) -> dict:
@@ -832,6 +861,49 @@ def b18_gelu(lib, sigs, sr, tpr=None, ctas_per_sm=None, cols=False, amax=1):
     return call
 
 
+def b14(lib, sigs, sr, tpr=None, ctas_per_sm=ROPE.UNGROUP_CTAS_PER_SM, axis=None):
+    """B14 of ``lib`` on the grouped attention output y [B, KV, G, S, hd]
+    bf16: its absmax -> (row maxima [B, S, 1], column maxima [1, K]) (axis
+    None), or its int8 quantize given the row scales [B, S, 1] (axis 1) or
+    the column scales [1, K] (axis 0) -> (q,), ``sr`` = 1 its SR form from
+    ``ROWS_KEY``; on the walk at ``tpr`` threads a row (default: the route's;
+    0 the first design) and ``ctas_per_sm`` CTAs an SM."""
+    fn = "qt_ungroup_amax" if axis is None else "qt_ungroup_quant"
+
+    def call(y, *scale):
+        B, KV, G, S, hd = y.shape
+        M, K = B * S, KV * G * hd
+        t = ROPE.ungroup_sm90_route(K, hd, y.dtype) if tpr is None else tpr
+        route, rows = _route(sigs, fn, t, M, ctas_per_sm)
+        head = (*ROPE._grouped_strides(y, "B14"), B, S, KV * G, hd)
+        if axis is None:
+            row = torch.empty(B, S, 1, dtype=torch.float32, device="cuda")
+            col = torch.empty(1, K, dtype=torch.float32, device="cuda")
+            parts = torch.empty(rows, K, dtype=torch.float32, device="cuda")
+            _build.check(lib.qt_ungroup_amax(y.data_ptr(), *head, row.data_ptr(), col.data_ptr(), parts.data_ptr(),
+                                             FP._rows_per_block(M), 1, *route, _build.stream()), "B14 absmax")
+            return row, col
+        q = torch.empty(B, S, K, dtype=torch.int8, device="cuda")
+        _build.check(lib.qt_ungroup_quant(y.data_ptr(), *head, scale[0].data_ptr(), q.data_ptr(), FP._rows_per_block(M),
+                                          axis, FP.EPS, 1, sr, ROWS_KEY if sr else 0, *route, _build.stream()),
+                     "B14 quantize")
+        return (q,)
+    return call
+
+
+def b13(lib, sigs, _):
+    """B13 of ``lib``: x [B, S, H, hd] bf16 with rotate-half RoPE from fp32
+    tables [S, hd] -> [B, S, H, hd] (mode 1, the grouping of q)."""
+    def call(x, cos, sin):
+        B, S, H, hd = x.shape
+        out = torch.empty_like(x)
+        _build.check(lib.qt_rope_relayout(x.data_ptr(), *x.stride()[:3], out.data_ptr(), *out.stride()[:3],
+                                          cos.data_ptr(), sin.data_ptr(), cos.stride(0), B, S, H, hd, 1, 1,
+                                          _build.stream()), "B13")
+        return out
+    return call
+
+
 def b16(lib, sigs, sm90):
     """B16 on ``lib``'s route ``sm90`` (an entry without the argument has
     the wmma kernel only): a [M, K / 2], b [N, K / 2] packed -> bf16."""
@@ -871,7 +943,7 @@ def main() -> None:
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
         entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
-                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18)
+                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18, *B14)
                     if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
@@ -928,6 +1000,23 @@ def main() -> None:
             if kernel.startswith("B18gc"):
                 return a, ops.gelu_quant_plain(a, with_col_amax=True)[2] * (1.0 / 127.0)
             return (a,)
+        if kernel == "B13":  # (M, K): q [M / 2048, 2048, K / 64, 64] and its tables
+            x = torch.randn(M // 2048, 2048, N // 64, 64, generator=gen, device="cuda").bfloat16()
+            pos = torch.arange(2048, device="cuda", dtype=torch.float32)[:, None]
+            angle = pos * 10000.0 ** (-torch.arange(0, 64, 2, device="cuda") / 64.0)
+            angle = torch.cat([angle, angle], dim=-1)
+            return x, angle.cos() * 0.125, angle.sin() * 0.125
+        if kernel in B14:  # (M, K, memory): the grouped attention output, 64-wide heads, 4 KV heads, an all-zero row
+            B = 4 if M % 8192 == 0 else 2
+            x = torch.randn(B, M // B, N // 64, 64, generator=gen, device="cuda").bfloat16()
+            x[0, 1] = 0
+            G = N // 64 // 4
+            y = (x.view(B, M // B, 4, G, 64).permute(0, 2, 3, 1, 4) if K == "bshd"
+                 else x.permute(0, 2, 1, 3).contiguous().view(B, 4, G, M // B, 64))
+            if kernel == "B14a":
+                return (y,)
+            row, col = ops.ungroup_amax_plain(y)
+            return y, (row if kernel.startswith("B14r") else col) * (1.0 / 127.0)
         if kernel in ("B11", "B11sr"):  # (M, K): gate, up, and dact with an all-zero column
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
@@ -955,7 +1044,11 @@ def main() -> None:
              "B18gr": lambda a: ops.gelu_quant_plain(a, with_col_amax=True),
              "B18grsr": lambda a: ops.gelu_quant_plain(a, with_col_amax=True, sr=True, key=ROWS_KEY),
              "B18gc": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s)[:1],
-             "B18gcsr": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s, sr=True, key=ROWS_KEY)[:1]}
+             "B18gcsr": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s, sr=True, key=ROWS_KEY)[:1],
+             "B14a": ops.ungroup_amax_plain,
+             "B13": lambda x, c, s: ROPE.rope_ungroup_ref(ROPE.rope_group_ref(x, c, s, 1), None, None),
+             **{k: partial(lambda y, s, axis, sr: (ops.ungroup_quant_plain(y, s, axis=axis, sr=sr, key=ROWS_KEY),),
+                           axis=int(k.startswith("B14r")), sr=k.endswith("sr")) for k in B14[1:]}}
     if "kept" in libs:  # B7, B8, B18's LayerNorm and B10's dx keep their first designs' bits
         plain.update({k: KERNELS[k](*libs["kept"], QUANT[k], tpr=0)
                       for k in ("B7", "B7sr", "B8", "B8sr", "B10", "B18lnr", "B18lnrsr", "B18lnc", "B18lncsr")})
@@ -971,7 +1064,9 @@ def main() -> None:
                           *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"])),
                           *((k, s) for k in ("B9", "B9sr") for s in ((1000, 5632), *ROW_SHAPES["B9"])),
                           *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES)),
-                          *((k, s) for k in B18 for s in ((1000, SHAPES[k][0][1]), *SHAPES[k]))):
+                          *((k, s) for k in B18 for s in ((1000, SHAPES[k][0][1]), *SHAPES[k])),
+                          *((k, s) for k in B14 for s in ((1000, 2048, "bshd"), (1000, 2048, "bhsd"), *SHAPES[k])),
+                          ("B13", (8192, 2048))):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -1011,11 +1106,12 @@ def main() -> None:
                     times.setdefault((label, kernel, shape), []).append(time_ms(call, inputs, iters=8) * 1e3)
     for kernel, shape in rows:
         if kernel in ROW_BYTES:  # the inputs read once, the outputs written once
-            M, K = shape
+            M, K = shape[:2]
             bound_us = ROW_BYTES[kernel](M, K) / HBM_BYTES_PER_S * 1e6
             cells = [f"{label} {sum(t) / len(t):.1f} {[round(v, 1) for v in t]} ({bound_us * len(t) / sum(t):.3f})"
                      for (label, k, s), t in times.items() if k == kernel and s == shape]
-            print(f"{kernel} M={M} K={K}: bound {bound_us:.1f} us (bytes); " + "; ".join(cells), flush=True)
+            memory = f" {shape[2]} memory" if len(shape) == 3 else ""
+            print(f"{kernel} M={M} K={K}{memory}: bound {bound_us:.1f} us (bytes); " + "; ".join(cells), flush=True)
             continue
         M, N, K = shape
         a, b, *_ = operands(kernel, M, N, K)
@@ -1046,16 +1142,17 @@ KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "
            "B4": b4, "B4sr": b4, "B18lnr": b18_layernorm, "B18lnrsr": b18_layernorm,
            "B18lnc": partial(b18_layernorm, cols=True), "B18lncsr": partial(b18_layernorm, cols=True),
            "B18gr": b18_gelu, "B18grsr": b18_gelu, "B18gc": partial(b18_gelu, cols=True),
-           "B18gcsr": partial(b18_gelu, cols=True)}
+           "B18gcsr": partial(b18_gelu, cols=True), "B13": b13, "B14a": b14, "B14r": partial(b14, axis=1),
+           "B14rsr": partial(b14, axis=1), "B14c": partial(b14, axis=0), "B14csr": partial(b14, axis=0)}
 # B18's eight forms: LayerNorm and GELU, rows (with the column absmax) and
 # columns given scales, RN and SR
 B18 = ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc", "B18gcsr")
 # the argument each kernel's entry takes in place of the route: the SR flag
 QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B8": 0, "B8sr": 1, "B10": 0, "B11": 0, "B11sr": 1, "B9": 0,
-         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in B18}}
+         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14)}}
 ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B8": "walk", "B8sr": "walk", "B10": "walk",
          "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster",
-         **dict.fromkeys(B18, "walk")}
+         "B13": "kernel", **dict.fromkeys((*B18, *B14), "walk")}
 # the keyword argument that forces a kernel's first design (``kept/first``)
 FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}}
 def _b18_bytes(kernel):
@@ -1072,7 +1169,9 @@ def _b18_bytes(kernel):
 # and column absmax written; B11 (a, b, dy) read, two int8, two fp32 row
 # scales and two column absmax written; B8 x, the bf16 gamma and the fp32
 # column scales read, q written; B10 x, dy and the bf16 gamma read, dx and
-# the fp32 dgamma written
+# the fp32 dgamma written; B14 y read, and the fp32 row and column maxima
+# (absmax) or q written and the fp32 row or column scales read; B13 x read,
+# the rotated x written and the two fp32 tables read
 ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 * M * K + 2 * (M + K),
              "B7": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K, "B7sr": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K,
              "B11": lambda M, K: 8 * M * K + 8 * M + 8 * K, "B11sr": lambda M, K: 8 * M * K + 8 * M + 8 * K,
@@ -1080,7 +1179,11 @@ ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 
              "B8": lambda M, K: 3 * M * K + 2 * K + 4 * K, "B8sr": lambda M, K: 3 * M * K + 2 * K + 4 * K,
              "B10": lambda M, K: 6 * M * K + 2 * K + 4 * K,
              "B4": lambda M, K: 3 * M * K + 2 * K, "B4sr": lambda M, K: 3 * M * K + 2 * K,
-             **{k: _b18_bytes(k) for k in B18}}
+             **{k: _b18_bytes(k) for k in B18},
+             "B13": lambda M, K: 4 * M * K + 2 * 2048 * 64 * 4,
+             "B14a": lambda M, K: 2 * M * K + 4 * M + 4 * K, "B14r": lambda M, K: 3 * M * K + 4 * M,
+             "B14rsr": lambda M, K: 3 * M * K + 4 * M, "B14c": lambda M, K: 3 * M * K + 4 * K,
+             "B14csr": lambda M, K: 3 * M * K + 4 * K}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
 # chip_smoke.py (forward, grad_input, grad_weight of gate/up and down); B17's
@@ -1104,7 +1207,8 @@ SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (819
           "B7": ROW_SHAPES["B7"], "B7sr": ROW_SHAPES["B7"], "B11": ROW_SHAPES["B11"], "B11sr": ROW_SHAPES["B11"],
           "B9": ROW_SHAPES["B9"], "B9sr": ROW_SHAPES["B9"], "B4": B4_SHAPES, "B4sr": B4_SHAPES,
           "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"],
-          **{k: [(6400, 1536 if k.startswith("B18ln") else 6144)] for k in B18}}
+          **{k: [(6400, 1536 if k.startswith("B18ln") else 6144)] for k in B18},
+          **{k: [(8192, 2048, "bshd"), (8192, 2048, "bhsd")] for k in B14}, "B13": [(8192, 2048)]}
 
 
 if __name__ == "__main__":

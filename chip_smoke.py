@@ -29,7 +29,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    run; B10 beside ``aten._fused_rms_norm_backward``, which reads the rstd
    B10 recomputes: a reference, not the same function), B13 on q, k and v of
    bench.py's micro-batch [4, 2048] and
-   B14 on its attention output, with their SR forms (all bit-exact); B16
+   B14 on its attention output, with their SR forms (all bit-exact; B14's
+   absmax, rows and columns, RN and SR, timed in [B, S, H, hd] and [B, H,
+   S, hd] memory, and at the step's layout checked to launch on the row
+   walk and timed on its first design in the same call); B16
    (int4) and B15 (tile-scaled, e4m3 within its stated bound and int8
    bit-exact) at the forward, grad_input and grad_weight shapes of gate/up
    and down, beside ``torch._int_mm`` / ``torch._scaled_mm``; B18's
@@ -64,7 +67,7 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
    of times the code implies (every K2, B1 and B2 launch on the sm90 route,
-   here and in phases 8, 9 and 11, every B7, B8, B9-row, B10 and B11
+   here and in phases 8, 9 and 11, every B7, B8, B9-row, B10, B11 and B14
    launch on the row walk and every B4 launch on its cluster form, here and
    in phases 8 and 9, and B4's in phase 11), and the same steps in bf16
    start from the
@@ -119,9 +122,10 @@ on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists; for B7, B8, B9-row, B10, B11 and B18 also their launches on the row walk and
+exists; for B7, B8, B9-row, B10, B11, B14 and B18 also their launches on the row walk and
 for B4 those on its cluster form (``sm90_launches``), and their first
-design's time, ``first_design_ms``),
+design's time, ``first_design_ms``; for B14 every timed form and
+layout, ``forms``),
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py [--seed N]
@@ -158,6 +162,7 @@ MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
 IQ = importlib.import_module("quantized_training_tpu_torch.ops.int8_quant")
+ROPE = importlib.import_module("quantized_training_tpu_torch.ops.rope")
 INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 SEED = 0
@@ -849,14 +854,16 @@ def _hold(kind: str, got, ref) -> str:
 
 
 def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, args, nbytes: float,
-                    replaces: str | None = None, sr_of=None):
+                    replaces: str | None = None, sr_of=None, times: list | None = None):
     """Run ``kernel`` and ``plain`` on ``args``, hold the outputs by the bars
     of ``kind`` (:func:`_hold`), and with ``sr_of`` (the round-to-nearest
     outputs) check that the SR form differs from them; with ``replaces`` also
     time both and keep the kernel's entry in ``rows`` (name -> (replaces,
     worst error, (shape, ms, plain ms), bytes)): the first shape timed, or
-    the path's TOKENS-row shape. Prints one line; returns the kernel's
-    outputs. GB/s and the share of the roofline count ``nbytes``."""
+    the path's TOKENS-row shape; with ``times`` time both and append
+    {"form", "ms", "plain_ms", "bound_ms"} to it. Prints one line; returns
+    the kernel's outputs. GB/s and the share of the roofline count
+    ``nbytes``."""
     got, ref = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     held = _hold(kind, got, ref)
@@ -864,12 +871,15 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
         check(not torch.equal(got[0], sr_of[0]), f"{name} differs from round-to-nearest")
     shape = tuple(args[0].shape)
     line = f"[3] {name} {list(shape)} {str(args[0].dtype)[6:]}{form}: {held}"
-    if replaces is not None:
+    if replaces is not None or times is not None:
         inputs = copies(*args)
         ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
         b_ms = bound(nbytes)[0]
         line += (f"; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {b_ms / ms:.2f} of the {b_ms:.4f} ms "
                  f"bound), plain {plain_ms:.4f} ms")
+        if times is not None:
+            times.append({"form": form.strip(" ,"), "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms})
+    if replaces is not None:
         err = max(rows.get(name, (None, 0.0))[1], _max_err(got, ref))
         if shape[0] == TOKENS or name not in rows:
             rows[name] = (replaces, err, (shape, ms, plain_ms), nbytes)
@@ -881,8 +891,9 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
 
 # the redesigned kernels' route predicates by counter name: (module, name)
 # of B7's, B8's, B9-row's, B10's, B11's and B18's (ops/fused_producers.py:
-# threads a row on the row walk) and B4's (ops/int8_quant.py: the geometry
-# of its cluster form); a route of 0 takes the first design
+# threads a row on the row walk), B14's (ops/rope.py: the same, from the
+# grouped input's width and head size) and B4's (ops/int8_quant.py: the
+# geometry of its cluster form); a route of 0 takes the first design
 REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
               "rmsnorm_quant_colwise": (FP, "norm_cols_sm90_route"),
               "rmsnorm_bwd": (FP, "rmsnorm_bwd_sm90_route"),
@@ -892,7 +903,9 @@ REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
               "layernorm_quant_rowwise": (FP, "layernorm_rows_sm90_route"),
               "layernorm_quant_colwise": (FP, "layernorm_cols_sm90_route"),
               "gelu_quant_rowwise": (FP, "gelu_rows_sm90_route"),
-              "gelu_quant_colwise": (FP, "gelu_cols_sm90_route")}
+              "gelu_quant_colwise": (FP, "gelu_cols_sm90_route"),
+              "ungroup_amax": (ROPE, "ungroup_sm90_route"),
+              "ungroup_quant": (ROPE, "ungroup_sm90_route")}
 
 
 def first_design(name: str, kernel, args, nbytes: float, exact: int | None = None) -> float:
@@ -906,7 +919,10 @@ def first_design(name: str, kernel, args, nbytes: float, exact: int | None = Non
     shares of the bound. Returns the first design's ms."""
     module, predicate = REDESIGNED[name.removesuffix("_sr")]
     route_of = getattr(module, predicate)
-    route = route_of(*args[0].shape, args[0].dtype) if module is IQ else route_of(args[0].shape[1], args[0].dtype)
+    x = args[0]
+    route = (route_of(*x.shape, x.dtype) if module is IQ else
+             route_of(x.shape[1] * x.shape[2] * x.shape[4], x.shape[4], x.dtype) if module is ROPE else  # [B, KV, G, S, hd]
+             route_of(x.shape[1], x.dtype))
     ops.reset_launch_counts()
     new = kernel(*args)
     n = ops.launch_counts()
@@ -1147,10 +1163,14 @@ def check_rope(gen: torch.Generator, key: int) -> list:
     rotation); the ungrouping of q's grad with rot^T (timed) and of the
     attention output without rotation, from grouped tensors in [B, S, H, hd]
     memory (the layout SDPA takes and returns for them) and in [B, H, S, hd]
-    memory; B14's absmax and its quantize along rows (timed, and its SR
-    form) and columns of the attention output [4, 2048, 32, 64]. Bytes:
-    bf16 in and out (int8 out for the quantize), fp32 tables, scales and
-    maxima, each once."""
+    memory; B14's absmax and its quantize along rows and columns, RN and SR,
+    of the attention output [4, 2048, 32, 64] (an all-zero row among it) in
+    both memory layouts, each timed (the entries' ``forms``; their own
+    numbers are the step layout's absmax and rows), and at the step's layout
+    each also through ``first_design``: it launches once on the row walk,
+    repeats its bits, and gives the first design's outputs bit for bit.
+    Bytes: bf16 in and out (int8 out for the quantize), fp32 tables, scales
+    and maxima, each once."""
     rows = {}
     run = partial(_held_and_timed, rows)
     pr_ = "quantized_training_tpu/ops/pallas_rope.py"
@@ -1170,23 +1190,42 @@ def check_rope(gen: torch.Generator, key: int) -> list:
                 lambda g, c=c, s=s: (ops.rope_ungroup_kernel(g, c, s, inverse=True),),
                 lambda g, c=c, s=s: (ops.rope_ungroup_ref(g, c, s, inverse=True),), (grouped,), nbytes,
                 f"{pr_}:203" if what == "q" and grouped is y else None)
-    out = ops.rope_group_kernel(torch.randn(TRAIN_B, TRAIN_S, H, hd, generator=gen, device=DEVICE).to(torch.bfloat16),
-                                kv=KV)
-    out[0, :, :, 1] = 0  # an all-zero row of the ungrouped view
-    M, K = TRAIN_B * TRAIN_S, H * hd
-    row, col = run("ungroup_amax", " (attention output)", "exact", ops.ungroup_amax, ops.ungroup_amax_plain, (out,),
-                   2 * M * K + 4 * M + 4 * K, f"{pr_}:334")
-    rn = None
-    for sr in (False, True):
-        tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
-        for axis, scale, form, nbytes in ((1, row, "rows", 3 * M * K + 4 * M), (0, col, "columns", 0)):
-            q = run(f"ungroup_quant{tag}", f", {form}", "exact",
-                    lambda y, s, axis=axis, kw=kw: (ops.ungroup_quant(y, s, axis=axis, **kw),),
-                    lambda y, s, axis=axis, kw=kw: (ops.ungroup_quant_plain(y, s, axis=axis, **kw),),
-                    (out, scale * (1.0 / 127.0)), nbytes, f"{pr_}:365" if axis == 1 else None,
-                    rn if sr and axis == 1 else None)
-            rn = q if axis == 1 else rn
-    return [_entry(name, replaces, err, timed, nbytes) for name, (replaces, err, timed, nbytes) in rows.items()]
+    x = torch.randn(TRAIN_B, TRAIN_S, H, hd, generator=gen, device=DEVICE).to(torch.bfloat16)
+    x[0, 1] = 0  # an all-zero row of the ungrouped view
+    G, M, K = H // KV, TRAIN_B * TRAIN_S, H * hd
+    step = ops.rope_group_kernel(x, kv=KV)  # the attention output's layout in the step
+    layouts = (("[B, S, H, hd] memory", step),
+               ("[B, H, S, hd] memory", x.permute(0, 2, 1, 3).contiguous().view(TRAIN_B, KV, G, TRAIN_S, hd)))
+    forms, firsts = {}, {}  # name -> every timed form and layout; the entry's form on its first design
+    for layout, out in layouts:
+        at_step = out is step
+
+        def b14(name, form, kernel, plain, args, nbytes, replaces, sr_of=None):
+            times = []
+            got = run(name, f", {form}, {layout}", "exact", kernel, plain, args, nbytes,
+                      replaces if at_step else None, sr_of, times=times)
+            forms.setdefault(name, []).append({**times[0], "form": form, "layout": layout})
+            if at_step:
+                forms[name][-1]["first_design_ms"] = first_design(name, kernel, args, nbytes)
+                if replaces is not None:
+                    firsts[name] = forms[name][-1]["first_design_ms"]
+            return got
+
+        row, col = b14("ungroup_amax", "absmax", ops.ungroup_amax, ops.ungroup_amax_plain, (out,),
+                       2 * M * K + 4 * M + 4 * K, f"{pr_}:334")
+        rn = {}
+        for sr in (False, True):
+            tag, kw = ("_sr", dict(sr=True, key=key)) if sr else ("", {})
+            for axis, scale, form, nbytes in ((1, row, "rows", 3 * M * K + 4 * M), (0, col, "columns", 3 * M * K + 4 * K)):
+                name = f"ungroup_quant{tag}"
+                q = b14(name, form, lambda y, s, axis=axis, kw=kw: (ops.ungroup_quant(y, s, axis=axis, **kw),),
+                        lambda y, s, axis=axis, kw=kw: (ops.ungroup_quant_plain(y, s, axis=axis, **kw),),
+                        (out, scale * (1.0 / 127.0)), nbytes, f"{pr_}:365" if axis == 1 else None,
+                        rn.get(axis) if sr else None)
+                check(not q[0][0, 1].any(), f"{name} ({form}): the all-zero row quantizes to 0")
+                rn[axis] = q
+    return [_entry(name, replaces, err, timed, nbytes, first_ms=firsts.get(name))
+            | ({"forms": forms[name]} if name in forms else {}) for name, (replaces, err, timed, nbytes) in rows.items()]
 
 
 def check_attention_layout(key: int) -> None:
@@ -1458,12 +1497,12 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     ``layer`` 'fused' (int8): forward K1 per weight (7), K2 per weight (7),
     B7 at the two norm sites and B9-row at down's input (every one on the
     row walk), ungroup_amax and
-    ungroup_quant (rows) at o's input. Backward B5 at the output grads of
+    ungroup_quant (rows) at o's input (both on the row walk). Backward B5 at the output grads of
     q, k, v, o and down, B4 per weight (every one on the cluster form), B1
     and B2 per weight, B8 at the two norm sites and B10 at the two norms
     (every one on the row walk), B9-col at down's input, B11 (on the row
-    walk) and B12 for (dgate, dup), ungroup_quant (columns) at o's
-    input and rope_group
+    walk) and B12 for (dgate, dup), ungroup_quant (columns, on the row
+    walk) at o's input and rope_group
     for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
     7 weights and the 4 inputs, K2 per weight, rope_ungroup at o's input;
     backward per weight B5, B4, B1, B2, B4 once per input, rope_group for
@@ -1486,7 +1525,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                        f"rmsnorm_quant_colwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}_sm90": 2 * n,
                        f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, "rmsnorm_bwd_sm90": 2 * n,
                        f"silu_mul_bwd_quant_rowwise{t}": n,
-                       f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, f"ungroup_quant{t}": 3 * n})
+                       f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, "ungroup_amax_sm90": 2 * n,
+                       f"ungroup_quant{t}": 3 * n, f"ungroup_quant{t}_sm90": 3 * n})
     elif layer == "unfused":
         counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n,
                        f"quantize_int8_colwise{t}_sm90": 11 * n,

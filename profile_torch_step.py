@@ -82,7 +82,8 @@ GROUPS = (
     ("B10 RMSNorm backward", ("rmsnorm_bwd_walk", "rmsnorm_bwd_rows")),
     ("producer kernels B9-col, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
                                                        "reduce_parts")),
-    ("rope and ungroup B13/B14", ("rope_relayout", "ungroup_absmax", "ungroup_quant")),
+    ("B13 rope and head grouping", ("rope_relayout",)),
+    ("B14 attention-output absmax and quantize", ("ungroup_absmax", "ungroup_quant")),
     # B5's first design, which only B5 calls off the vector path take (an
     # unaligned view, a ragged K, rows over 2048 vectors), ends in B4's
     # column cast and is counted with B4 here

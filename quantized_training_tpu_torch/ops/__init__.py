@@ -178,8 +178,11 @@ KERNELS = {
     "rope_group": (rope_group_kernel, "launches"),
     "rope_ungroup": (rope_ungroup_kernel, "launches"),
     "ungroup_amax": (ungroup_amax, "launches"),
+    "ungroup_amax_sm90": (ungroup_amax, "sm90_launches"),
     "ungroup_quant": (ungroup_quant, "launches"),
     "ungroup_quant_sr": (ungroup_quant, "sr_launches"),
+    "ungroup_quant_sm90": (ungroup_quant, "sm90_launches"),
+    "ungroup_quant_sr_sm90": (ungroup_quant, "sr_sm90_launches"),
     "scaled_int4_mm": (scaled_int4_mm, "launches"),
     "scaled_int4_mm_sm90": (scaled_int4_mm, "sm90_launches"),
     "tile_scaled_mm": (tile_scaled_mm, "launches"),

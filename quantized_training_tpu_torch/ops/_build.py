@@ -104,11 +104,11 @@ _SIGNATURES = {
     "qt_rope_relayout": (
         _P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _P,
     ),
-    # y, sb, ss, sh, B, S, H, hd, rmax, cmax, parts, rpb, is_bf16, stream
-    "qt_ungroup_amax": (_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _I64, _I, _P),
-    # y, sb, ss, sh, B, S, H, hd, scale, q, rpb, axis, eps, is_bf16, sr, key, stream
+    # y, sb, ss, sh, B, S, H, hd, rmax, cmax, parts, rpb, is_bf16, tpr, ctas, stream
+    "qt_ungroup_amax": (_P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _P, _I64, _I, _I, _I64, _P),
+    # y, sb, ss, sh, B, S, H, hd, scale, q, rpb, axis, eps, is_bf16, sr, key, tpr, ctas, stream
     "qt_ungroup_quant": (
-        _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I, ctypes.c_float, _I, _I, _U64, _P,
+        _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P, _P, _I64, _I, ctypes.c_float, _I, _I, _U64, _I, _I64, _P,
     ),
     # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, sm90, stream
     "qt_scaled_mm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -29,9 +29,26 @@
 // read from L2); B14's absmax reads the attention output once (34 MB, 10 us)
 // and its quantize reads it and writes int8 (50 MB, 15 us). Design: B13 gives
 // each thread one pair of 16-byte vectors of a head row, (d, d + hd / 2), the
-// two halves rotate-half mixes; B14 walks rows (b, s) with a block as
-// fused_producers.cu does, the column maxima folded over the blocks in a
-// fixed order (reduce_parts).
+// two halves rotate-half mixes. B14's first design (ungroup_absmax,
+// ungroup_quant) gave a block of 256 threads a run of about 15 rows, one
+// vector a thread a row at bf16 K 2048: each row ended in a block reduction
+// (two __syncthreads) with no next row in flight, every vector updated the
+// column maxima in shared memory and divided by hd for its column, the
+// column form filled the K inverse scales in every block, the casts took
+// rintf and a float -> int conversion, and the column maxima of 547 blocks
+// went through a [547, K] scratch. B14 now takes the persistent row walk
+// (RowWalk, row_common.cuh; the route ops/rope.py::ungroup_sm90_route picks,
+// the first design stays for widths it does not tile): groups of whole warps
+// take one row at a time, four vectors a thread at bf16 K 2048 (64
+// threads), the next row's vectors (and its scale) in flight while this
+// row's are reduced or cast; a thread owns the same columns in every row, so
+// their strided offsets are computed once and a row adds only b sb + s ss;
+// the row max reduces by shuffles and one named barrier a group, the column
+// maxima and inverse column scales stay in registers, the casts round by one
+// add (cast_pack), and one row of column partials a CTA is folded in a fixed
+// order (reduce_parts).
+
+#include <type_traits>
 
 #include "row_common.cuh"
 
@@ -178,6 +195,160 @@ ungroup_quant(Ungrouped<T> u, const float* __restrict__ scale, int8_t* __restric
   }
 }
 
+// ---- B14 on the persistent row walk ------------------------------------------
+
+// The vectors a thread a row the route tries, in order
+// (ops/rope.py::UNGROUP_VECTORS), and the CTAs an SM the walks keep
+// resident (::UNGROUP_CTAS_PER_SM): bf16 K 2048, 256 vectors, takes 64
+// threads of four, B7's geometry.
+constexpr int kUngroupVs[] = {4, 2, 1};
+constexpr int kUngroupCtasPerSm = 2;
+
+// A thread's columns of the ungrouped view: it owns vectors t + p tpr (p <
+// V) of every row, so their offsets from a row's start, (c / hd) sh + c % hd
+// at c = (t + p tpr) N, are computed once; a row r adds (r / S) sb + (r % S)
+// ss (the wrapper takes the walk only where the offsets stay below 2**31).
+template <typename T, int V>
+struct UngroupCols {
+  static constexpr int N = 16 / sizeof(T);
+  const T* __restrict__ y;
+  int64_t sb, ss;
+  uint32_t S, off[V];
+
+  __device__ UngroupCols(const Ungrouped<T>& u, const RowWalk<V, 1>& walk) : y(u.y), sb(u.sb), ss(u.ss), S(u.S) {
+#pragma unroll
+    for (int p = 0; p < V; ++p) off[p] = static_cast<uint32_t>(u.col(walk.vec(p) * N));
+  }
+  __device__ __forceinline__ void load(int64_t r, uint4 (&v)[V]) const {
+    const uint32_t rr = static_cast<uint32_t>(r);
+    const T* row = y + (rr / S) * sb + (rr % S) * ss;
+#pragma unroll
+    for (int p = 0; p < V; ++p) v[p] = *reinterpret_cast<const uint4*>(row + off[p]);
+  }
+};
+
+// A row of the walk: this thread's vectors, and the row's scale (the
+// quantize along rows), loaded a row ahead.
+template <int V>
+struct UngroupRow {
+  uint4 v[V];
+  float scale;
+};
+
+// B14's absmax on the persistent row walk (the route
+// ops/rope.py::ungroup_sm90_route picks): a CTA of kThreads threads in groups
+// of tpr, V vectors a thread a row. The row's max reduces by a warp shuffle,
+// then across the group's warps through one shared word a warp (two sets,
+// alternating by row parity, so that one named barrier a row suffices), and
+// its first thread writes rmax[r]; each thread keeps its columns' maxima in
+// registers, and the CTA merges its groups' once, into parts[blockIdx.x]. A
+// max is exact and order-free: rmax and the folded column maxima are the
+// first design's bit for bit. Dynamic shared memory: the CTA's column maxima
+// [K], as bits (non-negative floats order as their bits).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, kUngroupCtasPerSm)
+ungroup_absmax_walk(Ungrouped<T> u, float* __restrict__ rmax, float* __restrict__ parts, int64_t M, int64_t K,
+                    int tpr) {
+  constexpr int N = 16 / sizeof(T);
+  extern __shared__ unsigned int cmax[];
+  __shared__ unsigned int red[2][kWarps];
+  const RowWalk<V, 1> walk(tpr);
+  const UngroupCols<T, V> cols(u, walk);
+  const int lane = threadIdx.x % 32, w0 = walk.grp * (tpr / 32), W = tpr / 32;
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) cmax[c] = 0u;
+  __syncthreads();
+  float cm[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) cm[p][j] = 0.0f;
+  int parity = 0;
+  walk.template run_by<UngroupRow<V>>(
+      M, [&](int64_t row, UngroupRow<V>& b) { cols.load(row, b.v); },
+      [&](int64_t row, const UngroupRow<V>& b) {
+        float m = 0.0f;
+#pragma unroll
+        for (int p = 0; p < V; ++p) {
+          const T* e = reinterpret_cast<const T*>(&b.v[p]);
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            const float a = fabsf(to_f32(e[j]));
+            m = fmaxf(m, a);
+            cm[p][j] = fmaxf(cm[p][j], a);
+          }
+        }
+        unsigned int mb = __reduce_max_sync(0xFFFFFFFFu, __float_as_uint(m));
+        if (W > 1) {
+          if (lane == 0) red[parity][w0 + walk.t / 32] = mb;
+          group_sync(walk.grp, tpr);
+          if (walk.t == 0)
+            for (int w = 0; w < W; ++w) mb = ::max(mb, red[parity][w0 + w]);
+          parity ^= 1;
+        }
+        if (walk.t == 0) rmax[row] = __uint_as_float(mb);
+      });
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) atomicMax(cmax + walk.vec(p) * N + j, __float_as_uint(cm[p][j]));
+  __syncthreads();
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) parts[blockIdx.x * K + c] = __uint_as_float(cmax[c]);
+}
+
+// B14's quantize on the persistent row walk: the absmax walk's geometry, the
+// row's inverse scale from its scale loaded with its vectors (AXIS 1), or the
+// thread's inverse column scales in registers (AXIS 0), their loads issued
+// with the first rows' and inverted at the first row (inverting them before
+// the walk's first loads cost 3 us at [8192, 2048] on an H100:
+// ab_sm90_forms.py's b14_cols_eager); the cast by cast_pack (one add an
+// element), each element's SR word at r K + c, as the first design draws
+// it. No shared memory.
+template <typename T, bool SR, int AXIS, int V>
+__global__ void __launch_bounds__(kThreads, kUngroupCtasPerSm)
+ungroup_quant_walk(Ungrouped<T> u, const float* __restrict__ scale, int8_t* __restrict__ q, int64_t M, int64_t K,
+                   int tpr, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  const RowWalk<V, 1> walk(tpr);
+  const UngroupCols<T, V> cols(u, walk);
+  float inv[AXIS == 0 ? V : 1][N];
+  bool inverted = false;
+  if constexpr (AXIS == 0) {  // the loads of the scales, then of the first rows, in flight together
+#pragma unroll
+    for (int p = 0; p < V; ++p)
+#pragma unroll
+      for (int j = 0; j < N; ++j) inv[p][j] = scale[walk.vec(p) * N + j];
+  }
+  walk.template run_by<UngroupRow<V>>(
+      M,
+      [&](int64_t row, UngroupRow<V>& b) {
+        cols.load(row, b.v);
+        if constexpr (AXIS == 1) b.scale = scale[row];
+      },
+      [&](int64_t row, const UngroupRow<V>& b) {
+        if constexpr (AXIS == 0) {
+          if (!inverted) {  // the first row: the scales have arrived
+#pragma unroll
+            for (int p = 0; p < V; ++p)
+#pragma unroll
+              for (int j = 0; j < N; ++j) inv[p][j] = inv_scale(inv[p][j], eps);
+            inverted = true;
+          }
+        }
+        const float inv_row = AXIS == 1 ? inv_scale(b.scale, eps) : 0.0f;
+#pragma unroll
+        for (int p = 0; p < V; ++p) {
+          float y[N];
+          load_vec<T, N>(reinterpret_cast<const T*>(&b.v[p]), y);
+          const int64_t off = row * K + walk.vec(p) * N;
+          if constexpr (AXIS == 1) {
+            cast_pack<SR, N>(y, inv_row, off, key, q + off);
+          } else {
+            cast_pack<SR, N>(y, inv[p], off, key, q + off);
+          }
+        }
+      });
+}
+
 template <typename T, int MODE>
 cudaError_t launch_relayout(const void* in, const int64_t (&is)[3], void* out, const int64_t (&os)[3],
                             const float* cos, const float* sin, int64_t ldt, int64_t B, int64_t S, int64_t H,
@@ -221,6 +392,50 @@ cudaError_t launch_quant(const void* y, const int64_t (&st)[3], int64_t S, int64
   return cudaGetLastError();
 }
 
+// launch(std::integral_constant<int, V>{}) for the walks' tpr threads a row:
+// whole warps in groups that divide the block, V = K / N / tpr one of
+// kUngroupVs, whole vectors within a head (hd % N == 0), on ctas >= 1 CTAs;
+// cudaErrorInvalidValue for any other layout.
+template <typename T, class Launch>
+cudaError_t with_ungroup_layout(int tpr, int64_t K, int64_t hd, int64_t ctas, Launch&& launch) {
+  constexpr int64_t N = 16 / sizeof(T);
+  if (tpr <= 0 || tpr % 32 || kThreads % tpr || K % N || hd % N || (K / N) % tpr || ctas < 1)
+    return cudaErrorInvalidValue;
+  switch ((K / N) / tpr) {
+    case kUngroupVs[0]: return launch(std::integral_constant<int, kUngroupVs[0]>{});
+    case kUngroupVs[1]: return launch(std::integral_constant<int, kUngroupVs[1]>{});
+    case kUngroupVs[2]: return launch(std::integral_constant<int, kUngroupVs[2]>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_absmax_walk(const void* y, const int64_t (&st)[3], int64_t S, int64_t hd, void* rmax, void* cmax,
+                               void* parts, int64_t M, int64_t K, int tpr, int64_t ctas, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(K) * sizeof(float);
+  float* pt = static_cast<float*>(parts);
+  return with_ungroup_layout<T>(tpr, K, hd, ctas, [&](auto v) {
+    const auto kernel = ungroup_absmax_walk<T, decltype(v)::value>;
+    cudaError_t err;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(ctas), kThreads, smem, stream>>>(ungrouped<T>(y, st, S, hd),
+                                                                        static_cast<float*>(rmax), pt, M, K, tpr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    return launch_reduce(true, pt, static_cast<float*>(cmax), ctas, K, stream);
+  });
+}
+
+template <typename T, bool SR, int AXIS>
+cudaError_t launch_quant_walk(const void* y, const int64_t (&st)[3], int64_t S, int64_t hd, const void* scale,
+                              void* q, int64_t M, int64_t K, int tpr, int64_t ctas, float eps, uint64_t key,
+                              cudaStream_t stream) {
+  return with_ungroup_layout<T>(tpr, K, hd, ctas, [&](auto v) {
+    ungroup_quant_walk<T, SR, AXIS, decltype(v)::value><<<static_cast<unsigned int>(ctas), kThreads, 0, stream>>>(
+        ungrouped<T>(y, st, S, hd), static_cast<const float*>(scale), static_cast<int8_t*>(q), M, K, tpr, eps, key);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // Every entry point returns the launch's cudaError_t (0 on success). The
@@ -251,28 +466,38 @@ extern "C" int qt_rope_relayout(const void* in, int64_t isb, int64_t iss, int64_
 }
 
 // B14, absmax: rmax fp32 [B * S], cmax fp32 [H * hd], by way of parts, fp32
-// scratch of ceil(B * S / rpb) * H * hd floats.
+// scratch. tpr (ops/rope.py::ungroup_sm90_route): 0 takes ungroup_absmax with
+// rpb rows a block, parts ceil(B * S / rpb) * H * hd floats; else
+// ungroup_absmax_walk with tpr threads a row on ctas CTAs, parts ctas * H *
+// hd floats.
 extern "C" int qt_ungroup_amax(const void* y, int64_t sb, int64_t ss, int64_t sh, int64_t B, int64_t S, int64_t H,
-                               int64_t hd, void* rmax, void* cmax, void* parts, int64_t rpb, int is_bf16,
-                               void* stream) {
+                               int64_t hd, void* rmax, void* cmax, void* parts, int64_t rpb, int is_bf16, int tpr,
+                               int64_t ctas, void* stream) {
   if (B * S == 0) return 0;
   const int64_t strides[3] = {sb, ss, sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t M = B * S, K = H * hd;
+  if (tpr != 0)
+    return is_bf16 ? launch_absmax_walk<__nv_bfloat16>(y, strides, S, hd, rmax, cmax, parts, M, K, tpr, ctas, st)
+                   : launch_absmax_walk<float>(y, strides, S, hd, rmax, cmax, parts, M, K, tpr, ctas, st);
   return is_bf16 ? launch_absmax<__nv_bfloat16>(y, strides, S, hd, rmax, cmax, parts, M, K, rpb, st)
                  : launch_absmax<float>(y, strides, S, hd, rmax, cmax, parts, M, K, rpb, st);
 }
 
 // B14, quantize: q int8 [B * S, H * hd] given scale fp32 [B * S] (axis 1) or
-// [H * hd] (axis 0).
+// [H * hd] (axis 0). tpr (ops/rope.py::ungroup_sm90_route): 0 takes
+// ungroup_quant with rpb rows a block; else ungroup_quant_walk with tpr
+// threads a row on ctas CTAs.
 extern "C" int qt_ungroup_quant(const void* y, int64_t sb, int64_t ss, int64_t sh, int64_t B, int64_t S, int64_t H,
                                 int64_t hd, const void* scale, void* q, int64_t rpb, int axis, float eps, int is_bf16,
-                                int sr, uint64_t key, void* stream) {
+                                int sr, uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (B * S == 0) return 0;
   const int64_t strides[3] = {sb, ss, sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t M = B * S, K = H * hd;
-#define QT_QUANT(T, SR, AXIS) launch_quant<T, SR, AXIS>(y, strides, S, hd, scale, q, M, K, rpb, eps, key, st)
+#define QT_QUANT(T, SR, AXIS)                                                                                  \
+  (tpr != 0 ? launch_quant_walk<T, SR, AXIS>(y, strides, S, hd, scale, q, M, K, tpr, ctas, eps, key, st) \
+            : launch_quant<T, SR, AXIS>(y, strides, S, hd, scale, q, M, K, rpb, eps, key, st))
 #define QT_AXES(T, SR) (axis == 1 ? QT_QUANT(T, SR, 1) : QT_QUANT(T, SR, 0))
   if (is_bf16) return sr ? QT_AXES(__nv_bfloat16, true) : QT_AXES(__nv_bfloat16, false);
   return sr ? QT_AXES(float, true) : QT_AXES(float, false);

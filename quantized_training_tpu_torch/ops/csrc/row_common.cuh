@@ -266,17 +266,23 @@ struct RowWalk {
   // every warp has loads in flight while it computes
   template <class Body>
   __device__ void run(const uint4* const (&in)[NIN], int64_t M, int64_t nv, Body&& body) const {
+    run_by<uint4[NIN][V]>(M, [&](int64_t row, uint4 (&u)[NIN][V]) { load(in, row, nv, u); }, body);
+  }
+  // run over rows that fetch(row, u) loads into a Buf u, not [M, nv] rows of
+  // vectors (B14's strided attention output, with the row's scale)
+  template <class Buf, class Fetch, class Body>
+  __device__ void run_by(int64_t M, Fetch&& fetch, Body&& body) const {
     const int64_t groups = blockDim.x / tpr, stride = groups * gridDim.x;
-    uint4 a[NIN][V], b[NIN][V];
+    Buf a, b;
     int64_t i = blockIdx.x * groups + grp;
-    if (i < M) load(in, i, nv, a);
+    if (i < M) fetch(i, a);
     while (i < M) {
       const int64_t j = i + stride;
-      if (j < M) load(in, j, nv, b);
+      if (j < M) fetch(j, b);
       body(i, a);
       if (j >= M) break;
       i = j + stride;
-      if (i < M) load(in, i, nv, a);
+      if (i < M) fetch(i, a);
       body(j, b);
     }
   }

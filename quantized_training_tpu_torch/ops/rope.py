@@ -35,7 +35,11 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/rope.cu`` (whose header says what bounds it on the H100 and how its
 design answers that) or raises. Each kernel is bit-exact with its plain
 version, and counts its launches (``ungroup_quant``'s SR form apart, in
-``sr_launches``).
+``sr_launches``). B14's kernels take the persistent row walk, redesigned
+for the H100's memory system, wherever its layout leaves no lane idle
+(:func:`ungroup_sm90_route`, decided here and passed to the C entry with the
+grid), and count those launches again (``sm90_launches``,
+``sr_sm90_launches``); other widths keep the first design.
 """
 
 from __future__ import annotations
@@ -43,10 +47,17 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .fused_producers import EPS, _cast, _rows_per_block
-from .int8_quant import _count, _key
+from .fused_producers import EPS, _cast, _rows_per_block, _sm_count, row_walk_ctas
+from .int8_quant import _count_route, _key
 
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# B14's row walks: the vectors a thread a row the route tries, in order
+# (csrc/rope.cu::kUngroupVs: bf16 K 2048 takes 64 threads of four, B7's
+# geometry), and the CTAs an SM their launch bounds keep resident
+# (::kUngroupCtasPerSm)
+UNGROUP_VECTORS = (4, 2, 1)
+UNGROUP_CTAS_PER_SM = 2
 
 
 # ---- tables, gates and layouts ---------------------------------------------------
@@ -200,6 +211,36 @@ def ungroup_quant_plain(y: torch.Tensor, scale: torch.Tensor, *, axis: int, sr: 
 # ---- the kernels -----------------------------------------------------------------
 
 
+def ungroup_sm90_route(K: int, hd: int, dtype) -> int:
+    """The threads a row of B14's absmax and quantize on the persistent row
+    walk (``csrc/rope.cu::ungroup_absmax_walk``, ``::ungroup_quant_walk``) at
+    the ungrouped width K = H * hd, 0 for the first design: the first of
+    ``UNGROUP_VECTORS`` 16-byte vectors a thread that tiles the row with 32,
+    64, 128 or 256 threads (whole warps in groups that divide the block of
+    256), each vector within one head (hd a whole number of vectors).
+    Llama2-1B's bf16 K 2048 takes 64 threads of four vectors, fp32 128 of
+    four."""
+    n = 16 // dtype.itemsize
+    if dtype not in _DTYPES or K % n or hd % n:
+        return 0
+    for v in UNGROUP_VECTORS:
+        tpr = K // n // v
+        if tpr * v * n == K and tpr in (32, 64, 128, 256):
+            return tpr
+    return 0
+
+
+def _ungroup_route(y: torch.Tensor, strides) -> tuple[int, int]:
+    """(threads a row, CTAs) of B14's walk on the grouped y, (0, 0) for the
+    first design; also where a head's offset in a row, which the walk keeps
+    in 32 bits, reaches 2**31 elements (views into a larger buffer)."""
+    B, KV, G, S, hd = y.shape
+    tpr = ungroup_sm90_route(KV * G * hd, hd, y.dtype)
+    if not tpr or (KV * G - 1) * strides[2] + hd >= 2**31:
+        return 0, 0
+    return tpr, row_walk_ctas(B * S, tpr, _sm_count(y.device), UNGROUP_CTAS_PER_SM)
+
+
 def rope_group_kernel(x: torch.Tensor, cos: torch.Tensor | None = None, sin: torch.Tensor | None = None, *,
                       kv: int) -> torch.Tensor:
     """B13, grouping: x [B, S, H, hd] with rotate-half rope from fp32
@@ -234,7 +275,8 @@ def ungroup_amax(y: torch.Tensor):
     """B14, absmax: grouped attention output y [B, KV, G, S, hd] -> (row
     absmax fp32 [B, S, 1], column absmax fp32 [1, H * hd]) of its ungrouped
     [B * S, H * hd] view, one read of y; the column maxima are folded over
-    the blocks in a fixed order."""
+    the blocks (on the row walk, one row of partials a CTA) in a fixed
+    order."""
     if y.device.type == "cpu":
         return ungroup_amax_plain(y)
     B, KV, G, S, hd = y.shape
@@ -244,12 +286,13 @@ def ungroup_amax(y: torch.Tensor):
     M, K = B * S, H * hd
     row = torch.empty((B, S, 1), dtype=torch.float32, device=y.device)
     col = torch.empty((1, K), dtype=torch.float32, device=y.device)
-    parts = torch.empty((-(-M // _rows_per_block(M)), K), dtype=torch.float32, device=y.device)
+    tpr, ctas = _ungroup_route(y, strides)
+    parts = torch.empty((ctas or -(-M // _rows_per_block(M)), K), dtype=torch.float32, device=y.device)
     err = _build.library().qt_ungroup_amax(y.data_ptr(), *strides, B, S, H, hd, row.data_ptr(), col.data_ptr(),
-                                           parts.data_ptr(), _rows_per_block(M), int(y.dtype == torch.bfloat16),
-                                           _build.stream())
+                                           parts.data_ptr(), _rows_per_block(M), int(y.dtype == torch.bfloat16), tpr,
+                                           ctas, _build.stream())
     _build.check(err, "ungroup_amax")
-    ungroup_amax.launches += 1
+    _count_route(ungroup_amax, False, bool(tpr))
     return row, col
 
 
@@ -273,16 +316,18 @@ def ungroup_quant(y: torch.Tensor, scale: torch.Tensor, *, axis: int, sr: bool =
     strides = _grouped_strides(y, "ungroup_quant")
     _check("ungroup_quant", y, (B, S, H, hd), strides)
     q = torch.empty((B, S, H * hd), dtype=torch.int8, device=y.device)
+    tpr, ctas = _ungroup_route(y, strides)
     err = _build.library().qt_ungroup_quant(y.data_ptr(), *strides, B, S, H, hd, scale.data_ptr(), q.data_ptr(),
                                             _rows_per_block(B * S), axis, eps, int(y.dtype == torch.bfloat16),
-                                            int(sr), key, _build.stream())
+                                            int(sr), key, tpr, ctas, _build.stream())
     _build.check(err, "ungroup_quant")
-    _count(ungroup_quant, sr)
+    _count_route(ungroup_quant, sr, bool(tpr))
     return q
 
 
 rope_group_kernel.launches = rope_ungroup_kernel.launches = ungroup_amax.launches = 0
-ungroup_quant.launches = ungroup_quant.sr_launches = 0
+ungroup_amax.sm90_launches = 0  # the launches on the row walk
+ungroup_quant.launches = ungroup_quant.sr_launches = ungroup_quant.sm90_launches = ungroup_quant.sr_sm90_launches = 0
 
 
 # ---- differentiable wrappers (tables [S, hd]) -------------------------------------

@@ -36,6 +36,7 @@ MATMUL = importlib.import_module("quantized_training_tpu_torch.ops.matmul")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
 IQ = importlib.import_module("quantized_training_tpu_torch.ops.int8_quant")
+ROPE = importlib.import_module("quantized_training_tpu_torch.ops.rope")
 
 pytestmark = pytest.mark.cuda
 
@@ -791,6 +792,57 @@ def test_rope_kernels_refuse_what_they_cannot_take():
         ops.ungroup_quant(ops.rope_group_kernel(x, kv=2), torch.ones(32, device="cuda"), axis=1, sr=True)
 
 
+# B14 on the row walk: Llama2-1B's attention output [4, 2048, 32, 64] (64
+# threads of four vectors), a ragged row count (2 x 500), fp32 (128 of
+# four), and the small Llama's 4 heads (32 threads of one vector); B, S, H,
+# KV, dtype
+_B14_WALK = [(4, 2048, 32, 4, torch.bfloat16), (2, 500, 32, 4, torch.bfloat16), (2, 256, 32, 4, torch.float32),
+             (2, 64, 4, 2, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("B,S,H,KV,dtype", _B14_WALK)
+def test_b14_walk_gives_the_first_designs_bits(monkeypatch, B, S, H, KV, dtype, sr):
+    """B14's absmax and its quantize along rows and columns (RN or SR), from
+    grouped inputs in [B, S, H, hd] and [B, H, S, hd] memory with an
+    all-zero row, on the row walk (``ungroup_absmax_walk``,
+    ``ungroup_quant_walk``) and on the first design (the route forced to
+    0): the row and column maxima and both int8 outputs bit-identical on
+    both routes and with the plain versions, the same bits on a second run
+    of the walk, the all-zero row quantized to 0, each launch counted on the
+    route it took."""
+    x = _rand((B, S, H, 64), dtype, 63)
+    x[0, 1] = 0
+    kw = dict(sr=sr, key=2**61 + 29 if sr else None)
+    t = "_sr" if sr else ""
+    assert ROPE.ungroup_sm90_route(H * 64, 64, dtype)
+
+    def b14(y):
+        row, col = ops.ungroup_amax(y)
+        return (row, col, *(ops.ungroup_quant(y, m * (1.0 / 127.0), axis=axis, **kw) for axis, m in ((1, row), (0, col))))
+
+    for name, y in _layouts(x, KV).items():
+        got = {}
+        for walk in (True, False):
+            with monkeypatch.context() as m:
+                if not walk:
+                    m.setattr(ROPE, "ungroup_sm90_route", lambda K, hd, dtype: 0)
+                ops.reset_launch_counts()
+                got[walk] = b14(y)
+                torch.cuda.synchronize()
+                counts = ops.launch_counts()
+                assert counts["ungroup_amax"] == 1 and counts["ungroup_amax_sm90"] == int(walk), name
+                assert counts[f"ungroup_quant{t}"] == 2 and counts[f"ungroup_quant{t}_sm90"] == 2 * int(walk), name
+        assert all(torch.equal(a, b) for a, b in zip(got[True], got[False])), name
+        assert all(torch.equal(a, b) for a, b in zip(got[True], b14(y))), name
+        row, col, q_row, q_col = got[True]
+        ref_row, ref_col = ops.ungroup_amax_plain(y)
+        assert torch.equal(row, ref_row) and torch.equal(col, ref_col), name
+        for q, axis, m in ((q_row, 1, row), (q_col, 0, col)):
+            assert torch.equal(q, ops.ungroup_quant_plain(y, m * (1.0 / 127.0), axis=axis, **kw)), (name, axis)
+            assert not q[0, 1].any(), (name, axis)
+
+
 def _int8(shape, g):
     return torch.randint(-128, 128, shape, generator=g, device="cuda", dtype=torch.int8)
 
@@ -1145,11 +1197,12 @@ def test_launch_counters_count_kernel_launches_only():
     ops.rope_ungroup_kernel(grouped)
     ops.rope_group_ref(h, None, None, 1)
     ops.rope_ungroup_ref(grouped, None, None)
-    row, _ = ops.ungroup_amax(grouped)
-    ops.ungroup_amax_plain(grouped)
-    ops.ungroup_quant(grouped, row, axis=1)
-    ops.ungroup_quant(grouped, row, axis=1, sr=True, key=1)
-    ops.ungroup_quant_plain(grouped, row, axis=1, sr=True, key=1)
+    wide_heads = ops.rope_group_ref(_rand((1, 64, 4, 64), torch.bfloat16, 3), None, None, 2)  # K 256: B14 on the walk
+    row, _ = ops.ungroup_amax(wide_heads)
+    ops.ungroup_amax_plain(wide_heads)
+    ops.ungroup_quant(wide_heads, row, axis=1)
+    ops.ungroup_quant(wide_heads, row, axis=1, sr=True, key=1)
+    ops.ungroup_quant_plain(wide_heads, row, axis=1, sr=True, key=1)
     ops.quantize_int8_plain(x)
     ops.quantize_int8_plain(x, sr=True, key=1)
     ops.quantize_int8_both_plain(x)
