@@ -22,7 +22,10 @@ output's ungrouped view, rows and columns; ``B14r``, ``B14rsr``, ``B14c``,
 ``B14csr``: its int8 quantize given the row or the column scales, RN and SR;
 each in the step's [B, S, H, hd] memory and in [B, H, S, hd] memory)
 beside B13 (``B13``: q's rotate-half RoPE and head grouping, which shares
-its source), against an earlier tree's.
+its source); and B19, the causal int8 flash-attention forward of
+``ops/csrc/int8_attention.cu`` on its sm90 design (``B19``: TMA, a producer
+warpgroup, wgmma for both products; at Llama2-1B's attention, [16, 8, 2048,
+hd] q, hd 64 and 128, block_kv 512), against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -34,22 +37,26 @@ is held against the plain versions at a ragged shape and at gate/up's
 B18's LayerNorm forms against this tree's first design (``kept/first``),
 whose bits the walk keeps, B10's dx too and its dgamma within 2e-5 of its
 largest magnitude, B4, B9, B11, B13, B14 and B18's GELU forms against
-their plain versions; B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
+their plain versions; B19 within ``ops/int8_attention.py::agreement`` of
+its plain version (the row sums of p in another order); B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
 costs or to measure an error: they report and do not fail), then all are
 timed in turns (in order, then reversed; ``utils/timing.py``: a CUDA graph
 over L2-cold copies, CUDA events) at the Llama2-1B step's shapes, beside
 the nearest library call on the same operands (``torch._int_mm``, unpacked
-for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; none for
-B4, B5, B7-B14, B18) and the share of the bound (the 8-bit tensor cores'
-1,979 TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4
-one read and one write, for B7-B14 and B18 their inputs read and outputs
-written once). ``kept/first`` is this tree's B4, B7-B11, B14 and B18 on their first design
-(route 0); ``kept/wmma`` is this
+for B16; ``torch._scaled_mm`` with row scales for B15's e4m3 form; SDPA
+in bf16 on the unquantized q, k, v for B19, a reference; none for B4, B5,
+B7-B14, B18) and the share of the bound (the 8-bit tensor cores' 1,979
+TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4 one
+read and one write, for B7-B14 and B18 their inputs read and outputs written
+once; for B19 the causal triangle's exponentials at 16 a clock an SM, as
+``chip_smoke.py`` counts them). ``kept/first`` is this tree's B4, B7-B11,
+B14, B18 and B19 on their first design (route 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
-``parent/kernel`` its B5 and B13, and ``parent/walk``, ``parent/cluster`` its B4,
+``parent/kernel`` its B5 and B13, ``parent/wmma`` its B19 (where it has
+no sm90 design), and ``parent/walk``, ``parent/cluster`` its B4,
 B7-B11, B14 and B18, whatever design they take there; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
@@ -73,6 +80,7 @@ import torch
 from quantized_training_tpu_torch import ops
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops import fused_producers as FP
+from quantized_training_tpu_torch.ops import int8_attention as ATTN
 from quantized_training_tpu_torch.ops import int8_quant as IQ
 from quantized_training_tpu_torch.ops import rope as ROPE
 from quantized_training_tpu_torch.ops.int8_quant import EPS
@@ -84,6 +92,7 @@ INT8_OPS_PER_S = 1.979e15
 HBM_BYTES_PER_S = 3.35e12
 B5_KEY = 2**62 + 7  # the SR form's key
 ROWS_KEY = 2**61 + 5  # the row walks' SR key (B7, B8, B9, B11)
+SFU_PER_SM_CLOCK = 16  # exponentials a clock an SM (chip_smoke.py's)
 _B2_DEPTH = "  static constexpr int BK = 128, kStages = 4, kRawSlots = 2, kAccShift = 0;"
 _B16_DEPTH = "  static constexpr int kStages = kSub == 1 ? 4 : 3, kRawSlots = kSub == 1 ? 8 : 4;"
 # widen a nibble by sign extension into the low half of its byte (kAccShift 0)
@@ -474,6 +483,36 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     **{f"b4_{sv}": [] for sv in (16, 8, 4)},
     "diag_b4_no_cast": [("int8_quant.cu", "    for (int64_t r = first; r < r1; r += step)\n      cast_vec<T, SR>(",
                          "    for (int64_t r = first; r < r1 && sv < 0; r += step)\n      cast_vec<T, SR>(")],
+    # B19: the consumers at 232 registers and the producer at 40, or 216 and
+    # 72 (kConsumerRegs, kProducerRegs); a warpgroup's two chunks of a block
+    # side by side (2 w, 2 w + 1) in place of interleaved (w, w + 2); half
+    # the k ring at hd 64 (4 stages); the accurate expf replaced by the
+    # approximate __expf (diag: the exponentials' instruction cost; other
+    # bits)
+    "b19_regs_232": [("int8_attention.cu", "constexpr int kConsumerRegs = 224, kProducerRegs = 56;",
+                      "constexpr int kConsumerRegs = 232, kProducerRegs = 40;")],
+    "b19_regs_216": [("int8_attention.cu", "constexpr int kConsumerRegs = 224, kProducerRegs = 56;",
+                      "constexpr int kConsumerRegs = 216, kProducerRegs = 72;")],
+    "b19_split_side": [("int8_attention.cu", "const bool two = n > 2, real0 = w < n, real1 = w + 2 < n;",
+                        "const bool two = n > 1, real0 = 2 * w < n, real1 = 2 * w + 1 < n;"),
+                       ("int8_attention.cu", "const int g0 = g + min(w, n - 1), g1 = g + min(w + 2, n - 1);",
+                        "const int g0 = g + min(2 * w, n - 1), g1 = g + min(2 * w + 1, n - 1);"),
+                       ("int8_attention.cu", "        if (real1) scale(s1, g1, w + 2, mx);",
+                        "        if (real1) scale(s1, g1, 2 * w + 1, mx);"),
+                       ("int8_attention.cu", "        scale(s0, g0, w, mx);\n        wgmma_wait<0>();",
+                        "        if (real0) scale(s0, g0, 2 * w, mx);\n        wgmma_wait<0>();"),
+                       ("int8_attention.cu", "        if (real0) scale(s0, g0, w, mx);\n      }",
+                        "        if (real0) scale(s0, g0, 2 * w, mx);\n      }")],
+    "b19_k4": [("int8_attention.cu", "kKStages = HD == 64 ? 8 : 4,", "kKStages = 4,")],
+    "diag_b19_fast_exp": [("int8_attention.cu", "const float p = expf(__fsub_rn(", "const float p = __expf(__fsub_rn(")],
+    # B19's exponentials and their subtraction left out (diag: their time,
+    # the results wrong)
+    "diag_b19_no_p": [("int8_attention.cu", "const float p = expf(__fsub_rn(__int_as_float(d[4 * j + e]), mn[h]));",
+                       "const float p = __int_as_float(d[4 * j + e]);")],
+    # the transposers not rewriting the v stages (diag: whether the
+    # producer's rewrite holds the consumers up)
+    "diag_b19_no_rewrite": [("int8_attention.cu", "        for (int u = t; u < HD; u += kTransposers)",
+                             "        for (int u = t; u < HD && g < 0; u += kTransposers)")],
     # the column pass's (d, 1 / d) with a vector's pairs side by side
     "b5_dy_by_vector": [("int8_quant.cu", "    col_dy[(c % N) * nv + c / N] = denom_of(", "    col_dy[c] = denom_of("),
                         ("int8_quant.cu", "        for (int j = 0; j < N; ++j) dy[j] = col_dy[j * nv + v];",
@@ -543,14 +582,16 @@ SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16
           "B11": "fused_producers.cu", "B11sr": "fused_producers.cu", "B8": "fused_producers.cu",
           "B8sr": "fused_producers.cu", "B10": "fused_producers.cu",
           **{k: "fused_producers.cu" for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc",
-                                                "B18gcsr")}, **dict.fromkeys(("B13", "B14a", "B14r", "B14rsr", "B14c", "B14csr"), "rope.cu")}
+                                                "B18gcsr")}, **dict.fromkeys(("B13", "B14a", "B14r", "B14rsr", "B14c", "B14csr"), "rope.cu"),
+          "B19": "int8_attention.cu"}
 ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
            "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise"),
            "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
                                   "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd",
                                   "qt_layernorm_quant_rowwise", "qt_layernorm_quant_colwise", "qt_gelu_quant_rowwise",
                                   "qt_gelu_quant_colwise"),
-           "rope.cu": ("qt_rope_relayout", "qt_ungroup_amax", "qt_ungroup_quant")}
+           "rope.cu": ("qt_rope_relayout", "qt_ungroup_amax", "qt_ungroup_quant"),
+           "int8_attention.cu": ("qt_int8_flash_fwd",)}
 
 
 def build(variants: dict, parent: Path | None, kernels) -> dict:
@@ -646,6 +687,25 @@ def b17s8(lib, sigs, sm90):
         _build.check(lib.qt_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, 0, 0, 1, 1, sm90,
                                    _build.stream()), "B17s8")
         return out
+    return call
+
+
+def b19(lib, sigs, _, sm90=1):
+    """B19 of ``lib``: (q_i8, q_s, k_i8, k_s, v_i8, v_s) of [n_inst, G, S,
+    hd] q -> (out, lse), causal, block_kv 512, on its sm90 design (``sm90``
+    1: one CTA an SM over the work items) or its first (0); an entry without
+    the grid argument has the first design only."""
+    routed = len(sigs["qt_int8_flash_fwd"]) == 16
+
+    def call(q, qs, k, ks, v, vs):
+        n_inst, G, S, hd = q.shape
+        out = torch.empty(q.shape, dtype=torch.bfloat16, device="cuda")
+        lse = torch.empty(n_inst, G, S, 1, dtype=torch.float32, device="cuda")
+        ctas = min(n_inst * G * S // 64, torch.cuda.get_device_properties(0).multi_processor_count) if sm90 else 0
+        _build.check(lib.qt_int8_flash_fwd(q.data_ptr(), qs.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+                                           vs.data_ptr(), out.data_ptr(), lse.data_ptr(), n_inst, G, S, hd, 512, 1,
+                                           *((ctas,) if routed else ()), _build.stream()), "B19")
+        return out, lse
     return call
 
 
@@ -943,7 +1003,8 @@ def main() -> None:
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
         entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
-                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18, *B14)
+                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18, *B14,
+                              "B19")
                     if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
@@ -951,7 +1012,7 @@ def main() -> None:
         entries += [("parent/sm90", "K2", k2(*libs["parent"], 1))] if "K2" in kernels else []
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def operands(kernel, M, N, K=None):
+    def operands(kernel, M, N, K=None, hd=None):
         def i8(shape):
             return torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
 
@@ -1022,6 +1083,10 @@ def main() -> None:
             dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
             dy[:, 1] = 0
             return a, b, dy
+        if kernel == "B19":  # (instances, G, S, hd): Llama2-1B's attention, quantized as the op's input
+            q = torch.randn(M, N, K, hd, generator=gen, device="cuda").bfloat16()
+            k, v = (torch.randn(M, K, hd, generator=gen, device="cuda").bfloat16() for _ in range(2))
+            return ops.quantize_qkv(q, k, v)
         if kernel == "B17s8":
             return i8((M, K)), i8((K, N))
         if kernel in ("B15", "B15s8"):
@@ -1046,6 +1111,7 @@ def main() -> None:
              "B18gc": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s)[:1],
              "B18gcsr": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s, sr=True, key=ROWS_KEY)[:1],
              "B14a": ops.ungroup_amax_plain,
+             "B19": lambda *qkv: ops.int8_flash_fwd_plain(*qkv, causal=True, block_kv=512),
              "B13": lambda x, c, s: ROPE.rope_ungroup_ref(ROPE.rope_group_ref(x, c, s, 1), None, None),
              **{k: partial(lambda y, s, axis, sr: (ops.ungroup_quant_plain(y, s, axis=axis, sr=sr, key=ROWS_KEY),),
                            axis=int(k.startswith("B14r")), sr=k.endswith("sr")) for k in B14[1:]}}
@@ -1066,7 +1132,7 @@ def main() -> None:
                           *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES)),
                           *((k, s) for k in B18 for s in ((1000, SHAPES[k][0][1]), *SHAPES[k])),
                           *((k, s) for k in B14 for s in ((1000, 2048, "bshd"), (1000, 2048, "bhsd"), *SHAPES[k])),
-                          ("B13", (8192, 2048))):
+                          ("B13", (8192, 2048)), ("B19", (2, 2, 1024, 64)), *(("B19", s) for s in SHAPES["B19"])):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -1085,6 +1151,10 @@ def main() -> None:
                     exact = worst <= R
                     print(f"{label} {kernel} {shape}: worst {worst:.2f} fp32 roundings of the folded magnitudes "
                           f"beyond a bf16 half-ulp (bound {R}): within {exact}", flush=True)
+                elif kernel == "B19":  # the row sums of p in another order
+                    exact, err, share = ATTN.agreement(*got, *ref, args_[5])
+                    print(f"{label} {kernel} {shape}: within agreement of the plain version {exact} (max |out - "
+                          f"plain| {err:.3e}, {share:.3e} of the elements differ)", flush=True)
                 elif kernel == "B10":  # dx bit-exact, dgamma summed in the walk's order
                     rel = ((got[1] - ref[1]).abs().max() / ref[1].abs().max()).item()
                     exact = torch.equal(got[0], ref[0]) and rel <= 2e-5
@@ -1105,6 +1175,22 @@ def main() -> None:
                     inputs = copies(*operands(kernel, *shape))
                     times.setdefault((label, kernel, shape), []).append(time_ms(call, inputs, iters=8) * 1e3)
     for kernel, shape in rows:
+        if kernel == "B19":  # the causal triangle's exponentials at the card's special-function rate
+            n_inst, G, S, hd = shape
+            mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                       capture_output=True, text=True, check=True).stdout.split()[0])
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            bound_us = n_inst * G * S * (S + 1) // 2 / (SFU_PER_SM_CLOCK * sms * mhz * 1e6) * 1e6
+            q, k, v = (torch.randn(n_inst, *s, generator=gen, device="cuda").bfloat16()
+                       for s in ((G, S, hd), (S, hd), (S, hd)))
+            sdpa_us = time_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(1, n_inst * G, S, hd), k.unsqueeze(0), v.unsqueeze(0), is_causal=True, enable_gqa=True),
+                copies(q, k, v), iters=8) * 1e3
+            cells = [f"{label} {sum(t) / len(t):.1f} {[round(v, 1) for v in t]} ({bound_us * len(t) / sum(t):.3f})"
+                     for (label, k_, s), t in times.items() if k_ == kernel and s == shape]
+            print(f"{kernel} {list(shape)} causal, block_kv 512: bound {bound_us:.1f} us (exponentials); "
+                  + "; ".join(cells) + f"; SDPA bf16 {sdpa_us:.1f} (a reference)", flush=True)
+            continue
         if kernel in ROW_BYTES:  # the inputs read once, the outputs written once
             M, K = shape[:2]
             bound_us = ROW_BYTES[kernel](M, K) / HBM_BYTES_PER_S * 1e6
@@ -1143,18 +1229,18 @@ KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "
            "B18lnc": partial(b18_layernorm, cols=True), "B18lncsr": partial(b18_layernorm, cols=True),
            "B18gr": b18_gelu, "B18grsr": b18_gelu, "B18gc": partial(b18_gelu, cols=True),
            "B18gcsr": partial(b18_gelu, cols=True), "B13": b13, "B14a": b14, "B14r": partial(b14, axis=1),
-           "B14rsr": partial(b14, axis=1), "B14c": partial(b14, axis=0), "B14csr": partial(b14, axis=0)}
+           "B14rsr": partial(b14, axis=1), "B14c": partial(b14, axis=0), "B14csr": partial(b14, axis=0), "B19": b19}
 # B18's eight forms: LayerNorm and GELU, rows (with the column absmax) and
 # columns given scales, RN and SR
 B18 = ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc", "B18gcsr")
 # the argument each kernel's entry takes in place of the route: the SR flag
 QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B8": 0, "B8sr": 1, "B10": 0, "B11": 0, "B11sr": 1, "B9": 0,
-         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14)}}
+         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14)}, "B19": 0}
 ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B8": "walk", "B8sr": "walk", "B10": "walk",
          "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster",
          "B13": "kernel", **dict.fromkeys((*B18, *B14), "walk")}
 # the keyword argument that forces a kernel's first design (``kept/first``)
-FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}}
+FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}, "B19": {"sm90": 0}}
 def _b18_bytes(kernel):
     """B18's bytes at [M, K] bf16, as chip_smoke.py counts them: x read
     (LayerNorm: and fp32 g, b), q written, and the fp32 row scales and
@@ -1208,7 +1294,8 @@ SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (819
           "B9": ROW_SHAPES["B9"], "B9sr": ROW_SHAPES["B9"], "B4": B4_SHAPES, "B4sr": B4_SHAPES,
           "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"],
           **{k: [(6400, 1536 if k.startswith("B18ln") else 6144)] for k in B18},
-          **{k: [(8192, 2048, "bshd"), (8192, 2048, "bhsd")] for k in B14}, "B13": [(8192, 2048)]}
+          **{k: [(8192, 2048, "bshd"), (8192, 2048, "bhsd")] for k in B14}, "B13": [(8192, 2048)],
+          "B19": [(16, 8, 2048, 64), (16, 8, 2048, 128)]}
 
 
 if __name__ == "__main__":

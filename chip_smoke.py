@@ -43,8 +43,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    design in the same call, all outputs bit-identical; B17 at 4096^3 (bf16
    -> bf16 within its fp32-sum bound beside ``torch.matmul``, int8 -> int32
    bit-exact beside ``torch._int_mm``) and B19 at Llama2-1B's attention ([4, 4] instances, G 8, S 2048, hd 64,
-   within ``ops/int8_attention.py::agreement`` of its plain version, beside
-   SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
+   block_kv 512: checked to launch once on its sm90 design, the same bits
+   on a second run, and within ``ops/int8_attention.py::agreement`` of its
+   plain version and of its first design, the route forced to 0, timed in
+   the same call; beside SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
    of the roofline; K2, B1, B2, B15 (both forms), B16 at every shape and
    B17 (both forms) also on the route they took (K2 above 16 rows, B1, B2,
    B15 at QK = 128, B16 and B17 on the TMA + wgmma mainloop of
@@ -113,7 +115,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 13. B19 as the JAX package's op: at phase 3's shape, the oracle checks of
    its test (mean relative error below 0.05 against the bf16 oracle, lse
    within 1e-4 of the explicit logsumexp) and causality (k and v changed
-   from row 1536 on leave earlier rows bit-identical); two launches.
+   from row 1536 on leave earlier rows bit-identical); two launches, both on
+   the sm90 design.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -122,9 +125,9 @@ on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists; for B7, B8, B9-row, B10, B11, B14 and B18 also their launches on the row walk and
-for B4 those on its cluster form (``sm90_launches``), and their first
-design's time, ``first_design_ms``; for B14 every timed form and
+exists; for B7, B8, B9-row, B10, B11, B14 and B18 also their launches on the row walk,
+for B4 those on its cluster form and for B19 those on its sm90 design
+(``sm90_launches``), and their first design's time, ``first_design_ms``; for B14 every timed form and
 layout, ``forms``),
 the nvidia-smi line, and ``{"ok": true, "device": {...}}``.
 
@@ -433,7 +436,7 @@ def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, 
            sfu_ops=0.0, first_ms=None):
     """One kernel's line of the JSON table; ``launches`` is filled in from
     the run of its path. ``first_ms``: a redesigned kernel's first design,
-    timed in the same call (B7, B11)."""
+    timed in the same call (B7, B11, B19)."""
     src = ("int8_quant.cu" if name.startswith("quantize") else
            "fused_adamw.cu" if name.startswith("fused_adamw") else
            "fused_producers.cu" if name.startswith(("rmsnorm", "silu", "layernorm", "gelu")) else
@@ -1341,33 +1344,57 @@ def sdpa_grouped(q, k, v):
 
 
 def check_b19(gen: torch.Generator) -> dict:
-    """B19 at Llama2-1B's attention (``ATTN_LEAD`` instances, block_kv 512)
-    against its plain version on the card, within
-    ``ops/int8_attention.py::agreement``; timed beside SDPA in bf16 on the
-    same q, k, v. Bound: each input read once, out and lse written once;
-    the causal triangle's int8 products (QK and PV) and its exponentials."""
+    """B19 at Llama2-1B's attention (``ATTN_LEAD`` instances, block_kv 512):
+    checked to launch once, on its sm90 design, and to give the same bits on
+    a second run; held within ``ops/int8_attention.py::agreement`` of its
+    plain version and of its first design (the route forced to 0: the
+    designs differ in the order of p's row sums), both designs timed here,
+    beside SDPA in bf16 on the same q, k, v. Bound: each input read once,
+    out and lse written once; the causal triangle's int8 products (QK and
+    PV) and its exponentials."""
     q, k, v = attention_inputs(gen)
     qkv = ops.quantize_qkv(q, k, v)
+    ops.reset_launch_counts()
     out, lse = ops.int8_flash_fwd(*qkv)
     torch.cuda.synchronize()
+    n = ops.launch_counts()
+    check(n["int8_flash_fwd"] == 1 and n["int8_flash_fwd_sm90"] == 1, f"B19 launched once, on its sm90 design: {n}")
+    again = ops.int8_flash_fwd(*qkv)
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]), "B19: the same bits on a second run")
     ref_out, ref_lse = ops.int8_flash_fwd_plain(*qkv)
     ok, err, share = ATTN.agreement(out, lse, ref_out, ref_lse, qkv[5])
     check(ok, f"B19 within its bound of the plain version (max |out - plain| {err:.3e}, {share:.3e} differ)")
     inputs = copies(*qkv)
-    ms, plain_ms = time_ms(ops.int8_flash_fwd, inputs, iters=8), time_ms(ops.int8_flash_fwd_plain, inputs[:1], iters=2)
+    ms = time_ms(ops.int8_flash_fwd, inputs, iters=8)
+    route_of = ATTN.int8_flash_sm90_route
+    ATTN.int8_flash_sm90_route = lambda *a: 0
+    try:
+        first_out, first_lse = ops.int8_flash_fwd(*qkv)
+        first_ms = time_ms(ops.int8_flash_fwd, inputs, iters=8)
+    finally:
+        ATTN.int8_flash_sm90_route = route_of
+    ok_f, err_f, share_f = ATTN.agreement(out, lse, first_out, first_lse, qkv[5])
+    ok_fp, err_fp, share_fp = ATTN.agreement(first_out, first_lse, ref_out, ref_lse, qkv[5])
+    check(ok_f and ok_fp, f"B19's designs within agreement of each other ({err_f:.3e}, {share_f:.3e} differ) and "
+                          f"the first of the plain version ({err_fp:.3e}, {share_fp:.3e})")
+    plain_ms = time_ms(ops.int8_flash_fwd_plain, inputs[:1], iters=2)
     library_ms = lib_ms("SDPA", sdpa_grouped, copies(q, k, v))
     n_inst, (G, S, hd) = int(np.prod(ATTN_LEAD)), q.shape[-3:]
     pairs = n_inst * G * S * (S + 1) // 2  # the causal triangle's (row, column) pairs
     nbytes = n_inst * (G * S * hd * 3 + G * S * 8 + 2 * S * hd + 2 * S * 4)  # q, k, v, scales in; out, lse out
     b_ms, by = bound(nbytes, int8_ops=4 * pairs * hd, sfu_ops=pairs)
-    print(f"[3] int8_flash_fwd (B19) {list(q.shape)} causal, block_kv 512: within its bound of the plain version "
+    print(f"[3] int8_flash_fwd (B19) {list(q.shape)} causal, block_kv 512, launched on its sm90 design: within its "
+          f"bound of the plain version "
           f"(max |out - plain| {err:.3e}, {share:.3e} of the elements differ, lse max "
-          f"{(lse - ref_lse).abs().max().item():.3e}); kernel {ms:.4f} ms ({4 * pairs * hd / ms / 1e9:.1f} TOP/s, "
-          f"{pairs / ms / 1e9:.3f} T exp/s, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), plain "
-          f"{plain_ms:.3f} ms, SDPA bf16 {'refused' if library_ms is None else f'{library_ms:.4f} ms'}")
+          f"{(lse - ref_lse).abs().max().item():.3e}) and of the first design ({err_f:.3e}, {share_f:.3e} differ; "
+          f"the first design against the plain version {share_fp:.3e}); the same bits on a second run; kernel "
+          f"{ms:.4f} ms ({4 * pairs * hd / ms / 1e9:.1f} TOP/s, {pairs / ms / 1e9:.3f} T exp/s, {b_ms / ms:.3f} of "
+          f"the {b_ms:.4f} ms bound by {by}); first design (the parent's kernel) {first_ms:.4f} ms "
+          f"({first_ms / ms:.2f}x this, {b_ms / first_ms:.3f} of the bound); plain {plain_ms:.3f} ms, SDPA bf16 "
+          f"{'refused' if library_ms is None else f'{library_ms:.4f} ms'}")
     return _entry("int8_flash_fwd", "quantized_training_tpu/ops/int8_attention.py:117", err,
                   (tuple(q.shape), ms, plain_ms), nbytes, int8_ops=4 * pairs * hd, library_ms=library_ms,
-                  sfu_ops=pairs)
+                  sfu_ops=pairs, first_ms=first_ms)
 
 
 def mixed_requests(vocab: int):
@@ -2017,7 +2044,8 @@ def int8_attention_phase(seed: int) -> dict:
     the oracle checks of its test (mean relative error below 0.05 against the
     bf16 oracle, lse within 1e-4 of the explicit logsumexp of the quantized
     scores) and causality (k and v changed from row 3 S / 4 on leave every
-    earlier row of out and lse bit-identical). Returns the launches."""
+    earlier row of out and lse bit-identical); both launches on the sm90
+    design. Returns the launches."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q, k, v = attention_inputs(gen)
     q, k = q * 0.5, k * 0.5  # the JAX test's scales
@@ -2033,7 +2061,8 @@ def int8_attention_phase(seed: int) -> dict:
     out2, lse2 = ops.int8_flash_fwd(*ops.quantize_qkv(q, k2, v2))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    check(launches["int8_flash_fwd"] == 2 and sum(launches.values()) == 2, f"two B19 launches: {launches}")
+    check(launches["int8_flash_fwd"] == launches["int8_flash_fwd_sm90"] == 2 and sum(launches.values()) == 4,
+          f"two B19 launches, both on the sm90 design: {launches}")
     check(bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()), "B19's out and lse are finite")
     ref = ops.attention_ref(q, k, v).float()
     rel = ((out.float() - ref).abs().mean() / ref.abs().mean()).item()
@@ -2049,7 +2078,7 @@ def int8_attention_phase(seed: int) -> dict:
     print(f"[13] int8_flash_fwd at {list(q.shape)} (Llama2-1B attention, bench.py's micro-batch), block_kv 512: "
           f"mean relative error against the bf16 oracle {rel:.3e} (bound 0.05); lse max error "
           f"{lse_err.max().item():.3e} (bound 1e-4 + 1e-4 |lse|); rows before {cut} bit-identical under changed "
-          f"future k and v; launches {launches['int8_flash_fwd']}")
+          f"future k and v; launches {launches['int8_flash_fwd']} (sm90 design {launches['int8_flash_fwd_sm90']})")
     return launches
 
 
@@ -2106,7 +2135,7 @@ def main() -> None:
     fill_launches([e for e in b18 if not e["name"].endswith("_sr")], rn_launches)
     fill_launches([e for e in b18 if e["name"].endswith("_sr")], sr_launches)
     fill_launches(b17, benchmark_mm_phase())
-    b19["launches"] = int8_attention_phase(SEED)["int8_flash_fwd"]
+    fill_launches([b19], int8_attention_phase(SEED))
     kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18 + b17 + [b19]
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))

@@ -63,7 +63,8 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   flash-attention forward, with its input quantize :func:`quantize_qkv` and
   oracle :func:`attention_ref`, replacing
   ``ops/int8_attention.py::int8_flash_fwd``: an op, wired into no model, as
-  in the JAX package.
+  in the JAX package; its launches on the sm90 design (TMA, wgmma) count
+  again (``int8_flash_fwd_sm90``).
 
 K1, B4, B5, B7, B8, B9, B11, B12, B14's quantize and B18 also have a
 stochastic-rounding form, and B6 an SR writeback,
@@ -210,6 +211,7 @@ KERNELS = {
     "matmul_sm90": (matmul, "sm90_launches"),
     "matmul_s8_sm90": (matmul, "s8_sm90_launches"),
     "int8_flash_fwd": (int8_flash_fwd, "launches"),
+    "int8_flash_fwd_sm90": (int8_flash_fwd, "sm90_launches"),
 }
 
 

@@ -3,9 +3,9 @@
 ``library()`` compiles every ``csrc/*.cu`` at first use, for ``sm_90a``
 (``philox.cuh``, the random stream, is included by four of them,
 ``row_common.cuh``, the row-walking kernels' building blocks and the
-one-add int8 casts, by three,
+one-add int8 casts, by four,
 ``mm_tiles.cuh``, the wmma GEMMs' tile copies, by four, and
-``sm90_gemm.cuh``, the pipelined TMA + wgmma GEMM mainloop, by two): one
+``sm90_gemm.cuh``, the pipelined TMA + wgmma GEMM mainloop, by four): one
 ``nvcc -c`` per source, all started together, then one link into a shared
 library, which it loads with ``ctypes``. The link names no ``-lcuda``:
 ``sm90_gemm.cuh`` reaches the driver's ``cuTensorMapEncodeTiled`` through
@@ -118,8 +118,8 @@ _SIGNATURES = {
     "qt_tile_scaled_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # a, b, out, M, N, K, is_bf16, out_bf16, a_vec, b_vec, sm90, stream
     "qt_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # q, qs, k, ks, v, vs, out, lse, n_inst, G, S, hd, bkv, causal, stream
-    "qt_int8_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, qs, k, ks, v, vs, out, lse, n_inst, G, S, hd, bkv, causal, ctas, stream
+    "qt_int8_flash_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -22,7 +22,9 @@ layer: the written-out counterpart of a ``jax.vmap`` over instances.
 ``block_kv`` is part of the numerics (p's row absmax runs over one kv block);
 ``block_q`` changes no number, and B19 takes its own q tile. B19 is
 ``csrc/int8_attention.cu``; its header says what bounds it on the H100 and how
-the design answers that.
+its two designs answer that. :func:`int8_flash_sm90_route` picks the design:
+the sm90 one (TMA, a producer warpgroup, wgmma for both products) where it
+tiles the shape, else the first (wmma, scores in shared memory).
 """
 
 from __future__ import annotations
@@ -30,8 +32,16 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .fused_producers import _sm_count
+from .int8_quant import _count_route
 
 NEG_INF = -1e30
+# the sm90 design's geometry (csrc/int8_attention.cu: kFlashRows,
+# kFlashChunk, kFlashMaxBkv): q rows a work item (wgmma's M), kv columns a
+# chunk (its N and K), the largest block_kv (two chunks for each of the two
+# consumer warpgroups); one CTA an SM (__launch_bounds__(384, 1))
+FLASH_ROWS, FLASH_CHUNK, FLASH_MAX_BKV = 64, 128, 512
+FLASH_CTAS_PER_SM = 1
 
 
 def _blocks(S: int, block_q: int, block_kv: int) -> tuple[int, int]:
@@ -111,6 +121,23 @@ def agreement(out, lse, ref_out, ref_lse, v_s) -> tuple[bool, float, float]:
     return ok_out and ok_lse and share <= 1e-2, d.max().item(), share
 
 
+def int8_flash_sm90_route(S: int, hd: int, bkv: int, causal: bool) -> int:
+    """CTAs an SM of B19's sm90 design at sequence length S, head dim hd and
+    kv block bkv (causal or not: the design takes both), or 0 for the first
+    design: hd 64 or 128, bkv a multiple of ``FLASH_CHUNK`` up to
+    ``FLASH_MAX_BKV`` that divides S. bkv 64, and any other head dim, keep
+    the first design."""
+    del causal
+    tiles = hd in (64, 128) and 0 < bkv <= FLASH_MAX_BKV and bkv % FLASH_CHUNK == 0 and S % bkv == 0
+    return FLASH_CTAS_PER_SM if tiles else 0
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is off a 16-byte boundary (the sm90
+    design copies the scales with bulk copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(q_i8, q_s, k_i8, k_s, v_i8, v_s, causal, bkv):
     tensors = (q_i8, q_s, k_i8, k_s, v_i8, v_s)
     if not all(t.is_cuda and t.device == q_i8.device for t in tensors):
@@ -128,13 +155,18 @@ def _launch(q_i8, q_s, k_i8, k_s, v_i8, v_s, causal, bkv):
     n_inst = 1
     for d in lead:
         n_inst *= d
+    route = int8_flash_sm90_route(S, hd, bkv, causal)
+    ctas = min(n_inst * G * (S // FLASH_ROWS), route * _sm_count(q.device)) if route else 0
+    if route:
+        ks, vs = _aligned16(ks), _aligned16(vs)
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((*lead, G, S, 1), dtype=torch.float32, device=q.device)
     err = _build.library().qt_int8_flash_fwd(
         q.data_ptr(), qs.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), n_inst, G, S, hd, bkv, int(causal), _build.stream(),
+        lse.data_ptr(), n_inst, G, S, hd, bkv, int(causal), ctas, _build.stream(),
     )
     _build.check(err, "int8_flash_fwd")
+    _count_route(int8_flash_fwd, False, bool(route))
     return out, lse
 
 
@@ -148,18 +180,18 @@ def int8_flash_fwd(q_i8: torch.Tensor, q_s: torch.Tensor, k_i8: torch.Tensor, k_
     ``min(block_q, S)`` and ``min(block_kv, S)``. A CPU tensor takes
     :func:`int8_flash_fwd_plain`; CUDA tensors launch B19 on the current
     stream (hd 64 or 128, S % 64 == 0, block_kv a multiple of 64 up to
-    512)."""
+    512), on its sm90 design where :func:`int8_flash_sm90_route` takes the
+    shape (counted in ``sm90_launches`` too)."""
     S = q_i8.shape[-2]
     _, bkv = _blocks(S, block_q, block_kv)
     if q_i8.device.type == "cpu":
         return int8_flash_fwd_plain(q_i8, q_s, k_i8, k_s, v_i8, v_s, causal=causal, block_q=block_q,
                                     block_kv=block_kv)
-    out = _launch(q_i8, q_s, k_i8, k_s, v_i8, v_s, causal, bkv)
-    int8_flash_fwd.launches += 1
-    return out
+    return _launch(q_i8, q_s, k_i8, k_s, v_i8, v_s, causal, bkv)
 
 
 int8_flash_fwd.launches = 0
+int8_flash_fwd.sm90_launches = 0
 
 
 def quantize_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_kv: int | None = None):

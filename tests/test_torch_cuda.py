@@ -1221,7 +1221,9 @@ def test_launch_counters_count_kernel_launches_only():
     ops.matmul(y, y.T.contiguous())
     ops.matmul(q, q.T.contiguous())
     ops.matmul_plain(y, y.T.contiguous())
-    qkv = ops.quantize_qkv(_rand((2, 64, 64), torch.bfloat16, 4), y[:, :64], y[:, 64:])
+    # B19 at S 128 (block_kv 128): on its sm90 design, counted there too
+    qkv = ops.quantize_qkv(*(_rand(shape, torch.bfloat16, 4 + i) for i, shape in enumerate(((2, 128, 64), (128, 64),
+                                                                                            (128, 64)))))
     ops.int8_flash_fwd(*qkv)
     ops.int8_flash_fwd_plain(*qkv)
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
@@ -1331,22 +1333,41 @@ def test_matmul_unaligned_views_and_refusals():
     ((3,), 2, 512, 128, 64, True),
     ((), 2, 256, 64, 128, False),
     ((2,), 4, 2048, 64, 512, True),
+    ((2,), 2, 2048, 128, 512, True),
+    ((2,), 2, 1024, 64, 128, False),
+    ((3,), 2, 768, 64, 384, True),
 ])
-def test_int8_flash_fwd_against_plain(lead, G, S, hd, bkv, causal):
+def test_int8_flash_fwd_against_plain(monkeypatch, lead, G, S, hd, bkv, causal):
+    """B19 within ``agreement`` of its plain version; where the sm90 route
+    takes the shape, the launch is on it (``int8_flash_fwd_sm90``), within
+    ``agreement`` of the first design too (the route forced to 0), and the
+    same bits on a second run."""
     g = torch.Generator(device="cuda").manual_seed(S + hd + bkv)
     q = (torch.randn(*lead, G, S, hd, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
     k = (torch.randn(*lead, S, hd, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
     v = torch.randn(*lead, S, hd, generator=g, device="cuda").to(torch.bfloat16)
     qkv = ops.quantize_qkv(q, k, v)
-    out, lse = ops.int8_flash_fwd(*qkv, causal=causal, block_kv=bkv)
+    ops.reset_launch_counts()
+    out, lse = ops.int8_flash_fwd(*qkv, causal=causal, block_q=bkv, block_kv=bkv)
     torch.cuda.synchronize()
-    ref_out, ref_lse = ops.int8_flash_fwd_plain(*qkv, causal=causal, block_kv=bkv)
+    route = ATTN.int8_flash_sm90_route(S, hd, bkv, causal)
+    counts = ops.launch_counts()
+    assert counts["int8_flash_fwd"] == 1 and counts["int8_flash_fwd_sm90"] == int(bool(route))
+    ref_out, ref_lse = ops.int8_flash_fwd_plain(*qkv, causal=causal, block_q=bkv, block_kv=bkv)
     assert out.shape == ref_out.shape and lse.shape == ref_lse.shape
     ok, err, share = ATTN.agreement(out, lse, ref_out, ref_lse, qkv[5])
     assert ok, (err, share)
     if causal:
         rel = (out.float() - ops.attention_ref(q, k, v).float()).abs().mean() / v.float().abs().mean()
         assert rel < 0.05, rel
+    if route:
+        again = ops.int8_flash_fwd(*qkv, causal=causal, block_q=bkv, block_kv=bkv)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        monkeypatch.setattr(ATTN, "int8_flash_sm90_route", lambda *a: 0)
+        first = ops.int8_flash_fwd(*qkv, causal=causal, block_q=bkv, block_kv=bkv)
+        ok, err, share = ATTN.agreement(out, lse, *first, qkv[5])
+        assert ok, (err, share)
+        assert ops.launch_counts()["int8_flash_fwd_sm90"] == 2
 
 
 def test_int8_flash_fwd_causality_and_refusals():
@@ -1359,6 +1380,19 @@ def test_int8_flash_fwd_causality_and_refusals():
     v2[300:] = 2 * v2[300:]
     pert = ops.int8_flash_fwd(*ops.quantize_qkv(q, k2, v2), block_kv=256)
     assert torch.equal(base[0][:, :300], pert[0][:, :300]) and torch.equal(base[1][:, :300], pert[1][:, :300])
+    # the same at block_kv 512 on the sm90 route, S 1024 cut at 700
+    q, k, v = (torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16) for s in ((G, 1024, hd), (1024, hd),
+                                                                                       (1024, hd)))
+    ops.reset_launch_counts()
+    base = ops.int8_flash_fwd(*ops.quantize_qkv(q, k, v), block_kv=512)
+    k2, v2 = k.clone(), v.clone()
+    k2[700:] = -k2[700:]
+    v2[700:] = 2 * v2[700:]
+    pert = ops.int8_flash_fwd(*ops.quantize_qkv(q, k2, v2), block_kv=512)
+    assert ops.launch_counts()["int8_flash_fwd_sm90"] == 2
+    assert torch.equal(base[0][:, :700], pert[0][:, :700]) and torch.equal(base[1][:, :700], pert[1][:, :700])
+    assert not torch.equal(base[0][:, 700:], pert[0][:, 700:])
+    q, k, v = q[:, :S], k[:S], v[:S]
     qkv = ops.quantize_qkv(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous())
     with pytest.raises(ValueError, match="hd 64 or 128"):
         ops.int8_flash_fwd(*qkv)
