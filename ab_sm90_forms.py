@@ -25,7 +25,11 @@ beside B13 (``B13``: q's rotate-half RoPE and head grouping, which shares
 its source); and B19, the causal int8 flash-attention forward of
 ``ops/csrc/int8_attention.cu`` on its sm90 design (``B19``: TMA, a producer
 warpgroup, wgmma for both products; at Llama2-1B's attention, [16, 8, 2048,
-hd] q, hd 64 and 128, block_kv 512), against an earlier tree's.
+hd] q, hd 64 and 128, block_kv 512); and the serving decode step's two
+kernels: K1, the row int8 quantize of ``ops/csrc/int8_quant.cu`` on the
+persistent row walk (``K1``, its SR form ``K1sr``), and K2 at decode sizes
+on the split-K weight stream of ``ops/csrc/scaled_mm.cu`` (``K2d``: M 8 and
+16 at Llama2-1B's four linear shapes); against an earlier tree's.
 
 Each variant is this tree's ``ops/csrc`` with a few text edits
 (``VARIANTS``), or with ``--parent DIR`` the sources of another checkout (an
@@ -52,7 +56,8 @@ TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4 one
 read and one write, for B7-B14 and B18 their inputs read and outputs written
 once; for B19 the causal triangle's exponentials at 16 a clock an SM, as
 ``chip_smoke.py`` counts them). ``kept/first`` is this tree's B4, B7-B11,
-B14, B18 and B19 on their first design (route 0); ``kept/wmma`` is this
+B14, B18, B19 and K1 on their first design (route 0), and K2d on its wmma
+tile (``decode_route`` 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
 ``parent/kernel`` its B5 and B13, ``parent/wmma`` its B19 (where it has
@@ -61,7 +66,12 @@ B7-B11, B14 and B18, whatever design they take there; K2, which no variant chang
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
+``--sass NAME`` only builds and prints the SASS instruction count of each
+variant's kernels whose name holds NAME (K1's SR walk against its RN walk:
+``--kernels K1 --variants kept --sass quantize_rows_walk``).
+
 Usage: python3 ab_sm90_forms.py [--parent DIR] [--variants kept,b2_3+3,...] [--kernels B1,B15,B5,B7,B8,B10,...]
+       [--sass NAME]
 """
 
 from __future__ import annotations
@@ -69,6 +79,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import re
 import shutil
 import subprocess
 import time
@@ -83,6 +94,7 @@ from quantized_training_tpu_torch.ops import fused_producers as FP
 from quantized_training_tpu_torch.ops import int8_attention as ATTN
 from quantized_training_tpu_torch.ops import int8_quant as IQ
 from quantized_training_tpu_torch.ops import rope as ROPE
+SM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 from quantized_training_tpu_torch.ops.int8_quant import EPS
 from quantized_training_tpu_torch.ops.tile_scaled_mm import fold_bound
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
@@ -504,6 +516,20 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
                        ("int8_attention.cu", "        if (real0) scale(s0, g0, w, mx);\n      }",
                         "        if (real0) scale(s0, g0, 2 * w, mx);\n      }")],
     "b19_k4": [("int8_attention.cu", "kKStages = HD == 64 ? 8 : 4,", "kKStages = 4,")],
+    # K2's decode stream with a deeper ring
+    "k2d_stages8": [("scaled_mm.cu", "constexpr int kDecodeStages = 4;", "constexpr int kDecodeStages = 8;")],
+    # K2's decode stream without its MMAs, or without the cluster's sums
+    # (diag: the stream alone; the reduction's cost)
+    "diag_k2d_no_mma": [("scaled_mm.cu", "      for (int c = 0; c < kDecodeBK / 32; ++c) {",
+                         "      for (int c = 0; c < kDecodeBK / 32 && kb < 0; ++c) {")],
+    "diag_k2d_no_sum": [("scaled_mm.cu", "        if (k < splits) v[k] = cluster.map_shared_rank(part, k)[row * kCols + m];",
+                         "        v[k] = part[row * kCols + m];")],
+    # K1's walk at one CTA an SM, its SR form on the walk where the route
+    # keeps the first design; K2's decode stream at other splits (launch
+    # arguments, ROUTE_ARGS)
+    "k1_one_cta": [],
+    "k1_sr_walk_all": [],
+    **{f"k2d_x{n}": [] for n in (1, 2, 3, 4, 8)},
     "diag_b19_fast_exp": [("int8_attention.cu", "const float p = expf(__fsub_rn(", "const float p = __expf(__fsub_rn(")],
     # B19's exponentials and their subtraction left out (diag: their time,
     # the results wrong)
@@ -526,6 +552,13 @@ B2_SHAPES = [(2048, 2048, 8192), (256, 2048, 8192), (5632, 2048, 8192), (2048, 5
 B16_SHAPES = [(8192, 5632, 2048), (8192, 2048, 5632), (5632, 2048, 8192), (2048, 5632, 8192)]
 # K2 at gate/up and q/o, against the parent's: the mainloop the forms share
 K2_SHAPES = [(8192, 5632, 2048), (8192, 2048, 2048)]
+# K2 at decode sizes: a decode step of 8 and of 16 slots at Llama2-1B's q/o,
+# k/v, gate/up and down
+K2D_SHAPES = [(M, N, K) for M in (8, 16) for N, K in ((2048, 2048), (256, 2048), (5632, 2048), (2048, 5632))]
+# K1 at the Llama2-1B weights, a decode step's activation rows and the
+# train step's activations
+K1_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (8, 2048), (8, 5632), (8192, 2048), (8192, 5632),
+             (512, 2048), (4096, 5632)]
 
 
 # B14's five forms: the absmax, the quantize given row or column scales, RN and SR
@@ -551,7 +584,10 @@ ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32,
               **{f"b4_{sv}": {k: {"geometry": (sv, 8)} for k in ("B4", "B4sr")} for sv in (16, 8, 4)},
               "b14_v2": {k: {"tpr": 128} for k in B14}, "b14_v1": {k: {"tpr": 256} for k in B14},
               "b14_one_cta": {k: {"ctas_per_sm": 1} for k in B14},
-              "b14_three_cta": {k: {"ctas_per_sm": 3} for k in B14}}
+              "b14_three_cta": {k: {"ctas_per_sm": 3} for k in B14},
+              "k1_one_cta": {k: {"ctas_per_sm": 1} for k in ("K1", "K1sr")},
+              "k1_sr_walk_all": {"K1sr": {"walk_all": True}},
+              **{f"k2d_x{n}": {"K2d": {"route": n}} for n in (1, 2, 3, 4, 8)}}
 
 
 def sources(name: str, edits, parent: Path | None) -> Path:
@@ -575,7 +611,8 @@ def sources(name: str, edits, parent: Path | None) -> Path:
 
 
 # the source of each kernel's C entry
-SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16": "scaled_mm.cu",
+SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "K2d": "scaled_mm.cu", "B16": "scaled_mm.cu",
+          "K1": "int8_quant.cu", "K1sr": "int8_quant.cu",
           "B15": "tile_scaled_mm.cu", "B15s8": "tile_scaled_mm.cu", "B17s8": "matmul.cu", "B5": "int8_quant.cu",
           "B5sr": "int8_quant.cu", "B4": "int8_quant.cu", "B4sr": "int8_quant.cu", "B7": "fused_producers.cu",
           "B7sr": "fused_producers.cu", "B9": "fused_producers.cu", "B9sr": "fused_producers.cu",
@@ -584,8 +621,9 @@ SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "B16
           **{k: "fused_producers.cu" for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc",
                                                 "B18gcsr")}, **dict.fromkeys(("B13", "B14a", "B14r", "B14rsr", "B14c", "B14csr"), "rope.cu"),
           "B19": "int8_attention.cu"}
-ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm"), "tile_scaled_mm.cu": ("qt_tile_scaled_mm",),
-           "matmul.cu": ("qt_matmul",), "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise"),
+ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm", "qt_scaled_mm_decode"),
+           "tile_scaled_mm.cu": ("qt_tile_scaled_mm",), "matmul.cu": ("qt_matmul",),
+           "int8_quant.cu": ("qt_quantize_int8_both", "qt_quantize_int8_colwise", "qt_quantize_int8_rowwise"),
            "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
                                   "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd",
                                   "qt_layernorm_quant_rowwise", "qt_layernorm_quant_colwise", "qt_gelu_quant_rowwise",
@@ -618,7 +656,7 @@ def build(variants: dict, parent: Path | None, kernels) -> dict:
             spec.loader.exec_module(mod)
             sigs = mod._SIGNATURES
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for fn in (e for f in files for e in ENTRIES[f]):
+        for fn in (e for f in files for e in ENTRIES[f] if e in sigs):  # an earlier tree may lack an entry
             getattr(lib, fn).argtypes = sigs[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, sigs)
@@ -675,6 +713,47 @@ def k2(lib, sigs, sm90):
         _build.check(lib.qt_scaled_mm_s8(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
                                          M, N, K, 1, 1, 1, 1, sm90, _build.stream()), "K2")
         return out
+    return call
+
+
+def k2d(lib, sigs, _, route=None):
+    """K2 at decode sizes of ``lib``: a [M, K], b [N, K] int8, bf16 scales ->
+    bf16; on the split-K weight stream at the route's CTAs a cluster
+    (``route``: this many instead, where K has as many steps; 0: the wmma
+    tile), or on the wmma tile where that tree has no stream."""
+    def call(a, b, sa, sb):
+        (M, K), N = a.shape, b.shape[0]
+        g = SM.decode_route(M, N, K) if route is None else min(route, -(-K // SM.DECODE_BK))
+        out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        if g and "qt_scaled_mm_decode" in sigs:
+            err = lib.qt_scaled_mm_decode(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(),
+                                          M, N, K, 1, 1, g, _build.stream())
+        else:
+            err = lib.qt_scaled_mm_s8(a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M,
+                                      N, K, 1, 1, 1, 1, 0, _build.stream())
+        _build.check(err, f"K2d at {M} x {N} x {K}, {g} CTAs a cluster")
+        return out
+    return call
+
+
+def k1(lib, sigs, sr, tpr=None, ctas_per_sm=IQ.ROWWISE_CTAS_PER_SM, walk_all=False):
+    """K1 of ``lib`` (``sr`` = 1: its SR form from ``B5_KEY``): x [M, K]
+    bf16 -> (q, scale [M, 1]); on the walk at ``tpr`` threads a row
+    (default: the route's, with ``walk_all`` the RN form's layout wherever
+    one tiles the row; 0: the first design), or the first design where that
+    tree's entry takes no route."""
+    def call(x):
+        M, K = x.shape
+        t = IQ.rowwise_sm90_route(M, K, x.dtype, bool(sr) and not walk_all) if tpr is None else tpr
+        args = ()
+        if len(sigs["qt_quantize_int8_rowwise"]) == 12:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            args = (t, IQ.row_walk_ctas(M, t, sms, ctas_per_sm) if t else 0)
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        scale = torch.empty(M, 1, dtype=x.dtype, device="cuda")
+        _build.check(lib.qt_quantize_int8_rowwise(x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K, EPS, 1, sr,
+                                                  B5_KEY if sr else 0, *args, _build.stream()), "K1")
+        return q, scale
     return call
 
 
@@ -978,12 +1057,31 @@ def b16(lib, sigs, sm90):
     return call
 
 
+def sass_counts(lib: Path, fragment: str, label: str) -> None:
+    """Each kernel of ``lib`` whose mangled name holds ``fragment``: its
+    SASS instructions (cuobjdump), in all and by opcode, the commonest
+    first."""
+    text = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if fragment not in name:
+            continue
+        ops = {}
+        for op in re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body):
+            ops[op] = ops.get(op, 0) + 1
+        top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:10])
+        print(f"{label} {name}: {sum(ops.values())} instructions ({top})", flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path,
                         help="another checkout, whose wmma B1, B2, B15, B16 and B17-s8, and B5, are timed too")
     parser.add_argument("--variants", default=",".join(VARIANTS))
     parser.add_argument("--kernels", default=",".join(KERNELS), help="the kernels to check and time")
+    parser.add_argument("--sass", help="only count the SASS instructions of each variant's kernels whose name "
+                                       "holds this (cuobjdump), by opcode")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ab_sm90_forms: needs a CUDA card")
@@ -996,6 +1094,10 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = build(variants, args.parent, kernels)
     print(f"built {list(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.sass:
+        for name in dict.fromkeys(n if VARIANTS.get(n) or n in ("kept", "parent") else "kept" for n in libs):
+            sass_counts(OUT / name / "lib.so", args.sass, name)
+        return
     # (label, kernel, call): each variant on the sm90 route (B5: its kernels,
     # the SR form for B5sr), and the wmma kernels
     entries = [(f"{n}/{ROUTE.get(k, 'sm90')}", k, KERNELS[k](lib, sigs, QUANT.get(k, 1), **ROUTE_ARGS.get(n, {}).get(k, {})))
@@ -1004,7 +1106,7 @@ def main() -> None:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
         entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
                     for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18, *B14,
-                              "B19")
+                              "B19", "K1", "K1sr", "K2d")
                     if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
@@ -1043,6 +1145,10 @@ def main() -> None:
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             a[:, 1] = 0
             return a, b
+        if kernel in ("K1", "K1sr"):  # (M, K): a weight-sized x with an all-zero row
+            x = (torch.randn(M, N, generator=gen, device="cuda") * 0.02).bfloat16()
+            x[0] = 0
+            return (x,)
         if kernel in ("B4", "B4sr"):  # (R, C): a weight-sized x with an all-zero row and column
             x = (torch.randn(M, N, generator=gen, device="cuda") * 0.02).bfloat16()
             x[0], x[:, 3] = 0, 0
@@ -1093,11 +1199,14 @@ def main() -> None:
             make = e4m3 if kernel == "B15" else i8
             return make((M, K)), make((K, N)), scales(M, K // 128), scales(K // 128, N // 128)
         a, b = {"B1": lambda: (i8((M, K)), i8((K, N))), "B2": lambda: (i8((K, M)), i8((K, N))),
-                "B16": lambda: (i8((M, K // 2)), i8((N, K // 2))), "K2": lambda: (i8((M, K)), i8((N, K)))}[kernel]()
+                "B16": lambda: (i8((M, K // 2)), i8((N, K // 2))), "K2": lambda: (i8((M, K)), i8((N, K))),
+                "K2d": lambda: (i8((M, K)), i8((N, K)))}[kernel]()
         return a, b, scales(M), scales(N)
 
     plain = {"B1": ops.scaled_mm_plain, "B2": ops.scaled_mm_lhs_t_plain, "B15": ops.tile_scaled_mm_plain,
              "B15s8": ops.tile_scaled_mm_plain, "B16": ops.scaled_int4_mm_plain, "K2": ops.scaled_mm_rhs_t_plain,
+             "K2d": ops.scaled_mm_rhs_t_plain, "K1": ops.quantize_int8_plain,
+             "K1sr": lambda x: ops.quantize_int8_plain(x, sr=True, key=B5_KEY),
              "B17s8": ops.matmul_plain, "B5": ops.quantize_int8_both_plain,
              "B5sr": lambda x: ops.quantize_int8_both_plain(x, sr=True, key=B5_KEY),
              "B11": ops.silu_mul_bwd_quant_rowwise_plain,
@@ -1132,7 +1241,9 @@ def main() -> None:
                           *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES)),
                           *((k, s) for k in B18 for s in ((1000, SHAPES[k][0][1]), *SHAPES[k])),
                           *((k, s) for k in B14 for s in ((1000, 2048, "bshd"), (1000, 2048, "bhsd"), *SHAPES[k])),
-                          ("B13", (8192, 2048)), ("B19", (2, 2, 1024, 64)), *(("B19", s) for s in SHAPES["B19"])):
+                          ("B13", (8192, 2048)), ("B19", (2, 2, 1024, 64)), *(("B19", s) for s in SHAPES["B19"]),
+                          *((k, s) for k in ("K1", "K1sr") for s in ((263, 2048), (1000, 5632), *SHAPES[k])),
+                          *(("K2d", (m, 200, 2064)) for m in (1, 9)), *(("K2d", s) for s in SHAPES["K2d"])):
         if kernel not in kernels:
             continue
         args_ = operands(kernel, *shape)
@@ -1143,7 +1254,10 @@ def main() -> None:
             ref32 = ops.tile_scaled_mm_plain(*args_, out_dtype=torch.float32).double()
         for label, k, call in entries:
             if k == kernel:
-                got = call(*args_)
+                try:
+                    got = call(*args_)
+                except RuntimeError as e:
+                    raise SystemExit(f"ab_sm90_forms: {label} {kernel} at {shape}: {e}") from e
                 if kernel == "B15":
                     # bf16 out: the fp32 sum within R roundings, then one bf16 rounding of it
                     err = (got.double() - ref32).abs() - 2.0**-8 * ref32.abs()
@@ -1191,6 +1305,13 @@ def main() -> None:
             print(f"{kernel} {list(shape)} causal, block_kv 512: bound {bound_us:.1f} us (exponentials); "
                   + "; ".join(cells) + f"; SDPA bf16 {sdpa_us:.1f} (a reference)", flush=True)
             continue
+        if kernel == "K2d":  # the int8 weight and x read once, out written once
+            M, N, K = shape
+            bound_us = (N * K + M * K + 2 * M * N) / HBM_BYTES_PER_S * 1e6
+            cells = [f"{label} {sum(t) / len(t):.1f} {[round(v, 1) for v in t]} ({bound_us * len(t) / sum(t):.3f})"
+                     for (label, k, s), t in times.items() if k == kernel and s == shape]
+            print(f"{kernel} M={M} N={N} K={K}: bound {bound_us:.2f} us (bytes); " + "; ".join(cells), flush=True)
+            continue
         if kernel in ROW_BYTES:  # the inputs read once, the outputs written once
             M, K = shape[:2]
             bound_us = ROW_BYTES[kernel](M, K) / HBM_BYTES_PER_S * 1e6
@@ -1229,18 +1350,20 @@ KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "
            "B18lnc": partial(b18_layernorm, cols=True), "B18lncsr": partial(b18_layernorm, cols=True),
            "B18gr": b18_gelu, "B18grsr": b18_gelu, "B18gc": partial(b18_gelu, cols=True),
            "B18gcsr": partial(b18_gelu, cols=True), "B13": b13, "B14a": b14, "B14r": partial(b14, axis=1),
-           "B14rsr": partial(b14, axis=1), "B14c": partial(b14, axis=0), "B14csr": partial(b14, axis=0), "B19": b19}
+           "B14rsr": partial(b14, axis=1), "B14c": partial(b14, axis=0), "B14csr": partial(b14, axis=0), "B19": b19,
+           "K1": k1, "K1sr": k1, "K2d": k2d}
 # B18's eight forms: LayerNorm and GELU, rows (with the column absmax) and
 # columns given scales, RN and SR
 B18 = ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc", "B18gcsr")
 # the argument each kernel's entry takes in place of the route: the SR flag
 QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B8": 0, "B8sr": 1, "B10": 0, "B11": 0, "B11sr": 1, "B9": 0,
-         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14)}, "B19": 0}
+         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14)}, "B19": 0, "K1": 0,
+         "K1sr": 1, "K2d": 0}
 ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B8": "walk", "B8sr": "walk", "B10": "walk",
          "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster",
-         "B13": "kernel", **dict.fromkeys((*B18, *B14), "walk")}
+         "B13": "kernel", **dict.fromkeys((*B18, *B14), "walk"), "K1": "walk", "K1sr": "walk", "K2d": "stream"}
 # the keyword argument that forces a kernel's first design (``kept/first``)
-FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}, "B19": {"sm90": 0}}
+FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}, "B19": {"sm90": 0}, "K2d": {"route": 0}}
 def _b18_bytes(kernel):
     """B18's bytes at [M, K] bf16, as chip_smoke.py counts them: x read
     (LayerNorm: and fp32 g, b), q written, and the fp32 row scales and
@@ -1269,7 +1392,8 @@ ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 
              "B13": lambda M, K: 4 * M * K + 2 * 2048 * 64 * 4,
              "B14a": lambda M, K: 2 * M * K + 4 * M + 4 * K, "B14r": lambda M, K: 3 * M * K + 4 * M,
              "B14rsr": lambda M, K: 3 * M * K + 4 * M, "B14c": lambda M, K: 3 * M * K + 4 * K,
-             "B14csr": lambda M, K: 3 * M * K + 4 * K}
+             "B14csr": lambda M, K: 3 * M * K + 4 * K,
+             "K1": lambda M, K: 3 * M * K + 2 * M, "K1sr": lambda M, K: 3 * M * K + 2 * M}
 # (M, N, K) each kernel is timed at: B1 at every grad_input of the Llama2-1B
 # step (8,192 tokens; K out, N in features); B15 at gemm_forms' shapes in
 # chip_smoke.py (forward, grad_input, grad_weight of gate/up and down); B17's
@@ -1295,7 +1419,7 @@ SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (819
           "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"],
           **{k: [(6400, 1536 if k.startswith("B18ln") else 6144)] for k in B18},
           **{k: [(8192, 2048, "bshd"), (8192, 2048, "bhsd")] for k in B14}, "B13": [(8192, 2048)],
-          "B19": [(16, 8, 2048, 64), (16, 8, 2048, 128)]}
+          "B19": [(16, 8, 2048, 64), (16, 8, 2048, 128)], "K1": K1_SHAPES, "K1sr": K1_SHAPES, "K2d": K2D_SHAPES}
 
 
 if __name__ == "__main__":

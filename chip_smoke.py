@@ -6,7 +6,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 2. the build: every kernel of ``quantized_training_tpu_torch/ops/csrc``
    compiled with nvcc, one process per source (seconds printed);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the serving path (K1, K2) and of the training step (K1 and B4 on
+   of the serving path (K1, K2: K1 on the persistent row walk and K2's
+   decode sizes, M 8 and 16, on the split-K weight stream, each call checked
+   to take its route and timed on its first design in the same call, the
+   outputs bit-identical) and of the training step (K1 and B4 on
    every activation and weight, B5 on every output gradient of the bench.py
    and ViT-Giant steps, B1, B2, and K2 at 8192 tokens, each
    GEMM beside ``torch._int_mm``, the nearest library call: the int32
@@ -50,16 +53,17 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    of the roofline; K2, B1, B2, B15 (both forms), B16 at every shape and
    B17 (both forms) also on the route they took (K2 above 16 rows, B1, B2,
    B15 at QK = 128, B16 and B17 on the TMA + wgmma mainloop of
-   ``sm90_gemm.cuh``, K2's decode on its wmma tile; each call checked to
-   take it) beside their wmma kernels' time (``WMMA_US``), B15's e4m3 form
+   ``sm90_gemm.cuh``; each call checked to take it) beside their wmma
+   kernels' time (``WMMA_US``), B15's e4m3 form
    with its worst error in fp32 roundings of the folded magnitudes;
    then the strides SDPA takes and returns in the grouped pipeline, which
    must run no layout copy;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
-   16/32/48/64); launch counts prove the kernels ran, K2's decode launches
-   (M <= 16) on the wmma tile and its prefill launches on the sm90 route;
+   16/32/48/64); launch counts prove the kernels ran, every K2 decode launch
+   (M <= 16) on the split-K weight stream and every prefill launch on the
+   sm90 route, K1 on the row walk but at the KV rows of 64;
    two streams are held against ``generate()``;
 5. kernel path against plain path: prefill logits of a 2-layer cut on the
    card against the same model on the CPU (plain versions);
@@ -68,7 +72,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    SDPA attention on the grouped pipeline, AdamW, the producer-fused layer:
    the one-op MLP and the ungroup-fused o-projection) on one token batch from
    ``--seed``; the losses fall, every step launches each kernel the number
-   of times the code implies (every K2, B1 and B2 launch on the sm90 route,
+   of times the code implies (every K1 weight launch on the row walk, the
+   SR form's at q, o, gate, up and down, and every K2, B1 and B2 launch on
+   the sm90 route,
    here and in phases 8, 9 and 11, every B7, B8, B9-row, B10, B11 and B14
    launch on the row walk and every B4 launch on its cluster form, here and
    in phases 8 and 9, and B4's in phase 11), and the same steps in bf16
@@ -121,7 +127,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
 kernel's launches on its path, for K2, B1, B2, B15, B16 and B17 also those
-on the sm90 route (``sm90_launches``; for B4, B5 and the SR quantizes every
+on the sm90 route (``sm90_launches``; for K1 those on the row walk; K2's
+decode stream has an entry of its own, ``scaled_mm_rhs_t_decode``, with its
+launches in phase 4; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
@@ -218,10 +226,9 @@ MM_N = 4096
 # section 6): K2 and B17 bf16, us per call in phase 3 of this script's last
 # run on those kernels; B1, B2, B15, B16 and B17 int8, ab_sm90_forms.py's
 # parent/wmma (the kernels of the tree before they took the mainloop). K2's
-# decode sizes (M 8) still take it.
+# decode sizes time their wmma tile in the same call (decode_first_design).
 WMMA_US = {
-    "scaled_mm_rhs_t": {(8, D, D): 11.2, (8, KVD, D): 7.3, (8, F, D): 15.0, (8, D, F): 26.1,
-                        (512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
+    "scaled_mm_rhs_t": {(512, D, D): 25.8, (512, KVD, D): 19.1, (512, F, D): 69.0, (512, D, F): 62.3,
                         (TOKENS, D, D): 330.8, (TOKENS, KVD, D): 44.3, (TOKENS, F, D): 890.2, (TOKENS, D, F): 851.5},
     "scaled_mm_lhs_t": {(D, D, TOKENS): 808.2, (KVD, D, TOKENS): 132.3, (F, D, TOKENS): 2205.2,
                         (D, F, TOKENS): 2215.7},
@@ -309,6 +316,12 @@ def build() -> None:
 
 
 def check_k1(gen: torch.Generator) -> dict:
+    """K1 at the serving path's and the training step's shapes: bit-exact,
+    timed beside its plain version; where its route takes the persistent
+    row walk (every shape but the KV rows of 64), also checked to launch
+    there and timed on its first design in the same call (``first_design``).
+    The entry's numbers are those at gate/up's weight [5632, 2048], the
+    largest a decode step quantizes."""
     shapes = {
         "decode act": [(8, D), (8, F)],
         "prefill act": [(16, D), (512, D), (512, F)],
@@ -316,7 +329,7 @@ def check_k1(gen: torch.Generator) -> dict:
         "weight": [(D, D), (KVD, D), (F, D), (D, F)],
         "kv rows": [(8 * 1 * 4, CFG.head_dim), (1 * 512 * 4, CFG.head_dim)],
     }
-    worst, timed = 0.0, None
+    worst, timed, first_ms = 0.0, None, None
     for kind, group in shapes.items():
         for shape in group:
             x = torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -330,13 +343,16 @@ def check_k1(gen: torch.Generator) -> dict:
             inputs = copies(x)
             ms = time_ms(ops.quantize_int8_rowwise, inputs)
             plain_ms = time_ms(ops.quantize_int8_plain, inputs)
+            nbytes = 3 * x.numel() + 2 * shape[0]  # x read, q and the bf16 scales written
             print(f"[3] K1 quantize_int8_rowwise {kind} {list(shape)} bf16: bit-exact; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"kernel {ms:.4f} ms ({bound(nbytes)[0] / ms:.3f} of the bound), plain {plain_ms:.4f} ms")
+            first = (first_design("quantize_int8_rowwise", ops.quantize_int8_rowwise, (x,), nbytes)
+                     if IQ.rowwise_sm90_route(*shape, x.dtype) else None)
             if shape == (F, D):  # the largest per-matmul byte mover of a decode step
-                timed = (shape, ms, plain_ms)
+                timed, first_ms = (shape, ms, plain_ms), first
     M, K = timed[0]
     return _entry("quantize_int8_rowwise", "quantized_training_tpu/ops/pallas_quant.py:139", worst, timed,
-                  3 * M * K + 2 * M)  # x read, q and the bf16 scales written
+                  3 * M * K + 2 * M, first_ms=first_ms)
 
 
 # the route each GEMM with an sm90 form takes on its operands (a, b, scales),
@@ -353,14 +369,23 @@ ROUTES = {
 }
 
 
+def decode_splits(a, b) -> int:
+    """K2's decode route on its operands (0: off it)."""
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    return SCALED_MM.decode_route(a.shape[0], b.shape[0], a.shape[1], aligned)
+
+
 def routed(name: str, kernel, args) -> torch.Tensor:
     """``kernel`` once on ``args``, checked to launch once and to count that
-    launch on the route ``ROUTES[name]`` gives."""
+    launch on the route ``ROUTES[name]`` gives (K2 off sm90: on its decode
+    stream where ``decode_route`` takes it, else on the wmma tile)."""
     ops.reset_launch_counts()
     out = kernel(*args)
     sm90, n = ROUTES[name](*args), ops.launch_counts()
-    check(n[name] == 1 and n[f"{name}_sm90"] == int(sm90),
-          f"{name} at {[tuple(t.shape) for t in args[:2]]} launched once, on the {'sm90' if sm90 else 'wmma'} route")
+    decode = name == "scaled_mm_rhs_t" and not sm90 and bool(decode_splits(*args[:2]))
+    route = "sm90" if sm90 else "decode" if decode else "wmma"
+    check(n[name] == 1 and n[f"{name}_sm90"] == int(sm90) and n.get(f"{name}_decode", 0) == int(decode),
+          f"{name} at {[tuple(t.shape) for t in args[:2]]} launched once, on the {route} route")
     return out
 
 
@@ -373,13 +398,16 @@ def sm90_timing(name: str, args, M: int, N: int, K: int, ms: float, nbytes: floa
             f"{by}; the wmma kernel {wmma:.4f} ms ({wmma / ms:.2f}x this)")
 
 
-def check_k2(gen: torch.Generator) -> float:
-    """K2 at the serving shapes (decode M 8 on the wmma tile, prefill M 512
-    on the sm90 mainloop), timed beside ``torch._int_mm``, its bound and its
-    wmma kernel's time; returns the worst error (K2's entry is taken at the
-    training step's shape)."""
-    worst = 0.0
-    for M in (8, 512):
+def check_k2(gen: torch.Generator) -> tuple[float, dict]:
+    """K2 at the serving shapes (decode M 8 and 16 on the split-K weight
+    stream, prefill M 512 on the sm90 mainloop), each call checked to take
+    its route, timed beside ``torch._int_mm``, its bound and its first
+    design's time (decode: the wmma tile, the route forced to 0, in this
+    call; sm90: ``WMMA_US``); returns the worst error (K2's entry is taken at
+    the training step's shape) and the decode stream's entry (M 8, gate/up,
+    bound by the weight's bytes)."""
+    worst, decode_entry = 0.0, None
+    for M in (8, 16, 512):
         for name, N, K in (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F)):
             a, sa = ops.quantize_int8_plain(torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16))
             b, sb = ops.quantize_int8_plain(
@@ -397,13 +425,39 @@ def check_k2(gen: torch.Generator) -> float:
             lib = int_mm_ms("scaled_mm_rhs_t", inputs)
             tops = 2 * M * N * K / ms / 1e9
             nbytes = M * K + N * K + 2 * M * N + 2 * (M + N)
+            if M <= SCALED_MM.DECODE_M:
+                first = decode_first_design((a, b, sa, sb), out)
+                b_ms = bound(nbytes)[0]
+                timing = (f"route decode ({decode_splits(a, b)} CTAs a cluster), {b_ms / ms:.3f} of the {b_ms:.4f} ms "
+                          f"bound by bytes; first design (the wmma tile) {first:.4f} ms ({first / ms:.2f}x this)")
+                if M == 8 and name == "gate/up":
+                    decode_entry = _entry("scaled_mm_rhs_t_decode", "quantized_training_tpu/ops/pallas_mm.py:192", err,
+                                          ((M, N, K), ms, plain_ms), nbytes, 2 * M * N * K, lib, first_ms=first)
+            else:
+                timing = sm90_timing("scaled_mm_rhs_t", (a, b), M, N, K, ms, nbytes)
             print(f"[3] K2 scaled_mm_rhs_t M={M} {name} N={N} K={K} -> bf16: bit-exact; kernel {ms:.4f} ms "
-                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
-                  f"{sm90_timing('scaled_mm_rhs_t', (a, b), M, N, K, ms, nbytes)}; plain "
+                  f"({tops:.1f} TOP/s, {nbytes / ms / 1e6:.0f} GB/s), {timing}; plain "
                   f"(float64 matmul) {plain_ms:.4f} ms, torch._int_mm (int32 out) "
                   f"{'refused' if lib is None else f'{lib:.4f} ms'}")
     k2_host_cost(gen)
-    return worst
+    decode_entry["max_abs_err"] = worst
+    return worst, decode_entry
+
+
+def decode_first_design(args, out) -> float:
+    """K2 at a decode size on its first design, the wmma tile (the decode
+    route forced to 0): the stream's output bit for bit, and its time."""
+    route = SCALED_MM.decode_route
+    SCALED_MM.decode_route = lambda *a: 0
+    try:
+        ops.reset_launch_counts()
+        first = ops.scaled_mm_rhs_t(*args)
+        check(ops.launch_counts()["scaled_mm_rhs_t_decode"] == 0, "K2's decode route forced off")
+        first_ms = time_ms(ops.scaled_mm_rhs_t, copies(*args))
+    finally:
+        SCALED_MM.decode_route = route
+    check(torch.equal(out, first), "K2's decode stream gives the wmma tile's bits")
+    return first_ms
 
 
 def k2_host_cost(gen: torch.Generator, n: int = 2000) -> None:
@@ -726,13 +780,14 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
     the algorithm needs (each input read and each output written once: K1
     one read of x and one int8 write; B4 one read and one write; B5 one read
     and two writes) and the share of the bound they give; each entry records
-    every shape (``shapes``), its own numbers are those at [8192, 5632] (B4-SR:
-    gate/up's weight [5632, 2048], also on its first design at every shape;
-    B5-SR: [8192, 2048], the shape the SR step launches it at most)."""
+    every shape (``shapes``), its own numbers are those at gate/up's weight
+    [5632, 2048] for K1-SR and B4-SR (each also on its first design, K1-SR
+    wherever its route takes the row walk, B4-SR at every shape) and at
+    [8192, 2048] for B5-SR, the shape the SR step launches it at most."""
     out = []
     for name, kernel, plain, shapes, writes, replaces, timed_shape in (
         ("quantize_int8_rowwise_sr", ops.quantize_int8_rowwise, ops.quantize_int8_plain,
-         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, "quantized_training_tpu/ops/pallas_quant.py:98", (TOKENS, F)),
+         [(TOKENS, D), (TOKENS, F), *WEIGHTS], 1, "quantized_training_tpu/ops/pallas_quant.py:98", (F, D)),
         ("quantize_int8_colwise_sr", ops.quantize_int8_colwise, partial(ops.quantize_int8_plain, axis=0),
          B4_SHAPES, 1, "quantized_training_tpu/ops/pallas_quant.py:220", (F, D)),
         ("quantize_int8_both_sr", ops.quantize_int8_both, ops.quantize_int8_both_plain, B5_SHAPES, 2,
@@ -757,7 +812,8 @@ def check_sr_quantizes(gen: torch.Generator, key: int) -> list:
             print(f"[3] {name} {list(shape)} bf16: bit-exact; SR kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                   f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), round-to-nearest kernel {rn_ms:.4f} ms "
                   f"({nbytes / rn_ms / 1e6:.0f} GB/s), plain SR {plain_ms:.4f} ms")
-            if name.removesuffix("_sr") in REDESIGNED:
+            if name.removesuffix("_sr") in REDESIGNED and (
+                    name != "quantize_int8_rowwise_sr" or IQ.rowwise_sm90_route(*shape, x.dtype, True)):
                 per_shape[-1]["first_design_ms"] = first_design(name, sr_kernel, (x,), nbytes)
             if shape == timed_shape:
                 timed, first_ms = (shape, ms, plain_ms), per_shape[-1].get("first_design_ms")
@@ -895,14 +951,16 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
 # the redesigned kernels' route predicates by counter name: (module, name)
 # of B7's, B8's, B9-row's, B10's, B11's and B18's (ops/fused_producers.py:
 # threads a row on the row walk), B14's (ops/rope.py: the same, from the
-# grouped input's width and head size) and B4's (ops/int8_quant.py: the
-# geometry of its cluster form); a route of 0 takes the first design
+# grouped input's width and head size), B4's (ops/int8_quant.py: the
+# geometry of its cluster form) and K1's (ops/int8_quant.py: threads a row on
+# the row walk, its SR form apart); a route of 0 takes the first design
 REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
               "rmsnorm_quant_colwise": (FP, "norm_cols_sm90_route"),
               "rmsnorm_bwd": (FP, "rmsnorm_bwd_sm90_route"),
               "silu_mul_bwd_quant_rowwise": (FP, "silu_bwd_rows_sm90_route"),
               "silu_mul_quant_rowwise": (FP, "silu_rows_sm90_route"),
               "quantize_int8_colwise": (IQ, "colwise_sm90_route"),
+              "quantize_int8_rowwise": (IQ, "rowwise_sm90_route"),
               "layernorm_quant_rowwise": (FP, "layernorm_rows_sm90_route"),
               "layernorm_quant_colwise": (FP, "layernorm_cols_sm90_route"),
               "gelu_quant_rowwise": (FP, "gelu_rows_sm90_route"),
@@ -923,7 +981,8 @@ def first_design(name: str, kernel, args, nbytes: float, exact: int | None = Non
     module, predicate = REDESIGNED[name.removesuffix("_sr")]
     route_of = getattr(module, predicate)
     x = args[0]
-    route = (route_of(*x.shape, x.dtype) if module is IQ else
+    route = (route_of(*x.shape, x.dtype, name.endswith("_sr")) if predicate == "rowwise_sm90_route" else
+             route_of(*x.shape, x.dtype) if module is IQ else
              route_of(x.shape[1] * x.shape[2] * x.shape[4], x.shape[4], x.dtype) if module is ROPE else  # [B, KV, G, S, hd]
              route_of(x.shape[1], x.dtype))
     ops.reset_launch_counts()
@@ -945,7 +1004,7 @@ def first_design(name: str, kernel, args, nbytes: float, exact: int | None = Non
           f"{name}: the route gives the first design's bits (and the rest within 2e-5: {rel:.2e})")
     b_ms = bound(nbytes)[0]
     what = (f"cluster form ({route[0]} vectors a strip, {route[1]} CTAs a cluster)"
-            if module is IQ else f"row walk ({route} threads a row)")
+            if predicate == "colwise_sm90_route" else f"row walk ({route} threads a row)")
     held = ("outputs bit-identical" if k == len(new) else
             f"the first {k} outputs bit-identical, the rest {rel:.2e} of their largest magnitude apart")
     print(f"[3] {name} {list(args[0].shape)}: route {what}, {ms:.4f} ms, {b_ms / ms:.3f} of the {b_ms:.4f} ms bound; "
@@ -1457,12 +1516,16 @@ def serve(gen: torch.Generator) -> dict:
     check(all(v > 0 for v in served.values()), f"every kernel of the serving path launched: {served}")
     decode = sum(m <= SCALED_MM.DECODE_M for m in rows)
     check(len(rows) == launches["scaled_mm_rhs_t"] and decode > 0
-          and launches["scaled_mm_rhs_t_sm90"] == len(rows) - decode,
-          f"K2's {decode} decode launches on the wmma tile, its {len(rows) - decode} prefill launches on sm90: "
-          f"{launches['scaled_mm_rhs_t_sm90']} sm90 of {launches['scaled_mm_rhs_t']}")
+          and launches["scaled_mm_rhs_t_decode"] == decode and launches["scaled_mm_rhs_t_sm90"] == len(rows) - decode,
+          f"K2's {decode} decode launches on the decode stream, its {len(rows) - decode} prefill launches on sm90: "
+          f"{launches['scaled_mm_rhs_t_decode']} decode and {launches['scaled_mm_rhs_t_sm90']} sm90 of "
+          f"{launches['scaled_mm_rhs_t']}")
+    k1_walk = launches["quantize_int8_rowwise_sm90"]
+    check(k1_walk > 0, "K1 launched on the row walk while serving")
     print(f"[4] Llama2-1B mixed_precision Server(n_slots=8, max_len=2048, decode_chunk=16): "
           f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; K2 {decode} decode launches "
-          f"(M <= {SCALED_MM.DECODE_M}) on the wmma tile, {len(rows) - decode} prefill launches on sm90; "
+          f"(M <= {SCALED_MM.DECODE_M}) on the decode stream, {len(rows) - decode} prefill launches on sm90; K1 "
+          f"{k1_walk} of {launches['quantize_int8_rowwise']} launches on the row walk (the rest the KV rows of 64); "
           f"weights {weights_gib:.2f} GiB, peak device memory while serving "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
     for i in (0, 1):
@@ -1521,7 +1584,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     (attention is SDPA): forward rope_group on q, k and v; backward
     rope_ungroup for their grads.
 
-    ``layer`` 'fused' (int8): forward K1 per weight (7), K2 per weight (7),
+    ``layer`` 'fused' (int8): forward K1 per weight (7; on the row walk, the
+    SR form at q, o, gate, up and down: k and v have 256 rows), K2 per weight (7),
     B7 at the two norm sites and B9-row at down's input (every one on the
     row walk), ungroup_amax and
     ungroup_quant (rows) at o's input (both on the row walk). Backward B5 at the output grads of
@@ -1531,7 +1595,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     walk) and B12 for (dgate, dup), ungroup_quant (columns, on the row
     walk) at o's input and rope_group
     for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
-    7 weights and the 4 inputs, K2 per weight, rope_ungroup at o's input;
+    7 weights and the 4 inputs (on the row walk; the SR form at five weights
+    and the three inputs of 2048), K2 per weight, rope_ungroup at o's input;
     backward per weight B5, B4, B1, B2, B4 once per input, rope_group for
     o's input grad (every B4 on the cluster form).
     'bf16': the rope kernels of 'unfused' only. All of that
@@ -1544,7 +1609,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     counts.update({"rope_group": 7 * n, "rope_ungroup": (3 if layer == "fused" else 5) * n,
                    "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
     if layer == "fused":
-        counts.update({f"quantize_int8_rowwise{t}": 2 * 7 * n, f"quantize_int8_colwise{t}": 7 * n,
+        counts.update({f"quantize_int8_rowwise{t}": 2 * 7 * n, f"quantize_int8_rowwise{t}_sm90": 2 * (5 if sr else 7) * n,
+                       f"quantize_int8_colwise{t}": 7 * n,
                        f"quantize_int8_colwise{t}_sm90": 7 * n,
                        f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": 2 * 2 * n,
                        f"rmsnorm_quant_rowwise{t}_sm90": 2 * 2 * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
@@ -1555,7 +1621,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                        f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, "ungroup_amax_sm90": 2 * n,
                        f"ungroup_quant{t}": 3 * n, f"ungroup_quant{t}_sm90": 3 * n})
     elif layer == "unfused":
-        counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_colwise{t}": 11 * n,
+        counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_rowwise{t}_sm90": 2 * (8 if sr else 11) * n,
+                       f"quantize_int8_colwise{t}": 11 * n,
                        f"quantize_int8_colwise{t}_sm90": 11 * n,
                        f"quantize_int8_both{t}": 7 * n})
     if layer != "bf16":
@@ -1926,7 +1993,7 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
     code (pinned on the CPU by tests/test_torch_vit.py::
     test_kernel_calls_per_step): per block the forward (run twice) launches
     B18 LayerNorm-row 2 (qkv, fc1; with the column absmax), GELU-row 1 (fc2),
-    K1 5 (the four weights and proj's input), K2 4; the backward
+    K1 5 (the four weights and proj's input, on the row walk), K2 4; the backward
     LayerNorm-column 2 and GELU-column 1 (given the forward's scales), B5 4,
     B4 5 (every one on the cluster form), B1 4, B2 4; each quantize in its
     SR form with ``sr``; every B18 launch on the row walk. Then B6 once
@@ -1939,7 +2006,8 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
         b18 = {f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
                f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L}
         counts.update({**b18, **{f"{k}_sm90": v for k, v in b18.items()},
-                       f"quantize_int8_rowwise{t}": 10 * L, "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
+                       f"quantize_int8_rowwise{t}": 10 * L, f"quantize_int8_rowwise{t}_sm90": 10 * L,
+                       "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
                        f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L,
                        f"quantize_int8_colwise{t}_sm90": 5 * L, "scaled_mm": 4 * L,
                        "scaled_mm_sm90": 4 * L, "scaled_mm_lhs_t": 4 * L, "scaled_mm_lhs_t_sm90": 4 * L})
@@ -2100,8 +2168,9 @@ def main() -> None:
     build()
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    serving = [check_k1(gen)]
-    training = [*check_training_quantizes(gen), *check_training_gemms(gen, check_k2(gen))]
+    k2_worst, k2_decode = check_k2(gen)
+    serving = [check_k1(gen), k2_decode]
+    training = [*check_training_quantizes(gen), *check_training_gemms(gen, k2_worst)]
     other_gemms = [check_int4_gemms(gen), *check_tile_gemms(gen)]
     sr_forms = check_sr_quantizes(gen, key)
     adamw = check_fused_adamw(gen, key)

@@ -8,7 +8,9 @@ tokens from ``--seed``), in any of these configurations: int8
 ``mixed_precision`` on the producer-fused layer (``fused``), int8 on the
 unfused layer (``unfused``, ``quant.set_impl('off')``), bf16, and int4, fp8
 tile and fp8 row ``mixed_precision`` (``int4``, ``fp8tile``, ``fp8row``: the
-unfused layer, B16 / B15 / no GEMM kernel, plain-torch quantizes). For each:
+unfused layer, B16 / B15 / no GEMM kernel, plain-torch quantizes), and
+int8 with stochastic rounding on the fused layer (``sr``: every quantize in
+its SR form). For each:
 three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
@@ -26,7 +28,14 @@ phase 11 runs it (``vit_train``'s step builder: batch 24 at 224 px, remat,
 SDPA, the same optimizer and lr; one batch of synthetic images from seed
 2024): int8 ``mixed_precision`` on the fused blocks (B18) and bf16.
 
-Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row,vit_int8,vit_bf16]
+``serve`` profiles one decode step of the serving path as ``chip_smoke.py``
+phase 4's server takes it: Llama2-1B int8 ``mixed_precision`` (random
+weights from ``--seed``), eight active slots at position 256 of a 2,048-row
+cache, the decode attention window of 512 rows, one token a slot
+(``models/serving.py::make_decode_step``): K1 on every weight and
+activation row, K2 at M 8.
+
+Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row,sr,vit_int8,vit_bf16,serve]
        [--seed N] [--top 12]
 """
 
@@ -42,21 +51,23 @@ import torch
 
 from quantized_training_tpu_torch import optim, quant, train, vit_train
 from quantized_training_tpu_torch.data import BatchLoader, SyntheticImageDataset
-from quantized_training_tpu_torch.models import llama, vit
+from quantized_training_tpu_torch.models import llama, serving, vit
 from quantized_training_tpu_torch.ops import random
 
 # quantize_params kwargs of each configuration (None: the bf16 weights)
 CONFIGS = {"fused": {}, "unfused": {}, "bf16": None, "int4": {"dtype": "int4"},
            "fp8tile": {"dtype": "fp8_e4m3", "scale": "tile"}, "fp8row": {"dtype": "fp8_e4m3", "scale": "row"},
-           "vit_int8": {}, "vit_bf16": None}
+           "vit_int8": {}, "vit_bf16": None, "serve": {}, "sr": {"stochastic_rounding": True}}
 VIT_B = 24
 
 # kernel-name fragments of each group, first match wins: sm90_gemm.cuh's
 # gemm_kernel is named by its operand form and epilogue (K2 above 16 rows
 # S8KMajor, B1 S8MnB, B2 S8MnMajor, B16 above 16 rows S4KMajor, B15
-# TileScaledOut...), and these must match before cuBLAS's "gemm"; the wmma
-# kernel is scaled_mm_s8, on packed int4 operands (B16's decode sizes, K % 32
-# != 0) with Src 1 in its template arguments. A key that is a tuple matches a
+# TileScaledOut...), and these must match before cuBLAS's "gemm"; K2 at
+# decode sizes is decode_stream; the wmma kernel is scaled_mm_s8, on packed
+# int4 operands (B16's decode sizes, K % 32 != 0) with Src 1 in its template
+# arguments. K1's walk is quantize_rows_walk, its first design
+# quantize_rows_block / quantize_rows_warp. A key that is a tuple matches a
 # name holding all of its fragments: B7's first design is row_quant over
 # NormProducer, B9-row's over SiluProducer (B18's are row_quant too), B8's
 # col_quant over NormProducer, mangled or not; on the walk B9-row is
@@ -72,7 +83,8 @@ GROUPS = (
     ("int8 GEMM K2 on the TMA + wgmma mainloop", ("s8kmajor",)),
     ("int8 GEMM B1 on the TMA + wgmma mainloop", ("s8mnb",)),
     ("int8 GEMM B2 on the TMA + wgmma mainloop", ("s8mnmajor",)),
-    ("int8 GEMM K2 on wmma (decode sizes)", ("scaled_mm_s8",)),
+    ("int8 GEMM K2 on the split-K weight stream (decode sizes)", ("decode_stream",)),
+    ("int8 GEMM K2 on wmma (decode sizes off the stream)", ("scaled_mm_s8",)),
     ("B18 LayerNorm / GELU quantizes", ("layernormproducer", "geluproducer", "layernorm_rows", "layernorm_cols",
                                         "geluop")),
     ("B7 RMSNorm row quantize", ("rmsnorm_rows", ("row_quant", "::normproducer"), ("row_quant", "12normproducer"))),
@@ -88,7 +100,8 @@ GROUPS = (
     # unaligned view, a ragged K, rows over 2048 vectors), ends in B4's
     # column cast and is counted with B4 here
     ("quantize B5 (both axes)", ("quantize_both",)),
-    ("quantize K1 (rows)", ("quantize_rows",)),
+    ("quantize K1 (rows) on the row walk", ("quantize_rows_walk",)),
+    ("quantize K1 (rows), first design", ("quantize_rows",)),
     ("quantize B4 (columns)", ("quantize_cols_cluster", "col_absmax", "col_cast")),
     ("B6 AdamW", ("fused_adamw",)),
     ("attention (SDPA)", ("flash", "fmha", "sdpa", "attention", "cudnn")),
@@ -150,10 +163,28 @@ def main() -> None:
             return loss
         return one, VIT_B, "images/s"
 
+    def serve_step(qkw):
+        """One decode step of 8 slots at position 256 (window 512): one call
+        a step, its tokens."""
+        cfg = llama.LLAMA2_1B
+        params = quant.quantize_params(llama.init_params(torch.Generator(device="cuda").manual_seed(args.seed), cfg),
+                                       "mixed_precision", **qkw)
+        state = serving.ServeState.zeros(cfg, 8, 2048, device="cuda")
+        state.active.fill_(True)
+        state.pos.fill_(256)
+        state.last_token.copy_(torch.arange(1, 9, device="cuda"))
+        step, st = serving.make_decode_step(cfg, window=512), [state]
+
+        def one(i):
+            st[0], tok = step(params, st[0])
+            return tok.sum()
+        return one, 8, "tok/s"
+
     for name in args.configs.split(","):
         qkw = CONFIGS[name]
         quant.set_impl("off" if name == "unfused" else "auto")
-        one, work, unit = (vit_step if name.startswith("vit") else llama_step)(qkw)
+        make = vit_step if name.startswith("vit") else serve_step if name == "serve" else llama_step
+        one, work, unit = make(qkw)
         for i in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()

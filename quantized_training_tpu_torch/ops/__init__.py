@@ -4,14 +4,17 @@ Counterpart of ``quantized_training_tpu/ops/__init__.py``. Hand-written CUDA
 kernels, each with a plain PyTorch version that CPU tensors take:
 
 - K1 :func:`quantize_int8_rowwise` (``csrc/int8_quant.cu``), replacing
-  ``ops/pallas_quant.py::quantize_int8_rowwise``;
+  ``ops/pallas_quant.py::quantize_int8_rowwise``; on the persistent row
+  walk again in ``quantize_int8_rowwise_sm90`` (and ``_sr_sm90``);
 - B4 :func:`quantize_int8_colwise` (``csrc/int8_quant.cu``), replacing
   ``ops/pallas_quant.py::quantize_int8_colwise``; on thread-block clusters
   again in ``quantize_int8_colwise_sm90`` (and ``_sr_sm90``);
 - B5 :func:`quantize_int8_both` (``csrc/int8_quant.cu``), replacing
   ``ops/pallas_quant.py::quantize_int8_both``;
 - K2 :func:`scaled_mm_rhs_t` (``csrc/scaled_mm.cu``), replacing
-  ``ops/pallas_mm.py::scaled_mm_dims`` with dims (1, 1);
+  ``ops/pallas_mm.py::scaled_mm_dims`` with dims (1, 1); above the decode
+  sizes on the TMA + wgmma mainloop again in ``scaled_mm_rhs_t_sm90``, at
+  them on the split-K weight stream in ``scaled_mm_rhs_t_decode``;
 - B1 :func:`scaled_mm` (``csrc/scaled_mm.cu``), replacing
   ``ops/pallas_mm.py::scaled_mm``;
 - B2 :func:`scaled_mm_lhs_t` (``csrc/scaled_mm.cu``), replacing
@@ -140,6 +143,8 @@ from .tile_scaled_mm import tile_scaled_mm, tile_scaled_mm_plain
 KERNELS = {
     "quantize_int8_rowwise": (quantize_int8_rowwise, "launches"),
     "quantize_int8_rowwise_sr": (quantize_int8_rowwise, "sr_launches"),
+    "quantize_int8_rowwise_sm90": (quantize_int8_rowwise, "sm90_launches"),
+    "quantize_int8_rowwise_sr_sm90": (quantize_int8_rowwise, "sr_sm90_launches"),
     "quantize_int8_colwise": (quantize_int8_colwise, "launches"),
     "quantize_int8_colwise_sr": (quantize_int8_colwise, "sr_launches"),
     "quantize_int8_colwise_sm90": (quantize_int8_colwise, "sm90_launches"),
@@ -148,6 +153,7 @@ KERNELS = {
     "quantize_int8_both_sr": (quantize_int8_both, "sr_launches"),
     "scaled_mm_rhs_t": (scaled_mm_rhs_t, "launches"),
     "scaled_mm_rhs_t_sm90": (scaled_mm_rhs_t, "sm90_launches"),
+    "scaled_mm_rhs_t_decode": (scaled_mm_rhs_t, "decode_launches"),
     "scaled_mm": (scaled_mm, "launches"),
     "scaled_mm_sm90": (scaled_mm, "sm90_launches"),
     "scaled_mm_lhs_t": (scaled_mm_lhs_t, "launches"),

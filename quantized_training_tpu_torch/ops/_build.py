@@ -46,8 +46,8 @@ NVCC_FLAGS = (
 
 _P, _I, _I64, _U64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64
 _SIGNATURES = {
-    # x, q, scale, M, K, eps, is_bf16, sr, key, stream
-    "qt_quantize_int8_rowwise": (_P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
+    # x, q, scale, M, K, eps, is_bf16, sr, key, tpr, ctas, stream
+    "qt_quantize_int8_rowwise": (_P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I64, _P),
     # x, q, scale, amax, R, C, eps, is_bf16, sr, key, sv, cs, threads, stream
     "qt_quantize_int8_colwise": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I, _P),
     # x, q_row, s_row, q_col, s_col, amax, M, K, eps, is_bf16, sr, key_row, key_col, stream
@@ -112,6 +112,8 @@ _SIGNATURES = {
     ),
     # a, b, sa, sb, out, M, N, K, a_kmajor, b_kmajor, scale_bf16, out_bf16, sm90, stream
     "qt_scaled_mm_s8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, splits, stream
+    "qt_scaled_mm_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, b, sa, sb, out, M, N, K, scale_bf16, out_bf16, sm90, stream
     "qt_scaled_int4_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, b, sa, sb, out, M, N, K, qm, qk, qn, is_fp8, scale_bf16, out_bf16, sm90, stream

@@ -10,12 +10,19 @@
 // quantized_training_tpu/ops/pallas_quant.py::quantize_int8_rowwise (:139).
 // Under the dynamic scheme it re-reads every bf16 weight on every matmul of
 // every decode step, which makes it the largest byte mover of the serving
-// path. Design: one 256-thread block per row for rows of 1024 elements or
-// more (activations, weights), so even the 8 rows of a decode step spread
-// over 8 SMs; one warp per row below that (KV rows of 64). Each thread moves
-// 16 bytes per load; the absmax pass and the cast pass read the same row, so
-// the second read hits L1/L2 rather than device memory. Rows whose length or
-// base is not 16-byte aligned take a scalar loop.
+// path. Bound: one read of x and one int8 write (10.3 us at [5632, 2048]
+// bf16, 3.8 at [2048, 2048]). Design: rows of 1024 elements or more
+// (weights, training and prefill activations) on 16-byte aligned inputs take
+// the persistent row walk (quantize_rows_walk; ops/int8_quant.py::
+// rowwise_sm90_route picks its threads a row): x read once into registers,
+// the next row's loads in flight under this row's cast, the cast by div_rn
+// and the one-add casts of B5's row pass, whose body it shares (row_top,
+// cast_row). The first design stays for the rest: one 256-thread block per
+// row for rows of 1024 elements or more (a decode step's 8 activation rows
+// spread over 8 SMs), one warp per row below that (KV rows of 64), each
+// reading its row twice (the absmax pass, then the cast pass from L1/L2)
+// with __fdiv_rn and rintf an element; rows whose length or base is not
+// 16-byte aligned take a scalar loop.
 //
 // B4: column-wise, x [R, C] -> q int8 [R, C], scale [1, C]. Replaces
 // pallas_quant.py::quantize_int8_colwise (:229), the backward's quantize of
@@ -465,6 +472,42 @@ __device__ __forceinline__ float2 denom_of(float s, float eps) {
   return make_float2(d, __frcp_rn(d));
 }
 
+// The body the row pass of B5 and K1's row walk share. row_top: the max |x|
+// of a row over this thread's P vectors of it, as fp32 bits; with COLS the
+// thread's running column maxima cm (packed as x) take the vectors too.
+template <typename T, bool COLS, int P>
+__device__ __forceinline__ unsigned int row_top(const uint4 (&u)[P], uint4 (&cm)[P]) {
+  unsigned int m = 0u;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const uint4 a = Abs<T>::of(u[p]);
+    if constexpr (COLS) cm[p] = Abs<T>::max(cm[p], a);
+    m = ::max(m, Abs<T>::top(a));
+  }
+  return m;
+}
+
+// cast_row: row ``row``'s int8 cast from its vectors in registers (thread t
+// of the row's tpr holds vector t + p tpr, p < P; one past the row's nv
+// vectors is skipped) given the row's max |x| bits: s = amax / 127 (IEEE
+// division), each element by div_rn and the one-add cast (cast_vec), and s
+// stored in x's dtype by thread 0.
+template <typename T, bool SR, int P>
+__device__ __forceinline__ void cast_row(const uint4 (&u)[P], unsigned int amax, int64_t row, int64_t K, int t,
+                                         int tpr, float eps, uint64_t key, int8_t* __restrict__ q,
+                                         T* __restrict__ scale) {
+  constexpr int N = 16 / sizeof(T);
+  const int64_t nv = K / N;
+  const float s = __fdiv_rn(__uint_as_float(amax), 127.0f);
+  const float2 dy = denom_of(s, eps);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int64_t v = t + static_cast<int64_t>(p) * tpr;
+    if (v < nv) cast_vec<T, SR>(u[p], [&](int) { return dy; }, row * K + v * N, key, q + row * K + v * N);
+  }
+  if (t == 0) store_scale(scale + row, s);
+}
+
 // The row steps of both passes: step i is rows [G i, G i + G), taken by a
 // group of TPR threads; thread t of the group holds vector t + p TPR of each
 // of its G rows (p < 4 / G).
@@ -539,16 +582,7 @@ quantize_both_row_pass(const T* __restrict__ x, int8_t* __restrict__ q, T* __res
   walk.template for_steps<false>(xv, M, nv, [&](int64_t step, const uint4 (&u)[G][VPL]) {
     unsigned int rmax[G];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      rmax[g] = 0u;
-#pragma unroll
-      for (int p = 0; p < VPL; ++p) {
-        const uint4 a = Abs<T>::of(u[g][p]);
-        cm[p] = Abs<T>::max(cm[p], a);
-        rmax[g] = ::max(rmax[g], Abs<T>::top(a));
-      }
-      rmax[g] = __reduce_max_sync(0xFFFFFFFFu, rmax[g]);
-    }
+    for (int g = 0; g < G; ++g) rmax[g] = __reduce_max_sync(0xFFFFFFFFu, row_top<T, true>(u[g], cm));
     if constexpr (WARPS > 1) {
       const int warp = walk.t / 32;
       if (walk.t % 32 == 0)
@@ -564,14 +598,7 @@ quantize_both_row_pass(const T* __restrict__ x, int8_t* __restrict__ q, T* __res
     for (int g = 0; g < G; ++g) {
       const int64_t row = step * G + g;
       if (row >= M) break;
-      const float s = __fdiv_rn(__uint_as_float(rmax[g]), 127.0f);
-      const float2 dy = denom_of(s, eps);
-#pragma unroll
-      for (int p = 0; p < VPL; ++p) {
-        const int64_t v = walk.t + p * TPR;
-        if (v < nv) cast_vec<T, SR>(u[g][p], [&](int) { return dy; }, row * K + v * N, key, q + row * K + v * N);
-      }
-      if (walk.t == 0) store_scale(scale + row, s);
+      cast_row<T, SR>(u[g], rmax[g], row, K, walk.t, TPR, eps, key, q, scale);
     }
     parity ^= 1;
   });
@@ -694,6 +721,66 @@ cudaError_t launch_both_passes(const T* x, void* q_row, void* s_row, void* q_col
 template <typename T>
 bool vec_ok(const void* x, int64_t cols) {
   return reinterpret_cast<uintptr_t>(x) % 16 == 0 && cols % (16 / sizeof(T)) == 0;
+}
+
+// ---- K1 on the persistent row walk ------------------------------------------
+
+// K1's walk (the route ops/int8_quant.py::rowwise_sm90_route picks its
+// threads a row, tpr): a group of tpr threads (whole warps) takes a row, V
+// 16-byte vectors a thread with tpr V the row's vectors: V = 4 at 32-256
+// threads (bf16 K 1024-8192, the Llama2-1B weights' 2048 with 64), else 3
+// (bf16 K 1536: 64), else 2 up to 384 (bf16 K 5632: 352, one group a CTA).
+// The row is read once, into registers, and the next row's loads are in
+// flight while the group casts this one (RowWalk); its max is a warp
+// reduction, then an exchange of the group's warps' maxima in shared words
+// (alternating between rows, so one named barrier a row suffices); the
+// cast, the scale and the SR words are B5's row pass's (row_top, cast_row),
+// so q and the scale are the first design's bit for bit. Two CTAs an SM.
+constexpr int kRowWalkCtasPerSm = 2;
+
+template <int V>
+__host__ __device__ constexpr int row_walk_max_cta() { return V == 2 ? 384 : kThreads; }
+
+template <typename T, bool SR, int V>
+__global__ void __launch_bounds__(row_walk_max_cta<V>(), kRowWalkCtasPerSm)
+quantize_rows_walk(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale, int64_t M, int64_t K,
+                   int tpr, float eps, uint64_t key) {
+  __shared__ unsigned int red[2][row_walk_max_cta<V>() / 32];  // each warp's row max bits, by row parity
+  const RowWalk<V, 1> walk(tpr);
+  const int warps = tpr / 32, warp = threadIdx.x / 32;
+  constexpr int N = 16 / sizeof(T);
+  const int64_t nv = K / N;
+  const uint4* const in[1] = {reinterpret_cast<const uint4*>(x)};
+  uint4 no_cols[V];  // K1 keeps no column state
+  int parity = 0;
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
+    unsigned int m = __reduce_max_sync(0xFFFFFFFFu, row_top<T, false>(u[0], no_cols));
+    if (warps > 1) {
+      if (threadIdx.x % 32 == 0) red[parity][warp] = m;
+      group_sync(walk.grp, tpr);
+      for (int w = walk.grp * warps; w < (walk.grp + 1) * warps; ++w) m = ::max(m, red[parity][w]);
+      parity ^= 1;
+    }
+    cast_row<T, SR>(u[0], m, row, K, walk.t, tpr, eps, key, q, scale);
+  });
+}
+
+// K1's walk at tpr threads a row over ctas CTAs of max(tpr, 256) threads;
+// refuses a layout the kernels do not have
+template <typename T, bool SR>
+cudaError_t launch_rows_walk(const void* x, void* q, void* scale, int64_t M, int64_t K, int tpr, int64_t ctas,
+                             float eps, uint64_t key, cudaStream_t stream) {
+  constexpr int N = 16 / sizeof(T);
+  const int64_t nv = K / N;
+  const int cta = tpr > kThreads ? tpr : kThreads;
+  const int V = tpr > 0 && tpr % 32 == 0 && cta % tpr == 0 && nv % tpr == 0 ? static_cast<int>(nv / tpr) : 0;
+  const bool fits = V == 2 ? cta <= row_walk_max_cta<2>() : (V == 3 || V == 4) && cta == kThreads;
+  if (!vec_ok<T>(x, K) || !fits || ctas <= 0) return cudaErrorInvalidValue;
+  const auto kernel = V == 4 ? quantize_rows_walk<T, SR, 4> : V == 3 ? quantize_rows_walk<T, SR, 3>
+                                                                     : quantize_rows_walk<T, SR, 2>;
+  kernel<<<static_cast<unsigned int>(ctas), cta, 0, stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(q),
+                                                              static_cast<T*>(scale), M, K, tpr, eps, key);
+  return cudaGetLastError();
 }
 
 
@@ -892,11 +979,17 @@ cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, vo
 // is_bf16: x and the scales are bf16, else fp32. sr: round stochastically
 // from the Philox stream of ``key`` (philox.cuh), else to nearest even.
 
-// x and q are contiguous [M, K]; scale is [M].
+// x and q are contiguous [M, K]; scale is [M]. tpr, ctas
+// (ops/int8_quant.py::rowwise_sm90_route): tpr 0 takes the first design
+// (quantize_rows_block, quantize_rows_warp); else the row walk at tpr
+// threads a row over ctas CTAs (x 16-byte aligned, K a whole number of
+// vectors).
 extern "C" int qt_quantize_int8_rowwise(const void* x, void* q, void* scale, int64_t M, int64_t K, float eps,
-                                        int is_bf16, int sr, uint64_t key, void* stream) {
+                                        int is_bf16, int sr, uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (M <= 0 || K <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tpr != 0)
+    return static_cast<int>(QT_DISPATCH(launch_rows_walk, is_bf16, sr, x, q, scale, M, K, tpr, ctas, eps, key, s));
   return static_cast<int>(QT_DISPATCH(launch, is_bf16, sr, x, q, scale, M, K, eps, key, s));
 }
 

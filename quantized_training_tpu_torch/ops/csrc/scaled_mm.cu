@@ -29,14 +29,41 @@
 // with K % 32 == 0 run on the pipelined TMA + wgmma mainloop of
 // sm90_gemm.cuh (its note says how it answers the bound; B1, B2 and B16
 // through a producer that rewrites the landed tiles into wgmma's K-major
-// layout); the caller decides that route and passes it in (ops/scaled_mm.py::
-// sm90_route, ::rhs_mn_sm90_route and ::lhs_t_sm90_route, ops/int4_mm.py::
-// sm90_route).
+// layout); K2 at M <= 16 on the split-K weight stream (decode_stream below);
+// the caller decides those routes and passes them in (ops/scaled_mm.py::
+// sm90_route, ::decode_route, ::rhs_mn_sm90_route and ::lhs_t_sm90_route,
+// ops/int4_mm.py::sm90_route).
 //
-// Everything below is the wmma kernel of K2's and B16's decode tiles, and of
-// B16 at a K that TMA cannot describe packed (K % 32 != 0), past the
-// mainloop's exact range (K >= 2^17), or on operands off a 16-byte
-// boundary: both operands K-major. Tiles go through shared memory in 16x16
+// K2 at decode sizes (decode_stream). At M <= 16 (a decode step's slots) K2
+// moves the int8 weight b [N, K] once and does 2 M N K operations on it, so
+// its bound is b's bytes (1.3 us at q/o [2048, 2048]), which only a grid that
+// keeps some 2-3 MB of b in flight across the card (3.35 TB/s times about a
+// microsecond of latency) comes near; the wmma tile below had 8 KB a CTA in
+// flight on N / 32 CTAs (8 at k/v) and reached 0.02-0.23 of it. Here a CTA
+// of two warps takes 16 rows of b (one m16 tile) over one of `splits` runs
+// of its K, and the splits of a tile form a thread-block cluster
+// (ops/scaled_mm.py::decode_route picks splits so that the grid holds about
+// four CTAs an SM). The producer warp's lane 0 keeps a ring of kDecodeStages
+// stages full by TMA, each stage 128 bytes of K for the tile's rows of b and
+// x's 8 NT rows (NT n8 tiles: 1 up to 8 rows, else 2; rows past M or N and
+// columns past K land as zeros), with the 128-byte swizzle, the stage's full
+// mbarrier counting the bytes. The consumer warp multiplies b's rows by x's
+// with mma.sync m16n8k32 (b as A, x as B, s32 sums), reading both through
+// ldmatrix (conflict-free under the swizzle), and releases the stage on its
+// empty mbarrier. int32 sums are exact, so the splits' partial sums add in
+// any order: each CTA leaves its [16][8 NT] sums in shared memory, and after
+// one cluster barrier CTA k of the cluster sums the k-th share of the tile's
+// outputs over the cluster's CTAs through distributed shared memory and
+// applies the epilogue, ((float)acc * sa[m]) * sb[n] rounded once to the
+// output dtype: the wmma tile's bits. ab_sm90_forms.py timed wider tiles (2
+// and 4 consumer warps, 32 and 64 rows), rings of 8 and 12 stages and
+// clusters of 1-8 on the H100: one warp at four CTAs an SM was the fastest
+// or within 0.1 us of it at every serving shape (PERF.md).
+//
+// The wmma kernel below serves B16's decode tiles and B16 at a K that TMA
+// cannot describe packed (K % 32 != 0), past the mainloop's exact range (K >=
+// 2^17), or on operands off a 16-byte boundary; and K2 where the decode route
+// is refused (its first design): both operands K-major. Tiles go through shared memory in 16x16
 // blocks of 16-byte rows (mm_tiles.cuh), so that every wmma fragment load is
 // 256-bit aligned with a leading dimension of 16. wmma m16n16k16
 // signed-char fragments accumulate in int32; one kernel, templated on
@@ -47,6 +74,7 @@
 // rows are zero-filled on load and masked on store. The next K tile is
 // fetched into registers while the current one runs through the MMAs.
 
+#include <cooperative_groups.h>
 #include <mma.h>
 
 #include "mm_tiles.cuh"
@@ -155,12 +183,187 @@ cudaError_t launch_tiles(const void* a, const void* b, const void* sa, const voi
 template <Src S, typename ST, typename OT>
 cudaError_t launch(const void* a, const void* b, const void* sa, const void* sb, void* out, int M,
                    int N, int K, cudaStream_t stream) {
-  if constexpr (S == Src::S8) {  // K2 off the sm90 route: the decode sizes
+  if constexpr (S == Src::S8) {  // K2 off the sm90 route and the decode stream (its first design)
     return launch_tiles<16, 32, 256, 1, 2, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   } else {
     if (M <= 16) return launch_tiles<16, 32, 256, 1, 2, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
     return launch_tiles<64, 64, 64, 2, 2, S, ST, OT>(a, b, sa, sb, out, M, N, K, stream);
   }
+}
+
+// ---- K2 at decode sizes: the split-K weight stream --------------------------
+
+constexpr int kDecodeBK = 128;       // K bytes a stage row: the swizzle span
+constexpr int kDecodeStages = 4;     // the ring
+constexpr int kDecodeMaxSplits = 8;  // CTAs a cluster: the portable size
+constexpr int kDecodeRows = 16;      // rows of b a CTA: one m16 tile
+
+// A CTA: a consumer warp on kDecodeRows rows of b, NT n8 tiles of x's rows,
+// and a producer warp
+template <int NT>
+struct DecodeTile {
+  static constexpr int kThreads = 64, kCols = 8 * NT;
+  static constexpr int kWBytes = kDecodeRows * kDecodeBK, kXBytes = kCols * kDecodeBK;
+  static constexpr int kStage = kWBytes + kXBytes;             // each part a whole number of 1 KB swizzle atoms
+  static constexpr int kSmem = kDecodeStages * kStage + 1024;  // and the ring's alignment to one
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];" : "=r"(r[0]), "=r"(r[1]) : "r"(addr));
+}
+
+// d += a . b: a 16 rows x 32 K (rows lane / 4 (+ 8 in a[1], a[3]), K 4 (lane
+// % 4) .. + 3 (+ 16 in a[2], a[3])), b 32 K x 8 columns (column lane / 4, K
+// 4 (lane % 4) .. + 3 (+ 16 in b1)), int8, int32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The byte offset of 16-byte chunk c of row r in a tile of 128-byte rows with
+// the 128-byte swizzle (TMA's layout)
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return static_cast<uint32_t>(r * kDecodeBK + ((c ^ (r & 7)) << 4));
+}
+
+// out [M, N] = epilogue(a [M, K] . b [N, K]^T) at M <= 8 NT; CTA rank k of
+// cluster t takes rows [16 t, 16 t + 16) of b over K steps [k kblocks /
+// splits, (k + 1) kblocks / splits) of 128 bytes.
+template <int NT, typename ST, typename OT>
+__global__ void __launch_bounds__(DecodeTile<NT>::kThreads)
+decode_stream(const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap ta,
+              const qt_sm90::ScaledOut<ST, OT> epi, int M, int N, int kblocks) {
+  using G = DecodeTile<NT>;
+  using namespace qt_sm90;
+  constexpr int kCols = G::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kDecodeStages], empty_bar[kDecodeStages];
+  __shared__ int part[kDecodeRows * kCols];  // this CTA's sums, [row][column]: its cluster reads them
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks()), split = static_cast<int>(cluster.block_rank());
+  const int n0 = static_cast<int>(blockIdx.x) / splits * kDecodeRows;
+  const int kb0 = split * kblocks / splits, kb1 = (split + 1) * kblocks / splits;
+  uint8_t* ring_ptr = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t ring = smem_u32(ring_ptr), full0 = smem_u32(full_bar), empty0 = smem_u32(empty_bar);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDecodeStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 1) {  // the producer: one lane keeps the ring full
+    if (lane == 0)
+      for (int kb = kb0, i = 0; kb < kb1; ++kb, ++i) {
+        const int s = i % kDecodeStages, use = i / kDecodeStages;
+        if (use > 0) mbar_wait(empty0 + 8 * s, (use - 1) & 1);
+        const uint32_t bar = full0 + 8 * s, dst = ring + s * G::kStage;
+        mbar_expect_tx(bar, G::kStage);
+        tma_load(dst, &tb, kb * kDecodeBK, n0, bar);
+        tma_load(dst + G::kWBytes, &ta, kb * kDecodeBK, 0, bar);
+      }
+  } else {  // the consumer
+    int acc[NT][4] = {};
+    // the row and 16-byte half of a k32 step whose address this lane gives
+    // ldmatrix: for b's four 8 x 16-byte matrices (rows 0-7 and 8-15, each
+    // half) and for x's two (rows 0-7, each half) or four (and rows 8-15)
+    const int ra = lane & 15, ha = lane >> 4;
+    const int rx = (lane & 7) + (NT == 2 ? (lane >> 4) << 3 : 0), hx = (lane >> 3) & 1;
+    for (int kb = kb0, i = 0; kb < kb1; ++kb, ++i) {
+      const int s = i % kDecodeStages;
+      mbar_wait(full0 + 8 * s, (i / kDecodeStages) & 1);
+      const uint32_t ws = ring + s * G::kStage, xs = ws + G::kWBytes;
+#pragma unroll
+      for (int c = 0; c < kDecodeBK / 32; ++c) {
+        uint32_t a[4];
+        ldmatrix_x4(a, ws + swizzled(ra, 2 * c + ha));
+        if constexpr (NT == 2) {
+          uint32_t x[4];
+          ldmatrix_x4(x, xs + swizzled(rx, 2 * c + hx));
+          mma_s8(acc[0], a, x[0], x[1]);
+          mma_s8(acc[1], a, x[2], x[3]);
+        } else {
+          uint32_t x[2];
+          ldmatrix_x2(x, xs + swizzled(rx, 2 * c + hx));
+          mma_s8(acc[0], a, x[0], x[1]);
+        }
+      }
+      __syncwarp();  // every lane's reads of the stage are done
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+    // the accumulators: rows lane / 4 (+ 8 in acc[t][2..3]), columns 8 t + 2
+    // (lane % 4) (+ 1)
+    int* p = part + (lane / 4) * kCols + 2 * (lane % 4);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      p[8 * t] = acc[t][0];
+      p[8 * t + 1] = acc[t][1];
+      p[8 * kCols + 8 * t] = acc[t][2];
+      p[8 * kCols + 8 * t + 1] = acc[t][3];
+    }
+  }
+  cluster.sync();  // every CTA's sums are written and visible to the cluster
+  // this CTA's share of the tile's outputs, e = m kDecodeRows + row:
+  // consecutive threads on consecutive columns of out; every peer's sum
+  // loaded before any is added, so that the remote loads overlap
+  constexpr int E = kDecodeRows * kCols;
+  for (int e = split * E / splits + static_cast<int>(threadIdx.x); e < (split + 1) * E / splits; e += G::kThreads) {
+    const int m = e / kDecodeRows, row = e % kDecodeRows, n = n0 + row;
+    if (m < M && n < N) {
+      int sum = 0, v[kDecodeMaxSplits];
+#pragma unroll
+      for (int k = 0; k < kDecodeMaxSplits; ++k)
+        if (k < splits) v[k] = cluster.map_shared_rank(part, k)[row * kCols + m];
+#pragma unroll
+      for (int k = 0; k < kDecodeMaxSplits; ++k)
+        if (k < splits) sum += v[k];
+      const auto rw = epi.row(m, N);
+      store1(rw.p + n, epi.value(rw, n, sum));
+    }
+  }
+  cluster.sync();  // no CTA leaves while a peer still reads its sums
+}
+
+template <int NT, typename ST, typename OT>
+cudaError_t launch_decode_tile(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N,
+                               int K, int splits, cudaStream_t stream) {
+  using G = DecodeTile<NT>;
+  CUtensorMap tb, ta;
+  cudaError_t err = qt_sm90::encode_2d(&tb, CU_TENSOR_MAP_DATA_TYPE_UINT8, b, K, N, K, kDecodeBK, kDecodeRows);
+  if (err == cudaSuccess) err = qt_sm90::encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, K, kDecodeBK, G::kCols);
+  if (err != cudaSuccess) return err;
+  const auto kernel = decode_stream<NT, ST, OT>;
+  const qt_sm90::ScaledOut<ST, OT> epi{static_cast<const ST*>(sa), static_cast<const ST*>(sb), static_cast<OT*>(out)};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>((N + kDecodeRows - 1) / kDecodeRows * splits));
+  cfg.blockDim = dim3(G::kThreads);
+  cfg.dynamicSmemBytes = G::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, tb, ta, epi, M, N, (K + kDecodeBK - 1) / kDecodeBK);
+}
+
+template <typename ST, typename OT>
+cudaError_t launch_decode(const void* a, const void* b, const void* sa, const void* sb, void* out, int M, int N, int K,
+                          int splits, cudaStream_t s) {
+  return M > 8 ? launch_decode_tile<2, ST, OT>(a, b, sa, sb, out, M, N, K, splits, s)
+               : launch_decode_tile<1, ST, OT>(a, b, sa, sb, out, M, N, K, splits, s);
 }
 
 template <Src S>
@@ -216,6 +419,31 @@ extern "C" int qt_scaled_mm_s8(const void* a, const void* b, const void* sa, con
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// K2 at decode sizes on the split-K weight stream (decode_stream): a [M, K]
+// and b [N, K] int8, contiguous, 16-byte aligned, 1 <= M <= 16, K > 0 and K %
+// 16 == 0; sa [M], sb [N], out [M, N] as for qt_scaled_mm_s8. splits (1-8, at
+// most K's 128-byte steps): the CTAs of a cluster, each a run of K, that
+// share 16 rows of b (ops/scaled_mm.py::decode_route). Returns the launch's
+// cudaError_t.
+extern "C" int qt_scaled_mm_decode(const void* a, const void* b, const void* sa, const void* sb, void* out, int M,
+                                   int N, int K, int scale_bf16, int out_bf16, int splits, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (M > 16 || K <= 0 || K % 16 || !aligned || splits < 1 || splits > kDecodeMaxSplits ||
+      splits > (K + kDecodeBK - 1) / kDecodeBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+  cudaError_t err;
+  if (scale_bf16)
+    err = out_bf16 ? launch_decode<BF, BF>(a, b, sa, sb, out, M, N, K, splits, s)
+                   : launch_decode<BF, float>(a, b, sa, sb, out, M, N, K, splits, s);
+  else
+    err = out_bf16 ? launch_decode<float, BF>(a, b, sa, sb, out, M, N, K, splits, s)
+                   : launch_decode<float, float>(a, b, sa, sb, out, M, N, K, splits, s);
   return static_cast<int>(err);
 }
 

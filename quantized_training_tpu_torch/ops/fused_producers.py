@@ -59,13 +59,12 @@ bits (B10's dgamma apart).
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from . import _build, random
-from .int8_quant import _check_device_input, _count, _count_route, _key
+from .int8_quant import _check_device_input, _count, _count_route, _key, _sm_count, row_walk_ctas
 
 EPS = 1e-12
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -474,18 +473,6 @@ def gelu_ctas_per_sm(K: int, dtype, sr: bool) -> int:
     (their launch bounds are its ``silu_rows_ctas``): two for the RN form at
     two vectors a thread, else one."""
     return _elementwise_ctas_per_sm(gelu_rows_sm90_route(K, dtype), K, dtype, sr)
-
-
-def row_walk_ctas(M: int, tpr: int, sms: int, per_sm: int) -> int:
-    """CTAs of a row walk of M rows at ``tpr`` threads a row: a block of
-    max(tpr, 256) threads, its groups one row each at a time, at most
-    ``per_sm`` blocks on each of ``sms`` SMs."""
-    return min(-(-M // (max(tpr, _CTA) // tpr)), per_sm * sms)
-
-
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---- wrappers -------------------------------------------------------------------

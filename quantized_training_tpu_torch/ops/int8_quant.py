@@ -2,7 +2,10 @@
 
 Counterparts of ``quantized_training_tpu/ops/pallas_quant.py``:
 
-- K1 :func:`quantize_int8_rowwise` for ``quantize_int8_rowwise`` (:139);
+- K1 :func:`quantize_int8_rowwise` for ``quantize_int8_rowwise`` (:139),
+  on the persistent row walk where :func:`rowwise_sm90_route` gives its
+  threads a row (every weight and training or prefill activation of the
+  Llama2-1B and ViT-Giant paths);
 - B4 :func:`quantize_int8_colwise` for ``quantize_int8_colwise`` (:229),
   in one launch on thread-block clusters where :func:`colwise_sm90_route`
   gives a geometry (every weight of the Llama2-1B and ViT-Giant steps);
@@ -21,6 +24,8 @@ and how their design answers that.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -93,11 +98,77 @@ def _check_device_input(x: torch.Tensor, what: str, ndim: int | None = None) -> 
         raise ValueError(f"{what}: needs a non-empty {ndim}-D tensor, got shape {tuple(x.shape)}")
 
 
+# ---- the persistent row walk (K1 here; B7-B11, B14 and B18 in
+# fused_producers.py and rope.py) ------------------------------------------
+
+_CTA = 256  # the row kernels' block (csrc/row_common.cuh::kThreads)
+
+
+def row_walk_ctas(M: int, tpr: int, sms: int, per_sm: int) -> int:
+    """CTAs of a row walk of M rows at ``tpr`` threads a row: a block of
+    max(tpr, 256) threads, its groups one row each at a time, at most
+    ``per_sm`` blocks on each of ``sms`` SMs."""
+    return min(-(-M // (max(tpr, _CTA) // tpr)), per_sm * sms)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# K1's row walk (csrc/int8_quant.cu::quantize_rows_walk): the vectors a
+# thread a row it tries, in order, with the largest CTA each has (its launch
+# bounds, row_walk_max_cta), and the CTAs an SM it keeps (kRowWalkCtasPerSm).
+# Rows below ROWWISE_MIN_K elements (the KV rows of 64) keep the first
+# design. So does the SR form, whose Philox words make it bound by integer
+# work, at three or four vectors a thread below ROWWISE_SR_MIN_ROWS rows
+# (there the walk's grid is under two CTAs an SM, and a thread draws the
+# words of four vectors in turn where the first design's draws one's) and
+# at two vectors a thread above ROWWISE_SR_MAX_ROWS_TWO (704 threads an SM,
+# where the first design keeps more warps in flight): the first design
+# measured faster there
+ROWWISE_VECTORS = {4: 256, 3: 256, 2: 384}
+ROWWISE_CTAS_PER_SM = 2
+ROWWISE_MIN_K = 1024
+ROWWISE_SR_MIN_ROWS = 512
+ROWWISE_SR_MAX_ROWS_TWO = 2048
+
+
+def rowwise_sm90_route(M: int, K: int, dtype, sr: bool = False) -> int:
+    """The threads a row of K1 (its SR form with ``sr``) on the persistent
+    row walk (``csrc/int8_quant.cu::quantize_rows_walk``), 0 for the first
+    design (``quantize_rows_block`` / ``quantize_rows_warp``): rows of at
+    least ``ROWWISE_MIN_K`` elements that are a whole number of 16-byte
+    vectors (for the SR form at three or four vectors a thread from
+    ``ROWWISE_SR_MIN_ROWS`` rows, at two up to ``ROWWISE_SR_MAX_ROWS_TWO``), at the
+    first of ``ROWWISE_VECTORS`` vectors a thread that tiles the row with
+    whole warps in a group that divides the block of 256 or is the block (up
+    to the kernel's largest): bf16 K 2048 (the Llama2-1B weights' q/o, k/v,
+    gate/up) takes 64 threads of four vectors, K 5632 (down) 352 of two,
+    ViT-Giant's 1536 64 of three and 6144 256 of three; fp32 K 2048 128 of
+    four. On the H100 the walk measured faster than the first design at
+    every shape it takes, a decode step's 8 activation rows included
+    (``chip_smoke.py``, PERF.md)."""
+    n = 16 // dtype.itemsize
+    if M < 1 or K < ROWWISE_MIN_K or K % n:
+        return 0
+    nv = K // n
+    for v, max_cta in ROWWISE_VECTORS.items():
+        tpr = nv // v
+        if tpr * v == nv and tpr % 32 == 0 and (_CTA % tpr == 0 or _CTA < tpr <= max_cta):
+            off = M > ROWWISE_SR_MAX_ROWS_TWO if v == 2 else M < ROWWISE_SR_MIN_ROWS
+            return 0 if sr and off else tpr
+    return 0
+
+
 def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
     """x [..., K] -> (q int8 [..., K], scale x.dtype [..., 1]), reducing the
     last axis, rounding stochastically from ``key`` with ``sr``. A CPU tensor
     takes :func:`quantize_int8_plain`; a CUDA tensor (bf16 or fp32,
-    contiguous) launches K1, or its SR form, on the current stream."""
+    contiguous) launches K1, or its SR form, on the current stream: on the
+    persistent row walk where :func:`rowwise_sm90_route` gives its threads a
+    row and x starts on a 16-byte boundary (counted again in
+    ``sm90_launches``, ``sr_sm90_launches``), else the first design."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, eps=eps, sr=sr, key=key)
     key = _key(sr, key)
@@ -106,18 +177,21 @@ def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False
         raise ValueError("quantize_int8_rowwise: x must have a last axis")
     K = x.shape[-1]
     M = x.numel() // K if K else 0
+    tpr = rowwise_sm90_route(M, K, x.dtype, sr) if x.data_ptr() % 16 == 0 else 0
+    ctas = row_walk_ctas(M, tpr, _sm_count(x.device), ROWWISE_CTAS_PER_SM) if tpr else 0
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scale = torch.empty((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
     err = _build.library().qt_quantize_int8_rowwise(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K, eps,
-        int(x.dtype == torch.bfloat16), int(sr), key, _build.stream(),
+        int(x.dtype == torch.bfloat16), int(sr), key, tpr, ctas, _build.stream(),
     )
     _build.check(err, "quantize_int8_rowwise")
-    _count(quantize_int8_rowwise, sr)
+    _count_route(quantize_int8_rowwise, sr, bool(tpr))
     return q, scale
 
 
 quantize_int8_rowwise.launches = quantize_int8_rowwise.sr_launches = 0
+quantize_int8_rowwise.sm90_launches = quantize_int8_rowwise.sr_sm90_launches = 0
 
 
 # B4's cluster form (csrc/int8_quant.cu::quantize_cols_cluster), on the

@@ -21,7 +21,9 @@ the design answers that. K2 above the decode sizes, B1 and B2 run on the
 pipelined TMA + wgmma mainloop of ``csrc/sm90_gemm.cuh`` (:func:`sm90_route`,
 :func:`rhs_mn_sm90_route` and :func:`lhs_t_sm90_route`, counted in the
 ``sm90_launches`` of ``scaled_mm_rhs_t``, ``scaled_mm`` and
-``scaled_mm_lhs_t``); the MN-major operands (B1's b, both of B2's) are
+``scaled_mm_lhs_t``), and K2 at the decode sizes on a split-K stream of the
+weight (:func:`decode_route`, counted in ``decode_launches``); the MN-major
+operands (B1's b, both of B2's) are
 transposed on chip, by the mainloop's producer, into the K-major stage that
 8-bit wgmma reads, and B1 and B2 have no wmma form left. No operand is
 transposed in device memory.
@@ -36,17 +38,43 @@ from .fp8 import FP8_TYPES, scaled_fp8_mm_general
 from .tile_scaled_mm import tile_scaled_mm
 
 _SCALE_DTYPES = (torch.bfloat16, torch.float32)
-# K2 at M <= DECODE_M keeps the wmma decode tile (16 x 32, K step 256): its
-# bound is the weight's bytes, not the tensor cores
+# K2 at M <= DECODE_M (a decode step's slots) is bound by the weight's bytes,
+# not the tensor cores: it streams the weight (decode_route)
 DECODE_M = 16
+# the decode stream (csrc/scaled_mm.cu::decode_stream): 16 rows of the weight
+# a CTA (kDecodeRows), K in steps of DECODE_BK bytes split over at most
+# DECODE_MAX_SPLITS CTAs of a cluster (kDecodeBK, kDecodeMaxSplits); the grid
+# it aims for, about four CTAs on each of the H100's 132 SMs; and the least
+# weight it takes (bytes): below it the wmma tile measured faster
+DECODE_ROWS = 16
+DECODE_BK = 128
+DECODE_MAX_SPLITS = 8
+DECODE_CTAS = 512
+DECODE_MIN_BYTES = 1 << 18
 
 
 def sm90_route(M: int) -> bool:
     """Whether K2 at M rows of a takes the TMA + wgmma mainloop
-    (``csrc/sm90_gemm.cuh``) rather than the wmma decode tile: training,
-    ViT and prefill sizes do, decode steps of up to ``DECODE_M`` slots do
-    not. The only thing that chooses K2's route."""
+    (``csrc/sm90_gemm.cuh``): training, ViT and prefill sizes do, decode
+    steps of up to ``DECODE_M`` slots take :func:`decode_route`'s stream."""
     return M > DECODE_M
+
+
+def decode_route(M: int, N: int, K: int, aligned: bool = True) -> int:
+    """The CTAs a cluster of K2's split-K weight stream at a [M, K] . b
+    [N, K]^T (``csrc/scaled_mm.cu::decode_stream``): ``splits`` CTAs share
+    16 rows of b, each one run of K; or 0 for the wmma tile, K2's first
+    design. The stream takes every decode size (1 <= M <= ``DECODE_M``)
+    with K > 0 a multiple of 16 on 16-byte aligned operands (what TMA
+    describes) and a weight of at least ``DECODE_MIN_BYTES``, at as many
+    splits as bring the grid to ``DECODE_CTAS``, at most
+    ``DECODE_MAX_SPLITS`` and K's 128-byte steps: Llama2-1B's q/o and down
+    take 4, gate/up 2, k/v 8. On the H100 that was the fastest geometry of
+    those timed, or within 0.1 us of it, at each of them (PERF.md)."""
+    if not (aligned and 1 <= M <= DECODE_M and K > 0 and K % 16 == 0 and N * K >= DECODE_MIN_BYTES):
+        return 0
+    steps, tiles = -(-K // DECODE_BK), -(-N // DECODE_ROWS)
+    return min(DECODE_MAX_SPLITS, steps, -(-DECODE_CTAS // tiles))
 
 
 def rhs_mn_sm90_route(N: int, K: int) -> bool:
@@ -111,9 +139,10 @@ def scaled_mm_lhs_t_plain(a, b, scale_a, scale_b, *, out_dtype=torch.bfloat16):
     return _plain(a, b, scale_a, scale_b, (0, 0), out_dtype)
 
 
-def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False):
+def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False, decode=0):
     """Check the operands of one form and launch its kernel on the current
-    stream, on the sm90 mainloop where ``sm90``: K2's choice; B1 and B2 have
+    stream, on the sm90 mainloop where ``sm90``, on the decode stream at
+    ``decode`` CTAs a cluster where given: K2's choice; B1 and B2 have
     no other kernel, and a shape off their route raises. Operands stay in
     their stored layouts: a K-major operand has the contraction axis last,
     an MN-major one first."""
@@ -143,11 +172,17 @@ def _launch(what, a, b, scale_a, scale_b, dims, out_dtype, sm90=False):
     sa = _as_vector(scale_a, M, "scale_a")
     sb = _as_vector(scale_b, N, "scale_b")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    err = _build.library().qt_scaled_mm_s8(
-        a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K,
-        int(ca == 1), int(cb == 1), int(sa.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), int(sm90), _build.stream(),
-    )
+    flags = (int(sa.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
+    if decode:
+        err = _build.library().qt_scaled_mm_decode(
+            a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K, *flags, decode,
+            _build.stream(),
+        )
+    else:
+        err = _build.library().qt_scaled_mm_s8(
+            a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K,
+            int(ca == 1), int(cb == 1), *flags, int(sm90), _build.stream(),
+        )
     _build.check(err, what)
     return out
 
@@ -161,18 +196,24 @@ def scaled_mm_rhs_t(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor,
     for both). A CPU tensor takes :func:`scaled_mm_rhs_t_plain`; CUDA
     tensors launch K2 on the current stream, which needs K % 16 == 0 and
     16-byte aligned, contiguous operands; on the sm90 mainloop where
-    :func:`sm90_route` says so (counted in ``sm90_launches`` as well)."""
+    :func:`sm90_route` says so (counted in ``sm90_launches`` as well), on
+    the decode stream where :func:`decode_route` gives its geometry
+    (counted in ``decode_launches``), else on the wmma tile."""
     if a.device.type == "cpu":
         return scaled_mm_rhs_t_plain(a, b, scale_a, scale_b, out_dtype=out_dtype)
     sm90 = sm90_route(a.shape[0])
-    out = _launch("scaled_mm_rhs_t", a, b, scale_a, scale_b, (1, 1), out_dtype, sm90)
+    decode = 0 if sm90 else decode_route(a.shape[0], b.shape[0], a.shape[-1],
+                                         a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+    out = _launch("scaled_mm_rhs_t", a, b, scale_a, scale_b, (1, 1), out_dtype, sm90, decode)
     scaled_mm_rhs_t.launches += 1
     scaled_mm_rhs_t.sm90_launches += sm90
+    scaled_mm_rhs_t.decode_launches += bool(decode)
     return out
 
 
 scaled_mm_rhs_t.launches = 0
 scaled_mm_rhs_t.sm90_launches = 0
+scaled_mm_rhs_t.decode_launches = 0
 
 
 def scaled_mm(a: torch.Tensor, b: torch.Tensor, scale_a: torch.Tensor, scale_b: torch.Tensor,

@@ -37,6 +37,7 @@ ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention"
 FP = importlib.import_module("quantized_training_tpu_torch.ops.fused_producers")
 IQ = importlib.import_module("quantized_training_tpu_torch.ops.int8_quant")
 ROPE = importlib.import_module("quantized_training_tpu_torch.ops.rope")
+SCALED_MM = importlib.import_module("quantized_training_tpu_torch.ops.scaled_mm")
 
 pytestmark = pytest.mark.cuda
 
@@ -114,21 +115,94 @@ def test_scaled_mm_sm90_bit_exact(M, N, K):
 
 
 @pytest.mark.parametrize("M", [1, 8, 16])
-def test_scaled_mm_decode_keeps_the_wmma_tile(M):
-    """K2 at decode sizes stays on the wmma decode tile: bit-exact, no sm90
-    launch."""
+def test_scaled_mm_decode_takes_the_stream(M):
+    """K2 at decode sizes takes the split-K weight stream: bit-exact with
+    the plain version and with the wmma tile, its first design (the route
+    forced to 0), one launch counted on the decode route, none on sm90."""
     g = torch.Generator(device="cuda").manual_seed(M)
     a = torch.randint(-128, 128, (M, 2048), generator=g, device="cuda", dtype=torch.int8)
     b = torch.randint(-128, 128, (5632, 2048), generator=g, device="cuda", dtype=torch.int8)
     sa, sb = torch.rand(M, 1, device="cuda"), torch.rand(1, 5632, device="cuda")
     ops.reset_launch_counts()
     out = ops.scaled_mm_rhs_t(a, b, sa, sb)
+    counts = ops.launch_counts()
     torch.cuda.synchronize()
     assert torch.equal(out, ops.scaled_mm_rhs_t_plain(a, b, sa, sb))
+    assert counts["scaled_mm_rhs_t"] == counts["scaled_mm_rhs_t_decode"] == 1 and counts["scaled_mm_rhs_t_sm90"] == 0
+    route = SCALED_MM.decode_route
+    try:
+        SCALED_MM.decode_route = lambda *args: 0
+        assert torch.equal(out, ops.scaled_mm_rhs_t(a, b, sa, sb))
+    finally:
+        SCALED_MM.decode_route = route
+
+
+# K2's decode stream: Llama2-1B's four linear shapes (N, K) and an N off 16
+# with a K off 32
+DECODE_SHAPES = [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (200, 2064)]
+
+
+@pytest.mark.parametrize("N,K", DECODE_SHAPES)
+@pytest.mark.parametrize("M", list(range(1, 17)))
+def test_scaled_mm_decode_stream_bit_exact(M, N, K):
+    """K2's split-K weight stream at every decode size (M 1-16, one n8 tile
+    of x's rows up to 8, two above) and shape: bit-exact with the plain
+    version in bf16 and fp32 scales and outputs, every launch on the decode
+    route."""
+    g = torch.Generator(device="cuda").manual_seed(M * N + K)
+    a = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+    b = torch.randint(-128, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+    assert SCALED_MM.decode_route(M, N, K)
+    ops.reset_launch_counts()
+    for scale_dtype, out_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)):
+        sa = (torch.rand(M, 1, generator=g, device="cuda") * 0.01).to(scale_dtype)
+        sb = (torch.rand(1, N, generator=g, device="cuda") * 0.01).to(scale_dtype)
+        out = ops.scaled_mm_rhs_t(a, b, sa, sb, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ops.scaled_mm_rhs_t_plain(a, b, sa, sb, out_dtype=out_dtype))
     counts = ops.launch_counts()
-    assert counts["scaled_mm_rhs_t"] == 1 and counts["scaled_mm_rhs_t_sm90"] == 0
+    assert counts["scaled_mm_rhs_t"] == counts["scaled_mm_rhs_t_decode"] == 2
 
 
+# K1: every shape chip_smoke.py's check_k1 holds it at (a decode step's
+# activations, prefill chunks, the train step's activations, the four
+# weights, the KV rows of 64) and ragged row counts
+K1_SHAPES = [(8, 2048), (8, 5632), (16, 2048), (512, 2048), (512, 5632), (8192, 2048), (8192, 5632), (2048, 2048),
+             (256, 2048), (5632, 2048), (2048, 5632), (32, 64), (2048, 64), (1, 2048), (3, 2048), (263, 2048),
+             (263, 5632)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", K1_SHAPES, ids=[f"{m}x{k}" for m, k in K1_SHAPES])
+def test_k1_walk_bit_exact(monkeypatch, shape, dtype, sr):
+    """K1 on the persistent row walk, RN and SR, wherever a walk layout
+    tiles the row (the route forced to it for the SR form below its least
+    rows and above its most at two vectors a thread): the plain version's
+    bits and its first design's (the route forced to 0), scales included,
+    the same bits on a second run; counted on the walk where its route
+    takes it."""
+    x = (_rand(shape, dtype, shape[0] + shape[1]) * 0.01).to(dtype)
+    x[0] = 0  # an all-zero row
+    kw = dict(sr=sr, key=123457 if sr else None)
+    route = IQ.rowwise_sm90_route
+    layout = route(*shape, dtype)
+    ops.reset_launch_counts()
+    got = ops.quantize_int8_rowwise(x, **kw)
+    counts = ops.launch_counts()
+    t = "_sr" if sr else ""
+    assert counts[f"quantize_int8_rowwise{t}"] == 1
+    assert counts[f"quantize_int8_rowwise{t}_sm90"] == int(bool(route(*shape, dtype, sr)))
+    monkeypatch.setattr(IQ, "rowwise_sm90_route", lambda M, K, dt, sr=False: route(M, K, dt))
+    walk = ops.quantize_int8_rowwise(x, **kw)
+    again = ops.quantize_int8_rowwise(x, **kw)
+    monkeypatch.setattr(IQ, "rowwise_sm90_route", lambda *args: 0)
+    first = ops.quantize_int8_rowwise(x, **kw)
+    torch.cuda.synchronize()
+    ref = ops.quantize_int8_plain(x, **kw)
+    for outs in (got, walk, again, first):
+        assert torch.equal(outs[0], ref[0]) and torch.equal(outs[1], ref[1])
+    assert bool(layout) is (shape[1] >= 1024 and not (dtype == torch.float32 and shape[1] == 5632))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(1, 1), (3, 7), (64, 128), (130, 200), (256, 2048), (8192, 256), (1000, 5632),
                                    (2048, 5632), (16, 8192), (5, 8200), (1, 2048), (3, 1024)])
@@ -1151,13 +1225,18 @@ def test_tile_scaled_mm_sm90_routes(qk, sm90):
 def test_launch_counters_count_kernel_launches_only():
     ops.reset_launch_counts()
     x = _rand((64, 64), torch.bfloat16, 2)
-    q, s = ops.quantize_int8_rowwise(x)
+    q, s = ops.quantize_int8_plain(x)
+    # K1 on the row walk (RN at any row count, SR from 512 rows): counted there too
+    ops.quantize_int8_rowwise(_rand((64, 1024), torch.bfloat16, 6))
     qc, sc = ops.quantize_int8_colwise(x)
     qr, sr, qc2, sc2 = ops.quantize_int8_both(x)
-    ops.quantize_int8_rowwise(x, sr=True, key=1)
+    ops.quantize_int8_rowwise(_rand((512, 1024), torch.bfloat16, 7), sr=True, key=1)
     ops.quantize_int8_colwise(x, sr=True, key=1)
     ops.quantize_int8_both(x, sr=True, key=1)
-    ops.scaled_mm_rhs_t(q, q, s, s.T)
+    ops.scaled_mm_rhs_t(q, q, s, s.T)  # M 64: on the sm90 route
+    # M 8 on a 256 KB weight: on the decode stream
+    (xd, sxd), (wd, swd) = (ops.quantize_int8_plain(_rand(shape, torch.bfloat16, 8)) for shape in ((8, 1024), (256, 1024)))
+    ops.scaled_mm_rhs_t(xd, wd, sxd, swd.T)
     ops.scaled_mm(qr, qc, sr, sc)  # B1 and B2 on the sm90 route: counted in both of their counters
     ops.scaled_mm_lhs_t(qc2, qc, sc2, sc)
     adamw_in = _adamw_inputs(64, torch.bfloat16, 0)
@@ -1203,7 +1282,6 @@ def test_launch_counters_count_kernel_launches_only():
     ops.ungroup_quant(wide_heads, row, axis=1)
     ops.ungroup_quant(wide_heads, row, axis=1, sr=True, key=1)
     ops.ungroup_quant_plain(wide_heads, row, axis=1, sr=True, key=1)
-    ops.quantize_int8_plain(x)
     ops.quantize_int8_plain(x, sr=True, key=1)
     ops.quantize_int8_both_plain(x)
     ops.scaled_mm_plain(qr, qc, sr, sc)
@@ -1226,7 +1304,8 @@ def test_launch_counters_count_kernel_launches_only():
                                                                                             (128, 64)))))
     ops.int8_flash_fwd(*qkv)
     ops.int8_flash_fwd_plain(*qkv)
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 1)
+    # K2 once on each of its two routes, every other counter once
+    assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 1), "scaled_mm_rhs_t": 2}
     ops.reset_launch_counts()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
     ops.gelu_quant(y, axis=0)  # two passes: one launch of the column form, on the first design

@@ -1,5 +1,7 @@
 """The route each sm90-capable GEMM takes, on the CPU: K2
-(``ops/scaled_mm.py::sm90_route``), B1 (``ops/scaled_mm.py::
+(``ops/scaled_mm.py::sm90_route`` above the decode sizes, ``::decode_route``
+at them: the split-K weight stream of ``csrc/scaled_mm.cu::decode_stream``),
+B1 (``ops/scaled_mm.py::
 rhs_mn_sm90_route``), B2 (``ops/scaled_mm.py::lhs_t_sm90_route``), B15
 (``ops/tile_scaled_mm.py::sm90_route``), B16 (``ops/int4_mm.py::sm90_route``)
 and B17 (``ops/matmul.py::sm90_route``, both forms) choose between the TMA + wgmma
@@ -50,9 +52,69 @@ K2_CASES = [(M, name, linears, sm90)
 @pytest.mark.parametrize("M,name,linears,sm90", K2_CASES,
                          ids=[f"M{M}-{name}-N{lin[name][0]}-K{lin[name][1]}" for M, name, lin, _ in K2_CASES])
 def test_k2_route(M, name, linears, sm90):
-    """K2 above 16 rows takes the sm90 mainloop; a decode step keeps the
-    wmma decode tile, whatever the linear."""
+    """K2 above 16 rows takes the sm90 mainloop; a decode step takes the
+    decode stream, whatever the linear."""
+    N, K = linears[name]
     assert SCALED_MM.sm90_route(M) is sm90
+    assert bool(SCALED_MM.decode_route(M, N, K)) is not sm90
+
+
+# linear -> the decode stream's CTAs a cluster at Llama2-1B's four linear
+# shapes, at decode steps of 1, 8 and 16 slots
+DECODE_SPLITS = {"q/o": 4, "k/v": 8, "gate/up": 2, "down": 4}
+DECODE_CASES = [(M, name) for M in (1, 8, 16) for name in LLAMA_LINEARS]
+
+
+@pytest.mark.parametrize("M,name", DECODE_CASES, ids=[f"M{M}-{n}" for M, n in DECODE_CASES])
+def test_k2_decode_route(M, name):
+    """Every decode step's K2 takes the split-K weight stream at the CTAs a
+    cluster ``DECODE_SPLITS`` names, whatever the slots: as many as bring
+    the grid of 16-row tiles to ``DECODE_CTAS`` (about four an SM), at most
+    8 (a portable cluster) and at most K's 128-byte steps."""
+    N, K = LLAMA_LINEARS[name]
+    splits = SCALED_MM.decode_route(M, N, K)
+    assert splits == DECODE_SPLITS[name]
+    steps, tiles = -(-K // SCALED_MM.DECODE_BK), -(-N // SCALED_MM.DECODE_ROWS)
+    assert 1 <= splits <= min(SCALED_MM.DECODE_MAX_SPLITS, steps)
+    assert tiles * splits >= SCALED_MM.DECODE_CTAS or splits == min(SCALED_MM.DECODE_MAX_SPLITS, steps)
+    assert tiles * (splits - 1) < SCALED_MM.DECODE_CTAS
+
+
+@pytest.mark.parametrize("M,N,K,aligned", [(17, 2048, 2048, True), (8192, 5632, 2048, True), (8, 2048, 2048, False),
+                                           (8, 2048, 2056, True), (8, 2048, 0, True), (0, 2048, 2048, True),
+                                           (8, 96, 256, True), (16, 256, 512, True)])
+def test_k2_decode_route_refuses(M, N, K, aligned):
+    """The decode stream takes no M above 16 (the sm90 mainloop's), no
+    operand off a 16-byte boundary, no K that TMA cannot describe (K % 16
+    != 0, K = 0) and no weight below ``DECODE_MIN_BYTES`` (where the wmma
+    tile measured faster): the route gives 0 there."""
+    assert SCALED_MM.decode_route(M, N, K, aligned) == 0
+
+
+@pytest.mark.parametrize("N,K", [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632), (200, 2064), (128, 2048)])
+def test_k2_decode_splits_cover_k_and_the_outputs(N, K):
+    """A mirror of ``decode_stream``'s bounds: CTA rank k of a cluster of
+    ``splits`` takes K steps [k steps / splits, (k + 1) steps / splits),
+    none empty, together every step once; and outputs [k E / splits, (k + 1)
+    E / splits) of its tile's E = 16 x 8 NT, together every output once."""
+    for M in (1, 8, 9, 16):
+        splits = SCALED_MM.decode_route(M, N, K)
+        steps = -(-K // SCALED_MM.DECODE_BK)
+        runs = [range(k * steps // splits, (k + 1) * steps // splits) for k in range(splits)]
+        assert all(len(r) > 0 for r in runs) and [i for r in runs for i in r] == list(range(steps))
+        E = SCALED_MM.DECODE_ROWS * 8 * (1 if M <= 8 else 2)
+        shares = [range(k * E // splits, (k + 1) * E // splits) for k in range(splits)]
+        assert [e for r in shares for e in r] == list(range(E))
+
+
+def test_k2_decode_constants_match_the_kernel():
+    """The route's step, rows a CTA and cluster limit are the kernel's
+    (``csrc/scaled_mm.cu``): a route the entry would refuse
+    (cudaErrorInvalidValue) is never given."""
+    src = (_build.CSRC / "scaled_mm.cu").read_text()
+    assert f"constexpr int kDecodeBK = {SCALED_MM.DECODE_BK};" in src
+    assert f"constexpr int kDecodeMaxSplits = {SCALED_MM.DECODE_MAX_SPLITS};" in src
+    assert f"constexpr int kDecodeRows = {SCALED_MM.DECODE_ROWS};" in src
 
 
 def _operand(shape, dtype, offset=0):
@@ -119,15 +181,65 @@ def _meta(shape, dtype):
 @pytest.mark.parametrize("M,sm90", [(8, False), (16, False), (17, True), (8192, True)])
 def test_k2_passes_its_route(library, M, sm90):
     """K2's wrapper passes ``sm90_route(M)`` as the argument before the
-    stream, one argument per ``_SIGNATURES`` entry, and counts the launch in
-    ``launches`` and, on the sm90 route, in ``sm90_launches``."""
-    a, b = _meta((M, 256), torch.int8), _meta((512, 256), torch.int8)
-    ops.scaled_mm_rhs_t(a, b, _meta((M, 1), torch.bfloat16), _meta((1, 512), torch.bfloat16))
+    stream of ``qt_scaled_mm_s8`` above the decode sizes, and at them calls
+    ``qt_scaled_mm_decode`` with ``decode_route``'s CTAs a cluster as the
+    argument before the stream, one argument per ``_SIGNATURES`` entry
+    either way; it counts the launch in ``launches`` and on its route in
+    ``sm90_launches`` or ``decode_launches``."""
+    a, b = _meta((M, 256), torch.int8), _meta((2048, 256), torch.int8)
+    ops.scaled_mm_rhs_t(a, b, _meta((M, 1), torch.bfloat16), _meta((1, 2048), torch.bfloat16))
     (name, args), = library.calls
-    assert name == "qt_scaled_mm_s8" and len(args) == len(_build._SIGNATURES[name])
-    assert args[-2] == int(sm90)
+    assert name == ("qt_scaled_mm_s8" if sm90 else "qt_scaled_mm_decode")
+    assert len(args) == len(_build._SIGNATURES[name])
+    if sm90:
+        assert args[-2] == 1
+    else:
+        assert args[5:8] == (M, 2048, 256) and args[-2] == SCALED_MM.decode_route(M, 2048, 256) == 2
     counts = ops.launch_counts()
     assert counts["scaled_mm_rhs_t"] == 1 and counts["scaled_mm_rhs_t_sm90"] == int(sm90)
+    assert counts["scaled_mm_rhs_t_decode"] == int(not sm90)
+
+
+@pytest.mark.parametrize("M,name", DECODE_CASES, ids=[f"M{M}-{n}" for M, n in DECODE_CASES])
+@pytest.mark.parametrize("scale_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32)])
+def test_k2_passes_the_decode_route(library, M, name, scale_dtype, out_dtype):
+    """At every decode step's linear K2's wrapper calls the decode stream's
+    entry with the operands' shapes, the scale and output type flags and
+    ``decode_route``'s CTAs a cluster, and counts it there and nowhere
+    else."""
+    N, K = LLAMA_LINEARS[name]
+    out = ops.scaled_mm_rhs_t(_meta((M, K), torch.int8), _meta((N, K), torch.int8), _meta((M, 1), scale_dtype),
+                              _meta((1, N), scale_dtype), out_dtype=out_dtype)
+    (fn, args), = library.calls
+    assert fn == "qt_scaled_mm_decode" and len(args) == len(_build._SIGNATURES[fn]) == 12
+    assert args[5:10] == (M, N, K, int(scale_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
+    assert args[10] == DECODE_SPLITS[name] and args[-1] == 0
+    assert out.shape == (M, N) and out.dtype == out_dtype
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_rhs_t"] == counts["scaled_mm_rhs_t_decode"] == 1 and counts["scaled_mm_rhs_t_sm90"] == 0
+
+
+def test_k2_small_weight_keeps_the_wmma_tile(library):
+    """Below ``DECODE_MIN_BYTES`` of weight a decode size passes route 0 to
+    ``qt_scaled_mm_s8`` (the wmma tile) and counts no stream launch."""
+    ops.scaled_mm_rhs_t(_meta((8, 256), torch.int8), _meta((96, 256), torch.int8), _meta((8, 1), torch.bfloat16),
+                        _meta((1, 96), torch.bfloat16))
+    (fn, args), = library.calls
+    assert fn == "qt_scaled_mm_s8" and args[5:8] == (8, 96, 256) and args[-2] == 0
+    counts = ops.launch_counts()
+    assert counts["scaled_mm_rhs_t"] == 1 and counts["scaled_mm_rhs_t_decode"] == counts["scaled_mm_rhs_t_sm90"] == 0
+
+
+def test_k2_decode_off_16_bytes_launches_nothing(library):
+    """An operand off a 16-byte boundary has no K2 kernel (TMA and the wmma
+    tile's 16-byte loads both need it): the route gives 0 and the wrapper
+    raises before any launch."""
+    b = torch.empty(2048 * 256 + 16, dtype=torch.int8, device="meta")[1:1 + 2048 * 256].view(2048, 256)
+    assert b.data_ptr() % 16 and SCALED_MM.decode_route(8, 2048, 256) and not SCALED_MM.decode_route(8, 2048, 256, False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.scaled_mm_rhs_t(_meta((8, 256), torch.int8), b, _meta((8, 1), torch.bfloat16),
+                            _meta((1, 2048), torch.bfloat16))
+    assert library.calls == [] and ops.launch_counts()["scaled_mm_rhs_t"] == 0
 
 
 @pytest.mark.parametrize("tokens,out,inp", [(8192, 512, 256), (1000, 2048, 5632), (520, 256, 1024)])
