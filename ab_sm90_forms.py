@@ -13,7 +13,10 @@ both-axes int8 quantize of ``ops/csrc/int8_quant.cu`` (``B5``, its SR form
 ``B9``, ``B9sr``: silu(a) * b inside the row quantize with the column
 absmax; ``B10``: the RMSNorm backward, dx and dgamma; ``B11``, ``B11sr``:
 the silu backward inside the row quantizes of (da, db) with their column
-absmax) and B18's eight forms (``B18lnr``, ``B18lnrsr``: LayerNorm inside
+absmax), B9's column form and B12 given the column scales (``B9c``,
+``B9csr``: silu(a) * b inside the column quantize; ``B12c``, ``B12csr``:
+the silu backward inside the column quantizes of (da, db)) and B18's eight
+forms (``B18lnr``, ``B18lnrsr``: LayerNorm inside
 the row quantize with the column absmax; ``B18lnc``, ``B18lncsr``:
 LayerNorm inside the column quantize given the column scales; ``B18gr``,
 ``B18grsr``, ``B18gc``, ``B18gcsr``: tanh-GELU, the same two), and B14 of ``ops/csrc/rope.cu`` on
@@ -40,8 +43,8 @@ is held against the plain versions at a ragged shape and at gate/up's
 (B17's int8 form at 4096^3, B5 at its step shapes; bit-exact; B7, B8 and
 B18's LayerNorm forms against this tree's first design (``kept/first``),
 whose bits the walk keeps, B10's dx too and its dgamma within 2e-5 of its
-largest magnitude, B4, B9, B11, B13, B14 and B18's GELU forms against
-their plain versions; B19 within ``ops/int8_attention.py::agreement`` of
+largest magnitude, B4, B9 (both forms), B11, B12, B13, B14 and B18's
+GELU forms against their plain versions; B19 within ``ops/int8_attention.py::agreement`` of
 its plain version (the row sums of p in another order); B15's e4m3 form within ``fold_bound``'s QK + n_qk fp32
 roundings, its worst error printed in those roundings; ``diag_`` variants
 break the kernel or its tolerance on purpose, to time what a part of it
@@ -55,14 +58,14 @@ B7-B14, B18) and the share of the bound (the 8-bit tensor cores' 1,979
 TOP/s; for B5 one read of x and two int8 writes at 3.35 TB/s, for B4 one
 read and one write, for B7-B14 and B18 their inputs read and outputs written
 once; for B19 the causal triangle's exponentials at 16 a clock an SM, as
-``chip_smoke.py`` counts them). ``kept/first`` is this tree's B4, B7-B11,
+``chip_smoke.py`` counts them). ``kept/first`` is this tree's B4, B7-B12,
 B14, B18, B19 and K1 on their first design (route 0), and K2d on its wmma
 tile (``decode_route`` 0); ``kept/wmma`` is this
 tree's B16 and B17-s8 on their wmma kernels (``sm90`` = 0); ``parent/wmma``
 the other checkout's B1, B2, B15, B16 and B17-s8 on theirs,
 ``parent/kernel`` its B5 and B13, ``parent/wmma`` its B19 (where it has
 no sm90 design), and ``parent/walk``, ``parent/cluster`` its B4,
-B7-B11, B14 and B18, whatever design they take there; K2, which no variant changes, is timed on this
+B7-B12, B14 and B18, whatever design they take there; K2, which no variant changes, is timed on this
 tree's and the other checkout's mainloop, so that a change to the shared
 mainloop shows on it.
 
@@ -332,6 +335,39 @@ _B9_ONE_CTA = ("fused_producers.cu", "return V == 1 || SR ? 1 : kSiluCtasPerSm;"
 _B9_REG_MAX = [("fused_producers.cu", "constexpr bool kShared = COLMAX && !SR,", "constexpr bool kShared = false,"),
                ("fused_producers.cu", "                      : !SR       ? static_cast<size_t>(cta / tpr * K)",
                 "                      : false     ? static_cast<size_t>(cta / tpr * K)")]
+# B12's inverse column scales in shared memory [2K] (da's, then db's,
+# element j of vector v at j nv + v), filled by the CTA, in place of each
+# thread's in registers; and its launch bounds at two CTAs an SM
+_B12_SMEM = [
+    ("fused_producers.cu", """  float inv_a[V][N], inv_b[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      inv_a[p][j] = inv_scale(scale_a[walk.vec(p) * N + j], eps);
+      inv_b[p][j] = inv_scale(scale_b[walk.vec(p) * N + j], eps);
+    }
+""", """  extern __shared__ float sinv[];
+  for (int64_t i = threadIdx.x; i < nv; i += blockDim.x)
+    for (int j = 0; j < N; ++j) {
+      sinv[j * nv + i] = inv_scale(scale_a[i * N + j], eps);
+      sinv[K + j * nv + i] = inv_scale(scale_b[i * N + j], eps);
+    }
+  __syncthreads();
+"""),
+    ("fused_producers.cu", """      cast_pack<SR, N>(da, inv_a[p], off, key, qa + off);
+      cast_pack<SR, N>(db, inv_b[p], M * K + off, key, qb + off);""",
+     """      const int64_t v = walk.vec(p);
+      cast_pack_by<SR, N>(da, [&](int j) { return sinv[j * nv + v]; }, off, key, qa + off);
+      cast_pack_by<SR, N>(db, [&](int j) { return sinv[K + j * nv + v]; }, M * K + off, key, qb + off);"""),
+    ("fused_producers.cu", """  kernel<<<static_cast<unsigned int>(ctas), tpr > kThreads ? tpr : kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(dy),""",
+     """  const size_t smem = static_cast<size_t>(2 * K) * sizeof(float);
+  if (allow_smem(kernel, smem) != cudaSuccess) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned int>(ctas), tpr > kThreads ? tpr : kThreads, smem, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(dy),""")]
+_B12_TWO_CTAS = ("fused_producers.cu", "__launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2)\nsilu_bwd_cols(",
+                 "__launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, V == 2 ? 2 : 1)\nsilu_bwd_cols(")
 # B7's launch of its kernel and its fold (reduce_parts)
 _B7_FOLD = """g, static_cast<int8_t*>(q), static_cast<float*>(s_row), pt, M, K, norm_eps, eps,
         key);
@@ -451,6 +487,16 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     # registers), not in shared memory
     "b9_reg_max": _B9_REG_MAX,
     "b9_v1": [],
+    # B9's SR columns at two vectors a thread (352 threads a row at K =
+    # 5632, B9-row's) in place of one (704)
+    "b9c_sr_v2": [],
+    # B12 given scales at B11's two vectors a thread (352 threads a row at
+    # K = 5632) in place of one (704); there with its inverse column scales
+    # in shared memory [2K] in place of registers, at two CTAs an SM (80
+    # registers a thread) and at one
+    "b12_v2": [],
+    "b12_smem": _B12_SMEM + [_B12_TWO_CTAS],
+    "b12_smem_one_cta": _B12_SMEM,
     # B8 and B10 at one CTA an SM (no register cap from the launch bounds);
     # B10 with four vectors of x and dy a thread (64 threads a row at K =
     # 2048) in place of two (128)
@@ -570,8 +616,12 @@ ROUTE_ARGS = {"b7_v8": {"B7": {"tpr": 32, "ctas_per_sm": 1}, "B7sr": {"tpr": 32,
               "b7_one_cta": {"B7": {"ctas_per_sm": 1}, "B7sr": {"ctas_per_sm": 1}},
               "b11_v1": {"B11": {"tpr": 704}, "B11sr": {"tpr": 704}},
               "diag_rows_no_amax": {k: {"amax": 0} for k in ("B7", "B7sr", "B11", "B11sr", "B9", "B9sr")},
-              "b9_one_cta": {"B9": {"ctas_per_sm": 1}},
-              "b9_v1": {"B9": {"tpr": 704, "ctas_per_sm": 1}, "B9sr": {"tpr": 704, "ctas_per_sm": 1}},
+              "b9_one_cta": {"B9": {"ctas_per_sm": 1}, "B9c": {"ctas_per_sm": 1}},
+              "b9_v1": {k: {"tpr": 704, "ctas_per_sm": 1} for k in ("B9", "B9sr", "B9c")},
+              "b12_v2": {k: {"tpr": 352} for k in ("B12c", "B12csr")},
+              "b12_smem": {k: {"tpr": 352, "ctas_per_sm": 2} for k in ("B12c", "B12csr")},
+              "b12_smem_one_cta": {k: {"tpr": 352} for k in ("B12c", "B12csr")},
+              "b9c_sr_v2": {"B9csr": {"tpr": 352}},
               "b8_one_cta": {"B8": {"ctas_per_sm": 1}, "B8sr": {"ctas_per_sm": 1}},
               "b10_one_cta": {"B10": {"ctas_per_sm": 1}},
               "b10_v4": {"B10": {"tpr": 64}},
@@ -616,6 +666,7 @@ SOURCE = {"B1": "scaled_mm.cu", "B2": "scaled_mm.cu", "K2": "scaled_mm.cu", "K2d
           "B15": "tile_scaled_mm.cu", "B15s8": "tile_scaled_mm.cu", "B17s8": "matmul.cu", "B5": "int8_quant.cu",
           "B5sr": "int8_quant.cu", "B4": "int8_quant.cu", "B4sr": "int8_quant.cu", "B7": "fused_producers.cu",
           "B7sr": "fused_producers.cu", "B9": "fused_producers.cu", "B9sr": "fused_producers.cu",
+          **dict.fromkeys(("B9c", "B9csr", "B12c", "B12csr"), "fused_producers.cu"),
           "B11": "fused_producers.cu", "B11sr": "fused_producers.cu", "B8": "fused_producers.cu",
           "B8sr": "fused_producers.cu", "B10": "fused_producers.cu",
           **{k: "fused_producers.cu" for k in ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc",
@@ -627,7 +678,8 @@ ENTRIES = {"scaled_mm.cu": ("qt_scaled_mm_s8", "qt_scaled_int4_mm", "qt_scaled_m
            "fused_producers.cu": ("qt_rmsnorm_quant_rowwise", "qt_silu_mul_bwd_quant_rowwise",
                                   "qt_silu_mul_quant_rowwise", "qt_rmsnorm_quant_colwise", "qt_rmsnorm_bwd",
                                   "qt_layernorm_quant_rowwise", "qt_layernorm_quant_colwise", "qt_gelu_quant_rowwise",
-                                  "qt_gelu_quant_colwise"),
+                                  "qt_gelu_quant_colwise", "qt_silu_mul_quant_colwise",
+                                  "qt_silu_mul_bwd_quant_colwise"),
            "rope.cu": ("qt_rope_relayout", "qt_ungroup_amax", "qt_ungroup_quant"),
            "int8_attention.cu": ("qt_int8_flash_fwd",)}
 
@@ -895,6 +947,43 @@ def b9(lib, sigs, sr, tpr=None, ctas_per_sm=None, amax=1):
     return call
 
 
+def b9c(lib, sigs, sr, tpr=None, ctas_per_sm=None):
+    """B9's column form given scales of ``lib`` (``sr`` = 1: its SR form
+    from ``ROWS_KEY``): a, b [M, K] bf16, the column scales [1, K] fp32 ->
+    (q,); on the walk at ``tpr`` threads a row (default: the route's; 0 the
+    first design) and ``ctas_per_sm`` CTAs an SM (default: the wrapper's for
+    the form)."""
+    def call(a, b, scale):
+        M, K = a.shape
+        t = FP.silu_cols_sm90_route(K, a.dtype, sr) if tpr is None else tpr
+        per_sm = ctas_per_sm or FP._elementwise_ctas_per_sm(t, K, a.dtype, sr)
+        route, _ = _route(sigs, "qt_silu_mul_quant_colwise", t, M, per_sm)
+        q = torch.empty(M, K, dtype=torch.int8, device="cuda")
+        _build.check(lib.qt_silu_mul_quant_colwise(a.data_ptr(), b.data_ptr(), scale.data_ptr(), q.data_ptr(), None,
+                                                   None, None, M, K, FP._rows_per_block(M), FP.EPS, 1, sr,
+                                                   ROWS_KEY if sr else 0, *route, _build.stream()), "B9 columns")
+        return (q,)
+    return call
+
+
+def b12c(lib, sigs, sr, tpr=None, ctas_per_sm=FP.SILU_CTAS_PER_SM):
+    """B12 given scales of ``lib`` (``sr`` = 1: its SR form from
+    ``ROWS_KEY``): a, b, dy [M, K] bf16, da's and db's column scales [1, K]
+    fp32 -> (qa, qb); on the walk at ``tpr`` threads a row (default: the
+    route's; 0 the first design) and ``ctas_per_sm`` CTAs an SM."""
+    def call(a, b, dy, da_scale, db_scale):
+        M, K = a.shape
+        t = FP.silu_bwd_cols_sm90_route(K, a.dtype) if tpr is None else tpr
+        route, _ = _route(sigs, "qt_silu_mul_bwd_quant_colwise", t, M, ctas_per_sm)
+        qa, qb = (torch.empty(M, K, dtype=torch.int8, device="cuda") for _ in range(2))
+        _build.check(lib.qt_silu_mul_bwd_quant_colwise(
+            a.data_ptr(), b.data_ptr(), dy.data_ptr(), da_scale.data_ptr(), db_scale.data_ptr(), qa.data_ptr(),
+            qb.data_ptr(), M, K, FP._rows_per_block(M), FP.EPS, 1, sr, ROWS_KEY if sr else 0, *route,
+            _build.stream()), "B12")
+        return qa, qb
+    return call
+
+
 def b4(lib, sigs, sr, route=None, geometry=None):
     """B4 of ``lib`` (``sr`` = 1: its SR form from ``B5_KEY``): x [R, C]
     bf16 -> (q, scale [1, C]); on the cluster form at the route's geometry
@@ -1105,8 +1194,8 @@ def main() -> None:
     if "kept" in libs:
         entries += [("kept/wmma", k, KERNELS[k](*libs["kept"], 0)) for k in ("B16", "B17s8") if k in kernels]
         entries += [("kept/first", k, KERNELS[k](*libs["kept"], QUANT[k], **FIRST.get(k, {"tpr": 0})))
-                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", "B4", "B4sr", *B18, *B14,
-                              "B19", "K1", "K1sr", "K2d")
+                    for k in ("B7", "B7sr", "B8", "B8sr", "B9", "B9sr", "B10", "B11", "B11sr", *SILU_COLS, "B4", "B4sr",
+                              *B18, *B14, "B19", "K1", "K1sr", "K2d")
                     if k in kernels]
     if args.parent:
         entries += [(f"parent/{ROUTE.get(k, 'wmma')}", k, KERNELS[k](*libs["parent"], QUANT.get(k, 0)))
@@ -1141,9 +1230,11 @@ def main() -> None:
             x[0] = 0
             dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
             return x, (1 + 0.1 * torch.randn(N, generator=gen, device="cuda")).bfloat16().float(), dy
-        if kernel in ("B9", "B9sr"):  # (M, K): gate with an all-zero column, up
+        if kernel in ("B9", "B9sr", "B9c", "B9csr"):  # (M, K): gate with an all-zero column, up
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             a[:, 1] = 0
+            if kernel.startswith("B9c"):  # and the column scales of the row form's absmax
+                return a, b, ops.silu_mul_quant_rowwise_plain(a, b, with_col_amax=True)[2] * (1.0 / 127.0)
             return a, b
         if kernel in ("K1", "K1sr"):  # (M, K): a weight-sized x with an all-zero row
             x = (torch.randn(M, N, generator=gen, device="cuda") * 0.02).bfloat16()
@@ -1184,10 +1275,13 @@ def main() -> None:
                 return (y,)
             row, col = ops.ungroup_amax_plain(y)
             return y, (row if kernel.startswith("B14r") else col) * (1.0 / 127.0)
-        if kernel in ("B11", "B11sr"):  # (M, K): gate, up, and dact with an all-zero column
+        if kernel in ("B11", "B11sr", "B12c", "B12csr"):  # (M, K): gate, up, and dact with an all-zero column
             a, b = (torch.randn(M, N, generator=gen, device="cuda").bfloat16() for _ in range(2))
             dy = (torch.randn(M, N, generator=gen, device="cuda") * 1e-3).bfloat16()
             dy[:, 1] = 0
+            if kernel.startswith("B12c"):  # and the column scales of B11's absmax
+                amax = ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy)[4:]
+                return a, b, dy, *(m * (1.0 / 127.0) for m in amax)
             return a, b, dy
         if kernel == "B19":  # (instances, G, S, hd): Llama2-1B's attention, quantized as the op's input
             q = torch.randn(M, N, K, hd, generator=gen, device="cuda").bfloat16()
@@ -1215,6 +1309,10 @@ def main() -> None:
              "B4": lambda x: ops.quantize_int8_plain(x, axis=0),
              "B4sr": lambda x: ops.quantize_int8_plain(x, axis=0, sr=True, key=B5_KEY),
              "B11sr": lambda a, b, dy: ops.silu_mul_bwd_quant_rowwise_plain(a, b, dy, sr=True, key=ROWS_KEY),
+             "B9c": lambda a, b, s: ops.silu_mul_quant_colwise_plain(a, b, scale=s)[:1],
+             "B9csr": lambda a, b, s: ops.silu_mul_quant_colwise_plain(a, b, scale=s, sr=True, key=ROWS_KEY)[:1],
+             "B12c": ops.silu_mul_bwd_quant_colwise_plain,
+             "B12csr": lambda *args: ops.silu_mul_bwd_quant_colwise_plain(*args, sr=True, key=ROWS_KEY),
              "B18gr": lambda a: ops.gelu_quant_plain(a, with_col_amax=True),
              "B18grsr": lambda a: ops.gelu_quant_plain(a, with_col_amax=True, sr=True, key=ROWS_KEY),
              "B18gc": lambda a, s: ops.gelu_quant_plain(a, axis=0, scale=s)[:1],
@@ -1238,6 +1336,7 @@ def main() -> None:
                             for s in ((1000, 2048), *ROW_SHAPES[k.removesuffix("sr")])),
                           *((k, s) for k in ("B11", "B11sr") for s in ((1000, 5632), *ROW_SHAPES["B11"])),
                           *((k, s) for k in ("B9", "B9sr") for s in ((1000, 5632), *ROW_SHAPES["B9"])),
+                          *((k, s) for k in SILU_COLS for s in ((1000, 5632), *SHAPES[k])),
                           *((k, s) for k in ("B4", "B4sr") for s in ((1000, 2048), (3, 2048), *B4_SHAPES)),
                           *((k, s) for k in B18 for s in ((1000, SHAPES[k][0][1]), *SHAPES[k])),
                           *((k, s) for k in B14 for s in ((1000, 2048, "bshd"), (1000, 2048, "bhsd"), *SHAPES[k])),
@@ -1351,17 +1450,21 @@ KERNELS = {"B1": b1, "B2": b2, "B15": b15, "B15s8": b15, "B16": b16, "K2": k2, "
            "B18gr": b18_gelu, "B18grsr": b18_gelu, "B18gc": partial(b18_gelu, cols=True),
            "B18gcsr": partial(b18_gelu, cols=True), "B13": b13, "B14a": b14, "B14r": partial(b14, axis=1),
            "B14rsr": partial(b14, axis=1), "B14c": partial(b14, axis=0), "B14csr": partial(b14, axis=0), "B19": b19,
-           "K1": k1, "K1sr": k1, "K2d": k2d}
+           "K1": k1, "K1sr": k1, "K2d": k2d, "B9c": b9c, "B9csr": b9c, "B12c": b12c, "B12csr": b12c}
+# B9's column form and B12 given scales, RN and SR
+SILU_COLS = ("B9c", "B9csr", "B12c", "B12csr")
 # B18's eight forms: LayerNorm and GELU, rows (with the column absmax) and
 # columns given scales, RN and SR
 B18 = ("B18lnr", "B18lnrsr", "B18lnc", "B18lncsr", "B18gr", "B18grsr", "B18gc", "B18gcsr")
 # the argument each kernel's entry takes in place of the route: the SR flag
 QUANT = {"B5": 0, "B5sr": 1, "B7": 0, "B7sr": 1, "B8": 0, "B8sr": 1, "B10": 0, "B11": 0, "B11sr": 1, "B9": 0,
-         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14)}, "B19": 0, "K1": 0,
+         "B9sr": 1, "B4": 0, "B4sr": 1, **{k: int(k.endswith("sr")) for k in (*B18, *B14, *SILU_COLS)}, "B19": 0,
+         "K1": 0,
          "K1sr": 1, "K2d": 0}
 ROUTE = {"B5": "kernel", "B5sr": "kernel", "B7": "walk", "B7sr": "walk", "B8": "walk", "B8sr": "walk", "B10": "walk",
          "B11": "walk", "B11sr": "walk", "B9": "walk", "B9sr": "walk", "B4": "cluster", "B4sr": "cluster",
-         "B13": "kernel", **dict.fromkeys((*B18, *B14), "walk"), "K1": "walk", "K1sr": "walk", "K2d": "stream"}
+         "B13": "kernel", **dict.fromkeys((*B18, *B14, *SILU_COLS), "walk"), "K1": "walk", "K1sr": "walk",
+         "K2d": "stream"}
 # the keyword argument that forces a kernel's first design (``kept/first``)
 FIRST = {"B4": {"route": 0}, "B4sr": {"route": 0}, "B19": {"sm90": 0}, "K2d": {"route": 0}}
 def _b18_bytes(kernel):
@@ -1376,7 +1479,8 @@ def _b18_bytes(kernel):
 # the bytes the row quantizes must move at [M, K] bf16: B5 x read, two int8
 # and the bf16 scales written; B7 x and gamma read, q, the fp32 row scales
 # and column absmax written; B11 (a, b, dy) read, two int8, two fp32 row
-# scales and two column absmax written; B8 x, the bf16 gamma and the fp32
+# scales and two column absmax written; B9's and B12's column forms the
+# same inputs and the fp32 column scales (B12 two) read, the int8 written; B8 x, the bf16 gamma and the fp32
 # column scales read, q written; B10 x, dy and the bf16 gamma read, dx and
 # the fp32 dgamma written; B14 y read, and the fp32 row and column maxima
 # (absmax) or q written and the fp32 row or column scales read; B13 x read,
@@ -1385,6 +1489,8 @@ ROW_BYTES = {"B5": lambda M, K: 4 * M * K + 2 * (M + K), "B5sr": lambda M, K: 4 
              "B7": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K, "B7sr": lambda M, K: 3 * M * K + 2 * K + 4 * M + 4 * K,
              "B11": lambda M, K: 8 * M * K + 8 * M + 8 * K, "B11sr": lambda M, K: 8 * M * K + 8 * M + 8 * K,
              "B9": lambda M, K: 5 * M * K + 4 * M + 4 * K, "B9sr": lambda M, K: 5 * M * K + 4 * M + 4 * K,
+             "B9c": lambda M, K: 5 * M * K + 4 * K, "B9csr": lambda M, K: 5 * M * K + 4 * K,
+             "B12c": lambda M, K: 8 * M * K + 8 * K, "B12csr": lambda M, K: 8 * M * K + 8 * K,
              "B8": lambda M, K: 3 * M * K + 2 * K + 4 * K, "B8sr": lambda M, K: 3 * M * K + 2 * K + 4 * K,
              "B10": lambda M, K: 6 * M * K + 2 * K + 4 * K,
              "B4": lambda M, K: 3 * M * K + 2 * K, "B4sr": lambda M, K: 3 * M * K + 2 * K,
@@ -1419,7 +1525,8 @@ SHAPES = {"B1": [(8192, 2048, 2048), (8192, 2048, 256), (8192, 2048, 5632), (819
           "B8": ROW_SHAPES["B8"], "B8sr": ROW_SHAPES["B8"], "B10": ROW_SHAPES["B10"],
           **{k: [(6400, 1536 if k.startswith("B18ln") else 6144)] for k in B18},
           **{k: [(8192, 2048, "bshd"), (8192, 2048, "bhsd")] for k in B14}, "B13": [(8192, 2048)],
-          "B19": [(16, 8, 2048, 64), (16, 8, 2048, 128)], "K1": K1_SHAPES, "K1sr": K1_SHAPES, "K2d": K2D_SHAPES}
+          "B19": [(16, 8, 2048, 64), (16, 8, 2048, 128)], "K1": K1_SHAPES, "K1sr": K1_SHAPES, "K2d": K2D_SHAPES,
+          **{k: [(8192, 5632), (256, 5632)] for k in SILU_COLS}}
 
 
 if __name__ == "__main__":

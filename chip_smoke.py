@@ -22,7 +22,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    and in two passes, B9's row and column forms (bit-exact), B10, and the
    SR forms of B7-B9; B11 and B12 at the MLP backward's [8192, 5632] and
    [256, 5632] (B7 and B8 given scales at [8192, 2048], B9-row at [8192,
-   5632] and [256, 5632] and B11 at [8192, 5632], and their SR forms, and
+   5632] and [256, 5632], B9-col given scales, B11 and B12 given scales at
+   [8192, 5632], and their SR forms, and
    B10 at [8192, 2048], checked to launch on the persistent row walk, and
    B4 and B4-SR at every weight and x2d shape, checked to launch on its
    cluster form, each timed on its first design too, the parent's kernel,
@@ -75,7 +76,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    of times the code implies (every K1 weight launch on the row walk, the
    SR form's at q, o, gate, up and down, and every K2, B1 and B2 launch on
    the sm90 route,
-   here and in phases 8, 9 and 11, every B7, B8, B9-row, B10, B11 and B14
+   here and in phases 8, 9 and 11, every B7, B8, B9 (rows and columns),
+   B10, B11, B12 and B14
    launch on the row walk and every B4 launch on its cluster form, here and
    in phases 8 and 9, and B4's in phase 11), and the same steps in bf16
    start from the
@@ -133,7 +135,7 @@ launches in phase 4; for B4, B5 and the SR quantizes every
 shape's times and bound, ``shapes``), its error against the plain version, its
 time, the plain version's, the least time the H100 could take for the same
 work, what bounds that time, and the library call's time where one
-exists; for B7, B8, B9-row, B10, B11, B14 and B18 also their launches on the row walk,
+exists; for B7, B8, B9 (rows and columns), B10, B11, B12, B14 and B18 also their launches on the row walk,
 for B4 those on its cluster form and for B19 those on its sm90 design
 (``sm90_launches``), and their first design's time, ``first_design_ms``; for B14 every timed form and
 layout, ``forms``),
@@ -949,7 +951,7 @@ def _held_and_timed(rows: dict, name: str, form: str, kind: str, kernel, plain, 
 
 
 # the redesigned kernels' route predicates by counter name: (module, name)
-# of B7's, B8's, B9-row's, B10's, B11's and B18's (ops/fused_producers.py:
+# of B7's, B8's, B9's, B10's, B11's, B12's and B18's (ops/fused_producers.py:
 # threads a row on the row walk), B14's (ops/rope.py: the same, from the
 # grouped input's width and head size), B4's (ops/int8_quant.py: the
 # geometry of its cluster form) and K1's (ops/int8_quant.py: threads a row on
@@ -959,6 +961,8 @@ REDESIGNED = {"rmsnorm_quant_rowwise": (FP, "norm_rows_sm90_route"),
               "rmsnorm_bwd": (FP, "rmsnorm_bwd_sm90_route"),
               "silu_mul_bwd_quant_rowwise": (FP, "silu_bwd_rows_sm90_route"),
               "silu_mul_quant_rowwise": (FP, "silu_rows_sm90_route"),
+              "silu_mul_quant_colwise": (FP, "silu_cols_sm90_route"),
+              "silu_mul_bwd_quant_colwise": (FP, "silu_bwd_cols_sm90_route"),
               "quantize_int8_colwise": (IQ, "colwise_sm90_route"),
               "quantize_int8_rowwise": (IQ, "rowwise_sm90_route"),
               "layernorm_quant_rowwise": (FP, "layernorm_rows_sm90_route"),
@@ -982,6 +986,7 @@ def first_design(name: str, kernel, args, nbytes: float, exact: int | None = Non
     route_of = getattr(module, predicate)
     x = args[0]
     route = (route_of(*x.shape, x.dtype, name.endswith("_sr")) if predicate == "rowwise_sm90_route" else
+             route_of(x.shape[1], x.dtype, name.endswith("_sr")) if predicate == "silu_cols_sm90_route" else
              route_of(*x.shape, x.dtype) if module is IQ else
              route_of(x.shape[1] * x.shape[2] * x.shape[4], x.shape[4], x.dtype) if module is ROPE else  # [B, KV, G, S, hd]
              route_of(x.shape[1], x.dtype))
@@ -1047,8 +1052,9 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
     written once (bf16 inputs, fp32 scales and maxima). B7 and its SR form
     at [8192, 2048], and B9-row and its SR form at both silu shapes, also
     on the first design (``first_design``), as are B8 given scales and its
-    SR form, and B10, at [8192, 2048]; B10 beside the library's RMSNorm
-    backward (``rms_norm_bwd_library_ms``)."""
+    SR form, and B10, at [8192, 2048], and B9-col given scales and its SR
+    form at [8192, 5632]; B10 beside the library's RMSNorm backward
+    (``rms_norm_bwd_library_ms``)."""
     rows = {}  # entry name -> (replaces, worst error, timed, bytes)
     firsts = {}  # the first designs' ms at the path's shape by entry name
     library = {}
@@ -1108,10 +1114,13 @@ def check_fused_producers(gen: torch.Generator, key: int) -> list:
             if M == TOKENS:
                 firsts[f"silu_mul_quant_rowwise{tag}"] = first_ms
             scale = out[2] * (1.0 / 127.0)
-            col = run(f"silu_mul_quant_colwise{tag}", ", given scales", "exact",
-                      lambda a, b, scale, kw=kw: ops.silu_mul_quant_colwise(a, b, scale=scale, **kw),
+            k_col = lambda a, b, scale, kw=kw: ops.silu_mul_quant_colwise(a, b, scale=scale, **kw)
+            col = run(f"silu_mul_quant_colwise{tag}", ", given scales", "exact", k_col,
                       lambda a, b, scale, kw=kw: ops.silu_mul_quant_colwise_plain(a, b, scale=scale, **kw),
                       (a, b, scale), col_bytes, f"{pf_}:409", rn.get("col"))
+            if M == TOKENS:
+                firsts[f"silu_mul_quant_colwise{tag}"] = first_design(f"silu_mul_quant_colwise{tag}", k_col,
+                                                                      (a, b, scale), col_bytes)
             rn.update(row=out, col=col)
             if not sr:
                 run("silu_mul_quant_rowwise", "", "exact", ops.silu_mul_quant_rowwise,
@@ -1129,7 +1138,7 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
     on the card, bit-exact: B11 with the column absmax (the path's form with
     an int8 grad_weight, timed) and with the (da, db) copies instead (the
     bf16 grad_weight's form, held), B12 given B11's column scales; B11 and
-    its SR form at [8192, 5632] also on the first design
+    B12 and their SR forms at [8192, 5632] also on the first design
     (``first_design``). Bytes: (a, b, dy) read once, two int8 written, and
     the fp32 scales and maxima."""
     rows, firsts = {}, {}
@@ -1151,9 +1160,13 @@ def check_silu_bwd(gen: torch.Generator, key: int) -> list:
                 firsts[f"silu_mul_bwd_quant_rowwise{tag}"] = first_design(
                     f"silu_mul_bwd_quant_rowwise{tag}", k_row, (a, b, dy), 8 * M * K + 8 * M + 8 * K)
             scales = tuple(m * (1.0 / 127.0) for m in row[4:])
-            col = run(f"silu_mul_bwd_quant_colwise{tag}", ", given scales", "exact",
-                      partial(ops.silu_mul_bwd_quant_colwise, **kw), partial(ops.silu_mul_bwd_quant_colwise_plain, **kw),
-                      (a, b, dy, *scales), 8 * M * K + 8 * K, f"{pf_}:704", rn.get("col"))
+            k_col = partial(ops.silu_mul_bwd_quant_colwise, **kw)
+            col = run(f"silu_mul_bwd_quant_colwise{tag}", ", given scales", "exact", k_col,
+                      partial(ops.silu_mul_bwd_quant_colwise_plain, **kw), (a, b, dy, *scales), 8 * M * K + 8 * K,
+                      f"{pf_}:704", rn.get("col"))
+            if M == TOKENS:
+                firsts[f"silu_mul_bwd_quant_colwise{tag}"] = first_design(
+                    f"silu_mul_bwd_quant_colwise{tag}", k_col, (a, b, dy, *scales), 8 * M * K + 8 * K)
             rn.update(row=row, col=col)
             run(f"silu_mul_bwd_quant_rowwise{tag}", ", (da, db) copies", "exact",
                 partial(ops.silu_mul_bwd_quant_rowwise, with_amax=False, with_bf16=True, **kw),
@@ -1591,8 +1604,8 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     ungroup_quant (rows) at o's input (both on the row walk). Backward B5 at the output grads of
     q, k, v, o and down, B4 per weight (every one on the cluster form), B1
     and B2 per weight, B8 at the two norm sites and B10 at the two norms
-    (every one on the row walk), B9-col at down's input, B11 (on the row
-    walk) and B12 for (dgate, dup), ungroup_quant (columns, on the row
+    (every one on the row walk), B9-col at down's input, B11 and B12 for
+    (dgate, dup) (all three on the row walk), ungroup_quant (columns, on the row
     walk) at o's input and rope_group
     for its grad. 'unfused' (int8, ``set_impl('off')``): forward K1 for the
     7 weights and the 4 inputs (on the row walk; the SR form at five weights
@@ -1616,9 +1629,10 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
                        f"rmsnorm_quant_rowwise{t}_sm90": 2 * 2 * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
                        f"silu_mul_quant_rowwise{t}": 2 * n, f"silu_mul_quant_rowwise{t}_sm90": 2 * n,
                        f"rmsnorm_quant_colwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}_sm90": 2 * n,
-                       f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n, "rmsnorm_bwd_sm90": 2 * n,
-                       f"silu_mul_bwd_quant_rowwise{t}": n,
-                       f"silu_mul_bwd_quant_colwise{t}": n, "ungroup_amax": 2 * n, "ungroup_amax_sm90": 2 * n,
+                       f"silu_mul_quant_colwise{t}": n, f"silu_mul_quant_colwise{t}_sm90": n,
+                       "rmsnorm_bwd": 2 * n, "rmsnorm_bwd_sm90": 2 * n, f"silu_mul_bwd_quant_rowwise{t}": n,
+                       f"silu_mul_bwd_quant_colwise{t}": n, f"silu_mul_bwd_quant_colwise{t}_sm90": n,
+                       "ungroup_amax": 2 * n, "ungroup_amax_sm90": 2 * n,
                        f"ungroup_quant{t}": 3 * n, f"ungroup_quant{t}_sm90": 3 * n})
     elif layer == "unfused":
         counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_rowwise{t}_sm90": 2 * (8 if sr else 11) * n,

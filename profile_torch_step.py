@@ -15,10 +15,10 @@ three unprofiled steps (the
 last one's wall time, ending in ``torch.cuda.synchronize()``), then one
 step under ``torch.profiler`` with CPU and CUDA activities; the device time
 of every kernel, summed by group (the port's int8, int4 and tile-scaled
-GEMMs, its quantizes K1, B4 and B5 each apart, B7, B8, B9-row, B10 and B11
-each apart, its other producer kernels, its RoPE and ungroup kernels, B6,
-cuBLAS GEMMs, attention,
-torch's copy kernels, the rest: torch's elementwise and reduction kernels),
+GEMMs, its quantizes K1, B4 and B5 each apart, B7-B12 each apart (B9's
+row and column forms apart), the folds and other producer kernels, its
+RoPE and ungroup kernels, B6, cuBLAS GEMMs, attention, torch's copy
+kernels, the rest: torch's elementwise and reduction kernels),
 the device's busy share of the profiled step's wall time, the layout copies
 (``aten::contiguous`` / ``aten::clone`` ops that ran a kernel; the copy group
 also holds dtype casts), and the largest kernels by name.
@@ -71,8 +71,10 @@ VIT_B = 24
 # name holding all of its fragments: B7's first design is row_quant over
 # NormProducer, B9-row's over SiluProducer (B18's are row_quant too), B8's
 # col_quant over NormProducer, mangled or not; on the walk B9-row is
-# elementwise_rows over SiluMulOp, B18's GELU elementwise_rows and
-# elementwise_cols over GeluOp. The folds of the CTAs'
+# elementwise_rows over SiluMulOp, B9-col elementwise_cols over SiluMulOp
+# (its first design col_quant over SiluProducer), B18's GELU
+# elementwise_rows and elementwise_cols over GeluOp; B12 is silu_bwd_cols,
+# its first design silu_bwd_col_quant. The folds of the CTAs'
 # column maxima or dgamma sums (reduce_parts: B7, B9-row, B10, B11) stay in
 # the producer group.
 GROUPS = (
@@ -92,8 +94,9 @@ GROUPS = (
     ("B9-row silu row quantize", (("elementwise_rows", "silumulop"), ("row_quant", "siluproducer"))),
     ("B8 RMSNorm column quantize", ("rmsnorm_cols", ("col_quant", "::normproducer"), ("col_quant", "12normproducer"))),
     ("B10 RMSNorm backward", ("rmsnorm_bwd_walk", "rmsnorm_bwd_rows")),
-    ("producer kernels B9-col, B12 (and every fold)", ("row_quant", "col_quant", "producer_col_absmax",
-                                                       "reduce_parts")),
+    ("B9-col silu column quantize", (("elementwise_cols", "silumulop"), ("col_quant", "siluproducer"))),
+    ("B12 silu-backward column quantizes", ("silu_bwd_cols", "silu_bwd_col_quant")),
+    ("producer folds and other first designs", ("row_quant", "col_quant", "producer_col_absmax", "reduce_parts")),
     ("B13 rope and head grouping", ("rope_relayout",)),
     ("B14 attention-output absmax and quantize", ("ungroup_absmax", "ungroup_quant")),
     # B5's first design, which only B5 calls off the vector path take (an

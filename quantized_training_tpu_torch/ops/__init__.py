@@ -33,16 +33,18 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   :func:`rmsnorm_bwd` (``csrc/fused_producers.cu``), replacing the functions
   of the same names in ``ops/pallas_fused.py``: RMSNorm and silu(a) * b run
   inside the int8 quantizes, and the RMSNorm backward in one pass; B7, B8
-  given scales, B9's row form and B10 on the persistent row walk again in
-  ``rmsnorm_quant_rowwise_sm90``, ``rmsnorm_quant_colwise_sm90``,
-  ``silu_mul_quant_rowwise_sm90`` (and ``_sr_sm90``) and
+  given scales, B9's row form and its given-scales column form, and B10 on
+  the persistent row walk again in ``rmsnorm_quant_rowwise_sm90``,
+  ``rmsnorm_quant_colwise_sm90``, ``silu_mul_quant_rowwise_sm90``,
+  ``silu_mul_quant_colwise_sm90`` (and ``_sr_sm90``) and
   ``rmsnorm_bwd_sm90``;
 - B11 :func:`silu_mul_bwd_quant_rowwise` and B12
   :func:`silu_mul_bwd_quant_colwise` (``csrc/fused_producers.cu``), the
   silu backward inside the quantizes of (dgate, dup), replacing the
-  functions of the same names in ``ops/pallas_fused.py``; B11 on the
-  persistent row walk again in ``silu_mul_bwd_quant_rowwise_sm90`` (and
-  ``_sr_sm90``);
+  functions of the same names in ``ops/pallas_fused.py``; B11 and B12
+  given scales on the persistent row walk again in
+  ``silu_mul_bwd_quant_rowwise_sm90`` and
+  ``silu_mul_bwd_quant_colwise_sm90`` (and ``_sr_sm90``);
 - B13 :func:`rope_group_kernel` / :func:`rope_ungroup_kernel` and B14
   :func:`ungroup_amax` / :func:`ungroup_quant` (``csrc/rope.cu``), RoPE with
   grouped-query head grouping and the attention output's ungrouping inside
@@ -174,6 +176,8 @@ KERNELS = {
     "silu_mul_quant_rowwise_sr_sm90": (silu_mul_quant_rowwise, "sr_sm90_launches"),
     "silu_mul_quant_colwise": (silu_mul_quant_colwise, "launches"),
     "silu_mul_quant_colwise_sr": (silu_mul_quant_colwise, "sr_launches"),
+    "silu_mul_quant_colwise_sm90": (silu_mul_quant_colwise, "sm90_launches"),
+    "silu_mul_quant_colwise_sr_sm90": (silu_mul_quant_colwise, "sr_sm90_launches"),
     "rmsnorm_bwd": (rmsnorm_bwd, "launches"),
     "rmsnorm_bwd_sm90": (rmsnorm_bwd, "sm90_launches"),
     "silu_mul_bwd_quant_rowwise": (silu_mul_bwd_quant_rowwise, "launches"),
@@ -182,6 +186,8 @@ KERNELS = {
     "silu_mul_bwd_quant_rowwise_sr_sm90": (silu_mul_bwd_quant_rowwise, "sr_sm90_launches"),
     "silu_mul_bwd_quant_colwise": (silu_mul_bwd_quant_colwise, "launches"),
     "silu_mul_bwd_quant_colwise_sr": (silu_mul_bwd_quant_colwise, "sr_launches"),
+    "silu_mul_bwd_quant_colwise_sm90": (silu_mul_bwd_quant_colwise, "sm90_launches"),
+    "silu_mul_bwd_quant_colwise_sr_sm90": (silu_mul_bwd_quant_colwise, "sr_sm90_launches"),
     "rope_group": (rope_group_kernel, "launches"),
     "rope_ungroup": (rope_ungroup_kernel, "launches"),
     "ungroup_amax": (ungroup_amax, "launches"),

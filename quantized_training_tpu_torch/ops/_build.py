@@ -68,9 +68,9 @@ _SIGNATURES = {
     "qt_rmsnorm_quant_colwise": (
         _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _I, _I, _U64, _I, _I64, _P,
     ),
-    # a, b, scale, q, s_out, amax, parts, M, K, rpb, eps, is_bf16, sr, key, stream
+    # a, b, scale, q, s_out, amax, parts, M, K, rpb, eps, is_bf16, sr, key, tpr, ctas, stream
     "qt_silu_mul_quant_colwise": (
-        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I64, _P,
     ),
     # x, g, b, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, tpr, ctas, stream
     "qt_layernorm_quant_rowwise": (
@@ -96,9 +96,9 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _I, _I, _U64, _I, _I64,
         _P,
     ),
-    # a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, is_bf16, sr, key, stream
+    # a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, is_bf16, sr, key, tpr, ctas, stream
     "qt_silu_mul_bwd_quant_colwise": (
-        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I64, _P,
     ),
     # in, isb, iss, ish, out, osb, oss, osh, cos, sin, ldt, B, S, H, hd, mode, is_bf16, stream
     "qt_rope_relayout": (

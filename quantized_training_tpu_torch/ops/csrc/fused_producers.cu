@@ -44,7 +44,9 @@
 // - B8 rmsnorm_cols, or col_quant<NormProducer> at widths the row walk does
 //   not take and in the two-pass form (after producer_col_absmax):
 //   rmsnorm_quant_colwise (:246), column int8 given the column scales;
-// - B9 col_quant<SiluProducer>: silu_mul_quant_colwise (:409), the same;
+// - B9 elementwise_cols<SiluMulOp> given scales, or col_quant<SiluProducer>
+//   at widths the row walk does not take and in the two-pass form:
+//   silu_mul_quant_colwise (:409), the same;
 // - B10 rmsnorm_bwd_walk, or rmsnorm_bwd_rows at widths the row walk does
 //   not take, then reduce_parts: rmsnorm_bwd (:491), dx in x's dtype and
 //   dgamma fp32 [K] in one read of x and dy;
@@ -52,8 +54,9 @@
 //   not take: silu_mul_bwd_quant_rowwise (:631), (a, b, dy) [M, K] -> the
 //   row int8 of da and of db with fp32 row scales, optionally the column
 //   absmax of each and their copies in the inputs' dtype;
-// - B12 silu_bwd_col_quant: silu_mul_bwd_quant_colwise (:704), the column
-//   int8 of da and db given their column scales;
+// - B12 silu_bwd_cols, or silu_bwd_col_quant at widths the row walk does
+//   not take: silu_mul_bwd_quant_colwise (:704), the column int8 of da and
+//   db given their column scales;
 // - B18 _producer_quant_call (:803) through layernorm_quant (:918) and
 //   gelu_quant (:952), x [M, K] with g, b [K], or a [M, K]: its row body
 //   (:848) layernorm_rows and elementwise_rows<GeluOp>, its column body
@@ -89,19 +92,19 @@
 // cast with its column's inverse scale, kept in shared memory. wgmma and TMA
 // do not apply.
 //
-// B7, B8 given scales, B9's row form, B10, B11 and B18's row and
-// given-scales column forms, the paths' producer kernels with the most lost
-// time, were redesigned for the H100's memory system
+// B7, B8 given scales, B9's row form and its given-scales column form, B10,
+// B11, B12 and B18's row and given-scales column forms, the paths' producer
+// kernels with the most lost time, were redesigned for the H100's memory system
 // (ops/fused_producers.py's routes choose them where their layout leaves no
 // lane idle; the first design above stays for the other widths):
 // a persistent grid of a few CTAs an SM (RowWalk, row_common.cuh) whose
 // groups of whole warps take one row at a time, every lane holding the same
 // kNormV (B7, B8), kNormBwdV (B10), three or four (B18's LayerNorm) or one
-// or two (B9, B11, B18's GELU) 16-byte vectors of each row, the next row's
+// or two (B9, B11, B12, B18's GELU) 16-byte vectors of each row, the next row's
 // loaded before this row is worked on; the
 // producer's values stay in registers from the load to the cast, row sums
 // and maxima reduce by warp shuffles and a named barrier a group, the
-// column state (maxima, B8's inverse scales, B10's dgamma sums) stays in
+// column state (maxima, the column forms' inverse scales, B10's dgamma sums) stays in
 // registers and meets once a CTA (one row of partials a CTA, 264 at [8192,
 // 2048], not 547), and the casts round and convert by one add (byte_rn,
 // byte_sr) where rintf and the float -> int cast each took a quarter-rate
@@ -1257,11 +1260,12 @@ elementwise_rows(const T* __restrict__ a, const T* __restrict__ b, int8_t* __res
   }
 }
 
-// B18's GELU columns given the column scales, on the row walk (the route
-// ops/fused_producers.py::gelu_cols_sm90_route picks): the geometry of
-// elementwise_rows, a thread's inverse column scales computed once into
-// registers, y = Op::y of the loaded vectors cast at once, no row state.
-// q is col_quant<GeluProducer>'s bit for bit.
+// B9's columns and B18's GELU columns given the column scales, on the row
+// walk (the routes ops/fused_producers.py::silu_cols_sm90_route and
+// ::gelu_cols_sm90_route pick): the geometry of elementwise_rows and its
+// CTAs an SM, a thread's inverse column scales computed once into
+// registers, y = Op::y of the loaded vectors cast at once, no row state. q
+// is col_quant<SiluProducer>'s (col_quant<GeluProducer>'s) bit for bit.
 template <class Op, typename T, bool SR, int V>
 __global__ void __launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())
 elementwise_cols(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ scale,
@@ -1287,6 +1291,53 @@ elementwise_cols(const T* __restrict__ a, const T* __restrict__ b, const float* 
       for (int j = 0; j < N; ++j) y[j] = op_at<Op, T, V>(u, p, j);
       const int64_t off = row * K + walk.vec(p) * N;
       cast_pack<SR, N>(y, inv[p], off, key, q + off);
+    }
+  });
+}
+
+// B12 given the column scales on the persistent row walk (the route
+// ops/fused_producers.py::silu_bwd_cols_sm90_route picks): B11's walk
+// (RowWalk<V, 3> over a, b, dy) at one vector a thread where a row's
+// vectors fit a CTA (at K = 5632 bf16 one row of 704 vectors a CTA of 704
+// threads), else two, one CTA an SM; (da, db) of the loaded vectors cast at
+// once with each thread's inverse column scales, 2 V N floats in
+// registers: no row state, no barrier a row, no scratch. The Philox words
+// and the casts are silu_bwd_col_quant's, so qa and qb are its bits.
+// ab_sm90_forms.py times the other layouts: B11's two vectors a thread
+// (b12_v2), and the inverse scales in shared memory [2K] at two CTAs an SM
+// or one (b12_smem, b12_smem_one_cta), each slower at [8192, 5632] on an
+// H100 (PERF.md).
+template <typename T, bool SR, int V>
+__global__ void __launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2)
+silu_bwd_cols(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ dy,
+              const float* __restrict__ scale_a, const float* __restrict__ scale_b, int8_t* __restrict__ qa,
+              int8_t* __restrict__ qb, int64_t M, int64_t K, int tpr, float eps, uint64_t key) {
+  constexpr int N = 16 / sizeof(T);
+  using Walk = RowWalk<V, 3>;
+  const Walk walk(tpr);
+  const int64_t nv = K / N;  // tpr V
+  float inv_a[V][N], inv_b[V][N];
+#pragma unroll
+  for (int p = 0; p < V; ++p)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      inv_a[p][j] = inv_scale(scale_a[walk.vec(p) * N + j], eps);
+      inv_b[p][j] = inv_scale(scale_b[walk.vec(p) * N + j], eps);
+    }
+  const uint4* const in[3] = {reinterpret_cast<const uint4*>(a), reinterpret_cast<const uint4*>(b),
+                              reinterpret_cast<const uint4*>(dy)};
+  walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[3][V]) {
+#pragma unroll
+    for (int p = 0; p < V; ++p) {
+      const T* ea = reinterpret_cast<const T*>(&u[0][p]);
+      const T* eb = reinterpret_cast<const T*>(&u[1][p]);
+      const T* ed = reinterpret_cast<const T*>(&u[2][p]);
+      float da[N], db[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) silu_mul_bwd(to_f32(ea[j]), to_f32(eb[j]), to_f32(ed[j]), da[j], db[j]);
+      const int64_t off = row * K + walk.vec(p) * N;
+      cast_pack<SR, N>(da, inv_a[p], off, key, qa + off);
+      cast_pack<SR, N>(db, inv_b[p], M * K + off, key, qb + off);
     }
   });
 }
@@ -1599,8 +1650,9 @@ cudaError_t launch_elementwise_rows(const void* a, const void* b, void* q, void*
   return err != cudaSuccess || !COLMAX ? err : launch_reduce(true, pt, static_cast<float*>(amax), ctas, K, stream);
 }
 
-// B18's GELU columns given scales on the walk (elementwise_cols over Op):
-// tpr threads a row, ctas CTAs, no scratch.
+// B9's and B18's GELU columns given scales on the walk (elementwise_cols
+// over Op, its inputs a and, for two, b): tpr threads a row, ctas CTAs, no
+// scratch.
 template <class Op, typename T, bool SR>
 cudaError_t launch_elementwise_cols(const void* a, const void* b, const float* scale, void* q, int64_t M, int64_t K,
                                     int tpr, int64_t ctas, float eps, uint64_t key, cudaStream_t stream) {
@@ -1609,6 +1661,22 @@ cudaError_t launch_elementwise_cols(const void* a, const void* b, const float* s
   const auto kernel = V == 1 ? elementwise_cols<Op, T, SR, 1> : elementwise_cols<Op, T, SR, 2>;
   kernel<<<static_cast<unsigned int>(ctas), tpr > kThreads ? tpr : kThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), scale, static_cast<int8_t*>(q), M, K, tpr, eps, key);
+  return cudaGetLastError();
+}
+
+// B12 given scales on the walk (silu_bwd_cols): tpr threads a row, ctas
+// CTAs, no scratch.
+template <typename T, bool SR>
+cudaError_t launch_silu_bwd_cols(const void* a, const void* b, const void* dy, const void* scale_a,
+                                 const void* scale_b, void* qa, void* qb, int64_t M, int64_t K, int tpr, int64_t ctas,
+                                 float eps, uint64_t key, cudaStream_t stream) {
+  const int V = elementwise_v<T>(tpr, K, ctas);
+  if (V == 0) return cudaErrorInvalidValue;
+  const auto kernel = V == 1 ? silu_bwd_cols<T, SR, 1> : silu_bwd_cols<T, SR, 2>;
+  kernel<<<static_cast<unsigned int>(ctas), tpr > kThreads ? tpr : kThreads, 0, stream>>>(
+      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(dy),
+      static_cast<const float*>(scale_a), static_cast<const float*>(scale_b), static_cast<int8_t*>(qa),
+      static_cast<int8_t*>(qb), M, K, tpr, eps, key);
   return cudaGetLastError();
 }
 
@@ -1737,15 +1805,20 @@ extern "C" int qt_rmsnorm_quant_colwise(const void* x, const void* g, const void
 #undef QT_COL
 }
 
-// B9, column form: as B8 with the inputs a, b [M, K].
+// B9, column form: as B8 with the inputs a, b [M, K]. tpr
+// (ops/fused_producers.py::silu_cols_sm90_route, given scales only): 0
+// takes col_quant with rpb rows a block; else elementwise_cols<SiluMulOp>
+// with tpr threads a row on ctas CTAs (no scratch).
 extern "C" int qt_silu_mul_quant_colwise(const void* a, const void* b, const void* scale, void* q, void* s_out,
                                          void* amax, void* parts, int64_t M, int64_t K, int64_t rpb, float eps,
-                                         int is_bf16, int sr, uint64_t key, void* stream) {
+                                         int is_bf16, int sr, uint64_t key, int tpr, int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
-#define QT_COL(T, SR) launch_col<SiluProducer<T>, SR>(silu_producer<T>(a, b, K), sc, q, s_out, amax, parts, M, rpb, \
-                                                      eps, key, s)
+#define QT_COL(T, SR)                                                                                                 \
+  (tpr != 0 ? launch_elementwise_cols<SiluMulOp, T, SR>(a, b, sc, q, M, K, tpr, ctas, eps, key, s)                    \
+            : launch_col<SiluProducer<T>, SR>(silu_producer<T>(a, b, K), sc, q, s_out, amax, parts, M, rpb, eps, key, \
+                                              s))
   if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
   return sr ? QT_COL(float, true) : QT_COL(float, false);
 #undef QT_COL
@@ -1796,12 +1869,18 @@ extern "C" int qt_silu_mul_bwd_quant_rowwise(const void* a, const void* b, const
 }
 
 // B12: qa, qb int8 [M, K] given the column scales scale_a, scale_b fp32 [K].
+// tpr (ops/fused_producers.py::silu_bwd_cols_sm90_route): 0 takes
+// silu_bwd_col_quant with rpb rows a block; else silu_bwd_cols with tpr
+// threads a row on ctas CTAs (no scratch).
 extern "C" int qt_silu_mul_bwd_quant_colwise(const void* a, const void* b, const void* dy, const void* scale_a,
                                              const void* scale_b, void* qa, void* qb, int64_t M, int64_t K,
-                                             int64_t rpb, float eps, int is_bf16, int sr, uint64_t key, void* stream) {
+                                             int64_t rpb, float eps, int is_bf16, int sr, uint64_t key, int tpr,
+                                             int64_t ctas, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QT_COL(T, SR) launch_silu_bwd_col<T, SR>(a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, key, s)
+#define QT_COL(T, SR)                                                                                              \
+  (tpr != 0 ? launch_silu_bwd_cols<T, SR>(a, b, dy, scale_a, scale_b, qa, qb, M, K, tpr, ctas, eps, key, s)        \
+            : launch_silu_bwd_col<T, SR>(a, b, dy, scale_a, scale_b, qa, qb, M, K, rpb, eps, key, s))
   if (is_bf16) return sr ? QT_COL(__nv_bfloat16, true) : QT_COL(__nv_bfloat16, false);
   return sr ? QT_COL(float, true) : QT_COL(float, false);
 #undef QT_COL

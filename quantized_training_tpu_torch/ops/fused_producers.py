@@ -39,22 +39,23 @@ A CPU tensor takes the plain version; a CUDA tensor launches the kernel of
 ``csrc/fused_producers.cu`` (whose header says what bounds it on the H100
 and how its design answers that) or raises. Each wrapper counts its
 launches, an SR form apart (``sr_launches``). B7, B8 given scales, B9's
-row form, B10 and B11 take the persistent row walk, redesigned for the
-H100's memory system, wherever its layout leaves no lane idle
-(:func:`norm_rows_sm90_route`, :func:`norm_cols_sm90_route`,
-:func:`silu_rows_sm90_route`, :func:`rmsnorm_bwd_sm90_route`,
-:func:`silu_bwd_rows_sm90_route`, decided here and passed to the C entry),
-and so do B18's row forms and its given-scales column forms
-(:func:`layernorm_rows_sm90_route`, :func:`layernorm_cols_sm90_route`,
-:func:`gelu_rows_sm90_route`, :func:`gelu_cols_sm90_route`), and count
-those launches again (``sm90_launches``, ``sr_sm90_launches``); other
-widths, and the two-pass column forms of B8 and B18, keep the first
-design. B9, B11, B12 and B18's GELU forms are bit-exact with their plain
-versions on the card. B7, B8, B10 and B18's LayerNorm forms hold a row
-sum, which the kernel takes in its own order: their int8 outputs may
-differ by one step on rare elements, their scales, maxima, dx and dgamma
-by fp32 rounding; on the walk they keep the first design's order, and its
-bits (B10's dgamma apart).
+row form and its given-scales column form, B10, B11 and B12 take the
+persistent row walk, redesigned for the H100's memory system, wherever its
+layout leaves no lane idle (:func:`norm_rows_sm90_route`,
+:func:`norm_cols_sm90_route`, :func:`silu_rows_sm90_route`,
+:func:`silu_cols_sm90_route`, :func:`rmsnorm_bwd_sm90_route`,
+:func:`silu_bwd_rows_sm90_route`, :func:`silu_bwd_cols_sm90_route`, decided
+here and passed to the C entry), and so do B18's row forms and its
+given-scales column forms (:func:`layernorm_rows_sm90_route`,
+:func:`layernorm_cols_sm90_route`, :func:`gelu_rows_sm90_route`,
+:func:`gelu_cols_sm90_route`), and count those launches again
+(``sm90_launches``, ``sr_sm90_launches``); other widths, and the two-pass
+column forms of B8, B9 and B18, keep the first design. B9, B11, B12 and
+B18's GELU forms are bit-exact with their plain versions on the card. B7,
+B8, B10 and B18's LayerNorm forms hold a row sum, which the kernel takes in
+its own order: their int8 outputs may differ by one step on rare elements,
+their scales, maxima, dx and dgamma by fp32 rounding; on the walk they keep
+the first design's order, and its bits (B10's dgamma apart).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ import math
 import torch
 
 from . import _build, random
-from .int8_quant import _check_device_input, _count, _count_route, _key, _sm_count, row_walk_ctas
+from .int8_quant import _check_device_input, _count_route, _key, _sm_count, row_walk_ctas
 
 EPS = 1e-12
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -314,23 +315,26 @@ def supported(M: int, K: int, dtype, n_inputs: int = 1) -> bool:
     return dtype in _DTYPES and M >= 32 and M % 32 == 0 and 128 <= K <= max_k and K % 128 == 0
 
 
-# ---- the routes of B7, B8, B9-row, B10, B11 and B18 ----------------------------
+# ---- the routes of B7-B12 and B18 ----------------------------------------------
 
 # B7's and B8's vectors a thread a row on the row walk
 # (csrc/fused_producers.cu::kNormV), B10's of each of x and dy (::kNormBwdV)
 NORM_ROW_VECTORS = 4
 NORM_BWD_VECTORS = 2
 _CTA = 256  # the row kernels' block (csrc/row_common.cuh::kThreads)
-# B11's and B9-row's row walks: vectors a thread -> the largest CTA, in the
-# order tried
-# (two vectors ran B11 at 157.4 us at [8192, 5632] on the H100, one 177.6:
-# ab_sm90_forms.py, PERF.md)
+# The silu walks (B9, B11, B12): vectors a thread -> the largest CTA. B11
+# and B9's RN forms try two vectors a thread first, B12 and B9-col's SR form
+# one: at [8192, 5632] on the H100 two ran B11 at 157.4 us, one 177.6; one
+# ran B12 at 127.2 us, two 132.1 (SR 189.4, 200.6), and B9-col-SR at 111.6,
+# two 131.6 (ab_sm90_forms.py, PERF.md)
 _SILU_ROWS_MAX_CTA = {2: 384, 1: 704}
+_TWO_FIRST, _ONE_FIRST = (2, 1), (1, 2)
 # CTAs an SM the walks' launch bounds keep resident: B7, B8 and B10 two of
-# 256, B11 one, B9's row form and B18's GELU forms two in their RN forms at
-# two vectors a thread, else one (csrc/fused_producers.cu::silu_rows_ctas,
-# kSiluCtasPerSm), B18's LayerNorm forms two of 256 (kLayerNormCtasPerSm),
-# its SR row form one (layernorm_rows_ctas)
+# 256, B11 and B12 one, B9's forms and B18's GELU forms two in their RN
+# forms at two vectors a thread, else one
+# (csrc/fused_producers.cu::silu_rows_ctas, kSiluCtasPerSm), B18's
+# LayerNorm forms two of 256 (kLayerNormCtasPerSm), its SR row form one
+# (layernorm_rows_ctas)
 NORM_CTAS_PER_SM, SILU_CTAS_PER_SM, SILU_ROWS_CTAS_PER_SM = 2, 1, 2
 LAYERNORM_CTAS_PER_SM = 2
 # B18's LayerNorm walks: the vectors a thread a row the route tries, in
@@ -376,14 +380,15 @@ def rmsnorm_bwd_sm90_route(K: int, dtype) -> int:
     return _norm_walk_tpr(K, dtype, NORM_BWD_VECTORS)
 
 
-def _silu_walk_tpr(K: int, dtype) -> int:
-    """Two 16-byte vectors a thread, else one, whole warps, a group that
-    fills its block or divides it, within the block the kernel's registers
-    allow; 0 where none is."""
+def _silu_walk_tpr(K: int, dtype, vectors=_TWO_FIRST) -> int:
+    """The first of ``vectors`` 16-byte vectors a thread (two, then one) that
+    takes whole warps, a group that fills its block or divides it, within
+    the block the kernel's registers allow; 0 where none is."""
     nv = K * dtype.itemsize // 16
-    for v, max_cta in _SILU_ROWS_MAX_CTA.items():
+    for v in vectors:
         tpr = nv // v
-        if tpr * v == nv and tpr % 32 == 0 and tpr > 0 and max(tpr, _CTA) % tpr == 0 and max(tpr, _CTA) <= max_cta:
+        cta = max(tpr, _CTA)
+        if tpr * v == nv and tpr % 32 == 0 and tpr > 0 and cta % tpr == 0 and cta <= _SILU_ROWS_MAX_CTA[v]:
             return tpr
     return 0
 
@@ -396,6 +401,15 @@ def silu_bwd_rows_sm90_route(K: int, dtype) -> int:
     kernel's registers allow (bf16 K = 5632: 352 threads, two vectors
     each)."""
     return _silu_walk_tpr(K, dtype)
+
+
+def silu_bwd_cols_sm90_route(K: int, dtype) -> int:
+    """The threads a row of B12 given scales on the persistent row walk
+    (``csrc/fused_producers.cu::silu_bwd_cols``), 0 for the first design
+    (``silu_bwd_col_quant``): B11's layouts, one vector a thread tried
+    first (bf16 K = 5632: 704 threads; 6144: 384 of two), with
+    ``SILU_CTAS_PER_SM`` CTAs an SM, as B11."""
+    return _silu_walk_tpr(K, dtype, _ONE_FIRST)
 
 
 def silu_rows_sm90_route(K: int, dtype) -> int:
@@ -413,6 +427,23 @@ def silu_rows_ctas_per_sm(K: int, dtype, sr: bool) -> int:
     ``SILU_ROWS_CTAS_PER_SM`` for the RN form at two vectors a thread, else
     one."""
     return _elementwise_ctas_per_sm(silu_rows_sm90_route(K, dtype), K, dtype, sr)
+
+
+def silu_cols_sm90_route(K: int, dtype, sr: bool = False) -> int:
+    """The threads a row of B9's column form given scales on the
+    persistent row walk (``csrc/fused_producers.cu::elementwise_cols<SiluMulOp>``),
+    0 for the first design (``col_quant<SiluProducer>``): the row form's
+    layouts, the SR form's one vector a thread tried first (bf16 K = 5632:
+    352 threads of two, SR 704 of one), with :func:`silu_cols_ctas_per_sm`
+    CTAs an SM. The two-pass form keeps the first design."""
+    return _silu_walk_tpr(K, dtype, _ONE_FIRST if sr else _TWO_FIRST)
+
+
+def silu_cols_ctas_per_sm(K: int, dtype, sr: bool) -> int:
+    """CTAs an SM B9's column walk keeps resident, as its launch bounds do
+    (``silu_rows_ctas``): two for the RN form at two vectors a thread, else
+    one."""
+    return _elementwise_ctas_per_sm(silu_cols_sm90_route(K, dtype, sr), K, dtype, sr)
 
 
 def _elementwise_ctas_per_sm(tpr: int, K: int, dtype, sr: bool) -> int:
@@ -491,7 +522,7 @@ def _parts(M: int, K: int, device, needed: bool = True) -> torch.Tensor:
 
 
 def _route_parts(M: int, K: int, device, needed: bool, tpr: int, per_sm: int) -> tuple[int, torch.Tensor]:
-    """The grid of B7's, B8's, B9-row's, B10's, B11's or B18's route (0 for
+    """The grid of B7's, B9-row's, B10's, B11's or B18's row route (0 for
     the first design) and the fp32 scratch of its column partials: [CTAs, K] on
     the row walk (one row a CTA), [blocks, K] for the first design."""
     if not tpr:
@@ -578,11 +609,10 @@ def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr, per_sm=NORM_
     return (q, scale, amax) if with_col_amax else (q, scale)
 
 
-def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr=None, per_sm=NORM_CTAS_PER_SM):
+def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr, per_sm=NORM_CTAS_PER_SM):
     """Launch the column form of B8, B9 or B18: given scales, or two
-    passes. ``tpr`` (B8 and B18, whose entries take a route): the threads a
-    row on the row walk of ``per_sm`` CTAs an SM (no scratch), 0 for the
-    first design."""
+    passes. ``tpr``: the threads a row on the row walk of ``per_sm`` CTAs
+    an SM (given scales only; no scratch), 0 for the first design."""
     key = _key(sr, key)
     M, K = _check(what, *inputs)
     x = inputs[0]
@@ -594,14 +624,11 @@ def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr=None, per_sm=NOR
         amax = torch.empty(K, dtype=torch.float32, device=x.device)
         s_out = torch.empty((1, K), dtype=torch.float32, device=x.device)
         parts = _parts(M, K, x.device)
-    route = () if tpr is None else (tpr, row_walk_ctas(M, tpr, _sm_count(x.device), per_sm) if tpr else 0)
+    ctas = row_walk_ctas(M, tpr, _sm_count(x.device), per_sm) if tpr else 0
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = launch(ptr(scale), q.data_ptr(), ptr(s_out), ptr(amax), ptr(parts), M, K, _rows_per_block(M), key, *route)
+    err = launch(ptr(scale), q.data_ptr(), ptr(s_out), ptr(amax), ptr(parts), M, K, _rows_per_block(M), key, tpr, ctas)
     _build.check(err, what)
-    if tpr is None:
-        _count(fn, sr)
-    else:
-        _count_route(fn, sr, bool(tpr))
+    _count_route(fn, sr, bool(tpr))
     return q, (scale if s_out is None else s_out)
 
 
@@ -629,9 +656,12 @@ def silu_mul_quant_colwise(a: torch.Tensor, b: torch.Tensor, *, eps: float = EPS
     if a.device.type == "cpu":
         return silu_mul_quant_colwise_plain(a, b, eps=eps, sr=sr, key=key, scale=scale)
     dt = int(a.dtype == torch.bfloat16)
-    launch = lambda sc, q, so, am, pt, M, K, rpb, k: _build.library().qt_silu_mul_quant_colwise(
-        a.data_ptr(), b.data_ptr(), sc, q, so, am, pt, M, K, rpb, eps, dt, int(sr), k, _build.stream())
-    return _colwise("silu_mul_quant_colwise", silu_mul_quant_colwise, launch, (a, b), scale, eps, sr, key)
+    launch = lambda sc, q, so, am, pt, M, K, rpb, k, tpr, ctas: _build.library().qt_silu_mul_quant_colwise(
+        a.data_ptr(), b.data_ptr(), sc, q, so, am, pt, M, K, rpb, eps, dt, int(sr), k, tpr, ctas, _build.stream())
+    K = a.shape[-1]
+    tpr = silu_cols_sm90_route(K, a.dtype, sr) if scale is not None else 0  # two passes: the first design
+    return _colwise("silu_mul_quant_colwise", silu_mul_quant_colwise, launch, (a, b), scale, eps, sr, key, tpr,
+                    silu_cols_ctas_per_sm(K, a.dtype, sr))
 
 
 def rmsnorm_bwd(x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, *, norm_eps: float = 1e-5):
@@ -697,7 +727,8 @@ def silu_mul_bwd_quant_colwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
                                key: int | None = None):
     """B12: (da, db) of y = silu(a) * b at dy, column-quantized with the
     given fp32 column scales [1, K] (B11's column absmax * (1/127)) in one
-    read of (a, b, dy): ``(da_q, db_q)`` int8 [M, K]."""
+    read of (a, b, dy): ``(da_q, db_q)`` int8 [M, K]; on the row walk where
+    :func:`silu_bwd_cols_sm90_route` gives threads a row."""
     if a.device.type == "cpu":
         return silu_mul_bwd_quant_colwise_plain(a, b, dy, da_scale, db_scale, eps=eps, sr=sr, key=key)
     key = _key(sr, key)
@@ -705,13 +736,15 @@ def silu_mul_bwd_quant_colwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
     M, K = _check(what, a, b, dy)
     da_scale, db_scale = (_col_scale(s, K, a, what) for s in (da_scale, db_scale))
     qa, qb = (torch.empty((M, K), dtype=torch.int8, device=a.device) for _ in range(2))
+    tpr = silu_bwd_cols_sm90_route(K, a.dtype)
+    ctas = row_walk_ctas(M, tpr, _sm_count(a.device), SILU_CTAS_PER_SM) if tpr else 0
     err = _build.library().qt_silu_mul_bwd_quant_colwise(
         a.data_ptr(), b.data_ptr(), dy.data_ptr(), da_scale.data_ptr(), db_scale.data_ptr(), qa.data_ptr(),
-        qb.data_ptr(), M, K, _rows_per_block(M), eps, int(a.dtype == torch.bfloat16), int(sr), key,
+        qb.data_ptr(), M, K, _rows_per_block(M), eps, int(a.dtype == torch.bfloat16), int(sr), key, tpr, ctas,
         _build.stream(),
     )
     _build.check(err, what)
-    _count(silu_mul_bwd_quant_colwise, sr)
+    _count_route(silu_mul_bwd_quant_colwise, sr, bool(tpr))
     return qa, qb
 
 
@@ -803,7 +836,5 @@ for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_quant_rowwise
             silu_mul_bwd_quant_rowwise, silu_mul_bwd_quant_colwise, layernorm_quant_rowwise,
             layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
     _fn.launches = _fn.sr_launches = 0
-for _fn in (rmsnorm_quant_rowwise, rmsnorm_quant_colwise, silu_mul_bwd_quant_rowwise, silu_mul_quant_rowwise,
-            layernorm_quant_rowwise, layernorm_quant_colwise, gelu_quant_rowwise, gelu_quant_colwise):
     _fn.sm90_launches = _fn.sr_sm90_launches = 0  # the launches on the row walk
 rmsnorm_bwd.launches = rmsnorm_bwd.sm90_launches = 0

@@ -466,6 +466,77 @@ def test_b9_row_walk_bit_exact(monkeypatch, M, K, sr):
         assert all(torch.equal(x, y) for x, y in zip(got, first))
 
 
+# the silu column forms at the Llama2-1B step's FFN width, 256 rows of it,
+# a ragged row count and a width the walk cannot tile (route 0)
+_SILU_COL_SHAPES = [(8192, 5632), (256, 5632), (1000, 5632), (512, 640)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K", _SILU_COL_SHAPES)
+def test_b9_col_walk_bit_exact(monkeypatch, M, K, sr):
+    """B9's column form given the row form's column scales, and its SR form,
+    on the route ``silu_cols_sm90_route`` gives (the row walk at K = 5632
+    bf16: 352 threads of two vectors, SR 704 of one): bit-exact with the
+    plain version, the same bits on a second run, each launch counted on
+    the route it took, and the walk's q the first design's (the route
+    forced to 0) bit for bit."""
+    _, _, a, b = _producer_inputs(M, K, torch.bfloat16, 90)
+    kw = dict(sr=sr, key=2**61 + 11 if sr else None)
+    scale = ops.silu_mul_quant_rowwise(a, b, with_col_amax=True)[2] * (1.0 / 127.0)
+    walk = int(FP.silu_cols_sm90_route(K, torch.bfloat16, sr) > 0)
+    assert walk == int(K == 5632)
+    t = "_sr" if sr else ""
+    ops.reset_launch_counts()
+    got = ops.silu_mul_quant_colwise(a, b, scale=scale, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts[f"silu_mul_quant_colwise{t}"] == 1 and counts[f"silu_mul_quant_colwise{t}_sm90"] == walk
+    ref = ops.silu_mul_quant_colwise_plain(a, b, scale=scale, **kw)
+    for x, r in zip(got, ref):
+        assert x.dtype == r.dtype and x.shape == r.shape and torch.equal(x, r)
+    assert all(torch.equal(x, y) for x, y in zip(got, ops.silu_mul_quant_colwise(a, b, scale=scale, **kw)))
+    with monkeypatch.context() as m:
+        m.setattr(FP, "silu_cols_sm90_route", lambda *a: 0)
+        ops.reset_launch_counts()
+        first = ops.silu_mul_quant_colwise(a, b, scale=scale, **kw)
+        assert ops.launch_counts()[f"silu_mul_quant_colwise{t}_sm90"] == 0
+    assert all(torch.equal(x, y) for x, y in zip(got, first))
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K", _SILU_COL_SHAPES)
+def test_b12_walk_bit_exact(monkeypatch, M, K, sr):
+    """B12 given B11's column scales, and its SR form, on the route
+    ``silu_bwd_cols_sm90_route`` gives (B11's row walk at K = 5632 bf16, 704
+    threads of one vector):
+    qa and qb bit-exact with the plain version, the same bits on a second
+    run, each launch counted on the route it took, and both the first
+    design's (the route forced to 0) bit for bit."""
+    _, _, a, b = _producer_inputs(M, K, torch.bfloat16, 95)
+    dy = _rand((M, K), torch.bfloat16, 98) * 1e-3
+    dy[:, 3] = 0  # an all-zero column of (da, db)
+    kw = dict(sr=sr, key=2**63 + 29 if sr else None)
+    scales = [m * (1.0 / 127.0) for m in ops.silu_mul_bwd_quant_rowwise(a, b, dy)[4:]]
+    walk = int(FP.silu_bwd_cols_sm90_route(K, torch.bfloat16) > 0)
+    assert walk == int(K == 5632)
+    t = "_sr" if sr else ""
+    ops.reset_launch_counts()
+    got = ops.silu_mul_bwd_quant_colwise(a, b, dy, *scales, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts[f"silu_mul_bwd_quant_colwise{t}"] == 1 and counts[f"silu_mul_bwd_quant_colwise{t}_sm90"] == walk
+    ref = ops.silu_mul_bwd_quant_colwise_plain(a, b, dy, *scales, **kw)
+    for x, r in zip(got, ref):
+        assert x.dtype == r.dtype and x.shape == r.shape and torch.equal(x, r)
+    assert all(torch.equal(x, y) for x, y in zip(got, ops.silu_mul_bwd_quant_colwise(a, b, dy, *scales, **kw)))
+    with monkeypatch.context() as m:
+        m.setattr(FP, "silu_bwd_cols_sm90_route", lambda K, dtype: 0)
+        ops.reset_launch_counts()
+        first = ops.silu_mul_bwd_quant_colwise(a, b, dy, *scales, **kw)
+        assert ops.launch_counts()[f"silu_mul_bwd_quant_colwise{t}_sm90"] == 0
+    assert all(torch.equal(x, y) for x, y in zip(got, first))
+
+
 # B4 at the fused step's four weight shapes, ViT-Giant's proj input and fc2
 # weight (a 48 KB tile beside 2.5 KB of static shared memory: past the
 # default limit), the unfused layer's down input, a ragged row count and
@@ -1243,16 +1314,16 @@ def test_launch_counters_count_kernel_launches_only():
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=False)
     ops.fused_adamw_update(*adamw_in, 1, bf16_sr=True)
     y, gamma = _rand((64, 128), torch.bfloat16, 3), torch.ones(128, device="cuda", dtype=torch.bfloat16)
-    # B7, B8, B9-row, B10 and B11 at a width they take on the row walk:
-    # counted there too; B4 above on its cluster route ([64, 64]: 2 strips
-    # of 4 vectors)
+    # B7, B8, B9 (rows, and columns given scales), B10, B11 and B12 at a
+    # width they take on the row walk: counted there too; B4 above on its
+    # cluster route ([64, 64]: 2 strips of 4 vectors)
     wide, wide_gamma = _rand((64, 2048), torch.bfloat16, 5), torch.ones(2048, device="cuda", dtype=torch.bfloat16)
     for use_sr in (False, True):
         kw = dict(sr=use_sr, key=1 if use_sr else None)
         amax = ops.rmsnorm_quant_rowwise(wide, wide_gamma, with_col_amax=True, **kw)[2]
         ops.rmsnorm_quant_colwise(wide, wide_gamma, scale=amax * (1.0 / 127.0), **kw)
-        ops.silu_mul_quant_rowwise(wide, wide, **kw)  # on the row walk: counted there too
-        ops.silu_mul_quant_colwise(y, y, **kw)
+        amax = ops.silu_mul_quant_rowwise(wide, wide, with_col_amax=True, **kw)[2]
+        ops.silu_mul_quant_colwise(wide, wide, scale=amax * (1.0 / 127.0), **kw)
         ops.rmsnorm_quant_rowwise_plain(y, gamma, **kw)
         ops.silu_mul_quant_colwise_plain(y, y, **kw)
     ops.rmsnorm_bwd(wide, wide_gamma, wide)  # on the row walk: counted there too

@@ -1,13 +1,16 @@
 """The route B7 (``rmsnorm_quant_rowwise``), B8 given scales
-(``rmsnorm_quant_colwise``), B9's row form (``silu_mul_quant_rowwise``), B10
-(``rmsnorm_bwd``), B11 (``silu_mul_bwd_quant_rowwise``) and B18's row and
-given-scales column forms (``layernorm_quant_*``, ``gelu_quant_*``) take,
-on the CPU: each picks between the persistent row walk of
-``csrc/fused_producers.cu`` (``rmsnorm_rows``, ``rmsnorm_cols``,
-``elementwise_rows``, ``rmsnorm_bwd_walk``, ``silu_bwd_rows``,
+(``rmsnorm_quant_colwise``), B9's row form (``silu_mul_quant_rowwise``) and
+its given-scales column form (``silu_mul_quant_colwise``), B10
+(``rmsnorm_bwd``), B11 (``silu_mul_bwd_quant_rowwise``), B12 given scales
+(``silu_mul_bwd_quant_colwise``) and B18's row and given-scales column forms
+(``layernorm_quant_*``, ``gelu_quant_*``) take, on the CPU: each picks
+between the persistent row walk of ``csrc/fused_producers.cu``
+(``rmsnorm_rows``, ``rmsnorm_cols``, ``elementwise_rows``,
+``rmsnorm_bwd_walk``, ``silu_bwd_rows``, ``silu_bwd_cols``,
 ``layernorm_rows``, ``layernorm_cols``, ``elementwise_cols``) and the first
 design (``row_quant``, ``col_quant``, ``rmsnorm_bwd_rows``,
-``silu_bwd_row_quant``) by a pure predicate in ``ops/fused_producers.py``,
+``silu_bwd_row_quant``, ``silu_bwd_col_quant``) by a pure predicate in
+``ops/fused_producers.py``,
 which gives the threads a row (0: the first design) and is passed to the C
 entry with the grid. No card is needed: the predicates and the geometry are
 held at every width the wrappers take, and the wrappers' launch path runs
@@ -476,13 +479,13 @@ def test_b10_passes_its_route(library, monkeypatch, M, K, dtype):
 
 @pytest.mark.parametrize("K_ln,K_gelu,routed", _B18_WIDTHS)
 def test_other_column_producers_keep_their_entries(library, K_ln, K_gelu, routed):
-    """B9's column form shares B8's Python launch path but takes no route:
-    its entry takes no route arguments, given scales or in two passes, and
-    nothing counts a row-walk launch for it. B18's column forms take the
-    route arguments (16 and 19 of them): given scales, route 0 at a width
-    the walk cannot tile (bf16 K 640) and their routes and grids at
-    ViT-Giant's widths, counted on the walk; in two passes route 0
-    everywhere, counted on the first design."""
+    """B9's column form and B18's column forms share B8's Python launch
+    path, and their entries take the route arguments (17, 16 and 19 of
+    them): given scales, route 0 at a width the walk cannot tile (bf16 K
+    640) and their routes and grids at the wider widths (B9's columns at
+    GELU's, 6144: 384 threads of two vectors, two CTAs an SM), counted on
+    the walk; in two passes route 0 everywhere, counted on the first
+    design."""
     M = 6400
     a, x, g = _meta((M, K_gelu)), _meta((M, K_ln)), _meta((K_ln,))
     for kw_gelu, kw_ln in ((dict(scale=_meta((1, K_gelu), torch.float32)), dict(scale=_meta((1, K_ln), torch.float32))),
@@ -495,18 +498,24 @@ def test_other_column_producers_keep_their_entries(library, K_ln, K_gelu, routed
     assert [n for n, _ in library.calls] == ["qt_silu_mul_quant_colwise", "qt_gelu_quant_colwise",
                                              "qt_layernorm_quant_colwise"] * 2
     assert [len(_build._SIGNATURES[n]) for n in ("qt_silu_mul_quant_colwise", "qt_gelu_quant_colwise",
-                                                 "qt_layernorm_quant_colwise")] == [15, 16, 19]
+                                                 "qt_layernorm_quant_colwise")] == [17, 16, 19]
+    t_silu = FP.silu_cols_sm90_route(K_gelu, torch.bfloat16)
     t_gelu = FP.gelu_cols_sm90_route(K_gelu, torch.bfloat16)
     t_ln = FP.layernorm_cols_sm90_route(K_ln, torch.bfloat16)
-    assert bool(t_gelu) == bool(t_ln) == routed
+    assert bool(t_silu) == bool(t_gelu) == bool(t_ln) == routed
+    silu_per_sm = FP.silu_rows_ctas_per_sm(K_gelu, torch.bfloat16, False)
     gelu_per_sm = FP.gelu_ctas_per_sm(K_gelu, torch.bfloat16, False)
+    assert silu_per_sm == gelu_per_sm == (2 if routed else 1)
+    assert library.calls[0][1][14:] == (t_silu, FP.row_walk_ctas(M, t_silu, SMS, silu_per_sm) if routed else 0, 0)
     assert library.calls[1][1][13:] == (t_gelu, FP.row_walk_ctas(M, t_gelu, SMS, gelu_per_sm) if routed else 0, 0)
     assert library.calls[2][1][16:] == (t_ln, FP.row_walk_ctas(M, t_ln, SMS, 2) if routed else 0, 0)
-    assert library.calls[4][1][13:] == library.calls[5][1][16:] == (0, 0, 0)
+    assert library.calls[3][1][14:] == library.calls[4][1][13:] == library.calls[5][1][16:] == (0, 0, 0)
+    assert library.calls[3][1][6] is not None  # two passes: the first design, with its scratch
     counts = ops.launch_counts()
     assert counts["silu_mul_quant_colwise"] == counts["gelu_quant_colwise"] == counts["layernorm_quant_colwise"] == 2
-    assert counts["gelu_quant_colwise_sm90"] == counts["layernorm_quant_colwise_sm90"] == int(routed)
-    assert sum(v for k, v in counts.items() if k.endswith("_sm90")) == 2 * int(routed)
+    assert (counts["silu_mul_quant_colwise_sm90"] == counts["gelu_quant_colwise_sm90"]
+            == counts["layernorm_quant_colwise_sm90"] == int(routed))
+    assert sum(v for k, v in counts.items() if k.endswith("_sm90")) == 3 * int(routed)
 
 
 def test_b8_b10_constants_match_the_kernels():
@@ -712,3 +721,141 @@ def test_b18_constants_match_the_kernels():
     assert FP.gelu_ctas_per_sm(_G.mlp_dim, BF16, False) == FP.SILU_ROWS_CTAS_PER_SM == 2
     assert FP.gelu_ctas_per_sm(_G.mlp_dim, BF16, True) == 1
     assert FP.gelu_ctas_per_sm(3072, BF16, False) == 1  # one vector a thread
+
+
+# ---- B9's columns given scales and B12 on the row walk -------------------------------
+
+# (K, dtype, threads a row at two vectors a thread first, at one first):
+# the Llama2-1B FFN width 5632 first; widths the walk cannot tile keep the
+# first design at either
+_SILU_ROUTES = [(_L.intermediate_size, BF16, 352, 704), (2048, BF16, 128, 256), (256, BF16, 32, 32),
+                (6144, BF16, 384, 384), (2560, BF16, 320, 320), (2048, F32, 256, 512), (8192, BF16, 0, 0),
+                (128, BF16, 0, 0), (640, BF16, 0, 0), (1536, BF16, 0, 0), (5632, F32, 0, 0)]
+
+
+@pytest.mark.parametrize("K,dtype,two_first,one_first", _SILU_ROUTES)
+def test_b12_route(K, dtype, two_first, one_first):
+    """B12 given scales takes B11's layouts with one vector a thread tried
+    first (it ran faster than B11's two: ``ab_sm90_forms.py``'s
+    ``b12_v2``): at the Llama2-1B step's FFN width (5632, bf16) 704 threads
+    a row, two vectors a thread only where one leaves no CTA (K = 6144);
+    widths the walk cannot tile with whole warps or hold in one block (K =
+    8192, 640, 1536, fp32 5632) keep the first design, as B11's do."""
+    assert FP.silu_bwd_cols_sm90_route(K, dtype) == one_first
+    assert FP.silu_bwd_rows_sm90_route(K, dtype) == two_first
+    assert bool(one_first) == bool(two_first)
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("K,dtype,two_first,one_first", _SILU_ROUTES)
+def test_b9_cols_route(K, dtype, two_first, one_first, sr):
+    """B9's column form given scales takes B9-row's layouts: its RN form at
+    352 threads a row of two vectors at the Llama2-1B step's FFN width, as
+    the row form, its SR form at 704 of one (faster than two: ``b9_v1``'s
+    ``B9csr``); the first design where the row form keeps it."""
+    assert FP.silu_cols_sm90_route(K, dtype, sr) == (one_first if sr else two_first)
+    assert FP.silu_cols_sm90_route(K, dtype) == two_first == FP.silu_rows_sm90_route(K, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["B12", "B9-col", "B9-col-SR"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_b9_cols_b12_geometry_leaves_no_lane_idle(dtype, kernel):
+    """At every K the wrappers take: whole warps a row, one or two vectors a
+    thread covering the row exactly, a block of max(tpr, 256) threads made
+    of whole groups within the kernel's largest for that vector count, its
+    CTAs an SM within the SM's 2,048 threads (B12 ``SILU_CTAS_PER_SM``, B9's
+    columns :func:`silu_cols_ctas_per_sm`: two only for the RN form at two
+    vectors a thread); the path's width is among them."""
+    sr = kernel == "B9-col-SR"
+    taken = []
+    for K in NORM_KS:
+        tpr = FP.silu_bwd_cols_sm90_route(K, dtype) if kernel == "B12" else FP.silu_cols_sm90_route(K, dtype, sr)
+        if tpr:
+            v, cta = _vectors(K, dtype) // tpr, max(tpr, 256)
+            assert tpr % 32 == 0 and v * tpr == _vectors(K, dtype) and v in FP._SILU_ROWS_MAX_CTA, (K, tpr)
+            assert cta % tpr == 0 and cta <= FP._SILU_ROWS_MAX_CTA[v], (K, tpr)
+            per_sm = FP.SILU_CTAS_PER_SM if kernel == "B12" else FP.silu_cols_ctas_per_sm(K, dtype, sr)
+            assert per_sm == (2 if kernel == "B9-col" and v == 2 else 1) and cta * per_sm <= 2048, (K, tpr)
+            taken.append(K)
+    assert taken and (dtype != torch.bfloat16 or _L.intermediate_size in taken)
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K,dtype", [(8192, 5632, BF16), (1000, 5632, BF16), (256, 5632, BF16),
+                                       (256, 2048, F32), (96, 640, BF16)])
+def test_b12_passes_its_route(library, M, K, dtype, sr):
+    """B12's wrapper passes ``silu_bwd_cols_sm90_route(K)`` and the walk's
+    grid (``SILU_CTAS_PER_SM`` CTAs an SM, by ``row_walk_ctas``) as the two
+    arguments before the stream, one argument per ``_SIGNATURES`` entry, its
+    rows a block for the first design (route 0 at bf16 K 640), and counts
+    the launch per form and, on the row walk, again."""
+    key = 13 if sr else None
+    x, s = _meta((M, K), dtype), _meta((1, K), torch.float32)
+    qa, qb = ops.silu_mul_bwd_quant_colwise(x, x, x, s, s, sr=sr, key=key)
+    (name, args), = library.calls
+    tpr = FP.silu_bwd_cols_sm90_route(K, dtype)
+    assert bool(tpr) == (K != 640)
+    assert name == "qt_silu_mul_bwd_quant_colwise" and len(args) == len(_build._SIGNATURES[name]) == 17
+    assert args[7:14] == (M, K, FP._rows_per_block(M), FP.EPS, int(dtype == BF16), int(sr), key or 0)
+    assert args[14:] == (tpr, FP.row_walk_ctas(M, tpr, SMS, FP.SILU_CTAS_PER_SM) if tpr else 0, 0)
+    assert qa.shape == qb.shape == (M, K) and qa.dtype == qb.dtype == torch.int8
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"silu_mul_bwd_quant_colwise{t}"] == 1
+    assert counts[f"silu_mul_bwd_quant_colwise{t}_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("M,K,dtype", [(8192, 5632, BF16), (1000, 5632, BF16), (256, 5632, BF16),
+                                       (256, 2560, BF16), (256, 2048, F32), (96, 640, BF16)])
+def test_b9_cols_passes_its_route(library, M, K, dtype, sr):
+    """B9's given-scales column wrapper passes ``silu_cols_sm90_route(K,
+    dtype, sr)`` and the walk's grid (``silu_cols_ctas_per_sm``: two CTAs an
+    SM for the RN form at two vectors a thread, else one) as the two
+    arguments before the stream, no scratch, and counts the launch per form
+    and, on the row walk, again; in two passes it passes route 0 and counts
+    no walk launch."""
+    key = 17 if sr else None
+    a = _meta((M, K), dtype)
+    q, s = ops.silu_mul_quant_colwise(a, a, sr=sr, key=key, scale=_meta((1, K), torch.float32))
+    (name, args), = library.calls
+    tpr = FP.silu_cols_sm90_route(K, dtype, sr)
+    per_sm = FP.SILU_ROWS_CTAS_PER_SM if _vectors(K, dtype) == 2 * tpr and not sr else 1
+    assert bool(tpr) == (K != 640) and per_sm == FP.silu_cols_ctas_per_sm(K, dtype, sr)
+    assert name == "qt_silu_mul_quant_colwise" and len(args) == len(_build._SIGNATURES[name]) == 17
+    assert args[4:7] == (None, None, None)  # s_out, amax, parts: nothing allocated
+    assert args[7:14] == (M, K, FP._rows_per_block(M), FP.EPS, int(dtype == BF16), int(sr), key or 0)
+    assert args[14:] == (tpr, FP.row_walk_ctas(M, tpr, SMS, per_sm) if tpr else 0, 0)
+    assert q.shape == (M, K) and s.shape == (1, K)
+    t = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    assert counts[f"silu_mul_quant_colwise{t}"] == 1 and counts[f"silu_mul_quant_colwise{t}_sm90"] == int(tpr > 0)
+    assert sum(counts.values()) == 1 + int(tpr > 0)
+    ops.reset_launch_counts()
+    ops.silu_mul_quant_colwise(a, a, sr=sr, key=key)
+    name, args = library.calls[-1]
+    assert args[14:] == (0, 0, 0) and args[6] is not None  # two passes: the first design, with its scratch
+    counts = ops.launch_counts()
+    assert counts[f"silu_mul_quant_colwise{t}"] == 1 and sum(counts.values()) == 1
+
+
+def test_b9_cols_b12_constants_match_the_kernels():
+    """The CTAs an SM by which the wrappers size the grids of B9's columns
+    and B12 are those their kernels' launch bounds keep
+    (``csrc/fused_producers.cu``): B9's columns run ``elementwise_cols``
+    over ``SiluMulOp`` with B9-row's ``silu_rows_ctas`` (two CTAs an SM for
+    the RN form at two vectors a thread, the SR form one, as at 704
+    threads of one); B12's ``silu_bwd_cols`` has B11's bounds, which keep
+    one CTA an SM (``SILU_CTAS_PER_SM``), its inverse scales in
+    registers."""
+    src = (_build.CSRC / "fused_producers.cu").read_text()
+    assert "launch_elementwise_cols<SiluMulOp, " in src
+    assert ("__launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2, silu_rows_ctas<SR, V>())\n"
+            "elementwise_cols(") in src
+    assert "__launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2)\nsilu_bwd_cols(" in src
+    assert "__launch_bounds__(V == 1 ? kSiluRowsMaxCta : kSiluRowsMaxCta2)\nsilu_bwd_rows(" in src
+    assert "constexpr int kSiluRowsMaxCta = 704, kSiluRowsMaxCta2 = 384;" in src
+    assert FP._SILU_ROWS_MAX_CTA == {1: 704, 2: 384} and FP.SILU_CTAS_PER_SM == 1
+    assert FP.silu_cols_ctas_per_sm(_L.intermediate_size, BF16, False) == FP.SILU_ROWS_CTAS_PER_SM == 2
+    assert FP.silu_cols_ctas_per_sm(_L.intermediate_size, BF16, True) == 1
