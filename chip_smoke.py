@@ -58,7 +58,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    kernels' time (``WMMA_US``), B15's e4m3 form
    with its worst error in fp32 roundings of the folded magnitudes;
    then the strides SDPA takes and returns in the grouped pipeline, which
-   must run no layout copy;
+   must run no layout copy; then the storage schemes' operand forms (K2
+   with an ``Int8Weight``'s bf16 [O] column scale and a BitNet weight's
+   bf16 scalar one at M 8 and 8192 for every linear, K1 at BitNet's eps
+   1e-5, K1-SR on every stacked [22, O, I] weight as the commit
+   re-quantizes it), each bit-exact and on its route;
 4. the serving slice: Llama2-1B at full width (random weights from a seed),
    ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
    answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
@@ -124,7 +128,24 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    its test (mean relative error below 0.05 against the bf16 oracle, lse
    within 1e-4 of the explicit logsumexp) and causality (k and v changed
    from row 1536 on leave earlier rows bit-identical); two launches, both on
-   the sm90 design.
+   the sm90 design;
+14. the storage schemes: (a) three train steps each of int8 weight
+   storage (``int8_quantized_training`` with int8 activations), int4
+   weight-only and BitNet (``bitnet=True``), and one of int8 storage with
+   ``int8_sr`` activations, Llama2-1B at full width and depth, batch 4 x
+   2048, remat, SDPA on the grouped pipeline, ``adamw_bf16_sr`` without the
+   SR writeback, lr 1e-4, phase 6's weights and batch: finite losses that
+   fall, the launches of every step exactly as the code implies
+   (``storage_per_step``: K1 and K2 14 a layer, K1-SR 7 in the int8
+   commit, B13, B6 once a master leaf, no int8 backward kernel), the
+   committed q leaf stored with every value one that SR can give its master
+   (``on_grid_neighbours``), tokens/s and peak memory; (b) a 2-layer cut at full width, fp32, int8
+   storage and BitNet, the loss and every master gradient on the card
+   against the CPU; (c) the server over int8 storage and over packed BitNet,
+   8 requests each, every K2 decode launch on the split-K stream and every
+   prefill launch on sm90, two streams held against ``generate()``, tok/s.
+   K1's, K1-SR's, K2's, B13's and B6's entries carry the phase's launches
+   (``storage_launches``).
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -444,6 +465,58 @@ def check_k2(gen: torch.Generator) -> tuple[float, dict]:
     k2_host_cost(gen)
     decode_entry["max_abs_err"] = worst
     return worst, decode_entry
+
+
+def check_storage_forms(gen: torch.Generator) -> None:
+    """The operand forms the storage schemes (phase 14) give K1 and K2, each
+    bit-exact with its plain version and each call checked to take its
+    route: K2 at the decode (M 8, the split-K stream) and prefill (M 8192,
+    sm90) sizes of every Llama2-1B linear, its column scale the bf16 row
+    scale [O, 1] of an ``Int8Weight`` (the linear passes it as [1, O]) and
+    the bf16 scalar of a BitNet weight; K1 at BitNet's eps 1e-5 on the
+    activations of 8 and 8192 tokens (a row of zeros, where eps decides the
+    scale); K1-SR on every stacked [22, O, I] weight, as the commit
+    re-quantizes them (the row walk at K 2048, the first design at down's
+    5632: ``rowwise_sm90_route``), timed beside its plain version."""
+    L = CFG.num_hidden_layers
+    for name, N, K in (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F)):
+        w = (torch.randn(N, K, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        stored = quant.Int8Weight.from_float(w)
+        ternary_scale = quant.get_bitnet_scale(w)
+        w_i8 = quant.quantize_bitnet_weight(w, ternary_scale)
+        for M in (8, TOKENS):
+            x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+            x[0] = 0
+            for what, b, sb, eps in (("Int8Weight [O] column scale", stored.int_data, stored.scale.reshape(1, -1),
+                                      IQ.EPS),
+                                     ("BitNet scalar column scale", w_i8, ternary_scale.to(torch.bfloat16), 1e-5)):
+                ops.reset_launch_counts()
+                a, sa = ops.quantize_int8_rowwise(x, eps=eps)
+                a_ref, sa_ref = ops.quantize_int8_plain(x, eps=eps)
+                check(torch.equal(a, a_ref) and torch.equal(sa, sa_ref), f"K1 eps {eps:g} bit-exact at [{M}, {K}]")
+                check(ops.launch_counts()["quantize_int8_rowwise_sm90"] == 1, f"K1 at [{M}, {K}] on the row walk")
+                out = routed("scaled_mm_rhs_t", ops.scaled_mm_rhs_t, (a, b, sa, sb))
+                check(torch.equal(out, ops.scaled_mm_rhs_t_plain(a, b, sa, sb)),
+                      f"K2 with the {what} bit-exact at M={M} {name}")
+        print(f"[3] storage forms at {name} [{N}, {K}]: K2 with an Int8Weight's bf16 [O] column scale and with a "
+              f"BitNet bf16 scalar column scale, M 8 (decode stream) and {TOKENS} (sm90), bit-exact; K1 at eps "
+              f"1e-5 (BitNet's activations) and 1e-12, bit-exact, on the row walk")
+        master = (torch.randn(L, N, K, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        key = random.fold_in(SEED, N * K)
+        ops.reset_launch_counts()
+        q, sc = ops.quantize_int8_rowwise(master, sr=True, key=key)
+        walk = ops.launch_counts()["quantize_int8_rowwise_sr_sm90"]
+        check(walk == int(bool(IQ.rowwise_sm90_route(L * N, K, master.dtype, True))),
+              f"K1-SR at [{L}, {N}, {K}] on the route rowwise_sm90_route gives")
+        q_ref, sc_ref = ops.quantize_int8_plain(master, sr=True, key=key)
+        check(torch.equal(q, q_ref) and torch.equal(sc, sc_ref), f"K1-SR bit-exact on the stacked [{L}, {N}, {K}]")
+        inputs = copies(master)
+        ms = time_ms(partial(ops.quantize_int8_rowwise, sr=True, key=key), inputs)
+        b_ms = bound(3 * master.numel() + 2 * L * N)[0]
+        print(f"[3] K1-SR on the stacked [{L}, {N}, {K}] bf16 (the commit of an int8-stored weight): bit-exact, "
+              f"{'row walk' if walk else 'first design'}; kernel {ms:.4f} ms ({b_ms / ms:.3f} of the {b_ms:.4f} ms "
+              f"bound by bytes)")
+        del master, q, q_ref, inputs
 
 
 def decode_first_design(args, out) -> float:
@@ -1493,12 +1566,22 @@ def same_stream(params, cfg, prompt, got, ref) -> str:
 
 
 def serve(gen: torch.Generator) -> dict:
+    """Phase 4: ``mixed_precision`` weights, 16 requests of the mixed load."""
     params = quant.quantize_params(llama.init_params(gen, CFG), "mixed_precision")
+    return serve_params(4, "mixed_precision", params, CFG, mixed_requests(CFG.vocab_size))
+
+
+def serve_params(phase: int, what: str, params, cfg, reqs, warm: bool = True) -> dict:
+    """``Server(n_slots=8, max_len=2048, decode_chunk=16)`` over ``params``
+    answers ``reqs`` (after a warm-up pass of the same requests with
+    ``warm``): every token streamed, K1 and K2 launched, every K2 decode
+    launch on the split-K stream and every prefill launch on sm90, K1 on
+    the row walk; two streams held against ``generate()``. Returns the
+    timed pass's launches."""
     torch.cuda.synchronize()
-    weights_gib = torch.cuda.memory_allocated() / 2**30
+    weights_gib = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 2**30
     torch.cuda.reset_peak_memory_stats()  # the peak below is serving's, not init's
-    reqs = mixed_requests(CFG.vocab_size)
-    srv = Server(params, CFG, n_slots=8, max_len=2048, decode_chunk=16)
+    srv = Server(params, cfg, n_slots=8, max_len=2048, decode_chunk=16)
 
     def drain():
         rids = [srv.add_request(p, b) for p, b in reqs]
@@ -1508,7 +1591,8 @@ def serve(gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         return rids, n
 
-    drain()  # warm-up: library load, cuBLAS handles, allocator pools
+    if warm:
+        drain()  # warm-up: library load, cuBLAS handles, allocator pools
     rows = []  # K2's M per call, through the route predicate it consults
     route = SCALED_MM.sm90_route
     SCALED_MM.sm90_route = lambda M: rows.append(M) or route(M)
@@ -1522,7 +1606,7 @@ def serve(gen: torch.Generator) -> dict:
     launches = ops.launch_counts()
     for (prompt, budget), rid in zip(reqs, rids):
         out = srv.result(rid)
-        check(len(out) == budget and all(0 <= t < CFG.vocab_size for t in out),
+        check(len(out) == budget and all(0 <= t < cfg.vocab_size for t in out),
               f"request {rid}: {len(out)} tokens for a budget of {budget}")
     check(n == sum(b for _, b in reqs), "every token streamed once")
     served = {k: launches[k] for k in SERVING_KERNELS}
@@ -1535,7 +1619,7 @@ def serve(gen: torch.Generator) -> dict:
           f"{launches['scaled_mm_rhs_t']}")
     k1_walk = launches["quantize_int8_rowwise_sm90"]
     check(k1_walk > 0, "K1 launched on the row walk while serving")
-    print(f"[4] Llama2-1B mixed_precision Server(n_slots=8, max_len=2048, decode_chunk=16): "
+    print(f"[{phase}] Llama2-1B {what} Server(n_slots=8, max_len=2048, decode_chunk=16): "
           f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; K2 {decode} decode launches "
           f"(M <= {SCALED_MM.DECODE_M}) on the decode stream, {len(rows) - decode} prefill launches on sm90; K1 "
           f"{k1_walk} of {launches['quantize_int8_rowwise']} launches on the row walk (the rest the KV rows of 64); "
@@ -1543,11 +1627,11 @@ def serve(gen: torch.Generator) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
     for i in (0, 1):
         prompt, budget = reqs[i]
-        ref = llama_infer.generate(params, torch.tensor([prompt], device=DEVICE), CFG, budget)
+        ref = llama_infer.generate(params, torch.tensor([prompt], device=DEVICE), cfg, budget)
         ref = ref[0, len(prompt):].tolist()
         got = srv.result(rids[i])
-        print(f"[4] request {i} (prompt {len(prompt)}, budget {budget}) vs generate(): "
-              f"{same_stream(params, CFG, prompt, got, ref)}; tokens {got}")
+        print(f"[{phase}] request {i} (prompt {len(prompt)}, budget {budget}) vs generate(): "
+              f"{same_stream(params, cfg, prompt, got, ref)}; tokens {got}")
     return launches
 
 
@@ -2164,6 +2248,207 @@ def int8_attention_phase(seed: int) -> dict:
     return launches
 
 
+# phase 14's training runs: (name, scheme, its kwargs, cfg.bitnet, steps);
+# int8 storage takes its kernels' activations (Int8QTConfig's default is
+# weight-only, a bf16 matmul)
+STORAGE_RUNS = (("int8 storage", "int8_quantized_training", dict(activation="int8"), False, 3),
+                ("int8 storage SR", "int8_quantized_training", dict(activation="int8_sr"), False, 1),
+                ("int4 weight-only", "int4_weight_only", {}, False, 3),
+                ("BitNet", "bitnet", {}, True, 3))
+# the stacked [O, I] of the 7 linears of a layer, in their leaves' order
+STACKED = ((D, D), (KVD, D), (KVD, D), (D, D), (F, D), (F, D), (D, F))
+# phase 14's 2-layer cuts (card against CPU), fp32: the bounds of phase 7's
+# int8 fp32 cut. Their floor on the CPU (the plain path against itself with
+# the embedding moved one ulp, the tests' small Llama, 2 layers, hidden 256,
+# 256 tokens, remat, the grouped pipeline, seeds 0 / 1): int8 storage worst
+# leaf 9.0e-3 / 5.4e-3, loss 2.0e-5 / 5.3e-7; BitNet 7.4e-3 / 3.8e-3 and
+# 2.4e-5 / 9.7e-6
+STORAGE_GRAD_BOUNDS = (("int8_quantized_training", dict(activation="int8"), False, 1.5e-1, 1e-3),
+                       ("bitnet", {}, True, 1.5e-1, 1e-3))
+
+
+def storage_per_step(scheme: str, L: int, n_leaves: int, sr: bool = False) -> dict:
+    """Kernel launches of one phase-14 train step of L layers (pinned on the
+    CPU by tests/test_torch_train.py::test_kernel_calls_per_step_storage),
+    with the routes ``ops/int8_quant.py::rowwise_sm90_route`` gives: the
+    bf16 layer's B13 (rope_group 7, rope_ungroup 5 a layer) and B6 once a
+    master leaf; int8 storage and BitNet quantize each of the 7 linears'
+    inputs with K1 (q, k and v apart) and run K2 7 times a forward (every
+    one on sm90), twice a layer with remat, and no int8 backward kernel;
+    int8 storage's commit re-quantizes the 7 stacked weights with K1-SR."""
+    counts = per_step_launches(L, b6=n_leaves, layer="bf16")
+    walk = lambda M, K, sr: int(bool(IQ.rowwise_sm90_route(M, K, torch.bfloat16, sr)))
+    if scheme != "int4_weight_only":
+        t = "_sr" if sr else ""
+        counts[f"quantize_int8_rowwise{t}"] += 2 * 7 * L
+        counts[f"quantize_int8_rowwise{t}_sm90"] += 2 * L * sum(walk(TOKENS, i, sr) for _, i in STACKED)
+        counts["scaled_mm_rhs_t"] = counts["scaled_mm_rhs_t_sm90"] = 2 * 7 * L
+    if scheme == "int8_quantized_training":
+        counts["quantize_int8_rowwise_sr"] += len(STACKED)
+        counts["quantize_int8_rowwise_sr_sm90"] += sum(walk(L * o, i, True) for o, i in STACKED)
+    return counts
+
+
+def with_bitnet_norms(raw, cfg):
+    """``raw`` with the o and down norms ``bitnet=True`` adds (ones)."""
+    L, H = cfg.num_hidden_layers, cfg.num_attention_heads * cfg.head_dim
+    ones = lambda *shape: torch.ones(shape, dtype=raw["final_norm"]["g"].dtype, device=raw["final_norm"]["g"].device)
+    return {**raw, "layers": {**raw["layers"], "o_norm": {"g": ones(L, H)},
+                              "down_norm": {"g": ones(L, cfg.intermediate_size)}}}
+
+
+def on_grid_neighbours(master: torch.Tensor, stored) -> tuple[bool, int]:
+    """Whether every stored value is one SR can give its master value: at
+    least floor(q) and at most floor(q + (1 - 2^-24)), the largest uniform
+    added in fp32, within the format's range, where q is master / (row
+    absmax / 127) for int8, (master - min) / ((max - min) / 15) in each group
+    for int4, in fp32 as the quantizes compute it. Also returns how many
+    values are ceil(q) + 1: a q within half an fp32 ulp below an integer
+    (a master still on the grid it was dequantized from) can round up
+    there in the addition, in the JAX package's formula as in the port's."""
+    if isinstance(stored, quant.Int8Weight):
+        scale = master.abs().amax(-1, keepdim=True).float() / torch.full((), 127.0, device=master.device)
+        q, v, top = master.float() / scale.clamp(min=IQ.EPS), stored.int_data.float(), 127.0
+    else:
+        xf = master.float().reshape(-1, stored.group_size)
+        zp = xf.amin(-1, keepdim=True)
+        scale = (xf.amax(-1, keepdim=True) - zp) / torch.full((), 15.0, device=master.device)
+        q, top = (xf - zp) / scale.clamp(min=1e-12), 15.0
+        p = stored.packed.reshape(-1, stored.group_size // 2)
+        v = torch.stack([p >> 4, p & 0xF], -1).reshape(q.shape).float()
+    hi = torch.floor(q + torch.full((), 1 - 2**-24, device=master.device)).clamp(max=top)
+    return bool(((v >= q.floor()) & (v <= hi)).all()), int((v > q.ceil()).sum())
+
+
+def storage_training(raw, seed: int, key: int) -> dict:
+    """Phase 14 (a): the storage schemes' train steps, Llama2-1B at full
+    width and depth, batch 4 x 2048, remat, SDPA on the grouped pipeline,
+    adamw_bf16_sr without the SR writeback, lr 1e-4, phase 6's weights,
+    batch and key (``STORAGE_RUNS``): finite losses that fall, each step's
+    launches exactly ``storage_per_step``, and after each commit the stored
+    q leaf in its format with every value one that SR can give its master
+    (``on_grid_neighbours``); tokens/s of steps 2-3 and peak memory. Returns the launches."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
+    L = cfg.num_hidden_layers
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    commit = train.commit_params
+    for name, scheme, kw, bitnet, n_steps in STORAGE_RUNS:
+        scfg = dataclasses.replace(cfg, bitnet=bitnet)
+        params = quant.quantize_params(with_bitnet_norms(raw, cfg) if bitnet else raw, scheme, **kw)
+        n_leaves = len(tree_leaves(quant.virtual_params(params)))
+        expect = storage_per_step(scheme, L, n_leaves, sr=kw.get("activation") == "int8_sr")
+        commits, rounded_up = [], []
+
+        def recording(new_v, q, k):
+            out = commit(new_v, q, k)
+            commits.append((new_v["layers"]["q"]["w"], out["layers"]["q"]["w"]))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        train.commit_params = recording
+        try:
+            losses, walls, counts = run_steps(params, scfg, tokens, labels,
+                                              optim.adamw_bf16_sr(bf16_stochastic_rounding=False), 1e-4, key,
+                                              n_steps, expect)
+        finally:
+            train.commit_params = commit
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stored = type(params["layers"]["q"]["w"])
+        for master, new in commits:
+            check(type(new) is stored, f"{name}: the committed q leaf is a {stored.__name__}")
+            if scheme != "bitnet":
+                check((new.int_data if scheme.startswith("int8") else new.packed).dtype
+                      == (torch.int8 if scheme.startswith("int8") else torch.uint8), f"{name}: storage dtype")
+                on_grid, ties = on_grid_neighbours(master, new)
+                check(on_grid, f"{name}: every stored q value one SR can give its master")
+                rounded_up.append(ties)
+        tps = (f"{TOKENS * (len(walls) - 1) / sum(walls[1:]):.1f} (steps 2-{len(walls)})" if len(walls) > 1
+               else f"{TOKENS / walls[0]:.1f} (one step, with its warm-up)")
+        print(f"[14] {name} ({scheme} {kw or ''}, Llama2-1B{' bitnet' if bitnet else ''}, B={TRAIN_B} x "
+              f"S={TRAIN_S}, remat, SDPA, adamw_bf16_sr without SR, lr 1e-4), seed {seed}: losses {losses}, step "
+              f"walls {[round(w, 4) for w in walls]} s, tokens/s {tps}; peak device memory {peak:.2f} GiB; "
+              f"{len(commits)} commits checked (q values at ceil + 1 by the fp32 add: {rounded_up}); launches per "
+              f"step { {k: v for k, v in expect.items() if v} }")
+        if n_steps > 1:
+            check(losses[-1] < losses[0], f"{name}: losses fall: {losses}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        del params, commits
+    return launches
+
+
+def storage_grads_vs_plain(seed: int, scheme: str, kw: dict, bitnet: bool, max_rms: float, max_dloss: float):
+    """Phase 14 (b): the loss and every master gradient of a 2-layer cut of
+    Llama2-1B (full width, fp32 weights from ``seed``, remat), one
+    micro-step on 256 tokens on the grouped pipeline, the kernels on the card
+    against the plain versions on the CPU, each device quantizing the same
+    weights (int8 storage is bit-exact); the card launches K1 and K2 and no
+    int8 backward kernel. Bounds: ``STORAGE_GRAD_BOUNDS``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(CFG, num_hidden_layers=2, remat=True, bitnet=bitnet)
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, dtype=torch.float32)
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    rng = np.random.default_rng(seed)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    lab = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 256)))
+    res = {}
+    flag = os.environ.get("QT_FUSED_ROPE")
+    os.environ["QT_FUSED_ROPE"] = "force"
+    try:
+        for dev, params in ((DEVICE, raw), ("cpu", to_cpu(raw))):
+            ops.reset_launch_counts()
+            loss, grads = train.loss_and_grads(cfg, quant.quantize_params(params, scheme, **kw), tok.to(dev),
+                                               lab.to(dev), 3)
+            res[dev] = (loss.item(), [g.double().cpu() for g in tree_leaves(grads)])
+            if dev == DEVICE:
+                n = ops.launch_counts()
+                backward = sum(n[k] for k in ("scaled_mm", "scaled_mm_lhs_t", "quantize_int8_colwise",
+                                              "quantize_int8_both"))
+                check(n["quantize_int8_rowwise"] > 0 and n["scaled_mm_rhs_t"] > 0 and backward == 0,
+                      f"{scheme}: K1 {n['quantize_int8_rowwise']}, K2 {n['scaled_mm_rhs_t']}, int8 backward {backward}")
+    finally:
+        if flag is None:
+            del os.environ["QT_FUSED_ROPE"]
+        else:
+            os.environ["QT_FUSED_ROPE"] = flag
+    rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
+    dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    print(f"[14] 2-layer Llama2-1B {scheme} {kw or ''} fp32 master grads (256 tokens), kernels on the card vs plain on "
+          f"the CPU: loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} (relative {dloss:.2e}); worst leaf relative "
+          f"RMS {max(rms):.3e}, per leaf {[f'{r:.1e}' for r in rms]} (bounds {max_rms:g}, loss {max_dloss:g})")
+    check(max(rms) <= max_rms and dloss <= max_dloss, f"{scheme} gradients within tolerance of the plain path")
+
+
+def storage_serving(raw) -> dict:
+    """Phase 14 (c): the server over int8 storage (int8 activations) and
+    over packed BitNet (every BitNetWeight packed, as
+    tests/test_inference.py packs them), 8 requests of phase 4's mixed load
+    each (``serve_params``). Returns the launches of both runs."""
+    reqs = mixed_requests(CFG.vocab_size)[:8]
+    params = quant.quantize_params(raw, "int8_quantized_training", activation="int8")
+    launches = serve_params(14, "int8 storage (activation int8)", params, CFG, reqs, warm=False)
+    del params
+    cfg = dataclasses.replace(CFG, bitnet=True)
+    bit = quant.quantize_params(with_bitnet_norms(raw, CFG), "bitnet")
+    bit["layers"] = {k: {n: quant.BitNetPackedWeight.from_weight(w.data) if isinstance(w, quant.BitNetWeight) else w
+                         for n, w in v.items()} for k, v in bit["layers"].items()}
+    more = serve_params(14, "BitNet packed", bit, cfg, reqs, warm=False)
+    return {k: launches[k] + more[k] for k in launches}
+
+
+def storage_schemes(raw, seed: int, key: int) -> dict:
+    """Phase 14: the storage schemes (a) training, (b) card against CPU, (c)
+    serving; prints its seconds. Returns the launches of (a) and (c)."""
+    t0 = time.perf_counter()
+    launches = storage_training(raw, seed, key)
+    for scheme, kw, bitnet, max_rms, max_dloss in STORAGE_GRAD_BOUNDS:
+        storage_grads_vs_plain(SEED, scheme, kw, bitnet, max_rms, max_dloss)
+    served = storage_serving(raw)
+    print(f"[14] storage schemes: {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + served[k] for k in launches}
+
+
 def fill_launches(entries, launches: dict) -> None:
     """Each entry's launches on its path, and where the kernel has an sm90
     route, that route's share of them (``sm90_launches``)."""
@@ -2183,6 +2468,7 @@ def main() -> None:
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     k2_worst, k2_decode = check_k2(gen)
+    check_storage_forms(gen)
     serving = [check_k1(gen), k2_decode]
     training = [*check_training_quantizes(gen), *check_training_gemms(gen, k2_worst)]
     other_gemms = [check_int4_gemms(gen), *check_tile_gemms(gen)]
@@ -2220,6 +2506,13 @@ def main() -> None:
     fill_launches(b17, benchmark_mm_phase())
     fill_launches([b19], int8_attention_phase(SEED))
     kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18 + b17 + [b19]
+    storage = storage_schemes(raw, args.seed, key)
+    for e in kernels:  # phase 14's launches, under a key of their own
+        if storage.get(e["name"]):
+            e["storage_launches"] = storage[e["name"]]
+    check(all(storage[k] > 0 for k in ("quantize_int8_rowwise", "quantize_int8_rowwise_sr", "scaled_mm_rhs_t",
+                                       "scaled_mm_rhs_t_decode", "rope_group", "fused_adamw_update")),
+          f"phase 14 launched K1, K1-SR, K2 (decode too), B13 and B6: {storage}")
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,7 +8,10 @@ as torch tensors. bf16 leaves pass through float32, which holds every bf16
 value exactly. :func:`adamw_state_from_jax` does the same for an
 ``AdamWState``, so that both packages can start from one optimizer state. No
 JAX import is needed: numpy's bf16 arrays (ml_dtypes) are recognised by their
-dtype name, and the JAX package's ``MixedPrecisionWeight`` by its fields.
+dtype name, and the JAX package's weight wrappers (``MixedPrecisionWeight``,
+``Int8Weight``, ``Int4Weight``, ``BitNetWeight``, ``BitNetPackedWeight``) by
+their fields. A JAX storage state, after its own stochastic-rounding commit,
+so carries into the port, and both continue from the same storage.
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ import numpy as np
 import torch
 
 from .optim.adamw import AdamWState
-from .quant.configs import MixedPrecisionConfig
+from .quant.bitnet import BitNetPackedWeight, BitNetWeight
+from .quant.configs import Int8QTConfig, MixedPrecisionConfig
+from .quant.int4 import Int4Weight
+from .quant.int8 import Int8Weight
 from .quant.mixed_precision import MixedPrecisionWeight
 
 
@@ -30,16 +36,42 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a))  # a writable copy: JAX's buffers are read-only
 
 
+def _optional(a):
+    return None if a is None else _tensor(a)
+
+
+def _wrapper(w):
+    """The port's counterpart of a JAX weight wrapper, told by its fields,
+    or None for a leaf."""
+    config = getattr(w, "config", None)
+    if hasattr(w, "int_data"):
+        return Int8Weight(_tensor(w.int_data), _tensor(w.scale), _optional(w.master),
+                          Int8QTConfig(**dataclasses.asdict(config)))
+    if hasattr(w, "zero_point"):
+        return Int4Weight(_tensor(w.packed), _tensor(w.scale), _tensor(w.zero_point), _optional(w.master),
+                          tuple(w.mat_shape), w.group_size)
+    if hasattr(w, "packed"):
+        return BitNetPackedWeight(_tensor(w.packed), _tensor(w.scale))
+    if hasattr(w, "mesh"):
+        if w.mesh is not None:
+            raise NotImplementedError("BitNetWeight with a mesh: the FSDP route is not ported (ROADMAP A13)")
+        return BitNetWeight(_tensor(w.data))
+    if dataclasses.is_dataclass(config):
+        return MixedPrecisionWeight(_tensor(w.data), MixedPrecisionConfig(**dataclasses.asdict(config)))
+    return None
+
+
 def params_from_jax(tree):
     """Nested dict of numpy arrays (the JAX param pytree) -> nested dict of
-    torch tensors on the CPU, same keys, shapes and dtypes. A wrapper with
-    ``data`` and ``config`` fields (the JAX package's MixedPrecisionWeight)
-    becomes the port's, with the same config."""
+    torch tensors on the CPU, same keys, shapes and dtypes. Each JAX weight
+    wrapper becomes the port's, field for field, with the same config."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
-    if dataclasses.is_dataclass(getattr(tree, "config", None)):
-        config = MixedPrecisionConfig(**dataclasses.asdict(tree.config))
-        return MixedPrecisionWeight(_tensor(tree.data), config)
+    if dataclasses.is_dataclass(tree):
+        w = _wrapper(tree)
+        if w is None:
+            raise TypeError(f"params_from_jax: unknown wrapper {type(tree).__name__}")
+        return w
     return _tensor(tree)
 
 

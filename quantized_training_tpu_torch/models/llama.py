@@ -23,15 +23,21 @@ composite, ``rms_norm`` -> ``qlinear_multi``, ``silu(gate) * up`` ->
 ``qlinear`` and ``ungroup_heads`` -> ``qlinear``. On the TPU the JAX package
 ran JAX's splash attention; its counterpart here is
 ``F.scaled_dot_product_attention``.
-``save_qkv_residuals``, the HF-json loader and ``bitnet`` are not carried.
+``bitnet=True`` is the JAX package's RMSNorm-into-linear surgery (:159-161,
+:454-465): an ``o_norm`` [L, H] before the o-projection and a ``down_norm``
+[L, F] before down, the MLP as ``norm_linear_multi`` for gate/up, ``silu *
+up``, the norm and ``qlinear`` (``fold_in(., 6)`` for down); on the grouped
+pipeline such a layer ungroups the attention output (``ungroup_heads``,
+B13) rather than take ``attn_out_linear``. ``save_qkv_residuals`` and the
+HF-json loader are not carried.
 
 Stochastic rounding draws from an int key (``ops/random.py``) folded as the
 JAX package folds it: ``fold_in(key, l)`` for layer l, then ``fold_in(.,
 0)`` for the q/k/v projections and ``fold_in(., 3)`` / ``fold_in(., 4)``
 for the o-projection and the MLP (gate/up ``fold_in(., 0)``, down
-``fold_in(., 1)``), and ``fold_in(key, 0x7FFFFFFF)`` for the lm_head. The
-JAX package's ``fold_in(key, 0x5EED)`` seeds ``prequantize_step``, which is
-not ported. The key enters each checkpointed layer as an argument, so the
+``fold_in(., 1)``; BitNet's down ``fold_in(., 6)``), and ``fold_in(key,
+0x7FFFFFFF)`` for the lm_head. The JAX package's ``fold_in(key, 0x5EED)``
+seeds ``prequantize_step``, which is not ported. The key enters each checkpointed layer as an argument, so the
 replay in the backward rounds exactly as the forward did.
 """
 
@@ -47,10 +53,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.cross_entropy import IGNORE_INDEX, fused_linear_cross_entropy
 from ..ops.fused_producers import rms_norm_ref as rms_norm
+from ..ops.fused_producers import silu_mul_ref
 from ..ops.random import fold_in
-from ..ops.rope import group_heads, rope_group
+from ..ops.rope import group_heads, rope_group, ungroup_heads
 from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, qlinear
-from ..quant.mixed_precision import MixedPrecisionWeight
+from ..quant.node import WeightNode
 
 
 @dataclass(frozen=True)
@@ -65,7 +72,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    bitnet: bool = False  # RMSNorm-into-linear surgery: not ported yet
+    bitnet: bool = False  # RMSNorm-into-linear surgery: the o and down norms
     remat: bool = False  # activation checkpointing per decoder layer
     # 'auto' = F.scaled_dot_product_attention on the card, the fp32-softmax
     # einsum elsewhere; 'sdpa' and 'xla' (the einsum) force one
@@ -88,16 +95,11 @@ LLAMA2_1B = LlamaConfig(
 )
 
 
-def _require_no_bitnet(cfg: LlamaConfig) -> None:
-    if cfg.bitnet:
-        raise NotImplementedError("bitnet=True (extra o/down norms) is not ported yet (ROADMAP A7)")
-
-
 def init_params(generator: torch.Generator, cfg: LlamaConfig, dtype=torch.bfloat16):
     """HF-style init: normal(0.02) for weights, ones for norms, on the
     generator's device. The numbers differ from the JAX package's (another
-    RNG); the names, shapes and layout are the same."""
-    _require_no_bitnet(cfg)
+    RNG); the names, shapes and layout are the same. ``cfg.bitnet`` adds the
+    ``o_norm`` [L, H] and ``down_norm`` [L, F] gains."""
     H, D = cfg.num_attention_heads * cfg.head_dim, cfg.hidden_size
     KV = cfg.num_key_value_heads * cfg.head_dim
     F, L, V = cfg.intermediate_size, cfg.num_hidden_layers, cfg.vocab_size
@@ -121,6 +123,9 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, dtype=torch.bfloat
         "up": {"w": w(L, F, D)},
         "down": {"w": w(L, D, F)},
     }
+    if cfg.bitnet:
+        layers["o_norm"] = {"g": ones(L, H)}
+        layers["down_norm"] = {"g": ones(L, F)}
     params = {
         "embed": {"embedding": w(V, D)},
         "layers": layers,
@@ -253,14 +258,22 @@ def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin, key: int):
 
 
 def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int, *, ctx_grouped=None):
-    """O-projection + MLP with residuals (JAX :430-472, without bitnet):
+    """O-projection + MLP with residuals (JAX :430-472):
     ``attn_out_linear`` for o on the grouped attention output
     ``ctx_grouped`` [B, KV, G, S, hd], else ``qlinear`` on ``ctx``;
-    ``mlp_linear`` for the MLP."""
+    ``mlp_linear`` for the MLP. BitNet's layer normalizes o's and down's
+    inputs first and runs its MLP unfused."""
     if ctx_grouped is not None:
         x = x + attn_out_linear(ctx_grouped, lp["o"]["w"], cfg.num_key_value_heads, key=fold_in(key, 3))
     else:
+        if cfg.bitnet:
+            ctx = rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps)
         x = x + qlinear(ctx, lp["o"]["w"], key=fold_in(key, 3))
+    if cfg.bitnet:
+        gate, up = norm_linear_multi(x, lp["mlp_norm"]["g"], [lp["gate"]["w"], lp["up"]["w"]],
+                                     cfg.rms_norm_eps, key=fold_in(key, 4))
+        act = rms_norm(silu_mul_ref(gate, up), lp["down_norm"]["g"], cfg.rms_norm_eps)
+        return x + qlinear(act, lp["down"]["w"], key=fold_in(key, 6))
     return x + mlp_linear(x, lp["mlp_norm"]["g"], lp["gate"]["w"], lp["up"]["w"], lp["down"]["w"],
                           cfg.rms_norm_eps, key=fold_in(key, 4))
 
@@ -270,7 +283,10 @@ def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     if _use_grouped_rope(cfg, x):
         qg, kg, vg = _qkv_part_grouped(cfg, x, lp, cos, sin, key)
         out = _attention_grouped(qg, kg, vg, cfg.attention_impl)
-        return _post_attn_part(cfg, x, None, lp, key, ctx_grouped=out)
+        if not cfg.bitnet:
+            return _post_attn_part(cfg, x, None, lp, key, ctx_grouped=out)
+        ctx = ungroup_heads(out, cfg.num_key_value_heads).reshape(B, S, cfg.num_attention_heads * cfg.head_dim)
+        return _post_attn_part(cfg, x, ctx, lp, key)
     q, k, v = _qkv_part(cfg, x, lp, cos, sin, key)
     ctx = attention(q, k, v, cfg.attention_impl).reshape(B, S, cfg.num_attention_heads * cfg.head_dim)
     return _post_attn_part(cfg, x, ctx, lp, key)
@@ -280,12 +296,14 @@ def _unstack_layers(layers: dict, L: int) -> list[dict]:
     """The stacked [L, ...] layer tree as L per-layer trees of views, cut
     with one ``unbind`` per leaf: its backward stacks the L per-layer grads
     once, where indexing layer by layer would add a full-size [L, ...]
-    zero-padded grad per layer."""
+    zero-padded grad per layer. A weight wrapper is cut field by field, its
+    master too, so that the per-layer grads stack onto the [L, O, I]
+    master."""
     def cut(t):
         if isinstance(t, dict):
             return {k: cut(v) for k, v in t.items()}
-        if isinstance(t, MixedPrecisionWeight):
-            return [MixedPrecisionWeight(d, t.config) for d in t.data.unbind(0)]
+        if isinstance(t, WeightNode):
+            return t.unbind_layers()
         return t.unbind(0)
 
     def pick(t, l):
@@ -306,7 +324,6 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     the layer input is kept, and the layer's key is one of its arguments.
     The JAX policy also keeps splash attention's (out, lse) residuals, which
     its non-TPU path does not have either."""
-    _require_no_bitnet(cfg)
     key = 0 if key is None else key
     B, S = tokens.shape
     # F.embedding, not indexing: the CPU backward of an index accumulates the

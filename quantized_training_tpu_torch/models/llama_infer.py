@@ -99,8 +99,9 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
     the causal einsum (nothing before it exists), as the JAX package's
     device path does; dequantizing with the scales rounded to the cache's
     dtype, as :func:`_attention_over_cache` does, keeps the two equal.
+    BitNet's layers (``cfg.bitnet``) normalize o's and down's inputs first
+    (JAX :178-186).
     """
-    llama._require_no_bitnet(cfg)
     B, T = tokens.shape
     device = tokens.device
     if isinstance(pos, int) and pos + T > cache.max_len:
@@ -137,10 +138,15 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
             ctx = llama.attention(q, k_deq, v_deq, "xla")
         else:
             ctx = _attention_over_cache(q, kc[:, :W], ksc[:, :W], vc[:, :W], vsc[:, :W], pos)
-        x = x + qlinear(ctx.reshape(B, T, H * hd), lp["o"]["w"])
+        ctx = ctx.reshape(B, T, H * hd)
+        if cfg.bitnet:
+            ctx = llama.rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps)
+        x = x + qlinear(ctx, lp["o"]["w"])
 
         h = llama.rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
         act = torch.nn.functional.silu(qlinear(h, lp["gate"]["w"])) * qlinear(h, lp["up"]["w"])
+        if cfg.bitnet:
+            act = llama.rms_norm(act, lp["down_norm"]["g"], cfg.rms_norm_eps)
         x = x + qlinear(act, lp["down"]["w"])
 
     x = llama.rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)

@@ -1,10 +1,12 @@
 """Quantization schemes of the port.
 
-Counterpart of ``quantized_training_tpu/quant/__init__.py``, for the part the
-serving and training slices use: the mixed-precision scheme (int8, int4 and
-fp8), forward and backward, the producer-fused linears of ``quant/fused.py``
-(int8; the Llama's and the ViT's), and the training contract of
-``quant/api.py``.
+Counterpart of ``quantized_training_tpu/quant/__init__.py``: the four
+schemes, forward and backward (mixed precision in int8, int4 and fp8; int8
+weight storage, ``Int8Weight``; int4 weight-only, ``Int4Weight``; BitNet
+1.58b, ``BitNetWeight`` and its packed form ``BitNetPackedWeight``), the
+producer-fused linears of ``quant/fused.py`` (int8 mixed precision; the
+Llama's and the ViT's), and the training contract of ``quant/api.py``.
+``prequantize_step`` and ``PreQuantMPWeight`` are not ported.
 """
 
 from .api import (
@@ -16,12 +18,20 @@ from .api import (
     quantize_params,
     virtual_params,
 )
+from .bitnet import BitNetPackedWeight, BitNetWeight
 from .configs import Int8QTConfig, MixedPrecisionConfig
 from .core import (
+    bf16_stochastic_round,
+    dequantize_int4_groupwise,
     dequantize_int8,
+    get_bitnet_scale,
+    pack_i2_in_i8,
+    quantize_bitnet_weight,
+    quantize_int4_groupwise,
     quantize_int4_rowwise_absmax,
     quantize_int8,
     quantize_int8_both,
+    unpack_i2_in_i8,
     unpack_int4_rowwise,
 )
 from .fused import (
@@ -33,6 +43,8 @@ from .fused import (
     set_impl,
     silu_mul_linear,
 )
+from .int4 import Int4Weight
+from .int8 import Int8Weight
 from .mixed_precision import MixedPrecisionWeight
 
 __all__ = [
@@ -50,6 +62,10 @@ __all__ = [
     "virtual_params",
     "merge_masters",
     "commit_params",
+    "Int8Weight",
+    "Int4Weight",
+    "BitNetWeight",
+    "BitNetPackedWeight",
     "MixedPrecisionWeight",
     "Int8QTConfig",
     "MixedPrecisionConfig",
@@ -58,4 +74,11 @@ __all__ = [
     "quantize_int4_rowwise_absmax",
     "unpack_int4_rowwise",
     "dequantize_int8",
+    "quantize_int4_groupwise",
+    "dequantize_int4_groupwise",
+    "get_bitnet_scale",
+    "quantize_bitnet_weight",
+    "pack_i2_in_i8",
+    "unpack_i2_in_i8",
+    "bf16_stochastic_round",
 ]

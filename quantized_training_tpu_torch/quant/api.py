@@ -5,24 +5,40 @@ Counterpart of ``quantized_training_tpu/quant/api.py`` (:100-267):
 :func:`quantize_params` with the same default filter, and the training
 contract :func:`virtual_params` / :func:`merge_masters` /
 :func:`commit_params`. Parameters are nested dicts of tensors; a leaf's path
-is the tuple of its dict keys. Only the ``mixed_precision`` scheme is
-ported, in all of its dtypes: ``quantize_params(raw, "mixed_precision",
-dtype="int4")`` or ``dtype="fp8_e4m3", scale="row" | "tile"``, as
-``llm_pretrain.py --quantize_kwargs`` passes them. The storage schemes of the
-JAX package (int8 quantized training, int4 weight-only, BitNet) raise
-NotImplementedError.
+is the tuple of its dict keys. All four schemes of the JAX package:
+``mixed_precision`` in all of its dtypes (``quantize_params(raw,
+"mixed_precision", dtype="int4")`` or ``dtype="fp8_e4m3", scale="row" |
+"tile"``, as ``llm_pretrain.py --quantize_kwargs`` passes them),
+``int8_quantized_training`` (``activation="none" | "int8" | "int8_sr"``),
+``int4_weight_only`` (``group_size``) and ``bitnet``.
+
+The storage-quantized schemes (int8 storage, int4 weight-only) train
+through the contract: each step dequantizes the storage into a float
+master, the gradients and the optimizer act on the masters, and the
+updated masters are re-quantized into storage with stochastic rounding.
+Where the storage is float (mixed precision, BitNet) the contract passes
+the wrappers through; the optimizer updates their leaves.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..ops.random import fold_in
+from . import bitnet as _bitnet
+from . import int4 as _int4
+from . import int8 as _int8
 from . import mixed_precision as _mp
-from .configs import MixedPrecisionConfig
+from .configs import Int8QTConfig, MixedPrecisionConfig
+from .core import quantize_int8
 
-QUANT_TYPES = (_mp.MixedPrecisionWeight,)
-_UNPORTED_SCHEMES = ("int8_quantized_training", "int4_weight_only", "bitnet")
+# storage-quantized schemes: the optimizer works on a dequantized master
+STORAGE_QUANTIZED_TYPES = (_int8.Int8Weight, _int4.Int4Weight)
+# every weight wrapper type
+QUANT_TYPES = (_int8.Int8Weight, _int4.Int4Weight, _bitnet.BitNetWeight, _bitnet.BitNetPackedWeight,
+               _mp.MixedPrecisionWeight)
 
 
 def is_quant_weight(x) -> bool:
@@ -34,6 +50,12 @@ def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, key: int | 
     (an int, ``ops/random.py``) seeds stochastic rounding."""
     if isinstance(w, _mp.MixedPrecisionWeight):
         return _mp.linear(x, w, bias, key=key)
+    if isinstance(w, _int8.Int8Weight):
+        return _int8.linear(x, w, bias, key=key)
+    if isinstance(w, _int4.Int4Weight):
+        return _int4.linear(x, w, bias, key=key)
+    if isinstance(w, (_bitnet.BitNetWeight, _bitnet.BitNetPackedWeight)):
+        return _bitnet.linear(x, w, bias, key=key)
     out = x @ w.T
     return out + bias if bias is not None else out
 
@@ -74,42 +96,90 @@ def _map_with_path(fn, tree, path=()):
 
 def quantize_params(params, scheme: str | None, *, filter_fn=None, **kwargs):
     """Wrap the linear weights of ``params`` (nested dicts of tensors) in
-    scheme wrappers; ``kwargs`` feed the scheme config. ``scheme=None`` is a
-    no-op."""
+    scheme wrappers. ``scheme``: 'mixed_precision',
+    'int8_quantized_training', 'int4_weight_only', 'bitnet', or None (a
+    no-op); ``kwargs`` feed the scheme config."""
     if scheme is None:
         return params
-    if scheme in _UNPORTED_SCHEMES:
-        raise NotImplementedError(f"scheme {scheme!r} is not ported yet (ROADMAP A7)")
-    if scheme != "mixed_precision":
-        raise ValueError(f"unknown quantization scheme {scheme!r}")
     filter_fn = filter_fn or _default_filter
-    config = MixedPrecisionConfig(**kwargs)
-    return _map_with_path(
-        lambda path, leaf: _mp.MixedPrecisionWeight(leaf, config) if filter_fn(path, leaf) else leaf,
-        params,
-    )
+    if scheme == "mixed_precision":
+        config = MixedPrecisionConfig(**kwargs)
+        wrap = lambda w: _mp.MixedPrecisionWeight(w, config)
+    elif scheme == "int8_quantized_training":
+        config = Int8QTConfig(**kwargs)
+        wrap = lambda w: _int8.Int8Weight.from_float(w, config)
+    elif scheme == "int4_weight_only":
+        group_size = kwargs.pop("group_size", 32)
+        if kwargs:
+            raise TypeError(f"int4_weight_only: unexpected kwargs {kwargs}")
+        wrap = lambda w: _int4.Int4Weight.from_float(w, group_size)
+    elif scheme == "bitnet":
+        if kwargs:
+            raise TypeError(f"bitnet: unexpected kwargs {kwargs}")
+        wrap = _bitnet.BitNetWeight
+    else:
+        raise ValueError(f"unknown quantization scheme {scheme!r}")
+    return _map_with_path(lambda path, leaf: wrap(leaf) if filter_fn(path, leaf) else leaf, params)
 
 
-# The training contract (JAX :221-267): each step maps the storage tree to a
+# The training contract (JAX :213-267): each step maps the storage tree to a
 # differentiable float tree, the optimizer updates that tree, and the result
-# is committed back to storage. The storage-quantized schemes (int8 storage,
-# int4 weight-only), for which these maps do work, are not ported (ROADMAP
-# A7); a MixedPrecisionWeight's storage is its bf16 master, so for the
-# ported scheme all three are identities. train.py calls them all the same,
-# so that it reads like its counterpart.
+# is committed back to storage. Only Int8Weight and Int4Weight have a
+# storage apart from their master; every other leaf passes through.
 
 
 def virtual_params(qparams):
-    """Storage tree -> differentiable float tree (the masters)."""
-    return qparams
+    """Storage tree -> differentiable float tree: the dequantized masters
+    of the storage-quantized weights, every other leaf as it is."""
+    return _map_with_path(
+        lambda path, q: q.dequantize() if isinstance(q, STORAGE_QUANTIZED_TYPES) else q, qparams)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def merge_masters(vparams, qparams):
-    """Pair the differentiable masters back with their storage."""
-    return vparams
+    """Pair the differentiable masters back with their storage, so that the
+    forward runs on the stored weight while the gradients reach the
+    master."""
+    def merge(path, v):
+        q = _at(qparams, path)
+        return dataclasses.replace(q, master=v) if isinstance(q, STORAGE_QUANTIZED_TYPES) else v
+
+    return _map_with_path(merge, vparams)
+
+
+def _leaf_paths(tree, path=()):
+    """The paths of the leaves in the JAX package's flatten order with each
+    weight wrapper one leaf (``is_leaf=is_quant_weight``): dict keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_paths(tree[k], path + (k,))
+    else:
+        yield path
 
 
 def commit_params(new_vparams, qparams, key: int | None = None):
-    """Updated masters -> new storage tree. ``key`` seeds the stochastic
-    re-quantization of the storage-quantized schemes (not ported)."""
-    return new_vparams
+    """Updated masters -> new storage tree: each storage-quantized leaf
+    re-quantized with stochastic rounding from ``fold_in(key, i)``, i its
+    index in the JAX package's flatten order (an int8 weight by K1's SR
+    form on a CUDA tensor, the stacked [L, O, I] at once); every other leaf
+    as it is."""
+    index = {p: i for i, p in enumerate(_leaf_paths(qparams))}
+
+    def commit(path, v):
+        q = _at(qparams, path)
+        if not isinstance(q, STORAGE_QUANTIZED_TYPES):
+            return v
+        if key is None:
+            raise ValueError("commit_params: re-quantizing the storage needs a key")
+        k = fold_in(key, index[path])
+        if isinstance(q, _int8.Int8Weight):
+            int_data, scale = quantize_int8(v, axis=-1, stochastic_rounding=True, key=k)
+            return _int8.Int8Weight(int_data, scale, None, q.config)
+        return _int4.requantize(v, q, k)
+
+    return _map_with_path(commit, new_vparams)

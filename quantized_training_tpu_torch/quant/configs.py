@@ -1,9 +1,9 @@
 """Scheme configuration records.
 
 Counterpart of ``quantized_training_tpu/quant/configs.py`` (``Int8QTConfig``,
-``MixedPrecisionConfig``), carried over verbatim. The port runs
-``MixedPrecisionConfig`` with every dtype (int8, int4, fp8_e4m3 with 'row'
-or 'tile' scales); ``Int8QTConfig``'s scheme is not ported.
+``MixedPrecisionConfig``), carried over verbatim: ``MixedPrecisionConfig``
+with every dtype (int8, int4, fp8_e4m3 with 'row' or 'tile' scales), and
+``Int8QTConfig`` for int8 weight storage (``quant/int8.py``).
 """
 
 from __future__ import annotations

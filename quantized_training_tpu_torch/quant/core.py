@@ -3,8 +3,11 @@
 Counterpart of ``quantized_training_tpu/quant/core.py::
 stochastic_round_to_int`` (:33), ``quantize_int8``, ``dequantize_int8``,
 ``quantize_int8_both`` (:47-174), ``quantize_int4_rowwise_absmax`` and
-``unpack_int4_rowwise`` (:237-265), and ``bf16_stochastic_round`` (:318).
-The int4 pair is plain torch on every device, as XLA lowered it. On a
+``unpack_int4_rowwise`` (:237-265), ``quantize_int4_groupwise`` and
+``dequantize_int4_groupwise`` (:182-230), ``get_bitnet_scale``,
+``quantize_bitnet_weight``, ``pack_i2_in_i8`` and ``unpack_i2_in_i8``
+(:273-315), and ``bf16_stochastic_round`` (:318). The int4, ternary and
+2-bit functions are plain torch on every device, as XLA lowered them. On a
 CUDA tensor a row quantize (``axis=-1``, any ndim) runs kernel K1, a column
 quantize of a 2-D tensor (``axis=0``) B4, and the both-axes quantize B5
 (``ops/int8_quant.py``), each in its SR form under stochastic rounding; a
@@ -122,3 +125,72 @@ def unpack_int4_rowwise(packed: torch.Tensor) -> torch.Tensor:
     """[M, P] int8 nibble pairs -> [M, 2P] int8 values in [-8, 7], high
     nibble first (``ops/int4_mm.py::unpack_int4`` on a 2-D tensor)."""
     return unpack_int4(packed)
+
+
+def quantize_int4_groupwise(x: torch.Tensor, group_size: int = 32, *, stochastic_rounding: bool = False,
+                            key: int | None = None):
+    """Asymmetric group-wise uint4 of ``x`` (any shape, numel a multiple of
+    ``group_size``), two values a byte, the even element in the high
+    nibble: ``x = zero_point + u4 * scale``, u4 in [0, 15]. Returns (packed
+    uint8 [n_groups, group_size // 2], scale [n_groups], zero_point
+    [n_groups]), both in x's dtype.
+
+    In fp32: zero_point = the group's min, scale = (max - min) / 15, q =
+    (x - min) / max(scale, 1e-12), rounded half to even, or with
+    ``stochastic_rounding`` floor(q + u), u from the stream of ``key`` at
+    q's row-major index (``ops/random.py``; JAX draws ``jax.random.uniform``),
+    then clipped to [0, 15]. Every division is by a tensor (CUDA divides by
+    a Python scalar as a reciprocal multiply)."""
+    if stochastic_rounding and key is None:
+        raise ValueError("stochastic_rounding=True requires a key")
+    xf = x.float().reshape(-1, group_size)
+    zero_point = xf.amin(dim=-1)
+    shifted = xf - zero_point[:, None]
+    scale = shifted.amax(dim=-1) / xf.new_full((), 15.0)
+    q = shifted / scale.clamp(min=1e-12)[:, None]
+    if stochastic_rounding:
+        q = torch.floor(q + random.uniform(key, q.shape, q.device))
+    else:
+        q = torch.round(q)
+    q = q.clamp(0, 15).to(torch.uint8)
+    packed = (q[:, ::2] << 4) | q[:, 1::2]
+    return packed, scale.to(x.dtype), zero_point.to(x.dtype)
+
+
+def dequantize_int4_groupwise(packed: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
+                              shape) -> torch.Tensor:
+    """Inverse of :func:`quantize_int4_groupwise`: ``zero_point + u4 *
+    scale`` in the scale's dtype, each operation rounded to it, reshaped to
+    ``shape``."""
+    u4 = torch.stack([packed >> 4, packed & 0xF], dim=-1).reshape(packed.shape[0], -1)
+    return (zero_point[:, None] + u4.to(scale.dtype) * scale[:, None]).reshape(shape)
+
+
+def get_bitnet_scale(x: torch.Tensor) -> torch.Tensor:
+    """Tensor-wise mean of |x|, in fp32 (``core.py:273``). Its sum runs in
+    torch's order, not XLA's: the two may differ in the last bits."""
+    return x.float().abs().mean()
+
+
+def quantize_bitnet_weight(w: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Ternarize to {-1, 0, 1} int8: round(w / max(scale, eps)) clipped, in
+    fp32; ``scale`` is a tensor (a scalar, or one a matrix, broadcast)."""
+    wf = w.float() / scale.float().clamp(min=eps)
+    return torch.round(wf).clamp(-1, 1).to(torch.int8)
+
+
+def pack_i2_in_i8(x: torch.Tensor) -> torch.Tensor:
+    """Four ternary int8 values (2 bits each) into one int8 along the last
+    axis, the first in the top bits: [..., N] -> [..., N // 4]."""
+    x0 = x[..., 0::4] << 6
+    x1 = (x[..., 1::4] & 0b11) << 4
+    x2 = (x[..., 2::4] & 0b11) << 2
+    x3 = x[..., 3::4] & 0b11
+    return (x0 | x1 | x2 | x3).to(torch.int8)
+
+
+def unpack_i2_in_i8(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_i2_in_i8`, sign-extended by a left shift and
+    an arithmetic right shift: [..., N] int8 -> [..., 4 N] int8."""
+    parts = [x >> 6, (x << 2) >> 6, (x << 4) >> 6, (x << 6) >> 6]
+    return torch.stack(parts, dim=-1).reshape(*x.shape[:-1], x.shape[-1] * 4)

@@ -61,10 +61,11 @@ from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm, scaled_mm_general
 from .configs import MixedPrecisionConfig
 from .core import quantize_int4_rowwise_absmax, quantize_int8, quantize_int8_both
+from .node import WeightNode
 
 
 @dataclass
-class MixedPrecisionWeight:
+class MixedPrecisionWeight(WeightNode):
     """bf16 master weight + static per-matmul quantization config.
 
     ``data`` is [out, in], or [L, out, in] when stacked over layers;
@@ -72,6 +73,7 @@ class MixedPrecisionWeight:
 
     data: torch.Tensor
     config: MixedPrecisionConfig
+    data_fields = ("data",)
 
     @property
     def dtype(self):
@@ -80,9 +82,6 @@ class MixedPrecisionWeight:
     @property
     def shape(self):
         return self.data.shape
-
-    def __getitem__(self, idx) -> "MixedPrecisionWeight":
-        return MixedPrecisionWeight(self.data[idx], self.config)
 
 
 def _all_int8(config: MixedPrecisionConfig) -> bool:

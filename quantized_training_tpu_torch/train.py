@@ -42,20 +42,21 @@ def init_train_state(params, optimizer: Optimizer) -> TrainState:
     return TrainState(params, optimizer.init(virtual_params(params)), 0)
 
 
-def value_and_grad(loss_of, qparams):
+def value_and_grad(loss_of, qparams, vparams=None):
     """``jax.value_and_grad`` over the parameter tree: ``loss_of`` applied to
-    the masters merged back with their storage; returns (loss, grads with the
-    tree's structure, each in its leaf's dtype)."""
-    vleaves, treedef = tree_flatten(virtual_params(qparams))
+    the masters (``vparams``, ``virtual_params(qparams)`` when not given)
+    merged back with their storage; returns (loss, grads with the masters'
+    structure, each in its leaf's dtype)."""
+    vleaves, treedef = tree_flatten(virtual_params(qparams) if vparams is None else vparams)
     leaves = [l.detach().requires_grad_(True) for l in vleaves]
     loss = loss_of(merge_masters(tree_unflatten(treedef, leaves), qparams))
     return loss.detach(), tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
 
 
-def loss_and_grads(cfg: llama.LlamaConfig, qparams, tokens, labels, key: int | None = None):
+def loss_and_grads(cfg: llama.LlamaConfig, qparams, tokens, labels, key: int | None = None, vparams=None):
     """:func:`value_and_grad` of the Llama loss; ``key`` seeds stochastic
     rounding in the model."""
-    return value_and_grad(lambda params: llama.loss_fn(params, tokens, labels, cfg, key), qparams)
+    return value_and_grad(lambda params: llama.loss_fn(params, tokens, labels, cfg, key), qparams, vparams)
 
 
 def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
@@ -75,13 +76,13 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
             grads = tree_map(torch.zeros_like, vparams)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i, (tok, lab) in enumerate(zip(tokens, labels)):
-                l, g = loss_and_grads(cfg, qparams, tok, lab, fold_in(key, i))
+                l, g = loss_and_grads(cfg, qparams, tok, lab, fold_in(key, i), vparams)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / tokens.shape[0], grads)
             loss = loss / tokens.shape[0]
         else:
-            loss, grads = loss_and_grads(cfg, qparams, tokens, labels, fold_in(key, 0))
+            loss, grads = loss_and_grads(cfg, qparams, tokens, labels, fold_in(key, 0), vparams)
 
         if clip_grad_norm is not None:
             grads, grad_norm = clip_by_global_norm(grads, clip_grad_norm)

@@ -1,16 +1,19 @@
-"""Parameter trees: nested dicts of tensors with MixedPrecisionWeight
-wrappers (no JAX counterpart: JAX's pytrees do this there).
+"""Parameter trees: nested dicts of tensors with weight wrappers (no JAX
+counterpart: JAX's pytrees do this there).
 
-A ``MixedPrecisionWeight`` is a node whose one leaf is its ``data``, as the
-JAX package registers it. Dict keys are visited in sorted order, as JAX
-flattens dicts, so that sums over the leaves run in the JAX package's order.
+A weight wrapper (``quant/node.py::WeightNode``) is a node whose leaves are
+its tensor fields in the order of its ``data_fields``, the JAX package's
+``data_fields``; a field that is None (a master not attached) is no leaf.
+Dict keys are visited in sorted order, as JAX flattens dicts, so that sums
+over the leaves and the keys folded per leaf run in the JAX package's
+order.
 """
 
 from __future__ import annotations
 
-import dataclasses
+from ..quant.node import WeightNode
 
-from ..quant.mixed_precision import MixedPrecisionWeight
+_LEAF = object()  # a leaf's place in a treedef
 
 
 def tree_flatten(tree) -> tuple[list, object]:
@@ -20,10 +23,10 @@ def tree_flatten(tree) -> tuple[list, object]:
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(t[k]) for k in sorted(t)}
-        if isinstance(t, MixedPrecisionWeight):
-            return dataclasses.replace(t, data=walk(t.data))
+        if isinstance(t, WeightNode):
+            return t.map_tensors(walk)
         leaves.append(t)
-        return None
+        return _LEAF
 
     return leaves, walk(tree)
 
@@ -34,8 +37,8 @@ def tree_unflatten(treedef, leaves: list):
     def build(t):
         if isinstance(t, dict):
             return {k: build(v) for k, v in t.items()}
-        if isinstance(t, MixedPrecisionWeight):
-            return dataclasses.replace(t, data=build(t.data))
+        if isinstance(t, WeightNode):
+            return t.map_tensors(build)
         return next(it)
 
     out = build(treedef)

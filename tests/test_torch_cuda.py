@@ -5,7 +5,10 @@ fixture, not at import). On the card: ``python -m pytest --noconftest -m
 cuda tests/test_torch_cuda.py -q`` (the suite's conftest imports jax, which
 this file does not need). Tolerance: none for K1/K2/B1-B6, B9, B11-B14, B16,
 B15's int8 form, B17's int8 form and B18's GELU forms — each is bit-exact with its plain
-version by construction. The row walks of B7, B8 and B10 give their first designs' bits (B10's dx; its
+version by construction, K1 and K2 at the storage schemes' forms too (a
+stored or scalar column scale, eps 1e-5, a stacked weight), and the
+2-layer storage steps are held to chip_smoke.py phase 14's bounds.
+The row walks of B7, B8 and B10 give their first designs' bits (B10's dx; its
 dgamma sums in the walk's order, run after run the same). B15's e4m3 form sums a block in the tensor core in
 fp32: within (QK + n_qk) fp32 roundings of the folded magnitudes. B7, B8, B10
 and B18's LayerNorm forms hold a row sum that the kernel takes in its own
@@ -1548,3 +1551,88 @@ def test_int8_flash_fwd_causality_and_refusals():
         ops.int8_flash_fwd(*qkv)
     with pytest.raises(ValueError, match="up to 512"):
         ops.int8_flash_fwd(*ops.quantize_qkv(q.repeat(1, 2, 1), k.repeat(2, 1), v.repeat(2, 1)), block_kv=1024)
+
+
+@pytest.mark.parametrize("M", [8, 512])
+@pytest.mark.parametrize("N,K", [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)])
+def test_k2_storage_and_scalar_column_scales(M, N, K):
+    """K2 with the column scales the storage schemes give it, bit-exact with
+    its plain version on its route (decode stream at M 8, sm90 at 512): an
+    Int8Weight's bf16 row scale [O, 1] (passed as [1, O]) and a BitNet
+    weight's bf16 scalar; K1 before it at eps 1e-12 and BitNet's 1e-5, an
+    all-zero row included."""
+    x = _rand((M, K), torch.bfloat16, 20)
+    x[0] = 0
+    w = _rand((N, K), torch.bfloat16, 21) * 0.01
+    stored = quant.Int8Weight.from_float(w)
+    ternary_scale = quant.get_bitnet_scale(w)
+    forms = ((stored.int_data, stored.scale.reshape(1, -1), IQ.EPS),
+             (quant.quantize_bitnet_weight(w, ternary_scale), ternary_scale.to(torch.bfloat16), 1e-5))
+    for b, sb, eps in forms:
+        a, sa = ops.quantize_int8_rowwise(x, eps=eps)
+        a_ref, sa_ref = ops.quantize_int8_plain(x, eps=eps)
+        assert torch.equal(a, a_ref) and torch.equal(sa, sa_ref)
+        ops.reset_launch_counts()
+        out = ops.scaled_mm_rhs_t(a, b, sa, sb)
+        counts = ops.launch_counts()
+        assert counts["scaled_mm_rhs_t_sm90" if M > SCALED_MM.DECODE_M else "scaled_mm_rhs_t_decode"] == 1
+        assert torch.equal(out, ops.scaled_mm_rhs_t_plain(a, b, sa, sb))
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("shape", [(22, 256, 2048), (3, 2048, 2048), (3, 2048, 5632)])
+def test_k1_on_stacked_weights(shape, sr):
+    """K1 and K1-SR on a stacked [L, O, I] weight, as from_float and the
+    commit of an int8-stored weight call them: one launch over L * O rows,
+    on the route rowwise_sm90_route gives, bit-exact."""
+    w = _rand(shape, torch.bfloat16, 22) * 0.01
+    ops.reset_launch_counts()
+    q, s = ops.quantize_int8_rowwise(w, sr=sr, key=9)
+    tag = "_sr" if sr else ""
+    counts = ops.launch_counts()
+    M = shape[0] * shape[1]
+    assert counts[f"quantize_int8_rowwise{tag}"] == 1
+    assert counts[f"quantize_int8_rowwise{tag}_sm90"] == int(bool(IQ.rowwise_sm90_route(M, shape[2], w.dtype, sr)))
+    q_ref, s_ref = ops.quantize_int8_plain(w, sr=sr, key=9)
+    assert q.shape == shape and s.shape == shape[:-1] + (1,)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("scheme,kw", [("int8_quantized_training", {"activation": "int8"}), ("bitnet", {})])
+def test_storage_step_card_vs_cpu(monkeypatch, scheme, kw):
+    """A 2-layer storage-scheme Llama (hidden 256, fp32, remat, the grouped
+    pipeline): the loss and every master gradient on the card against the
+    CPU's plain versions, within chip_smoke.py phase 14's bounds (loss
+    1e-3, each leaf's relative RMS 1.5e-1); the card launches K1 and K2 and
+    no int8 backward kernel; one train step commits int8 storage."""
+    from quantized_training_tpu_torch import optim
+    from quantized_training_tpu_torch.models import llama
+
+    monkeypatch.setenv("QT_FUSED_ROPE", "force")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                            num_attention_heads=4, num_key_value_heads=2, remat=True, bitnet=scheme == "bitnet")
+    raw = llama.init_params(torch.Generator().manual_seed(0), cfg, dtype=torch.float32)
+    g = torch.Generator().manual_seed(1)
+    tok, lab = (torch.randint(0, 512, (1, 256), generator=g) for _ in range(2))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = quant.quantize_params(_to(raw, dev), scheme, **kw)
+        ops.reset_launch_counts()
+        loss, grads = train.loss_and_grads(cfg, params, tok.to(dev), lab.to(dev), 3)
+        res[dev] = (loss.item(), [x.double().cpu() for x in tree_leaves(grads)])
+        if dev == "cuda":
+            n = ops.launch_counts()
+            assert n["quantize_int8_rowwise"] > 0 and n["scaled_mm_rhs_t"] > 0
+            assert n["scaled_mm"] == n["scaled_mm_lhs_t"] == n["quantize_int8_colwise"] == 0
+            opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+            state, _ = train.make_train_step(cfg, opt)(train.init_train_state(params, opt), tok.cuda(), lab.cuda(),
+                                                       1e-4, 5)
+            assert type(state.params["layers"]["q"]["w"]) is type(params["layers"]["q"]["w"])
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-3 * abs(res["cpu"][0])
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert (a - b).norm() <= 1.5e-1 * b.norm()
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}

@@ -71,14 +71,21 @@ def test_qlinear_bit_exact_vs_jax(shape, dtype):
 
 
 def test_unported_schemes_raise():
-    """The storage schemes are not ported; an unknown mixed-precision dtype
-    raises as in the JAX package (int4 and fp8 are ported)."""
+    """Every scheme of the JAX package is ported: the storage schemes wrap
+    the weight, and their unknown kwargs raise; what stays unported is
+    BitNet's FSDP mesh route (ROADMAP A13). An unknown mixed-precision dtype
+    or scheme raises as in the JAX package (int4 and fp8 are ported)."""
     w = MixedPrecisionWeight(torch.zeros(128, 128), quant.MixedPrecisionConfig(dtype="int2"))
     with pytest.raises(ValueError, match="int2"):
         quant.qlinear(torch.zeros(2, 128), w)
-    for scheme in ("int8_quantized_training", "int4_weight_only", "bitnet"):
-        with pytest.raises(NotImplementedError, match=scheme):
-            quant.quantize_params({"w": torch.zeros(128, 128)}, scheme)
+    wrappers = {"int8_quantized_training": quant.Int8Weight, "int4_weight_only": quant.Int4Weight,
+                "bitnet": quant.BitNetWeight}
+    for scheme, wrapper in wrappers.items():
+        assert isinstance(quant.quantize_params({"w": torch.zeros(128, 128)}, scheme)["w"], wrapper)
+        with pytest.raises(TypeError):
+            quant.quantize_params({"w": torch.zeros(128, 128)}, scheme, nope=1)
+    with pytest.raises(NotImplementedError, match="A13"):
+        quant.qlinear(torch.zeros(2, 128), quant.BitNetWeight(torch.zeros(128, 128), mesh=object()))
     with pytest.raises(ValueError, match="unknown"):
         quant.quantize_params({"w": torch.zeros(128, 128)}, "nope")
     assert quant.quantize_params({"a": 1}, None) == {"a": 1}

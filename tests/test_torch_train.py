@@ -15,6 +15,18 @@ against the JAX step:
 - bf16:       floor 8.5e-5, 5.3e-4, 5.8e-3; port 1.6e-5, 4.8e-4, 1.7e-3
 - bf16 int8:  floor 1.6e-4, 1.7e-3, 5.9e-3; port 3.8e-5, 5.3e-4, 3.2e-3
 
+- fp32 int8 storage:  port 2.9e-6, 4.1e-5, 1.1e-3 (masters before the commit)
+- bf16 int8 storage:  port 2.9e-5, 9.0e-4, 3.9e-3
+- fp32 int4 storage:  port 7.6e-8, 8.3e-8, 3.1e-6
+- bf16 int4 storage:  port 1.4e-5, 2.2e-4, 1.6e-3
+- fp32 BitNet:        floor 2.2e-5, 2.6e-3, -;   port 1.9e-5, 1.2e-4, 1.8e-4
+- bf16 BitNet:        floor 4.9e-4, 4.6e-3, -;   port 2.8e-4, 5.1e-3, 3.6e-3
+
+(BitNet's floor: the loss and the grad norm only.) BitNet ternarizes every
+weight and quantizes every activation at each forward, so one ulp anywhere
+moves its grad norm by up to 4.6e-3 in bf16; its grad-norm bound there is
+1.5e-2, the rest are mixed precision's.
+
 Under int8, rounding flips carry any rounding difference, so the floor is
 the int8 noise; in bf16 the worst leaf is the moved embedding itself (one
 bf16 ulp is 2**-8 relative). Each bound sits above its floor (BOUNDS);
@@ -60,6 +72,15 @@ BOUNDS = {
     ("bf16", None): (1e-3, 5e-3, 1e-2),
     ("bf16", "mixed_precision"): (1e-3, 5e-3, 1e-2),
 }
+# the storage schemes are held to mixed precision's bounds, but for bf16
+# BitNet's grad norm, whose floor is higher; int8 storage runs its kernels'
+# activations (Int8QTConfig's default is weight-only)
+for _d in ("f32", "bf16"):
+    for _s in ("int8_quantized_training", "int4_weight_only", "bitnet"):
+        BOUNDS[(_d, _s)] = BOUNDS[(_d, "mixed_precision")]
+BOUNDS[("bf16", "bitnet")] = (1e-3, 1.5e-2, 1e-2)
+SCHEME_KW = {"int8_quantized_training": {"activation": "int8"}}
+STORAGE = ("int8_quantized_training", "int4_weight_only")
 
 
 def _batch(seed, shape=(B, S)):
@@ -69,9 +90,11 @@ def _batch(seed, shape=(B, S)):
 
 def _setup(dtn, scheme, **cfg_kw):
     """One set of weights and one AdamW state for both packages."""
+    cfg_kw.setdefault("bitnet", scheme == "bitnet")
     jcfg = jllama.LlamaConfig(**KW, remat=True, attention_impl="xla", **cfg_kw)
     cfg = llama.LlamaConfig(**KW, remat=True, attention_impl="xla", **cfg_kw)
-    jp = jquant.quantize_params(jllama.init_params(jax.random.PRNGKey(0), jcfg, dtype=_JDT[dtn]), scheme)
+    jp = jquant.quantize_params(jllama.init_params(jax.random.PRNGKey(0), jcfg, dtype=_JDT[dtn]), scheme,
+                                **SCHEME_KW.get(scheme, {}))
     jopt = joptim.adamw(weight_decay=1e-2)
     jstate = jtrain.init_train_state(jp, jopt)
     np_state = jax.tree.map(np.asarray, jstate)
@@ -93,25 +116,42 @@ def _compare(jstate, jm, tstate, tm, bounds):
         assert np.linalg.norm(a - b) <= b_param * np.linalg.norm(b)
 
 
-@pytest.mark.parametrize("scheme", ["mixed_precision", None])
+@pytest.mark.parametrize("scheme", ["mixed_precision", None, *STORAGE, "bitnet"])
 @pytest.mark.parametrize("dtn", ["f32", "bf16"])
-def test_train_steps_vs_jax(dtn, scheme):
+def test_train_steps_vs_jax(monkeypatch, dtn, scheme):
     """Two steps of make_train_step(cfg, adamw()) with remat, from
     params_from_jax + adamw_state_from_jax, against the JAX step on the
     same batch: losses, grad norms and every parameter within BOUNDS; the
-    wrapped weights stay MixedPrecisionWeight with their config."""
+    wrapped weights keep their wrapper and config. The storage schemes
+    (int8 with int8 activations, int4 weight-only) are compared on the
+    updated masters before the commit, whose stochastic rounding draws from
+    another generator in each package: both steps' commits are cut out,
+    and between the steps the JAX commit's storage is carried into both
+    (params_from_jax). BitNet (cfg.bitnet, the o and down norms) has no
+    storage apart from its weights."""
     jcfg, cfg, jopt, jstate, tstate = _setup(dtn, scheme)
+    storage = scheme in STORAGE
+    if storage:  # the steps return the updated masters
+        monkeypatch.setattr(jtrain, "commit_params", lambda new_v, q, key: new_v)
+        monkeypatch.setattr(train, "commit_params", lambda new_v, q, key: new_v)
     jstep = jtrain.make_train_step(jcfg, jopt, donate=False)
     tstep = train.make_train_step(cfg, optim.adamw(weight_decay=1e-2))
     tok, lab = _batch(0)
-    for _ in range(2):
+    for i in range(2):
+        jq = jstate.params
         jstate, jm = jstep(jstate, jnp.asarray(tok, jnp.int32), jnp.asarray(lab, jnp.int32), 3e-4,
                            jax.random.PRNGKey(1))
         tstate, tm = tstep(tstate, torch.from_numpy(tok), torch.from_numpy(lab), 3e-4, 1)
         _compare(jstate, jm, tstate, tm, BOUNDS[(dtn, scheme)])
+        if storage:  # the JAX commit, carried into both
+            jstate = jstate._replace(params=jquant.commit_params(jstate.params, jq, jax.random.PRNGKey(2 + i)))
+            tstate = tstate._replace(params=params_from_jax(jax.tree.map(np.asarray, jstate.params)))
     assert tstate.step == 2 and tstate.opt_state.count == 2
     q = tstate.params["layers"]["q"]["w"]
-    assert isinstance(q, mixed_precision.MixedPrecisionWeight) == (scheme is not None)
+    wrapper = {None: torch.Tensor, "mixed_precision": mixed_precision.MixedPrecisionWeight,
+               "int8_quantized_training": quant.Int8Weight, "int4_weight_only": quant.Int4Weight,
+               "bitnet": quant.BitNetWeight}[scheme]
+    assert isinstance(q, wrapper) and (scheme is None or not isinstance(q, torch.Tensor))
 
 
 def test_grad_accumulation_and_clipping_vs_jax():
@@ -255,6 +295,53 @@ def test_kernel_calls_per_step_sr_slice(monkeypatch, config):
     L = KW["num_hidden_layers"]
     expect = (_per_step(L, micro=4, b6=n_leaves) if bench else _per_step(L, sr=True, b6_sr=n_leaves))
     assert counts == expect
+
+
+def storage_per_step(scheme: str, L: int, n_leaves: int, sr: bool = False) -> dict:
+    """The launch counts of one remat train step of L layers on the grouped
+    pipeline for a storage scheme, which chip_smoke.py holds the card to:
+    per layer the forward, run twice, quantizes each of the 7 linears'
+    inputs with K1 (q/k/v apart: qlinear_multi's fallback) and runs K2 7
+    times (int8 storage with int8 or int8_sr activations, BitNet), no int8
+    backward kernel; B13 as the unfused grouped layer (rope_group 7,
+    rope_ungroup 5: BitNet ungroups the attention output before o_norm);
+    the commit re-quantizes each of the 7 stacked int8 weights once with
+    K1-SR; the optimizer runs B6 once a master leaf. int4 weight-only runs
+    neither K1 nor K2."""
+    counts = dict.fromkeys(ops.KERNELS, 0)
+    counts.update({"rope_group": 7 * L, "rope_ungroup": 5 * L, "fused_adamw_update": n_leaves})
+    if scheme != "int4_weight_only":
+        counts["quantize_int8_rowwise" + ("_sr" if sr else "")] += 2 * 7 * L
+        counts["scaled_mm_rhs_t"] = 2 * 7 * L
+    if scheme == "int8_quantized_training":
+        counts["quantize_int8_rowwise_sr"] += 7
+    return counts
+
+
+@pytest.mark.parametrize("scheme,kw", [("int8_quantized_training", {"activation": "int8"}),
+                                       ("int8_quantized_training", {"activation": "int8_sr"}),
+                                       ("bitnet", {}), ("int4_weight_only", {})])
+def test_kernel_calls_per_step_storage(monkeypatch, scheme, kw):
+    """The storage schemes' launch counts per step (``storage_per_step``) on
+    the grouped pipeline (``QT_FUSED_ROPE=force``, as the card runs it),
+    with remat and adamw_bf16_sr without the SR writeback; the storage
+    after the commit stays int8 with its config."""
+    monkeypatch.setenv("QT_FUSED_ROPE", "force")
+    cfg = llama.LlamaConfig(**KW, remat=True, attention_impl="xla", bitnet=scheme == "bitnet")
+    params = quant.quantize_params(llama.init_params(torch.Generator().manual_seed(0), cfg), scheme, **kw)
+    counts = _counting(monkeypatch)
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    tok, lab = _batch(2)
+    state, _ = train.make_train_step(cfg, opt)(train.init_train_state(params, opt), torch.from_numpy(tok),
+                                               torch.from_numpy(lab), 1e-4, 5)
+    n_leaves = len(tree_leaves(quant.virtual_params(params)))
+    assert n_leaves == 12 + 2 * (scheme == "bitnet")
+    sr = kw.get("activation") == "int8_sr"
+    assert counts == storage_per_step(scheme, KW["num_hidden_layers"], n_leaves, sr)
+    q = state.params["layers"]["q"]["w"]
+    assert type(q) is type(params["layers"]["q"]["w"])
+    if scheme == "int8_quantized_training":
+        assert q.int_data.dtype == torch.int8 and q.config == params["layers"]["q"]["w"].config
 
 
 def test_loss_fn_fused_equals_explicit_logits():
