@@ -146,6 +146,32 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    prefill launch on sm90, two streams held against ``generate()``, tok/s.
    K1's, K1-SR's, K2's, B13's and B6's entries carry the phase's launches
    (``storage_launches``).
+15. the LLM drivers, ``llm_pretrain`` and ``llm_evaluate``, called in
+   process (``main(argv)``) at Llama-2-470m (``mini_llamas``, through
+   ``from_hf_json``: hidden 1024, FFN 4096, 16 heads of 16 kv heads, 24
+   layers), int8 ``mixed_precision`` on the fused layer, remat, batch 4 x
+   2048: (e) first, every kernel of that path (K1, B4, B5, K2, B1, B2,
+   B7-B14) in the form its step calls, on bf16 tensors at the 470m step's
+   shapes, each on its bf16 route and bit-exact with its plain version
+   (B7, B8 and B10 to their sum-order bars), timed; (b) a 2-layer cut at
+   full width, fp32, fused and unfused, the loss and every gradient on the
+   card against the CPU within phase 7's bounds; (a) 4 steps on Markov
+   tokens with ``adamw``, and 2 steps with a checkpoint then ``--resume``
+   to 4: the resumed run enters with the interrupted run's final state bit
+   for bit and takes the uninterrupted run's third and fourth batches and
+   keys, its losses at steps 3 and 4 within 5e-3 of the uninterrupted
+   ones, every step's launches exactly as the routes at the 470m's shapes
+   give them
+   (``pretrain_per_step_launches``); (c) ``--native_loader`` over Markov
+   ``.bin`` shards with ``schedule_free_adamw_8bit``, 3 steps: the loss
+   finite and falling; (d) ``llm_evaluate`` on (a)'s last checkpoint,
+   perplexity over 4 batches and 16 generated tokens: the loaded
+   parameters bit-identical to (a)'s final ones; the eval loss falls from
+   the step-2 checkpoint to it, below ln(vocab). Each run prints its
+   losses, tokens/s, peak memory, the wait for its first batch and its
+   seconds; every entry of the kernel table gains the phase's launches
+   (``pretrain_launches``), and those of (e)'s kernels its results
+   (``shapes_470m``, their errors also in ``max_abs_err``).
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -173,15 +199,17 @@ import functools
 import importlib
 import json
 import os
+import shutil
 import subprocess
+import sys
 import time
 from functools import partial
 
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import benchmark_mm, ops, optim, quant, train, vit_train
-from quantized_training_tpu_torch.data import BatchLoader, SyntheticImageDataset
+from quantized_training_tpu_torch import benchmark_mm, llm_evaluate, llm_pretrain, ops, optim, quant, train, vit_train
+from quantized_training_tpu_torch.data import BatchLoader, MarkovTokenDataset, SyntheticImageDataset
 from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build, random
@@ -1878,7 +1906,8 @@ def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
 
 
 def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: float, sr_key: int | None = None,
-                   fused: bool = False, qkw: dict | None = None):
+                   fused: bool = False, qkw: dict | None = None, base: llama.LlamaConfig | None = None,
+                   name: str = "Llama2-1B", phase: int = 7):
     """Phase 7: the loss and every gradient leaf of a 2-layer cut of
     Llama2-1B (full width, weights from ``seed``), int8 mixed_precision,
     one micro-step on 256 tokens, the kernels on the card against the plain
@@ -1904,9 +1933,10 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     unfused one 4.4e-2 / 4.7e-2, 1.6e-4 / 1.3e-4, 7.2e-2 / 7.4e-2, 3.2e-4 /
     5.4e-4). The bounds sit above it (1.5e-1 / 2e-1 per leaf, 1e-3 on the
     loss); a wiring fault (a transposed operand, a scale on the wrong axis)
-    gives a relative RMS near 1."""
+    gives a relative RMS near 1. ``base``, ``name`` and ``phase``: another
+    model cut to 2 layers (phase 15's Llama-2-470m)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(CFG, num_hidden_layers=2, remat=True)
+    cfg = dataclasses.replace(base or CFG, num_hidden_layers=2, remat=True)
     raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, dtype=dtype)
     to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
     rng = np.random.default_rng(seed)
@@ -1943,7 +1973,7 @@ def grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss: flo
     rms = [((a - b).norm() / b.norm()).item() for a, b in zip(res[DEVICE][1], res["cpu"][1])]
     dloss = abs(res[DEVICE][0] - res["cpu"][0]) / abs(res["cpu"][0])
     what = ", ".join(f"{k}={v}" for k, v in qkw.items()) if qkw else "int8"
-    print(f"[7] 2-layer Llama2-1B {what} {str(dtype)[6:]}{' SR' if sr else ''} {'fused' if fused else 'unfused'} "
+    print(f"[{phase}] 2-layer {name} {what} {str(dtype)[6:]}{' SR' if sr else ''} {'fused' if fused else 'unfused'} "
           "layer grads (256 tokens), "
           "kernels on the card vs plain on the CPU: "
           f"loss {res[DEVICE][0]:.6f} vs {res['cpu'][0]:.6f} (relative {dloss:.2e}); worst leaf relative RMS "
@@ -2449,6 +2479,447 @@ def storage_schemes(raw, seed: int, key: int) -> dict:
     return {k: launches[k] + served[k] for k in launches}
 
 
+# phase 15: the LLM drivers at Llama-2-470m (mini_llamas, full width and
+# depth: hidden 1024, FFN 4096, 16 heads of 16 kv heads, so the grouped
+# pipeline runs at G = 1), llm_pretrain.py's batch; runs under runs/ and
+# shards under build/, both ignored by git
+PRETRAIN_MODEL = "mini_llamas/Llama-2-470m"
+PRETRAIN_SAVE = os.path.join("runs", "chip_smoke")
+PRETRAIN_SHARDS = os.path.join("build", "chip_smoke_shards")
+# the resumed run's losses against the uninterrupted run's: the bound of
+# tests/test_resume.py for the JAX driver (the card's SDPA backward need not
+# be deterministic, so the runs are not held bit for bit)
+RESUME_BOUND = 5e-3
+
+
+def device_args() -> list[str]:
+    """The drivers run on the card; a rehearsal on the CPU sets DEVICE."""
+    return ["--cpu"] if DEVICE == "cpu" else []
+
+
+def pretrain_per_step_launches(cfg: llama.LlamaConfig, tokens: int) -> dict:
+    """Kernel launches of one int8 train step of ``cfg`` on the fused layer
+    with remat and no SR (``per_step_launches``), each route's counter from
+    the route at ``cfg``'s shapes: K1 and B4 at the 7 weights [O, I] (the
+    row walk, the cluster form), K2 at ``tokens`` rows, B1 at each
+    grad_input (N = I, K = O), B2 at each grad_weight (M = O, N = I, K =
+    ``tokens``), B7, B8 and B10 at the hidden width, B9, B11 and B12 at the
+    FFN width, B14 at the attention width H * hd."""
+    L, D, F = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    H, KV = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    weights = ((H, D), (KV, D), (KV, D), (D, H), (F, D), (F, D), (D, F))
+    on = lambda route: int(bool(route))
+    bf = torch.bfloat16
+    counts = per_step_launches(L)
+    counts.update({
+        "quantize_int8_rowwise_sm90": 2 * L * sum(on(IQ.rowwise_sm90_route(o, i, bf)) for o, i in weights),
+        "quantize_int8_colwise_sm90": L * sum(on(IQ.colwise_sm90_route(o, i, bf)) for o, i in weights),
+        "scaled_mm_rhs_t_sm90": 2 * L * 7 * on(SCALED_MM.sm90_route(tokens)),
+        "scaled_mm_sm90": L * sum(on(SCALED_MM.rhs_mn_sm90_route(i, o)) for o, i in weights),
+        "scaled_mm_lhs_t_sm90": L * sum(on(SCALED_MM.lhs_t_sm90_route(o, i, tokens)) for o, i in weights),
+        "rmsnorm_quant_rowwise_sm90": 4 * L * on(FP.norm_rows_sm90_route(D, bf)),
+        "rmsnorm_quant_colwise_sm90": 2 * L * on(FP.norm_cols_sm90_route(D, bf)),
+        "rmsnorm_bwd_sm90": 2 * L * on(FP.rmsnorm_bwd_sm90_route(D, bf)),
+        "silu_mul_quant_rowwise_sm90": 2 * L * on(FP.silu_rows_sm90_route(F, bf)),
+        "silu_mul_quant_colwise_sm90": L * on(FP.silu_cols_sm90_route(F, bf)),
+        "silu_mul_bwd_quant_rowwise_sm90": L * on(FP.silu_bwd_rows_sm90_route(F, bf)),
+        "silu_mul_bwd_quant_colwise_sm90": L * on(FP.silu_bwd_cols_sm90_route(F, bf)),
+        "ungroup_amax_sm90": 2 * L * on(ROPE.ungroup_sm90_route(H, cfg.head_dim, bf)),
+        "ungroup_quant_sm90": 3 * L * on(ROPE.ungroup_sm90_route(H, cfg.head_dim, bf)),
+    })
+    return counts
+
+
+class StepLaunches:
+    """While it is entered, every train step a driver builds through
+    ``train.make_train_step`` checks its launches against ``expect`` and
+    adds them to ``total``; ``before``, where given, sees each step's
+    arguments (state, tokens, labels, lr, key) before the step runs."""
+
+    def __init__(self, expect: dict, before=None):
+        self.expect, self.before, self.steps = expect, before, 0
+        self.total = dict.fromkeys(ops.KERNELS, 0)
+
+    def __enter__(self):
+        self.make = train.make_train_step
+
+        def make(*args, **kwargs):
+            step = self.make(*args, **kwargs)
+
+            def counted(*step_args):
+                if self.before is not None:
+                    self.before(*step_args)
+                ops.reset_launch_counts()
+                out = step(*step_args)
+                counts = ops.launch_counts()
+                self.steps += 1
+                check(counts == self.expect, f"driver step {self.steps} launches {counts} == {self.expect}")
+                self.total = {k: self.total[k] + v for k, v in counts.items()}
+                return out
+
+            return counted
+
+        train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        train.make_train_step = self.make
+
+
+def run_driver(main, argv: list[str]):
+    """``main(argv)`` of a driver; returns (its result, wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pretrain_report(name: str, out: dict, seconds: float) -> dict:
+    """One driver run's line: losses by step, tokens/s of each step after
+    the run's first (the driver's, after a sync), its peak device memory,
+    the wait for the first batch and the run's seconds."""
+    rows = [json.loads(l) for l in open(os.path.join(out["save_dir"], "metrics.jsonl"))]
+    losses = {r["step"]: r["loss"] for r in rows}
+    tps = [r["tokens_per_second"] for r in rows[1:]]
+    print(f"[15] {name}: losses {losses}; tokens/s after the first step {[round(t, 1) for t in tps]} "
+          f"(median {float(np.median(tps)) if tps else float('nan'):.1f}); peak device memory "
+          f"{rows[-1]['peak_memory_gb']:.2f} GB; first batch after {out['first_batch_s']:.2f} s; {seconds:.1f} s",
+          flush=True)
+    check(all(np.isfinite(v) for v in losses.values()), f"{name}: finite losses")
+    return losses
+
+
+def state_leaves(obj) -> list:
+    """The leaves of a train state, in a fixed order: through its tuples
+    (the ``NamedTuple`` states), dicts and weight wrappers (8-bit states
+    too)."""
+    if isinstance(obj, (list, tuple)):
+        return [leaf for x in obj for leaf in state_leaves(x)]
+    return [leaf for x in tree_leaves(obj) for leaf in (state_leaves(x) if isinstance(x, (list, tuple)) else [x])]
+
+
+def same_leaves(a, b) -> bool:
+    """Two trees' leaves equal bit for bit: tensors of one dtype and
+    shape, other leaves by ``==``."""
+    la, lb = state_leaves(a), state_leaves(b)
+    return len(la) == len(lb) and all(
+        type(x) is type(y) and (x.dtype == y.dtype and torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        for x, y in zip(la, lb))
+
+
+def pretrain_resume(seed: int, vocab: int, expect: dict) -> tuple[dict, dict, dict, object]:
+    """Phase 15 (a): ``llm_pretrain`` at Llama-2-470m through
+    ``from_hf_json`` (24 layers), int8 ``mixed_precision`` on the fused
+    layer, remat, batch 4 x 2048 of Markov tokens, ``adamw``: 4 steps
+    uninterrupted; 2 steps with a checkpoint, then ``--resume`` to 4. The
+    resumed run's first step enters with the interrupted run's final
+    state bit for bit (parameters and optimizer state, through the
+    checkpoint), and the resumed run's batches and step keys are the
+    uninterrupted run's third and fourth, bit for bit (the loader's
+    position); its losses at steps 3 and 4 within ``RESUME_BOUND`` of the
+    uninterrupted ones (the card's backward is not deterministic); every
+    step's launches exactly ``expect``. Returns the launches, the runs'
+    directories, the uninterrupted run's losses and the resumed run's final
+    parameters."""
+    common = ["--model", PRETRAIN_MODEL, "--quantize", "mixed_precision", "--activation_checkpointing",
+              "--batch_size", str(TRAIN_B), "--seq_len", str(TRAIN_S), "--log_interval", "1", "--seed", str(seed),
+              "--train_ds", json.dumps({"type": "markov", "vocab_size": vocab}), "--save_dir", PRETRAIN_SAVE,
+              *device_args()]
+    runs, inputs, saved, entered = {}, {}, {}, []
+
+    def before(state, tokens, labels, lr, key):
+        inputs[name].append((tokens.cpu(), labels.cpu(), lr, key))
+        if name == "part2" and len(inputs[name]) == 1:  # the state the resume loaded
+            entered.append(same_leaves(state, saved.pop("state")))
+
+    with StepLaunches(expect, before) as counter:
+        for name, extra in (("full", ["--n_steps", "4"]), ("part1", ["--n_steps", "2", "--ckpt_interval", "2"]),
+                            ("part2", ["--n_steps", "4", "--ckpt_interval", "2", "--resume", None])):
+            if name == "part2":
+                extra[-1] = os.path.join(runs["part1"][0], "last.pkl")
+            inputs[name] = []
+            out, seconds = run_driver(llm_pretrain.main, [*common, *extra, "--run_name", name])
+            runs[name] = (str(out["save_dir"]), pretrain_report(f"llm_pretrain {name}", out, seconds))
+            if name == "part1":
+                saved["state"] = out["state"]
+            final = out["state"].params if name == "part2" else None
+            del out
+            torch.cuda.empty_cache()
+    full, part1, part2 = (runs[k][1] for k in ("full", "part1", "part2"))
+    check(counter.steps == 8, f"8 driver steps ran: {counter.steps}")
+    same = lambda a, b: all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(a, b))
+    batches = (len(inputs["part2"]) == 2 and all(same(a, b) for a, b in zip(inputs["part1"], inputs["full"][:2]))
+               and all(same(a, b) for a, b in zip(inputs["part2"], inputs["full"][2:])))
+    print(f"[15] resume: the resumed run entered with the interrupted run's final state bit for bit: {entered}; its "
+          f"batches, lrs and step keys are the uninterrupted run's third and fourth: {batches}")
+    check(entered == [True], "the resumed run loads the interrupted run's final state bit for bit")
+    check(batches, "the resumed run's batches and keys are the uninterrupted run's third and fourth")
+    check(max(abs(part1[s] - full[s]) for s in (1, 2)) <= RESUME_BOUND,
+          f"the interrupted run's steps 1-2 {part1} agree with {full}")
+    gap = max(abs(part2[s] - full[s]) for s in (3, 4))
+    print(f"[15] resume: steps 3-4 resumed {[part2[3], part2[4]]} against uninterrupted {[full[3], full[4]]}: "
+          f"largest difference {gap:.3e} (bound {RESUME_BOUND:g}); launches per step "
+          f"{ {k: v for k, v in expect.items() if v} }")
+    check(sorted(part2) == [3, 4] and gap <= RESUME_BOUND, f"resumed losses within {RESUME_BOUND} of uninterrupted")
+    check(full[4] < full[1], f"losses fall: {full}")
+    return counter.total, {k: runs[k][0] for k in runs}, full, final
+
+
+def write_markov_shards(seed: int, vocab: int, n_shards: int = 2, per_shard: int = 12) -> str:
+    """uint16 ``.bin`` token shards of Markov samples (each ``TRAIN_S + 1``
+    tokens, so each is one window of the token dataset)."""
+    shutil.rmtree(PRETRAIN_SHARDS, ignore_errors=True)
+    os.makedirs(PRETRAIN_SHARDS)
+    it = iter(MarkovTokenDataset(seq_len=TRAIN_S, vocab_size=vocab, seed=seed))
+    for i in range(n_shards):
+        toks = [np.append(x, y[-1]) for x, y in (next(it) for _ in range(per_shard))]
+        np.concatenate(toks).astype(np.uint16).tofile(os.path.join(PRETRAIN_SHARDS, f"shard{i}.bin"))
+    return PRETRAIN_SHARDS
+
+
+def pretrain_native_8bit(seed: int, vocab: int, expect: dict) -> dict:
+    """Phase 15 (c): ``llm_pretrain --native_loader`` over Markov shards
+    with ``schedule_free_adamw_8bit``, three steps at (a)'s model and
+    batch: the loader's library builds, the loss is finite and falls, and
+    every step launches exactly ``expect`` (the optimizer has no kernel).
+    Returns the launches."""
+    t0 = time.perf_counter()
+    shards = write_markov_shards(seed, vocab)
+    print(f"[15] Markov token shards: {len(os.listdir(shards))} shards of 12 x {TRAIN_S + 1} uint16 tokens written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    argv = ["--model", PRETRAIN_MODEL, "--quantize", "mixed_precision", "--activation_checkpointing",
+            "--batch_size", str(TRAIN_B), "--seq_len", str(TRAIN_S), "--log_interval", "1", "--seed", str(seed),
+            "--train_ds", json.dumps({"type": "token", "dataset_dir": shards}), "--native_loader",
+            "--optim", "schedule_free_adamw_8bit", "--n_steps", "3", "--save_dir", PRETRAIN_SAVE,
+            "--run_name", "native_8bit", *device_args()]
+    try:
+        with StepLaunches(expect) as counter:
+            out, seconds = run_driver(llm_pretrain.main, argv)
+            eas = out["state"].opt_state.exp_avg_sq
+            n8 = sum(isinstance(x, optim.OptimState8bit) for x in tree_leaves(eas, is_leaf=lambda x: isinstance(
+                x, optim.OptimState8bit)))
+            losses = pretrain_report("llm_pretrain --native_loader schedule_free_adamw_8bit", out, seconds)
+            del out, eas
+    finally:
+        shutil.rmtree(shards, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[15] {n8} exp_avg_sq leaves in 8 bits")
+    check(counter.steps == 3 and n8 > 0, f"3 steps ran ({counter.steps}) with 8-bit state ({n8} leaves)")
+    check(losses[3] < losses[1], f"the 8-bit schedule-free run's loss falls: {losses}")
+    return counter.total
+
+
+def evaluate_checkpoint(runs: dict, seed: int, vocab: int, train_losses: dict, final) -> dict:
+    """Phase 15 (d): ``llm_evaluate --ckpt`` the resumed run's last
+    checkpoint (step 4), the perplexity task on 4 batches of 8 x 2048
+    Markov tokens (the eval split of the training chain: the eval set's
+    ``seed`` is the run's, as ``llm_evaluate`` passes none of its own) and
+    16 generated tokens: the loaded
+    parameters are that run's final ones bit for bit, the perplexity
+    finite. Then the step-2 checkpoint: the eval loss falls from it to the
+    step-4 one, and both lie below ln(vocab), the loss of a uniform guess
+    (an evaluation on another chain, or of untrained parameters, lies
+    above it: 10.58 and 10.64 with the eval set on another chain, on the
+    H100); the step-2 eval loss is printed beside the training loss of step
+    3, which the same parameters gave on the training stream's batch.
+    Returns the launches of both."""
+    ops.reset_launch_counts()
+    results = {}
+    for name, step in (("part2", 4), ("part1", 2)):
+        out, seconds = run_driver(llm_evaluate.main, [
+            "--model", PRETRAIN_MODEL, "--quantize", "mixed_precision", "--ckpt",
+            os.path.join(runs[name], "last.pkl"), "--tasks", "perplexity", "--seq_len", str(TRAIN_S),
+            "--eval_ds", json.dumps({"type": "markov", "vocab_size": vocab, "seed": seed}), "--max_batches", "4",
+            "--generate", "16", *device_args()])
+        results[step] = out["results"]
+        print(f"[15] llm_evaluate on the step-{step} checkpoint: perplexity {out['results']['perplexity']:.4f} "
+              f"(eval loss {out['results']['eval_loss']:.6f}), {len(out['results']['sample_tokens'])} tokens; "
+              f"{seconds:.1f} s")
+        if step == 4:
+            loaded, want = tree_leaves(out["params"]), tree_leaves(final)
+            same = len(loaded) == len(want) and all(a.dtype == b.dtype and torch.equal(a, b)
+                                                    for a, b in zip(loaded, want))
+            print(f"[15] loaded parameters bit-identical to the resumed run's final ones: {same}")
+            check(same, "llm_evaluate loads the trained parameters bit for bit")
+        del out
+    launches = ops.launch_counts()
+    check(all(np.isfinite(r["perplexity"]) and len(r["sample_tokens"]) == 4 + 16 for r in results.values()),
+          "finite perplexities, 16 tokens each")
+    ev2, ev4, uniform = results[2]["eval_loss"], results[4]["eval_loss"], float(np.log(vocab))
+    print(f"[15] eval loss of the step-2 checkpoint {ev2:.6f} (the training loss of step 3, at the same parameters "
+          f"on a training batch, {train_losses[3]:.6f}), of the step-4 checkpoint {ev4:.6f}; ln(vocab) {uniform:.6f}")
+    check(ev4 < ev2 < uniform, "the eval loss falls from the step-2 to the step-4 checkpoint, below ln(vocab)")
+    return launches
+
+
+# the kernels of phase 15's main path (llm_pretrain --quantize
+# mixed_precision at its default adamw): K1, K2, B1, B2, B4, B5, B7-B14
+PRETRAIN_KERNELS = ("quantize_int8_rowwise", "scaled_mm_rhs_t", "scaled_mm", "scaled_mm_lhs_t",
+                    "quantize_int8_colwise", "quantize_int8_both", "rmsnorm_quant_rowwise", "rmsnorm_quant_colwise",
+                    "silu_mul_quant_rowwise", "silu_mul_quant_colwise", "rmsnorm_bwd", "silu_mul_bwd_quant_rowwise",
+                    "silu_mul_bwd_quant_colwise", "rope_group", "rope_ungroup", "ungroup_amax", "ungroup_quant")
+
+
+def hold_470m(name: str, kind: str, kernel, plain, args, route, nbytes: float, int8_ops: float = 0.0,
+              form: str = "", results: dict | None = None) -> tuple:
+    """One wrapper of phase 15's path on the card at a shape of the 470m's
+    step: launched once, on its sm90 route or row walk where the kernel
+    has one (``route``: the route's predicate at these operands, which
+    must take it; None for B5 and B13, which have one form), held to its
+    plain version by the bars of ``kind`` (:func:`_hold`), timed; appends
+    {"shape", "form", "route", "max_abs_err", "ms", "bound_ms"} to
+    ``results[name]``. Returns the kernel's outputs."""
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+    ops.reset_launch_counts()
+    got = as_tuple(kernel(*args))
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {name: 1} if route is None else {name: 1, f"{name}_sm90": 1}
+    check(route is None or bool(route), f"{name} at {list(args[0].shape)}: the bf16 route takes the 470m's shape")
+    check(launched == want, f"{name} at {list(args[0].shape)} launched {launched}, not {want}")
+    ref = as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    held = _hold(kind, got, ref)
+    ms = time_ms(kernel, copies(*args))
+    b_ms, by = bound(nbytes, int8_ops=int8_ops)
+    shape = [list(t.shape) for t in args[:2]] if name.startswith("scaled_mm") else list(args[0].shape)
+    results.setdefault(name, []).append({"shape": shape, "form": form, "route": route if route is None else str(route),
+                                         "max_abs_err": _max_err(got, ref), "ms": ms, "bound_ms": b_ms})
+    print(f"[15] {name} {shape} bf16{form and f' ({form})'} at the 470m: route {route}; {held}; kernel {ms:.4f} ms "
+          f"({b_ms / ms:.3f} of the "
+          f"{b_ms:.4f} ms bound by {by})")
+    return got
+
+
+def kernels_at_470m(cfg: llama.LlamaConfig, gen: torch.Generator) -> dict:
+    """Phase 15 (e): every kernel of ``llm_pretrain --quantize
+    mixed_precision`` in the form its step calls, on bf16 tensors on the
+    card at the shapes the 470m's step gives it (``TOKENS`` rows; hidden
+    1024, FFN 4096, attention 16 x 64 at G = 1): K1 and B4 on the weights
+    [1024, 1024], [4096, 1024] and [1024, 4096]; K2, B1 and B2 on each
+    weight's forward, grad_input and grad_weight; B5 on the output
+    gradients [8192, 1024]; B7 (with the column absmax), B8 (given its
+    scales) and B10 at [8192, 1024]; B9 rows and columns, B11 and B12 at
+    [8192, 4096]; B13 grouping q (pre-scaled tables), k (tables) and the
+    cotangent (none), and ungrouping them (rot^T) from both memory layouts;
+    B14's absmax and row and column quantizes of the attention output in
+    both layouts. Each through :func:`hold_470m`: on its route, bit-exact
+    with its plain version (B7, B8 and B10 to their sum-order bars).
+    Returns name -> the shapes' results, for the kernels line."""
+    results = {}
+    hold = partial(hold_470m, results=results)
+    bf = torch.bfloat16
+    M, D, F, hd = TOKENS, cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
+    for o, i in ((D, D), (F, D), (D, F)):
+        w = (torch.randn(o, i, generator=gen, device=DEVICE) * 0.02).to(bf)
+        w[0] = 0  # an all-zero row
+        hold("quantize_int8_rowwise", "exact", ops.quantize_int8_rowwise, ops.quantize_int8_plain, (w,),
+             IQ.rowwise_sm90_route(o, i, bf), 3 * o * i + 2 * o)
+        hold("quantize_int8_colwise", "exact", ops.quantize_int8_colwise,
+             lambda w: ops.quantize_int8_plain(w, axis=0), (w,), IQ.colwise_sm90_route(o, i, bf),
+             quantize_bytes(o, i, 1))
+        x = torch.randn(M, i, generator=gen, device=DEVICE).to(bf)
+        g = (torch.randn(M, o, generator=gen, device=DEVICE) * 1e-4).to(bf)
+        x_row, x_row_s = ops.quantize_int8_plain(x)
+        w_row, w_row_s = ops.quantize_int8_plain(w)
+        x_col, x_col_s = ops.quantize_int8_plain(x, axis=0)
+        w_col, w_col_s = ops.quantize_int8_plain(w, axis=0)
+        g_row, g_row_s, g_col, g_col_s = ops.quantize_int8_both_plain(g)
+        for name, kernel, plain, args, (m, n, k) in (
+            ("scaled_mm_rhs_t", ops.scaled_mm_rhs_t, ops.scaled_mm_rhs_t_plain,
+             (x_row, w_row, x_row_s, w_row_s.reshape(1, o)), (M, o, i)),
+            ("scaled_mm", ops.scaled_mm, ops.scaled_mm_plain, (g_row, w_col, g_row_s, w_col_s), (M, i, o)),
+            ("scaled_mm_lhs_t", ops.scaled_mm_lhs_t, ops.scaled_mm_lhs_t_plain, (g_col, x_col, g_col_s, x_col_s),
+             (o, i, M)),
+        ):
+            hold(name, "exact", kernel, plain, args, ROUTES[name](*args),
+                 m * k + n * k + 2 * m * n + 2 * (m + n), int8_ops=2.0 * m * n * k, form=f"M={m} N={n} K={k}")
+        if o == D:  # the output gradients of q, k, v, o and down
+            g[:, 1] = 0  # an all-zero column too
+            hold("quantize_int8_both", "exact", ops.quantize_int8_both, ops.quantize_int8_both_plain, (g,), None,
+                 quantize_bytes(M, o, 2))
+    x = torch.randn(M, D, generator=gen, device=DEVICE).to(bf)
+    x[0] = 0
+    gamma = (1 + 0.1 * torch.randn(D, generator=gen, device=DEVICE)).to(bf)
+    dy = (torch.randn(M, D, generator=gen, device=DEVICE) * 1e-3).to(bf)
+    out = hold("rmsnorm_quant_rowwise", "int8", partial(ops.rmsnorm_quant_rowwise, with_col_amax=True),
+               partial(ops.rmsnorm_quant_rowwise_plain, with_col_amax=True), (x, gamma),
+               FP.norm_rows_sm90_route(D, bf), 3 * M * D + 2 * D + 4 * M + 4 * D, form="column absmax")
+    hold("rmsnorm_quant_colwise", "int8", lambda x, g, s: ops.rmsnorm_quant_colwise(x, g, scale=s),
+         lambda x, g, s: ops.rmsnorm_quant_colwise_plain(x, g, scale=s), (x, gamma, out[2] * (1.0 / 127.0)),
+         FP.norm_cols_sm90_route(D, bf), 3 * M * D + 2 * D + 4 * D, form="given scales")
+    hold("rmsnorm_bwd", "bwd", ops.rmsnorm_bwd, ops.rmsnorm_bwd_plain, (x, gamma, dy),
+         FP.rmsnorm_bwd_sm90_route(D, bf), 6 * M * D + 2 * D + 4 * D)
+    a = torch.randn(M, F, generator=gen, device=DEVICE).to(bf)
+    b = torch.randn(M, F, generator=gen, device=DEVICE).to(bf)
+    dact = (torch.randn(M, F, generator=gen, device=DEVICE) * 1e-3).to(bf)
+    a[:, 1] = 0  # an all-zero column
+    out = hold("silu_mul_quant_rowwise", "exact", partial(ops.silu_mul_quant_rowwise, with_col_amax=True),
+               partial(ops.silu_mul_quant_rowwise_plain, with_col_amax=True), (a, b),
+               FP.silu_rows_sm90_route(F, bf), 5 * M * F + 4 * M + 4 * F, form="column absmax")
+    hold("silu_mul_quant_colwise", "exact", lambda a, b, s: ops.silu_mul_quant_colwise(a, b, scale=s),
+         lambda a, b, s: ops.silu_mul_quant_colwise_plain(a, b, scale=s), (a, b, out[2] * (1.0 / 127.0)),
+         FP.silu_cols_sm90_route(F, bf), 5 * M * F + 4 * F, form="given scales")
+    row = hold("silu_mul_bwd_quant_rowwise", "exact", ops.silu_mul_bwd_quant_rowwise,
+               ops.silu_mul_bwd_quant_rowwise_plain, (a, b, dact), FP.silu_bwd_rows_sm90_route(F, bf),
+               8 * M * F + 8 * M + 8 * F, form="column absmax")
+    hold("silu_mul_bwd_quant_colwise", "exact", ops.silu_mul_bwd_quant_colwise,
+         ops.silu_mul_bwd_quant_colwise_plain, (a, b, dact, *(m * (1.0 / 127.0) for m in row[4:])),
+         FP.silu_bwd_cols_sm90_route(F, bf), 8 * M * F + 8 * F, form="given scales")
+    cos, sin = llama.rope_tables(cfg, TRAIN_S, device=DEVICE)
+    tables = 2 * cos.numel() * 4
+    for what, c, s_ in (("q", cos * hd**-0.5, sin * hd**-0.5), ("k", cos, sin), ("cotangent", None, None)):
+        x = torch.randn(TRAIN_B, TRAIN_S, H, hd, generator=gen, device=DEVICE).to(bf)
+        nbytes = 4 * x.numel() + (0 if c is None else tables)
+        (y,) = hold("rope_group", "exact", lambda x, c=c, s=s_: ops.rope_group_kernel(x, c, s, kv=KV),
+                    lambda x, c=c, s=s_: ops.rope_group_ref(x, c, s, KV), (x,), None, nbytes, form=what)
+        bhsd = x.permute(0, 2, 1, 3).contiguous().view(y.shape)
+        for layout, grouped in (("[B, S, H, hd] memory", y), ("[B, H, S, hd] memory", bhsd)):
+            hold("rope_ungroup", "exact", lambda g, c=c, s=s_: ops.rope_ungroup_kernel(g, c, s, inverse=True),
+                 lambda g, c=c, s=s_: ops.rope_ungroup_ref(g, c, s, inverse=True), (grouped,), None, nbytes,
+                 form=f"{what}, rot^T, {layout}")
+    x = torch.randn(TRAIN_B, TRAIN_S, H, hd, generator=gen, device=DEVICE).to(bf)
+    x[0, 1] = 0  # an all-zero row of the ungrouped view
+    step = ops.rope_group_kernel(x, kv=KV)
+    route, K = ROPE.ungroup_sm90_route(H * hd, hd, bf), H * hd
+    for layout, out in (("[B, S, H, hd] memory", step),
+                        ("[B, H, S, hd] memory", x.permute(0, 2, 1, 3).contiguous().view(step.shape))):
+        row, col = hold("ungroup_amax", "exact", ops.ungroup_amax, ops.ungroup_amax_plain, (out,), route,
+                        2 * M * K + 4 * M + 4 * K, form=layout)
+        for axis, scale, nbytes in ((1, row, 3 * M * K + 4 * M), (0, col, 3 * M * K + 4 * K)):
+            hold("ungroup_quant", "exact", lambda y, s, axis=axis: ops.ungroup_quant(y, s, axis=axis),
+                 lambda y, s, axis=axis: ops.ungroup_quant_plain(y, s, axis=axis), (out, scale * (1.0 / 127.0)),
+                 route, nbytes, form=f"{'rows' if axis else 'columns'}, {layout}")
+    missing = [k for k in PRETRAIN_KERNELS if k not in results]
+    check(not missing, f"phase 15 (e) held every kernel of the path, not {missing}")
+    return results
+
+
+def llm_drivers(seed: int) -> tuple[dict, dict]:
+    """Phase 15: (e) each kernel at the 470m's shapes and (b) the 470m's
+    2-layer cut against the plain path, then (a) resume, (c) the native
+    loader with the 8-bit optimizer, (d) evaluate; prints its seconds.
+    Returns the launches of (a), (c) and (d), and (e)'s results."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PRETRAIN_SAVE, ignore_errors=True)
+    base = llama.LlamaConfig.from_hf_json(PRETRAIN_MODEL)
+    at_470m = kernels_at_470m(base, torch.Generator(device=DEVICE).manual_seed(SEED))
+    grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, fused=True, base=base, name="Llama-2-470m", phase=15)
+    grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, fused=False, base=base, name="Llama-2-470m", phase=15)
+    cfg = dataclasses.replace(base, remat=True, max_position_embeddings=TRAIN_S)
+    expect = pretrain_per_step_launches(cfg, TOKENS)
+    resumed, runs, train_losses, final = pretrain_resume(seed, cfg.vocab_size, expect)
+    native = pretrain_native_8bit(seed, cfg.vocab_size, expect)
+    evaluated = evaluate_checkpoint(runs, seed, cfg.vocab_size, train_losses, final)
+    launches = {k: resumed[k] + native[k] + evaluated[k] for k in resumed}
+    missing = [k for k in PRETRAIN_KERNELS if not launches[k]]
+    check(not missing, f"phase 15 launched every kernel of its path, not {missing}")
+    shutil.rmtree(PRETRAIN_SAVE, ignore_errors=True)
+    print(f"[15] LLM drivers: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, at_470m
+
+
 def fill_launches(entries, launches: dict) -> None:
     """Each entry's launches on its path, and where the kernel has an sm90
     route, that route's share of them (``sm90_launches``)."""
@@ -2513,6 +2984,12 @@ def main() -> None:
     check(all(storage[k] > 0 for k in ("quantize_int8_rowwise", "quantize_int8_rowwise_sr", "scaled_mm_rhs_t",
                                        "scaled_mm_rhs_t_decode", "rope_group", "fused_adamw_update")),
           f"phase 14 launched K1, K1-SR, K2 (decode too), B13 and B6: {storage}")
+    pretrain, at_470m = llm_drivers(args.seed)
+    for e in kernels:  # phase 15's launches, under a key of their own, and (e)'s shapes
+        e["pretrain_launches"] = pretrain.get(e["name"], 0)
+        if e["name"] in at_470m:
+            e["shapes_470m"] = at_470m[e["name"]]
+            e["max_abs_err"] = max(e["max_abs_err"], *(r["max_abs_err"] for r in at_470m[e["name"]]))
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

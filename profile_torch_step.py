@@ -28,6 +28,11 @@ phase 11 runs it (``vit_train``'s step builder: batch 24 at 224 px, remat,
 SDPA, the same optimizer and lr; one batch of synthetic images from seed
 2024): int8 ``mixed_precision`` on the fused blocks (B18) and bf16.
 
+``llm470m`` profiles ``llm_pretrain``'s step at its defaults as
+``chip_smoke.py`` phase 15 runs it: Llama-2-470m (``mini_llamas``, through
+``from_hf_json``), tokens [4, 2048], remat, ``adamw`` with weight decay
+1e-2, lr 3e-4, int8 ``mixed_precision`` on the fused layer.
+
 ``serve`` profiles one decode step of the serving path as ``chip_smoke.py``
 phase 4's server takes it: Llama2-1B int8 ``mixed_precision`` (random
 weights from ``--seed``), eight active slots at position 256 of a 2,048-row
@@ -35,7 +40,8 @@ cache, the decode attention window of 512 rows, one token a slot
 (``models/serving.py::make_decode_step``): K1 on every weight and
 activation row, K2 at M 8.
 
-Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row,sr,vit_int8,vit_bf16,serve]
+Usage: python3 profile_torch_step.py [--configs fused,unfused,bf16,int4,fp8tile,fp8row,sr,vit_int8,vit_bf16,serve,
+       llm470m]
        [--seed N] [--top 12]
 """
 
@@ -57,7 +63,7 @@ from quantized_training_tpu_torch.ops import random
 # quantize_params kwargs of each configuration (None: the bf16 weights)
 CONFIGS = {"fused": {}, "unfused": {}, "bf16": None, "int4": {"dtype": "int4"},
            "fp8tile": {"dtype": "fp8_e4m3", "scale": "tile"}, "fp8row": {"dtype": "fp8_e4m3", "scale": "row"},
-           "vit_int8": {}, "vit_bf16": None, "serve": {}, "sr": {"stochastic_rounding": True}}
+           "vit_int8": {}, "vit_bf16": None, "serve": {}, "sr": {"stochastic_rounding": True}, "llm470m": {}}
 VIT_B = 24
 
 # kernel-name fragments of each group, first match wins: sm90_gemm.cuh's
@@ -133,20 +139,23 @@ def main() -> None:
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     models = {}
 
-    def llama_step(qkw):
-        """bench.py's step on Llama2-1B: one call per step, its loss."""
-        if "llama" not in models:
-            cfg = dataclasses.replace(llama.LLAMA2_1B, remat=True, attention_impl="auto")
-            tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(0, cfg.vocab_size, (4, 4, 2048)))
-            tokens = tokens.cuda()
-            models["llama"] = (cfg, llama.init_params(torch.Generator(device="cuda").manual_seed(args.seed), cfg),
-                               tokens, torch.roll(tokens, -1, dims=-1))
-        cfg, raw, tokens, labels = models["llama"]
+    def llama_step(qkw, model="llama"):
+        """bench.py's step on Llama2-1B, or (``llm470m``) llm_pretrain's on
+        Llama-2-470m: one call per step, its loss."""
+        if model not in models:
+            base = llama.LLAMA2_1B if model == "llama" else llama.LlamaConfig.from_hf_json("mini_llamas/Llama-2-470m")
+            cfg = dataclasses.replace(base, remat=True, attention_impl="auto")
+            shape = (4, 4, 2048) if model == "llama" else (4, 2048)
+            tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(0, cfg.vocab_size, shape)).cuda()
+            models[model] = (cfg, llama.init_params(torch.Generator(device="cuda").manual_seed(args.seed), cfg),
+                             tokens, torch.roll(tokens, -1, dims=-1))
+        cfg, raw, tokens, labels = models[model]
         params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
-        step, state = train.make_train_step(cfg, opt), [train.init_train_state(params, opt)]
+        o, lr = (opt, 1e-4) if model == "llama" else (optim.adamw(weight_decay=1e-2), 3e-4)
+        step, state = train.make_train_step(cfg, o), [train.init_train_state(params, o)]
 
         def one(i):
-            state[0], m = step(state[0], tokens, labels, 1e-4, random.fold_in(key, i))
+            state[0], m = step(state[0], tokens, labels, lr, random.fold_in(key, i))
             return m["loss"]
         return one, tokens.numel(), "tok/s"
 
@@ -186,8 +195,11 @@ def main() -> None:
     for name in args.configs.split(","):
         qkw = CONFIGS[name]
         quant.set_impl("off" if name == "unfused" else "auto")
-        make = vit_step if name.startswith("vit") else serve_step if name == "serve" else llama_step
-        one, work, unit = make(qkw)
+        if name == "llm470m":
+            one, work, unit = llama_step(qkw, "llm470m")
+        else:
+            make = vit_step if name.startswith("vit") else serve_step if name == "serve" else llama_step
+            one, work, unit = make(qkw)
         for i in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()

@@ -9,8 +9,10 @@ value exactly. :func:`adamw_state_from_jax` does the same for an
 ``AdamWState``, so that both packages can start from one optimizer state. No
 JAX import is needed: numpy's bf16 arrays (ml_dtypes) are recognised by their
 dtype name, and the JAX package's weight wrappers (``MixedPrecisionWeight``,
-``Int8Weight``, ``Int4Weight``, ``BitNetWeight``, ``BitNetPackedWeight``) by
-their fields. A JAX storage state, after its own stochastic-rounding commit,
+``Int8Weight``, ``Int4Weight``, ``BitNetWeight``, ``BitNetPackedWeight``) and
+8-bit optimizer states (``OptimState8bit``) by their fields.
+:func:`schedule_free_state_from_jax` carries a ``ScheduleFreeState``, its
+8-bit second moments included. A JAX storage state, after its own stochastic-rounding commit,
 so carries into the port, and both continue from the same storage.
 """
 
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from .optim.adamw import AdamWState
+from .optim.schedule_free import ScheduleFreeState
+from .optim.state8bit import OptimState8bit
 from .quant.bitnet import BitNetPackedWeight, BitNetWeight
 from .quant.configs import Int8QTConfig, MixedPrecisionConfig
 from .quant.int4 import Int4Weight
@@ -44,6 +48,8 @@ def _wrapper(w):
     """The port's counterpart of a JAX weight wrapper, told by its fields,
     or None for a leaf."""
     config = getattr(w, "config", None)
+    if hasattr(w, "codes"):
+        return OptimState8bit(_tensor(w.codes), _tensor(w.scale), tuple(w.shape), bool(w.signed))
     if hasattr(w, "int_data"):
         return Int8Weight(_tensor(w.int_data), _tensor(w.scale), _optional(w.master),
                           Int8QTConfig(**dataclasses.asdict(config)))
@@ -57,7 +63,8 @@ def _wrapper(w):
             raise NotImplementedError("BitNetWeight with a mesh: the FSDP route is not ported (ROADMAP A13)")
         return BitNetWeight(_tensor(w.data))
     if dataclasses.is_dataclass(config):
-        return MixedPrecisionWeight(_tensor(w.data), MixedPrecisionConfig(**dataclasses.asdict(config)))
+        # the data of an optimizer state's wrapper may be an 8-bit state
+        return MixedPrecisionWeight(params_from_jax(w.data), MixedPrecisionConfig(**dataclasses.asdict(config)))
     return None
 
 
@@ -80,3 +87,13 @@ def adamw_state_from_jax(state) -> AdamWState:
     (``jax.tree.map(np.asarray, state)``) -> the port's, on the CPU."""
     return AdamWState(int(np.asarray(state.count)), params_from_jax(state.exp_avg),
                       params_from_jax(state.exp_avg_sq))
+
+
+def schedule_free_state_from_jax(state) -> ScheduleFreeState:
+    """The JAX package's ``ScheduleFreeState`` with numpy leaves -> the
+    port's, on the CPU: the scalars as 0-d tensors, ``z`` and
+    ``exp_avg_sq`` through :func:`params_from_jax` (an ``OptimState8bit``
+    leaf keeps its codes and scales)."""
+    return ScheduleFreeState(_tensor(state.count).to(torch.int32), _tensor(state.lr_max),
+                             _tensor(state.weight_sum), params_from_jax(state.z),
+                             params_from_jax(state.exp_avg_sq))

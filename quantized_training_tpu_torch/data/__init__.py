@@ -1,24 +1,29 @@
 """Data of the port (counterpart of ``quantized_training_tpu/data``): the
-synthetic image stream and the prefetching batcher, which the ViT trainer
-uses, and the string-keyed :func:`get_dataset`. The JAX package's ``data``
-cannot be imported from here (its package imports jax), so these are the
-port's own copies. The HF, WebDataset and token datasets wait for ROADMAP
+text datasets, the synthetic image stream, the shuffle, the prefetching
+batcher, the tokenizers and the string-keyed :func:`get_dataset`. The JAX
+package's ``data`` cannot be imported from here (its package imports jax),
+so these are the port's own copies. The native token loader is
+``data/native_loader.py``. The HF image and WebDataset sets wait for ROADMAP
 A11."""
 
 from .image import SyntheticImageDataset
-from .shuffle import BatchLoader
+from .shuffle import BatchLoader, ShuffleDataset
+from .text import HFTextDataset, MarkovTokenDataset, SyntheticTokenDataset, TokenDataset
+from .tokenizers import get_tokenizer
 
-_UNPORTED = ("token", "hf_text", "synthetic", "markov", "hf_image", "wds")
+_DATASETS = dict(token=TokenDataset, hf_text=HFTextDataset, synthetic=SyntheticTokenDataset,
+                 markov=MarkovTokenDataset, synthetic_image=SyntheticImageDataset)
+_UNPORTED = ("hf_image", "wds")
 
 
 def get_dataset(type: str, eval: bool = False, **kwargs):
-    """A dataset by name (JAX ``data/__init__.py:17-27``); only
-    'synthetic_image' is ported."""
-    if type == "synthetic_image":
-        return SyntheticImageDataset(eval=eval, **kwargs)
+    """A dataset by name (JAX ``data/__init__.py:17-27``)."""
     if type in _UNPORTED:
         raise NotImplementedError(f"dataset type {type!r} is not ported yet (ROADMAP A11)")
-    raise ValueError(f"unknown dataset type {type!r}")
+    if type not in _DATASETS:
+        raise ValueError(f"unknown dataset type {type!r}")
+    return _DATASETS[type](eval=eval, **kwargs)
 
 
-__all__ = ["get_dataset", "BatchLoader", "SyntheticImageDataset"]
+__all__ = ["get_dataset", "get_tokenizer", "TokenDataset", "HFTextDataset", "SyntheticTokenDataset",
+           "MarkovTokenDataset", "ShuffleDataset", "BatchLoader", "SyntheticImageDataset"]

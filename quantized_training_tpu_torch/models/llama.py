@@ -28,8 +28,9 @@ ran JAX's splash attention; its counterpart here is
 [L, F] before down, the MLP as ``norm_linear_multi`` for gate/up, ``silu *
 up``, the norm and ``qlinear`` (``fold_in(., 6)`` for down); on the grouped
 pipeline such a layer ungroups the attention output (``ungroup_heads``,
-B13) rather than take ``attn_out_linear``. ``save_qkv_residuals`` and the
-HF-json loader are not carried.
+B13) rather than take ``attn_out_linear``. ``LlamaConfig.from_hf_json``
+reads an HF-format ``config.json`` (JAX :92-114); ``save_qkv_residuals`` is
+not carried.
 
 Stochastic rounding draws from an int key (``ops/random.py``) folded as the
 JAX package folds it: ``fold_in(key, l)`` for layer l, then ``fold_in(.,
@@ -43,9 +44,11 @@ replay in the backward rounds exactly as the forward did.
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from functools import partial
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +61,7 @@ from ..ops.random import fold_in
 from ..ops.rope import group_heads, rope_group, ungroup_heads
 from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, qlinear
 from ..quant.node import WeightNode
+from ..utils.tree import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -82,6 +86,24 @@ class LlamaConfig:
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
 
+    @classmethod
+    def from_hf_json(cls, path_or_dict, **overrides) -> "LlamaConfig":
+        """From an HF-format ``config.json`` (a file, a directory holding
+        one, or its dict): the architecture keys it names, then
+        ``overrides``."""
+        if isinstance(path_or_dict, (str, Path)):
+            path = Path(path_or_dict)
+            with open(path / "config.json" if path.is_dir() else path) as f:
+                d = json.load(f)
+        else:
+            d = dict(path_or_dict)
+        kwargs = {k: v for k, v in d.items() if k in _HF_KEYS}
+        kwargs.update(overrides)
+        return cls(**kwargs)
+
+
+_HF_KEYS = ("vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers", "num_attention_heads",
+            "num_key_value_heads", "max_position_embeddings", "rms_norm_eps", "rope_theta", "tie_word_embeddings")
 
 # Llama-2-470m (mini_llamas/Llama-2-470m/config.json)
 LLAMA2_470M = LlamaConfig()
@@ -367,3 +389,8 @@ def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor, cfg: LlamaConfig
     nll = -logp.gather(1, torch.where(valid, labels, 0)[:, None])[:, 0]
     nll = torch.where(valid, nll, 0.0)
     return nll.sum() / valid.sum().clamp(min=1)
+
+
+def num_params(params) -> int:
+    """The number of elements of the tree's leaves (JAX :621-625)."""
+    return sum(l.numel() for l in tree_leaves(params))

@@ -1,7 +1,8 @@
 """The training step.
 
-Counterpart of ``quantized_training_tpu/train.py`` (:35-138):
-``TrainState``, ``init_train_state`` and ``make_train_step``. One step runs
+Counterpart of ``quantized_training_tpu/train.py`` (:35-148):
+``TrainState``, ``init_train_state``, ``make_train_step`` and
+``make_eval_step``. One step runs
 
   virtual_params -> loss and grads (merge_masters -> loss_fn)
   -> [grad accumulation over micro-batches] -> clip -> optimizer.step
@@ -95,3 +96,15 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def make_eval_step(cfg: llama.LlamaConfig):
+    """Returns ``eval_step(params, tokens, labels) -> loss``: the Llama loss
+    under ``torch.no_grad()``, with no key (JAX :141-148), for validation
+    perplexity."""
+
+    def eval_step(params, tokens, labels):
+        with torch.no_grad():
+            return llama.loss_fn(params, tokens, labels, cfg)
+
+    return eval_step

@@ -1,7 +1,10 @@
 """Utilities of the port (counterpart of ``quantized_training_tpu/utils``)."""
 
-from . import logging, train, tree
+from . import checkpoint, logging, train, tree
+from .checkpoint import checkpoint_name, load_checkpoint, materialize, save_checkpoint
 from .logging import MetricLogger
-from .train import print_model_stats
+from .train import LRSchedule, clip_by_global_norm, global_norm, print_model_stats
 
-__all__ = ["logging", "train", "tree", "MetricLogger", "print_model_stats"]
+__all__ = ["checkpoint", "logging", "train", "tree", "MetricLogger", "LRSchedule", "global_norm",
+           "clip_by_global_norm", "print_model_stats", "save_checkpoint", "load_checkpoint", "checkpoint_name",
+           "materialize"]

@@ -211,8 +211,7 @@ def test_optimizer_registry():
     opt = optim.get_optimizer("adamw_bf16_sr", weight_decay=0.0)
     assert opt.init({"w": torch.zeros(3)}).exp_avg["w"].dtype == torch.bfloat16
     for name in ("schedule_free_adamw", "schedule_free_adamw_8bit"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            optim.get_optimizer(name)
+        assert isinstance(optim.get_optimizer(name), optim.Optimizer)
     with pytest.raises(ValueError, match="unknown optimizer"):
         optim.get_optimizer("sgd")
 

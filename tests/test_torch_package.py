@@ -25,7 +25,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import quantized_training_tpu_torch as p\n"
         "from quantized_training_tpu_torch.models import serving, vit\n"
-        "from quantized_training_tpu_torch import data, vit_train\n"
+        "from quantized_training_tpu_torch import data, llm_evaluate, llm_pretrain, vit_train\n"
+        "from quantized_training_tpu_torch.data import native_loader\n"
         "from quantized_training_tpu_torch.utils import logging\n"
         "from quantized_training_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'quantized_training_tpu.')))\n"
@@ -44,7 +45,9 @@ def test_no_file_imports_jax():
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
-    assert {"vit_train.py", "models/vit.py", "data/image.py", "data/shuffle.py", "utils/logging.py"} <= names
+    assert {"vit_train.py", "models/vit.py", "data/image.py", "data/shuffle.py", "utils/logging.py", "llm_pretrain.py",
+            "llm_evaluate.py", "data/text.py", "data/tokenizers.py", "data/native_loader.py",
+            "optim/schedule_free.py", "optim/state8bit.py", "utils/checkpoint.py"} <= names
 
 
 def test_kernel_sources_present():
