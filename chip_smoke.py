@@ -172,6 +172,29 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    seconds; every entry of the kernel table gains the phase's launches
    (``pretrain_launches``), and those of (e)'s kernels its results
    (``shapes_470m``, their errors also in ``max_abs_err``).
+16. per-step weight pre-quantization (``QT_PREQUANT``), the int8 conv and
+   MX: B5 at Llama2-1B's weights ([2048, 2048], [256, 2048], [5632, 2048],
+   [2048, 5632]; RN and SR, bit-exact, timed with the byte bound, new
+   records in B5's and B5-SR's ``shapes``); ``bench.py``'s step (phase 8's
+   setup) three steps under each of ``QT_PREQUANT`` '0', 'both', 'row' and
+   'col' from one state, batch and key: the launches of every step exactly
+   ``prequant_per_step_launches`` ('both': K1 0, B4 0, B5 1,056), the first
+   loss of each mode bit-identical to '0''s, tokens/s against '0' and peak
+   memory, then the same steps under ``torch.use_deterministic_algorithms``
+   (cuDNN's attention backward in a fixed order), every loss of every mode
+   bit-identical to '0''s; one step of the
+   SR configuration at that batch under '0' and 'both' (B5-SR on the
+   weights, the loss within ``PREQUANT_SR_BOUND``); ``int8_conv2d`` (B17's
+   int8 form) and ``scaled_int8_conv2d`` (K2) at ``CONV_CASES`` (the conv
+   benchmark's six shapes, a C = 3 stem, a stride-2 conv at padding 0)
+   equal to the CPU's bit for bit, each GEMM timed on its im2col operands
+   with its bound beside cuDNN's bf16 conv (a reference), in the
+   ``conv_shapes`` of B17-s8's and K2's entries; ``benchmark_conv2d
+   --quick``'s table; MX (``quantize_mx`` in fp4, e4m3 and e5m2 with OCP
+   and NV scales, ``quantize_nvfp4``, the dequantizes and the scale layout)
+   on the card equal to the CPU's bytes, ``mxfp4_mm`` / ``nvfp4_mm`` (B17
+   bf16) within the fp32-sum bound. Every entry gains the phase's launches:
+   ``prequant_launches`` (the steps), ``conv_launches``, ``mx_launches``.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -194,6 +217,7 @@ Usage: python3 chip_smoke.py [--seed N]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -208,7 +232,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import benchmark_mm, llm_evaluate, llm_pretrain, ops, optim, quant, train, vit_train
+from quantized_training_tpu_torch import (benchmark_conv2d, benchmark_mm, llm_evaluate, llm_pretrain, ops, optim, quant,
+                                          train, vit_train)
 from quantized_training_tpu_torch.data import BatchLoader, MarkovTokenDataset, SyntheticImageDataset
 from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
@@ -2920,6 +2945,305 @@ def llm_drivers(seed: int) -> tuple[dict, dict]:
     return launches, at_470m
 
 
+# ---- phase 16: per-step weight pre-quantization, the int8 conv, MX ---------
+
+PREQUANT_MODES = ("0", "both", "row", "col")
+# phase 16's conv cases (B, H, W, C, O, k, stride, padding): benchmark_conv2d's
+# six shapes at padding k // 2, a C = 3 stem (a contraction of 27, padded to
+# 32) and a stride-2 conv at padding 0
+CONV_CASES = [(*c[:6], c[6], c[5] // 2) for c in benchmark_conv2d.SHAPES] + [
+    (8, 224, 224, 3, 64, 3, 2, 1), (8, 56, 56, 64, 128, 3, 2, 0)]
+# the SR step under QT_PREQUANT against the same step without the knob:
+# JAX's bar (tests/test_env_knobs.py:92-98)
+PREQUANT_SR_BOUND = 2e-2
+# the MX checks' [n, n] inputs and n^3 products
+MX_N = 2048
+
+
+def prequant_per_step_launches(L: int, micro: int, mode: str, sr: bool = False, b6: int = 0,
+                               b6_sr: int = 0) -> dict:
+    """``per_step_launches`` of the fused layer under ``QT_PREQUANT=mode``
+    (pinned on the CPU by tests/test_torch_prequant.py::prequant_per_step):
+    'both' makes a weight's views with one B5 a micro-batch and launches no
+    K1 or B4 (the weights' were the only ones on the fused layer); 'row'
+    makes the row view with one K1 (the SR form on the walk at q, o, gate,
+    up and down, as before) and the forward and its replay launch none;
+    'col' makes the column view with one B4, on the cluster form, in place
+    of the backward's."""
+    counts = per_step_launches(L, micro, sr, b6, b6_sr)
+    t, n = "_sr" if sr else "", L * micro
+    if mode == "both":
+        for k in (f"quantize_int8_rowwise{t}", f"quantize_int8_rowwise{t}_sm90", f"quantize_int8_colwise{t}",
+                  f"quantize_int8_colwise{t}_sm90"):
+            counts[k] = 0
+        counts[f"quantize_int8_both{t}"] += 7 * n
+    elif mode == "row":
+        counts[f"quantize_int8_rowwise{t}"] = 7 * n
+        counts[f"quantize_int8_rowwise{t}_sm90"] = (5 if sr else 7) * n
+    return counts
+
+
+@contextlib.contextmanager
+def prequant_mode(mode: str):
+    """``QT_PREQUANT`` set for a block, restored after."""
+    old = os.environ.get("QT_PREQUANT")
+    os.environ["QT_PREQUANT"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("QT_PREQUANT", None)
+        else:
+            os.environ["QT_PREQUANT"] = old
+
+
+def check_b5_weights(gen: torch.Generator, key: int) -> tuple[list, list]:
+    """B5 at the Llama2-1B weights, one launch a layer's weight under
+    ``QT_PREQUANT=both`` (q/o [2048, 2048], k/v [256, 2048], gate/up [5632,
+    2048], down [2048, 5632]), RN and SR with one key: bit-exact with its
+    plain version, timed with its byte bound. Returns the shapes' records,
+    RN and SR, for B5's entries."""
+    rn, sr = [], []
+    for shape in WEIGHTS:
+        w = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        w[0] = 0  # an all-zero row and column
+        w[:, 1] = 0
+        nbytes = quantize_bytes(*shape, 2)
+        b_ms, _ = bound(nbytes)
+        for rows, kw in ((rn, {}), (sr, {"sr": True, "key": key})):
+            kernel, plain = partial(ops.quantize_int8_both, **kw), partial(ops.quantize_int8_both_plain, **kw)
+            got, ref = kernel(w), plain(w)
+            torch.cuda.synchronize()
+            what = f"quantize_int8_both{'_sr' if kw else ''} at the weight {list(shape)}"
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"{what} bit-exact")
+            inputs = copies(w)
+            ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
+            rows.append({"shape": list(shape), "form": "weight (QT_PREQUANT)", "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms})
+            print(f"[16] {what} bf16: bit-exact; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), plain {plain_ms:.4f} ms")
+    return rn, sr
+
+
+def prequant_steps(raw, seed: int, key: int) -> dict:
+    """bench.py's step (phase 8's: tokens [4, 4, 2048], remat, adamw_bf16_sr
+    without the SR writeback, lr 1e-4, int8 on the fused layer) three steps
+    under each ``QT_PREQUANT`` mode in turn ('0', 'both', 'row', 'col'), from
+    one state, batch and key: the launches of every step exactly
+    ``prequant_per_step_launches``, the first loss of every mode bit-identical
+    to '0''s (B5's RN views are K1's and B4's bits); tokens/s (steps 2-3)
+    against '0', peak memory; the later losses' gaps to '0''s printed (cuDNN's
+    attention backward sums in no fixed order: on the H100 the modes' third
+    losses differed by up to 4.5e-3 in one run). The same three steps
+    again under ``torch.use_deterministic_algorithms(True)`` (attention's
+    backward in a fixed order): every loss of every mode bit-identical to
+    '0''s. Then one step of the SR configuration (phase 9's optimizer,
+    stochastic rounding) at the same batch under '0' and 'both': the
+    launches exact (B5-SR a layer's weight a micro-batch), the loss finite
+    and within ``PREQUANT_SR_BOUND`` of '0''s. Returns the launches of all
+    the runs."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
+    L, n_leaves = cfg.num_hidden_layers, len(tree_leaves(raw))
+    launches = dict.fromkeys(ops.KERNELS, 0)
+
+    def measured(params, opt, lr, mode, n_steps, expect):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with prequant_mode(mode):
+            losses, walls, counts = run_steps(params, cfg, tokens, labels, opt, lr, key, n_steps, expect)
+        for k, v in counts.items():
+            launches[k] += v
+        return losses, walls, torch.cuda.max_memory_allocated() / 2**30
+
+    qparams = quant.quantize_params(raw, "mixed_precision")
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    runs = {m: measured(qparams, opt, 1e-4, m, 3, prequant_per_step_launches(L, BENCH_ACCUM, m, b6=n_leaves))
+            for m in PREQUANT_MODES}
+    n_tok = tokens.numel()
+    tps = {m: n_tok * (len(r[1]) - 1) / sum(r[1][1:]) for m, r in runs.items()}
+    base = runs["0"][0]
+    print(f"[16] QT_PREQUANT at bench.py's step (Llama2-1B, tokens [{BENCH_ACCUM}, {TRAIN_B}, {TRAIN_S}], remat, "
+          f"SDPA, int8 fused, adamw_bf16_sr without SR, lr 1e-4), seed {seed}: " + "; ".join(
+              f"{m}: losses {r[0]}, step walls {[round(w, 4) for w in r[1]]} s" for m, r in runs.items()))
+    print(f"[16] tokens/s (steps 2-3, wall with torch.cuda.synchronize()): " + ", ".join(
+        f"{m} {tps[m]:.1f} ({tps[m] / tps['0']:.3f} of '0')" for m in runs) + "; peak device memory " + ", ".join(
+        f"{m} {r[2]:.2f} GiB ({r[2] - runs['0'][2]:+.2f})" for m, r in runs.items()))
+    for m in PREQUANT_MODES[1:]:
+        expect = prequant_per_step_launches(L, BENCH_ACCUM, m, b6=n_leaves)
+        gap = max(abs(a - b) for a, b in zip(runs[m][0][1:], base[1:]))
+        print(f"[16] {m}: first loss {'bit-identical to' if runs[m][0][0] == base[0] else 'DIFFERS from'} '0''s; "
+              f"later steps within {gap:.3e}; launches per step "
+              f"{ {k: v for k, v in expect.items() if v and 'quantize' in k} }")
+        check(runs[m][0][0] == base[0], f"QT_PREQUANT={m}: first loss {runs[m][0][0]} bit-identical to {base[0]}")
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = {m: measured(qparams, opt, 1e-4, m, 3, prequant_per_step_launches(L, BENCH_ACCUM, m, b6=n_leaves))
+               for m in PREQUANT_MODES}
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    print(f"[16] deterministic algorithms: " + "; ".join(f"{m} losses {r[0]}" for m, r in det.items()))
+    check(all(r[0] == det["0"][0] for r in det.values()),
+          f"deterministic algorithms: every mode's losses bit-identical to '0''s: { {m: r[0] for m, r in det.items()} }")
+    del qparams
+    sr_params = quant.quantize_params(raw, "mixed_precision", stochastic_rounding=True)
+    sr_opt = optim.get_optimizer("adamw_bf16_sr", weight_decay=1e-2)
+    sr_runs = {m: measured(sr_params, sr_opt, 3e-4, m, 1,
+                           prequant_per_step_launches(L, BENCH_ACCUM, m, sr=True, b6_sr=n_leaves))
+               for m in ("0", "both")}
+    rel = abs(sr_runs["both"][0][0] - sr_runs["0"][0][0]) / abs(sr_runs["0"][0][0])
+    print(f"[16] SR configuration at the same batch, one step: '0' loss {sr_runs['0'][0][0]}, 'both' "
+          f"{sr_runs['both'][0][0]} (relative {rel:.3e}, bound {PREQUANT_SR_BOUND:g}); walls "
+          f"{sr_runs['0'][1][0]:.4f} / {sr_runs['both'][1][0]:.4f} s; peak {sr_runs['0'][2]:.2f} / "
+          f"{sr_runs['both'][2]:.2f} GiB")
+    check(rel <= PREQUANT_SR_BOUND, f"QT_PREQUANT=both SR loss within {PREQUANT_SR_BOUND} of '0''s: {rel:.3e}")
+    return launches
+
+
+def check_convs(gen: torch.Generator) -> tuple[dict, dict]:
+    """``int8_conv2d`` (B17's int8 form) and ``scaled_int8_conv2d`` (K2) at
+    ``CONV_CASES`` on the card against the same functions on the CPU (the
+    GEMMs' plain versions), bit for bit, each launching its kernel once;
+    each GEMM timed alone on its im2col operands with its bound (the int8
+    operations of K = kh * kw * C and the bytes of the operands, the
+    contraction's zero padding included, and of the output), the whole conv
+    (im2col included) and cuDNN's bf16 conv (channels-last, a reference: not
+    the same function). Returns the records by kernel and the convs'
+    launches."""
+    rows, launches = {"matmul_s8": [], "scaled_mm_rhs_t": []}, dict.fromkeys(ops.KERNELS, 0)
+    conv = importlib.import_module("quantized_training_tpu_torch.ops.conv")
+    for Bn, H, W, C, O, k, s, p in CONV_CASES:
+        x = torch.randint(-128, 128, (Bn, H, W, C), generator=gen, device=DEVICE, dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, k, C, O), generator=gen, device=DEVICE, dtype=torch.int8)
+        cs = (torch.rand(O, generator=gen, device=DEVICE) * 0.01 + 1e-3)
+        ops.reset_launch_counts()
+        got, got_s = ops.int8_conv2d(x, w, s, p), ops.scaled_int8_conv2d(x, w, cs, s, p)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        for kname, v in counts.items():
+            launches[kname] += v
+        what = f"conv [{Bn}, {H}, {W}, {C}] * [{k}, {k}, {C}, {O}] stride {s} padding {p}"
+        check(counts["matmul_s8"] == 1 and counts["scaled_mm_rhs_t"] == 1, f"{what}: one B17-s8, one K2: {counts}")
+        xc, wc = x.cpu(), w.cpu()
+        check(torch.equal(got.cpu(), ops.int8_conv2d(xc, wc, s, p)), f"int8_conv2d {what} equals the CPU's")
+        check(torch.equal(got_s.cpu(), ops.scaled_int8_conv2d(xc, wc, cs.cpu(), s, p)),
+              f"scaled_int8_conv2d {what} equals the CPU's")
+        cols = conv.im2col(x, k, k, s, p, conv.K_ALIGN)
+        (M, Kp), K = cols.shape, k * k * C
+        w_kn = conv.weight_kn(w, Kp).contiguous()
+        ones = torch.ones(M, device=DEVICE)
+        x_cl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        w_cl = w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        cudnn_ms = lib_ms("cuDNN's bf16 conv", lambda a, b: torch.nn.functional.conv2d(a, b, stride=s, padding=p),
+                          copies(x_cl, w_cl))
+        for name, gemm, args, fn, out_bytes in (
+                ("matmul_s8", ops.matmul, (cols, w_kn), lambda a, b: ops.int8_conv2d(a, b, s, p), 4 * M * O),
+                ("scaled_mm_rhs_t", ops.scaled_mm_rhs_t, (cols, w_kn.T.contiguous(), ones, cs),
+                 lambda a, b: ops.scaled_int8_conv2d(a, b, cs, s, p), 2 * M * O + 4 * (M + O))):
+            route = (MATMUL.sm90_route(cols, w_kn) if name == "matmul_s8" else SCALED_MM.sm90_route(M))
+            ms = time_ms(gemm, copies(*args), iters=8)
+            conv_ms = time_ms(fn, copies(x, w), iters=8)
+            nbytes = M * Kp + Kp * O + out_bytes
+            b_ms, by = bound(nbytes, int8_ops=2.0 * M * O * K)
+            rows[name].append({"conv": [Bn, H, W, C, O, k, s, p], "shape": [M, O, Kp], "route": "sm90" if route
+                               else "wmma", "ms": ms, "conv_ms": conv_ms, "bound_ms": b_ms, "bound_by": by,
+                               "library_ms": cudnn_ms, "library_form": "cuDNN bf16 conv, reference, not the same "
+                               "function"})
+            print(f"[16] {name} at {what} (M {M}, N {O}, K {K} padded to {Kp}): equals the CPU's; route "
+                  f"{'sm90' if route else 'wmma'}; GEMM {ms:.4f} ms ({2 * M * O * K / ms / 1e9:.1f} TOP/s, "
+                  f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by {by}), whole conv {conv_ms:.4f} ms, cuDNN bf16 "
+                  f"conv {'refused' if cudnn_ms is None else f'{cudnn_ms:.4f} ms'} (reference)")
+    return rows, launches
+
+
+def check_mx(gen: torch.Generator) -> dict:
+    """The MX / NVFP4 numerics on the card against the CPU: ``quantize_mx``
+    (fp4, e4m3, e5m2; OCP and NV scales) and ``quantize_nvfp4`` (its own and
+    a given tensor scale) bit for bit on [2048, 2048] fp32 of three
+    magnitudes with each format's maximum and beyond in it, the fp8 and E8M0
+    outputs as bytes, the dequantizes too; ``mxfp4_mm`` and ``nvfp4_mm`` at
+    2048^3 (B17's bf16 form, fp32 out) on the card within the fp32-sum bound
+    of the float64 product of the dequantized operands, timed. Returns B17's
+    launches there."""
+    mx = importlib.import_module("quantized_training_tpu_torch.ops.mx")
+    n = MX_N
+    x = torch.randn(n, n, generator=gen, device=DEVICE) * 10.0 ** torch.randint(
+        -3, 4, (n, 1), generator=gen, device=DEVICE).float()
+    x[0, :8] = torch.tensor([6.0, 7.0, 448.0, 500.0, 57344.0, 1e5, -464.0, 0.25], device=DEVICE)
+    xc = x.cpu()
+    raw = lambda t: t.cpu().view(torch.uint8) if t.element_size() == 1 else t.cpu().view(torch.int32)
+    for dt in ("fp4", torch.float8_e4m3fn, torch.float8_e5m2):
+        for method in ("ocp", "nv"):
+            got, ref = mx.quantize_mx(x, dt, method), mx.quantize_mx(xc, dt, method)
+            check(all(torch.equal(raw(a), raw(b)) for a, b in zip(got, ref)), f"quantize_mx {dt} {method} card == CPU")
+            if dt == "fp4":
+                check(torch.equal(raw(mx.dequantize_mxfp4(*got)), raw(mx.dequantize_mxfp4(*ref))),
+                      f"dequantize_mxfp4 ({method}) card == CPU")
+    for ts in (None, 0.37):
+        got, ref = mx.quantize_nvfp4(x, ts), mx.quantize_nvfp4(xc, ts)
+        check(all(torch.equal(raw(a), raw(b)) for a, b in zip(got, ref)), f"quantize_nvfp4 (tensor scale {ts}) card "
+              "== CPU")
+        check(torch.equal(raw(mx.dequantize_nvfp4(*got)), raw(mx.dequantize_nvfp4(*ref))), "dequantize_nvfp4 card == CPU")
+    scales = mx.quantize_nvfp4(x)[1]
+    check(torch.equal(raw(mx.pack_block_scales_nv(scales)), raw(mx.pack_block_scales_nv(scales.cpu()))),
+          "pack_block_scales_nv card == CPU")
+    print(f"[16] MX: quantize_mx (fp4, e4m3, e5m2; OCP and NV scales), quantize_nvfp4 (own and given tensor scale), "
+          f"the dequantizes and pack_block_scales_nv at [{n}, {n}] fp32: the card's bytes equal the CPU's")
+    a, b = (torch.randn(n, n, generator=gen, device=DEVICE) for _ in range(2))
+    (aq, sa), (bq, sb) = mx.quantize_mx(a, "fp4"), mx.quantize_mx(b, "fp4")
+    (naq, nsa, nta), (nbq, nsb, ntb) = mx.quantize_nvfp4(a), mx.quantize_nvfp4(b)
+    ops.reset_launch_counts()
+    got_mx = mx.mxfp4_mm(aq, bq, sa, sb, out_dtype=torch.float32)
+    got_nv = mx.nvfp4_mm(naq, nbq, nsa, nsb, nta * ntb, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["matmul"] == 2, f"mxfp4_mm and nvfp4_mm each launch B17 bf16 once: {launches}")
+    for name, got, af, bf, scale in (
+            ("mxfp4_mm", got_mx, mx.dequantize_mxfp4(aq, sa), mx.dequantize_mxfp4(bq, sb), 1.0),
+            ("nvfp4_mm", got_nv, mx.dequantize_nvfp4(naq, nsa, 1.0), mx.dequantize_nvfp4(nbq, nsb, 1.0),
+             (nta * ntb).item())):
+        exact = (af.double() @ bf.double().T) * scale
+        fold = MATMUL.fp32_sum_bound(af, bf.T) * abs(scale) + 2.0**-23 * exact.abs()
+        worst = ((got.double() - exact).abs() / fold).max().item()
+        check(worst <= 1.0, f"{name} within the fp32-sum bound of the float64 product: {worst:.3f}")
+        args = (aq, bq, sa, sb) if name == "mxfp4_mm" else (naq, nbq, nsa, nsb, nta * ntb)
+        fn = getattr(mx, name)
+        ms = time_ms(partial(fn, out_dtype=torch.float32), copies(*args), iters=8)
+        print(f"[16] {name} {n}^3 fp32 out (dequantize, B17 bf16): at {worst:.4f} of the fp32-sum bound; "
+              f"{ms:.4f} ms")
+    return launches
+
+
+def prequant_conv_mx(raw, seed: int, key: int, kernels: list) -> None:
+    """Phase 16: B5 at the weight shapes, the QT_PREQUANT steps, the convs,
+    ``benchmark_conv2d --quick``, MX; the entries of B5, B5-SR, B17-s8, K2
+    and B17 take their records, every entry the phase's launches
+    (``prequant_launches``: the steps; ``conv_launches``, ``mx_launches``)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    by_name = {e["name"]: e for e in kernels}
+    b5_rn, b5_sr = check_b5_weights(gen, key)
+    by_name["quantize_int8_both"]["shapes"] += b5_rn
+    by_name["quantize_int8_both_sr"]["shapes"] += b5_sr
+    steps = prequant_steps(raw, seed, key)
+    conv_rows, conv_launches = check_convs(gen)
+    for name, rows in conv_rows.items():
+        by_name[name]["conv_shapes"] = rows
+    print("[16] benchmark_conv2d --quick:", flush=True)
+    benchmark_conv2d.main(["--quick"])
+    mx_launches = check_mx(gen)
+    for e in kernels:
+        e["prequant_launches"] = steps.get(e["name"], 0)
+        for key_name, counts in (("conv_launches", conv_launches), ("mx_launches", mx_launches)):
+            if counts.get(e["name"]):
+                e[key_name] = counts[e["name"]]
+    check(steps["quantize_int8_both"] > 0 and steps["quantize_int8_both_sr"] > 0 and
+          steps["quantize_int8_rowwise"] > 0 and steps["quantize_int8_colwise"] > 0,
+          f"phase 16 launched B5, B5-SR, K1 and B4 on its steps: {steps}")
+    print(f"[16] QT_PREQUANT, conv and MX: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def fill_launches(entries, launches: dict) -> None:
     """Each entry's launches on its path, and where the kernel has an sm90
     route, that route's share of them (``sm90_launches``)."""
@@ -2991,6 +3315,7 @@ def main() -> None:
             e["shapes_470m"] = at_470m[e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], *(r["max_abs_err"] for r in at_470m[e["name"]]))
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
+    prequant_conv_mx(raw, args.seed, key, kernels)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ value exactly. :func:`adamw_state_from_jax` does the same for an
 ``AdamWState``, so that both packages can start from one optimizer state. No
 JAX import is needed: numpy's bf16 arrays (ml_dtypes) are recognised by their
 dtype name, and the JAX package's weight wrappers (``MixedPrecisionWeight``,
-``Int8Weight``, ``Int4Weight``, ``BitNetWeight``, ``BitNetPackedWeight``) and
+``Int8Weight``, ``Int4Weight``, ``BitNetWeight``, ``BitNetPackedWeight``,
+``PreQuantMPWeight`` with its four views) and
 8-bit optimizer states (``OptimState8bit``) by their fields.
 :func:`schedule_free_state_from_jax` carries a ``ScheduleFreeState``, its
 8-bit second moments included. A JAX storage state, after its own stochastic-rounding commit,
@@ -30,7 +31,7 @@ from .quant.bitnet import BitNetPackedWeight, BitNetWeight
 from .quant.configs import Int8QTConfig, MixedPrecisionConfig
 from .quant.int4 import Int4Weight
 from .quant.int8 import Int8Weight
-from .quant.mixed_precision import MixedPrecisionWeight
+from .quant.mixed_precision import MixedPrecisionWeight, PreQuantMPWeight
 
 
 def _tensor(a) -> torch.Tensor:
@@ -56,6 +57,9 @@ def _wrapper(w):
     if hasattr(w, "zero_point"):
         return Int4Weight(_tensor(w.packed), _tensor(w.scale), _tensor(w.zero_point), _optional(w.master),
                           tuple(w.mat_shape), w.group_size)
+    if hasattr(w, "row_q"):
+        return PreQuantMPWeight(*(_tensor(getattr(w, f)) for f in PreQuantMPWeight.data_fields),
+                                MixedPrecisionConfig(**dataclasses.asdict(config)))
     if hasattr(w, "packed"):
         return BitNetPackedWeight(_tensor(w.packed), _tensor(w.scale))
     if hasattr(w, "mesh"):

@@ -37,9 +37,15 @@ JAX package folds it: ``fold_in(key, l)`` for layer l, then ``fold_in(.,
 0)`` for the q/k/v projections and ``fold_in(., 3)`` / ``fold_in(., 4)``
 for the o-projection and the MLP (gate/up ``fold_in(., 0)``, down
 ``fold_in(., 1)``; BitNet's down ``fold_in(., 6)``), and ``fold_in(key,
-0x7FFFFFFF)`` for the lm_head. The JAX package's ``fold_in(key, 0x5EED)``
-seeds ``prequantize_step``, which is not ported. The key enters each checkpointed layer as an argument, so the
-replay in the backward rounds exactly as the forward did.
+0x7FFFFFFF)`` for the lm_head. The key enters each checkpointed layer as
+an argument, so the replay in the backward rounds exactly as the forward
+did.
+
+``backbone`` runs ``prequantize_step`` on the stacked layers before the
+layer loop (JAX :517-527), with ``fold_in(key, 0x5EED)``: under
+``QT_PREQUANT`` (default '0', off) each int8 mixed-precision weight's int8
+views are made once a step and enter each checkpointed layer inside its
+parameters, so the remat replay takes them as they are.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from ..ops.fused_producers import rms_norm_ref as rms_norm
 from ..ops.fused_producers import silu_mul_ref
 from ..ops.random import fold_in
 from ..ops.rope import group_heads, rope_group, ungroup_heads
-from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, qlinear
+from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, prequantize_step, qlinear
 from ..quant.node import WeightNode
 from ..utils.tree import tree_leaves
 
@@ -343,7 +349,8 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
 
     With ``cfg.remat`` every decoder layer is one ``torch.utils.checkpoint``
     (non-reentrant): its activations are recomputed in the backward, only
-    the layer input is kept, and the layer's key is one of its arguments.
+    the layer input is kept, and the layer's key is one of its arguments,
+    as are the weights' views under ``QT_PREQUANT``.
     The JAX policy also keeps splash attention's (out, lse) residuals, which
     its non-TPU path does not have either."""
     key = 0 if key is None else key
@@ -354,7 +361,9 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     x = F.embedding(tokens.long(), params["embed"]["embedding"])
     cos, sin = rope_tables(cfg, S, device=tokens.device)
     layer = partial(_decoder_layer, cfg)
-    for l, lp in enumerate(_unstack_layers(params["layers"], cfg.num_hidden_layers)):
+    # QT_PREQUANT: the weights' int8 views once a step, outside the layers
+    layers = prequantize_step(params["layers"], key=fold_in(key, 0x5EED))
+    for l, lp in enumerate(_unstack_layers(layers, cfg.num_hidden_layers)):
         lkey = fold_in(key, l)
         if cfg.remat:
             x = checkpoint(layer, x, lp, cos, sin, lkey, use_reentrant=False)

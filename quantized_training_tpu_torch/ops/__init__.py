@@ -71,6 +71,19 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   in the JAX package; its launches on the sm90 design (TMA, wgmma) count
   again (``int8_flash_fwd_sm90``).
 
+The JAX package's other ops, on those kernels or in plain torch:
+
+- :mod:`conv`: :func:`conv2d` (plain ``F.conv2d`` on floats),
+  :func:`int8_conv2d` (im2col, then B17's int8 form) and
+  :func:`scaled_int8_conv2d` (im2col, then K2 with the channel scale as its
+  column scale), NHWC / HWIO as in the JAX package; :func:`int8_mm` is B17's
+  int8 form;
+- :mod:`mx`: the MX and NVFP4 quantizes, dequantizes and scale layouts in
+  plain torch, bit for bit with the JAX package's, and the block-scaled
+  products :func:`mxfp4_mm` / :func:`nvfp4_mm` on B17's bf16 form;
+- :mod:`fp8`: the e4m3 quantizes (row, 1 x 128 tile, 128 x 128 block) and
+  the fp8 products, plain torch.
+
 K1, B4, B5, B7, B8, B9, B11, B12, B14's quantize and B18 also have a
 stochastic-rounding form, and B6 an SR writeback,
 drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``). The
@@ -83,7 +96,9 @@ kernels and which form ran. Importing this package builds nothing: the
 kernels compile at their first launch (``ops/_build.py``).
 """
 
-from . import fp8, random
+from . import conv, fp8, mx, random
+from .conv import conv2d, int8_conv2d, scaled_int8_conv2d
+from .fp8 import fp8_mm, quantize_fp8, quantize_fp8_block, quantize_fp8_tile, scaled_fp8_mm
 from .fused_adamw import fused_adamw_plain, fused_adamw_update
 from .fused_producers import (
     gelu_quant,
@@ -118,7 +133,16 @@ from .int8_quant import (
     quantize_int8_plain,
     quantize_int8_rowwise,
 )
-from .matmul import matmul, matmul_plain
+from .matmul import int8_mm, matmul, matmul_plain
+from .mx import (
+    dequantize_mxfp4,
+    dequantize_nvfp4,
+    mxfp4_mm,
+    nvfp4_mm,
+    pack_block_scales_nv,
+    quantize_mx,
+    quantize_nvfp4,
+)
 from .rope import (
     rope_group_kernel,
     rope_group_ref,
@@ -241,8 +265,26 @@ __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "conv",
     "fp8",
+    "mx",
     "random",
+    "conv2d",
+    "int8_conv2d",
+    "scaled_int8_conv2d",
+    "int8_mm",
+    "fp8_mm",
+    "scaled_fp8_mm",
+    "quantize_fp8",
+    "quantize_fp8_tile",
+    "quantize_fp8_block",
+    "quantize_mx",
+    "quantize_nvfp4",
+    "dequantize_mxfp4",
+    "dequantize_nvfp4",
+    "mxfp4_mm",
+    "nvfp4_mm",
+    "pack_block_scales_nv",
     "attention_ref",
     "fused_adamw_plain",
     "fused_adamw_update",

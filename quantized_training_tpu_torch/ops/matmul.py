@@ -123,3 +123,11 @@ matmul.launches = 0
 matmul.s8_launches = 0
 matmul.sm90_launches = 0
 matmul.s8_sm90_launches = 0
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 a [M, K] . b [K, N] -> int32 (JAX ``ops/scaled_mm.py::int8_mm``,
+    :45): B17's int8 form."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_mm: int8 operands, got {a.dtype}, {b.dtype}")
+    return matmul(a, b)

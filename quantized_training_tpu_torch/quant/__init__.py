@@ -5,14 +5,16 @@ schemes, forward and backward (mixed precision in int8, int4 and fp8; int8
 weight storage, ``Int8Weight``; int4 weight-only, ``Int4Weight``; BitNet
 1.58b, ``BitNetWeight`` and its packed form ``BitNetPackedWeight``), the
 producer-fused linears of ``quant/fused.py`` (int8 mixed precision; the
-Llama's and the ViT's), and the training contract of ``quant/api.py``.
-``prequantize_step`` and ``PreQuantMPWeight`` are not ported.
+Llama's and the ViT's), the training contract of ``quant/api.py``, and
+the per-step weight pre-quantization (``prequantize_step``, ``QT_PREQUANT``,
+``PreQuantMPWeight``).
 """
 
 from .api import (
     commit_params,
     is_quant_weight,
     merge_masters,
+    prequantize_step,
     qlinear,
     qlinear_multi,
     quantize_params,
@@ -45,7 +47,7 @@ from .fused import (
 )
 from .int4 import Int4Weight
 from .int8 import Int8Weight
-from .mixed_precision import MixedPrecisionWeight
+from .mixed_precision import MixedPrecisionWeight, PreQuantMPWeight
 
 __all__ = [
     "qlinear",
@@ -62,11 +64,13 @@ __all__ = [
     "virtual_params",
     "merge_masters",
     "commit_params",
+    "prequantize_step",
     "Int8Weight",
     "Int4Weight",
     "BitNetWeight",
     "BitNetPackedWeight",
     "MixedPrecisionWeight",
+    "PreQuantMPWeight",
     "Int8QTConfig",
     "MixedPrecisionConfig",
     "quantize_int8",

@@ -1,7 +1,8 @@
 """User-facing quantization API.
 
-Counterpart of ``quantized_training_tpu/quant/api.py`` (:100-267):
-:func:`qlinear`, :func:`qlinear_multi`, :func:`is_quant_weight`,
+Counterpart of ``quantized_training_tpu/quant/api.py`` (:40-267):
+:func:`prequantize_step`, :func:`qlinear`, :func:`qlinear_multi`,
+:func:`is_quant_weight`,
 :func:`quantize_params` with the same default filter, and the training
 contract :func:`virtual_params` / :func:`merge_masters` /
 :func:`commit_params`. Parameters are nested dicts of tensors; a leaf's path
@@ -23,6 +24,7 @@ the wrappers through; the optimizer updates their leaves.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -38,17 +40,44 @@ from .core import quantize_int8
 STORAGE_QUANTIZED_TYPES = (_int8.Int8Weight, _int4.Int4Weight)
 # every weight wrapper type
 QUANT_TYPES = (_int8.Int8Weight, _int4.Int4Weight, _bitnet.BitNetWeight, _bitnet.BitNetPackedWeight,
-               _mp.MixedPrecisionWeight)
+               _mp.MixedPrecisionWeight, _mp.PreQuantMPWeight)
+_MP_TYPES = (_mp.MixedPrecisionWeight, _mp.PreQuantMPWeight)
 
 
 def is_quant_weight(x) -> bool:
     return isinstance(x, QUANT_TYPES)
 
 
+def prequantize_step(params, key: int | None = None):
+    """Every int8 :class:`mixed_precision.MixedPrecisionWeight` of the tree
+    as a :class:`mixed_precision.PreQuantMPWeight`, its views made once for
+    the step (JAX :55-97); other leaves pass through. Called at the top of
+    a step's forward (``models/llama.py::backbone``), it takes the weight
+    quantizes out of the layers: the forward's, the remat replay's and
+    grad_input's. ``QT_PREQUANT``, read at each call: '0' (the default) does
+    nothing, '1' or 'both' makes both views, 'row' or 'col' one. Under SR
+    leaf i, in the JAX package's flatten order (dict keys sorted, each
+    wrapper one leaf), draws from ``fold_in(key, i)``."""
+    mode = os.environ.get("QT_PREQUANT", "0")
+    if mode == "0":
+        return params
+    mode = {"1": "both"}.get(mode, mode)
+    if mode not in ("both", "row", "col"):
+        raise ValueError(f"QT_PREQUANT must be one of 0, 1, both, row, col; got {mode!r}")
+    index = {p: i for i, p in enumerate(_leaf_paths(params))}
+
+    def pq(path, leaf):
+        if not isinstance(leaf, _mp.MixedPrecisionWeight):
+            return leaf
+        return _mp.prequantize_weight(leaf, None if key is None else fold_in(key, index[path]), mode=mode)
+
+    return _map_with_path(pq, params)
+
+
 def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, key: int | None = None):
     """y = x @ w.T + bias, dispatched on the weight wrapper type; ``key``
     (an int, ``ops/random.py``) seeds stochastic rounding."""
-    if isinstance(w, _mp.MixedPrecisionWeight):
+    if isinstance(w, _MP_TYPES):
         return _mp.linear(x, w, bias, key=key)
     if isinstance(w, _int8.Int8Weight):
         return _int8.linear(x, w, bias, key=key)
@@ -66,7 +95,7 @@ def qlinear_multi(x: torch.Tensor, weights, *, key: int | None = None):
     all heads, and once in the backward (``mixed_precision.linear_shared``);
     other weights take independent :func:`qlinear` calls, head i with
     ``fold_in(key, i)`` (JAX :126-132)."""
-    if all(isinstance(w, _mp.MixedPrecisionWeight) for w in weights):
+    if all(isinstance(w, _MP_TYPES) for w in weights):
         return _mp.linear_shared(x, weights, key=key)
     return [qlinear(x, w, key=None if key is None else fold_in(key, i)) for i, w in enumerate(weights)]
 

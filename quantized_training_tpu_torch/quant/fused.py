@@ -41,7 +41,17 @@ pair of weight i from ``split(fold_in(_sub(key, 3), i))``; in ``_mlp_mm``
 ``_sub(key, 0..9)`` for its ten draws (:493-648); in ``_attn_out_mm``,
 ``_ln_mm`` and ``_gelu_mm`` ``_sub(key, 0..3)``. Where the JAX package
 turns a subkey into an int32 seed for the TPU's generator (``_kseed``), the
-same subkey is here the Philox key of the kernel. ``PreQuantMPWeight`` is not ported.
+same subkey is here the Philox key of the kernel.
+
+The Llama ops take a ``PreQuantMPWeight`` (``QT_PREQUANT``) as they take a
+``MixedPrecisionWeight`` (JAX :47-80): its row view replaces the weight's
+row quantize in the forward and its column view the weight's column
+quantize in the backward (``_row_view`` / ``_col_view``); the activations'
+and cotangents' quantizes stay in the op. The views are arguments of the
+autograd Functions, so a remat replay takes them as they are; a missing
+view (a ``MixedPrecisionWeight``, or a mode that made one view only) is
+quantized in the op with the key the dynamic path uses. The ViT's ops take
+no views, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -57,9 +67,11 @@ from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm_general
 from .api import qlinear, qlinear_multi
 from .core import quantize_int8, quantize_int8_both
-from .mixed_precision import MixedPrecisionWeight, _pad_tokens, _resolve_key
+from .mixed_precision import MixedPrecisionWeight, PreQuantMPWeight, _col_view, _pad_tokens, _resolve_key, _row_view
 
 _IMPL = "auto"  # auto | off | interpret
+# the weights the Llama ops fuse over (JAX :47-54)
+_FUSED_WEIGHT_TYPES = (MixedPrecisionWeight, PreQuantMPWeight)
 
 
 def set_impl(mode: str) -> None:
@@ -116,16 +128,25 @@ def _bf16_wgrad(g, h):
     return (g.float().T @ h.float()).to(h.dtype)
 
 
-def _grad_pair(g, w, sr: bool, gw8: bool, kg, kw):
+def _w_views(w):
+    """A weight of the fused ops as (master, row_q, row_s, col_q, col_s):
+    a PreQuantMPWeight's views, None for a MixedPrecisionWeight's (JAX
+    :57-63)."""
+    if isinstance(w, PreQuantMPWeight):
+        return w.orig, w.row_q, w.row_s, w.col_q, w.col_s
+    return w.data, None, None, None, None
+
+
+def _grad_pair(g, w, sr: bool, gw8: bool, kg, kw, cq=None, cs=None):
     """The backward's int8 operands of one weight: g row-wise (and
-    column-wise with ``gw8``, one B5) and w column-wise; returns
-    (grad_input, g_col, g_col_s)."""
+    column-wise with ``gw8``, one B5) and w column-wise (its view ``cq``,
+    ``cs`` where one was made); returns (grad_input, g_col, g_col_s)."""
     if gw8:
         g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
     else:
         g_row, g_row_s = quantize_int8(g, axis=1, stochastic_rounding=sr, key=kg)
         g_col = g_col_s = None
-    w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, key=kw)
+    w_col, w_col_s = _col_view(w, cq, cs, sr, kw)
     gi = scaled_mm_general(g_row, w_col, g_row_s, w_col_s, dims=(1, 0), out_dtype=w.dtype)
     return gi, g_col, g_col_s
 
@@ -134,30 +155,35 @@ class _NormMM(torch.autograd.Function):
     """rms_norm(x2d, gamma) @ w_i^T for every weight, the norm inside the
     shared input's row quantize (JAX ``_norm_mm``, :204-318). With an int8
     grad_weight the forward's B7 also gathers the column absmax of the norm
-    values, so the backward's column quantize (B8) reads x once."""
+    values, so the backward's column quantize (B8) reads x once. ``flat``
+    is the n weights, then their row views, row scales, column views and
+    column scales (``_w_views``; None where a weight has none)."""
 
     @staticmethod
-    def forward(ctx, config, eps, key, x2d, gamma, *ws):
+    def forward(ctx, config, eps, key, x2d, gamma, *flat):
+        n = len(flat) // 5
+        ws, row_qs, row_ss = flat[:n], flat[n:2 * n], flat[2 * n:3 * n]
         sr, gw8 = config.stochastic_rounding, config.grad_weight
         y_row, y_row_s, *col_amax = fp.rmsnorm_quant_rowwise(
             x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
         y_row_s = y_row_s.to(x2d.dtype)
         outs = []
-        for i, w in enumerate(ws):
-            kw = fold_in(_sub(key, 1), i) if sr else None
-            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw)
+        for i, (w, rq, rs) in enumerate(zip(ws, row_qs, row_ss)):
+            w_row, w_row_s = _row_view(w, rq, rs, sr, fold_in(_sub(key, 1), i) if sr else None)
             outs.append(scaled_mm_general(y_row, w_row, y_row_s, w_row_s, dims=(1, 1), out_dtype=x2d.dtype))
-        ctx.config, ctx.eps, ctx.key = config, eps, key
-        ctx.save_for_backward(x2d, gamma, *col_amax, *ws)
+        ctx.config, ctx.eps, ctx.key, ctx.n = config, eps, key, n
+        ctx.save_for_backward(x2d, gamma, *col_amax, *ws, *flat[3 * n:])
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
         config, eps, key = ctx.config, ctx.eps, ctx.key
         sr, gw8 = config.stochastic_rounding, config.grad_weight
-        x2d, gamma, *ws = ctx.saved_tensors
+        n = ctx.n
+        x2d, gamma, *rest = ctx.saved_tensors
+        col_amax = rest.pop(0) if gw8 else None
+        ws, col_qs, col_ss = rest[:n], rest[n:2 * n], rest[2 * n:]
         if gw8:
-            col_amax = ws.pop(0)
             y_col, y_col_s = fp.rmsnorm_quant_colwise(
                 x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 2) if sr else None, scale=col_amax * (1.0 / 127.0))
             y_col_s = y_col_s.to(x2d.dtype)
@@ -167,31 +193,46 @@ class _NormMM(torch.autograd.Function):
         for i, (w, g) in enumerate(zip(ws, gs)):
             g = g.to(x2d.dtype)
             kg, kw = split(fold_in(_sub(key, 3), i)) if sr else (None, None)
-            gi, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw)
+            gi, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw, col_qs[i], col_ss[i])
             dy = gi if dy is None else dy + gi
             if gw8:
                 grad_ws.append(scaled_mm_general(g_col, y_col, g_col_s, y_col_s, dims=(0, 0), out_dtype=w.dtype))
             else:
                 grad_ws.append(_bf16_wgrad(g, h))
         dx, dgamma = _rmsnorm_bwd(x2d, gamma, dy, eps)
-        return None, None, None, dx, dgamma, *grad_ws
+        return None, None, None, dx, dgamma, *grad_ws, *(None,) * (4 * n)
+
+
+def _one_fusable_config(ws):
+    """The config of weights that the Llama ops fuse over, or None: all
+    MixedPrecisionWeights or PreQuantMPWeights of one fusable config."""
+    if not all(isinstance(w, _FUSED_WEIGHT_TYPES) for w in ws):
+        return None
+    configs = {w.config for w in ws}
+    cfg = next(iter(configs))
+    return cfg if len(configs) == 1 and _fusable_cfg(cfg) else None
+
+
+def _flat_views(ws) -> list:
+    """The weights' ``_w_views``, field by field: masters, row views, row
+    scales, column views, column scales."""
+    return [v for field in zip(*map(_w_views, ws)) for v in field]
 
 
 def norm_linear_multi(x, gamma, weights, eps: float, *, key: int | None = None):
     """[rms_norm(x, gamma) @ w_i^T] with the norm fused into the shared
     input quantize when every weight is a MixedPrecisionWeight of one
     fusable config and the shape fits the kernels (JAX :321-362); else
-    exactly ``rms_norm`` followed by ``qlinear_multi``."""
-    configs = {w.config for w in weights if isinstance(w, MixedPrecisionWeight)}
-    fused = (len(configs) == 1 and all(isinstance(w, MixedPrecisionWeight) for w in weights)
-             and _fusable_cfg(next(iter(configs))))
+    exactly ``rms_norm`` followed by ``qlinear_multi``. PreQuantMPWeights
+    fuse as MixedPrecisionWeights do, on their views."""
+    cfg = _one_fusable_config(weights)
+    fused = cfg is not None
     if fused:
         x2d = x.reshape(-1, x.shape[-1]).contiguous()
         fused = _fused_ok(*x2d.shape, x2d)
     if not fused:
         return qlinear_multi(fp.rms_norm_ref(x, gamma, eps), weights, key=key)
-    cfg = next(iter(configs))
-    outs = _NormMM.apply(cfg, float(eps), _resolve_key(cfg, key), x2d, gamma, *(w.data for w in weights))
+    outs = _NormMM.apply(cfg, float(eps), _resolve_key(cfg, key), x2d, gamma, *_flat_views(weights))
     return [o.reshape(*x.shape[:-1], w.shape[-2]) for o, w in zip(outs, weights)]
 
 
@@ -201,24 +242,24 @@ class _SiluMM(torch.autograd.Function):
     of the activation is B9's column form with the forward's scales."""
 
     @staticmethod
-    def forward(ctx, config, key, a2d, b2d, w):
+    def forward(ctx, config, key, a2d, b2d, w, rq, rs, cq, cs):
         sr, gw8 = config.stochastic_rounding, config.grad_weight
         y_row, y_row_s, *col_amax = fp.silu_mul_quant_rowwise(
             a2d, b2d, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
-        w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=_sub(key, 1) if sr else None)
+        w_row, w_row_s = _row_view(w, rq, rs, sr, _sub(key, 1) if sr else None)
         out = scaled_mm_general(y_row, w_row, y_row_s.to(a2d.dtype), w_row_s, dims=(1, 1), out_dtype=a2d.dtype)
         ctx.config, ctx.key = config, key
-        ctx.save_for_backward(a2d, b2d, w, *col_amax)
+        ctx.save_for_backward(a2d, b2d, w, cq, cs, *col_amax)
         return out
 
     @staticmethod
     def backward(ctx, g):
         config, key = ctx.config, ctx.key
         sr, gw8 = config.stochastic_rounding, config.grad_weight
-        a2d, b2d, w, *col_amax = ctx.saved_tensors
+        a2d, b2d, w, cq, cs, *col_amax = ctx.saved_tensors
         g = g.to(a2d.dtype)
         kg, kw = split(_sub(key, 3)) if sr else (None, None)
-        dy, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw)
+        dy, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw, cq, cs)
         if gw8:
             y_col, y_col_s = fp.silu_mul_quant_colwise(
                 a2d, b2d, sr=sr, key=_sub(key, 2) if sr else None, scale=col_amax[0] * (1.0 / 127.0))
@@ -231,22 +272,22 @@ class _SiluMM(torch.autograd.Function):
         dyf = dy.float()
         db = (dyf * (af * s).to(a2d.dtype).float()).to(b2d.dtype)
         da = (dyf * b2d.float() * (s * (1.0 + af * (1.0 - s)))).to(a2d.dtype)
-        return None, None, da, db, grad_w
+        return None, None, da, db, grad_w, None, None, None, None
 
 
 def silu_mul_linear(gate, up, w, *, key: int | None = None):
     """(silu(gate) * up) @ w^T with the activation fused into the input
     quantize for a MixedPrecisionWeight of a fusable config at shapes the
-    kernels take (JAX :453-480); else exactly ``silu * mul`` followed by
-    ``qlinear``."""
-    fused = isinstance(w, MixedPrecisionWeight) and _fusable_cfg(w.config)
+    kernels take (JAX :453-480), or a PreQuantMPWeight on its views; else
+    exactly ``silu * mul`` followed by ``qlinear``."""
+    fused = _one_fusable_config([w]) is not None
     if fused:
         a2d = gate.reshape(-1, gate.shape[-1]).contiguous()
         b2d = up.reshape(-1, up.shape[-1]).contiguous()
         fused = _fused_ok(*a2d.shape, a2d, n_inputs=2)
     if not fused:
         return qlinear(fp.silu_mul_ref(gate, up), w, key=key)
-    out = _SiluMM.apply(w.config, _resolve_key(w.config, key), a2d, b2d, w.data)
+    out = _SiluMM.apply(w.config, _resolve_key(w.config, key), a2d, b2d, *_w_views(w))
     return out.reshape(*gate.shape[:-1], w.shape[-2])
 
 
@@ -259,38 +300,41 @@ class _MLPMM(torch.autograd.Function):
     grad_weight, along columns (B12) with the column scales B11 gathered;
     with a bf16 grad_weight B11 also writes them in x's dtype. The column
     quantizes of the norm (B8) and of the activation (B9-col) take the
-    forward's column maxima as scales."""
+    forward's column maxima as scales. ``views`` is the three weights' row
+    views, row scales, column views and column scales (``_flat_views``
+    without the masters)."""
 
     @staticmethod
-    def forward(ctx, config, eps, key, x2d, gamma, wg, wu, wd):
+    def forward(ctx, config, eps, key, x2d, gamma, wg, wu, wd, *views):
+        row_qs, row_ss = views[:3], views[3:6]
         sr, gw8 = config.stochastic_rounding, config.grad_weight
         h_q, h_s, *h_camax = fp.rmsnorm_quant_rowwise(
             x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
         h_s = h_s.to(x2d.dtype)
         outs = []
         for i, w in enumerate((wg, wu)):
-            kw = fold_in(_sub(key, 1), i) if sr else None
-            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw)
+            w_row, w_row_s = _row_view(w, row_qs[i], row_ss[i], sr, fold_in(_sub(key, 1), i) if sr else None)
             outs.append(scaled_mm_general(h_q, w_row, h_s, w_row_s, dims=(1, 1), out_dtype=x2d.dtype))
         gate, up = outs
         act_q, act_s, *act_camax = fp.silu_mul_quant_rowwise(
             gate, up, sr=sr, key=_sub(key, 2) if sr else None, with_col_amax=gw8)
-        wd_row, wd_row_s = quantize_int8(wd, axis=1, stochastic_rounding=sr, key=_sub(key, 3) if sr else None)
+        wd_row, wd_row_s = _row_view(wd, row_qs[2], row_ss[2], sr, _sub(key, 3) if sr else None)
         out = scaled_mm_general(act_q, wd_row, act_s.to(x2d.dtype), wd_row_s, dims=(1, 1), out_dtype=x2d.dtype)
         ctx.config, ctx.eps, ctx.key = config, eps, key
-        ctx.save_for_backward(x2d, gamma, wg, wu, wd, gate, up, *h_camax, *act_camax)
+        ctx.save_for_backward(x2d, gamma, wg, wu, wd, gate, up, *views[6:], *h_camax, *act_camax)
         return out
 
     @staticmethod
     def backward(ctx, g):
         config, eps, key = ctx.config, ctx.eps, ctx.key
         sr, gw8 = config.stochastic_rounding, config.grad_weight
-        x2d, gamma, wg, wu, wd, gate, up, *camax = ctx.saved_tensors
+        x2d, gamma, wg, wu, wd, gate, up, *rest = ctx.saved_tensors
+        col_qs, col_ss, camax = rest[:3], rest[3:6], rest[6:]
         g = g.to(x2d.dtype)
         sub = (lambda i: _sub(key, i)) if sr else (lambda i: None)
         # the down projection
         kg, kw = split(_sub(key, 4)) if sr else (None, None)
-        dact, g_col, g_col_s = _grad_pair(g, wd, sr, gw8, kg, kw)
+        dact, g_col, g_col_s = _grad_pair(g, wd, sr, gw8, kg, kw, col_qs[2], col_ss[2])
         if gw8:
             h_camax, act_camax = camax
             act_col, act_col_s = fp.silu_mul_quant_colwise(gate, up, sr=sr, key=sub(5),
@@ -314,8 +358,7 @@ class _MLPMM(torch.autograd.Function):
             h = fp.rms_norm_ref(x2d, gamma, eps)
         dh, grads_w = None, []
         for i, (w, (v_row, v_row_s)) in enumerate(zip((wg, wu), ((da_q, da_s), (db_q, db_s)))):
-            kw = fold_in(_sub(key, 9), i) if sr else None
-            w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, key=kw)
+            w_col, w_col_s = _col_view(w, col_qs[i], col_ss[i], sr, fold_in(_sub(key, 9), i) if sr else None)
             di = scaled_mm_general(v_row, w_col, v_row_s.to(w.dtype), w_col_s, dims=(1, 0), out_dtype=w.dtype)
             dh = di if dh is None else dh + di
             if gw8:
@@ -323,7 +366,7 @@ class _MLPMM(torch.autograd.Function):
             else:
                 grads_w.append(_bf16_wgrad((da_c, db_c)[i], h))
         dx, dgamma = _rmsnorm_bwd(x2d, gamma, dh, eps)
-        return None, None, None, dx, dgamma, grads_w[0], grads_w[1], wd_grad
+        return None, None, None, dx, dgamma, grads_w[0], grads_w[1], wd_grad, *(None,) * 12
 
 
 def mlp_linear(x, gamma, wg, wu, wd, eps: float, *, key: int | None = None):
@@ -333,11 +376,10 @@ def mlp_linear(x, gamma, wg, wu, wd, eps: float, *, key: int | None = None):
     shapes (``_fused_ok`` at [M, D] and at [M, F] with three inputs); else
     :func:`norm_linear_multi` for gate/up with ``fold_in(key, 0)`` and
     :func:`silu_mul_linear` for down with ``fold_in(key, 1)``, the JAX
-    package's two-op branch."""
+    package's two-op branch. PreQuantMPWeights fuse on their views."""
     ws = (wg, wu, wd)
-    configs = {w.config for w in ws if isinstance(w, MixedPrecisionWeight)}
-    fused = (len(configs) == 1 and all(isinstance(w, MixedPrecisionWeight) for w in ws)
-             and _fusable_cfg(next(iter(configs))))
+    cfg = _one_fusable_config(ws)
+    fused = cfg is not None
     if fused:
         x2d = x.reshape(-1, x.shape[-1]).contiguous()
         M, D = x2d.shape
@@ -346,8 +388,7 @@ def mlp_linear(x, gamma, wg, wu, wd, eps: float, *, key: int | None = None):
         key = 0 if key is None else key
         gate, up = norm_linear_multi(x, gamma, [wg, wu], eps, key=fold_in(key, 0))
         return silu_mul_linear(gate, up, wd, key=fold_in(key, 1))
-    cfg = next(iter(configs))
-    out = _MLPMM.apply(cfg, float(eps), _resolve_key(cfg, key), x2d, gamma, wg.data, wu.data, wd.data)
+    out = _MLPMM.apply(cfg, float(eps), _resolve_key(cfg, key), x2d, gamma, *_flat_views(ws))
     return out.reshape(*x.shape[:-1], wd.shape[-2])
 
 
@@ -372,29 +413,29 @@ class _AttnOutMM(torch.autograd.Function):
     absmax as its scales (one read of the grouped output)."""
 
     @staticmethod
-    def forward(ctx, config, key, out_g, w):
+    def forward(ctx, config, key, out_g, w, rq, rs, cq, cs):
         B, KV, G, S, hd = out_g.shape
         sr = config.stochastic_rounding
         row_amax, col_amax = rope.ungroup_amax(out_g)
         row_s = row_amax * (1.0 / 127.0)
         x_row = rope.ungroup_quant(out_g, row_s, axis=1, sr=sr, key=_sub(key, 0) if sr else None)
-        w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=_sub(key, 1) if sr else None)
+        w_row, w_row_s = _row_view(w, rq, rs, sr, _sub(key, 1) if sr else None)
         out = scaled_mm_general(x_row.view(B * S, -1), w_row, row_s.view(B * S, 1).to(w.dtype), w_row_s,
                                 dims=(1, 1), out_dtype=w.dtype)
         ctx.config, ctx.key = config, key
         # the column absmax is the backward's column scale: an int8 grad_weight only
-        ctx.save_for_backward(out_g, w, *((col_amax,) if config.grad_weight else ()))
+        ctx.save_for_backward(out_g, w, cq, cs, *((col_amax,) if config.grad_weight else ()))
         return out
 
     @staticmethod
     def backward(ctx, g):
         config, key = ctx.config, ctx.key
         sr, gw8 = config.stochastic_rounding, config.grad_weight
-        out_g, w, *col_amax = ctx.saved_tensors
+        out_g, w, cq, cs, *col_amax = ctx.saved_tensors
         B, KV, G, S, hd = out_g.shape
         g = g.to(w.dtype)
         kg, kw = split(_sub(key, 3)) if sr else (None, None)
-        dctx, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw)
+        dctx, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw, cq, cs)
         d_out_g = _group_cotangent(dctx, B, S, KV, hd)
         if gw8:
             col_s = col_amax[0] * (1.0 / 127.0)
@@ -403,22 +444,23 @@ class _AttnOutMM(torch.autograd.Function):
                                        out_dtype=w.dtype)
         else:
             grad_w = _bf16_wgrad(g, _ungroup_bf16(out_g))
-        return None, None, d_out_g, grad_w
+        return None, None, d_out_g, grad_w, None, None, None, None
 
 
 def attn_out_linear(out_g, w, kv: int, *, key: int | None = None):
     """Grouped attention output [B, KV, G, S, hd] -> o-projection output
     [B, S, out_features] (JAX :844-874): :class:`_AttnOutMM` for a
-    MixedPrecisionWeight of a fusable config where the kernels take the
-    shapes ((H * hd) % 128, (B * S) % 256, ``_supported_heads``,
-    ``_fused_ok``); else exactly ``ungroup_heads`` followed by ``qlinear``."""
+    MixedPrecisionWeight of a fusable config (or a PreQuantMPWeight, on its
+    views) where the kernels take the shapes ((H * hd) % 128, (B * S) %
+    256, ``_supported_heads``, ``_fused_ok``); else exactly
+    ``ungroup_heads`` followed by ``qlinear``."""
     B, KV, G, S, hd = out_g.shape
     H = KV * G
-    fused = (isinstance(w, MixedPrecisionWeight) and _fusable_cfg(w.config) and (H * hd) % 128 == 0
+    fused = (_one_fusable_config([w]) is not None and (H * hd) % 128 == 0
              and (B * S) % 256 == 0 and rope._supported_heads(H, G, hd, S) and _fused_ok(B * S, H * hd, out_g))
     if not fused:
         return qlinear(rope.ungroup_heads(out_g, kv).reshape(B, S, H * hd), w, key=key)
-    out = _AttnOutMM.apply(w.config, _resolve_key(w.config, key), out_g, w.data)
+    out = _AttnOutMM.apply(w.config, _resolve_key(w.config, key), out_g, *_w_views(w))
     return out.view(B, S, w.shape[-2])
 
 

@@ -40,7 +40,15 @@ where the JAX package derives its keys: ``fold_in(key, 0/1/2/3)`` per use
 keep the key in ``ctx``, so a checkpointed layer replayed with the same key
 rounds the same way, and no two quantizes of one call share a stream.
 
-``PreQuantMPWeight`` (per-step pre-quantized weights) is not ported. As
+``PreQuantMPWeight`` (JAX :385-663) holds a weight's int8 views computed
+once a step (:func:`prequantize_weight`, ``quant/api.py::prequantize_step``):
+the row view (the forward's operand) and the column view (grad_input's), by
+one B5 a layer's weight in mode 'both', K1 in 'row', B4 in 'col'; an unused
+view is a 0-sized placeholder, and the linear quantizes the weight in the
+op for it. ``_MPLinearPQ`` and ``_MPLinearSharedPQ`` are ``_mp_linear_pq``
+and ``_mp_linear_shared_pq`` with their backwards. The views are made from
+the detached master and take no grad: the weight's grad reaches the master
+through ``orig`` alone (JAX :484-488). As
 the JAX package does, :func:`linear` and :func:`linear_shared` pad the
 token dim with zero rows to a multiple of 256 from 1024 tokens on
 (``_pad_tokens``) and cut the output back: a zero row changes no scale and
@@ -254,27 +262,239 @@ def _pad_tokens(x2d):
     return torch.nn.functional.pad(x2d, (0, 0, 0, Mp - M))
 
 
-def linear(x, w: MixedPrecisionWeight, bias=None, *, key: int | None = None):
-    """Mixed-precision linear: y = x @ w.T + bias with per-matmul quant."""
+def linear(x, w, bias=None, *, key: int | None = None):
+    """Mixed-precision linear: y = x @ w.T + bias with per-matmul quant, for
+    a :class:`MixedPrecisionWeight` or a :class:`PreQuantMPWeight` (JAX
+    :341-376)."""
     key = _resolve_key(w.config, key)
     x2d = x.reshape(-1, x.shape[-1])
     M = x2d.shape[0]
-    out = _MPLinear.apply(_pad_tokens(x2d), w.data, w.config, key)[:M]
-    out = out.reshape(*x.shape[:-1], w.data.shape[0])
+    if isinstance(w, PreQuantMPWeight):
+        out = _MPLinearPQ.apply(_pad_tokens(x2d), w.orig, w.row_q, w.row_s, w.col_q, w.col_s, w.config, key)
+    else:
+        out = _MPLinear.apply(_pad_tokens(x2d), w.data, w.config, key)
+    out = out[:M].reshape(*x.shape[:-1], w.shape[-2])
     return out + bias if bias is not None else out
 
 
 def linear_shared(x, weights, *, key: int | None = None):
     """[y_i = x @ w_i.T] with the shared input quantized once (JAX
-    :279-322). ``weights``: MixedPrecisionWeight with one all-int8 config;
-    any other mix takes one :func:`linear` per weight, each with ``key``
-    itself (JAX :293-296)."""
+    :279-322). ``weights``: MixedPrecisionWeights, or PreQuantMPWeights,
+    with one all-int8 config; any other mix takes one :func:`linear` per
+    weight, each with ``key`` itself (JAX :293-296)."""
     configs = {w.config for w in weights}
     cfg = next(iter(configs))
-    if len(configs) != 1 or not _all_int8(cfg):
+    preq = all(isinstance(w, PreQuantMPWeight) for w in weights)
+    if len(configs) != 1 or not _all_int8(cfg) or not (
+            preq or all(isinstance(w, MixedPrecisionWeight) for w in weights)):
         return [linear(x, w, key=key) for w in weights]
     key = _resolve_key(cfg, key)
-    x2d = x.reshape(-1, x.shape[-1])
-    M = x2d.shape[0]
-    outs = _MPLinearShared.apply(cfg, key, _pad_tokens(x2d), *(w.data for w in weights))
-    return [o[:M].reshape(*x.shape[:-1], w.data.shape[0]) for o, w in zip(outs, weights)]
+    x2d = _pad_tokens(x.reshape(-1, x.shape[-1]))
+    M = x.numel() // x.shape[-1]
+    if preq:
+        views = [getattr(w, f) for f in PreQuantMPWeight.data_fields for w in weights]
+        outs = _MPLinearSharedPQ.apply(cfg, key, len(weights), x2d, *views)
+    else:
+        outs = _MPLinearShared.apply(cfg, key, x2d, *(w.data for w in weights))
+    return [o[:M].reshape(*x.shape[:-1], w.shape[-2]) for o, w in zip(outs, weights)]
+
+
+# ---- per-step weight pre-quantization (JAX :379-663) ------------------------
+#
+# A weight is constant within a step, yet the dynamic linears quantize it per
+# matmul: along rows in the forward (again in the remat replay) and along
+# columns in the backward. Its views made once a step take those quantizes
+# out of the layers; the int8 they hold is the dynamic path's, bit for bit,
+# under round-to-nearest. Under SR the draw is once a step, not once a
+# matmul: still unbiased, but another stream.
+
+
+@dataclass
+class PreQuantMPWeight(WeightNode):
+    """Step-scoped int8 views of a mixed-precision weight (JAX :398-421).
+
+    ``orig``: the master [*, out, in], the gradient target; ``row_q`` /
+    ``row_s``: int8 along ``in`` (the forward's operand) with its scales
+    [*, out, 1]; ``col_q`` / ``col_s``: int8 along ``out`` (grad_input's)
+    with its scales [*, 1, in]. An unused view and its scales are [*, 0, 0]
+    placeholders."""
+
+    orig: torch.Tensor
+    row_q: torch.Tensor
+    row_s: torch.Tensor
+    col_q: torch.Tensor
+    col_s: torch.Tensor
+    config: MixedPrecisionConfig
+    data_fields = ("orig", "row_q", "row_s", "col_q", "col_s")
+
+    @property
+    def dtype(self):
+        return self.orig.dtype
+
+    @property
+    def shape(self):
+        return self.orig.shape
+
+
+def _placeholder(w):
+    """A 0-sized view and its scales (JAX ``_placeholder``, :424-427)."""
+    lead = tuple(w.shape[:-2]) + (0, 0)
+    return w.new_zeros(lead, dtype=torch.int8), w.new_zeros(lead)
+
+
+def _has(view) -> bool:
+    return view is not None and view.numel() > 0
+
+
+def _quantize_views(w, need_row: bool, need_col: bool, sr: bool, key: int | None):
+    """(row_q, row_s, col_q, col_s) of one 2-D weight: B5 for both views,
+    else K1 or B4, a placeholder for the other (JAX :430-478)."""
+    if need_row and need_col:
+        return quantize_int8_both(w, stochastic_rounding=sr, key=key)
+    if need_row:
+        return (*quantize_int8(w, axis=-1, stochastic_rounding=sr, key=key), *_placeholder(w))
+    return (*_placeholder(w), *quantize_int8(w, axis=0, stochastic_rounding=sr, key=key))
+
+
+@torch.no_grad()
+def _prequant(w, need_row: bool, need_col: bool, sr: bool, key: int):
+    """The views of w [out, in], or of a stacked [L, out, in] layer by
+    layer, layer l with ``fold_in(key, l)`` under SR, as JAX's ``vmap``
+    (:455-468): B5's column scales are per layer, so the layers never share
+    a launch."""
+    w = w.detach()
+    if w.ndim == 2:
+        return _quantize_views(w, need_row, need_col, sr, key if sr else None)
+    per_layer = [_quantize_views(wl, need_row, need_col, sr, fold_in(key, l) if sr else None)
+                 for l, wl in enumerate(w.unbind(0))]
+    return tuple(torch.stack(parts) for parts in zip(*per_layer))
+
+
+def prequantize_weight(w: MixedPrecisionWeight, key: int | None = None, mode: str = "both"):
+    """MixedPrecisionWeight -> PreQuantMPWeight (JAX :490-515). ``mode``
+    'both' | 'row' | 'col' picks the views made; the linear quantizes in the
+    op for a missing one. A config the pre-quantized linear does not cover
+    (not int8, or neither the forward nor grad_input quantized) returns
+    ``w`` unchanged. ``orig`` is ``w.data`` itself, so the grads of the
+    linears reach the master."""
+    cfg = w.config
+    if cfg.dtype != "int8":
+        return w
+    need_row = cfg.output and mode in ("both", "row")
+    need_col = cfg.grad_input and mode in ("both", "col")
+    if not (need_row or need_col):
+        return w
+    key = _resolve_key(cfg, key)
+    return PreQuantMPWeight(w.data, *_prequant(w.data, need_row, need_col, cfg.stochastic_rounding, key), cfg)
+
+
+def _row_view(w, rq, rs, sr: bool, key: int | None):
+    """The forward's row int8 of w: the precomputed view, or K1 in the op."""
+    if _has(rq):
+        return rq, rs
+    return quantize_int8(w, axis=1, stochastic_rounding=sr, key=key)
+
+
+def _col_view(w, cq, cs, sr: bool, key: int | None):
+    """grad_input's column int8 of w: the precomputed view, or B4 in the op."""
+    if _has(cq):
+        return cq, cs
+    return quantize_int8(w, axis=0, stochastic_rounding=sr, key=key)
+
+
+class _MPLinearPQ(torch.autograd.Function):
+    """``_mp_linear_pq`` with its backward (JAX :518-595): x2d [B, in] @
+    w^T on the precomputed views; a 0-sized view is quantized in the op,
+    the row one from ``_subkey(key, 4)``, the column one from
+    ``_subkey(key, 5)``. Under SR x2d's row quantize draws from
+    ``_subkey(key, 0)``; the backward's (g, x) pairs from
+    ``split(_subkey(key, 1))`` (both backward matmuls int8), else g's row
+    quantize from ``_subkey(key, 1)`` and the grad_weight pair from
+    ``split(_subkey(key, 2))``."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, row_q, row_s, col_q, col_s, config, key):
+        sr = config.stochastic_rounding
+        if config.output:
+            x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None)
+            rq, rs = _row_view(w, row_q, row_s, sr, _subkey(key, 4) if sr else None)
+            out = scaled_mm_general(x_row, rq, x_row_s, rs, dims=(1, 1), out_dtype=x2d.dtype)
+        else:
+            out = x2d @ w.T
+        ctx.config, ctx.key = config, key
+        ctx.save_for_backward(x2d, w, col_q, col_s)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w, col_q, col_s = ctx.saved_tensors
+        config, key = ctx.config, ctx.key
+        sr = config.stochastic_rounding
+        g = g.to(x2d.dtype)
+        if config.grad_input:
+            col_q, col_s = _col_view(w, col_q, col_s, sr, _subkey(key, 5) if sr else None)
+        none = (None,) * 6
+        if config.grad_input and config.grad_weight:
+            kg, kx = split(_subkey(key, 1)) if sr else (None, None)
+            g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+            grad_input = scaled_mm_general(g_row, col_q, g_row_s, col_s, dims=(1, 0), out_dtype=w.dtype)
+            grad_weight = scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype)
+            return grad_input, grad_weight, *none
+        if config.grad_input:
+            g_row, g_row_s = quantize_int8(g, axis=1, stochastic_rounding=sr, key=_subkey(key, 1) if sr else None)
+            grad_input = scaled_mm_general(g_row, col_q, g_row_s, col_s, dims=(1, 0), out_dtype=w.dtype)
+        else:
+            grad_input = g @ w
+        if config.grad_weight:
+            kg, kx = split(_subkey(key, 2)) if sr else (None, None)
+            g_col, g_col_s = quantize_int8(g, axis=0, stochastic_rounding=sr, key=kg)
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+            grad_weight = scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype)
+        else:
+            grad_weight = g.T @ x2d
+        return grad_input, grad_weight, *none
+
+
+class _MPLinearSharedPQ(torch.autograd.Function):
+    """``_mp_linear_shared_pq`` with its backward (JAX :598-663): one row
+    quantize of x2d for every head, each head on its precomputed views (a
+    0-sized one quantized in the op, head i's row view from
+    ``fold_in(_subkey(key, 4), i)``, its column view from
+    ``fold_in(_subkey(key, 5), i)``), and one column quantize of x2d in the
+    backward. All-int8 configs only (the caller checks). ``flat`` is the
+    n masters, then the n row views, their scales, the n column views and
+    their scales. Under SR: x2d's row quantize from ``_subkey(key, 0)``, its
+    column quantize from ``fold_in(_subkey(key, 2), 0)``, head i's g from
+    ``_subkey(fold_in(_subkey(key, 3), i), 0)``."""
+
+    @staticmethod
+    def forward(ctx, config, key, n, x2d, *flat):
+        ws, row_qs, row_ss = flat[:n], flat[n:2 * n], flat[2 * n:3 * n]
+        sr = config.stochastic_rounding
+        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None)
+        outs = []
+        for i, (w, rq, rs) in enumerate(zip(ws, row_qs, row_ss)):
+            rq, rs = _row_view(w, rq, rs, sr, fold_in(_subkey(key, 4), i) if sr else None)
+            outs.append(scaled_mm_general(x_row, rq, x_row_s, rs, dims=(1, 1), out_dtype=x2d.dtype))
+        ctx.config, ctx.key, ctx.n = config, key, n
+        ctx.save_for_backward(x2d, *ws, *flat[3 * n:])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n, key = ctx.n, ctx.key
+        x2d, *rest = ctx.saved_tensors
+        ws, col_qs, col_ss = rest[:n], rest[n:2 * n], rest[2 * n:]
+        sr = ctx.config.stochastic_rounding
+        x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr,
+                                       key=fold_in(_subkey(key, 2), 0) if sr else None)
+        grad_input, grad_ws = None, []
+        for i, (w, cq, cs, g) in enumerate(zip(ws, col_qs, col_ss, gs)):
+            cq, cs = _col_view(w, cq, cs, sr, fold_in(_subkey(key, 5), i) if sr else None)
+            kg = _subkey(fold_in(_subkey(key, 3), i), 0) if sr else None
+            g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g.to(x2d.dtype), stochastic_rounding=sr, key=kg)
+            gi = scaled_mm_general(g_row, cq, g_row_s, cs, dims=(1, 0), out_dtype=w.dtype)
+            grad_input = gi if grad_input is None else grad_input + gi
+            grad_ws.append(scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype))
+        return None, None, None, grad_input, *grad_ws, *(None,) * (4 * n)

@@ -30,6 +30,7 @@ import torch
 from quantized_training_tpu_torch import ops, quant, train
 from quantized_training_tpu_torch.benchmark_mm import within_rounding
 from quantized_training_tpu_torch.models import vit
+from quantized_training_tpu_torch.quant import mixed_precision as MP
 from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
@@ -1636,3 +1637,81 @@ def test_storage_step_card_vs_cpu(monkeypatch, scheme, kw):
 
 def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+# ---- per-step weight pre-quantization, the int8 conv, MX -----------------------------
+
+
+@pytest.mark.parametrize("sr", [False, True], ids=["rn", "sr"])
+@pytest.mark.parametrize("shape", [(2048, 2048), (256, 2048), (5632, 2048), (2048, 5632)])
+def test_b5_at_the_weight_shapes(shape, sr):
+    """B5 at the Llama2-1B weights (QT_PREQUANT=both quantizes them), RN
+    and SR: bit-exact with its plain version, one launch."""
+    w = _rand(shape, torch.bfloat16, 40) * 0.01
+    w[0], w[:, 1] = 0, 0
+    kw = {"sr": True, "key": 9} if sr else {}
+    ops.reset_launch_counts()
+    got = ops.quantize_int8_both(w, **kw)
+    assert ops.launch_counts()["quantize_int8_both_sr" if sr else "quantize_int8_both"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(got, ops.quantize_int8_both_plain(w, **kw)))
+
+
+@pytest.mark.parametrize("mode", ["both", "row", "col"])
+def test_prequantized_views_on_the_card(mode):
+    """prequantize_weight on a stacked [3, 256, 2048] bf16 weight: one
+    launch a layer (B5, K1 or B4), the views the CPU's bit for bit."""
+    w = _rand((3, 256, 2048), torch.bfloat16, 41) * 0.01
+    cfg = quant.MixedPrecisionConfig()
+    ops.reset_launch_counts()
+    got = MP.prequantize_weight(MixedPrecisionWeight(w, cfg), mode=mode)
+    name = {"both": "quantize_int8_both", "row": "quantize_int8_rowwise", "col": "quantize_int8_colwise"}[mode]
+    counts = ops.launch_counts()
+    assert counts[name] == 3 and sum(counts[k] for k in ("quantize_int8_both", "quantize_int8_rowwise",
+                                                          "quantize_int8_colwise")) == 3
+    want = MP.prequantize_weight(MixedPrecisionWeight(w.cpu(), cfg), mode=mode)
+    for f in MP.PreQuantMPWeight.data_fields[1:]:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("case", [(2, 17, 19, 3, 64, 3, 2, 1), (2, 16, 16, 64, 128, 3, 1, 1),
+                                  (1, 14, 14, 256, 512, 3, 2, 0), (4, 9, 9, 8, 24, 1, 1, 0)])
+def test_int8_convs_on_the_card(case):
+    """int8_conv2d (B17's int8 form) and scaled_int8_conv2d (K2) on the card
+    equal the CPU's (the GEMMs' plain versions) bit for bit, one launch
+    each: a C = 3 stem, a 3 x 3 conv, a stride-2 conv at padding 0, a 1 x 1
+    conv with a ragged width."""
+    B, H, W, C, O, k, s, p = case
+    g = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.randint(-128, 128, (B, H, W, C), generator=g, device="cuda", dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, k, C, O), generator=g, device="cuda", dtype=torch.int8)
+    cs = torch.rand(O, generator=g, device="cuda") * 0.01
+    ops.reset_launch_counts()
+    got, got_s = ops.int8_conv2d(x, w, s, p), ops.scaled_int8_conv2d(x, w, cs, s, p)
+    counts = ops.launch_counts()
+    assert counts["matmul_s8"] == 1 and counts["scaled_mm_rhs_t"] == 1
+    assert torch.equal(got.cpu(), ops.int8_conv2d(x.cpu(), w.cpu(), s, p))
+    assert torch.equal(got_s.cpu(), ops.scaled_int8_conv2d(x.cpu(), w.cpu(), cs.cpu(), s, p))
+
+
+def test_mx_on_the_card_equals_the_cpu():
+    """quantize_mx (fp4, e4m3, e5m2; OCP and NV), quantize_nvfp4 and the
+    dequantizes on the card: the CPU's bytes; the fp4 products within the
+    fp32-sum bound of the float64 product of the dequantized operands."""
+    mx = importlib.import_module("quantized_training_tpu_torch.ops.mx")
+    x = _rand((256, 512), torch.float32, 43) * 10.0 ** torch.arange(-3, 5, device="cuda").repeat(32)[:, None]
+    x[0, :6] = torch.tensor([6.0, 7.0, 448.0, 500.0, 57344.0, 1e5], device="cuda")
+    raw = lambda t: t.cpu().view(torch.uint8) if t.element_size() == 1 else t.cpu().view(torch.int32)
+    for dt in ("fp4", torch.float8_e4m3fn, torch.float8_e5m2):
+        for method in ("ocp", "nv"):
+            for a, b in zip(mx.quantize_mx(x, dt, method), mx.quantize_mx(x.cpu(), dt, method)):
+                assert torch.equal(raw(a), raw(b)), (dt, method)
+    got, want = mx.quantize_nvfp4(x), mx.quantize_nvfp4(x.cpu())
+    assert all(torch.equal(raw(a), raw(b)) for a, b in zip(got, want))
+    assert torch.equal(raw(mx.dequantize_nvfp4(*got)), raw(mx.dequantize_nvfp4(*want)))
+    a, b = _rand((128, 512), torch.float32, 44), _rand((96, 512), torch.float32, 45)
+    (aq, sa), (bq, sb) = mx.quantize_mx(a, "fp4"), mx.quantize_mx(b, "fp4")
+    ops.reset_launch_counts()
+    out = mx.mxfp4_mm(aq, bq, sa, sb, out_dtype=torch.float32)
+    assert ops.launch_counts()["matmul"] == 1
+    af, bf = mx.dequantize_mxfp4(aq, sa), mx.dequantize_mxfp4(bq, sb)
+    assert ((out.double() - af.double() @ bf.double().T).abs() <= MATMUL.fp32_sum_bound(af, bf.T)).all()

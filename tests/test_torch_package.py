@@ -25,7 +25,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import quantized_training_tpu_torch as p\n"
         "from quantized_training_tpu_torch.models import serving, vit\n"
-        "from quantized_training_tpu_torch import data, llm_evaluate, llm_pretrain, vit_train\n"
+        "from quantized_training_tpu_torch import benchmark_conv2d, data, llm_evaluate, llm_pretrain, vit_train\n"
+        "from quantized_training_tpu_torch.ops import conv, mx\n"
         "from quantized_training_tpu_torch.data import native_loader\n"
         "from quantized_training_tpu_torch.utils import logging\n"
         "from quantized_training_tpu_torch.ops import _build\n"
@@ -47,7 +48,8 @@ def test_no_file_imports_jax():
     names = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
     assert {"vit_train.py", "models/vit.py", "data/image.py", "data/shuffle.py", "utils/logging.py", "llm_pretrain.py",
             "llm_evaluate.py", "data/text.py", "data/tokenizers.py", "data/native_loader.py",
-            "optim/schedule_free.py", "optim/state8bit.py", "utils/checkpoint.py"} <= names
+            "optim/schedule_free.py", "optim/state8bit.py", "utils/checkpoint.py", "ops/mx.py", "ops/conv.py",
+            "benchmark_conv2d.py"} <= names
 
 
 def test_kernel_sources_present():
