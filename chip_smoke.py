@@ -195,6 +195,29 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    on the card equal to the CPU's bytes, ``mxfp4_mm`` / ``nvfp4_mm`` (B17
    bf16) within the fp32-sum bound. Every entry gains the phase's launches:
    ``prequant_launches`` (the steps), ``conv_launches``, ``mx_launches``.
+17. the rest of the LLM workflow at Llama-2-470m (full width and depth,
+   int8 ``mixed_precision`` on the fused layer), through the drivers'
+   ``main(argv)``: (a) ``tokenize_data --tokenizer byte`` on a text file
+   the phase writes, into shards of 32,768 tokens (at least 2, their
+   tokens the text's bytes with bos and eos, a second run leaving them as
+   they are), then 2 ``llm_pretrain`` steps on them (batch 4 x 2048,
+   remat): each step's launches ``pretrain_per_step_launches``; (b)
+   ``llm_finetune --init_ckpt`` (a)'s checkpoint on byte-tokenized rows the
+   phase writes, batch 4, ``adamw_bf16_sr``, 6 steps at padded lengths of
+   at least 3 values in 256-2048: the first step enters with the
+   checkpoint's parameters bit for bit, every step launches
+   ``finetune_per_step_launches`` at its length, finite losses, the
+   model-only checkpoint holds the final parameters; tokens/s and the wall
+   of each step; (c) ``llm_evaluate --ckpt`` (b)'s checkpoint, ``--tasks
+   hellaswag arc piqa`` (byte) and ``--tasks mc`` on the Markov set
+   (``ints``), on files the phase writes: every predict batch launches
+   ``eval_forward_launches`` at its shape, the parameters load bit for
+   bit; a 2-layer cut's per-choice summed losses on the card against the
+   CPU's plain path (``CUT_MAX_RMS``, ``CUT_MIN_AGREE``); (d)
+   ``accuracy_parity`` at ``PARITY_STEPS`` steps and 400 rows: bf16 at
+   least 0.90 accurate, each quantized configuration within 0.02 of it and
+   its final loss within 0.02 nats. Every entry gains the phase's launches
+   (``task_launches``).
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -232,14 +255,16 @@ from functools import partial
 import numpy as np
 import torch
 
-from quantized_training_tpu_torch import (benchmark_conv2d, benchmark_mm, llm_evaluate, llm_pretrain, ops, optim, quant,
+from quantized_training_tpu_torch import (accuracy_parity, benchmark_conv2d, benchmark_mm, hellaswag, llm_evaluate,
+                                          llm_finetune, llm_pretrain, mc_eval, ops, optim, quant, tokenize_data,
                                           train, vit_train)
-from quantized_training_tpu_torch.data import BatchLoader, MarkovTokenDataset, SyntheticImageDataset
+from quantized_training_tpu_torch.data import BatchLoader, MarkovTokenDataset, SyntheticImageDataset, get_tokenizer
 from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops.fp8 import quantize_fp8_block, quantize_fp8_tile
 from quantized_training_tpu_torch.quant.core import quantize_int4_rowwise_absmax
+from quantized_training_tpu_torch.utils import load_checkpoint
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
 from quantized_training_tpu_torch.utils.tree import tree_leaves
 
@@ -252,6 +277,7 @@ IQ = importlib.import_module("quantized_training_tpu_torch.ops.int8_quant")
 ROPE = importlib.import_module("quantized_training_tpu_torch.ops.rope")
 INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
+FUSED = importlib.import_module("quantized_training_tpu_torch.quant.fused")
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
 MIX_BUDGETS = (16, 32, 48, 64)
@@ -2557,9 +2583,10 @@ def pretrain_per_step_launches(cfg: llama.LlamaConfig, tokens: int) -> dict:
 
 class StepLaunches:
     """While it is entered, every train step a driver builds through
-    ``train.make_train_step`` checks its launches against ``expect`` and
-    adds them to ``total``; ``before``, where given, sees each step's
-    arguments (state, tokens, labels, lr, key) before the step runs."""
+    ``train.make_train_step`` checks its launches against ``expect`` (a
+    dict, or a function of the step's arguments that gives one) and adds
+    them to ``total``; ``before``, where given, sees each step's arguments
+    (state, tokens, labels, lr, key) before the step runs."""
 
     def __init__(self, expect: dict, before=None):
         self.expect, self.before, self.steps = expect, before, 0
@@ -2578,7 +2605,8 @@ class StepLaunches:
                 out = step(*step_args)
                 counts = ops.launch_counts()
                 self.steps += 1
-                check(counts == self.expect, f"driver step {self.steps} launches {counts} == {self.expect}")
+                want = self.expect(*step_args) if callable(self.expect) else self.expect
+                check(counts == want, f"driver step {self.steps} launches {counts} == {want}")
                 self.total = {k: self.total[k] + v for k, v in counts.items()}
                 return out
 
@@ -2600,14 +2628,14 @@ def run_driver(main, argv: list[str]):
     return out, time.perf_counter() - t0
 
 
-def pretrain_report(name: str, out: dict, seconds: float) -> dict:
+def pretrain_report(name: str, out: dict, seconds: float, phase: int = 15) -> dict:
     """One driver run's line: losses by step, tokens/s of each step after
     the run's first (the driver's, after a sync), its peak device memory,
     the wait for the first batch and the run's seconds."""
     rows = [json.loads(l) for l in open(os.path.join(out["save_dir"], "metrics.jsonl"))]
     losses = {r["step"]: r["loss"] for r in rows}
     tps = [r["tokens_per_second"] for r in rows[1:]]
-    print(f"[15] {name}: losses {losses}; tokens/s after the first step {[round(t, 1) for t in tps]} "
+    print(f"[{phase}] {name}: losses {losses}; tokens/s after the first step {[round(t, 1) for t in tps]} "
           f"(median {float(np.median(tps)) if tps else float('nan'):.1f}); peak device memory "
           f"{rows[-1]['peak_memory_gb']:.2f} GB; first batch after {out['first_batch_s']:.2f} s; {seconds:.1f} s",
           flush=True)
@@ -3244,6 +3272,402 @@ def prequant_conv_mx(raw, seed: int, key: int, kernels: list) -> None:
     print(f"[16] QT_PREQUANT, conv and MX: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---- phase 17: tokenize, pretrain, finetune, evaluate on tasks, accuracy parity
+
+# phase 17's files: the text, its shards, the finetune rows and the task sets
+# under build/, the runs under runs/ (both ignored by git), removed after
+TASK_DIR = os.path.join("build", "chip_smoke_tasks")
+FINETUNE_B = 4
+FINETUNE_STEPS = 6
+# the 2-layer cut's per-choice summed losses, card against the CPU's plain
+# path: the relative RMS of the difference (the kernels are bit-exact with
+# their plain versions, so only attention, the norms and the bf16 lm_head
+# round otherwise; phase 5's logits differ by up to 1e-1 relative RMS in
+# bf16, a sum over a continuation averages that down), and the share of
+# rows whose argmin may differ (random weights leave near-ties)
+CUT_MAX_RMS = 1e-2
+CUT_MIN_AGREE = 0.75
+# accuracy_parity's steps in the phase and its bars: its default of 1200
+# steps took 240.6 s on the H100 (fp8 row's plain-torch quantizes 78 ms a
+# step), so the phase runs 400, where the four configurations' losses met
+# within 6.4e-3 nats in that run; the default runs as a command of its own
+# (PERF.md)
+PARITY_STEPS = 400
+PARITY_MIN_BF16, PARITY_MAX_DACC, PARITY_MAX_DLOSS = 0.90, 0.02, 0.02
+WORDS = ("the", "a", "man", "woman", "dog", "ball", "runs", "throws", "into", "water", "slowly", "then", "kitchen",
+         "knife", "cuts", "onion", "smiles", "garden", "rain", "falls", "child", "reads", "book", "under", "tree",
+         "and", "while", "quickly", "river", "boat")
+
+
+def fused_takes(M: int, K: int, n_inputs: int = 1) -> bool:
+    """Whether the fused layer's ops take [M, K] bf16 inputs on the card
+    (``quant/fused.py::_fused_ok``)."""
+    return FP.supported(FUSED._padded_rows(M), K, torch.bfloat16, n_inputs)
+
+
+def eval_forward_launches(cfg: llama.LlamaConfig, n_seq: int, S: int) -> dict:
+    """Kernel launches of one ``llama.forward`` of ``cfg`` (int8
+    ``mixed_precision``, no grad, the grouped pipeline) on [n_seq, S]
+    tokens, M = n_seq * S rows, as the code gates each op (pinned on the CPU
+    by tests/test_torch_eval_tasks.py): per layer q/k/v through B7 where the
+    fused ops take [M, D], else K1 on the input; K1 on each weight and K2 per
+    linear (7); rope_group 3; the o-projection through B14's absmax and
+    row quantize where ``attn_out_linear`` fuses (M % 256, S % 8, the
+    heads), else rope_ungroup and K1 on its input; the MLP as one op (B7,
+    B9-row) where it fuses at [M, D] and [M, F], else gate/up as q/k/v and
+    down through B9-row or K1 on its input. Each sm90 counter from its
+    route at these shapes; the bf16 lm_head launches none."""
+    L, D, F, hd = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    H, KV = cfg.num_attention_heads, cfg.num_key_value_heads
+    M, bf = n_seq * S, torch.bfloat16
+    counts = dict.fromkeys(ops.KERNELS, 0)
+
+    def add(name, route=None):
+        counts[name] += L
+        if route is not None:
+            counts[f"{name}_sm90"] += L * int(bool(route))
+
+    def inputs(K: int, producer: str | None, route):
+        """The input of a group of linears: its fused producer, else K1."""
+        if producer:
+            add(producer, route)
+        else:
+            add("quantize_int8_rowwise", IQ.rowwise_sm90_route(M, K, bf))
+
+    def linear(o: int, i: int):
+        add("quantize_int8_rowwise", IQ.rowwise_sm90_route(o, i, bf))
+        add("scaled_mm_rhs_t", SCALED_MM.sm90_route(M))
+
+    norm = "rmsnorm_quant_rowwise" if fused_takes(M, D) else None
+    inputs(D, norm, FP.norm_rows_sm90_route(D, bf))
+    for o in (H * hd, KV * hd, KV * hd):
+        linear(o, D)
+    counts["rope_group"] += 3 * L
+    if (H * hd) % 128 == 0 and M % 256 == 0 and ROPE._supported_heads(H, H // KV, hd, S) and fused_takes(M, H * hd):
+        add("ungroup_amax", ROPE.ungroup_sm90_route(H * hd, hd, bf))
+        add("ungroup_quant", ROPE.ungroup_sm90_route(H * hd, hd, bf))
+    else:
+        add("rope_ungroup")
+        inputs(H * hd, None, None)
+    linear(D, H * hd)
+    inputs(D, norm, FP.norm_rows_sm90_route(D, bf))
+    linear(F, D)
+    linear(F, D)
+    silu = (norm is not None and fused_takes(M, F, 3)) or fused_takes(M, F, 2)  # the one-op MLP, or down's op
+    inputs(F, "silu_mul_quant_rowwise" if silu else None, FP.silu_rows_sm90_route(F, bf))
+    linear(D, F)
+    return counts
+
+
+def finetune_per_step_launches(cfg: llama.LlamaConfig, batch: int, S: int, n_leaves: int) -> dict:
+    """Kernel launches of one ``llm_finetune`` step on a [batch, S] batch
+    (S a multiple of 256: the fused layer throughout, remat): the 470m
+    pretrain step's (``pretrain_per_step_launches`` at batch * S tokens) and
+    B6's SR form once a parameter leaf (``adamw_bf16_sr``). Pinned on the
+    CPU by tests/test_torch_llm_finetune.py."""
+    counts = pretrain_per_step_launches(cfg, batch * S)
+    counts["fused_adamw_update_sr"] = n_leaves
+    return counts
+
+
+def write_text(seed: int, n_lines: int = 500) -> str:
+    """A text file of ``n_lines`` documents of 8-40 words from ``WORDS``."""
+    rng = np.random.default_rng(seed)
+    path = os.path.join(TASK_DIR, "corpus.txt")
+    with open(path, "w") as f:
+        for _ in range(n_lines):
+            f.write(" ".join(rng.choice(WORDS, int(rng.integers(8, 41)))) + "\n")
+    return path
+
+
+def tokenize_and_pretrain(seed: int, cfg: llama.LlamaConfig) -> tuple[str, dict]:
+    """Phase 17 (a): ``tokenize_data --dataset textfile --tokenizer byte``
+    into shards of 32,768 tokens (at least 2; a second run leaves the
+    complete directory as it is), then ``llm_pretrain`` for 2 steps on them
+    at the 470m, int8 fused, remat, batch 4 x 2048, each step's launches
+    ``pretrain_per_step_launches``. Returns the checkpoint and the
+    launches."""
+    t0 = time.perf_counter()
+    text = write_text(seed)
+    shards = os.path.join(TASK_DIR, "shards")
+    argv = ["--dataset", "textfile", "--input", text, "--save_dir", shards, "--tokenizer", "byte",
+            "--shard_size", "32768"]
+    tokenize_data.main(argv)
+    files = sorted(f for f in os.listdir(shards) if f.endswith(".bin"))
+    sizes = [os.path.getsize(os.path.join(shards, f)) // 2 for f in files]
+    with open(text) as f:
+        want = sum(len(line.strip().encode()) + 2 for line in f if line.strip())
+    dtype = open(os.path.join(shards, "dtype.txt")).read()
+    stamps = {f: os.stat(os.path.join(shards, f)).st_mtime_ns for f in files}
+    tokenize_data.main(argv)
+    same = stamps == {f: os.stat(os.path.join(shards, f)).st_mtime_ns for f in files}
+    print(f"[17] tokenize_data: {len(files)} shards of {sizes} tokens ({sum(sizes)}, the text's {want} bytes with "
+          f"bos and eos), dtype {dtype}, COMPLETE {os.path.exists(os.path.join(shards, 'COMPLETE'))}, a second run "
+          f"left them as they were: {same}; {time.perf_counter() - t0:.2f} s", flush=True)
+    check(len(files) >= 2 and sum(sizes) == want and dtype == "uint16" and same, "tokenize_data's shards")
+    argv = ["--model", PRETRAIN_MODEL, "--quantize", "mixed_precision", "--activation_checkpointing",
+            "--batch_size", str(TRAIN_B), "--seq_len", str(TRAIN_S), "--log_interval", "1", "--seed", str(seed),
+            "--train_ds", json.dumps({"type": "token", "dataset_dir": shards}), "--n_steps", "2",
+            "--ckpt_interval", "2", "--save_dir", PRETRAIN_SAVE, "--run_name", "tokenized", *device_args()]
+    with StepLaunches(pretrain_per_step_launches(cfg, TOKENS)) as counter:
+        out, seconds = run_driver(llm_pretrain.main, argv)
+    pretrain_report("llm_pretrain on the tokenized shards", out, seconds, phase=17)
+    check(counter.steps == 2, f"2 pretrain steps ran: {counter.steps}")
+    ckpt = os.path.join(out["save_dir"], "last.pkl")
+    del out
+    torch.cuda.empty_cache()
+    return ckpt, counter.total
+
+
+def finetune_rows(seed: int) -> list:
+    """12 ``{"query", "response"}`` rows whose templates run to about 200,
+    700 and 1,900 bytes: 9 short, 2 of the middle length, 1 long, so that
+    the padded batches take several lengths."""
+    rng = np.random.default_rng(seed)
+    words = lambda n: " ".join(rng.choice(WORDS, n))
+    return [{"query": words(4), "response": words(n)} for n in [2] * 9 + [80] * 2 + [280]]
+
+
+def finetune(seed: int, cfg: llama.LlamaConfig, init_ckpt: str) -> tuple[str, dict, object]:
+    """Phase 17 (b): ``llm_finetune --init_ckpt`` (a)'s checkpoint at the
+    470m, byte-tokenized local rows, int8 ``mixed_precision``, batch 4,
+    ``adamw_bf16_sr``, ``FINETUNE_STEPS`` steps: the first step enters with
+    the checkpoint's parameters bit for bit, the padded lengths take at
+    least 3 values in 256-2048, every step launches
+    ``finetune_per_step_launches`` at its length, every loss is finite, and
+    the model-only checkpoint holds the final parameters. Prints tokens/s
+    and the wall of each step (the driver's, between its logs). Returns the
+    checkpoint, the launches and the final parameters."""
+    path = os.path.join(TASK_DIR, "finetune.jsonl")
+    with open(path, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in finetune_rows(seed))
+    samples = llm_finetune.load_samples(argparse.Namespace(dataset=path, max_seq_len=2048, model_kwargs={}),
+                                        get_tokenizer("byte"))
+    it = llm_finetune.data_iter(samples, FINETUNE_B, 256, seed)
+    lengths = [next(it)[0].shape[1] for _ in range(FINETUNE_STEPS)]
+    print(f"[17] finetune rows of {sorted(len(s) for s in samples)} tokens; padded lengths by step {lengths}")
+    check(len(set(lengths)) >= 3, f"the finetune batches take at least 3 lengths: {lengths}")
+    saved = load_checkpoint(init_ckpt, DEVICE)["state"][0]
+    n_leaves = len(tree_leaves(quant.virtual_params(saved)))
+    entered = []
+
+    def before(state, tokens, labels, lr, key):
+        if not entered:
+            entered.append(same_leaves(state.params, saved))
+
+    expect = lambda state, tokens, *rest: finetune_per_step_launches(cfg, tokens.shape[0], tokens.shape[1], n_leaves)
+    argv = ["--model", PRETRAIN_MODEL, "--init_ckpt", init_ckpt, "--dataset", path, "--tokenizer", "byte",
+            "--quantize", "mixed_precision", "--batch_size", str(FINETUNE_B), "--optim", "adamw_bf16_sr",
+            "--n_steps", str(FINETUNE_STEPS), "--log_interval", "1", "--ckpt_interval", str(FINETUNE_STEPS),
+            "--seed", str(seed), "--run_name", "chip_smoke", *device_args()]
+    with StepLaunches(expect, before) as counter:
+        out, seconds = run_driver(llm_finetune.main, argv)
+    del saved
+    rows = [json.loads(l) for l in open(os.path.join(out["save_dir"], "metrics.jsonl"))]
+    for r in rows:
+        print(f"[17] llm_finetune step {r['step']}: seq_len {r['seq_len']}, loss {r['loss']:.6f}, grad norm "
+              f"{r['grad_norm']:.4f}, {1e3 / r['steps_per_second']:.1f} ms, "
+              f"{FINETUNE_B * r['seq_len'] * r['steps_per_second']:.1f} tokens/s")
+    print(f"[17] llm_finetune: the first step entered with the checkpoint's parameters bit for bit: {entered}; "
+          f"{seconds:.1f} s", flush=True)
+    check(entered == [True], "llm_finetune --init_ckpt loads the checkpoint's parameters bit for bit")
+    check(counter.steps == FINETUNE_STEPS and [r["seq_len"] for r in rows] == lengths,
+          f"{FINETUNE_STEPS} finetune steps at {lengths}")
+    check(all(np.isfinite(r["loss"]) for r in rows), "finite finetune losses")
+    ckpt = os.path.join(out["save_dir"], "last.pkl")
+    model = load_checkpoint(ckpt, DEVICE)
+    check(set(model) == {"state", "meta"} and set(model["state"]) == {"params"} and
+          model["meta"] == {"step": FINETUNE_STEPS} and same_leaves(model["state"]["params"], out["state"].params),
+          "the model-only checkpoint holds the final parameters")
+    final = out["state"].params
+    del out, model
+    torch.cuda.empty_cache()
+    return ckpt, counter.total, final
+
+
+def hellaswag_rows(seed: int, n: int) -> list:
+    """HellaSwag rows in the hub's schema, every ending's sequence at most
+    193 bytes."""
+    rng = np.random.default_rng(seed)
+    words = lambda lo, hi: " ".join(rng.choice(WORDS, int(rng.integers(lo, hi))))
+    return [{"activity_label": words(1, 3).capitalize(), "ctx_a": words(4, 10) + " [title]", "ctx_b": words(1, 5),
+             "endings": [words(1, 9) for _ in range(4)], "label": int(rng.integers(0, 4))} for _ in range(n)]
+
+
+def arc_piqa_rows(seed: int, n: int) -> list:
+    """Rows that hold an ARC row (HF schema: ``question``, ``choices``
+    {``text``, ``label``}, ``answerKey``) and a PIQA row (``goal``, ``sol1``,
+    ``sol2``, ``label``) at once: one ``--task_data`` for both tasks."""
+    rng = np.random.default_rng(seed)
+    words = lambda lo, hi: " ".join(rng.choice(WORDS, int(rng.integers(lo, hi))))
+    rows = []
+    for _ in range(n):
+        k = int(rng.integers(3, 6))
+        rows.append({"question": words(3, 9) + "?", "choices": {"text": [words(1, 6) for _ in range(k)],
+                                                                "label": list("ABCDE"[:k])},
+                     "answerKey": "ABCDE"[int(rng.integers(0, k))], "goal": words(2, 7), "sol1": words(1, 9),
+                     "sol2": words(1, 9), "label": int(rng.integers(0, 2))})
+    return rows
+
+
+def write_task_sets(seed: int, cfg: llama.LlamaConfig) -> dict:
+    """Phase 17's task files: 16 HellaSwag rows, 16 ARC/PIQA rows, 32 rows
+    of the Markov set over ``cfg``'s vocabulary (48 + 8 tokens)."""
+    paths = {k: os.path.join(TASK_DIR, f"{k}.jsonl") for k in ("hellaswag", "arc_piqa", "mc")}
+    for k, rows in (("hellaswag", hellaswag_rows(seed, 16)), ("arc_piqa", arc_piqa_rows(seed + 1, 16))):
+        with open(paths[k], "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+    mc_eval.generate_markov_mc(paths["mc"], n_rows=32, vocab_size=cfg.vocab_size, seed=seed)
+    return paths
+
+
+class ForwardLaunches:
+    """While it is entered, every ``llama.forward`` checks its launches
+    against ``eval_forward_launches`` at its tokens' shape and adds them to
+    ``total``."""
+
+    def __init__(self, cfg: llama.LlamaConfig):
+        self.cfg, self.calls, self.shapes = cfg, 0, set()
+        self.total = dict.fromkeys(ops.KERNELS, 0)
+
+    def __enter__(self):
+        self.forward = llama.forward
+
+        def forward(params, tokens, cfg, key=None):
+            ops.reset_launch_counts()
+            out = self.forward(params, tokens, cfg, key)
+            counts, want = ops.launch_counts(), eval_forward_launches(self.cfg, *tokens.shape)
+            self.calls += 1
+            self.shapes.add(tuple(tokens.shape))
+            check(counts == want, f"predict batch {self.calls} {list(tokens.shape)} launches {counts} == {want}")
+            self.total = {k: self.total[k] + v for k, v in counts.items()}
+            return out
+
+        llama.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        llama.forward = self.forward
+
+
+def evaluate_tasks(cfg: llama.LlamaConfig, ckpt: str, final, paths: dict) -> dict:
+    """Phase 17 (c): ``llm_evaluate --ckpt`` (b)'s model-only checkpoint,
+    ``--tasks hellaswag arc piqa`` with the byte tokenizer, then ``--tasks
+    mc`` on the Markov set with ``--hellaswag_tokenizer ints``, batch 8: the
+    loaded parameters are (b)'s final ones bit for bit, each predict batch
+    launches ``eval_forward_launches`` at its shape, the accuracies lie in
+    [0, 1]. Returns the launches."""
+    results = {}
+    with ForwardLaunches(cfg) as counter:
+        for extra in (["--tasks", "hellaswag", "arc", "piqa", "--hellaswag_data", paths["hellaswag"], "--task_data",
+                       paths["arc_piqa"], "--hellaswag_tokenizer", "byte"],
+                      ["--tasks", "mc", "--task_data", paths["mc"], "--hellaswag_tokenizer", "ints"]):
+            out, seconds = run_driver(llm_evaluate.main, ["--model", PRETRAIN_MODEL, "--quantize", "mixed_precision",
+                                                          "--ckpt", ckpt, "--batch_size", "8", *extra,
+                                                          *device_args()])
+            same = same_leaves(out["params"], final)
+            print(f"[17] llm_evaluate {' '.join(extra[1:extra.index('--hellaswag_tokenizer') + 2])}: "
+                  f"{out['results']}; loaded parameters bit-identical to the finetune's final ones: {same}; "
+                  f"{seconds:.1f} s", flush=True)
+            check(same, "llm_evaluate loads the finetune checkpoint bit for bit")
+            results.update(out["results"])
+            del out
+    print(f"[17] {counter.calls} predict batches at {sorted(counter.shapes)}, each launching exactly "
+          "eval_forward_launches")
+    check(set(results) == {"hellaswag_acc", "arc_acc", "piqa_acc", "mc_acc"} and
+          all(0.0 <= v <= 1.0 for v in results.values()), f"four task accuracies: {results}")
+    torch.cuda.empty_cache()
+    return counter.total
+
+
+def tasks_vs_plain(seed: int, base: llama.LlamaConfig, paths: dict) -> None:
+    """Phase 17 (c), a 2-layer cut of the 470m (full width, weights from
+    ``seed``, int8 ``mixed_precision``): the per-choice summed losses of the
+    Markov set's first 8 rows ([32, 55] tokens: the fused norm and MLP, the
+    o-projection unfused at S 55) and of 4 HellaSwag rows ([16, 192]: every
+    op fused) on the card against the CPU's plain path. Bounds: relative
+    RMS of the difference <= ``CUT_MAX_RMS``; argmins equal on at least
+    ``CUT_MIN_AGREE`` of the rows."""
+    cfg = dataclasses.replace(base, num_hidden_layers=2)
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg)
+    to_cpu = lambda t: {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+    p = {DEVICE: quant.quantize_params(raw, "mixed_precision"),
+         "cpu": quant.quantize_params(to_cpu(raw), "mixed_precision")}
+    rows = mc_eval.load_rows(paths["mc"])[:8]
+    mc = [torch.from_numpy(a) for a in mc_eval.tokenize_mc(rows, mc_eval.FORMATS["mc"], mc_eval.int_tokenizer)]
+    hs, _ = hellaswag.tokenize_rows(hellaswag._load_rows("validation", paths["hellaswag"])[:4], get_tokenizer("byte"))
+    hs = torch.from_numpy(hs)
+    for what, fn in (("Markov mc", lambda dev: mc_eval.choice_losses(p[dev], cfg, mc[0].to(dev), mc[1].to(dev),
+                                                                       mc[3].to(dev))),
+                     ("HellaSwag", lambda dev: hellaswag.choice_losses(p[dev], cfg, hs.to(dev)))):
+        got, ref = fn(DEVICE).cpu().double(), fn("cpu").double()
+        rms = ((got - ref).norm() / ref.norm()).item()
+        agree = (got.argmin(-1) == ref.argmin(-1)).double().mean().item()
+        gaps = ref.sort(-1).values
+        print(f"[17] 2-layer Llama-2-470m {what} per-choice losses {list(ref.shape)}, kernels on the card vs plain on "
+              f"the CPU: relative RMS {rms:.3e} (bound {CUT_MAX_RMS:g}), largest difference "
+              f"{(got - ref).abs().max().item():.4f}, smallest gap between a row's two best "
+              f"{(gaps[:, 1] - gaps[:, 0]).min().item():.4f}; argmin agree {agree:.3f} (bound {CUT_MIN_AGREE:g})")
+        check(rms <= CUT_MAX_RMS and agree >= CUT_MIN_AGREE, f"{what} losses of the 2-layer cut within the bounds")
+
+
+def parity_on_card() -> dict:
+    """Phase 17 (d): ``accuracy_parity`` at ``PARITY_STEPS`` steps and 400
+    rows: bf16's accuracy >= ``PARITY_MIN_BF16``; each quantized
+    configuration's within ``PARITY_MAX_DACC`` of bf16's and its final loss
+    within ``PARITY_MAX_DLOSS`` nats. Returns the launches."""
+    ops.reset_launch_counts()
+    out, seconds = run_driver(accuracy_parity.main, ["--steps", str(PARITY_STEPS), "--out",
+                                                     os.path.join(PRETRAIN_SAVE, "parity", "parity.json"),
+                                                     *device_args()])
+    launches = ops.launch_counts()
+    res = out["results"]
+    bf16 = res[0]
+    for r in res:
+        print(f"[17] accuracy_parity {r['config']}: accuracy {r['accuracy']:.4f}, final loss {r['final_loss']:.6f}, "
+              f"{r['train_s']} s (train and eval)")
+    print(f"[17] accuracy_parity, {PARITY_STEPS} steps, {out['eval_rows']} rows: {seconds:.1f} s", flush=True)
+    check(bf16["config"] == "bf16" and bf16["accuracy"] >= PARITY_MIN_BF16, f"bf16's accuracy {bf16['accuracy']}")
+    for r in res[1:]:
+        check(abs(r["accuracy"] - bf16["accuracy"]) <= PARITY_MAX_DACC and
+              abs(r["final_loss"] - bf16["final_loss"]) <= PARITY_MAX_DLOSS,
+              f"{r['config']} within {PARITY_MAX_DACC} of bf16's accuracy and {PARITY_MAX_DLOSS} of its loss")
+    return launches
+
+
+def tasks_phase(seed: int) -> dict:
+    """Phase 17: (a) tokenize and pretrain, (b) finetune, (c) evaluate and
+    the 2-layer cut, (d) accuracy parity; prints its seconds, removes its
+    files. Returns the launches of (a)-(d)."""
+    t0 = time.perf_counter()
+    for d in (PRETRAIN_SAVE, TASK_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(TASK_DIR)
+    base = llama.LlamaConfig.from_hf_json(PRETRAIN_MODEL)
+    cfg = dataclasses.replace(base, remat=True, max_position_embeddings=TRAIN_S)
+    finetune_dir = None
+    try:
+        ckpt, pretrained = tokenize_and_pretrain(seed, cfg)
+        ckpt, finetuned, final = finetune(seed, cfg, ckpt)
+        finetune_dir = os.path.dirname(ckpt)
+        paths = write_task_sets(seed, cfg)
+        evaluated = evaluate_tasks(cfg, ckpt, final, paths)
+        del final
+        tasks_vs_plain(SEED, base, paths)
+        t1 = time.perf_counter()
+        parity = parity_on_card()
+        print(f"[17] (a)-(c) {t1 - t0:.1f} s, (d) {time.perf_counter() - t1:.1f} s", flush=True)
+    finally:
+        for d in (PRETRAIN_SAVE, TASK_DIR, finetune_dir):
+            if d:
+                shutil.rmtree(d, ignore_errors=True)
+    launches = {k: pretrained[k] + finetuned[k] + evaluated[k] + parity[k] for k in pretrained}
+    missing = [k for k in PRETRAIN_KERNELS + ("fused_adamw_update_sr",) if not launches[k]]
+    check(not missing, f"phase 17 launched every kernel of its path, not {missing}")
+    print(f"[17] tokenize, pretrain, finetune, evaluate, parity: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def fill_launches(entries, launches: dict) -> None:
     """Each entry's launches on its path, and where the kernel has an sm90
     route, that route's share of them (``sm90_launches``)."""
@@ -3316,6 +3740,11 @@ def main() -> None:
             e["max_abs_err"] = max(e["max_abs_err"], *(r["max_abs_err"] for r in at_470m[e["name"]]))
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     prequant_conv_mx(raw, args.seed, key, kernels)
+    del raw
+    torch.cuda.empty_cache()
+    tasks = tasks_phase(args.seed)
+    for e in kernels:  # phase 17's launches, under a key of their own
+        e["task_launches"] = tasks.get(e["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,16 +6,25 @@ model (``--model``, ``--model_kwargs``, ``--seq_len``), quantized by
 checkpoint's weight wrappers replace wrappers of the same kind, then the
 tasks. ``perplexity`` runs ``train.make_eval_step`` over at most
 ``--max_batches`` batches of ``--eval_ds`` (a dataset JSON, its eval split)
-and reports ``exp`` of the mean loss. ``--generate N`` samples N tokens
-after a prompt of four zeros through ``llama_infer.generate`` (temperature
-0.8, a generator seeded with ``--seed``). The results print as JSON.
+and reports ``exp`` of the mean loss. ``hellaswag`` scores 4-choice
+accuracy (``hellaswag.evaluate_hellaswag``) on ``--hellaswag_data`` (a local
+JSON or JSONL file) or the hub's validation split, tokenized by
+``--hellaswag_tokenizer``. ``arc``, ``piqa`` and ``mc`` score
+``mc_eval.evaluate_mc`` on the local JSONL ``--task_data``, which they
+require, with the same tokenizer (``ints`` for token-id sets such as the
+Markov task) and at most ``--max_rows`` rows. Both take batches of
+``--batch_size`` rows. ``--generate N`` samples N tokens after a prompt of
+four zeros through ``llama_infer.generate`` (temperature 0.8, a generator
+seeded with ``--seed``). The results print as JSON.
 
-The ``hellaswag``, ``arc``, ``piqa`` and ``mc`` tasks are not ported
-(ROADMAP A14) and raise. It runs on the CUDA card unless ``--cpu`` is given,
-and raises without a card.
+It runs on the CUDA card unless ``--cpu`` is given, and raises without a
+card.
 
   python -m quantized_training_tpu_torch.llm_evaluate --ckpt runs/llm_pretrain/<run>/last.pkl \\
       --quantize mixed_precision --tasks perplexity --eval_ds '{"type": "markov"}'
+  python -m quantized_training_tpu_torch.llm_evaluate --ckpt runs/llm_finetune/<run>/last.pkl \\
+      --quantize mixed_precision --tasks hellaswag mc --hellaswag_data hellaswag.jsonl \\
+      --task_data mc.jsonl --hellaswag_tokenizer byte
 """
 
 from __future__ import annotations
@@ -26,13 +35,13 @@ import json
 import numpy as np
 import torch
 
-from . import quant, train
+from . import hellaswag, mc_eval, quant, train
 from .data import BatchLoader, get_dataset
 from .llm_pretrain import device_of, model_config
 from .models import llama, llama_infer
 from .utils import load_checkpoint
 
-UNPORTED_TASKS = ("hellaswag", "arc", "piqa", "mc")
+TASKS = ("perplexity", "hellaswag", "arc", "piqa", "mc")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -53,7 +62,7 @@ def _parser() -> argparse.ArgumentParser:
 
     parser.add_argument("--hellaswag_tokenizer", default="llama3")
     parser.add_argument("--hellaswag_data")
-    parser.add_argument("--task_data", help="local jsonl for arc/piqa/mc tasks (not ported, ROADMAP A14)")
+    parser.add_argument("--task_data", help="local jsonl for arc/piqa/mc tasks")
     parser.add_argument("--max_rows", type=int)
     parser.add_argument("--generate", type=int, default=0)
     parser.add_argument("--cpu", action="store_true")
@@ -61,15 +70,37 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def perplexity(args, cfg, qparams, device) -> dict:
+    """``exp`` of the mean ``make_eval_step`` loss over at most
+    ``--max_batches`` batches of ``--eval_ds``'s eval split."""
+    if args.eval_ds is None:
+        raise ValueError("--eval_ds is required for perplexity")
+    if args.eval_ds.get("type") == "synthetic":
+        args.eval_ds.setdefault("vocab_size", cfg.vocab_size)
+    loader = BatchLoader(get_dataset(seq_len=args.seq_len, eval=True, **args.eval_ds), batch_size=args.batch_size)
+    eval_step = train.make_eval_step(cfg)
+    total_loss, n = 0.0, 0
+    batches = iter(loader)
+    for i, (tokens, labels) in enumerate(batches):
+        if i >= args.max_batches:
+            break
+        total_loss += eval_step(qparams, torch.from_numpy(tokens).to(device),
+                                torch.from_numpy(labels).to(device)).item()
+        n += 1
+    batches.close()  # stops the prefetch thread
+    loss = total_loss / max(n, 1)
+    return {"perplexity": float(np.exp(loss)), "eval_loss": loss}
+
+
 def main(argv: list[str] | None = None) -> dict:
     """Runs the driver; returns the results and the evaluated parameters
     (``{"results", "params"}``) for a caller in the same process."""
     args = _parser().parse_args(argv)
     for task in args.tasks:
-        if task in UNPORTED_TASKS:
-            raise NotImplementedError(f"llm_evaluate: task {task!r} is not ported yet (ROADMAP A14)")
-        if task != "perplexity":
+        if task not in TASKS:
             raise ValueError(f"unknown task {task!r}")
+        if task in ("arc", "piqa", "mc") and not args.task_data:
+            raise ValueError(f"--task_data is required for {task}")
     device = device_of(args.cpu, "llm_evaluate")
     cfg = model_config(args.model, max_position_embeddings=args.seq_len, bitnet=args.quantize == "bitnet",
                        **args.model_kwargs)
@@ -84,25 +115,16 @@ def main(argv: list[str] | None = None) -> dict:
         print(f"loaded checkpoint {args.ckpt}")
 
     results = {}
-    if "perplexity" in args.tasks:
-        if args.eval_ds is None:
-            raise ValueError("--eval_ds is required for perplexity")
-        if args.eval_ds.get("type") == "synthetic":
-            args.eval_ds.setdefault("vocab_size", cfg.vocab_size)
-        loader = BatchLoader(get_dataset(seq_len=args.seq_len, eval=True, **args.eval_ds), batch_size=args.batch_size)
-        eval_step = train.make_eval_step(cfg)
-        total_loss, n = 0.0, 0
-        batches = iter(loader)
-        for i, (tokens, labels) in enumerate(batches):
-            if i >= args.max_batches:
-                break
-            total_loss += eval_step(qparams, torch.from_numpy(tokens).to(device),
-                                    torch.from_numpy(labels).to(device)).item()
-            n += 1
-        batches.close()  # stops the prefetch thread
-        loss = total_loss / max(n, 1)
-        results["perplexity"] = float(np.exp(loss))
-        results["eval_loss"] = loss
+    for task in args.tasks:
+        if task == "perplexity":
+            results.update(perplexity(args, cfg, qparams, device))
+        elif task == "hellaswag":
+            results["hellaswag_acc"] = hellaswag.evaluate_hellaswag(
+                qparams, cfg, args.hellaswag_tokenizer, data_path=args.hellaswag_data, batch_size=args.batch_size)
+        else:
+            results[f"{task}_acc"] = mc_eval.evaluate_mc(
+                qparams, cfg, task, args.task_data, tokenizer=args.hellaswag_tokenizer, batch_size=args.batch_size,
+                max_rows=args.max_rows)
 
     if args.generate:
         prompt = torch.zeros((1, 4), dtype=torch.int64, device=device)

@@ -14,13 +14,16 @@ step, and ``--resume`` restores all three. Every ``--log_interval`` steps
 the step has finished) and the peak device memory to stdout and to
 ``<save_dir>/<time>_<run_name>/metrics.jsonl``, beside ``args.json``.
 ``--profile`` runs at most 5 steps under ``torch.profiler`` and writes a
-Chrome trace into the run directory.
+Chrome trace into the run directory. ``--hellaswag`` scores HellaSwag every
+``--hellaswag_interval`` steps on the merged masters
+(``hellaswag.evaluate_hellaswag`` on the hub's validation split, tokenized
+by ``--hellaswag_tokenizer``), logs ``hellaswag_acc`` and prints it.
 
 Parameters come from ``torch.Generator(device).manual_seed(seed)``, and step
 i takes the key ``fold_in(seed, 1_000_000 + i)`` (an int key,
 ``ops/random.py``). It runs on the CUDA card unless ``--cpu`` is given, and
-raises without a card. ``--mesh`` (ROADMAP A13) and ``--hellaswag`` (A14)
-are not ported and raise at start-up.
+raises without a card. ``--mesh`` (ROADMAP A13) is not ported and raises
+at start-up.
 
   python -m quantized_training_tpu_torch.llm_pretrain --model mini_llamas/Llama-2-470m \\
       --quantize mixed_precision --activation_checkpointing \\
@@ -39,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import optim, quant, train
+from . import hellaswag, optim, quant, train
 from .data import BatchLoader, ShuffleDataset, get_dataset
 from .models import llama
 from .ops.random import fold_in
@@ -88,7 +91,7 @@ def _parser() -> argparse.ArgumentParser:
 
     parser.add_argument("--mesh", type=json.loads, help="not ported (ROADMAP A13)")
 
-    parser.add_argument("--hellaswag", action="store_true", help="not ported (ROADMAP A14)")
+    parser.add_argument("--hellaswag", action="store_true")
     parser.add_argument("--hellaswag_tokenizer", default="llama3")
     parser.add_argument("--hellaswag_interval", type=int, default=1000)
 
@@ -128,8 +131,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = _parser().parse_args(argv)
     if args.mesh:
         raise NotImplementedError("llm_pretrain: --mesh (DP/FSDP) is not ported yet (ROADMAP A13)")
-    if args.hellaswag:
-        raise NotImplementedError("llm_pretrain: --hellaswag is not ported yet (ROADMAP A14)")
     device = device_of(args.cpu, "llm_pretrain")
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()  # peak_memory_gb is this run's
@@ -220,6 +221,12 @@ def main(argv: list[str] | None = None) -> dict:
         if args.ckpt_interval > 0 and step % args.ckpt_interval == 0:
             save_checkpoint(save_dir / "last.pkl", {"state": state, "dloader": dloader.state_dict(),
                                                     "meta": {"step": step, "args": vars(args)}})
+
+        if args.hellaswag and step % args.hellaswag_interval == 0:
+            acc = hellaswag.evaluate_hellaswag(quant.merge_masters(quant.virtual_params(state.params), state.params),
+                                               cfg, args.hellaswag_tokenizer)
+            logger.log(dict(hellaswag_acc=acc), step)
+            print(f"step {step}: hellaswag_acc={acc:.4f}", flush=True)
 
     if profiler is not None:
         profiler.stop()

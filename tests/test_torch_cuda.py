@@ -1715,3 +1715,82 @@ def test_mx_on_the_card_equals_the_cpu():
     assert ops.launch_counts()["matmul"] == 1
     af, bf = mx.dequantize_mxfp4(aq, sa), mx.dequantize_mxfp4(bq, sb)
     assert ((out.double() - af.double() @ bf.double().T).abs() <= MATMUL.fp32_sum_bound(af, bf.T)).all()
+
+
+# ---- the task evaluation's forward and the finetune step -------------------------------
+
+TASK_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2)
+
+
+@pytest.mark.parametrize("n_seq,S", [(8, 29), (32, 55)])
+def test_eval_forward_at_short_sequences(n_seq, S):
+    """The no-grad forward of the multiple-choice predictors at their short,
+    ragged lengths (accuracy_parity's 29 and the Markov set's 55; M 232,
+    unfused, and 1,760, the norms and the MLP fused with the o-projection
+    unfused), int8 ``mixed_precision`` on the grouped pipeline, fp32: the
+    logits within chip_smoke.py phase 5's fp32 bounds of the CPU's plain
+    path (relative RMS 3e-2, argmax agreement 0.95; the CPU's own floor
+    with the embedding moved by one ulp: 4e-3 and 0.998), and the launches
+    exactly ``chip_smoke.py::eval_forward_launches``, sm90 counters too."""
+    import chip_smoke
+    from quantized_training_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.LlamaConfig(**TASK_CFG)
+    raw = llama.init_params(torch.Generator().manual_seed(0), cfg, dtype=torch.float32)
+    tokens = torch.randint(0, 512, (n_seq, S), generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        params = quant.quantize_params(_to(raw, dev), "mixed_precision")
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits[dev] = llama.forward(params, tokens.to(dev), cfg).float().cpu()
+        if dev == "cuda":
+            assert ops.launch_counts() == chip_smoke.eval_forward_launches(cfg, n_seq, S)
+    a, b = logits["cuda"], logits["cpu"]
+    assert ((a - b).norm() / b.norm()).item() <= 3e-2
+    assert (a.argmax(-1) == b.argmax(-1)).double().mean().item() >= 0.95
+
+
+@pytest.mark.parametrize("S", [256, 768])
+def test_finetune_step_at_padded_lengths(monkeypatch, S):
+    """One finetune batch (2 rows padded to S with -100 labels, the inputs
+    as their own labels, as ``llm_finetune.data_iter`` writes them), remat,
+    int8 fused: the loss and every gradient on the card within phase 7's
+    fp32 bounds of the CPU's plain versions (the fused ops in interpret
+    mode, the grouped pipeline forced; 1e-3 on the loss, 1.5e-1 relative RMS
+    a leaf); then one bf16 ``adamw_bf16_sr`` step on the card launching
+    exactly ``chip_smoke.py::finetune_per_step_launches`` with a finite
+    loss."""
+    import chip_smoke
+    from quantized_training_tpu_torch import llm_finetune, optim
+    from quantized_training_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama.LlamaConfig(**TASK_CFG, remat=True)
+    g = torch.Generator().manual_seed(2)
+    samples = [torch.randint(0, 512, (n,), generator=g).tolist() for n in (S - 100, S - 3)]
+    tok, lab = (torch.from_numpy(a) for a in next(llm_finetune.data_iter(samples, 2, 256, 0)))
+    assert tok.shape == (2, S) and (lab == -100).any()
+    raw = llama.init_params(torch.Generator().manual_seed(0), cfg, dtype=torch.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = quant.quantize_params(_to(raw, dev), "mixed_precision", filter_fn=llm_finetune.not_lm_head)
+        quant.set_impl("auto" if dev == "cuda" else "interpret")
+        monkeypatch.setenv("QT_FUSED_ROPE", "force")
+        try:
+            loss, grads = train.loss_and_grads(cfg, params, tok.to(dev), lab.to(dev), 3)
+        finally:
+            quant.set_impl("auto")
+        res[dev] = (loss.item(), [x.double().cpu() for x in tree_leaves(grads)])
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-3 * abs(res["cpu"][0])
+    assert all(((a - b).norm() / b.norm()).item() <= 1.5e-1 for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    params = quant.quantize_params(_to(llama.init_params(torch.Generator().manual_seed(0), cfg), "cuda"),
+                                   "mixed_precision", filter_fn=llm_finetune.not_lm_head)
+    opt = optim.adamw_bf16_sr()
+    state = train.init_train_state(params, opt)
+    ops.reset_launch_counts()
+    _, metrics = train.make_train_step(cfg, opt)(state, tok.cuda(), lab.cuda(), 1e-4, 5)
+    assert ops.launch_counts() == chip_smoke.finetune_per_step_launches(cfg, 2, S, len(tree_leaves(params)))
+    assert torch.isfinite(metrics["loss"]).item()

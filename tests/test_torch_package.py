@@ -19,13 +19,14 @@ PKG = Path(quantized_training_tpu_torch.__file__).resolve().parent
 def test_import_leaves_jax_out():
     """A fresh interpreter imports the whole package, the ViT slice's
     modules (the model, data, logging and the ``vit_train`` entry point)
-    included, without loading jax (or the JAX package) and without building
+    and the LLM drivers and tasks included, without loading jax (or the JAX package) and without building
     a kernel."""
     code = (
         "import sys\n"
         "import quantized_training_tpu_torch as p\n"
         "from quantized_training_tpu_torch.models import serving, vit\n"
         "from quantized_training_tpu_torch import benchmark_conv2d, data, llm_evaluate, llm_pretrain, vit_train\n"
+        "from quantized_training_tpu_torch import accuracy_parity, hellaswag, llm_finetune, mc_eval, tokenize_data\n"
         "from quantized_training_tpu_torch.ops import conv, mx\n"
         "from quantized_training_tpu_torch.data import native_loader\n"
         "from quantized_training_tpu_torch.utils import logging\n"
@@ -49,7 +50,8 @@ def test_no_file_imports_jax():
     assert {"vit_train.py", "models/vit.py", "data/image.py", "data/shuffle.py", "utils/logging.py", "llm_pretrain.py",
             "llm_evaluate.py", "data/text.py", "data/tokenizers.py", "data/native_loader.py",
             "optim/schedule_free.py", "optim/state8bit.py", "utils/checkpoint.py", "ops/mx.py", "ops/conv.py",
-            "benchmark_conv2d.py"} <= names
+            "benchmark_conv2d.py", "mc_eval.py", "hellaswag.py", "llm_finetune.py", "accuracy_parity.py",
+            "tokenize_data.py"} <= names
 
 
 def test_kernel_sources_present():
