@@ -218,6 +218,36 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    least 0.90 accurate, each quantized configuration within 0.02 of it and
    its final loss within 0.02 nats. Every entry gains the phase's launches
    (``task_launches``).
+18. ``parallel/`` on the one card, Llama2-1B at full width: (a)
+   ``llm_pretrain --mesh '{"fsdp": 1}'`` under NCCL at world 1 (a child
+   process with ``RANK=0 WORLD_SIZE=1``, deterministic algorithms), full
+   depth, batch 2 x 2048, 3 steps with a checkpoint at step 2 and a
+   ``--resume`` from it: the losses and every step's launches equal the
+   same command's without ``--mesh`` bit for bit, the resumed step too;
+   then two gloo ranks sharing the card (NCCL refuses a second rank on one
+   device; ``torch.multiprocessing.spawn``, each collective staged through
+   the host): (b) ``{"data": 2}`` and ``{"fsdp": 2}`` (4 layers), 3 steps
+   at local batch 1 x 2048 against one process at 2 x 2048 (|dloss| <
+   0.05, the gap printed), replicated state bit-identical across the ranks, every
+   step's launches the one-process step's, fsdp half of every stacked
+   leaf's bytes; (c) ``bitnet_fsdp_linear`` at q's and gate's shapes within
+   1e-3 of the one-device linear, with the ternary values that differ and
+   the payload's bytes, and 2 BitNet train steps (4 layers): K1 and K2
+   once per BitNet linear forward; (d) TP ``generate`` at ``{"model": 2}``
+   on bf16 and int8 storage (int8 activations), 4 prompts of 128, 32 new,
+   11 layers: the prefill logits' mean gap to one rank's within the gap
+   one bf16 ulp of the embedding makes (the model's rounding floor),
+   greedy agreement, tok/s; at tests/test_parallel.py's TP model the
+   logits within rtol = atol = 0.05 of one rank's (JAX's bound); (e)
+   the sharded resume at ``{"fsdp": 2}`` (4 layers): 3 steps, a
+   ``last_{rank}.pkl`` each, ``restore_sharded``, 2 steps equal 5 steps bit
+   for bit; (g) ``benchmark_collectives`` at 64 MB; and (f) a WebDataset
+   tar of 256 JPEGs and a local ``datasets`` folder of 64, through
+   ``train_transform`` at 224, batch 32, into phase 11's ViT-Giant int8
+   step (host images/s beside the step's). Prints its seconds and the
+   script's. Every entry gains the launches under the mesh
+   (``mesh_launches``, both ranks) and of the image steps
+   (``image_launches``).
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -250,23 +280,26 @@ import shutil
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from quantized_training_tpu_torch import (accuracy_parity, benchmark_conv2d, benchmark_mm, hellaswag, llm_evaluate,
-                                          llm_finetune, llm_pretrain, mc_eval, ops, optim, quant, tokenize_data,
-                                          train, vit_train)
+                                          llm_finetune, llm_pretrain, mc_eval, ops, optim, parallel, quant,
+                                          tokenize_data, train, vit_train)
 from quantized_training_tpu_torch.data import BatchLoader, MarkovTokenDataset, SyntheticImageDataset, get_tokenizer
 from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
 from quantized_training_tpu_torch.ops import _build, random
 from quantized_training_tpu_torch.ops.fp8 import quantize_fp8_block, quantize_fp8_tile
 from quantized_training_tpu_torch.quant.core import quantize_int4_rowwise_absmax
-from quantized_training_tpu_torch.utils import load_checkpoint
+from quantized_training_tpu_torch import data
+from quantized_training_tpu_torch.utils import checkpoint, load_checkpoint
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
-from quantized_training_tpu_torch.utils.tree import tree_leaves
+from quantized_training_tpu_torch.utils.tree import map_tensors, tree_leaves
 
 # the modules: the ops package exports functions of their names
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
@@ -1808,11 +1841,12 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     return counts
 
 
-def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: int, expect: dict | None):
+def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: int, expect: dict | None,
+              norms: list | None = None):
     """n_steps of make_train_step(cfg, opt) at ``lr`` on one batch, step i
     with the key ``fold_in(key, i)``: per step the loss, wall seconds (ends
     in a synchronize) and, when ``expect`` is given, the launch counts
-    checked against it."""
+    checked against it; each step's grad norm appended to ``norms``."""
     step = train.make_train_step(cfg, opt)
     state = train.init_train_state(params, opt)
     losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
@@ -1830,6 +1864,8 @@ def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: in
             check(counts == expect, f"step {i + 1} launches {counts} == {expect}")
         launches = {k: launches[k] + v for k, v in counts.items()}
         check(np.isfinite(loss) and np.isfinite(m["grad_norm"].item()), f"step {i + 1}: finite loss and norm")
+        if norms is not None:
+            norms.append(m["grad_norm"].item())
     del state
     return losses, walls, launches
 
@@ -3668,6 +3704,633 @@ def tasks_phase(seed: int) -> dict:
     return launches
 
 
+# ---- phase 18: parallel/ (DP, FSDP, BitNet's 2-bit gather, TP serving, the
+# sharded resume), llm_pretrain --mesh and the image sets, on one card ----
+
+MESH_MODEL = "llama2-1b"  # (a)'s --model: CFG
+MESH_SAVE = os.path.join("runs", "chip_smoke_mesh")
+MESH_DIR = os.path.join("build", "chip_smoke_mesh")
+MESH_S = 2048  # every mesh step's sequence
+MESH_RANKS = 2  # gloo ranks sharing the card: NCCL refuses a second rank on one device
+MESH_LR = 1e-4  # phase 8's
+MESH_BOUND = 0.05  # JAX's bound for a sharded step against one device (tests/test_parallel.py:70-86)
+# (b)'s pre-clip grad norm against one process, relative: a gradient counted
+# twice or not divided by data x fsdp, or a replicated leaf's square summed
+# once a rank, moves it by sqrt(2) or more, which AdamW's update and so the
+# loss do not see; the ranks' own quantization maxima (ROADMAP C5) move it
+# by far less (at most 1.1e-3 against JAX's sharded step in the CPU tests)
+MESH_NORM_RTOL = 0.02
+BITNET_BOUND = 1e-3  # JAX's for the 2-bit all-gather linear (tests/test_parallel.py:100-111)
+TP_BOUND = 0.05  # JAX's for TP logits (tests/test_parallel.py:159-186)
+TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 4, 128, 32
+# depth cut for time in (b)-(e), full width ((a) at full depth): phase 18
+# took 252.9 s alone with (b) and (d) at 22 layers, and 290.9 s inside the
+# whole script with (b) at 11, on an H100 80GB HBM3 at 700 W (PERF.md
+# section 6)
+MESH_LAYERS = 4
+TP_LAYERS = 11
+BITNET_LAYERS = 4
+RESUME_LAYERS = 4
+IMAGE_B, WDS_IMAGES, HF_IMAGES = 32, 256, 64
+IMAGE_SIZES = ((320, 240), (500, 375))
+GLOO_TIMEOUT_S = 300
+
+
+def mesh_cfg(plan: dict, **overrides) -> llama.LlamaConfig:
+    """The plan's Llama (Llama2-1B on the card) as the mesh steps run it:
+    remat, SDPA, ``MESH_LAYERS`` layers unless ``overrides`` say."""
+    return dataclasses.replace(plan["cfg"], remat=True, attention_impl="auto",
+                               **{"num_hidden_layers": min(MESH_LAYERS, plan["cfg"].num_hidden_layers), **overrides})
+
+
+def mesh_batch(plan: dict) -> tuple:
+    """The global batch [MESH_RANKS, seq] of every mesh step, from the
+    plan's seed (labels: the tokens shifted by one)."""
+    shape = (MESH_RANKS, plan["seq"])
+    tokens = torch.from_numpy(np.random.default_rng(plan["seed"]).integers(0, plan["cfg"].vocab_size, shape))
+    return tokens, torch.roll(tokens, -1, dims=-1)
+
+
+def mesh_plan(seed: int, key: int) -> dict:
+    """What the ranks' processes need to know (they import this script
+    afresh): the device, the model, the sequence, the seed and key, the
+    parameter leaves (B6 runs once each) and whether launches are counted
+    (a kernel launches only on the card)."""
+    small = dataclasses.replace(CFG, vocab_size=8, hidden_size=64, intermediate_size=64, num_hidden_layers=1,
+                                num_attention_heads=1, num_key_value_heads=1)  # the leaves, not their sizes
+    n_leaves = len(tree_leaves(llama.init_params(torch.Generator().manual_seed(0), small)))
+    return dict(device=DEVICE, device_type="cpu" if DEVICE == "cpu" else "cuda", cfg=CFG, seq=MESH_S, seed=seed,
+                key=key, n_leaves=n_leaves, tp_prompt=TP_PROMPT_LEN, tp_new=TP_NEW, counted=DEVICE != "cpu")
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def fingerprint(t: torch.Tensor) -> int:
+    """An exact digest of a tensor's bytes (a position-weighted sum of its
+    bytes in int64, in chunks): equal tensors give equal digests, a moved
+    bit a different one."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    total, chunk = 0, 1 << 26
+    for i in range(0, b.numel(), chunk):
+        part = b[i:i + chunk].to(torch.int64)
+        w = torch.arange(i, i + part.numel(), device=part.device, dtype=torch.int64) % 65521 + 1
+        total = (total + int((part * w).sum()) + int(part.sum()) * 7919) % (1 << 61)
+    return total
+
+
+def state_tensors(state) -> list:
+    out = []
+    map_tensors(out.append, state)
+    return out
+
+
+def pretrain_child() -> None:
+    """Phase 18 (a)'s child process: ``llm_pretrain``'s command line
+    (``main`` on the arguments after the output path) under
+    ``torch.use_deterministic_algorithms`` (the card's attention backward in
+    a fixed order), writing each step's launches to that path as JSON."""
+    out, argv = sys.argv[1], sys.argv[2:]
+    torch.use_deterministic_algorithms(True)
+    steps, make = [], train.make_train_step
+
+    def counted_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*step_args):
+            ops.reset_launch_counts()
+            result = step(*step_args)
+            steps.append(ops.launch_counts())
+            return result
+
+        return counted
+
+    train.make_train_step = counted_make
+    llm_pretrain.main(argv)
+    with open(out, "w") as f:
+        json.dump(steps, f)
+
+
+def pretrain_cli(name: str, argv: list, env: dict) -> tuple:
+    """``python -m quantized_training_tpu_torch.llm_pretrain argv`` through
+    :func:`pretrain_child`: (losses by step, each step's launches, tokens/s
+    by step, its run directory, its seconds)."""
+    out = os.path.join(MESH_DIR, f"{name}.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.pretrain_child()", out, *argv,
+                           "--run_name", name], env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"llm_pretrain {name}: {proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    run = next(p for p in sorted(os.listdir(MESH_SAVE)) if p.endswith(f"_{name}"))
+    rows = [json.loads(l) for l in open(os.path.join(MESH_SAVE, run, "metrics.jsonl"))]
+    with open(out) as f:
+        launches = json.load(f)
+    return ({r["step"]: r["loss"] for r in rows}, launches, {r["step"]: r["tokens_per_second"] for r in rows},
+            os.path.join(MESH_SAVE, run), time.perf_counter() - t0)
+
+
+def mesh_cli(seed: int) -> dict:
+    """Phase 18 (a): ``llm_pretrain --mesh '{"fsdp": 1}'`` under NCCL at
+    world 1 (``RANK=0 WORLD_SIZE=1``), Llama2-1B at full width and depth,
+    int8 ``mixed_precision``, remat, batch 2 x 2048 of Markov tokens,
+    ``adamw_bf16_sr`` without SR: 3 steps with a checkpoint at step 2 (the
+    rank's ``last_0.pkl``), then ``--resume`` from it to step 3; and the
+    same command without ``--mesh``. At world 1 every collective is an
+    identity: the losses and every step's launches equal the no-mesh run's
+    bit for bit, and the resumed step 3 the uninterrupted one. Returns the
+    mesh runs' launches."""
+    common = ["--model", MESH_MODEL, "--quantize", "mixed_precision", "--activation_checkpointing",
+              "--batch_size", "2", "--seq_len", str(MESH_S), "--optim", "adamw_bf16_sr", "--optim_kwargs",
+              json.dumps({"bf16_stochastic_rounding": False}), "--lr", str(MESH_LR), "--log_interval", "1",
+              "--seed", str(seed), "--save_dir", MESH_SAVE,
+              "--train_ds", json.dumps({"type": "markov", "vocab_size": CFG.vocab_size}), *device_args()]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONPATH": here}
+    ranked = {**env, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost"}
+    plain = pretrain_cli("plain", [*common, "--n_steps", "3"], env)
+    meshed = pretrain_cli("mesh", [*common, "--n_steps", "3", "--ckpt_interval", "2", "--mesh", '{"fsdp": 1}'],
+                          {**ranked, "MASTER_PORT": str(free_port())})
+    files = sorted(os.listdir(meshed[3]))
+    resumed = pretrain_cli("resumed", [*common, "--n_steps", "3", "--mesh", '{"fsdp": 1}', "--resume",
+                                       os.path.join(meshed[3], "last_0.pkl")],
+                           {**ranked, "MASTER_PORT": str(free_port())})
+    for name, run in (("no mesh", plain), ("mesh", meshed), ("mesh resumed", resumed)):
+        print(f"[18] (a) llm_pretrain {name}: losses {run[0]}, tokens/s by step {run[2]} (the driver's, after a "
+              f"sync; a step after a checkpoint counts its save), {run[4]:.1f} s (a process: start, init, steps)",
+              flush=True)
+    print(f"[18] (a) the mesh run's files {files}; launches a step "
+          f"{ {k: v for k, v in meshed[1][0].items() if v} }")
+    check("last_0.pkl" in files, "llm_pretrain --mesh wrote the rank's last_0.pkl")
+    check(meshed[0] == plain[0], f"--mesh at world 1 gives the no-mesh losses bit for bit: {meshed[0]} {plain[0]}")
+    check(meshed[1] == plain[1], "--mesh at world 1 launches what the no-mesh run launches, step for step")
+    check(resumed[0] == {3: meshed[0][3]}, f"the resumed step 3 {resumed[0]} is the uninterrupted {meshed[0][3]}")
+    check(resumed[1] == meshed[1][2:], "the resumed step launches what step 3 launched")
+    return {k: sum(s[k] for s in meshed[1] + resumed[1]) for k in ops.KERNELS}
+
+
+def step_launches(plan: dict, cfg: llama.LlamaConfig) -> dict | None:
+    """One int8 step's launches at ``cfg`` (B6 once a leaf), or None where
+    nothing is counted."""
+    return per_step_launches(cfg.num_hidden_layers, b6=plan["n_leaves"]) if plan["counted"] else None
+
+
+def reference_steps(plan: dict) -> tuple:
+    """(b)'s one-process run: the global batch on one process, 3 steps,
+    each launching ``per_step_launches``; returns (losses, grad norms)."""
+    cfg = mesh_cfg(plan)
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    tokens, labels = (t.to(DEVICE) for t in mesh_batch(plan))
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    norms = []
+    losses, walls, _ = run_steps(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels, opt, MESH_LR,
+                                 plan["key"], 3, step_launches(plan, cfg), norms)
+    del raw
+    torch.cuda.empty_cache()
+    print(f"[18] (b) one process, {cfg.num_hidden_layers} layers, batch {MESH_RANKS} x {plan['seq']}: losses {losses}, "
+          f"grad norms {norms}, step walls {[round(w, 3) for w in walls]} s", flush=True)
+    return losses, norms
+
+
+def rank_steps(mesh, cfg, plan: dict, scheme="mixed_precision", n_steps=3, expect=None, state=None, specs=None,
+               start=0):
+    """``n_steps`` of the mesh step on this rank's rows of the global
+    batch, from seed ``SEED``'s weights unless ``state`` and its layout
+    ``specs`` are given; returns (state, specs, {"losses", "grad_norms"},
+    walls, launches, staged collectives)."""
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    if state is None:
+        raw = llama.init_params(torch.Generator(device=plan["device"]).manual_seed(SEED), cfg)
+        qparams = quant.quantize_params(raw, scheme)
+        if scheme == "bitnet":
+            qparams = parallel.bitnet_fsdp_params(qparams, mesh)
+        state, specs = parallel.shard_state(train.init_train_state(qparams, opt), mesh)
+        del raw, qparams
+        torch.cuda.empty_cache()
+    step = train.make_train_step(cfg, opt, mesh=mesh, specs=specs)
+    tokens, labels = (t.to(plan["device"]) for t in parallel.shard_batch(mesh_batch(plan), mesh))
+    metrics, walls, launches = dict(losses=[], grad_norms=[]), [], dict.fromkeys(ops.KERNELS, 0)
+    parallel.reset_staged_collectives()
+    for i in range(start, start + n_steps):
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, tokens, labels, MESH_LR, random.fold_in(plan["key"], i))
+        metrics["losses"].append(m["loss"].item())
+        metrics["grad_norms"].append(m["grad_norm"].item())
+        sync()
+        walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        if expect is not None and plan["counted"]:
+            want = expect(counts) if callable(expect) else expect
+            check(counts == want, f"rank {mesh.dp_index} step {i + 1} launches {counts} == {want}")
+        launches = {k: launches[k] + v for k, v in counts.items()}
+    return state, specs, metrics, walls, launches, parallel.staged_collectives()
+
+
+def dp_fsdp(plan: dict, rank: int) -> dict:
+    """(b): ``{"data": 2}`` and ``{"fsdp": 2}``, 3 steps each at local batch
+    1 x 2048: each step's launches the one-process step's at 2,048 tokens,
+    the replicated tensors of the state bit-identical across the ranks,
+    under fsdp every stacked leaf half its bytes a rank."""
+    out, cfg = {}, mesh_cfg(plan)
+    for axes in ({"data": 2}, {"fsdp": 2}):
+        name = next(iter(axes))
+        mesh = parallel.make_mesh(axes, plan["device_type"])
+        state, specs, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, expect=step_launches(plan, cfg))
+        pairs, params = [], []
+        map_tensors(lambda t, s: pairs.append((t, s)), state, specs)
+        map_tensors(lambda t, s: params.append((t, s)), state.params, specs.params)
+        everyone = [None] * MESH_RANKS
+        dist.all_gather_object(everyone, [fingerprint(t) for t, _ in pairs])
+        replicated = [i for i, (_, s) in enumerate(pairs) if s.dim is None]
+        same = all(everyone[0][i] == other[i] for other in everyone[1:] for i in replicated)
+        check(same, f"(b) {name}: every replicated tensor of the state is bit-identical across the ranks")
+        stacked = [(t.numel() * t.element_size(), s) for t, s in params if t.ndim == 3]
+        if name == "fsdp":
+            check(all(s.dim == 1 and s.count == 2 for _, s in stacked), "(b) fsdp splits every stacked leaf in two")
+        out[name] = dict(**metrics, walls=walls, staged=staged, launches=launches,
+                         local_bytes=sum(t.numel() * t.element_size() for t, _ in pairs),
+                         stacked_bytes=sum(b for b, _ in stacked), replicated=len(replicated), tensors=len(pairs))
+        del state, pairs, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def bitnet_fsdp(plan: dict, rank: int) -> dict:
+    """(c): ``bitnet_fsdp_linear`` at q's and gate's shapes, fp32, 2,048
+    tokens over the two ranks, against the one-device BitNet linear at
+    ``BITNET_BOUND``, with the ternary values that differ counted and the
+    payload's bytes against bf16's; then 2 BitNet train steps at ``{"fsdp":
+    2}`` (Llama2-1B width, ``BITNET_LAYERS`` layers): finite losses, K1 and
+    K2 once per BitNet linear forward (7 a layer, twice under remat)."""
+    mesh = parallel.make_mesh({"fsdp": 2}, plan["device_type"])
+    gen = torch.Generator(device=plan["device"]).manual_seed(SEED + 18)
+    D, F = plan["cfg"].hidden_size, plan["cfg"].intermediate_size
+    out = {}
+    for name, (O, I) in {"q": (D, D), "gate": (F, D)}.items():
+        x = torch.randn(2048, I, generator=gen, device=plan["device"])
+        w = torch.randn(O, I, generator=gen, device=plan["device"]) * 0.02
+        rows, w_rows = x.chunk(2)[mesh.dp_index], w.chunk(2)[mesh.coords["fsdp"]]
+        ops.reset_launch_counts()
+        got = parallel.bitnet_fsdp_linear(rows, w_rows, mesh)
+        counts = ops.launch_counts()
+        ref = quant.qlinear(x, quant.BitNetWeight(w)).chunk(2)[mesh.dp_index]
+        excess = ((got - ref).abs() - (BITNET_BOUND + BITNET_BOUND * ref.abs())).max().item()
+        scale = parallel.collectives.all_reduce(w_rows.float().abs().mean(), mesh, "fsdp") / 2
+        ternary = quant.quantize_bitnet_weight(w_rows, scale)
+        whole = quant.quantize_bitnet_weight(w, quant.get_bitnet_scale(w)).chunk(2)[mesh.coords["fsdp"]]
+        differ = int(parallel.collectives.all_reduce((ternary != whole).sum(), mesh, "fsdp"))
+        out[name] = dict(max_abs_err=(got - ref).abs().max().item(), differ=differ, payload=w_rows.numel() // 4,
+                         bf16=w_rows.numel() * 2)
+        check(excess <= 0, f"(c) {name}: bitnet_fsdp_linear within rtol = atol = {BITNET_BOUND} of one device")
+        check(not plan["counted"] or (counts["quantize_int8_rowwise"] == 1 and counts["scaled_mm_rhs_t"] == 1),
+              f"(c) {name}: one K1 and one K2: {counts}")
+    L = BITNET_LAYERS
+    cfg = mesh_cfg(plan, bitnet=True, num_hidden_layers=L)
+    expect = lambda c: {**c, "quantize_int8_rowwise": 2 * 7 * L, "scaled_mm_rhs_t": 2 * 7 * L}
+    _, _, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, scheme="bitnet", n_steps=2, expect=expect)
+    check(all(np.isfinite(metrics["losses"])), f"(c) BitNet FSDP losses finite: {metrics['losses']}")
+    out["train"] = dict(losses=metrics["losses"], walls=walls, staged=staged, launches=launches)
+    return out
+
+
+def nudged(params, generator: torch.Generator):
+    """``params`` with every embedding element moved by one bf16 ulp of
+    random sign: a one-rank model that differs from it only in rounding."""
+    emb = params["embed"]["embedding"]
+    sign = torch.where(torch.rand(emb.shape, generator=generator, device=emb.device) < 0.5, -1.0, 1.0)
+    return {**params, "embed": {"embedding": (emb.float() + sign * emb.float().abs() * 2**-8).to(emb.dtype)}}
+
+
+@torch.no_grad()
+def prefill(params, cfg, prompt, max_len: int, mesh=None, specs=None) -> torch.Tensor:
+    """Prefill logits (fp32) of ``prompt`` from an empty cache, under TP
+    where ``mesh`` is given (``params`` then this rank's, ``specs`` their
+    layout)."""
+    cache = llama_infer.KVCache.zeros(cfg, prompt.shape[0], max_len, device=prompt.device)
+    if mesh is not None:
+        cache = parallel.shard_kv_cache(cache, mesh)
+    return llama_infer.forward_with_cache(params, prompt, cache, 0, cfg, mesh=mesh, specs=specs).float()
+
+
+def logit_gap(got, ref) -> dict:
+    """Largest and mean |got - ref|, each prompt's largest, and the largest
+    excess over rtol = atol = ``TP_BOUND`` (<= 0 within it)."""
+    err = (got - ref).abs()
+    return dict(max=err.max().item(), mean=err.mean().item(), prompt_max=err.flatten(1).amax(1).tolist(),
+                excess=(err - (TP_BOUND + TP_BOUND * ref.abs())).max().item())
+
+
+def tp_serving(plan: dict, rank: int) -> dict:
+    """(d): tensor-parallel serving at ``{"model": 2}``. At Llama2-1B's full
+    width and ``TP_LAYERS`` layers, on bf16 and on int8 storage with int8 activations (K1
+    and K2, K2's decode stream too), ``TP_PROMPTS`` prompts of
+    ``TP_PROMPT_LEN`` tokens and ``TP_NEW`` new ones: the prefill logits'
+    mean gap to one rank's, and each prompt's largest gap, no larger than
+    the gaps that one bf16 ulp of the embedding makes on one rank (the
+    model's rounding floor; both printed with their excess over rtol = atol
+    = ``TP_BOUND``, which this width does not meet: ROADMAP C7), greedy
+    agreement and tok/s. At tests/test_parallel.py's TP model (hidden 128, 2 layers,
+    prompts [2, 16]), bf16 and int8 storage (weight-only, JAX's test, and
+    with int8 activations, where a row-parallel input's K1 takes its row
+    maxima over the rank's K-shard: ROADMAP C5): the prefill logits within
+    rtol = atol = ``TP_BOUND`` of one rank's, JAX's bound."""
+    mesh = parallel.make_mesh({"model": 2}, plan["device_type"])
+    T, new = plan["tp_prompt"], plan["tp_new"]
+    cfg = dataclasses.replace(plan["cfg"], max_position_embeddings=T + new,
+                              num_hidden_layers=min(TP_LAYERS, plan["cfg"].num_hidden_layers))
+    raw = llama.init_params(torch.Generator(device=plan["device"]).manual_seed(SEED), cfg)
+    prompt = torch.from_numpy(np.random.default_rng(plan["seed"] + 18).integers(
+        0, cfg.vocab_size, (TP_PROMPTS, T))).to(plan["device"])
+    out = {}
+    for name, params in (("bf16", raw), ("int8 storage", quant.quantize_params(raw, "int8_quantized_training",
+                                                                              activation="int8"))):
+        one = prefill(params, cfg, prompt, T + new)
+        floor = prefill(nudged(params, torch.Generator(device=plan["device"]).manual_seed(SEED)), cfg, prompt, T + new)
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            ref_toks = llama_infer.generate(params, prompt, cfg, new)
+            sync()
+            one_seconds = time.perf_counter() - t0
+            local, specs = parallel.shard_params_tp(params, mesh)
+            ops.reset_launch_counts()  # TP's launches: its prefill and its generate
+            tp = prefill(local, cfg, prompt, T + new, mesh, specs)
+            sync()
+            t0 = time.perf_counter()
+            toks = llama_infer.generate(local, prompt, cfg, new, mesh=mesh, specs=specs)
+            sync()
+            seconds = time.perf_counter() - t0
+        gap, floor_gap = logit_gap(tp, one), logit_gap(floor, one)
+        out[name] = dict(gap=gap, floor=floor_gap, tok_s=TP_PROMPTS * new / seconds, launches=ops.launch_counts(),
+                         one_tok_s=TP_PROMPTS * new / one_seconds,
+                         agree=(toks[:, T:] == ref_toks[:, T:]).float().mean().item())
+        check(gap["mean"] <= floor_gap["mean"], f"(d) {name}: TP's mean logit gap {gap} within one rank's rounding "
+                                                f"floor {floor_gap}")
+        check(all(a <= b for a, b in zip(gap["prompt_max"], floor_gap["prompt_max"])),
+              f"(d) {name}: each prompt's largest TP logit gap {gap['prompt_max']} within the floor's "
+              f"{floor_gap['prompt_max']}")
+        del local
+    small = llama.LlamaConfig(vocab_size=256, hidden_size=128, intermediate_size=128, num_hidden_layers=2,
+                              num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=48)
+    raw = llama.init_params(torch.Generator(device=plan["device"]).manual_seed(SEED), small)
+    prompt = torch.from_numpy(np.random.default_rng(plan["seed"] + 1).integers(0, 256, (2, 16))).to(plan["device"])
+    for name, params in (("bf16", raw), ("int8 storage", quant.quantize_params(raw, "int8_quantized_training")),
+                         ("int8 storage, int8 activations",
+                          quant.quantize_params(raw, "int8_quantized_training", activation="int8"))):
+        local, specs = parallel.shard_params_tp(params, mesh)
+        gap = logit_gap(prefill(local, small, prompt, 32, mesh, specs), prefill(params, small, prompt, 32))
+        out[f"small {name}"] = gap
+        check(gap["excess"] <= 0, f"(d) JAX's TP test model, {name}: logits within rtol = atol = {TP_BOUND} of one "
+                                  f"rank's: {gap}")
+    return out
+
+
+def sharded_resume(plan: dict, rank: int) -> dict:
+    """(e): at ``{"fsdp": 2}``, Llama2-1B width with ``RESUME_LAYERS``
+    layers, under ``torch.use_deterministic_algorithms``: 5 steps against 3
+    steps, each rank's ``last_{rank}.pkl``, a fresh state from other
+    weights (the restart, in the same process) replaced by
+    ``restore_sharded`` and 2 more steps; bit for bit on each rank's
+    shards."""
+    cfg = mesh_cfg(plan, num_hidden_layers=RESUME_LAYERS)
+    mesh = parallel.make_mesh({"fsdp": 2}, plan["device_type"])
+    torch.use_deterministic_algorithms(True)
+    try:
+        full, _, full_run, *_ = rank_steps(mesh, cfg, plan, n_steps=5)
+        part, specs, *_ = rank_steps(mesh, cfg, plan, n_steps=3)
+        path = checkpoint.checkpoint_name(MESH_DIR)
+        checkpoint.save_checkpoint(path, {"state": part, "meta": {"step": 3}}, shard_arrays=specs)
+        del part
+        dist.barrier()
+        fresh, specs = parallel.shard_state(train.init_train_state(
+            quant.quantize_params(llama.init_params(torch.Generator(device=plan["device"]).manual_seed(SEED + 1), cfg),
+                                  "mixed_precision"), optim.adamw_bf16_sr(bf16_stochastic_rounding=False)), mesh)
+        del fresh
+        state = checkpoint.restore_sharded(checkpoint.load_checkpoint(path)["state"], specs, plan["device"])
+        resumed, _, resumed_run, *_ = rank_steps(mesh, cfg, plan, n_steps=2, state=state, specs=specs, start=3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    full_losses, resumed_losses = full_run["losses"], resumed_run["losses"]
+    same = all(torch.equal(a, b) for a, b in zip(state_tensors(full), state_tensors(resumed)))
+    check(same and resumed_losses == full_losses[3:],
+          f"(e) rank {rank}: 3 steps + restore + 2 equal 5 steps bit for bit ({resumed_losses} {full_losses})")
+    return dict(full=full_losses, resumed=resumed_losses, file=os.path.basename(path), same=same)
+
+
+def mesh_rank(rank: int, port: int, plan: dict) -> None:
+    """One of the two gloo ranks of phase 18 (b)-(e), (g), both on the
+    card: writes its results to ``MESH_DIR/rank{rank}.json``."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # (e)'s deterministic cuBLAS
+    if plan["device"] != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=MESH_RANKS,
+                            timeout=timedelta(seconds=GLOO_TIMEOUT_S))
+    out, seconds = {}, {}
+    for part, fn in (("b", dp_fsdp), ("c", bitnet_fsdp), ("d", tp_serving), ("e", sharded_resume)):
+        t0 = time.perf_counter()
+        out[part] = fn(plan, rank)
+        seconds[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = parallel.make_mesh({"data": 2}, plan["device_type"])
+    out["g"] = parallel.benchmark_collectives(bench, axis="data", size_mb=64, n_iters=5, device=plan["device"])
+    seconds["g"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def report_ranks(ranks: list, ref: tuple, plan: dict) -> None:
+    """Phase 18 (b)-(e), (g)'s lines, from both ranks' results and the
+    one-process run's (losses, grad norms)."""
+    r0 = ranks[0]
+    ref_losses, ref_norms = ref
+    for name in ("data", "fsdp"):
+        runs = [r["b"][name] for r in ranks]
+        gap = [abs(a - b) for a, b in zip(runs[0]["losses"], ref_losses)]
+        norm_gap = [abs(a - b) / b for a, b in zip(runs[0]["grad_norms"], ref_norms)]
+        print(f"[18] (b) {{'{name}': 2}}, {min(MESH_LAYERS, plan['cfg'].num_hidden_layers)} layers (depth cut for "
+              f"time), local batch 1 x {plan['seq']}: losses {runs[0]['losses']} (rank 1 "
+              f"{runs[1]['losses']}); one process {ref_losses}; gap a step {[f'{g:.3e}' for g in gap]} (bound "
+              f"{MESH_BOUND}: the ranks quantize over their own tokens, ROADMAP C); grad norms "
+              f"{runs[0]['grad_norms']} (one process {ref_norms}), relative gap {[f'{g:.3e}' for g in norm_gap]} "
+              f"(bound {MESH_NORM_RTOL}); step walls "
+              f"{[round(w, 3) for w in runs[0]['walls']]} s; staged collectives {runs[0]['staged']} in 3 steps; "
+              f"state bytes a rank {runs[0]['local_bytes']:,} (stacked leaves {runs[0]['stacked_bytes']:,}); "
+              f"{runs[0]['replicated']} of {runs[0]['tensors']} state tensors replicated, bit-identical; launches "
+              f"a step the one-process step's at {plan['seq']} tokens", flush=True)
+        check(all(r["losses"] == runs[0]["losses"] and r["grad_norms"] == runs[0]["grad_norms"] for r in runs),
+              f"(b) {name}: every rank reports one global loss and grad norm")
+        check(max(gap) < MESH_BOUND, f"(b) {name}: |dloss| < {MESH_BOUND} at every step: {gap}")
+        check(max(norm_gap) < MESH_NORM_RTOL, f"(b) {name}: grad norm within rtol {MESH_NORM_RTOL} of one "
+                                              f"process's at every step: {norm_gap}")
+    dp, fs = r0["b"]["data"], r0["b"]["fsdp"]
+    print(f"[18] (b) fsdp holds {fs['stacked_bytes'] / dp['stacked_bytes']:.4f} of the stacked leaves' bytes a rank "
+          f"and {fs['local_bytes'] / dp['local_bytes']:.4f} of the state's")
+    check(2 * fs["stacked_bytes"] == dp["stacked_bytes"], "(b) fsdp: half of every stacked leaf's bytes a rank")
+    for name in ("q", "gate"):
+        c = [r["c"][name] for r in ranks]
+        print(f"[18] (c) bitnet_fsdp_linear at {name}'s shape, 2,048 tokens over 2 ranks, fp32: max |err| "
+              f"{max(x['max_abs_err'] for x in c):.3e} (rtol = atol = {BITNET_BOUND}); ternary values that differ "
+              f"from the one-device ternarization {c[0]['differ']}; payload a rank {c[0]['payload']:,} bytes against "
+              f"bf16's {c[0]['bf16']:,} ({c[0]['bf16'] / c[0]['payload']:.0f}x fewer)")
+    t = r0["c"]["train"]
+    print(f"[18] (c) BitNet FSDP train step, Llama2-1B width, {BITNET_LAYERS} layers (depth cut for time): losses "
+          f"{t['losses']} (rank 1 {ranks[1]['c']['train']['losses']}); K1 and K2 a step "
+          f"{t['launches']['quantize_int8_rowwise'] // 2} and {t['launches']['scaled_mm_rhs_t'] // 2} (7 BitNet "
+          f"linears a layer, twice under remat); staged collectives {t['staged']}; step walls "
+          f"{[round(w, 3) for w in t['walls']]} s")
+    fmt = lambda g: (f"max {g['max']:.4e}, mean {g['mean']:.4e}, each prompt's max "
+                     f"{[round(x, 4) for x in g['prompt_max']]}, excess over rtol = atol = {TP_BOUND} "
+                     f"{g['excess']:.4e}")
+    for name in ("bf16", "int8 storage"):
+        d = r0["d"][name]
+        print(f"[18] (d) TP serving {{'model': 2}}, {name}, {min(TP_LAYERS, plan['cfg'].num_hidden_layers)} layers "
+              f"(depth cut for time), {TP_PROMPTS} "
+              f"prompts of {plan['tp_prompt']}, {plan['tp_new']} new: prefill logits against one rank: {fmt(d['gap'])};"
+              f" one rank with its embedding one bf16 ulp off (the rounding floor): {fmt(d['floor'])}; greedy "
+              f"tokens that agree {d['agree']:.4f}; {d['tok_s']:.1f} tok/s (one rank {d['one_tok_s']:.1f}); launches "
+              f"(TP's prefill and generate) { {k: v for k, v in d['launches'].items() if v} }")
+    for name in ("bf16", "int8 storage", "int8 storage, int8 activations"):
+        print(f"[18] (d) JAX's TP test model (hidden 128, 2 layers), {name}: prefill logits against one rank: "
+              f"{fmt(r0['d'][f'small {name}'])}")
+    e = [r["e"] for r in ranks]
+    print(f"[18] (e) sharded resume at {{'fsdp': 2}}, Llama2-1B width, {RESUME_LAYERS} layers (depth cut for time): "
+          f"files {[x['file'] for x in e]}; 5 steps {e[0]['full']}; 3 + restore + 2 {e[0]['resumed']}; bit for "
+          f"bit on every rank's shards {[x['same'] for x in e]}")
+    print(f"[18] (g) benchmark_collectives, 2 gloo ranks on one card, host-staged (not NCCL), 64 MB, GiB/s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in r0["g"].items()))
+    print(f"[18] rank 0's seconds by part: { {k: round(v, 1) for k, v in r0['seconds'].items()} }", flush=True)
+
+
+def write_images(path: str, n: int, seed: int, num_classes: int) -> None:
+    """A WebDataset tar of ``n`` JPEGs (PIL, seeded pixels, 320 x 240 and
+    500 x 375 by turns) with their ``cls``."""
+    import io
+    import tarfile
+
+    from PIL import Image
+
+    with tarfile.open(path, "w") as tar:
+        for i in range(n):
+            w, h = IMAGE_SIZES[i % 2]
+            pixels = np.random.default_rng([seed, i]).integers(0, 256, (h, w, 3), dtype=np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(pixels).save(buf, format="JPEG", quality=90)
+            for ext, payload in (("jpg", buf.getvalue()), ("cls", str(i % num_classes).encode())):
+                info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                info.size = len(payload)
+                tar.addfile(info, io.BytesIO(payload))
+
+
+def image_sets(seed: int, key: int, cfg=None) -> dict:
+    """Phase 18 (f): one WebDataset tar of ``WDS_IMAGES`` JPEGs and a local
+    ``datasets`` folder of ``HF_IMAGES`` (a WebDataset-format tar, ``jpg``
+    and ``cls`` columns), each streamed through ``train_transform`` on one
+    host thread and batched by ``IMAGE_B`` into phase 11's ViT-Giant int8
+    step (3 steps of the tar, 2 of the folder): finite losses, B18
+    launched; the host pipeline's images/s beside the step's. Returns the
+    steps' launches."""
+    os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    cfg = cfg or VIT_CFG
+    folder = os.path.join(MESH_DIR, "images")
+    os.makedirs(os.path.join(folder, "hf"), exist_ok=True)
+    tar = os.path.join(folder, "train-000.tar")
+    write_images(tar, WDS_IMAGES, seed, cfg.num_classes)
+    write_images(os.path.join(folder, "hf", "train-000.tar"), HF_IMAGES, seed + 1, cfg.num_classes)
+    rng = np.random.default_rng(seed)
+    wds = data.get_dataset("wds", eval=True, urls=[tar], columns=["jpg", "cls"], transform={
+        "jpg": lambda b: data.train_transform(data.decode_image(b), cfg.image_size, rng), "cls": int})
+    hf = data.get_dataset("hf_image", eval=True, dataset=os.path.join(folder, "hf"), split="train",
+                          transform=lambda im: data.train_transform(im, cfg.image_size, rng))
+    streams = {"wds": (((s["jpg"], s["cls"]) for s in wds), 3, WDS_IMAGES),
+               "hf_image": (iter(hf), 2, HF_IMAGES)}
+    params = quant.quantize_params(vit.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg),
+                                   "mixed_precision")
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    step, state = vit_train.make_train_step(cfg, opt), opt.init(quant.virtual_params(params))
+    launches, i = dict.fromkeys(ops.KERNELS, 0), 0
+    for name, (it, n_batches, n_images) in streams.items():
+        host, walls, losses = 0.0, [], []
+        for _ in range(n_batches):
+            t0 = time.perf_counter()
+            samples = [next(it) for _ in range(IMAGE_B)]
+            images = torch.from_numpy(np.stack([s[0] for s in samples])).to(DEVICE)
+            labels = torch.tensor([s[1] for s in samples], device=DEVICE)
+            host += time.perf_counter() - t0
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, images, labels, VIT_LR, random.fold_in(key, 1_000_000 + i))
+            losses.append(loss.item())
+            sync()
+            walls.append(time.perf_counter() - t0)
+            launches = {k: launches[k] + v for k, v in ops.launch_counts().items()}
+            i += 1
+        check(all(np.isfinite(losses)), f"(f) {name}: finite ViT losses {losses}")
+        steps_ips = IMAGE_B * len(walls[1:]) / sum(walls[1:]) if len(walls) > 1 else float("nan")
+        print(f"[18] (f) {name} ({n_images} JPEGs of {IMAGE_SIZES}, train_transform at {cfg.image_size}, batch "
+              f"{IMAGE_B}) into ViT-Giant int8 ({cfg.num_layers} blocks): losses {losses}; host pipeline (decode, "
+              f"crop, resize, flip, normalize; one thread) {n_batches * IMAGE_B / host:.1f} images/s; the step "
+              f"{steps_ips:.1f} images/s after the first (walls {[round(w, 3) for w in walls]} s)", flush=True)
+    if DEVICE != "cpu":
+        check(launches["layernorm_quant_rowwise"] > 0 and launches["gelu_quant_rowwise"] > 0,
+              f"(f) the ViT steps ran B18: {launches}")
+    del params, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_phase(seed: int, key: int, t_script: float) -> tuple[dict, dict]:
+    """Phase 18: (a) llm_pretrain --mesh under NCCL at world 1, (b)-(e) and
+    (g) on two gloo ranks sharing the card, (f) the image sets; prints the
+    phase's seconds and the script's; removes its files. Returns the
+    launches under the mesh ((a)-(e), both ranks) and (f)'s."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    for d in (MESH_SAVE, MESH_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    try:
+        launches = mesh_cli(seed)
+        t_a = time.perf_counter()
+        plan = mesh_plan(seed, key)
+        ref = reference_steps(plan)
+        mp.spawn(mesh_rank, args=(free_port(), plan), nprocs=MESH_RANKS, join=True)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        t_ranks = time.perf_counter()
+        report_ranks(ranks, ref, plan)
+        for r in ranks:
+            parts = [r["b"]["data"]["launches"], r["b"]["fsdp"]["launches"], r["c"]["train"]["launches"],
+                     *(r["d"][k]["launches"] for k in ("bf16", "int8 storage"))]
+            launches = {k: launches[k] + sum(p[k] for p in parts) for k in launches}
+        images = image_sets(seed, key)
+    finally:
+        for d in (MESH_SAVE, MESH_DIR):
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"[18] (a) {t_a - t0:.1f} s, (b)-(e) and (g) on two ranks {t_ranks - t_a:.1f} s, (f) "
+          f"{time.perf_counter() - t_ranks:.1f} s; phase 18 {time.perf_counter() - t0:.1f} s; the script "
+          f"{time.perf_counter() - t_script:.1f} s", flush=True)
+    return launches, images
+
+
 def fill_launches(entries, launches: dict) -> None:
     """Each entry's launches on its path, and where the kernel has an sm90
     route, that route's share of them (``sm90_launches``)."""
@@ -3682,6 +4345,7 @@ def main() -> None:
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of the training batches and of the steps' key (phases 6-11)")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     smi = card()
     build()
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
@@ -3745,6 +4409,12 @@ def main() -> None:
     tasks = tasks_phase(args.seed)
     for e in kernels:  # phase 17's launches, under a key of their own
         e["task_launches"] = tasks.get(e["name"], 0)
+    meshed, images = mesh_phase(args.seed, key, t_script)
+    for e in kernels:  # phase 18's launches under the mesh, and its image steps', under keys of their own
+        e["mesh_launches"] = meshed.get(e["name"], 0)
+        e["image_launches"] = images.get(e["name"], 0)
+    missing = [k for k in PRETRAIN_KERNELS + ("fused_adamw_update",) if not meshed[k]]
+    check(not missing, f"phase 18 launched every kernel of the int8 step under the mesh, not {missing}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

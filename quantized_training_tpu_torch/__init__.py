@@ -7,15 +7,17 @@ Its slices so far: the int8 continuous-batching server (the
 ``generate`` and ``Server``), the int8 training step (the
 ``mixed_precision`` backward, the Llama loss with per-layer remat, AdamW and
 ``train.make_train_step``), its producer-fused layer, SR, int4 and fp8, and
-ViT training (``models/vit.py`` and the ``vit_train`` entry point), on
-hand-written CUDA kernels for Hopper (``ops/csrc``). CPU tensors take each
-kernel's plain PyTorch version.
+ViT training (``models/vit.py`` and the ``vit_train`` entry point), the
+storage schemes, the LLM drivers, and data parallelism, FSDP and
+tensor-parallel serving over processes (``parallel``), on hand-written CUDA
+kernels for Hopper (``ops/csrc``). CPU tensors take each kernel's plain
+PyTorch version.
 
 Importing the package imports no JAX and builds no kernel.
 """
 
-from . import convert, data, models, ops, optim, quant, train, utils
+from . import convert, data, models, ops, optim, parallel, quant, train, utils
 
 __version__ = "0.2.0"
 
-__all__ = ["convert", "data", "models", "ops", "optim", "quant", "train", "utils", "__version__"]
+__all__ = ["convert", "data", "models", "ops", "optim", "parallel", "quant", "train", "utils", "__version__"]

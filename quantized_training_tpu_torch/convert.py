@@ -15,6 +15,9 @@ dtype name, and the JAX package's weight wrappers (``MixedPrecisionWeight``,
 :func:`schedule_free_state_from_jax` carries a ``ScheduleFreeState``, its
 8-bit second moments included. A JAX storage state, after its own stochastic-rounding commit,
 so carries into the port, and both continue from the same storage.
+:func:`rank_slice` keeps the part of a converted tree that one rank of a
+``parallel.Mesh`` holds, so that a JAX state sharded over devices and the
+port's ranks start from the same numbers.
 """
 
 from __future__ import annotations
@@ -62,9 +65,7 @@ def _wrapper(w):
                                 MixedPrecisionConfig(**dataclasses.asdict(config)))
     if hasattr(w, "packed"):
         return BitNetPackedWeight(_tensor(w.packed), _tensor(w.scale))
-    if hasattr(w, "mesh"):
-        if w.mesh is not None:
-            raise NotImplementedError("BitNetWeight with a mesh: the FSDP route is not ported (ROADMAP A13)")
+    if hasattr(w, "mesh"):  # a JAX mesh does not carry over: parallel.bitnet_fsdp_params sets the port's
         return BitNetWeight(_tensor(w.data))
     if dataclasses.is_dataclass(config):
         # the data of an optimizer state's wrapper may be an 8-bit state
@@ -101,3 +102,13 @@ def schedule_free_state_from_jax(state) -> ScheduleFreeState:
     return ScheduleFreeState(_tensor(state.count).to(torch.int32), _tensor(state.lr_max),
                              _tensor(state.weight_sum), params_from_jax(state.z),
                              params_from_jax(state.exp_avg_sq))
+
+
+def rank_slice(tree, mesh, tp: bool = False):
+    """(the part of a converted tree (:func:`params_from_jax`, or a state
+    holding such trees) that this rank of ``mesh`` holds, its layout): its
+    FSDP shards (``parallel.shard_state``), or with ``tp`` its
+    tensor-parallel slice (``parallel.shard_params_tp``)."""
+    from .parallel import shard_params_tp, shard_state
+
+    return shard_params_tp(tree, mesh) if tp else shard_state(tree, mesh)

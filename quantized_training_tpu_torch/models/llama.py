@@ -46,6 +46,18 @@ layer loop (JAX :517-527), with ``fold_in(key, 0x5EED)``: under
 ``QT_PREQUANT`` (default '0', off) each int8 mixed-precision weight's int8
 views are made once a step and enter each checkpointed layer inside its
 parameters, so the remat replay takes them as they are.
+
+``mesh`` (a ``parallel.Mesh`` with fsdp > 1) and ``specs`` (the
+:class:`parallel.Shard` layout that ``shard_state`` returned with them):
+the parameters are this rank's FSDP shards. ``backbone``
+gathers the embedding, the final norm and the stacked leaves split on
+their layer dim once a step, and every other split leaf of a layer inside
+that layer's function, which ``torch.utils.checkpoint`` replays (so the
+backward gathers again, FSDP2's reshard-after-forward); the loss gathers
+the lm_head. ``parallel/fsdp.py`` holds the gather, whose backward
+reduce-scatters. BitNet weights routed through the 2-bit all-gather stay
+split. ``QT_PREQUANT`` is refused there: its column views need every row
+of a weight.
 """
 
 from __future__ import annotations
@@ -65,6 +77,8 @@ from ..ops.fused_producers import rms_norm_ref as rms_norm
 from ..ops.fused_producers import silu_mul_ref
 from ..ops.random import fold_in
 from ..ops.rope import group_heads, rope_group, ungroup_heads
+from ..parallel import fsdp as _fsdp
+from ..parallel.mesh import param_specs
 from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, prequantize_step, qlinear
 from ..quant.node import WeightNode
 from ..utils.tree import tree_leaves
@@ -341,7 +355,34 @@ def _unstack_layers(layers: dict, L: int) -> list[dict]:
     return [pick(cut_layers, l) for l in range(L)]
 
 
-def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = None) -> torch.Tensor:
+def _fsdp_specs(mesh, specs):
+    """The parameters' layout where ``mesh`` splits them over fsdp, else
+    None."""
+    if mesh is None or mesh.shape["fsdp"] == 1:
+        return None
+    if specs is None:
+        raise ValueError("an fsdp mesh needs the layout that shard_state returned with the state")
+    return param_specs(specs)
+
+
+def _fsdp_layer(cfg: LlamaConfig, specs, mesh, x, lp, cos, sin, key: int):
+    """A decoder layer on its leaves gathered over fsdp: those split on a
+    dim of the [out, in] matrix (``specs`` in the stacked layout)."""
+    lp = _fsdp.gather(lp, specs, mesh, pick=lambda dim: dim - 1 if dim >= 1 else None)
+    return _decoder_layer(cfg, x, lp, cos, sin, key)
+
+
+def lm_head_gathered(params, cfg: LlamaConfig, mesh=None, specs=None):
+    """``lm_head_weight``, gathered over fsdp where ``mesh`` splits it."""
+    w = lm_head_weight(params, cfg)
+    specs = _fsdp_specs(mesh, specs)
+    if specs is None:
+        return w
+    return _fsdp.gather(w, specs["embed"]["embedding"] if cfg.tie_word_embeddings else specs["lm_head"]["w"], mesh)
+
+
+def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = None, mesh=None,
+             specs=None) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D] (JAX :505-565).
     ``key`` (an int, 0 when None as the JAX package's ``PRNGKey(0)``) seeds
     stochastic rounding inside the quantized linears; layer l takes
@@ -355,12 +396,20 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     its non-TPU path does not have either."""
     key = 0 if key is None else key
     B, S = tokens.shape
+    layer = partial(_decoder_layer, cfg)
+    specs = _fsdp_specs(mesh, specs)
+    if specs is not None:
+        if os.environ.get("QT_PREQUANT", "0") != "0":
+            raise ValueError("QT_PREQUANT with an fsdp mesh: the column views need every row of a weight")
+        params = {k: v if k in ("layers", "lm_head") else _fsdp.gather(v, specs[k], mesh) for k, v in params.items()}
+        layer_dim = lambda dim: 0 if dim == 0 else None  # split on the layer dim: gathered whole, once
+        params["layers"] = _fsdp.gather(params["layers"], specs["layers"], mesh, pick=layer_dim)
+        layer = partial(_fsdp_layer, cfg, specs["layers"], mesh)
     # F.embedding, not indexing: the CPU backward of an index accumulates the
     # rows of repeated tokens with atomic adds in whatever order the threads
     # run, so the embedding's grad would change bits from run to run
     x = F.embedding(tokens.long(), params["embed"]["embedding"])
     cos, sin = rope_tables(cfg, S, device=tokens.device)
-    layer = partial(_decoder_layer, cfg)
     # QT_PREQUANT: the weights' int8 views once a step, outside the layers
     layers = prequantize_step(params["layers"], key=fold_in(key, 0x5EED))
     for l, lp in enumerate(_unstack_layers(layers, cfg.num_hidden_layers)):
@@ -372,26 +421,29 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     return rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)
 
 
-def forward(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = None) -> torch.Tensor:
+def forward(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = None, mesh=None,
+            specs=None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] (model dtype); the lm_head takes
     ``fold_in(key, 0x7FFFFFFF)`` (JAX :582)."""
     key = 0 if key is None else key
-    x = backbone(params, tokens, cfg, key)
-    return qlinear(x, lm_head_weight(params, cfg), key=fold_in(key, 0x7FFFFFFF))
+    x = backbone(params, tokens, cfg, key, mesh, specs)
+    return qlinear(x, lm_head_gathered(params, cfg, mesh, specs), key=fold_in(key, 0x7FFFFFFF))
 
 
 def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor, cfg: LlamaConfig,
-            key: int | None = None) -> torch.Tensor:
-    """fp32 token-mean cross entropy; labels == -100 are ignored (JAX
-    :585-618). A plain lm_head takes the chunked fused loss, which never
-    materializes the logits; a quantized one the explicit logits."""
+            key: int | None = None, mesh=None, specs=None) -> torch.Tensor:
+    """fp32 token-mean cross entropy over this process's tokens; labels ==
+    -100 are ignored (JAX :585-618). A plain lm_head takes the chunked
+    fused loss, which never materializes the logits; a quantized one the
+    explicit logits."""
     lm_w = lm_head_weight(params, cfg)
     labels = labels.reshape(-1)
     if isinstance(lm_w, torch.Tensor):
-        x = backbone(params, tokens, cfg, key)
-        nll_sum, n_valid = fused_linear_cross_entropy(x.reshape(-1, x.shape[-1]), lm_w, labels)
+        x = backbone(params, tokens, cfg, key, mesh, specs)
+        nll_sum, n_valid = fused_linear_cross_entropy(x.reshape(-1, x.shape[-1]),
+                                                      lm_head_gathered(params, cfg, mesh, specs), labels)
         return nll_sum / n_valid.clamp(min=1)
-    logits = forward(params, tokens, cfg, key).float()
+    logits = forward(params, tokens, cfg, key, mesh, specs).float()
     logits = logits.reshape(-1, logits.shape[-1])
     valid = labels != IGNORE_INDEX
     logp = torch.log_softmax(logits, dim=-1)

@@ -6,6 +6,15 @@ on rows of hd = 64), ``_attention_over_cache``, ``forward_with_cache`` and
 ``generate``. The JAX package threads the cache through a layer scan and
 returns a new one; here the layer loop is a Python loop and the cache is
 written in place. Attention is plain torch (the JAX package's einsum paths).
+
+Tensor parallelism (``mesh`` with a ``model`` axis above 1, JAX :207-239;
+the parameters and their layout ``specs`` as ``parallel.shard_params_tp``
+returns them): each rank runs its heads (from its q/k/v rows) and
+its slice of the MLP, o's and down's partial outputs are summed over
+``model`` (one all-reduce each a layer), the cache holds the rank's KV
+heads (``parallel.shard_kv_cache``), and the vocab-split logits are
+all-gathered. The fresh-prefill fast path is off under TP, as JAX's flash
+prefill is (:136-140): prefill attends over the cache.
 """
 
 from __future__ import annotations
@@ -14,6 +23,9 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel import collectives as C
+from ..parallel.mesh import leaf_shard
+from ..parallel.tp import shard_kv_cache
 from ..quant import qlinear
 from ..quant.core import quantize_int8
 from . import llama
@@ -85,8 +97,22 @@ def _attention_over_cache(q, k_c, ks_c, v_c, vs_c, pos):
     return ctx.reshape(B, T, H, hd)
 
 
+def _tp(mesh, specs=None) -> bool:
+    if mesh is None or mesh.shape["model"] == 1:
+        return False
+    if specs is None:
+        raise ValueError("tensor parallelism needs the layout that shard_params_tp returned with the parameters")
+    return True
+
+
+def _split(specs, *path) -> bool:
+    for k in path:
+        specs = specs[k]
+    return leaf_shard(specs).dim is not None
+
+
 def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
-                       cfg: llama.LlamaConfig, window: int | None = None):
+                       cfg: llama.LlamaConfig, window: int | None = None, mesh=None, specs=None):
     """tokens [B, T] at absolute positions pos..pos+T -> logits [B, T, V].
 
     Used for prefill (T > 1) and decode (T = 1). ``pos`` is an int shared
@@ -97,22 +123,31 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
 
     A prefill at ``pos == 0`` attends over the fresh dequantized K/V with
     the causal einsum (nothing before it exists), as the JAX package's
-    device path does; dequantizing with the scales rounded to the cache's
+    device path does (flash prefill, JAX :104-145; under TP it attends over
+    the cache, as JAX's does); dequantizing with the scales rounded to the cache's
     dtype, as :func:`_attention_over_cache` does, keeps the two equal.
     BitNet's layers (``cfg.bitnet``) normalize o's and down's inputs first
-    (JAX :178-186).
+    (JAX :178-186). ``mesh`` and ``specs``: tensor parallelism (the
+    module's docstring); ``cache`` then holds this rank's KV heads.
     """
     B, T = tokens.shape
     device = tokens.device
     if isinstance(pos, int) and pos + T > cache.max_len:
         raise ValueError(f"positions {pos}..{pos + T} exceed the cache ({cache.max_len} rows)")
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    tp = _tp(mesh, specs)
+    if tp:  # this rank's heads
+        H, KV = (n // mesh.shape["model"] if _split(specs, "layers", k, "w") else n for k, n in (("q", H), ("k", KV)))
+        if H % KV or cache.k.shape[3] != KV:
+            raise ValueError(f"tensor parallelism over {mesh.shape['model']}: {KV} KV heads a rank, cache "
+                             f"{cache.k.shape[3]}, {H} query heads")
+        reduce_o, reduce_down = _split(specs, "layers", "o", "w"), _split(specs, "layers", "down", "w")
     positions = _positions(pos, T, device)
     x = params["embed"]["embedding"][tokens.long()]
     cos_full, sin_full = llama.rope_tables(cfg, cache.max_len, device=device)
     cos, sin = cos_full[positions], sin_full[positions]  # [B|1, T, hd]
     rows = torch.arange(B, device=device).view(B, 1)
-    fresh = isinstance(pos, int) and pos == 0 and T > 1
+    fresh = isinstance(pos, int) and pos == 0 and T > 1 and not tp
     W = cache.max_len if window is None else min(window, cache.max_len)
 
     for l in range(cfg.num_hidden_layers):
@@ -141,31 +176,42 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
         ctx = ctx.reshape(B, T, H * hd)
         if cfg.bitnet:
             ctx = llama.rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps)
-        x = x + qlinear(ctx, lp["o"]["w"])
+        o = qlinear(ctx, lp["o"]["w"])
+        x = x + (C.all_reduce(o, mesh, "model") if tp and reduce_o else o)
 
         h = llama.rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
         act = torch.nn.functional.silu(qlinear(h, lp["gate"]["w"])) * qlinear(h, lp["up"]["w"])
         if cfg.bitnet:
             act = llama.rms_norm(act, lp["down_norm"]["g"], cfg.rms_norm_eps)
-        x = x + qlinear(act, lp["down"]["w"])
+        down = qlinear(act, lp["down"]["w"])
+        x = x + (C.all_reduce(down, mesh, "model") if tp and reduce_down else down)
 
     x = llama.rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)
-    return qlinear(x, llama.lm_head_weight(params, cfg))
+    logits = qlinear(x, llama.lm_head_weight(params, cfg))
+    if tp and not cfg.tie_word_embeddings and _split(specs, "lm_head", "w"):
+        logits = C.all_gather(logits, logits.ndim - 1, mesh, "model")
+    return logits
 
 
 def generate(params, prompt: torch.Tensor, cfg: llama.LlamaConfig, max_new_tokens: int,
              *, temperature: float = 0.0, generator: torch.Generator | None = None,
-             max_len: int | None = None) -> torch.Tensor:
+             max_len: int | None = None, mesh=None, specs=None) -> torch.Tensor:
     """Greedy (temperature=0) or sampled generation.
 
     prompt [B, T_prompt] -> [B, T_prompt + max_new_tokens]: one prefill pass,
-    then one decode pass per token. Sampling draws from ``generator``."""
+    then one decode pass per token. Sampling draws from ``generator``.
+    ``mesh`` and ``specs``: tensor-parallel serving (the module's
+    docstring), every rank with the same prompt; the cache is made split
+    over ``model`` (JAX :225-233) and every rank samples from the gathered
+    logits."""
     if temperature != 0.0 and generator is None:
         raise ValueError("sampling (temperature > 0) requires a generator")
     B, T0 = prompt.shape
     max_len = max_len or (T0 + max_new_tokens)
     cache = KVCache.zeros(cfg, B, max_len, device=prompt.device)
-    last = forward_with_cache(params, prompt, cache, 0, cfg)[:, -1].float()
+    if _tp(mesh, specs):
+        cache = shard_kv_cache(cache, mesh)
+    last = forward_with_cache(params, prompt, cache, 0, cfg, mesh=mesh, specs=specs)[:, -1].float()
 
     def sample(logits):
         if temperature == 0.0:
@@ -178,5 +224,5 @@ def generate(params, prompt: torch.Tensor, cfg: llama.LlamaConfig, max_new_token
         tok = sample(last)[:, None]
         toks.append(tok)
         if i + 1 < max_new_tokens:
-            last = forward_with_cache(params, tok, cache, T0 + i, cfg)[:, -1].float()
+            last = forward_with_cache(params, tok, cache, T0 + i, cfg, mesh=mesh, specs=specs)[:, -1].float()
     return torch.cat(toks, dim=1)

@@ -15,9 +15,9 @@ Counterpart of ``quantized_training_tpu/quant/bitnet.py``:
   weight.
 
 The ternarization, the pack and unpack and the backward's matmuls are plain
-torch, as XLA lowered them. The FSDP route of a ``BitNetWeight`` with a
-mesh (the 2-bit all-gather of ``parallel/fsdp.py``) is not ported: such a
-weight raises NotImplementedError.
+torch, as XLA lowered them. A ``BitNetWeight`` whose ``mesh`` has an fsdp
+axis larger than 1 (set by ``parallel.bitnet_fsdp_params``) takes the 2-bit
+all-gather of ``parallel/fsdp.py`` (JAX :165-172).
 """
 
 from __future__ import annotations
@@ -36,8 +36,10 @@ ACT_EPS = 1e-5  # the activations' quantize eps (bitnet.py:134)
 
 @dataclass
 class BitNetWeight(WeightNode):
-    """A weight ternarized at every matmul. ``mesh``: the JAX package's
-    FSDP route, not ported (a weight with one raises in the linear)."""
+    """A weight ternarized at every matmul. ``mesh``: a
+    ``parallel.Mesh`` whose fsdp axis routes the linear through the 2-bit
+    all-gather, ``data`` then holding this rank's rows; None on one
+    device. A saved checkpoint keeps no mesh."""
 
     data: torch.Tensor  # [.., out, in]
     mesh: object = None
@@ -136,9 +138,11 @@ def linear(x: torch.Tensor, w: BitNetWeight | BitNetPackedWeight, bias: torch.Te
     x2d = x.reshape(-1, x.shape[-1])
     if isinstance(w, BitNetPackedWeight):
         out = _BitNetPackedLinear.apply(x2d, w.packed, w.scale)
-    elif w.mesh is not None:
-        raise NotImplementedError("BitNetWeight with a mesh: the FSDP route is not ported (ROADMAP A13)")
+    elif w.mesh is not None and w.mesh.shape["fsdp"] > 1:
+        from ..parallel.fsdp import bitnet_fsdp_linear
+
+        out = bitnet_fsdp_linear(x2d, w.data, w.mesh)  # w.data: this rank's rows
     else:
         out = _BitNetLinear.apply(x2d, w.data)
-    out = out.reshape(*x.shape[:-1], w.shape[-2])
+    out = out.reshape(*x.shape[:-1], out.shape[-1])
     return out + bias if bias is not None else out

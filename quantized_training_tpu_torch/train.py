@@ -8,8 +8,8 @@ Counterpart of ``quantized_training_tpu/train.py`` (:35-148):
   -> [grad accumulation over micro-batches] -> clip -> optimizer.step
   -> commit_params
 
-eagerly: there is no jit and no mesh, and ``make_train_step`` returns a
-plain function. Grads come from ``torch.autograd.grad`` on detached copies
+eagerly: there is no jit, and ``make_train_step`` returns a plain
+function. Grads come from ``torch.autograd.grad`` on detached copies
 of the parameter leaves, so the state's tensors stay plain values, as the
 JAX package's arrays are. The step's key (an int, ``ops/random.py``) is
 folded as the JAX step folds it: ``fold_in(key, i)`` for micro-step i
@@ -17,6 +17,29 @@ folded as the JAX step folds it: ``fold_in(key, i)`` for micro-step i
 optimizer and ``fold_in(key, 2)`` for ``commit_params``. The JAX step
 donates its state; this one leaves the old state intact (the optimizer
 writes new buffers), so a caller may reuse it.
+
+``mesh`` (a ``parallel.Mesh``; JAX :46-67, :127-131): data parallelism and
+FSDP over processes, one a device. Every rank runs the step on its rows of
+the batch (``parallel.shard_batch``) and on its shards of the state
+(``parallel.shard_state``, whose layout ``specs`` is). The model
+gathers the fsdp-split leaves (``models/llama.py``), whose gradients come
+back reduce-scattered over fsdp; they are then summed over data, the
+replicated leaves' over data x fsdp, and BitNet's 2-bit route reduces its
+own. Every gradient is divided by data x fsdp, and the loss is averaged
+over it, so both are the global batch's mean, as JAX's are. The global norm
+sums the split leaves' squares over fsdp and counts each replicated leaf
+once. The optimizer then updates this rank's shards, and the state keeps
+the layout it came in with. Each rank folds its batch index into the
+micro-steps' keys, so that ranks draw their own rounding noise on their
+rows; the optimizer's and the commit's keys are shared, so that replicated
+state stays bit-identical across ranks. At one rank every collective is an
+identity and the step gives the no-mesh step's bits.
+
+Where the mesh step departs from JAX's: XLA partitions one global program,
+so a quantize that takes maxima over tokens (the column scales of the
+gradients' B5 / B4 operands, B7's, B9-row's, B11's and B14's column
+maxima) sees the global batch there, while each rank here sees its own
+rows, as the reference's DDP and FSDP2 ranks do (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -28,9 +51,12 @@ import torch
 from .models import llama
 from .ops.random import fold_in
 from .optim.adamw import Optimizer
+from .parallel import collectives as C
+from .parallel.fsdp import is_fsdp_bitnet, zip_params
+from .parallel.mesh import param_specs
 from .quant import commit_params, merge_masters, virtual_params
 from .utils.train import clip_by_global_norm, global_norm
-from .utils.tree import tree_flatten, tree_map, tree_unflatten
+from .utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 class TrainState(NamedTuple):
@@ -54,21 +80,64 @@ def value_and_grad(loss_of, qparams, vparams=None):
     return loss.detach(), tree_unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
 
 
-def loss_and_grads(cfg: llama.LlamaConfig, qparams, tokens, labels, key: int | None = None, vparams=None):
+def loss_and_grads(cfg: llama.LlamaConfig, qparams, tokens, labels, key: int | None = None, vparams=None,
+                   mesh=None, specs=None):
     """:func:`value_and_grad` of the Llama loss; ``key`` seeds stochastic
     rounding in the model."""
-    return value_and_grad(lambda params: llama.loss_fn(params, tokens, labels, cfg, key), qparams, vparams)
+    return value_and_grad(lambda params: llama.loss_fn(params, tokens, labels, cfg, key, mesh, specs), qparams,
+                          vparams)
+
+
+def _leaf_layout(vparams, specs) -> list:
+    """(split over fsdp, reduced inside its linear) of every leaf of the
+    masters' tree, in its flatten order."""
+    tagged = zip_params(lambda t, s, node: (s.dim is not None, is_fsdp_bitnet(node)), vparams, param_specs(specs))
+    return tree_leaves(tagged, is_leaf=lambda x: isinstance(x, tuple))
+
+
+def reduce_grads(grads, layout: list, mesh):
+    """Each rank's gradients -> the global batch's: split leaves summed
+    over data (the fsdp sum came with their reduce-scatter), replicated
+    ones over data x fsdp, BitNet's 2-bit route as it is; then every leaf
+    divided by data x fsdp."""
+    leaves, treedef = tree_flatten(grads)
+    out = []
+    for g, (split, reduced) in zip(leaves, layout):
+        if not reduced:
+            g = C.all_reduce(g, mesh, "data" if split else "dp")
+        out.append(g / mesh.dp_size)
+    return tree_unflatten(treedef, out)
+
+
+def sharded_global_norm(grads, layout: list, mesh) -> torch.Tensor:
+    """The global norm of a sharded tree: the replicated leaves' squares
+    once, plus the split leaves' summed over fsdp, in fp32 leaf by leaf
+    (``global_norm``'s sum where nothing is split)."""
+    squares = [(torch.sum(torch.square(l.float())), split) for l, (split, _) in zip(tree_leaves(grads), layout)]
+    total = sum(q for q, split in squares if not split)
+    split = [q for q, s in squares if s]
+    if split:
+        total = total + C.all_reduce(sum(split), mesh, "fsdp")
+    return torch.sqrt(total)
 
 
 def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
-                    clip_grad_norm: float | None = None):
+                    clip_grad_norm: float | None = None, mesh=None, specs=None):
     """Returns ``step(state, tokens, labels, lr, key) -> (state, metrics)``.
 
     tokens/labels: [B, S], or [accum, B, S] for gradient accumulation: the
     micro-steps' grads are summed in the grad dtype (the parameters' dtype,
     as PyTorch's ``.backward()`` accumulates into ``param.grad``) and
     averaged, and so is the loss. ``metrics``: ``loss`` and ``grad_norm``
-    (pre-clip), fp32 scalars on the parameters' device."""
+    (pre-clip), fp32 scalars on the parameters' device. ``mesh``: see the
+    module's docstring; tokens and labels are then this rank's rows, and
+    ``specs`` the layout that ``parallel.shard_state`` returned with the
+    state."""
+    if mesh is not None and specs is None:
+        raise ValueError("a mesh step needs the layout that shard_state returned with the state")
+
+    def micro_key(k: int) -> int:
+        return fold_in(k, mesh.dp_index) if mesh is not None and mesh.dp_size > 1 else k
 
     def train_step(state: TrainState, tokens, labels, lr, key: int):
         qparams = state.params
@@ -77,18 +146,25 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
             grads = tree_map(torch.zeros_like, vparams)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             for i, (tok, lab) in enumerate(zip(tokens, labels)):
-                l, g = loss_and_grads(cfg, qparams, tok, lab, fold_in(key, i), vparams)
+                l, g = loss_and_grads(cfg, qparams, tok, lab, micro_key(fold_in(key, i)), vparams, mesh, specs)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / tokens.shape[0], grads)
             loss = loss / tokens.shape[0]
         else:
-            loss, grads = loss_and_grads(cfg, qparams, tokens, labels, fold_in(key, 0), vparams)
+            loss, grads = loss_and_grads(cfg, qparams, tokens, labels, micro_key(fold_in(key, 0)), vparams,
+                                         mesh, specs)
 
+        norm = None
+        if mesh is not None:
+            layout = _leaf_layout(vparams, specs)
+            grads = reduce_grads(grads, layout, mesh)
+            loss = C.all_reduce(loss, mesh, "dp") / mesh.dp_size
+            norm = sharded_global_norm(grads, layout, mesh)
         if clip_grad_norm is not None:
-            grads, grad_norm = clip_by_global_norm(grads, clip_grad_norm)
+            grads, grad_norm = clip_by_global_norm(grads, clip_grad_norm, norm)
         else:
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(grads) if norm is None else norm
 
         new_v, new_opt = optimizer.step(grads, state.opt_state, vparams, lr, fold_in(key, 1))
         new_params = commit_params(new_v, qparams, fold_in(key, 2))

@@ -1,5 +1,5 @@
-"""Checkpoint save and restore for one process (counterpart of
-``quantized_training_tpu/utils/checkpoint.py``, :91-116 and :195-209).
+"""Checkpoint save and restore (counterpart of
+``quantized_training_tpu/utils/checkpoint.py``).
 
 A checkpoint is a pickled dict: the train state (parameters with their
 weight wrappers, the optimizer state), the data loader's state, and
@@ -14,36 +14,75 @@ written atomically: a ``.tmp`` file, then ``replace``. :func:`load_checkpoint`
 places the tensors on the caller's device. Unpickling runs code, so load
 only checkpoints that this program wrote.
 
-The multi-process form (``ShardedLeaf``, ``restore_sharded``, a file per
-rank) waits for ROADMAP A13.
+Multi-process (JAX :35-200): each rank writes its own file,
+``last_{rank}.pkl`` (:func:`checkpoint_name`), holding only its shards: with
+``shard_arrays`` (the ``parallel.Shard`` layout of the state, which
+``shard_state`` returns) every tensor of the state is saved as a
+:class:`ShardedLeaf`, its global shape and this rank's ``(region, data)``
+piece, and :func:`restore_sharded` places each rank's piece back by the
+restoring run's layout, assembling a region from overlapping pieces where
+the layouts differ. Each rank's file suffices for its own shards; resume
+assumes the same ranks, the file-per-rank contract. A BitNet weight is
+saved without its mesh (``parallel.bitnet_fsdp_params`` puts the live one
+back).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pickle
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..quant.node import WeightNode
+from .tree import map_tensors
 
 
-def _map_tensors(fn, obj):
-    """``fn`` on every tensor of ``obj``: through dicts, lists, tuples and
-    ``NamedTuple`` states, and the tensor fields of weight wrappers and
-    8-bit states; anything else is kept as it is."""
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    if isinstance(obj, dict):
-        return {k: _map_tensors(fn, v) for k, v in obj.items()}
-    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_map_tensors(fn, v) for v in obj))
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_map_tensors(fn, v) for v in obj)
-    if isinstance(obj, WeightNode):
-        return dataclasses.replace(obj, **{f: _map_tensors(fn, t) for f, t in obj.tensors().items()})
-    return obj
+@dataclass
+class ShardedLeaf:
+    """This rank's piece of a sharded tensor (JAX :35-59): the global
+    shape and dtype, and ``shards``, a list of ``(region, data)`` with
+    ``region`` the (start, stop) of the piece along every dim."""
+
+    global_shape: tuple
+    dtype: str
+    shards: list = field(default_factory=list)
+
+    def to_tensor(self) -> torch.Tensor:
+        """The full tensor; only where the pieces cover it (a replicated
+        leaf, or every rank's file merged)."""
+        full = ((0, n) for n in self.global_shape)
+        out = _assemble_region(self.shards, tuple(full), getattr(torch, self.dtype))
+        if out is None:
+            raise ValueError("saved shards do not cover the global array — restore with "
+                             "restore_sharded() under the original process topology")
+        return out
+
+
+def _is_piece(t) -> bool:
+    return isinstance(t, (ShardedLeaf, torch.Tensor))
+
+
+def _assemble_region(shards, region: tuple, dtype):
+    """The tensor of ``region`` built from the pieces that overlap it;
+    None if they do not cover it."""
+    out = torch.zeros([b - a for a, b in region], dtype=dtype)
+    covered = torch.zeros(out.shape, dtype=torch.bool)
+    for src_region, data in shards:
+        dst, src = [], []
+        for (s0, s1), (t0, t1) in zip(src_region, region):
+            lo, hi = max(s0, t0), min(s1, t1)
+            if lo >= hi:
+                break
+            dst.append(slice(lo - t0, hi - t0))
+            src.append(slice(lo - s0, hi - s0))
+        else:
+            out[tuple(dst)] = data[tuple(src)]
+            covered[tuple(dst)] = True
+    return out if bool(covered.all()) else None
 
 
 def _to_cpu(t: torch.Tensor) -> torch.Tensor:
@@ -51,12 +90,33 @@ def _to_cpu(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.device.type == "cpu" else t.cpu()
 
 
-def save_checkpoint(path: str | Path, payload: dict) -> None:
+def _without_mesh(obj):
+    return map_tensors(lambda w: dataclasses.replace(w, mesh=None) if getattr(w, "mesh", None) is not None else w,
+                       obj, is_leaf=lambda t: isinstance(t, WeightNode))
+
+
+def _sharded_leaf(t: torch.Tensor, spec) -> ShardedLeaf:
+    t = _to_cpu(t)
+    return ShardedLeaf(spec.global_shape(t.shape), str(t.dtype).removeprefix("torch."),
+                       [(spec.region(t.shape), t)])
+
+
+def save_checkpoint(path: str | Path, payload: dict, *, shard_arrays=None) -> None:
     """Atomically write ``payload`` (a dict; its ``meta`` entry is kept as
-    it is) with every tensor on the CPU."""
+    it is) with every tensor on the CPU. ``shard_arrays``: the
+    ``parallel.Shard`` layout of ``payload["state"]``, whose tensors are
+    then saved as :class:`ShardedLeaf` pieces (the file-per-rank form)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    out = {k: _map_tensors(_to_cpu, v) for k, v in payload.items() if k != "meta"}
+    out = {}
+    for k, v in payload.items():
+        if k == "meta":
+            continue
+        v = _without_mesh(v)
+        if shard_arrays is not None and k == "state":
+            out[k] = map_tensors(_sharded_leaf, v, shard_arrays)
+        else:
+            out[k] = map_tensors(_to_cpu, v)
     out["meta"] = payload.get("meta", {})
     tmp = path.with_suffix(".tmp")
     with open(tmp, "wb") as f:
@@ -65,20 +125,52 @@ def save_checkpoint(path: str | Path, payload: dict) -> None:
 
 
 def materialize(tree, device="cpu"):
-    """A loaded tree with every tensor on ``device``."""
-    return _map_tensors(lambda t: t.to(device), tree)
+    """A loaded tree with every tensor on ``device``, each
+    :class:`ShardedLeaf` assembled into its full tensor (JAX :195-202;
+    ``ValueError`` where its pieces do not cover it)."""
+    return map_tensors(lambda t: (t.to_tensor() if isinstance(t, ShardedLeaf) else t).to(device), tree,
+                       is_leaf=_is_piece)
 
 
 def load_checkpoint(path: str | Path, device="cpu") -> dict:
-    """The checkpoint at ``path``, its tensors on ``device``."""
+    """The checkpoint at ``path``, its tensors on ``device``;
+    :class:`ShardedLeaf` pieces stay as they are (for
+    :func:`restore_sharded`, or :func:`materialize`)."""
     with open(path, "rb") as f:
-        return materialize(pickle.load(f), device)
+        return map_tensors(lambda t: t.to(device), pickle.load(f))
 
 
-def checkpoint_name(save_dir: str | Path, step: int | None = None) -> Path:
-    """The process's checkpoint path: ``last_0.pkl``, or ``step{N}_0.pkl``:
-    the multi-process form's names (a file per process, as the JAX package
-    names them; process 0 here). The one-process ``llm_pretrain`` writes
-    ``last.pkl``, as the JAX package's driver does; the sharded restore
-    (ROADMAP A13) is what will read these names."""
-    return Path(save_dir) / ("last_0.pkl" if step is None else f"step{step}_0.pkl")
+def restore_sharded(tree, specs, device="cpu"):
+    """This rank's tensors of a loaded tree by ``specs`` (the
+    ``parallel.Shard`` tree of the restoring run's state, JAX :122-160):
+    a :class:`ShardedLeaf` gives the piece of this rank's region, or the
+    region assembled from the overlapping pieces where the saving layout
+    differed (``ValueError`` where they do not cover it); a whole tensor is
+    cut by its shard. On ``device``."""
+    def conv(leaf, spec):
+        if isinstance(leaf, ShardedLeaf):
+            local = list(leaf.global_shape)
+            if spec.dim is not None:
+                local[spec.dim] //= spec.count
+            region = spec.region(local)
+            data = next((d for r, d in leaf.shards if tuple(map(tuple, r)) == region), None)
+            if data is None:
+                data = _assemble_region(leaf.shards, region, getattr(torch, leaf.dtype))
+            if data is None:
+                raise ValueError(f"missing shard {region} for restore — was the checkpoint saved under a "
+                                 "different topology?")
+            return data.to(device)
+        return spec.take(leaf).to(device)
+
+    return map_tensors(conv, tree, specs, is_leaf=_is_piece)
+
+
+def checkpoint_name(save_dir: str | Path, step: int | None = None, rank: int | None = None) -> Path:
+    """The rank's checkpoint path, ``last_{rank}.pkl`` or
+    ``step{N}_{rank}.pkl`` (JAX :205-208): a file per process, the rank
+    ``torch.distributed``'s (0 without it). The one-process
+    ``llm_pretrain`` writes ``last.pkl``, as the JAX package's driver
+    does; under ``--mesh`` every rank writes its own name."""
+    if rank is None:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    return Path(save_dir) / (f"last_{rank}.pkl" if step is None else f"step{step}_{rank}.pkl")

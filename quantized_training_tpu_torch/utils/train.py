@@ -45,11 +45,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, norm: torch.Tensor | None = None):
     """Returns (clipped tree, pre-clip norm): torch.nn.utils.clip_grad_norm_
     semantics. The factor multiplies in fp32 (JAX promotes a bf16 leaf
-    times an fp32 scalar), then each leaf goes back to its dtype."""
-    norm = global_norm(tree)
+    times an fp32 scalar), then each leaf goes back to its dtype. ``norm``:
+    the tree's global norm where the caller has it (a sharded tree's, over
+    every rank), else :func:`global_norm`."""
+    norm = global_norm(tree) if norm is None else norm
     factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * factor).to(g.dtype), tree), norm
 

@@ -5,8 +5,11 @@ Counterpart of the JAX package's ``vit_train.py``, with its flags (but
 ``--quantize_kwargs`` / ``--quantize_min_k``, a warmup + cosine LR
 (``--cosine_lr_scheduler``), validation accuracy every ``--eval_interval``
 steps, images/s logged every ``--log_interval`` steps to stdout and to
-``runs/vit_train/<time>_<run_name>/metrics.jsonl``. Only the
-``synthetic_image`` dataset is ported (ROADMAP A11).
+``runs/vit_train/<time>_<run_name>/metrics.jsonl``. ``--train_ds``
+takes any image set of ``data.get_dataset``; ``hf_image`` and ``wds`` fail
+at the first batch as they do in the JAX driver (the batcher asks them for
+a ``state_dict()``, which they have not: ROADMAP C), so a caller of the
+library batches them itself, with a ``transform``.
 
 It runs on the CUDA card unless ``--cpu`` is given, and raises without a
 card. Every model takes ``remat=True``, ``--num_classes`` and

@@ -148,10 +148,12 @@ def test_get_dataset_builds_each_type(kind, cls, shard_dir):
     assert type(data.get_dataset(kind, **kw)) is cls
 
 
-def test_get_dataset_refuses_the_rest():
-    for kind in ("hf_image", "wds"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            data.get_dataset(kind)
+def test_get_dataset_refuses_the_rest(monkeypatch):
+    """The image sets are registered (``hf_image`` with ``load_dataset``
+    stubbed, so that nothing is fetched); an unknown type raises."""
+    monkeypatch.setattr("datasets.load_dataset", lambda name, split, streaming: ("set", name, split, streaming))
+    assert type(data.get_dataset("hf_image", dataset="x", split="train")) is data.HFImageDataset
+    assert type(data.get_dataset("wds", urls=[])) is data.WebDataset
     with pytest.raises(ValueError, match="unknown"):
         data.get_dataset("nope")
 

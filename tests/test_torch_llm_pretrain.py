@@ -16,14 +16,16 @@ the JAX package's ``llm_pretrain.py``:
   trace, and the CLI entry point runs in a subprocess;
 - the drivers' options are those that ``python llm_pretrain.py --help`` and
   ``python llm_evaluate.py --help`` print, less ``--cache_dir`` (XLA's
-  compilation cache); what is not ported raises, and so does a run without
-  a card or ``--cpu``.
+  compilation cache); ``--mesh`` runs on two gloo ranks and resumes from
+  a file a rank; a run without a card or ``--cpu`` raises.
 """
 
 import dataclasses
 import json
 import math
+import os
 import re
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -209,13 +211,48 @@ def test_options_match_the_jax_drivers(name):
     assert NOT_CARRIED[name] <= _options(proc.stdout)
 
 
+def _ranks(argv: list, world: int = 2) -> list:
+    """``python -m ...llm_pretrain argv`` as ``world`` gloo ranks with
+    torchrun's variables; each rank's output."""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port()), "WORLD_SIZE": str(world)}
+    procs = [subprocess.Popen([sys.executable, "-m", "quantized_training_tpu_torch.llm_pretrain", *argv],
+                              env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=110)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        pytest.fail("llm_pretrain --mesh ranks hung")
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    return logs
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def test_unported_options_raise(tmp_path):
-    """``--mesh`` waits for ROADMAP A13; an unknown task, or a multiple-choice
+    """``--mesh '{"fsdp": 2}'`` runs on two gloo ranks (torchrun's
+    variables, ``--cpu``): a file a rank at the checkpoint, losses within
+    JAX's sharded bound (0.05) of the one-process run, and ``--resume`` from
+    step 2 gives step 3's loss again. An unknown task, or a multiple-choice
     task without ``--task_data``, raises before the model is built (the
     tasks themselves: tests/test_torch_eval_tasks.py)."""
     common = _common(tmp_path, "mixed_precision", "adamw")
-    with pytest.raises(NotImplementedError, match="A13"):
-        llm_pretrain.main([*common, "--mesh", '{"data": 2}'])
+    plain = _losses(llm_pretrain.main([*common, "--n_steps", "3", "--run_name", "plain"])["save_dir"])
+    _ranks([*common, "--mesh", '{"fsdp": 2}', "--n_steps", "3", "--ckpt_interval", "2", "--run_name", "mesh"])
+    run = next((tmp_path / "runs").glob("*_mesh"))
+    meshed = _losses(run)
+    assert sorted(meshed) == [1, 2, 3] and max(abs(meshed[s] - plain[s]) for s in meshed) < 0.05
+    assert sorted(p.name for p in run.glob("last_*.pkl")) == ["last_0.pkl", "last_1.pkl"]
+    _ranks([*common, "--mesh", '{"fsdp": 2}', "--n_steps", "3", "--resume", str(run / "last_0.pkl"),
+            "--run_name", "resumed"])
+    assert _losses(next((tmp_path / "runs").glob("*_resumed"))) == {3: meshed[3]}
     assert llm_evaluate.TASKS == ("perplexity", "hellaswag", "arc", "piqa", "mc")
     for task in ("arc", "piqa", "mc"):
         with pytest.raises(ValueError, match="--task_data"):

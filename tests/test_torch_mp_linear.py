@@ -10,7 +10,7 @@ import torch
 from quantized_training_tpu import quant as jquant
 from quantized_training_tpu.models import llama as jllama
 from quantized_training_tpu.quant.mixed_precision import MixedPrecisionWeight as JMPW
-from quantized_training_tpu_torch import quant
+from quantized_training_tpu_torch import parallel, quant
 from quantized_training_tpu_torch.convert import params_from_jax
 from quantized_training_tpu_torch.models import llama
 from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
@@ -72,9 +72,11 @@ def test_qlinear_bit_exact_vs_jax(shape, dtype):
 
 def test_unported_schemes_raise():
     """Every scheme of the JAX package is ported: the storage schemes wrap
-    the weight, and their unknown kwargs raise; what stays unported is
-    BitNet's FSDP mesh route (ROADMAP A13). An unknown mixed-precision dtype
-    or scheme raises as in the JAX package (int4 and fp8 are ported)."""
+    the weight, and their unknown kwargs raise. A BitNet weight whose mesh
+    has no fsdp split takes the one-device linear, bit for bit (the 2-bit
+    all-gather runs on gloo ranks in tests/test_torch_parallel_ranks.py).
+    An unknown mixed-precision dtype or scheme raises as in the JAX package
+    (int4 and fp8 are ported)."""
     w = MixedPrecisionWeight(torch.zeros(128, 128), quant.MixedPrecisionConfig(dtype="int2"))
     with pytest.raises(ValueError, match="int2"):
         quant.qlinear(torch.zeros(2, 128), w)
@@ -84,8 +86,9 @@ def test_unported_schemes_raise():
         assert isinstance(quant.quantize_params({"w": torch.zeros(128, 128)}, scheme)["w"], wrapper)
         with pytest.raises(TypeError):
             quant.quantize_params({"w": torch.zeros(128, 128)}, scheme, nope=1)
-    with pytest.raises(NotImplementedError, match="A13"):
-        quant.qlinear(torch.zeros(2, 128), quant.BitNetWeight(torch.zeros(128, 128), mesh=object()))
+    x, w = torch.randn(2, 128, generator=torch.Generator().manual_seed(0)), torch.randn(128, 128) * 0.02
+    one_rank = parallel.make_mesh({"fsdp": 1})
+    assert torch.equal(quant.qlinear(x, quant.BitNetWeight(w, mesh=one_rank)), quant.qlinear(x, quant.BitNetWeight(w)))
     with pytest.raises(ValueError, match="unknown"):
         quant.quantize_params({"w": torch.zeros(128, 128)}, "nope")
     assert quant.quantize_params({"a": 1}, None) == {"a": 1}

@@ -28,6 +28,7 @@ def test_import_leaves_jax_out():
         "from quantized_training_tpu_torch import benchmark_conv2d, data, llm_evaluate, llm_pretrain, vit_train\n"
         "from quantized_training_tpu_torch import accuracy_parity, hellaswag, llm_finetune, mc_eval, tokenize_data\n"
         "from quantized_training_tpu_torch.ops import conv, mx\n"
+        "from quantized_training_tpu_torch import parallel\n"
         "from quantized_training_tpu_torch.data import native_loader\n"
         "from quantized_training_tpu_torch.utils import logging\n"
         "from quantized_training_tpu_torch.ops import _build\n"
@@ -51,7 +52,8 @@ def test_no_file_imports_jax():
             "llm_evaluate.py", "data/text.py", "data/tokenizers.py", "data/native_loader.py",
             "optim/schedule_free.py", "optim/state8bit.py", "utils/checkpoint.py", "ops/mx.py", "ops/conv.py",
             "benchmark_conv2d.py", "mc_eval.py", "hellaswag.py", "llm_finetune.py", "accuracy_parity.py",
-            "tokenize_data.py"} <= names
+            "tokenize_data.py", "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py",
+            "parallel/tp.py"} <= names
 
 
 def test_kernel_sources_present():

@@ -291,10 +291,11 @@ def test_kernel_calls_per_step(monkeypatch, sr):
     assert len(tree_leaves(raw)) == 20
 
 
-def test_synthetic_images_match_jax():
+def test_synthetic_images_match_jax(monkeypatch):
     """The same seed gives the JAX package's images and labels; the
     prefetching batcher gives the synchronous one's batches and drops a
-    ragged tail; the other dataset types wait for ROADMAP A11."""
+    ragged tail; ``hf_image`` builds its streaming set (``load_dataset``
+    stubbed: nothing is fetched) and ``wds`` its tar stream."""
     for eval_ in (False, True):
         ours, theirs = SyntheticImageDataset(size=16, num_classes=7, eval=eval_, n_samples=10), JSynthetic(
             size=16, num_classes=7, eval=eval_, n_samples=10)
@@ -311,8 +312,9 @@ def test_synthetic_images_match_jax():
     next(it)
     assert loader.state_dict() == {"ds": {"_i": 4}}
     assert isinstance(get_dataset("synthetic_image", size=8), SyntheticImageDataset)
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_dataset("hf_image", dataset="x", split="train")
+    monkeypatch.setattr("datasets.load_dataset", lambda name, split, streaming: ("set", name, split, streaming))
+    assert get_dataset("hf_image", dataset="x", split="train").ds == ("set", "x", "train", True)
+    assert get_dataset("wds", urls=["a.tar"]).urls == ["a.tar"]
     with pytest.raises(ValueError, match="unknown"):
         get_dataset("nope")
 
