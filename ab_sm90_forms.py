@@ -310,11 +310,11 @@ _B1_SWAP = [
                      : (out_bf16 ? qt_sm90::b1_swap<float, BF>(a, b, sa, sb, out, M, N, K, s)
                                  : qt_sm90::b1_swap<float, float>(a, b, sa, sb, out, M, N, K, s));"""),
 ]
-_B5_ROWS_LAUNCH = """  rows<<<R, kThreads, row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K, eps,
-                                          key_row);
+_B5_ROWS_LAUNCH = """  rows<<<R, kThreads, g.row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K,
+                                            eps, key_row);
 """
-_B5_COLS_LAUNCH = """  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(col_ctas), dim3(kThreads), args,
-                                     col_smem, stream);
+_B5_COLS_LAUNCH = """  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(g.col_ctas), dim3(kThreads), args,
+                                     g.col_smem, stream);
 """
 _B5_LD_POLICY = """// a 16-byte load with the L2 eviction policy evict_last
 __device__ __forceinline__ uint4 ld_evict_last(const uint4* p) {
@@ -440,11 +440,12 @@ VARIANTS = {
     # (bf16 only): its loop's memory traffic alone; and with no grid barrier
     "diag_b5_cols_copy": [("int8_quant.cu", """        cast_vec<T, SR>(u[g][p], [&](int j) { return dy[j]; }, row * K + v * N, key, q + row * K + v * N);""",
                            """        __stcs(reinterpret_cast<uint2*>(q + row * K + v * N), make_uint2(u[g][p].x, u[g][p].y));""")],
-    "diag_b5_no_grid_sync": [("int8_quant.cu", "  cooperative_groups::this_grid().sync();\n", "")],
+    "diag_b5_no_grid_sync": [("int8_quant.cu", "  if constexpr (MODE == kWhole) cooperative_groups::this_grid().sync();\n",
+                              "")],
     # the column pass at 3 CTAs an SM (at most 85 registers a thread)
-    "b5_cols_ctas3": [("int8_quant.cu", """template <typename T, bool SR, int TPR, int G>
+    "b5_cols_ctas3": [("int8_quant.cu", """template <typename T, bool SR, int TPR, int G, int MODE>
 __global__ void __launch_bounds__(kThreads, kBothCtasPerSm)
-quantize_both_col_pass(""", """template <typename T, bool SR, int TPR, int G>
+quantize_both_col_pass(""", """template <typename T, bool SR, int TPR, int G, int MODE>
 __global__ void __launch_bounds__(kThreads, 3)
 quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothCtasPerSm * sms));",
                                                            "std::min<int64_t>(needed, 3 * sms));")],
@@ -586,7 +587,7 @@ quantize_both_col_pass("""), ("int8_quant.cu", "std::min<int64_t>(needed, kBothC
     "diag_b19_no_rewrite": [("int8_attention.cu", "        for (int u = t; u < HD; u += kTransposers)",
                              "        for (int u = t; u < HD && g < 0; u += kTransposers)")],
     # the column pass's (d, 1 / d) with a vector's pairs side by side
-    "b5_dy_by_vector": [("int8_quant.cu", "    col_dy[(c % N) * nv + c / N] = denom_of(", "    col_dy[c] = denom_of("),
+    "b5_dy_by_vector": [("int8_quant.cu", "    col_dy[(c % N) * nv + c / N] = denom_of(s", "    col_dy[c] = denom_of(s"),
                         ("int8_quant.cu", "        for (int j = 0; j < N; ++j) dy[j] = col_dy[j * nv + v];",
                          "        for (int j = 0; j < N; ++j) dy[j] = col_dy[v * N + j];")],
 }

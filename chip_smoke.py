@@ -50,7 +50,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    block_kv 512: checked to launch once on its sm90 design, the same bits
    on a second run, and within ``ops/int8_attention.py::agreement`` of its
    plain version and of its first design, the route forced to 0, timed in
-   the same call; beside SDPA in bf16); timed with CUDA events, with GB/s or TOP/s and the share
+   the same call; beside SDPA in bf16); the mesh forms of K1, B4 and B5
+   (their maxima forms, K1's given form and the given column cast, at a
+   rank's step shapes, the fsdp weight halves and TP's row-parallel
+   inputs, bit-exact, the maxima beside ``torch.linalg.vector_norm``) and
+   K1, B7, B8 and B10 at phase 17's width [2048, 256]; timed with CUDA events, with GB/s or TOP/s and the share
    of the roofline; K2, B1, B2, B15 (both forms), B16 at every shape and
    B17 (both forms) also on the route they took (K2 above 16 rows, B1, B2,
    B15 at QK = 128, B16 and B17 on the TMA + wgmma mainloop of
@@ -227,27 +231,38 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    then two gloo ranks sharing the card (NCCL refuses a second rank on one
    device; ``torch.multiprocessing.spawn``, each collective staged through
    the host): (b) ``{"data": 2}`` and ``{"fsdp": 2}`` (4 layers), 3 steps
-   at local batch 1 x 2048 against one process at 2 x 2048 (|dloss| <
-   0.05, the gap printed), replicated state bit-identical across the ranks, every
-   step's launches the one-process step's, fsdp half of every stacked
-   leaf's bytes; (c) ``bitnet_fsdp_linear`` at q's and gate's shapes within
+   at local batch 1 x 2048 against one process at 2 x 2048 (``MESH_BOUND``
+   in loss, ``MESH_NORM_RTOL`` in grad norm: every quantization maximum
+   spans the mesh), replicated state bit-identical across the ranks, every
+   step's launches the one-process step's with B5 as its mesh forms, the
+   maxima all-reduces a step printed, fsdp half of every stacked leaf's
+   bytes; (c) ``bitnet_fsdp_linear`` at q's and gate's shapes within
    1e-3 of the one-device linear, with the ternary values that differ and
    the payload's bytes, and 2 BitNet train steps (4 layers): K1 and K2
    once per BitNet linear forward; (d) TP ``generate`` at ``{"model": 2}``
-   on bf16 and int8 storage (int8 activations), 4 prompts of 128, 32 new,
-   11 layers: the prefill logits' mean gap to one rank's within the gap
+   on bf16, int8 storage (int8 activations), int8 ``mixed_precision``
+   (both with K1's mesh forms on o's and down's inputs), packed BitNet with
+   its o and down norms and int4 weight-only, 4 prompts of 128, 32 new,
+   8 layers: the prefill logits' mean gap to one rank's within the gap
    one bf16 ulp of the embedding makes (the model's rounding floor),
    greedy agreement, tok/s; at tests/test_parallel.py's TP model the
    logits within rtol = atol = 0.05 of one rank's (JAX's bound); (e)
-   the sharded resume at ``{"fsdp": 2}`` (4 layers): 3 steps, a
+   the sharded resume at ``{"fsdp": 2}`` (2 layers): 3 steps, a
    ``last_{rank}.pkl`` each, ``restore_sharded``, 2 steps equal 5 steps bit
-   for bit; (g) ``benchmark_collectives`` at 64 MB; and (f) a WebDataset
+   for bit; (h) schedule-free with the 8-bit state at ``{"fsdp": 2}`` (4
+   layers), 3 steps against one process, each rank's codes after the first
+   step against the one-process slice (``SF8_AGREE``, ``SF8_STEPS``); (i)
+   ``QT_PREQUANT`` '0', 'both' and 'col' at ``{"fsdp": 2}`` (2 layers, 2
+   steps, deterministic algorithms): 'both' and 'col' equal '0' bit for
+   bit, B5's and B4's mesh forms launched once a layer's weight; (g)
+   ``benchmark_collectives`` at 64 MB; and (f) a WebDataset
    tar of 256 JPEGs and a local ``datasets`` folder of 64, through
    ``train_transform`` at 224, batch 32, into phase 11's ViT-Giant int8
-   step (host images/s beside the step's). Prints its seconds and the
+   step cut to 10 blocks (host images/s beside the step's). Prints its seconds and the
    script's. Every entry gains the launches under the mesh
    (``mesh_launches``, both ranks) and of the image steps
-   (``image_launches``).
+   (``image_launches``); the mesh forms' entries take their launches from
+   this phase.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -752,6 +767,123 @@ def check_training_quantizes(gen: torch.Generator) -> list:
                 timed, first_ms = (shape, ms, plain_ms), per_shape[-1].get("first_design_ms")
         out.append(_entry(name, replaces, worst, timed, quantize_bytes(*timed[0], writes), first_ms=first_ms)
                    | {"shapes": per_shape})
+    return out
+
+
+# The mesh forms' shapes, bf16: a rank's x2d at local batch 1 x 2048 (the
+# token axis that B5's and B4's maxima span in phase 18 (b), (h), (i)), the
+# Llama2-1B weights' halves on a rank under {"fsdp": 2} (QT_PREQUANT's views,
+# (i): B5 for 'both', B4 for 'col'), and K1 at phase 18 (d)'s row-parallel
+# inputs over 2 ranks (o's and down's K halved, 4 prompts of 128 tokens)
+MESH_LOCAL = 2048
+MESH_FORM_SHAPES = {
+    "rowwise": [(MESH_LOCAL, D), (MESH_LOCAL, F), (512, D // 2), (512, F // 2)],
+    "colwise": [(MESH_LOCAL, D), (MESH_LOCAL, F), (D // 2, D), (KVD // 2, D), (F // 2, D), (D // 2, F)],
+    "both": [(MESH_LOCAL, D), (MESH_LOCAL, F), (D // 2, D), (KVD // 2, D), (F // 2, D), (D // 2, F)],
+}
+# K1, B7, B8 and B10 at phase 17's accuracy_parity model (hidden 256, 16 x
+# 128 tokens), where they take their first designs
+K256 = (2048, 256)
+
+
+def mesh_form_bytes(form: str, M: int, K: int) -> tuple[int, int]:
+    """The bytes the (maxima, given-maxima) forms of a bf16 [M, K] quantize
+    must move: the maxima form reads x and writes fp32 maxima (and B5's its
+    row quantize: q_row, bf16 s_row); the given form reads x and the fp32
+    maxima and writes q and the bf16 scales."""
+    n = M if form == "rowwise" else K
+    maxima = 2 * M * K + 4 * n + (M * K + 2 * M if form == "both" else 0)
+    return maxima, 3 * M * K + 6 * n
+
+
+def check_mesh_forms(gen: torch.Generator, key: int) -> list:
+    """The mesh forms of K1, B4 and B5 (``MESH_FORM_SHAPES``) against their
+    plain versions, bit for bit: each maxima form against the fp32 max |x|
+    (B5's with its row quantize), K1's given form and the given column cast
+    (B4's and B5's one) against the whole quantize's plain version given
+    those maxima, RN and, at the first shape, SR; each timed with its plain
+    version, the maxima forms also beside ``torch.linalg.vector_norm`` (ord
+    inf), one PyTorch call for max |x| along an axis. Returns the five
+    entries (the first shape's numbers, every shape's in ``shapes``). Then
+    K1, B7, B8 and B10 at ``K256``, held and timed (printed)."""
+    pq = "quantized_training_tpu/ops/pallas_quant.py"
+    rowwise_given = IQ.quantize_int8_rowwise_given
+    cols_given = IQ.quantize_int8_colwise_given
+    forms = {"rowwise": (IQ.quantize_int8_rowwise_maxima, rowwise_given, -1, f"{pq}:139"),
+             "colwise": (IQ.quantize_int8_colwise_maxima, cols_given, 0, f"{pq}:229"),
+             "both": (IQ.quantize_int8_both_maxima, cols_given, 0, f"{pq}:306")}
+    rows = {}  # entry name -> (replaces, [per-shape records])
+    for form, (maxima, given, axis, replaces) in forms.items():
+        name_m = f"quantize_int8_{form}_maxima"
+        name_g = "quantize_int8_rowwise_given" if form == "rowwise" else "quantize_int8_colwise_given"
+        if form == "both":
+            m_plain = lambda x: (*IQ.quantize_int8_plain(x, axis=1), IQ.quantize_int8_maxima_plain(x, 0))
+        else:
+            m_plain = lambda x, axis=axis: IQ.quantize_int8_maxima_plain(x, axis)
+        g_plain = lambda x, amax, axis=axis, **kw: IQ.quantize_int8_plain(x, axis=axis, amax=amax, **kw)
+        for i, (M, K) in enumerate(MESH_FORM_SHAPES[form]):
+            x = (torch.randn(M, K, generator=gen, device=DEVICE) * 1e-2).to(torch.bfloat16)
+            x[0] = 0  # an all-zero row and column
+            x[:, 1] = 0
+            ops.reset_launch_counts()
+            got_m, ref_m = maxima(x), m_plain(x)
+            got_m, ref_m = (t if isinstance(t, tuple) else (t,) for t in (got_m, ref_m))
+            amax = got_m[-1]
+            got_g, ref_g = given(x, amax), g_plain(x, ref_m[-1])
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            check(counts[name_m] == 1 and counts[name_g] == 1, f"{name_m} and {name_g} launched once each")
+            check(all(torch.equal(a, b) for a, b in zip(got_m, ref_m)), f"{name_m} bit-exact at {[M, K]}")
+            check(all(torch.equal(a, b) for a, b in zip(got_g, ref_g)), f"{name_g} bit-exact at {[M, K]}")
+            if i == 0:
+                sr_got, sr_ref = given(x, amax, sr=True, key=key), g_plain(x, ref_m[-1], sr=True, key=key)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(sr_got, sr_ref)) and not torch.equal(sr_got[0], got_g[0]),
+                      f"{name_g}'s SR form bit-exact at {[M, K]}, and not round-to-nearest")
+            m_bytes, g_bytes = mesh_form_bytes(form, M, K)
+            timed = [(name_m, maxima, m_plain, (x,), m_bytes,
+                      lambda x, dim=axis: torch.linalg.vector_norm(x, float("inf"), dim=dim))]
+            if form != "both":  # B5's given form is the column cast timed at B4's shapes, which are these
+                timed.append((name_g, given, g_plain, (x, amax), g_bytes, None))
+            for name, kernel, plain, args, nbytes, lib in timed:
+                inputs = copies(*args)
+                ms, plain_ms = time_ms(kernel, inputs), time_ms(plain, inputs)
+                lib_ms_ = lib_ms("torch.linalg.vector_norm", lib, inputs) if lib is not None else None
+                b_ms = bound(nbytes)[0]
+                rows.setdefault(name, (replaces, []))[1].append(
+                    {"shape": [M, K], "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "library_ms": lib_ms_,
+                     "nbytes": nbytes})
+                print(f"[3] {name} {[M, K]} bf16: bit-exact; kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                      f"{b_ms / ms:.3f} of the {b_ms:.4f} ms bound by bytes), plain {plain_ms:.4f} ms"
+                      + (f", torch.linalg.vector_norm {lib_ms_:.4f} ms" if lib_ms_ else ""))
+    out = []
+    for name, (replaces, per) in rows.items():
+        first = per[0]
+        entry = _entry(name, replaces, 0.0, (tuple(first["shape"]), first["ms"], first["plain_ms"]),
+                       first["nbytes"], library_ms=first["library_ms"])
+        out.append(entry | {"shapes": [{k: v for k, v in r.items() if k != "nbytes"} for r in per]})
+    # phase 17's K 256: the first designs of K1, B7, B8 and B10, held and timed
+    M, K = K256
+    x = torch.randn(M, K, generator=gen, device=DEVICE).to(torch.bfloat16)
+    g = (1 + 0.1 * torch.randn(K, generator=gen, device=DEVICE)).to(torch.bfloat16)
+    dy = (torch.randn(M, K, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
+    times = []
+    _held_and_timed({}, "quantize_int8_rowwise", "", "exact", ops.quantize_int8_rowwise, ops.quantize_int8_plain,
+                    (x,), 3 * M * K + 2 * M, times=times)
+    row = _held_and_timed({}, "rmsnorm_quant_rowwise", ", column absmax", "int8",
+                          partial(ops.rmsnorm_quant_rowwise, with_col_amax=True),
+                          partial(ops.rmsnorm_quant_rowwise_plain, with_col_amax=True), (x, g),
+                          3 * M * K + 2 * K + 4 * M + 4 * K, times=times)
+    scale = row[2] * (1.0 / 127.0)
+    _held_and_timed({}, "rmsnorm_quant_colwise", ", given scales", "int8",
+                    lambda x, g, scale: ops.rmsnorm_quant_colwise(x, g, scale=scale),
+                    lambda x, g, scale: ops.rmsnorm_quant_colwise_plain(x, g, scale=scale), (x, g, scale),
+                    3 * M * K + 2 * K + 4 * K, times=times)
+    _held_and_timed({}, "rmsnorm_bwd", "", "bwd", ops.rmsnorm_bwd, ops.rmsnorm_bwd_plain, (x, g, dy),
+                    6 * M * K + 2 * K + 4 * K, times=times)
+    for name, t in zip(("K1", "B7", "B8", "B10"), times):
+        print(f"[3] {name} at K 256 {list(K256)} (phase 17's width, the first design): {t['ms'] * 1e3:.1f} us, "
+              f"plain {t['plain_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.2f} us")
     return out
 
 
@@ -1784,7 +1916,7 @@ def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agre
 
 
 def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_sr: int = 0,
-                      layer: str = "fused") -> dict:
+                      layer: str = "fused", mesh: bool = False) -> dict:
     """Kernel launches of one train step of L layers, from the code (pinned
     on the CPU by tests/test_torch_train.py and tests/test_torch_fused.py::
     test_kernel_calls_per_step_fused): a layer has 7 quantized weights (q,
@@ -1811,7 +1943,11 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     'bf16': the rope kernels of 'unfused' only. All of that
     once per micro-batch, each quantize in its SR form with ``sr`` (B10 and
     B13 have none); then B6 once per parameter leaf (``b6``, or ``b6_sr``
-    with the SR writeback)."""
+    with the SR writeback). ``mesh``: a step on a data or fsdp mesh of two
+    or more ranks, whose token-axis quantizes run as their mesh forms: every
+    B5 (on the output grads) as one B5 maxima form and one B5 given form,
+    and in the unfused layer the four B4 of the inputs as B4's, each with
+    the given column cast (the weights' B4 and every K1 stay whole)."""
     t = "_sr" if sr else ""
     n = L * micro
     counts = dict.fromkeys(ops.KERNELS, 0)
@@ -1838,6 +1974,15 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     if layer != "bf16":
         counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm_rhs_t_sm90": 2 * 7 * n, "scaled_mm": 7 * n,
                        "scaled_mm_sm90": 7 * n, "scaled_mm_lhs_t": 7 * n, "scaled_mm_lhs_t_sm90": 7 * n})
+    if mesh and layer != "bf16":
+        both = counts[f"quantize_int8_both{t}"]
+        counts.update({f"quantize_int8_both{t}": 0, f"quantize_int8_both_maxima{t}": both,
+                       f"quantize_int8_colwise_given{t}": both})
+        if layer == "unfused":
+            counts[f"quantize_int8_colwise{t}"] -= 4 * n
+            counts[f"quantize_int8_colwise{t}_sm90"] -= 4 * n
+            counts.update({"quantize_int8_colwise_maxima": 4 * n})
+            counts[f"quantize_int8_colwise_given{t}"] += 4 * n
     return counts
 
 
@@ -3713,24 +3858,34 @@ MESH_DIR = os.path.join("build", "chip_smoke_mesh")
 MESH_S = 2048  # every mesh step's sequence
 MESH_RANKS = 2  # gloo ranks sharing the card: NCCL refuses a second rank on one device
 MESH_LR = 1e-4  # phase 8's
-MESH_BOUND = 0.05  # JAX's bound for a sharded step against one device (tests/test_parallel.py:70-86)
-# (b)'s pre-clip grad norm against one process, relative: a gradient counted
-# twice or not divided by data x fsdp, or a replicated leaf's square summed
-# once a rank, moves it by sqrt(2) or more, which AdamW's update and so the
-# loss do not see; the ranks' own quantization maxima (ROADMAP C5) move it
-# by far less (at most 1.1e-3 against JAX's sharded step in the CPU tests)
-MESH_NORM_RTOL = 0.02
+# (b)'s and (h)'s gaps to one process. Every quantization maximum spans
+# the mesh's token axis, so a rank's int8 operands are its rows of the
+# one-process step's; only the gradients' sums over the ranks run in another
+# order, as in the bf16 mesh step (tests/test_torch_parallel_ranks.py holds
+# that at 2e-3 in loss, 1e-3 in grad norm). JAX's bound for a sharded step
+# against one device is 0.05 (tests/test_parallel.py:70-86); before the
+# maxima spanned the mesh, 4 layers measured 1.656e-3 in loss, 4.8e-4 in
+# grad norm (PERF.md). The pre-clip grad norm sees a gradient counted
+# twice, not divided by data x fsdp, or a replicated leaf's square summed
+# once a rank (sqrt(2) or more), which AdamW's update and so the loss do not.
+# From the second step on, weights that the first step moved apart (a
+# gradient near 0 of either sign) move the norms too: 2.5e-3 at most in
+# the CPU rehearsal at hidden 128
+MESH_BOUND = 5e-3
+MESH_NORM_RTOL = 5e-3
 BITNET_BOUND = 1e-3  # JAX's for the 2-bit all-gather linear (tests/test_parallel.py:100-111)
 TP_BOUND = 0.05  # JAX's for TP logits (tests/test_parallel.py:159-186)
 TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 4, 128, 32
-# depth cut for time in (b)-(e), full width ((a) at full depth): phase 18
-# took 252.9 s alone with (b) and (d) at 22 layers, and 290.9 s inside the
-# whole script with (b) at 11, on an H100 80GB HBM3 at 700 W (PERF.md
-# section 6)
+# depth cut for time in (b)-(e), (h), (i) and (f)'s ViT, full width ((a)
+# at full depth): with (d) at 11 layers, (e) at 4, (i) at 4 and (f)'s ViT at
+# 40 blocks phase 18 took 348.3 s inside the whole script (the script
+# 1,120.3 s of its 1,200), on an H100 80GB HBM3 at 700 W (PERF.md section 6)
 MESH_LAYERS = 4
-TP_LAYERS = 11
+TP_LAYERS = 8
 BITNET_LAYERS = 4
-RESUME_LAYERS = 4
+RESUME_LAYERS = 2
+PREQUANT_MESH_LAYERS = 2
+IMAGE_VIT_BLOCKS = 10
 IMAGE_B, WDS_IMAGES, HF_IMAGES = 32, 256, 64
 IMAGE_SIZES = ((320, 240), (500, 375))
 GLOO_TIMEOUT_S = 300
@@ -3878,10 +4033,12 @@ def mesh_cli(seed: int) -> dict:
     return {k: sum(s[k] for s in meshed[1] + resumed[1]) for k in ops.KERNELS}
 
 
-def step_launches(plan: dict, cfg: llama.LlamaConfig) -> dict | None:
-    """One int8 step's launches at ``cfg`` (B6 once a leaf), or None where
-    nothing is counted."""
-    return per_step_launches(cfg.num_hidden_layers, b6=plan["n_leaves"]) if plan["counted"] else None
+def step_launches(plan: dict, cfg: llama.LlamaConfig, mesh: bool = False, b6: bool = True) -> dict | None:
+    """One int8 step's launches at ``cfg`` (B6 once a leaf, with ``b6``; on
+    a mesh of two ranks with ``mesh``), or None where nothing is counted."""
+    if not plan["counted"]:
+        return None
+    return per_step_launches(cfg.num_hidden_layers, b6=plan["n_leaves"] if b6 else 0, mesh=mesh)
 
 
 def reference_steps(plan: dict) -> tuple:
@@ -3902,12 +4059,14 @@ def reference_steps(plan: dict) -> tuple:
 
 
 def rank_steps(mesh, cfg, plan: dict, scheme="mixed_precision", n_steps=3, expect=None, state=None, specs=None,
-               start=0):
+               start=0, opt=None):
     """``n_steps`` of the mesh step on this rank's rows of the global
     batch, from seed ``SEED``'s weights unless ``state`` and its layout
-    ``specs`` are given; returns (state, specs, {"losses", "grad_norms"},
-    walls, launches, staged collectives)."""
-    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    ``specs`` are given (``opt``: AdamW with bf16 moments, no SR, by
+    default); returns (state, specs, {"losses", "grad_norms",
+    "maxima_all_reduces"} (the all-reduces of quantization maxima, all
+    steps), walls, launches, staged collectives)."""
+    opt = opt or optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     if state is None:
         raw = llama.init_params(torch.Generator(device=plan["device"]).manual_seed(SEED), cfg)
         qparams = quant.quantize_params(raw, scheme)
@@ -3920,6 +4079,7 @@ def rank_steps(mesh, cfg, plan: dict, scheme="mixed_precision", n_steps=3, expec
     tokens, labels = (t.to(plan["device"]) for t in parallel.shard_batch(mesh_batch(plan), mesh))
     metrics, walls, launches = dict(losses=[], grad_norms=[]), [], dict.fromkeys(ops.KERNELS, 0)
     parallel.reset_staged_collectives()
+    parallel.collectives.reset_maxima_all_reduces()
     for i in range(start, start + n_steps):
         sync()
         ops.reset_launch_counts()
@@ -3934,6 +4094,7 @@ def rank_steps(mesh, cfg, plan: dict, scheme="mixed_precision", n_steps=3, expec
             want = expect(counts) if callable(expect) else expect
             check(counts == want, f"rank {mesh.dp_index} step {i + 1} launches {counts} == {want}")
         launches = {k: launches[k] + v for k, v in counts.items()}
+    metrics["maxima_all_reduces"] = parallel.collectives.maxima_all_reduces()
     return state, specs, metrics, walls, launches, parallel.staged_collectives()
 
 
@@ -3946,7 +4107,8 @@ def dp_fsdp(plan: dict, rank: int) -> dict:
     for axes in ({"data": 2}, {"fsdp": 2}):
         name = next(iter(axes))
         mesh = parallel.make_mesh(axes, plan["device_type"])
-        state, specs, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, expect=step_launches(plan, cfg))
+        state, specs, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan,
+                                                                    expect=step_launches(plan, cfg, mesh=True))
         pairs, params = [], []
         map_tensors(lambda t, s: pairs.append((t, s)), state, specs)
         map_tensors(lambda t, s: params.append((t, s)), state.params, specs.params)
@@ -4031,10 +4193,38 @@ def logit_gap(got, ref) -> dict:
                 excess=(err - (TP_BOUND + TP_BOUND * ref.abs())).max().item())
 
 
+# (d)'s schemes whose row-parallel inputs K1 quantizes (int8 activations)
+TP_K1_FORMS = ("int8 storage", "mixed_precision")
+
+
+def tp_schemes(raw, cfg, plan: dict):
+    """(d)'s models at TP_LAYERS: (name, parameters, config) of bf16, int8
+    storage with int8 activations, int8 ``mixed_precision``, packed BitNet
+    with its o and down norms (random weights of 1 + 0.1 N(0, 1)), int4
+    weight-only; each made when its turn comes."""
+    yield "bf16", raw, cfg
+    yield "int8 storage", quant.quantize_params(raw, "int8_quantized_training", activation="int8"), cfg
+    yield "mixed_precision", quant.quantize_params(raw, "mixed_precision"), cfg
+    bcfg = dataclasses.replace(cfg, bitnet=True)
+    gen = torch.Generator(device=plan["device"]).manual_seed(SEED + 26)
+    norms = {k: {"g": (1 + 0.1 * torch.randn(*v["g"].shape, generator=gen, device=plan["device"])).to(v["g"].dtype)}
+             for k, v in with_bitnet_norms(raw, bcfg)["layers"].items() if k in ("o_norm", "down_norm")}
+    bit = quant.quantize_params({**raw, "layers": {**raw["layers"], **norms}}, "bitnet")
+    bit["layers"] = {k: {n: quant.BitNetPackedWeight.from_weight(w.data) if isinstance(w, quant.BitNetWeight) else w
+                         for n, w in v.items()} for k, v in bit["layers"].items()}
+    yield "BitNet packed, with its norms", bit, bcfg
+    del bit
+    yield "int4 weight-only", quant.quantize_params(raw, "int4_weight_only"), cfg
+
+
 def tp_serving(plan: dict, rank: int) -> dict:
     """(d): tensor-parallel serving at ``{"model": 2}``. At Llama2-1B's full
-    width and ``TP_LAYERS`` layers, on bf16 and on int8 storage with int8 activations (K1
-    and K2, K2's decode stream too), ``TP_PROMPTS`` prompts of
+    width and ``TP_LAYERS`` layers, on bf16, on int8 storage with int8
+    activations (K1 and K2, K2's decode stream too; the row-parallel
+    inputs' K1 as its mesh forms), int8 ``mixed_precision`` (K1's mesh forms
+    on both operands of o and down), packed BitNet with its o and down
+    norms (their squares summed over ``model``) and int4 weight-only (split
+    by its matrix), ``TP_PROMPTS`` prompts of
     ``TP_PROMPT_LEN`` tokens and ``TP_NEW`` new ones: the prefill logits'
     mean gap to one rank's, and each prompt's largest gap, no larger than
     the gaps that one bf16 ulp of the embedding makes on one rank (the
@@ -4043,8 +4233,8 @@ def tp_serving(plan: dict, rank: int) -> dict:
     agreement and tok/s. At tests/test_parallel.py's TP model (hidden 128, 2 layers,
     prompts [2, 16]), bf16 and int8 storage (weight-only, JAX's test, and
     with int8 activations, where a row-parallel input's K1 takes its row
-    maxima over the rank's K-shard: ROADMAP C5): the prefill logits within
-    rtol = atol = ``TP_BOUND`` of one rank's, JAX's bound."""
+    maxima all-reduced over ``model``): the prefill logits within rtol =
+    atol = ``TP_BOUND`` of one rank's, JAX's bound."""
     mesh = parallel.make_mesh({"model": 2}, plan["device_type"])
     T, new = plan["tp_prompt"], plan["tp_new"]
     cfg = dataclasses.replace(plan["cfg"], max_position_embeddings=T + new,
@@ -4053,28 +4243,33 @@ def tp_serving(plan: dict, rank: int) -> dict:
     prompt = torch.from_numpy(np.random.default_rng(plan["seed"] + 18).integers(
         0, cfg.vocab_size, (TP_PROMPTS, T))).to(plan["device"])
     out = {}
-    for name, params in (("bf16", raw), ("int8 storage", quant.quantize_params(raw, "int8_quantized_training",
-                                                                              activation="int8"))):
-        one = prefill(params, cfg, prompt, T + new)
-        floor = prefill(nudged(params, torch.Generator(device=plan["device"]).manual_seed(SEED)), cfg, prompt, T + new)
+    for name, params, scheme_cfg in tp_schemes(raw, cfg, plan):
+        one = prefill(params, scheme_cfg, prompt, T + new)
+        floor = prefill(nudged(params, torch.Generator(device=plan["device"]).manual_seed(SEED)), scheme_cfg, prompt,
+                        T + new)
         with torch.no_grad():
             sync()
             t0 = time.perf_counter()
-            ref_toks = llama_infer.generate(params, prompt, cfg, new)
+            ref_toks = llama_infer.generate(params, prompt, scheme_cfg, new)
             sync()
             one_seconds = time.perf_counter() - t0
             local, specs = parallel.shard_params_tp(params, mesh)
             ops.reset_launch_counts()  # TP's launches: its prefill and its generate
-            tp = prefill(local, cfg, prompt, T + new, mesh, specs)
+            parallel.collectives.reset_maxima_all_reduces()
+            tp = prefill(local, scheme_cfg, prompt, T + new, mesh, specs)
             sync()
             t0 = time.perf_counter()
-            toks = llama_infer.generate(local, prompt, cfg, new, mesh=mesh, specs=specs)
+            toks = llama_infer.generate(local, prompt, scheme_cfg, new, mesh=mesh, specs=specs)
             sync()
             seconds = time.perf_counter() - t0
         gap, floor_gap = logit_gap(tp, one), logit_gap(floor, one)
-        out[name] = dict(gap=gap, floor=floor_gap, tok_s=TP_PROMPTS * new / seconds, launches=ops.launch_counts(),
-                         one_tok_s=TP_PROMPTS * new / one_seconds,
+        launches = ops.launch_counts()
+        out[name] = dict(gap=gap, floor=floor_gap, tok_s=TP_PROMPTS * new / seconds, launches=launches,
+                         one_tok_s=TP_PROMPTS * new / one_seconds, maxima=parallel.collectives.maxima_all_reduces(),
                          agree=(toks[:, T:] == ref_toks[:, T:]).float().mean().item())
+        if plan["counted"] and name in TP_K1_FORMS:
+            check(launches["quantize_int8_rowwise_maxima"] > 0 and launches["quantize_int8_rowwise_given"] > 0,
+                  f"(d) {name}: the row-parallel inputs' K1 ran as its mesh forms: {launches}")
         check(gap["mean"] <= floor_gap["mean"], f"(d) {name}: TP's mean logit gap {gap} within one rank's rounding "
                                                 f"floor {floor_gap}")
         check(all(a <= b for a, b in zip(gap["prompt_max"], floor_gap["prompt_max"])),
@@ -4128,6 +4323,127 @@ def sharded_resume(plan: dict, rank: int) -> dict:
     return dict(full=full_losses, resumed=resumed_losses, file=os.path.basename(path), same=same)
 
 
+SF8_REF = os.path.join(MESH_DIR, "sf8_reference.pt")
+# (h)'s bars for a rank's 8-bit codes after the first step against the
+# one-process run's slice: the gradients differ only in the rounding of
+# their sums over the ranks (a bf16 ulp of an element, so the cubic
+# codebook's code by a step or two, and a block's every code where its
+# largest moves; where a sum of two ranks' partials cancels, an element's
+# relative error, and its step, can be large: 7 at most measured, 0.80 of
+# the codes agreeing); later steps move the weights apart too
+SF8_AGREE, SF8_STEPS = 0.5, 16
+PREQUANT_MESH_STEPS = 2
+
+
+def sf8_opt():
+    return optim.get_optimizer("schedule_free_adamw_8bit")
+
+
+def sf8_reference(plan: dict) -> tuple:
+    """(h)'s one-process run: schedule-free with the 8-bit state, the global
+    batch, 3 steps (no B6: the optimizer is plain torch); its 8-bit states'
+    codes after the first step, in the tree's order, saved to ``SF8_REF``
+    for the ranks. Returns (losses, grad norms)."""
+    from quantized_training_tpu_torch.optim import OptimState8bit
+
+    cfg = mesh_cfg(plan)
+    raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), cfg)
+    tokens, labels = (t.to(DEVICE) for t in mesh_batch(plan))
+    opt = sf8_opt()
+    state = train.init_train_state(quant.quantize_params(raw, "mixed_precision"), opt)
+    del raw
+    step = train.make_train_step(cfg, opt)
+    losses, norms = [], []
+    is8 = lambda t: isinstance(t, OptimState8bit)  # noqa: E731
+    for i in range(3):
+        state, m = step(state, tokens, labels, MESH_LR, random.fold_in(plan["key"], i))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i == 0:
+            codes = [l.codes.cpu() for l in tree_leaves(state.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
+            torch.save(codes, SF8_REF)
+    del state
+    torch.cuda.empty_cache()
+    print(f"[18] (h) one process, schedule-free 8-bit: losses {losses}, grad norms {norms}, {len(codes)} 8-bit "
+          f"states ({sum(c.numel() for c in codes):,} codes)", flush=True)
+    return losses, norms
+
+
+def sf8_fsdp(plan: dict, rank: int) -> dict:
+    """(h): schedule-free with the 8-bit ``exp_avg_sq`` at ``{"fsdp": 2}``,
+    3 steps (each rank's state its slice's codes and block scales): losses
+    and grad norms (held in ``report_ranks``), the launches of the mesh
+    step without B6, and after the first step each 8-bit state's codes
+    against the one-process run's slice (``SF8_REF``): the share that agree
+    and the largest difference in codebook steps."""
+    from quantized_training_tpu_torch.optim import OptimState8bit
+
+    mesh = parallel.make_mesh({"fsdp": 2}, plan["device_type"])
+    cfg = mesh_cfg(plan)
+    expect = step_launches(plan, cfg, mesh=True, b6=False)
+    state, specs, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, n_steps=1, opt=sf8_opt(),
+                                                                expect=expect)
+    is8 = lambda t: isinstance(t, OptimState8bit)  # noqa: E731
+    pieces = [l for l in tree_leaves(state.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
+    layout = [l for l in tree_leaves(specs.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
+    ref = torch.load(SF8_REF)
+    check(len(pieces) == len(ref) and all(p.shard is not None for p in pieces),
+          f"(h) rank {rank}: every 8-bit state split by its parameter ({len(pieces)} of {len(ref)})")
+    agree, steps = [], []
+    for piece, spec, codes in zip(pieces, layout, ref):
+        mine, theirs = piece.codes.int().cpu(), spec.codes.take(codes).int()
+        agree.append((mine == theirs).float().mean().item())
+        steps.append((mine - theirs).abs().max().item())
+    check(min(agree) >= SF8_AGREE and max(steps) <= SF8_STEPS,
+          f"(h) rank {rank}: codes after a step against the one-process slice agree {min(agree):.4f} (>= "
+          f"{SF8_AGREE}), within {max(steps)} steps (<= {SF8_STEPS})")
+    codes = sum(p.codes.numel() for p in pieces)
+    del pieces, layout, ref
+    *_, more, more_walls, more_launches, _ = rank_steps(mesh, cfg, plan, n_steps=2, opt=sf8_opt(), expect=expect,
+                                                        state=state, specs=specs, start=1)
+    metrics = {k: metrics[k] + more[k] for k in metrics}
+    launches = {k: launches[k] + more_launches[k] for k in launches}
+    return dict(**metrics, walls=walls + more_walls, staged=staged, launches=launches, agree=min(agree),
+                steps=max(steps), codes=codes)
+
+
+def prequant_fsdp(plan: dict, rank: int) -> dict:
+    """(i): ``QT_PREQUANT`` '0', 'both' and 'col' at ``{"fsdp": 2}``,
+    ``PREQUANT_MESH_LAYERS`` layers, ``PREQUANT_MESH_STEPS`` steps each
+    under ``torch.use_deterministic_algorithms``
+    (each rank makes its shards of the views, the maxima across ranks
+    all-reduced, and gathers them in each layer): 'both' and 'col' give the
+    '0' step's losses and grad norms bit for bit; 'both' runs B5's mesh
+    forms on the weights (one a layer's weight) and the grads, 'col' B4's
+    on the weights."""
+    mesh = parallel.make_mesh({"fsdp": 2}, plan["device_type"])
+    cfg = mesh_cfg(plan, num_hidden_layers=min(PREQUANT_MESH_LAYERS, plan["cfg"].num_hidden_layers))
+    L, out = cfg.num_hidden_layers, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("0", "both", "col"):
+            with prequant_mode(mode):
+                *_, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, n_steps=PREQUANT_MESH_STEPS)
+            out[mode] = dict(**metrics, walls=walls, staged=staged, launches=launches)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for mode in ("both", "col"):
+        same = (out[mode]["losses"] == out["0"]["losses"] and out[mode]["grad_norms"] == out["0"]["grad_norms"])
+        check(same, f"(i) rank {rank}: QT_PREQUANT={mode} under fsdp gives the '0' step's losses and grad norms "
+                    f"bit for bit: {out[mode]} {out['0']}")
+    if plan["counted"]:
+        n = PREQUANT_MESH_STEPS * L
+        both, col = out["both"]["launches"], out["col"]["launches"]
+        check(both["quantize_int8_both_maxima"] == both["quantize_int8_colwise_given"] == 12 * n
+              and both["quantize_int8_both"] == 0,
+              f"(i) 'both': B5's mesh forms once a layer's weight and once an output grad (12 a layer): {both}")
+        check(col["quantize_int8_colwise_maxima"] == 7 * n and col["quantize_int8_colwise_given"] == 12 * n,
+              f"(i) 'col': B4's maxima form once a layer's weight, the given column cast once a weight and once "
+              f"an output grad (B5's): {col}")
+    return out
+
+
 def mesh_rank(rank: int, port: int, plan: dict) -> None:
     """One of the two gloo ranks of phase 18 (b)-(e), (g), both on the
     card: writes its results to ``MESH_DIR/rank{rank}.json``."""
@@ -4137,7 +4453,8 @@ def mesh_rank(rank: int, port: int, plan: dict) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=MESH_RANKS,
                             timeout=timedelta(seconds=GLOO_TIMEOUT_S))
     out, seconds = {}, {}
-    for part, fn in (("b", dp_fsdp), ("c", bitnet_fsdp), ("d", tp_serving), ("e", sharded_resume)):
+    for part, fn in (("b", dp_fsdp), ("c", bitnet_fsdp), ("d", tp_serving), ("e", sharded_resume),
+                     ("h", sf8_fsdp), ("i", prequant_fsdp)):
         t0 = time.perf_counter()
         out[part] = fn(plan, rank)
         seconds[part] = time.perf_counter() - t0
@@ -4152,9 +4469,9 @@ def mesh_rank(rank: int, port: int, plan: dict) -> None:
     dist.destroy_process_group()
 
 
-def report_ranks(ranks: list, ref: tuple, plan: dict) -> None:
-    """Phase 18 (b)-(e), (g)'s lines, from both ranks' results and the
-    one-process run's (losses, grad norms)."""
+def report_ranks(ranks: list, ref: tuple, plan: dict, sf8_ref: tuple) -> None:
+    """Phase 18 (b)-(e), (g)-(i)'s lines, from both ranks' results and the
+    one-process runs' (losses, grad norms)."""
     r0 = ranks[0]
     ref_losses, ref_norms = ref
     for name in ("data", "fsdp"):
@@ -4164,10 +4481,11 @@ def report_ranks(ranks: list, ref: tuple, plan: dict) -> None:
         print(f"[18] (b) {{'{name}': 2}}, {min(MESH_LAYERS, plan['cfg'].num_hidden_layers)} layers (depth cut for "
               f"time), local batch 1 x {plan['seq']}: losses {runs[0]['losses']} (rank 1 "
               f"{runs[1]['losses']}); one process {ref_losses}; gap a step {[f'{g:.3e}' for g in gap]} (bound "
-              f"{MESH_BOUND}: the ranks quantize over their own tokens, ROADMAP C); grad norms "
+              f"{MESH_BOUND}); grad norms "
               f"{runs[0]['grad_norms']} (one process {ref_norms}), relative gap {[f'{g:.3e}' for g in norm_gap]} "
               f"(bound {MESH_NORM_RTOL}); step walls "
-              f"{[round(w, 3) for w in runs[0]['walls']]} s; staged collectives {runs[0]['staged']} in 3 steps; "
+              f"{[round(w, 3) for w in runs[0]['walls']]} s; staged collectives {runs[0]['staged']} in 3 steps, "
+              f"{runs[0]['maxima_all_reduces'] / 3:.0f} a step of them the quantization maxima's; "
               f"state bytes a rank {runs[0]['local_bytes']:,} (stacked leaves {runs[0]['stacked_bytes']:,}); "
               f"{runs[0]['replicated']} of {runs[0]['tensors']} state tensors replicated, bit-identical; launches "
               f"a step the one-process step's at {plan['seq']} tokens", flush=True)
@@ -4195,13 +4513,15 @@ def report_ranks(ranks: list, ref: tuple, plan: dict) -> None:
     fmt = lambda g: (f"max {g['max']:.4e}, mean {g['mean']:.4e}, each prompt's max "
                      f"{[round(x, 4) for x in g['prompt_max']]}, excess over rtol = atol = {TP_BOUND} "
                      f"{g['excess']:.4e}")
-    for name in ("bf16", "int8 storage"):
-        d = r0["d"][name]
+    for name, d in r0["d"].items():
+        if name.startswith("small"):
+            continue
         print(f"[18] (d) TP serving {{'model': 2}}, {name}, {min(TP_LAYERS, plan['cfg'].num_hidden_layers)} layers "
               f"(depth cut for time), {TP_PROMPTS} "
               f"prompts of {plan['tp_prompt']}, {plan['tp_new']} new: prefill logits against one rank: {fmt(d['gap'])};"
               f" one rank with its embedding one bf16 ulp off (the rounding floor): {fmt(d['floor'])}; greedy "
-              f"tokens that agree {d['agree']:.4f}; {d['tok_s']:.1f} tok/s (one rank {d['one_tok_s']:.1f}); launches "
+              f"tokens that agree {d['agree']:.4f}; {d['tok_s']:.1f} tok/s (one rank {d['one_tok_s']:.1f}); "
+              f"maxima all-reduces {d['maxima']}; launches "
               f"(TP's prefill and generate) { {k: v for k, v in d['launches'].items() if v} }")
     for name in ("bf16", "int8 storage", "int8 storage, int8 activations"):
         print(f"[18] (d) JAX's TP test model (hidden 128, 2 layers), {name}: prefill logits against one rank: "
@@ -4210,6 +4530,25 @@ def report_ranks(ranks: list, ref: tuple, plan: dict) -> None:
     print(f"[18] (e) sharded resume at {{'fsdp': 2}}, Llama2-1B width, {RESUME_LAYERS} layers (depth cut for time): "
           f"files {[x['file'] for x in e]}; 5 steps {e[0]['full']}; 3 + restore + 2 {e[0]['resumed']}; bit for "
           f"bit on every rank's shards {[x['same'] for x in e]}")
+    h = [r["h"] for r in ranks]
+    sf8_losses, sf8_norms = sf8_ref
+    gap = [abs(a - b) for a, b in zip(h[0]["losses"], sf8_losses)]
+    norm_gap = [abs(a - b) / b for a, b in zip(h[0]["grad_norms"], sf8_norms)]
+    print(f"[18] (h) schedule-free 8-bit at {{'fsdp': 2}}, {min(MESH_LAYERS, plan['cfg'].num_hidden_layers)} layers: "
+          f"losses {h[0]['losses']} (one process {sf8_losses}), gap {[f'{g:.3e}' for g in gap]} (bound {MESH_BOUND}); "
+          f"grad norms relative gap {[f'{g:.3e}' for g in norm_gap]} (bound {MESH_NORM_RTOL}); codes a rank "
+          f"{h[0]['codes']:,}, agreeing with the one-process slice {[round(x['agree'], 6) for x in h]}, largest step "
+          f"{[x['steps'] for x in h]}; step walls {[round(w, 3) for w in h[0]['walls']]} s; maxima all-reduces a step "
+          f"{h[0]['maxima_all_reduces'] / 3:.0f}", flush=True)
+    check(all(x["losses"] == h[0]["losses"] for x in h), "(h) every rank reports one global loss")
+    check(max(gap) < MESH_BOUND and max(norm_gap) < MESH_NORM_RTOL,
+          f"(h) losses within {MESH_BOUND} and grad norms within rtol {MESH_NORM_RTOL} of one process's")
+    i = r0["i"]
+    print(f"[18] (i) QT_PREQUANT at {{'fsdp': 2}}, {min(PREQUANT_MESH_LAYERS, plan['cfg'].num_hidden_layers)} layers, "
+          f"{PREQUANT_MESH_STEPS} steps, deterministic algorithms: "
+          + "; ".join(f"{m} losses {v['losses']} walls {[round(w, 3) for w in v['walls']]} s maxima all-reduces "
+                      f"{v['maxima_all_reduces']}" for m, v in i.items())
+          + "; 'both' and 'col' equal '0' bit for bit on both ranks", flush=True)
     print(f"[18] (g) benchmark_collectives, 2 gloo ranks on one card, host-staged (not NCCL), 64 MB, GiB/s: "
           + ", ".join(f"{k} {v:.3f}" for k, v in r0["g"].items()))
     print(f"[18] rank 0's seconds by part: { {k: round(v, 1) for k, v in r0['seconds'].items()} }", flush=True)
@@ -4310,18 +4649,20 @@ def mesh_phase(seed: int, key: int, t_script: float) -> tuple[dict, dict]:
         t_a = time.perf_counter()
         plan = mesh_plan(seed, key)
         ref = reference_steps(plan)
+        sf8_ref = sf8_reference(plan)
         mp.spawn(mesh_rank, args=(free_port(), plan), nprocs=MESH_RANKS, join=True)
         ranks = []
         for r in range(MESH_RANKS):
             with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
         t_ranks = time.perf_counter()
-        report_ranks(ranks, ref, plan)
+        report_ranks(ranks, ref, plan, sf8_ref)
         for r in ranks:
             parts = [r["b"]["data"]["launches"], r["b"]["fsdp"]["launches"], r["c"]["train"]["launches"],
-                     *(r["d"][k]["launches"] for k in ("bf16", "int8 storage"))]
+                     *(v["launches"] for k, v in r["d"].items() if not k.startswith("small")),
+                     r["h"]["launches"], *(v["launches"] for v in r["i"].values())]
             launches = {k: launches[k] + sum(p[k] for p in parts) for k in launches}
-        images = image_sets(seed, key)
+        images = image_sets(seed, key, dataclasses.replace(VIT_CFG, num_layers=IMAGE_VIT_BLOCKS))
     finally:
         for d in (MESH_SAVE, MESH_DIR):
             shutil.rmtree(d, ignore_errors=True)
@@ -4354,6 +4695,7 @@ def main() -> None:
     check_storage_forms(gen)
     serving = [check_k1(gen), k2_decode]
     training = [*check_training_quantizes(gen), *check_training_gemms(gen, k2_worst)]
+    mesh_forms = check_mesh_forms(gen, key)
     other_gemms = [check_int4_gemms(gen), *check_tile_gemms(gen)]
     sr_forms = check_sr_quantizes(gen, key)
     adamw = check_fused_adamw(gen, key)
@@ -4415,6 +4757,9 @@ def main() -> None:
         e["image_launches"] = images.get(e["name"], 0)
     missing = [k for k in PRETRAIN_KERNELS + ("fused_adamw_update",) if not meshed[k]]
     check(not missing, f"phase 18 launched every kernel of the int8 step under the mesh, not {missing}")
+    fill_launches(mesh_forms, meshed)  # the mesh forms' path is phase 18's
+    check(all(e["launches"] > 0 for e in mesh_forms), f"phase 18 launched every mesh form: {mesh_forms}")
+    kernels += mesh_forms
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

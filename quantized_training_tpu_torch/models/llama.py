@@ -78,10 +78,10 @@ from ..ops.fused_producers import silu_mul_ref
 from ..ops.random import fold_in
 from ..ops.rope import group_heads, rope_group, ungroup_heads
 from ..parallel import fsdp as _fsdp
-from ..parallel.mesh import param_specs
+from ..parallel.mesh import Shard, param_specs
 from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, prequantize_step, qlinear
 from ..quant.node import WeightNode
-from ..utils.tree import tree_leaves
+from ..utils.tree import map_tensors, tree_leaves
 
 
 @dataclass(frozen=True)
@@ -398,20 +398,24 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     B, S = tokens.shape
     layer = partial(_decoder_layer, cfg)
     specs = _fsdp_specs(mesh, specs)
+    layer_specs = None
     if specs is not None:
-        if os.environ.get("QT_PREQUANT", "0") != "0":
-            raise ValueError("QT_PREQUANT with an fsdp mesh: the column views need every row of a weight")
         params = {k: v if k in ("layers", "lm_head") else _fsdp.gather(v, specs[k], mesh) for k, v in params.items()}
         layer_dim = lambda dim: 0 if dim == 0 else None  # split on the layer dim: gathered whole, once
         params["layers"] = _fsdp.gather(params["layers"], specs["layers"], mesh, pick=layer_dim)
-        layer = partial(_fsdp_layer, cfg, specs["layers"], mesh)
+        # the leaves still split: those split on a dim of the [out, in] matrix
+        layer_specs = map_tensors(lambda s: Shard(None, s.index, s.count) if s.dim == 0 else s, specs["layers"],
+                                  is_leaf=lambda s: isinstance(s, Shard))
     # F.embedding, not indexing: the CPU backward of an index accumulates the
     # rows of repeated tokens with atomic adds in whatever order the threads
     # run, so the embedding's grad would change bits from run to run
     x = F.embedding(tokens.long(), params["embed"]["embedding"])
     cos, sin = rope_tables(cfg, S, device=tokens.device)
-    # QT_PREQUANT: the weights' int8 views once a step, outside the layers
-    layers = prequantize_step(params["layers"], key=fold_in(key, 0x5EED))
+    # QT_PREQUANT: the weights' int8 views once a step, outside the layers;
+    # under fsdp each rank makes its shards of them, gathered in each layer
+    layers = prequantize_step(params["layers"], key=fold_in(key, 0x5EED), mesh=mesh, specs=layer_specs)
+    if specs is not None:
+        layer = partial(_fsdp_layer, cfg, _fsdp.prequant_specs(layers, specs["layers"]), mesh)
     for l, lp in enumerate(_unstack_layers(layers, cfg.num_hidden_layers)):
         lkey = fold_in(key, l)
         if cfg.remat:

@@ -15,10 +15,20 @@ its slice of the MLP, o's and down's partial outputs are summed over
 heads (``parallel.shard_kv_cache``), and the vocab-split logits are
 all-gathered. The fresh-prefill fast path is off under TP, as JAX's flash
 prefill is (:136-140): prefill attends over the cache.
+
+JAX's TP forward is one global program, whose maxima XLA takes over the
+whole of a split axis. Here o's and down's linears run inside
+``collectives.spanning(mesh, features="model")``, so the quantizes of their
+inputs (K1 of int8 storage and BitNet, both operands of the
+``mixed_precision`` forward) take the maxima of the global row; BitNet's
+``o_norm`` and ``down_norm``, whose mean of squares runs over the features
+that TP splits, sum the squares over ``model`` and scale with the rank's
+slice of their weight.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -111,6 +121,24 @@ def _split(specs, *path) -> bool:
     return leaf_shard(specs).dim is not None
 
 
+def _row_parallel(mesh, split: bool):
+    """The span of a row-parallel linear's contraction axis, where ``split``."""
+    return C.spanning(mesh, features="model") if split else contextlib.nullcontext()
+
+
+def _features_rms_norm(x, g, eps: float, mesh, split: bool):
+    """``llama.rms_norm`` of x over its features; where ``split`` the rank
+    holds 1 / n of them, so the sum of squares is all-reduced over
+    ``model``, divided by every feature, and ``g`` is cut to the rank's
+    slice."""
+    if not split:
+        return llama.rms_norm(x, g, eps)
+    n = mesh.shape["model"]
+    xf = x.float()
+    mean = C.all_reduce((xf * xf).sum(dim=-1, keepdim=True), mesh, "model") / (x.shape[-1] * n)
+    return (xf * torch.rsqrt(mean + eps)).to(x.dtype) * g.chunk(n, -1)[mesh.coords["model"]]
+
+
 def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
                        cfg: llama.LlamaConfig, window: int | None = None, mesh=None, specs=None):
     """tokens [B, T] at absolute positions pos..pos+T -> logits [B, T, V].
@@ -142,6 +170,8 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
             raise ValueError(f"tensor parallelism over {mesh.shape['model']}: {KV} KV heads a rank, cache "
                              f"{cache.k.shape[3]}, {H} query heads")
         reduce_o, reduce_down = _split(specs, "layers", "o", "w"), _split(specs, "layers", "down", "w")
+    else:
+        reduce_o = reduce_down = False
     positions = _positions(pos, T, device)
     x = params["embed"]["embedding"][tokens.long()]
     cos_full, sin_full = llama.rope_tables(cfg, cache.max_len, device=device)
@@ -175,16 +205,18 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
             ctx = _attention_over_cache(q, kc[:, :W], ksc[:, :W], vc[:, :W], vsc[:, :W], pos)
         ctx = ctx.reshape(B, T, H * hd)
         if cfg.bitnet:
-            ctx = llama.rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps)
-        o = qlinear(ctx, lp["o"]["w"])
-        x = x + (C.all_reduce(o, mesh, "model") if tp and reduce_o else o)
+            ctx = _features_rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps, mesh, reduce_o)
+        with _row_parallel(mesh, reduce_o):
+            o = qlinear(ctx, lp["o"]["w"])
+        x = x + (C.all_reduce(o, mesh, "model") if reduce_o else o)
 
         h = llama.rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
         act = torch.nn.functional.silu(qlinear(h, lp["gate"]["w"])) * qlinear(h, lp["up"]["w"])
         if cfg.bitnet:
-            act = llama.rms_norm(act, lp["down_norm"]["g"], cfg.rms_norm_eps)
-        down = qlinear(act, lp["down"]["w"])
-        x = x + (C.all_reduce(down, mesh, "model") if tp and reduce_down else down)
+            act = _features_rms_norm(act, lp["down_norm"]["g"], cfg.rms_norm_eps, mesh, reduce_down)
+        with _row_parallel(mesh, reduce_down):
+            down = qlinear(act, lp["down"]["w"])
+        x = x + (C.all_reduce(down, mesh, "model") if reduce_down else down)
 
     x = llama.rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)
     logits = qlinear(x, llama.lm_head_weight(params, cfg))

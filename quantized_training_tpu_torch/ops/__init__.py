@@ -11,6 +11,11 @@ kernels, each with a plain PyTorch version that CPU tensors take:
   again in ``quantize_int8_colwise_sm90`` (and ``_sr_sm90``);
 - B5 :func:`quantize_int8_both` (``csrc/int8_quant.cu``), replacing
   ``ops/pallas_quant.py::quantize_int8_both``;
+- the mesh forms of K1, B4 and B5 (``csrc/int8_quant.cu``): each quantize
+  as a maxima form and a given-maxima form, for a mesh that all-reduces the
+  maxima between them (``quantize_int8_rowwise_maxima`` / ``..._given``;
+  ``quantize_int8_colwise_maxima`` and ``quantize_int8_both_maxima``, each
+  with ``quantize_int8_colwise_given``);
 - K2 :func:`scaled_mm_rhs_t` (``csrc/scaled_mm.cu``), replacing
   ``ops/pallas_mm.py::scaled_mm_dims`` with dims (1, 1); above the decode
   sizes on the TMA + wgmma mainloop again in ``scaled_mm_rhs_t_sm90``, at
@@ -128,10 +133,16 @@ from .int4_mm import int4_mm, scaled_int4_mm, scaled_int4_mm_plain, unpack_int4
 from .int8_attention import attention_ref, int8_flash_fwd, int8_flash_fwd_plain, quantize_qkv
 from .int8_quant import (
     quantize_int8_both,
+    quantize_int8_both_maxima,
     quantize_int8_both_plain,
     quantize_int8_colwise,
+    quantize_int8_colwise_given,
+    quantize_int8_colwise_maxima,
+    quantize_int8_maxima_plain,
     quantize_int8_plain,
     quantize_int8_rowwise,
+    quantize_int8_rowwise_given,
+    quantize_int8_rowwise_maxima,
 )
 from .matmul import int8_mm, matmul, matmul_plain
 from .mx import (
@@ -177,6 +188,17 @@ KERNELS = {
     "quantize_int8_colwise_sr_sm90": (quantize_int8_colwise, "sr_sm90_launches"),
     "quantize_int8_both": (quantize_int8_both, "launches"),
     "quantize_int8_both_sr": (quantize_int8_both, "sr_launches"),
+    "quantize_int8_rowwise_maxima": (quantize_int8_rowwise_maxima, "launches"),
+    "quantize_int8_rowwise_maxima_sm90": (quantize_int8_rowwise_maxima, "sm90_launches"),
+    "quantize_int8_rowwise_given": (quantize_int8_rowwise_given, "launches"),
+    "quantize_int8_rowwise_given_sr": (quantize_int8_rowwise_given, "sr_launches"),
+    "quantize_int8_rowwise_given_sm90": (quantize_int8_rowwise_given, "sm90_launches"),
+    "quantize_int8_rowwise_given_sr_sm90": (quantize_int8_rowwise_given, "sr_sm90_launches"),
+    "quantize_int8_colwise_maxima": (quantize_int8_colwise_maxima, "launches"),
+    "quantize_int8_colwise_given": (quantize_int8_colwise_given, "launches"),
+    "quantize_int8_colwise_given_sr": (quantize_int8_colwise_given, "sr_launches"),
+    "quantize_int8_both_maxima": (quantize_int8_both_maxima, "launches"),
+    "quantize_int8_both_maxima_sr": (quantize_int8_both_maxima, "sr_launches"),
     "scaled_mm_rhs_t": (scaled_mm_rhs_t, "launches"),
     "scaled_mm_rhs_t_sm90": (scaled_mm_rhs_t, "sm90_launches"),
     "scaled_mm_rhs_t_decode": (scaled_mm_rhs_t, "decode_launches"),

@@ -54,6 +54,16 @@ _SIGNATURES = {
     "qt_quantize_int8_both": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _U64, _P,
     ),
+    # the mesh forms: x, amax, M, K, is_bf16, tpr, ctas, stream
+    "qt_quantize_int8_rowwise_maxima": (_P, _P, _I64, _I64, _I, _I, _I64, _P),
+    # x, q, scale, amax, M, K, eps, is_bf16, sr, key, tpr, ctas, stream
+    "qt_quantize_int8_rowwise_given": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _I, _I64, _P),
+    # x, amax, R, C, is_bf16, stream
+    "qt_quantize_int8_colwise_maxima": (_P, _P, _I64, _I64, _I, _P),
+    # x, q_row, s_row, parts, amax, M, K, eps, is_bf16, sr, key_row, stream
+    "qt_quantize_int8_both_maxima": (_P, _P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
+    # x, q_col, s_col, amax, M, K, eps, is_bf16, sr, key_col, stream
+    "qt_quantize_int8_colwise_given": (_P, _P, _P, _P, _I64, _I64, ctypes.c_float, _I, _I, _U64, _P),
     # p, g, ea, eas, scalars, new_p, new_ea, new_eas, n, p_is_bf16, sr, key, stream
     "qt_fused_adamw": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _U64, _P),
     # x, g, q, s_row, amax, parts, M, K, rpb, norm_eps, eps, is_bf16, sr, with_amax, key, tpr, ctas, stream

@@ -89,6 +89,26 @@
 // each column's running max in shared memory and merges it by atomicMax into
 // the zeroed amax (quantize_both_rows), then B4's column cast.
 //
+// The mesh forms (no Pallas counterpart: under a mesh JAX's program is one
+// global program, whose maxima XLA takes over the whole of a sharded axis).
+// A quantize whose reduced axis a mesh splits runs in two launches with an
+// all-reduce of the maxima between them (parallel/collectives.py): a maxima
+// form, which writes each row's or column's max |x| as fp32 and casts nothing,
+// and a given-maxima form, which casts with scale = amax / 127 from the
+// all-reduced maxima, the numbers of the whole quantize on the global tensor
+// bit for bit. K1's two forms are its kernels (the row walk and the first
+// design) with the reduction or the cast left out (kMaxima, kGiven). B5's
+// maxima form is its row pass (q_row and s_row) and the column pass's
+// reduction of the CTAs' parts into amax; B4's is its first design's
+// col_absmax: the cluster form casts from the tile its CTAs hold in shared
+// memory, which does not outlive the launch, so across an all-reduce the
+// cast reads x again in any case. The one given form of a column quantize,
+// B4's and B5's, is B5's column pass's cast alone (its first design's
+// col_cast off B5's vector path), which measured faster than col_cast at 5
+// of the 6 shapes of a rank's step (chip_smoke.py phase 3, PERF.md). Neither
+// needs the cooperative launch, whose grid barrier only orders the two
+// halves of the whole column pass.
+//
 // Stochastic rounding (the SR forms of K1, B4 and B5, replacing the
 // ``sr=True`` bodies of pallas_quant.py:98-106 / :120-125, :220-225 and
 // :276-302): q = floor(x / max(scale, eps) + u), clamped, with the same
@@ -110,6 +130,10 @@
 namespace {
 
 constexpr int64_t kBlockRowMinK = 1024;
+
+// The forms of a kernel: the whole quantize, its maxima alone (fp32, to
+// amax), or its cast from given fp32 maxima (from amax)
+constexpr int kWhole = 0, kMaxima = 1, kGiven = 2;
 
 __device__ __forceinline__ void store_scale(float* p, float s) { *p = s; }
 __device__ __forceinline__ void store_scale(__nv_bfloat16* p, float s) {
@@ -188,50 +212,64 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Short rows (K < kBlockRowMinK, e.g. KV rows of hd = 64): one warp per row.
-template <typename T, bool SR>
+template <typename T, bool SR, int MODE>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_warp(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
-                   int64_t M, int64_t K, float eps, bool vec, uint64_t key) {
+                   float* __restrict__ amax, int64_t M, int64_t K, float eps, bool vec, uint64_t key) {
   const int lane = threadIdx.x & 31;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= M) return;  // whole warps leave together
-  const float s = __fdiv_rn(warp_max(row_absmax<T, 32>(x + row * K, K, vec, lane)), 127.0f);
+  const float a = MODE == kGiven ? amax[row] : warp_max(row_absmax<T, 32>(x + row * K, K, vec, lane));
+  if constexpr (MODE == kMaxima) {
+    if (lane == 0) amax[row] = a;
+    return;
+  }
+  const float s = __fdiv_rn(a, 127.0f);
   row_cast<T, 32, SR>(x + row * K, q + row * K, K, vec, lane, fmaxf(s, eps), row * K, key);
   if (lane == 0) store_scale(scale + row, s);
 }
 
 // Long rows (activations and weights, K >= kBlockRowMinK): one block per
 // row, so even the 8 rows of a decode step spread over 8 SMs.
-template <typename T, bool SR>
+template <typename T, bool SR, int MODE>
 __global__ void __launch_bounds__(kThreads)
 quantize_rows_block(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale,
-                    int64_t K, float eps, bool vec, uint64_t key) {
+                    float* __restrict__ given, int64_t K, float eps, bool vec, uint64_t key) {
   __shared__ float part[kThreads / 32];
   const int64_t row = blockIdx.x;
-  float amax = warp_max(row_absmax<T, kThreads>(x + row * K, K, vec, threadIdx.x));
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
-  __syncthreads();
+  float amax;
+  if constexpr (MODE == kGiven) {
+    amax = given[row];
+  } else {
+    amax = warp_max(row_absmax<T, kThreads>(x + row * K, K, vec, threadIdx.x));
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = amax;
+    __syncthreads();
 #pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) amax = fmaxf(amax, part[w]);
+    for (int w = 0; w < kThreads / 32; ++w) amax = fmaxf(amax, part[w]);
+    if constexpr (MODE == kMaxima) {
+      if (threadIdx.x == 0) given[row] = amax;
+      return;
+    }
+  }
   const float s = __fdiv_rn(amax, 127.0f);
   row_cast<T, kThreads, SR>(x + row * K, q + row * K, K, vec, threadIdx.x, fmaxf(s, eps), row * K, key);
   if (threadIdx.x == 0) store_scale(scale + row, s);
 }
 
-template <typename T, bool SR>
-cudaError_t launch(const void* x, void* q, void* scale, int64_t M, int64_t K, float eps, uint64_t key,
+template <typename T, bool SR, int MODE = kWhole>
+cudaError_t launch(const void* x, void* q, void* scale, float* amax, int64_t M, int64_t K, float eps, uint64_t key,
                    cudaStream_t stream) {
   const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (K % (16 / sizeof(T)) == 0);
   const T* xt = static_cast<const T*>(x);
   int8_t* qt = static_cast<int8_t*>(q);
   T* st = static_cast<T*>(scale);
   if (K >= kBlockRowMinK) {
-    quantize_rows_block<T, SR><<<static_cast<unsigned int>(M), kThreads, 0, stream>>>(xt, qt, st, K, eps, vec,
-                                                                                     key);
+    quantize_rows_block<T, SR, MODE><<<static_cast<unsigned int>(M), kThreads, 0, stream>>>(xt, qt, st, amax, K,
+                                                                                           eps, vec, key);
   } else {
     const int64_t blocks = (M + kThreads / 32 - 1) / (kThreads / 32);
-    quantize_rows_warp<T, SR><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(xt, qt, st, M, K, eps,
-                                                                                         vec, key);
+    quantize_rows_warp<T, SR, MODE><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
+        xt, qt, st, amax, M, K, eps, vec, key);
   }
   return cudaGetLastError();
 }
@@ -625,7 +663,12 @@ quantize_both_row_pass(const T* __restrict__ x, int8_t* __restrict__ q, T* __res
 // lanes (consecutive vectors) read consecutive pairs, where a vector's pairs
 // side by side (ab_sm90_forms.py's b5_dy_by_vector) make lanes 64 bytes
 // apart and conflict on the banks.
-template <typename T, bool SR, int TPR, int G>
+//
+// MODE kMaxima (B5's maxima form): the reduction alone, amax written and no
+// scale; kGiven (its given form): the cast alone, from the caller's amax,
+// CTA 0 storing s_col. Neither meets at the grid barrier, so both launch as
+// plain kernels.
+template <typename T, bool SR, int TPR, int G, int MODE>
 __global__ void __launch_bounds__(kThreads, kBothCtasPerSm)
 quantize_both_col_pass(const T* __restrict__ x, const uint4* parts, int R, float* __restrict__ amax, int8_t* q,
                        T* __restrict__ scale, int64_t M, int64_t K, float eps, uint64_t key) {
@@ -634,36 +677,42 @@ quantize_both_col_pass(const T* __restrict__ x, const uint4* parts, int R, float
   extern __shared__ float2 col_dy[];
   const W walk;
   const int64_t nv = K / N;
-  const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int lane = threadIdx.x % 32;
-  int S = 32;
-  while (S > 1 && nv * S > threads) S >>= 1;
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane; base < nv * S;
-       base += threads) {  // whole warps, for the shuffles
-    const int64_t i = base + lane, v = i / S;
-    uint4 m = make_uint4(0u, 0u, 0u, 0u);
-    if (i < nv * S)
-      for (int64_t r = i % S; r < R; r += 4 * S) {  // 4 loads in flight
-        uint4 w[4];
+  if constexpr (MODE != kGiven) {
+    const int64_t threads = static_cast<int64_t>(gridDim.x) * kThreads;
+    const int lane = threadIdx.x % 32;
+    int S = 32;
+    while (S > 1 && nv * S > threads) S >>= 1;
+    for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x - lane; base < nv * S;
+         base += threads) {  // whole warps, for the shuffles
+      const int64_t i = base + lane, v = i / S;
+      uint4 m = make_uint4(0u, 0u, 0u, 0u);
+      if (i < nv * S)
+        for (int64_t r = i % S; r < R; r += 4 * S) {  // 4 loads in flight
+          uint4 w[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) w[k] = r + k * S < R ? parts[(r + k * S) * nv + v] : make_uint4(0u, 0u, 0u, 0u);
+          for (int k = 0; k < 4; ++k) w[k] = r + k * S < R ? parts[(r + k * S) * nv + v] : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) m = Abs<T>::max(m, w[k]);
-      }
-    for (int off = S / 2; off > 0; off >>= 1)
-      m = Abs<T>::max(m, make_uint4(__shfl_xor_sync(0xFFFFFFFFu, m.x, off), __shfl_xor_sync(0xFFFFFFFFu, m.y, off),
-                                    __shfl_xor_sync(0xFFFFFFFFu, m.z, off), __shfl_xor_sync(0xFFFFFFFFu, m.w, off)));
-    if (i < nv * S && i % S == 0)
+          for (int k = 0; k < 4; ++k) m = Abs<T>::max(m, w[k]);
+        }
+      for (int off = S / 2; off > 0; off >>= 1)
+        m = Abs<T>::max(m, make_uint4(__shfl_xor_sync(0xFFFFFFFFu, m.x, off), __shfl_xor_sync(0xFFFFFFFFu, m.y, off),
+                                      __shfl_xor_sync(0xFFFFFFFFu, m.z, off), __shfl_xor_sync(0xFFFFFFFFu, m.w, off)));
+      if (i < nv * S && i % S == 0)
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float a = __uint_as_float(Abs<T>::elem(m, j));
-        amax[v * N + j] = a;
-        store_scale(scale + v * N + j, __fdiv_rn(a, 127.0f));
-      }
+        for (int j = 0; j < N; ++j) {
+          const float a = __uint_as_float(Abs<T>::elem(m, j));
+          amax[v * N + j] = a;
+          if constexpr (MODE == kWhole) store_scale(scale + v * N + j, __fdiv_rn(a, 127.0f));
+        }
+    }
   }
-  cooperative_groups::this_grid().sync();
-  for (int64_t c = threadIdx.x; c < K; c += kThreads)
-    col_dy[(c % N) * nv + c / N] = denom_of(__fdiv_rn(__ldcg(amax + c), 127.0f), eps);
+  if constexpr (MODE == kMaxima) return;
+  if constexpr (MODE == kWhole) cooperative_groups::this_grid().sync();
+  for (int64_t c = threadIdx.x; c < K; c += kThreads) {
+    const float s = __fdiv_rn(__ldcg(amax + c), 127.0f);
+    col_dy[(c % N) * nv + c / N] = denom_of(s, eps);
+    if (MODE == kGiven && blockIdx.x == 0) store_scale(scale + c, s);
+  }
   __syncthreads();
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   walk.template for_steps<true>(xv, M, nv, [&](int64_t step, const uint4 (&u)[G][VPL]) {
@@ -684,36 +733,84 @@ quantize_both_col_pass(const T* __restrict__ x, const uint4* parts, int R, float
   });
 }
 
-template <typename T, bool SR, int TPR, int G>
-cudaError_t launch_both_passes(const T* x, void* q_row, void* s_row, void* q_col, void* s_col, float* amax,
-                               int64_t M, int64_t K, float eps, uint64_t key_row, uint64_t key_col,
-                               cudaStream_t stream) {
-  const auto rows = quantize_both_row_pass<T, SR, TPR, G>;
-  const auto cols = quantize_both_col_pass<T, SR, TPR, G>;
+// The grids of B5's two passes: the row pass's R CTAs (each leaving its K
+// column maxima, K sizeof(T) bytes, in an M K byte buffer), the column pass's
+// CTAs, and its dynamic shared memory (each column's (d, 1 / d): 64 KB at
+// 1024 vectors of bf16), its limit raised for ``cols`` where it needs more.
+struct BothGrid {
+  int R;
+  unsigned int col_ctas;
+  size_t row_smem, col_smem;
+};
+
+template <typename T, int TPR, int G>
+cudaError_t both_grid(const void* cols, int64_t M, int64_t K, BothGrid& g) {
   constexpr int64_t groups = BothWalk<TPR, G>::kGroups;
-  // the groups' packed column maxima (16 KB: 4 vectors a thread), and
-  // each column's (d, 1 / d) (64 KB at 1024 vectors of bf16)
-  const size_t row_smem = static_cast<size_t>(groups * K) * sizeof(T), col_smem = static_cast<size_t>(K) * 8;
+  // the groups' packed column maxima (16 KB: 4 vectors a thread)
+  g.row_smem = static_cast<size_t>(groups * K) * sizeof(T);
+  g.col_smem = static_cast<size_t>(K) * 8;
   cudaError_t err = cudaSuccess;
-  if (col_smem > 48 * 1024)
-    err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(col_smem));
+  if (cols != nullptr && g.col_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(g.col_smem));
   int device = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int64_t needed = ((M + G - 1) / G + groups - 1) / groups;
-  const unsigned int col_ctas = static_cast<unsigned int>(std::min<int64_t>(needed, kBothCtasPerSm * sms));
-  // each row-pass CTA's K column maxima (K sizeof(T) bytes) in q_col's M K
-  int R = static_cast<int>(std::min<int64_t>({needed, kBothCtasPerSm * sms, M / static_cast<int64_t>(sizeof(T))}));
-  uint4* parts = static_cast<uint4*>(q_col);
-  rows<<<R, kThreads, row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K, eps,
-                                          key_row);
+  g.col_ctas = static_cast<unsigned int>(std::min<int64_t>(needed, kBothCtasPerSm * sms));
+  g.R = static_cast<int>(std::min<int64_t>({needed, kBothCtasPerSm * sms, M / static_cast<int64_t>(sizeof(T))}));
+  return cudaSuccess;
+}
+
+template <typename T, bool SR, int TPR, int G>
+cudaError_t launch_both_passes(const T* x, void* q_row, void* s_row, void* q_col, void* s_col, float* amax,
+                               int64_t M, int64_t K, float eps, uint64_t key_row, uint64_t key_col,
+                               cudaStream_t stream) {
+  const auto rows = quantize_both_row_pass<T, SR, TPR, G>;
+  const auto cols = quantize_both_col_pass<T, SR, TPR, G, kWhole>;
+  BothGrid g;
+  cudaError_t err = both_grid<T, TPR, G>(reinterpret_cast<const void*>(cols), M, K, g);
+  if (err != cudaSuccess) return err;
+  int R = g.R;
+  uint4* parts = static_cast<uint4*>(q_col);  // the front of q_col, which the column pass writes last
+  rows<<<R, kThreads, g.row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K,
+                                            eps, key_row);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   int8_t* qc = static_cast<int8_t*>(q_col);
   T* sc = static_cast<T*>(s_col);
   void* args[] = {&x, &parts, &R, &amax, &qc, &sc, &M, &K, &eps, &key_col};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(col_ctas), dim3(kThreads), args,
-                                     col_smem, stream);
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(g.col_ctas), dim3(kThreads), args,
+                                     g.col_smem, stream);
+}
+
+// B5's maxima form on the vector path: the row pass, its parts in the M K
+// bytes of ``parts``, then the column pass's reduction of them into amax
+template <typename T, bool SR, int TPR, int G>
+cudaError_t launch_both_maxima(const T* x, void* q_row, void* s_row, void* parts, float* amax, int64_t M,
+                               int64_t K, float eps, uint64_t key_row, cudaStream_t stream) {
+  BothGrid g;
+  cudaError_t err = both_grid<T, TPR, G>(nullptr, M, K, g);
+  if (err != cudaSuccess) return err;
+  uint4* p = static_cast<uint4*>(parts);
+  quantize_both_row_pass<T, SR, TPR, G><<<g.R, kThreads, g.row_smem, stream>>>(
+      x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), p, M, K, eps, key_row);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  quantize_both_col_pass<T, SR, TPR, G, kMaxima><<<g.col_ctas, kThreads, 0, stream>>>(x, p, g.R, amax, nullptr,
+                                                                                      nullptr, M, K, eps, 0);
+  return cudaGetLastError();
+}
+
+// B5's given form on the vector path: the column pass's cast from amax
+template <typename T, bool SR, int TPR, int G>
+cudaError_t launch_both_given(const T* x, void* q_col, void* s_col, float* amax, int64_t M, int64_t K, float eps,
+                              uint64_t key_col, cudaStream_t stream) {
+  const auto cols = quantize_both_col_pass<T, SR, TPR, G, kGiven>;
+  BothGrid g;
+  cudaError_t err = both_grid<T, TPR, G>(reinterpret_cast<const void*>(cols), M, K, g);
+  if (err != cudaSuccess) return err;
+  cols<<<g.col_ctas, kThreads, g.col_smem, stream>>>(x, nullptr, 0, amax, static_cast<int8_t*>(q_col),
+                                                     static_cast<T*>(s_col), M, K, eps, key_col);
+  return cudaGetLastError();
 }
 
 // ---- B4 on thread-block clusters ------------------------------------------
@@ -741,10 +838,10 @@ constexpr int kRowWalkCtasPerSm = 2;
 template <int V>
 __host__ __device__ constexpr int row_walk_max_cta() { return V == 2 ? 384 : kThreads; }
 
-template <typename T, bool SR, int V>
+template <typename T, bool SR, int V, int MODE>
 __global__ void __launch_bounds__(row_walk_max_cta<V>(), kRowWalkCtasPerSm)
-quantize_rows_walk(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale, int64_t M, int64_t K,
-                   int tpr, float eps, uint64_t key) {
+quantize_rows_walk(const T* __restrict__ x, int8_t* __restrict__ q, T* __restrict__ scale, float* __restrict__ amax,
+                   int64_t M, int64_t K, int tpr, float eps, uint64_t key) {
   __shared__ unsigned int red[2][row_walk_max_cta<V>() / 32];  // each warp's row max bits, by row parity
   const RowWalk<V, 1> walk(tpr);
   const int warps = tpr / 32, warp = threadIdx.x / 32;
@@ -754,12 +851,21 @@ quantize_rows_walk(const T* __restrict__ x, int8_t* __restrict__ q, T* __restric
   uint4 no_cols[V];  // K1 keeps no column state
   int parity = 0;
   walk.run(in, M, nv, [&](int64_t row, const uint4 (&u)[1][V]) {
-    unsigned int m = __reduce_max_sync(0xFFFFFFFFu, row_top<T, false>(u[0], no_cols));
-    if (warps > 1) {
-      if (threadIdx.x % 32 == 0) red[parity][warp] = m;
-      group_sync(walk.grp, tpr);
-      for (int w = walk.grp * warps; w < (walk.grp + 1) * warps; ++w) m = ::max(m, red[parity][w]);
-      parity ^= 1;
+    unsigned int m;
+    if constexpr (MODE == kGiven) {
+      m = __float_as_uint(amax[row]);
+    } else {
+      m = __reduce_max_sync(0xFFFFFFFFu, row_top<T, false>(u[0], no_cols));
+      if (warps > 1) {
+        if (threadIdx.x % 32 == 0) red[parity][warp] = m;
+        group_sync(walk.grp, tpr);
+        for (int w = walk.grp * warps; w < (walk.grp + 1) * warps; ++w) m = ::max(m, red[parity][w]);
+        parity ^= 1;
+      }
+      if constexpr (MODE == kMaxima) {
+        if (walk.t == 0) amax[row] = __uint_as_float(m);
+        return;
+      }
     }
     cast_row<T, SR>(u[0], m, row, K, walk.t, tpr, eps, key, q, scale);
   });
@@ -767,19 +873,20 @@ quantize_rows_walk(const T* __restrict__ x, int8_t* __restrict__ q, T* __restric
 
 // K1's walk at tpr threads a row over ctas CTAs of max(tpr, 256) threads;
 // refuses a layout the kernels do not have
-template <typename T, bool SR>
-cudaError_t launch_rows_walk(const void* x, void* q, void* scale, int64_t M, int64_t K, int tpr, int64_t ctas,
-                             float eps, uint64_t key, cudaStream_t stream) {
+template <typename T, bool SR, int MODE = kWhole>
+cudaError_t launch_rows_walk(const void* x, void* q, void* scale, float* amax, int64_t M, int64_t K, int tpr,
+                             int64_t ctas, float eps, uint64_t key, cudaStream_t stream) {
   constexpr int N = 16 / sizeof(T);
   const int64_t nv = K / N;
   const int cta = tpr > kThreads ? tpr : kThreads;
   const int V = tpr > 0 && tpr % 32 == 0 && cta % tpr == 0 && nv % tpr == 0 ? static_cast<int>(nv / tpr) : 0;
   const bool fits = V == 2 ? cta <= row_walk_max_cta<2>() : (V == 3 || V == 4) && cta == kThreads;
   if (!vec_ok<T>(x, K) || !fits || ctas <= 0) return cudaErrorInvalidValue;
-  const auto kernel = V == 4 ? quantize_rows_walk<T, SR, 4> : V == 3 ? quantize_rows_walk<T, SR, 3>
-                                                                     : quantize_rows_walk<T, SR, 2>;
+  const auto kernel = V == 4 ? quantize_rows_walk<T, SR, 4, MODE>
+                      : V == 3 ? quantize_rows_walk<T, SR, 3, MODE>
+                               : quantize_rows_walk<T, SR, 2, MODE>;
   kernel<<<static_cast<unsigned int>(ctas), cta, 0, stream>>>(static_cast<const T*>(x), static_cast<int8_t*>(q),
-                                                              static_cast<T*>(scale), M, K, tpr, eps, key);
+                                                              static_cast<T*>(scale), amax, M, K, tpr, eps, key);
   return cudaGetLastError();
 }
 
@@ -931,23 +1038,28 @@ cudaError_t launch_colwise(const void* x, void* q, void* scale, float* amax, int
   return cudaGetLastError();
 }
 
+// The vector path of B5 (and of its forms): x aligned, K a whole number of
+// at most 1024 vectors, and room for the row pass's parts
+template <typename T>
+bool both_vec_path(const void* x, int64_t M, int64_t K) {
+  return vec_ok<T>(x, K) && K / (16 / sizeof(T)) <= 1024 && M >= static_cast<int64_t>(sizeof(T));
+}
+
+// FN's instantiation for the row pass's threads a row: the fewest that hold
+// a row of nv vectors in 4 vectors each
+#define QT_BOTH_WALK(FN, nv, ...)                                                                   \
+  ((nv) <= 32    ? FN<T, SR, 32, 4>(__VA_ARGS__)                                                    \
+   : (nv) <= 64  ? FN<T, SR, 32, 2>(__VA_ARGS__)                                                    \
+   : (nv) <= 128 ? FN<T, SR, 32, 1>(__VA_ARGS__)                                                    \
+   : (nv) <= 256 ? FN<T, SR, 64, 1>(__VA_ARGS__)                                                    \
+   : (nv) <= 512 ? FN<T, SR, 128, 1>(__VA_ARGS__)                                                   \
+                 : FN<T, SR, 256, 1>(__VA_ARGS__))
+
+// The first design's row half of B5: amax zeroed, then K1's block-per-row
+// quantize over runs of rows that merges the column maxima into it
 template <typename T, bool SR>
-cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, void* s_col,
-                        float* amax, int64_t M, int64_t K, float eps, uint64_t key_row, uint64_t key_col,
-                        cudaStream_t stream) {
-  const bool vec = vec_ok<T>(x, K);
-  const T* xt = static_cast<const T*>(x);
-  // the row pass's threads a row: the fewest that hold a row in 4 vectors each
-  const int64_t nv = vec ? K / (16 / sizeof(T)) : 0;
-  if (vec && nv <= 1024 && M >= static_cast<int64_t>(sizeof(T))) {
-    const auto both = nv <= 32    ? &launch_both_passes<T, SR, 32, 4>
-                      : nv <= 64  ? &launch_both_passes<T, SR, 32, 2>
-                      : nv <= 128 ? &launch_both_passes<T, SR, 32, 1>
-                      : nv <= 256 ? &launch_both_passes<T, SR, 64, 1>
-                      : nv <= 512 ? &launch_both_passes<T, SR, 128, 1>
-                                  : &launch_both_passes<T, SR, 256, 1>;
-    return both(xt, q_row, s_row, q_col, s_col, amax, M, K, eps, key_row, key_col, stream);
-  }
+cudaError_t launch_both_rows_first(const T* xt, void* q_row, void* s_row, float* amax, int64_t M, int64_t K,
+                                   float eps, bool vec, uint64_t key_row, cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(amax, 0, K * sizeof(float), stream);
   if (err != cudaSuccess) return err;
   // a run of rows per block amortises the colmax merge; about two blocks per SM
@@ -961,9 +1073,61 @@ cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, vo
   const unsigned int blocks = static_cast<unsigned int>((M + rpb - 1) / rpb);
   quantize_both_rows<T, SR><<<blocks, kThreads, smem, stream>>>(
       xt, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), amax, M, K, rpb, eps, vec, key_row);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T, bool SR>
+cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, void* s_col,
+                        float* amax, int64_t M, int64_t K, float eps, uint64_t key_row, uint64_t key_col,
+                        cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const int64_t nv = K / (16 / sizeof(T));
+  if (both_vec_path<T>(x, M, K))
+    return QT_BOTH_WALK(launch_both_passes, nv, xt, q_row, s_row, q_col, s_col, amax, M, K, eps, key_row, key_col,
+                        stream);
+  const bool vec = vec_ok<T>(x, K);
+  cudaError_t err = launch_both_rows_first<T, SR>(xt, q_row, s_row, amax, M, K, eps, vec, key_row, stream);
+  if (err != cudaSuccess) return err;
   col_cast<T, SR><<<col_grid<T>(M, K), kThreads, 0, stream>>>(xt, amax, static_cast<int8_t*>(q_col),
                                                               static_cast<T*>(s_col), M, K, eps, vec, key_col);
+  return cudaGetLastError();
+}
+
+// ---- the mesh forms (the header's "mesh forms") ----------------------------
+
+// B5's maxima form: q_row, s_row and the column maxima in amax; ``parts`` is
+// M K bytes of scratch (the vector path's CTA maxima)
+template <typename T, bool SR>
+cudaError_t launch_both_maxima_form(const void* x, void* q_row, void* s_row, void* parts, float* amax, int64_t M,
+                                    int64_t K, float eps, uint64_t key_row, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const int64_t nv = K / (16 / sizeof(T));
+  if (both_vec_path<T>(x, M, K))
+    return QT_BOTH_WALK(launch_both_maxima, nv, xt, q_row, s_row, parts, amax, M, K, eps, key_row, stream);
+  return launch_both_rows_first<T, SR>(xt, q_row, s_row, amax, M, K, eps, vec_ok<T>(x, K), key_row, stream);
+}
+
+// The given form of a column quantize (B4's and B5's): q_col and s_col from
+// the column maxima in amax
+template <typename T, bool SR>
+cudaError_t launch_cols_given_form(const void* x, void* q_col, void* s_col, float* amax, int64_t M, int64_t K,
+                                   float eps, uint64_t key_col, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const int64_t nv = K / (16 / sizeof(T));
+  if (both_vec_path<T>(x, M, K))
+    return QT_BOTH_WALK(launch_both_given, nv, xt, q_col, s_col, amax, M, K, eps, key_col, stream);
+  col_cast<T, SR><<<col_grid<T>(M, K), kThreads, 0, stream>>>(xt, amax, static_cast<int8_t*>(q_col),
+                                                              static_cast<T*>(s_col), M, K, eps, vec_ok<T>(x, K),
+                                                              key_col);
+  return cudaGetLastError();
+}
+
+// B4's maxima form: col_absmax into amax, zeroed first
+template <typename T>
+cudaError_t launch_cols_maxima(const void* x, float* amax, int64_t R, int64_t C, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(amax, 0, C * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  col_absmax<T><<<col_grid<T>(R, C), kThreads, 0, stream>>>(static_cast<const T*>(x), amax, R, C, vec_ok<T>(x, C));
   return cudaGetLastError();
 }
 
@@ -972,6 +1136,12 @@ cudaError_t launch_both(const void* x, void* q_row, void* s_row, void* q_col, vo
   ((is_bf16) ? ((sr) ? LAUNCH<__nv_bfloat16, true>(__VA_ARGS__)          \
                      : LAUNCH<__nv_bfloat16, false>(__VA_ARGS__))        \
              : ((sr) ? LAUNCH<float, true>(__VA_ARGS__) : LAUNCH<float, false>(__VA_ARGS__)))
+
+// The same for a form of K1 (kMaxima, kGiven)
+#define QT_DISPATCH_FORM(LAUNCH, FORM, is_bf16, sr, ...)                            \
+  ((is_bf16) ? ((sr) ? LAUNCH<__nv_bfloat16, true, FORM>(__VA_ARGS__)              \
+                     : LAUNCH<__nv_bfloat16, false, FORM>(__VA_ARGS__))            \
+             : ((sr) ? LAUNCH<float, true, FORM>(__VA_ARGS__) : LAUNCH<float, false, FORM>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -989,8 +1159,35 @@ extern "C" int qt_quantize_int8_rowwise(const void* x, void* q, void* scale, int
   if (M <= 0 || K <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tpr != 0)
-    return static_cast<int>(QT_DISPATCH(launch_rows_walk, is_bf16, sr, x, q, scale, M, K, tpr, ctas, eps, key, s));
-  return static_cast<int>(QT_DISPATCH(launch, is_bf16, sr, x, q, scale, M, K, eps, key, s));
+    return static_cast<int>(
+        QT_DISPATCH(launch_rows_walk, is_bf16, sr, x, q, scale, nullptr, M, K, tpr, ctas, eps, key, s));
+  return static_cast<int>(QT_DISPATCH(launch, is_bf16, sr, x, q, scale, nullptr, M, K, eps, key, s));
+}
+
+// K1's maxima form: amax [M] (fp32) gets each row's max |x|; tpr, ctas as
+// for qt_quantize_int8_rowwise
+extern "C" int qt_quantize_int8_rowwise_maxima(const void* x, void* amax, int64_t M, int64_t K, int is_bf16, int tpr,
+                                               int64_t ctas, void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(amax);
+  if (tpr != 0)
+    return static_cast<int>(QT_DISPATCH_FORM(launch_rows_walk, kMaxima, is_bf16, 0, x, nullptr, nullptr, a, M, K,
+                                             tpr, ctas, 0.0f, 0, s));
+  return static_cast<int>(QT_DISPATCH_FORM(launch, kMaxima, is_bf16, 0, x, nullptr, nullptr, a, M, K, 0.0f, 0, s));
+}
+
+// K1's given form: q and scale from the rows' maxima in amax [M] (fp32)
+extern "C" int qt_quantize_int8_rowwise_given(const void* x, void* q, void* scale, const void* amax, int64_t M,
+                                              int64_t K, float eps, int is_bf16, int sr, uint64_t key, int tpr,
+                                              int64_t ctas, void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(const_cast<void*>(amax));
+  if (tpr != 0)
+    return static_cast<int>(
+        QT_DISPATCH_FORM(launch_rows_walk, kGiven, is_bf16, sr, x, q, scale, a, M, K, tpr, ctas, eps, key, s));
+  return static_cast<int>(QT_DISPATCH_FORM(launch, kGiven, is_bf16, sr, x, q, scale, a, M, K, eps, key, s));
 }
 
 // x and q are contiguous [R, C]; scale is [C]. sv, cs
@@ -1009,6 +1206,16 @@ extern "C" int qt_quantize_int8_colwise(const void* x, void* q, void* scale, voi
   return static_cast<int>(QT_DISPATCH(launch_colwise, is_bf16, sr, x, q, scale, a, R, C, eps, key, s));
 }
 
+// B4's maxima form: amax [C] (fp32) gets each column's max |x|
+extern "C" int qt_quantize_int8_colwise_maxima(const void* x, void* amax, int64_t R, int64_t C, int is_bf16,
+                                               void* stream) {
+  if (R <= 0 || C <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(amax);
+  return static_cast<int>(is_bf16 ? launch_cols_maxima<__nv_bfloat16>(x, a, R, C, s)
+                                  : launch_cols_maxima<float>(x, a, R, C, s));
+}
+
 // x, q_row and q_col are contiguous [M, K]; s_row is [M], s_col [K]; amax
 // is fp32 scratch of K floats, and K * 4 bytes must fit in a block's shared
 // memory (K <= 58112). The row cast draws from key_row, the column cast
@@ -1021,4 +1228,27 @@ extern "C" int qt_quantize_int8_both(const void* x, void* q_row, void* s_row, vo
   float* a = static_cast<float*>(amax);
   return static_cast<int>(QT_DISPATCH(launch_both, is_bf16, sr, x, q_row, s_row, q_col, s_col, a, M, K, eps,
                                       key_row, key_col, s));
+}
+
+// B5's maxima form: q_row, s_row [M] (the row cast from key_row) and the
+// column maxima in amax [K] (fp32); parts is M K bytes of scratch
+extern "C" int qt_quantize_int8_both_maxima(const void* x, void* q_row, void* s_row, void* parts, void* amax,
+                                            int64_t M, int64_t K, float eps, int is_bf16, int sr, uint64_t key_row,
+                                            void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(amax);
+  return static_cast<int>(
+      QT_DISPATCH(launch_both_maxima_form, is_bf16, sr, x, q_row, s_row, parts, a, M, K, eps, key_row, s));
+}
+
+// The given form of a column quantize (B4's and B5's): q_col and s_col [K]
+// (the cast from key_col) from the column maxima in amax [K] (fp32)
+extern "C" int qt_quantize_int8_colwise_given(const void* x, void* q_col, void* s_col, const void* amax, int64_t M,
+                                              int64_t K, float eps, int is_bf16, int sr, uint64_t key_col,
+                                              void* stream) {
+  if (M <= 0 || K <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* a = static_cast<float*>(const_cast<void*>(amax));
+  return static_cast<int>(QT_DISPATCH(launch_cols_given_form, is_bf16, sr, x, q_col, s_col, a, M, K, eps, key_col, s));
 }

@@ -37,10 +37,12 @@ def _cast(xf: torch.Tensor, scale: torch.Tensor, dtype, eps: float) -> torch.Ten
     return (xf / scale.clamp(min=eps)).to(dtype)
 
 
-def quantize_fp8(x: torch.Tensor, *, axis: int = -1, dtype=E4M3, eps: float = 1e-12):
+def quantize_fp8(x: torch.Tensor, *, axis: int = -1, dtype=E4M3, eps: float = 1e-12,
+                 amax: torch.Tensor | None = None):
     """Absmax FP8 quantization along ``axis`` -> (fp8 data, scale in x's
-    dtype keeping the reduced axis as size 1); dequant = data * scale."""
-    absmax = x.abs().amax(dim=axis, keepdim=True).float()
+    dtype keeping the reduced axis as size 1); dequant = data * scale.
+    ``amax``: given fp32 maxima (keepdims) in place of x's own."""
+    absmax = x.abs().amax(dim=axis, keepdim=True).float() if amax is None else amax
     scale = _div(absmax, _AMAX[dtype])
     return _cast(x.float(), scale, dtype, eps), scale.to(x.dtype)
 

@@ -11,6 +11,21 @@ Counterparts of ``quantized_training_tpu/ops/pallas_quant.py``:
   gives a geometry (every weight of the Llama2-1B and ViT-Giant steps);
 - B5 :func:`quantize_int8_both` for ``quantize_int8_both`` (:306).
 
+Under a mesh each splits into its two mesh forms (no Pallas counterpart:
+JAX's sharded step is one program, whose maxima XLA takes over the whole
+axis): a maxima form, which returns each row's or column's max |x| in fp32
+and casts nothing, and a given-maxima form, which casts from maxima the
+caller all-reduced (``quant/core.py``, ``parallel/collectives.py``):
+:func:`quantize_int8_rowwise_maxima` / :func:`quantize_int8_rowwise_given`
+(K1's kernels, on its routes), :func:`quantize_int8_colwise_maxima` (B4's
+first design's maxima kernel) and :func:`quantize_int8_both_maxima` (B5's
+row pass with its column maxima), each column route's given form one,
+:func:`quantize_int8_colwise_given` (B5's column cast). Given the global tensor's
+maxima, a rank's output is its rows (or columns) of the whole quantize of
+the global tensor, bit for bit; the plain versions are
+:func:`quantize_int8_maxima_plain` and :func:`quantize_int8_plain` with
+``amax``. Each form counts its launches apart.
+
 All three have the numerics of ``quantized_training_tpu/quant/core.py::
 quantize_int8`` (:99-115), which each kernel matches bit for bit. Each takes
 ``sr`` and ``key``: with ``sr`` it rounds stochastically, floor(x / scale +
@@ -44,15 +59,23 @@ def _key(sr: bool, key: int | None) -> int:
     return key
 
 
+def quantize_int8_maxima_plain(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The fp32 max |x| along ``axis``, keepdims (taken in x's dtype, exact):
+    the plain version of the maxima forms."""
+    return x.abs().amax(dim=axis, keepdim=True).float()
+
+
 def quantize_int8_plain(x: torch.Tensor, *, axis: int = -1, eps: float = EPS, sr: bool = False,
-                        key: int | None = None):
+                        key: int | None = None, amax: torch.Tensor | None = None):
     """``quant/core.py:99-115`` in torch: absmax along ``axis`` (taken in x's
     dtype, exact), scale = absmax / 127 in fp32, q = round-half-even(x /
     max(scale, eps)), or with ``sr`` floor(x / max(scale, eps) + u) with u
     from the stream of ``key``, clipped to int8; the scale is returned in
-    x's dtype, keepdims."""
+    x's dtype, keepdims. ``amax``: given fp32 maxima (broadcastable, keepdims)
+    in place of x's own, the plain version of the given-maxima forms."""
     key = _key(sr, key)
-    absmax = x.abs().amax(dim=axis, keepdim=True).float()
+    absmax = quantize_int8_maxima_plain(x, axis) if amax is None else amax.float().reshape(
+        [1 if d == axis % x.ndim else n for d, n in enumerate(x.shape)])
     # divide by a tensor: PyTorch's CUDA kernels turn division by a Python
     # scalar into a multiply by its reciprocal, which is not IEEE division
     scale = absmax / absmax.new_full((), 127.0)
@@ -319,3 +342,132 @@ def quantize_int8_both(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, k
 
 
 quantize_int8_both.launches = quantize_int8_both.sr_launches = 0
+
+
+# ---- the mesh forms ----------------------------------------------------------
+
+
+def _given_amax(x: torch.Tensor, amax: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    if amax.dtype != torch.float32 or amax.numel() != n or amax.device != x.device:
+        raise ValueError(f"{what}: amax must be {n} fp32 values on {x.device}, got {tuple(amax.shape)} "
+                         f"{amax.dtype} on {amax.device}")
+    return amax.contiguous()
+
+
+def quantize_int8_rowwise_maxima(x: torch.Tensor) -> torch.Tensor:
+    """K1's maxima form: x [..., K] -> fp32 [..., 1], each row's max |x|.
+    A CPU tensor takes :func:`quantize_int8_maxima_plain`; a CUDA tensor
+    launches K1's kernel without its cast, on the route K1 takes."""
+    if x.device.type == "cpu":
+        return quantize_int8_maxima_plain(x, -1)
+    _check_device_input(x, "quantize_int8_rowwise_maxima")
+    K = x.shape[-1]
+    M = x.numel() // K if K else 0
+    tpr = rowwise_sm90_route(M, K, x.dtype) if x.data_ptr() % 16 == 0 else 0
+    ctas = row_walk_ctas(M, tpr, _sm_count(x.device), ROWWISE_CTAS_PER_SM) if tpr else 0
+    amax = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    err = _build.library().qt_quantize_int8_rowwise_maxima(
+        x.data_ptr(), amax.data_ptr(), M, K, int(x.dtype == torch.bfloat16), tpr, ctas, _build.stream())
+    _build.check(err, "quantize_int8_rowwise_maxima")
+    _count_route(quantize_int8_rowwise_maxima, False, bool(tpr))
+    return amax
+
+
+def quantize_int8_rowwise_given(x: torch.Tensor, amax: torch.Tensor, *, eps: float = EPS, sr: bool = False,
+                                key: int | None = None):
+    """K1's given-maxima form: x [..., K] and the rows' fp32 maxima ->
+    (q int8 [..., K], scale x.dtype [..., 1]), q and scale those of K1 on a
+    tensor whose rows have these maxima. A CPU tensor takes
+    ``quantize_int8_plain(x, amax=amax)``; a CUDA tensor launches K1's
+    kernel with the maxima given, on the route K1 takes."""
+    if x.device.type == "cpu":
+        return quantize_int8_plain(x, eps=eps, sr=sr, key=key, amax=amax)
+    key = _key(sr, key)
+    _check_device_input(x, "quantize_int8_rowwise_given")
+    K = x.shape[-1]
+    M = x.numel() // K if K else 0
+    amax = _given_amax(x, amax, M, "quantize_int8_rowwise_given")
+    tpr = rowwise_sm90_route(M, K, x.dtype, sr) if x.data_ptr() % 16 == 0 else 0
+    ctas = row_walk_ctas(M, tpr, _sm_count(x.device), ROWWISE_CTAS_PER_SM) if tpr else 0
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
+    err = _build.library().qt_quantize_int8_rowwise_given(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), amax.data_ptr(), M, K, eps,
+        int(x.dtype == torch.bfloat16), int(sr), key, tpr, ctas, _build.stream(),
+    )
+    _build.check(err, "quantize_int8_rowwise_given")
+    _count_route(quantize_int8_rowwise_given, sr, bool(tpr))
+    return q, scale
+
+
+def quantize_int8_colwise_maxima(x: torch.Tensor) -> torch.Tensor:
+    """B4's maxima form: x [R, C] -> fp32 [1, C], each column's max |x|. A
+    CPU tensor takes :func:`quantize_int8_maxima_plain`; a CUDA tensor (bf16
+    or fp32, contiguous, non-empty) launches B4's first design's maxima
+    kernel (``col_absmax``, after a memset)."""
+    if x.device.type == "cpu":
+        return quantize_int8_maxima_plain(x, 0)
+    _check_device_input(x, "quantize_int8_colwise_maxima", ndim=2)
+    R, C = x.shape
+    amax = torch.empty((1, C), dtype=torch.float32, device=x.device)
+    err = _build.library().qt_quantize_int8_colwise_maxima(
+        x.data_ptr(), amax.data_ptr(), R, C, int(x.dtype == torch.bfloat16), _build.stream())
+    _build.check(err, "quantize_int8_colwise_maxima")
+    _count(quantize_int8_colwise_maxima, False)
+    return amax
+
+
+def quantize_int8_both_maxima(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, key: int | None = None):
+    """B5's maxima form: x [M, K] -> ``(q_row, s_row [M, 1], amax [1, K])``,
+    the row quantize (with ``sr`` from ``split(key)[0]``, as B5's) and the
+    columns' fp32 maxima. A CPU tensor takes the plain versions; a CUDA
+    tensor (bf16 or fp32, contiguous, non-empty) launches B5's row pass and
+    its column pass's reduction of the CTAs' maxima (or, off B5's vector
+    path, its first design's row kernel)."""
+    key_row = random.split(_key(sr, key))[0] if sr else 0
+    if x.device.type == "cpu":
+        return (*quantize_int8_plain(x, axis=1, eps=eps, sr=sr, key=key_row), quantize_int8_maxima_plain(x, 0))
+    _check_device_input(x, "quantize_int8_both_maxima", ndim=2)
+    M, K = x.shape
+    if K > _BOTH_MAX_K:
+        raise ValueError(f"quantize_int8_both_maxima: K = {K} exceeds {_BOTH_MAX_K} (shared memory)")
+    q_row = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    s_row = torch.empty((M, 1), dtype=x.dtype, device=x.device)
+    parts = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    amax = torch.empty((1, K), dtype=torch.float32, device=x.device)
+    err = _build.library().qt_quantize_int8_both_maxima(
+        x.data_ptr(), q_row.data_ptr(), s_row.data_ptr(), parts.data_ptr(), amax.data_ptr(), M, K, eps,
+        int(x.dtype == torch.bfloat16), int(sr), key_row, _build.stream())
+    _build.check(err, "quantize_int8_both_maxima")
+    _count(quantize_int8_both_maxima, sr)
+    return q_row, s_row, amax
+
+
+def quantize_int8_colwise_given(x: torch.Tensor, amax: torch.Tensor, *, eps: float = EPS, sr: bool = False,
+                                key: int | None = None):
+    """The given-maxima form of a column quantize, B4's and B5's: x [M, K]
+    and the columns' fp32 maxima -> ``(q_col, s_col [1, K])``, with ``sr``
+    from ``key`` itself (B5's mesh route passes ``split(key)[1]``, as B5's
+    column cast draws). A CPU tensor takes ``quantize_int8_plain(x, axis=0,
+    amax=amax)``; a CUDA tensor (bf16 or fp32, contiguous, non-empty)
+    launches B5's column pass without its reduction (off B5's vector path,
+    B4's first design's cast)."""
+    if x.device.type == "cpu":
+        return quantize_int8_plain(x, axis=0, eps=eps, sr=sr, key=key, amax=amax)
+    key = _key(sr, key)
+    _check_device_input(x, "quantize_int8_colwise_given", ndim=2)
+    M, K = x.shape
+    amax = _given_amax(x, amax, K, "quantize_int8_colwise_given")
+    q_col = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    s_col = torch.empty((1, K), dtype=x.dtype, device=x.device)
+    err = _build.library().qt_quantize_int8_colwise_given(
+        x.data_ptr(), q_col.data_ptr(), s_col.data_ptr(), amax.data_ptr(), M, K, eps,
+        int(x.dtype == torch.bfloat16), int(sr), key, _build.stream())
+    _build.check(err, "quantize_int8_colwise_given")
+    _count(quantize_int8_colwise_given, sr)
+    return q_col, s_col
+
+
+for _form in (quantize_int8_rowwise_maxima, quantize_int8_rowwise_given, quantize_int8_colwise_maxima,
+              quantize_int8_colwise_given, quantize_int8_both_maxima):
+    _form.launches = _form.sr_launches = _form.sm90_launches = _form.sr_sm90_launches = 0

@@ -13,6 +13,21 @@ that the codes match the JAX package's bit for bit, ties included.
 :class:`OptimState8bit` is a node of a parameter tree (``quant/node.py``):
 its leaves are ``codes`` and ``scale``, in that order, JAX's
 ``data_fields``; ``shape`` and ``signed`` are static.
+
+Under fsdp (``parallel.shard_state``) a rank holds the state of its slice of
+the parameter: ``shard`` is the parameter's ``parallel.Shard`` (its split
+dim, this rank's index, the count), ``shape`` stays the global parameter's,
+and ``codes`` and ``scale`` are the codes and block scales of the rank's
+elements in its slice's order. Where each rank's run of consecutive global
+elements is a whole number of blocks (every Llama2-1B leaf with an 8-bit
+state), those are whole global blocks, so a requantize of the rank's slice
+gives the global state's blocks bit for bit with no collective. Where a
+run ends inside a block, the rank keeps every block's scale (the global
+``scale``, the same on every rank): a requantize takes each block's
+maximum over the rank's elements of it, all-reduces them with max over the
+span ``"blocks"`` (``parallel/collectives.py::spanning``; the train step
+enters it around the optimizer over fsdp) and casts its own elements, so
+the codes are again the global state's bit for bit.
 """
 
 from __future__ import annotations
@@ -49,7 +64,32 @@ class OptimState8bit(WeightNode):
     scale: torch.Tensor  # [n // BLOCK] fp32 block absmax
     shape: tuple = ()
     signed: bool = False
+    shard: object = None  # the parameter's parallel.Shard where this is a rank's piece
     data_fields = ("codes", "scale")
+
+    @property
+    def local_shape(self) -> tuple:
+        """The shape of the parameter's piece this state holds."""
+        if self.shard is None or self.shard.dim is None:
+            return tuple(self.shape)
+        shape = list(self.shape)
+        shape[self.shard.dim] //= self.shard.count
+        return tuple(shape)
+
+    @property
+    def straddles(self) -> bool:
+        """A rank's piece whose runs end inside blocks: it holds every
+        block's scale."""
+        return self.scale.numel() * BLOCK != self.codes.numel()
+
+    def _blocks(self) -> torch.Tensor:
+        """The global block of each element of a straddling piece: local
+        element e is element e % run of run e // run, which starts at global
+        element (e // run * count + index) * run."""
+        s = self.shard
+        run = self.shape[s.dim] // s.count * int(np.prod(self.shape[s.dim + 1:]))
+        e = torch.arange(self.codes.numel(), device=self.codes.device)
+        return ((e // run * s.count + s.index) * run + e % run) // BLOCK
 
     @classmethod
     def zeros(cls, shape, signed: bool = False, device=None) -> "OptimState8bit":
@@ -61,14 +101,26 @@ class OptimState8bit(WeightNode):
 
     def dequantize(self) -> torch.Tensor:
         vals = codebook(self.signed, self.codes.device)[self.codes.long()]
-        return (vals.reshape(-1, BLOCK) * self.scale[:, None]).reshape(self.shape)
+        if self.straddles:
+            return (vals * self.scale[self._blocks()]).reshape(self.local_shape)
+        return (vals.reshape(-1, BLOCK) * self.scale[:, None]).reshape(self.local_shape)
 
     def requantize(self, x: torch.Tensor) -> "OptimState8bit":
-        xf = x.float().reshape(-1, BLOCK)
-        scale = xf.abs().amax(dim=-1)
-        normed = (xf / scale.clamp(min=1e-30)[:, None]).reshape(-1)
+        if self.straddles:
+            from ..parallel import collectives
+
+            if collectives.span("blocks") is None:
+                raise RuntimeError("a straddling 8-bit state's requantize needs the span 'blocks' over fsdp")
+            xf, blocks = x.float().reshape(-1), self._blocks()
+            partial = torch.zeros_like(self.scale).scatter_reduce(0, blocks, xf.abs(), "amax")
+            scale = collectives.max_over(partial, "blocks")
+            normed = xf / scale.clamp(min=1e-30)[blocks]
+        else:
+            xf = x.float().reshape(-1, BLOCK)
+            scale = xf.abs().amax(dim=-1)
+            normed = (xf / scale.clamp(min=1e-30)[:, None]).reshape(-1)
         cb = codebook(self.signed, x.device)
         idx = torch.searchsorted(cb, normed).clamp(1, 255)
         lo, hi = cb[idx - 1], cb[idx]
         codes = torch.where((normed - lo) > (hi - normed), idx, idx - 1).to(torch.uint8)
-        return OptimState8bit(codes, scale, self.shape, self.signed)
+        return OptimState8bit(codes, scale, self.shape, self.signed, self.shard)

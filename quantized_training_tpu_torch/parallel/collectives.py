@@ -21,16 +21,34 @@ every axis of size 1, and there each collective is the identity.
 all-reduce, all-gather and reduce-scatter over one axis, with the same byte
 counts, ``ValueError`` below 2 ranks; each clock stops after
 ``torch.cuda.synchronize()`` on a card and after a read-back.
+
+The span of a quantization maximum (no JAX counterpart: JAX's sharded step
+is one global program, so each ``jnp.max`` over a sharded axis sees the
+whole axis there). :func:`spanning` names, for the code it wraps, the mesh
+axis that splits an axis a quantize reduces: ``tokens``, the token axis of
+the activations and cotangents (data x fsdp, ``"dp"``, in a train step),
+``features``, the contraction axis of a row-parallel linear (``model``,
+under tensor parallelism), and ``blocks``, an 8-bit optimizer state's
+blocks that cross fsdp ranks (``optim/state8bit.py``). A quantize that
+names its reduced axis
+(``quant/core.py``'s ``over``) then takes its maxima first, all-reduces them
+with :func:`max_over` and casts with the global maxima. The names are
+module state, not thread state, since autograd runs a CUDA backward on a
+thread of its own. An axis of size 1 (no mesh, a world of one) is not
+entered, so the quantizes there keep their one-launch kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
 import torch.distributed as dist
 
 _STAGED = [0]
+_MAXIMA = [0]
+_SPANS: dict = {}  # a reduced axis's name -> (mesh, the mesh axis that splits it)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # torch renamed the tensor forms; take whichever this build has
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -46,8 +64,59 @@ def reset_staged_collectives() -> None:
     _STAGED[0] = 0
 
 
+def maxima_all_reduces() -> int:
+    """The all-reduces of quantization maxima (:func:`max_over`) since the
+    last reset."""
+    return _MAXIMA[0]
+
+
+def reset_maxima_all_reduces() -> None:
+    _MAXIMA[0] = 0
+
+
 def axis_size(mesh, axis: str) -> int:
     return mesh.dp_size if axis == "dp" else mesh.shape[axis]
+
+
+def _split(mesh, axis: str) -> bool:
+    return mesh is not None and axis_size(mesh, axis) > 1 and mesh.groups[axis] is not None
+
+
+@contextlib.contextmanager
+def spanning(mesh, **axes):
+    """Within it, a maximum over each reduced axis named in ``axes``
+    (``tokens="dp"``, ``features="model"``, ``blocks="fsdp"``) spans that
+    axis of ``mesh``;
+    an axis of size 1 adds nothing. The names it set are restored on exit."""
+    saved = dict(_SPANS)
+    _SPANS.update({name: (mesh, axis) for name, axis in axes.items() if _split(mesh, axis)})
+    try:
+        yield
+    finally:
+        _SPANS.clear()
+        _SPANS.update(saved)
+
+
+def span(over):
+    """The (mesh, axis) that a maximum over ``over`` spans, or None:
+    ``over`` a name that :func:`spanning` entered, or a (mesh, axis) pair
+    (None where that axis has size 1)."""
+    if over is None:
+        return None
+    if isinstance(over, str):
+        return _SPANS.get(over)
+    return over if _split(*over) else None
+
+
+def max_over(x: torch.Tensor, over) -> torch.Tensor:
+    """``x`` (maxima, of any float dtype) all-reduced with ``max`` over the
+    axis that ``over`` spans (:func:`span`), in fp32 and cast back (exact);
+    ``x`` itself where it spans nothing."""
+    s = span(over)
+    if s is None:
+        return x
+    _MAXIMA[0] += 1
+    return all_reduce(x.float(), *s, op="max").to(x.dtype)
 
 
 def _staged(x: torch.Tensor, group) -> bool:

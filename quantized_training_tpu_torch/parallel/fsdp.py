@@ -35,7 +35,7 @@ from ..quant.int8 import _scales
 from ..quant.node import WeightNode
 from . import collectives as C
 from ..utils.tree import map_tensors
-from .mesh import leaf_shard
+from .mesh import Shard, leaf_shard
 
 ACT_EPS = 1e-5  # the activations' quantize eps (JAX fsdp.py:79)
 
@@ -90,6 +90,31 @@ def gather(tree, specs, mesh, pick=lambda dim: dim):
         return t if d is None else _Gather.apply(t, d, mesh)
 
     return zip_params(one, tree, specs)
+
+
+def prequant_specs(tree, specs):
+    """The layout of ``tree`` once ``quant.prequantize_step`` has turned
+    its split mixed-precision weights into PreQuantMPWeights: each view
+    split as its master, but where the master's rows [.., O, I] are split
+    its column scales [.., 1, I] are whole (the maxima were all-reduced),
+    as are its row scales [.., O, 1] where its columns are, and the 0-sized
+    placeholders of the views a mode does not make."""
+    from ..quant.mixed_precision import PreQuantMPWeight
+
+    def one(leaf, spec):
+        if not isinstance(leaf, PreQuantMPWeight):
+            return spec
+        s = leaf_shard(spec)
+        whole = Shard(None, s.index, s.count)
+        last = leaf.orig.ndim - 1  # the columns' dim; the rows' is last - 1
+
+        def field(name, t):
+            scale_whole = (name == "col_s" and s.dim == last - 1) or (name == "row_s" and s.dim == last)
+            return whole if t.numel() == 0 or scale_whole else s
+
+        return dataclasses.replace(leaf, **{f: field(f, t) for f, t in leaf.tensors().items()})
+
+    return map_tensors(one, tree, specs, is_leaf=lambda t: isinstance(t, (torch.Tensor, WeightNode)))
 
 
 def bitnet_fsdp_params(params, mesh):

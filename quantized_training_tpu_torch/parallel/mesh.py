@@ -24,6 +24,19 @@ the caller hands the layout to whatever needs it (the train step, the
 model, the checkpoint), since a local shape cannot tell which dim was
 split.
 
+An 8-bit optimizer state (``optim/state8bit.py``) keeps a flat ``codes``
+and one scale a block of 256 of the global leaf, and JAX's
+``state_shardings`` splits those flat arrays by the parameter's spec (JAX
+:98-107), XLA keeping each block's global meaning. Here a rank holds the
+state of its slice of the parameter: the parameter viewed as [pre, split
+dim, post] gives each rank, in every one of the ``pre`` runs, a run of
+(split / n) post consecutive elements; where that run is a whole number of
+blocks (every Llama2-1B leaf with an 8-bit state), the rank keeps those
+blocks' codes and scales (:class:`FlatShard`), so its optimizer step needs
+no collective; where a run ends inside a block, it keeps its elements'
+codes and every block's scale, whose maxima its optimizer step all-reduces
+over fsdp (``optim/state8bit.py``).
+
 Multi-process input (JAX :54-75): every rank reads the same global batch
 and :func:`shard_batch` keeps its rows, the batch axis split over data x
 fsdp with data the outer axis.
@@ -31,6 +44,8 @@ fsdp with data the outer axis.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -154,6 +169,14 @@ class Shard:
             return t
         return t.chunk(self.count, self.dim)[self.index].clone()
 
+    def piece(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of a leaf as a checkpoint holds it."""
+        return t
+
+    def unpiece(self, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`piece`."""
+        return t
+
     def global_shape(self, local_shape) -> tuple:
         shape = list(local_shape)
         if self.dim is not None:
@@ -169,28 +192,78 @@ class Shard:
         return tuple(out)
 
 
-def state_specs(state, mesh: Mesh):
-    """The :class:`Shard` of every tensor of a global state by
-    :func:`param_spec` (JAX's ``state_shardings``, :98-103). An 8-bit
-    optimizer state keeps the global shape as static metadata, so it is
-    refused at fsdp > 1."""
+@dataclass(frozen=True)
+class FlatShard(Shard):
+    """This rank's piece of an array whose values, in memory order, lie as
+    ``view`` = (pre, count, per): the ``per`` consecutive values at
+    ``index`` of each of the ``pre`` runs, in that order, shaped ``shape``
+    (flat where it is empty): an 8-bit state's codes or block scales for a
+    parameter slice, an int4 weight's groups for a matrix slice
+    (``parallel/tp.py``). A checkpoint holds the piece as (pre, 1, per)
+    (:meth:`piece`), so that its region in the view is a box."""
+
+    view: tuple = ()
+    shape: tuple = ()
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        piece = t.reshape(self.view).chunk(self.count, 1)[self.index]
+        return piece.reshape(self.shape or (-1,)).clone()
+
+    def piece(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(self.view[0], 1, self.view[2])
+
+    def unpiece(self, t: torch.Tensor) -> torch.Tensor:
+        return t.reshape(self.shape or (-1,))
+
+
+def _is8(t) -> bool:
     from ..optim.state8bit import OptimState8bit
 
-    def refuse(t):
-        if mesh.shape["fsdp"] > 1 and isinstance(t, OptimState8bit):
-            raise ValueError("an 8-bit optimizer state cannot be split over fsdp: its blocks span the global leaf")
-        return t
+    return isinstance(t, OptimState8bit)
 
-    map_tensors(refuse, state, is_leaf=lambda t: isinstance(t, OptimState8bit))
-    return map_tensors(lambda t: Shard(param_spec(t.shape, mesh), mesh.coords["fsdp"], mesh.shape["fsdp"]), state)
+
+def _state8_specs(t, mesh: Mesh):
+    """An 8-bit state's layout: its fields :class:`FlatShard` by its
+    parameter's split (the module's docstring; the scales whole where a
+    rank's runs end inside blocks), or whole; its ``shard`` the parameter's
+    :class:`Shard` (None where whole)."""
+    from ..optim.state8bit import BLOCK
+
+    index, n = mesh.coords["fsdp"], mesh.shape["fsdp"]
+    dim = param_spec(t.shape, mesh)
+    if dim is None:
+        return dataclasses.replace(t, codes=Shard(None, index, n), scale=Shard(None, index, n))
+    pre, post = math.prod(t.shape[:dim]), math.prod(t.shape[dim + 1:])
+    run = t.shape[dim] // n * post
+    scale = FlatShard(1, index, n, (pre, n, run // BLOCK)) if run % BLOCK == 0 else Shard(None, index, n)
+    return dataclasses.replace(t, codes=FlatShard(1, index, n, (pre, n, run)), scale=scale, shard=Shard(dim, index, n))
+
+
+def state_specs(state, mesh: Mesh):
+    """The :class:`Shard` of every tensor of a global state by
+    :func:`param_spec` (JAX's ``state_shardings``, :98-103); an 8-bit
+    optimizer state's fields by its parameter's split (:class:`FlatShard`)."""
+    def spec(t):
+        if _is8(t):
+            return _state8_specs(t, mesh)
+        return Shard(param_spec(t.shape, mesh), mesh.coords["fsdp"], mesh.shape["fsdp"])
+
+    return map_tensors(spec, state, is_leaf=lambda t: isinstance(t, torch.Tensor) or _is8(t))
 
 
 def shard_state(state, mesh: Mesh):
     """(this rank's slice of every leaf of a global state (a ``TrainState``
     or a parameter tree) by the FSDP rule (JAX :106-107), its
-    :class:`Shard` layout)."""
+    :class:`Shard` layout); an 8-bit state's piece records its parameter's
+    :class:`Shard`."""
     specs = state_specs(state, mesh)
-    return map_tensors(lambda t, s: s.take(t), state, specs), specs
+
+    def take(t, s):
+        if not _is8(t):
+            return s.take(t)
+        return dataclasses.replace(t, codes=s.codes.take(t.codes), scale=s.scale.take(t.scale), shard=s.shard)
+
+    return map_tensors(take, state, specs, is_leaf=lambda t: isinstance(t, torch.Tensor) or _is8(t)), specs
 
 
 def param_specs(specs):

@@ -11,16 +11,28 @@ its slice of the MLP, sums o's and down's partial outputs over ``model``
 weight wrapper's tensors split by its path's rule, each where its dim
 divides (an int8 weight's row scales follow q's rows and stay whole for
 o); a leaf whose dim does not divide stays replicated.
+
+An int4 weight-only weight (``quant/int4.py::Int4Weight``) keeps its groups
+flattened over its [O, I] matrix, so JAX's path rule applied leaf by leaf
+would cut its ``packed`` inside each group and keep its scales whole; only
+XLA's global program makes that right there. Here it is split by its
+matrix: a column-parallel weight by whole rows of O (``packed``, ``scale``
+and ``zero_point`` cut alike, where a rank's rows hold whole groups), a
+row-parallel one by contiguous K blocks of every row (where (I / n) %
+group_size == 0), through :class:`parallel.mesh.FlatShard`; the weight's
+``mat_shape`` becomes the rank's, and the layout's node holds it too. The
+nibble order stays as it is.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from ..utils.tree import map_tensors
-from .mesh import Shard
+from .mesh import FlatShard, Shard
 
 # per-layer linear kernels are stacked [L, out, in]
 _OUT_SHARDED = {"q", "k", "v", "gate", "up"}  # column-parallel
@@ -47,23 +59,57 @@ def tp_param_spec(path, shape, mesh) -> int | None:
     return None  # embeddings, norms, odd shapes: replicated
 
 
+def _int4_spec(path, w, mesh):
+    """The layout of an ``Int4Weight`` (the module's docstring): its fields'
+    :class:`FlatShard` by its path's rule, and the rank's ``mat_shape``."""
+    coord, n = mesh.coords["model"], mesh.shape["model"]
+    dim = tp_param_spec(path, w.shape, mesh)
+    lead = tuple(w.packed.shape[:-2])
+    if dim is None:
+        whole = Shard(None, coord, n)
+        return dataclasses.replace(w, packed=whole, scale=whole, zero_point=whole,
+                                   master=None if w.master is None else whole)
+    (O, I), g = w.mat_shape, w.group_size
+    axis = dim - len(lead)  # 0: rows of O, 1: K blocks
+    L = math.prod(lead)
+    if axis == 0 and (O // n * I) % g == 0:
+        pre, groups, mat = L, O // n * I // g, (O // n, I)
+    elif axis == 1 and (I // n) % g == 0:
+        pre, groups, mat = L * O, I // n // g, (O, I // n)
+    else:
+        raise ValueError(f"an int4 weight [{O}, {I}] in groups of {g} split on its {('rows', 'columns')[axis]} "
+                         f"over model = {n}: a rank's share ends inside a group")
+    local = mat[0] * mat[1] // g  # the rank's groups a matrix
+    return dataclasses.replace(
+        w, packed=FlatShard(1, coord, n, (pre, n, groups * g // 2), (*lead, local, g // 2)),
+        scale=FlatShard(1, coord, n, (pre, n, groups), (*lead, local)),
+        zero_point=FlatShard(1, coord, n, (pre, n, groups), (*lead, local)),
+        master=None if w.master is None else Shard(dim, coord, n), mat_shape=mat)
+
+
 def shard_params_tp(params, mesh):
     """(this rank's TP slice of every tensor of ``params`` (JAX :49-58),
     its :class:`Shard` layout): a wrapper's tensors split by the rule of
-    the wrapper's path. A 4-bit weight keeps its global matrix shape as
-    static metadata, so it is refused."""
+    the wrapper's path, an int4 weight's by its matrix (the module's
+    docstring)."""
     from ..quant.int4 import Int4Weight
 
     coord, n = mesh.coords["model"], mesh.shape["model"]
 
     def spec(path, t):
         if isinstance(t, Int4Weight):
-            raise ValueError("int4 weights cannot be split over model: their matrix shape is static")
+            return _int4_spec(path, t, mesh)
         return Shard(tp_param_spec(path, t.shape, mesh), coord, n)
 
-    is_leaf = lambda t: isinstance(t, torch.Tensor) or (n > 1 and isinstance(t, Int4Weight))  # noqa: E731
+    def take(t, s):
+        if isinstance(t, Int4Weight):
+            return dataclasses.replace(t, mat_shape=s.mat_shape,
+                                       **{f: getattr(s, f).take(x) for f, x in t.tensors().items()})
+        return s.take(t)
+
+    is_leaf = lambda t: isinstance(t, (torch.Tensor, Int4Weight))  # noqa: E731
     specs = map_tensors(spec, params, is_leaf=is_leaf, with_path=True)
-    return map_tensors(lambda t, s: s.take(t), params, specs), specs
+    return map_tensors(take, params, specs, is_leaf=is_leaf), specs
 
 
 def kv_cache_spec(mesh, num_kv_heads: int | None = None) -> int | None:

@@ -48,7 +48,7 @@ def is_quant_weight(x) -> bool:
     return isinstance(x, QUANT_TYPES)
 
 
-def prequantize_step(params, key: int | None = None):
+def prequantize_step(params, key: int | None = None, mesh=None, specs=None):
     """Every int8 :class:`mixed_precision.MixedPrecisionWeight` of the tree
     as a :class:`mixed_precision.PreQuantMPWeight`, its views made once for
     the step (JAX :55-97); other leaves pass through. Called at the top of
@@ -57,7 +57,13 @@ def prequantize_step(params, key: int | None = None):
     grad_input's. ``QT_PREQUANT``, read at each call: '0' (the default) does
     nothing, '1' or 'both' makes both views, 'row' or 'col' one. Under SR
     leaf i, in the JAX package's flatten order (dict keys sorted, each
-    wrapper one leaf), draws from ``fold_in(key, i)``."""
+    wrapper one leaf), draws from ``fold_in(key, i)``.
+
+    ``mesh`` and ``specs`` (the tree's ``parallel.Shard`` layout, as the
+    tree holds them): a weight split over fsdp on its rows or columns makes
+    its views as the rank's shards of the global weight's views
+    (``prequantize_weight``'s ``shard``); the caller gathers them with the
+    weight (``parallel.fsdp.prequant_specs``)."""
     mode = os.environ.get("QT_PREQUANT", "0")
     if mode == "0":
         return params
@@ -66,10 +72,18 @@ def prequantize_step(params, key: int | None = None):
         raise ValueError(f"QT_PREQUANT must be one of 0, 1, both, row, col; got {mode!r}")
     index = {p: i for i, p in enumerate(_leaf_paths(params))}
 
+    def shard(path):
+        if specs is None:
+            return None
+        s = _at(specs, path)
+        dim = (next(iter(s.tensors().values())) if isinstance(s, _mp.MixedPrecisionWeight) else s).dim
+        return None if dim is None else (dim, (mesh, "fsdp"))
+
     def pq(path, leaf):
         if not isinstance(leaf, _mp.MixedPrecisionWeight):
             return leaf
-        return _mp.prequantize_weight(leaf, None if key is None else fold_in(key, index[path]), mode=mode)
+        return _mp.prequantize_weight(leaf, None if key is None else fold_in(key, index[path]), mode=mode,
+                                      shard=shard(path))
 
     return _map_with_path(pq, params)
 

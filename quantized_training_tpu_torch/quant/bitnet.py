@@ -87,9 +87,10 @@ class BitNetPackedWeight(WeightNode):
 
 
 def _ternary_mm(x2d, w_i8, scale):
-    """K1 on x2d at ``ACT_EPS``, then K2 against the ternary weight with
-    ``scale`` as the column scale: -> (out, x_i8, row_scale)."""
-    x_i8, row_scale = quantize_int8(x2d, axis=-1, eps=ACT_EPS)
+    """K1 on x2d at ``ACT_EPS`` (its mesh forms where tensor parallelism
+    splits x's features), then K2 against the ternary weight with ``scale``
+    as the column scale: -> (out, x_i8, row_scale)."""
+    x_i8, row_scale = quantize_int8(x2d, axis=-1, eps=ACT_EPS, over="features")
     sa, sb = _scales(row_scale, scale)
     return scaled_mm_general(x_i8, w_i8, sa, sb, dims=(1, 1), out_dtype=x2d.dtype), x_i8, row_scale
 

@@ -13,6 +13,13 @@ quantize of a 2-D tensor (``axis=0``) B4, and the both-axes quantize B5
 (``ops/int8_quant.py``), each in its SR form under stochastic rounding; a
 CPU tensor runs the plain versions, along any axis. Stochastic rounding
 draws from a key, an int (``ops/random.py``), never from a generator.
+
+Under a mesh (``over``): a quantize names the axis it reduces (``"tokens"``
+or ``"features"``, ``parallel/collectives.py::spanning``), and where a mesh
+splits that axis it runs as its two mesh forms with the maxima all-reduced
+over the mesh axis between them (``ops/int8_quant.py``), so that each rank
+holds its rows of the quantize of the global tensor, as in JAX's one global
+program. Elsewhere ``over`` changes nothing.
 """
 
 from __future__ import annotations
@@ -25,10 +32,44 @@ from ..ops.random import bf16_stochastic_round  # noqa: F401  (core.py:318's cou
 from ..ops.int8_quant import (
     EPS,
     quantize_int8_both as _quantize_both_kernel,
+    quantize_int8_both_maxima,
     quantize_int8_colwise,
+    quantize_int8_colwise_given,
+    quantize_int8_colwise_maxima,
     quantize_int8_plain,
     quantize_int8_rowwise,
+    quantize_int8_rowwise_given,
+    quantize_int8_rowwise_maxima,
 )
+
+
+def _span(over):
+    """The (mesh, axis) that a maximum over ``over`` spans, or None
+    (``parallel/collectives.py::span``; imported here, since ``parallel``
+    imports this module)."""
+    if over is None:
+        return None
+    from ..parallel.collectives import span
+
+    return span(over)
+
+
+def max_over(amax: torch.Tensor, over) -> torch.Tensor:
+    """``amax`` all-reduced with max where ``over`` spans a split axis
+    (``parallel/collectives.py::max_over``)."""
+    from ..parallel.collectives import max_over as reduce
+
+    return reduce(amax, over)
+
+
+def max_over_each(amaxes, over) -> list:
+    """Each tensor of ``amaxes`` all-reduced with max where ``over`` spans a
+    split axis, all in one all-reduce; the tensors themselves elsewhere."""
+    span = _span(over)
+    if span is None:
+        return list(amaxes)
+    flat = max_over(torch.cat([a.reshape(-1) for a in amaxes]), span)
+    return [p.view_as(a) for p, a in zip(flat.split([a.numel() for a in amaxes]), amaxes)]
 
 
 def stochastic_round_to_int(x: torch.Tensor, key: int) -> torch.Tensor:
@@ -44,6 +85,7 @@ def quantize_int8(
     stochastic_rounding: bool = False,
     key: int | None = None,
     eps: float = EPS,
+    over=None,
 ):
     """Absmax symmetric INT8 quantization along ``axis``.
 
@@ -58,10 +100,22 @@ def quantize_int8(
     tensor (a strided input is made contiguous first) and take the plain
     version on a CPU tensor. The CPU also takes any other axis; on a CUDA
     tensor that raises NotImplementedError.
+
+    ``over``: the name of the reduced axis (the module's docstring); where
+    a mesh splits it, a row or 2-D column quantize runs as its maxima form,
+    the all-reduce of the maxima and its given-maxima form.
     """
     if stochastic_rounding and key is None:
         raise ValueError("stochastic_rounding=True requires a key")
     kw = dict(eps=eps, sr=stochastic_rounding, key=key)
+    span = _span(over)
+    if span is not None:
+        x = x.contiguous()
+        if axis in (-1, x.ndim - 1):
+            return quantize_int8_rowwise_given(x, max_over(quantize_int8_rowwise_maxima(x), span), **kw)
+        if x.ndim == 2 and axis in (0, -2):
+            return quantize_int8_colwise_given(x, max_over(quantize_int8_colwise_maxima(x), span), **kw)
+        raise NotImplementedError(f"quantize_int8: over a mesh along axis={axis} of a {x.ndim}-D tensor")
     if axis in (-1, x.ndim - 1):
         return quantize_int8_rowwise(x.contiguous(), **kw)
     if x.ndim == 2 and axis in (0, -2):
@@ -84,6 +138,7 @@ def quantize_int8_both(
     stochastic_rounding: bool = False,
     key: int | None = None,
     eps: float = EPS,
+    cols_over=None,
 ):
     """Quantize a 2-D ``x`` along both axes: -> (q_row, s_row, q_col, s_col).
 
@@ -93,15 +148,27 @@ def quantize_int8_both(
     numbers are those of two separate :func:`quantize_int8` calls, bit for
     bit, under SR with the keys ``random.split(key)`` (row, then column),
     as ``core.py:167`` splits one.
+
+    ``cols_over``: the name of the column maxima's axis (the first); where
+    a mesh splits it, B5 runs as its maxima form, the all-reduce of the
+    column maxima and its given-maxima form.
     """
     if x.ndim != 2:
         raise ValueError(f"quantize_int8_both: needs a 2-D tensor, got shape {tuple(x.shape)}")
     if stochastic_rounding and key is None:
         raise ValueError("stochastic_rounding=True requires a key")
-    return _quantize_both_kernel(x.contiguous(), eps=eps, sr=stochastic_rounding, key=key)
+    kw = dict(eps=eps, sr=stochastic_rounding, key=key)
+    span = _span(cols_over)
+    if span is not None:
+        x = x.contiguous()
+        q_row, s_row, amax = quantize_int8_both_maxima(x, **kw)
+        key_col = random.split(key)[1] if stochastic_rounding else None  # B5's column cast's key
+        return (q_row, s_row, *quantize_int8_colwise_given(x, max_over(amax, span), eps=eps, sr=stochastic_rounding,
+                                                           key=key_col))
+    return _quantize_both_kernel(x.contiguous(), **kw)
 
 
-def quantize_int4_rowwise_absmax(x: torch.Tensor):
+def quantize_int4_rowwise_absmax(x: torch.Tensor, over=None):
     """Signed row-wise int4 of a 2-D ``x`` over the full [-8, 7] range ->
     (packed int8 [M, N // 2], scale [M] in x's dtype).
 
@@ -109,11 +176,17 @@ def quantize_int4_rowwise_absmax(x: torch.Tensor):
     8`` in x's dtype, ``scale = max(pos, neg)``, then q = round(x * (1 /
     clip(scale, 1e-12))) in fp32, cast to int8 with no clip. Two values per
     byte, the even element in the high nibble. Every division is by a
-    tensor (CUDA divides by a Python scalar as a reciprocal multiply)."""
+    tensor (CUDA divides by a Python scalar as a reciprocal multiply).
+    ``over``: the name of the axis a row's maxima reduce (dim 1); where a
+    mesh splits it, both maxima are all-reduced before the scale is formed."""
+    pos_max, neg_max = torch.relu(x).amax(dim=1), torch.relu(-x).amax(dim=1)
+    span = _span(over)
+    if span is not None:
+        pos_max, neg_max = max_over(torch.stack([pos_max, neg_max]), span)
     # x.new_full: a fill on x's device, where torch.tensor would copy from
     # the host and wait for the device
-    pos = torch.relu(x).amax(dim=1) / x.new_full((), 7.0)
-    neg = torch.relu(-x).amax(dim=1) / x.new_full((), 8.0)
+    pos = pos_max / x.new_full((), 7.0)
+    neg = neg_max / x.new_full((), 8.0)
     scale = torch.maximum(pos, neg)
     inv = x.new_ones((), dtype=torch.float32) / scale.float().clamp(min=1e-12)
     q = torch.round(x.float() * inv[:, None]).to(torch.int8)

@@ -52,6 +52,13 @@ autograd Functions, so a remat replay takes them as they are; a missing
 view (a ``MixedPrecisionWeight``, or a mode that made one view only) is
 quantized in the op with the key the dynamic path uses. The ViT's ops take
 no views, as in the JAX package.
+
+Under a mesh the column maxima that a forward kernel gathers over its rank's
+tokens (B7's, B9-row's, B14's) and B11's are all-reduced over the token
+axis's span before any column scale is formed from them (``max_over_each``,
+in the backward, one all-reduce for those an op uses together), and B5 on
+the cotangents takes its mesh forms (``cols_over``), so that every column
+quantize is that of the global batch, as in JAX's partitioned program.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ from ..ops import rope
 from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm_general
 from .api import qlinear, qlinear_multi
-from .core import quantize_int8, quantize_int8_both
+from .core import max_over_each, quantize_int8, quantize_int8_both
 from .mixed_precision import MixedPrecisionWeight, PreQuantMPWeight, _col_view, _pad_tokens, _resolve_key, _row_view
 
 _IMPL = "auto"  # auto | off | interpret
@@ -142,7 +149,7 @@ def _grad_pair(g, w, sr: bool, gw8: bool, kg, kw, cq=None, cs=None):
     column-wise with ``gw8``, one B5) and w column-wise (its view ``cq``,
     ``cs`` where one was made); returns (grad_input, g_col, g_col_s)."""
     if gw8:
-        g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
+        g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg, cols_over="tokens")
     else:
         g_row, g_row_s = quantize_int8(g, axis=1, stochastic_rounding=sr, key=kg)
         g_col = g_col_s = None
@@ -184,6 +191,7 @@ class _NormMM(torch.autograd.Function):
         col_amax = rest.pop(0) if gw8 else None
         ws, col_qs, col_ss = rest[:n], rest[n:2 * n], rest[2 * n:]
         if gw8:
+            col_amax, = max_over_each([col_amax], "tokens")
             y_col, y_col_s = fp.rmsnorm_quant_colwise(
                 x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 2) if sr else None, scale=col_amax * (1.0 / 127.0))
             y_col_s = y_col_s.to(x2d.dtype)
@@ -262,7 +270,8 @@ class _SiluMM(torch.autograd.Function):
         dy, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw, cq, cs)
         if gw8:
             y_col, y_col_s = fp.silu_mul_quant_colwise(
-                a2d, b2d, sr=sr, key=_sub(key, 2) if sr else None, scale=col_amax[0] * (1.0 / 127.0))
+                a2d, b2d, sr=sr, key=_sub(key, 2) if sr else None,
+                scale=max_over_each(col_amax, "tokens")[0] * (1.0 / 127.0))
             grad_w = scaled_mm_general(g_col, y_col, g_col_s, y_col_s.to(a2d.dtype), dims=(0, 0), out_dtype=w.dtype)
         else:
             grad_w = _bf16_wgrad(g, fp.silu_mul_ref(a2d, b2d))
@@ -336,7 +345,7 @@ class _MLPMM(torch.autograd.Function):
         kg, kw = split(_sub(key, 4)) if sr else (None, None)
         dact, g_col, g_col_s = _grad_pair(g, wd, sr, gw8, kg, kw, col_qs[2], col_ss[2])
         if gw8:
-            h_camax, act_camax = camax
+            h_camax, act_camax = max_over_each(camax, "tokens")
             act_col, act_col_s = fp.silu_mul_quant_colwise(gate, up, sr=sr, key=sub(5),
                                                            scale=act_camax * (1.0 / 127.0))
             wd_grad = scaled_mm_general(g_col, act_col, g_col_s, act_col_s.to(wd.dtype), dims=(0, 0),
@@ -344,6 +353,7 @@ class _MLPMM(torch.autograd.Function):
             # (dgate, dup) in fp32, quantized along both axes in-kernel
             da_q, da_s, db_q, db_s, da_camax, db_camax = fp.silu_mul_bwd_quant_rowwise(
                 gate, up, dact, sr=sr, key=sub(6))
+            da_camax, db_camax = max_over_each([da_camax, db_camax], "tokens")
             cols = fp.silu_mul_bwd_quant_colwise(gate, up, dact, da_camax * (1.0 / 127.0),
                                                  db_camax * (1.0 / 127.0), sr=sr, key=sub(7))
             col_s = [(m * (1.0 / 127.0)).to(wg.dtype) for m in (da_camax, db_camax)]
@@ -438,7 +448,7 @@ class _AttnOutMM(torch.autograd.Function):
         dctx, g_col, g_col_s = _grad_pair(g, w, sr, gw8, kg, kw, cq, cs)
         d_out_g = _group_cotangent(dctx, B, S, KV, hd)
         if gw8:
-            col_s = col_amax[0] * (1.0 / 127.0)
+            col_s = max_over_each(col_amax, "tokens")[0] * (1.0 / 127.0)
             x_col = rope.ungroup_quant(out_g, col_s, axis=0, sr=sr, key=_sub(key, 2) if sr else None)
             grad_w = scaled_mm_general(g_col, x_col.view(B * S, -1), g_col_s, col_s.to(w.dtype), dims=(0, 0),
                                        out_dtype=w.dtype)

@@ -8,8 +8,9 @@ in place of the ``jax.custom_vjp`` (:73-102):
 - forward, ``activation='none'``: ``(x2d @ int_data^T) * scale^T``, a bf16
   matmul of the int8 weight widened to x's dtype;
 - forward, ``'int8'`` / ``'int8_sr'``: K1 on x2d (its SR form from the
-  linear's key under ``'int8_sr'``), then K2 with the stored row scale as
-  its column scale (``ops/scaled_mm.py``);
+  linear's key under ``'int8_sr'``; its mesh forms where tensor parallelism
+  splits x's features, ``over="features"``), then K2 with the stored row
+  scale as its column scale (``ops/scaled_mm.py``);
 - backward, always in x's dtype: grad_input ``(g * scale^T) @ int_data``,
   and ``g^T @ x2d`` routed to ``master``. The scale lies along
   grad_input's reduction, so there is no int8 backward GEMM.
@@ -85,7 +86,8 @@ class _Int8Linear(torch.autograd.Function):
             out = (x2d @ int_data.T.to(x2d.dtype)) * scale.reshape(1, -1)
         else:
             sr = config.activation == "int8_sr"
-            x_i8, x_scale = quantize_int8(x2d, axis=-1, stochastic_rounding=sr, key=key if sr else None)
+            x_i8, x_scale = quantize_int8(x2d, axis=-1, stochastic_rounding=sr, key=key if sr else None,
+                                          over="features")
             sa, sb = _scales(x_scale, scale.reshape(1, -1))
             out = scaled_mm_general(x_i8, int_data, sa, sb, dims=(1, 1), out_dtype=x2d.dtype)
         ctx.save_for_backward(x2d, int_data, scale)

@@ -40,6 +40,17 @@ where the JAX package derives its keys: ``fold_in(key, 0/1/2/3)`` per use
 keep the key in ``ctx``, so a checkpointed layer replayed with the same key
 rounds the same way, and no two quantizes of one call share a stream.
 
+Under a mesh every quantize names the axis it reduces (``over``,
+``quant/core.py``): the grad_weight operands' token axis ``"tokens"`` (B5's
+columns of g, B4 of x2d, the int4 and fp8 'row' quantizes of the
+grad_weight matmul), the forward's contraction axis ``"features"`` (K1 of
+x2d and of w, which tensor parallelism splits in a row-parallel linear).
+grad_input's operands reduce the output features, which no mesh splits
+here. fp8 'tile' takes the tile path only where the rank's token count is a
+multiple of 128, so each 1 x 128 group of tokens, and each 128 x 128 block,
+lies inside one rank's rows, whose offset is a multiple of that count: its
+maxima need no all-reduce.
+
 ``PreQuantMPWeight`` (JAX :385-663) holds a weight's int8 views computed
 once a step (:func:`prequantize_weight`, ``quant/api.py::prequantize_step``):
 the row view (the forward's operand) and the column view (grad_input's), by
@@ -68,7 +79,7 @@ from ..ops.int4_mm import scaled_int4_mm
 from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm, scaled_mm_general
 from .configs import MixedPrecisionConfig
-from .core import quantize_int4_rowwise_absmax, quantize_int8, quantize_int8_both
+from .core import max_over, quantize_int4_rowwise_absmax, quantize_int8, quantize_int8_both
 from .node import WeightNode
 
 
@@ -100,22 +111,35 @@ def _subkey(key: int, i: int) -> int:
     return fold_in(key, i)
 
 
+# the axis a matmul of these dims contracts, as ``over`` names it: the
+# forward's features (x . w^T) and grad_weight's tokens (g^T . x)
+_CONTRACTED = {(1, 1): "features", (0, 0): "tokens"}
+
+
 def _dynamic_int8_mm(a, b, sr: bool, key: int | None, dims=(1, 0)):
     """Contract a over dims[0] and b over dims[1], both dynamically
     quantized to INT8 along their contraction axis, each operand from its
     own half of ``split(key)`` under SR (JAX :72-75)."""
     ka, kb = split(key) if sr else (None, None)
-    a_i8, sa = quantize_int8(a, axis=dims[0], stochastic_rounding=sr, key=ka)
-    b_i8, sb = quantize_int8(b, axis=dims[1], stochastic_rounding=sr, key=kb)
+    over = _CONTRACTED.get(tuple(dims))
+    a_i8, sa = quantize_int8(a, axis=dims[0], stochastic_rounding=sr, key=ka, over=over)
+    b_i8, sb = quantize_int8(b, axis=dims[1], stochastic_rounding=sr, key=kb, over=over)
     return scaled_mm_general(a_i8, b_i8, sa, sb, dims=dims, out_dtype=a.dtype)
 
 
-def _dynamic_int4_mm(a, b):
+def _dynamic_int4_mm(a, b, over=None):
     """a [M, K] . b [K, N], both quantized row-wise to packed int4 along K
     (b as b^T, made contiguous), then B16 (JAX :79-83). No SR."""
-    a_i4, row_scale = quantize_int4_rowwise_absmax(a.contiguous())
-    b_t_i4, col_scale = quantize_int4_rowwise_absmax(b.T.contiguous())
+    a_i4, row_scale = quantize_int4_rowwise_absmax(a.contiguous(), over)
+    b_t_i4, col_scale = quantize_int4_rowwise_absmax(b.T.contiguous(), over)
     return scaled_int4_mm(a_i4, b_t_i4, row_scale, col_scale, out_dtype=a.dtype)
+
+
+def _fp8_rows(x, axis: int, over):
+    """``quantize_fp8`` along ``axis`` with its maxima all-reduced where a
+    mesh splits ``over``."""
+    amax = x.abs().amax(dim=axis, keepdim=True).float()
+    return quantize_fp8(x, axis=axis, amax=max_over(amax, over))
 
 
 def _dynamic_fp8_mm(a, b, scale_mode: str, dims):
@@ -131,8 +155,9 @@ def _dynamic_fp8_mm(a, b, scale_mode: str, dims):
         a_q, a_s = quantize_fp8_tile(a_std.contiguous())
         b_q, b_s = quantize_fp8_block(b_std.contiguous())
         return scaled_mm(a_q, b_q, a_s, b_s, out_dtype=a.dtype)
-    a_q, a_s = quantize_fp8(a, axis=dims[0])
-    b_q, b_s = quantize_fp8(b, axis=dims[1])
+    over = _CONTRACTED.get(tuple(dims))
+    a_q, a_s = _fp8_rows(a, dims[0], over)
+    b_q, b_s = _fp8_rows(b, dims[1], over)
     return scaled_mm_general(a_q, b_q, a_s, b_s, dims=dims, out_dtype=a.dtype)
 
 
@@ -143,7 +168,7 @@ def _dynamic_mm(a, b, config: MixedPrecisionConfig, key: int | None, dims=(1, 0)
     if config.dtype == "int4":
         a = a if dims[0] == 1 else a.T
         b = b if dims[1] == 0 else b.T
-        return _dynamic_int4_mm(a, b)
+        return _dynamic_int4_mm(a, b, _CONTRACTED.get(tuple(dims)))
     if config.dtype == "fp8_e4m3":
         return _dynamic_fp8_mm(a, b, config.scale, dims)
     raise ValueError(f"unsupported mixed-precision dtype {config.dtype!r}")
@@ -161,7 +186,7 @@ def _grads_both_int8(g, w, x_col, x_col_s, sr, kg, kw):
     int8, given the column quantize of its input: g along both axes (B5,
     key ``kg``), w column-wise (B4, key ``kw``), then B1 and B2 (JAX
     :184-198)."""
-    g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
+    g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg, cols_over="tokens")
     w_col, w_col_s = quantize_int8(w, axis=0, stochastic_rounding=sr, key=kw)
     grad_input = scaled_mm_general(g_row, w_col, g_row_s, w_col_s, dims=(1, 0), out_dtype=w.dtype)
     # g^T . x contracted over the tokens as stored: the result is [out, in]
@@ -189,7 +214,7 @@ class _MPLinear(torch.autograd.Function):
         g = g.to(w.dtype)
         if config.grad_input and config.grad_weight and config.dtype == "int8":
             kg, kw, kx = split(_subkey(key, 1), 3) if sr else (None,) * 3
-            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx, over="tokens")
             grad_input, grad_weight = _grads_both_int8(g, w, x_col, x_col_s, sr, kg, kw)
             return grad_input, grad_weight, None, None
         if config.grad_input:
@@ -217,11 +242,11 @@ class _MPLinearShared(torch.autograd.Function):
     def forward(ctx, config, key, x2d, *ws):
         sr = config.stochastic_rounding
         kx = _subkey(key, 0) if sr else None
-        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=kx)
+        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=kx, over="features")
         outs = []
         for i, w in enumerate(ws):
             kw = fold_in(_subkey(key, 1), i) if sr else None
-            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw)
+            w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw, over="features")
             outs.append(scaled_mm_general(x_row, w_row, x_row_s, w_row_s, dims=(1, 1),
                                           out_dtype=x2d.dtype))
         ctx.config, ctx.key = config, key
@@ -233,7 +258,7 @@ class _MPLinearShared(torch.autograd.Function):
         x2d, *ws = ctx.saved_tensors
         sr, key = ctx.config.stochastic_rounding, ctx.key
         kx = fold_in(_subkey(key, 2), 0) if sr else None
-        x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+        x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx, over="tokens")
         grad_input, grad_ws = None, []
         for i, (w, g) in enumerate(zip(ws, gs)):
             kg, kw = split(fold_in(_subkey(key, 3), i)) if sr else (None, None)
@@ -346,37 +371,56 @@ def _has(view) -> bool:
     return view is not None and view.numel() > 0
 
 
-def _quantize_views(w, need_row: bool, need_col: bool, sr: bool, key: int | None):
+def _quantize_views(w, need_row: bool, need_col: bool, sr: bool, key: int | None, shard=None):
     """(row_q, row_s, col_q, col_s) of one 2-D weight: B5 for both views,
-    else K1 or B4, a placeholder for the other (JAX :430-478)."""
+    else K1 or B4, a placeholder for the other (JAX :430-478). ``shard``:
+    (axis, span) where this is a rank's shard of the weight, split on
+    ``axis`` (0: its rows, 1: its columns) over the span's mesh axis; the
+    quantize that reduces the split axis then takes the global maxima (its
+    mesh forms), the other stays local, and under SR the two draw from the
+    halves of ``split(key)``, as B5's do."""
+    axis, span = shard if shard is not None else (None, None)
+    if need_row and need_col and axis != 1:
+        return quantize_int8_both(w, stochastic_rounding=sr, key=key, cols_over=span)
     if need_row and need_col:
-        return quantize_int8_both(w, stochastic_rounding=sr, key=key)
+        kr, kc = split(key) if sr else (None, None)
+        return (*quantize_int8(w, axis=-1, stochastic_rounding=sr, key=kr, over=span),
+                *quantize_int8(w, axis=0, stochastic_rounding=sr, key=kc))
     if need_row:
-        return (*quantize_int8(w, axis=-1, stochastic_rounding=sr, key=key), *_placeholder(w))
-    return (*_placeholder(w), *quantize_int8(w, axis=0, stochastic_rounding=sr, key=key))
+        return (*quantize_int8(w, axis=-1, stochastic_rounding=sr, key=key, over=span if axis == 1 else None),
+                *_placeholder(w))
+    return (*_placeholder(w), *quantize_int8(w, axis=0, stochastic_rounding=sr, key=key,
+                                             over=span if axis == 0 else None))
 
 
 @torch.no_grad()
-def _prequant(w, need_row: bool, need_col: bool, sr: bool, key: int):
+def _prequant(w, need_row: bool, need_col: bool, sr: bool, key: int, shard=None):
     """The views of w [out, in], or of a stacked [L, out, in] layer by
     layer, layer l with ``fold_in(key, l)`` under SR, as JAX's ``vmap``
     (:455-468): B5's column scales are per layer, so the layers never share
-    a launch."""
+    a launch. ``shard``: (the split dim of w, span) for a rank's shard
+    (:func:`_quantize_views`)."""
     w = w.detach()
+    if shard is not None:
+        shard = (shard[0] - (w.ndim - 2), shard[1])  # the split dim of each layer's matrix
     if w.ndim == 2:
-        return _quantize_views(w, need_row, need_col, sr, key if sr else None)
-    per_layer = [_quantize_views(wl, need_row, need_col, sr, fold_in(key, l) if sr else None)
+        return _quantize_views(w, need_row, need_col, sr, key if sr else None, shard)
+    per_layer = [_quantize_views(wl, need_row, need_col, sr, fold_in(key, l) if sr else None, shard)
                  for l, wl in enumerate(w.unbind(0))]
     return tuple(torch.stack(parts) for parts in zip(*per_layer))
 
 
-def prequantize_weight(w: MixedPrecisionWeight, key: int | None = None, mode: str = "both"):
+def prequantize_weight(w: MixedPrecisionWeight, key: int | None = None, mode: str = "both", shard=None):
     """MixedPrecisionWeight -> PreQuantMPWeight (JAX :490-515). ``mode``
     'both' | 'row' | 'col' picks the views made; the linear quantizes in the
     op for a missing one. A config the pre-quantized linear does not cover
     (not int8, or neither the forward nor grad_input quantized) returns
     ``w`` unchanged. ``orig`` is ``w.data`` itself, so the grads of the
-    linears reach the master."""
+    linears reach the master. ``shard``: (the dim of ``w.data`` split over
+    a mesh axis, (mesh, axis)) where ``w`` is a rank's shard, whose views
+    are then its shards of the global weight's views, bit for bit at
+    round-to-nearest (under SR each rank folds its index on that axis into
+    the key, so that its shard draws its own noise)."""
     cfg = w.config
     if cfg.dtype != "int8":
         return w
@@ -385,14 +429,18 @@ def prequantize_weight(w: MixedPrecisionWeight, key: int | None = None, mode: st
     if not (need_row or need_col):
         return w
     key = _resolve_key(cfg, key)
-    return PreQuantMPWeight(w.data, *_prequant(w.data, need_row, need_col, cfg.stochastic_rounding, key), cfg)
+    if shard is not None and cfg.stochastic_rounding:
+        mesh, axis = shard[1]
+        key = fold_in(key, mesh.coords[axis])
+    return PreQuantMPWeight(w.data, *_prequant(w.data, need_row, need_col, cfg.stochastic_rounding, key, shard),
+                            cfg)
 
 
 def _row_view(w, rq, rs, sr: bool, key: int | None):
     """The forward's row int8 of w: the precomputed view, or K1 in the op."""
     if _has(rq):
         return rq, rs
-    return quantize_int8(w, axis=1, stochastic_rounding=sr, key=key)
+    return quantize_int8(w, axis=1, stochastic_rounding=sr, key=key, over="features")
 
 
 def _col_view(w, cq, cs, sr: bool, key: int | None):
@@ -416,7 +464,8 @@ class _MPLinearPQ(torch.autograd.Function):
     def forward(ctx, x2d, w, row_q, row_s, col_q, col_s, config, key):
         sr = config.stochastic_rounding
         if config.output:
-            x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None)
+            x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None,
+                                           over="features")
             rq, rs = _row_view(w, row_q, row_s, sr, _subkey(key, 4) if sr else None)
             out = scaled_mm_general(x_row, rq, x_row_s, rs, dims=(1, 1), out_dtype=x2d.dtype)
         else:
@@ -436,8 +485,8 @@ class _MPLinearPQ(torch.autograd.Function):
         none = (None,) * 6
         if config.grad_input and config.grad_weight:
             kg, kx = split(_subkey(key, 1)) if sr else (None, None)
-            g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg)
-            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+            g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g, stochastic_rounding=sr, key=kg, cols_over="tokens")
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx, over="tokens")
             grad_input = scaled_mm_general(g_row, col_q, g_row_s, col_s, dims=(1, 0), out_dtype=w.dtype)
             grad_weight = scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype)
             return grad_input, grad_weight, *none
@@ -448,8 +497,8 @@ class _MPLinearPQ(torch.autograd.Function):
             grad_input = g @ w
         if config.grad_weight:
             kg, kx = split(_subkey(key, 2)) if sr else (None, None)
-            g_col, g_col_s = quantize_int8(g, axis=0, stochastic_rounding=sr, key=kg)
-            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx)
+            g_col, g_col_s = quantize_int8(g, axis=0, stochastic_rounding=sr, key=kg, over="tokens")
+            x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr, key=kx, over="tokens")
             grad_weight = scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype)
         else:
             grad_weight = g.T @ x2d
@@ -472,7 +521,8 @@ class _MPLinearSharedPQ(torch.autograd.Function):
     def forward(ctx, config, key, n, x2d, *flat):
         ws, row_qs, row_ss = flat[:n], flat[n:2 * n], flat[2 * n:3 * n]
         sr = config.stochastic_rounding
-        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None)
+        x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None,
+                                       over="features")
         outs = []
         for i, (w, rq, rs) in enumerate(zip(ws, row_qs, row_ss)):
             rq, rs = _row_view(w, rq, rs, sr, fold_in(_subkey(key, 4), i) if sr else None)
@@ -488,12 +538,13 @@ class _MPLinearSharedPQ(torch.autograd.Function):
         ws, col_qs, col_ss = rest[:n], rest[n:2 * n], rest[2 * n:]
         sr = ctx.config.stochastic_rounding
         x_col, x_col_s = quantize_int8(x2d, axis=0, stochastic_rounding=sr,
-                                       key=fold_in(_subkey(key, 2), 0) if sr else None)
+                                       key=fold_in(_subkey(key, 2), 0) if sr else None, over="tokens")
         grad_input, grad_ws = None, []
         for i, (w, cq, cs, g) in enumerate(zip(ws, col_qs, col_ss, gs)):
             cq, cs = _col_view(w, cq, cs, sr, fold_in(_subkey(key, 5), i) if sr else None)
             kg = _subkey(fold_in(_subkey(key, 3), i), 0) if sr else None
-            g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g.to(x2d.dtype), stochastic_rounding=sr, key=kg)
+            g_row, g_row_s, g_col, g_col_s = quantize_int8_both(g.to(x2d.dtype), stochastic_rounding=sr, key=kg,
+                                                                cols_over="tokens")
             gi = scaled_mm_general(g_row, cq, g_row_s, cs, dims=(1, 0), out_dtype=w.dtype)
             grad_input = gi if grad_input is None else grad_input + gi
             grad_ws.append(scaled_mm_general(g_col, x_col, g_col_s, x_col_s, dims=(0, 0), out_dtype=w.dtype))

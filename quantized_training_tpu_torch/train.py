@@ -35,11 +35,15 @@ rows; the optimizer's and the commit's keys are shared, so that replicated
 state stays bit-identical across ranks. At one rank every collective is an
 identity and the step gives the no-mesh step's bits.
 
-Where the mesh step departs from JAX's: XLA partitions one global program,
-so a quantize that takes maxima over tokens (the column scales of the
-gradients' B5 / B4 operands, B7's, B9-row's, B11's and B14's column
-maxima) sees the global batch there, while each rank here sees its own
-rows, as the reference's DDP and FSDP2 ranks do (ROADMAP C).
+XLA partitions JAX's sharded step as one global program, so a quantize
+that takes maxima over tokens (the column scales of the gradients' B5 / B4
+operands, B7's, B9-row's, B11's and B14's column maxima) sees the global
+batch there. The step here runs the forward and the backward (and so every
+remat replay) inside ``collectives.spanning(mesh, tokens="dp")``: each such
+maximum is all-reduced over data x fsdp before a value is cast with it, so
+a rank's int8 operands are its rows of the global batch's. The optimizer
+runs inside ``spanning(mesh, blocks="fsdp")``: an 8-bit state whose blocks
+cross ranks all-reduces their maxima (``optim/state8bit.py``).
 """
 
 from __future__ import annotations
@@ -139,9 +143,8 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
     def micro_key(k: int) -> int:
         return fold_in(k, mesh.dp_index) if mesh is not None and mesh.dp_size > 1 else k
 
-    def train_step(state: TrainState, tokens, labels, lr, key: int):
-        qparams = state.params
-        vparams = virtual_params(qparams)
+    def micro_steps(qparams, vparams, tokens, labels, key: int):
+        """(loss, grads) of this rank's rows, averaged over micro-batches."""
         if tokens.ndim == 3:  # [accum, B, S] micro-batches
             grads = tree_map(torch.zeros_like, vparams)
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -149,11 +152,14 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
                 l, g = loss_and_grads(cfg, qparams, tok, lab, micro_key(fold_in(key, i)), vparams, mesh, specs)
                 grads = tree_map(torch.add, grads, g)
                 loss = loss + l
-            grads = tree_map(lambda g: g / tokens.shape[0], grads)
-            loss = loss / tokens.shape[0]
-        else:
-            loss, grads = loss_and_grads(cfg, qparams, tokens, labels, micro_key(fold_in(key, 0)), vparams,
-                                         mesh, specs)
+            return loss / tokens.shape[0], tree_map(lambda g: g / tokens.shape[0], grads)
+        return loss_and_grads(cfg, qparams, tokens, labels, micro_key(fold_in(key, 0)), vparams, mesh, specs)
+
+    def train_step(state: TrainState, tokens, labels, lr, key: int):
+        qparams = state.params
+        vparams = virtual_params(qparams)
+        with C.spanning(mesh, tokens="dp"):
+            loss, grads = micro_steps(qparams, vparams, tokens, labels, key)
 
         norm = None
         if mesh is not None:
@@ -166,7 +172,8 @@ def make_train_step(cfg: llama.LlamaConfig, optimizer: Optimizer,
         else:
             grad_norm = global_norm(grads) if norm is None else norm
 
-        new_v, new_opt = optimizer.step(grads, state.opt_state, vparams, lr, fold_in(key, 1))
+        with C.spanning(mesh, blocks="fsdp"):  # an 8-bit state's blocks that cross ranks
+            new_v, new_opt = optimizer.step(grads, state.opt_state, vparams, lr, fold_in(key, 1))
         new_params = commit_params(new_v, qparams, fold_in(key, 2))
         metrics = {"loss": loss, "grad_norm": grad_norm}
         return TrainState(new_params, new_opt, state.step + 1), metrics

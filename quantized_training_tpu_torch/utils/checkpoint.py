@@ -24,7 +24,10 @@ restoring run's layout, assembling a region from overlapping pieces where
 the layouts differ. Each rank's file suffices for its own shards; resume
 assumes the same ranks, the file-per-rank contract. A BitNet weight is
 saved without its mesh (``parallel.bitnet_fsdp_params`` puts the live one
-back).
+back). An 8-bit optimizer state's piece (its codes and block scales for the
+rank's slice of a parameter, ``parallel.FlatShard``) is saved as a box of
+its flat arrays laid out as (runs, ranks, run), and :func:`materialize`
+assembles JAX's flat global ``codes`` and ``scale`` from every rank's.
 """
 
 from __future__ import annotations
@@ -96,7 +99,7 @@ def _without_mesh(obj):
 
 
 def _sharded_leaf(t: torch.Tensor, spec) -> ShardedLeaf:
-    t = _to_cpu(t)
+    t = spec.piece(_to_cpu(t))
     return ShardedLeaf(spec.global_shape(t.shape), str(t.dtype).removeprefix("torch."),
                        [(spec.region(t.shape), t)])
 
@@ -127,9 +130,17 @@ def save_checkpoint(path: str | Path, payload: dict, *, shard_arrays=None) -> No
 def materialize(tree, device="cpu"):
     """A loaded tree with every tensor on ``device``, each
     :class:`ShardedLeaf` assembled into its full tensor (JAX :195-202;
-    ``ValueError`` where its pieces do not cover it)."""
-    return map_tensors(lambda t: (t.to_tensor() if isinstance(t, ShardedLeaf) else t).to(device), tree,
-                       is_leaf=_is_piece)
+    ``ValueError`` where its pieces do not cover it); an 8-bit state's
+    pieces into its global flat arrays."""
+    from ..optim.state8bit import OptimState8bit
+
+    def one(t):
+        if isinstance(t, OptimState8bit):
+            flat = t.map_tensors(lambda x: one(x).reshape(-1))
+            return dataclasses.replace(flat, shard=None)
+        return (t.to_tensor() if isinstance(t, ShardedLeaf) else t).to(device)
+
+    return map_tensors(one, tree, is_leaf=lambda t: _is_piece(t) or isinstance(t, OptimState8bit))
 
 
 def load_checkpoint(path: str | Path, device="cpu") -> dict:
@@ -159,7 +170,7 @@ def restore_sharded(tree, specs, device="cpu"):
             if data is None:
                 raise ValueError(f"missing shard {region} for restore — was the checkpoint saved under a "
                                  "different topology?")
-            return data.to(device)
+            return spec.unpiece(data).to(device)
         return spec.take(leaf).to(device)
 
     return map_tensors(conv, tree, specs, is_leaf=_is_piece)

@@ -253,6 +253,52 @@ def test_quantize_both_at_the_step_shapes(shape, sr):
     assert ops.launch_counts()["quantize_int8_both_sr" if sr else "quantize_int8_both"] == 1
 
 
+# the mesh forms' shapes: ragged ones, the first designs' cases (K1's rows
+# under 1024, B5's rows past 1024 vectors and too few rows for its parts),
+# and a rank's step shapes (x2d at local batch 1 x 2048; the Llama2-1B
+# weights' halves under fsdp 2; TP's row-parallel inputs over 2 ranks)
+MESH_FORM_SHAPES = [(1, 1), (3, 7), (64, 128), (130, 200), (3, 1030), (16, 8200), (2048, 2048), (2048, 5632),
+                    (1024, 2048), (128, 2048), (2816, 2048), (1024, 5632), (512, 1024), (512, 2816)]
+
+
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", MESH_FORM_SHAPES)
+def test_mesh_forms_bit_exact(shape, dtype, sr):
+    """K1's, B4's and B5's mesh forms: each maxima form gives the fp32 max
+    |x| exactly (B5's its row quantize too), K1's given form and the given
+    column cast (given larger maxima, as another rank's would make them)
+    their plain versions' int8 and scales bit for bit, RN and SR; one
+    launch each, under its own counter."""
+    x = _rand(shape, dtype, 17)
+    x[0] = 0
+    x[:, -1] = 0
+    kw = dict(sr=True, key=2**62 + 9) if sr else {}
+    t = "_sr" if sr else ""
+    ops.reset_launch_counts()
+    rows = IQ.quantize_int8_rowwise_maxima(x)
+    cols = IQ.quantize_int8_colwise_maxima(x)
+    q_row, s_row, both_cols = IQ.quantize_int8_both_maxima(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, IQ.quantize_int8_maxima_plain(x, -1))
+    assert torch.equal(cols, IQ.quantize_int8_maxima_plain(x, 0)) and torch.equal(both_cols, cols)
+    kr = dict(sr=True, key=ops.random.split(kw["key"])[0]) if sr else {}
+    for a, b in zip((q_row, s_row), ops.quantize_int8_plain(x, axis=1, **kr)):
+        assert torch.equal(a, b)
+    wide_rows, wide_cols = rows * 2, cols * 2  # larger maxima, as another rank's would give
+    for got, ref in ((IQ.quantize_int8_rowwise_given(x, wide_rows, **kw),
+                      ops.quantize_int8_plain(x, axis=-1, amax=wide_rows, **kw)),
+                     (IQ.quantize_int8_colwise_given(x, wide_cols, **kw),
+                      ops.quantize_int8_plain(x, axis=0, amax=wide_cols, **kw))):
+        torch.cuda.synchronize()
+        assert all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref))
+    n = ops.launch_counts()
+    for name in ("rowwise_maxima", "colwise_maxima"):
+        assert n[f"quantize_int8_{name}"] == 1
+    for name in ("both_maxima", "rowwise_given", "colwise_given"):
+        assert n[f"quantize_int8_{name}{t}"] == 1
+
+
 def test_quantize_colwise_and_both_unaligned_view():
     """A view starting off a 16-byte boundary takes the scalar loops."""
     base = _rand((9, 512), torch.bfloat16, 4).reshape(-1)

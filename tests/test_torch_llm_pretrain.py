@@ -261,6 +261,23 @@ def test_unported_options_raise(tmp_path):
         llm_evaluate.main(["--tasks", "nope", "--cpu"])
 
 
+def test_mesh_takes_the_8bit_state_and_prequant(tmp_path, monkeypatch):
+    """``llm_pretrain --mesh '{"fsdp": 2}'`` with ``schedule_free_adamw_8bit``
+    (each rank's 8-bit state the blocks of its parameter slice) under
+    ``QT_PREQUANT=both`` (each rank's views of its weight shards), which the
+    port refused under fsdp, on two gloo ranks: a file a rank, and losses
+    within JAX's sharded bound (0.05) of the one-process run with the same
+    optimizer and mode."""
+    monkeypatch.setenv("QT_PREQUANT", "both")
+    common = _common(tmp_path, "mixed_precision", "schedule_free_adamw_8bit")
+    plain = _losses(llm_pretrain.main([*common, "--n_steps", "3", "--run_name", "plain"])["save_dir"])
+    _ranks([*common, "--mesh", '{"fsdp": 2}', "--n_steps", "3", "--ckpt_interval", "3", "--run_name", "mesh"])
+    run = next((tmp_path / "runs").glob("*_mesh"))
+    meshed = _losses(run)
+    assert sorted(meshed) == [1, 2, 3] and max(abs(meshed[s] - plain[s]) for s in meshed) < 0.05, (meshed, plain)
+    assert sorted(p.name for p in run.glob("last_*.pkl")) == ["last_0.pkl", "last_1.pkl"]
+
+
 def test_drivers_refuse_to_run_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -167,3 +167,113 @@ def test_bitnet_fsdp_params_routes_only_above_one():
     off = parallel.bitnet_fsdp_params(params, rank_mesh({"data": 2}, 0))
     assert on["layers"]["q"]["w"].mesh.shape["fsdp"] == 2 and off["layers"]["q"]["w"].mesh is None
     assert parallel.bitnet_fsdp_params(on, None)["layers"]["q"]["w"].mesh is None
+
+
+# ---- the 8-bit optimizer state, int4 weights and the views under a mesh -----
+
+
+def _filled_8bit(shape, seed: int = 0):
+    """An 8-bit state of ``shape`` holding a random second moment."""
+    from quantized_training_tpu_torch.optim import OptimState8bit
+
+    g = torch.Generator().manual_seed(seed)
+    return OptimState8bit.zeros(shape).requantize(torch.rand(shape, generator=g) * 1e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 128), (2, 128, 256), (256, 128)])
+@pytest.mark.parametrize("fsdp", [2, 4])
+def test_8bit_state_pieces_are_the_global_blocks(shape, fsdp):
+    """A rank's piece of an 8-bit state (``shard_state``) dequantizes to its
+    slice of the global state, its requantize of a new slice gives the
+    global requantize's codes and scales of that piece bit for bit (the
+    blocks lie whole in one rank's runs), and every rank's checkpointed
+    pieces materialize into the global flat codes and scales."""
+    from quantized_training_tpu_torch.utils import checkpoint
+
+    st = _filled_8bit(shape)
+    new = torch.rand(shape, generator=torch.Generator().manual_seed(1)) * 1e-3
+    global_next = st.requantize(new)
+    saved = []
+    for r in range(fsdp):
+        mesh = rank_mesh({"fsdp": fsdp}, r)
+        (piece,), specs = parallel.shard_state([st], mesh)
+        dim = parallel.param_spec(shape, mesh)
+        mine = lambda t: t.chunk(fsdp, dim)[r]  # noqa: E731
+        assert piece.shard.dim == dim and piece.local_shape == tuple(mine(new).shape)
+        assert torch.equal(piece.dequantize(), mine(st.dequantize()))
+        nxt = piece.requantize(mine(new))
+        assert torch.equal(nxt.codes, specs[0].codes.take(global_next.codes))
+        assert torch.equal(nxt.scale, specs[0].scale.take(global_next.scale))
+        saved.append(map_tensors(checkpoint._sharded_leaf, [piece], specs))
+    merged = map_tensors(lambda a, *rest: checkpoint.ShardedLeaf(a.global_shape, a.dtype,
+                                                                 [p for l in (a, *rest) for p in l.shards]),
+                         *saved, is_leaf=lambda t: isinstance(t, checkpoint.ShardedLeaf))
+    (full,) = checkpoint.materialize(merged)
+    assert full.shard is None and torch.equal(full.codes, st.codes) and torch.equal(full.scale, st.scale)
+
+
+def test_8bit_state_pieces_where_blocks_cross_ranks():
+    """[2, 8, 96] split on dim 1 over fsdp 4: a rank's runs of 192
+    elements end inside the blocks of 256. Each rank keeps its elements'
+    codes and every block's scale: its piece dequantizes to its slice of
+    the global state bit for bit, every rank's checkpointed pieces
+    materialize into the global codes and scales, and a requantize outside
+    the span that all-reduces the blocks' maxima is refused (the 4-rank
+    requantize: tests/test_torch_parallel_ranks.py)."""
+    from quantized_training_tpu_torch.utils import checkpoint
+
+    shape, fsdp = (2, 8, 96), 4
+    st = _filled_8bit(shape)
+    saved = []
+    for r in range(fsdp):
+        (piece,), specs = parallel.shard_state([st], rank_mesh({"fsdp": fsdp}, r))
+        assert piece.straddles and torch.equal(piece.scale, st.scale)
+        assert torch.equal(piece.dequantize(), st.dequantize().chunk(fsdp, 1)[r])
+        saved.append(map_tensors(checkpoint._sharded_leaf, [piece], specs))
+        with pytest.raises(RuntimeError, match="span 'blocks'"):
+            piece.requantize(piece.dequantize())
+    merged = map_tensors(lambda a, *rest: checkpoint.ShardedLeaf(a.global_shape, a.dtype,
+                                                                 [p for l in (a, *rest) for p in l.shards]),
+                         *saved, is_leaf=lambda t: isinstance(t, checkpoint.ShardedLeaf))
+    (full,) = checkpoint.materialize(merged)
+    assert torch.equal(full.codes, st.codes) and torch.equal(full.scale, st.scale)
+
+
+@pytest.mark.parametrize("name,sliced", [("q", (slice(None), slice(32, 64), slice(None))),
+                                         ("o", (slice(None), slice(None), slice(64, 128)))])
+def test_int4_weights_split_by_their_matrix(name, sliced):
+    """An int4 weight-only weight under {"model": 4} (rank 1): a
+    column-parallel weight by whole rows, a row-parallel one by K blocks of
+    every row; the rank's weight dequantizes to its slice of the global
+    dequantized matrix bit for bit, with its ``mat_shape`` in the weight and
+    in the layout; a group that a rank's share would cut is refused."""
+    from quantized_training_tpu_torch.quant.int4 import Int4Weight
+
+    w = Int4Weight.from_float(torch.randn(2, 128, 256, generator=torch.Generator().manual_seed(0)).bfloat16())
+    p, specs = parallel.shard_params_tp({"layers": {name: {"w": w}}}, rank_mesh({"model": 4}, 1))
+    mine = p["layers"][name]["w"]
+    assert torch.equal(mine.dequantize(), w.dequantize()[sliced])
+    assert mine.mat_shape == specs["layers"][name]["w"].mat_shape == tuple(w.dequantize()[sliced].shape[1:])
+    odd = Int4Weight.from_float(torch.randn(2, 128, 64).bfloat16(), group_size=32)
+    with pytest.raises(ValueError, match="inside a group"):
+        parallel.shard_params_tp({"layers": {"o": {"w": odd}}}, rank_mesh({"model": 4}, 0))
+
+
+def test_prequant_specs_gather_each_view_with_its_weight():
+    """The layout of the pre-quantized views of a weight split on its rows
+    (dim 1): the master, both int8 views and the row scales split as the
+    master, the column scales whole; split on its columns (dim 2) the row
+    scales whole; the 0-sized placeholders of a one-view mode whole."""
+    from quantized_training_tpu_torch.parallel.fsdp import prequant_specs
+    from quantized_training_tpu_torch.parallel.mesh import Shard
+    from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight, prequantize_weight
+
+    w = MixedPrecisionWeight(torch.randn(2, 16, 32).bfloat16(), quant.MixedPrecisionConfig())
+    for dim, whole in ((1, "col_s"), (2, "row_s")):
+        spec = {"w": MixedPrecisionWeight(Shard(dim, 0, 2), w.config)}
+        views = prequant_specs({"w": prequantize_weight(w)}, spec)["w"]
+        for f in ("orig", "row_q", "row_s", "col_q", "col_s"):
+            assert getattr(views, f).dim == (None if f == whole else dim), (dim, f)
+    views = prequant_specs({"w": prequantize_weight(w, mode="row")}, {"w": MixedPrecisionWeight(Shard(1, 0, 2),
+                                                                                                 w.config)})["w"]
+    assert views.col_q.dim is None and views.col_s.dim is None and views.row_q.dim == 1

@@ -6,24 +6,28 @@ One spawn of 4 ranks (``tests/torch_rank_worker.py``) runs every part
 (TINY Llama of tests/test_parallel.py: 2 layers, hidden 128, batch 8 x
 32, lr 1e-3): 3 ``mixed_precision`` steps with ``adamw_bf16_sr(
 bf16_stochastic_rounding=False)`` under ``{"data": 4}``, ``{"fsdp": 4}``
-and ``{"data": 2, "fsdp": 2}``, held to JAX's sharded step by JAX's own
-bound for sharded against one device (|dloss| < 0.05,
-tests/test_parallel.py:70-86), and by their pre-clip grad norms, which see
-a gradient's scale where AdamW does not; the same at 2 x 2 with a clip that
-clips, and 2 BitNet FSDP steps; the bf16 step against the port's
-one-process step (loss, grad norm and the final state's shards);
-``bitnet_fsdp_linear`` against JAX's (forward 1e-3, grads rtol 1e-4 /
-atol 1e-5, tests/test_parallel.py:91-128); TP prefill logits at
-``{"model": 4}`` against JAX's TP (rtol = atol = 0.05, :159-186, :279-323)
-on bf16, int8 storage and packed BitNet; the sharded resume bit for bit per
-rank (tests/test_multiprocess.py's contract); ``benchmark_collectives``. A
-second spawn of one rank holds the world-1 mesh step to the no-mesh step
-bit for bit. Each spawn has its own timeout, so a hang fails the test.
-
-A port rank quantizes over its own tokens (the reference's DDP and FSDP2
-do too), where JAX's partitioned program takes column maxima over the
-global batch: the mixed-precision losses differ from JAX's by that
-departure (printed; ROADMAP C), inside JAX's bound.
+and ``{"data": 2, "fsdp": 2}``, held to JAX's sharded step by loss and by
+pre-clip grad norm, which sees a gradient's scale where AdamW does not
+(MP_LOSS_BOUND, MP_NORM_RTOL, FIRST_NORM_RTOL: every quantization maximum
+now spans the mesh's axes, as in JAX's partitioned program; JAX's own
+bound for sharded against one device is |dloss| < 0.05,
+tests/test_parallel.py:70-86); the same at 2 x 2 with a clip that clips,
+and 2 BitNet FSDP steps; the bf16 step against the port's one-process step
+(loss, grad norm and the final state's shards); ``bitnet_fsdp_linear``
+against JAX's (forward 1e-3, grads rtol 1e-4 / atol 1e-5,
+tests/test_parallel.py:91-128); TP prefill logits at ``{"model": 4}``
+against JAX's TP (rtol = atol = 0.05, :159-186, :279-323, and each
+scheme's TP_LOGIT_GAP) on bf16, int8 storage (weight-only and with int8
+activations), packed BitNet (with and without its o and down norms), int4
+weight-only and ``mixed_precision``; the sharded resume bit for bit per
+rank (tests/test_multiprocess.py's contract); ``benchmark_collectives``;
+the C5 pins (B5's, B4's and K1's mesh forms and the fused ops' column
+forms give a rank its rows of the one-process quantize of the global
+tensor, bit for bit); schedule-free with the 8-bit state under fsdp
+against the port's one process and JAX's sharded step; ``QT_PREQUANT``
+under fsdp equal to the default mesh step bit for bit. A second spawn of
+one rank holds the world-1 mesh step to the no-mesh step bit for bit.
+Each spawn has its own timeout, so a hang fails the test.
 """
 
 import os
@@ -49,7 +53,8 @@ from quantized_training_tpu.train import init_train_state, make_train_step
 from quantized_training_tpu_torch import optim, quant, train
 from quantized_training_tpu_torch.convert import params_from_jax
 from quantized_training_tpu_torch.models import llama
-from quantized_training_tpu_torch.utils.tree import map_tensors
+from quantized_training_tpu_torch.models import llama_infer
+from quantized_training_tpu_torch.utils.tree import map_tensors, tree_leaves
 
 torch.set_num_threads(1)
 
@@ -64,7 +69,17 @@ CLIP = 0.1  # the clipped run's clip_grad_norm, below every step's norm
 # divided by data x fsdp, or a replicated leaf's square summed once a rank
 # moves the pre-clip norm by sqrt(2) or more; AdamW's update does not see
 # such a scale, so the loss bounds cannot.
-NORM_RTOL = 1e-2  # against JAX's sharded step (the ranks' own quantization maxima: ROADMAP C5)
+NORM_RTOL = 1e-2  # BitNet's FSDP step against JAX's sharded step (3.9e-3 measured)
+# The mixed-precision steps against JAX's sharded step, now that every
+# quantization maximum spans the mesh (C5): loss 5.8e-5-7.1e-4 and grad norm
+# 2.9e-5-8.6e-4 measured over 3 steps (before: 5.8e-5-4.8e-4, 3.0e-4-1.1e-3;
+# the loss from the second step on is AdamW moving weights near a zero
+# gradient apart, which C5 does not touch); the first step's grad norm,
+# before AdamW moves anything, 7.8e-5-8.8e-5 (before: 3.6e-4-3.7e-4, the
+# ranks' own column maxima), left to the port's one-process gap to JAX
+MP_LOSS_BOUND = 2e-3
+MP_NORM_RTOL = 2e-3
+FIRST_NORM_RTOL = 1.5e-4
 BF16_NORM_RTOL = 1e-3  # bf16 mesh step against the port's one-process step
 # AdamW's bf16 moments there: sum |gap| over sum |moment| a leaf (1.2e-2
 # measured, a few bf16 ulps of 2^-8; a shard built from the wrong gradient
@@ -74,6 +89,19 @@ MOMENT_RTOL = 5e-2
 # its sign between the two runs: 2 LR a step, over 3 steps
 PARAM_ATOL = 2 * 3 * LR
 SPAWN_TIMEOUT = 120  # seconds a spawn may take before it fails
+# provisional, replaced by the measured bounds below
+# each scheme's largest TP logit gap to JAX's TP at {"model": 4} (measured:
+# 6.8e-3, 6.3e-3, 1.17e-2, 7.8e-3, 7.6e-3, 1.17e-2, 1.76e-2; bf16 logits
+# near 1, whose ulp is 3.9e-3: int8 activations and mixed_precision sum the
+# row-parallel partial outputs rounded to bf16, BitNet meets int8 KV ties)
+TP_LOGIT_GAP = {"bf16": 1e-2, "int8_storage": 1e-2, "int8_activations": 1.6e-2, "bitnet_packed": 1.2e-2,
+                "int4_weight_only": 1.2e-2, "mixed_precision": 1.6e-2, "bitnet_norms": 2.5e-2}
+# the 8-bit state after a step against the port's one-process run's
+# (measured: 0.75-0.99 of the codes agree, 5 steps at most) and after three
+# against JAX's (dequantized L1 gap 0.018-0.028, as one process's to JAX's)
+SF8_AGREE = 0.6
+SF8_STEPS = 8
+SF8_L1_JAX = 0.05
 
 
 def _free_port() -> int:
@@ -118,13 +146,36 @@ def _batches(n: int = 5):
     return out
 
 
+def _packed(params):
+    return jax.tree.map(lambda x: jquant.BitNetPackedWeight.from_weight(x.data)
+                        if isinstance(x, jquant.BitNetWeight) else x,
+                        jquant.quantize_params(params, "bitnet"), is_leaf=jquant.is_quant_weight)
+
+
+TP_BITNET = ("bitnet_norms",)  # the schemes whose model has BitNet's o_norm and down_norm
+TP_SCHEMES = ["bf16", "int8_storage", "int8_activations", "bitnet_packed", "int4_weight_only", "mixed_precision",
+              "bitnet_norms"]
+
+
 def _tp_params(cfg):
     params = jllama.init_params(jax.random.PRNGKey(0), cfg)
-    packed = jax.tree.map(lambda x: jquant.BitNetPackedWeight.from_weight(x.data)
-                          if isinstance(x, jquant.BitNetWeight) else x,
-                          jquant.quantize_params(params, "bitnet"), is_leaf=jquant.is_quant_weight)
+    bitnet = jllama.init_params(jax.random.PRNGKey(0), jllama.LlamaConfig(**{**TP_CFG, "bitnet": True}))
     return {"bf16": params, "int8_storage": jquant.quantize_params(params, "int8_quantized_training"),
-            "bitnet_packed": packed}
+            "int8_activations": jquant.quantize_params(params, "int8_quantized_training", activation="int8"),
+            "bitnet_packed": _packed(params), "int4_weight_only": jquant.quantize_params(params, "int4_weight_only"),
+            "mixed_precision": jquant.quantize_params(params, "mixed_precision"), "bitnet_norms": _packed(bitnet)}
+
+
+def _fused_inputs() -> dict:
+    """The fused ops' inputs at the small Llama's width (hidden 128): 1,024
+    tokens, so that each of 4 ranks holds 256 (B14 needs a multiple of 256),
+    and the grouped attention output [8, 1, 2, 128, 64]."""
+    rng = np.random.default_rng(26)
+    f = {k: rng.standard_normal((1024, 128)).astype(np.float32) for k in ("x", "gate", "up", "cot")}
+    f.update({k: (rng.standard_normal((128, 128)) * 0.05).astype(np.float32) for k in ("wq", "wk", "wv", "wd")})
+    f["gamma"] = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    f["out_g"] = rng.standard_normal((8, 1, 2, 128, 64)).astype(np.float32)
+    return f
 
 
 @pytest.fixture(scope="module")
@@ -138,7 +189,10 @@ def ranks(tmp_path_factory):
                bitnet_x=np.asarray(jax.random.normal(kx, (16, 64), jnp.float32)),
                bitnet_w=np.asarray(jax.random.normal(kw, (32, 64), jnp.float32) * 0.05),
                prompt=np.asarray(jax.random.randint(jax.random.PRNGKey(1), (2, 16), 0, 256, jnp.int32)),
-               tp_params={k: _np(v) for k, v in _tp_params(jllama.LlamaConfig(**TP_CFG)).items()})
+               tp_params={k: _np(v) for k, v in _tp_params(jllama.LlamaConfig(**TP_CFG)).items()},
+               tp_bitnet=TP_BITNET, fused=_fused_inputs(),
+               pin_x=np.random.default_rng(5).standard_normal((64, 256)).astype(np.float32),
+               state8_x=[np.random.default_rng(s).random((2, 8, 96)).astype(np.float32) * 1e-3 for s in (6, 7)])
     out = {}
     for world in (4, 1):
         workdir = tmp_path_factory.mktemp(f"world{world}")
@@ -148,11 +202,14 @@ def ranks(tmp_path_factory):
     return inp, out
 
 
-def _jax_sharded_run(inp, axes, scheme="mixed_precision", n=3, clip=None, bitnet=False):
-    """JAX's sharded step on JAX's virtual devices: {"losses", "grad_norms"}."""
+def _jax_sharded_run(inp, axes, scheme="mixed_precision", n=3, clip=None, bitnet=False, opt=None,
+                     with_state=False):
+    """JAX's sharded step on JAX's virtual devices: {"losses", "grad_norms"}
+    (and the final state, with ``with_state``); ``opt`` AdamW with bf16
+    moments, no SR, by default."""
     cfg = jllama.LlamaConfig(**TINY, bitnet=bitnet)
     params = jllama.init_params(jax.random.PRNGKey(0), cfg)
-    opt = joptim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    opt = opt or joptim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     mesh = make_mesh(axes)
     qparams = jquant.quantize_params(params, scheme)
     if bitnet:
@@ -165,7 +222,7 @@ def _jax_sharded_run(inp, axes, scheme="mixed_precision", n=3, clip=None, bitnet
         state, m = step(state, tok, lab, LR, jax.random.PRNGKey(i))
         out["losses"].append(float(m["loss"]))
         out["grad_norms"].append(float(m["grad_norm"]))
-    return out
+    return (out, state) if with_state else out
 
 
 def _rel_gap(got, ref) -> list:
@@ -183,33 +240,35 @@ def _same_on_every_rank(runs) -> dict:
 @pytest.mark.parametrize("name", list(MESHES))
 def test_sharded_steps_vs_jax(ranks, name):
     """DP, FSDP and 2 x 2: every rank reports the same global loss and grad
-    norm; the loss within 0.05 of JAX's sharded step at each of 3 steps
-    (JAX's bound), the pre-clip grad norm within rtol NORM_RTOL of JAX's
-    (the norm sees a gradient counted twice, or not divided by data x
-    fsdp, which AdamW's update and so the loss do not); gaps printed."""
+    norm; the loss within MP_LOSS_BOUND of JAX's sharded step at each of 3
+    steps (JAX's own bound is 0.05), the pre-clip grad norm within rtol
+    MP_NORM_RTOL of JAX's (the norm sees a gradient counted twice, or not
+    divided by data x fsdp, which AdamW's update and so the loss do not),
+    and the first step's within FIRST_NORM_RTOL (the column maxima over
+    the global batch, C5); gaps printed."""
     inp, out = ranks
     got = _same_on_every_rank([o[f"train/{name}"] for o in out[4]])
     ref = _jax_sharded_run(inp, MESHES[name])
     gap, norm_gap = [abs(a - b) for a, b in zip(got["losses"], ref["losses"])], _rel_gap(got["grad_norms"],
                                                                                            ref["grad_norms"])
     print(f"{name}: port {got} JAX {ref} loss gap {gap} grad-norm relative gap {norm_gap}")
-    assert max(gap) < 0.05, (got, ref)
-    assert max(norm_gap) < NORM_RTOL, (got, ref)
+    assert max(gap) < MP_LOSS_BOUND, (got, ref)
+    assert max(norm_gap) < MP_NORM_RTOL and norm_gap[0] < FIRST_NORM_RTOL, (got, ref)
     assert got["losses"][2] < got["losses"][0]
 
 
 def test_clipped_sharded_step_vs_jax(ranks):
     """data 2 x fsdp 2 with clip_grad_norm CLIP below every step's norm:
     the pre-clip norm and the loss held to JAX's clipped sharded step as
-    above."""
+    above (MP_LOSS_BOUND, MP_NORM_RTOL, FIRST_NORM_RTOL)."""
     inp, out = ranks
     got = _same_on_every_rank([o["train/clip"] for o in out[4]])
     ref = _jax_sharded_run(inp, MESHES["2x2"], clip=CLIP)
     norm_gap = _rel_gap(got["grad_norms"], ref["grad_norms"])
     print(f"clip {CLIP}: port {got} JAX {ref} grad-norm relative gap {norm_gap}")
     assert min(got["grad_norms"]) > CLIP
-    assert max(abs(a - b) for a, b in zip(got["losses"], ref["losses"])) < 0.05, (got, ref)
-    assert max(norm_gap) < NORM_RTOL, (got, ref)
+    assert max(abs(a - b) for a, b in zip(got["losses"], ref["losses"])) < MP_LOSS_BOUND, (got, ref)
+    assert max(norm_gap) < MP_NORM_RTOL and norm_gap[0] < FIRST_NORM_RTOL, (got, ref)
 
 
 def test_replicated_state_is_identical_across_ranks(ranks):
@@ -235,6 +294,21 @@ def _leaves(state) -> list:
     return out
 
 
+def _port_one_process(inp, opt, scheme=None, n=3):
+    """The port's one-process step on the global batches: (state, {"losses",
+    "grad_norms"})."""
+    cfg = llama.LlamaConfig(**TINY)
+    state = train.init_train_state(quant.quantize_params(params_from_jax(inp["params"]), scheme), opt)
+    step = train.make_train_step(cfg, opt)
+    ref = dict(losses=[], grad_norms=[])
+    for i in range(n):
+        tok, lab = (torch.from_numpy(x) for x in inp["batches"][i])
+        state, m = step(state, tok, lab, LR, 1000 + i)
+        ref["losses"].append(float(m["loss"]))
+        ref["grad_norms"].append(float(m["grad_norm"]))
+    return state, ref
+
+
 def test_bf16_step_vs_one_process(ranks):
     """The bf16 step at data 2 x fsdp 2 against the port's one-process step
     on the global batch (the same numerics, summed in another order):
@@ -243,16 +317,7 @@ def test_bf16_step_vs_one_process(ranks):
     AdamW moment leaf within MOMENT_RTOL of its magnitude, each parameter
     within PARAM_ATOL."""
     inp, out = ranks
-    cfg = llama.LlamaConfig(**TINY)
-    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
-    state = train.init_train_state(params_from_jax(inp["params"]), opt)
-    step = train.make_train_step(cfg, opt)
-    ref = dict(losses=[], grad_norms=[])
-    for i in range(3):
-        tok, lab = (torch.from_numpy(x) for x in inp["batches"][i])
-        state, m = step(state, tok, lab, LR, 1000 + i)
-        ref["losses"].append(float(m["loss"]))
-        ref["grad_norms"].append(float(m["grad_norm"]))
+    state, ref = _port_one_process(inp, optim.adamw_bf16_sr(bf16_stochastic_rounding=False))
     got = _same_on_every_rank([o["train/bf16"] for o in out[4]])
     norm_gap = _rel_gap(got["grad_norms"], ref["grad_norms"])
     param_gap, moment_gap = [], []
@@ -318,13 +383,18 @@ def test_bitnet_fsdp_linear_vs_jax(ranks):
         np.testing.assert_allclose(o["bitnet"]["gw"], np.split(gw_ref, 2)[f], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("scheme", ["bf16", "int8_storage", "bitnet_packed"])
+@pytest.mark.parametrize("scheme", TP_SCHEMES)
 def test_tp_prefill_vs_jax(ranks, scheme):
     """TP prefill logits at {"model": 4} within rtol = atol = 0.05 of JAX's
-    TP, the same on every rank; greedy tokens agree with JAX's TP decode
-    at 90% or more (argmax ties aside)."""
+    TP, the same on every rank, and their largest gap within
+    ``TP_LOGIT_GAP`` (the quantizes of o's and down's inputs take the global
+    row's maxima; BitNet's norms sum their squares over ``model``); greedy
+    tokens agree with JAX's TP decode at 90% or more (argmax ties aside),
+    and with BitNet's norms at least as well as the port's one-process
+    decode does (ternary products meet int8 KV ties there: the port and JAX
+    part at near-ties whatever the mesh)."""
     inp, out = ranks
-    cfg = jllama.LlamaConfig(**TP_CFG)
+    cfg = jllama.LlamaConfig(**TP_CFG, bitnet=scheme in TP_BITNET)
     params = _tp_params(cfg)[scheme]
     mesh = make_mesh({"model": 4})
     p_tp = shard_params_tp(params, mesh)
@@ -335,8 +405,16 @@ def test_tp_prefill_vs_jax(ranks, scheme):
     for o in out[4]:
         np.testing.assert_allclose(o[f"tp/{scheme}"]["logits"], ref, rtol=0.05, atol=0.05)
         assert np.array_equal(o[f"tp/{scheme}"]["toks"], out[4][0][f"tp/{scheme}"]["toks"])
+    gap = float(np.abs(out[4][0][f"tp/{scheme}"]["logits"] - ref).max())
+    print(f"tp {scheme}: largest logit gap to JAX's TP {gap:.3e} (of max |logit| {np.abs(ref).max():.3e})")
+    assert gap < TP_LOGIT_GAP[scheme], gap
     agree = (out[4][0][f"tp/{scheme}"]["toks"] == toks).mean()
-    assert agree > 0.9, agree
+    if scheme in TP_BITNET:
+        one = llama_infer.generate(params_from_jax(_np(params)), torch.from_numpy(inp["prompt"]),
+                                   llama.LlamaConfig(**TP_CFG, bitnet=True), 8).numpy()
+        assert agree >= (one == toks).mean(), (agree, (one == toks).mean())
+    else:
+        assert agree > 0.9, agree
 
 
 def test_sharded_resume_bit_for_bit(ranks):
@@ -377,3 +455,178 @@ def test_benchmark_collectives_runs(ranks):
     for o in out[4]:
         assert set(o["collectives"]) == {"psum_GiBps", "all_gather_GiBps", "psum_scatter_GiBps"}
         assert all(v > 0 for v in o["collectives"].values())
+
+
+# ---- C5: the maxima over the axes the mesh splits ---------------------------
+
+
+def _rows(ref: np.ndarray, index: int, count: int = 4) -> np.ndarray:
+    """Block ``index`` of ``count`` of ``ref``'s rows, or ``ref`` itself for
+    a scale row [1, K]."""
+    ref = ref.reshape(-1, ref.shape[-1])
+    return ref if ref.shape[0] == 1 else np.split(ref, count)[index]
+
+
+@pytest.mark.parametrize("name", ["data", "fsdp"])
+@pytest.mark.parametrize("form", ["both", "cols"])
+def test_c5_pin_b5_b4_mesh_forms(ranks, name, form):
+    """Under {"data": 4} / {"fsdp": 4}, inside the train step's token span:
+    each rank's int8 values and scales from B5's (``quantize_int8_both``
+    with ``cols_over="tokens"``) and B4's (``quantize_int8(axis=0,
+    over="tokens")``) mesh forms are its rows of the one-process quantize
+    of the global tensor, and its column scales the global ones, bit for bit
+    at round-to-nearest. The rank's own maxima would differ: the pin bites."""
+    inp, out = ranks
+    x = torch.from_numpy(inp["pin_x"]).to(torch.bfloat16)
+    ref = quant.core.quantize_int8_both(x) if form == "both" else quant.core.quantize_int8(x, axis=0)
+    ref = [a.float().numpy() for a in ref]
+    for o in out[4]:
+        pin = o[f"pin/{name}"]
+        for got, r in zip(pin[form], ref):
+            assert np.array_equal(got.reshape(-1, r.shape[-1]), _rows(r, pin["dp_index"]))
+        local = quant.core.quantize_int8(x.chunk(4)[pin["dp_index"]], axis=0)[1].float().numpy()
+        assert not np.array_equal(local, ref[-1])
+
+
+@pytest.fixture(scope="module")
+def fused_ref(ranks):
+    """The fused ops' column forms on the global inputs, in one process."""
+    import torch_rank_worker
+
+    return torch_rank_worker.fused_columns(ranks[0]["fused"])
+
+
+@pytest.mark.parametrize("name", ["data", "fsdp"])
+@pytest.mark.parametrize("op", ["norm_linear_multi", "silu_mul_linear", "mlp_linear", "attn_out_linear"])
+def test_c5_pin_fused_column_forms(ranks, fused_ref, name, op):
+    """The fused ops of the small Llama's width forward and backward on a
+    rank's 256 of 1,024 tokens ('interpret', inside the token span): every
+    column form their backward reaches (B5's column half, B8, B9-col, B12
+    with its given scales, B14 along columns with its given scales) gives
+    the rank's rows of the one-process run's int8 and the global column
+    scales, bit for bit."""
+    _, out = ranks
+    ref = fused_ref[op]
+    assert ref, op
+    for o in out[4]:
+        pin = o[f"pin/{name}"]
+        got = pin["fused"][op]
+        assert [n for n, _ in got] == [n for n, _ in ref]
+        for (form, g), (_, r) in zip(got, ref):
+            for a, b in zip(g, r):
+                assert np.array_equal(a.reshape(-1, b.shape[-1]), _rows(b, pin["dp_index"])), (op, form)
+
+
+def test_c5_pin_tp_row_scales(ranks):
+    """At {"model": 4}, inside a row-parallel linear's span: K1's mesh forms
+    on a rank's 64 of 256 columns give the one-process row scales and the
+    rank's columns of its int8, bit for bit."""
+    inp, out = ranks
+    q, s = quant.core.quantize_int8(torch.from_numpy(inp["pin_x"]).to(torch.bfloat16), axis=-1)
+    for o in out[4]:
+        pin = o["pin/model"]
+        assert np.array_equal(pin["s"], s.float().numpy())
+        assert np.array_equal(pin["q"], q.chunk(4, 1)[pin["coord"]].numpy())
+
+
+# ---- the configurations the port refused under a mesh ------------------------
+
+
+def _merged(states: list):
+    """The global tree from every rank's checkpointed pieces."""
+    from quantized_training_tpu_torch.utils import checkpoint
+
+    def merge(first, *rest):
+        if not isinstance(first, checkpoint.ShardedLeaf):
+            return first
+        return checkpoint.ShardedLeaf(first.global_shape, first.dtype, [p for l in (first, *rest) for p in l.shards])
+
+    return checkpoint.materialize(map_tensors(merge, states[0], *states[1:],
+                                              is_leaf=lambda t: isinstance(t, (checkpoint.ShardedLeaf, torch.Tensor))))
+
+
+def _codes_gap(mine, theirs) -> tuple[list, list, list]:
+    """Leaf by leaf: the share of codes that agree, the largest difference
+    in codebook steps, and sum |a - b| / sum |b| of the dequantized states."""
+    agree, steps, l1 = [], [], []
+    for a, b in zip(mine, theirs):
+        codes, other = a.codes.numpy().astype(np.int32), np.asarray(b.codes).astype(np.int32)
+        da, db = a.dequantize().numpy(), np.asarray(b.dequantize())
+        agree.append(float((codes == other).mean()))
+        steps.append(int(np.abs(codes - other).max()))
+        l1.append(float(np.abs(da - db).sum() / np.abs(db).sum()))
+    return agree, steps, l1
+
+
+@pytest.mark.parametrize("name", ["fsdp", "2x2"])
+def test_schedule_free_8bit_state_sharded_vs_jax(ranks, name):
+    """Schedule-free with the 8-bit ``exp_avg_sq`` under {"fsdp": 4} and
+    data 2 x fsdp 2 (JAX refuses nothing there; the port used to): losses
+    within MP_LOSS_BOUND of JAX's sharded step, grad norms within
+    MP_NORM_RTOL (the first step's within FIRST_NORM_RTOL); the
+    global state that ``materialize`` assembles from every rank's
+    checkpoint, in JAX's flat order and shapes: after the first step
+    against the port's one-process run's (codes that agree at SF8_AGREE or
+    more, within SF8_STEPS codebook steps: only the rounding of the
+    gradients' sums over the ranks differs; later steps also move weights
+    near a zero gradient apart), after the third against JAX's sharded
+    step's (the dequantized states within SF8_L1_JAX, as the port's
+    one-process run is of JAX's one device: JAX's elementwise gradients
+    round differently)."""
+    from quantized_training_tpu.optim.state8bit import OptimState8bit as JState8bit
+    from quantized_training_tpu_torch.optim import OptimState8bit
+    from quantized_training_tpu_torch.utils import checkpoint
+
+    inp, out = ranks
+    got = _same_on_every_rank([o[f"sf8/{name}"] for o in out[4]])
+    ref, jstate = _jax_sharded_run(inp, MESHES[name], opt=joptim.get_optimizer("schedule_free_adamw_8bit"),
+                                   with_state=True)
+    one, one_run = _port_one_process(inp, optim.get_optimizer("schedule_free_adamw_8bit"), "mixed_precision", n=1)
+    norm_gap = _rel_gap(got["grad_norms"], ref["grad_norms"])
+    first, last = (_merged([checkpoint.load_checkpoint(o[f"sf8/{name}"]["paths"][w])["state"] for o in out[4]])
+                   for w in ("first", "last"))
+    is8 = lambda t: isinstance(t, (OptimState8bit, JState8bit))  # noqa: E731
+    first, single, last, theirs = ([l for l in leaves if is8(l)] for leaves in (
+        tree_leaves(first.opt_state.exp_avg_sq, is_leaf=is8), tree_leaves(one.opt_state.exp_avg_sq, is_leaf=is8),
+        tree_leaves(last.opt_state.exp_avg_sq, is_leaf=is8), jax.tree.leaves(jstate.opt_state.exp_avg_sq, is_leaf=is8)))
+    assert last and len(first) == len(single) == len(last) == len(theirs)
+    for a, b in zip(last, theirs):
+        assert a.shard is None and tuple(a.shape) == tuple(b.shape) and a.codes.shape == b.codes.shape
+    agree, steps, _ = _codes_gap(first, single)
+    _, _, l1 = _codes_gap(last, theirs)
+    print(f"sf8 {name}: port {got} JAX {ref} grad-norm gap to JAX {norm_gap}; after a step against one process "
+          f"(loss {one_run['losses']}): codes agreeing a leaf {agree}, largest step {steps}; after three, the "
+          f"dequantized L1 gap to JAX {l1}")
+    assert max(abs(a - b) for a, b in zip(got["losses"], ref["losses"])) < MP_LOSS_BOUND, (got, ref)
+    assert max(norm_gap) < MP_NORM_RTOL and norm_gap[0] < FIRST_NORM_RTOL, (got, ref)
+    assert min(agree) >= SF8_AGREE and max(steps) <= SF8_STEPS, (agree, steps)
+    assert max(l1) <= SF8_L1_JAX, l1
+
+
+def test_8bit_state_blocks_across_ranks(ranks):
+    """An 8-bit state [2, 8, 96] under {"fsdp": 4}, whose ranks' runs of
+    192 elements end inside the blocks of 256: each rank's requantize
+    (each block's maximum over its elements, all-reduced over fsdp) gives
+    the global requantize's scales and its elements' codes, bit for bit."""
+    from quantized_training_tpu_torch.optim import OptimState8bit
+
+    inp, out = ranks
+    x = [torch.from_numpy(a) for a in inp["state8_x"]]
+    ref = OptimState8bit.zeros(x[0].shape).requantize(x[1])
+    codes = ref.codes.reshape(x[0].shape)
+    for o in out[4]:
+        got = o["state8/straddling"]
+        assert np.array_equal(got["scale"], ref.scale.numpy())
+        assert np.array_equal(got["codes"], codes.chunk(4, 1)[got["fsdp"]].reshape(-1).numpy())
+
+
+@pytest.mark.parametrize("mode", ["both", "row", "col"])
+def test_prequant_under_fsdp_is_the_default_step(ranks, mode):
+    """QT_PREQUANT under {"fsdp": 4} (each rank's views of its shards, the
+    maxima that cross ranks all-reduced, gathered in each layer): losses and
+    grad norms equal to the QT_PREQUANT=0 mesh step's, bit for bit, on every
+    rank."""
+    _, out = ranks
+    for o in out[4]:
+        got, ref = o[f"prequant/{mode}"], o["train/fsdp"]
+        assert got["losses"] == ref["losses"] and got["grad_norms"] == ref["grad_norms"], (mode, got, ref)

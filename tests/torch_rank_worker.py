@@ -17,11 +17,22 @@ and writes ``<workdir>/out_<rank>.pkl``:
   logits and greedy tokens at ``{"model": 4}`` on bf16, int8 storage and
   packed BitNet weights; the sharded resume at ``{"fsdp": 4}`` (5 steps
   against 3, a ``last_{rank}.pkl`` each, ``restore_sharded`` on a fresh
-  state and 2 more); ``benchmark_collectives``;
+  state and 2 more); ``benchmark_collectives``; the C5 pins under
+  ``{"data": 4}`` and ``{"fsdp": 4}`` (B5's and B4's mesh forms on the
+  rank's rows of a global tensor, and the column forms the fused ops reach
+  in their backward, :func:`fused_columns`) and at ``{"model": 4}`` (K1's
+  mesh forms on the rank's columns); schedule-free with the 8-bit state
+  under ``{"fsdp": 4}`` and ``{"data": 2, "fsdp": 2}`` (losses, grad
+  norms, a checkpoint a rank after the first step and after the third);
+  an 8-bit state whose blocks cross the ranks requantized under the span
+  ``"blocks"``; ``QT_PREQUANT`` both, row and col under
+  ``{"fsdp": 4}``; TP prefill on int4 weight-only, ``mixed_precision`` and
+  packed BitNet with its norms too;
 - world 1: the ``{"fsdp": 1}`` mesh step under a world-1 process group and
   the no-mesh step, 3 ``mixed_precision`` steps each.
 """
 
+import contextlib
 import os
 import pickle
 import sys
@@ -39,6 +50,7 @@ from quantized_training_tpu_torch import optim, parallel, quant, train  # noqa: 
 from quantized_training_tpu_torch.convert import params_from_jax  # noqa: E402
 from quantized_training_tpu_torch.models import llama, llama_infer  # noqa: E402
 from quantized_training_tpu_torch.parallel import collectives  # noqa: E402
+from quantized_training_tpu_torch.quant import core  # noqa: E402
 from quantized_training_tpu_torch.utils import checkpoint  # noqa: E402
 from quantized_training_tpu_torch.utils.tree import map_tensors  # noqa: E402
 
@@ -52,10 +64,11 @@ def leaves(state) -> list:
 
 
 def run_steps(cfg, params, mesh, batches, lr, n, state=None, specs=None, scheme="mixed_precision", start=0,
-              clip=None):
+              clip=None, opt=None):
     """n steps from ``params`` (split on ``mesh``) or from ``state`` and its
-    layout ``specs``: (state, specs, {"losses", "grad_norms"})."""
-    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    layout ``specs``: (state, specs, {"losses", "grad_norms"}); ``opt``
+    AdamW with bf16 moments, no SR, by default."""
+    opt = opt or optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     if state is None:
         state = train.init_train_state(quant.quantize_params(params, scheme), opt)
         if mesh is not None:
@@ -70,6 +83,107 @@ def run_steps(cfg, params, mesh, batches, lr, n, state=None, specs=None, scheme=
         metrics["losses"].append(float(m["loss"]))
         metrics["grad_norms"].append(float(m["grad_norm"]))
     return state, specs, metrics
+
+
+@contextlib.contextmanager
+def spied(log: list):
+    """Within it, each call of a column form that the fused ops reach in
+    their backward appends (its name, its int8 outputs and column scales)
+    to ``log``: B5's column half, B8, B9-col, B12 (with its given scales)
+    and B14 along columns (with its given scales)."""
+    from quantized_training_tpu_torch.ops import fused_producers as fp
+    from quantized_training_tpu_torch.ops import rope
+    from quantized_training_tpu_torch.quant import fused
+
+    picks = [(fused, "quantize_int8_both", lambda o, a, k: o[2:]),
+             (fp, "rmsnorm_quant_colwise", lambda o, a, k: o),
+             (fp, "silu_mul_quant_colwise", lambda o, a, k: o),
+             (fp, "silu_mul_bwd_quant_colwise", lambda o, a, k: (*o, a[3], a[4])),
+             (rope, "ungroup_quant", lambda o, a, k: (o, a[1]) if k.get("axis") == 0 else None)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in picks]
+
+    def spy(name, fn, pick):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            rec = pick(out, a, k)
+            if rec is not None:
+                log.append((name, [t.detach().clone() for t in rec]))
+            return out
+        return call
+
+    for (mod, name, pick), (_, _, fn) in zip(picks, saved):
+        setattr(mod, name, spy(name, fn, pick))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+FUSED_OPS = ("norm_linear_multi", "silu_mul_linear", "mlp_linear", "attn_out_linear")
+
+
+def fused_columns(f: dict, index: int = 0, count: int = 1) -> dict:
+    """Each fused op of the small Llama's width run forward and backward in
+    'interpret' on block ``index`` of ``count`` of the rows of the numpy
+    inputs ``f`` (tests/test_torch_parallel_ranks.py::_fused_inputs) and of
+    its cotangents: {op: [(column form, its outputs)] in call order}."""
+    from quantized_training_tpu_torch.quant import fused
+    from quantized_training_tpu_torch.quant.configs import MixedPrecisionConfig
+    from quantized_training_tpu_torch.quant.mixed_precision import MixedPrecisionWeight
+
+    def t(name, dim=0):
+        return torch.from_numpy(f[name]).to(torch.bfloat16).chunk(count, dim)[index].clone()
+
+    cfg = MixedPrecisionConfig()
+    ws = {k: torch.from_numpy(f[k]).to(torch.bfloat16).requires_grad_(True) for k in ("wq", "wk", "wv", "wd")}
+    mp = {k: MixedPrecisionWeight(v, cfg) for k, v in ws.items()}
+    x, gate, up, out_g = (t(k).requires_grad_(True) for k in ("x", "gate", "up", "out_g"))
+    gamma = torch.from_numpy(f["gamma"]).to(torch.bfloat16)
+    cot = t("cot")
+    runs = {
+        "norm_linear_multi": lambda: fused.norm_linear_multi(x, gamma, [mp["wq"], mp["wk"], mp["wv"]], 1e-5),
+        "silu_mul_linear": lambda: [fused.silu_mul_linear(gate, up, mp["wd"])],
+        "mlp_linear": lambda: [fused.mlp_linear(x, gamma, mp["wq"], mp["wk"], mp["wd"], 1e-5)],
+        "attn_out_linear": lambda: [fused.attn_out_linear(out_g, mp["wd"], 1).reshape(-1, cot.shape[-1])],
+    }
+    out = {}
+    fused.set_impl("interpret")
+    try:
+        for op, run in runs.items():
+            log = []
+            with spied(log):
+                outs = run()
+                loss = sum((o.float() * cot.float()).sum() for o in outs)
+                torch.autograd.grad(loss, [x, gate, up, out_g, *ws.values()], allow_unused=True)
+            out[op] = [(name, [a.numpy() if a.dtype != torch.bfloat16 else a.float().numpy() for a in ts])
+                       for name, ts in log]
+    finally:
+        fused.set_impl("auto")
+    return out
+
+
+def mesh_pins(inp: dict) -> dict:
+    """The C5 pins: under data 4 and fsdp 4, inside the train step's token
+    span, B5's and B4's mesh forms on the rank's rows of ``pin_x`` and the
+    fused ops' column forms on its rows of their inputs; at model 4 K1's
+    mesh forms on the rank's columns of ``pin_x``."""
+    out = {}
+    x = torch.from_numpy(inp["pin_x"]).to(torch.bfloat16)
+    for name in ("data", "fsdp"):
+        mesh = parallel.make_mesh(inp["meshes"][name], "cpu")
+        rows = x.chunk(mesh.dp_size)[mesh.dp_index].clone()
+        with collectives.spanning(mesh, tokens="dp"):
+            both = core.quantize_int8_both(rows, cols_over="tokens")
+            cols = core.quantize_int8(rows, axis=0, over="tokens")
+            fused = fused_columns(inp["fused"], mesh.dp_index, mesh.dp_size)
+        out[f"pin/{name}"] = dict(both=[a.float().numpy() for a in both], cols=[a.float().numpy() for a in cols],
+                                  fused=fused, dp_index=mesh.dp_index)
+    tp = parallel.make_mesh({"model": 4}, "cpu")
+    with collectives.spanning(tp, features="model"):
+        q, s = core.quantize_int8(x.chunk(4, 1)[tp.coords["model"]].contiguous(), axis=-1, over="features")
+    out["pin/model"] = dict(q=q.numpy(), s=s.float().numpy(), coord=tp.coords["model"])
+    return out
 
 
 def world4(inp: dict, rank: int, workdir: str) -> dict:
@@ -104,9 +218,9 @@ def world4(inp: dict, rank: int, workdir: str) -> dict:
 
     # tensor-parallel prefill and greedy decode
     tp = parallel.make_mesh({"model": 4}, "cpu")
-    tcfg = llama.LlamaConfig(**inp["tp_cfg"])
     prompt = torch.from_numpy(inp["prompt"])
     for scheme, tree in inp["tp_params"].items():
+        tcfg = llama.LlamaConfig(**inp["tp_cfg"], bitnet=scheme in inp["tp_bitnet"])
         p_tp, specs = parallel.shard_params_tp(params_from_jax(tree), tp)
         cache = parallel.shard_kv_cache(llama_infer.KVCache.zeros(tcfg, prompt.shape[0], 32), tp)
         logits = llama_infer.forward_with_cache(p_tp, prompt, cache, 0, tcfg, mesh=tp, specs=specs).float()
@@ -132,6 +246,38 @@ def world4(inp: dict, rank: int, workdir: str) -> dict:
 
     bench = parallel.make_mesh({"data": 4}, "cpu")
     out["collectives"] = parallel.benchmark_collectives(bench, axis="data", size_mb=4, n_iters=3)
+
+    out.update(mesh_pins(inp))
+    # schedule-free with the 8-bit state: each rank's pieces in a checkpoint
+    for name in ("fsdp", "2x2"):
+        mesh = parallel.make_mesh(inp["meshes"][name], "cpu")
+        opt, paths = optim.get_optimizer("schedule_free_adamw_8bit"), {}
+        state, specs, first = run_steps(cfg, params, mesh, inp["batches"], inp["lr"], 1, opt=opt)
+        for when, n in (("first", 0), ("last", 2)):
+            if n:
+                state, specs, more = run_steps(cfg, params, mesh, inp["batches"], inp["lr"], n, state=state,
+                                               specs=specs, start=1, opt=opt)
+            paths[when] = os.path.join(workdir, f"sf8_{name}_{when}_{rank}.pkl")
+            checkpoint.save_checkpoint(paths[when], {"state": state}, shard_arrays=specs)
+        out[f"sf8/{name}"] = dict(losses=first["losses"] + more["losses"],
+                                  grad_norms=first["grad_norms"] + more["grad_norms"], paths=paths)
+    # an 8-bit state whose blocks cross ranks: [2, 8, 96] over fsdp 4
+    from quantized_training_tpu_torch.optim import OptimState8bit
+    mesh = parallel.make_mesh(inp["meshes"]["fsdp"], "cpu")
+    x = [torch.from_numpy(a) for a in inp["state8_x"]]
+    (piece,), _ = parallel.shard_state([OptimState8bit.zeros(x[0].shape).requantize(x[0])], mesh)
+    with collectives.spanning(mesh, blocks="fsdp"):
+        piece = piece.requantize(x[1].chunk(4, 1)[mesh.coords["fsdp"]])
+    out["state8/straddling"] = dict(codes=piece.codes.numpy(), scale=piece.scale.numpy(),
+                                    fsdp=mesh.coords["fsdp"])
+    # QT_PREQUANT's views on each rank's shards, gathered in each layer
+    mesh = parallel.make_mesh(inp["meshes"]["fsdp"], "cpu")
+    for mode in ("both", "row", "col"):
+        os.environ["QT_PREQUANT"] = mode
+        try:
+            _, _, out[f"prequant/{mode}"] = run_steps(cfg, params, mesh, inp["batches"], inp["lr"], 3)
+        finally:
+            os.environ.pop("QT_PREQUANT")
     return out
 
 
