@@ -102,7 +102,11 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
    1e-4; three steps int8 ``mixed_precision`` on the fused layer, three on
    the unfused layer (``set_impl('off')``), then three bf16: tokens/s, the
-   ratios, peak memory, exact launch counts (B6 once per parameter leaf);
+   ratios, peak memory, exact launch counts under the remat policy (B6
+   once per parameter leaf) and SDPA's forwards (``ops.sdpa_forwards()``,
+   once a layer and micro-step); then one fused int8 step under
+   ``torch.profiler``: its kernels' device time by
+   ``profile_torch_step.py``'s groups;
 9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
    and ``--optim adamw_bf16_sr``): three steps at batch 4 x 2048 in which
    only the SR forms of K1, B4, B5, B6, B7-B9, B11, B12 and B14's quantize
@@ -224,8 +228,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    (``task_launches``).
 18. ``parallel/`` on the one card, Llama2-1B at full width: (a)
    ``llm_pretrain --mesh '{"fsdp": 1}'`` under NCCL at world 1 (a child
-   process with ``RANK=0 WORLD_SIZE=1``, deterministic algorithms), full
-   depth, batch 2 x 2048, 3 steps with a checkpoint at step 2 and a
+   process with ``RANK=0 WORLD_SIZE=1``, deterministic algorithms), 8
+   layers, batch 2 x 2048, 3 steps with a checkpoint at step 2 and a
    ``--resume`` from it: the losses and every step's launches equal the
    same command's without ``--mesh`` bit for bit, the resumed step too;
    then two gloo ranks sharing the card (NCCL refuses a second rank on one
@@ -242,11 +246,14 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    once per BitNet linear forward; (d) TP ``generate`` at ``{"model": 2}``
    on bf16, int8 storage (int8 activations), int8 ``mixed_precision``
    (both with K1's mesh forms on o's and down's inputs), packed BitNet with
-   its o and down norms and int4 weight-only, 4 prompts of 128, 32 new,
-   8 layers: the prefill logits' mean gap to one rank's within the gap
-   one bf16 ulp of the embedding makes (the model's rounding floor),
-   greedy agreement, tok/s; at tests/test_parallel.py's TP model the
-   logits within rtol = atol = 0.05 of one rank's (JAX's bound); (e)
+   its o and down norms, int4 weight-only and unpacked BitNet, 4 prompts
+   of 128, 32 new, 4 layers: the prefill logits' mean gap to one rank's
+   within the gap one bf16 ulp of the embedding makes (the model's
+   rounding floor), greedy agreement, tok/s; at tests/test_parallel.py's
+   TP model (bf16, int8 storage with and without int8 activations,
+   ``mixed_precision``, unpacked BitNet; o's and down's partial products
+   summed before they round) the logits within rtol = atol = 0.05 of one
+   rank's (JAX's bound); (e)
    the sharded resume at ``{"fsdp": 2}`` (2 layers): 3 steps, a
    ``last_{rank}.pkl`` each, ``restore_sharded``, 2 steps equal 5 steps bit
    for bit; (h) schedule-free with the 8-bit state at ``{"fsdp": 2}`` (4
@@ -263,6 +270,18 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    (``mesh_launches``, both ranks) and of the image steps
    (``image_launches``); the mesh forms' entries take their launches from
    this phase.
+19. the remat policy (``ops/remat.py``): Llama2-1B at full width cut to
+   ``REMAT_LAYERS`` layers, tokens [4, 2048], int8 ``mixed_precision`` on
+   the fused layer, under ``torch.use_deterministic_algorithms(True)``:
+   loss and grads with remat off, with each layer's checkpoint replayed
+   whole, under the policy, under ``QT_SAVE_POSTATTN=1``, under
+   ``save_qkv_residuals`` and under both: every one's loss and grads equal
+   remat off's bit for bit, the policy's launches exactly
+   ``per_step_launches`` at each knob, SDPA's forwards once a layer (twice
+   with the whole-layer checkpoint), and each run's peak memory; then
+   ViT-Giant at phase 11's width cut to ``REMAT_VIT_BLOCKS`` blocks, remat
+   on against off, bit for bit, the launches ``vit_per_step_launches``.
+   Every entry gains the phase's launches (``remat_launches``).
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -288,6 +307,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import importlib
 import json
 import os
@@ -326,6 +346,8 @@ ROPE = importlib.import_module("quantized_training_tpu_torch.ops.rope")
 INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 FUSED = importlib.import_module("quantized_training_tpu_torch.quant.fused")
+REMAT = importlib.import_module("quantized_training_tpu_torch.ops.remat")
+PROFILE = importlib.import_module("profile_torch_step")  # its kernel groups
 SEED = 0
 MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
 MIX_BUDGETS = (16, 32, 48, 64)
@@ -1915,15 +1937,34 @@ def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agre
     check(rms <= max_rms and agree >= min_agree, f"{dtype} kernel path within tolerance of the plain path")
 
 
+def sdpa_per_layer() -> int:
+    """SDPA forwards a Llama layer and micro-step counts under the remat
+    policy or without remat (``ops.sdpa_forwards()``): one where attention
+    resolves to SDPA (the card), none elsewhere (the CPU's einsum
+    attention)."""
+    return int(DEVICE == "cuda" and torch.cuda.is_available())
+
+
 def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_sr: int = 0,
-                      layer: str = "fused", mesh: bool = False) -> dict:
+                      layer: str = "fused", mesh: bool = False, post_attn: bool = False,
+                      save_qkv: bool = False) -> dict:
     """Kernel launches of one train step of L layers, from the code (pinned
-    on the CPU by tests/test_torch_train.py and tests/test_torch_fused.py::
-    test_kernel_calls_per_step_fused): a layer has 7 quantized weights (q,
-    k, v, o, gate, up, down) behind 4 inputs (q/k/v and gate/up share one),
-    and remat runs its forward twice. Every layer runs the grouped pipeline
-    (attention is SDPA): forward rope_group on q, k and v; backward
+    on the CPU by tests/test_torch_train.py, tests/test_torch_fused.py::
+    test_kernel_calls_per_step_fused and tests/test_torch_remat.py): a layer
+    has 7 quantized weights (q, k, v, o, gate, up, down) behind 4 inputs
+    (q/k/v and gate/up share one). Every layer runs the grouped pipeline
+    (attention is SDPA, not a kernel of the port: the remat replay is given
+    its out and log-sum-exp): forward rope_group on q, k and v; backward
     rope_ungroup for their grads.
+
+    The remat replay (``ops/remat.py``, JAX's ``save_only_these_names``)
+    runs what a backward reads: the forward but down's product, its
+    weight's K1 and its input's producer (B9-row, or K1 unfused);
+    ``post_attn`` (``QT_SAVE_POSTATTN=1``) drops o's product, its weight's
+    K1 and its input's B14 absmax and row quantize (unfused: o's K1s; the
+    ungrouping stays, its linear's saved input), ``save_qkv``
+    (``save_qkv_residuals``) the first B7 (unfused: its K1), q/k/v's
+    products and K1s and their rope.
 
     ``layer`` 'fused' (int8): forward K1 per weight (7; on the row walk, the
     SR form at q, o, gate, up and down: k and v have 256 rows), K2 per weight (7),
@@ -1950,29 +1991,41 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     the given column cast (the weights' B4 and every K1 stay whole)."""
     t = "_sr" if sr else ""
     n = L * micro
+    # the replay's linears: q, k, v (3), o (1), gate and up (2); never down
+    qkv, o = (0 if save_qkv else 3), (0 if post_attn else 1)
+    replayed = qkv + o + 2
+    walk_w = (5, 4) if sr else (7, 6)  # weights on K1's walk: forward, replay (k and v off it under SR)
+    walk_replay = walk_w[1] - (0 if qkv else (1 if sr else 3)) - (0 if o else 1)
     counts = dict.fromkeys(ops.KERNELS, 0)
-    counts.update({"rope_group": 7 * n, "rope_ungroup": (3 if layer == "fused" else 5) * n,
+    counts.update({"rope_group": (3 + 1 + qkv) * n, "rope_ungroup": (3 if layer == "fused" else 5) * n,
                    "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr})
     if layer == "fused":
-        counts.update({f"quantize_int8_rowwise{t}": 2 * 7 * n, f"quantize_int8_rowwise{t}_sm90": 2 * (5 if sr else 7) * n,
+        norm_rows = 2 + (0 if save_qkv else 1) + 1
+        counts.update({f"quantize_int8_rowwise{t}": (7 + replayed) * n,
+                       f"quantize_int8_rowwise{t}_sm90": (walk_w[0] + walk_replay) * n,
                        f"quantize_int8_colwise{t}": 7 * n,
                        f"quantize_int8_colwise{t}_sm90": 7 * n,
-                       f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": 2 * 2 * n,
-                       f"rmsnorm_quant_rowwise{t}_sm90": 2 * 2 * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
-                       f"silu_mul_quant_rowwise{t}": 2 * n, f"silu_mul_quant_rowwise{t}_sm90": 2 * n,
+                       f"quantize_int8_both{t}": 5 * n, f"rmsnorm_quant_rowwise{t}": norm_rows * n,
+                       f"rmsnorm_quant_rowwise{t}_sm90": norm_rows * n, f"silu_mul_bwd_quant_rowwise{t}_sm90": n,
+                       f"silu_mul_quant_rowwise{t}": n, f"silu_mul_quant_rowwise{t}_sm90": n,
                        f"rmsnorm_quant_colwise{t}": 2 * n, f"rmsnorm_quant_colwise{t}_sm90": 2 * n,
                        f"silu_mul_quant_colwise{t}": n, f"silu_mul_quant_colwise{t}_sm90": n,
                        "rmsnorm_bwd": 2 * n, "rmsnorm_bwd_sm90": 2 * n, f"silu_mul_bwd_quant_rowwise{t}": n,
                        f"silu_mul_bwd_quant_colwise{t}": n, f"silu_mul_bwd_quant_colwise{t}_sm90": n,
-                       "ungroup_amax": 2 * n, "ungroup_amax_sm90": 2 * n,
-                       f"ungroup_quant{t}": 3 * n, f"ungroup_quant{t}_sm90": 3 * n})
+                       "ungroup_amax": (1 + o) * n, "ungroup_amax_sm90": (1 + o) * n,
+                       f"ungroup_quant{t}": (2 + o) * n, f"ungroup_quant{t}_sm90": (2 + o) * n})
     elif layer == "unfused":
-        counts.update({f"quantize_int8_rowwise{t}": 2 * 11 * n, f"quantize_int8_rowwise{t}_sm90": 2 * (8 if sr else 11) * n,
+        # the replay's inputs: q/k/v's, o's, gate/up's (down's never)
+        inputs = (1 if qkv else 0) + o + 1
+        walk_in = inputs  # the inputs of 2048 take the walk in both forms
+        counts.update({f"quantize_int8_rowwise{t}": (11 + replayed + inputs) * n,
+                       f"quantize_int8_rowwise{t}_sm90": ((8 if sr else 11) + walk_replay + walk_in) * n,
                        f"quantize_int8_colwise{t}": 11 * n,
                        f"quantize_int8_colwise{t}_sm90": 11 * n,
                        f"quantize_int8_both{t}": 7 * n})
     if layer != "bf16":
-        counts.update({"scaled_mm_rhs_t": 2 * 7 * n, "scaled_mm_rhs_t_sm90": 2 * 7 * n, "scaled_mm": 7 * n,
+        k2 = (7 + replayed) * n
+        counts.update({"scaled_mm_rhs_t": k2, "scaled_mm_rhs_t_sm90": k2, "scaled_mm": 7 * n,
                        "scaled_mm_sm90": 7 * n, "scaled_mm_lhs_t": 7 * n, "scaled_mm_lhs_t_sm90": 7 * n})
     if mesh and layer != "bf16":
         both = counts[f"quantize_int8_both{t}"]
@@ -1986,12 +2039,26 @@ def per_step_launches(L: int, micro: int = 1, sr: bool = False, b6: int = 0, b6_
     return counts
 
 
+@contextlib.contextmanager
+def whole_layer_checkpoint():
+    """The remat policy off: every checkpointed layer (block) replays whole
+    in the backward, as before the policy (``ops/remat.py::checkpointed``
+    made the identity, so no op saves, loads or skips)."""
+    keep = REMAT.checkpointed
+    REMAT.checkpointed = lambda fn: fn
+    try:
+        yield
+    finally:
+        REMAT.checkpointed = keep
+
+
 def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: int, expect: dict | None,
-              norms: list | None = None):
+              norms: list | None = None, sdpa: int | None = None):
     """n_steps of make_train_step(cfg, opt) at ``lr`` on one batch, step i
     with the key ``fold_in(key, i)``: per step the loss, wall seconds (ends
     in a synchronize) and, when ``expect`` is given, the launch counts
-    checked against it; each step's grad norm appended to ``norms``."""
+    checked against it, when ``sdpa`` is, SDPA's forwards; each step's grad
+    norm appended to ``norms``."""
     step = train.make_train_step(cfg, opt)
     state = train.init_train_state(params, opt)
     losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
@@ -2007,6 +2074,8 @@ def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: in
         counts = ops.launch_counts()
         if expect is not None:
             check(counts == expect, f"step {i + 1} launches {counts} == {expect}")
+        if sdpa is not None:
+            check(ops.sdpa_forwards() == sdpa, f"step {i + 1}: SDPA forwards {ops.sdpa_forwards()} == {sdpa}")
         launches = {k: launches[k] + v for k, v in counts.items()}
         check(np.isfinite(loss) and np.isfinite(m["grad_norm"].item()), f"step {i + 1}: finite loss and norm")
         if norms is not None:
@@ -2016,13 +2085,15 @@ def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: in
 
 
 def int8_vs_bf16(phase: int, what: str, raw, cfg, tokens, labels, opt, lr: float, key: int,
-                 expect_int8: dict, expect_bf16: dict | None, expect_unfused: dict | None = None):
+                 expect_int8: dict, expect_bf16: dict | None, expect_unfused: dict | None = None,
+                 sdpa: int | None = None):
     """Three steps int8 mixed_precision on the fused layer, with
     ``expect_unfused`` three more on the unfused layer (``set_impl('off')``),
     then three bf16, from the same weights, batch and keys: the losses fall,
     the first-step losses agree within 1e-2 (int8 against bf16) and 1e-3
-    (fused against unfused); prints tokens/s of steps 2-3 (step 1 warms
-    up), the ratios and each run's peak memory. Returns (int8 losses, int8
+    (fused against unfused); each step's SDPA forwards ``sdpa`` where
+    given; prints tokens/s of steps 2-3 (step 1 warms up), the ratios and
+    each run's peak memory. Returns (int8 losses, int8
     launches, (bf16 first loss, bf16 tokens/s))."""
     def measured(params, expect, impl="auto"):
         torch.cuda.synchronize()
@@ -2030,7 +2101,7 @@ def int8_vs_bf16(phase: int, what: str, raw, cfg, tokens, labels, opt, lr: float
         torch.cuda.reset_peak_memory_stats()
         quant.set_impl(impl)
         try:
-            losses, walls, launches = run_steps(params, cfg, tokens, labels, opt, lr, key, 3, expect)
+            losses, walls, launches = run_steps(params, cfg, tokens, labels, opt, lr, key, 3, expect, sdpa=sdpa)
         finally:
             quant.set_impl("auto")
         return losses, walls, launches, torch.cuda.max_memory_allocated() / 2**30
@@ -2082,7 +2153,7 @@ def train_slice(raw, seed: int, key: int):
     what = (f"Llama2-1B train step (B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, adamw lr 3e-4), seed {seed}")
     L = cfg.num_hidden_layers
     return int8_vs_bf16(6, what, raw, cfg, tokens, labels, optim.adamw(weight_decay=1e-2), 3e-4, key,
-                        per_step_launches(L), per_step_launches(L, layer="bf16"))
+                        per_step_launches(L), per_step_launches(L, layer="bf16"), sdpa=sdpa_per_layer() * L)
 
 
 def bench_step(raw, seed: int, key: int) -> dict:
@@ -2090,9 +2161,10 @@ def bench_step(raw, seed: int, key: int) -> dict:
     accum=4)``): tokens [4, 4, 2048], remat, adamw_bf16_sr without the SR
     writeback, lr 1e-4, int8 mixed_precision without SR on the fused layer,
     on the unfused layer, then bf16. Each int8 step launches 4 x the
-    per-micro-batch counts of its layer, and each step of all three B6
-    (round-to-nearest) once per parameter leaf. Returns the fused int8
-    launches."""
+    per-micro-batch counts of its layer under the remat policy, and each
+    step of all three B6 (round-to-nearest) once per parameter leaf and
+    SDPA's forward once a layer and micro-step; then one fused int8 step
+    under the profiler. Returns the fused int8 launches."""
     cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
     n_leaves = len(tree_leaves(raw))
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
@@ -2102,8 +2174,29 @@ def bench_step(raw, seed: int, key: int) -> dict:
     _, launches, _ = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
                                per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves),
                                per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="bf16"),
-                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="unfused"))
+                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="unfused"),
+                               sdpa=sdpa_per_layer() * L * BENCH_ACCUM)
+    step_kernel_ms(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels, opt)
     return launches
+
+
+def step_kernel_ms(params, cfg, tokens, labels, opt) -> float:
+    """Phase 8: one int8 fused step under the remat policy, under
+    ``torch.profiler``: the device time of its kernels, by
+    ``profile_torch_step.py``'s groups, printed; returns the total ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_steps(params, cfg, tokens, labels, opt, 1e-4, random.fold_in(SEED, 8), 1, None)
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            group = PROFILE.group_of(e.key)
+            groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
+    total = sum(groups.values())
+    print(f"[8] one int8 fused step under the remat policy, under torch.profiler: kernels {total:.1f} ms; "
+          + "; ".join(f"{k} {v:.1f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+    return total
 
 
 def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
@@ -2260,8 +2353,9 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
     and lr, from its weights, batch and key, on the unfused layer (the
     fused ops take int8 only). The losses fall, each first loss is within
     FIRST_LOSS_BOUNDS of phase 6's bf16 one, and each step launches B16
-    (int4) or B15's e4m3 form (fp8 tile) 28 times a layer, every launch on
-    the sm90 route (7 weights: forward, its remat replay, grad_input,
+    (int4) or B15's e4m3 form (fp8 tile) 27 times a layer, every launch on
+    the sm90 route (7 weights: forward, its remat replay (not down's),
+    grad_input,
     grad_weight) and no int8 kernel;
     fp8 row neither. Prints tokens/s of steps 2-3, the ratio to phase 6's
     bf16 tokens/s and peak memory. Returns the launches of the three runs."""
@@ -2273,9 +2367,9 @@ def other_dtypes(raw, seed: int, key: int, bf16_first: float, bf16_tps: float) -
                             ("fp8 row", dict(dtype="fp8_e4m3", scale="row"), None)):
         expect = per_step_launches(L, layer="bf16")
         if gemm is not None:
-            expect[gemm] = 28 * L
+            expect[gemm] = 27 * L
         if gemm is not None:
-            expect[f"{gemm}_sm90"] = 28 * L
+            expect[f"{gemm}_sm90"] = 27 * L
         params = quant.quantize_params(raw, "mixed_precision", **qkw)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -2351,9 +2445,11 @@ def vit_grads_vs_plain(seed: int, dtype: torch.dtype, max_rms: float, max_dloss:
 def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = "fused") -> dict:
     """Kernel launches of one remat ViT train step of L blocks, from the
     code (pinned on the CPU by tests/test_torch_vit.py::
-    test_kernel_calls_per_step): per block the forward (run twice) launches
+    test_kernel_calls_per_step): per block the forward launches
     B18 LayerNorm-row 2 (qkv, fc1; with the column absmax), GELU-row 1 (fc2),
-    K1 5 (the four weights and proj's input, on the row walk), K2 4; the backward
+    K1 5 (the four weights and proj's input, on the row walk), K2 4, and the
+    remat replay all of it but fc2's product and its weight's K1 (no
+    backward reads the block's output: tests/test_torch_remat.py); the backward
     LayerNorm-column 2 and GELU-column 1 (given the forward's scales), B5 4,
     B4 5 (every one on the cluster form), B1 4, B2 4; each quantize in its
     SR form with ``sr``; every B18 launch on the row walk. Then B6 once
@@ -2366,8 +2462,8 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
         b18 = {f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
                f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L}
         counts.update({**b18, **{f"{k}_sm90": v for k, v in b18.items()},
-                       f"quantize_int8_rowwise{t}": 10 * L, f"quantize_int8_rowwise{t}_sm90": 10 * L,
-                       "scaled_mm_rhs_t": 8 * L, "scaled_mm_rhs_t_sm90": 8 * L,
+                       f"quantize_int8_rowwise{t}": 9 * L, f"quantize_int8_rowwise{t}_sm90": 9 * L,
+                       "scaled_mm_rhs_t": 7 * L, "scaled_mm_rhs_t_sm90": 7 * L,
                        f"quantize_int8_both{t}": 4 * L, f"quantize_int8_colwise{t}": 5 * L,
                        f"quantize_int8_colwise{t}_sm90": 5 * L, "scaled_mm": 4 * L,
                        "scaled_mm_sm90": 4 * L, "scaled_mm_lhs_t": 4 * L, "scaled_mm_lhs_t_sm90": 4 * L})
@@ -2440,6 +2536,96 @@ def vit_giant_step(seed: int, key: int):
     print(f"[11] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2); SR vs int8: {rel_sr:.3e} (bound 1e-2)")
     check(rel <= 1e-2 and rel_sr <= 1e-2, f"ViT first losses within 1e-2: {rel:.3e}, {rel_sr:.3e}")
     return runs["int8"][2], runs["int8 SR"][2]
+
+
+REMAT_LAYERS = 4  # phase 19: Llama2-1B's width, cut to 4 layers
+REMAT_VIT_BLOCKS = 3  # and ViT-Giant's, cut to 3 blocks
+REMAT_KNOBS = (("the policy", False, False), ("QT_SAVE_POSTATTN=1", True, False),
+               ("save_qkv_residuals", False, True), ("both", True, True))
+
+
+def memory_baseline() -> int:
+    """Garbage collected, the cache emptied and the peak reset: the bytes
+    live now, from which a run's peak is counted."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def remat_phase(raw, seed: int, key: int) -> dict:
+    """Phase 19: the remat policy against remat off, bit for bit, under
+    deterministic algorithms (the module's docstring); returns the
+    policy's launches."""
+    t0 = time.perf_counter()
+    cfg, tokens, labels = train_cfg_and_batch(seed, (TRAIN_B, TRAIN_S))
+    L = REMAT_LAYERS
+    params = quant.quantize_params({**raw, "layers": map_tensors(lambda t: t[:L], raw["layers"])}, "mixed_precision")
+    deterministic, post = torch.are_deterministic_algorithms_enabled(), os.environ.get("QT_SAVE_POSTATTN")
+    runs, ref, launches = {}, {}, dict.fromkeys(ops.KERNELS, 0)
+
+    def run(name, loss_of, remat_on, reference: str, whole=False):
+        """(loss, launches, peak GiB above what was live, bit-identical to
+        ``reference``'s run); the grads kept only for a reference."""
+        base = memory_baseline()
+        ops.reset_launch_counts()
+        with whole_layer_checkpoint() if whole else contextlib.nullcontext():
+            loss, grads = loss_of(remat_on)
+        torch.cuda.synchronize()
+        grads, peak = tree_leaves(grads), (torch.cuda.max_memory_allocated() - base) / 2**30
+        if name == reference:
+            ref[name] = (loss, grads)
+        same = torch.equal(loss, ref[reference][0]) and all(torch.equal(a, b) for a, b in zip(grads, ref[reference][1]))
+        runs[name] = (loss, ops.launch_counts(), peak, same, ops.sdpa_forwards())
+        check(same, f"[19] {name}: loss and grads bit-identical to {reference}'s")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, post_attn, save_qkv in (("remat off", False, False), ("whole-layer checkpoint", False, False),
+                                          *REMAT_KNOBS):
+            os.environ["QT_SAVE_POSTATTN"] = "1" if post_attn else "0"
+            c = dataclasses.replace(cfg, num_hidden_layers=L, save_qkv_residuals=save_qkv)
+            run(name, lambda r: train.loss_and_grads(dataclasses.replace(c, remat=r), params, tokens, labels, key),
+                name != "remat off", "remat off", whole=name == "whole-layer checkpoint")
+            sdpa = sdpa_per_layer() * L * (2 if name == "whole-layer checkpoint" else 1)
+            check(runs[name][4] == sdpa, f"[19] {name}: SDPA forwards {runs[name][4]} == {sdpa}")
+            if name in {k for k, *_ in REMAT_KNOBS}:
+                expect = per_step_launches(L, post_attn=post_attn, save_qkv=save_qkv)
+                check(runs[name][1] == expect, f"[19] {name}: launches {runs[name][1]} == {expect}")
+                launches = {k: launches[k] + v for k, v in runs[name][1].items()}
+        vcfg = dataclasses.replace(VIT_CFG, num_layers=REMAT_VIT_BLOCKS)
+        vraw = vit.init_params(torch.Generator(device=DEVICE).manual_seed(seed), vcfg)
+        ds = SyntheticImageDataset(size=vcfg.image_size, num_classes=vcfg.num_classes, seed=VIT_SEED)
+        images, vlabels = (torch.from_numpy(a).to(DEVICE) for a in next(iter(BatchLoader(ds, VIT_B, prefetch=0))))
+        vparams = quant.quantize_params(vraw, "mixed_precision")
+        vkey = random.fold_in(key, 19)
+        ref.clear()
+        for name in ("ViT remat off", "ViT remat"):
+            run(name, lambda r: train.value_and_grad(
+                lambda p: vit.loss_fn(p, images, vlabels, dataclasses.replace(vcfg, remat=r), vkey), vparams),
+                name == "ViT remat", "ViT remat off")
+        expect = vit_per_step_launches(REMAT_VIT_BLOCKS, 0)
+        check(runs["ViT remat"][1] == expect, f"[19] ViT-Giant remat launches {runs['ViT remat'][1]} == {expect}")
+        launches = {k: launches[k] + v for k, v in runs["ViT remat"][1].items()}
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+        if post is None:
+            os.environ.pop("QT_SAVE_POSTATTN", None)
+        else:
+            os.environ["QT_SAVE_POSTATTN"] = post
+    base = runs["remat off"][1]
+    for name, r in runs.items():
+        counts = {k: v for k, v in r[1].items() if v}
+        print(f"[19] {name}: loss {r[0].item():.6f} (loss and grads bit-identical to the run without remat: {r[3]}),"
+              f" peak device memory above what was live before it {r[2]:.3f} GiB; SDPA forwards {r[4]}; launches"
+              f" {counts}")
+    for name in ("whole-layer checkpoint", *(k for k, *_ in REMAT_KNOBS)):
+        replay = {k: v - base[k] for k, v in runs[name][1].items() if v != base[k]}
+        print(f"[19] {name}: the replay's launches over {L} layers (beside remat off) {replay}")
+    print(f"[19] Llama2-1B width, {L} layers (depth cut for time), tokens [{TRAIN_B}, {TRAIN_S}], deterministic "
+          f"algorithms; ViT-Giant width, {REMAT_VIT_BLOCKS} blocks, batch {VIT_B}: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def benchmark_mm_phase() -> dict:
@@ -2536,15 +2722,20 @@ def storage_per_step(scheme: str, L: int, n_leaves: int, sr: bool = False) -> di
     bf16 layer's B13 (rope_group 7, rope_ungroup 5 a layer) and B6 once a
     master leaf; int8 storage and BitNet quantize each of the 7 linears'
     inputs with K1 (q, k and v apart) and run K2 7 times a forward (every
-    one on sm90), twice a layer with remat, and no int8 backward kernel;
+    one on sm90), and in the remat replay 6 (not down's; K1 on down's input
+    only for BitNet, whose node keeps it), and no int8 backward kernel;
     int8 storage's commit re-quantizes the 7 stacked weights with K1-SR."""
     counts = per_step_launches(L, b6=n_leaves, layer="bf16")
     walk = lambda M, K, sr: int(bool(IQ.rowwise_sm90_route(M, K, torch.bfloat16, sr)))
     if scheme != "int4_weight_only":
         t = "_sr" if sr else ""
-        counts[f"quantize_int8_rowwise{t}"] += 2 * 7 * L
-        counts[f"quantize_int8_rowwise{t}_sm90"] += 2 * L * sum(walk(TOKENS, i, sr) for _, i in STACKED)
-        counts["scaled_mm_rhs_t"] = counts["scaled_mm_rhs_t_sm90"] = 2 * 7 * L
+        # the remat replay: no down product; BitNet's down quantizes its input
+        # all the same (its node keeps the int8), int8 storage's does not
+        inputs = [walk(TOKENS, i, sr) for _, i in STACKED]
+        kept = 7 if scheme == "bitnet" else 6
+        counts[f"quantize_int8_rowwise{t}"] += (7 + kept) * L
+        counts[f"quantize_int8_rowwise{t}_sm90"] += L * (sum(inputs) + sum(inputs[:kept]))
+        counts["scaled_mm_rhs_t"] = counts["scaled_mm_rhs_t_sm90"] = 13 * L
     if scheme == "int8_quantized_training":
         counts["quantize_int8_rowwise_sr"] += len(STACKED)
         counts["quantize_int8_rowwise_sr_sm90"] += sum(walk(L * o, i, True) for o, i in STACKED)
@@ -2731,7 +2922,8 @@ def device_args() -> list[str]:
 
 def pretrain_per_step_launches(cfg: llama.LlamaConfig, tokens: int) -> dict:
     """Kernel launches of one int8 train step of ``cfg`` on the fused layer
-    with remat and no SR (``per_step_launches``), each route's counter from
+    with remat (its replay under the policy) and no SR
+    (``per_step_launches``), each route's counter from
     the route at ``cfg``'s shapes: K1 and B4 at the 7 weights [O, I] (the
     row walk, the cluster form), K2 at ``tokens`` rows, B1 at each
     grad_input (N = I, K = O), B2 at each grad_weight (M = O, N = I, K =
@@ -2743,16 +2935,18 @@ def pretrain_per_step_launches(cfg: llama.LlamaConfig, tokens: int) -> dict:
     on = lambda route: int(bool(route))
     bf = torch.bfloat16
     counts = per_step_launches(L)
+    rows = [on(IQ.rowwise_sm90_route(o, i, bf)) for o, i in weights]
     counts.update({
-        "quantize_int8_rowwise_sm90": 2 * L * sum(on(IQ.rowwise_sm90_route(o, i, bf)) for o, i in weights),
+        # the forward's 7 weights, the remat replay's 6 (not down's)
+        "quantize_int8_rowwise_sm90": L * (sum(rows) + sum(rows[:6])),
         "quantize_int8_colwise_sm90": L * sum(on(IQ.colwise_sm90_route(o, i, bf)) for o, i in weights),
-        "scaled_mm_rhs_t_sm90": 2 * L * 7 * on(SCALED_MM.sm90_route(tokens)),
+        "scaled_mm_rhs_t_sm90": L * 13 * on(SCALED_MM.sm90_route(tokens)),
         "scaled_mm_sm90": L * sum(on(SCALED_MM.rhs_mn_sm90_route(i, o)) for o, i in weights),
         "scaled_mm_lhs_t_sm90": L * sum(on(SCALED_MM.lhs_t_sm90_route(o, i, tokens)) for o, i in weights),
         "rmsnorm_quant_rowwise_sm90": 4 * L * on(FP.norm_rows_sm90_route(D, bf)),
         "rmsnorm_quant_colwise_sm90": 2 * L * on(FP.norm_cols_sm90_route(D, bf)),
         "rmsnorm_bwd_sm90": 2 * L * on(FP.rmsnorm_bwd_sm90_route(D, bf)),
-        "silu_mul_quant_rowwise_sm90": 2 * L * on(FP.silu_rows_sm90_route(F, bf)),
+        "silu_mul_quant_rowwise_sm90": L * on(FP.silu_rows_sm90_route(F, bf)),
         "silu_mul_quant_colwise_sm90": L * on(FP.silu_cols_sm90_route(F, bf)),
         "silu_mul_bwd_quant_rowwise_sm90": L * on(FP.silu_bwd_rows_sm90_route(F, bf)),
         "silu_mul_bwd_quant_colwise_sm90": L * on(FP.silu_bwd_cols_sm90_route(F, bf)),
@@ -3853,6 +4047,10 @@ def tasks_phase(seed: int) -> dict:
 # sharded resume), llm_pretrain --mesh and the image sets, on one card ----
 
 MESH_MODEL = "llama2-1b"  # (a)'s --model: CFG
+# (a)'s depth, cut for time (each of its three processes builds the model and
+# the two that save write its whole state): the script took 1,132.4 s of its
+# 1,200 on a slow host with (a) at full depth
+MESH_CLI_LAYERS = 8
 MESH_SAVE = os.path.join("runs", "chip_smoke_mesh")
 MESH_DIR = os.path.join("build", "chip_smoke_mesh")
 MESH_S = 2048  # every mesh step's sequence
@@ -3877,11 +4075,13 @@ BITNET_BOUND = 1e-3  # JAX's for the 2-bit all-gather linear (tests/test_paralle
 TP_BOUND = 0.05  # JAX's for TP logits (tests/test_parallel.py:159-186)
 TP_PROMPTS, TP_PROMPT_LEN, TP_NEW = 4, 128, 32
 # depth cut for time in (b)-(e), (h), (i) and (f)'s ViT, full width ((a)
-# at full depth): with (d) at 11 layers, (e) at 4, (i) at 4 and (f)'s ViT at
+# at MESH_CLI_LAYERS): with (d) at 11 layers, (e) at 4, (i) at 4 and (f)'s ViT at
 # 40 blocks phase 18 took 348.3 s inside the whole script (the script
-# 1,120.3 s of its 1,200), on an H100 80GB HBM3 at 700 W (PERF.md section 6)
+# 1,120.3 s of its 1,200), on an H100 80GB HBM3 at 700 W (PERF.md section 6);
+# with (d) at 8 layers and phases 8 and 19 grown, the script took 1,032.7 s
+# on a slow host, so (d) runs at 4
 MESH_LAYERS = 4
-TP_LAYERS = 8
+TP_LAYERS = 4
 BITNET_LAYERS = 4
 RESUME_LAYERS = 2
 PREQUANT_MESH_LAYERS = 2
@@ -3996,7 +4196,8 @@ def pretrain_cli(name: str, argv: list, env: dict) -> tuple:
 
 def mesh_cli(seed: int) -> dict:
     """Phase 18 (a): ``llm_pretrain --mesh '{"fsdp": 1}'`` under NCCL at
-    world 1 (``RANK=0 WORLD_SIZE=1``), Llama2-1B at full width and depth,
+    world 1 (``RANK=0 WORLD_SIZE=1``), Llama2-1B at full width and
+    ``MESH_CLI_LAYERS`` layers,
     int8 ``mixed_precision``, remat, batch 2 x 2048 of Markov tokens,
     ``adamw_bf16_sr`` without SR: 3 steps with a checkpoint at step 2 (the
     rank's ``last_0.pkl``), then ``--resume`` from it to step 3; and the
@@ -4004,7 +4205,8 @@ def mesh_cli(seed: int) -> dict:
     identity: the losses and every step's launches equal the no-mesh run's
     bit for bit, and the resumed step 3 the uninterrupted one. Returns the
     mesh runs' launches."""
-    common = ["--model", MESH_MODEL, "--quantize", "mixed_precision", "--activation_checkpointing",
+    common = ["--model", MESH_MODEL, "--model_kwargs", json.dumps({"num_hidden_layers": MESH_CLI_LAYERS}),
+              "--quantize", "mixed_precision", "--activation_checkpointing",
               "--batch_size", "2", "--seq_len", str(MESH_S), "--optim", "adamw_bf16_sr", "--optim_kwargs",
               json.dumps({"bf16_stochastic_rounding": False}), "--lr", str(MESH_LR), "--log_interval", "1",
               "--seed", str(seed), "--save_dir", MESH_SAVE,
@@ -4159,7 +4361,8 @@ def bitnet_fsdp(plan: dict, rank: int) -> dict:
               f"(c) {name}: one K1 and one K2: {counts}")
     L = BITNET_LAYERS
     cfg = mesh_cfg(plan, bitnet=True, num_hidden_layers=L)
-    expect = lambda c: {**c, "quantize_int8_rowwise": 2 * 7 * L, "scaled_mm_rhs_t": 2 * 7 * L}
+    # the remat replay quantizes all 7 inputs (down's node keeps its int8), but runs 6 products
+    expect = lambda c: {**c, "quantize_int8_rowwise": 2 * 7 * L, "scaled_mm_rhs_t": 13 * L}
     _, _, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, scheme="bitnet", n_steps=2, expect=expect)
     check(all(np.isfinite(metrics["losses"])), f"(c) BitNet FSDP losses finite: {metrics['losses']}")
     out["train"] = dict(losses=metrics["losses"], walls=walls, staged=staged, launches=launches)
@@ -4201,7 +4404,7 @@ def tp_schemes(raw, cfg, plan: dict):
     """(d)'s models at TP_LAYERS: (name, parameters, config) of bf16, int8
     storage with int8 activations, int8 ``mixed_precision``, packed BitNet
     with its o and down norms (random weights of 1 + 0.1 N(0, 1)), int4
-    weight-only; each made when its turn comes."""
+    weight-only, unpacked BitNet; each made when its turn comes."""
     yield "bf16", raw, cfg
     yield "int8 storage", quant.quantize_params(raw, "int8_quantized_training", activation="int8"), cfg
     yield "mixed_precision", quant.quantize_params(raw, "mixed_precision"), cfg
@@ -4215,6 +4418,8 @@ def tp_schemes(raw, cfg, plan: dict):
     yield "BitNet packed, with its norms", bit, bcfg
     del bit
     yield "int4 weight-only", quant.quantize_params(raw, "int4_weight_only"), cfg
+    # C9: an unpacked BitNet weight's abs-mean over the whole matrix under TP
+    yield "BitNet unpacked", quant.quantize_params(raw, "bitnet"), cfg
 
 
 def tp_serving(plan: dict, rank: int) -> dict:
@@ -4230,11 +4435,14 @@ def tp_serving(plan: dict, rank: int) -> dict:
     the gaps that one bf16 ulp of the embedding makes on one rank (the
     model's rounding floor; both printed with their excess over rtol = atol
     = ``TP_BOUND``, which this width does not meet: ROADMAP C7), greedy
-    agreement and tok/s. At tests/test_parallel.py's TP model (hidden 128, 2 layers,
-    prompts [2, 16]), bf16 and int8 storage (weight-only, JAX's test, and
+    agreement and tok/s; and unpacked BitNet (its abs-mean over the whole
+    matrix, C9). At tests/test_parallel.py's TP model (hidden 128, 2 layers,
+    prompts [2, 16]), bf16, int8 storage (weight-only, JAX's test, and
     with int8 activations, where a row-parallel input's K1 takes its row
-    maxima all-reduced over ``model``): the prefill logits within rtol =
-    atol = ``TP_BOUND`` of one rank's, JAX's bound."""
+    maxima all-reduced over ``model``), int8 ``mixed_precision`` and
+    unpacked BitNet, each row-parallel linear summing its partial products
+    before it rounds (C8): the prefill logits within rtol = atol =
+    ``TP_BOUND`` of one rank's, JAX's bound."""
     mesh = parallel.make_mesh({"model": 2}, plan["device_type"])
     T, new = plan["tp_prompt"], plan["tp_new"]
     cfg = dataclasses.replace(plan["cfg"], max_position_embeddings=T + new,
@@ -4282,7 +4490,9 @@ def tp_serving(plan: dict, rank: int) -> dict:
     prompt = torch.from_numpy(np.random.default_rng(plan["seed"] + 1).integers(0, 256, (2, 16))).to(plan["device"])
     for name, params in (("bf16", raw), ("int8 storage", quant.quantize_params(raw, "int8_quantized_training")),
                          ("int8 storage, int8 activations",
-                          quant.quantize_params(raw, "int8_quantized_training", activation="int8"))):
+                          quant.quantize_params(raw, "int8_quantized_training", activation="int8")),
+                         ("mixed_precision", quant.quantize_params(raw, "mixed_precision")),
+                         ("BitNet unpacked", quant.quantize_params(raw, "bitnet"))):
         local, specs = parallel.shard_params_tp(params, mesh)
         gap = logit_gap(prefill(local, small, prompt, 32, mesh, specs), prefill(params, small, prompt, 32))
         out[f"small {name}"] = gap
@@ -4523,9 +4733,9 @@ def report_ranks(ranks: list, ref: tuple, plan: dict, sf8_ref: tuple) -> None:
               f"tokens that agree {d['agree']:.4f}; {d['tok_s']:.1f} tok/s (one rank {d['one_tok_s']:.1f}); "
               f"maxima all-reduces {d['maxima']}; launches "
               f"(TP's prefill and generate) { {k: v for k, v in d['launches'].items() if v} }")
-    for name in ("bf16", "int8 storage", "int8 storage, int8 activations"):
-        print(f"[18] (d) JAX's TP test model (hidden 128, 2 layers), {name}: prefill logits against one rank: "
-              f"{fmt(r0['d'][f'small {name}'])}")
+    for name in ("bf16", "int8 storage", "int8 storage, int8 activations", "mixed_precision", "BitNet unpacked"):
+        print(f"[18] (d) JAX's TP test model (hidden 128, 2 layers), {name}: prefill logits against one rank "
+              f"(o's and down's partial products summed before they round, C8): {fmt(r0['d'][f'small {name}'])}")
     e = [r["e"] for r in ranks]
     print(f"[18] (e) sharded resume at {{'fsdp': 2}}, Llama2-1B width, {RESUME_LAYERS} layers (depth cut for time): "
           f"files {[x['file'] for x in e]}; 5 steps {e[0]['full']}; 3 + restore + 2 {e[0]['resumed']}; bit for "
@@ -4746,6 +4956,9 @@ def main() -> None:
             e["max_abs_err"] = max(e["max_abs_err"], *(r["max_abs_err"] for r in at_470m[e["name"]]))
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
     prequant_conv_mx(raw, args.seed, key, kernels)
+    remat = remat_phase(raw, args.seed, key)
+    for e in kernels:  # phase 19's launches, under a key of their own
+        e["remat_launches"] = remat.get(e["name"], 0)
     del raw
     torch.cuda.empty_cache()
     tasks = tasks_phase(args.seed)

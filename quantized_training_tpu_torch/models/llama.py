@@ -29,8 +29,18 @@ ran JAX's splash attention; its counterpart here is
 up``, the norm and ``qlinear`` (``fold_in(., 6)`` for down); on the grouped
 pipeline such a layer ungroups the attention output (``ungroup_heads``,
 B13) rather than take ``attn_out_linear``. ``LlamaConfig.from_hf_json``
-reads an HF-format ``config.json`` (JAX :92-114); ``save_qkv_residuals`` is
-not carried.
+reads an HF-format ``config.json`` (JAX :92-114).
+
+The remat policy (JAX :530-554, ``save_only_these_names``; ``ops/remat.py``):
+each checkpointed layer keeps its input and the values JAX's policy names,
+the fused producers' column maxima (B7's, B9-row's, B14's; JAX's
+``QUANT_AMAX_RESIDUAL``), SDPA's out and log-sum-exp (splash's residuals;
+the CPU's einsum attention keeps nothing, as JAX's does), under
+``QT_SAVE_POSTATTN=1`` the residual sum after ``attn_out_linear`` and under
+``save_qkv_residuals`` the post-rope q, k, v; its replay then runs only
+what a backward reads, as XLA's does: never B9-row, down's product or its
+weight's quantize (the layer's output is read by no backward), nor the
+attention forward where SDPA ran, nor what makes a kept value.
 
 Stochastic rounding draws from an int key (``ops/random.py``) folded as the
 JAX package folds it: ``fold_in(key, l)`` for layer l, then ``fold_in(.,
@@ -62,6 +72,7 @@ of a weight.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from dataclasses import dataclass
@@ -75,8 +86,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.cross_entropy import IGNORE_INDEX, fused_linear_cross_entropy
 from ..ops.fused_producers import rms_norm_ref as rms_norm
 from ..ops.fused_producers import silu_mul_ref
+from ..ops import remat
 from ..ops.random import fold_in
 from ..ops.rope import group_heads, rope_group, ungroup_heads
+from ..ops.sdpa import sdpa
 from ..parallel import fsdp as _fsdp
 from ..parallel.mesh import Shard, param_specs
 from ..quant import attn_out_linear, mlp_linear, norm_linear_multi, prequantize_step, qlinear
@@ -101,6 +114,10 @@ class LlamaConfig:
     # 'auto' = F.scaled_dot_product_attention on the card, the fp32-softmax
     # einsum elsewhere; 'sdpa' and 'xla' (the einsum) force one
     attention_impl: str = "auto"
+    # the remat policy also keeps the post-rope q, k, v across the layer
+    # checkpoint, so that its replay runs neither the q/k/v projections nor
+    # the rope (JAX :79-85)
+    save_qkv_residuals: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -223,13 +240,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, impl: str = "au
     [B, S, H, hd].
 
     'sdpa': ``F.scaled_dot_product_attention(is_causal=True,
-    enable_gqa=True)``, the counterpart of the JAX package's splash kernel
-    (KV heads are not repeated). 'xla': the JAX package's einsum branch,
-    fp32 scores and softmax, which materializes [S, S]."""
+    enable_gqa=True)``'s kernels through ``ops/sdpa.py`` (whose out and
+    log-sum-exp a remat replay is given), the counterpart of the JAX
+    package's splash kernel (KV heads are not repeated). 'xla': the JAX
+    package's einsum branch, fp32 scores and softmax, which materializes [S,
+    S]."""
     if _resolve_attn_impl(impl, q) == "sdpa":
-        out = F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True,
-        )
+        out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, enable_gqa=True)
         return out.transpose(1, 2)
     B, S, H, hd = q.shape
     rep = H // k.shape[2]
@@ -254,32 +271,49 @@ def _use_grouped_rope(cfg: LlamaConfig, x: torch.Tensor) -> bool:
     return flag == "force" or _resolve_attn_impl(cfg.attention_impl, x) == "sdpa"
 
 
+def _save_post_attn() -> bool:
+    """``QT_SAVE_POSTATTN=1`` (JAX :53-60): the remat policy also keeps the
+    post-attention residual sum, so that the replay runs neither the
+    o-projection nor its input's quantizes. Read at each layer call."""
+    return os.environ.get("QT_SAVE_POSTATTN", "0") == "1"
+
+
+def _unread_if(cond: bool):
+    """``remat.unread()`` where ``cond``: the ops within make only a value
+    that the remat policy gives the replay."""
+    return remat.unread() if cond else contextlib.nullcontext()
+
+
 def _qkv_part_grouped(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     """Norm + QKV projections + rope fused with the head grouping (JAX
     :356-379): q comes out [B, KV, G, S, hd] with 1/sqrt(hd) folded into its
-    tables, k and v [B, KV, S, hd]."""
+    tables, k and v [B, KV, S, hd]. Under ``save_qkv_residuals`` the three
+    are the policy's (``remat.given``)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q, k, v = norm_linear_multi(x, lp["attn_norm"]["g"], [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
-                                cfg.rms_norm_eps, key=fold_in(key, 0))
-    scale = hd**-0.5
-    qg = rope_group(q.reshape(B, S, H, hd), cos * scale, sin * scale, KV)
-    # squeeze, not [:, :, 0]: its backward is a view, where indexing's writes
-    # the gradient into a zero-filled copy
-    kg = rope_group(k.reshape(B, S, KV, hd), cos, sin, KV).squeeze(2)
-    vg = group_heads(v.reshape(B, S, KV, hd), KV).squeeze(2)
+    with _unread_if(cfg.save_qkv_residuals):
+        q, k, v = norm_linear_multi(x, lp["attn_norm"]["g"], [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
+                                    cfg.rms_norm_eps, key=fold_in(key, 0))
+        scale = hd**-0.5
+        qg = rope_group(q.reshape(B, S, H, hd), cos * scale, sin * scale, KV)
+        # squeeze, not [:, :, 0]: its backward is a view, where indexing's writes
+        # the gradient into a zero-filled copy
+        kg = rope_group(k.reshape(B, S, KV, hd), cos, sin, KV).squeeze(2)
+        vg = group_heads(v.reshape(B, S, KV, hd), KV).squeeze(2)
+    if cfg.save_qkv_residuals:
+        qg, kg, vg = (remat.given("qkv", t) for t in (qg, kg, vg))
     return qg, kg, vg
 
 
 def _attention_grouped(qg, kg, vg, impl: str):
     """Causal GQA attention on grouped operands (JAX :382-399): qg [B, KV, G,
     S, hd] (already 1/sqrt(hd)-scaled), kg/vg [B, KV, S, hd] -> [B, KV, G, S,
-    hd]. 'sdpa': ``F.scaled_dot_product_attention`` with ``scale=1.0`` on the
-    [B, H, S, hd] view of qg; 'xla': the grouped fp32-softmax einsum."""
+    hd]. 'sdpa': ``F.scaled_dot_product_attention``'s kernels
+    (``ops/sdpa.py``) with ``scale=1.0`` on the [B, H, S, hd] view of qg;
+    'xla': the grouped fp32-softmax einsum."""
     B, KV, G, S, hd = qg.shape
     if _resolve_attn_impl(impl, qg) == "sdpa":
-        out = F.scaled_dot_product_attention(qg.reshape(B, KV * G, S, hd), kg, vg, is_causal=True, scale=1.0,
-                                             enable_gqa=True)
+        out = sdpa(qg.reshape(B, KV * G, S, hd), kg, vg, is_causal=True, scale=1.0, enable_gqa=True)
         return out.reshape(B, KV, G, S, hd)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg.float(), kg.float())
     mask = torch.ones(S, S, dtype=torch.bool, device=qg.device).tril()
@@ -289,14 +323,21 @@ def _attention_grouped(qg, kg, vg, impl: str):
 
 def _qkv_part(cfg: LlamaConfig, x, lp, cos, sin, key: int):
     """Norm + QKV projections + RoPE (JAX :402-427): the norm fused into
-    the shared input quantize where ``norm_linear_multi`` fuses."""
+    the shared input quantize where ``norm_linear_multi`` fuses. Under
+    ``save_qkv_residuals`` the post-rope q, k and v are the policy's."""
     B, S, _ = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    q, k, v = norm_linear_multi(x, lp["attn_norm"]["g"], [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
-                                cfg.rms_norm_eps, key=fold_in(key, 0))
+    with _unread_if(cfg.save_qkv_residuals):
+        q, k, v = norm_linear_multi(x, lp["attn_norm"]["g"], [lp["q"]["w"], lp["k"]["w"], lp["v"]["w"]],
+                                    cfg.rms_norm_eps, key=fold_in(key, 0))
+    # the rope is plain torch: in a replay of given q and k it runs on the
+    # projections' unread outputs, and only its graph is kept
     q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
     k = apply_rope(k.reshape(B, S, KV, hd), cos, sin)
-    return q, k, v.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.save_qkv_residuals:
+        q, k, v = (remat.given("qkv", t) for t in (q, k, v))
+    return q, k, v
 
 
 def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int, *, ctx_grouped=None):
@@ -304,9 +345,14 @@ def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int, *, ctx_grouped=None)
     ``attn_out_linear`` for o on the grouped attention output
     ``ctx_grouped`` [B, KV, G, S, hd], else ``qlinear`` on ``ctx``;
     ``mlp_linear`` for the MLP. BitNet's layer normalizes o's and down's
-    inputs first and runs its MLP unfused."""
+    inputs first and runs its MLP unfused. Under ``QT_SAVE_POSTATTN=1`` the
+    residual sum after the o-projection of ``attn_out_linear`` is the
+    policy's (JAX :445-453); the MLP's output is read by no backward."""
     if ctx_grouped is not None:
-        x = x + attn_out_linear(ctx_grouped, lp["o"]["w"], cfg.num_key_value_heads, key=fold_in(key, 3))
+        post = _save_post_attn()
+        with _unread_if(post):
+            o = attn_out_linear(ctx_grouped, lp["o"]["w"], cfg.num_key_value_heads, key=fold_in(key, 3))
+        x = remat.given("post_attn", x, o) if post else x + o
     else:
         if cfg.bitnet:
             ctx = rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps)
@@ -315,9 +361,11 @@ def _post_attn_part(cfg: LlamaConfig, x, ctx, lp, key: int, *, ctx_grouped=None)
         gate, up = norm_linear_multi(x, lp["mlp_norm"]["g"], [lp["gate"]["w"], lp["up"]["w"]],
                                      cfg.rms_norm_eps, key=fold_in(key, 4))
         act = rms_norm(silu_mul_ref(gate, up), lp["down_norm"]["g"], cfg.rms_norm_eps)
-        return x + qlinear(act, lp["down"]["w"], key=fold_in(key, 6))
-    return x + mlp_linear(x, lp["mlp_norm"]["g"], lp["gate"]["w"], lp["up"]["w"], lp["down"]["w"],
-                          cfg.rms_norm_eps, key=fold_in(key, 4))
+        with remat.unread():  # the layer's output: no backward reads it
+            return x + qlinear(act, lp["down"]["w"], key=fold_in(key, 6))
+    with remat.unread():
+        return x + mlp_linear(x, lp["mlp_norm"]["g"], lp["gate"]["w"], lp["up"]["w"], lp["down"]["w"],
+                              cfg.rms_norm_eps, key=fold_in(key, 4))
 
 
 def _decoder_layer(cfg: LlamaConfig, x, lp, cos, sin, key: int):
@@ -389,11 +437,11 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     ``fold_in(key, l)`` (JAX :560).
 
     With ``cfg.remat`` every decoder layer is one ``torch.utils.checkpoint``
-    (non-reentrant): its activations are recomputed in the backward, only
-    the layer input is kept, and the layer's key is one of its arguments,
-    as are the weights' views under ``QT_PREQUANT``.
-    The JAX policy also keeps splash attention's (out, lse) residuals, which
-    its non-TPU path does not have either."""
+    (non-reentrant) under the remat policy (JAX :530-554; the module's
+    docstring, ``ops/remat.py``): it keeps the layer input and the values
+    JAX's ``save_only_these_names`` keeps, and its replay in the backward
+    recomputes only what a backward reads, with the layer's key as one of
+    its arguments, as are the weights' views under ``QT_PREQUANT``."""
     key = 0 if key is None else key
     B, S = tokens.shape
     layer = partial(_decoder_layer, cfg)
@@ -419,7 +467,7 @@ def backbone(params, tokens: torch.Tensor, cfg: LlamaConfig, key: int | None = N
     for l, lp in enumerate(_unstack_layers(layers, cfg.num_hidden_layers)):
         lkey = fold_in(key, l)
         if cfg.remat:
-            x = checkpoint(layer, x, lp, cos, sin, lkey, use_reentrant=False)
+            x = checkpoint(remat.checkpointed(layer), x, lp, cos, sin, lkey, use_reentrant=False)
         else:
             x = layer(x, lp, cos, sin, lkey)
     return rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)

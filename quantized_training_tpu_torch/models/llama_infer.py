@@ -10,20 +10,25 @@ written in place. Attention is plain torch (the JAX package's einsum paths).
 Tensor parallelism (``mesh`` with a ``model`` axis above 1, JAX :207-239;
 the parameters and their layout ``specs`` as ``parallel.shard_params_tp``
 returns them): each rank runs its heads (from its q/k/v rows) and
-its slice of the MLP, o's and down's partial outputs are summed over
-``model`` (one all-reduce each a layer), the cache holds the rank's KV
+its slice of the MLP, o's and down's linears sum their partial products
+over ``model`` (one all-reduce each a layer), the cache holds the rank's KV
 heads (``parallel.shard_kv_cache``), and the vocab-split logits are
 all-gathered. The fresh-prefill fast path is off under TP, as JAX's flash
 prefill is (:136-140): prefill attends over the cache.
 
-JAX's TP forward is one global program, whose maxima XLA takes over the
-whole of a split axis. Here o's and down's linears run inside
+JAX's TP forward is one global program: XLA takes each maximum and each
+sum over the whole of a split axis. Here o's and down's linears run inside
 ``collectives.spanning(mesh, features="model")``, so the quantizes of their
 inputs (K1 of int8 storage and BitNet, both operands of the
-``mixed_precision`` forward) take the maxima of the global row; BitNet's
-``o_norm`` and ``down_norm``, whose mean of squares runs over the features
-that TP splits, sum the squares over ``model`` and scale with the rank's
-slice of their weight.
+``mixed_precision`` forward) take the maxima of the global row, and the
+linear sums its partials before it rounds, as JAX's program does: the int8
+paths' int32 sums before the scales, the bf16, int8 weight-only and int4
+products in fp32 (``quant/core.py::scaled_mm_over``, ``::matmul_over``).
+Every layer runs inside ``spanning(mesh, weights="model")``, so that an
+unpacked ``BitNetWeight``'s abs-mean is the whole matrix's, column- and
+row-parallel alike. BitNet's ``o_norm`` and ``down_norm``, whose mean of
+squares runs over the features that TP splits, sum the squares over
+``model`` and scale with the rank's slice of their weight.
 """
 
 from __future__ import annotations
@@ -179,44 +184,43 @@ def forward_with_cache(params, tokens: torch.Tensor, cache: KVCache, pos,
     rows = torch.arange(B, device=device).view(B, 1)
     fresh = isinstance(pos, int) and pos == 0 and T > 1 and not tp
     W = cache.max_len if window is None else min(window, cache.max_len)
+    # an unpacked BitNet weight's abs-mean spans the matrix TP split
+    with C.spanning(mesh, weights="model") if tp else contextlib.nullcontext():
+        for l in range(cfg.num_hidden_layers):
+            lp = llama.layer_params(params["layers"], l)
+            h = llama.rms_norm(x, lp["attn_norm"]["g"], cfg.rms_norm_eps)
+            q = qlinear(h, lp["q"]["w"]).reshape(B, T, H, hd)
+            k = qlinear(h, lp["k"]["w"]).reshape(B, T, KV, hd)
+            v = qlinear(h, lp["v"]["w"]).reshape(B, T, KV, hd)
+            q = llama.apply_rope(q, cos, sin)
+            k = llama.apply_rope(k, cos, sin)
 
-    for l in range(cfg.num_hidden_layers):
-        lp = llama.layer_params(params["layers"], l)
-        h = llama.rms_norm(x, lp["attn_norm"]["g"], cfg.rms_norm_eps)
-        q = qlinear(h, lp["q"]["w"]).reshape(B, T, H, hd)
-        k = qlinear(h, lp["k"]["w"]).reshape(B, T, KV, hd)
-        v = qlinear(h, lp["v"]["w"]).reshape(B, T, KV, hd)
-        q = llama.apply_rope(q, cos, sin)
-        k = llama.apply_rope(k, cos, sin)
+            k_q, k_s = _quant_kv(k)
+            v_q, v_s = _quant_kv(v)
+            kc, ksc, vc, vsc = cache.k[l], cache.k_scale[l], cache.v[l], cache.v_scale[l]
+            kc[rows, positions] = k_q
+            ksc[rows, positions] = k_s.to(ksc.dtype)
+            vc[rows, positions] = v_q
+            vsc[rows, positions] = v_s.to(vsc.dtype)
 
-        k_q, k_s = _quant_kv(k)
-        v_q, v_s = _quant_kv(v)
-        kc, ksc, vc, vsc = cache.k[l], cache.k_scale[l], cache.v[l], cache.v_scale[l]
-        kc[rows, positions] = k_q
-        ksc[rows, positions] = k_s.to(ksc.dtype)
-        vc[rows, positions] = v_q
-        vsc[rows, positions] = v_s.to(vsc.dtype)
+            if fresh:
+                k_deq = k_q.float() * k_s.to(ksc.dtype).float()
+                v_deq = (v_q.float() * v_s.to(vsc.dtype).float()).to(q.dtype)
+                ctx = llama.attention(q, k_deq, v_deq, "xla")
+            else:
+                ctx = _attention_over_cache(q, kc[:, :W], ksc[:, :W], vc[:, :W], vsc[:, :W], pos)
+            ctx = ctx.reshape(B, T, H * hd)
+            if cfg.bitnet:
+                ctx = _features_rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps, mesh, reduce_o)
+            with _row_parallel(mesh, reduce_o):
+                x = x + qlinear(ctx, lp["o"]["w"])
 
-        if fresh:
-            k_deq = k_q.float() * k_s.to(ksc.dtype).float()
-            v_deq = (v_q.float() * v_s.to(vsc.dtype).float()).to(q.dtype)
-            ctx = llama.attention(q, k_deq, v_deq, "xla")
-        else:
-            ctx = _attention_over_cache(q, kc[:, :W], ksc[:, :W], vc[:, :W], vsc[:, :W], pos)
-        ctx = ctx.reshape(B, T, H * hd)
-        if cfg.bitnet:
-            ctx = _features_rms_norm(ctx, lp["o_norm"]["g"], cfg.rms_norm_eps, mesh, reduce_o)
-        with _row_parallel(mesh, reduce_o):
-            o = qlinear(ctx, lp["o"]["w"])
-        x = x + (C.all_reduce(o, mesh, "model") if reduce_o else o)
-
-        h = llama.rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
-        act = torch.nn.functional.silu(qlinear(h, lp["gate"]["w"])) * qlinear(h, lp["up"]["w"])
-        if cfg.bitnet:
-            act = _features_rms_norm(act, lp["down_norm"]["g"], cfg.rms_norm_eps, mesh, reduce_down)
-        with _row_parallel(mesh, reduce_down):
-            down = qlinear(act, lp["down"]["w"])
-        x = x + (C.all_reduce(down, mesh, "model") if reduce_down else down)
+            h = llama.rms_norm(x, lp["mlp_norm"]["g"], cfg.rms_norm_eps)
+            act = torch.nn.functional.silu(qlinear(h, lp["gate"]["w"])) * qlinear(h, lp["up"]["w"])
+            if cfg.bitnet:
+                act = _features_rms_norm(act, lp["down_norm"]["g"], cfg.rms_norm_eps, mesh, reduce_down)
+            with _row_parallel(mesh, reduce_down):
+                x = x + qlinear(act, lp["down"]["w"])
 
     x = llama.rms_norm(x, params["final_norm"]["g"], cfg.rms_norm_eps)
     logits = qlinear(x, llama.lm_head_weight(params, cfg))

@@ -22,8 +22,12 @@ block l takes ``fold_in(key, l)`` and inside it ``fold_in(., 0..3)`` for
 qkv, proj, fc1, fc2; the patch embedding ``fold_in(key, 101)`` and the head
 ``fold_in(key, 102)``; ``key=None`` is 0. With ``cfg.remat`` each block is
 one non-reentrant ``torch.utils.checkpoint`` with its key as an argument:
-the JAX package's plain ``jax.checkpoint`` (no policy), so the replay runs
-exactly what the forward ran and draws the same noise.
+the JAX package's plain ``jax.checkpoint`` (no policy), which keeps only
+the block's input. Its replay draws the same noise and, as XLA's does,
+recomputes only what a backward reads (``ops/remat.py``): not fc2's
+product or its weight's quantize, since no backward reads the block's
+output; on the fused path fc2's GELU row kernel still runs, for the column
+maxima its node keeps (JAX's replay keeps that kernel too).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import remat
 from ..ops.fused_producers import layer_norm_ref as layer_norm
 from ..ops.random import fold_in
 from ..quant import gelu_linear, layernorm_linear, qlinear
@@ -139,7 +144,8 @@ def _block(cfg: ViTConfig, x, lp, key: int):
     x = x + qlinear(ctx, lp["proj"]["w"], lp["proj"]["b"], key=fold_in(key, 1))
     h = layernorm_linear(x, lp["norm2"]["g"], lp["norm2"]["b"], lp["fc1"]["w"], cfg.layer_norm_eps,
                          bias=lp["fc1"]["b"], key=fold_in(key, 2))
-    return x + gelu_linear(h, lp["fc2"]["w"], bias=lp["fc2"]["b"], key=fold_in(key, 3))
+    with remat.unread():  # the block's output: no backward reads it
+        return x + gelu_linear(h, lp["fc2"]["w"], bias=lp["fc2"]["b"], key=fold_in(key, 3))
 
 
 def forward(params, images: torch.Tensor, cfg: ViTConfig, key: int | None = None) -> torch.Tensor:
@@ -155,7 +161,7 @@ def forward(params, images: torch.Tensor, cfg: ViTConfig, key: int | None = None
     for l, lp in enumerate(_unstack_layers(params["layers"], cfg.num_layers)):
         lkey = fold_in(key, l)
         if cfg.remat:
-            x = checkpoint(block, x, lp, lkey, use_reentrant=False)
+            x = checkpoint(remat.checkpointed(block), x, lp, lkey, use_reentrant=False)
         else:
             x = block(x, lp, lkey)
     x = layer_norm(x, params["final_norm"]["g"], params["final_norm"]["b"], cfg.layer_norm_eps)

@@ -89,6 +89,12 @@ The JAX package's other ops, on those kernels or in plain torch:
 - :mod:`fp8`: the e4m3 quantizes (row, 1 x 128 tile, 128 x 128 block) and
   the fp8 products, plain torch.
 
+:func:`sdpa.sdpa` is PyTorch's fused attention (the counterpart of the JAX
+package's splash kernel) through an ``autograd.Function`` that keeps its
+out and log-sum-exp for the remat policy (:mod:`remat`); not a kernel of
+the port, so not in :data:`KERNELS`: its forward launches on a card have a
+counter of their own, :func:`sdpa_forwards`.
+
 K1, B4, B5, B7, B8, B9, B11, B12, B14's quantize and B18 also have a
 stochastic-rounding form, and B6 an SR writeback,
 drawn from the Philox stream of ``random.py`` (``csrc/philox.cuh``). The
@@ -175,6 +181,7 @@ from .scaled_mm import (
     scaled_mm_rhs_t_plain,
 )
 from .tile_scaled_mm import tile_scaled_mm, tile_scaled_mm_plain
+from . import sdpa
 
 # counter name -> (wrapper, the attribute it counts in)
 KERNELS = {
@@ -278,15 +285,24 @@ def launch_counts() -> dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
+def sdpa_forwards() -> int:
+    """PyTorch's SDPA forwards on a card (:func:`sdpa.sdpa`) since the last
+    :func:`reset_launch_counts`: how often the attention forward ran."""
+    return sdpa.sdpa.launches
+
+
 def reset_launch_counts() -> None:
+    """Every kernel's counter and :func:`sdpa_forwards`' to 0."""
     for fn, attr in KERNELS.values():
         setattr(fn, attr, 0)
+    sdpa.sdpa.launches = 0
 
 
 __all__ = [
     "KERNELS",
     "launch_counts",
     "reset_launch_counts",
+    "sdpa_forwards",
     "conv",
     "fp8",
     "mx",

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, remat
 from .fused_producers import EPS, _cast, _rows_per_block, _sm_count, row_walk_ctas
 from .int8_quant import _count_route, _key
 
@@ -341,6 +341,8 @@ class _RopeGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, cos, sin, kv):
         ctx.save_for_backward(cos, sin)
+        if remat.skips():  # the replay of a given q or k: its backward reads no value
+            return _grouped(remat.unread_like(x), kv)
         return rope_group_kernel(x, cos, sin, kv=kv)
 
     @staticmethod
@@ -355,6 +357,8 @@ class _GroupHeads(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kv):
+        if remat.skips():  # the replay of a given v
+            return _grouped(remat.unread_like(x), kv)
         return rope_group_kernel(x, kv=kv)
 
     @staticmethod

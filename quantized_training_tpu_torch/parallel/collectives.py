@@ -28,11 +28,15 @@ whole axis there). :func:`spanning` names, for the code it wraps, the mesh
 axis that splits an axis a quantize reduces: ``tokens``, the token axis of
 the activations and cotangents (data x fsdp, ``"dp"``, in a train step),
 ``features``, the contraction axis of a row-parallel linear (``model``,
-under tensor parallelism), and ``blocks``, an 8-bit optimizer state's
-blocks that cross fsdp ranks (``optim/state8bit.py``). A quantize that
-names its reduced axis
+under tensor parallelism), ``blocks``, an 8-bit optimizer state's
+blocks that cross fsdp ranks (``optim/state8bit.py``), and ``weights``, the
+elements of a weight that tensor parallelism splits (BitNet's abs-mean). A
+quantize that names its reduced axis
 (``quant/core.py``'s ``over``) then takes its maxima first, all-reduces them
-with :func:`max_over` and casts with the global maxima. The names are
+with :func:`max_over` and casts with the global maxima; a product over
+``features`` sums its partials over the axis (``quant/core.py::
+scaled_mm_over``, ``::matmul_over``), and BitNet's abs-mean over
+``weights`` its sum of |w|. The names are
 module state, not thread state, since autograd runs a CUDA backward on a
 thread of its own. An axis of size 1 (no mesh, a world of one) is not
 entered, so the quantizes there keep their one-launch kernels.
@@ -84,9 +88,9 @@ def _split(mesh, axis: str) -> bool:
 
 @contextlib.contextmanager
 def spanning(mesh, **axes):
-    """Within it, a maximum over each reduced axis named in ``axes``
-    (``tokens="dp"``, ``features="model"``, ``blocks="fsdp"``) spans that
-    axis of ``mesh``;
+    """Within it, a maximum (or a sum) over each reduced axis named in
+    ``axes`` (``tokens="dp"``, ``features="model"``, ``blocks="fsdp"``,
+    ``weights="model"``) spans that axis of ``mesh``;
     an axis of size 1 adds nothing. The names it set are restored on exit."""
     saved = dict(_SPANS)
     _SPANS.update({name: (mesh, axis) for name, axis in axes.items() if _split(mesh, axis)})

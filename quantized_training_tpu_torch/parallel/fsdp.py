@@ -29,6 +29,7 @@ import dataclasses
 
 import torch
 
+from ..ops import remat
 from ..ops.scaled_mm import scaled_mm_general
 from ..quant.core import pack_i2_in_i8, quantize_bitnet_weight, quantize_int8, unpack_i2_in_i8
 from ..quant.int8 import _scales
@@ -137,8 +138,11 @@ class _BitNetFSDPLinear(torch.autograd.Function):
         packed = C.all_gather(pack_i2_in_i8(quantize_bitnet_weight(w_local, scale)), 0, mesh, "fsdp")
         x_i8, row_scale = quantize_int8(x2d, axis=-1, eps=ACT_EPS)
         scale_cast = scale.to(x2d.dtype)
-        sa, sb = _scales(row_scale, scale_cast)
-        out = scaled_mm_general(x_i8, unpack_i2_in_i8(packed), sa, sb, dims=(1, 1), out_dtype=x2d.dtype)
+        if remat.skips():  # the replay of an unread output (remat): what the node saves, no product
+            out = remat.unread_like(x2d, (x2d.shape[0], packed.shape[0]))
+        else:
+            sa, sb = _scales(row_scale, scale_cast)
+            out = scaled_mm_general(x_i8, unpack_i2_in_i8(packed), sa, sb, dims=(1, 1), out_dtype=x2d.dtype)
         ctx.mesh = mesh
         ctx.save_for_backward(x_i8, row_scale, packed, scale_cast)
         return out

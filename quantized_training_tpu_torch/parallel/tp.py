@@ -6,8 +6,14 @@ o/down (row-parallel) their input dim, and the lm_head its vocab; the KV
 cache splits its heads. The JAX package hands these shardings to XLA. Here
 ``shard_params_tp`` returns a rank's slice with its layout, and with both
 ``models/llama_infer.py::forward_with_cache`` runs this rank's heads and
-its slice of the MLP, sums o's and down's partial outputs over ``model``
-(one all-reduce each a layer) and all-gathers the vocab-split logits. A
+its slice of the MLP and all-gathers the vocab-split logits. o's and
+down's linears sum their partial products over ``model`` (one all-reduce
+each a layer) before they round, as XLA's partitioned dot does: the int8
+paths' int32 sums before the scales, the bf16, int8 weight-only and int4
+products in fp32 (``quant/core.py::scaled_mm_over``, ``::matmul_over``); a
+rank's bf16 partial outputs are never summed. An unpacked BitNet weight
+takes its abs-mean over the whole matrix (``get_bitnet_scale`` under
+``collectives.spanning(mesh, weights="model")``). A
 weight wrapper's tensors split by its path's rule, each where its dim
 divides (an int8 weight's row scales follow q's rows and stay whole for
 o); a leaf whose dim does not divide stays replicated.

@@ -28,13 +28,14 @@ import os
 
 import torch
 
+from ..ops import remat
 from ..ops.random import fold_in
 from . import bitnet as _bitnet
 from . import int4 as _int4
 from . import int8 as _int8
 from . import mixed_precision as _mp
 from .configs import Int8QTConfig, MixedPrecisionConfig
-from .core import quantize_int8
+from .core import _span, matmul_over, quantize_int8
 
 # storage-quantized schemes: the optimizer works on a dequantized master
 STORAGE_QUANTIZED_TYPES = (_int8.Int8Weight, _int4.Int4Weight)
@@ -90,7 +91,12 @@ def prequantize_step(params, key: int | None = None, mesh=None, specs=None):
 
 def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, key: int | None = None):
     """y = x @ w.T + bias, dispatched on the weight wrapper type; ``key``
-    (an int, ``ops/random.py``) seeds stochastic rounding."""
+    (an int, ``ops/random.py``) seeds stochastic rounding. Inside
+    ``parallel.collectives.spanning(mesh, features=...)`` (a row-parallel
+    linear under tensor parallelism) every scheme sums its partial products
+    over the mesh axis before it rounds (``quant/core.py::matmul_over``,
+    ``::scaled_mm_over``): the output is the whole product, not the rank's
+    part."""
     if isinstance(w, _MP_TYPES):
         return _mp.linear(x, w, bias, key=key)
     if isinstance(w, _int8.Int8Weight):
@@ -99,8 +105,31 @@ def qlinear(x: torch.Tensor, w, bias: torch.Tensor | None = None, *, key: int | 
         return _int4.linear(x, w, bias, key=key)
     if isinstance(w, (_bitnet.BitNetWeight, _bitnet.BitNetPackedWeight)):
         return _bitnet.linear(x, w, bias, key=key)
-    out = x @ w.T
+    out = matmul_over(x, w, "features") if _span("features") is not None else _PlainLinear.apply(x, w)
     return out + bias if bias is not None else out
+
+
+class _PlainLinear(torch.autograd.Function):
+    """``x @ w.T`` for a plain weight, with the backward that autograd runs
+    for it (``grad.mm(w)`` and ``grad.t().mm(x2d)``, the same GEMMs on the
+    same layouts, so the same bits), so that a remat replay of an unread
+    output (``ops/remat.py``) can skip the product and still save what the
+    node saves."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if remat.skips():
+            return remat.unread_like(x, (*x.shape[:-1], w.shape[0]))
+        return x @ w.T
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2d = g.reshape(-1, g.shape[-1])
+        dx = g2d.mm(w).view(x.shape) if ctx.needs_input_grad[0] else None
+        dw = g2d.t().mm(x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def qlinear_multi(x: torch.Tensor, weights, *, key: int | None = None):

@@ -17,7 +17,11 @@ Counterpart of ``quantized_training_tpu/quant/bitnet.py``:
 The ternarization, the pack and unpack and the backward's matmuls are plain
 torch, as XLA lowered them. A ``BitNetWeight`` whose ``mesh`` has an fsdp
 axis larger than 1 (set by ``parallel.bitnet_fsdp_params``) takes the 2-bit
-all-gather of ``parallel/fsdp.py`` (JAX :165-172).
+all-gather of ``parallel/fsdp.py`` (JAX :165-172). Under tensor
+parallelism (``parallel/collectives.py::spanning``'s ``weights`` and
+``features``) a ``BitNetWeight``'s abs-mean is that of the whole matrix,
+summed over the mesh axis, and a row-parallel linear sums its int32 partial
+products over it before the scales.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.scaled_mm import scaled_mm_general
-from .core import get_bitnet_scale, pack_i2_in_i8, quantize_bitnet_weight, quantize_int8, unpack_i2_in_i8
+from ..ops import remat
+from .core import (get_bitnet_scale, pack_i2_in_i8, quantize_bitnet_weight, quantize_int8, scaled_mm_over,
+                   unpack_i2_in_i8)
 from .int8 import _scales
 from .node import WeightNode
 
@@ -89,16 +94,21 @@ class BitNetPackedWeight(WeightNode):
 def _ternary_mm(x2d, w_i8, scale):
     """K1 on x2d at ``ACT_EPS`` (its mesh forms where tensor parallelism
     splits x's features), then K2 against the ternary weight with ``scale``
-    as the column scale: -> (out, x_i8, row_scale)."""
+    as the column scale, its int32 sums summed over the mesh axis there
+    first: -> (out, x_i8, row_scale). In the replay of an unread output
+    (remat) the quantize its node saves, no product."""
     x_i8, row_scale = quantize_int8(x2d, axis=-1, eps=ACT_EPS, over="features")
+    if remat.skips():
+        return remat.unread_like(x2d, (x2d.shape[0], w_i8.shape[0])), x_i8, row_scale
     sa, sb = _scales(row_scale, scale)
-    return scaled_mm_general(x_i8, w_i8, sa, sb, dims=(1, 1), out_dtype=x2d.dtype), x_i8, row_scale
+    out = scaled_mm_over(x_i8, w_i8, sa, sb, dims=(1, 1), out_dtype=x2d.dtype, over="features")
+    return out, x_i8, row_scale
 
 
 class _BitNetLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, w):
-        tensor_scale = get_bitnet_scale(w)  # fp32
+        tensor_scale = get_bitnet_scale(w, over="weights")  # fp32, over the whole matrix under TP
         w_i8 = quantize_bitnet_weight(w, tensor_scale)
         tensor_scale = tensor_scale.to(w.dtype)
         out, x_i8, row_scale = _ternary_mm(x2d, w_i8, tensor_scale)
@@ -120,9 +130,10 @@ class _BitNetLinear(torch.autograd.Function):
 class _BitNetPackedLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, packed, scale):
-        w_i8 = unpack_i2_in_i8(packed)
-        out, _, _ = _ternary_mm(x2d, w_i8, scale)
         ctx.save_for_backward(packed, scale)
+        if remat.skips():  # the replay of an unread output (remat): the node only
+            return remat.unread_like(x2d, (x2d.shape[0], packed.shape[-2]))
+        out, _, _ = _ternary_mm(x2d, unpack_i2_in_i8(packed), scale)
         return out
 
     @staticmethod

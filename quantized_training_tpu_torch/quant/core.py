@@ -19,7 +19,14 @@ or ``"features"``, ``parallel/collectives.py::spanning``), and where a mesh
 splits that axis it runs as its two mesh forms with the maxima all-reduced
 over the mesh axis between them (``ops/int8_quant.py``), so that each rank
 holds its rows of the quantize of the global tensor, as in JAX's one global
-program. Elsewhere ``over`` changes nothing.
+program. Elsewhere ``over`` changes nothing. A product whose contraction
+axis a mesh splits (``"features"``, a row-parallel linear under tensor
+parallelism) sums its partial products over that axis inside the linear
+(:func:`scaled_mm_over`: the int32 sums, then the scales once;
+:func:`matmul_over`: fp32 partials, then one rounding), and BitNet's
+abs-mean of a weight that tensor parallelism splits sums |w| over the mesh
+axis (``"weights"``, :func:`get_bitnet_scale`), as JAX's partitioned program
+reduces each over the whole axis.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from ..ops import random
 from ..ops.int4_mm import unpack_int4
 from ..ops.random import bf16_stochastic_round  # noqa: F401  (core.py:318's counterpart)
+from ..ops.scaled_mm import scaled_mm_general
 from ..ops.int8_quant import (
     EPS,
     quantize_int8_both as _quantize_both_kernel,
@@ -70,6 +78,63 @@ def max_over_each(amaxes, over) -> list:
         return list(amaxes)
     flat = max_over(torch.cat([a.reshape(-1) for a in amaxes]), span)
     return [p.view_as(a) for p, a in zip(flat.split([a.numel() for a in amaxes]), amaxes)]
+
+
+def sum_over(x: torch.Tensor, over) -> torch.Tensor:
+    """``x`` (a product's partial sums) all-reduced with a sum over the mesh
+    axis that ``over`` spans, ``x`` itself where it spans nothing."""
+    span = _span(over)
+    if span is None:
+        return x
+    from ..parallel.collectives import all_reduce
+
+    return all_reduce(x, *span)
+
+
+def matmul_over(x: torch.Tensor, w: torch.Tensor, over=None) -> torch.Tensor:
+    """``x @ w.T`` in x's dtype. Where ``over`` spans a mesh axis that
+    splits the contraction (a row-parallel linear under tensor
+    parallelism), each rank's partial product is taken in fp32, summed over
+    the axis and rounded once, as JAX's partitioned program sums its
+    partial dots in fp32 (``torch.mm``'s fp32 output on a card, the fp32
+    product of the widened operands on the CPU, whose ``mm`` has no
+    ``out_dtype``)."""
+    if _span(over) is None:
+        return x @ w.T
+    x2d = x.reshape(-1, x.shape[-1])
+    if x2d.is_cuda:
+        acc = torch.mm(x2d, w.T, out_dtype=torch.float32)
+    else:
+        acc = x2d.float() @ w.float().T
+    return sum_over(acc, over).to(x.dtype).reshape(*x.shape[:-1], w.shape[0])
+
+
+# a contraction of at most this many int8 products of |q| <= 128 sums to at
+# most 2**24 in magnitude, which fp32 holds exactly
+EXACT_K = 1024
+
+
+def scaled_mm_over(a, b, scale_a, scale_b, *, dims, out_dtype, over=None) -> torch.Tensor:
+    """The int8 product of ``scaled_mm_general`` (K2, B1 or B2). Where
+    ``over`` spans a mesh axis that splits the contraction, the rank's int32
+    sums are all-reduced over it before the scales are applied once, as in
+    JAX's partitioned program (an s32 all-reduce after the dot, then
+    ``acc * scale_a * scale_b`` in fp32): the kernel runs with unit scales
+    into fp32 on each ``EXACT_K`` slice of the rank's contraction, whose
+    sums fp32 holds exactly, the slices' sums are added as int32 and
+    all-reduced as int32."""
+    if _span(over) is None:
+        return scaled_mm_general(a, b, scale_a, scale_b, dims=dims, out_dtype=out_dtype)
+    M, N, K = a.shape[1 - dims[0]], b.shape[1 - dims[1]], a.shape[dims[0]]
+    ones = lambda n: torch.ones(n, dtype=torch.float32, device=a.device)  # noqa: E731
+    acc = None
+    for k0 in range(0, K, EXACT_K):
+        n = min(EXACT_K, K - k0)
+        part = scaled_mm_general(a.narrow(dims[0], k0, n).contiguous(), b.narrow(dims[1], k0, n).contiguous(),
+                                 ones(M), ones(N), dims=dims, out_dtype=torch.float32).to(torch.int32)
+        acc = part if acc is None else acc + part
+    acc = sum_over(acc, over).float()
+    return ((acc * scale_a.float().reshape(-1, 1)) * scale_b.float().reshape(1, -1)).to(out_dtype)
 
 
 def stochastic_round_to_int(x: torch.Tensor, key: int) -> torch.Tensor:
@@ -239,10 +304,20 @@ def dequantize_int4_groupwise(packed: torch.Tensor, scale: torch.Tensor, zero_po
     return (zero_point[:, None] + u4.to(scale.dtype) * scale[:, None]).reshape(shape)
 
 
-def get_bitnet_scale(x: torch.Tensor) -> torch.Tensor:
+def get_bitnet_scale(x: torch.Tensor, over=None) -> torch.Tensor:
     """Tensor-wise mean of |x|, in fp32 (``core.py:273``). Its sum runs in
-    torch's order, not XLA's: the two may differ in the last bits."""
-    return x.float().abs().mean()
+    torch's order, not XLA's: the two may differ in the last bits.
+    ``over``: the name of the span of a weight's elements (``"weights"``);
+    where a mesh splits it, x is a rank's equal share of the matrix (or the
+    whole of it, replicated), and the sum of |x| is all-reduced over the
+    mesh axis and divided by the element count of every rank's x, as JAX's
+    partitioned program takes the mean over the whole matrix."""
+    span = _span(over)
+    if span is None:
+        return x.float().abs().mean()
+    from ..parallel.collectives import all_reduce, axis_size
+
+    return all_reduce(x.float().abs().sum(), *span) / (x.numel() * axis_size(*span))
 
 
 def quantize_bitnet_weight(w: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

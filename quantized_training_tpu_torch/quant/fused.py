@@ -69,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import fused_producers as fp
-from ..ops import rope
+from ..ops import remat, rope
 from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm_general
 from .api import qlinear, qlinear_multi
@@ -158,6 +158,17 @@ def _grad_pair(g, w, sr: bool, gw8: bool, kg, kw, cq=None, cs=None):
     return gi, g_col, g_col_s
 
 
+def _named_amax(name: str, col_amax: list) -> list:
+    """A fused producer's column maxima (none, or one), named for the remat
+    policy (JAX's ``QUANT_AMAX_RESIDUAL``, :106-125): a recording forward
+    saves them, a replay takes the forward's."""
+    if not col_amax:
+        return col_amax
+    if remat.replaying():
+        return [remat.load(name)]
+    return [remat.save(name, col_amax[0])]
+
+
 class _NormMM(torch.autograd.Function):
     """rms_norm(x2d, gamma) @ w_i^T for every weight, the norm inside the
     shared input's row quantize (JAX ``_norm_mm``, :204-318). With an int8
@@ -171,13 +182,18 @@ class _NormMM(torch.autograd.Function):
         n = len(flat) // 5
         ws, row_qs, row_ss = flat[:n], flat[n:2 * n], flat[2 * n:3 * n]
         sr, gw8 = config.stochastic_rounding, config.grad_weight
-        y_row, y_row_s, *col_amax = fp.rmsnorm_quant_rowwise(
-            x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
-        y_row_s = y_row_s.to(x2d.dtype)
-        outs = []
-        for i, (w, rq, rs) in enumerate(zip(ws, row_qs, row_ss)):
-            w_row, w_row_s = _row_view(w, rq, rs, sr, fold_in(_sub(key, 1), i) if sr else None)
-            outs.append(scaled_mm_general(y_row, w_row, y_row_s, w_row_s, dims=(1, 1), out_dtype=x2d.dtype))
+        if remat.skips():  # the replay of q/k/v given: only the node
+            col_amax = [remat.load("norm_amax")] if gw8 else []
+            outs = [remat.unread_like(x2d, (x2d.shape[0], w.shape[-2])) for w in ws]
+        else:
+            y_row, y_row_s, *col_amax = fp.rmsnorm_quant_rowwise(
+                x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
+            col_amax = _named_amax("norm_amax", col_amax)
+            y_row_s = y_row_s.to(x2d.dtype)
+            outs = []
+            for i, (w, rq, rs) in enumerate(zip(ws, row_qs, row_ss)):
+                w_row, w_row_s = _row_view(w, rq, rs, sr, fold_in(_sub(key, 1), i) if sr else None)
+                outs.append(scaled_mm_general(y_row, w_row, y_row_s, w_row_s, dims=(1, 1), out_dtype=x2d.dtype))
         ctx.config, ctx.eps, ctx.key, ctx.n = config, eps, key, n
         ctx.save_for_backward(x2d, gamma, *col_amax, *ws, *flat[3 * n:])
         return tuple(outs)
@@ -252,10 +268,16 @@ class _SiluMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, config, key, a2d, b2d, w, rq, rs, cq, cs):
         sr, gw8 = config.stochastic_rounding, config.grad_weight
-        y_row, y_row_s, *col_amax = fp.silu_mul_quant_rowwise(
-            a2d, b2d, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
-        w_row, w_row_s = _row_view(w, rq, rs, sr, _sub(key, 1) if sr else None)
-        out = scaled_mm_general(y_row, w_row, y_row_s.to(a2d.dtype), w_row_s, dims=(1, 1), out_dtype=a2d.dtype)
+        if remat.skips():  # the replay of the layer's last linear: only the node
+            col_amax = [remat.load("silu_amax")] if gw8 else []
+            out = remat.unread_like(a2d, (a2d.shape[0], w.shape[-2]))
+        else:
+            y_row, y_row_s, *col_amax = fp.silu_mul_quant_rowwise(
+                a2d, b2d, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
+            col_amax = _named_amax("silu_amax", col_amax)
+            w_row, w_row_s = _row_view(w, rq, rs, sr, _sub(key, 1) if sr else None)
+            out = scaled_mm_general(y_row, w_row, y_row_s.to(a2d.dtype), w_row_s, dims=(1, 1),
+                                    out_dtype=a2d.dtype)
         ctx.config, ctx.key = config, key
         ctx.save_for_backward(a2d, b2d, w, cq, cs, *col_amax)
         return out
@@ -319,16 +341,23 @@ class _MLPMM(torch.autograd.Function):
         sr, gw8 = config.stochastic_rounding, config.grad_weight
         h_q, h_s, *h_camax = fp.rmsnorm_quant_rowwise(
             x2d, gamma, norm_eps=eps, sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
+        h_camax = _named_amax("mlp_norm_amax", h_camax)
         h_s = h_s.to(x2d.dtype)
         outs = []
         for i, w in enumerate((wg, wu)):
             w_row, w_row_s = _row_view(w, row_qs[i], row_ss[i], sr, fold_in(_sub(key, 1), i) if sr else None)
             outs.append(scaled_mm_general(h_q, w_row, h_s, w_row_s, dims=(1, 1), out_dtype=x2d.dtype))
         gate, up = outs
-        act_q, act_s, *act_camax = fp.silu_mul_quant_rowwise(
-            gate, up, sr=sr, key=_sub(key, 2) if sr else None, with_col_amax=gw8)
-        wd_row, wd_row_s = _row_view(wd, row_qs[2], row_ss[2], sr, _sub(key, 3) if sr else None)
-        out = scaled_mm_general(act_q, wd_row, act_s.to(x2d.dtype), wd_row_s, dims=(1, 1), out_dtype=x2d.dtype)
+        if remat.skips():  # the replay of the layer's last op: gate and up for the node, no down
+            act_camax = [remat.load("mlp_silu_amax")] if gw8 else []
+            out = remat.unread_like(x2d, (x2d.shape[0], wd.shape[-2]))
+        else:
+            act_q, act_s, *act_camax = fp.silu_mul_quant_rowwise(
+                gate, up, sr=sr, key=_sub(key, 2) if sr else None, with_col_amax=gw8)
+            act_camax = _named_amax("mlp_silu_amax", act_camax)
+            wd_row, wd_row_s = _row_view(wd, row_qs[2], row_ss[2], sr, _sub(key, 3) if sr else None)
+            out = scaled_mm_general(act_q, wd_row, act_s.to(x2d.dtype), wd_row_s, dims=(1, 1),
+                                    out_dtype=x2d.dtype)
         ctx.config, ctx.eps, ctx.key = config, eps, key
         ctx.save_for_backward(x2d, gamma, wg, wu, wd, gate, up, *views[6:], *h_camax, *act_camax)
         return out
@@ -396,7 +425,8 @@ def mlp_linear(x, gamma, wg, wu, wd, eps: float, *, key: int | None = None):
         fused = _fused_ok(M, D, x2d) and _fused_ok(M, wg.shape[-2], x2d, n_inputs=3)
     if not fused:
         key = 0 if key is None else key
-        gate, up = norm_linear_multi(x, gamma, [wg, wu], eps, key=fold_in(key, 0))
+        with remat.read():  # gate and up: the down node's (or silu's) saved inputs
+            gate, up = norm_linear_multi(x, gamma, [wg, wu], eps, key=fold_in(key, 0))
         return silu_mul_linear(gate, up, wd, key=fold_in(key, 1))
     out = _MLPMM.apply(cfg, float(eps), _resolve_key(cfg, key), x2d, gamma, *_flat_views(ws))
     return out.reshape(*x.shape[:-1], wd.shape[-2])
@@ -425,16 +455,21 @@ class _AttnOutMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, config, key, out_g, w, rq, rs, cq, cs):
         B, KV, G, S, hd = out_g.shape
-        sr = config.stochastic_rounding
-        row_amax, col_amax = rope.ungroup_amax(out_g)
-        row_s = row_amax * (1.0 / 127.0)
-        x_row = rope.ungroup_quant(out_g, row_s, axis=1, sr=sr, key=_sub(key, 0) if sr else None)
-        w_row, w_row_s = _row_view(w, rq, rs, sr, _sub(key, 1) if sr else None)
-        out = scaled_mm_general(x_row.view(B * S, -1), w_row, row_s.view(B * S, 1).to(w.dtype), w_row_s,
-                                dims=(1, 1), out_dtype=w.dtype)
+        sr, gw8 = config.stochastic_rounding, config.grad_weight
+        if remat.skips():  # the replay of the post-attention residual given: only the node
+            col_amax = [remat.load("attn_out_amax")] if gw8 else []
+            out = remat.unread_like(out_g, (B * S, w.shape[-2]), w.dtype)
+        else:
+            row_amax, col_amax = rope.ungroup_amax(out_g)
+            # the column absmax is the backward's column scale: an int8 grad_weight only
+            col_amax = _named_amax("attn_out_amax", [col_amax] if gw8 else [])
+            row_s = row_amax * (1.0 / 127.0)
+            x_row = rope.ungroup_quant(out_g, row_s, axis=1, sr=sr, key=_sub(key, 0) if sr else None)
+            w_row, w_row_s = _row_view(w, rq, rs, sr, _sub(key, 1) if sr else None)
+            out = scaled_mm_general(x_row.view(B * S, -1), w_row, row_s.view(B * S, 1).to(w.dtype), w_row_s,
+                                    dims=(1, 1), out_dtype=w.dtype)
         ctx.config, ctx.key = config, key
-        # the column absmax is the backward's column scale: an int8 grad_weight only
-        ctx.save_for_backward(out_g, w, cq, cs, *((col_amax,) if config.grad_weight else ()))
+        ctx.save_for_backward(out_g, w, cq, cs, *col_amax)
         return out
 
     @staticmethod
@@ -469,7 +504,9 @@ def attn_out_linear(out_g, w, kv: int, *, key: int | None = None):
     fused = (_one_fusable_config([w]) is not None and (H * hd) % 128 == 0
              and (B * S) % 256 == 0 and rope._supported_heads(H, G, hd, S) and _fused_ok(B * S, H * hd, out_g))
     if not fused:
-        return qlinear(rope.ungroup_heads(out_g, kv).reshape(B, S, H * hd), w, key=key)
+        with remat.read():  # the linear's saved input
+            ctx = rope.ungroup_heads(out_g, kv).reshape(B, S, H * hd)
+        return qlinear(ctx, w, key=key)
     out = _AttnOutMM.apply(w.config, _resolve_key(w.config, key), out_g, *_w_views(w))
     return out.view(B, S, w.shape[-2])
 
@@ -495,7 +532,12 @@ def _producer_mm(config, key, quant_rows, x2d, w):
     an int8 grad_weight, else None), times w's row int8; the row scales in
     x2d's dtype."""
     sr, gw8 = config.stochastic_rounding, config.grad_weight
+    unread = remat.unread_like(x2d, (x2d.shape[0], w.shape[-2])) if remat.skips() else None
+    if unread is not None and not gw8:
+        return unread, None
     y_row, y_row_s, *col_amax = quant_rows(sr=sr, key=_sub(key, 0) if sr else None, with_col_amax=gw8)
+    if unread is not None:  # the replay of fc2 (no policy): the kernel for its column maxima, no product
+        return unread, col_amax[0]
     w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=_sub(key, 1) if sr else None)
     out = scaled_mm_general(y_row, w_row, y_row_s.to(x2d.dtype), w_row_s, dims=(1, 1), out_dtype=x2d.dtype)
     return out, (col_amax[0] if col_amax else None)

@@ -6,7 +6,10 @@ group, ``quant/core.py::quantize_int4_groupwise``), :func:`requantize` with
 stochastic rounding for the commit, and the weight-only linear as a
 ``torch.autograd.Function``: the weight dequantized, a matmul in x's dtype
 forward and backward, and ``g^T @ x2d`` routed to the master (:89-142). The
-backward dequantizes again rather than keep the widened weight. This is not
+backward dequantizes again rather than keep the widened weight. Where
+tensor parallelism splits x's features (a row-parallel linear) the partial
+products are summed over the mesh axis in fp32 and rounded once
+(``quant/core.py::matmul_over``). This is not
 the signed row-wise int4 of mixed precision (B16): no kernel runs here, as
 none did in JAX, where XLA lowered the dequantize and the matmul.
 """
@@ -17,7 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
-from .core import dequantize_int4_groupwise, quantize_int4_groupwise
+from ..ops import remat
+from .core import dequantize_int4_groupwise, matmul_over, quantize_int4_groupwise
 from .node import WeightNode
 
 
@@ -82,7 +86,9 @@ class _Int4Linear(torch.autograd.Function):
         del master
         ctx.mat_shape = mat_shape
         ctx.save_for_backward(x2d, packed, scale, zero_point)
-        return x2d @ _deq(packed, scale, zero_point, mat_shape).T
+        if remat.skips():  # the replay of an unread output (remat): the node only
+            return remat.unread_like(x2d, (x2d.shape[0], mat_shape[0]))
+        return matmul_over(x2d, _deq(packed, scale, zero_point, mat_shape), "features")
 
     @staticmethod
     def backward(ctx, g):

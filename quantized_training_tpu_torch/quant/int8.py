@@ -11,6 +11,10 @@ in place of the ``jax.custom_vjp`` (:73-102):
   linear's key under ``'int8_sr'``; its mesh forms where tensor parallelism
   splits x's features, ``over="features"``), then K2 with the stored row
   scale as its column scale (``ops/scaled_mm.py``);
+- where tensor parallelism splits x's features (a row-parallel linear),
+  the linear sums its partial products over the mesh axis: the bf16
+  matmul's in fp32, K2's as int32 before its scales
+  (``quant/core.py::matmul_over``, ``::scaled_mm_over``);
 - backward, always in x's dtype: grad_input ``(g * scale^T) @ int_data``,
   and ``g^T @ x2d`` routed to ``master``. The scale lies along
   grad_input's reduction, so there is no int8 backward GEMM.
@@ -30,9 +34,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops.scaled_mm import scaled_mm_general
+from ..ops import remat
 from .configs import Int8QTConfig
-from .core import dequantize_int8, quantize_int8
+from .core import dequantize_int8, matmul_over, quantize_int8, scaled_mm_over
 from .node import WeightNode
 
 
@@ -82,14 +86,16 @@ class _Int8Linear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, config, key, x2d, master, int_data, scale):
         del master
-        if config.activation == "none":
-            out = (x2d @ int_data.T.to(x2d.dtype)) * scale.reshape(1, -1)
+        if remat.skips():  # the replay of an unread output (remat): the node only
+            out = remat.unread_like(x2d, (x2d.shape[0], int_data.shape[0]))
+        elif config.activation == "none":
+            out = matmul_over(x2d, int_data.to(x2d.dtype), "features") * scale.reshape(1, -1)
         else:
             sr = config.activation == "int8_sr"
             x_i8, x_scale = quantize_int8(x2d, axis=-1, stochastic_rounding=sr, key=key if sr else None,
                                           over="features")
             sa, sb = _scales(x_scale, scale.reshape(1, -1))
-            out = scaled_mm_general(x_i8, int_data, sa, sb, dims=(1, 1), out_dtype=x2d.dtype)
+            out = scaled_mm_over(x_i8, int_data, sa, sb, dims=(1, 1), out_dtype=x2d.dtype, over="features")
         ctx.save_for_backward(x2d, int_data, scale)
         return out
 

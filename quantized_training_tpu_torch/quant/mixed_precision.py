@@ -46,7 +46,10 @@ columns of g, B4 of x2d, the int4 and fp8 'row' quantizes of the
 grad_weight matmul), the forward's contraction axis ``"features"`` (K1 of
 x2d and of w, which tensor parallelism splits in a row-parallel linear).
 grad_input's operands reduce the output features, which no mesh splits
-here. fp8 'tile' takes the tile path only where the rank's token count is a
+here; a row-parallel linear sums its partial products over the features'
+mesh axis (``_mp_forward``: int8's int32 sums before the scales, the
+others' fp32 partials, then one rounding, as JAX's partitioned program).
+fp8 'tile' takes the tile path only where the rank's token count is a
 multiple of 128, so each 1 x 128 group of tokens, and each 128 x 128 block,
 lies inside one rank's rows, whose offset is a multiple of that count: its
 maxima need no all-reduce.
@@ -76,10 +79,12 @@ import torch
 
 from ..ops.fp8 import quantize_fp8, quantize_fp8_block, quantize_fp8_tile
 from ..ops.int4_mm import scaled_int4_mm
+from ..ops import remat
 from ..ops.random import fold_in, split
 from ..ops.scaled_mm import scaled_mm, scaled_mm_general
 from .configs import MixedPrecisionConfig
-from .core import max_over, quantize_int4_rowwise_absmax, quantize_int8, quantize_int8_both
+from .core import (_span, matmul_over, max_over, quantize_int4_rowwise_absmax, quantize_int8, quantize_int8_both,
+                   scaled_mm_over, sum_over)
 from .node import WeightNode
 
 
@@ -116,6 +121,14 @@ def _subkey(key: int, i: int) -> int:
 _CONTRACTED = {(1, 1): "features", (0, 0): "tokens"}
 
 
+def _summed(dims):
+    """The axis over which a product of these dims sums its partials where a
+    mesh splits it: the forward's features (a row-parallel linear under
+    tensor parallelism). grad_weight's tokens are summed by the step's
+    gradient reduction, not here."""
+    return "features" if tuple(dims) == (1, 1) else None
+
+
 def _dynamic_int8_mm(a, b, sr: bool, key: int | None, dims=(1, 0)):
     """Contract a over dims[0] and b over dims[1], both dynamically
     quantized to INT8 along their contraction axis, each operand from its
@@ -124,15 +137,15 @@ def _dynamic_int8_mm(a, b, sr: bool, key: int | None, dims=(1, 0)):
     over = _CONTRACTED.get(tuple(dims))
     a_i8, sa = quantize_int8(a, axis=dims[0], stochastic_rounding=sr, key=ka, over=over)
     b_i8, sb = quantize_int8(b, axis=dims[1], stochastic_rounding=sr, key=kb, over=over)
-    return scaled_mm_general(a_i8, b_i8, sa, sb, dims=dims, out_dtype=a.dtype)
+    return scaled_mm_over(a_i8, b_i8, sa, sb, dims=dims, out_dtype=a.dtype, over=_summed(dims))
 
 
-def _dynamic_int4_mm(a, b, over=None):
+def _dynamic_int4_mm(a, b, over=None, out_dtype=None):
     """a [M, K] . b [K, N], both quantized row-wise to packed int4 along K
     (b as b^T, made contiguous), then B16 (JAX :79-83). No SR."""
     a_i4, row_scale = quantize_int4_rowwise_absmax(a.contiguous(), over)
     b_t_i4, col_scale = quantize_int4_rowwise_absmax(b.T.contiguous(), over)
-    return scaled_int4_mm(a_i4, b_t_i4, row_scale, col_scale, out_dtype=a.dtype)
+    return scaled_int4_mm(a_i4, b_t_i4, row_scale, col_scale, out_dtype=out_dtype or a.dtype)
 
 
 def _fp8_rows(x, axis: int, over):
@@ -142,43 +155,51 @@ def _fp8_rows(x, axis: int, over):
     return quantize_fp8(x, axis=axis, amax=max_over(amax, over))
 
 
-def _dynamic_fp8_mm(a, b, scale_mode: str, dims):
+def _dynamic_fp8_mm(a, b, scale_mode: str, dims, out_dtype=None):
     """Dynamic e4m3 matmul, row- or tile-scaled (JAX :86-116): 'tile' with
     K and N multiples of 128 takes the standard operands (transposed first
     where dims ask), a's 1 x 128 groups and b's 128 x 128 blocks, and B15;
     otherwise both operands row-scaled along their contraction axes, as
     stored."""
     K, N = a.shape[dims[0]], b.shape[1 - dims[1]]
+    out_dtype = out_dtype or a.dtype
     if scale_mode == "tile" and K % 128 == 0 and N % 128 == 0:
         a_std = a if dims[0] == 1 else a.T
         b_std = b if dims[1] == 0 else b.T
         a_q, a_s = quantize_fp8_tile(a_std.contiguous())
         b_q, b_s = quantize_fp8_block(b_std.contiguous())
-        return scaled_mm(a_q, b_q, a_s, b_s, out_dtype=a.dtype)
+        return scaled_mm(a_q, b_q, a_s, b_s, out_dtype=out_dtype)
     over = _CONTRACTED.get(tuple(dims))
     a_q, a_s = _fp8_rows(a, dims[0], over)
     b_q, b_s = _fp8_rows(b, dims[1], over)
-    return scaled_mm_general(a_q, b_q, a_s, b_s, dims=dims, out_dtype=a.dtype)
+    return scaled_mm_general(a_q, b_q, a_s, b_s, dims=dims, out_dtype=out_dtype)
 
 
-def _dynamic_mm(a, b, config: MixedPrecisionConfig, key: int | None, dims=(1, 0)):
-    """One quantized matmul of the config's dtype (JAX :119-134)."""
+def _dynamic_mm(a, b, config: MixedPrecisionConfig, key: int | None, dims=(1, 0), out_dtype=None):
+    """One quantized matmul of the config's dtype (JAX :119-134), its output
+    in a's dtype unless ``out_dtype`` (int4 and fp8) says otherwise."""
     if config.dtype == "int8":
         return _dynamic_int8_mm(a, b, config.stochastic_rounding, key, dims)
     if config.dtype == "int4":
         a = a if dims[0] == 1 else a.T
         b = b if dims[1] == 0 else b.T
-        return _dynamic_int4_mm(a, b, _CONTRACTED.get(tuple(dims)))
+        return _dynamic_int4_mm(a, b, _CONTRACTED.get(tuple(dims)), out_dtype)
     if config.dtype == "fp8_e4m3":
-        return _dynamic_fp8_mm(a, b, config.scale, dims)
+        return _dynamic_fp8_mm(a, b, config.scale, dims, out_dtype)
     raise ValueError(f"unsupported mixed-precision dtype {config.dtype!r}")
 
 
 def _mp_forward(config: MixedPrecisionConfig, x2d, w, key: int):
-    """x2d [B, in] @ w.T [in, out]; w is [out, in]."""
-    if config.output:
+    """x2d [B, in] @ w.T [in, out]; w is [out, in]. Where tensor
+    parallelism splits the features, the partial products are summed over
+    the mesh axis: int8's int32 sums before the scales, bf16's, int4's and
+    fp8's in fp32, each rounded once."""
+    if not config.output:
+        return matmul_over(x2d, w, "features")
+    if config.dtype == "int8" or _span("features") is None:
         return _dynamic_mm(x2d, w, config, _subkey(key, 0), dims=(1, 1))
-    return x2d @ w.T
+    out = _dynamic_mm(x2d, w, config, _subkey(key, 0), dims=(1, 1), out_dtype=torch.float32)
+    return sum_over(out, "features").to(x2d.dtype)
 
 
 def _grads_both_int8(g, w, x_col, x_col_s, sr, kg, kw):
@@ -201,7 +222,8 @@ class _MPLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, w, config, key):
-        out = _mp_forward(config, x2d, w, key)
+        # the replay of an unread output (remat): the node only
+        out = remat.unread_like(x2d, (x2d.shape[0], w.shape[0])) if remat.skips() else _mp_forward(config, x2d, w, key)
         ctx.config, ctx.key = config, key
         ctx.save_for_backward(x2d, w)
         return out
@@ -240,6 +262,10 @@ class _MPLinearShared(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, config, key, x2d, *ws):
+        ctx.config, ctx.key = config, key
+        ctx.save_for_backward(x2d, *ws)
+        if remat.skips():  # the replay of unread outputs (remat): the node only
+            return tuple(remat.unread_like(x2d, (x2d.shape[0], w.shape[0])) for w in ws)
         sr = config.stochastic_rounding
         kx = _subkey(key, 0) if sr else None
         x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=kx, over="features")
@@ -249,8 +275,6 @@ class _MPLinearShared(torch.autograd.Function):
             w_row, w_row_s = quantize_int8(w, axis=1, stochastic_rounding=sr, key=kw, over="features")
             outs.append(scaled_mm_general(x_row, w_row, x_row_s, w_row_s, dims=(1, 1),
                                           out_dtype=x2d.dtype))
-        ctx.config, ctx.key = config, key
-        ctx.save_for_backward(x2d, *ws)
         return tuple(outs)
 
     @staticmethod
@@ -463,13 +487,15 @@ class _MPLinearPQ(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2d, w, row_q, row_s, col_q, col_s, config, key):
         sr = config.stochastic_rounding
-        if config.output:
+        if remat.skips():  # the replay of an unread output (remat): the node only
+            out = remat.unread_like(x2d, (x2d.shape[0], w.shape[0]))
+        elif config.output:
             x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None,
                                            over="features")
             rq, rs = _row_view(w, row_q, row_s, sr, _subkey(key, 4) if sr else None)
-            out = scaled_mm_general(x_row, rq, x_row_s, rs, dims=(1, 1), out_dtype=x2d.dtype)
+            out = scaled_mm_over(x_row, rq, x_row_s, rs, dims=(1, 1), out_dtype=x2d.dtype, over="features")
         else:
-            out = x2d @ w.T
+            out = matmul_over(x2d, w, "features")
         ctx.config, ctx.key = config, key
         ctx.save_for_backward(x2d, w, col_q, col_s)
         return out
@@ -520,6 +546,10 @@ class _MPLinearSharedPQ(torch.autograd.Function):
     @staticmethod
     def forward(ctx, config, key, n, x2d, *flat):
         ws, row_qs, row_ss = flat[:n], flat[n:2 * n], flat[2 * n:3 * n]
+        ctx.config, ctx.key, ctx.n = config, key, n
+        ctx.save_for_backward(x2d, *ws, *flat[3 * n:])
+        if remat.skips():  # the replay of unread outputs (remat): the node only
+            return tuple(remat.unread_like(x2d, (x2d.shape[0], w.shape[0])) for w in ws)
         sr = config.stochastic_rounding
         x_row, x_row_s = quantize_int8(x2d, axis=1, stochastic_rounding=sr, key=_subkey(key, 0) if sr else None,
                                        over="features")
@@ -527,8 +557,6 @@ class _MPLinearSharedPQ(torch.autograd.Function):
         for i, (w, rq, rs) in enumerate(zip(ws, row_qs, row_ss)):
             rq, rs = _row_view(w, rq, rs, sr, fold_in(_subkey(key, 4), i) if sr else None)
             outs.append(scaled_mm_general(x_row, rq, x_row_s, rs, dims=(1, 1), out_dtype=x2d.dtype))
-        ctx.config, ctx.key, ctx.n = config, key, n
-        ctx.save_for_backward(x2d, *ws, *flat[3 * n:])
         return tuple(outs)
 
     @staticmethod

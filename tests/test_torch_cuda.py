@@ -1840,3 +1840,28 @@ def test_finetune_step_at_padded_lengths(monkeypatch, S):
     _, metrics = train.make_train_step(cfg, opt)(state, tok.cuda(), lab.cuda(), 1e-4, 5)
     assert ops.launch_counts() == chip_smoke.finetune_per_step_launches(cfg, 2, S, len(tree_leaves(params)))
     assert torch.isfinite(metrics["loss"]).item()
+
+
+@pytest.mark.parametrize("B,H,KV,S,hd", [(2, 32, 4, 2048, 64), (1, 8, 8, 512, 128)])
+def test_sdpa_function_gives_f_sdpa_bits(B, H, KV, S, hd):
+    """``ops/sdpa.py`` on the card, causal, with and without GQA, under
+    deterministic algorithms: the backend ``F.scaled_dot_product_attention``
+    picks, its forward and its grads bit for bit with F.sdpa's, the forward
+    counted once (``ops.sdpa_forwards()``)."""
+    SDPA = importlib.import_module("quantized_training_tpu_torch.ops.sdpa")
+    q, k, v = (_rand((B, n, S, hd), torch.bfloat16, s).requires_grad_(True) for s, n in ((1, H), (2, KV), (3, KV)))
+    g = _rand((B, H, S, hd), torch.bfloat16, 4)
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, scale=1.0,
+                                                               enable_gqa=KV != H)
+        ref_g = torch.autograd.grad(ref, (q, k, v), g)
+        ops.reset_launch_counts()
+        out = SDPA.sdpa(q, k, v, is_causal=True, scale=1.0, enable_gqa=True)
+        assert ops.sdpa_forwards() == 1
+        got_g = torch.autograd.grad(out, (q, k, v), g)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    assert torch.equal(out, ref)
+    assert all(torch.equal(a, b) for a, b in zip(got_g, ref_g))

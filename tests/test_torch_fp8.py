@@ -183,7 +183,8 @@ def test_llama_loss_and_grads_fp8_vs_jax(scale):
 @pytest.mark.parametrize("scale", ["row", "tile"])
 def test_kernel_calls_per_step_fp8(monkeypatch, scale):
     """One remat train step of the fp8-tile config launches B15's e4m3 form
-    28 L times (7 weights: forward twice, grad_input, grad_weight: every
+    27 L times (7 weights: forward, grad_input, grad_weight, and 6 in the
+    replay, not down's: every
     dim of the model and the 128 tokens are multiples of 128, so nothing
     falls back to row scales); the fp8-row config launches no kernel of
     these, and neither launches an int8 quantize or GEMM."""

@@ -405,9 +405,9 @@ def test_sr_remat_on_off_bit_identical_fused(interpret, monkeypatch):
     """With SR on the fused layer (the grouped pipeline forced, at B * S =
     256 so that the o-projection is a fused op too), a key fixes every draw:
     the same key gives the same loss and grads bit for bit, with per-layer
-    remat (the forward, B7, B9-row and B14 included, replayed in the
-    backward with the layer's key) and without it; another key gives other
-    grads."""
+    remat (the forward's B7 and B14 replayed in the backward with the
+    layer's key, B9-row's column maxima kept from the forward under the
+    policy) and without it; another key gives other grads."""
     monkeypatch.setenv("QT_FUSED_ROPE", "force")
     counts = _count_applies(monkeypatch)
     rng = np.random.default_rng(5)
@@ -432,9 +432,11 @@ def test_sr_remat_on_off_bit_identical_fused(interpret, monkeypatch):
 def test_kernel_calls_per_step_fused(interpret, monkeypatch, sr):
     """The launch counts chip_smoke.py holds the card to on the fused
     layer, per layer of one remat train step, with the grouped pipeline
-    (forced here, the default on the card) at B * S = 256: forward (twice)
-    K1 7 (the weights), K2 7, B7 2, B9-row 1, rope_group 3 (q, k, v),
-    ungroup_amax 1 and ungroup_quant 1 (o's input); backward B5 5 (the
+    (forced here, the default on the card) at B * S = 256: forward K1 7
+    (the weights), K2 7, B7 2, B9-row 1, rope_group 3 (q, k, v),
+    ungroup_amax 1 and ungroup_quant 1 (o's input), and the remat replay
+    all of it but down's K1 and K2 and B9-row (the policy keeps B9-row's
+    column maxima; no backward reads the layer's output); backward B5 5 (the
     output grads of q, k, v, o and down), B4 7 (the weights), B1 and B2 7
     each, B8 2, B9-col 1, B10 2, B11 1 and B12 1 ((dgate, dup)),
     ungroup_quant 1 (o's input along columns), rope_group 1 (o's input
@@ -451,9 +453,9 @@ def test_kernel_calls_per_step_fused(interpret, monkeypatch, sr):
     train.make_train_step(cfg, opt)(train.init_train_state(params, opt), tok, lab, 3e-4, 0)
     L, t = KW["num_hidden_layers"], "_sr" if sr else ""
     expect = dict.fromkeys(ops.KERNELS, 0)
-    expect.update({f"quantize_int8_rowwise{t}": 14 * L, f"quantize_int8_colwise{t}": 7 * L,
-                   f"quantize_int8_both{t}": 5 * L, "scaled_mm_rhs_t": 14 * L, "scaled_mm": 7 * L,
-                   "scaled_mm_lhs_t": 7 * L, f"rmsnorm_quant_rowwise{t}": 4 * L, f"silu_mul_quant_rowwise{t}": 2 * L,
+    expect.update({f"quantize_int8_rowwise{t}": 13 * L, f"quantize_int8_colwise{t}": 7 * L,
+                   f"quantize_int8_both{t}": 5 * L, "scaled_mm_rhs_t": 13 * L, "scaled_mm": 7 * L,
+                   "scaled_mm_lhs_t": 7 * L, f"rmsnorm_quant_rowwise{t}": 4 * L, f"silu_mul_quant_rowwise{t}": L,
                    f"rmsnorm_quant_colwise{t}": 2 * L, f"silu_mul_quant_colwise{t}": L, "rmsnorm_bwd": 2 * L,
                    f"silu_mul_bwd_quant_rowwise{t}": L, f"silu_mul_bwd_quant_colwise{t}": L, "rope_group": 7 * L,
                    "rope_ungroup": 3 * L, "ungroup_amax": 2 * L, f"ungroup_quant{t}": 3 * L})

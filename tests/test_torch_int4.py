@@ -214,19 +214,20 @@ def count_gemms(monkeypatch):
 def per_step(L: int, gemm: str | None, remat: bool = True) -> dict:
     """The launches of one int4 or fp8-tile train step of L layers, which
     chip_smoke.py holds the card to: 7 quantized weights a layer, each with
-    one GEMM in the forward (twice with remat) and two in the backward; no
+    one GEMM in the forward and two in the backward, and with remat 6 more
+    in the replay (not down's: no backward reads the layer's output); no
     int8 kernel. fp8-row (``gemm`` None) launches no kernel of these."""
     counts = dict.fromkeys(ops.KERNELS, 0)
     if gemm is not None:
-        counts[gemm] = 7 * L * ((2 if remat else 1) + 2)
+        counts[gemm] = (7 * 3 + (6 if remat else 0)) * L
     return counts
 
 
 @pytest.mark.parametrize("remat", [True, False])
 def test_kernel_calls_per_step_int4(monkeypatch, remat):
-    """One int4 train step launches B16 28 L times with remat (7 weights:
-    forward twice, grad_input, grad_weight), 21 L without, and no int8
-    quantize or GEMM."""
+    """One int4 train step launches B16 27 L times with remat (7 weights:
+    forward, grad_input, grad_weight; 6 in the replay), 21 L without, and
+    no int8 quantize or GEMM."""
     counts = count_gemms(monkeypatch)
     cfg = llama.LlamaConfig(**KW, remat=remat, attention_impl="xla")
     params = quant.quantize_params(llama.init_params(torch.Generator().manual_seed(0), cfg), "mixed_precision",

@@ -277,3 +277,26 @@ def test_prequant_specs_gather_each_view_with_its_weight():
     views = prequant_specs({"w": prequantize_weight(w, mode="row")}, {"w": MixedPrecisionWeight(Shard(1, 0, 2),
                                                                                                  w.config)})["w"]
     assert views.col_q.dim is None and views.col_s.dim is None and views.row_q.dim == 1
+
+
+def test_scaled_mm_over_keeps_int32_sums_past_fp32s_integers(monkeypatch):
+    """A rank's int8 sums past 2**24 (K = 2816 products of 127 x 127, as
+    Llama2-1B's down projection under TP 2 could reach) go into the
+    all-reduce exact: ``scaled_mm_over`` runs K2 on ``EXACT_K`` slices of
+    the contraction, whose fp32 sums are exact, and adds them as int32. The
+    all-reduce is stood in for by another rank's partial of 5 - S, so the
+    output is 5 only where the rank's sum S was exact."""
+    from quantized_training_tpu_torch.parallel import collectives
+    from quantized_training_tpu_torch.quant import core
+
+    K = 2816
+    a = torch.full((2, K), 127, dtype=torch.int8)
+    a[0, 0] = 1
+    b = torch.full((16, K), 127, dtype=torch.int8)
+    exact = a.long() @ b.long().T
+    assert (exact.abs() > 2**24).all() and (exact[0].float().long() != exact[0]).all()
+    monkeypatch.setitem(collectives._SPANS, "features", (None, "model"))
+    monkeypatch.setattr(collectives, "all_reduce", lambda x, mesh, axis: x - exact.to(x.dtype) + 5)
+    out = core.scaled_mm_over(a, b, torch.ones(2), torch.ones(16), dims=(1, 1), out_dtype=torch.float32,
+                              over="features")
+    assert torch.equal(out, torch.full((2, 16), 5.0)), out

@@ -48,7 +48,7 @@ from quantized_training_tpu import quant as jquant
 from quantized_training_tpu.models import llama as jllama
 from quantized_training_tpu.models import llama_infer as jinfer
 from quantized_training_tpu.parallel import (bitnet_fsdp_linear, bitnet_fsdp_params, make_mesh, shard_batch,
-                                             shard_params_tp, shard_state)
+                                             shard_kv_cache, shard_params_tp, shard_state)
 from quantized_training_tpu.train import init_train_state, make_train_step
 from quantized_training_tpu_torch import optim, quant, train
 from quantized_training_tpu_torch.convert import params_from_jax
@@ -89,13 +89,16 @@ MOMENT_RTOL = 5e-2
 # its sign between the two runs: 2 LR a step, over 3 steps
 PARAM_ATOL = 2 * 3 * LR
 SPAWN_TIMEOUT = 120  # seconds a spawn may take before it fails
-# provisional, replaced by the measured bounds below
-# each scheme's largest TP logit gap to JAX's TP at {"model": 4} (measured:
-# 6.8e-3, 6.3e-3, 1.17e-2, 7.8e-3, 7.6e-3, 1.17e-2, 1.76e-2; bf16 logits
-# near 1, whose ulp is 3.9e-3: int8 activations and mixed_precision sum the
-# row-parallel partial outputs rounded to bf16, BitNet meets int8 KV ties)
-TP_LOGIT_GAP = {"bf16": 1e-2, "int8_storage": 1e-2, "int8_activations": 1.6e-2, "bitnet_packed": 1.2e-2,
-                "int4_weight_only": 1.2e-2, "mixed_precision": 1.6e-2, "bitnet_norms": 2.5e-2}
+# each scheme's largest TP logit gap to JAX's TP at {"model": 4}, now that
+# every row-parallel linear sums its partial products before it rounds (C8:
+# int32 sums for int8 activations, mixed_precision and BitNet, fp32 partials
+# for the rest): measured 5.86e-3, 5.86e-3, 9.77e-3, 7.08e-3, 5.37e-3,
+# 9.77e-3, 1.758e-2, 7.08e-3 (before, with bf16 partial sums: 6.8e-3,
+# 6.3e-3, 1.17e-2, 7.8e-3, 7.6e-3, 1.17e-2, 1.76e-2); bf16 logits near 1,
+# whose steps are 1.95e-3-3.9e-3, so each bound sits below the next step
+# above what was measured. BitNet's norms meet int8 KV ties.
+TP_LOGIT_GAP = {"bf16": 7e-3, "int8_storage": 7e-3, "int8_activations": 1.1e-2, "bitnet_packed": 8e-3,
+                "int4_weight_only": 7e-3, "mixed_precision": 1.1e-2, "bitnet_norms": 2e-2, "bitnet_unpacked": 8e-3}
 # the 8-bit state after a step against the port's one-process run's
 # (measured: 0.75-0.99 of the codes agree, 5 steps at most) and after three
 # against JAX's (dequantized L1 gap 0.018-0.028, as one process's to JAX's)
@@ -154,7 +157,7 @@ def _packed(params):
 
 TP_BITNET = ("bitnet_norms",)  # the schemes whose model has BitNet's o_norm and down_norm
 TP_SCHEMES = ["bf16", "int8_storage", "int8_activations", "bitnet_packed", "int4_weight_only", "mixed_precision",
-              "bitnet_norms"]
+              "bitnet_norms", "bitnet_unpacked"]
 
 
 def _tp_params(cfg):
@@ -163,7 +166,8 @@ def _tp_params(cfg):
     return {"bf16": params, "int8_storage": jquant.quantize_params(params, "int8_quantized_training"),
             "int8_activations": jquant.quantize_params(params, "int8_quantized_training", activation="int8"),
             "bitnet_packed": _packed(params), "int4_weight_only": jquant.quantize_params(params, "int4_weight_only"),
-            "mixed_precision": jquant.quantize_params(params, "mixed_precision"), "bitnet_norms": _packed(bitnet)}
+            "mixed_precision": jquant.quantize_params(params, "mixed_precision"), "bitnet_norms": _packed(bitnet),
+            "bitnet_unpacked": jquant.quantize_params(params, "bitnet")}
 
 
 def _fused_inputs() -> dict:
@@ -192,6 +196,8 @@ def ranks(tmp_path_factory):
                tp_params={k: _np(v) for k, v in _tp_params(jllama.LlamaConfig(**TP_CFG)).items()},
                tp_bitnet=TP_BITNET, fused=_fused_inputs(),
                pin_x=np.random.default_rng(5).standard_normal((64, 256)).astype(np.float32),
+               c8_x=np.random.default_rng(8).standard_normal((64, 256)).astype(np.float32),
+               c8_w=(np.random.default_rng(9).standard_normal((128, 256)) * 0.05).astype(np.float32),
                state8_x=[np.random.default_rng(s).random((2, 8, 96)).astype(np.float32) * 1e-3 for s in (6, 7)])
     out = {}
     for world in (4, 1):
@@ -389,10 +395,15 @@ def test_tp_prefill_vs_jax(ranks, scheme):
     TP, the same on every rank, and their largest gap within
     ``TP_LOGIT_GAP`` (the quantizes of o's and down's inputs take the global
     row's maxima; BitNet's norms sum their squares over ``model``); greedy
-    tokens agree with JAX's TP decode at 90% or more (argmax ties aside),
-    and with BitNet's norms at least as well as the port's one-process
-    decode does (ternary products meet int8 KV ties there: the port and JAX
-    part at near-ties whatever the mesh)."""
+    tokens agree with JAX's TP decode at 90% or more, or else each sequence
+    that parts from JAX's parts at a tie (``_first_parting_gaps``: JAX's
+    logit of the port's token within the scheme's TP_LOGIT_GAP of JAX's
+    largest) and the tokens agree at least as well as the port's
+    one-process decode's do (bf16 at this prompt: 0.875, one sequence
+    parting at a near-tie, as the port's one process does); with BitNet's
+    norms at least as well as the port's one-process decode does (ternary
+    products meet int8 KV ties there: the port and JAX part at near-ties
+    whatever the mesh)."""
     inp, out = ranks
     cfg = jllama.LlamaConfig(**TP_CFG, bitnet=scheme in TP_BITNET)
     params = _tp_params(cfg)[scheme]
@@ -408,13 +419,38 @@ def test_tp_prefill_vs_jax(ranks, scheme):
     gap = float(np.abs(out[4][0][f"tp/{scheme}"]["logits"] - ref).max())
     print(f"tp {scheme}: largest logit gap to JAX's TP {gap:.3e} (of max |logit| {np.abs(ref).max():.3e})")
     assert gap < TP_LOGIT_GAP[scheme], gap
-    agree = (out[4][0][f"tp/{scheme}"]["toks"] == toks).mean()
+    ours = out[4][0][f"tp/{scheme}"]["toks"]
+    agree = (ours == toks).mean()
+    one = llama_infer.generate(params_from_jax(_np(params)), torch.from_numpy(inp["prompt"]),
+                               llama.LlamaConfig(**TP_CFG, bitnet=scheme in TP_BITNET), 8).numpy()
     if scheme in TP_BITNET:
-        one = llama_infer.generate(params_from_jax(_np(params)), torch.from_numpy(inp["prompt"]),
-                                   llama.LlamaConfig(**TP_CFG, bitnet=True), 8).numpy()
         assert agree >= (one == toks).mean(), (agree, (one == toks).mean())
-    else:
-        assert agree > 0.9, agree
+    elif agree <= 0.9:
+        ties = _first_parting_gaps(p_tp, toks, ours, prompt.shape[1], cfg, mesh)
+        print(f"tp {scheme}: greedy agreement {agree:.3f}, JAX's logit gaps where a sequence parts {ties}")
+        assert ties and max(ties) < TP_LOGIT_GAP[scheme], (agree, ties)
+        assert agree >= (one == toks).mean(), (agree, (one == toks).mean())
+
+
+def _first_parting_gaps(p_tp, toks, ours, t0, cfg, mesh) -> list:
+    """For each sequence where the port's greedy tokens part from JAX's TP
+    decode ``toks``, JAX's largest logit less its logit of the port's token
+    at the first position they part: JAX's decode replayed on its own
+    tokens (the prefill, then one cached step a token), so the logits are
+    the ones its argmax read."""
+    cache = shard_kv_cache(jinfer.KVCache.zeros(cfg, toks.shape[0], toks.shape[1]), mesh)
+    logits, cache = jinfer.forward_with_cache(p_tp, jnp.asarray(toks[:, :t0]), cache, 0, cfg, flash_prefill=False)
+    steps = [np.asarray(logits[:, -1].astype(jnp.float32))]
+    for i in range(toks.shape[1] - t0 - 1):
+        logits, cache = jinfer.forward_with_cache(p_tp, jnp.asarray(toks[:, t0 + i:t0 + i + 1]), cache, t0 + i, cfg)
+        steps.append(np.asarray(logits[:, -1].astype(jnp.float32)))
+    gaps = []
+    for b in range(toks.shape[0]):
+        parted = np.flatnonzero(ours[b, t0:] != toks[b, t0:])
+        if parted.size:
+            row = steps[parted[0]][b]
+            gaps.append(float(row.max() - row[ours[b, t0 + parted[0]]]))
+    return gaps
 
 
 def test_sharded_resume_bit_for_bit(ranks):
@@ -527,6 +563,50 @@ def test_c5_pin_tp_row_scales(ranks):
         pin = o["pin/model"]
         assert np.array_equal(pin["s"], s.float().numpy())
         assert np.array_equal(pin["q"], q.chunk(4, 1)[pin["coord"]].numpy())
+
+
+# ---- C8 and C9: the sums over the axis that TP splits --------------------------
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each |x| (2**-133 at 0, the least subnormal)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0**-126)))
+    return np.exp2(e - 7)
+
+
+C8_SCHEMES = ["bf16", "int8_storage", "int8_activations", "mixed_precision", "bitnet_packed", "bitnet_unpacked",
+              "int4_weight_only"]
+
+
+@pytest.mark.parametrize("scheme", C8_SCHEMES)
+def test_c8_pin_row_parallel_sums(ranks, scheme):
+    """At {"model": 4}: a row-parallel linear on a rank's 64 of 256
+    features, summed over ``model`` inside the linear (the int8 paths' int32
+    sums before the scales, the others' fp32 partials), is the one-process
+    linear within one bf16 ulp on every element, on every rank."""
+    import importlib
+
+    worker = importlib.import_module("torch_rank_worker")
+    inp, out = ranks
+    x = torch.from_numpy(inp["c8_x"]).to(torch.bfloat16)
+    tree = worker.c8_weights(torch.from_numpy(inp["c8_w"]).to(torch.bfloat16)[None])[scheme]
+    ref = quant.qlinear(x, llama.layer_params(tree["layers"], 0)["down"]["w"]).float().numpy()
+    for o in out[4]:
+        got = o[f"c8/{scheme}"]
+        assert np.all(np.abs(got - ref) <= _bf16_ulp(ref)), np.abs(got - ref).max()
+    if scheme in ("int8_activations", "mixed_precision", "bitnet_packed", "bitnet_unpacked"):
+        assert np.array_equal(out[4][0][f"c8/{scheme}"], ref)  # the int32 sums: the same bits
+
+
+def test_c9_pin_bitnet_scale_spans_the_matrix(ranks):
+    """At {"model": 4}, inside the weights span: ``get_bitnet_scale`` of
+    a rank's rows and of its columns of a [128, 256] weight is the whole
+    matrix's abs-mean within one fp32 ulp, on every rank."""
+    inp, out = ranks
+    whole = float(quant.core.get_bitnet_scale(torch.from_numpy(inp["c8_w"]).to(torch.bfloat16)))
+    ulp = float(np.spacing(np.float32(whole)))
+    for o in out[4]:
+        assert abs(o["c9"]["rows"] - whole) <= ulp and abs(o["c9"]["cols"] - whole) <= ulp, (o["c9"], whole)
 
 
 # ---- the configurations the port refused under a mesh ------------------------

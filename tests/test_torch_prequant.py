@@ -23,8 +23,8 @@ inputs, and against the port's own dynamic path:
   (loss 1e-3, grad norm 5e-3, worst parameter leaf 1e-2);
 - the launches of a remat step, pinned by formula; stochastic rounding's
   keys (leaf i of the layers ``fold_in(key, i)``, layer l ``fold_in(.,
-  l)``) and its views unbiased over keys; tests/test_env_knobs.py's cases
-  that leave ``QT_SAVE_POSTATTN`` alone, on the port; the configs that stay
+  l)``) and its views unbiased over keys; tests/test_env_knobs.py's cases,
+  ``QT_SAVE_POSTATTN``'s too, on the port with remat; the configs that stay
   dynamic; the package exports against the JAX package's ``__all__``.
 """
 
@@ -362,24 +362,26 @@ def test_llama_step_under_prequant(monkeypatch, mode, fused_layer):
 def prequant_per_step(L: int, mode: str, layer: str, sr: bool = False) -> dict:
     """The launches of one remat train step of L layers under QT_PREQUANT
     ``mode`` ('0' the default), from the code. Default, per layer: 'fused'
-    (the grouped pipeline at B * S = 256) K1 14 (the 7 weights, forward and
-    replay), B4 7 (the weights), B5 5; 'unfused' K1 22 (7 weights and 4
-    inputs, twice), B4 11, B5 7. 'both' makes each weight's views with one
-    B5 and drops its K1 and B4 launches; 'row' makes the row view with one K1
-    and drops the forward's and the replay's; 'col' makes the column view
-    with one B4, which the backward no longer launches. K2, B1, B2 and the
-    fused layer's producers as without the knob."""
+    (the grouped pipeline at B * S = 256) K1 13 (the 7 weights in the
+    forward, 6 in the remat replay, which runs no down product), B4 7 (the
+    weights), B5 5; 'unfused' K1 20 (7 weights and 4 inputs, then 6 and 3),
+    B4 11, B5 7. 'both' makes each weight's views with one B5 and drops its
+    K1 and B4 launches; 'row' makes the row view with one K1 and drops the
+    forward's and the replay's; 'col' makes the column view with one B4,
+    which the backward no longer launches. K2 (13), B1, B2 and the fused
+    layer's producers (B9-row once: not in the replay) as without the
+    knob."""
     t, n = "_sr" if sr else "", L
     counts = dict.fromkeys(ops.KERNELS, 0)
-    k1, b4, b5 = (14, 7, 5) if layer == "fused" else (22, 11, 7)
-    k1 -= {"both": 14, "row": 7}.get(mode, 0)
+    k1, b4, b5 = (13, 7, 5) if layer == "fused" else (20, 11, 7)
+    k1 -= {"both": 13, "row": 6}.get(mode, 0)
     b4 -= 7 * (mode == "both")
     b5 += 7 * (mode == "both")
     counts.update({f"quantize_int8_rowwise{t}": k1 * n, f"quantize_int8_colwise{t}": b4 * n,
-                   f"quantize_int8_both{t}": b5 * n, "scaled_mm_rhs_t": 14 * n, "scaled_mm": 7 * n,
+                   f"quantize_int8_both{t}": b5 * n, "scaled_mm_rhs_t": 13 * n, "scaled_mm": 7 * n,
                    "scaled_mm_lhs_t": 7 * n})
     if layer == "fused":
-        counts.update({f"rmsnorm_quant_rowwise{t}": 4 * n, f"silu_mul_quant_rowwise{t}": 2 * n,
+        counts.update({f"rmsnorm_quant_rowwise{t}": 4 * n, f"silu_mul_quant_rowwise{t}": n,
                        f"rmsnorm_quant_colwise{t}": 2 * n, f"silu_mul_quant_colwise{t}": n, "rmsnorm_bwd": 2 * n,
                        f"silu_mul_bwd_quant_rowwise{t}": n, f"silu_mul_bwd_quant_colwise{t}": n,
                        "rope_group": 7 * n, "rope_ungroup": 3 * n, "ungroup_amax": 2 * n,
@@ -441,12 +443,14 @@ def test_sr_keys_and_unbiased_views(monkeypatch):
         assert (err.abs() <= 6 / 16).all() and err.mean().abs() <= 4 / (16 * err.numel() ** 0.5)
 
 
-# tests/test_env_knobs.py's configuration and the cases that leave
-# QT_SAVE_POSTATTN alone
+# tests/test_env_knobs.py's configuration and its cases, QT_SAVE_POSTATTN's
+# too, with remat on so that the knob reaches the remat policy
 TINY = dict(vocab_size=512, hidden_size=128, intermediate_size=256, num_hidden_layers=2, num_attention_heads=2,
             num_key_value_heads=2, max_position_embeddings=64)
 KNOB_CASES = [{}, {"QT_PREQUANT": "both"}, {"QT_PREQUANT": "row", "QT_FUSED": "0"},
-              {"QT_FUSED": "0", "QT_FUSED_ROPE": "force"}]
+              {"QT_PREQUANT": "col", "QT_SAVE_POSTATTN": "1"}, {"QT_SAVE_POSTATTN": "1", "QT_FUSED": "0"},
+              {"QT_FUSED": "0", "QT_FUSED_ROPE": "force"},
+              {"QT_PREQUANT": "both", "QT_FUSED_ROPE": "force", "QT_SAVE_POSTATTN": "1"}]
 
 
 def _knob_losses(monkeypatch, env):
@@ -454,7 +458,7 @@ def _knob_losses(monkeypatch, env):
         monkeypatch.setenv(k, v)
     fused.set_impl("off" if env.get("QT_FUSED") == "0" else "interpret")
     try:
-        cfg = llama.LlamaConfig(**TINY)
+        cfg = llama.LlamaConfig(**TINY, remat=True)
         qp = quant.quantize_params(llama.init_params(torch.Generator().manual_seed(1), cfg), "mixed_precision")
         opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
         state, step = train.init_train_state(qp, opt), train.make_train_step(cfg, opt)

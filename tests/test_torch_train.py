@@ -244,8 +244,8 @@ def test_kernel_calls_per_step(monkeypatch, remat):
     (q, k, v, o, gate, up, down: 7 L) and B4 11 L times (the 7 weights, the
     shared input of q/k/v and of gate/up once each, the inputs of o and
     down); the forward runs K1 11 L times (7 weights, 4 inputs) and K2 7 L
-    times, twice each with remat (the layer is recomputed in the
-    backward)."""
+    times, and with remat its replay under the policy all of it but down's
+    (K1 9 L, K2 6 L: no backward reads the layer's output)."""
     counts = _counting(monkeypatch)
     cfg = llama.LlamaConfig(**KW, remat=remat, attention_impl="xla")
     params = quant.quantize_params(llama.init_params(torch.Generator().manual_seed(0), cfg), "mixed_precision")
@@ -253,19 +253,21 @@ def test_kernel_calls_per_step(monkeypatch, remat):
     tok, lab = _batch(2)
     train.make_train_step(cfg, opt)(train.init_train_state(params, opt), torch.from_numpy(tok),
                                     torch.from_numpy(lab), 3e-4, 0)
-    assert counts == _per_step(KW["num_hidden_layers"], fwd=2 if remat else 1)
+    assert counts == _per_step(KW["num_hidden_layers"], remat=remat)
 
 
-def _per_step(L, fwd=2, micro=1, sr=False, b6=0, b6_sr=0):
+def _per_step(L, remat=True, micro=1, sr=False, b6=0, b6_sr=0):
     """The launch counts of one train step of L layers: ``micro``
-    micro-batches of the int8 forward (``fwd`` times with remat) and
+    micro-batches of the int8 forward (with remat, and its replay: all of
+    it but down's K1 on its input and on its weight and its K2) and
     backward, each quantize in its SR form when ``sr``; and the optimizer's
     B6 launches (the SR writeback apart)."""
     tag = "_sr" if sr else ""
+    k1, k2 = (11 + 9, 7 + 6) if remat else (11, 7)
     counts = dict.fromkeys(ops.KERNELS, 0)
     counts.update({
-        "quantize_int8_rowwise" + tag: 11 * L * fwd * micro, "quantize_int8_colwise" + tag: 11 * L * micro,
-        "quantize_int8_both" + tag: 7 * L * micro, "scaled_mm_rhs_t": 7 * L * fwd * micro,
+        "quantize_int8_rowwise" + tag: k1 * L * micro, "quantize_int8_colwise" + tag: 11 * L * micro,
+        "quantize_int8_both" + tag: 7 * L * micro, "scaled_mm_rhs_t": k2 * L * micro,
         "scaled_mm": 7 * L * micro, "scaled_mm_lhs_t": 7 * L * micro,
         "fused_adamw_update": b6, "fused_adamw_update_sr": b6_sr,
     })
@@ -300,10 +302,12 @@ def test_kernel_calls_per_step_sr_slice(monkeypatch, config):
 def storage_per_step(scheme: str, L: int, n_leaves: int, sr: bool = False) -> dict:
     """The launch counts of one remat train step of L layers on the grouped
     pipeline for a storage scheme, which chip_smoke.py holds the card to:
-    per layer the forward, run twice, quantizes each of the 7 linears'
-    inputs with K1 (q/k/v apart: qlinear_multi's fallback) and runs K2 7
-    times (int8 storage with int8 or int8_sr activations, BitNet), no int8
-    backward kernel; B13 as the unfused grouped layer (rope_group 7,
+    per layer the forward quantizes each of the 7 linears' inputs with K1
+    (q/k/v apart: qlinear_multi's fallback) and runs K2 7 times (int8
+    storage with int8 or int8_sr activations, BitNet), and its remat replay
+    6 (not down's: no backward reads the layer's output) with K1 on 6
+    inputs (int8 storage) or all 7 (BitNet, whose down node keeps its int8
+    input); no int8 backward kernel; B13 as the unfused grouped layer (rope_group 7,
     rope_ungroup 5: BitNet ungroups the attention output before o_norm);
     the commit re-quantizes each of the 7 stacked int8 weights once with
     K1-SR; the optimizer runs B6 once a master leaf. int4 weight-only runs
@@ -311,8 +315,8 @@ def storage_per_step(scheme: str, L: int, n_leaves: int, sr: bool = False) -> di
     counts = dict.fromkeys(ops.KERNELS, 0)
     counts.update({"rope_group": 7 * L, "rope_ungroup": 5 * L, "fused_adamw_update": n_leaves})
     if scheme != "int4_weight_only":
-        counts["quantize_int8_rowwise" + ("_sr" if sr else "")] += 2 * 7 * L
-        counts["scaled_mm_rhs_t"] = 2 * 7 * L
+        counts["quantize_int8_rowwise" + ("_sr" if sr else "")] += (7 + (7 if scheme == "bitnet" else 6)) * L
+        counts["scaled_mm_rhs_t"] = (7 + 6) * L
     if scheme == "int8_quantized_training":
         counts["quantize_int8_rowwise_sr"] += 7
     return counts
@@ -393,9 +397,9 @@ def test_unstack_layers_grads_match_indexing():
 
 def test_config_fields_match_jax():
     """LlamaConfig carries the JAX config's training fields with the same
-    defaults (remat off, attention 'auto')."""
+    defaults (remat off, attention 'auto', no q/k/v residuals kept)."""
     jf = {f.name: f.default for f in dataclasses.fields(jllama.LlamaConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(llama.LlamaConfig)}
-    for name in ("remat", "attention_impl"):
+    for name in ("remat", "attention_impl", "save_qkv_residuals"):
         assert tf[name] == jf[name]
     assert set(tf) <= set(jf)

@@ -248,9 +248,11 @@ def test_sr_remat_on_off_bit_identical(monkeypatch):
 
 def per_step(L: int, n_leaves: int, sr: bool = False, patch_embed: bool = False) -> dict:
     """Kernel launches of one remat train step of L fused blocks on one
-    micro-batch, from the code: per block the forward (run twice) launches
-    B18 LayerNorm-row 2 (qkv, fc1), GELU-row 1 (fc2), K1 5 (the four
-    weights and proj's input), K2 4; the backward B18 LayerNorm-column 2 and
+    micro-batch, from the code: per block the forward launches B18
+    LayerNorm-row 2 (qkv, fc1), GELU-row 1 (fc2), K1 5 (the four weights
+    and proj's input), K2 4, and the remat replay all of it but fc2's K2
+    and its weight's K1 (no backward reads the block's output; fc2's GELU
+    row kernel runs for its column maxima); the backward B18 LayerNorm-column 2 and
     GELU-column 1 (given the forward's scales), B5 4 (each output grad), B4
     5 (the four weights and proj's input), B1 4, B2 4; then B6 once per
     parameter leaf. The head stays bf16, and so does the patch embedding
@@ -262,7 +264,7 @@ def per_step(L: int, n_leaves: int, sr: bool = False, patch_embed: bool = False)
     counts = dict.fromkeys(ops.KERNELS, 0)
     counts.update({f"layernorm_quant_rowwise{t}": 4 * L, f"gelu_quant_rowwise{t}": 2 * L,
                    f"layernorm_quant_colwise{t}": 2 * L, f"gelu_quant_colwise{t}": L,
-                   f"quantize_int8_rowwise{t}": 10 * L + 2 * p, "scaled_mm_rhs_t": 8 * L + p,
+                   f"quantize_int8_rowwise{t}": 9 * L + 2 * p, "scaled_mm_rhs_t": 7 * L + p,
                    f"quantize_int8_both{t}": 4 * L + p, f"quantize_int8_colwise{t}": 5 * L + 2 * p,
                    "scaled_mm": 4 * L + p, "scaled_mm_lhs_t": 4 * L + p, "fused_adamw_update": n_leaves})
     return counts

@@ -26,8 +26,11 @@ and writes ``<workdir>/out_<rank>.pkl``:
   norms, a checkpoint a rank after the first step and after the third);
   an 8-bit state whose blocks cross the ranks requantized under the span
   ``"blocks"``; ``QT_PREQUANT`` both, row and col under
-  ``{"fsdp": 4}``; TP prefill on int4 weight-only, ``mixed_precision`` and
-  packed BitNet with its norms too;
+  ``{"fsdp": 4}``; TP prefill on int4 weight-only, ``mixed_precision``,
+  packed BitNet with its norms and unpacked BitNet too; the C8 pin (each
+  scheme's row-parallel linear on the rank's slices, summed inside the
+  linear) and the C9 pin (BitNet's abs-mean of a rank's rows and columns
+  of a weight, over the whole matrix);
 - world 1: the ``{"fsdp": 1}`` mesh step under a world-1 process group and
   the no-mesh step, 3 ``mixed_precision`` steps each.
 """
@@ -183,6 +186,39 @@ def mesh_pins(inp: dict) -> dict:
     with collectives.spanning(tp, features="model"):
         q, s = core.quantize_int8(x.chunk(4, 1)[tp.coords["model"]].contiguous(), axis=-1, over="features")
     out["pin/model"] = dict(q=q.numpy(), s=s.float().numpy(), coord=tp.coords["model"])
+    out.update(tp_pins(inp, tp))
+    return out
+
+
+def c8_weights(w: torch.Tensor) -> dict:
+    """Each scheme's down weight [1, N, K] (a stacked layer, so that
+    ``shard_params_tp`` splits it row-parallel), as a one-layer tree."""
+    tree = lambda leaf: {"layers": {"down": {"w": leaf}}}  # noqa: E731
+    return {"bf16": tree(w), "int8_storage": quant.quantize_params(tree(w), "int8_quantized_training"),
+            "int8_activations": quant.quantize_params(tree(w), "int8_quantized_training", activation="int8"),
+            "mixed_precision": quant.quantize_params(tree(w), "mixed_precision"),
+            "bitnet_packed": tree(quant.BitNetPackedWeight.from_weight(w)),
+            "bitnet_unpacked": quant.quantize_params(tree(w), "bitnet"),
+            "int4_weight_only": quant.quantize_params(tree(w), "int4_weight_only")}
+
+
+def tp_pins(inp: dict, tp) -> dict:
+    """The C8 pin: each scheme's row-parallel linear on the rank's columns
+    of ``c8_x`` and its slice of the weight, inside the features span (and
+    BitNet's weights span): the whole product, summed over ``model`` inside
+    the linear. The C9 pin: ``get_bitnet_scale`` of the rank's rows and of
+    its columns of ``c8_w`` inside the weights span."""
+    x = torch.from_numpy(inp["c8_x"]).to(torch.bfloat16)
+    w = torch.from_numpy(inp["c8_w"]).to(torch.bfloat16)
+    xs = x.chunk(4, 1)[tp.coords["model"]].contiguous()
+    out = {}
+    for scheme, tree in c8_weights(w[None]).items():
+        local, _ = parallel.shard_params_tp(tree, tp)
+        with collectives.spanning(tp, features="model", weights="model"):
+            out[f"c8/{scheme}"] = quant.qlinear(xs, llama.layer_params(local["layers"], 0)["down"]["w"]).float().numpy()
+    with collectives.spanning(tp, weights="model"):
+        out["c9"] = dict(rows=float(core.get_bitnet_scale(w.chunk(4, 0)[tp.coords["model"]], over="weights")),
+                         cols=float(core.get_bitnet_scale(w.chunk(4, 1)[tp.coords["model"]], over="weights")))
     return out
 
 
