@@ -67,13 +67,17 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    bf16 scalar one at M 8 and 8192 for every linear, K1 at BitNet's eps
    1e-5, K1-SR on every stacked [22, O, I] weight as the commit
    re-quantizes it), each bit-exact and on its route;
-4. the serving slice: Llama2-1B at full width (random weights from a seed),
-   ``mixed_precision``, ``Server(n_slots=8, max_len=2048, decode_chunk=16)``
-   answering 16 requests of the mixed load (prompts 32/96/224/480, budgets
-   16/32/48/64); launch counts prove the kernels ran, every K2 decode launch
-   (M <= 16) on the split-K weight stream and every prefill launch on the
-   sm90 route, K1 on the row walk but at the KV rows of 64;
-   two streams are held against ``generate()``;
+4. the serving slice through ``benchmark_serving --load mixed``
+   (``mixed_load``): Llama2-1B at full width and depth (random weights from
+   a seed), ``mixed_precision``, 3 x 8 requests of JAX's mixed load
+   (prompts 32/96/224/480, its budgets cut to ``SERVE_BUDGETS``) through
+   the windowed ``Server(n_slots=8, max_len=2048, decode_chunk=16)`` and
+   the full-window one, a warm and a timed drain each, then static batched
+   ``generate``; in every drain launch counts prove the kernels ran, every
+   K2 decode launch (M <= 16) on the split-K weight stream and every
+   prefill launch on the sm90 route, K1 on the row walk but at the KV rows
+   of 64; two streams are held against ``generate()``, and the static
+   baseline's streams at the requests it did not pad against the server's;
 5. kernel path against plain path: prefill logits of a 2-layer cut on the
    card against the same model on the CPU (plain versions);
 6. the training slice: three int8 ``mixed_precision`` train steps of
@@ -98,13 +102,15 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    ``set_impl('interpret')`` on the CPU); then int4 and fp8 tile, fp32; then
    a 2-block narrow ViT on its fused blocks (B18 on the card, its plain
    versions on the CPU), fp32, bf16 and fp32 with SR;
-8. ``bench.py``'s step: Llama2-1B, tokens [4, 4, 2048] (4 x 4 gradient
-   accumulation), remat, ``adamw_bf16_sr`` without the SR writeback, lr
-   1e-4; three steps int8 ``mixed_precision`` on the fused layer, three on
-   the unfused layer (``set_impl('off')``), then three bf16: tokens/s, the
-   ratios, peak memory, exact launch counts under the remat policy (B6
-   once per parameter leaf) and SDPA's forwards (``ops.sdpa_forwards()``,
-   once a layer and micro-step); then one fused int8 step under
+8. ``bench.py``'s step through the port's ``bench.measure``: Llama2-1B,
+   tokens [4, 4, 2048] (4 x 4 gradient accumulation), remat,
+   ``adamw_bf16_sr`` without the SR writeback, lr 1e-4; int8
+   ``mixed_precision`` on the fused layer, on the unfused layer
+   (``set_impl('off')``), then bf16, each 2 warm steps and ``BENCH_STEPS``
+   synced and chained: tokens/s, the ratios, bench's JSON line with JAX's
+   keys, peak memory, exact launch counts under the remat policy (B6 once
+   per parameter leaf) and SDPA's forwards (``ops.sdpa_forwards()``, once a
+   layer and micro-step); then one fused int8 step under
    ``torch.profiler``: its kernels' device time by
    ``profile_torch_step.py``'s groups;
 9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
@@ -118,12 +124,14 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    phase 6's bf16 first loss, B16 / B15 (every launch on the sm90 route)
    launched exactly as the code implies and no int8 kernel; tokens/s
    against phase 6's bf16, peak memory;
-11. ViT-Giant's train step through ``vit_train``'s step builder: batch 24
-   at 224 px (6,168 tokens), remat, SDPA, ``adamw_bf16_sr`` without the SR
-   writeback, lr 1e-5 (``VIT_LR``), synthetic images from seed 2024; three
-   steps int8 ``mixed_precision`` on the fused blocks (LayerNorm and GELU
-   inside the quantizes, B18), three bf16, two int8 with stochastic
-   rounding: images/s, the int8/bf16 ratio, peak memory, exact launch
+11. ViT-Giant's train step through the port's ``_bench_vit_giant.measure``
+   (``vit_train``'s step): batch 24 at 224 px (6,168 tokens), 1000
+   classes, remat, SDPA, ``adamw_bf16_sr`` without the SR writeback, lr
+   1e-5 (``VIT_LR``), normal images; bf16, int8 ``mixed_precision`` on the
+   fused blocks (LayerNorm and GELU inside the quantizes, B18) and int8 at
+   ``min_k`` 1536, each a warm step and ``VIT_STEPS`` synced and chained,
+   then two int8 steps with stochastic rounding: the driver's images/s
+   lines, the int8/bf16 ratio, peak memory, exact launch
    counts (B18 160 / 80 / 80 / 40 a step: LayerNorm-row / GELU-row /
    LayerNorm-column / GELU-column, every one on the row walk), losses that
    fall;
@@ -262,7 +270,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    ``QT_PREQUANT`` '0', 'both' and 'col' at ``{"fsdp": 2}`` (2 layers, 2
    steps, deterministic algorithms): 'both' and 'col' equal '0' bit for
    bit, B5's and B4's mesh forms launched once a layer's weight; (g)
-   ``benchmark_collectives`` at 64 MB; and (f) a WebDataset
+   ``python -m quantized_training_tpu_torch.benchmark_collectives`` at 64
+   MB in the ranks (its JSON's three keys); and (f) a WebDataset
    tar of 256 JPEGs and a local ``datasets`` folder of 64, through
    ``train_transform`` at 224, batch 32, into phase 11's ViT-Giant int8
    step cut to 10 blocks (host images/s beside the step's). Prints its seconds and the
@@ -282,6 +291,19 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    ViT-Giant at phase 11's width cut to ``REMAT_VIT_BLOCKS`` blocks, remat
    on against off, bit for bit, the launches ``vit_per_step_launches``.
    Every entry gains the phase's launches (``remat_launches``).
+20. the measurement drivers (``drivers_phase``), each through its ``main``
+   on its JAX script's flags, printing its own lines and its seconds, at
+   Llama2-1B's width: ``benchmark_train_ladder --sr`` at full depth (every
+   rung's launches a step exactly ``ladder_per_step_launches``, its first
+   loss within 1e-2 of bf16's), then at ``DRIVER_LAYERS`` layers
+   ``benchmark_inference --quantize mixed_precision`` (JAX's keys),
+   ``benchmark_serving --load uniform`` and ``benchmark_step_components``
+   (every variant ran), and ``benchmark_fused`` at M 16,384 (each chain's
+   fused output within ``STEP_BOUND`` int8 steps of the unfused
+   composite's, B13's equal); then the lines of ``bench`` (phase 8),
+   ``--load mixed`` (4) and ``_bench_vit_giant`` (11). Every entry gains the
+   phase's launches (``driver_launches``). ``[t]`` lines give each phase's
+   seconds.
 
 Each step's key is ``fold_in(key, i)`` of one key drawn from a generator
 seeded with ``--seed``. The last lines are the kernel table as JSON (each
@@ -322,9 +344,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from quantized_training_tpu_torch import (accuracy_parity, benchmark_conv2d, benchmark_mm, hellaswag, llm_evaluate,
-                                          llm_finetune, llm_pretrain, mc_eval, ops, optim, parallel, quant,
-                                          tokenize_data, train, vit_train)
+from quantized_training_tpu_torch import (_bench_vit_giant, accuracy_parity, bench, benchmark_collectives,
+                                          benchmark_conv2d, benchmark_fused, benchmark_inference, benchmark_mm,
+                                          benchmark_serving, benchmark_step_components, benchmark_train_ladder,
+                                          hellaswag, llm_evaluate, llm_finetune, llm_pretrain, mc_eval, ops, optim,
+                                          parallel, quant, tokenize_data, train, vit_train)
 from quantized_training_tpu_torch.data import BatchLoader, MarkovTokenDataset, SyntheticImageDataset, get_tokenizer
 from quantized_training_tpu_torch.models import llama, llama_infer, vit
 from quantized_training_tpu_torch.models.serving import Server
@@ -349,9 +373,21 @@ FUSED = importlib.import_module("quantized_training_tpu_torch.quant.fused")
 REMAT = importlib.import_module("quantized_training_tpu_torch.ops.remat")
 PROFILE = importlib.import_module("profile_torch_step")  # its kernel groups
 SEED = 0
-MIX_PROMPTS = (32, 96, 224, 480)  # benchmark_serving.py's mixed load
+# phase 14's requests: the first of benchmark_serving's mixed load, at
+# these budgets
 MIX_BUDGETS = (16, 32, 48, 64)
 N_REQUESTS = 16
+# phase 4's: benchmark_serving's mixed load (3 x 8 requests) with its budgets
+# (64, 160, 320, 448) cut for time
+SERVE_BUDGETS = (4, 8, 12, 16)
+# the near-tie bar of the static baseline's streams against the server's:
+# a prefill of 8 left-padded prompts and a batched decode against one prefill
+# a request and the server's slots sum in other shapes, and an int8
+# activation that rounds one step the other way moves a logit by about 1/127
+# of its scale; partings measured at top-2 margins up to 2.70e-2 of
+# max|logit| on the H100 in this phase (a batch of one against the server
+# keeps 1e-2)
+STATIC_BAR = 5e-2
 CFG = llama.LLAMA2_1B
 DEVICE = "cuda"
 D, F, KVD = CFG.hidden_size, CFG.intermediate_size, CFG.num_key_value_heads * CFG.head_dim
@@ -359,6 +395,13 @@ SERVING_KERNELS = ("quantize_int8_rowwise", "scaled_mm_rhs_t")  # K1, K2
 TRAIN_B, TRAIN_S = 4, 2048  # llm_pretrain.py's defaults
 TOKENS = TRAIN_B * TRAIN_S
 BENCH_ACCUM = 4  # bench.py: effective batch 16 as 4 x 4 accumulation
+# phase 8's synced and chained steps in bench.measure (the driver's N_STEPS
+# is 8), cut for time: 2 + 2 + 2 steps a configuration, where the phase ran 3
+BENCH_STEPS = 2
+# the keys of bench.py's JSON line (bench.py:190-209)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+BENCH_DETAIL_KEYS = {"bf16_tokens_per_sec", "int8_vs_bf16_speedup", "batch_size", "grad_accum", "effective_batch",
+                     "seq_len", "device"}
 # (name, out, in) of every quantized linear of a layer; q/o, gate/up share a shape
 LINEARS = (("q/o", D, D), ("k/v", KVD, D), ("gate/up", F, D), ("down", D, F))
 WEIGHTS = [(o, i) for _, o, i in LINEARS]
@@ -391,6 +434,9 @@ VIT_SEED = 2024  # the synthetic images' seed, vit_train.py's default
 # learning; 1e-5 (below half a bf16 ulp of most weights, so mostly biases
 # and small weights move) lets them fall
 VIT_LR = 1e-5
+# phase 11's synced and chained steps in _bench_vit_giant.measure (the
+# driver's N_STEPS is 6), cut for time: a warm step and 1 + 1 a configuration
+VIT_STEPS = 1
 # B17 at benchmark_mm.py's largest square size
 MM_N = 4096
 # Each sm90 GEMM's (M, N, K) on its wmma kernel, before the sm90 mainloop
@@ -436,6 +482,33 @@ B18_FP32_OPS = {"layernorm": 10, "gelu": 25}
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+@contextlib.contextmanager
+def patched(module, **values):
+    """The module's attributes set to ``values`` while entered: the
+    drivers' cuts of depth (steps, budgets, batches)."""
+    keep = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            setattr(module, k, v)
+
+
+@contextlib.contextmanager
+def preset(cfg: llama.LlamaConfig):
+    """The drivers' ``llama2-1b`` (``llm_pretrain.MODELS``, which every
+    benchmark driver reads) is ``cfg`` while entered: Llama2-1B cut in
+    depth, or the CPU rehearsal's small model."""
+    keep = llm_pretrain.MODELS["llama2-1b"]
+    llm_pretrain.MODELS["llama2-1b"] = cfg
+    try:
+        yield
+    finally:
+        llm_pretrain.MODELS["llama2-1b"] = keep
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, fp32_ops: float = 0.0, bf16_ops: float = 0.0,
@@ -1809,14 +1882,13 @@ def check_b19(gen: torch.Generator) -> dict:
 
 
 def mixed_requests(vocab: int):
-    rng = np.random.default_rng(SEED)
-    return [(rng.integers(1, vocab, size=MIX_PROMPTS[i % 4]).tolist(), MIX_BUDGETS[i % 4])
-            for i in range(N_REQUESTS)]
+    with patched(benchmark_serving, MIX_BUDGETS=MIX_BUDGETS):
+        return benchmark_serving._mixed_requests(N_REQUESTS, vocab)
 
 
-def same_stream(params, cfg, prompt, got, ref) -> str:
+def same_stream(params, cfg, prompt, got, ref, bar: float = 1e-2) -> str:
     """Equal greedy streams, or a first difference at a near-tie: the
-    reference's teacher-forced top-2 logit margin below 1e-2 of max|logit|
+    reference's teacher-forced top-2 logit margin below ``bar`` of max|logit|
     (bf16 sums in another batch shape may decide such a tie either way)."""
     j = next((i for i, (x, y) in enumerate(zip(got, ref)) if x != y), None)
     check(len(got) == len(ref), "stream lengths")
@@ -1827,23 +1899,109 @@ def same_stream(params, cfg, prompt, got, ref) -> str:
     last = llama_infer.forward_with_cache(params, seq, cache, 0, cfg)[0, -1].float()
     top2 = last.topk(2).values
     margin = (top2[0] - top2[1]).item() / last.abs().max().item()
-    check(margin < 1e-2, f"stream parts from generate() at step {j} with top-2 margin {margin:.2e}")
+    check(margin < bar, f"stream parts at step {j} with top-2 margin {margin:.2e} (bar {bar:g})")
     return f"equal up to step {j}, then a near-tie (top-2 margin {margin:.2e} of max|logit|)"
 
 
-def serve(gen: torch.Generator) -> dict:
-    """Phase 4: ``mixed_precision`` weights, 16 requests of the mixed load."""
+def serve(gen: torch.Generator) -> tuple[dict, dict]:
+    """Phase 4: benchmark_serving's mixed load through its ``mixed_load``
+    (3 x 8 requests of its prompt lengths, budgets ``SERVE_BUDGETS``,
+    ``max_len`` 2048, decode chunk 16) over Llama2-1B ``mixed_precision``
+    weights at full depth: the windowed server and the full-window server,
+    each a warm and a timed drain, then static batched generate. Every
+    drain streams every token once and launches K1 and K2, every K2 decode
+    launch on the split-K stream and every prefill launch on sm90, K1 on the
+    row walk (:func:`served`); two streams of the windowed server's timed
+    drain are held against generate(), and the static baseline's tokens at
+    every request against the windowed server's on the same left-padded
+    prompt (``STATIC_BAR``). Returns the timed windowed drain's launches and
+    the driver's numbers."""
     params = quant.quantize_params(llama.init_params(gen, CFG), "mixed_precision")
-    return serve_params(4, "mixed_precision", params, CFG, mixed_requests(CFG.vocab_size))
+    args = argparse.Namespace(n_slots=8, max_len=2048, decode_chunk=16)
+    drains, drain = [], benchmark_serving.drain_mixed
+
+    def recorded(srv, reqs):
+        rows, route = [], SCALED_MM.sm90_route  # K2's M per call, through the route predicate it consults
+        SCALED_MM.sm90_route = lambda M: rows.append(M) or route(M)
+        first = srv._next_rid
+        ops.reset_launch_counts()
+        try:
+            n = drain(srv, reqs)
+        finally:
+            SCALED_MM.sm90_route = route
+        drains.append((srv, range(first, first + len(reqs)), n, rows, ops.launch_counts()))
+        return n
+
+    torch.cuda.synchronize()
+    weights_gib = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 2**30
+    torch.cuda.reset_peak_memory_stats()  # the peak below is serving's, not init's
+    t0 = time.perf_counter()
+    with patched(benchmark_serving, drain_mixed=recorded, MIX_BUDGETS=SERVE_BUDGETS):
+        reqs = benchmark_serving._mixed_requests(3 * args.n_slots, CFG.vocab_size)
+        out = benchmark_serving.mixed_load(params, CFG, args)
+    seconds = time.perf_counter() - t0
+    check(len(drains) == 4, f"two servers, a warm and a timed drain each: {len(drains)} drains")
+    for i, (srv, rids, n, rows, launches) in enumerate(drains):
+        decode, k1_walk = served(launches, rows, reqs, [srv.result(r) for r in rids], n, CFG)
+        print(f"[4] {('windowed', 'full-window')[i // 2]} server, {('warm', 'timed')[i % 2]} drain: {len(reqs)} "
+              f"requests, {n} tokens; K2 {decode} decode launches (M <= {SCALED_MM.DECODE_M}) on the decode stream, "
+              f"{len(rows) - decode} prefill launches on sm90; K1 {k1_walk} of {launches['quantize_int8_rowwise']} "
+              f"launches on the row walk (the rest the KV rows of 64)")
+    srv, rids, _, _, launches = drains[1]
+    results = [srv.result(r) for r in rids]
+    print(f"[4] Llama2-1B mixed_precision, benchmark_serving --load mixed (3 x 8 requests, prompts "
+          f"{benchmark_serving.MIX_PROMPTS}, budgets {SERVE_BUDGETS}, the driver's {benchmark_serving.MIX_BUDGETS} "
+          f"cut for time; max_len 2048, decode chunk 16): windowed {out['windowed']:.1f} tok/s (windows compiled "
+          f"{out['windows']}), full-window {out['full']:.1f} tok/s, static batched generate {out['static']:.1f} "
+          f"useful tok/s; {seconds:.1f} s; weights {weights_gib:.2f} GiB, peak device memory while serving "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the timed windowed drain's launches {launches}")
+    vs_generate(4, params, CFG, reqs, results)
+    # the static baseline's rows against the windowed server given the same
+    # left-padded prompts (the pads are tokens it attends to, as in JAX)
+    pmax = max(len(p) for p, _ in reqs)
+    rows = [row.tolist() for batch in benchmark_serving.static_batches(reqs, args.n_slots, DEVICE) for row in batch]
+    padded = [(row, budget) for row, (_, budget) in zip(rows, reqs)]
+    srv = Server(params, CFG, n_slots=args.n_slots, max_len=args.max_len, decode_chunk=args.decode_chunk)
+    rids = [srv.add_request(p, b) for p, b in padded]
+    while srv.pending():
+        srv.step()
+    parted = []
+    for i, ((prompt, budget), rid) in enumerate(zip(padded, rids)):
+        static = out["static_tokens"][i // args.n_slots][i % args.n_slots, pmax:pmax + budget].tolist()
+        verdict = same_stream(params, CFG, prompt, static, srv.result(rid), STATIC_BAR)
+        if verdict != "equal":
+            parted.append(f"request {i}: {verdict}")
+    print(f"[4] static generate's {len(padded)} rows (prompts left-padded to {pmax}) against the windowed server given "
+          f"the same padded prompts: {len(padded) - len(parted)} equal" + "".join(f"; {p}" for p in parted))
+    return launches, out
+
+
+def served(launches: dict, rows: list, reqs, results, n: int, cfg) -> tuple[int, int]:
+    """The checks of one drain of ``reqs`` through the server: each request
+    got its budget of tokens in the vocabulary and every token was streamed
+    once; K1 and K2 launched, K2's decode launches (``rows``: its M per
+    call) on the decode stream and the rest on sm90, K1 on the row walk.
+    Returns (K2's decode launches, K1's on the walk)."""
+    for (prompt, budget), out in zip(reqs, results):
+        check(len(out) == budget and all(0 <= t < cfg.vocab_size for t in out),
+              f"{len(out)} tokens for a budget of {budget}")
+    check(n == sum(b for _, b in reqs), "every token streamed once")
+    check(all(launches[k] > 0 for k in SERVING_KERNELS), f"every kernel of the serving path launched: {launches}")
+    decode = sum(m <= SCALED_MM.DECODE_M for m in rows)
+    check(len(rows) == launches["scaled_mm_rhs_t"] and decode > 0
+          and launches["scaled_mm_rhs_t_decode"] == decode and launches["scaled_mm_rhs_t_sm90"] == len(rows) - decode,
+          f"K2's {decode} decode launches on the decode stream, its {len(rows) - decode} prefill launches on sm90: "
+          f"{launches['scaled_mm_rhs_t_decode']} decode and {launches['scaled_mm_rhs_t_sm90']} sm90 of "
+          f"{launches['scaled_mm_rhs_t']}")
+    check(launches["quantize_int8_rowwise_sm90"] > 0, "K1 launched on the row walk while serving")
+    return decode, launches["quantize_int8_rowwise_sm90"]
 
 
 def serve_params(phase: int, what: str, params, cfg, reqs, warm: bool = True) -> dict:
     """``Server(n_slots=8, max_len=2048, decode_chunk=16)`` over ``params``
     answers ``reqs`` (after a warm-up pass of the same requests with
-    ``warm``): every token streamed, K1 and K2 launched, every K2 decode
-    launch on the split-K stream and every prefill launch on sm90, K1 on
-    the row walk; two streams held against ``generate()``. Returns the
-    timed pass's launches."""
+    ``warm``), held by :func:`served`; two streams held against
+    ``generate()``. Returns the timed pass's launches."""
     torch.cuda.synchronize()
     weights_gib = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 2**30
     torch.cuda.reset_peak_memory_stats()  # the peak below is serving's, not init's
@@ -1870,35 +2028,26 @@ def serve_params(phase: int, what: str, params, cfg, reqs, warm: bool = True) ->
         SCALED_MM.sm90_route = route
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    for (prompt, budget), rid in zip(reqs, rids):
-        out = srv.result(rid)
-        check(len(out) == budget and all(0 <= t < cfg.vocab_size for t in out),
-              f"request {rid}: {len(out)} tokens for a budget of {budget}")
-    check(n == sum(b for _, b in reqs), "every token streamed once")
-    served = {k: launches[k] for k in SERVING_KERNELS}
-    check(all(v > 0 for v in served.values()), f"every kernel of the serving path launched: {served}")
-    decode = sum(m <= SCALED_MM.DECODE_M for m in rows)
-    check(len(rows) == launches["scaled_mm_rhs_t"] and decode > 0
-          and launches["scaled_mm_rhs_t_decode"] == decode and launches["scaled_mm_rhs_t_sm90"] == len(rows) - decode,
-          f"K2's {decode} decode launches on the decode stream, its {len(rows) - decode} prefill launches on sm90: "
-          f"{launches['scaled_mm_rhs_t_decode']} decode and {launches['scaled_mm_rhs_t_sm90']} sm90 of "
-          f"{launches['scaled_mm_rhs_t']}")
-    k1_walk = launches["quantize_int8_rowwise_sm90"]
-    check(k1_walk > 0, "K1 launched on the row walk while serving")
+    decode, k1_walk = served(launches, rows, reqs, [srv.result(r) for r in rids], n, cfg)
     print(f"[{phase}] Llama2-1B {what} Server(n_slots=8, max_len=2048, decode_chunk=16): "
           f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; K2 {decode} decode launches "
           f"(M <= {SCALED_MM.DECODE_M}) on the decode stream, {len(rows) - decode} prefill launches on sm90; K1 "
           f"{k1_walk} of {launches['quantize_int8_rowwise']} launches on the row walk (the rest the KV rows of 64); "
           f"weights {weights_gib:.2f} GiB, peak device memory while serving "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
+    vs_generate(phase, params, cfg, reqs, [srv.result(r) for r in rids])
+    return launches
+
+
+def vs_generate(phase: int, params, cfg, reqs, results) -> None:
+    """The server's streams of the first two requests against
+    ``generate()`` of each alone (:func:`same_stream`)."""
     for i in (0, 1):
         prompt, budget = reqs[i]
         ref = llama_infer.generate(params, torch.tensor([prompt], device=DEVICE), cfg, budget)
         ref = ref[0, len(prompt):].tolist()
-        got = srv.result(rids[i])
         print(f"[{phase}] request {i} (prompt {len(prompt)}, budget {budget}) vs generate(): "
-              f"{same_stream(params, cfg, prompt, got, ref)}; tokens {got}")
-    return launches
+              f"{same_stream(params, cfg, prompt, results[i], ref)}; tokens {results[i]}")
 
 
 def kernel_vs_plain_path(seed: int, dtype: torch.dtype, max_rms: float, min_agree: float) -> None:
@@ -2156,28 +2305,68 @@ def train_slice(raw, seed: int, key: int):
                         per_step_launches(L), per_step_launches(L, layer="bf16"), sdpa=sdpa_per_layer() * L)
 
 
-def bench_step(raw, seed: int, key: int) -> dict:
-    """Phase 8: bench.py's step (``build_step("llama2-1b", 4, 2048, scheme,
-    accum=4)``): tokens [4, 4, 2048], remat, adamw_bf16_sr without the SR
-    writeback, lr 1e-4, int8 mixed_precision without SR on the fused layer,
-    on the unfused layer, then bf16. Each int8 step launches 4 x the
-    per-micro-batch counts of its layer under the remat policy, and each
-    step of all three B6 (round-to-nearest) once per parameter leaf and
-    SDPA's forward once a layer and micro-step; then one fused int8 step
-    under the profiler. Returns the fused int8 launches."""
+def bench_step(raw, seed: int, key: int) -> tuple[dict, dict]:
+    """Phase 8: bench.py's step through the port's ``bench`` driver
+    (``bench.measure("llama2-1b", 4, 2048, scheme, accum=4)``: tokens [4,
+    4, 2048], remat, adamw_bf16_sr without the SR writeback, lr 1e-4; 2 warm
+    steps, then ``BENCH_STEPS`` synced and as many chained), int8
+    mixed_precision without SR on the fused layer, on the unfused layer,
+    then bf16, from the same weights and batch. Each int8 step launches 4 x
+    the per-micro-batch counts of its layer under the remat policy, and
+    each step of all three B6 (round-to-nearest) once per parameter leaf and
+    SDPA's forward once a layer and micro-step; the losses fall, the int8
+    first loss is within 1e-2 of bf16's and the fused within 1e-3 of the
+    unfused; bench's JSON line has JAX's keys and its value the rate of the
+    synced and chained loops. Then one fused int8 step under the profiler.
+    Returns the fused int8 launches and bench's line."""
+    L, micro, n_leaves = CFG.num_hidden_layers, BENCH_ACCUM, len(tree_leaves(raw))
+    runs = {}
+    with preset(CFG):
+        for name, scheme, impl, layer in (("int8", "mixed_precision", "auto", "fused"),
+                                          ("int8 unfused", "mixed_precision", "off", "unfused"),
+                                          ("bf16", None, "auto", "bf16")):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            quant.set_impl(impl)
+            try:
+                with StepLaunches(per_step_launches(L, micro=micro, b6=n_leaves, layer=layer),
+                                  sdpa=sdpa_per_layer() * L * micro) as rec:
+                    got = bench.measure("llama2-1b", TRAIN_B, TRAIN_S, scheme, micro, DEVICE, n_steps=BENCH_STEPS)
+            finally:
+                quant.set_impl("auto")
+            check(rec.steps == 2 + 2 * BENCH_STEPS, f"bench.measure ran {rec.steps} steps")
+            runs[name] = (got, rec.losses(), rec.total, torch.cuda.max_memory_allocated() / 2**30)
+    chosen = ("llama2-1b", TRAIN_B, TRAIN_S, micro)
+    line = bench.result_line(runs["int8"][0].tokens_per_sec, runs["bf16"][0].tokens_per_sec, chosen,
+                             torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu")
+    print(f"[8] bench.py's step through bench.measure (Llama2-1B, tokens [{micro}, {TRAIN_B}, {TRAIN_S}], remat, "
+          f"SDPA, adamw_bf16_sr without SR, lr 1e-4, {n_leaves} parameter leaves; 2 warm steps, {BENCH_STEPS} synced "
+          f"and {BENCH_STEPS} chained, the driver's {bench.N_STEPS} cut for time): " + "; ".join(
+              f"{k} losses {r[1]}, step walls synced {r[0].synced_s:.4f} s chained {r[0].chained_s:.4f} s, "
+              f"{r[0].tokens_per_sec:.1f} tok/s, peak device memory {r[3]:.2f} GiB" for k, r in runs.items()))
+    print(f"[8] int8/bf16 {runs['int8'][0].tokens_per_sec / runs['bf16'][0].tokens_per_sec:.3f}, int8 fused/unfused "
+          f"{runs['int8'][0].tokens_per_sec / runs['int8 unfused'][0].tokens_per_sec:.3f}; launches per int8 step "
+          f"{ {k: v for k, v in per_step_launches(L, micro=micro, b6=n_leaves).items() if v} }")
+    print(json.dumps(line), flush=True)
+    check(set(line) == BENCH_KEYS and set(line["detail"]) == BENCH_DETAIL_KEYS, f"bench's line has JAX's keys: {line}")
+    for k in ("int8", "bf16"):
+        got = runs[k][0]
+        check(bench.result_line(got.tokens_per_sec, 1.0, chosen, "")["value"]
+              == round(TRAIN_B * TRAIN_S * micro / min(got.synced_s, got.chained_s), 1),
+              f"{k}: the rate is tokens over the faster of the synced and chained loops")
+    check(line["value"] == round(runs["int8"][0].tokens_per_sec, 1), "bench's value is the int8 rate")
+    for k, r in runs.items():
+        check(r[1][-1] < r[1][0] and all(np.isfinite(r[1])), f"{k} losses fall: {r[1]}")
+    q, u, b = (runs[k][1][0] for k in ("int8", "int8 unfused", "bf16"))
+    rel, rel_u = abs(b - q) / abs(b), abs(q - u) / abs(u)
+    print(f"[8] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2); int8 fused vs unfused: relative "
+          f"{rel_u:.3e} (bound 1e-3)")
+    check(rel <= 1e-2 and rel_u <= 1e-3, f"first losses: int8 vs bf16 {rel:.3e}, fused vs unfused {rel_u:.3e}")
     cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
-    n_leaves = len(tree_leaves(raw))
-    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
-    what = (f"bench.py's step (Llama2-1B, tokens [{BENCH_ACCUM}, {TRAIN_B}, {TRAIN_S}], remat, SDPA, "
-            f"adamw_bf16_sr without SR, lr 1e-4, {n_leaves} parameter leaves), seed {seed}")
-    L = cfg.num_hidden_layers
-    _, launches, _ = int8_vs_bf16(8, what, raw, cfg, tokens, labels, opt, 1e-4, key,
-                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves),
-                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="bf16"),
-                               per_step_launches(L, micro=BENCH_ACCUM, b6=n_leaves, layer="unfused"),
-                               sdpa=sdpa_per_layer() * L * BENCH_ACCUM)
-    step_kernel_ms(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels, opt)
-    return launches
+    step_kernel_ms(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels,
+                   optim.adamw_bf16_sr(bf16_stochastic_rounding=False))
+    return runs["int8"][2], line
 
 
 def step_kernel_ms(params, cfg, tokens, labels, opt) -> float:
@@ -2470,72 +2659,80 @@ def vit_per_step_launches(L: int, n_leaves: int, sr: bool = False, layer: str = 
     return counts
 
 
-def vit_giant_step(seed: int, key: int):
-    """Phase 11: ViT-Giant's train step through ``vit_train``'s step
-    builder (``make_train_step``, ``model_config``: remat, 45 classes, 224
-    px), batch 24 of synthetic images from seed 2024 (``vit_train.py``'s
-    data), ``adamw_bf16_sr(bf16_stochastic_rounding=False)``, lr ``VIT_LR``, step
-    i's key ``fold_in(key, 1_000_000 + i)`` as the driver folds it; weights
-    from ``seed``, one batch for every step. Three steps int8
-    ``mixed_precision`` on the fused blocks (B18), three bf16, then two int8
-    with ``stochastic_rounding`` (B18's SR forms): every step launches
-    exactly ``vit_per_step_launches``, the losses are finite and fall, the
-    int8 first loss is within 1e-2 of bf16's and the SR one within 1e-2 of
-    int8's. Prints images/s of the steps after the first, the int8/bf16
-    ratio and each run's peak memory. Returns the launches of the int8 and
-    of the SR run."""
-    cfg = VIT_CFG
-    raw = vit.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg)
-    n_leaves = len(tree_leaves(raw))
-    ds = SyntheticImageDataset(size=cfg.image_size, num_classes=cfg.num_classes, seed=VIT_SEED)
-    images, labels = (torch.from_numpy(a).to(DEVICE) for a in next(iter(BatchLoader(ds, VIT_B, prefetch=0))))
+def vit_giant_step(seed: int, key: int) -> tuple[dict, dict, dict]:
+    """Phase 11: ViT-Giant's train step through the port's
+    ``_bench_vit_giant`` (its ``measure``: remat, 1000 classes, 224 px,
+    weights from seed 0, one batch of normal images, ``adamw_bf16_sr``
+    without SR, ``vit_train.make_train_step``'s step) at batch ``VIT_B`` and
+    lr ``VIT_LR``: bf16, int8 ``mixed_precision`` on the fused blocks (B18),
+    and int8 with ``min_k`` 1536, each a warm step and ``VIT_STEPS`` synced
+    and chained, each printing the driver's line; then two int8 steps with
+    ``stochastic_rounding`` (B18's SR forms) from the same weights and
+    batch. Every step launches exactly ``vit_per_step_launches``, the
+    losses are finite and fall, the int8 first loss is within 1e-2 of
+    bf16's, the ``min_k`` run's equal to int8's (at ViT-Giant every linear
+    has in_features >= 1536) and the SR one within 1e-2 of int8's. Prints
+    each run's peak memory. Returns the launches of the int8 and of the SR
+    run, and the driver's images/s."""
+    cfg = _bench_vit_giant.model_config()
+    small = dataclasses.replace(cfg, image_size=28, hidden_size=128, num_layers=1, num_heads=2)  # the tree, not its sizes
+    n_leaves = len(tree_leaves(vit.init_params(torch.Generator().manual_seed(0), small)))
+    L, runs, rates = cfg.num_layers, {}, {}
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
-    L, runs = cfg.num_layers, {}
-    for name, qkw, n_steps, expect in (
-            ("int8", {}, 3, vit_per_step_launches(L, n_leaves)),
-            ("bf16", None, 3, vit_per_step_launches(L, n_leaves, layer="bf16")),
-            ("int8 SR", dict(stochastic_rounding=True), 2, vit_per_step_launches(L, n_leaves, sr=True))):
-        params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
+    for name, scheme, min_k, layer in (("bf16", None, 0, "bf16"), ("int8-MP", "mixed_precision", 0, "fused"),
+                                       ("int8-MP min_k=1536", "mixed_precision", 1536, "fused")):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        step, state = vit_train.make_train_step(cfg, opt), opt.init(quant.virtual_params(params))
-        losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
-        for i in range(n_steps):
+        with StepLaunches(vit_per_step_launches(L, n_leaves, layer=layer), module=vit_train,
+                          loss_of=lambda out: out[2]) as rec:
+            rates[name] = _bench_vit_giant.measure(scheme, min_k, bs=VIT_B, n=VIT_STEPS, device=DEVICE, lr=VIT_LR)
+        print(f"vit_giant bs{VIT_B} {name}: {rates[name]:.1f} img/s", flush=True)
+        runs[name] = (rec.losses(), rec.total, torch.cuda.max_memory_allocated() / 2**30)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    raw = vit.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    params = quant.quantize_params(raw, "mixed_precision", stochastic_rounding=True)
+    del raw
+    images, labels = _bench_vit_giant.batch(cfg, VIT_B, DEVICE)
+    state, walls = opt.init(quant.virtual_params(params)), []
+    with StepLaunches(vit_per_step_launches(L, n_leaves, sr=True), module=vit_train, loss_of=lambda out: out[2]) as rec:
+        step = vit_train.make_train_step(cfg, opt)
+        for i in range(2):
             torch.cuda.synchronize()
-            ops.reset_launch_counts()
             t0 = time.perf_counter()
-            params, state, loss = step(params, state, images, labels, VIT_LR, random.fold_in(key, 1_000_000 + i))
-            loss = loss.item()  # synchronizes
+            params, state, loss = step(params, state, images, labels, VIT_LR,
+                                       _bench_vit_giant.KEY if i == 0 else random.fold_in(_bench_vit_giant.KEY, 0))
+            loss.item()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            counts = ops.launch_counts()
-            check(counts == expect, f"{name} step {i + 1} launches {counts} == {expect}")
-            check(np.isfinite(loss), f"{name} step {i + 1}: finite loss")
-            losses.append(loss)
-            launches = {k: launches[k] + v for k, v in counts.items()}
-        del params, state
-        runs[name] = (losses, walls, launches, torch.cuda.max_memory_allocated() / 2**30)
-    ips = {k: VIT_B * (len(r[1]) - 1) / sum(r[1][1:]) for k, r in runs.items()}
-    print(f"[11] ViT-Giant train step ({cfg.num_layers} blocks, hidden {cfg.hidden_size}, batch {VIT_B} x {cfg.image_size}"
-          f" px = {VIT_TOKENS} tokens, padded to {VIT_ROWS} in the fused linears; remat, SDPA, adamw_bf16_sr without "
-          f"SR, lr {VIT_LR:g}), weights seed {seed}, images seed {VIT_SEED}: " + "; ".join(
-              f"{k} losses {r[0]}, step walls {[round(w, 4) for w in r[1]]} s" for k, r in runs.items()))
+    del params, state
+    runs["int8 SR"] = (rec.losses(), rec.total, torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[11] ViT-Giant through _bench_vit_giant.measure ({L} blocks, hidden {cfg.hidden_size}, {cfg.num_classes} "
+          f"classes, batch {VIT_B} x {cfg.image_size} px = {VIT_TOKENS} tokens, padded to {VIT_ROWS} in the fused "
+          f"linears; remat, SDPA, adamw_bf16_sr without SR, lr {VIT_LR:g}, the driver's {_bench_vit_giant.LR:g} "
+          f"lowered so that the losses fall; a warm step, {VIT_STEPS} synced and {VIT_STEPS} chained, the driver's "
+          f"{_bench_vit_giant.N_STEPS} cut for time): " + "; ".join(
+              f"{k} losses {r[0]}, peak device memory {r[2]:.2f} GiB" for k, r in runs.items())
+          + f"; SR step walls {[round(w, 4) for w in walls]} s")
     b18 = {sr: {k: v for k, v in vit_per_step_launches(L, n_leaves, sr=sr).items()
                 if k.startswith(("layernorm", "gelu")) and v} for sr in (False, True)}
-    print(f"[11] images/s (steps after the first, wall with torch.cuda.synchronize()): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in ips.items()) + f" (int8/bf16 {ips['int8'] / ips['bf16']:.3f}); peak "
-          f"device memory " + ", ".join(f"{k} {r[3]:.2f} GiB" for k, r in runs.items())
-          + f"; B18 launches per int8 step {b18[False]}, per SR step {b18[True]} (each counted on the row walk "
-          f"too: every one took it), all launches per int8 step "
-          f"{ {k: v for k, v in vit_per_step_launches(L, n_leaves).items() if v} }")
-    for k in ("int8", "bf16"):
-        check(runs[k][0][2] < runs[k][0][0], f"{k} ViT loss falls: {runs[k][0]}")
-    rel = abs(runs["int8"][0][0] - runs["bf16"][0][0]) / abs(runs["bf16"][0][0])
-    rel_sr = abs(runs["int8 SR"][0][0] - runs["int8"][0][0]) / abs(runs["int8"][0][0])
-    print(f"[11] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2); SR vs int8: {rel_sr:.3e} (bound 1e-2)")
+    print(f"[11] images/s int8/bf16 {rates['int8-MP'] / rates['bf16']:.3f}; B18 launches per int8 step {b18[False]}, "
+          f"per SR step {b18[True]} (each counted on the row walk too: every one took it), all launches per int8 "
+          f"step { {k: v for k, v in vit_per_step_launches(L, n_leaves).items() if v} }")
+    for k, r in runs.items():
+        check(all(np.isfinite(r[0])), f"{k}: finite ViT losses {r[0]}")
+        check(k == "int8 SR" or r[0][-1] < r[0][0], f"{k} ViT loss falls: {r[0]}")
+    first = {k: r[0][0] for k, r in runs.items()}
+    rel = abs(first["int8-MP"] - first["bf16"]) / abs(first["bf16"])
+    rel_sr = abs(first["int8 SR"] - first["int8-MP"]) / abs(first["int8-MP"])
+    rel_k = abs(first["int8-MP min_k=1536"] - first["int8-MP"]) / abs(first["int8-MP"])
+    print(f"[11] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2); SR vs int8: {rel_sr:.3e} (bound "
+          f"1e-2); min_k=1536 vs int8: relative {rel_k:.3e} (bound 1e-6: the same linears quantized, the same forward)")
     check(rel <= 1e-2 and rel_sr <= 1e-2, f"ViT first losses within 1e-2: {rel:.3e}, {rel_sr:.3e}")
-    return runs["int8"][2], runs["int8 SR"][2]
+    check(rel_k <= 1e-6, f"min_k=1536 quantizes every linear that int8 quantizes: {rel_k:.3e}")
+    return runs["int8-MP"][1], runs["int8 SR"][1], rates
 
 
 REMAT_LAYERS = 4  # phase 19: Llama2-1B's width, cut to 4 layers
@@ -2958,20 +3155,28 @@ def pretrain_per_step_launches(cfg: llama.LlamaConfig, tokens: int) -> dict:
 
 class StepLaunches:
     """While it is entered, every train step a driver builds through
-    ``train.make_train_step`` checks its launches against ``expect`` (a
-    dict, or a function of the step's arguments that gives one) and adds
-    them to ``total``; ``before``, where given, sees each step's arguments
-    (state, tokens, labels, lr, key) before the step runs."""
+    ``module.make_train_step`` (``train``'s, or ``vit_train``'s) checks its
+    launches against ``expect`` (a dict, or a function of the step's
+    arguments that gives one; None: not checked) and, with ``sdpa``, SDPA's
+    forwards against it, and adds them to ``total``; ``before``, where
+    given, sees each step's arguments (state, tokens, labels, lr, key)
+    before the step runs. ``runs`` keeps, for each step built, each of its
+    steps' launches and loss (``loss_of`` the step's output; a tensor, read
+    after the run so that no step waits for it)."""
 
-    def __init__(self, expect: dict, before=None):
-        self.expect, self.before, self.steps = expect, before, 0
+    def __init__(self, expect: dict | None, before=None, module=train, loss_of=lambda out: out[1]["loss"],
+                 sdpa: int | None = None):
+        self.expect, self.before, self.module, self.loss_of, self.sdpa = expect, before, module, loss_of, sdpa
+        self.steps, self.runs = 0, []
         self.total = dict.fromkeys(ops.KERNELS, 0)
 
     def __enter__(self):
-        self.make = train.make_train_step
+        self.make = self.module.make_train_step
 
         def make(*args, **kwargs):
             step = self.make(*args, **kwargs)
+            run = {"launches": [], "losses": []}
+            self.runs.append(run)
 
             def counted(*step_args):
                 if self.before is not None:
@@ -2981,17 +3186,25 @@ class StepLaunches:
                 counts = ops.launch_counts()
                 self.steps += 1
                 want = self.expect(*step_args) if callable(self.expect) else self.expect
-                check(counts == want, f"driver step {self.steps} launches {counts} == {want}")
+                check(want is None or counts == want, f"driver step {self.steps} launches {counts} == {want}")
+                check(self.sdpa is None or ops.sdpa_forwards() == self.sdpa,
+                      f"driver step {self.steps}: SDPA forwards {ops.sdpa_forwards()} == {self.sdpa}")
                 self.total = {k: self.total[k] + v for k, v in counts.items()}
+                run["launches"].append(counts)
+                run["losses"].append(self.loss_of(out).detach())
                 return out
 
             return counted
 
-        train.make_train_step = make
+        self.module.make_train_step = make
         return self
 
     def __exit__(self, *exc):
-        train.make_train_step = self.make
+        self.module.make_train_step = self.make
+
+    def losses(self, i: int = -1) -> list:
+        """The losses of the ``i``-th step built, as floats."""
+        return [l.item() for l in self.runs[i]["losses"]]
 
 
 def run_driver(main, argv: list[str]):
@@ -4089,6 +4302,7 @@ IMAGE_VIT_BLOCKS = 10
 IMAGE_B, WDS_IMAGES, HF_IMAGES = 32, 256, 64
 IMAGE_SIZES = ((320, 240), (500, 375))
 GLOO_TIMEOUT_S = 300
+COLLECTIVES_KEYS = {"psum_GiBps", "all_gather_GiBps", "psum_scatter_GiBps"}  # benchmark_collectives.py's JSON
 
 
 def mesh_cfg(plan: dict, **overrides) -> llama.LlamaConfig:
@@ -4670,8 +4884,11 @@ def mesh_rank(rank: int, port: int, plan: dict) -> None:
         seconds[part] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    bench = parallel.make_mesh({"data": 2}, plan["device_type"])
-    out["g"] = parallel.benchmark_collectives(bench, axis="data", size_mb=64, n_iters=5, device=plan["device"])
+    argv = ["--axis", "data", "--size_mb", "64", "--n_iters", "5"]
+    if plan["counted"]:  # the command line on the card; its body where the rehearsal runs the ranks on the CPU
+        out["g"] = benchmark_collectives.main(argv)
+    else:
+        out["g"] = benchmark_collectives.run(benchmark_collectives._parser().parse_args(argv), "cpu")[1]
     seconds["g"] = time.perf_counter() - t0
     out["seconds"] = seconds
     with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as f:
@@ -4759,8 +4976,11 @@ def report_ranks(ranks: list, ref: tuple, plan: dict, sf8_ref: tuple) -> None:
           + "; ".join(f"{m} losses {v['losses']} walls {[round(w, 3) for w in v['walls']]} s maxima all-reduces "
                       f"{v['maxima_all_reduces']}" for m, v in i.items())
           + "; 'both' and 'col' equal '0' bit for bit on both ranks", flush=True)
-    print(f"[18] (g) benchmark_collectives, 2 gloo ranks on one card, host-staged (not NCCL), 64 MB, GiB/s: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in r0["g"].items()))
+    print(f"[18] (g) python -m quantized_training_tpu_torch.benchmark_collectives --axis data --size_mb 64 "
+          f"--n_iters 5 on the 2 gloo ranks sharing one card, host-staged (not NCCL), GiB/s (rank 0's line): "
+          + json.dumps(r0["g"]))
+    check(set(r0["g"]) == COLLECTIVES_KEYS and all(v > 0 for v in r0["g"].values()),
+          f"(g) the collectives line has JAX's three keys: {r0['g']}")
     print(f"[18] rank 0's seconds by part: { {k: round(v, 1) for k, v in r0['seconds'].items()} }", flush=True)
 
 
@@ -4882,6 +5102,174 @@ def mesh_phase(seed: int, key: int, t_script: float) -> tuple[dict, dict]:
     return launches, images
 
 
+# ---- phase 20: the measurement drivers --------------------------------------
+
+# the drivers' depth at Llama2-1B's width: the ladder runs at full depth;
+# inference, the uniform serving load and the step components at
+# DRIVER_LAYERS of 22 layers, cut for time (each decode step is host-bound;
+# at 4 layers the five drivers took 13.0 s, the script 798.2 s of its
+# 1,200, on an H100 80GB HBM3 at 700 W, PERF.md section 6); the ladder's
+# synced and chained steps (its N_STEPS 6) at DRIVER_STEPS, inference's new
+# tokens (128) at INFER_NEW, the uniform load's (448) at SERVE_NEW.
+# bench.py's step runs in phase 8, --load mixed in phase 4, _bench_vit_giant
+# in phase 11 and benchmark_collectives in phase 18 (g)
+DRIVER_LAYERS = 8
+DRIVER_STEPS = 2
+INFER_NEW = 16
+SERVE_NEW = 32
+DRIVER_SEQ = 2048  # the drivers' sequence (their default)
+FUSED_MKF = (16384, D, F)  # benchmark_fused's M, K, F (its default, Llama2-1B at batch 8)
+COMPONENTS_BS = 8  # benchmark_step_components' batch (its default)
+LADDER_BAR = 1e-2  # each rung's first loss against bf16's (PERF.md section 2)
+INFERENCE_KEYS = {"metric", "prompt_len", "new_tokens", "quantize", "results"}  # benchmark_inference.py's JSON
+
+
+def ladder_per_step_launches(L: int, kw: dict | None, b6: int) -> dict:
+    """Kernel launches of one step of a ladder rung of L layers (one
+    micro-batch, remat), the base counters only (not their routes' shares;
+    pinned on the CPU by tests/test_torch_benchmark_train_ladder.py): bf16
+    (``kw`` None) and all int8 as :func:`per_step_launches` gives them;
+    "INT8 forward" (grad_input and grad_weight bf16) the unfused layer
+    whose every linear quantizes its own input, forward and replay (K1 26 a
+    layer: 14 and 12, K2 13) and no backward kernel, each quantize in its SR
+    form with ``stochastic_rounding``; "+ INT8 grad_input" the fused layer's
+    forward and replay, and a backward that row-quantizes the 5 output
+    gradients with K1 in place of B5 and runs no B2, B8, B9-col or B12 (the
+    grad_weight products are bf16), ungroups o's input once more for its bf16
+    grad_weight and quantizes it along rows only. B6 once per leaf
+    (``b6``)."""
+    sr = bool(kw and kw.get("stochastic_rounding"))
+    if kw is None:
+        counts = per_step_launches(L, b6=b6, layer="bf16")
+    elif kw["grad_weight"]:
+        counts = per_step_launches(L, sr=sr, b6=b6)
+    elif kw["grad_input"]:
+        counts = per_step_launches(L, b6=b6)
+        counts["quantize_int8_rowwise"] += 5 * L
+        counts["rope_ungroup"] += L
+        counts["ungroup_quant"] -= L
+        for k in ("quantize_int8_both", "scaled_mm_lhs_t", "rmsnorm_quant_colwise", "silu_mul_quant_colwise",
+                  "silu_mul_bwd_quant_colwise"):
+            counts[k] = 0
+    else:
+        counts = per_step_launches(L, b6=b6, layer="bf16")
+        counts.update({f"quantize_int8_rowwise{'_sr' if sr else ''}": 26 * L, "scaled_mm_rhs_t": 13 * L})
+    return base_counts(counts)
+
+
+def base_counts(counts: dict) -> dict:
+    """The counters of launches, without those of a route's share
+    (``*_sm90``, ``*_decode``)."""
+    return {k: v for k, v in counts.items() if not k.endswith(("_sm90", "_decode"))}
+
+
+def drivers_phase(t_script: float) -> dict:
+    """Phase 20: the measurement drivers, each through its ``main`` on its
+    JAX script's flags and printing its own lines, at Llama2-1B's width:
+    (b) ``benchmark_train_ladder --sr`` at full depth (bs 8 x 2048; every
+    rung's steps launch exactly
+    :func:`ladder_per_step_launches`, each rung's first loss within 1e-2 of
+    bf16's), (c) ``benchmark_inference --quantize mixed_precision`` (bs 1,
+    8, 32, prompt 512, ``INFER_NEW`` new tokens: JAX's keys, every batch a
+    result, K1 and K2 launched), (d) ``benchmark_serving --load uniform
+    --quantize mixed_precision`` (``SERVE_NEW`` new tokens), (e)
+    ``benchmark_fused`` at M 16,384, K 2,048, F 5,632 (full width and
+    size: every chain's fused output within ``STEP_BOUND`` int8 steps of
+    the unfused composite's, B13's equal), (f)
+    ``benchmark_step_components`` (bs 8 x 2048: every variant ran), (c),
+    (d) and (f) cut to ``DRIVER_LAYERS``. Prints each driver's seconds;
+    returns the phase's launches."""
+    t_phase, seconds = time.perf_counter(), {}
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    cut = dataclasses.replace(CFG, num_hidden_layers=min(DRIVER_LAYERS, CFG.num_hidden_layers))
+    L, dev = cut.num_hidden_layers, device_args()
+    small = dataclasses.replace(CFG, vocab_size=8, hidden_size=64, intermediate_size=64, num_hidden_layers=1,
+                                num_attention_heads=1, num_key_value_heads=1)  # the leaves, not their sizes
+    n_leaves = len(tree_leaves(llama.init_params(torch.Generator().manual_seed(0), small)))
+
+    def ran(name: str, t0: float, counts: dict) -> None:
+        sync()
+        seconds[name] = time.perf_counter() - t0
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"[20] {name}: {seconds[name]:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    ladder = benchmark_train_ladder
+    with preset(CFG), patched(ladder, N_STEPS=DRIVER_STEPS), StepLaunches(None) as rec:
+        rows = ladder.main(["--model", "llama2-1b", "--seq", str(DRIVER_SEQ), "--sr", *dev])
+    ran("benchmark_train_ladder", t0, rec.total)
+    rungs = ladder.RUNGS + ladder.SR_RUNGS
+    check(len(rows) == len(rungs) == len(rec.runs), f"every rung ran: {rows}")
+    bf16_first = rec.losses(0)[0]
+    for (name, kw), run in zip(rungs, rec.runs):
+        want = ladder_per_step_launches(CFG.num_hidden_layers, kw, n_leaves)
+        check(all(base_counts(c) == want for c in run["launches"]), f"{name}: every step launches {want}")
+        losses = [l.item() for l in run["losses"]]
+        rel = abs(losses[0] - bf16_first) / abs(bf16_first)
+        print(f"[20] ladder rung {name!r}: {len(losses)} steps, losses {losses}, first against bf16's relative "
+              f"{rel:.3e} (bound {LADDER_BAR:g}); launches a step { {k: v for k, v in want.items() if v} }")
+        check(all(np.isfinite(losses)) and rel <= LADDER_BAR, f"{name}: first loss within {LADDER_BAR} of bf16's")
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with preset(cut):
+        line = benchmark_inference.main(["--model", "llama2-1b", "--prompt_len", "512", "--new_tokens",
+                                         str(INFER_NEW), "--quantize", "mixed_precision", *dev])
+    counts = ops.launch_counts()
+    ran("benchmark_inference", t0, counts)
+    check(set(line) == INFERENCE_KEYS and [r["batch"] for r in line["results"]] == [1, 8, 32]
+          and all(r["gen_tokens_per_sec"] > 0 for r in line["results"]), f"inference's line: {line}")
+    check(DEVICE == "cpu" or all(counts[k] > 0 for k in SERVING_KERNELS), f"generate launched K1 and K2: {counts}")
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with preset(cut):
+        uniform = benchmark_serving.main(["--model", "llama2-1b", "--quantize", "mixed_precision", "--new_tokens",
+                                          str(SERVE_NEW), *dev])
+    ran("benchmark_serving --load uniform", t0, ops.launch_counts())
+    check(uniform["windowed"] > 0 and uniform["full"] > 0, f"the uniform load's rates: {uniform}")
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    M, K, Fw = FUSED_MKF
+    fused = benchmark_fused.main(["--M", str(M), "--K", str(K), "--F", str(Fw), *dev])
+    ran("benchmark_fused", t0, ops.launch_counts())
+    for c in benchmark_fused.chains(M, K, Fw, DEVICE) + benchmark_fused.round4_chains(M, K, Fw, DEVICE):
+        gaps = benchmark_fused.gaps(c)
+        exact = c.name.startswith(("rope", "ungroup"))
+        print(f"[20] {c.name}: fused against unfused {gaps} (bound {0 if exact else benchmark_fused.STEP_BOUND}"
+              f"{'' if exact else ' int8 steps'}); {fused[c.name][0]:.4f} / {fused[c.name][1]:.4f} ms")
+        check(all(g <= (0 if exact else benchmark_fused.STEP_BOUND) for _, g in gaps), f"{c.name}: {gaps}")
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with preset(cut):
+        parts = benchmark_step_components.main(["--model", "llama2-1b", "--bs", str(COMPONENTS_BS), "--seq",
+                                                str(DRIVER_SEQ), *dev])
+    ran("benchmark_step_components", t0, ops.launch_counts())
+    check(all(parts["variants"][tag] for tag, _, _ in benchmark_step_components.VARIANTS) and parts["quantize_int8"],
+          f"every part of the step components ran: {parts}")
+    print(f"[20] the drivers at Llama2-1B's width, the ladder at {CFG.num_hidden_layers} layers, the others at {L} "
+          f"(depth cut for time): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()) + f"; bench.py's step in phase 8, benchmark_serving --load "
+        f"mixed in phase 4, _bench_vit_giant in phase 11, benchmark_collectives in phase 18 (g); phase 20 "
+        f"{time.perf_counter() - t_phase:.1f} s, the script {time.perf_counter() - t_script:.1f} s", flush=True)
+    return launches
+
+
+class PhaseClock:
+    """Prints each phase's seconds, and the script's, as the phase ends."""
+
+    def __init__(self, t_script: float):
+        self.t_script = self.t = t_script
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[t] phase {phase}: {now - self.t:.1f} s; the script {now - self.t_script:.1f} s", flush=True)
+        self.t = now
+
+
 def fill_launches(entries, launches: dict) -> None:
     """Each entry's launches on its path, and where the kernel has an sm90
     route, that route's share of them (``sm90_launches``)."""
@@ -4898,7 +5286,9 @@ def main() -> None:
     args = parser.parse_args()
     t_script = time.perf_counter()
     smi = card()
+    clock = PhaseClock(t_script)
     build()
+    clock("2, the build")
     key = random.key_from_generator(torch.Generator().manual_seed(args.seed))
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     k2_worst, k2_decode = check_k2(gen)
@@ -4914,12 +5304,17 @@ def main() -> None:
     b18 = check_b18(gen, key)
     b17, b19 = check_b17(gen), check_b19(gen)
     check_attention_layout(key)
-    fill_launches(serving, serve(torch.Generator(device=DEVICE).manual_seed(SEED)))
+    clock("3")
+    serve_launches, served_load = serve(torch.Generator(device=DEVICE).manual_seed(SEED))
+    fill_launches(serving, serve_launches)
+    clock("4")
     kernel_vs_plain_path(SEED, torch.float32, 3e-2, 0.95)
     kernel_vs_plain_path(SEED, torch.bfloat16, 1e-1, 0.85)
+    clock("5")
     raw = llama.init_params(torch.Generator(device=DEVICE).manual_seed(SEED), CFG)
     q_losses, launches, (bf16_first, bf16_tps) = train_slice(raw, args.seed, key)
     fill_launches(training, launches)
+    clock("6")
     for fused in (False, True):
         grads_vs_plain(SEED, torch.float32, 1.5e-1, 1e-3, fused=fused)
         grads_vs_plain(SEED, torch.bfloat16, 2e-1, 1e-3, fused=fused)
@@ -4929,17 +5324,23 @@ def main() -> None:
     vit_grads_vs_plain(SEED, torch.float32, 1e-1, 1e-3)
     vit_grads_vs_plain(SEED, torch.bfloat16, 1.5e-1, 1e-3)
     vit_grads_vs_plain(SEED, torch.float32, 1e-1, 1e-3, sr_key=random.fold_in(key, 7))
-    fill_launches([adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))],
-                  bench_step(raw, args.seed, key))
+    clock("7")
+    bench_launches, bench_line = bench_step(raw, args.seed, key)
+    fill_launches([adamw[0], *(e for e in producers if not e["name"].endswith("_sr"))], bench_launches)
+    clock("8")
     fill_launches([*sr_forms, adamw[1], *(e for e in producers if e["name"].endswith("_sr"))],
                   sr_config(raw, args.seed, key, q_losses[0]))
+    clock("9")
     path, steps = tile_int8_path(), other_dtypes(raw, args.seed, key, bf16_first, bf16_tps)
     fill_launches(other_gemms, {k: path[k] + steps[k] for k in path})
-    rn_launches, sr_launches = vit_giant_step(SEED, key)
+    clock("10")
+    rn_launches, sr_launches, vit_rates = vit_giant_step(SEED, key)
+    clock("11")
     fill_launches([e for e in b18 if not e["name"].endswith("_sr")], rn_launches)
     fill_launches([e for e in b18 if e["name"].endswith("_sr")], sr_launches)
     fill_launches(b17, benchmark_mm_phase())
     fill_launches([b19], int8_attention_phase(SEED))
+    clock("12, 13")
     kernels = serving + training + sr_forms + adamw + producers + other_gemms + b18 + b17 + [b19]
     storage = storage_schemes(raw, args.seed, key)
     for e in kernels:  # phase 14's launches, under a key of their own
@@ -4948,6 +5349,7 @@ def main() -> None:
     check(all(storage[k] > 0 for k in ("quantize_int8_rowwise", "quantize_int8_rowwise_sr", "scaled_mm_rhs_t",
                                        "scaled_mm_rhs_t_decode", "rope_group", "fused_adamw_update")),
           f"phase 14 launched K1, K1-SR, K2 (decode too), B13 and B6: {storage}")
+    clock("14")
     pretrain, at_470m = llm_drivers(args.seed)
     for e in kernels:  # phase 15's launches, under a key of their own, and (e)'s shapes
         e["pretrain_launches"] = pretrain.get(e["name"], 0)
@@ -4955,13 +5357,17 @@ def main() -> None:
             e["shapes_470m"] = at_470m[e["name"]]
             e["max_abs_err"] = max(e["max_abs_err"], *(r["max_abs_err"] for r in at_470m[e["name"]]))
     check(all(e["launches"] > 0 for e in kernels), f"every kernel launched on its path: {kernels}")
+    clock("15")
     prequant_conv_mx(raw, args.seed, key, kernels)
+    clock("16")
     remat = remat_phase(raw, args.seed, key)
+    clock("19")
     for e in kernels:  # phase 19's launches, under a key of their own
         e["remat_launches"] = remat.get(e["name"], 0)
     del raw
     torch.cuda.empty_cache()
     tasks = tasks_phase(args.seed)
+    clock("17")
     for e in kernels:  # phase 17's launches, under a key of their own
         e["task_launches"] = tasks.get(e["name"], 0)
     meshed, images = mesh_phase(args.seed, key, t_script)
@@ -4973,6 +5379,15 @@ def main() -> None:
     fill_launches(mesh_forms, meshed)  # the mesh forms' path is phase 18's
     check(all(e["launches"] > 0 for e in mesh_forms), f"phase 18 launched every mesh form: {mesh_forms}")
     kernels += mesh_forms
+    clock("18")
+    drivers = drivers_phase(t_script)
+    for e in kernels:  # phase 20's launches
+        e["driver_launches"] = drivers.get(e["name"], 0)
+    print(f"[20] bench.py's line (phase 8): {json.dumps(bench_line)}; benchmark_serving --load mixed (phase 4): "
+          f"windowed {served_load['windowed']:.1f}, full-window {served_load['full']:.1f}, static "
+          f"{served_load['static']:.1f} tok/s; _bench_vit_giant (phase 11): "
+          + ", ".join(f"{k} {v:.1f} img/s" for k, v in vit_rates.items()), flush=True)
+    clock("20")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

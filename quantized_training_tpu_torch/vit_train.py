@@ -72,6 +72,14 @@ def model_config(name: str, num_classes: int, image_size: int, **model_kwargs) -
                                                     **model_kwargs))
 
 
+def min_k_filter(min_k: int):
+    """``quantize_params``' filter of ``--quantize_min_k``: the default
+    filter and in_features (``shape[-1]``) >= ``min_k``; None for 0."""
+    if not min_k:
+        return None
+    return lambda path, leaf: _default_filter(path, leaf) and leaf.shape[-1] >= min_k
+
+
 def make_train_step(cfg: vit.ViTConfig, optimizer: optim.Optimizer):
     """``step(qparams, opt_state, images, labels, lr, skey) -> (qparams,
     opt_state, loss)``, the JAX driver's step (:145-156): the loss and its
@@ -122,11 +130,8 @@ def main(argv: list[str] | None = None) -> None:
     cfg = model_config(args.model, args.num_classes, args.image_size, **args.model_kwargs)
     key = args.seed  # an int key (ops/random.py)
     params = vit.init_params(torch.Generator(device=device).manual_seed(args.seed), cfg)
-    filter_fn = None
-    if args.quantize_min_k:
-        def filter_fn(path, leaf):
-            return _default_filter(path, leaf) and leaf.shape[-1] >= args.quantize_min_k
-    qparams = quant.quantize_params(params, args.quantize, filter_fn=filter_fn, **args.quantize_kwargs)
+    qparams = quant.quantize_params(params, args.quantize, filter_fn=min_k_filter(args.quantize_min_k),
+                                    **args.quantize_kwargs)
     print_model_stats(params)
 
     optimizer = optim.get_optimizer(args.optim, weight_decay=args.weight_decay, **args.optim_kwargs)

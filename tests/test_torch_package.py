@@ -14,19 +14,25 @@ from quantized_training_tpu_torch.ops import _build
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = Path(quantized_training_tpu_torch.__file__).resolve().parent
+# the JAX repository's measurement drivers, ported under their file names
+DRIVERS = ("bench.py", "benchmark_train_ladder.py", "benchmark_inference.py", "benchmark_serving.py",
+           "benchmark_fused.py", "benchmark_step_components.py", "benchmark_collectives.py", "_bench_vit_giant.py")
 
 
 def test_import_leaves_jax_out():
     """A fresh interpreter imports the whole package, the ViT slice's
-    modules (the model, data, logging and the ``vit_train`` entry point)
-    and the LLM drivers and tasks included, without loading jax (or the JAX package) and without building
-    a kernel."""
+    modules (the model, data, logging and the ``vit_train`` entry point),
+    the LLM drivers and tasks and the measurement drivers included, without
+    loading jax (or the JAX package) and without building a kernel."""
     code = (
         "import sys\n"
         "import quantized_training_tpu_torch as p\n"
         "from quantized_training_tpu_torch.models import serving, vit\n"
         "from quantized_training_tpu_torch import benchmark_conv2d, data, llm_evaluate, llm_pretrain, vit_train\n"
         "from quantized_training_tpu_torch import accuracy_parity, hellaswag, llm_finetune, mc_eval, tokenize_data\n"
+        "from quantized_training_tpu_torch import _bench_vit_giant, bench, benchmark_collectives, benchmark_fused\n"
+        "from quantized_training_tpu_torch import benchmark_inference, benchmark_serving, benchmark_step_components\n"
+        "from quantized_training_tpu_torch import benchmark_train_ladder\n"
         "from quantized_training_tpu_torch.ops import conv, mx\n"
         "from quantized_training_tpu_torch import parallel\n"
         "from quantized_training_tpu_torch.data import native_loader\n"
@@ -53,7 +59,8 @@ def test_no_file_imports_jax():
             "optim/schedule_free.py", "optim/state8bit.py", "utils/checkpoint.py", "ops/mx.py", "ops/conv.py",
             "benchmark_conv2d.py", "mc_eval.py", "hellaswag.py", "llm_finetune.py", "accuracy_parity.py",
             "tokenize_data.py", "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py",
-            "parallel/tp.py"} <= names
+            "parallel/tp.py", *DRIVERS} <= names
+    assert all((REPO / d).exists() for d in DRIVERS)  # each ports the root script of its name
 
 
 def test_kernel_sources_present():
