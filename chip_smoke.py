@@ -66,7 +66,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    with an ``Int8Weight``'s bf16 [O] column scale and a BitNet weight's
    bf16 scalar one at M 8 and 8192 for every linear, K1 at BitNet's eps
    1e-5, K1-SR on every stacked [22, O, I] weight as the commit
-   re-quantizes it), each bit-exact and on its route;
+   re-quantizes it), each bit-exact and on its route; and K2's host cost: a
+   call timed whole, its parts timed alone (route predicates, checks,
+   ``torch.empty``, ``_build.stream()``, the ctypes call), and a launch of
+   it in a CUDA graph of 200 (``utils/graphs.py``), host and wall;
 4. the serving slice through ``benchmark_serving --load mixed``
    (``mixed_load``): Llama2-1B at full width and depth (random weights from
    a seed), ``mixed_precision``, 3 x 8 requests of JAX's mixed load
@@ -74,9 +77,17 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    the windowed ``Server(n_slots=8, max_len=2048, decode_chunk=16)`` and
    the full-window one, a warm and a timed drain each, then static batched
    ``generate``; in every drain launch counts prove the kernels ran, every
-   K2 decode launch (M <= 16) on the split-K weight stream and every
-   prefill launch on the sm90 route, K1 on the row walk but at the KV rows
-   of 64; two streams are held against ``generate()``, and the static
+   K2 call of M <= 16 on the split-K weight stream and every other on the
+   sm90 route (an eager call's M through its route predicate, a decode
+   graph's replays at M = the slots), K1 on the row walk but at the KV rows
+   of 64; every decode call of both servers a CUDA graph a window and chunk
+   (``make_decode_step``'s default), its replays counted; two streams are
+   held against ``generate()``; the same requests through an eager
+   windowed server (``jit_compile=False``) give the graphed server's token
+   streams exactly and its K2 launches by route; then decode alone, graphed
+   and eager in turns (8 slots at positions 150-246, chunk 16): ms a decode
+   step, tok/s, peak memory and the busy share (a profiled call's kernel
+   intervals, their union, over that call's wall); and the static
    baseline's streams at the requests it did not pad against the server's;
 5. kernel path against plain path: prefill logits of a 2-layer cut on the
    card against the same model on the CPU (plain versions);
@@ -93,7 +104,9 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    launch on the row walk and every B4 launch on its cluster form, here and
    in phases 8 and 9, and B4's in phase 11), and the same steps in bf16
    start from the
-   same loss;
+   same loss; every step here and in phases 8, 10, 14-17, 19 and 20 a CUDA
+   graph (``make_train_step``'s default), its launches counted as the
+   eager step's;
 7. kernel path against plain path: the loss and every gradient of a
    2-layer cut at full width, fp32 and bf16, and fp32 with stochastic
    rounding from one key, on the card against the CPU, both on the grouped
@@ -110,13 +123,20 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    synced and chained: tokens/s, the ratios, bench's JSON line with JAX's
    keys, peak memory, exact launch counts under the remat policy (B6 once
    per parameter leaf) and SDPA's forwards (``ops.sdpa_forwards()``, once a
-   layer and micro-step); then one fused int8 step under
-   ``torch.profiler``: its kernels' device time by
-   ``profile_torch_step.py``'s groups;
+   layer and micro-step), each step a replay of its CUDA graph; then the
+   fused int8 step graphed (the default) and eager (``jit_compile=False``)
+   from the same weights and batch, in turns: 3 steps under
+   ``torch.use_deterministic_algorithms(True)`` give the same losses, grad
+   norms and first-step parameters bit for bit and the same launches a
+   step; then 3 steps of each under default algorithms and one more under
+   ``torch.profiler``: ms a step, tok/s, peak memory, the kernels' device
+   time by ``profile_torch_step.py``'s groups and the busy share (the union
+   of the profiled step's kernel intervals over its wall);
 9. the SR configuration (``llm_pretrain.py`` with ``stochastic_rounding``
    and ``--optim adamw_bf16_sr``): three steps at batch 4 x 2048 in which
    only the SR forms of K1, B4, B5, B6, B7-B9, B11, B12 and B14's quantize
-   launch, and B10, B13 and B14's absmax, which have none;
+   launch, and B10, B13 and B14's absmax, which have none; eager
+   (``jit_compile=False``): SR in the model refuses a graph;
 10. int4 and fp8: B15's int8 form on ``benchmark_mm.py``'s tile case
    through ``ops.scaled_mm``; then three steps each of int4, fp8-tile and
    fp8-row ``mixed_precision`` at phase 6's shapes and optimizer, from its
@@ -234,7 +254,8 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    least 0.90 accurate, each quantized configuration within 0.02 of it and
    its final loss within 0.02 nats. Every entry gains the phase's launches
    (``task_launches``).
-18. ``parallel/`` on the one card, Llama2-1B at full width: (a)
+18. ``parallel/`` on the one card, Llama2-1B at full width, every step
+   eager (``jit_compile=False``: a mesh refuses a graph): (a)
    ``llm_pretrain --mesh '{"fsdp": 1}'`` under NCCL at world 1 (a child
    process with ``RANK=0 WORLD_SIZE=1``, deterministic algorithms), 8
    layers, batch 2 x 2048, 3 steps with a checkpoint at step 2 and a
@@ -265,8 +286,10 @@ Phases (each prints its own lines; any failed check raises, exit code != 0):
    the sharded resume at ``{"fsdp": 2}`` (2 layers): 3 steps, a
    ``last_{rank}.pkl`` each, ``restore_sharded``, 2 steps equal 5 steps bit
    for bit; (h) schedule-free with the 8-bit state at ``{"fsdp": 2}`` (4
-   layers), 3 steps against one process, each rank's codes after the first
-   step against the one-process slice (``SF8_AGREE``, ``SF8_STEPS``); (i)
+   layers), 3 steps against one process; each rank's codes after the first
+   step, under deterministic algorithms and again without, equal bit for
+   bit the one-process 8-bit state's from the ranks' gathered gradient
+   (their agreement with the independent one-process run printed); (i)
    ``QT_PREQUANT`` '0', 'both' and 'col' at ``{"fsdp": 2}`` (2 layers, 2
    steps, deterministic algorithms): 'both' and 'col' equal '0' bit for
    bit, B5's and B4's mesh forms launched once a layer's weight; (g)
@@ -358,7 +381,7 @@ from quantized_training_tpu_torch.quant.core import quantize_int4_rowwise_absmax
 from quantized_training_tpu_torch import data
 from quantized_training_tpu_torch.utils import checkpoint, load_checkpoint
 from quantized_training_tpu_torch.utils.timing import copies, time_ms
-from quantized_training_tpu_torch.utils.tree import map_tensors, tree_leaves
+from quantized_training_tpu_torch.utils.tree import map_tensors, tree_leaves, tree_map
 
 # the modules: the ops package exports functions of their names
 TILE_MM = importlib.import_module("quantized_training_tpu_torch.ops.tile_scaled_mm")
@@ -371,6 +394,7 @@ INT4_MM = importlib.import_module("quantized_training_tpu_torch.ops.int4_mm")
 ATTN = importlib.import_module("quantized_training_tpu_torch.ops.int8_attention")
 FUSED = importlib.import_module("quantized_training_tpu_torch.quant.fused")
 REMAT = importlib.import_module("quantized_training_tpu_torch.ops.remat")
+GRAPHS = importlib.import_module("quantized_training_tpu_torch.utils.graphs")
 PROFILE = importlib.import_module("profile_torch_step")  # its kernel groups
 SEED = 0
 # phase 14's requests: the first of benchmark_serving's mixed load, at
@@ -390,6 +414,7 @@ SERVE_BUDGETS = (4, 8, 12, 16)
 STATIC_BAR = 5e-2
 CFG = llama.LLAMA2_1B
 DEVICE = "cuda"
+SMI = ""  # the card's name and power limit, as nvidia-smi gives them (phase 1)
 D, F, KVD = CFG.hidden_size, CFG.intermediate_size, CFG.num_key_value_heads * CFG.head_dim
 SERVING_KERNELS = ("quantize_int8_rowwise", "scaled_mm_rhs_t")  # K1, K2
 TRAIN_B, TRAIN_S = 4, 2048  # llm_pretrain.py's defaults
@@ -546,6 +571,8 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
     print(f"[1] device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {smi}", flush=True)
+    global SMI
+    SMI = smi
     return smi
 
 
@@ -781,6 +808,93 @@ def k2_host_cost(gen: torch.Generator, n: int = 2000) -> None:
           f"{sm90:.2f} us {[round(v, 2) for v in us[17]]}, wmma route (M 16) {wmma:.2f} us "
           f"{[round(v, 2) for v in us[16]]}; the sm90 route's tensor-map encodes and attribute set: "
           f"{sm90 - wmma:.2f} us a call")
+    for M in (17, 16):
+        a = torch.randint(-128, 128, (M, 256), generator=gen, device=DEVICE, dtype=torch.int8)
+        sa = torch.rand(M, 1, generator=gen, device=DEVICE)
+        parts = k2_call_parts(a, b, sa, sb, n)
+        replay = k2_replay_cost(a, b, sa, sb)
+        print(f"[3] K2's call at M {M} ({'sm90' if M > SCALED_MM.DECODE_M else 'wmma'} route; {SMI}), its parts "
+              f"timed alone over {n} calls each, us: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+              + f"; sum {sum(parts.values()):.2f} against the whole call's {(sm90, wmma)[M == 16]:.2f}", flush=True)
+        print(f"[3] K2 at M {M} in a CUDA graph of {replay['launches']} launches: host {replay['host_us']:.3f} us a "
+              f"captured launch (graph.replay() returning), {replay['wall_us']:.3f} us a launch to completion (the "
+              f"device's pace), against the eager call's {(sm90, wmma)[M == 16]:.2f} us", flush=True)
+
+
+def _per_call_us(fn, n: int) -> float:
+    """Host wall of ``fn()`` per call over ``n`` calls, after one, ending
+    in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+class _NoLaunch:
+    """``_build`` for ``scaled_mm._launch`` with every kernel entry point
+    returning success without a launch: what is left is the wrapper's
+    checks and its ``torch.empty``."""
+
+    check = staticmethod(_build.check)
+
+    class library_stub:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    _lib = library_stub()
+
+    @classmethod
+    def library(cls):
+        return cls._lib
+
+    @staticmethod
+    def stream() -> int:
+        return 0
+
+
+def k2_call_parts(a, b, sa, sb, n: int) -> dict:
+    """The host time of each part of one K2 call (``ops.scaled_mm_rhs_t``)
+    at a [M, 256], b [256, 256], each timed alone over ``n`` calls, us: the
+    route predicates, the checks (``_launch`` with no launch, less its
+    ``torch.empty``), ``torch.empty`` of the output, ``_build.stream()``,
+    and the ctypes call that launches the kernel."""
+    M, N, K = a.shape[0], b.shape[0], a.shape[1]
+    sm90 = SCALED_MM.sm90_route(M)
+    route = _per_call_us(lambda: SCALED_MM.sm90_route(M) or SCALED_MM.decode_route(
+        M, N, K, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0), n)
+    empty = _per_call_us(lambda: torch.empty((M, N), dtype=torch.bfloat16, device=a.device), n)
+    with patched(SCALED_MM, _build=_NoLaunch):
+        checked = _per_call_us(lambda: SCALED_MM._launch("scaled_mm_rhs_t", a, b, sa, sb, (1, 1), torch.bfloat16,
+                                                         sm90, 0), n)
+    stream = _per_call_us(_build.stream, n)
+    lib, out = _build.library(), torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    args = (a.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(), out.data_ptr(), M, N, K, 1, 1, 0, 1, int(sm90),
+            _build.stream())
+    launch = _per_call_us(lambda: lib.qt_scaled_mm_s8(*args), n)
+    return {"route predicates": route, "checks": checked - empty, "torch.empty": empty, "_build.stream()": stream,
+            "ctypes call and launch": launch}
+
+
+def k2_replay_cost(a, b, sa, sb, launches: int = 200, replays: int = 20) -> dict:
+    """K2 ``launches`` times on the same operands, captured as one CUDA
+    graph (``utils/graphs.py``) and replayed ``replays`` times: the host's
+    time in ``graph.replay()`` and the wall to completion, per captured
+    launch (us)."""
+    captured = GRAPHS.Captured(lambda: [ops.scaled_mm_rhs_t(a, b, sa, sb) for _ in range(launches)])
+    captured.replay()
+    torch.cuda.synchronize()
+    host, t0 = 0.0, time.perf_counter()
+    for _ in range(replays):
+        t1 = time.perf_counter()
+        captured.graph.replay()
+        host += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(launches=launches, host_us=host / replays / launches * 1e6,
+                wall_us=wall / replays / launches * 1e6)
 
 
 def _entry(name, replaces, worst, timed, nbytes, int8_ops=0.0, library_ms=None, fp32_ops=0.0, bf16_ops=0.0,
@@ -1240,11 +1354,13 @@ def check_fused_adamw(gen: torch.Generator, key: int) -> list:
     """B6 at every parameter shape of Llama2-1B, bf16 parameters, SR
     writeback off and on, against its plain version (eager torch ops on
     the card) with the same key: bit-exact in the new parameter and both
-    moments; timed, with GB/s of the 14 bytes per parameter it must move
-    (p, g, m, v read, p, m, v written, all bf16)."""
+    moments, out of place and in place (``in_place``: a donated state,
+    B6's in-place instantiation); timed, out of place and in place, with
+    GB/s of the 14 bytes per parameter it must move (p, g, m, v read, p, m,
+    v written, all bf16)."""
     t = 3  # the step's bias corrections, as adamw_bf16_sr forms them
     scalars = torch.tensor([1e-4, 0.9, 0.999, 1e-2, 1e-8, 1 - 0.9**t, 1 - 0.999**t], device=DEVICE)
-    worst, timed = {False: 0.0, True: 0.0}, {}
+    worst, timed, in_place_ms = {False: 0.0, True: 0.0}, {}, {}
     for shape in PARAM_SHAPES:
         p = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
         g = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(torch.bfloat16)
@@ -1258,20 +1374,29 @@ def check_fused_adamw(gen: torch.Generator, key: int) -> list:
             form = "SR writeback" if sr else "round-to-nearest"
             check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"B6 {form} bit-exact at {list(shape)}")
             worst[sr] = max(worst[sr], _max_err(got, ref))
+            donated = (p.clone(), g, ea.clone(), eas.clone())
+            kernel(*donated, in_place=True)
+            check(all(torch.equal(a, b) for a, b in zip(donated[:1] + donated[2:], ref)),
+                  f"B6 {form} in place bit-exact at {list(shape)}")
             inputs = copies(p, g, ea, eas)
             ms, plain_ms = time_ms(kernel, inputs, iters=8), time_ms(plain, inputs, iters=8)
-            print(f"[3] fused_adamw_update {list(shape)} bf16, {form}: bit-exact; kernel {ms:.4f} ms "
+            print(f"[3] fused_adamw_update {list(shape)} bf16, {form}: bit-exact, in place too; kernel {ms:.4f} ms "
                   f"({14 * p.numel() / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms")
             if shape == (CFG.num_hidden_layers, F, D):
                 timed[sr] = (shape, ms, plain_ms)
+                in_place_ms[sr] = time_ms(partial(kernel, in_place=True), inputs, iters=8)
+                print(f"[3] fused_adamw_update {list(shape)} bf16, {form}, in place: {in_place_ms[sr]:.4f} ms "
+                      f"({14 * p.numel() / in_place_ms[sr] / 1e6:.0f} GB/s; out of place {ms:.4f} ms in this call)")
                 if not sr:
                     library = lib_ms("torch._fused_adamw_", fused_adamw_lib, inputs)
                     print(f"[3] torch._fused_adamw_ {list(shape)} bf16 (the same update, round-to-nearest, in "
                           f"place): {'refused' if library is None else f'{library:.4f} ms'}")
     replaces = "quantized_training_tpu/ops/pallas_optim.py:79"
     n = np.prod(timed[False][0])
-    return [_entry("fused_adamw_update", replaces, worst[False], timed[False], 14 * n, library_ms=library),
-            _entry("fused_adamw_update_sr", replaces, worst[True], timed[True], 14 * n)]
+    return [_entry("fused_adamw_update", replaces, worst[False], timed[False], 14 * n, library_ms=library)
+            | {"in_place_ms": in_place_ms[False]},
+            _entry("fused_adamw_update_sr", replaces, worst[True], timed[True], 14 * n)
+            | {"in_place_ms": in_place_ms[True]}]
 
 
 def fused_adamw_lib(p, g, ea, eas):
@@ -1921,14 +2046,10 @@ def serve(gen: torch.Generator) -> tuple[dict, dict]:
     drains, drain = [], benchmark_serving.drain_mixed
 
     def recorded(srv, reqs):
-        rows, route = [], SCALED_MM.sm90_route  # K2's M per call, through the route predicate it consults
-        SCALED_MM.sm90_route = lambda M: rows.append(M) or route(M)
         first = srv._next_rid
         ops.reset_launch_counts()
-        try:
+        with k2_calls(srv) as rows:
             n = drain(srv, reqs)
-        finally:
-            SCALED_MM.sm90_route = route
         drains.append((srv, range(first, first + len(reqs)), n, rows, ops.launch_counts()))
         return n
 
@@ -1945,8 +2066,12 @@ def serve(gen: torch.Generator) -> tuple[dict, dict]:
         decode, k1_walk = served(launches, rows, reqs, [srv.result(r) for r in rids], n, CFG)
         print(f"[4] {('windowed', 'full-window')[i // 2]} server, {('warm', 'timed')[i % 2]} drain: {len(reqs)} "
               f"requests, {n} tokens; K2 {decode} decode launches (M <= {SCALED_MM.DECODE_M}) on the decode stream, "
-              f"{len(rows) - decode} prefill launches on sm90; K1 {k1_walk} of {launches['quantize_int8_rowwise']} "
-              f"launches on the row walk (the rest the KV rows of 64)")
+              f"{launches['scaled_mm_rhs_t_sm90']} prefill launches on sm90; K1 {k1_walk} of "
+              f"{launches['quantize_int8_rowwise']} launches on the row walk (the rest the KV rows of 64)")
+    for i in (0, 2):  # the windowed and the full-window server
+        replays = sum(fn.captured.replays for fn in drains[i][0]._decode_fns.values() if fn.captured is not None)
+        check(replays > 0, f"the {('windowed', 'full-window')[i // 2]} server's decode steps are CUDA graphs, "
+                           f"replayed: {replays}")
     srv, rids, _, _, launches = drains[1]
     results = [srv.result(r) for r in rids]
     print(f"[4] Llama2-1B mixed_precision, benchmark_serving --load mixed (3 x 8 requests, prompts "
@@ -1956,6 +2081,7 @@ def serve(gen: torch.Generator) -> tuple[dict, dict]:
           f"useful tok/s; {seconds:.1f} s; weights {weights_gib:.2f} GiB, peak device memory while serving "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the timed windowed drain's launches {launches}")
     vs_generate(4, params, CFG, reqs, results)
+    graphed_vs_eager_decode(params, reqs, results, launches, args)
     # the static baseline's rows against the windowed server given the same
     # left-padded prompts (the pads are tokens it attends to, as in JAX)
     pmax = max(len(p) for p, _ in reqs)
@@ -1976,12 +2102,121 @@ def serve(gen: torch.Generator) -> tuple[dict, dict]:
     return launches, out
 
 
+DECODE_TIMED_CALLS = 4  # phase 4: decode calls timed, each form
+DECODE_PROMPT = 150  # and its prompts' length: every call in the window of 256
+
+
+def graphed_vs_eager_decode(params, reqs, graphed: list, graphed_launches: dict, args) -> dict:
+    """Phase 4: the graphed decode (``Server``'s default, a CUDA graph a
+    window and chunk) against the eager one (``jit_compile=False``). The
+    ``--load mixed`` requests through an eager windowed server: every token
+    stream identical to the graphed server's timed drain (``graphed``), every
+    K2 call routed by its own M (:func:`served`: each consults the route
+    predicate), and K2's decode and sm90 launches equal to the graphed timed
+    drain's (``graphed_launches``). Then decode alone, the two in turns:
+    ``n_slots`` slots prefilled with prompts of ``DECODE_PROMPT`` tokens and a
+    first call (the graph's capture), ``DECODE_TIMED_CALLS`` timed calls of
+    ``decode_chunk`` tokens a slot (each ends in the tokens' copy to the host,
+    as ``Server.step`` does; the peak device memory of each form's calls,
+    both servers resident), then one more under ``torch.profiler``: ms a
+    decode step (one token of every slot), tok/s, and the busy share
+    (:func:`kernel_ms`). Returns the numbers by form."""
+    srv = Server(params, CFG, n_slots=args.n_slots, max_len=args.max_len, decode_chunk=args.decode_chunk,
+                 jit_compile=False)
+    ops.reset_launch_counts()
+    n = 0
+    with k2_calls(srv) as rows:
+        rids = [srv.add_request(p, b) for p, b in reqs]  # the first n_slots prefills run here
+        while srv.pending():
+            n += len(srv.step())
+    launches = ops.launch_counts()
+    eager = [srv.result(r) for r in rids]
+    check(all(fn.captured is None for fn in srv._decode_fns.values()), "the eager server captured no graph")
+    check(len(rows) == launches["scaled_mm_rhs_t"], f"every eager K2 call consulted the route predicate: "
+                                                     f"{len(rows)} of {launches['scaled_mm_rhs_t']}")
+    decode, _ = served(launches, rows, reqs, eager, n, CFG)
+    same = sum(a == b for a, b in zip(eager, graphed))
+    split = {k: (launches[k], graphed_launches[k]) for k in ("scaled_mm_rhs_t_decode", "scaled_mm_rhs_t_sm90")}
+    print(f"[4] --load mixed through the eager windowed server (jit_compile=False): {same} of {len(reqs)} token "
+          f"streams identical to the graphed server's; K2 {decode} decode and {launches['scaled_mm_rhs_t_sm90']} "
+          f"sm90 launches, each call routed by its M; (eager, graphed timed drain) by route {split}", flush=True)
+    check(same == len(reqs), "the graphed decode emits the eager decode's token streams exactly")
+    check(all(a == b for a, b in split.values()), "the graphed drain's K2 routes equal the eager drain's")
+    del srv
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(1, CFG.vocab_size, size=DECODE_PROMPT).tolist() for _ in range(args.n_slots)]
+    k = args.decode_chunk
+    servers = {name: Server(params, CFG, n_slots=args.n_slots, max_len=args.max_len, decode_chunk=k,
+                            jit_compile=name == "graphed") for name in ("graphed", "eager")}
+    for srv in servers.values():
+        for p in prompts:
+            srv.add_request(p, 1 + k * (DECODE_TIMED_CALLS + 2))
+        srv.step()  # the prefills' tokens and a first decode call: the graph's capture
+    GRAPHS.reset_replay_count()
+    walls, peaks = {name: [] for name in servers}, dict.fromkeys(servers, 0.0)
+    for _ in range(DECODE_TIMED_CALLS):
+        for name, srv in servers.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            n = len(srv.step())
+            walls[name].append(time.perf_counter() - t0)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated() / 2**30)
+            check(n == k * args.n_slots, f"{name}: a decode call gave {n} tokens")
+    check(GRAPHS.replay_count() == DECODE_TIMED_CALLS, f"the graphed decode replayed at every timed call: "
+                                                       f"{GRAPHS.replay_count()}")
+    out = {}
+    for name, srv in servers.items():
+        total, busy, groups = kernel_ms(srv.step)
+        call_ms = 1e3 * sum(walls[name]) / len(walls[name])
+        out[name] = dict(ms=call_ms / k, tok_s=args.n_slots * k / call_ms * 1e3, kernels_ms=total, busy=busy,
+                         peak_gib=peaks[name])
+        print(f"[4] {name} decode (Llama2-1B mixed_precision, {args.n_slots} slots at positions {DECODE_PROMPT}-"
+              f"{DECODE_PROMPT + k * (DECODE_TIMED_CALLS + 2)}, window 256, chunk {k}; {SMI}): "
+              f"{out[name]['ms']:.3f} ms a decode step ({call_ms:.2f} ms a call of {k}, calls "
+              f"{[round(w * 1e3, 2) for w in walls[name]]} ms), {out[name]['tok_s']:.1f} tok/s; peak device memory "
+              f"{peaks[name]:.2f} GiB (both servers resident); one profiled call's kernels {total:.2f} ms, busy "
+              f"{100 * busy:.1f}% of its wall; kernels by group: "
+              + "; ".join(f"{n} {t:.2f}" for n, t in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"[4] graphed/eager decode: {out['eager']['ms'] / out['graphed']['ms']:.3f}x the eager decode's rate",
+          flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def k2_calls(srv):
+    """K2's M at each call of a drain through ``srv``, for :func:`served`:
+    an eager call's as it consults the route predicate on the caller's
+    stream (a graph's warm-up, on a side stream, and its capture are left
+    out: their launches are taken back), and each K2 launch of a decode
+    graph's replays at M = the server's slots, the rows of every decode
+    step."""
+    rows, route, main = [], SCALED_MM.sm90_route, torch.cuda.current_stream()
+    before = {id(c): (c, c.replays) for fn in srv._decode_fns.values() if (c := fn.captured)}
+
+    def recorded(M):
+        if torch.cuda.current_stream() == main and not torch.cuda.is_current_stream_capturing():
+            rows.append(M)
+        return route(M)
+
+    SCALED_MM.sm90_route = recorded
+    try:
+        yield rows
+    finally:
+        SCALED_MM.sm90_route = route
+    graphs = {id(c): (c, 0) for fn in srv._decode_fns.values() if (c := fn.captured)} | before
+    for c, replays in graphs.values():
+        rows.extend([srv.n_slots] * ((c.replays - replays) * c.launches.get("scaled_mm_rhs_t", 0)))
+
+
 def served(launches: dict, rows: list, reqs, results, n: int, cfg) -> tuple[int, int]:
     """The checks of one drain of ``reqs`` through the server: each request
     got its budget of tokens in the vocabulary and every token was streamed
-    once; K1 and K2 launched, K2's decode launches (``rows``: its M per
-    call) on the decode stream and the rest on sm90, K1 on the row walk.
-    Returns (K2's decode launches, K1's on the walk)."""
+    once; K1 and K2 launched, K2's calls of M <= 16 (``rows``, from
+    :func:`k2_calls`: its M per call) on the decode stream and the rest on
+    sm90, K1 on the row walk. Returns (K2's decode launches, K1's on the
+    walk)."""
     for (prompt, budget), out in zip(reqs, results):
         check(len(out) == budget and all(0 <= t < cfg.vocab_size for t in out),
               f"{len(out)} tokens for a budget of {budget}")
@@ -2017,21 +2252,17 @@ def serve_params(phase: int, what: str, params, cfg, reqs, warm: bool = True) ->
 
     if warm:
         drain()  # warm-up: library load, cuBLAS handles, allocator pools
-    rows = []  # K2's M per call, through the route predicate it consults
-    route = SCALED_MM.sm90_route
-    SCALED_MM.sm90_route = lambda M: rows.append(M) or route(M)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    try:
+    with k2_calls(srv) as rows:
         rids, n = drain()
-    finally:
-        SCALED_MM.sm90_route = route
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     decode, k1_walk = served(launches, rows, reqs, [srv.result(r) for r in rids], n, cfg)
     print(f"[{phase}] Llama2-1B {what} Server(n_slots=8, max_len=2048, decode_chunk=16): "
           f"{len(reqs)} requests, {n} tokens in {wall:.3f} s = {n / wall:.1f} tok/s; K2 {decode} decode launches "
-          f"(M <= {SCALED_MM.DECODE_M}) on the decode stream, {len(rows) - decode} prefill launches on sm90; K1 "
+          f"(M <= {SCALED_MM.DECODE_M}) on the decode stream, {launches['scaled_mm_rhs_t_sm90']} prefill launches on "
+          f"sm90; K1 "
           f"{k1_walk} of {launches['quantize_int8_rowwise']} launches on the row walk (the rest the KV rows of 64); "
           f"weights {weights_gib:.2f} GiB, peak device memory while serving "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}")
@@ -2202,13 +2433,13 @@ def whole_layer_checkpoint():
 
 
 def run_steps(params, cfg, tokens, labels, opt, lr: float, key: int, n_steps: int, expect: dict | None,
-              norms: list | None = None, sdpa: int | None = None):
-    """n_steps of make_train_step(cfg, opt) at ``lr`` on one batch, step i
-    with the key ``fold_in(key, i)``: per step the loss, wall seconds (ends
-    in a synchronize) and, when ``expect`` is given, the launch counts
-    checked against it, when ``sdpa`` is, SDPA's forwards; each step's grad
-    norm appended to ``norms``."""
-    step = train.make_train_step(cfg, opt)
+              norms: list | None = None, sdpa: int | None = None, jit_compile: bool = True):
+    """n_steps of make_train_step(cfg, opt, jit_compile=jit_compile) at
+    ``lr`` on one batch, step i with the key ``fold_in(key, i)``: per step
+    the loss, wall seconds (ends in a synchronize) and, when ``expect`` is
+    given, the launch counts checked against it, when ``sdpa`` is, SDPA's
+    forwards; each step's grad norm appended to ``norms``."""
+    step = train.make_train_step(cfg, opt, jit_compile=jit_compile)
     state = train.init_train_state(params, opt)
     losses, walls, launches = [], [], dict.fromkeys(ops.KERNELS, 0)
     for i in range(n_steps):
@@ -2329,6 +2560,7 @@ def bench_step(raw, seed: int, key: int) -> tuple[dict, dict]:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             quant.set_impl(impl)
+            GRAPHS.reset_replay_count()
             try:
                 with StepLaunches(per_step_launches(L, micro=micro, b6=n_leaves, layer=layer),
                                   sdpa=sdpa_per_layer() * L * micro) as rec:
@@ -2336,6 +2568,9 @@ def bench_step(raw, seed: int, key: int) -> tuple[dict, dict]:
             finally:
                 quant.set_impl("auto")
             check(rec.steps == 2 + 2 * BENCH_STEPS, f"bench.measure ran {rec.steps} steps")
+            replays = GRAPHS.replay_count()
+            check(replays == rec.steps, f"{name}: bench's step is a CUDA graph, replayed at each of its {rec.steps} "
+                                        f"steps: {replays}")
             runs[name] = (got, rec.losses(), rec.total, torch.cuda.max_memory_allocated() / 2**30)
     chosen = ("llama2-1b", TRAIN_B, TRAIN_S, micro)
     line = bench.result_line(runs["int8"][0].tokens_per_sec, runs["bf16"][0].tokens_per_sec, chosen,
@@ -2363,29 +2598,131 @@ def bench_step(raw, seed: int, key: int) -> tuple[dict, dict]:
     print(f"[8] first-step loss int8 vs bf16: relative {rel:.3e} (bound 1e-2); int8 fused vs unfused: relative "
           f"{rel_u:.3e} (bound 1e-3)")
     check(rel <= 1e-2 and rel_u <= 1e-3, f"first losses: int8 vs bf16 {rel:.3e}, fused vs unfused {rel_u:.3e}")
-    cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
-    step_kernel_ms(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels,
-                   optim.adamw_bf16_sr(bf16_stochastic_rounding=False))
+    graphed_vs_eager_step(raw, seed, key)
     return runs["int8"][2], line
 
 
-def step_kernel_ms(params, cfg, tokens, labels, opt) -> float:
-    """Phase 8: one int8 fused step under the remat policy, under
-    ``torch.profiler``: the device time of its kernels, by
-    ``profile_torch_step.py``'s groups, printed; returns the total ms."""
+GRAPH_STEPS = 3  # phase 8: the graphed and the eager step, in turns
+
+
+def kernel_ms(run) -> tuple[float, float, dict]:
+    """``run()`` under ``torch.profiler``: the device time of its kernels
+    (ms, summed), the busy share (the union of their intervals over the
+    profiled call's wall, profiler included; at most 1, where a sum of
+    kernels on two streams may pass the wall), and the summed time by
+    ``profile_torch_step.py``'s groups."""
     from torch.profiler import ProfilerActivity, profile
 
     groups = {}
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_steps(params, cfg, tokens, labels, opt, 1e-4, random.fold_in(SEED, 8), 1, None)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     for e in prof.key_averages():
         if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             group = PROFILE.group_of(e.key)
             groups[group] = groups.get(group, 0.0) + e.self_device_time_total / 1e3
-    total = sum(groups.values())
-    print(f"[8] one int8 fused step under the remat policy, under torch.profiler: kernels {total:.1f} ms; "
-          + "; ".join(f"{k} {v:.1f}" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
-    return total
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    check(bool(spans and groups), "the profiler traced the card's kernels")
+    busy_us, end = 0.0, spans[0][0]
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return sum(groups.values()), busy_us / 1e6 / wall, groups
+
+
+def graphed_vs_eager_step(raw, seed: int, key: int) -> dict:
+    """Phase 8: bench's fused int8 step (tokens [4, 4, 2048], remat,
+    adamw_bf16_sr without SR, lr 1e-4) graphed (``jit_compile`` and
+    ``donate``, bench's default) and eager (``jit_compile=False``) from the
+    same weights and batch, in turns. First ``GRAPH_STEPS`` steps of each
+    under ``torch.use_deterministic_algorithms(True)``: the losses, grad
+    norms and the parameters after the first step bit for bit, the
+    launches (SDPA's forwards too) of every step equal, the graph captured
+    once and replayed at every step. Then, from fresh states under default
+    algorithms, ``GRAPH_STEPS`` steps of each in turns: ms a step and
+    tokens/s (the steps after the first; a step's wall ends in a
+    synchronize), the peak device memory of its steps (both forms' states
+    resident), and one more step of each under ``torch.profiler``: its
+    kernels' device time, by group, and the busy share (:func:`kernel_ms`).
+    Returns the numbers by form."""
+    cfg, tokens, labels = train_cfg_and_batch(seed, (BENCH_ACCUM, TRAIN_B, TRAIN_S))
+    params = quant.quantize_params(raw, "mixed_precision")
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    n_tok = tokens.numel()
+
+    def forms():
+        steps = {"graphed": train.make_train_step(cfg, opt),
+                 "eager": train.make_train_step(cfg, opt, jit_compile=False)}
+        return steps, {k: train.init_train_state(params, opt) for k in steps}
+
+    # (1) bit for bit under deterministic algorithms
+    steps, states = forms()
+    got = {k: [] for k in steps}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(GRAPH_STEPS):
+            for k, step in steps.items():
+                ops.reset_launch_counts()
+                states[k], m = step(states[k], tokens, labels, 1e-4, random.fold_in(key, 80 + i))
+                first = [t.clone() for t in tree_leaves(states[k].params)] if i == 0 else None
+                got[k].append((m["loss"].item(), m["grad_norm"].item(), ops.launch_totals(), first))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (captured,) = steps["graphed"].graphs.values()
+    g, e = got["graphed"], got["eager"]
+    same_params = all(torch.equal(a, b) for a, b in zip(g[0][3], e[0][3]))
+    print(f"[8] graphed against eager fused int8 step, deterministic algorithms, {GRAPH_STEPS} steps in turns: "
+          f"losses {[x[0] for x in g]} / {[x[0] for x in e]}; grad norms {[x[1] for x in g]} / {[x[1] for x in e]}; "
+          f"parameters after the first step bit for bit {same_params}; launches a step equal "
+          f"{[x[2] == y[2] for x, y in zip(g, e)]}; the graph replayed {captured.graph.replays} times", flush=True)
+    check([x[:2] for x in g] == [x[:2] for x in e] and same_params,
+          "the graphed step gives the eager step's losses, grad norms and first-step parameters bit for bit")
+    check(all(x[2] == y[2] for x, y in zip(g, e)), "the graphed step's launches a step equal the eager step's")
+    check(captured.graph.replays == GRAPH_STEPS, f"the graph replayed at every step: {captured.graph.replays}")
+    del steps, states, got, g, e, captured
+    torch.cuda.empty_cache()
+
+    # (2) timed, default algorithms
+    steps, states = forms()
+    walls, peaks = {k: [] for k in steps}, {k: 0 for k in steps}
+    for i in range(GRAPH_STEPS):
+        for k, step in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            states[k], m = step(states[k], tokens, labels, 1e-4, random.fold_in(key, 90 + i))
+            loss = m["loss"].item()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+            peaks[k] = max(peaks[k], torch.cuda.max_memory_allocated() / 2**30)
+            check(np.isfinite(loss), f"{k} step {i + 1}: finite loss")
+    out = {}
+    for k, step in steps.items():
+        def one(k=k, step=step):
+            states[k] = step(states[k], tokens, labels, 1e-4, random.fold_in(key, 99))[0]
+
+        total, busy, groups = kernel_ms(one)
+        ms = 1e3 * sum(walls[k][1:]) / (len(walls[k]) - 1)
+        out[k] = dict(ms=ms, tok_s=n_tok / ms * 1e3, kernels_ms=total, busy=busy, peak_gib=peaks[k],
+                      groups=groups)
+    (captured,) = steps["graphed"].graphs.values()
+    check(captured.graph.replays == GRAPH_STEPS + 1, f"the timed graph replayed at every step: {captured.graph.replays}")
+    for k, v in out.items():
+        print(f"[8] {k} fused int8 step (Llama2-1B, tokens [{BENCH_ACCUM}, {TRAIN_B}, {TRAIN_S}], remat, adamw_bf16_sr "
+              f"without SR; {SMI}): {v['ms']:.1f} ms a step (steps 2-{GRAPH_STEPS}, walls "
+              f"{[round(w * 1e3, 1) for w in walls[k]]} ms), {v['tok_s']:.1f} tok/s; one profiled step's kernels "
+              f"{v['kernels_ms']:.1f} ms, busy {100 * v['busy']:.1f}% of its wall; peak device memory "
+              f"{v['peak_gib']:.2f} GiB (both forms' states resident); kernels by group: "
+              + "; ".join(f"{n} {t:.1f}" for n, t in sorted(v["groups"].items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"[8] graphed/eager: {out['eager']['ms'] / out['graphed']['ms']:.3f}x the eager step's rate", flush=True)
+    del steps, states
+    torch.cuda.empty_cache()
+    return out
 
 
 def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
@@ -2405,7 +2742,8 @@ def sr_config(raw, seed: int, key: int, rn_first_loss: float) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses, walls, launches = run_steps(params, cfg, tokens, labels, opt, 3e-4, key, 3, expect)
+    losses, walls, launches = run_steps(params, cfg, tokens, labels, opt, 3e-4, key, 3, expect,
+                                        jit_compile=train.capture_refusal(params) is None)  # SR: eager
     peak = torch.cuda.max_memory_allocated() / 2**30
     rel = abs(losses[0] - rn_first_loss) / abs(rn_first_loss)
     print(f"[9] SR configuration (Llama2-1B, B={TRAIN_B} x S={TRAIN_S}, remat, SDPA, int8 mixed_precision with "
@@ -2991,7 +3329,9 @@ def storage_training(raw, seed: int, key: int) -> dict:
 
         def recording(new_v, q, k):
             out = commit(new_v, q, k)
-            commits.append((new_v["layers"]["q"]["w"], out["layers"]["q"]["w"]))
+            master = new_v["layers"]["q"]["w"]  # a copy: a donating step's next replay refills it
+            master = master.clone() if isinstance(master, torch.Tensor) else master.map_tensors(torch.clone)
+            commits.append((master, out["layers"]["q"]["w"]))
             return out
 
         torch.cuda.synchronize()
@@ -3001,7 +3341,7 @@ def storage_training(raw, seed: int, key: int) -> dict:
         try:
             losses, walls, counts = run_steps(params, scfg, tokens, labels,
                                               optim.adamw_bf16_sr(bf16_stochastic_rounding=False), 1e-4, key,
-                                              n_steps, expect)
+                                              n_steps, expect, jit_compile=train.capture_refusal(params) is None)
         finally:
             train.commit_params = commit
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3667,7 +4007,8 @@ def prequant_steps(raw, seed: int, key: int) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         with prequant_mode(mode):
-            losses, walls, counts = run_steps(params, cfg, tokens, labels, opt, lr, key, n_steps, expect)
+            losses, walls, counts = run_steps(params, cfg, tokens, labels, opt, lr, key, n_steps, expect,
+                                              jit_compile=train.capture_refusal(params) is None)
         for k, v in counts.items():
             launches[k] += v
         return losses, walls, torch.cuda.max_memory_allocated() / 2**30
@@ -4466,7 +4807,7 @@ def reference_steps(plan: dict) -> tuple:
     opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     norms = []
     losses, walls, _ = run_steps(quant.quantize_params(raw, "mixed_precision"), cfg, tokens, labels, opt, MESH_LR,
-                                 plan["key"], 3, step_launches(plan, cfg), norms)
+                                 plan["key"], 3, step_launches(plan, cfg), norms, jit_compile=False)
     del raw
     torch.cuda.empty_cache()
     print(f"[18] (b) one process, {cfg.num_hidden_layers} layers, batch {MESH_RANKS} x {plan['seq']}: losses {losses}, "
@@ -4491,7 +4832,7 @@ def rank_steps(mesh, cfg, plan: dict, scheme="mixed_precision", n_steps=3, expec
         state, specs = parallel.shard_state(train.init_train_state(qparams, opt), mesh)
         del raw, qparams
         torch.cuda.empty_cache()
-    step = train.make_train_step(cfg, opt, mesh=mesh, specs=specs)
+    step = train.make_train_step(cfg, opt, mesh=mesh, specs=specs, jit_compile=False)  # a mesh: eager
     tokens, labels = (t.to(plan["device"]) for t in parallel.shard_batch(mesh_batch(plan), mesh))
     metrics, walls, launches = dict(losses=[], grad_norms=[]), [], dict.fromkeys(ops.KERNELS, 0)
     parallel.reset_staged_collectives()
@@ -4748,14 +5089,6 @@ def sharded_resume(plan: dict, rank: int) -> dict:
 
 
 SF8_REF = os.path.join(MESH_DIR, "sf8_reference.pt")
-# (h)'s bars for a rank's 8-bit codes after the first step against the
-# one-process run's slice: the gradients differ only in the rounding of
-# their sums over the ranks (a bf16 ulp of an element, so the cubic
-# codebook's code by a step or two, and a block's every code where its
-# largest moves; where a sum of two ranks' partials cancels, an element's
-# relative error, and its step, can be large: 7 at most measured, 0.80 of
-# the codes agreeing); later steps move the weights apart too
-SF8_AGREE, SF8_STEPS = 0.5, 16
 PREQUANT_MESH_STEPS = 2
 
 
@@ -4767,7 +5100,7 @@ def sf8_reference(plan: dict) -> tuple:
     """(h)'s one-process run: schedule-free with the 8-bit state, the global
     batch, 3 steps (no B6: the optimizer is plain torch); its 8-bit states'
     codes after the first step, in the tree's order, saved to ``SF8_REF``
-    for the ranks. Returns (losses, grad norms)."""
+    for the ranks' printed comparison. Returns (losses, grad norms)."""
     from quantized_training_tpu_torch.optim import OptimState8bit
 
     cfg = mesh_cfg(plan)
@@ -4776,7 +5109,7 @@ def sf8_reference(plan: dict) -> tuple:
     opt = sf8_opt()
     state = train.init_train_state(quant.quantize_params(raw, "mixed_precision"), opt)
     del raw
-    step = train.make_train_step(cfg, opt)
+    step = train.make_train_step(cfg, opt, jit_compile=False)  # phase 18 runs eagerly, as its mesh steps do
     losses, norms = [], []
     is8 = lambda t: isinstance(t, OptimState8bit)  # noqa: E731
     for i in range(3):
@@ -4793,42 +5126,80 @@ def sf8_reference(plan: dict) -> tuple:
     return losses, norms
 
 
+def sf8_codes_of(grads) -> list:
+    """The codes of the one-process 8-bit ``exp_avg_sq`` after a first
+    step on the global ``grads``: ``sf8_opt()``'s own step from its
+    initial state (zero parameters stand in for the weights, which
+    ``exp_avg_sq`` does not read), in the tree's order."""
+    from quantized_training_tpu_torch.optim import OptimState8bit
+
+    opt = sf8_opt()
+    zeros = tree_map(torch.zeros_like, grads)
+    _, state = opt.step(grads, opt.init(zeros), zeros, MESH_LR)
+    is8 = lambda t: isinstance(t, OptimState8bit)  # noqa: E731
+    return [l.codes for l in tree_leaves(state.exp_avg_sq, is_leaf=is8) if is8(l)]
+
+
 def sf8_fsdp(plan: dict, rank: int) -> dict:
-    """(h): schedule-free with the 8-bit ``exp_avg_sq`` at ``{"fsdp": 2}``,
-    3 steps (each rank's state its slice's codes and block scales): losses
-    and grad norms (held in ``report_ranks``), the launches of the mesh
-    step without B6, and after the first step each 8-bit state's codes
-    against the one-process run's slice (``SF8_REF``): the share that agree
-    and the largest difference in codebook steps."""
+    """(h): schedule-free with the 8-bit ``exp_avg_sq`` at ``{"fsdp": 2}``
+    (each rank's state its slice's codes and block scales). The first step,
+    under deterministic algorithms and again without: the rank's 8-bit
+    codes after it equal, bit for bit, the slice of the codes that the
+    one-process 8-bit state quantizes from the same gradient, the ranks'
+    gradient slices gathered (what the sharding must preserve: a rank
+    requantizes its own whole blocks, and a block that crosses ranks from
+    maxima all-reduced over fsdp). Their agreement with the independent
+    one-process run (``SF8_REF``), whose gradient differs in the last bits
+    of the card's attention backward and of its sums over ranks, is printed
+    only. Then 2 more steps: losses and grad norms (held in
+    ``report_ranks``), the launches of the mesh step without B6."""
     from quantized_training_tpu_torch.optim import OptimState8bit
 
     mesh = parallel.make_mesh({"fsdp": 2}, plan["device_type"])
     cfg = mesh_cfg(plan)
     expect = step_launches(plan, cfg, mesh=True, b6=False)
-    state, specs, metrics, walls, launches, staged = rank_steps(mesh, cfg, plan, n_steps=1, opt=sf8_opt(),
-                                                                expect=expect)
     is8 = lambda t: isinstance(t, OptimState8bit)  # noqa: E731
-    pieces = [l for l in tree_leaves(state.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
-    layout = [l for l in tree_leaves(specs.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
     ref = torch.load(SF8_REF)
-    check(len(pieces) == len(ref) and all(p.shard is not None for p in pieces),
-          f"(h) rank {rank}: every 8-bit state split by its parameter ({len(pieces)} of {len(ref)})")
-    agree, steps = [], []
-    for piece, spec, codes in zip(pieces, layout, ref):
-        mine, theirs = piece.codes.int().cpu(), spec.codes.take(codes).int()
-        agree.append((mine == theirs).float().mean().item())
-        steps.append((mine - theirs).abs().max().item())
-    check(min(agree) >= SF8_AGREE and max(steps) <= SF8_STEPS,
-          f"(h) rank {rank}: codes after a step against the one-process slice agree {min(agree):.4f} (>= "
-          f"{SF8_AGREE}), within {max(steps)} steps (<= {SF8_STEPS})")
-    codes = sum(p.codes.numel() for p in pieces)
-    del pieces, layout, ref
+    exact, agree, steps = {}, [], []
+    for deterministic in (True, False):
+        opt, seen = sf8_opt(), []
+
+        def recorded(grads, *args, **kw):
+            seen.append(grads)
+            return opt.step(grads, *args, **kw)
+
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            state, specs, metrics, walls, launches, staged = rank_steps(
+                mesh, cfg, plan, n_steps=1, opt=optim.Optimizer(opt.init, recorded), expect=expect)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        pieces = [l for l in tree_leaves(state.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
+        layout = [l for l in tree_leaves(specs.opt_state.exp_avg_sq, is_leaf=is8) if is8(l)]
+        check(len(pieces) == len(ref) and all(p.shard is not None for p in pieces),
+              f"(h) rank {rank}: every 8-bit state split by its parameter ({len(pieces)} of {len(ref)})")
+        gathered = parallel.fsdp.gather(seen[0], parallel.mesh.param_specs(specs), mesh)
+        own = [c.cpu() for c in sf8_codes_of(gathered)]
+        del seen, gathered
+        same = [torch.equal(piece.codes.cpu(), spec.codes.take(codes))
+                for piece, spec, codes in zip(pieces, layout, own)]
+        exact["deterministic" if deterministic else "default"] = sum(same)
+        check(all(same), f"(h) rank {rank}, deterministic algorithms {deterministic}: the codes of {sum(same)} of "
+                         f"{len(same)} 8-bit states equal the one-process state's from the gathered gradient")
+        if not deterministic:  # the independent run, printed
+            for piece, spec, codes in zip(pieces, layout, ref):
+                mine, theirs = piece.codes.int().cpu(), spec.codes.take(codes).int()
+                agree.append((mine == theirs).float().mean().item())
+                steps.append((mine - theirs).abs().max().item())
+        codes = sum(p.codes.numel() for p in pieces)
+        del pieces, layout, own
+    del ref
     *_, more, more_walls, more_launches, _ = rank_steps(mesh, cfg, plan, n_steps=2, opt=sf8_opt(), expect=expect,
                                                         state=state, specs=specs, start=1)
     metrics = {k: metrics[k] + more[k] for k in metrics}
     launches = {k: launches[k] + more_launches[k] for k in launches}
     return dict(**metrics, walls=walls + more_walls, staged=staged, launches=launches, agree=min(agree),
-                steps=max(steps), codes=codes)
+                steps=max(steps), codes=codes, exact=exact, states=len(agree))
 
 
 def prequant_fsdp(plan: dict, rank: int) -> dict:
@@ -4964,7 +5335,10 @@ def report_ranks(ranks: list, ref: tuple, plan: dict, sf8_ref: tuple) -> None:
     print(f"[18] (h) schedule-free 8-bit at {{'fsdp': 2}}, {min(MESH_LAYERS, plan['cfg'].num_hidden_layers)} layers: "
           f"losses {h[0]['losses']} (one process {sf8_losses}), gap {[f'{g:.3e}' for g in gap]} (bound {MESH_BOUND}); "
           f"grad norms relative gap {[f'{g:.3e}' for g in norm_gap]} (bound {MESH_NORM_RTOL}); codes a rank "
-          f"{h[0]['codes']:,}, agreeing with the one-process slice {[round(x['agree'], 6) for x in h]}, largest step "
+          f"{h[0]['codes']:,}; after the first step, every rank's codes of its {h[0]['states']} 8-bit states equal "
+          f"the one-process 8-bit state's from the ranks' gathered gradient, bit for bit, under deterministic and "
+          f"default algorithms {[x['exact'] for x in h]}; against the independent one-process run (printed, not "
+          f"held: its gradient differs in the last bits) agreeing {[round(x['agree'], 6) for x in h]}, largest step "
           f"{[x['steps'] for x in h]}; step walls {[round(w, 3) for w in h[0]['walls']]} s; maxima all-reduces a step "
           f"{h[0]['maxima_all_reduces'] / 3:.0f}", flush=True)
     check(all(x["losses"] == h[0]["losses"] for x in h), "(h) every rank reports one global loss")

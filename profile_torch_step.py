@@ -152,7 +152,9 @@ def main() -> None:
         cfg, raw, tokens, labels = models[model]
         params = raw if qkw is None else quant.quantize_params(raw, "mixed_precision", **qkw)
         o, lr = (opt, 1e-4) if model == "llama" else (optim.adamw(weight_decay=1e-2), 3e-4)
-        step, state = train.make_train_step(cfg, o), [train.init_train_state(params, o)]
+        # a CUDA graph a step (train.py's default), eager where SR in the model refuses one
+        step = train.make_train_step(cfg, o, jit_compile=train.capture_refusal(params) is None)
+        state = [train.init_train_state(params, o)]
 
         def one(i):
             state[0], m = step(state[0], tokens, labels, lr, random.fold_in(key, i))

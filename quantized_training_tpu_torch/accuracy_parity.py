@@ -100,7 +100,7 @@ def main(argv: list[str] | None = None) -> dict:
             assert n_wrapped > 0, "quantization filter skipped everything"
         opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
         state = train.init_train_state(qparams, opt)
-        step = train.make_train_step(cfg, opt)
+        step = train.make_train_step(cfg, opt, jit_compile=train.capture_refusal(qparams) is None)
 
         ds = MarkovTokenDataset(seq_len=args.seq_len, **chain)
         loader = iter(BatchLoader(ds, batch_size=args.batch_size))

@@ -69,7 +69,8 @@ def measure(cfg: llama.LlamaConfig, params, scheme_kwargs: dict | None, bs: int,
     scheme = None if scheme_kwargs is None else "mixed_precision"
     optimizer = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
     state = train.init_train_state(quant.quantize_params(params, scheme, **(scheme_kwargs or {})), optimizer)
-    step = train.make_train_step(cfg, optimizer)
+    # a CUDA graph a step (train.py), but for the SR rungs, whose keys are host integers a graph would repeat
+    step = train.make_train_step(cfg, optimizer, jit_compile=train.capture_refusal(state.params) is None)
     shape = (accum, bs, seq) if accum > 1 else (bs, seq)
     tokens = torch.randint(0, cfg.vocab_size, shape, generator=torch.Generator(device=device).manual_seed(1),
                            device=device)

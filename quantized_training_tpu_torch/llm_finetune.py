@@ -167,7 +167,8 @@ def main(argv: list[str] | None = None) -> dict:
     optimizer = optim.get_optimizer(args.optim, weight_decay=args.weight_decay, **args.optim_kwargs)
     state = train.init_train_state(qparams, optimizer)
     del qparams
-    step_fn = train.make_train_step(cfg, optimizer)
+    # eager: the padded length changes from batch to batch, and each length would cost a graph and its pool
+    step_fn = train.make_train_step(cfg, optimizer, jit_compile=False)
 
     tokenizer = get_tokenizer(args.tokenizer) if args.dataset != "synthetic" else None
     samples = load_samples(args, tokenizer)

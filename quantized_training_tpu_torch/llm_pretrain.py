@@ -233,7 +233,10 @@ def main(argv: list[str] | None = None) -> dict:
         del ckpt  # else the loaded state outlives its first step on the device
     if args.resume is not None and lead:
         print(f"Resumed from {args.resume} at step {step}")
-    step_fn = train.make_train_step(cfg, optimizer, clip_grad_norm=args.clip_grad_norm, mesh=mesh, specs=specs)
+    # a CUDA graph a step (train.py) unless the step is one that refuses it: a mesh or SR in the model
+    graphed = train.capture_refusal(state.params, mesh) is None
+    step_fn = train.make_train_step(cfg, optimizer, clip_grad_norm=args.clip_grad_norm, mesh=mesh, specs=specs,
+                                    jit_compile=graphed)
 
     dloader_iter = iter(dloader)
 

@@ -5,12 +5,17 @@ Counterpart of ``quantized_training_tpu/models/serving.py``: ``ServeState``,
 whose logic (prefill ``BUCKETS``, decode windows, ``_pick_chunk``,
 ``_finish``, FIFO admission) is carried over as it is.
 
-Device side, the JAX package's jitted functions become eager functions that
-update the state IN PLACE: a prefill writes the prompt's K/V straight into
-its slot's cache rows, and a decode chunk of ``n_steps`` tokens is a Python
-loop over the single-step body (one batched ``forward_with_cache`` with a
-position per slot). Inactive slots compute masked garbage and do not
-advance.
+Device side, the JAX package's jitted functions update the state IN PLACE:
+a prefill writes the prompt's K/V straight into its slot's cache rows, and
+a decode chunk of ``n_steps`` tokens is a loop over the single-step body
+(one batched ``forward_with_cache`` with a position per slot). Inactive
+slots compute masked garbage and do not advance. JAX compiles the decode
+step once per window and chunk (:140, donating the state); here, on a CUDA
+state with ``jit_compile`` (the default), its first call captures the whole
+chunk as one CUDA graph (``utils/graphs.py``) and later calls replay it:
+the cache, ``pos``, ``active`` and ``last_token`` are updated in place at
+fixed addresses, and the parameters do not change while serving. The
+prefill stays eager (its slot and length are host integers).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.graphs import Captured, same_buffers
+from ..utils.tree import tree_leaves
 from . import llama, llama_infer
 from .llama_infer import KVCache
 
@@ -37,6 +44,10 @@ class ServeState:
     pos: torch.Tensor
     active: torch.Tensor
     last_token: torch.Tensor
+
+    def tensors(self) -> list[torch.Tensor]:
+        c = self.cache
+        return [c.k, c.k_scale, c.v, c.v_scale, self.pos, self.active, self.last_token]
 
     @classmethod
     def zeros(cls, cfg: llama.LlamaConfig, n_slots: int, max_len: int, device=None):
@@ -65,12 +76,18 @@ def make_prefill(cfg: llama.LlamaConfig):
     return prefill
 
 
-def make_decode_step(cfg: llama.LlamaConfig, window: int | None = None, n_steps: int = 1):
+def make_decode_step(cfg: llama.LlamaConfig, window: int | None = None, n_steps: int = 1, *,
+                     jit_compile: bool = True):
     """(params, state) -> (state, tokens).
 
     One decode token for EVERY slot per step, ``n_steps`` steps per call,
     returned as [n_steps, n_slots] ([n_slots] when n_steps == 1). ``window``
-    limits attention to the first ``window`` cache rows (None: all)."""
+    limits attention to the first ``window`` cache rows (None: all).
+    ``jit_compile`` on a CUDA state: the call is a CUDA graph, captured at
+    the first call (its warm-up's moves of ``pos`` and ``last_token`` taken
+    back; the cache rows it wrote are written again with the same values)
+    and again where the call is given other buffers; the tokens returned
+    are a copy. The step's ``captured`` holds the graph (``.replays``)."""
 
     def one(params, state: ServeState) -> torch.Tensor:
         logits = llama_infer.forward_with_cache(
@@ -82,10 +99,25 @@ def make_decode_step(cfg: llama.LlamaConfig, window: int | None = None, n_steps:
         state.last_token.copy_(tok)
         return tok
 
-    def step(params, state: ServeState):
+    def chunk(params, state: ServeState) -> torch.Tensor:
         toks = [one(params, state) for _ in range(n_steps)]
-        return state, toks[0] if n_steps == 1 else torch.stack(toks)
+        return toks[0] if n_steps == 1 else torch.stack(toks)
 
+    def step(params, state: ServeState):
+        if not (jit_compile and state.pos.is_cuda):
+            return state, chunk(params, state)
+        buffers = tree_leaves(params) + state.tensors()  # held, so that none is freed under the graph
+        if step.captured is None or not same_buffers(buffers, step.buffers):
+            pos, last = state.pos.clone(), state.last_token.clone()
+
+            def restore():
+                state.pos.copy_(pos)
+                state.last_token.copy_(last)
+
+            step.buffers, step.captured = buffers, Captured(lambda: chunk(params, state), restore=restore)
+        return state, step.captured.replay().clone()
+
+    step.captured = step.buffers = None
     return step
 
 
@@ -108,7 +140,7 @@ class Server:
     def __init__(self, params, cfg: llama.LlamaConfig, n_slots: int, max_len: int,
                  eos_token: int | None = None,
                  window_buckets: tuple[int, ...] | None = None,
-                 decode_chunk: int = 16):
+                 decode_chunk: int = 16, jit_compile: bool = True):
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
@@ -119,6 +151,7 @@ class Server:
         # power of two <= min(decode_chunk, every active slot's remaining
         # budget, remaining cache rows), so chunking never changes results
         self.decode_chunk = max(1, decode_chunk)
+        self.jit_compile = jit_compile  # each decode step a CUDA graph on a card (make_decode_step)
         self.state = ServeState.zeros(cfg, n_slots, max_len, device=self.device)
         self._prefill = make_prefill(cfg)
         # decode attention windows: powers of two from 128 up to max_len
@@ -200,7 +233,7 @@ class Server:
         fn = self._decode_fns.get((w, k))
         if fn is None:
             fn = self._decode_fns[(w, k)] = make_decode_step(
-                self.cfg, None if w == self.max_len else w, n_steps=k
+                self.cfg, None if w == self.max_len else w, n_steps=k, jit_compile=self.jit_compile
             )
         return fn
 

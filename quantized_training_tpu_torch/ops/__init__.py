@@ -103,7 +103,10 @@ row-scaled product are plain torch on every device, as XLA ran them.
 
 Each wrapper counts its kernel launches (:func:`launch_counts`), an SR form
 apart from its plain form, so a run can show that its path went through the
-kernels and which form ran. Importing this package builds nothing: the
+kernels and which form ran. A CUDA graph's replay runs no wrapper: the
+graph (``utils/graphs.py``) keeps the counts its capture added
+(:func:`launch_totals`) and adds them again at each replay
+(:func:`add_launch_counts`). Importing this package builds nothing: the
 kernels compile at their first launch (``ops/_build.py``).
 """
 
@@ -291,6 +294,23 @@ def sdpa_forwards() -> int:
     return sdpa.sdpa.launches
 
 
+def launch_totals() -> dict[str, int]:
+    """:func:`launch_counts` and, under ``"sdpa"``, :func:`sdpa_forwards`:
+    every counter a captured region can move."""
+    return {**launch_counts(), "sdpa": sdpa_forwards()}
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keys of :func:`launch_totals`) to the counters: what
+    a replay of a captured region launched."""
+    for name, n in delta.items():
+        if name == "sdpa":
+            sdpa.sdpa.launches += n
+        else:
+            fn, attr = KERNELS[name]
+            setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def reset_launch_counts() -> None:
     """Every kernel's counter and :func:`sdpa_forwards`' to 0."""
     for fn, attr in KERNELS.values():
@@ -300,7 +320,9 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "add_launch_counts",
     "launch_counts",
+    "launch_totals",
     "reset_launch_counts",
     "sdpa_forwards",
     "conv",

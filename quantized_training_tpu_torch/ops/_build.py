@@ -27,6 +27,7 @@ is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -214,6 +215,35 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+_REPEATED_KEYS = [False]
+
+
+@contextlib.contextmanager
+def repeated_keys():
+    """While entered, an SR kernel may be captured: a timing loop
+    (``utils/timing.py::time_ms``) replays its launches to time them, and
+    the same key at every replay is what it asks for."""
+    keep, _REPEATED_KEYS[0] = _REPEATED_KEYS[0], True
+    try:
+        yield
+    finally:
+        _REPEATED_KEYS[0] = keep
+
+
+def refuse_capture(what: str) -> None:
+    """Raise where a kernel that takes its Philox key from the host (an SR
+    form) is launched while the current stream captures a CUDA graph: the
+    graph would keep this launch's key and draw the same noise at every
+    replay, where each step draws its own. Without CUDA nothing captures
+    (a test's launch on a stand-in device); inside :func:`repeated_keys`
+    the repeat is meant."""
+    if _REPEATED_KEYS[0]:
+        return
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise ValueError(f"{what}: a stochastic-rounding kernel was launched inside a CUDA graph capture; its key "
+                         "is a host integer that every replay would repeat, so run this step with jit_compile=False")
 
 
 def stream() -> int:

@@ -22,12 +22,20 @@
 // vector per bf16 tensor (two for fp32 p and g) and stored the same way;
 // the tail of fewer than 8 elements, and any tensor not 16-byte aligned,
 // takes a scalar loop.
+//
+// In place (new_p == p, new_ea == ea, new_eas == eas: a donated train
+// state, optim/adamw.py) is an instantiation of its own (InPlace): p, ea
+// and eas are read-write and the stores go through them, so no two of the
+// kernel's __restrict__ pointers name one buffer. Each thread loads its
+// elements of every input before it stores the same elements, and no
+// thread touches another's, so the update gives the out-of-place bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -99,12 +107,29 @@ __device__ __forceinline__ void store8(float* __restrict__ x, int64_t c, const f
                                                       __float_as_uint(v[6]), __float_as_uint(v[7]));
 }
 
-template <typename P, bool SR>
+// An operand the kernel also writes in place, else read-only.
+template <typename T, bool InPlace>
+using In = std::conditional_t<InPlace, T, const T>;
+
+// Where a result goes: its operand in place, else its output.
+template <bool InPlace, typename T>
+__device__ __forceinline__ T* dest(In<T, InPlace>* in, T* out) {
+  if constexpr (InPlace) {
+    return in;
+  } else {
+    return out;
+  }
+}
+
+template <typename P, bool SR, bool InPlace>
 __global__ void __launch_bounds__(kThreads)
-fused_adamw(const P* __restrict__ p, const P* __restrict__ g, const __nv_bfloat16* __restrict__ ea,
-            const __nv_bfloat16* __restrict__ eas, const float* __restrict__ scalars, P* __restrict__ new_p,
-            __nv_bfloat16* __restrict__ new_ea, __nv_bfloat16* __restrict__ new_eas, int64_t n, bool vec,
-            uint64_t key) {
+fused_adamw(In<P, InPlace>* __restrict__ p, const P* __restrict__ g, In<__nv_bfloat16, InPlace>* __restrict__ ea,
+            In<__nv_bfloat16, InPlace>* __restrict__ eas, const float* __restrict__ scalars,
+            P* __restrict__ out_p, __nv_bfloat16* __restrict__ out_ea, __nv_bfloat16* __restrict__ out_eas, int64_t n,
+            bool vec, uint64_t key) {
+  P* const new_p = dest<InPlace>(p, out_p);
+  __nv_bfloat16* const new_ea = dest<InPlace>(ea, out_ea);
+  __nv_bfloat16* const new_eas = dest<InPlace>(eas, out_eas);
   const Scalars s = load_scalars(scalars);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -147,15 +172,23 @@ bool aligned16(const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0;
 template <typename P, bool SR>
 cudaError_t launch(const void* p, const void* g, const void* ea, const void* eas, const float* scalars,
                    void* new_p, void* new_ea, void* new_eas, int64_t n, uint64_t key, cudaStream_t stream) {
+  const bool in_place = new_p == p && new_ea == ea && new_eas == eas;
+  if (!in_place && (new_p == p || new_ea == ea || new_eas == eas)) return cudaErrorInvalidValue;
   const bool vec = aligned16(p) && aligned16(g) && aligned16(ea) && aligned16(eas) && aligned16(new_p) &&
                    aligned16(new_ea) && aligned16(new_eas);
   const int64_t work = vec ? (n + kVec - 1) / kVec : n;
   const unsigned int blocks =
       static_cast<unsigned int>(std::min<int64_t>(kMaxBlocks, (work + kThreads - 1) / kThreads));
-  fused_adamw<P, SR><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const P*>(p), static_cast<const P*>(g), static_cast<const __nv_bfloat16*>(ea),
-      static_cast<const __nv_bfloat16*>(eas), scalars, static_cast<P*>(new_p), static_cast<__nv_bfloat16*>(new_ea),
-      static_cast<__nv_bfloat16*>(new_eas), n, vec, key);
+  using B = __nv_bfloat16;
+  if (in_place) {
+    fused_adamw<P, SR, true><<<blocks, kThreads, 0, stream>>>(
+        static_cast<P*>(new_p), static_cast<const P*>(g), static_cast<B*>(new_ea), static_cast<B*>(new_eas), scalars,
+        nullptr, nullptr, nullptr, n, vec, key);
+  } else {
+    fused_adamw<P, SR, false><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const P*>(p), static_cast<const P*>(g), static_cast<const B*>(ea), static_cast<const B*>(eas),
+        scalars, static_cast<P*>(new_p), static_cast<B*>(new_ea), static_cast<B*>(new_eas), n, vec, key);
+  }
   return cudaGetLastError();
 }
 
@@ -163,6 +196,7 @@ cudaError_t launch(const void* p, const void* g, const void* ea, const void* eas
 
 // Returns the launch's cudaError_t (0 on success). p, g and new_p hold n
 // elements of bf16 (p_is_bf16) or fp32; ea, eas, new_ea and new_eas n bf16;
+// new_p, new_ea and new_eas are all p, ea and eas (in place) or none of them;
 // scalars is [7] fp32 on the device: lr, b1, b2, wd, eps, bc1, bc2. sr (bf16
 // p only): write p' back with stochastic rounding from the stream of key.
 extern "C" int qt_fused_adamw(const void* p, const void* g, const void* ea, const void* eas, const void* scalars,

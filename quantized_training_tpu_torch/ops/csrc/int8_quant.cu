@@ -776,11 +776,20 @@ cudaError_t launch_both_passes(const T* x, void* q_row, void* s_row, void* q_col
   rows<<<R, kThreads, g.row_smem, stream>>>(x, static_cast<int8_t*>(q_row), static_cast<T*>(s_row), parts, M, K,
                                             eps, key_row);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  int8_t* qc = static_cast<int8_t*>(q_col);
-  T* sc = static_cast<T*>(s_col);
-  void* args[] = {&x, &parts, &R, &amax, &qc, &sc, &M, &K, &eps, &key_col};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cols), dim3(g.col_ctas), dim3(kThreads), args,
-                                     g.col_smem, stream);
+  // a cooperative launch (its CTAs meet at a grid barrier) through
+  // cudaLaunchKernelEx's attribute, the form a CUDA graph capture records
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.col_ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = g.col_smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, cols, x, static_cast<const uint4*>(parts), R, amax, static_cast<int8_t*>(q_col),
+                            static_cast<T*>(s_col), M, K, eps, key_col);
 }
 
 // B5's maxima form on the vector path: the row pass, its parts in the M K

@@ -59,19 +59,32 @@ def _check(p, g, ea, eas, scalars, bf16_sr: bool, key) -> None:
         raise ValueError(f"{what}: the SR writeback needs bf16 p and a key")
 
 
-def fused_adamw_update(p, g, ea, eas, scalars, key, *, bf16_sr: bool):
+def fused_adamw_update(p, g, ea, eas, scalars, key, *, bf16_sr: bool, in_place: bool = False):
     """(new_p in p's dtype, new_ea bf16, new_eas bf16) of one AdamW step on
     one parameter tensor (any shape, flattened). p bf16 or fp32; g in p's
     dtype; ea and eas bf16; ``scalars`` fp32 [7] = (lr, b1, b2, wd, eps,
     bc1, bc2) on p's device, as ``pallas_optim.py:84``; ``key`` seeds the SR
     writeback (``bf16_sr``, bf16 p only). A CPU tensor takes
     :func:`fused_adamw_plain`; a CUDA tensor launches B6, or its SR form, on
-    the current stream into new buffers (the inputs are left as they
-    are)."""
+    the current stream into new buffers (the inputs are left as they are),
+    or with ``in_place`` into p, ea and eas themselves (a donated state),
+    by B6's in-place instantiation: each thread of ``csrc/fused_adamw.cu``
+    reads its elements of p, g, ea and eas before it writes the same
+    elements, and no other."""
     if p.device.type == "cpu":
-        return fused_adamw_plain(p, g, ea, eas, scalars, key, bf16_sr=bf16_sr)
+        outs = fused_adamw_plain(p, g, ea, eas, scalars, key, bf16_sr=bf16_sr)
+        if in_place:
+            for t, new in zip((p, ea, eas), outs):
+                t.copy_(new)
+            return p, ea, eas
+        return outs
     _check(p, g, ea, eas, scalars, bf16_sr, key)
-    new_p, new_ea, new_eas = torch.empty_like(p), torch.empty_like(ea), torch.empty_like(eas)
+    if bf16_sr:
+        _build.refuse_capture("fused_adamw_update")
+    if in_place:
+        new_p, new_ea, new_eas = p, ea, eas
+    else:
+        new_p, new_ea, new_eas = torch.empty_like(p), torch.empty_like(ea), torch.empty_like(eas)
     err = _build.library().qt_fused_adamw(
         p.data_ptr(), g.data_ptr(), ea.data_ptr(), eas.data_ptr(), scalars.data_ptr(), new_p.data_ptr(),
         new_ea.data_ptr(), new_eas.data_ptr(), p.numel(), int(p.dtype == torch.bfloat16), int(bf16_sr),

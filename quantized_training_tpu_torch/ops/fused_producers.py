@@ -65,7 +65,7 @@ import math
 import torch
 
 from . import _build, random
-from .int8_quant import _check_device_input, _count_route, _key, _sm_count, row_walk_ctas
+from .int8_quant import _check_device_input, _count_route, _device_key, _key, _sm_count, row_walk_ctas
 
 EPS = 1e-12
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -595,7 +595,7 @@ def _rowwise(what, fn, launch, inputs, sr, key, with_col_amax, tpr, per_sm=NORM_
     [M, 1])``, with ``with_col_amax`` also the column absmax fp32 [1, K].
     ``tpr``: the threads a row on the row walk of ``per_sm`` CTAs an SM, 0
     for the first design."""
-    key = _key(sr, key)
+    key = _device_key(sr, key, what)
     M, K = _check(what, *inputs)
     dev = inputs[0].device
     q = torch.empty((M, K), dtype=torch.int8, device=dev)
@@ -613,7 +613,7 @@ def _colwise(what, fn, launch, inputs, scale, eps, sr, key, tpr, per_sm=NORM_CTA
     """Launch the column form of B8, B9 or B18: given scales, or two
     passes. ``tpr``: the threads a row on the row walk of ``per_sm`` CTAs
     an SM (given scales only; no scratch), 0 for the first design."""
-    key = _key(sr, key)
+    key = _device_key(sr, key, what)
     M, K = _check(what, *inputs)
     x = inputs[0]
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
@@ -698,7 +698,7 @@ def silu_mul_bwd_quant_rowwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
     if a.device.type == "cpu":
         return silu_mul_bwd_quant_rowwise_plain(a, b, dy, eps=eps, sr=sr, key=key, with_amax=with_amax,
                                                 with_bf16=with_bf16)
-    key = _key(sr, key)
+    key = _device_key(sr, key, "silu_mul_bwd_quant_rowwise")
     M, K = _check("silu_mul_bwd_quant_rowwise", a, b, dy)
     if K > MAX_K_BWD:
         raise ValueError(f"silu_mul_bwd_quant_rowwise: K = {K} exceeds {MAX_K_BWD} (shared memory)")
@@ -731,8 +731,8 @@ def silu_mul_bwd_quant_colwise(a: torch.Tensor, b: torch.Tensor, dy: torch.Tenso
     :func:`silu_bwd_cols_sm90_route` gives threads a row."""
     if a.device.type == "cpu":
         return silu_mul_bwd_quant_colwise_plain(a, b, dy, da_scale, db_scale, eps=eps, sr=sr, key=key)
-    key = _key(sr, key)
     what = "silu_mul_bwd_quant_colwise"
+    key = _device_key(sr, key, what)
     M, K = _check(what, a, b, dy)
     da_scale, db_scale = (_col_scale(s, K, a, what) for s in (da_scale, db_scale))
     qa, qb = (torch.empty((M, K), dtype=torch.int8, device=a.device) for _ in range(2))

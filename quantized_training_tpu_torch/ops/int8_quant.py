@@ -59,6 +59,15 @@ def _key(sr: bool, key: int | None) -> int:
     return key
 
 
+def _device_key(sr: bool, key: int | None, what: str) -> int:
+    """:func:`_key` on a kernel's path: an SR launch refuses a CUDA graph
+    capture (``_build.refuse_capture``)."""
+    key = _key(sr, key)
+    if sr:
+        _build.refuse_capture(what)
+    return key
+
+
 def quantize_int8_maxima_plain(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """The fp32 max |x| along ``axis``, keepdims (taken in x's dtype, exact):
     the plain version of the maxima forms."""
@@ -194,7 +203,7 @@ def quantize_int8_rowwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False
     ``sm90_launches``, ``sr_sm90_launches``), else the first design."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, eps=eps, sr=sr, key=key)
-    key = _key(sr, key)
+    key = _device_key(sr, key, "quantize_int8_rowwise")
     _check_device_input(x, "quantize_int8_rowwise")
     if x.ndim == 0:
         raise ValueError("quantize_int8_rowwise: x must have a last axis")
@@ -288,7 +297,7 @@ def quantize_int8_colwise(x: torch.Tensor, *, eps: float = EPS, sr: bool = False
     else the first design (a memset and two kernels)."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, axis=0, eps=eps, sr=sr, key=key)
-    key = _key(sr, key)
+    key = _device_key(sr, key, "quantize_int8_colwise")
     _check_device_input(x, "quantize_int8_colwise", ndim=2)
     R, C = x.shape
     route = colwise_sm90_route(R, C, x.dtype) if x.data_ptr() % 16 == 0 else 0
@@ -321,7 +330,7 @@ def quantize_int8_both(x: torch.Tensor, *, eps: float = EPS, sr: bool = False, k
     current stream."""
     if x.device.type == "cpu":
         return quantize_int8_both_plain(x, eps=eps, sr=sr, key=key)
-    key_row, key_col = random.split(_key(sr, key)) if sr else (0, 0)
+    key_row, key_col = random.split(_device_key(sr, key, "quantize_int8_both")) if sr else (0, 0)
     _check_device_input(x, "quantize_int8_both", ndim=2)
     M, K = x.shape
     if K > _BOTH_MAX_K:
@@ -382,7 +391,7 @@ def quantize_int8_rowwise_given(x: torch.Tensor, amax: torch.Tensor, *, eps: flo
     kernel with the maxima given, on the route K1 takes."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, eps=eps, sr=sr, key=key, amax=amax)
-    key = _key(sr, key)
+    key = _device_key(sr, key, "quantize_int8_rowwise_given")
     _check_device_input(x, "quantize_int8_rowwise_given")
     K = x.shape[-1]
     M = x.numel() // K if K else 0
@@ -427,6 +436,8 @@ def quantize_int8_both_maxima(x: torch.Tensor, *, eps: float = EPS, sr: bool = F
     key_row = random.split(_key(sr, key))[0] if sr else 0
     if x.device.type == "cpu":
         return (*quantize_int8_plain(x, axis=1, eps=eps, sr=sr, key=key_row), quantize_int8_maxima_plain(x, 0))
+    if sr:
+        _build.refuse_capture("quantize_int8_both_maxima")
     _check_device_input(x, "quantize_int8_both_maxima", ndim=2)
     M, K = x.shape
     if K > _BOTH_MAX_K:
@@ -454,7 +465,7 @@ def quantize_int8_colwise_given(x: torch.Tensor, amax: torch.Tensor, *, eps: flo
     B4's first design's cast)."""
     if x.device.type == "cpu":
         return quantize_int8_plain(x, axis=0, eps=eps, sr=sr, key=key, amax=amax)
-    key = _key(sr, key)
+    key = _device_key(sr, key, "quantize_int8_colwise_given")
     _check_device_input(x, "quantize_int8_colwise_given", ndim=2)
     M, K = x.shape
     amax = _given_amax(x, amax, K, "quantize_int8_colwise_given")

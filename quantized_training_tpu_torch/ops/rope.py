@@ -48,7 +48,7 @@ import torch
 
 from . import _build, remat
 from .fused_producers import EPS, _cast, _rows_per_block, _sm_count, row_walk_ctas
-from .int8_quant import _count_route, _key
+from .int8_quant import _count_route, _device_key, _key
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -304,7 +304,7 @@ def ungroup_quant(y: torch.Tensor, scale: torch.Tensor, *, axis: int, sr: bool =
     ``sr`` rounding stochastically from ``key``."""
     if y.device.type == "cpu":
         return ungroup_quant_plain(y, scale, axis=axis, sr=sr, key=key, eps=eps)
-    key = _key(sr, key)
+    key = _device_key(sr, key, "ungroup_quant")
     B, KV, G, S, hd = y.shape
     H = KV * G
     if axis not in (0, 1):

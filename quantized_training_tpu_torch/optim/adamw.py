@@ -7,10 +7,13 @@ moments updated by kernel B6 (``ops/fused_adamw.py``) with an optional
 stochastic-rounding bf16 writeback of the parameters; and the plain
 fp32-state :func:`adamw` (:149-190), which the JAX package runs without a
 Pallas kernel and the port runs as plain torch ops. Both step as
-``step(grads, state, params, lr, key=None) -> (new_params, new_state)`` over
-the parameter tree, with bias correction and decoupled weight decay in the
-JAX package's order of operations. Functional like their counterparts, so
-a step holds the old and the new state at once.
+``step(grads, state, params, lr, key=None, donate=False) -> (new_params,
+new_state)`` over the parameter tree, with bias correction and decoupled
+weight decay in the JAX package's order of operations. Functional like their
+counterparts, so a step holds the old and the new state at once; with
+``donate`` (JAX's donated state, ``train.make_train_step``'s graphed step)
+they write the new parameters and moments into the old ones' buffers, with
+the same bits.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ class Optimizer(NamedTuple):
     """Functional optimizer: params in, params out."""
 
     init: Callable[[Any], Any]
-    step: Callable[..., tuple[Any, Any]]  # (grads, state, params, lr, key=None)
+    step: Callable[..., tuple[Any, Any]]  # (grads, state, params, lr, key=None, donate=False)
 
 
 class AdamWState(NamedTuple):
@@ -44,6 +47,11 @@ def _leaves(grads, state: AdamWState, params, name: str):
     if not len(g_leaves) == len(p_leaves) == len(ea_leaves) == len(eas_leaves):
         raise ValueError(f"{name}: grads, params and state differ in structure")
     return treedef, list(zip(g_leaves, p_leaves, ea_leaves, eas_leaves))
+
+
+def _into(old: torch.Tensor, new: torch.Tensor, donate: bool) -> torch.Tensor:
+    """``new``, or with ``donate`` ``old`` overwritten with it."""
+    return old.copy_(new) if donate else new
 
 
 def adamw_bf16_sr(betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
@@ -62,7 +70,7 @@ def adamw_bf16_sr(betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
         return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
-    def step(grads, state: AdamWState, params, lr, key=None):
+    def step(grads, state: AdamWState, params, lr, key=None, donate: bool = False):
         count = state.count + 1
         treedef, leaves = _leaves(grads, state, params, "adamw_bf16_sr")
         new_p, new_ea, new_eas = [], [], []
@@ -78,7 +86,7 @@ def adamw_bf16_sr(betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
             if sr and key is None:
                 raise ValueError("bf16 SR writeback requires a key")
             k = fold_in(fold_in(key, i), count) if sr else None
-            outs = fused_adamw_update(p, g, ea, eas, scalars[p.device], k, bf16_sr=sr)
+            outs = fused_adamw_update(p, g, ea, eas, scalars[p.device], k, bf16_sr=sr, in_place=donate)
             for acc, out in zip((new_p, new_ea, new_eas), outs):
                 acc.append(out)
         unflat = lambda ls: tree_unflatten(treedef, ls)
@@ -96,7 +104,7 @@ def adamw(betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return AdamWState(0, tree_map(zeros, params), tree_map(zeros, params))
 
-    def step(grads, state: AdamWState, params, lr, key=None):
+    def step(grads, state: AdamWState, params, lr, key=None, donate: bool = False):
         del key  # deterministic (JAX :164-165)
         count = state.count + 1
         treedef, leaves = _leaves(grads, state, params, "adamw")
@@ -109,15 +117,16 @@ def adamw(betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                 bc1, bc2 = 1.0 - f32(b1) ** t, 1.0 - f32(b2) ** t
                 scalars[p.device] = (f32(lr), bc1, torch.sqrt(bc2))
             lr_t, bc1, sqrt_bc2 = scalars[p.device]
+            old_ea, old_eas = ea, eas
             g32 = g.float()
             ea = ea + (1 - b1) * (g32 - ea)
             eas = eas + (1 - b2) * (torch.square(g32) - eas)
             denom = torch.sqrt(eas) / sqrt_bc2 + eps
             p32 = p.float()
             upd = p32 - lr_t * weight_decay * p32 - lr_t * (ea / bc1) / denom
-            new_p.append(upd.to(p.dtype))
-            new_ea.append(ea)
-            new_eas.append(eas)
+            new_p.append(_into(p, upd.to(p.dtype), donate))
+            new_ea.append(_into(old_ea, ea, donate))
+            new_eas.append(_into(old_eas, eas, donate))
         unflat = lambda leaves: tree_unflatten(treedef, leaves)
         return unflat(new_p), AdamWState(count, unflat(new_ea), unflat(new_eas))
 

@@ -26,7 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
-from .adamw import Optimizer
+from .adamw import Optimizer, _into
 from .state8bit import OptimState8bit
 
 
@@ -62,7 +62,7 @@ def schedule_free_adamw(betas: tuple[float, float] = (0.9, 0.999), eps: float = 
             exp_avg_sq=tree_map(zeros_eas, params),
         )
 
-    def step(grads, state: ScheduleFreeState, params, lr, key=None):
+    def step(grads, state: ScheduleFreeState, params, lr, key=None, donate: bool = False):
         del key  # deterministic
         count = state.count + 1
         t = count.float()
@@ -91,9 +91,16 @@ def schedule_free_adamw(betas: tuple[float, float] = (0.9, 0.999), eps: float = 
             p32 = p.float()
             grad_normalized = weight_decay * p32 + g32 / denom
             # p.lerp(z, ckp1) + gn * lr * (b1 * (1 - ckp1) - 1)
-            new_p.append((p32 + ckp1 * (z - p32) + grad_normalized * eff_lr * pull).to(p.dtype))
-            new_z.append(z - eff_lr * grad_normalized)
-            new_eas.append(eas.requantize(eas32) if _is8(eas) else eas32)
+            new_p.append(_into(p, (p32 + ckp1 * (z - p32) + grad_normalized * eff_lr * pull).to(p.dtype), donate))
+            new_z.append(_into(z, z - eff_lr * grad_normalized, donate))
+            if _is8(eas):
+                q = eas.requantize(eas32)
+                if donate:
+                    eas.codes.copy_(q.codes)
+                    eas.scale.copy_(q.scale)
+                new_eas.append(eas if donate else q)
+            else:
+                new_eas.append(_into(eas, eas32, donate))
         unflat = lambda leaves: tree_unflatten(treedef, leaves)
         return unflat(new_p), ScheduleFreeState(count, lr_max, weight_sum, unflat(new_z), unflat(new_eas))
 

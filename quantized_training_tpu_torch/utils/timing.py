@@ -9,17 +9,22 @@ import time
 
 import torch
 
+from ..ops import _build
+from .graphs import capture
+
 
 def time_ms(fn, inputs, iters: int = 32) -> float:
     """Device time of one ``fn(*inputs[i])`` call: ``iters`` calls cycling
     over ``inputs`` are captured in one CUDA graph, so host launch overhead
-    is left out; replayed after a warm-up and timed with CUDA events.
+    is left out (an SR kernel's key repeated at each replay, as a timing
+    loop means it: ``_build.repeated_keys``); replayed after a warm-up and
+    timed with CUDA events.
     ``inputs`` holds enough copies that large operands come from device
     memory rather than the 50 MB L2, as weights do on the serving path."""
     fn(*inputs[0])
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capture(graph), _build.repeated_keys():
         for i in range(iters):
             fn(*inputs[i % len(inputs)])
     graph.replay()

@@ -367,6 +367,30 @@ def test_fused_adamw_bit_exact(n, p_dtype, sr):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("p_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [7, 2048 * 3 + 5, 2048 * 256])
+def test_fused_adamw_in_place_bit_exact(n, p_dtype, sr):
+    """B6's in-place instantiation (``in_place``: a donated state) writes
+    the plain version's bits into p, ea and eas themselves, vector and
+    ragged tail alike, and an unaligned view in place too."""
+    if sr and p_dtype == torch.float32:
+        pytest.skip("the SR writeback is for bf16 parameters only")
+    p, g, ea, eas, scalars = _adamw_inputs(n, p_dtype, n)
+    ref = ops.fused_adamw_plain(p, g, ea, eas, scalars, 77, bf16_sr=sr)
+    ptrs = [t.data_ptr() for t in (p, ea, eas)]
+    got = ops.fused_adamw_update(p, g, ea, eas, scalars, 77, bf16_sr=sr, in_place=True)
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in got] == ptrs
+    for a, b in zip((p, ea, eas), ref):
+        assert torch.equal(a, b)
+    views = [t[1:] for t in _adamw_inputs(n + 1, p_dtype, 1)[:4]]
+    ref = ops.fused_adamw_plain(*views, scalars, 3, bf16_sr=sr)
+    ops.fused_adamw_update(*views, scalars, 3, bf16_sr=sr, in_place=True)
+    for a, b in zip((views[0], views[2], views[3]), ref):
+        assert torch.equal(a, b)
+
+
 def test_fused_adamw_unaligned_and_refusals():
     p, g, ea, eas, scalars = _adamw_inputs(4096 + 1, torch.bfloat16, 1)
     views = [t[1:] for t in (p, g, ea, eas)]
@@ -1865,3 +1889,155 @@ def test_sdpa_function_gives_f_sdpa_bits(B, H, KV, S, hd):
         torch.use_deterministic_algorithms(deterministic)
     assert torch.equal(out, ref)
     assert all(torch.equal(a, b) for a, b in zip(got_g, ref_g))
+
+
+# ---- CUDA graphs (utils/graphs.py): a captured call replays its eager bits ----
+
+
+def _replays_eager_bits(fn, refill) -> None:
+    """``fn()`` eagerly, then captured and replayed: the replay's outputs
+    equal the eager call's bit for bit, and again after ``refill`` writes
+    new inputs into the same buffers; each replay adds the eager call's
+    launch counts."""
+    from quantized_training_tpu_torch.utils import graphs
+
+    ops.reset_launch_counts()
+    eager = [t.clone() for t in fn()]
+    counts = ops.launch_counts()
+    captured = graphs.Captured(fn)
+    for i in range(2):
+        if i:
+            refill()
+            eager = [t.clone() for t in fn()]
+        ops.reset_launch_counts()
+        out = captured.replay()
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == counts
+        assert all(torch.equal(a, b) for a, b in zip(eager, out))
+    assert captured.replays == 2
+
+
+@pytest.mark.parametrize("form", ["b5", "b4_cluster", "k2_decode", "k2_sm90"])
+def test_graph_capture_replays_eager_bits(form):
+    """B5's cooperative column pass, B4's cluster form, and K2 on its
+    split-K decode stream (a cluster launch) and on sm90 (TMA tensor maps
+    encoded on the host at capture), each captured alone and replayed
+    against its eager bits."""
+    M, K, N = (8, 2048, 2048) if form == "k2_decode" else (8192, 2048, 2048)
+    x = _rand((M, K), torch.bfloat16, 0)
+    if form == "b5":
+        fn, counter = (lambda: ops.quantize_int8_both(x)), "quantize_int8_both"
+        refill = lambda: x.copy_(_rand((M, K), torch.bfloat16, 1))  # noqa: E731
+    elif form == "b4_cluster":
+        assert IQ.colwise_sm90_route(M, K, x.dtype)
+        fn, counter = (lambda: ops.quantize_int8_colwise(x)), "quantize_int8_colwise_sm90"
+        refill = lambda: x.copy_(_rand((M, K), torch.bfloat16, 1))  # noqa: E731
+    else:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        a = torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        b = torch.randint(-128, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+        sa, sb = torch.rand(M, 1, generator=g, device="cuda"), torch.rand(1, N, generator=g, device="cuda")
+        fn = lambda: (ops.scaled_mm_rhs_t(a, b, sa, sb),)  # noqa: E731
+        counter = "scaled_mm_rhs_t_decode" if form == "k2_decode" else "scaled_mm_rhs_t_sm90"
+        refill = lambda: a.copy_(torch.randint(-128, 128, (M, K), generator=g, device="cuda", dtype=torch.int8))  # noqa: E731
+    ops.reset_launch_counts()
+    fn()
+    assert ops.launch_counts()[counter] == 1
+    _replays_eager_bits(fn, refill)
+
+
+def test_graph_capture_refuses_sr_kernels():
+    """An SR kernel launched inside a capture raises (its key is a host
+    integer that every replay would repeat)."""
+    x = _rand((256, 2048), torch.bfloat16, 0)
+    ops.quantize_int8_rowwise(x, sr=True, key=3)  # built and warm
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(ValueError, match="jit_compile=False"):
+        with torch.cuda.graph(graph):
+            ops.quantize_int8_rowwise(x, sr=True, key=3)
+
+
+def _small_llama():
+    from quantized_training_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(vocab_size=2048, hidden_size=512, intermediate_size=1536, num_hidden_layers=2,
+                            num_attention_heads=8, num_key_value_heads=4, max_position_embeddings=512, remat=True)
+    raw = llama.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    return cfg, raw
+
+
+def test_graphed_train_step_gives_eager_bits(monkeypatch):
+    """A 2-layer Llama (hidden 512), int8 mixed_precision on the fused
+    layer, remat, tokens [2, 2, 256] (accumulation): the graphed step
+    (``jit_compile=True``, donating) and the eager one from the same weights,
+    3 steps in turns under deterministic algorithms: losses, grad norms and
+    the parameters after each step bit for bit; the same launches a step;
+    the graph captured once and replayed 3 times; the state first passed in
+    left intact."""
+    from quantized_training_tpu_torch import optim
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg, raw = _small_llama()
+    qparams = quant.quantize_params(raw, "mixed_precision")
+    before = [t.clone() for t in tree_leaves(qparams)]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 2, 256), generator=g, device="cuda")
+    lab = torch.roll(tok, -1, dims=-1)
+    opt = optim.adamw_bf16_sr(bf16_stochastic_rounding=False)
+    steps = {jit: train.make_train_step(cfg, opt, jit_compile=jit) for jit in (True, False)}
+    states = {jit: train.init_train_state(qparams, opt) for jit in steps}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(3):
+            got = {}
+            for jit, step in steps.items():
+                ops.reset_launch_counts()
+                states[jit], m = step(states[jit], tok, lab, 1e-3, 7 + i)
+                got[jit] = (m["loss"].item(), m["grad_norm"].item(), ops.launch_totals(),
+                            [t.clone() for t in tree_leaves(states[jit].params)])
+            assert got[True][:3] == got[False][:3]
+            assert all(torch.equal(a, b) for a, b in zip(got[True][3], got[False][3]))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (captured,) = steps[True].graphs.values()
+    assert captured.graph.replays == 3
+    assert all(torch.equal(a, b) for a, b in zip(before, tree_leaves(qparams)))
+
+
+def test_graphed_step_refuses_sr_on_the_card():
+    """``jit_compile=True`` on a CUDA state with an SR weight raises a
+    ValueError naming the reason; ``jit_compile=False`` runs it."""
+    from quantized_training_tpu_torch import optim
+
+    cfg, raw = _small_llama()
+    qparams = quant.quantize_params(raw, "mixed_precision", stochastic_rounding=True)
+    opt = optim.adamw_bf16_sr()
+    tok = torch.randint(0, cfg.vocab_size, (2, 256), device="cuda")
+    with pytest.raises(ValueError, match="stochastic rounding"):
+        train.make_train_step(cfg, opt)(train.init_train_state(qparams, opt), tok, tok, 1e-3, 1)
+    _, m = train.make_train_step(cfg, opt, jit_compile=False)(train.init_train_state(qparams, opt), tok, tok, 1e-3, 1)
+    assert torch.isfinite(m["loss"]).item()
+
+
+def test_graphed_decode_gives_eager_streams():
+    """The serving decode step captured as a graph per (window, chunk): a
+    server over a 2-layer Llama streams the eager server's tokens exactly,
+    and its decode graphs replayed."""
+    from quantized_training_tpu_torch.models.serving import Server
+
+    cfg, raw = _small_llama()
+    params = quant.quantize_params(raw, "mixed_precision")
+    g = torch.Generator().manual_seed(3)
+    reqs = [(torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist(), b)
+            for n, b in ((5, 9), (40, 17), (130, 4), (17, 33), (3, 20))]
+    results = {}
+    for jit in (True, False):
+        srv = Server(params, cfg, n_slots=2, max_len=512, decode_chunk=8, jit_compile=jit)
+        rids = [srv.add_request(p, b) for p, b in reqs]
+        while srv.pending():
+            srv.step()
+        results[jit] = [srv.result(r) for r in rids]
+        replays = sum(fn.captured.replays for fn in srv._decode_fns.values() if fn.captured is not None)
+        assert (replays > 0) == jit
+    assert results[True] == results[False]

@@ -260,9 +260,9 @@ def test_device_path_takes_the_kernel(monkeypatch):
         ops.fused_adamw_update(p, p, p, p, sc, 1, bf16_sr=True)
     seen = []
     monkeypatch.setattr(adamw_mod, "fused_adamw_update",
-                        lambda *args, bf16_sr: seen.append((args[5], bf16_sr)) or args[:3])
+                        lambda *args, bf16_sr, in_place: seen.append((args[5], bf16_sr, in_place)) or args[:3])
     opt = optim.adamw_bf16_sr()
     params = {"a": torch.empty(4, dtype=torch.bfloat16, device="meta"), "b": torch.empty(4, device="meta")}
     opt.step(params, opt.init(params), params, 1e-3, 42)
     # leaf 0 (bf16) rounds from fold_in(fold_in(key, 0), count); leaf 1 (fp32) to nearest
-    assert seen == [(ops.random.fold_in(ops.random.fold_in(42, 0), 1), True), (None, False)]
+    assert seen == [(ops.random.fold_in(ops.random.fold_in(42, 0), 1), True, False), (None, False, False)]
